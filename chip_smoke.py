@@ -1,0 +1,573 @@
+#!/usr/bin/env python3
+"""Quickest proof that the hvt_torch port runs on one NVIDIA GPU.
+
+    python3 chip_smoke.py              # needs one CUDA card; builds the kernels itself
+    python3 chip_smoke.py --profile    # also: per-kernel device time of one forward per route
+
+Phases, in order; any failure exits non-zero and prints no result:
+  1. the card's name and power limit (nvidia-smi);
+  2. build every kernel from hvt_torch/ops/csrc (one nvcc per source, in parallel);
+  3. each kernel against its plain PyTorch version on the card, in bf16, at
+     every SwinV2-T block shape at batch 64 (each stage unshifted and, where
+     the map holds more than one window, shifted);
+  4. the main path, once per route (model.args.fuse false, then true): an
+     InferenceEngine serving SwinV2-T at 224 px (10,000 classes, batch 64,
+     seeded random weights) answers HTTP requests on 127.0.0.1; each kernel
+     of the route must launch 12 times per forward, and the logits on the
+     kernel path must match the same model's plain path on the card;
+  5. times: each kernel, its plain version and a library call where one
+     computes the same function, at batch 64; images/s per route.
+
+Comparisons run with TF32 off (cuDNN and matmul), so the f32 parts of the
+plain path (patch-embed conv, head) are true f32. The kernel table goes on a
+line before the card's name; the last line is {"ok": true, "device": {...}}.
+The full report lands in chiprun_out/chip_smoke.json.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import http.client as http_client
+import json
+import math
+import pathlib
+import subprocess
+import sys
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+ROOT = pathlib.Path(__file__).resolve().parent
+OUT_DIR = ROOT / "chiprun_out"
+H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
+H100_BYTES_PER_S = 3.35e12  # HBM3
+# SwinV2-T at 224 px: (grid, channels, heads, blocks) per stage
+STAGES = ((56, 96, 3, 2), (28, 192, 6, 2), (14, 384, 12, 6), (7, 768, 24, 2))
+WINDOW = 7
+CLASSES = 10_000  # iNat21 species
+BATCH = 64  # the engine's batch shape on the main path and in phases 3 and 5
+REQUESTS = 8  # single requests served on each route before the timed burst
+KERNELS = {  # name: (source, TPU kernel it replaces, route of the main path)
+    "window_attention_packed_fwd": ("hvt_torch/ops/csrc/window_attention.cu",
+                                    "hvt/ops/window_attention_pallas.py:473", False),
+    "mlp_half_fwd": ("hvt_torch/ops/csrc/fused_halves.cu",
+                     "hvt/ops/fused_halves_pallas.py:338", True),
+    "attention_half_nhwc_fwd": ("hvt_torch/ops/csrc/fused_halves.cu",
+                                "hvt/ops/fused_halves_pallas.py:1330", True),
+}
+# max|kernel - plain| ≤ TOL·max|plain|: both sides share the arithmetic
+# contract (bf16 operands, f32 accumulation, f32 softmax/LayerNorm) and
+# differ only in summation order and the odd bf16 rounding flip of an
+# operand or output.
+TOL = {"window_attention_packed_fwd": 1e-2, "mlp_half_fwd": 2e-2,
+       "attention_half_nhwc_fwd": 2e-2}
+# Whole-model logits, kernel path vs plain path: 24 block halves, each
+# within its kernel's tolerance, feed one bf16 residual stream.
+LOGIT_TOL = 5e-2
+TOP1_MARGIN = 1e-2
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_counters():
+    from hvt_torch.ops import fused_halves_cuda as fh
+    from hvt_torch.ops import window_attention_cuda as wac
+
+    return {"window_attention_packed_fwd": wac.KERNEL, "mlp_half_fwd": fh.MLP_KERNEL,
+            "attention_half_nhwc_fwd": fh.ATTN_KERNEL}
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """The model's kernel wrappers swapped for their plain versions: the
+    reference the kernel path is held against. Only this script does this."""
+    from hvt_torch.ops import fused_halves_cuda as fh
+    from hvt_torch.ops import window_attention_cuda as wac
+
+    saved = wac.window_attention_packed, fh.mlp_half, fh.attention_half_nhwc
+    wac.window_attention_packed = wac.window_attention_packed_plain
+    fh.mlp_half, fh.attention_half_nhwc = fh.mlp_half_plain, fh.attention_half_nhwc_plain
+    try:
+        yield
+    finally:
+        wac.window_attention_packed, fh.mlp_half, fh.attention_half_nhwc = saved
+
+
+# ---------------------------------------------------------------------------
+# Phases 3 and 5: kernels against their plain versions at SwinV2-T stage shapes
+# ---------------------------------------------------------------------------
+
+
+def stage_inputs(stage: int, shift: int, seed: int):
+    """Seeded random inputs of one stage's block at batch BATCH: every
+    parameter drawn (res-post-norm scales around 1, not the zero init)."""
+    import numpy as np
+    import torch
+
+    from hvt_torch.ops import window_attention as wa
+
+    grid, c, heads, _ = STAGES[stage]
+    n = WINDOW * WINDOW
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev).to(dtype)
+
+    p = {
+        "x": t(rng.normal(size=(BATCH, grid, grid, c)), torch.bfloat16),
+        "wqkv": t(rng.normal(size=(3 * c, c)) * c ** -0.5),
+        "bqkv": t(np.concatenate([rng.normal(size=c) * 0.1, np.zeros(c), rng.normal(size=c) * 0.1])),
+        "logit_scale": t(np.log(10.0) + rng.normal(size=(heads, 1, 1)) * 0.3),
+        "bias": t(16.0 / (1.0 + np.exp(-rng.normal(size=(heads, n, n))))),
+        "mask": t(wa.shift_attn_mask((grid, grid), WINDOW, shift)) if shift else None,
+        "wproj": t(rng.normal(size=(c, c)) * c ** -0.5),
+        "bproj": t(rng.normal(size=c) * 0.1),
+        "w1": t(rng.normal(size=(4 * c, c)) * c ** -0.5),
+        "b1": t(rng.normal(size=4 * c) * 0.1),
+        "w2": t(rng.normal(size=(c, 4 * c)) * (4 * c) ** -0.5),
+        "b2": t(rng.normal(size=c) * 0.1),
+        "lns": t(1.0 + rng.normal(size=c) * 0.1),
+        "lnb": t(rng.normal(size=c) * 0.1),
+        "dp": t(np.ones(BATCH)),
+    }
+    p["grid"], p["c"], p["heads"], p["shift"] = grid, c, heads, shift
+    return p
+
+
+def kernel_cases(p):
+    """(name, kernel call, plain call, library call or None, bytes moved,
+    operations) for one stage's inputs, with the arguments the model's
+    block passes at that stage."""
+    import torch
+    import torch.nn.functional as F
+
+    from hvt_torch.ops import fused_halves_cuda as fh
+    from hvt_torch.ops import window_attention as wa
+    from hvt_torch.ops import window_attention_cuda as wac
+
+    x, c, heads, grid, shift = p["x"], p["c"], p["heads"], p["grid"], p["shift"]
+    b = x.shape[0]
+    n = WINDOW * WINDOW
+    d = c // heads
+    tokens = b * grid * grid
+    nwb = tokens // n
+    mask = p["mask"]
+    xw = wa.window_partition(torch.roll(x, (-shift, -shift), (1, 2)) if shift else x, WINDOW)
+    qkv = fh.bf16_linear(xw, p["wqkv"], p["bqkv"]).to(torch.bfloat16).contiguous()
+    z = wac.merge_bias_mask(p["bias"], mask)
+    scale = wac.attention_scale(p["logit_scale"])
+    nwz = z.shape[0]
+
+    # The library yardstick for kernel 1: one F.scaled_dot_product_attention
+    # call on q̂·scale, k̂ and v with z as a float mask. Only the call is timed:
+    # the normalisation and the mask's broadcast are made here, beforehand.
+    q, k, v = qkv.float().reshape(nwb, n, 3, heads, d).permute(2, 0, 3, 1, 4)
+    q = (q * torch.rsqrt((q * q).sum(-1, keepdim=True) + 1e-24) * scale.reshape(1, heads, 1, 1))
+    k = k * torch.rsqrt((k * k).sum(-1, keepdim=True) + 1e-24)
+    q, k, v = (t.bfloat16().contiguous() for t in (q, k, v))
+    zb = z.expand(nwb // nwz, -1, -1, -1, -1).reshape(nwb, heads, n, n).bfloat16()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=zb, scale=1.0)
+
+    attn_args = (p["wqkv"], p["bqkv"], p["logit_scale"], p["bias"], mask, p["wproj"],
+                 p["bproj"], p["lns"], p["lnb"], WINDOW, heads)
+    mlp_args = (p["w1"], p["b1"], p["w2"], p["b2"], p["lns"], p["lnb"])
+    xt = x.reshape(tokens, c)
+    io_bytes = 2 * 2 * tokens * c  # bf16 map read once, written once
+    z_bytes = 4 * z.numel()
+    return [
+        ("window_attention_packed_fwd",
+         lambda: wac.window_attention_packed(qkv, p["logit_scale"], p["bias"], mask, num_heads=heads),
+         lambda: wac.window_attention_packed_plain(qkv, p["logit_scale"], p["bias"], mask, num_heads=heads),
+         sdpa, 2 * qkv.numel() + 2 * tokens * c + z_bytes, 4 * tokens * n * c),
+        ("mlp_half_fwd",
+         lambda: fh.mlp_half(xt, *mlp_args, tpi=grid * grid, dp=p["dp"]),
+         lambda: fh.mlp_half_plain(xt, *mlp_args, tpi=grid * grid, dp=p["dp"]),
+         None, io_bytes + 2 * 8 * c * c, 16 * tokens * c * c),
+        ("attention_half_nhwc_fwd",
+         lambda: fh.attention_half_nhwc(x, *attn_args, dp=p["dp"], shift=shift),
+         lambda: fh.attention_half_nhwc_plain(x, *attn_args, dp=p["dp"], shift=shift),
+         None, io_bytes + 2 * 4 * c * c + z_bytes, 8 * tokens * c * c + 4 * tokens * n * c),
+    ]
+
+
+def block_shapes():
+    """(stage, shift, blocks of one forward) of every SwinV2-T block shape:
+    a stage's blocks alternate unshifted and shifted by window // 2, and the
+    7 x 7 stage is one global window, never shifted."""
+    for stage, (grid, _, _, blocks) in enumerate(STAGES):
+        if grid > WINDOW:
+            yield stage, 0, blocks // 2
+            yield stage, WINDOW // 2, blocks // 2
+        else:
+            yield stage, 0, blocks
+
+
+def kernel_records(timing: bool) -> dict:
+    """Every kernel against its plain version at each block shape (phase 3),
+    or timed (phase 5). Per kernel, the numbers of one SwinV2-T forward: the
+    block shapes' launches (12 in all) summed."""
+    import torch
+
+    records = {name: {"max_abs_err": 0.0, "bytes": 0, "flops": 0, "stages": []} for name in KERNELS}
+    for stage, shift, blocks in block_shapes():
+        c = STAGES[stage][1]
+        p = stage_inputs(stage, shift, seed=100 + 10 * stage + shift)
+        for name, kern, plain, library, nbytes, flops in kernel_cases(p):
+            rec = records[name]
+            st = {"stage": stage + 1, "shift": shift, "launches_per_forward": blocks,
+                  "bytes": nbytes, "flops": flops}
+            rec["bytes"] += blocks * nbytes
+            rec["flops"] += blocks * flops
+            if timing:
+                st["ms"] = cuda_time_ms(kern)
+                st["plain_ms"] = cuda_time_ms(plain, iters=5)
+                st["library_ms"] = None if library is None else cuda_time_ms(library, iters=5)
+            else:
+                got = kern().float()
+                torch.cuda.synchronize()
+                ref = plain().float()
+                err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+                ok = bool(torch.isfinite(got).all()) and err <= TOL[name] * scale
+                log(f"  {name:27s} stage {stage + 1} C={c:3d} shift={shift}: max|kernel-plain| "
+                    f"{err:.4g} (tol {TOL[name]}·max|plain| = {TOL[name] * scale:.4g}) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{name} disagrees with its plain version at "
+                                         f"stage {stage + 1}, shift {shift}")
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                st["max_abs_err"] = err
+            rec["stages"].append(st)
+        del p
+        torch.cuda.empty_cache()
+    for rec in records.values():
+        t_bytes = rec["bytes"] / H100_BYTES_PER_S * 1e3
+        t_ops = rec["flops"] / H100_BF16_FLOPS * 1e3
+        rec["bound_ms"], rec["bound_by"] = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+        if timing:
+            per_fwd = lambda key: sum(s["launches_per_forward"] * s[key] for s in rec["stages"])  # noqa: E731
+            rec["ms"], rec["plain_ms"] = per_fwd("ms"), per_fwd("plain_ms")
+            rec["library_ms"] = None if rec["stages"][0]["library_ms"] is None else per_fwd("library_ms")
+    return records
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the main path, one InferenceEngine per route
+# ---------------------------------------------------------------------------
+
+
+def serving_config(fuse: bool):
+    """configs/pretrain/swinv2_tiny.yaml, the synthetic eval source at
+    10,000 classes, and the route."""
+    from hvt_torch import config as config_lib
+
+    base = config_lib.load(machine=str(ROOT / "configs/machines/local.yaml"),
+                           exps=[str(ROOT / "configs/pretrain/swinv2_tiny.yaml")])
+    return config_lib.loads(config_lib.to_dict(base), {
+        "model": {"args": {"fuse": fuse}},
+        "eval_dataset": {"source": "synthetic", "synthetic_num_classes": CLASSES,
+                         "synthetic_num_samples": BATCH, "global_batch_size": BATCH},
+    })
+
+
+def randomize_(model, seed: int) -> None:
+    """Draw every parameter from a seeded generator at a scale that keeps
+    activations O(1): LayerNorm scales around 1 (the zero-initialised
+    res-post-norm would make every block the identity), logit scales around
+    log 10, weights N(0, 1/fan_in), biases N(0, 0.01)."""
+    import torch
+    import torch.nn as nn
+
+    from hvt_torch.models.swinv2 import WindowAttention
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def normal(p, mean=0.0, std=1.0):
+        p.copy_(mean + std * torch.randn(p.shape, generator=gen))
+
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, nn.LayerNorm):
+                normal(module.weight, 1.0, 0.1)
+                normal(module.bias, 0.0, 0.1)
+            elif isinstance(module, (nn.Linear, nn.Conv2d)):
+                normal(module.weight, 0.0, module.weight[0].numel() ** -0.5)
+                if module.bias is not None:
+                    normal(module.bias, 0.0, 0.1)
+            elif isinstance(module, WindowAttention):
+                normal(module.q_bias, 0.0, 0.1)
+                normal(module.v_bias, 0.0, 0.1)
+                normal(module.logit_scale, math.log(10.0), 0.3)
+
+
+def ppm(seed: int, size: int = 256) -> bytes:
+    import numpy as np
+
+    pixels = np.random.default_rng(seed).integers(0, 256, size=(size, size, 3), dtype=np.uint8)
+    return b"P6\n%d %d\n255\n" % (size, size) + pixels.tobytes()
+
+
+def http(port: int, method: str, path: str, body: bytes | None = None) -> tuple[int, dict]:
+    """One request on its own connection (http.client: urllib's first burst
+    in a process pays a one-time stall of about a second per thread)."""
+    conn = http_client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request(method, path, body=body)
+        reply = conn.getresponse()
+        return reply.status, json.loads(reply.read())
+    finally:
+        conn.close()
+
+
+def get(port: int, path: str) -> dict:
+    code, payload = http(port, "GET", path)
+    if code != 200:
+        raise AssertionError(f"GET {path}: {code} {payload}")
+    return payload
+
+
+def check_record(code: int, rec: dict, k: int) -> None:
+    if code != 200 or len(rec.get("class_ids", ())) != k:
+        raise AssertionError(f"bad reply {code}: {rec}")
+    if not all(0 <= i < CLASSES for i in rec["class_ids"]) or rec["probs"] != sorted(rec["probs"], reverse=True):
+        raise AssertionError(f"bad top-k record: {rec}")
+
+
+def serve_route(fuse: bool) -> dict:
+    """Drive the main path of one route through the entry points a user
+    calls: InferenceEngine + make_server, HTTP requests, with every launch
+    counter set to 0 just before and read just after."""
+    import numpy as np
+    import torch
+
+    from hvt_torch.data import DevicePrep
+    from hvt_torch.downstream import serve as serve_lib
+
+    counters = kernel_counters()
+    route_kernels = [k for k, (_, _, f) in KERNELS.items() if f == fuse]
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    engine = serve_lib.InferenceEngine(serving_config(fuse), batch=BATCH, topk=5)
+    setup_s = time.perf_counter() - t0
+    randomize_(engine.model, seed=7)
+    server = serve_lib.make_server(engine, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+    try:
+        with ThreadPoolExecutor(REQUESTS) as pool:
+            replies = list(pool.map(lambda i: http(port, "POST", "/predict?topk=5", ppm(i)),
+                                    range(REQUESTS)))
+        for code, rec in replies:
+            check_record(code, rec, 5)
+        burst = 2 * BATCH  # 32 closed-loop clients: served images/s and latency over HTTP
+        bodies = [ppm(1000 + i) for i in range(burst)]
+
+        def timed_post(body):
+            t = time.perf_counter()
+            reply = http(port, "POST", "/predict", body)
+            return reply, time.perf_counter() - t
+
+        with ThreadPoolExecutor(32) as pool:
+            t0 = time.perf_counter()
+            timed = list(pool.map(timed_post, bodies))
+            http_s = time.perf_counter() - t0
+        for (code, rec), _ in timed:
+            check_record(code, rec, 5)
+        latency_ms = sorted(1e3 * dt for _, dt in timed)
+        health, stats = get(port, "/healthz"), get(port, "/stats")
+    finally:
+        server.shutdown()
+        server.server_close()
+    launches = {name: c.launches for name, c in counters.items()}
+    forwards = 1 + stats["dispatches"]  # the engine's warm-up forward, then one per dispatch
+    log(f"  fuse={fuse}: {REQUESTS} + {burst} requests answered 200 with top-5 records; "
+        f"{stats['dispatches']} dispatches, mean rows {stats['mean_rows_per_dispatch']}; "
+        f"launches {launches} over {forwards} forwards")
+    if health["classes"] != CLASSES or stats["requests"] != REQUESTS + burst or stats["errors"]:
+        raise AssertionError(f"healthz {health} / stats {stats}")
+    for name, n in launches.items():
+        want = 12 * forwards if name in route_kernels else 0
+        if n != want:
+            raise AssertionError(f"{name}: {n} launches on the fuse={fuse} route, expected {want}")
+
+    # the whole model, kernel path against plain path, on the same weights and batch
+    images = np.random.default_rng(11).integers(0, 256, size=(BATCH, 224, 224, 3), dtype=np.uint8)
+    norm = DevicePrep.from_config(engine.config.eval_dataset, engine.config.precision)
+    with torch.inference_mode():
+        x = norm.normalize(torch.from_numpy(images).cuda())
+        got = engine.model(x).float()
+        with plain_versions():
+            ref = engine.model(x).float()
+        torch.cuda.synchronize()
+        err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        top2 = ref.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > TOP1_MARGIN
+        same = got.argmax(-1) == ref.argmax(-1)
+        agree = int((same & decided).sum())
+        log(f"  fuse={fuse}: logits kernel vs plain path max|Δ| {err:.4g} "
+            f"(tol {LOGIT_TOL}·max|plain| = {LOGIT_TOL * scale:.4g}); top-1 equal on "
+            f"{agree}/{int(decided.sum())} rows with top-2 margin > {TOP1_MARGIN} "
+            f"({int(same.sum())}/{BATCH} overall)")
+        if not (bool(torch.isfinite(got).all()) and err <= LOGIT_TOL * scale
+                and agree == int(decided.sum())):
+            raise AssertionError(f"fuse={fuse}: kernel-path logits disagree with the plain path")
+
+        # phase 5 for the route: forward time on the card and images/s through the engine
+        fwd_ms = cuda_time_ms(lambda: engine.model(x), iters=10)
+        with plain_versions():
+            fwd_plain_ms = cuda_time_ms(lambda: engine.model(x), iters=5, warmup=1)
+    for _ in range(2):
+        engine._step(images)
+    t0 = time.perf_counter()
+    steps = 10
+    for _ in range(steps):
+        engine._step(images)  # returns host numpy: ends in a synchronize
+    step_s = (time.perf_counter() - t0) / steps
+    engine.close()
+    del engine
+    torch.cuda.empty_cache()
+    return {
+        "fuse": fuse, "launches": launches, "forwards": forwards, "requests": REQUESTS + burst,
+        "dispatches": stats["dispatches"], "engine_setup_s": setup_s,
+        "http_images_per_s": burst / http_s, "http_clients": 32,
+        "http_latency_ms_p50": latency_ms[len(latency_ms) // 2],
+        "http_latency_ms_p90": latency_ms[int(0.9 * len(latency_ms))],
+        "step_images_per_s": BATCH / step_s,
+        "forward_ms": fwd_ms, "forward_plain_ms": fwd_plain_ms,
+        "logits_max_abs_err": err, "logits_max_abs": scale,
+        "top1_equal": int(same.sum()), "top1_decided": int(decided.sum()),
+    }
+
+
+def profile_route(fuse: bool) -> list:
+    """Device time by kernel name over 3 forwards of the route (--profile)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hvt_torch.downstream import serve as serve_lib
+
+    engine = serve_lib.InferenceEngine(serving_config(fuse), batch=BATCH, topk=5)
+    randomize_(engine.model, seed=7)
+    x = torch.randn(BATCH, 224, 224, 3, device="cuda").bfloat16()
+    with torch.inference_mode():
+        engine.model(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                engine.model(x)
+            torch.cuda.synchronize()
+    engine.close()
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append({"name": e.key[:90], "calls": e.count // 3, "ms_per_forward": dev_us / 3e3})
+    rows.sort(key=lambda r: -r["ms_per_forward"])
+    return rows
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="also trace one forward per route with torch.profiler")
+    args = parser.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
+        return 2
+    try:
+        from hvt_torch.ops import _build
+    except ImportError as e:
+        print(f"chip_smoke: the hvt_torch package is missing ({e}); run from a checkout "
+              "of the repository", file=sys.stderr)
+        return 2
+    OUT_DIR.mkdir(exist_ok=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import PIL
+    import yaml
+
+    card = card_line()
+    log(f"[1] card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
+        f"Pillow {PIL.__version__}, PyYAML {yaml.__version__}")
+
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    log(f"[2] built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
+    (OUT_DIR / "ptxas.txt").write_text("\n".join(f"== {k}\n{v}" for k, v in logs.items()))
+
+    log(f"[3] kernels vs plain versions, bf16, batch {BATCH}")
+    checked = kernel_records(timing=False)
+
+    log(f"[4] serving SwinV2-T at 224 px, {CLASSES} classes, batch {BATCH}")
+    routes = [serve_route(fuse) for fuse in (False, True)]
+
+    log(f"[5] times at batch {BATCH} on {card} (CUDA events; per SwinV2-T forward)")
+    timed = kernel_records(timing=True)
+    kernels = []
+    for name, (source, replaces, fuse) in KERNELS.items():
+        rec = timed[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": routes[int(fuse)]["launches"][name],
+            "max_abs_err": checked[name]["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+        })
+        log(f"  {name}: {rec['ms']:.4f} ms kernel, {rec['plain_ms']:.4f} ms plain, "
+            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), library {rec['library_ms']}")
+    for r in routes:
+        log(f"  fuse={r['fuse']}: forward {r['forward_ms']:.3f} ms on kernels, "
+            f"{r['forward_plain_ms']:.3f} ms on plain versions; engine step "
+            f"{r['step_images_per_s']:.1f} img/s; HTTP {r['http_images_per_s']:.1f} img/s, "
+            f"latency p50 {r['http_latency_ms_p50']:.1f} ms p90 {r['http_latency_ms_p90']:.1f} ms")
+    report = {"card": card, "batch": BATCH, "kernels": kernels, "routes": routes,
+              "kernel_stages": {k: {"check": checked[k]["stages"], "timed": timed[k]["stages"]}
+                                for k in KERNELS}}
+    if args.profile:
+        report["profile"] = {f"fuse={f}": profile_route(f) for f in (False, True)}
+        for route, rows in report["profile"].items():
+            log(f"  profile {route}: " + "; ".join(
+                f"{r['name'][:40]} {r['ms_per_forward']:.3f} ms x{r['calls']}" for r in rows[:8]))
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

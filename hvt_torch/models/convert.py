@@ -1,0 +1,89 @@
+"""Weights carried across: hvt's flax SwinV2 parameter tree → the port's model.
+
+The one place where the two layouts differ. A flax ``Dense`` kernel is
+(in, out) and an ``nn.Linear`` weight (out, in); a flax ``Conv`` kernel is
+HWIO and ``nn.Conv2d``'s OIHW; a flax ``LayerNorm`` has ``scale`` where
+PyTorch has ``weight``; WindowAttention's raw params (``qkv_kernel``,
+``cpb_w1``/``cpb_b1``/``cpb_w2``) map onto the port's ``qkv`` and ``cpb_fc*``
+Linears. The same tree serves both routes (``fuse`` false or true): hvt's
+fused path materialises the identical tree.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+
+def _dense(sub, prefix: str, out: dict) -> None:
+    out[f"{prefix}.weight"] = np.asarray(sub["kernel"]).T
+    if "bias" in sub:
+        out[f"{prefix}.bias"] = np.asarray(sub["bias"])
+
+
+def _norm(sub, prefix: str, out: dict) -> None:
+    out[f"{prefix}.weight"] = np.asarray(sub["scale"])
+    out[f"{prefix}.bias"] = np.asarray(sub["bias"])
+
+
+def _block(sub, prefix: str, out: dict) -> None:
+    attn = sub["attn"]
+    a = f"{prefix}.attn"
+    out[f"{a}.qkv.weight"] = np.asarray(attn["qkv_kernel"]).T
+    for name in ("q_bias", "v_bias", "logit_scale"):
+        out[f"{a}.{name}"] = np.asarray(attn[name])
+    out[f"{a}.cpb_fc1.weight"] = np.asarray(attn["cpb_w1"]).T
+    out[f"{a}.cpb_fc1.bias"] = np.asarray(attn["cpb_b1"])
+    out[f"{a}.cpb_fc2.weight"] = np.asarray(attn["cpb_w2"]).T
+    _dense(attn["proj"], f"{a}.proj", out)
+    _norm(sub["norm1"], f"{prefix}.norm1", out)
+    _dense(sub["mlp"]["fc1"], f"{prefix}.mlp.fc1", out)
+    _dense(sub["mlp"]["fc2"], f"{prefix}.mlp.fc2", out)
+    _norm(sub["norm2"], f"{prefix}.norm2", out)
+
+
+def swin_state_dict_from_flax(tree: Mapping) -> dict[str, np.ndarray]:
+    """Flax SwinTransformerV2 params (nested mappings of arrays, with or
+    without the top ``params`` level) → the port's state-dict entries."""
+    if "params" in tree:
+        tree = tree["params"]
+    out: dict[str, np.ndarray] = {}
+    for key, sub in tree.items():
+        if key == "patch_embed":
+            out["patch_embed.weight"] = np.asarray(sub["kernel"]).transpose(3, 2, 0, 1)
+            out["patch_embed.bias"] = np.asarray(sub["bias"])
+        elif key in ("patch_norm", "norm"):
+            _norm(sub, key, out)
+        elif key.endswith("_merge"):
+            _dense(sub["reduction"], f"{key}.reduction", out)
+            _norm(sub["norm"], f"{key}.norm", out)
+        elif key.startswith("stage") and "_block" in key:
+            _block(sub, key, out)
+        elif key == "head":
+            if "kernel" in sub:
+                _dense(sub, "head", out)
+            else:
+                for tier, tsub in sub.items():
+                    _dense(tsub, f"head.{tier}", out)
+        else:
+            raise KeyError(f"flax parameter {key!r} has no counterpart in the port")
+    return out
+
+
+def swin_params_from_flax(model: torch.nn.Module, tree: Mapping) -> torch.nn.Module:
+    """Load a flax SwinV2 parameter tree into the port's ``SwinTransformerV2``
+    (every parameter must match in name and shape). Returns the model."""
+    state = swin_state_dict_from_flax(tree)
+    ref = model.state_dict()
+    tensors = {}
+    for name, arr in state.items():
+        if name not in ref:
+            raise KeyError(f"{name} is not a parameter of the port's model")
+        t = torch.as_tensor(np.ascontiguousarray(arr, dtype=np.float32))
+        if tuple(t.shape) != tuple(ref[name].shape):
+            raise ValueError(f"{name}: flax shape {tuple(t.shape)} vs port {tuple(ref[name].shape)}")
+        tensors[name] = t
+    model.load_state_dict(tensors, strict=True)
+    return model

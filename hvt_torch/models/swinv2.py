@@ -1,0 +1,349 @@
+"""SwinV2 in PyTorch — port of ``hvt/models/swinv2.py``, eval forward.
+
+Same architecture, layouts and parameter tree as hvt (NHWC token grids,
+cosine attention with the logit scale clamped at log 100, the continuous
+relative position bias MLP, q/v-only qkv bias, cyclic shifts with additive
+masks, res-post-norm, patch merging (0,0),(1,0),(0,1),(1,1), a Dense or
+multitask head). Module names mirror the flax ones (``stage{s}_block{i}``,
+``stage{s}_merge``, ``patch_embed``, ...); weights are in PyTorch's own
+layouts, and :mod:`hvt_torch.models.convert` maps a flax tree onto them.
+
+Compute dtype: parameters stay f32; activations run in ``dtype`` (bf16 by
+default); the head runs in f32. Two routes, as in hvt:
+
+* ``fuse=False``: each block's attention goes through
+  ``window_attention_packed`` (kernel 1) on the packed qkv projection; the
+  projections, LayerNorms, MLP and residuals are plain PyTorch.
+* ``fuse=True``: each block is two fused kernels, ``attention_half_nhwc``
+  (kernel 3, with the cyclic shift folded into its gather) and ``mlp_half``
+  (kernel 2), each returning x + branch.
+
+On CPU tensors every kernel call runs its plain version. Eval only: a module
+in training mode raises (training and stochastic depth are a later slice).
+hvt's TPU routing knobs (``use_pallas``, ``fallback_xla``,
+``fuse_attn_train``, ``fuse_mlp_chunked``, ``fuse_nhwc``, ``fuse_resid``)
+are accepted and change nothing here: their VMEM gating has no counterpart on
+this card, and every fused block takes the NHWC attention kernel with the
+residual fused (s = 1 in eval).
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Sequence, Union
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from hvt_torch.models.heads import MultitaskHead
+from hvt_torch.ops import fused_halves_cuda as fh
+from hvt_torch.ops import window_attention as wa
+from hvt_torch.ops import window_attention_cuda as wac
+
+_TRAINING = (
+    "hvt_torch runs the SwinV2 forward in eval mode only; training (drop path, the "
+    "backward kernels) is a later slice of the port (ROADMAP.md, queue 1). Call .eval()."
+)
+
+
+def _trunc02_(w: torch.Tensor, gen: torch.Generator) -> None:
+    nn.init.trunc_normal_(w, std=0.02, a=-0.04, b=0.04, generator=gen)
+
+
+@functools.lru_cache(maxsize=None)
+def _geometry(window: int, pretrained_window: int, device: str):
+    coords = torch.as_tensor(wa.relative_coords_table(window, pretrained_window), device=device)
+    index = torch.as_tensor(wa.relative_position_index(window), device=device)
+    return coords, index
+
+
+@functools.lru_cache(maxsize=None)
+def _shift_mask(h: int, w: int, window: int, shift: int, device: str) -> torch.Tensor:
+    return torch.as_tensor(wa.shift_attn_mask((h, w), window, shift), device=device)
+
+
+def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """flax LayerNorm(dtype=d): statistics in f32, output in x's dtype."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps).to(x.dtype)
+
+
+def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """flax Dense(dtype=d): input, kernel and bias cast to x's dtype."""
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    return F.linear(x, layer.weight.to(x.dtype), bias)
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+    def forward(self, x):
+        return _linear(self.fc2, F.gelu(_linear(self.fc1, x)))
+
+
+class WindowAttention(nn.Module):
+    """Parameters of hvt's WindowAttention: qkv (3C, C) without bias, q_bias and
+    v_bias, logit_scale (H, 1, 1), the cpb MLP (2 → 512 → H) and proj."""
+
+    def __init__(self, dim: int, num_heads: int, pretrained_window: int = 0):
+        super().__init__()
+        self.num_heads = num_heads
+        self.pretrained_window = pretrained_window
+        self.qkv = nn.Linear(dim, 3 * dim, bias=False)
+        self.q_bias = nn.Parameter(torch.zeros(dim))
+        self.v_bias = nn.Parameter(torch.zeros(dim))
+        self.logit_scale = nn.Parameter(torch.full((num_heads, 1, 1), math.log(10.0)))
+        self.cpb_fc1 = nn.Linear(2, 512)
+        self.cpb_fc2 = nn.Linear(512, num_heads, bias=False)
+        self.proj = nn.Linear(dim, dim)
+
+    def qkv_bias(self) -> torch.Tensor:
+        return torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
+
+    def rel_bias(self, window: int) -> torch.Tensor:
+        """(heads, w², w²) f32 continuous position bias for the block's window."""
+        coords, index = _geometry(window, self.pretrained_window, str(self.q_bias.device))
+        return wa.cpb_bias(self.cpb_fc1.weight, self.cpb_fc1.bias, self.cpb_fc2.weight, coords,
+                           index, self.num_heads)
+
+    def forward(self, x, window: int, mask=None):
+        """x (nW·B, N, C) → (nW·B, N, C); mask (nW, N, N) or None."""
+        qkv = F.linear(x, self.qkv.weight.to(x.dtype)) + self.qkv_bias().to(x.dtype)
+        out = wac.window_attention_packed(qkv, self.logit_scale, self.rel_bias(window), mask,
+                                          num_heads=self.num_heads)
+        return _linear(self.proj, out)
+
+
+class SwinBlock(nn.Module):
+    def __init__(self, dim: int, num_heads: int, window: int, shift: int,
+                 mlp_ratio: float = 4.0, pretrained_window: int = 0, fuse: bool = False):
+        super().__init__()
+        self.dim, self.num_heads, self.window, self.shift = dim, num_heads, window, shift
+        self.fuse = fuse
+        self.attn = WindowAttention(dim, num_heads, pretrained_window)
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+
+    def forward(self, x):
+        """x: (B, H, W, C) token grid."""
+        b, h, w, c = x.shape
+        window, shift = self.window, self.shift
+        if min(h, w) <= window:  # window covers the map: global attention, no shift
+            window, shift = min(h, w), 0
+        mask = _shift_mask(h, w, window, shift, str(x.device)) if shift else None
+        if self.fuse and h % window == 0 and w % window == 0:
+            return self._fused(x, window, shift, mask)
+
+        shortcut = x
+        xs = torch.roll(x, (-shift, -shift), (1, 2)) if shift else x
+        y = self.attn(wa.window_partition(xs, window), window, mask)
+        y = wa.window_reverse(y, window, h, w)
+        if shift:
+            y = torch.roll(y, (shift, shift), (1, 2))
+        x = shortcut + _layer_norm(self.norm1, y)
+        return x + _layer_norm(self.norm2, self.mlp(x))
+
+    def _fused(self, x, window: int, shift: int, mask):
+        """Both halves as fused kernels, each returning x + s·branch (s = 1)."""
+        b, h, w, c = x.shape
+        attn, mlp = self.attn, self.mlp
+        s = torch.ones(b, dtype=torch.float32, device=x.device)
+        x = fh.attention_half_nhwc(
+            x, attn.qkv.weight, attn.qkv_bias(), attn.logit_scale, attn.rel_bias(window), mask,
+            attn.proj.weight, attn.proj.bias, self.norm1.weight, self.norm1.bias, window,
+            self.num_heads, dp=s, shift=shift,
+        )
+        out = fh.mlp_half(
+            x.reshape(b * h * w, c), mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight, mlp.fc2.bias,
+            self.norm2.weight, self.norm2.bias, tpi=h * w, dp=s,
+        )
+        return out.reshape(b, h, w, c)
+
+
+class PatchMerging(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+        self.norm = nn.LayerNorm(2 * dim, eps=1e-5)
+
+    def forward(self, x):
+        """(B, H, W, C) → (B, H/2, W/2, 2C); concat order (0,0), (1,0), (0,1), (1,1)."""
+        b, h, w, c = x.shape
+        if h % 2 or w % 2:
+            raise ValueError(f"odd resolution {h}x{w}")
+        x = x.reshape(b, h // 2, 2, w // 2, 2, c)
+        x = torch.cat([x[:, :, 0, :, 0], x[:, :, 1, :, 0], x[:, :, 0, :, 1], x[:, :, 1, :, 1]], -1)
+        return _layer_norm(self.norm, _linear(self.reduction, x))
+
+
+class SwinTransformerV2(nn.Module):
+    def __init__(
+        self,
+        num_classes: Union[int, tuple[int, ...]] = 1000,
+        patch_size: int = 4,
+        embed_dim: int = 96,
+        depths: Sequence[int] = (2, 2, 6, 2),
+        num_heads: Sequence[int] = (3, 6, 12, 24),
+        window_size: int = 7,
+        mlp_ratio: float = 4.0,
+        drop_path_rate: float = 0.1,
+        ape: bool = False,
+        patch_norm: bool = True,
+        pretrained_window_sizes: Sequence[int] = (0, 0, 0, 0),
+        dtype: torch.dtype = torch.bfloat16,
+        use_pallas: bool = True,
+        fuse: bool = False,
+        fuse_attn_train: bool = True,
+        fallback_xla: bool = True,
+        fuse_nhwc: bool = True,
+        fuse_mlp_chunked: bool = True,
+        fuse_resid: bool = True,
+        remat: bool = False,
+        pipe: int = 1,
+        pipe_microbatches: int = 0,
+        pipe_stage: int = -1,
+        moe_experts: int = 0,
+        moe_from_stage: int = 2,
+        moe_every: int = 2,
+        moe_capacity: float = 1.25,
+        moe_aux_weight: float = 0.01,
+        seed: int = 0,
+    ):
+        super().__init__()
+        # TPU routing knobs: accepted, no effect in eval on this card (module doc).
+        del use_pallas, fuse_attn_train, fallback_xla, fuse_nhwc, fuse_mlp_chunked, fuse_resid
+        del pipe_microbatches, pipe_stage, moe_from_stage, moe_every, moe_capacity, moe_aux_weight
+        if pipe > 1:
+            raise NotImplementedError("pipe > 1: pipeline parallelism is ROADMAP queue 1, item 11")
+        if moe_experts > 0:
+            raise NotImplementedError("moe_experts > 0: the Switch-MoE MLP is ROADMAP queue 1, item 11")
+        if remat:
+            raise NotImplementedError("remat: activation checkpointing belongs to training, ROADMAP queue 1")
+        if ape:
+            raise NotImplementedError("ape: the absolute position embedding is not ported yet (ROADMAP queue 1)")
+        self.num_classes = num_classes
+        self.embed_dim = embed_dim
+        self.depths = tuple(depths)
+        self.dtype = dtype
+        self.drop_path_rate = drop_path_rate  # stochastic depth: training only
+        self.patch_embed = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size)
+        self.patch_norm = nn.LayerNorm(embed_dim, eps=1e-5) if patch_norm else None
+        self.layer_names: list[str] = []
+        dim = embed_dim
+        for stage, (depth, heads) in enumerate(zip(depths, num_heads)):
+            for i in range(depth):
+                name = f"stage{stage}_block{i}"
+                self.add_module(name, SwinBlock(
+                    dim, heads, window_size, 0 if i % 2 == 0 else window_size // 2,
+                    mlp_ratio, pretrained_window_sizes[stage], fuse,
+                ))
+                self.layer_names.append(name)
+            if stage < len(depths) - 1:
+                name = f"stage{stage}_merge"
+                self.add_module(name, PatchMerging(dim))
+                self.layer_names.append(name)
+                dim *= 2
+        self.num_features = dim
+        self.norm = nn.LayerNorm(dim, eps=1e-5)
+        if isinstance(num_classes, tuple):
+            self.head = MultitaskHead(dim, num_classes)
+        else:
+            self.head = nn.Linear(dim, num_classes)
+        self.reset_parameters(seed)
+
+    @torch.no_grad()
+    def reset_parameters(self, seed: int) -> None:
+        """hvt's initialisation, drawn from a torch.Generator seeded with
+        ``seed``: Dense/conv trunc_normal(0.02) with zero bias, LayerNorm ones
+        and zeros, res-post-norm (norm1/norm2) zeros, logit_scale log 10."""
+        gen = torch.Generator().manual_seed(seed)
+        for module in self.modules():
+            if isinstance(module, (nn.Linear, nn.Conv2d)):
+                _trunc02_(module.weight, gen)
+                if module.bias is not None:
+                    module.bias.zero_()
+            elif isinstance(module, nn.LayerNorm):
+                module.weight.fill_(1.0)
+                module.bias.zero_()
+            elif isinstance(module, WindowAttention):
+                module.q_bias.zero_()
+                module.v_bias.zero_()
+                module.logit_scale.fill_(math.log(10.0))
+        for name in self.layer_names:
+            block = getattr(self, name)
+            if isinstance(block, SwinBlock):
+                for ln in (block.norm1, block.norm2):
+                    ln.weight.zero_()
+                    ln.bias.zero_()
+        if isinstance(self.head, MultitaskHead):
+            self.head.reset_parameters(gen)
+
+    def cuda_unsupported(self, image_size: int) -> list[str]:
+        """Why the CUDA kernels cannot run this model at ``image_size`` px:
+        one line per stage whose blocks they do not take, empty when every
+        block runs. The kernels hold SwinV2-T's shapes; wider ones are
+        ROADMAP.md queue 2, "Kernel coverage"."""
+        found = []
+        grid = image_size // self.patch_embed.stride[0]
+        for stage in range(len(self.depths)):
+            block = getattr(self, f"stage{stage}_block0")
+            window = min(grid, block.window)
+            if block.fuse and grid % window == 0:
+                why = fh.unsupported(block.dim, block.num_heads, window)
+            else:
+                why = wac.unsupported(window * window, block.dim, block.num_heads)
+            if why:
+                found.append(f"stage {stage + 1} ({'fused' if block.fuse else 'unfused'}): {why}")
+            grid //= 2
+        return found
+
+    def forward(self, x, features_only: bool = False):
+        """x: (B, H, W, 3) normalized image → logits (B, classes) f32, or one
+        tensor per tier for a multitask head; ``features_only`` → (B, F) f32."""
+        if self.training:
+            raise NotImplementedError(_TRAINING)
+        b = x.shape[0]
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
+        weight = self.patch_embed.weight.to(self.dtype)
+        x = F.conv2d(x, weight, self.patch_embed.bias.to(self.dtype),
+                     stride=self.patch_embed.stride).permute(0, 2, 3, 1).contiguous()
+        if self.patch_norm is not None:
+            x = _layer_norm(self.patch_norm, x)
+        for name in self.layer_names:
+            x = getattr(self, name)(x)
+        x = _layer_norm(self.norm, x)
+        x = x.reshape(b, -1, x.shape[-1]).mean(1).float()  # token average pool
+        if features_only:
+            return x
+        if isinstance(self.head, MultitaskHead):
+            return self.head(x)
+        return F.linear(x, self.head.weight.float(), self.head.bias.float())
+
+
+def _variant(embed_dim, depths, num_heads, window_size):
+    def build(num_classes, *, blurpool: bool = False, dtype="bfloat16", **kwargs):
+        del blurpool  # accepted for factory uniformity; swin has no blurpool
+        kwargs.pop("bn_scale_init", None)
+        if isinstance(dtype, str):
+            dtype = getattr(torch, dtype)
+        return SwinTransformerV2(num_classes=num_classes, embed_dim=embed_dim, depths=depths,
+                                 num_heads=num_heads, window_size=window_size, dtype=dtype,
+                                 **kwargs)
+
+    return build
+
+
+swinv2_tiny = _variant(96, (2, 2, 6, 2), (3, 6, 12, 24), 7)
+swinv2_tiny_window8_256 = _variant(96, (2, 2, 6, 2), (3, 6, 12, 24), 8)
+swinv2_tiny_window16_256 = _variant(96, (2, 2, 6, 2), (3, 6, 12, 24), 16)
+swinv2_small = _variant(96, (2, 2, 18, 2), (3, 6, 12, 24), 7)
+swinv2_base = _variant(128, (2, 2, 18, 2), (4, 8, 16, 32), 7)
+swinv2_large = _variant(192, (2, 2, 18, 2), (6, 12, 24, 48), 7)
+swinv2_large_window12_192 = _variant(192, (2, 2, 18, 2), (6, 12, 24, 48), 12)
+swinv2_micro = _variant(16, (1, 1), (2, 4), 4)  # tests only
+swinv2_micro_deep = _variant(16, (2, 4), (2, 4), 4)  # tests only

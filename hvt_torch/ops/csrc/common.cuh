@@ -1,0 +1,228 @@
+// Shared device helpers for the hvt_torch Hopper kernels (sm_90a).
+//
+// The kernels are built by nvcc into shared libraries with a plain C
+// interface (hvt_torch/ops/_build.py) and called through ctypes, so this
+// header includes no PyTorch header. Matrix products use the warp-level
+// tensor-core instruction mma.sync.m16n8k16 with bf16 operands and f32
+// accumulation: the same arithmetic contract as the TPU kernels' _dot
+// (bf16 operands, f32 accumulate), on tiles small enough for N = 49 windows.
+#pragma once
+
+#include <math.h>
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hvt {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat16(v); }
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (lower address)
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// D = A·B + D for one 16x8x16 tile. Fragment layout (PTX ISA, mma.m16n8k16,
+// g = lane / 4, t = lane % 4): a0 = A[g][2t..2t+1], a1 = A[g+8][2t..],
+// a2 = A[g][2t+8..], a3 = A[g+8][2t+8..]; b0 = B[2t..2t+1][g],
+// b1 = B[2t+8..][g]; c0,c1 = D[g][2t], D[g][2t+1]; c2,c3 = D[g+8][2t..].
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc[j] += A(16 rows, KS) · B(8 rows j*8.., KS)ᵀ for j < NT, one warp.
+// A and B are bf16 in shared memory with the reduction (k) dim contiguous:
+// A row-major (row stride lda), B as the weight's (out, in) layout (row
+// stride ldb). Rows of A at or beyond `arows` read as zero, so a 49-token
+// window needs no zero-filled padding rows.
+template <int NT, int KS>
+__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const bf16* A, int lda, int arows,
+                                         const bf16* B, int ldb) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bool lo = g < arows, hi = g + 8 < arows;
+#pragma unroll 4
+  for (int kk = 0; kk < KS; kk += 16) {
+    uint32_t a[4];
+    a[0] = lo ? ld32(A + g * lda + kk + 2 * t) : 0u;
+    a[1] = hi ? ld32(A + (g + 8) * lda + kk + 2 * t) : 0u;
+    a[2] = lo ? ld32(A + g * lda + kk + 2 * t + 8) : 0u;
+    a[3] = hi ? ld32(A + (g + 8) * lda + kk + 2 * t + 8) : 0u;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const bf16* Bj = B + (j * 8 + g) * ldb + kk + 2 * t;
+      mma_bf16_16816(acc[j], a, ld32(Bj), ld32(Bj + 8));
+    }
+  }
+}
+
+// Copy `rows` rows of `cols` bf16 (cols % 8 == 0, 16-byte aligned rows)
+// from global to shared memory with 16-byte accesses, all threads of the
+// block. src_row(r) gives the global row pointer (column 0 of the slice),
+// or nullptr for a row that reads as zeros.
+template <typename RowFn>
+__device__ __forceinline__ void copy_rows(bf16* dst, int ldd, int rows, int cols, RowFn src_row) {
+  const int vec_per_row = cols / 8;
+  for (int i = threadIdx.x; i < rows * vec_per_row; i += blockDim.x) {
+    const int r = i / vec_per_row, v = i - r * vec_per_row;
+    const bf16* src = src_row(r);
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (src != nullptr) val = *reinterpret_cast<const uint4*>(src + v * 8);
+    *reinterpret_cast<uint4*>(dst + r * ldd + v * 8) = val;
+  }
+}
+
+// Res-post-norm epilogue on a (32 x C) f32 tile held as mma fragments by 8
+// warps laid out 2 (rows) x 4 (columns): warp (wm, wn) holds rows
+// 16·wm.. and columns wn·C/4.., NT = C/32 tiles of 8 columns. Adds `bias`,
+// applies LayerNorm (two-pass mean/variance in f32, eps 1e-5, as _ln_fwd)
+// with scale/shift, and hands each pair of neighbouring columns to
+// store(row, col, y0, y1). `red` is 32·4 floats of shared scratch.
+template <int NT, typename StoreFn>
+__device__ __forceinline__ void ln_epilogue(float (&acc)[NT][4], const float* __restrict__ bias,
+                                            const float* __restrict__ lns,
+                                            const float* __restrict__ lnb, float* red,
+                                            StoreFn store) {
+  constexpr int C = NT * 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int r_lo = wm * 16 + g, r_hi = r_lo + 8;
+  const int c0 = wn * (C / 4) + 2 * t;
+
+  float s_lo = 0.f, s_hi = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const float b0 = bias[c0 + j * 8], b1 = bias[c0 + j * 8 + 1];
+    acc[j][0] += b0; acc[j][1] += b1; acc[j][2] += b0; acc[j][3] += b1;
+    s_lo += acc[j][0] + acc[j][1];
+    s_hi += acc[j][2] + acc[j][3];
+  }
+  s_lo += __shfl_xor_sync(0xffffffffu, s_lo, 1);
+  s_lo += __shfl_xor_sync(0xffffffffu, s_lo, 2);
+  s_hi += __shfl_xor_sync(0xffffffffu, s_hi, 1);
+  s_hi += __shfl_xor_sync(0xffffffffu, s_hi, 2);
+  __syncthreads();  // red may still be read by an earlier epilogue
+  if (t == 0) { red[r_lo * 4 + wn] = s_lo; red[r_hi * 4 + wn] = s_hi; }
+  __syncthreads();
+  const float mu_lo = (red[r_lo * 4] + red[r_lo * 4 + 1] + red[r_lo * 4 + 2] + red[r_lo * 4 + 3]) / C;
+  const float mu_hi = (red[r_hi * 4] + red[r_hi * 4 + 1] + red[r_hi * 4 + 2] + red[r_hi * 4 + 3]) / C;
+
+  float v_lo = 0.f, v_hi = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    acc[j][0] -= mu_lo; acc[j][1] -= mu_lo; acc[j][2] -= mu_hi; acc[j][3] -= mu_hi;
+    v_lo += acc[j][0] * acc[j][0] + acc[j][1] * acc[j][1];
+    v_hi += acc[j][2] * acc[j][2] + acc[j][3] * acc[j][3];
+  }
+  v_lo += __shfl_xor_sync(0xffffffffu, v_lo, 1);
+  v_lo += __shfl_xor_sync(0xffffffffu, v_lo, 2);
+  v_hi += __shfl_xor_sync(0xffffffffu, v_hi, 1);
+  v_hi += __shfl_xor_sync(0xffffffffu, v_hi, 2);
+  __syncthreads();
+  if (t == 0) { red[r_lo * 4 + wn] = v_lo; red[r_hi * 4 + wn] = v_hi; }
+  __syncthreads();
+  const float inv_lo = rsqrtf((red[r_lo * 4] + red[r_lo * 4 + 1] + red[r_lo * 4 + 2] + red[r_lo * 4 + 3]) / C + 1e-5f);
+  const float inv_hi = rsqrtf((red[r_hi * 4] + red[r_hi * 4 + 1] + red[r_hi * 4 + 2] + red[r_hi * 4 + 3]) / C + 1e-5f);
+
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int col = c0 + j * 8;
+    const float s0 = lns[col], s1 = lns[col + 1], h0 = lnb[col], h1 = lnb[col + 1];
+    store(r_lo, col, acc[j][0] * inv_lo * s0 + h0, acc[j][1] * inv_lo * s1 + h1);
+    store(r_hi, col, acc[j][2] * inv_hi * s0 + h0, acc[j][3] * inv_hi * s1 + h1);
+  }
+}
+
+// Cosine attention for one (window, head) on f32 operands in shared memory,
+// the math of packed_heads_forward (hvt/ops/window_attention_pallas.py):
+//   q̂ = q·rsqrt(Σq² + 1e-24), k̂ likewise,
+//   P = softmax(scale·q̂k̂ᵀ + z), out = P·v.
+// Q, K, V: N rows, row stride ld (odd, so column walks avoid bank
+// conflicts); Q and K are normalized in place. S: N x (N+1) scratch. z: the
+// (N, N) f32 bias(+mask) slice of this window and head. All threads of the
+// block take part; out(i, c, value) receives each output element.
+template <typename OutFn>
+__device__ __forceinline__ void cosine_attention(float* Q, float* K, const float* V, int ld,
+                                                 float* S, int N, int D, float scale,
+                                                 const float* __restrict__ z, OutFn out) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  for (int r = warp; r < 2 * N; r += nwarps) {
+    float* v = r < N ? Q + r * ld : K + (r - N) * ld;
+    float ss = 0.f;
+    for (int c = lane; c < D; c += 32) ss += v[c] * v[c];
+    const float inv = rsqrtf(warp_sum(ss) + 1e-24f);
+    for (int c = lane; c < D; c += 32) v[c] *= inv;
+  }
+  __syncthreads();
+  const int ldS = N + 1;
+  for (int e = tid; e < N * N; e += blockDim.x) {
+    const int i = e / N, j = e - i * N;
+    const float* q = Q + i * ld;
+    const float* k = K + j * ld;
+    float dot = 0.f;
+    for (int c = 0; c < D; ++c) dot += q[c] * k[c];
+    S[i * ldS + j] = dot * scale + z[e];
+  }
+  __syncthreads();
+  for (int i = warp; i < N; i += nwarps) {
+    float* s = S + i * ldS;
+    float m = -INFINITY;
+    for (int j = lane; j < N; j += 32) m = fmaxf(m, s[j]);
+    m = warp_max(m);
+    float sum = 0.f;
+    for (int j = lane; j < N; j += 32) {
+      const float e = expf(s[j] - m);
+      s[j] = e;
+      sum += e;
+    }
+    const float inv = 1.f / warp_sum(sum);
+    for (int j = lane; j < N; j += 32) s[j] *= inv;
+  }
+  __syncthreads();
+  for (int e = tid; e < N * D; e += blockDim.x) {
+    const int i = e / D, c = e - i * D;
+    const float* p = S + i * ldS;
+    float o = 0.f;
+    for (int j = 0; j < N; ++j) o += p[j] * V[j * ld + c];
+    out(i, c, o);
+  }
+}
+
+}  // namespace hvt
+
+// Message for a status returned by a launcher (each library is loaded on its
+// own through ctypes, so each carries its own copy).
+extern "C" const char* hvt_error_string(int err) {
+  return err < 0 ? "unsupported shape" : cudaGetErrorString(static_cast<cudaError_t>(err));
+}
