@@ -2,7 +2,8 @@
 """Quickest proof that the hvt_torch port runs on one NVIDIA GPU.
 
     python3 chip_smoke.py              # needs one CUDA card; builds the kernels itself
-    python3 chip_smoke.py --profile    # also: per-kernel device time of one forward per route
+    python3 chip_smoke.py --profile    # also: per-kernel device time of one forward per
+                                       # route and of one training step
 
 Phases, in order; any failure exits non-zero and prints no result:
   1. the card's name and power limit (nvidia-smi);
@@ -16,7 +17,17 @@ Phases, in order; any failure exits non-zero and prints no result:
      of the route must launch 12 times per forward, and the logits on the
      kernel path must match the same model's plain path on the card;
   5. times: each kernel, its plain version and a library call where one
-     computes the same function, at batch 64; images/s per route.
+     computes the same function, at batch 64; images/s per route;
+  6. the backward kernel against its plain version at every SwinV2-T block
+     shape at batch 128 (dqkv, dz → dbias, dlogit_scale; one head's logit
+     scale above the log 100 clamp, whose gradient must be exactly 0), then
+     timed beside its bound, the plain version and SDPA's backward;
+  7. the training path: ``hvt_torch.main.main`` trains SwinV2-T (10,000
+     classes, batch 128, configs/pretrain/swinv2_tiny.yaml's recipe) for 30
+     steps on the synthetic source: finite losses, 12 launches of the forward
+     and of the backward kernel per step, step ms and images/s; then one
+     step's loss and gradients, from the same weights and batch, on the
+     kernel path against the plain path.
 
 Comparisons run with TF32 off (cuDNN and matmul), so the f32 parts of the
 plain path (patch-embed conv, head) are true f32. The kernel table goes on a
@@ -47,6 +58,8 @@ STAGES = ((56, 96, 3, 2), (28, 192, 6, 2), (14, 384, 12, 6), (7, 768, 24, 2))
 WINDOW = 7
 CLASSES = 10_000  # iNat21 species
 BATCH = 64  # the engine's batch shape on the main path and in phases 3 and 5
+TRAIN_BATCH = 128  # bench.py's SwinV2-T batch per chip: phases 6 and 7
+TRAIN_STEPS = 30
 REQUESTS = 8  # single requests served on each route before the timed burst
 KERNELS = {  # name: (source, TPU kernel it replaces, route of the main path)
     "window_attention_packed_fwd": ("hvt_torch/ops/csrc/window_attention.cu",
@@ -56,12 +69,23 @@ KERNELS = {  # name: (source, TPU kernel it replaces, route of the main path)
     "attention_half_nhwc_fwd": ("hvt_torch/ops/csrc/fused_halves.cu",
                                 "hvt/ops/fused_halves_pallas.py:1330", True),
 }
+BWD_KERNEL = "window_attention_packed_bwd"
+BWD_SOURCE = ("hvt_torch/ops/csrc/window_attention_bwd.cu", "hvt/ops/window_attention_pallas.py:558")
 # max|kernel - plain| ≤ TOL·max|plain|: both sides share the arithmetic
 # contract (bf16 operands, f32 accumulation, f32 softmax/LayerNorm) and
 # differ only in summation order and the odd bf16 rounding flip of an
 # operand or output.
 TOL = {"window_attention_packed_fwd": 1e-2, "mlp_half_fwd": 2e-2,
        "attention_half_nhwc_fwd": 2e-2}
+# The backward kernel against packed_heads_backward, relative to max|plain|:
+# dqkv is rounded to bf16 at the store on both sides (1e-2, as the
+# forward); dbias and dlogit_scale are f32 sums over up to 8,192 windows in
+# another order (1e-3).
+BWD_TOL = {"dqkv": 1e-2, "dbias": 1e-3, "dlogit_scale": 1e-3}
+# Phase 7, one training step on the kernel path against the plain path.
+LOSS_RTOL = 1e-2
+GRAD_COSINE = 0.99
+GRAD_NORM_RTOL = 0.05
 # Whole-model logits, kernel path vs plain path: 24 block halves, each
 # within its kernel's tolerance, feed one bf16 residual stream.
 LOGIT_TOL = 5e-2
@@ -99,7 +123,7 @@ def kernel_counters():
     from hvt_torch.ops import window_attention_cuda as wac
 
     return {"window_attention_packed_fwd": wac.KERNEL, "mlp_half_fwd": fh.MLP_KERNEL,
-            "attention_half_nhwc_fwd": fh.ATTN_KERNEL}
+            "attention_half_nhwc_fwd": fh.ATTN_KERNEL, BWD_KERNEL: wac.BWD_KERNEL}
 
 
 @contextlib.contextmanager
@@ -118,13 +142,27 @@ def plain_versions():
         wac.window_attention_packed, fh.mlp_half, fh.attention_half_nhwc = saved
 
 
+@contextlib.contextmanager
+def plain_backward():
+    """The backward kernel's wrapper swapped for its plain version inside
+    the attention's autograd Function, which keeps its set-up and tail."""
+    from hvt_torch.ops import window_attention_cuda as wac
+
+    saved = wac.packed_backward
+    wac.packed_backward = wac.packed_heads_backward
+    try:
+        yield
+    finally:
+        wac.packed_backward = saved
+
+
 # ---------------------------------------------------------------------------
 # Phases 3 and 5: kernels against their plain versions at SwinV2-T stage shapes
 # ---------------------------------------------------------------------------
 
 
-def stage_inputs(stage: int, shift: int, seed: int):
-    """Seeded random inputs of one stage's block at batch BATCH: every
+def stage_inputs(stage: int, shift: int, seed: int, batch: int = BATCH):
+    """Seeded random inputs of one stage's block at ``batch``: every
     parameter drawn (res-post-norm scales around 1, not the zero init)."""
     import numpy as np
     import torch
@@ -140,7 +178,7 @@ def stage_inputs(stage: int, shift: int, seed: int):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev).to(dtype)
 
     p = {
-        "x": t(rng.normal(size=(BATCH, grid, grid, c)), torch.bfloat16),
+        "x": t(rng.normal(size=(batch, grid, grid, c)), torch.bfloat16),
         "wqkv": t(rng.normal(size=(3 * c, c)) * c ** -0.5),
         "bqkv": t(np.concatenate([rng.normal(size=c) * 0.1, np.zeros(c), rng.normal(size=c) * 0.1])),
         "logit_scale": t(np.log(10.0) + rng.normal(size=(heads, 1, 1)) * 0.3),
@@ -154,7 +192,7 @@ def stage_inputs(stage: int, shift: int, seed: int):
         "b2": t(rng.normal(size=c) * 0.1),
         "lns": t(1.0 + rng.normal(size=c) * 0.1),
         "lnb": t(rng.normal(size=c) * 0.1),
-        "dp": t(np.ones(BATCH)),
+        "dp": t(np.ones(batch)),
     }
     p["grid"], p["c"], p["heads"], p["shift"] = grid, c, heads, shift
     return p
@@ -268,14 +306,118 @@ def kernel_records(timing: bool) -> dict:
         del p
         torch.cuda.empty_cache()
     for rec in records.values():
-        t_bytes = rec["bytes"] / H100_BYTES_PER_S * 1e3
-        t_ops = rec["flops"] / H100_BF16_FLOPS * 1e3
-        rec["bound_ms"], rec["bound_by"] = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-        if timing:
-            per_fwd = lambda key: sum(s["launches_per_forward"] * s[key] for s in rec["stages"])  # noqa: E731
-            rec["ms"], rec["plain_ms"] = per_fwd("ms"), per_fwd("plain_ms")
-            rec["library_ms"] = None if rec["stages"][0]["library_ms"] is None else per_fwd("library_ms")
+        finish_record(rec, timing)
     return records
+
+
+def finish_record(rec: dict, timing: bool) -> None:
+    """The bound of a kernel's launches, and its times summed over them."""
+    t_bytes = rec["bytes"] / H100_BYTES_PER_S * 1e3
+    t_ops = rec["flops"] / H100_BF16_FLOPS * 1e3
+    rec["bound_ms"], rec["bound_by"] = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    if timing:
+        total = lambda key: sum(s["launches_per_forward"] * s[key] for s in rec["stages"])  # noqa: E731
+        rec["ms"], rec["plain_ms"] = total("ms"), total("plain_ms")
+        rec["library_ms"] = None if rec["stages"][0]["library_ms"] is None else total("library_ms")
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the backward kernel against its plain version at batch 128
+# ---------------------------------------------------------------------------
+
+
+def backward_case(p):
+    """qkv, dO, z, scale of one stage's attention at batch TRAIN_BATCH, with
+    head 0's logit scale above the log 100 clamp."""
+    import torch
+
+    from hvt_torch.ops import fused_halves_cuda as fh
+    from hvt_torch.ops import window_attention as wa
+    from hvt_torch.ops import window_attention_cuda as wac
+
+    x, shift = p["x"], p["shift"]
+    p["logit_scale"][0] = 5.0
+    xw = wa.window_partition(torch.roll(x, (-shift, -shift), (1, 2)) if shift else x, WINDOW)
+    qkv = fh.bf16_linear(xw, p["wqkv"], p["bqkv"]).to(torch.bfloat16).contiguous()
+    gen = torch.Generator("cuda").manual_seed(p["c"] + shift)
+    dout = torch.randn(qkv.shape[0], qkv.shape[1], p["c"], device="cuda", generator=gen).bfloat16()
+    return qkv, dout, wac.merge_bias_mask(p["bias"], p["mask"]), wac.attention_scale(p["logit_scale"])
+
+
+def backward_records(timing: bool) -> dict:
+    """The backward kernel against packed_heads_backward at every SwinV2-T
+    block shape (check), or timed with its bound, the plain version and
+    SDPA's backward. Timed as the model runs it (``_PackedAttention.backward``
+    through autograd, its set-up and tail included), and the launch wrapper
+    alone. Per training step: the 12 launches summed."""
+    import torch
+    import torch.nn.functional as F
+
+    from hvt_torch.ops import window_attention_cuda as wac
+
+    rec = {"max_abs_err": 0.0, "bytes": 0, "flops": 0, "stages": []}
+    for stage, shift, blocks in block_shapes():
+        p = stage_inputs(stage, shift, seed=200 + 10 * stage + shift, batch=TRAIN_BATCH)
+        qkv, dout, z, scale = backward_case(p)
+        heads, ls = p["heads"], p["logit_scale"]
+        nwb, n, c3 = qkv.shape
+        d = c3 // 3 // heads
+        st = {"stage": stage + 1, "shift": shift, "launches_per_forward": blocks,
+              "bytes": 2 * (2 * qkv.numel() + dout.numel()) + 2 * 4 * z.numel(),
+              "flops": 10 * heads * n * n * d * nwb}
+        rec["bytes"] += blocks * st["bytes"]
+        rec["flops"] += blocks * st["flops"]
+        if timing:
+            q, k, v = qkv.float().reshape(nwb, n, 3, heads, d).permute(2, 0, 3, 1, 4)
+            q = q * torch.rsqrt((q * q).sum(-1, keepdim=True) + 1e-24) * scale.reshape(1, heads, 1, 1)
+            k = k * torch.rsqrt((k * k).sum(-1, keepdim=True) + 1e-24)
+            q, k, v = (t.bfloat16().contiguous().requires_grad_() for t in (q, k, v))
+            zb = z.expand(nwb // z.shape[0], -1, -1, -1, -1).reshape(nwb, heads, n, n).bfloat16()
+            out = F.scaled_dot_product_attention(q, k, v, attn_mask=zb, scale=1.0)
+            g = dout.reshape(nwb, n, heads, d).transpose(1, 2)
+            # the model's backward: _PackedAttention.backward with its bias/scale set-up and tail
+            leaves = [qkv.clone().requires_grad_(), ls.clone().requires_grad_(),
+                      p["bias"].clone().requires_grad_()]
+            wa_out = wac.window_attention_packed(*leaves, p["mask"], num_heads=heads)
+            model_bwd = lambda: torch.autograd.grad(wa_out, leaves, dout, retain_graph=True)  # noqa: E731
+            st["ms"] = cuda_time_ms(model_bwd)
+            st["wrapper_ms"] = cuda_time_ms(lambda: wac.packed_backward(qkv, dout, z, scale, heads))
+            with plain_backward():
+                st["plain_ms"] = cuda_time_ms(model_bwd, iters=5)
+            st["library_ms"] = cuda_time_ms(
+                lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True), iters=5)
+            del out, q, k, v, zb, wa_out, leaves
+        else:
+            leaves = [qkv.clone().requires_grad_(), ls.clone().requires_grad_(),
+                      p["bias"].clone().requires_grad_()]
+            wac.window_attention_packed(*leaves, p["mask"], num_heads=heads).backward(dout)
+            got = {"dqkv": leaves[0].grad, "dlogit_scale": leaves[1].grad, "dbias": leaves[2].grad}
+            rq, rz, rs = wac.packed_heads_backward(qkv, dout, z, scale, heads)
+            ref = {"dqkv": rq, "dbias": rz.sum(0),
+                   "dlogit_scale": (rs * scale * (ls.reshape(-1) < math.log(100.0))).reshape(ls.shape)}
+            torch.cuda.synchronize()
+            errs = {}
+            for key, tol in BWD_TOL.items():
+                a, b = got[key].float(), ref[key].float()
+                err, top = float((a - b).abs().max()), float(b.abs().max())
+                errs[key] = err
+                ok = bool(torch.isfinite(a).all()) and err <= tol * top
+                log(f"  {BWD_KERNEL} stage {stage + 1} shift={shift} {key:12s}: max|kernel-plain| "
+                    f"{err:.4g} (tol {tol}·max|plain| = {tol * top:.4g}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{BWD_KERNEL} {key} disagrees with its plain version at "
+                                         f"stage {stage + 1}, shift {shift}")
+            if float(got["dlogit_scale"][0]) != 0.0:
+                raise AssertionError(f"{BWD_KERNEL}: gradient above the logit-scale clamp "
+                                     f"{float(got['dlogit_scale'][0])}, not 0")
+            st["max_abs_err"] = errs["dqkv"]
+            st["errors"] = errs
+            rec["max_abs_err"] = max(rec["max_abs_err"], errs["dqkv"])
+        rec["stages"].append(st)
+        del p, qkv, dout, z
+        torch.cuda.empty_cache()
+    finish_record(rec, timing)
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -495,10 +637,211 @@ def profile_route(fuse: bool) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the training path
+# ---------------------------------------------------------------------------
+
+
+def training_config(**model_args):
+    """configs/pretrain/swinv2_tiny.yaml (adamw at lr 1e-3, wd 0.05, cosine
+    schedule, smoothing 0.1, clip 5.0, drop path 0.2, fuse unset) on the
+    synthetic train source at 10,000 classes, batch TRAIN_BATCH, for
+    TRAIN_STEPS steps with a 5-step warmup."""
+    from hvt_torch import config as config_lib
+
+    base = config_lib.load(machine=str(ROOT / "configs/machines/local.yaml"),
+                           exps=[str(ROOT / "configs/pretrain/swinv2_tiny.yaml")])
+    return config_lib.loads(config_lib.to_dict(base), {
+        "max_duration": f"{TRAIN_STEPS}ba",
+        "scheduler": {"args": {"t_warmup": "5ba"}},
+        "model": {"args": model_args},
+        "train_dataset": {"source": "synthetic", "synthetic_num_classes": CLASSES,
+                          "synthetic_num_samples": TRAIN_BATCH * TRAIN_STEPS,
+                          "global_batch_size": TRAIN_BATCH},
+    })
+
+
+def train_run() -> dict:
+    """Drive the main path: hvt_torch.main.main(config), with every launch
+    counter set to 0 just before and read just after. A CUDA event after
+    each step times it; the losses are read back after the run."""
+    import torch
+
+    from hvt_torch import main as main_lib
+
+    counters = kernel_counters()
+    events, losses = [], []
+
+    def on_step(step, stats):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        losses.append(stats["loss_sum"])
+
+    config = training_config()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    metrics = main_lib.main(config, on_step=on_step)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    losses = [float(v) for v in losses]
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]  # step 2 onwards
+    steady = sorted(step_ms[4:])  # the steps after the first 5
+    median_ms = steady[len(steady) // 2]
+    log(f"  {len(losses)} steps: loss {losses[0]:.4f} → {losses[-1]:.4f}; step {median_ms:.2f} ms "
+        f"median after the first 5 ({TRAIN_BATCH / median_ms * 1e3:.1f} img/s); launches "
+        f"{launches}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
+        f"{wall_s:.1f} s in all")
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"training losses: {losses}")
+    for name, n in launches.items():
+        want = 12 * TRAIN_STEPS if name in ("window_attention_packed_fwd", BWD_KERNEL) else 0
+        if n != want:
+            raise AssertionError(f"{name}: {n} launches in {TRAIN_STEPS} training steps, expected {want}")
+    return {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "launches": launches, "losses": losses,
+            "step_ms": step_ms, "step_ms_median": median_ms,
+            "images_per_s": TRAIN_BATCH / median_ms * 1e3, "wall_s": wall_s,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30, "metrics": metrics}
+
+
+def train_batch(seed: int):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, size=(TRAIN_BATCH, 224, 224, 3), dtype=np.uint8)
+    labels = rng.integers(0, CLASSES, size=TRAIN_BATCH)
+    return (torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda(),
+            torch.ones(TRAIN_BATCH, device="cuda"))
+
+
+def gradient_check() -> dict:
+    """One step's loss and parameter gradients from the same seeded weights
+    and batch (drop path 0) on the kernel path and on the plain path."""
+    import torch
+
+    from hvt_torch import objectives
+    from hvt_torch.data import DevicePrep
+    from hvt_torch.data import device as device_prep
+    from hvt_torch.models import build_model
+
+    config = training_config(drop_path_rate=0.0)
+    model = build_model(config, CLASSES).cuda().train()
+    randomize_(model, seed=13)
+    prep = DevicePrep.from_config(config.train_dataset, config.precision)
+    images, labels, mask = train_batch(seed=17)
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        targets = device_prep.prepare_targets(labels, CLASSES, 0.1)
+        loss = objectives.soft_cross_entropy(model(prep.normalize(images)), targets, mask)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.float().clone() for n, p in model.named_parameters()}
+
+    loss, grads = loss_and_grads()
+    with plain_versions():
+        ref_loss, ref = loss_and_grads()
+    rows = []
+    for name, g in grads.items():
+        r = ref[name]
+        cos = float((g * r).sum() / (g.norm() * r.norm()).clamp_min(1e-30))
+        rows.append((cos, float(g.norm() / r.norm().clamp_min(1e-30)), name))
+    worst = min(rows, key=lambda row: (row[0], -abs(row[1] - 1.0)))
+    worst_norm = max(rows, key=lambda row: abs(row[1] - 1.0))
+    log(f"  loss kernel path {loss:.6f}, plain path {ref_loss:.6f}; {len(rows)} gradient tensors: "
+        f"worst cosine {worst[0]:.6f} ({worst[2]}), worst norm ratio {worst_norm[1]:.4f} "
+        f"({worst_norm[2]})")
+    bad = [r for r in rows if r[0] < GRAD_COSINE or abs(r[1] - 1.0) > GRAD_NORM_RTOL]
+    if abs(loss - ref_loss) > LOSS_RTOL * abs(ref_loss) or bad:
+        raise AssertionError(f"kernel-path gradients disagree with the plain path: loss {loss} vs "
+                             f"{ref_loss}; tensors {bad[:5]}")
+    del model, grads, ref
+    torch.cuda.empty_cache()
+    return {"loss": loss, "plain_loss": ref_loss, "tensors": len(rows),
+            "worst_cosine": worst[0], "worst_cosine_tensor": worst[2],
+            "worst_norm_ratio": worst_norm[1], "worst_norm_tensor": worst_norm[2]}
+
+
+def profile_train_step() -> dict:
+    """Device time by kernel over one training step (--profile), after two
+    warm-up steps, through the Trainer's own step. Only kernel rows are
+    summed: an operator's row repeats the time of the kernels it launched,
+    and a user annotation's (``Optimizer.step#...``) the time it spans."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hvt_torch.train.loop import Trainer
+
+    trainer = Trainer(training_config())
+    batch = next(trainer.train_loader.epoch(0))
+    for _ in range(2):
+        trainer.train_step(*trainer._to_device(batch), trainer.generator)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(*trainer._to_device(batch), trainer.generator)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    rows, ops = [], []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        annotation = getattr(e, "is_user_annotation", False) or e.key.startswith("Optimizer.")
+        if dev_us > 0:
+            kernel = str(e.device_type).endswith("CUDA") and not annotation
+            (rows if kernel else ops).append(
+                {"name": e.key[:90], "calls": e.count, "ms_per_step": dev_us / 1e3})
+    rows.sort(key=lambda r: -r["ms_per_step"])
+    ops.sort(key=lambda r: -r["ms_per_step"])
+    total = sum(r["ms_per_step"] for r in rows)
+    bwd = sum(r["ms_per_step"] for r in rows if "packed_attention_bwd" in r["name"])
+    fwd = sum(r["ms_per_step"] for r in rows if "packed_attention_fwd" in r["name"])
+    optimizer = optimizer_times(trainer.optimizer)
+    del trainer
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "device_ms": total, "busy_share": total / step_ms,
+            "backward_kernel_ms": bwd, "forward_kernel_ms": fwd,
+            "backward_kernel_share": bwd / total if total else None, "optimizer": optimizer,
+            "rows": rows, "ops": ops}
+
+
+def optimizer_times(opt, iters: int = 5) -> dict:
+    """The optimizer's update alone, on the gradients the last step left,
+    from an idle card: host ms of ``step()``, the device span from its first
+    launch to its last kernel's end (CUDA events), and the kernel time in it
+    (torch.profiler), each the median of ``iters`` updates."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    host, span, kernel = [], [], []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        opt.step()
+        end.record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.synchronize()
+        span.append(start.elapsed_time(end))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            opt.step()
+            torch.cuda.synchronize()
+        kernel.append(sum(
+            (getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)) / 1e3
+            for e in prof.key_averages()
+            if not (getattr(e, "is_user_annotation", False) or e.key.startswith("Optimizer."))))
+    median = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    return {"host_ms": median(host), "span_ms": median(span), "kernel_ms": median(kernel)}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also trace one forward per route with torch.profiler")
+                        help="also trace one forward per route and one training step with "
+                             "torch.profiler")
     args = parser.parse_args(argv)
 
     import torch
@@ -552,14 +895,55 @@ def main(argv=None) -> int:
             f"{r['forward_plain_ms']:.3f} ms on plain versions; engine step "
             f"{r['step_images_per_s']:.1f} img/s; HTTP {r['http_images_per_s']:.1f} img/s, "
             f"latency p50 {r['http_latency_ms_p50']:.1f} ms p90 {r['http_latency_ms_p90']:.1f} ms")
+
+    log(f"[6] {BWD_KERNEL} vs plain version, bf16, batch {TRAIN_BATCH}")
+    bwd_checked = backward_records(timing=False)
+    bwd = backward_records(timing=True)
+    wrapper_ms = sum(st["launches_per_forward"] * st["wrapper_ms"] for st in bwd["stages"])
+    log(f"  {BWD_KERNEL}: {bwd['ms']:.4f} ms kernel through the model's backward "
+        f"({wrapper_ms:.4f} ms in the launch wrapper alone), {bwd['plain_ms']:.4f} ms plain, bound "
+        f"{bwd['bound_ms']:.4f} ms ({bwd['bound_by']}), library {bwd['library_ms']:.4f} ms "
+        f"(SDPA backward), per training step on {card}; per launch (model backward/wrapper/bound/"
+        f"plain/library): " + "; ".join(
+            f"stage {st['stage']} shift {st['shift']} {st['ms']:.3f}/{st['wrapper_ms']:.3f}/"
+            f"{st['bytes'] / H100_BYTES_PER_S * 1e3:.3f}/{st['plain_ms']:.3f}/{st['library_ms']:.3f}"
+            for st in bwd["stages"]))
+
+    log(f"[7] training SwinV2-T at 224 px, {CLASSES} classes, batch {TRAIN_BATCH}, "
+        f"{TRAIN_STEPS} steps (hvt_torch.main)")
+    train = train_run()
+    train["gradients"] = gradient_check()
+    kernels.append({
+        "name": BWD_KERNEL, "route": "cuda", "source": BWD_SOURCE[0], "replaces": BWD_SOURCE[1],
+        "launches": train["launches"][BWD_KERNEL] // TRAIN_STEPS,
+        "max_abs_err": bwd_checked["max_abs_err"], "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"],
+    })
+
     report = {"card": card, "batch": BATCH, "kernels": kernels, "routes": routes,
               "kernel_stages": {k: {"check": checked[k]["stages"], "timed": timed[k]["stages"]}
-                                for k in KERNELS}}
+                                for k in KERNELS},
+              "backward_stages": {"check": bwd_checked["stages"], "timed": bwd["stages"]},
+              "train": train}
     if args.profile:
         report["profile"] = {f"fuse={f}": profile_route(f) for f in (False, True)}
         for route, rows in report["profile"].items():
             log(f"  profile {route}: " + "; ".join(
                 f"{r['name'][:40]} {r['ms_per_forward']:.3f} ms x{r['calls']}" for r in rows[:8]))
+        prof = report["profile"]["train_step"] = profile_train_step()
+        prof["share_of_median_step"] = prof["device_ms"] / train["step_ms_median"]
+        log(f"  profile train step: {prof['device_ms']:.2f} ms of kernel time in a {prof['step_ms']:.2f} ms "
+            f"profiled step (busy {100 * prof['busy_share']:.1f}%; "
+            f"{100 * prof['share_of_median_step']:.1f}% of phase 7's median step), backward kernel "
+            f"{prof['backward_kernel_ms']:.3f} ms ({100 * prof['backward_kernel_share']:.1f}%), "
+            f"forward kernel {prof['forward_kernel_ms']:.3f} ms; " + "; ".join(
+                f"{r['name'][:40]} {r['ms_per_step']:.3f} ms x{r['calls']}" for r in prof["rows"][:10]))
+        opt = prof["optimizer"]
+        log(f"  optimizer update alone (median of 5): host {opt['host_ms']:.3f} ms, device span "
+            f"{opt['span_ms']:.3f} ms, kernel time {opt['kernel_ms']:.3f} ms")
+        log("  profile train step by operator (device time of the kernels each launched; "
+            "Optimizer.step's is the span of its launches): " + "; ".join(
+            f"{r['name'][:40]} {r['ms_per_step']:.3f} ms x{r['calls']}" for r in prof["ops"][:12]))
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     print(json.dumps({"kernels": kernels}))

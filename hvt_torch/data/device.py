@@ -1,10 +1,14 @@
-"""Device-side batch preparation — ``DevicePrep.normalize`` of ``hvt/data/device.py``."""
+"""Device-side batch preparation — ``DevicePrep.normalize`` and the targets
+(``one_hot``, ``smooth_labels``, ``prepare_targets``) of ``hvt/data/device.py``.
+MixUp, CutMix, ColOut and progressive resizing are not ported (ROADMAP.md
+queue 1, item 4)."""
 
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 
 def scale_channel_stats(mean: tuple[float, ...], std: tuple[float, ...]):
@@ -35,3 +39,28 @@ class DevicePrep:
         mean = torch.tensor(self.mean, dtype=torch.float32, device=images.device)
         std = torch.tensor(self.std, dtype=torch.float32, device=images.device)
         return ((images.float() - mean) / std).to(self.compute_dtype)
+
+
+def one_hot(labels: torch.Tensor, num_classes: int, dtype=torch.float32) -> torch.Tensor:
+    return F.one_hot(labels.long(), num_classes).to(dtype)
+
+
+def smooth_labels(onehot: torch.Tensor, smoothing: float) -> torch.Tensor:
+    """(1-s)·onehot + s/n."""
+    n = onehot.shape[-1]
+    return onehot * (1.0 - smoothing) + smoothing / n
+
+
+def prepare_targets(labels: torch.Tensor, num_classes: int | tuple[int, ...],
+                    smoothing: float = 0.0, dtype=torch.float32):
+    """int labels → (smoothed) one-hot (B, C); a multitask tuple of class
+    counts gets one per tier, from the (B, tiers) labels, each smoothed on
+    its own."""
+    if isinstance(num_classes, tuple):
+        out = []
+        for tier, n in enumerate(num_classes):
+            oh = one_hot(labels[:, tier], n, dtype)
+            out.append(smooth_labels(oh, smoothing) if smoothing else oh)
+        return out
+    oh = one_hot(labels, num_classes, dtype)
+    return smooth_labels(oh, smoothing) if smoothing else oh

@@ -1,4 +1,4 @@
-"""SwinV2 in PyTorch — port of ``hvt/models/swinv2.py``, eval forward.
+"""SwinV2 in PyTorch — port of ``hvt/models/swinv2.py``.
 
 Same architecture, layouts and parameter tree as hvt (NHWC token grids,
 cosine attention with the logit scale clamped at log 100, the continuous
@@ -18,9 +18,11 @@ default); the head runs in f32. Two routes, as in hvt:
   (kernel 3, with the cyclic shift folded into its gather) and ``mlp_half``
   (kernel 2), each returning x + branch.
 
-On CPU tensors every kernel call runs its plain version. Eval only: a module
-in training mode raises (training and stochastic depth are a later slice).
-hvt's TPU routing knobs (``use_pallas``, ``fallback_xla``,
+On CPU tensors every kernel call runs its plain version. Training (train
+mode, stochastic depth at hvt's per-block rates ``linspace(0, rate, depth)``,
+gradients through kernel 1's backward) runs on the ``fuse=False`` route; a
+``fuse=True`` model in train mode raises until the fused halves' backward
+kernels are ported. hvt's TPU routing knobs (``use_pallas``, ``fallback_xla``,
 ``fuse_attn_train``, ``fuse_mlp_chunked``, ``fuse_nhwc``, ``fuse_resid``)
 are accepted and change nothing here: their VMEM gating has no counterpart on
 this card, and every fused block takes the NHWC attention kernel with the
@@ -33,18 +35,21 @@ import functools
 import math
 from typing import Sequence, Union
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from hvt_torch.models.common import drop_path
 from hvt_torch.models.heads import MultitaskHead
 from hvt_torch.ops import fused_halves_cuda as fh
 from hvt_torch.ops import window_attention as wa
 from hvt_torch.ops import window_attention_cuda as wac
 
-_TRAINING = (
-    "hvt_torch runs the SwinV2 forward in eval mode only; training (drop path, the "
-    "backward kernels) is a later slice of the port (ROADMAP.md, queue 1). Call .eval()."
+FUSED_TRAINING = (
+    "hvt_torch trains SwinV2 on the fuse=false route only: the backward kernels of the "
+    "fused halves are ROADMAP.md queue 2, items 1-2. Set model.args.fuse: false, or call "
+    ".eval() to serve."
 )
 
 
@@ -52,16 +57,20 @@ def _trunc02_(w: torch.Tensor, gen: torch.Generator) -> None:
     nn.init.trunc_normal_(w, std=0.02, a=-0.04, b=0.04, generator=gen)
 
 
+# The cached constants are made outside inference mode even when a serving
+# forward asks first, so that a later training forward may save them.
 @functools.lru_cache(maxsize=None)
 def _geometry(window: int, pretrained_window: int, device: str):
-    coords = torch.as_tensor(wa.relative_coords_table(window, pretrained_window), device=device)
-    index = torch.as_tensor(wa.relative_position_index(window), device=device)
+    with torch.inference_mode(False):
+        coords = torch.as_tensor(wa.relative_coords_table(window, pretrained_window), device=device)
+        index = torch.as_tensor(wa.relative_position_index(window), device=device)
     return coords, index
 
 
 @functools.lru_cache(maxsize=None)
 def _shift_mask(h: int, w: int, window: int, shift: int, device: str) -> torch.Tensor:
-    return torch.as_tensor(wa.shift_attn_mask((h, w), window, shift), device=device)
+    with torch.inference_mode(False):
+        return torch.as_tensor(wa.shift_attn_mask((h, w), window, shift), device=device)
 
 
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -120,17 +129,21 @@ class WindowAttention(nn.Module):
 
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window: int, shift: int,
-                 mlp_ratio: float = 4.0, pretrained_window: int = 0, fuse: bool = False):
+                 mlp_ratio: float = 4.0, pretrained_window: int = 0, fuse: bool = False,
+                 drop_path_rate: float = 0.0):
         super().__init__()
         self.dim, self.num_heads, self.window, self.shift = dim, num_heads, window, shift
         self.fuse = fuse
+        self.drop_path_rate = drop_path_rate
         self.attn = WindowAttention(dim, num_heads, pretrained_window)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
 
-    def forward(self, x):
-        """x: (B, H, W, C) token grid."""
+    def forward(self, x, generator: torch.Generator | None = None):
+        """x: (B, H, W, C) token grid. In train mode each residual branch
+        goes through ``drop_path`` at the block's rate, drawn from
+        ``generator``."""
         b, h, w, c = x.shape
         window, shift = self.window, self.shift
         if min(h, w) <= window:  # window covers the map: global attention, no shift
@@ -145,8 +158,9 @@ class SwinBlock(nn.Module):
         y = wa.window_reverse(y, window, h, w)
         if shift:
             y = torch.roll(y, (shift, shift), (1, 2))
-        x = shortcut + _layer_norm(self.norm1, y)
-        return x + _layer_norm(self.norm2, self.mlp(x))
+        rate, training = self.drop_path_rate, self.training
+        x = shortcut + drop_path(_layer_norm(self.norm1, y), rate, training, generator)
+        return x + drop_path(_layer_norm(self.norm2, self.mlp(x)), rate, training, generator)
 
     def _fused(self, x, window: int, shift: int, mask):
         """Both halves as fused kernels, each returning x + s·branch (s = 1)."""
@@ -230,7 +244,10 @@ class SwinTransformerV2(nn.Module):
         self.embed_dim = embed_dim
         self.depths = tuple(depths)
         self.dtype = dtype
-        self.drop_path_rate = drop_path_rate  # stochastic depth: training only
+        self.fuse = fuse
+        self.drop_path_rate = drop_path_rate
+        # stochastic-depth rate of each block, rising linearly over depth
+        rates = iter(np.linspace(0, drop_path_rate, sum(depths)).tolist())
         self.patch_embed = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size)
         self.patch_norm = nn.LayerNorm(embed_dim, eps=1e-5) if patch_norm else None
         self.layer_names: list[str] = []
@@ -241,6 +258,7 @@ class SwinTransformerV2(nn.Module):
                 self.add_module(name, SwinBlock(
                     dim, heads, window_size, 0 if i % 2 == 0 else window_size // 2,
                     mlp_ratio, pretrained_window_sizes[stage], fuse,
+                    next(rates),
                 ))
                 self.layer_names.append(name)
             if stage < len(depths) - 1:
@@ -255,6 +273,13 @@ class SwinTransformerV2(nn.Module):
         else:
             self.head = nn.Linear(dim, num_classes)
         self.reset_parameters(seed)
+
+    @property
+    def no_weight_decay_substrings(self) -> tuple[str, ...]:
+        """Parameter-name substrings the optimizer never decays: hvt's
+        ("absolute_pos_embed", "cpb_", "logit_scale") in the port's names
+        (the cpb MLP is ``cpb_fc1``/``cpb_fc2``; ``ape`` is not ported)."""
+        return ("cpb_fc", "logit_scale")
 
     @torch.no_grad()
     def reset_parameters(self, seed: int) -> None:
@@ -283,11 +308,12 @@ class SwinTransformerV2(nn.Module):
         if isinstance(self.head, MultitaskHead):
             self.head.reset_parameters(gen)
 
-    def cuda_unsupported(self, image_size: int) -> list[str]:
-        """Why the CUDA kernels cannot run this model at ``image_size`` px:
-        one line per stage whose blocks they do not take, empty when every
-        block runs. The kernels hold SwinV2-T's shapes; wider ones are
-        ROADMAP.md queue 2, "Kernel coverage"."""
+    def cuda_unsupported(self, image_size: int, training: bool = False) -> list[str]:
+        """Why the CUDA kernels cannot run this model at ``image_size`` px
+        (forward, or forward and backward when ``training``): one line per
+        stage whose blocks they do not take, empty when every block runs.
+        The kernels hold SwinV2-T's shapes; wider ones are ROADMAP.md
+        queue 2, "Kernel coverage"."""
         found = []
         grid = image_size // self.patch_embed.stride[0]
         for stage in range(len(self.depths)):
@@ -296,17 +322,18 @@ class SwinTransformerV2(nn.Module):
             if block.fuse and grid % window == 0:
                 why = fh.unsupported(block.dim, block.num_heads, window)
             else:
-                why = wac.unsupported(window * window, block.dim, block.num_heads)
+                why = wac.unsupported(window * window, block.dim, block.num_heads, training)
             if why:
                 found.append(f"stage {stage + 1} ({'fused' if block.fuse else 'unfused'}): {why}")
             grid //= 2
         return found
 
-    def forward(self, x, features_only: bool = False):
+    def forward(self, x, features_only: bool = False, generator: torch.Generator | None = None):
         """x: (B, H, W, 3) normalized image → logits (B, classes) f32, or one
-        tensor per tier for a multitask head; ``features_only`` → (B, F) f32."""
-        if self.training:
-            raise NotImplementedError(_TRAINING)
+        tensor per tier for a multitask head; ``features_only`` → (B, F) f32.
+        ``generator`` draws the stochastic-depth masks in train mode."""
+        if self.training and self.fuse:
+            raise NotImplementedError(FUSED_TRAINING)
         b = x.shape[0]
         x = x.to(self.dtype).permute(0, 3, 1, 2)
         weight = self.patch_embed.weight.to(self.dtype)
@@ -315,7 +342,8 @@ class SwinTransformerV2(nn.Module):
         if self.patch_norm is not None:
             x = _layer_norm(self.patch_norm, x)
         for name in self.layer_names:
-            x = getattr(self, name)(x)
+            layer = getattr(self, name)
+            x = layer(x, generator) if isinstance(layer, SwinBlock) else layer(x)
         x = _layer_norm(self.norm, x)
         x = x.reshape(b, -1, x.shape[-1]).mean(1).float()  # token average pool
         if features_only:

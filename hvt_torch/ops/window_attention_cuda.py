@@ -1,14 +1,19 @@
-"""Kernel 1: cosine window attention on the packed qkv projection.
+"""Kernel 1: cosine window attention on the packed qkv projection, with its
+backward.
 
-Port of ``window_attention_packed`` (hvt/ops/window_attention_pallas.py:613),
-forward only. ``window_attention_packed`` launches
-``csrc/window_attention.cu`` for a CUDA tensor and runs
-``window_attention_packed_plain`` for a CPU tensor; nothing else selects
-between them. Both compute, per head,
+Port of ``window_attention_packed`` (hvt/ops/window_attention_pallas.py:613)
+and its custom VJP (``_packed_bwd``, :593). ``window_attention_packed`` is a
+``torch.autograd.Function``: its forward launches ``csrc/window_attention.cu``
+for a CUDA tensor and runs ``packed_heads_forward`` for a CPU tensor; its
+backward launches ``csrc/window_attention_bwd.cu`` for a CUDA tensor and runs
+``packed_heads_backward`` for a CPU tensor. Nothing else selects between
+them. Both compute, per head,
 
     out = softmax(exp(min(ls, log 100)) · q̂k̂ᵀ + z) · v,   q̂ = q·rsqrt(Σq² + 1e-24)
 
-in f32, with z = bias (H, N, N) [+ mask (nW, N, N)] and window id = row mod nW.
+in f32 (f64 for f64 inputs on the CPU), with z = bias (H, N, N) [+ mask
+(nW, N, N)] and window id = row mod nW. The gradient of the logit scale is
+zero above the clamp, and the mask gets none.
 """
 
 from __future__ import annotations
@@ -25,81 +30,219 @@ KERNEL = _build.Kernel(
     [_build.P, _build.P, _build.P, _build.I, _build.P, _build.I, _build.I, _build.I,
      _build.I, _build.I, _build.P],
 )
+BWD_KERNEL = _build.Kernel(
+    "window_attention_bwd",
+    "hvt_window_attention_packed_bwd",
+    [_build.P, _build.P, _build.P, _build.P, _build.I, _build.P, _build.P, _build.P, _build.P,
+     _build.P, _build.I, _build.I, _build.I, _build.I, _build.I, _build.I, _build.I, _build.P],
+)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 SMEM_BYTES = 227 * 1024  # the H100's dynamic shared memory per block
+BWD_BLOCKS = 1056  # backward blocks per launch to aim for: 8 per SM of the H100
+LOG_MAX_SCALE = math.log(100.0)
 
 
-def unsupported(n: int, c: int, heads: int) -> str | None:
-    """Why the kernel cannot take windows of ``n`` tokens at width ``c``
-    with ``heads`` heads, or None: one block holds the head's q, k, v and
-    the N x N logits in f32 shared memory."""
+def unsupported(n: int, c: int, heads: int, backward: bool = False) -> str | None:
+    """Why the forward (or the ``backward``) kernel cannot take windows of
+    ``n`` tokens at width ``c`` with ``heads`` heads, or None: one block
+    holds the head's q, k, v (and dO) and the N x N logits (and their
+    gradients) in f32 shared memory."""
     if c % heads:
         return f"width {c} does not split into {heads} heads"
     d = c // heads
-    smem = 4 * (3 * n * (d + 1) + n * (n + 1))
+    if backward:
+        smem = 4 * (4 * n * (d + 1) + 3 * n * (n + 1) + n * n + 2 * n + 8)
+    else:
+        smem = 4 * (3 * n * (d + 1) + n * (n + 1))
     if smem > SMEM_BYTES:
         return (f"windows of {n} tokens at head dim {d} need {smem} B of shared memory "
                 f"(the card has {SMEM_BYTES})")
     return None
 
 
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """f32 arithmetic, or f64 for f64 inputs (the CPU gradient checks)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
 def attention_scale(logit_scale: torch.Tensor) -> torch.Tensor:
-    """(heads, 1, 1) logit scale → (heads,) f32 exp(min(ls, log 100))."""
-    return torch.exp(torch.clamp(logit_scale.float(), max=math.log(100.0))).reshape(-1)
+    """(heads, 1, 1) logit scale → (heads,) exp(min(ls, log 100)) in f32."""
+    ls = logit_scale.to(_acc_dtype(logit_scale))
+    return torch.exp(torch.clamp(ls, max=LOG_MAX_SCALE)).reshape(-1)
 
 
 def merge_bias_mask(bias: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
     """(H, N, N) bias [+ (nW, N, N) mask] → (nWZ, H, N, N) f32, nWZ ∈ {1, nW}."""
+    bias = bias.to(_acc_dtype(bias))
     if mask is None:
-        return bias.float()[None].contiguous()
-    return (bias.float()[None] + mask.float()[:, None]).contiguous()
+        return bias[None].contiguous()
+    return (bias[None] + mask.to(bias.dtype)[:, None]).contiguous()
+
+
+def _split(qkv: torch.Tensor, heads: int):
+    """(g, N, 3C) → q, k, v each (g, H, N, D) in the arithmetic dtype."""
+    g, n, c3 = qkv.shape
+    c = c3 // 3
+    return qkv.to(_acc_dtype(qkv)).reshape(g, n, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
+
+
+def _normalize(x: torch.Tensor):
+    inv = torch.rsqrt((x * x).sum(-1, keepdim=True) + 1e-24)
+    return x * inv, inv
+
+
+def _add_z(logits: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    g, heads, n, _ = logits.shape
+    nwz = z.shape[0]
+    return (logits.reshape(g // nwz, nwz, heads, n, n) + z[None]).reshape(g, heads, n, n)
 
 
 def packed_heads_forward(qkv: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
                          heads: int) -> torch.Tensor:
-    """The f32 attention core on packed qkv (g, N, 3C) → (g, N, C): the plain
+    """The attention core on packed qkv (g, N, 3C) → (g, N, C): the plain
     version of what kernels 1 and 3 compute per (window, head). z is
     (nWZ, H, N, N) with window id = row mod nWZ."""
     g, n, c3 = qkv.shape
-    c = c3 // 3
-    q, k, v = qkv.float().reshape(g, n, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
-    qn = q * torch.rsqrt((q * q).sum(-1, keepdim=True) + 1e-24)
-    kn = k * torch.rsqrt((k * k).sum(-1, keepdim=True) + 1e-24)
-    logits = (qn @ kn.transpose(-1, -2)) * scale.reshape(1, heads, 1, 1)
-    nwz = z.shape[0]
-    logits = (logits.reshape(g // nwz, nwz, heads, n, n) + z[None]).reshape(g, heads, n, n)
+    q, k, v = _split(qkv, heads)
+    qn, _ = _normalize(q)
+    kn, _ = _normalize(k)
+    logits = _add_z((qn @ kn.transpose(-1, -2)) * scale.reshape(1, heads, 1, 1), z)
     out = torch.softmax(logits, dim=-1) @ v  # (g, H, N, d)
-    return out.transpose(1, 2).reshape(g, n, c)
+    return out.transpose(1, 2).reshape(g, n, c3 // 3)
 
 
-def window_attention_packed_plain(qkv, logit_scale, bias, mask=None, *, num_heads):
-    """Plain PyTorch version of kernel 1 (any device)."""
-    z = merge_bias_mask(bias, mask)
-    out = packed_heads_forward(qkv, z, attention_scale(logit_scale), num_heads)
-    return out.to(qkv.dtype)
+def packed_heads_backward(qkv: torch.Tensor, dout: torch.Tensor, z: torch.Tensor,
+                          scale: torch.Tensor, heads: int):
+    """Plain version of the backward kernel (hvt's ``packed_heads_backward``,
+    window_attention_pallas.py:377): recomputes the forward from qkv and
+    returns (dqkv (g, N, 3C) in qkv's dtype, dz (nWZ, H, N, N), dscale (H,)),
+    dz summed over the windows of each window id, both f32 (f64 on f64)."""
+    g, n, c3 = qkv.shape
+    c = c3 // 3
+    nwz = z.shape[0]
+    q, k, v = _split(qkv, heads)
+    go = dout.to(q.dtype).reshape(g, n, heads, c // heads).transpose(1, 2)
+    sc = scale.to(q.dtype).reshape(1, heads, 1, 1)
+    qn, inv_q = _normalize(q)
+    kn, inv_k = _normalize(k)
+    cos = qn @ kn.transpose(-1, -2)
+    attn = torch.softmax(_add_z(cos * sc, z), dim=-1)
+    dv = attn.transpose(-1, -2) @ go
+    dp = go @ v.transpose(-1, -2)
+    ds = attn * (dp - (dp * attn).sum(-1, keepdim=True))
+    dz = ds.reshape(g // nwz, nwz, heads, n, n).sum(0)
+    dscale = (ds * cos).sum((0, 2, 3))
+    dqn = (ds * sc) @ kn
+    dkn = (ds * sc).transpose(-1, -2) @ qn
+    dq = (dqn - qn * (dqn * qn).sum(-1, keepdim=True)) * inv_q
+    dk = (dkn - kn * (dkn * kn).sum(-1, keepdim=True)) * inv_k
+    dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(g, n, c3)
+    return dqkv.to(qkv.dtype), dz, dscale
+
+
+def _check(name: str, qkv: torch.Tensor, z: torch.Tensor, num_heads: int,
+           backward: bool = False) -> None:
+    nwb, n, c3 = qkv.shape
+    why = "3C columns wanted" if c3 % 3 else unsupported(n, c3 // 3, num_heads, backward)
+    if qkv.dtype not in _DTYPES or why:
+        raise ValueError(f"{name}: qkv {tuple(qkv.shape)} {qkv.dtype} with {num_heads} heads: "
+                         f"{why or 'bf16 or f32 wanted'}")
+    if z.shape[1:] != (num_heads, n, n) or nwb % z.shape[0]:
+        raise ValueError(f"{name}: z {tuple(z.shape)} vs qkv {tuple(qkv.shape)}")
+
+
+def packed_forward(qkv: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                   num_heads: int) -> torch.Tensor:
+    """The forward on a merged z and scale: the kernel for a CUDA tensor,
+    ``packed_heads_forward`` for a CPU one. Output in qkv's dtype."""
+    if qkv.device.type == "cpu":
+        return packed_heads_forward(qkv, z, scale, num_heads).to(qkv.dtype)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"window_attention_packed: unsupported device {qkv.device}")
+    z = z.to(qkv.device, torch.float32).contiguous()
+    _check("window_attention_packed", qkv, z, num_heads)
+    nwb, n, c3 = qkv.shape
+    qkv = qkv.contiguous()
+    scale = scale.to(qkv.device, torch.float32).contiguous()
+    out = torch.empty((nwb, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
+    KERNEL(qkv.data_ptr(), scale.data_ptr(), z.data_ptr(), z.shape[0], out.data_ptr(), nwb, n,
+           c3 // 3, num_heads, _DTYPES[qkv.dtype], torch.cuda.current_stream(qkv.device).cuda_stream)
+    return out
+
+
+def backward_chunks(nwb: int, nwz: int, heads: int) -> tuple[int, int]:
+    """(images per block, chunks) of the backward kernel: one block per
+    (chunk of images, window id, head), about BWD_BLOCKS blocks in all."""
+    nb = nwb // nwz
+    per_block = max(1, -(-nb * nwz * heads // BWD_BLOCKS))
+    return per_block, -(-nb // per_block)
+
+
+def packed_backward(qkv: torch.Tensor, dout: torch.Tensor, z: torch.Tensor,
+                    scale: torch.Tensor, num_heads: int):
+    """(dqkv, dz, dscale) of the forward above: the kernel for a CUDA
+    tensor, ``packed_heads_backward`` for a CPU one."""
+    if qkv.device.type == "cpu":
+        return packed_heads_backward(qkv, dout, z, scale, num_heads)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"window_attention_packed backward: unsupported device {qkv.device}")
+    z = z.to(qkv.device, torch.float32).contiguous()
+    _check("window_attention_packed backward", qkv, z, num_heads, backward=True)
+    nwb, n, c3 = qkv.shape
+    if dout.shape != (nwb, n, c3 // 3):
+        raise ValueError(f"window_attention_packed backward: dO {tuple(dout.shape)} "
+                         f"vs qkv {tuple(qkv.shape)}")
+    nwz = z.shape[0]
+    qkv = qkv.contiguous()
+    dout = dout.to(qkv.dtype).contiguous()
+    scale = scale.to(qkv.device, torch.float32).contiguous()
+    per_block, chunks = backward_chunks(nwb, nwz, num_heads)
+    dev = qkv.device
+    dqkv = torch.empty_like(qkv)
+    dz = torch.empty((nwz, num_heads, n, n), dtype=torch.float32, device=dev)
+    dscale = torch.empty((num_heads,), dtype=torch.float32, device=dev)
+    dz_part = torch.empty((chunks, nwz, num_heads, n, n), dtype=torch.float32, device=dev)
+    ds_part = torch.empty((chunks, nwz, num_heads), dtype=torch.float32, device=dev)
+    BWD_KERNEL(qkv.data_ptr(), dout.data_ptr(), scale.data_ptr(), z.data_ptr(), nwz,
+               dqkv.data_ptr(), dz.data_ptr(), dscale.data_ptr(), dz_part.data_ptr(),
+               ds_part.data_ptr(), nwb, n, c3 // 3, num_heads, per_block, chunks,
+               _DTYPES[qkv.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    return dqkv, dz, dscale
+
+
+class _PackedAttention(torch.autograd.Function):
+    """The custom VJP of hvt's ``_packed_attention``: the forward kernel, and
+    a backward that recomputes from qkv (nothing of the forward is saved
+    but its inputs)."""
+
+    @staticmethod
+    def forward(ctx, qkv, logit_scale, bias, mask, num_heads):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(qkv, logit_scale, bias, mask)
+        return packed_forward(qkv, merge_bias_mask(bias, mask), attention_scale(logit_scale),
+                              num_heads)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, logit_scale, bias, mask = ctx.saved_tensors
+        scale = attention_scale(logit_scale)
+        dqkv, dz, dscale = packed_backward(qkv, dout, merge_bias_mask(bias, mask), scale,
+                                           ctx.num_heads)
+        ls = logit_scale.to(scale.dtype).reshape(-1)
+        dls = (dscale * scale * (ls < LOG_MAX_SCALE)).reshape(logit_scale.shape)
+        return dqkv, dls.to(logit_scale.dtype), dz.sum(0).to(bias.dtype), None, None
 
 
 def window_attention_packed(qkv, logit_scale, bias, mask=None, *, num_heads):
-    """qkv (nWB, N, 3C) → (nWB, N, C), same dtype. A CPU tensor takes the
-    plain version; a CUDA tensor (bf16 or f32) takes the kernel."""
-    if qkv.device.type == "cpu":
-        return window_attention_packed_plain(qkv, logit_scale, bias, mask, num_heads=num_heads)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"window_attention_packed: unsupported device {qkv.device}")
-    nwb, n, c3 = qkv.shape
-    c = c3 // 3
-    why = "3C columns wanted" if c3 % 3 else unsupported(n, c, num_heads)
-    if qkv.dtype not in _DTYPES or why:
-        raise ValueError(
-            f"window_attention_packed: qkv {tuple(qkv.shape)} {qkv.dtype} with "
-            f"{num_heads} heads: {why or 'bf16 or f32 wanted'}"
-        )
-    z = merge_bias_mask(bias, mask).to(qkv.device)
-    if z.shape[1:] != (num_heads, n, n) or nwb % z.shape[0]:
-        raise ValueError(f"window_attention_packed: z {tuple(z.shape)} vs qkv {tuple(qkv.shape)}")
-    qkv = qkv.contiguous()
-    scale = attention_scale(logit_scale).to(qkv.device).contiguous()
-    out = torch.empty((nwb, n, c), dtype=qkv.dtype, device=qkv.device)
-    KERNEL(qkv.data_ptr(), scale.data_ptr(), z.data_ptr(), z.shape[0], out.data_ptr(), nwb, n,
-           c, num_heads, _DTYPES[qkv.dtype], torch.cuda.current_stream(qkv.device).cuda_stream)
-    return out
+    """qkv (nWB, N, 3C) → (nWB, N, C), same dtype, differentiable in qkv,
+    logit_scale and bias. A CPU tensor takes the plain versions; a CUDA
+    tensor (bf16 or f32) takes the kernels."""
+    return _PackedAttention.apply(qkv, logit_scale, bias, mask, num_heads)
+
+
+def window_attention_packed_plain(qkv, logit_scale, bias, mask=None, *, num_heads):
+    """Plain PyTorch version of the forward (any device); its gradient is
+    torch autograd's."""
+    z = merge_bias_mask(bias, mask)
+    out = packed_heads_forward(qkv, z, attention_scale(logit_scale), num_heads)
+    return out.to(qkv.dtype)

@@ -1,0 +1,126 @@
+"""Algorithm registry — port of ``hvt/train/algorithms.py``.
+
+Parses every algorithm hvt's configs name (BlurPool, ChannelsLast, EMA,
+GradientClipping, ProgressiveResizing, LabelSmoothing, PretrainedBackbone,
+MixUp, CutMix, SAM, ColOut, RandAugment, StochasticDepth) into a settings
+struct. :func:`unported` names those the port's train step does not run
+yet; the Trainer refuses them rather than ignoring them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from hvt_torch.train.schedule import parse_duration
+
+
+@dataclasses.dataclass(frozen=True)
+class EmaConfig:
+    """Composer EMA: every ``update_interval_steps`` the average moves by
+    decay = 0.5 ** (interval / half_life)."""
+
+    half_life_steps: int = 100
+    update_interval_steps: int = 20
+
+    @classmethod
+    def from_args(cls, args: dict) -> "EmaConfig":
+        half = parse_duration(args.get("half_life", "100ba"))
+        interval = parse_duration(args.get("update_interval", "20ba"))
+        if half.unit != "ba" or interval.unit != "ba":
+            raise ValueError("EMA half_life/update_interval must be in batches ('ba')")
+        return cls(int(half.value), int(interval.value))
+
+
+@dataclasses.dataclass(frozen=True)
+class ProgressiveResizing:
+    initial_scale: float = 0.5
+    delay_fraction: float = 0.4
+    finetune_fraction: float = 0.2
+
+
+@dataclasses.dataclass
+class AlgorithmSettings:
+    blurpool: bool = False
+    channels_last: bool = False  # NHWC is the port's layout already: a no-op
+    ema: Optional[EmaConfig] = None
+    label_smoothing: float = 0.0
+    grad_clip_norm: Optional[float] = None
+    progressive: Optional[ProgressiveResizing] = None
+    mixup_alpha: Optional[float] = None
+    cutmix_alpha: Optional[float] = None
+    sam_rho: Optional[float] = None
+    sam_interval: int = 1
+    stochastic_depth_rate: Optional[float] = None  # read by the model factory
+    pretrained_backbone: Optional[tuple[str, bool]] = None
+    # host-side RandAugment/ColOut belong to the folder train transform
+    colout_device: Optional[tuple[float, float]] = None
+    randaugment_device: Optional[tuple[int, int, bool]] = None
+
+
+def parse_algorithms(config) -> AlgorithmSettings:
+    s = AlgorithmSettings()
+    for algo in config.algorithms:
+        cls, args = algo.cls, dict(algo.args)
+        if cls == "BlurPool":
+            s.blurpool = True
+        elif cls == "ChannelsLast":
+            s.channels_last = True
+        elif cls == "EMA":
+            s.ema = EmaConfig.from_args(args)
+        elif cls == "LabelSmoothing":
+            s.label_smoothing = float(args.get("smoothing", 0.1))
+        elif cls == "GradientClipping":
+            ctype = args.get("clipping_type", "norm")
+            if ctype != "norm":
+                raise ValueError(f"unsupported clipping_type {ctype!r}")
+            s.grad_clip_norm = float(args.get("clipping_threshold", 1.0))
+        elif cls == "ProgressiveResizing":
+            s.progressive = ProgressiveResizing(
+                initial_scale=float(args.get("initial_scale", 0.5)),
+                delay_fraction=float(args.get("delay_fraction", 0.4)),
+                finetune_fraction=float(args.get("finetune_fraction", 0.2)),
+            )
+        elif cls == "MixUp":
+            s.mixup_alpha = float(args.get("alpha", 0.2))
+        elif cls == "CutMix":
+            s.cutmix_alpha = float(args.get("alpha", 1.0))
+        elif cls == "SAM":
+            s.sam_rho = float(args.get("rho", 0.05))
+            s.sam_interval = int(args.get("interval", 1))
+        elif cls == "StochasticDepth":
+            s.stochastic_depth_rate = float(args.get("drop_rate", 0.1))
+        elif cls == "PretrainedBackbone":
+            s.pretrained_backbone = (str(args["checkpoint"]), bool(args.get("strict", False)))
+        elif cls == "ColOut":
+            if bool(args.get("device", False)):
+                s.colout_device = (float(args.get("p_row", 0.05)), float(args.get("p_col", 0.05)))
+        elif cls == "RandAugment":
+            if bool(args.get("device", False)):
+                depth = int(args.get("depth", 1))
+                if depth > 0:
+                    s.randaugment_device = (depth, int(args.get("severity", 9)),
+                                            bool(args.get("stratified", True)))
+        else:
+            raise ValueError(f"unknown algorithm {cls!r}")
+    return s
+
+
+def unported(s: AlgorithmSettings) -> list[str]:
+    """One line per parsed setting the port's train step does not run yet,
+    naming the ROADMAP.md item that ports it."""
+    item4 = "ROADMAP.md queue 1, item 4 (device prep and EMA)"
+    item5 = "ROADMAP.md queue 1, item 5 (train step)"
+    found = [
+        (s.ema is not None, f"EMA: {item4}"),
+        (s.sam_rho is not None, f"SAM: {item5}"),
+        (s.mixup_alpha is not None, f"MixUp: {item4}"),
+        (s.cutmix_alpha is not None, f"CutMix: {item4}"),
+        (s.progressive is not None, f"ProgressiveResizing: {item4}"),
+        (s.randaugment_device is not None,
+         "RandAugment with device: true: ROADMAP.md queue 1, item 6 (training loader)"),
+        (s.colout_device is not None, f"ColOut with device: true: {item4}"),
+        (s.pretrained_backbone is not None,
+         "PretrainedBackbone: ROADMAP.md queue 1, item 8 (checkpoints)"),
+    ]
+    return [why for on, why in found if on]

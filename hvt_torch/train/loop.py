@@ -1,0 +1,123 @@
+"""The Trainer — port of ``Trainer.__init__`` and the step loop of
+``_fit_loop`` in ``hvt/train/loop.py``.
+
+Assembles from a Config the train loader, the durations and lr schedule, the
+model, the objective, the optimizer (with the model's no-decay names and
+gradient clipping) and the train step, on one device (the CUDA card unless
+the caller asks for the CPU), and trains for ``max_duration``.
+
+Not hvt's ``fit()`` yet: hvt evaluates before training and at every
+``eval_interval``, saves periodic and final checkpoints, resumes from
+``load_path``/``auto_resume``, and logs through its RunLogger. This
+Trainer does none of these (evaluation and checkpoints are ROADMAP.md
+queue 1, items 5 and 8): its ``fit()`` runs the train steps and returns the
+train metrics of the last log window. EMA, SAM, MixUp, CutMix, progressive
+resizing, device RandAugment/ColOut, a pretrained backbone and
+``grad_accum`` > 1 are refused, never ignored. ``grad_accum: auto``
+resolves to 1 (hvt probes device memory; the port does not yet).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import torch
+
+from hvt_torch import config as config_lib
+from hvt_torch import device as device_lib
+from hvt_torch import metrics as metrics_lib
+from hvt_torch import objectives as objectives_lib
+from hvt_torch.data import DevicePrep
+from hvt_torch.data.loader import Batch, build_loader
+from hvt_torch.models import build_model
+from hvt_torch.models import swinv2
+from hvt_torch.train import algorithms as algorithms_lib
+from hvt_torch.train import optim as optim_lib
+from hvt_torch.train import schedule as schedule_lib
+from hvt_torch.train import step as step_lib
+
+LOG_INTERVAL = 50  # steps per log window: one host sync and one printed line each
+
+
+class Trainer:
+    def __init__(self, config: config_lib.Config, device=None):
+        self.config = config
+        self.algos = algorithms_lib.parse_algorithms(config)
+        refused = algorithms_lib.unported(self.algos)
+        if refused:
+            raise NotImplementedError("not ported to hvt_torch's train step yet: " + "; ".join(refused))
+        grad_accum = 1 if config.grad_accum == "auto" else int(config.grad_accum)
+        self.device = device_lib.resolve(device)
+
+        # Data ------------------------------------------------------------
+        self.train_loader, self.info = build_loader(config, is_train=True)
+        self.steps_per_epoch = self.train_loader.batches_per_epoch
+
+        # Durations / schedule -------------------------------------------
+        self.total_steps = schedule_lib.parse_duration(config.max_duration).to_steps(
+            self.steps_per_epoch)
+        self.total_epochs = max(1, math.ceil(self.total_steps / self.steps_per_epoch))
+        self.lr_multiplier = schedule_lib.build_multiplier_schedule(
+            config.scheduler, self.steps_per_epoch, self.total_steps)
+
+        # Model / objective / optimizer ----------------------------------
+        model = build_model(config, self.info.num_classes)
+        if model.fuse:
+            raise NotImplementedError(swinv2.FUSED_TRAINING)
+        if self.device.type == "cuda":
+            why = model.cuda_unsupported(config.train_dataset.crop_size, training=True)
+            if why:
+                raise NotImplementedError(
+                    f"the CUDA kernels cannot train {config.model.name}: " + "; ".join(why))
+        self.model = model.to(self.device)
+        self.objective = objectives_lib.build_objective(
+            config, self.info, getattr(self.train_loader.dataset, "classes", None))
+        self.optimizer = optim_lib.build_optimizer(
+            self.model, config.optim, self.lr_multiplier,
+            grad_clip_norm=self.algos.grad_clip_norm,
+            no_decay_substrings=self.model.no_weight_decay_substrings)
+        self.prep = DevicePrep.from_config(config.train_dataset, config.precision)
+        self.settings = step_lib.StepSettings(
+            num_classes=self.info.num_classes, smoothing=self.algos.label_smoothing,
+            grad_accum=grad_accum)
+        self.train_step = step_lib.build_train_step(
+            self.model, self.objective, self.optimizer, self.prep, self.settings)
+        # stochastic-depth draws; hvt folds the step into its key instead
+        self.generator = torch.Generator(self.device).manual_seed(int(config.seed))
+
+    def _to_device(self, batch: Batch):
+        images = torch.from_numpy(batch.images)
+        if self.device.type == "cuda":  # pinned, so the copy does not wait for the card
+            images = images.pin_memory()
+        return (images.to(self.device, non_blocking=True),
+                torch.from_numpy(batch.labels).to(self.device),
+                torch.from_numpy(batch.mask).to(self.device))
+
+    def fit(self, on_step: Optional[Callable[[int, dict], None]] = None) -> dict[str, float]:
+        """Train for ``max_duration`` from the model's current weights; returns the train
+        metrics (acc@1, acc@5, cross-entropy, loss, lr) of the last log
+        window. ``on_step(step, stats)`` is called after each step with its
+        device-side stats."""
+        acc = metrics_lib.MetricAccumulator()
+        window = None
+        last: dict[str, float] = {}
+        step = 0
+        for epoch in range(self.total_epochs):
+            for batch in self.train_loader.epoch(epoch):
+                if step >= self.total_steps:
+                    break
+                stats = self.train_step(*self._to_device(batch), self.generator)
+                window = stats if window is None else {k: window[k] + v for k, v in stats.items()}
+                step += 1
+                if on_step is not None:
+                    on_step(step, stats)
+                if step % LOG_INTERVAL == 0 or step == self.total_steps:
+                    acc.reset()
+                    acc.update(window)  # the one host sync of the window
+                    window = None
+                    last = acc.compute()
+                    last["lr"] = float(self.config.optim.lr * self.lr_multiplier(step))
+                    print(f"[{self.config.run_name}] step {step}/{self.total_steps} "
+                          + " ".join(f"{k} {v:.4g}" for k, v in last.items()), flush=True)
+        return last

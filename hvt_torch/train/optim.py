@@ -1,0 +1,146 @@
+"""Optimizers with Composer semantics — port of ``hvt/train/optim.py``.
+
+hvt builds optax chains; :class:`Optimizer` is a ``torch.optim.Optimizer``
+that repeats their arithmetic step for step (optax's, not torch's defaults):
+
+* ``sgd`` — Nesterov momentum with *coupled* decay (wd·p added to the
+  gradient before the momentum trace), as torch.optim.SGD;
+* ``adamw`` — decoupled decay scaled by the full lr: p −= lr·(adam + wd·p);
+* ``decoupledadamw`` / ``decoupledsgdw`` — Composer's variants, whose decay
+  is scaled by the schedule *multiplier*, not the lr: p −= lr·u + wd·mult·p;
+* gradient clipping first, as ``optax.clip_by_global_norm``: grads times
+  max/‖g‖ when ‖g‖ ≥ max (torch's ``clip_grad_norm_`` divides by ‖g‖ + 1e-6).
+
+The lr of update t (counting from 0) is lr·multiplier(t), so a warmup's
+first update does not move the weights, as in optax. Weight decay applies to
+a parameter iff it has more than one dimension and its name holds none of
+the model's no-decay substrings (hvt's ``decay_mask``). Updates are batched
+with ``torch._foreach_*``, allocate one temporary per Adam group (the
+denominator) and never synchronise with the host. Clipping scales ``p.grad``
+in place, as ``clip_grad_norm_`` does, so after ``step()`` it holds the
+clipped gradient.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Iterable, Optional
+
+import numpy as np
+import torch
+
+from hvt_torch.train.schedule import Schedule
+
+NAMES = ("sgd", "adamw", "decoupledadamw", "decoupledsgdw")
+_B1, _B2, _EPS = 0.9, 0.999, 1e-8  # optax.adamw / scale_by_adam defaults
+
+
+def decay_mask(named_params: Iterable[tuple[str, torch.Tensor]],
+               no_decay_substrings: Iterable[str] = ()) -> dict[str, bool]:
+    """{name: True where weight decay applies}: ndim > 1 and no skip substring."""
+    skip = tuple(no_decay_substrings)
+    return {name: p.ndim > 1 and not any(s in name for s in skip) for name, p in named_params}
+
+
+def _bias_correction(decay: float, t: int) -> float:
+    """1 − decay^t in f32, as optax computes it (at t = 1, f32's 1 − 0.999
+    is 1.3e-5 off the exact 0.001, which moves every Adam update)."""
+    return float(np.float32(1.0) - np.float32(decay) ** np.float32(t))
+
+
+def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
+    """sqrt(Σ‖t‖²) over all tensors, in f32."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)).float())
+
+
+class Optimizer(torch.optim.Optimizer):
+    """One of :data:`NAMES` at base ``lr``, with the schedule ``multiplier``
+    (step → factor of lr) and optional clipping. ``step()`` returns the
+    global norm of the raw gradients, as a tensor on their device."""
+
+    def __init__(self, named_params, name: str, lr: float, weight_decay: float,
+                 momentum: float, multiplier: Schedule, *,
+                 grad_clip_norm: Optional[float] = None,
+                 no_decay_substrings: Iterable[str] = ()):
+        name = name.lower()
+        if name not in NAMES:
+            raise ValueError(f"unknown optimizer {name!r}")
+        named_params = [(n, p) for n, p in named_params if p.requires_grad]
+        mask = decay_mask(named_params, no_decay_substrings)
+        groups = [{"params": [p for n, p in named_params if mask[n] == decay], "decay": decay}
+                  for decay in (True, False)]
+        super().__init__([g for g in groups if g["params"]], {})
+        self.name, self.lr, self.weight_decay, self.momentum = name, lr, weight_decay, momentum
+        self.multiplier = multiplier
+        self.grad_clip_norm = grad_clip_norm
+        self.count = 0  # updates taken; the schedule's step
+
+    @torch.no_grad()
+    def step(self, closure=None) -> torch.Tensor:
+        if closure is not None:
+            raise ValueError("hvt_torch's Optimizer takes no closure")
+        params = [p for g in self.param_groups for p in g["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        norm = global_norm(grads)
+        if self.grad_clip_norm is not None:
+            limit = self.grad_clip_norm
+            torch._foreach_mul_(grads, torch.where(norm < limit, 1.0, limit / norm))
+        mult = float(self.multiplier(self.count))
+        lr, wd, t = self.lr * mult, self.weight_decay, self.count + 1
+        start = 0
+        for group in self.param_groups:
+            ps = group["params"]
+            gs = grads[start:start + len(ps)]
+            start += len(ps)
+            decay = group["decay"] and wd != 0.0
+            if self.name in ("adamw", "decoupledadamw"):
+                mus = self._state(ps, "mu")
+                nus = self._state(ps, "nu")
+                torch._foreach_mul_(mus, _B1)
+                torch._foreach_add_(mus, gs, alpha=1.0 - _B1)
+                torch._foreach_mul_(nus, _B2)
+                torch._foreach_addcmul_(nus, gs, gs, value=1.0 - _B2)
+                # (mu/bc1) / (sqrt(nu/bc2) + eps)
+                #   = (sqrt(bc2)/bc1) · mu / (sqrt(nu) + eps·sqrt(bc2))
+                root_bc2 = math.sqrt(_bias_correction(_B2, t))
+                denom = torch._foreach_sqrt(nus)
+                torch._foreach_add_(denom, _EPS * root_bc2)
+                if decay:  # adamw: p −= lr·wd·p; decoupled: p −= wd·mult·p
+                    torch._foreach_mul_(ps, 1.0 - wd * (lr if self.name == "adamw" else mult))
+                step_size = lr * root_bc2 / _bias_correction(_B1, t)
+                torch._foreach_addcdiv_(ps, mus, denom, value=-step_size)
+            else:
+                if decay and self.name == "sgd":
+                    gs = torch._foreach_add(gs, ps, alpha=wd)
+                traces = self._state(ps, "trace")
+                torch._foreach_mul_(traces, self.momentum)
+                torch._foreach_add_(traces, gs)
+                upd = traces
+                if self.name == "sgd":  # Nesterov: g + momentum·trace
+                    upd = torch._foreach_add(gs, traces, alpha=self.momentum)
+                if decay and self.name == "decoupledsgdw":
+                    torch._foreach_mul_(ps, 1.0 - wd * mult)
+                torch._foreach_add_(ps, upd, alpha=-lr)
+        self.count += 1
+        return norm
+
+    def _state(self, params, key: str) -> list[torch.Tensor]:
+        out = []
+        for p in params:
+            state = self.state[p]
+            if key not in state:
+                state[key] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            out.append(state[key])
+        return out
+
+
+def build_optimizer(model: torch.nn.Module, optim_cfg, multiplier: Schedule, *,
+                    grad_clip_norm: Optional[float] = None,
+                    no_decay_substrings: Iterable[str] = ()) -> Optimizer:
+    """Config → :class:`Optimizer` over the model's parameters."""
+    return Optimizer(model.named_parameters(), optim_cfg.name, float(optim_cfg.lr),
+                     float(optim_cfg.weight_decay), float(optim_cfg.momentum), multiplier,
+                     grad_clip_norm=grad_clip_norm, no_decay_substrings=no_decay_substrings)

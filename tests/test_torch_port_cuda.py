@@ -116,6 +116,41 @@ def test_attention_half_nhwc_kernel(cuda, c, shift):
            f"attention half resid C={c}")
 
 
+@pytest.mark.parametrize("c,shift,dtype", [
+    (96, 0, torch.bfloat16), (96, 3, torch.bfloat16), (768, 0, torch.bfloat16),
+    (96, 3, torch.float32),
+])
+def test_window_attention_packed_backward_kernel(cuda, c, shift, dtype):
+    """Stage 1 (C = 96, unshifted and shifted) and stage 4 (C = 768) widths
+    at batch 2. dqkv is rounded to qkv's dtype at the store: max|Δ| ≤
+    1e-2·max|plain| in bf16, 1e-4 in f32; dbias and dlogit_scale are f32
+    sums over windows in another order: 1e-3."""
+    heads, window = c // 32, 7
+    p = _params(c, heads, 49, cuda, seed=3 * c + shift)
+    p["ls"][0] = 5.0  # above the log 100 clamp
+    mask = torch.as_tensor(wa.shift_attn_mask((14, 14), window, shift), device=cuda) if shift else None
+    xw = wa.window_partition(p["x"], window)
+    qkv = fh.bf16_linear(xw, p["wqkv"], p["bqkv"]).to(dtype).contiguous()
+    dout = torch.randn(qkv.shape[0], 49, c, device=cuda, generator=torch.Generator(cuda).manual_seed(c)).to(dtype)
+
+    def grads(fn):
+        leaves = [qkv.clone().requires_grad_(), p["ls"].clone().requires_grad_(),
+                  p["bias"].clone().requires_grad_()]
+        fn(*leaves, mask, num_heads=heads).backward(dout)
+        return [t.grad for t in leaves]
+
+    before = wac.BWD_KERNEL.launches
+    dq, dls, db = grads(wac.window_attention_packed)
+    torch.cuda.synchronize()
+    assert wac.BWD_KERNEL.launches == before + 1
+    rq, rls, rb = grads(wac.window_attention_packed_plain)  # torch autograd of the plain forward
+    assert wac.BWD_KERNEL.launches == before + 1
+    assert dq.dtype == dtype and dls[0].item() == 0.0
+    _close(dq, rq, 1e-2 if dtype == torch.bfloat16 else 1e-4, f"dqkv C={c} shift={shift}")
+    _close(db, rb, 1e-3, f"dbias C={c} shift={shift}")
+    _close(dls, rls, 1e-3, f"dlogit_scale C={c} shift={shift}")
+
+
 def test_kernels_refuse_unsupported_shapes(cuda):
     """A CUDA tensor the kernel does not take raises; it never falls back."""
     with pytest.raises(ValueError, match="C in"):
@@ -124,3 +159,48 @@ def test_kernels_refuse_unsupported_shapes(cuda):
     with pytest.raises(ValueError, match="bf16"):
         fh.mlp_half(torch.zeros((49, 96), device=cuda), torch.zeros((384, 96), device=cuda),
                     *[None] * 5)
+
+
+def test_training_step_kernel_path_matches_plain_path(cuda, monkeypatch):
+    """One loss and gradient of the tiny SwinV2-T geometry (embed 96, depths
+    2-2, heads 3-6, window 7, 56 px, bf16 activations) from the same seeded
+    weights and batch: kernel path against plain path. Loss within 1e-2
+    relative; every parameter's gradient at cosine ≥ 0.99 and norm within 5%."""
+    import torch.nn as nn
+
+    from hvt_torch.models import swinv2 as tswin
+    from hvt_torch.objectives import soft_cross_entropy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = tswin.SwinTransformerV2(num_classes=10, embed_dim=96, depths=(2, 2), num_heads=(3, 6),
+                                    window_size=7, drop_path_rate=0.0).to(cuda).train()
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():  # every parameter drawn: the zero-init res-post-norm hides no branch
+        for name, p in model.named_parameters():
+            if isinstance(model.get_submodule(name.rsplit(".", 1)[0]), nn.LayerNorm) and name.endswith("weight"):
+                p.copy_(1.0 + 0.1 * torch.randn(p.shape, generator=gen))
+            elif name.endswith("logit_scale"):
+                p.copy_(math.log(10.0) + 0.3 * torch.randn(p.shape, generator=gen))
+            else:
+                p.copy_(torch.randn(p.shape, generator=gen) * (p[0].numel() ** -0.5 if p.ndim > 1 else 0.1))
+    x = torch.randn(8, 56, 56, 3, generator=gen).to(cuda)
+    targets = torch.softmax(torch.randn(8, 10, generator=gen), -1).to(cuda)
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        loss = soft_cross_entropy(model(x), targets)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.float().clone() for n, p in model.named_parameters()}
+
+    before = wac.BWD_KERNEL.launches
+    loss, grads = loss_and_grads()
+    assert wac.BWD_KERNEL.launches == before + 4  # one per block
+    monkeypatch.setattr(wac, "window_attention_packed", wac.window_attention_packed_plain)
+    ref_loss, ref = loss_and_grads()
+    assert wac.BWD_KERNEL.launches == before + 4
+    assert abs(loss - ref_loss) <= 1e-2 * abs(ref_loss)
+    for name, g in grads.items():
+        r = ref[name]
+        cos = float((g * r).sum() / (g.norm() * r.norm()))
+        assert cos >= 0.99 and abs(float(g.norm() / r.norm()) - 1.0) <= 0.05, (name, cos)

@@ -271,14 +271,23 @@ for m in pkgutil.walk_packages(hvt_torch.__path__, "hvt_torch."):
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "hvt"))))
+print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] == "hvt_torch")))
 """
+# the training slice's modules, which the walk above must reach
+_TRAINING_MODULES = {
+    "hvt_torch.main", "hvt_torch.objectives", "hvt_torch.metrics", "hvt_torch.models.common",
+    "hvt_torch.train.algorithms", "hvt_torch.train.loop", "hvt_torch.train.optim",
+    "hvt_torch.train.schedule", "hvt_torch.train.step", "hvt_torch.ops.window_attention_cuda",
+}
 
 
 def test_port_imports_neither_jax_nor_hvt():
     out = subprocess.run([sys.executable, "-c", _IMPORTS_EVERYTHING], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    foreign, imported = (json.loads(line) for line in out.stdout.strip().splitlines()[-2:])
+    assert foreign == []
+    assert _TRAINING_MODULES <= set(imported), _TRAINING_MODULES - set(imported)
     # and no import of them hides inside a function
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|hvt)(\.|\s|$)", re.M)
     for path in [*sorted((ROOT / "hvt_torch").rglob("*.py")), ROOT / "chip_smoke.py"]:
