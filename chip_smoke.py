@@ -2,8 +2,8 @@
 """Quickest proof that the hvt_torch port runs on one NVIDIA GPU.
 
     python3 chip_smoke.py              # needs one CUDA card; builds the kernels itself
-    python3 chip_smoke.py --profile    # also: per-kernel device time of one forward per
-                                       # route and of one training step
+    python3 chip_smoke.py --profile    # also: per-kernel device time of one forward and
+                                       # of one training step per route
 
 Phases, in order; any failure exits non-zero and prints no result:
   1. the card's name and power limit (nvidia-smi);
@@ -18,16 +18,20 @@ Phases, in order; any failure exits non-zero and prints no result:
      kernel path must match the same model's plain path on the card;
   5. times: each kernel, its plain version and a library call where one
      computes the same function, at batch 64; images/s per route;
-  6. the backward kernel against its plain version at every SwinV2-T block
-     shape at batch 128 (dqkv, dz → dbias, dlogit_scale; one head's logit
-     scale above the log 100 clamp, whose gradient must be exactly 0), then
-     timed beside its bound, the plain version and SDPA's backward;
-  7. the training path: ``hvt_torch.main.main`` trains SwinV2-T (10,000
-     classes, batch 128, configs/pretrain/swinv2_tiny.yaml's recipe) for 30
-     steps on the synthetic source: finite losses, 12 launches of the forward
-     and of the backward kernel per step, step ms and images/s; then one
-     step's loss and gradients, from the same weights and batch, on the
-     kernel path against the plain path.
+  6. the backward kernels against their plain versions at every SwinV2-T
+     block shape at batch 128: the packed attention's (dqkv, dz → dbias,
+     dlogit_scale) and the fused halves' (every gradient of each half, with
+     one image's drop-path scale 0 and one's 1/keep); one head's logit scale
+     sits above the log 100 clamp, and its gradient must be exactly 0. Then
+     each is timed through the model's backward beside its bound and its
+     plain version (and SDPA's backward for the packed kernel);
+  7. the training path, once per route (model.args.fuse false, then true):
+     ``hvt_torch.main.main`` trains SwinV2-T (10,000 classes, batch 128,
+     configs/pretrain/swinv2_tiny.yaml's recipe) for 30 steps on the
+     synthetic source: finite losses, 12 launches per step of each kernel
+     of the route (0 of the other route's), step ms, images/s and peak
+     memory; then one step's loss and gradients, from the same weights and
+     batch, on the kernel path against the plain path.
 
 Comparisons run with TF32 off (cuDNN and matmul), so the f32 parts of the
 plain path (patch-embed conv, head) are true f32. The kernel table goes on a
@@ -71,6 +75,23 @@ KERNELS = {  # name: (source, TPU kernel it replaces, route of the main path)
 }
 BWD_KERNEL = "window_attention_packed_bwd"
 BWD_SOURCE = ("hvt_torch/ops/csrc/window_attention_bwd.cu", "hvt/ops/window_attention_pallas.py:558")
+FUSED_BWD = {  # name: (source, TPU kernel it replaces) — the fuse: true route's backward
+    "mlp_half_bwd": ("hvt_torch/ops/csrc/fused_halves_bwd.cu",
+                     "hvt/ops/fused_halves_pallas.py:371"),
+    "attention_half_nhwc_bwd": ("hvt_torch/ops/csrc/fused_halves_bwd.cu",
+                                "hvt/ops/fused_halves_pallas.py:1386"),
+}
+TRAIN_KERNELS = {  # kernels each training step launches 12 times, per route
+    False: ("window_attention_packed_fwd", BWD_KERNEL),
+    True: ("mlp_half_fwd", "attention_half_nhwc_fwd", *FUSED_BWD),
+}
+# Kernel names of each route's backward and forward in a profile.
+PROFILE_NAMES = {
+    False: {"backward": ("packed_attention_bwd",), "forward": ("packed_attention_fwd",)},
+    True: {"backward": ("mlp_half_bwd_rows", "attn_half_bwd_", "grad_tn", "sum_parts"),
+           "forward": ("mlp_half_fwd", "attn_half_nhwc_fwd")},
+}
+KEEP = 0.8  # drop-path keep probability of the scales in phase 6's inputs
 # max|kernel - plain| ≤ TOL·max|plain|: both sides share the arithmetic
 # contract (bf16 operands, f32 accumulation, f32 softmax/LayerNorm) and
 # differ only in summation order and the odd bf16 rounding flip of an
@@ -82,6 +103,17 @@ TOL = {"window_attention_packed_fwd": 1e-2, "mlp_half_fwd": 2e-2,
 # forward); dbias and dlogit_scale are f32 sums over up to 8,192 windows in
 # another order (1e-3).
 BWD_TOL = {"dqkv": 1e-2, "dbias": 1e-3, "dlogit_scale": 1e-3}
+# The fused halves' backward kernels against their plain versions, every
+# gradient relative to max|plain|: both sides round every product's operands
+# to bf16 (hvt's _dot/_dot_t, weight gradients included) and dx to bf16 at
+# the store, so they differ in summation order and where an operand rounds
+# apart: the forward halves' 2e-2.
+FUSED_BWD_TOL = 2e-2
+FUSED_GRADS = {
+    "mlp_half_bwd": ("dx", "dw1", "db1", "dw2", "db2", "dlns", "dlnb"),
+    "attention_half_nhwc_bwd": ("dx", "dwqkv", "dbqkv", "dlogit_scale", "dbias", "dwproj",
+                                "dbproj", "dlns", "dlnb"),
+}
 # Phase 7, one training step on the kernel path against the plain path.
 LOSS_RTOL = 1e-2
 GRAD_COSINE = 0.99
@@ -123,37 +155,55 @@ def kernel_counters():
     from hvt_torch.ops import window_attention_cuda as wac
 
     return {"window_attention_packed_fwd": wac.KERNEL, "mlp_half_fwd": fh.MLP_KERNEL,
-            "attention_half_nhwc_fwd": fh.ATTN_KERNEL, BWD_KERNEL: wac.BWD_KERNEL}
+            "attention_half_nhwc_fwd": fh.ATTN_KERNEL, BWD_KERNEL: wac.BWD_KERNEL,
+            "mlp_half_bwd": fh.MLP_BWD_KERNEL, "attention_half_nhwc_bwd": fh.ATTN_BWD_KERNEL}
+
+
+@contextlib.contextmanager
+def swapped(module, **plain):
+    """Module attributes replaced by ``plain`` for the duration, then put back."""
+    saved = {name: getattr(module, name) for name in plain}
+    for name, fn in plain.items():
+        setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
 
 
 @contextlib.contextmanager
 def plain_versions():
     """The model's kernel wrappers swapped for their plain versions: the
-    reference the kernel path is held against. Only this script does this."""
+    reference the kernel path is held against. Only this script does this.
+    The packed attention becomes the plain forward under torch autograd; the
+    fused halves keep their autograd Functions with the plain forward and
+    backward in the kernels' place."""
     from hvt_torch.ops import fused_halves_cuda as fh
     from hvt_torch.ops import window_attention_cuda as wac
 
-    saved = wac.window_attention_packed, fh.mlp_half, fh.attention_half_nhwc
-    wac.window_attention_packed = wac.window_attention_packed_plain
-    fh.mlp_half, fh.attention_half_nhwc = fh.mlp_half_plain, fh.attention_half_nhwc_plain
-    try:
+    with swapped(wac, window_attention_packed=wac.window_attention_packed_plain), \
+            swapped(fh, mlp_half_forward=fh.mlp_half_plain,
+                    attention_half_nhwc_forward=fh.attention_half_nhwc_plain), \
+            plain_fused_backward():
         yield
-    finally:
-        wac.window_attention_packed, fh.mlp_half, fh.attention_half_nhwc = saved
 
 
-@contextlib.contextmanager
 def plain_backward():
-    """The backward kernel's wrapper swapped for its plain version inside
-    the attention's autograd Function, which keeps its set-up and tail."""
+    """The packed backward kernel's wrapper swapped for its plain version
+    inside the attention's autograd Function, which keeps its set-up and tail."""
     from hvt_torch.ops import window_attention_cuda as wac
 
-    saved = wac.packed_backward
-    wac.packed_backward = wac.packed_heads_backward
-    try:
-        yield
-    finally:
-        wac.packed_backward = saved
+    return swapped(wac, packed_backward=wac.packed_heads_backward)
+
+
+def plain_fused_backward():
+    """The fused halves' backward wrappers swapped for their plain versions
+    inside the autograd Functions, which keep their set-up and tail."""
+    from hvt_torch.ops import fused_halves_cuda as fh
+
+    return swapped(fh, mlp_half_backward=fh.mlp_half_backward_plain,
+                   attention_half_nhwc_backward=fh.attention_half_nhwc_backward_plain)
 
 
 # ---------------------------------------------------------------------------
@@ -420,6 +470,114 @@ def backward_records(timing: bool) -> dict:
     return rec
 
 
+def fused_backward_cases(p):
+    """(name, half, leaves, bytes, operations) of one stage's two fused
+    halves at TRAIN_BATCH, called as the model's block calls them: image 0's
+    drop-path scale 0, image 1's 1/keep, head 0's logit scale above the log
+    100 clamp. Bytes: x and g read and dx written (bf16), the weights read
+    (bf16), the gradients written (f32) and z read and dz written (f32)."""
+    from hvt_torch.ops import fused_halves_cuda as fh
+
+    x, c, heads, grid, shift = p["x"], p["c"], p["heads"], p["grid"], p["shift"]
+    tokens, n = x.shape[0] * grid * grid, WINDOW * WINDOW
+    p["logit_scale"][0] = 5.0
+    p["dp"][0], p["dp"][1] = 0.0, 1.0 / KEEP
+    nwz = 1 if p["mask"] is None else p["mask"].shape[0]
+
+    def mlp(xt, w1, b1, w2, b2, lns, lnb):
+        return fh.mlp_half(xt, w1, b1, w2, b2, lns, lnb, tpi=grid * grid, dp=p["dp"])
+
+    def attn(xm, wq, bq, ls, bias, wp, bp, lns, lnb):
+        return fh.attention_half_nhwc(xm, wq, bq, ls, bias, p["mask"], wp, bp, lns, lnb, WINDOW,
+                                      heads, dp=p["dp"], shift=shift)
+
+    io = 2 * 3 * tokens * c
+    return [
+        ("mlp_half_bwd", mlp,
+         [x.reshape(tokens, c)] + [p[k] for k in ("w1", "b1", "w2", "b2", "lns", "lnb")],
+         io + 2 * 8 * c * c + 4 * (8 * c * c + 7 * c), 48 * tokens * c * c),
+        ("attention_half_nhwc_bwd", attn,
+         [x] + [p[k] for k in ("wqkv", "bqkv", "logit_scale", "bias", "wproj", "bproj", "lns",
+                               "lnb")],
+         io + 2 * 4 * c * c + 4 * (4 * c * c + 6 * c) + 2 * 4 * nwz * heads * n * n,
+         (24 * c * c + 10 * n * c) * tokens),
+    ]
+
+
+def fused_backward_records(timing: bool) -> dict:
+    """The fused halves' backward kernels through their autograd Functions
+    against the same Functions with the plain backward in the kernel's
+    place, at every SwinV2-T block shape (check), or timed as the model runs
+    them (``torch.autograd.grad`` through the Function, its set-up and tail
+    included), the launch wrapper alone and the plain version. Per training
+    step: the 12 launches of each summed."""
+    import torch
+
+    from hvt_torch.ops import fused_halves_cuda as fh
+    from hvt_torch.ops import window_attention_cuda as wac
+
+    records = {name: {"max_abs_err": 0.0, "bytes": 0, "flops": 0, "stages": []}
+               for name in FUSED_BWD}
+    for stage, shift, blocks in block_shapes():
+        p = stage_inputs(stage, shift, seed=300 + 10 * stage + shift, batch=TRAIN_BATCH)
+        gen = torch.Generator("cuda").manual_seed(400 + 10 * stage + shift)
+        for name, half, leaves, nbytes, flops in fused_backward_cases(p):
+            rec = records[name]
+            st = {"stage": stage + 1, "shift": shift, "launches_per_forward": blocks,
+                  "bytes": nbytes, "flops": flops, "library_ms": None}
+            rec["bytes"] += blocks * nbytes
+            rec["flops"] += blocks * flops
+            ls = [t.detach().clone().requires_grad_() for t in leaves]
+            out = half(*ls)
+            g = torch.randn(out.shape, device="cuda", generator=gen).bfloat16()
+            if timing:
+                model_bwd = lambda: torch.autograd.grad(out, ls, g, retain_graph=True)  # noqa: E731
+                st["ms"] = cuda_time_ms(model_bwd, iters=10)
+                if name == "mlp_half_bwd":
+                    wrapper = lambda: fh.mlp_half_backward(  # noqa: E731
+                        leaves[0], *leaves[1:6], g, tpi=p["grid"] ** 2, dp=p["dp"])
+                else:
+                    z = wac.merge_bias_mask(p["bias"], p["mask"])
+                    scale = wac.attention_scale(p["logit_scale"])
+                    wrapper = lambda: fh.attention_half_nhwc_backward(  # noqa: E731
+                        leaves[0], p["wqkv"], p["bqkv"], scale, z, p["wproj"], p["bproj"], p["lns"],
+                        g, WINDOW, p["heads"], dp=p["dp"], shift=shift)
+                st["wrapper_ms"] = cuda_time_ms(wrapper, iters=10)
+                with plain_fused_backward():
+                    st["plain_ms"] = cuda_time_ms(model_bwd, iters=3, warmup=1)
+            else:
+                got = torch.autograd.grad(out, ls, g, retain_graph=True)
+                torch.cuda.synchronize()
+                with plain_fused_backward():
+                    ref = torch.autograd.grad(out, ls, g)
+                errs = {}
+                for key, a, b in zip(FUSED_GRADS[name], got, ref):
+                    a, b = a.float(), b.float()
+                    err, top = float((a - b).abs().max()), float(b.abs().max())
+                    errs[key] = err / top if top else err
+                    if not (bool(torch.isfinite(a).all()) and err <= FUSED_BWD_TOL * top):
+                        raise AssertionError(f"{name} {key} disagrees with its plain version at "
+                                             f"stage {stage + 1}, shift {shift}: max|Δ| {err:.4g} "
+                                             f"vs max|plain| {top:.4g}")
+                if name == "attention_half_nhwc_bwd" and float(got[3].reshape(-1)[0]) != 0.0:
+                    raise AssertionError(f"{name}: gradient above the logit-scale clamp "
+                                         f"{float(got[3].reshape(-1)[0])}, not 0")
+                worst = max(errs, key=errs.get)
+                log(f"  {name:23s} stage {stage + 1} shift={shift}: every gradient within "
+                    f"{FUSED_BWD_TOL}·max|plain| (worst {worst} {errs[worst]:.3g}·max|plain|; "
+                    f"dx {errs['dx']:.3g}) ok")
+                st["max_abs_err"] = float((got[0].float() - ref[0].float()).abs().max())
+                st["relative_errors"] = errs
+                rec["max_abs_err"] = max(rec["max_abs_err"], st["max_abs_err"])
+            rec["stages"].append(st)
+            del out, ls, g
+        del p
+        torch.cuda.empty_cache()
+    for rec in records.values():
+        finish_record(rec, timing)
+    return records
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path, one InferenceEngine per route
 # ---------------------------------------------------------------------------
@@ -661,10 +819,10 @@ def training_config(**model_args):
     })
 
 
-def train_run() -> dict:
-    """Drive the main path: hvt_torch.main.main(config), with every launch
-    counter set to 0 just before and read just after. A CUDA event after
-    each step times it; the losses are read back after the run."""
+def train_run(fuse: bool) -> dict:
+    """Drive the main path of one route: hvt_torch.main.main(config), with
+    every launch counter set to 0 just before and read just after. A CUDA
+    event after each step times it; the losses are read back after the run."""
     import torch
 
     from hvt_torch import main as main_lib
@@ -678,7 +836,8 @@ def train_run() -> dict:
         events.append(ev)
         losses.append(stats["loss_sum"])
 
-    config = training_config()
+    config = training_config(fuse=fuse)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.launches = 0
@@ -691,17 +850,18 @@ def train_run() -> dict:
     step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]  # step 2 onwards
     steady = sorted(step_ms[4:])  # the steps after the first 5
     median_ms = steady[len(steady) // 2]
-    log(f"  {len(losses)} steps: loss {losses[0]:.4f} → {losses[-1]:.4f}; step {median_ms:.2f} ms "
+    log(f"  fuse={fuse}: {len(losses)} steps: loss {losses[0]:.4f} → {losses[-1]:.4f}; step {median_ms:.2f} ms "
         f"median after the first 5 ({TRAIN_BATCH / median_ms * 1e3:.1f} img/s); launches "
         f"{launches}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
         f"{wall_s:.1f} s in all")
     if len(losses) != TRAIN_STEPS or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"training losses: {losses}")
     for name, n in launches.items():
-        want = 12 * TRAIN_STEPS if name in ("window_attention_packed_fwd", BWD_KERNEL) else 0
+        want = 12 * TRAIN_STEPS if name in TRAIN_KERNELS[fuse] else 0
         if n != want:
-            raise AssertionError(f"{name}: {n} launches in {TRAIN_STEPS} training steps, expected {want}")
-    return {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "launches": launches, "losses": losses,
+            raise AssertionError(f"{name}: {n} launches in {TRAIN_STEPS} training steps on the "
+                                 f"fuse={fuse} route, expected {want}")
+    return {"fuse": fuse, "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "launches": launches, "losses": losses,
             "step_ms": step_ms, "step_ms_median": median_ms,
             "images_per_s": TRAIN_BATCH / median_ms * 1e3, "wall_s": wall_s,
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30, "metrics": metrics}
@@ -718,7 +878,7 @@ def train_batch(seed: int):
             torch.ones(TRAIN_BATCH, device="cuda"))
 
 
-def gradient_check() -> dict:
+def gradient_check(fuse: bool) -> dict:
     """One step's loss and parameter gradients from the same seeded weights
     and batch (drop path 0) on the kernel path and on the plain path."""
     import torch
@@ -728,7 +888,7 @@ def gradient_check() -> dict:
     from hvt_torch.data import device as device_prep
     from hvt_torch.models import build_model
 
-    config = training_config(drop_path_rate=0.0)
+    config = training_config(drop_path_rate=0.0, fuse=fuse)
     model = build_model(config, CLASSES).cuda().train()
     randomize_(model, seed=13)
     prep = DevicePrep.from_config(config.train_dataset, config.precision)
@@ -751,7 +911,7 @@ def gradient_check() -> dict:
         rows.append((cos, float(g.norm() / r.norm().clamp_min(1e-30)), name))
     worst = min(rows, key=lambda row: (row[0], -abs(row[1] - 1.0)))
     worst_norm = max(rows, key=lambda row: abs(row[1] - 1.0))
-    log(f"  loss kernel path {loss:.6f}, plain path {ref_loss:.6f}; {len(rows)} gradient tensors: "
+    log(f"  fuse={fuse}: loss kernel path {loss:.6f}, plain path {ref_loss:.6f}; {len(rows)} gradient tensors: "
         f"worst cosine {worst[0]:.6f} ({worst[2]}), worst norm ratio {worst_norm[1]:.4f} "
         f"({worst_norm[2]})")
     bad = [r for r in rows if r[0] < GRAD_COSINE or abs(r[1] - 1.0) > GRAD_NORM_RTOL]
@@ -765,9 +925,9 @@ def gradient_check() -> dict:
             "worst_norm_ratio": worst_norm[1], "worst_norm_tensor": worst_norm[2]}
 
 
-def profile_train_step() -> dict:
-    """Device time by kernel over one training step (--profile), after two
-    warm-up steps, through the Trainer's own step. Only kernel rows are
+def profile_train_step(fuse: bool) -> dict:
+    """Device time by kernel over one training step of the route (--profile),
+    after two warm-up steps, through the Trainer's own step. Only kernel rows are
     summed: an operator's row repeats the time of the kernels it launched,
     and a user annotation's (``Optimizer.step#...``) the time it spans."""
     import torch
@@ -775,7 +935,7 @@ def profile_train_step() -> dict:
 
     from hvt_torch.train.loop import Trainer
 
-    trainer = Trainer(training_config())
+    trainer = Trainer(training_config(fuse=fuse))
     batch = next(trainer.train_loader.epoch(0))
     for _ in range(2):
         trainer.train_step(*trainer._to_device(batch), trainer.generator)
@@ -796,8 +956,9 @@ def profile_train_step() -> dict:
     rows.sort(key=lambda r: -r["ms_per_step"])
     ops.sort(key=lambda r: -r["ms_per_step"])
     total = sum(r["ms_per_step"] for r in rows)
-    bwd = sum(r["ms_per_step"] for r in rows if "packed_attention_bwd" in r["name"])
-    fwd = sum(r["ms_per_step"] for r in rows if "packed_attention_fwd" in r["name"])
+    names = PROFILE_NAMES[fuse]
+    bwd = sum(r["ms_per_step"] for r in rows if any(k in r["name"] for k in names["backward"]))
+    fwd = sum(r["ms_per_step"] for r in rows if any(k in r["name"] for k in names["forward"]))
     optimizer = optimizer_times(trainer.optimizer)
     del trainer
     torch.cuda.empty_cache()
@@ -909,41 +1070,68 @@ def main(argv=None) -> int:
             f"{st['bytes'] / H100_BYTES_PER_S * 1e3:.3f}/{st['plain_ms']:.3f}/{st['library_ms']:.3f}"
             for st in bwd["stages"]))
 
+    log(f"[6] fused halves' backward kernels vs plain versions, bf16, batch {TRAIN_BATCH}")
+    fused_checked = fused_backward_records(timing=False)
+    fused = fused_backward_records(timing=True)
+    for name, rec in fused.items():
+        wrapper_ms = sum(st["launches_per_forward"] * st["wrapper_ms"] for st in rec["stages"])
+        log(f"  {name}: {rec['ms']:.4f} ms kernel through the model's backward ({wrapper_ms:.4f} ms "
+            f"in the launch wrapper alone), {rec['plain_ms']:.4f} ms plain, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}), library none, per training step on {card}; per launch (model "
+            f"backward/wrapper/bound/plain): " + "; ".join(
+                f"stage {st['stage']} shift {st['shift']} {st['ms']:.3f}/{st['wrapper_ms']:.3f}/"
+                f"{max(st['bytes'] / H100_BYTES_PER_S, st['flops'] / H100_BF16_FLOPS) * 1e3:.3f}/"
+                f"{st['plain_ms']:.3f}" for st in rec["stages"]))
+
     log(f"[7] training SwinV2-T at 224 px, {CLASSES} classes, batch {TRAIN_BATCH}, "
-        f"{TRAIN_STEPS} steps (hvt_torch.main)")
-    train = train_run()
-    train["gradients"] = gradient_check()
+        f"{TRAIN_STEPS} steps (hvt_torch.main), per route")
+    train = {}
+    for fuse in (False, True):
+        train[f"fuse={fuse}"] = train_run(fuse)
+        train[f"fuse={fuse}"]["gradients"] = gradient_check(fuse)
     kernels.append({
         "name": BWD_KERNEL, "route": "cuda", "source": BWD_SOURCE[0], "replaces": BWD_SOURCE[1],
-        "launches": train["launches"][BWD_KERNEL] // TRAIN_STEPS,
+        "launches": train["fuse=False"]["launches"][BWD_KERNEL] // TRAIN_STEPS,
         "max_abs_err": bwd_checked["max_abs_err"], "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"],
     })
+    for name, (source, replaces) in FUSED_BWD.items():
+        rec = fused[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": train["fuse=True"]["launches"][name] // TRAIN_STEPS,
+            "max_abs_err": fused_checked[name]["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None,
+        })
 
     report = {"card": card, "batch": BATCH, "kernels": kernels, "routes": routes,
               "kernel_stages": {k: {"check": checked[k]["stages"], "timed": timed[k]["stages"]}
                                 for k in KERNELS},
               "backward_stages": {"check": bwd_checked["stages"], "timed": bwd["stages"]},
+              "fused_backward_stages": {k: {"check": fused_checked[k]["stages"],
+                                            "timed": fused[k]["stages"]} for k in FUSED_BWD},
               "train": train}
     if args.profile:
         report["profile"] = {f"fuse={f}": profile_route(f) for f in (False, True)}
         for route, rows in report["profile"].items():
             log(f"  profile {route}: " + "; ".join(
                 f"{r['name'][:40]} {r['ms_per_forward']:.3f} ms x{r['calls']}" for r in rows[:8]))
-        prof = report["profile"]["train_step"] = profile_train_step()
-        prof["share_of_median_step"] = prof["device_ms"] / train["step_ms_median"]
-        log(f"  profile train step: {prof['device_ms']:.2f} ms of kernel time in a {prof['step_ms']:.2f} ms "
-            f"profiled step (busy {100 * prof['busy_share']:.1f}%; "
-            f"{100 * prof['share_of_median_step']:.1f}% of phase 7's median step), backward kernel "
-            f"{prof['backward_kernel_ms']:.3f} ms ({100 * prof['backward_kernel_share']:.1f}%), "
-            f"forward kernel {prof['forward_kernel_ms']:.3f} ms; " + "; ".join(
-                f"{r['name'][:40]} {r['ms_per_step']:.3f} ms x{r['calls']}" for r in prof["rows"][:10]))
-        opt = prof["optimizer"]
-        log(f"  optimizer update alone (median of 5): host {opt['host_ms']:.3f} ms, device span "
-            f"{opt['span_ms']:.3f} ms, kernel time {opt['kernel_ms']:.3f} ms")
-        log("  profile train step by operator (device time of the kernels each launched; "
-            "Optimizer.step's is the span of its launches): " + "; ".join(
-            f"{r['name'][:40]} {r['ms_per_step']:.3f} ms x{r['calls']}" for r in prof["ops"][:12]))
+        for fuse in (False, True):
+            prof = report["profile"][f"train_step fuse={fuse}"] = profile_train_step(fuse)
+            prof["share_of_median_step"] = prof["device_ms"] / train[f"fuse={fuse}"]["step_ms_median"]
+            log(f"  profile train step fuse={fuse}: {prof['device_ms']:.2f} ms of kernel time in a "
+                f"{prof['step_ms']:.2f} ms profiled step (busy {100 * prof['busy_share']:.1f}%; "
+                f"{100 * prof['share_of_median_step']:.1f}% of phase 7's median step), backward "
+                f"kernels {prof['backward_kernel_ms']:.3f} ms ({100 * prof['backward_kernel_share']:.1f}%), "
+                f"forward kernels {prof['forward_kernel_ms']:.3f} ms; " + "; ".join(
+                    f"{r['name'][:40]} {r['ms_per_step']:.3f} ms x{r['calls']}" for r in prof["rows"][:12]))
+            opt = prof["optimizer"]
+            log(f"  optimizer update alone (median of 5): host {opt['host_ms']:.3f} ms, device span "
+                f"{opt['span_ms']:.3f} ms, kernel time {opt['kernel_ms']:.3f} ms")
+            log("  profile train step by operator (device time of the kernels each launched; "
+                "Optimizer.step's is the span of its launches): " + "; ".join(
+                f"{r['name'][:40]} {r['ms_per_step']:.3f} ms x{r['calls']}" for r in prof["ops"][:12]))
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     print(json.dumps({"kernels": kernels}))

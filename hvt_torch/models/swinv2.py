@@ -18,15 +18,16 @@ default); the head runs in f32. Two routes, as in hvt:
   (kernel 3, with the cyclic shift folded into its gather) and ``mlp_half``
   (kernel 2), each returning x + branch.
 
-On CPU tensors every kernel call runs its plain version. Training (train
-mode, stochastic depth at hvt's per-block rates ``linspace(0, rate, depth)``,
-gradients through kernel 1's backward) runs on the ``fuse=False`` route; a
-``fuse=True`` model in train mode raises until the fused halves' backward
-kernels are ported. hvt's TPU routing knobs (``use_pallas``, ``fallback_xla``,
-``fuse_attn_train``, ``fuse_mlp_chunked``, ``fuse_nhwc``, ``fuse_resid``)
-are accepted and change nothing here: their VMEM gating has no counterpart on
-this card, and every fused block takes the NHWC attention kernel with the
-residual fused (s = 1 in eval).
+On CPU tensors every kernel call runs its plain version. Both routes train
+(train mode, stochastic depth at hvt's per-block rates ``linspace(0, rate,
+depth)``): ``fuse=False`` through kernel 1's backward, ``fuse=True`` through
+the fused halves' backward kernels, each half taking a per-image drop-path
+scale s drawn as hvt draws it (one mask per half). hvt's TPU routing knobs
+(``use_pallas``, ``fallback_xla``, ``fuse_attn_train``, ``fuse_mlp_chunked``,
+``fuse_nhwc``, ``fuse_resid``) are accepted and change nothing here: their
+VMEM gating has no counterpart on this card, and every fused block takes the
+NHWC attention kernel and the MLP kernel with the residual fused (s = 1 in
+eval).
 """
 
 from __future__ import annotations
@@ -40,17 +41,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from hvt_torch.models.common import drop_path
+from hvt_torch.models.common import drop_path, drop_path_scale
 from hvt_torch.models.heads import MultitaskHead
 from hvt_torch.ops import fused_halves_cuda as fh
 from hvt_torch.ops import window_attention as wa
 from hvt_torch.ops import window_attention_cuda as wac
-
-FUSED_TRAINING = (
-    "hvt_torch trains SwinV2 on the fuse=false route only: the backward kernels of the "
-    "fused halves are ROADMAP.md queue 2, items 1-2. Set model.args.fuse: false, or call "
-    ".eval() to serve."
-)
 
 
 def _trunc02_(w: torch.Tensor, gen: torch.Generator) -> None:
@@ -150,7 +145,7 @@ class SwinBlock(nn.Module):
             window, shift = min(h, w), 0
         mask = _shift_mask(h, w, window, shift, str(x.device)) if shift else None
         if self.fuse and h % window == 0 and w % window == 0:
-            return self._fused(x, window, shift, mask)
+            return self._fused(x, window, shift, mask, generator)
 
         shortcut = x
         xs = torch.roll(x, (-shift, -shift), (1, 2)) if shift else x
@@ -162,19 +157,26 @@ class SwinBlock(nn.Module):
         x = shortcut + drop_path(_layer_norm(self.norm1, y), rate, training, generator)
         return x + drop_path(_layer_norm(self.norm2, self.mlp(x)), rate, training, generator)
 
-    def _fused(self, x, window: int, shift: int, mask):
-        """Both halves as fused kernels, each returning x + s·branch (s = 1)."""
+    def _fused(self, x, window: int, shift: int, mask, generator):
+        """Both halves as fused kernels, each returning x + s·branch: s is the
+        half's per-image drop-path scale in train mode (the attention half's
+        drawn first, as hvt's ``_fused_call``), else 1."""
         b, h, w, c = x.shape
         attn, mlp = self.attn, self.mlp
-        s = torch.ones(b, dtype=torch.float32, device=x.device)
+
+        def scale():
+            if self.training and self.drop_path_rate > 0.0:
+                return drop_path_scale(b, self.drop_path_rate, generator, x.device)
+            return torch.ones(b, dtype=torch.float32, device=x.device)
+
         x = fh.attention_half_nhwc(
             x, attn.qkv.weight, attn.qkv_bias(), attn.logit_scale, attn.rel_bias(window), mask,
             attn.proj.weight, attn.proj.bias, self.norm1.weight, self.norm1.bias, window,
-            self.num_heads, dp=s, shift=shift,
+            self.num_heads, dp=scale(), shift=shift,
         )
         out = fh.mlp_half(
             x.reshape(b * h * w, c), mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight, mlp.fc2.bias,
-            self.norm2.weight, self.norm2.bias, tpi=h * w, dp=s,
+            self.norm2.weight, self.norm2.bias, tpi=h * w, dp=scale(),
         )
         return out.reshape(b, h, w, c)
 
@@ -312,8 +314,9 @@ class SwinTransformerV2(nn.Module):
         """Why the CUDA kernels cannot run this model at ``image_size`` px
         (forward, or forward and backward when ``training``): one line per
         stage whose blocks they do not take, empty when every block runs.
-        The kernels hold SwinV2-T's shapes; wider ones are ROADMAP.md
-        queue 2, "Kernel coverage"."""
+        The fused halves' backward kernels take the shapes their forward
+        kernels take. The kernels hold SwinV2-T's shapes; wider ones are
+        ROADMAP.md queue 2, "Kernel coverage"."""
         found = []
         grid = image_size // self.patch_embed.stride[0]
         for stage in range(len(self.depths)):
@@ -332,8 +335,6 @@ class SwinTransformerV2(nn.Module):
         """x: (B, H, W, 3) normalized image → logits (B, classes) f32, or one
         tensor per tier for a multitask head; ``features_only`` → (B, F) f32.
         ``generator`` draws the stochastic-depth masks in train mode."""
-        if self.training and self.fuse:
-            raise NotImplementedError(FUSED_TRAINING)
         b = x.shape[0]
         x = x.to(self.dtype).permute(0, 3, 1, 2)
         weight = self.patch_embed.weight.to(self.dtype)

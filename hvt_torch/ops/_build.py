@@ -24,7 +24,7 @@ import threading
 
 CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).parent / "_build"
-SOURCES = ("window_attention", "window_attention_bwd", "fused_halves")
+SOURCES = ("window_attention", "window_attention_bwd", "fused_halves", "fused_halves_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--expt-relaxed-constexpr",

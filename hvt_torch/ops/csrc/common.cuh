@@ -85,6 +85,65 @@ __device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const bf16* A, int
   }
 }
 
+__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// As warp_mma, with B stored k-major: element (k, n) at B[k·ldb + n] (a
+// weight read along its output dim, e.g. dY·W for W in (out, in) layout).
+template <int NT, int KS>
+__device__ __forceinline__ void warp_mma_kn(float (&acc)[NT][4], const bf16* A, int lda,
+                                            int arows, const bf16* B, int ldb) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bool lo = g < arows, hi = g + 8 < arows;
+#pragma unroll 4
+  for (int kk = 0; kk < KS; kk += 16) {
+    uint32_t a[4];
+    a[0] = lo ? ld32(A + g * lda + kk + 2 * t) : 0u;
+    a[1] = hi ? ld32(A + (g + 8) * lda + kk + 2 * t) : 0u;
+    a[2] = lo ? ld32(A + g * lda + kk + 2 * t + 8) : 0u;
+    a[3] = hi ? ld32(A + (g + 8) * lda + kk + 2 * t + 8) : 0u;
+    const bf16* B0 = B + (kk + 2 * t) * ldb + g;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const bf16* Bj = B0 + j * 8;
+      mma_bf16_16816(acc[j], a, pack2(Bj[0], Bj[ldb]), pack2(Bj[8 * ldb], Bj[9 * ldb]));
+    }
+  }
+}
+
+// acc[i][j] += A(KS, 16 cols i*16..)ᵀ · B(KS, 8 cols j*8..) for i < MT, j < NT,
+// one warp, both operands k-major (rows of tokens): element (k, m) at
+// A[k·lda + m], (k, n) at B[k·ldb + n] — a weight gradient Σ_t a_tᵀ b_t.
+template <int MT, int NT, int KS>
+__device__ __forceinline__ void warp_mma_tn(float (&acc)[MT][NT][4], const bf16* A, int lda,
+                                            const bf16* B, int ldb) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < KS; kk += 16) {
+    const bf16* A0 = A + (kk + 2 * t) * lda + g;
+    const bf16* B0 = B + (kk + 2 * t) * ldb + g;
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const bf16* Ai = A0 + i * 16;
+      a[i][0] = pack2(Ai[0], Ai[lda]);
+      a[i][1] = pack2(Ai[8], Ai[lda + 8]);
+      a[i][2] = pack2(Ai[8 * lda], Ai[9 * lda]);
+      a[i][3] = pack2(Ai[8 * lda + 8], Ai[9 * lda + 8]);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const bf16* Bj = B0 + j * 8;
+      const uint32_t b0 = pack2(Bj[0], Bj[ldb]), b1 = pack2(Bj[8 * ldb], Bj[9 * ldb]);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) mma_bf16_16816(acc[i][j], a[i], b0, b1);
+    }
+  }
+}
+
 // Copy `rows` rows of `cols` bf16 (cols % 8 == 0, 16-byte aligned rows)
 // from global to shared memory with 16-byte accesses, all threads of the
 // block. src_row(r) gives the global row pointer (column 0 of the slice),
@@ -101,24 +160,38 @@ __device__ __forceinline__ void copy_rows(bf16* dst, int ldd, int rows, int cols
   }
 }
 
-// Res-post-norm epilogue on a (32 x C) f32 tile held as mma fragments by 8
-// warps laid out 2 (rows) x 4 (columns): warp (wm, wn) holds rows
-// 16·wm.. and columns wn·C/4.., NT = C/32 tiles of 8 columns. Adds `bias`,
-// applies LayerNorm (two-pass mean/variance in f32, eps 1e-5, as _ln_fwd)
-// with scale/shift, and hands each pair of neighbouring columns to
-// store(row, col, y0, y1). `red` is 32·4 floats of shared scratch.
-template <int NT, typename StoreFn>
-__device__ __forceinline__ void ln_epilogue(float (&acc)[NT][4], const float* __restrict__ bias,
-                                            const float* __restrict__ lns,
-                                            const float* __restrict__ lnb, float* red,
-                                            StoreFn store) {
-  constexpr int C = NT * 32;
+// A (32 x C) f32 tile held as mma fragments by 8 warps laid out 2 (rows)
+// x 4 (columns): warp (wm, wn) holds rows 16·wm.. and columns wn·C/4..,
+// NT = C/32 tiles of 8 columns; lane (g, t) holds rows g and g + 8 and
+// columns 2t, 2t + 1 of each tile.
+//
+// Each row's sum of the per-lane values v_lo (row 16·wm + g) and v_hi
+// (row + 8), over the row's 4 lanes and 4 column warps, in a fixed order.
+// `red` is 32·4 floats of shared scratch; all threads of the block call it.
+__device__ __forceinline__ void tile_row_sums(float v_lo, float v_hi, float* red, float& s_lo,
+                                              float& s_hi) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, t = lane & 3;
-  const int r_lo = wm * 16 + g, r_hi = r_lo + 8;
-  const int c0 = wn * (C / 4) + 2 * t;
+  const int wn = warp & 3, t = lane & 3;
+  const int r_lo = (warp >> 2) * 16 + (lane >> 2), r_hi = r_lo + 8;
+  v_lo += __shfl_xor_sync(0xffffffffu, v_lo, 1);
+  v_lo += __shfl_xor_sync(0xffffffffu, v_lo, 2);
+  v_hi += __shfl_xor_sync(0xffffffffu, v_hi, 1);
+  v_hi += __shfl_xor_sync(0xffffffffu, v_hi, 2);
+  __syncthreads();  // red may still be read by an earlier call
+  if (t == 0) { red[r_lo * 4 + wn] = v_lo; red[r_hi * 4 + wn] = v_hi; }
+  __syncthreads();
+  s_lo = red[r_lo * 4] + red[r_lo * 4 + 1] + red[r_lo * 4 + 2] + red[r_lo * 4 + 3];
+  s_hi = red[r_hi * 4] + red[r_hi * 4 + 1] + red[r_hi * 4 + 2] + red[r_hi * 4 + 3];
+}
 
+// LayerNorm statistics of the tile (two-pass mean/variance in f32, eps
+// 1e-5, as _ln_fwd) after adding `bias`: acc becomes y − mean(y) per row,
+// and inv_lo/inv_hi receive rsqrt(var + 1e-5) of the lane's two rows.
+template <int NT>
+__device__ __forceinline__ void ln_center(float (&acc)[NT][4], const float* __restrict__ bias,
+                                          float* red, float& inv_lo, float& inv_hi) {
+  constexpr int C = NT * 32;
+  const int c0 = ((threadIdx.x >> 5) & 3) * (C / 4) + 2 * (threadIdx.x & 3);
   float s_lo = 0.f, s_hi = 0.f;
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
@@ -127,16 +200,10 @@ __device__ __forceinline__ void ln_epilogue(float (&acc)[NT][4], const float* __
     s_lo += acc[j][0] + acc[j][1];
     s_hi += acc[j][2] + acc[j][3];
   }
-  s_lo += __shfl_xor_sync(0xffffffffu, s_lo, 1);
-  s_lo += __shfl_xor_sync(0xffffffffu, s_lo, 2);
-  s_hi += __shfl_xor_sync(0xffffffffu, s_hi, 1);
-  s_hi += __shfl_xor_sync(0xffffffffu, s_hi, 2);
-  __syncthreads();  // red may still be read by an earlier epilogue
-  if (t == 0) { red[r_lo * 4 + wn] = s_lo; red[r_hi * 4 + wn] = s_hi; }
-  __syncthreads();
-  const float mu_lo = (red[r_lo * 4] + red[r_lo * 4 + 1] + red[r_lo * 4 + 2] + red[r_lo * 4 + 3]) / C;
-  const float mu_hi = (red[r_hi * 4] + red[r_hi * 4 + 1] + red[r_hi * 4 + 2] + red[r_hi * 4 + 3]) / C;
-
+  float mu_lo, mu_hi;
+  tile_row_sums(s_lo, s_hi, red, mu_lo, mu_hi);
+  mu_lo /= C;
+  mu_hi /= C;
   float v_lo = 0.f, v_hi = 0.f;
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
@@ -144,16 +211,25 @@ __device__ __forceinline__ void ln_epilogue(float (&acc)[NT][4], const float* __
     v_lo += acc[j][0] * acc[j][0] + acc[j][1] * acc[j][1];
     v_hi += acc[j][2] * acc[j][2] + acc[j][3] * acc[j][3];
   }
-  v_lo += __shfl_xor_sync(0xffffffffu, v_lo, 1);
-  v_lo += __shfl_xor_sync(0xffffffffu, v_lo, 2);
-  v_hi += __shfl_xor_sync(0xffffffffu, v_hi, 1);
-  v_hi += __shfl_xor_sync(0xffffffffu, v_hi, 2);
-  __syncthreads();
-  if (t == 0) { red[r_lo * 4 + wn] = v_lo; red[r_hi * 4 + wn] = v_hi; }
-  __syncthreads();
-  const float inv_lo = rsqrtf((red[r_lo * 4] + red[r_lo * 4 + 1] + red[r_lo * 4 + 2] + red[r_lo * 4 + 3]) / C + 1e-5f);
-  const float inv_hi = rsqrtf((red[r_hi * 4] + red[r_hi * 4 + 1] + red[r_hi * 4 + 2] + red[r_hi * 4 + 3]) / C + 1e-5f);
+  tile_row_sums(v_lo, v_hi, red, v_lo, v_hi);
+  inv_lo = rsqrtf(v_lo / C + 1e-5f);
+  inv_hi = rsqrtf(v_hi / C + 1e-5f);
+}
 
+// Res-post-norm epilogue on the tile: adds `bias`, applies LayerNorm with
+// scale/shift, and hands each pair of neighbouring columns to
+// store(row, col, y0, y1). `red` is 32·4 floats of shared scratch.
+template <int NT, typename StoreFn>
+__device__ __forceinline__ void ln_epilogue(float (&acc)[NT][4], const float* __restrict__ bias,
+                                            const float* __restrict__ lns,
+                                            const float* __restrict__ lnb, float* red,
+                                            StoreFn store) {
+  constexpr int C = NT * 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r_lo = (warp >> 2) * 16 + (lane >> 2), r_hi = r_lo + 8;
+  const int c0 = (warp & 3) * (C / 4) + 2 * (lane & 3);
+  float inv_lo, inv_hi;
+  ln_center<NT>(acc, bias, red, inv_lo, inv_hi);
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     const int col = c0 + j * 8;
@@ -216,6 +292,117 @@ __device__ __forceinline__ void cosine_attention(float* Q, float* K, const float
     float o = 0.f;
     for (int j = 0; j < N; ++j) o += p[j] * V[j * ld + c];
     out(i, c, o);
+  }
+}
+
+// The backward of the cosine attention core for one (window, head), the math
+// of packed_heads_backward, in f32 on shared memory, all threads of the
+// block taking part:
+//   q̂ = q·rsqrt(Σq² + 1e-24), k̂ likewise, cos = q̂k̂ᵀ, P = softmax(scale·cos + z)
+//   dv = Pᵀ·dO,  dS = P ⊙ (dO·vᵀ − rowsum(dO·vᵀ ⊙ P))
+//   Z += dS, dscale += Σ dS ⊙ cos (thread e owns Z[e], so Z may sum windows)
+//   dq̂ = scale·dS·k̂, dk̂ = scale·dSᵀ·q̂, dq = (dq̂ − q̂⟨dq̂, q̂⟩)·rsqrt(Σq² + 1e-24), dk likewise.
+// On entry Q, K, V and G (= dO) hold N rows of D (row stride ld) and the
+// block has synchronised; Q and K become q̂ and k̂, V and G are consumed.
+// P, Dm and Cs are N x (N+1) scratch, invQ and invK N floats; zh is the
+// (N, N) f32 bias(+mask) of this window and head. store_dv(j, c, value)
+// receives dv, then store_dqk(is_q, i, c, value) dq and dk (each element
+// once, from the thread that computed it; writing dq into V[i·ld + c] or dk
+// into G[i·ld + c] in place is safe).
+template <typename DvFn, typename DqkFn>
+__device__ __forceinline__ void attention_core_bwd(float* Q, float* K, float* V, float* G,
+                                                   float* P, float* Dm, float* Cs, float* Z,
+                                                   float* invQ, float* invK, int N, int D, int ld,
+                                                   float scale, const float* __restrict__ zh,
+                                                   float& dscale, DvFn store_dv, DqkFn store_dqk) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5, ldS = N + 1;
+  for (int r = warp; r < 2 * N; r += nwarps) {
+    float* v = r < N ? Q + r * ld : K + (r - N) * ld;
+    float ss = 0.f;
+    for (int c = lane; c < D; c += 32) ss += v[c] * v[c];
+    const float inv = rsqrtf(warp_sum(ss) + 1e-24f);
+    for (int c = lane; c < D; c += 32) v[c] *= inv;
+    if (lane == 0) {
+      if (r < N) invQ[r] = inv;
+      else invK[r - N] = inv;
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < N * N; e += blockDim.x) {
+    const int i = e / N, j = e - i * N;
+    const float* q = Q + i * ld;
+    const float* k = K + j * ld;
+    const float* g = G + i * ld;
+    const float* v = V + j * ld;
+    float dot = 0.f, dp = 0.f;
+    for (int c = 0; c < D; ++c) {
+      dot += q[c] * k[c];
+      dp += g[c] * v[c];
+    }
+    Cs[i * ldS + j] = dot;
+    P[i * ldS + j] = dot * scale + zh[e];
+    Dm[i * ldS + j] = dp;
+  }
+  __syncthreads();
+  // softmax of each row, then dS = P ⊙ (dP − Σ_j dP ⊙ P)
+  for (int i = warp; i < N; i += nwarps) {
+    float* s = P + i * ldS;
+    float* dp = Dm + i * ldS;
+    float m = -INFINITY;
+    for (int j = lane; j < N; j += 32) m = fmaxf(m, s[j]);
+    m = warp_max(m);
+    float sum = 0.f;
+    for (int j = lane; j < N; j += 32) {
+      const float ex = expf(s[j] - m);
+      s[j] = ex;
+      sum += ex;
+    }
+    const float inv = 1.f / warp_sum(sum);
+    float r = 0.f;
+    for (int j = lane; j < N; j += 32) {
+      s[j] *= inv;
+      r += s[j] * dp[j];
+    }
+    r = warp_sum(r);
+    for (int j = lane; j < N; j += 32) dp[j] = s[j] * (dp[j] - r);
+  }
+  __syncthreads();
+  for (int e = tid; e < N * D; e += blockDim.x) {  // dv = Pᵀ·dO
+    const int j = e / D, c = e - j * D;
+    float acc = 0.f;
+    for (int i = 0; i < N; ++i) acc += P[i * ldS + j] * G[i * ld + c];
+    store_dv(j, c, acc);
+  }
+  for (int e = tid; e < N * N; e += blockDim.x) {
+    const int i = e / N, j = e - i * N;
+    const float ds = Dm[i * ldS + j];
+    Z[e] += ds;
+    dscale += ds * Cs[i * ldS + j];
+  }
+  __syncthreads();  // v and dO are read for the last time above
+  for (int e = tid; e < N * D; e += blockDim.x) {  // dq̂ -> V, dk̂ -> G
+    const int i = e / D, c = e - i * D;
+    float aq = 0.f, ak = 0.f;
+    for (int j = 0; j < N; ++j) {
+      aq += Dm[i * ldS + j] * K[j * ld + c];
+      ak += Dm[j * ldS + i] * Q[j * ld + c];
+    }
+    V[i * ld + c] = aq * scale;
+    G[i * ld + c] = ak * scale;
+  }
+  __syncthreads();
+  // the norm's backward, one warp per row: dx = (dx̂ − x̂⟨dx̂, x̂⟩)·rsqrt(Σx² + 1e-24)
+  for (int r = warp; r < 2 * N; r += nwarps) {
+    const bool isq = r < N;
+    const int i = isq ? r : r - N;
+    const float* x = (isq ? Q : K) + i * ld;
+    const float* gx = (isq ? V : G) + i * ld;
+    float dot = 0.f;
+    for (int c = lane; c < D; c += 32) dot += gx[c] * x[c];
+    dot = warp_sum(dot);
+    const float inv = isq ? invQ[i] : invK[i];
+    for (int c = lane; c < D; c += 32) store_dqk(isq, i, c, (gx[c] - x[c] * dot) * inv);
   }
 }
 

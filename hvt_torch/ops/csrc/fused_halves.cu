@@ -1,4 +1,4 @@
-// The fused SwinV2 block halves, forward, for eval:
+// The fused SwinV2 block halves, forward (serving, and training's forward):
 //
 //   mlp_half_fwd:            x (T, C) -> x + s·LN(fc2(GELU(fc1 x)))   [or the branch alone]
 //   attention_half_nhwc_fwd: x (B, H, W, C) -> x + s·LN(proj(attn(qkv(window(x)))))
@@ -35,43 +35,13 @@
 // product keep the reduction dim contiguous. Weight tiles stream through
 // shared memory in slices of 32 along k; this first version does not overlap
 // those copies with the products (no cp.async/TMA pipeline yet).
-#include "common.cuh"
+#include "fused_halves.cuh"
 
 namespace hvt {
-
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kKS = 32;        // k-slice of streamed weight tiles
-constexpr int kLDK = kKS + 8;  // padded row stride of a k-slice tile (bank-conflict free)
-
-__device__ __forceinline__ float gelu_as(float x) {
-  // 0.5·x·(1 + erf(x/√2)), erf by Abramowitz–Stegun 7.1.26 (_erf / _gelu)
-  const float u = x * 0.7071067811865476f;
-  const float au = fabsf(u);
-  const float t = 1.f / (1.f + 0.3275911f * au);
-  const float poly =
-      t * (0.254829592f +
-           t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  const float mag = 1.f - poly * expf(-au * au);
-  const float erf = u > 0.f ? mag : (u < 0.f ? -mag : 0.f);
-  return 0.5f * x * (1.f + erf);
-}
-
-__host__ __device__ constexpr size_t align16(size_t bytes) { return (bytes + 15) / 16 * 16; }
 
 // ---------------------------------------------------------------------------
 // MLP half
 // ---------------------------------------------------------------------------
-
-template <int C>
-struct MlpSmem {
-  static constexpr int BM = 32, HC = 32, LDX = C + 8;
-  static constexpr size_t x = 0;
-  static constexpr size_t w1 = x + align16(sizeof(bf16) * BM * LDX);
-  static constexpr size_t w2 = w1 + align16(sizeof(bf16) * HC * LDX);
-  static constexpr size_t h = w2 + align16(sizeof(bf16) * C * kLDK);
-  static constexpr size_t red = h + align16(sizeof(bf16) * BM * kLDK);
-  static constexpr size_t bytes = red + sizeof(float) * 128;
-};
 
 template <int C>
 __global__ void __launch_bounds__(kThreads)
@@ -81,48 +51,20 @@ mlp_half_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                     const float* __restrict__ lnb, const float* __restrict__ s, int tpi,
                     bf16* __restrict__ out, int T) {
   using L = MlpSmem<C>;
-  constexpr int BM = L::BM, HC = L::HC, LDX = L::LDX, HID = 4 * C, NT = C / 32;
+  constexpr int BM = L::BM, LDX = L::LDX, NT = C / 32;
   extern __shared__ uint4 smem_u4[];
   char* smem = reinterpret_cast<char*>(smem_u4);
   bf16* Xs = reinterpret_cast<bf16*>(smem + L::x);
-  bf16* W1s = reinterpret_cast<bf16*>(smem + L::w1);
-  bf16* W2s = reinterpret_cast<bf16*>(smem + L::w2);
-  bf16* Hs = reinterpret_cast<bf16*>(smem + L::h);
   float* red = reinterpret_cast<float*>(smem + L::red);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, t = lane & 3;
   const int row0 = blockIdx.x * BM;
 
   copy_rows(Xs, LDX, BM, C, [&](int r) -> const bf16* {
     return row0 + r < T ? x + (size_t)(row0 + r) * C : nullptr;
   });
-
   float acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  for (int h0 = 0; h0 < HID; h0 += HC) {
-    __syncthreads();  // the previous chunk is done with W1s, W2s and Hs
-    copy_rows(W1s, LDX, HC, C, [&](int r) { return w1 + (size_t)(h0 + r) * C; });
-    copy_rows(W2s, kLDK, C, HC, [&](int r) { return w2 + (size_t)r * HID + h0; });
-    __syncthreads();
-
-    // fc1 on this hidden chunk: warp (wm, wn) -> rows 16·wm.., hidden cols 8·wn..
-    float hacc[1][4] = {{0.f, 0.f, 0.f, 0.f}};
-    warp_mma<1, C>(hacc, Xs + wm * 16 * LDX, LDX, 16, W1s + wn * 8 * LDX, LDX);
-    const int col = wn * 8 + 2 * t;
-    const float bb0 = b1[h0 + col], bb1 = b1[h0 + col + 1];
-    *reinterpret_cast<uint32_t*>(Hs + (wm * 16 + g) * kLDK + col) =
-        pack_bf16x2(gelu_as(hacc[0][0] + bb0), gelu_as(hacc[0][1] + bb1));
-    *reinterpret_cast<uint32_t*>(Hs + (wm * 16 + g + 8) * kLDK + col) =
-        pack_bf16x2(gelu_as(hacc[0][2] + bb0), gelu_as(hacc[0][3] + bb1));
-    __syncthreads();
-
-    // fc2 partial: rows 16·wm.., output cols wn·C/4..
-    warp_mma<NT, HC>(acc, Hs + wm * 16 * kLDK, kLDK, 16, W2s + wn * (C / 4) * kLDK, kLDK);
-  }
+  mlp_fc_chunks<C>(acc, Xs, reinterpret_cast<bf16*>(smem + L::w1),
+                   reinterpret_cast<bf16*>(smem + L::w2), reinterpret_cast<bf16*>(smem + L::h),
+                   w1, b1, w2);
 
   ln_epilogue<NT>(acc, b2, lns, lnb, red, [&](int r, int col, float y0, float y1) {
     const int row = row0 + r;
@@ -157,24 +99,6 @@ int launch_mlp(const void* x, const void* w1, const float* b1, const void* w2, c
 // Attention half, straight from the NHWC map
 // ---------------------------------------------------------------------------
 
-constexpr int kD = 32;              // head dim (every SwinV2 variant)
-constexpr int kLDQ = 3 * kD + 1;    // f32 row stride of the per-head q|k|v tile (odd)
-
-struct AttnSmem {
-  size_t x, o, qkv, s, wa, bytes;
-  __host__ __device__ AttnSmem(int n, int c) {
-    const int ldx = c + 8;
-    const size_t r1 = sizeof(bf16) * (size_t)(n * ldx > c * kLDK ? n * ldx : c * kLDK);
-    x = 0;  // the gathered tokens, later the streamed proj weight slices
-    o = x + align16(r1);
-    qkv = o + align16(sizeof(bf16) * n * ldx);
-    s = qkv + align16(sizeof(float) * n * kLDQ);
-    const int s_floats = n * (n + 1) > 128 ? n * (n + 1) : 128;
-    wa = s + align16(sizeof(float) * s_floats);
-    bytes = wa + sizeof(bf16) * 3 * kD * kLDK;
-  }
-};
-
 template <int C>
 __global__ void __launch_bounds__(kThreads)
 attn_half_nhwc_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
@@ -195,8 +119,7 @@ attn_half_nhwc_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w
   float* S = reinterpret_cast<float*>(smem + L.s);
   bf16* WA = reinterpret_cast<bf16*>(smem + L.wa);
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int warp = threadIdx.x >> 5;
   const int wid = blockIdx.x, b = blockIdx.y;
   const int nwx = W / ws, wy = wid / nwx, wx = wid - wy * nwx;
   // token i of this window sits at ((wy·ws + i/ws + shift) mod H, (wx·ws + i%ws + shift) mod W)
@@ -209,42 +132,7 @@ attn_half_nhwc_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w
   const float* zw = z + (size_t)(nwz > 1 ? wid : 0) * heads * n * n;
 
   // ---- phase A, per head: q|k|v = x·W_h + b_h (tensor cores) -> cosine attention ----
-  {
-    const int wm = warp >> 1, wn = warp & 1;  // 4 x 2 warps over the (64 x 96) head tile
-    for (int h = 0; h < heads; ++h) {
-      float acc[6][4];
-#pragma unroll
-      for (int j = 0; j < 6; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-      for (int k0 = 0; k0 < C; k0 += kKS) {
-        __syncthreads();
-        copy_rows(WA, kLDK, 3 * kD, kKS, [&](int r) {
-          return wqkv + (size_t)((r / kD) * C + h * kD + r % kD) * C + k0;
-        });
-        __syncthreads();
-        warp_mma<6, kKS>(acc, Xs + wm * 16 * LDX + k0, LDX, n - wm * 16, WA + wn * 48 * kLDK,
-                         kLDK);
-      }
-#pragma unroll
-      for (int j = 0; j < 6; ++j) {
-        const int col = wn * 48 + j * 8 + 2 * t;  // within q|k|v of head h
-        const int src = (col / kD) * C + h * kD + col % kD;
-        const int r_lo = wm * 16 + g, r_hi = r_lo + 8;
-        if (r_lo < n) {
-          QKV[r_lo * kLDQ + col] = acc[j][0] + bqkv[src];
-          QKV[r_lo * kLDQ + col + 1] = acc[j][1] + bqkv[src + 1];
-        }
-        if (r_hi < n) {
-          QKV[r_hi * kLDQ + col] = acc[j][2] + bqkv[src];
-          QKV[r_hi * kLDQ + col + 1] = acc[j][3] + bqkv[src + 1];
-        }
-      }
-      __syncthreads();
-      cosine_attention(QKV, QKV + kD, QKV + 2 * kD, kLDQ, S, n, kD, scale[h],
-                       zw + (size_t)h * n * n, [&](int i, int c, float o) {
-                         Os[i * LDX + h * kD + c] = __float2bfloat16(o);
-                       });
-    }
-  }
+  attn_heads_fwd<C>(Xs, Os, QKV, S, WA, n, heads, wqkv, bqkv, scale, zw);
 
   // ---- phase B, per 32-row half: proj (tensor cores) -> LayerNorm -> residual ----
   const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps over (32 x C)

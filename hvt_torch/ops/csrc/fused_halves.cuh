@@ -1,0 +1,160 @@
+// Device code shared by the fused SwinV2 block halves' forward
+// (fused_halves.cu) and backward (fused_halves_bwd.cu): the forward of each
+// half up to its pre-LayerNorm sum, which the backward recomputes.
+#pragma once
+
+#include "common.cuh"
+
+namespace hvt {
+
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kKS = 32;        // k-slice of streamed weight tiles
+constexpr int kLDK = kKS + 8;  // padded row stride of a k-slice tile (bank-conflict free)
+constexpr int kD = 32;              // head dim (every SwinV2 variant)
+constexpr int kLDQ = 3 * kD + 1;    // f32 row stride of the per-head q|k|v tile (odd)
+
+__host__ __device__ constexpr size_t align16(size_t bytes) { return (bytes + 15) / 16 * 16; }
+
+// GELU and its derivative with erf by Abramowitz–Stegun 7.1.26, as
+// _gelu_and_grad: 0.5·x·(1 + erf(x/√2)) and Φ(x) + x·exp(-x²/2)/√(2π),
+// the erf polynomial's exp(-(x/√2)²) being the pdf's exp(-x²/2).
+__device__ __forceinline__ float gelu_as(float x, float* grad = nullptr) {
+  const float u = x * 0.7071067811865476f;
+  const float au = fabsf(u);
+  const float t = 1.f / (1.f + 0.3275911f * au);
+  const float poly =
+      t * (0.254829592f +
+           t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+  const float e = expf(-au * au);
+  const float mag = 1.f - poly * e;
+  const float erf = u > 0.f ? mag : (u < 0.f ? -mag : 0.f);
+  if (grad != nullptr) *grad = 0.5f * (1.f + erf) + x * 0.3989422804014327f * e;
+  return 0.5f * x * (1.f + erf);
+}
+
+// ---------------------------------------------------------------------------
+// MLP half: a block owns 32 rows of x (T, C)
+// ---------------------------------------------------------------------------
+
+template <int C>
+struct MlpSmem {
+  static constexpr int BM = 32, HC = 32, LDX = C + 8;
+  static constexpr size_t x = 0;
+  static constexpr size_t w1 = x + align16(sizeof(bf16) * BM * LDX);
+  static constexpr size_t w2 = w1 + align16(sizeof(bf16) * HC * LDX);
+  static constexpr size_t h = w2 + align16(sizeof(bf16) * C * kLDK);
+  static constexpr size_t red = h + align16(sizeof(bf16) * BM * kLDK);
+  static constexpr size_t bytes = red + sizeof(float) * 128;
+};
+
+// fc2(GELU(fc1 x)) of the block's 32 rows (Xs, bf16 in shared memory) into
+// acc, without b2: the 4C hidden dim is streamed in chunks of HC = 32 —
+// fc1 of the chunk -> bias -> GELU -> bf16 in Hs -> accumulated into the
+// 32 x C fc2 result held as fragments by warps 2 (rows) x 4 (columns).
+template <int C>
+__device__ __forceinline__ void mlp_fc_chunks(float (&acc)[C / 32][4], const bf16* Xs, bf16* W1s,
+                                              bf16* W2s, bf16* Hs, const bf16* __restrict__ w1,
+                                              const float* __restrict__ b1,
+                                              const bf16* __restrict__ w2) {
+  using L = MlpSmem<C>;
+  constexpr int HC = L::HC, LDX = L::LDX, HID = 4 * C, NT = C / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int h0 = 0; h0 < HID; h0 += HC) {
+    __syncthreads();  // the previous chunk is done with W1s, W2s and Hs
+    copy_rows(W1s, LDX, HC, C, [&](int r) { return w1 + (size_t)(h0 + r) * C; });
+    copy_rows(W2s, kLDK, C, HC, [&](int r) { return w2 + (size_t)r * HID + h0; });
+    __syncthreads();
+
+    // fc1 on this hidden chunk: warp (wm, wn) -> rows 16·wm.., hidden cols 8·wn..
+    float hacc[1][4] = {{0.f, 0.f, 0.f, 0.f}};
+    warp_mma<1, C>(hacc, Xs + wm * 16 * LDX, LDX, 16, W1s + wn * 8 * LDX, LDX);
+    const int col = wn * 8 + 2 * t;
+    const float bb0 = b1[h0 + col], bb1 = b1[h0 + col + 1];
+    *reinterpret_cast<uint32_t*>(Hs + (wm * 16 + g) * kLDK + col) =
+        pack_bf16x2(gelu_as(hacc[0][0] + bb0), gelu_as(hacc[0][1] + bb1));
+    *reinterpret_cast<uint32_t*>(Hs + (wm * 16 + g + 8) * kLDK + col) =
+        pack_bf16x2(gelu_as(hacc[0][2] + bb0), gelu_as(hacc[0][3] + bb1));
+    __syncthreads();
+
+    // fc2 partial: rows 16·wm.., output cols wn·C/4..
+    warp_mma<NT, HC>(acc, Hs + wm * 16 * kLDK, kLDK, 16, W2s + wn * (C / 4) * kLDK, kLDK);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Attention half: a block owns one window of one image
+// ---------------------------------------------------------------------------
+
+// The backward's first kernel reuses this layout: the q|k|v tile's space
+// then holds 2·3·C f32 column sums.
+struct AttnSmem {
+  size_t x, o, qkv, s, wa, bytes;
+  __host__ __device__ AttnSmem(int n, int c) {
+    const int ldx = c + 8;
+    const size_t r1 = sizeof(bf16) * (size_t)(n * ldx > c * kLDK ? n * ldx : c * kLDK);
+    x = 0;  // the gathered tokens, later the streamed proj weight slices
+    o = x + align16(r1);
+    qkv = o + align16(sizeof(bf16) * n * ldx);
+    const size_t q_bytes = sizeof(float) * n * kLDQ;
+    s = qkv + align16(q_bytes > sizeof(float) * 6 * c ? q_bytes : sizeof(float) * 6 * c);
+    const int s_floats = n * (n + 1) > 128 ? n * (n + 1) : 128;
+    wa = s + align16(sizeof(float) * s_floats);
+    bytes = wa + sizeof(bf16) * 3 * kD * kLDK;
+  }
+};
+
+// Per head: q|k|v = x·W_h + b_h (tensor cores, f32 into QKV) -> the f32
+// cosine attention core -> the head's output, bf16, into its columns of Os
+// (n x C, row stride C + 8). Xs holds the window's n tokens; zw is the
+// window's (heads, n, n) bias(+mask) slab.
+template <int C>
+__device__ __forceinline__ void attn_heads_fwd(const bf16* Xs, bf16* Os, float* QKV, float* S,
+                                               bf16* WA, int n, int heads,
+                                               const bf16* __restrict__ wqkv,
+                                               const float* __restrict__ bqkv,
+                                               const float* __restrict__ scale,
+                                               const float* __restrict__ zw) {
+  constexpr int LDX = C + 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;  // 4 x 2 warps over the (64 x 96) head tile
+  for (int h = 0; h < heads; ++h) {
+    float acc[6][4];
+#pragma unroll
+    for (int j = 0; j < 6; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    for (int k0 = 0; k0 < C; k0 += kKS) {
+      __syncthreads();
+      copy_rows(WA, kLDK, 3 * kD, kKS, [&](int r) {
+        return wqkv + (size_t)((r / kD) * C + h * kD + r % kD) * C + k0;
+      });
+      __syncthreads();
+      warp_mma<6, kKS>(acc, Xs + wm * 16 * LDX + k0, LDX, n - wm * 16, WA + wn * 48 * kLDK,
+                       kLDK);
+    }
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      const int col = wn * 48 + j * 8 + 2 * t;  // within q|k|v of head h
+      const int src = (col / kD) * C + h * kD + col % kD;
+      const int r_lo = wm * 16 + g, r_hi = r_lo + 8;
+      if (r_lo < n) {
+        QKV[r_lo * kLDQ + col] = acc[j][0] + bqkv[src];
+        QKV[r_lo * kLDQ + col + 1] = acc[j][1] + bqkv[src + 1];
+      }
+      if (r_hi < n) {
+        QKV[r_hi * kLDQ + col] = acc[j][2] + bqkv[src];
+        QKV[r_hi * kLDQ + col + 1] = acc[j][3] + bqkv[src + 1];
+      }
+    }
+    __syncthreads();
+    cosine_attention(QKV, QKV + kD, QKV + 2 * kD, kLDQ, S, n, kD, scale[h],
+                     zw + (size_t)h * n * n, [&](int i, int c, float o) {
+                       Os[i * LDX + h * kD + c] = __float2bfloat16(o);
+                     });
+  }
+}
+
+}  // namespace hvt

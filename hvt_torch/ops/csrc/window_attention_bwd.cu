@@ -49,8 +49,8 @@ packed_attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dou
                             int heads) {
   extern __shared__ float smem[];
   const int d = c / heads, ld = d + 1, ldS = n + 1;
-  float* Q = smem;           // q̂
-  float* K = Q + n * ld;     // k̂
+  float* Q = smem;           // q, then q̂
+  float* K = Q + n * ld;     // k, then k̂
   float* V = K + n * ld;     // v, then dq̂
   float* G = V + n * ld;     // dO, then dk̂
   float* P = G + n * ld;     // logits, then softmax
@@ -86,97 +86,12 @@ packed_attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dou
       G[i * ld + j] = to_f32(gsrc[(size_t)i * c + j]);
     }
     __syncthreads();
-    for (int r = warp; r < 2 * n; r += nwarps) {
-      float* v = r < n ? Q + r * ld : K + (r - n) * ld;
-      float ss = 0.f;
-      for (int cc = lane; cc < d; cc += 32) ss += v[cc] * v[cc];
-      const float inv = rsqrtf(warp_sum(ss) + 1e-24f);
-      for (int cc = lane; cc < d; cc += 32) v[cc] *= inv;
-      if (lane == 0) {
-        if (r < n) invQ[r] = inv;
-        else invK[r - n] = inv;
-      }
-    }
-    __syncthreads();
-    for (int e = tid; e < n * n; e += blockDim.x) {
-      const int i = e / n, j = e - i * n;
-      const float* q = Q + i * ld;
-      const float* k = K + j * ld;
-      const float* g = G + i * ld;
-      const float* v = V + j * ld;
-      float dot = 0.f, dp = 0.f;
-      for (int cc = 0; cc < d; ++cc) {
-        dot += q[cc] * k[cc];
-        dp += g[cc] * v[cc];
-      }
-      Cs[i * ldS + j] = dot;
-      P[i * ldS + j] = dot * sc + zh[e];
-      D[i * ldS + j] = dp;
-    }
-    __syncthreads();
-    // softmax of each row, then dS = P ⊙ (dP − Σ_j dP ⊙ P)
-    for (int i = warp; i < n; i += nwarps) {
-      float* s = P + i * ldS;
-      float* dp = D + i * ldS;
-      float m = -INFINITY;
-      for (int j = lane; j < n; j += 32) m = fmaxf(m, s[j]);
-      m = warp_max(m);
-      float sum = 0.f;
-      for (int j = lane; j < n; j += 32) {
-        const float ex = expf(s[j] - m);
-        s[j] = ex;
-        sum += ex;
-      }
-      const float inv = 1.f / warp_sum(sum);
-      float r = 0.f;
-      for (int j = lane; j < n; j += 32) {
-        s[j] *= inv;
-        r += s[j] * dp[j];
-      }
-      r = warp_sum(r);
-      for (int j = lane; j < n; j += 32) dp[j] = s[j] * (dp[j] - r);
-    }
-    __syncthreads();
-    // dv = Pᵀ·dO, straight to the v columns of dqkv
-    for (int e = tid; e < n * d; e += blockDim.x) {
-      const int j = e / d, cc = e - j * d;
-      float acc = 0.f;
-      for (int i = 0; i < n; ++i) acc += P[i * ldS + j] * G[i * ld + cc];
-      dst[(size_t)j * 3 * c + 2 * c + cc] = from_f32<T>(acc);
-    }
-    // dz and dscale: thread e owns Z[e] in every window of the chunk
-    for (int e = tid; e < n * n; e += blockDim.x) {
-      const int i = e / n, j = e - i * n;
-      const float ds = D[i * ldS + j];
-      Z[e] += ds;
-      dscale += ds * Cs[i * ldS + j];
-    }
-    __syncthreads();  // v and dO are read for the last time above
-    // dq̂ = scale·dS·k̂ into V, dk̂ = scale·dSᵀ·q̂ into G
-    for (int e = tid; e < n * d; e += blockDim.x) {
-      const int i = e / d, cc = e - i * d;
-      float aq = 0.f, ak = 0.f;
-      for (int j = 0; j < n; ++j) {
-        aq += D[i * ldS + j] * K[j * ld + cc];
-        ak += D[j * ldS + i] * Q[j * ld + cc];
-      }
-      V[i * ld + cc] = aq * sc;
-      G[i * ld + cc] = ak * sc;
-    }
-    __syncthreads();
-    // the norm's backward, one warp per row: dx = (dx̂ − x̂⟨dx̂, x̂⟩)·rsqrt(Σx² + 1e-24)
-    for (int r = warp; r < 2 * n; r += nwarps) {
-      const bool isq = r < n;
-      const int i = isq ? r : r - n;
-      const float* x = (isq ? Q : K) + i * ld;
-      const float* gx = (isq ? V : G) + i * ld;
-      float dot = 0.f;
-      for (int cc = lane; cc < d; cc += 32) dot += gx[cc] * x[cc];
-      dot = warp_sum(dot);
-      const float inv = isq ? invQ[i] : invK[i];
-      T* o = dst + (size_t)i * 3 * c + (isq ? 0 : c);
-      for (int cc = lane; cc < d; cc += 32) o[cc] = from_f32<T>((gx[cc] - x[cc] * dot) * inv);
-    }
+    attention_core_bwd(
+        Q, K, V, G, P, D, Cs, Z, invQ, invK, n, d, ld, sc, zh, dscale,
+        [&](int j, int cc, float v) { dst[(size_t)j * 3 * c + 2 * c + cc] = from_f32<T>(v); },
+        [&](bool isq, int i, int cc, float v) {
+          dst[(size_t)i * 3 * c + (isq ? 0 : c) + cc] = from_f32<T>(v);
+        });
   }
 
   const size_t part = ((size_t)chunk * nwz + wz) * heads + h;

@@ -1,23 +1,33 @@
-"""Kernels 2 and 3: the fused SwinV2 block halves, forward.
+"""Kernels 2-5: the fused SwinV2 block halves, forward and backward.
 
 Port of ``mlp_half`` (hvt/ops/fused_halves_pallas.py:397) and
-``attention_half_nhwc`` (same file, 1491), for eval. Each wrapper launches
-``csrc/fused_halves.cu`` for a CUDA tensor and runs its plain version for a
-CPU tensor; nothing else selects between them.
+``attention_half_nhwc`` (same file, 1491) with their custom VJPs
+(``_mlp_half_bwd`` :415, ``_attn_half_nhwc_bwd`` :1444). Both are
+``torch.autograd.Function``s that save only their inputs. The forward
+wrappers launch ``csrc/fused_halves.cu`` and the backward wrappers
+``csrc/fused_halves_bwd.cu`` for a CUDA tensor, and run their plain versions
+for a CPU tensor; nothing else selects between them.
 
-The arithmetic contract is the TPU kernels': matmul operands rounded to
-bf16 with f32 accumulation (``_dot``), exact GELU by the A&S erf polynomial,
-LayerNorm in f32 (eps 1e-5), the attention core of kernel 1 in f32, and the
-optional fused residual ``x + s·branch`` with one scale per image.
+The arithmetic contract is the TPU kernels': every product rounds its
+operands to bf16 and accumulates in f32 (``_dot``/``_dot_t``, the weight
+gradients included), exact GELU and its derivative by the A&S erf
+polynomial, LayerNorm and its backward in f32 (eps 1e-5), the attention core
+of kernel 1 in f32, and the optional fused residual ``x + s·branch`` with one
+scale per image. The backward runs the branch on s·g (rounded to g's dtype
+first in the attention half, kept in f32 in the MLP half, as hvt) and adds
+the pass-through g to dx. On f64 CPU tensors the plain versions skip the
+bf16 rounding, so ``torch.autograd.gradcheck`` can hold them to finite
+differences.
 
 Layouts follow hvt's public functions: x is (T, C) flat tokens for the MLP
 and the NHWC map (B, H, W, C) for the attention half. Weights are in
 nn.Linear's (out, in) layout (hvt_torch/models/convert.py maps the flax
 ones), and ``dp`` is the per-image scale as a (B,) vector (hvt broadcasts it
-to (B, 8, 128) for the TPU's tiling). ``attention_half_nhwc`` also takes
-``shift``: shift = 0 reads x as hvt does (already rolled); shift > 0 reads
-the un-rolled map, rolls by -shift on the way in and by +shift on the way
-out, which the kernel folds into its gather index.
+to (B, 8, 128) for the TPU's tiling); it gets no gradient, nor does the
+mask. ``attention_half_nhwc`` also takes ``shift``: shift = 0 reads x as hvt
+does (already rolled); shift > 0 reads the un-rolled map, rolls by -shift on
+the way in and by +shift on the way out, which the kernels fold into their
+gather index, in both directions.
 """
 
 from __future__ import annotations
@@ -27,8 +37,11 @@ import torch
 from hvt_torch.ops import _build
 from hvt_torch.ops import window_attention as wa
 from hvt_torch.ops.window_attention_cuda import (
+    LOG_MAX_SCALE,
     attention_scale,
+    backward_chunks,
     merge_bias_mask,
+    packed_heads_backward,
     packed_heads_forward,
 )
 
@@ -41,16 +54,27 @@ ATTN_KERNEL = _build.Kernel(
     "hvt_attention_half_nhwc_fwd",
     [P, P, P, P, P, I, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
 )
+MLP_BWD_KERNEL = _build.Kernel(
+    "fused_halves_bwd", "hvt_mlp_half_bwd", [P] * 7 + [I] + [P] * 10 + [I] * 4 + [P]
+)
+ATTN_BWD_KERNEL = _build.Kernel(
+    "fused_halves_bwd",
+    "hvt_attention_half_nhwc_bwd",
+    [P] * 5 + [I] + [P] * 19 + [I] * 11 + [P],
+)
 #: channel widths the kernels are built for (SwinV2-T's stages)
 WIDTHS = (96, 192, 384, 768)
 HEAD_DIM = 32
+#: blocks of a weight-gradient product to aim for: 8 per SM of the H100
+GRAD_BLOCKS = 1056
 _LN_EPS = 1e-5
 _INV_SQRT2 = 0.7071067811865476
+_INV_SQRT_2PI = 0.3989422804014327
 
 
 def unsupported(c: int, heads: int, window: int) -> str | None:
-    """Why the kernels cannot run a fused block of width ``c`` with ``heads``
-    heads and ``window``, or None."""
+    """Why the kernels (forward and backward) cannot run a fused block of
+    width ``c`` with ``heads`` heads and ``window``, or None."""
     if c not in WIDTHS:
         return f"width {c} is not one the kernels are built for {WIDTHS}"
     if c != heads * HEAD_DIM:
@@ -58,6 +82,17 @@ def unsupported(c: int, heads: int, window: int) -> str | None:
     if window * window > 64:
         return f"window {window} has more than 64 tokens"
     return None
+
+
+def _acc(t: torch.Tensor) -> torch.dtype:
+    """f32 arithmetic, or f64 for f64 inputs (the CPU gradient checks)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """An operand of hvt's ``_dot``: rounded to bf16, carried in f32; an f64
+    tensor passes unrounded."""
+    return t if t.dtype == torch.float64 else t.to(torch.bfloat16).float()
 
 
 def erf_as(x: torch.Tensor) -> torch.Tensor:
@@ -72,20 +107,62 @@ def gelu_as(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * (1.0 + erf_as(x * _INV_SQRT2))
 
 
+def gelu_and_grad(x: torch.Tensor):
+    """(gelu(x), gelu'(x)) as hvt's ``_gelu_and_grad``: Φ(x) + x·φ(x) with the
+    erf polynomial's exp(-x²/2) shared."""
+    erf = erf_as(x * _INV_SQRT2)
+    e = torch.exp(-0.5 * x * x)
+    return 0.5 * x * (1.0 + erf), 0.5 * (1.0 + erf) + x * _INV_SQRT_2PI * e
+
+
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """f32 LayerNorm over the last dim, two-pass, as hvt's ``_ln_fwd``."""
-    mu = x.mean(-1, keepdim=True)
-    xc = x - mu
+    normed, _ = _ln_stats(x)
+    return normed * scale.to(x.dtype) + bias.to(x.dtype)
+
+
+def _ln_stats(x: torch.Tensor):
+    xc = x - x.mean(-1, keepdim=True)
     inv = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + _LN_EPS)
-    return xc * inv * scale.float() + bias.float()
+    return xc * inv, inv
+
+
+def _ln_bwd(g, normed, inv, scale):
+    """dx of y = normed·scale + bias given g, as hvt's ``_ln_bwd``."""
+    gn = g * scale.to(g.dtype)
+    return (gn - gn.mean(-1, keepdim=True) - normed * (gn * normed).mean(-1, keepdim=True)) * inv
 
 
 def bf16_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """x (..., K) · w (N, K)ᵀ + b with operands rounded to bf16 and f32
     accumulation — the TPU kernels' ``_dot``."""
-    xb = x.to(torch.bfloat16).float()
-    wb = w.to(torch.bfloat16).float()
-    return xb @ wb.t() + b.float()
+    out = _bf16(x.to(_acc(x))) @ _bf16(w.to(_acc(x))).t()
+    return out + b.to(out.dtype)
+
+
+def _flat(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1, t.shape[-1])
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _splits(m: int, n: int, t: int) -> int:
+    """Token slices of the (m, n) weight-gradient product over t tokens:
+    about GRAD_BLOCKS blocks of 64 x 64, at least 256 tokens a slice."""
+    tiles = -(-m // 64) * -(-n // 64)
+    return max(1, min(-(-GRAD_BLOCKS // tiles), t // 256))
+
+
+def _on_card(name: str, x: torch.Tensor) -> bool:
+    """False for a CPU tensor (the plain version runs), True for a CUDA one
+    (the kernel runs), and raises for any other device."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -99,35 +176,113 @@ def mlp_half_plain(x, w1, b1, w2, b2, lns, lnb, tpi: int = 0, dp=None):
     branch = layer_norm(bf16_linear(hidden, w2, b2), lns, lnb)
     if dp is None:
         return branch.to(x.dtype)
-    return (x.float() + dp.float().repeat_interleave(tpi)[:, None] * branch).to(x.dtype)
+    s = dp.to(branch.dtype).repeat_interleave(tpi)[:, None]
+    return (x.to(branch.dtype) + s * branch).to(x.dtype)
+
+
+def mlp_half_backward_plain(x, w1, b1, w2, b2, lns, g, tpi: int = 0, dp=None):
+    """Plain PyTorch version of kernel 4 (any device): the gradients of
+    ``mlp_half_plain`` given g, recomputing the forward as ``_mlp_bwd_kernel``
+    does. Returns (dx in x's dtype, dw1 (4C, C), db1, dw2 (C, 4C), db2, dlns,
+    dlnb) in f32 (f64 on f64)."""
+    ad = _acc(x)
+    gf = g.to(ad)
+    gs = gf if dp is None else dp.to(ad).repeat_interleave(tpi)[:, None] * gf
+    hidden, dgelu = gelu_and_grad(bf16_linear(x, w1, b1))
+    normed, inv = _ln_stats(bf16_linear(hidden, w2, b2))
+    dout = _ln_bwd(gs, normed, inv, lns)
+    dpre = (_bf16(dout) @ _bf16(w2.to(ad))) * dgelu
+    dx = _bf16(dpre) @ _bf16(w1.to(ad))
+    if dp is not None:
+        dx = gf + dx
+    return (dx.to(x.dtype), _bf16(dpre).t() @ _bf16(x.to(ad)), dpre.sum(0),
+            _bf16(dout).t() @ _bf16(hidden), dout.sum(0), (gs * normed).sum(0), gs.sum(0))
+
+
+def _check_mlp(name, x, w1, tpi, dp):
+    t, c = x.shape
+    if x.dtype != torch.bfloat16 or c not in WIDTHS or tuple(w1.shape) != (4 * c, c):
+        raise ValueError(
+            f"{name}: x {tuple(x.shape)} {x.dtype}, w1 {tuple(w1.shape)}; the kernel "
+            f"takes bf16 x with C in {WIDTHS} and hidden 4C"
+        )
+    if dp is not None and (tpi <= 0 or t != tpi * dp.numel()):
+        raise ValueError(f"{name}: {t} rows are not {dp.numel()} images of {tpi} tokens")
+
+
+def _mlp_args(x, w1, b1, w2, b2, lns, dp):
+    f32 = lambda v: v.to(device=x.device, dtype=torch.float32).contiguous()  # noqa: E731
+    bf = lambda v: v.to(device=x.device, dtype=torch.bfloat16).contiguous()  # noqa: E731
+    s = None if dp is None else f32(dp.reshape(-1))
+    return [bf(w1), f32(b1), bf(w2), f32(b2), f32(lns)], f32, s
+
+
+def mlp_half_forward(x, w1, b1, w2, b2, lns, lnb, tpi: int = 0, dp=None):
+    """Kernel 2 for a CUDA tensor, its plain version for a CPU one."""
+    if not _on_card("mlp_half", x):
+        return mlp_half_plain(x, w1, b1, w2, b2, lns, lnb, tpi, dp)
+    _check_mlp("mlp_half", x, w1, tpi, dp)
+    t, c = x.shape
+    x = x.contiguous()
+    args, f32, s = _mlp_args(x, w1, b1, w2, b2, lns, dp)
+    out = torch.empty_like(x)
+    MLP_KERNEL(x.data_ptr(), *(a.data_ptr() for a in args), f32(lnb).data_ptr(),
+               None if s is None else s.data_ptr(), max(tpi, 1), out.data_ptr(), t, c, _stream(x))
+    return out
+
+
+def mlp_half_backward(x, w1, b1, w2, b2, lns, g, tpi: int = 0, dp=None):
+    """Kernel 4 (``hvt_mlp_half_bwd``) for a CUDA tensor, its plain version
+    for a CPU one: (dx, dw1, db1, dw2, db2, dlns, dlnb)."""
+    if not _on_card("mlp_half backward", x):
+        return mlp_half_backward_plain(x, w1, b1, w2, b2, lns, g, tpi, dp)
+    _check_mlp("mlp_half backward", x, w1, tpi, dp)
+    t, c = x.shape
+    x = x.contiguous()
+    g = g.to(torch.bfloat16).contiguous()
+    args, _, s = _mlp_args(x, w1, b1, w2, b2, lns, dp)
+    s1, s2 = _splits(4 * c, c, t), _splits(c, 4 * c, t)
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=x.device)
+
+    dx, dw1, dw2, dsmall = torch.empty_like(x), empty(4 * c, c), empty(c, 4 * c), empty(7 * c)
+    hid, dpre = empty(t, 4 * c, dtype=x.dtype), empty(t, 4 * c, dtype=x.dtype)
+    dout = empty(t, c, dtype=x.dtype)
+    part = empty(-(-t // 32), 7 * c)
+    wpart = empty(max(s1, s2) * 4 * c * c if max(s1, s2) > 1 else 1)
+    MLP_BWD_KERNEL(x.data_ptr(), *(a.data_ptr() for a in args), None if s is None else s.data_ptr(),
+                   max(tpi, 1), g.data_ptr(), dx.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
+                   dsmall.data_ptr(), hid.data_ptr(), dpre.data_ptr(), dout.data_ptr(),
+                   part.data_ptr(), wpart.data_ptr(), s1, s2, t, c, _stream(x))
+    return (dx, dw1, dsmall[:4 * c], dw2, dsmall[4 * c:5 * c], dsmall[5 * c:6 * c],
+            dsmall[6 * c:])
+
+
+class _MlpHalf(torch.autograd.Function):
+    """The custom VJP of hvt's ``mlp_half``: kernel 2 forward, kernel 4
+    backward, recomputing from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, lns, lnb, tpi, dp):
+        ctx.tpi = tpi
+        ctx.save_for_backward(x, w1, b1, w2, b2, lns, dp)
+        return mlp_half_forward(x, w1, b1, w2, b2, lns, lnb, tpi, dp)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, b1, w2, b2, lns, dp = ctx.saved_tensors
+        dx, dw1, db1, dw2, db2, dlns, dlnb = mlp_half_backward(x, w1, b1, w2, b2, lns, g,
+                                                               ctx.tpi, dp)
+        return (dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(b2.dtype),
+                dlns.to(lns.dtype), dlnb.to(lns.dtype), None, None)
 
 
 def mlp_half(x, w1, b1, w2, b2, lns, lnb, tpi: int = 0, dp=None):
     """x (T, C) → LN(fc2(GELU(fc1 x))), or x + dp·branch when ``dp`` (B,)
     gives a scale per image of ``tpi`` consecutive rows. w1 (4C, C) and
-    w2 (C, 4C) in nn.Linear layout."""
-    if x.device.type == "cpu":
-        return mlp_half_plain(x, w1, b1, w2, b2, lns, lnb, tpi, dp)
-    if x.device.type != "cuda":
-        raise ValueError(f"mlp_half: unsupported device {x.device}")
-    t, c = x.shape
-    if x.dtype != torch.bfloat16 or c not in WIDTHS or tuple(w1.shape) != (4 * c, c):
-        raise ValueError(
-            f"mlp_half: x {tuple(x.shape)} {x.dtype}, w1 {tuple(w1.shape)}; the kernel "
-            f"takes bf16 x with C in {WIDTHS} and hidden 4C"
-        )
-    if dp is not None and (tpi <= 0 or t != tpi * dp.numel()):
-        raise ValueError(f"mlp_half: {t} rows are not {dp.numel()} images of {tpi} tokens")
-    x = x.contiguous()
-    f32 = lambda v: v.to(device=x.device, dtype=torch.float32).contiguous()  # noqa: E731
-    bf = lambda v: v.to(device=x.device, dtype=torch.bfloat16).contiguous()  # noqa: E731
-    args = [bf(w1), f32(b1), bf(w2), f32(b2), f32(lns), f32(lnb)]
-    s = None if dp is None else f32(dp.reshape(-1))
-    out = torch.empty_like(x)
-    MLP_KERNEL(x.data_ptr(), *(a.data_ptr() for a in args),
-               None if s is None else s.data_ptr(), max(tpi, 1), out.data_ptr(), t, c,
-               torch.cuda.current_stream(x.device).cuda_stream)
-    return out
+    w2 (C, 4C) in nn.Linear layout. Differentiable in x and the parameters."""
+    return _MlpHalf.apply(x, w1, b1, w2, b2, lns, lnb, tpi, dp)
 
 
 # ---------------------------------------------------------------------------
@@ -135,53 +290,172 @@ def mlp_half(x, w1, b1, w2, b2, lns, lnb, tpi: int = 0, dp=None):
 # ---------------------------------------------------------------------------
 
 
+def _rolled(t: torch.Tensor, shift: int) -> torch.Tensor:
+    return torch.roll(t, (shift, shift), (1, 2)) if shift else t
+
+
 def attention_half_nhwc_plain(x, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj, lns, lnb,
                               window: int, heads: int, dp=None, shift: int = 0):
     """Plain PyTorch version of kernel 3 (any device)."""
     b, h, w, c = x.shape
-    xs = torch.roll(x, (-shift, -shift), (1, 2)) if shift else x
-    qkv = bf16_linear(wa.window_partition(xs.float(), window), wqkv, bqkv)
+    xs = _rolled(x, -shift)
+    qkv = bf16_linear(wa.window_partition(xs.to(_acc(x)), window), wqkv, bqkv)
     z = merge_bias_mask(bias, mask).to(x.device)
     attn = packed_heads_forward(qkv, z, attention_scale(logit_scale).to(x.device), heads)
     branch = layer_norm(bf16_linear(attn, wproj, bproj), lns, lnb)
     out = wa.window_reverse(branch, window, h, w)
-    out = (out if dp is None else xs.float() + dp.float().reshape(b, 1, 1, 1) * out).to(x.dtype)
-    return torch.roll(out, (shift, shift), (1, 2)) if shift else out
+    if dp is not None:
+        out = xs.to(out.dtype) + dp.to(out.dtype).reshape(b, 1, 1, 1) * out
+    return _rolled(out.to(x.dtype), shift)
+
+
+def attention_half_nhwc_backward_plain(x, wqkv, bqkv, scale, z, wproj, bproj, lns, g,
+                                       window: int, heads: int, dp=None, shift: int = 0):
+    """Plain PyTorch version of kernel 5 (any device): the gradients of
+    ``attention_half_nhwc_plain`` given g, on the merged z (nWZ, H, N, N) and
+    the clamped scale (H,), recomputing the forward as ``_attn_bwd_kernel_nhwc``
+    does. Returns (dx in x's dtype, dwqkv (3C, C), dbqkv, dscale (H,),
+    dz (nWZ, H, N, N), dwproj (C, C), dbproj, dlns, dlnb) in f32 (f64 on f64)."""
+    b, h, w, c = x.shape
+    ad = _acc(x)
+    gr = _rolled(g, -shift).to(ad)
+    # hvt rounds s·g to the activation dtype before the branch backward
+    gs = gr if dp is None else (dp.to(ad).reshape(b, 1, 1, 1) * gr).to(g.dtype).to(ad)
+    xw = wa.window_partition(_rolled(x, -shift).to(ad), window)
+    gw = wa.window_partition(gs, window)
+    qkv = bf16_linear(xw, wqkv, bqkv)
+    attn = packed_heads_forward(qkv, z, scale, heads)
+    normed, inv = _ln_stats(bf16_linear(attn, wproj, bproj))
+    dproj = _ln_bwd(gw, normed, inv, lns)
+    dqkv, dz, dscale = packed_heads_backward(qkv, _bf16(dproj) @ _bf16(wproj.to(ad)), z, scale,
+                                             heads)
+    dx = wa.window_reverse(_bf16(dqkv) @ _bf16(wqkv.to(ad)), window, h, w)
+    if dp is not None:
+        dx = gr + dx
+    return (_rolled(dx, shift).to(x.dtype), _bf16(_flat(dqkv)).t() @ _bf16(_flat(xw)),
+            _flat(dqkv).sum(0), dscale, dz, _bf16(_flat(dproj)).t() @ _bf16(_flat(attn)),
+            _flat(dproj).sum(0), _flat(gw * normed).sum(0), _flat(gw).sum(0))
+
+
+def _check_attn(name, x, heads, window, dp, shift):
+    b, h, w, c = x.shape
+    why = unsupported(c, heads, window)
+    if h % window or w % window:
+        why = "the window does not tile the map"
+    if x.dtype != torch.bfloat16 or why:
+        raise ValueError(f"{name}: x {tuple(x.shape)} {x.dtype}, {heads} heads, window "
+                         f"{window}: {why or 'bf16 wanted'}")
+    if not 0 <= shift < window:
+        raise ValueError(f"{name}: shift {shift} outside [0, {window})")
+    if dp is not None and dp.numel() != b:
+        raise ValueError(f"{name}: dp has {dp.numel()} scales for {b} images")
+
+
+def _attn_args(x, wqkv, bqkv, wproj, bproj, lns, dp):
+    f32 = lambda v: v.to(device=x.device, dtype=torch.float32).contiguous()  # noqa: E731
+    bf = lambda v: v.to(device=x.device, dtype=torch.bfloat16).contiguous()  # noqa: E731
+    s = None if dp is None else f32(dp.reshape(-1))
+    return bf(wqkv), f32(bqkv), bf(wproj), f32(bproj), f32(lns), f32, s
+
+
+def attention_half_nhwc_forward(x, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj, lns, lnb,
+                                window: int, heads: int, dp=None, shift: int = 0):
+    """Kernel 3 for a CUDA tensor, its plain version for a CPU one."""
+    if not _on_card("attention_half_nhwc", x):
+        return attention_half_nhwc_plain(x, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj,
+                                         lns, lnb, window, heads, dp, shift)
+    _check_attn("attention_half_nhwc", x, heads, window, dp, shift)
+    b, h, w, c = x.shape
+    z = merge_bias_mask(bias, mask).to(x.device)
+    x = x.contiguous()
+    wq, bq, wp, bp, ls, f32, s = _attn_args(x, wqkv, bqkv, wproj, bproj, lns, dp)
+    out = torch.empty_like(x)
+    ATTN_KERNEL(x.data_ptr(), wq.data_ptr(), bq.data_ptr(),
+                f32(attention_scale(logit_scale)).data_ptr(), z.data_ptr(), z.shape[0],
+                wp.data_ptr(), bp.data_ptr(), ls.data_ptr(), f32(lnb).data_ptr(),
+                None if s is None else s.data_ptr(), out.data_ptr(), b, h, w, c, heads, window,
+                shift, _stream(x))
+    return out
+
+
+def attention_half_nhwc_backward(x, wqkv, bqkv, scale, z, wproj, bproj, lns, g, window: int,
+                                 heads: int, dp=None, shift: int = 0):
+    """Kernel 5 (``hvt_attention_half_nhwc_bwd``) for a CUDA tensor, its plain
+    version for a CPU one: (dx, dwqkv, dbqkv, dscale, dz, dwproj, dbproj,
+    dlns, dlnb) on the merged z and the clamped scale."""
+    if not _on_card("attention_half_nhwc backward", x):
+        return attention_half_nhwc_backward_plain(x, wqkv, bqkv, scale, z, wproj, bproj, lns, g,
+                                                  window, heads, dp, shift)
+    name = "attention_half_nhwc backward"
+    _check_attn(name, x, heads, window, dp, shift)
+    b, h, w, c = x.shape
+    n, nw, t = window * window, (h // window) * (w // window), b * h * w
+    z = z.to(x.device, torch.float32).contiguous()
+    nwz = z.shape[0]
+    if z.shape[1:] != (heads, n, n) or nwz not in (1, nw):
+        raise ValueError(f"{name}: z {tuple(z.shape)} for {nw} windows of {n} tokens")
+    x = x.contiguous()
+    g = g.to(torch.bfloat16).contiguous()
+    wq, bq, wp, bp, ls, f32, s = _attn_args(x, wqkv, bqkv, wproj, bproj, lns, dp)
+    scale = f32(scale)
+    per_block, chunks = backward_chunks(b * nw, nwz, heads)
+    sq, sp = _splits(3 * c, c, t), _splits(c, c, t)
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=x.device)
+
+    dx, dwqkv, dwproj, dsmall = torch.empty_like(x), empty(3 * c, c), empty(c, c), empty(6 * c)
+    dscale, dz = empty(heads), empty(nwz, heads, n, n)
+    ao, dproj = empty(t, c, dtype=x.dtype), empty(t, c, dtype=x.dtype)
+    dqkv = empty(t, 3 * c, dtype=x.dtype)
+    part_a, part_b = empty(b * nw, 3 * c), empty(chunks * nwz, 3 * c)
+    dz_part, ds_part = empty(chunks, nwz, heads, n, n), empty(chunks, nwz, heads)
+    wpart = empty(max(sq, sp) * 3 * c * c if max(sq, sp) > 1 else 1)
+    ATTN_BWD_KERNEL(
+        x.data_ptr(), wq.data_ptr(), bq.data_ptr(), scale.data_ptr(), z.data_ptr(), nwz,
+        wp.data_ptr(), bp.data_ptr(), ls.data_ptr(), None if s is None else s.data_ptr(),
+        g.data_ptr(), dx.data_ptr(), dwqkv.data_ptr(), dwproj.data_ptr(), dsmall.data_ptr(),
+        dscale.data_ptr(), dz.data_ptr(), ao.data_ptr(), dproj.data_ptr(), dqkv.data_ptr(),
+        part_a.data_ptr(), part_b.data_ptr(), dz_part.data_ptr(), ds_part.data_ptr(),
+        wpart.data_ptr(), per_block, chunks, sq, sp, b, h, w, c, heads, window, shift,
+        _stream(x))
+    return (dx, dwqkv, dsmall[:3 * c], dscale, dz, dwproj, dsmall[3 * c:4 * c],
+            dsmall[4 * c:5 * c], dsmall[5 * c:])
+
+
+class _AttnHalfNhwc(torch.autograd.Function):
+    """The custom VJP of hvt's ``_attention_half_nhwc_core``: kernel 3
+    forward, kernel 5 backward, recomputing from the saved inputs, with
+    ``_attn_half_nhwc_bwd``'s tail: dbias = Σ dz over window ids, the logit
+    scale's gradient zero above the log 100 clamp."""
+
+    @staticmethod
+    def forward(ctx, x, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj, lns, lnb, window,
+                heads, dp, shift):
+        ctx.window, ctx.heads, ctx.shift = window, heads, shift
+        ctx.save_for_backward(x, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj, lns, dp)
+        return attention_half_nhwc_forward(x, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj,
+                                           lns, lnb, window, heads, dp, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj, lns, dp = ctx.saved_tensors
+        scale = attention_scale(logit_scale)
+        z = merge_bias_mask(bias, mask).to(x.device)
+        dx, dwqkv, dbqkv, dscale, dz, dwproj, dbproj, dlns, dlnb = attention_half_nhwc_backward(
+            x, wqkv, bqkv, scale, z, wproj, bproj, lns, g, ctx.window, ctx.heads, dp, ctx.shift)
+        ls = logit_scale.to(scale.dtype).reshape(-1)
+        dls = (dscale.to(scale.dtype) * scale * (ls < LOG_MAX_SCALE)).reshape(logit_scale.shape)
+        return (dx, dwqkv.to(wqkv.dtype), dbqkv.to(bqkv.dtype), dls.to(logit_scale.dtype),
+                dz.sum(0).to(bias.dtype), None, dwproj.to(wproj.dtype), dbproj.to(bproj.dtype),
+                dlns.to(lns.dtype), dlnb.to(lns.dtype), None, None, None, None)
 
 
 def attention_half_nhwc(x, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj, lns, lnb,
                         window: int, heads: int, dp=None, shift: int = 0):
     """x (B, H, W, C) → LN(proj(window attention(qkv(x)))) at every token, or
     x + dp·branch with ``dp`` (B,). wqkv (3C, C), bqkv (3C,) = [q_b, 0, v_b],
-    wproj (C, C); bias (heads, N, N), mask (nW, N, N) or None."""
-    if x.device.type == "cpu":
-        return attention_half_nhwc_plain(x, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj,
-                                         lns, lnb, window, heads, dp, shift)
-    if x.device.type != "cuda":
-        raise ValueError(f"attention_half_nhwc: unsupported device {x.device}")
-    b, h, w, c = x.shape
-    why = unsupported(c, heads, window)
-    if h % window or w % window:
-        why = "the window does not tile the map"
-    if x.dtype != torch.bfloat16 or why:
-        raise ValueError(
-            f"attention_half_nhwc: x {tuple(x.shape)} {x.dtype}, {heads} heads, window "
-            f"{window}: {why or 'bf16 wanted'}"
-        )
-    if not 0 <= shift < window:
-        raise ValueError(f"attention_half_nhwc: shift {shift} outside [0, {window})")
-    z = merge_bias_mask(bias, mask).to(x.device)
-    if dp is not None and dp.numel() != b:
-        raise ValueError(f"attention_half_nhwc: dp has {dp.numel()} scales for {b} images")
-    x = x.contiguous()
-    f32 = lambda v: v.to(device=x.device, dtype=torch.float32).contiguous()  # noqa: E731
-    bf = lambda v: v.to(device=x.device, dtype=torch.bfloat16).contiguous()  # noqa: E731
-    args = [bf(wqkv), f32(bqkv), f32(attention_scale(logit_scale)), z]
-    rest = [bf(wproj), f32(bproj), f32(lns), f32(lnb)]
-    s = None if dp is None else f32(dp.reshape(-1))
-    out = torch.empty_like(x)
-    ATTN_KERNEL(x.data_ptr(), *(a.data_ptr() for a in args), z.shape[0],
-                *(a.data_ptr() for a in rest), None if s is None else s.data_ptr(),
-                out.data_ptr(), b, h, w, c, heads, window, shift,
-                torch.cuda.current_stream(x.device).cuda_stream)
-    return out
+    wproj (C, C); bias (heads, N, N), mask (nW, N, N) or None.
+    Differentiable in x, the weights, logit_scale and bias."""
+    return _AttnHalfNhwc.apply(x, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj, lns, lnb,
+                               window, heads, dp, shift)

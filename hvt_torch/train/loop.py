@@ -31,7 +31,6 @@ from hvt_torch import objectives as objectives_lib
 from hvt_torch.data import DevicePrep
 from hvt_torch.data.loader import Batch, build_loader
 from hvt_torch.models import build_model
-from hvt_torch.models import swinv2
 from hvt_torch.train import algorithms as algorithms_lib
 from hvt_torch.train import optim as optim_lib
 from hvt_torch.train import schedule as schedule_lib
@@ -63,8 +62,6 @@ class Trainer:
 
         # Model / objective / optimizer ----------------------------------
         model = build_model(config, self.info.num_classes)
-        if model.fuse:
-            raise NotImplementedError(swinv2.FUSED_TRAINING)
         if self.device.type == "cuda":
             why = model.cuda_unsupported(config.train_dataset.crop_size, training=True)
             if why:

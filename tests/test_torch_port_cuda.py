@@ -151,6 +151,61 @@ def test_window_attention_packed_backward_kernel(cuda, c, shift, dtype):
     _close(dls, rls, 1e-3, f"dlogit_scale C={c} shift={shift}")
 
 
+@pytest.mark.parametrize("c,resid", [(96, True), (96, False), (768, True)])
+def test_mlp_half_backward_kernel(cuda, c, resid):
+    """Stage 1 and stage 4 widths at batch 2 (196 tokens an image), one image
+    dropped (s = 0) and one kept at 1/keep. Kernel and plain version share
+    the contract (bf16 operands, f32 accumulation) and differ in summation
+    order and the odd bf16 flip of an operand: every gradient within
+    2e-2·max|plain|, the forward halves' tolerance."""
+    p = _params(c, c // 32, 49, cuda, seed=5 * c)
+    x = p["x"].reshape(-1, c)
+    g = torch.randn(x.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(c)).bfloat16()
+    args = (p["w1"], p["b1"], p["w2"], p["b2"], p["lns"])
+    extra = dict(tpi=196, dp=torch.tensor([0.0, 1.25], device=cuda)) if resid else {}
+    before = fh.MLP_BWD_KERNEL.launches
+    got = fh.mlp_half_backward(x, *args, g, **extra)
+    torch.cuda.synchronize()
+    assert fh.MLP_BWD_KERNEL.launches == before + 1 and got[0].dtype == torch.bfloat16
+    ref = fh.mlp_half_backward_plain(x, *args, g, **extra)
+    for name, a, b in zip(("dx", "dw1", "db1", "dw2", "db2", "dlns", "dlnb"), got, ref):
+        _close(a, b, 2e-2, f"mlp_half C={c} resid={resid} {name}")
+
+
+@pytest.mark.parametrize("c,shift", [(96, 0), (96, 3), (768, 0)])
+def test_attention_half_nhwc_backward_kernel(cuda, monkeypatch, c, shift):
+    """Stage 1 (unshifted and shifted) and stage 4 widths at batch 2 through
+    the autograd Function: every gradient within 2e-2·max|plain| (as the
+    MLP half), and head 0's logit scale, above the log 100 clamp, gets
+    exactly 0."""
+    heads, window = c // 32, 7
+    p = _params(c, heads, 49, cuda, seed=7 * c + shift)
+    p["ls"][0] = 5.0
+    mask = torch.as_tensor(wa.shift_attn_mask((14, 14), window, shift), device=cuda) if shift else None
+    g = torch.randn(p["x"].shape, device=cuda, generator=torch.Generator(cuda).manual_seed(c)).bfloat16()
+    dp = torch.tensor([0.0, 1.25], device=cuda)
+    names = ("x", "wqkv", "bqkv", "ls", "bias", "wproj", "bproj", "lns", "lnb")
+
+    def grads():
+        leaves = [p[k].clone().requires_grad_() for k in names]
+        x, wq, bq, ls, bias, wp, bp, lns, lnb = leaves
+        out = fh.attention_half_nhwc(x, wq, bq, ls, bias, mask, wp, bp, lns, lnb, window, heads,
+                                     dp=dp, shift=shift)
+        out.backward(g)
+        return [t.grad for t in leaves]
+
+    before = fh.ATTN_BWD_KERNEL.launches
+    got = grads()
+    torch.cuda.synchronize()
+    assert fh.ATTN_BWD_KERNEL.launches == before + 1 and got[0].dtype == torch.bfloat16
+    assert got[3][0].item() == 0.0
+    monkeypatch.setattr(fh, "attention_half_nhwc_backward", fh.attention_half_nhwc_backward_plain)
+    ref = grads()
+    assert fh.ATTN_BWD_KERNEL.launches == before + 1
+    for name, a, b in zip(names, got, ref):
+        _close(a, b, 2e-2, f"attention half C={c} shift={shift} d{name}")
+
+
 def test_kernels_refuse_unsupported_shapes(cuda):
     """A CUDA tensor the kernel does not take raises; it never falls back."""
     with pytest.raises(ValueError, match="C in"):

@@ -128,13 +128,14 @@ def test_features_only_and_eval_guard(trees):
     ref = _jax_model("micro", False).apply({"params": tree}, jnp.asarray(x), train=False,
                                            features_only=True)
     _close(feats, ref, 1e-4, "features")
-    # train mode runs on the unfused route, and raises on the fused one
-    # until the fused halves' backward kernels exist
+    # train mode runs on both routes, and the fused one reaches every parameter
     model.train()
     assert torch.isfinite(model(torch.from_numpy(x))).all()
     fused = _port_model("micro", True, tree).train()
-    with pytest.raises(NotImplementedError, match="queue 2, items 1-2"):
-        fused(torch.from_numpy(x))
+    out = fused(torch.from_numpy(x), generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(out).all()
+    out.square().sum().backward()
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in fused.parameters())
 
 
 def test_multitask_head_and_top_down_decode():

@@ -11,14 +11,18 @@ and to the port, in f32:
   optax, and the decay mask name for name: parameters within 1e-6·max|p|;
 * the whole train step (``adamw``, smoothing 0.1, clip 5.0, drop path 0)
   on ``swinv2_micro`` and a tiny SwinV2-T geometry for 3 steps against
-  hvt's ``build_train_step``: losses within 1e-5 relative, step-1 gradients
-  within 1e-3·max|ref| per tensor, parameters after 3 steps within
-  1e-4·max|p| per tensor except at most 1e-3 of its elements, and every
-  element within 3·lr (Adam turns a gradient's rounding into a different
-  fraction of an lr step where that gradient is near Adam's eps);
+  hvt's ``build_train_step``, on both routes. ``fuse: false``: losses within
+  1e-5 relative, step-1 gradients within 1e-3·max|ref| per tensor,
+  parameters after 3 steps within 1e-4·max|p| per tensor except at most
+  1e-3 of its elements, and every element within 3·lr (Adam turns a
+  gradient's rounding into a different fraction of an lr step where that
+  gradient is near Adam's eps). ``fuse: true`` (bf16 operands on both
+  sides): losses and the gradient norm within 2e-3 relative, step-1
+  gradients within 5e-2·max|ref|, parameters within 6·lr and a mean |Δ|
+  of 0.1·lr per tensor (``FUSED_TOL``, ``_close_after_adam``);
 * the synthetic train loader's batches, element for element;
-* the entry point: ``python -m hvt_torch.main --device cpu`` trains, no
-  device and no card raises, and what is not ported raises.
+* the entry point: ``python -m hvt_torch.main --device cpu`` trains on
+  both routes, no device and no card raises, and what is not ported raises.
 
 hvt's side runs first in each test and is copied to numpy before torch
 runs a backward (JAX beside torch autograd, ROADMAP.md queue 3).
@@ -281,17 +285,25 @@ GEOMETRIES = {
     "tiny": (dict(embed_dim=96, depths=(2, 2), num_heads=(3, 6), window_size=7), 56),
 }
 NUM_CLASSES = 10
+# Losses (relative), the step-1 gradient norm (relative) and each step-1
+# gradient (max|Δ| over max|ref|). The fused route rounds every product's
+# operands to bf16 on both sides (hvt's Pallas halves in interpret mode, the
+# port's plain halves), so its operands round apart now and then, and the
+# flips compound over the blocks into a cancelling sum such as a logit
+# scale's gradient (measured: losses 4e-4, norm 3e-4, worst tensor 2.1e-2).
+UNFUSED_TOL = {"loss": 1e-5, "norm": 1e-4, "grad": 1e-3}
+FUSED_TOL = {"loss": 2e-3, "norm": 2e-3, "grad": 5e-2}
 
 
-def _jax_model(geometry):
+def _jax_model(geometry, fuse=False):
     kw, _ = GEOMETRIES[geometry]
-    return jswin.SwinTransformerV2(num_classes=NUM_CLASSES, dtype=jnp.float32, fuse=False,
+    return jswin.SwinTransformerV2(num_classes=NUM_CLASSES, dtype=jnp.float32, fuse=fuse,
                                    drop_path_rate=0.0, **kw)
 
 
-def _port_model(geometry, tree):
+def _port_model(geometry, tree, fuse=False):
     kw, _ = GEOMETRIES[geometry]
-    model = tswin.SwinTransformerV2(num_classes=NUM_CLASSES, dtype=torch.float32, fuse=False,
+    model = tswin.SwinTransformerV2(num_classes=NUM_CLASSES, dtype=torch.float32, fuse=fuse,
                                     drop_path_rate=0.0, **kw)
     return convert.swin_params_from_flax(model, tree)
 
@@ -317,13 +329,20 @@ def _randomized(shapes, seed):
     return jax.tree.map(lambda a: np.asarray(a, np.float32), tree)
 
 
-def _close_after_adam(got, ref, lr, steps, what):
+def _close_after_adam(got, ref, lr, steps, what, fused=False):
     """Adam moves an element by about ±lr whatever its gradient's size, so an
     element whose gradient is near Adam's eps (1e-8) moves by a different
     fraction of lr on each side: every element within steps·lr, and at most
-    1e-3 of a tensor's elements beyond 1e-4·max|p|."""
+    1e-3 of a tensor's elements beyond 1e-4·max|p|. On the fused route a
+    near-zero gradient element can change sign between the two sides (their
+    bf16 operands round apart), and Adam then moves it ±lr the other way:
+    every element within 2·steps·lr, and the tensor's mean |Δ| ≤ 0.1·lr."""
     diff = np.abs(got - ref)
-    assert diff.max() <= steps * lr, f"{what}: max|Δ| {diff.max():.3g} > {steps}·lr"
+    bound = (2 if fused else 1) * steps * lr
+    assert diff.max() <= bound, f"{what}: max|Δ| {diff.max():.3g} > {bound:.3g}"
+    if fused:
+        assert diff.mean() <= 0.1 * lr, f"{what}: mean|Δ| {diff.mean():.3g} > 0.1·lr"
+        return
     off = float(np.mean(diff > 1e-4 * np.abs(ref).max()))
     assert off <= 1e-3, f"{what}: {off:.3g} of the elements beyond 1e-4·max|p|"
 
@@ -332,16 +351,18 @@ def _optim_cfg():
     return types.SimpleNamespace(name="adamw", lr=1e-3, weight_decay=0.05, momentum=0.9)
 
 
-@pytest.mark.parametrize("geometry", list(GEOMETRIES))
-def test_three_adamw_steps_match_hvt_build_train_step(geometry):
+@pytest.mark.parametrize("geometry,fuse", [("micro", False), ("tiny", False), ("micro", True),
+                                           ("tiny", True)])
+def test_three_adamw_steps_match_hvt_build_train_step(geometry, fuse):
     _, img = GEOMETRIES[geometry]
+    tol = FUSED_TOL if fuse else UNFUSED_TOL
     rng = np.random.default_rng(30)
     batches = [(rng.integers(0, 256, size=(4, img, img, 3), dtype=np.uint8),
                 rng.integers(0, NUM_CLASSES, size=4).astype(np.int32),
                 np.ones(4, np.float32)) for _ in range(3)]
-    jm = _jax_model(geometry)
-    shapes = jax.eval_shape(lambda: jm.init(jax.random.key(0), jnp.zeros((1, img, img, 3)),
-                                            train=False))["params"]
+    jm = _jax_model(geometry, fuse)
+    shapes = jax.eval_shape(lambda: _jax_model(geometry).init(
+        jax.random.key(0), jnp.zeros((1, img, img, 3)), train=False))["params"]
     tree = _randomized(shapes, seed=40)
     mean, std = jdevice.scale_channel_stats((0.463, 0.480, 0.376), (0.238, 0.229, 0.247))
 
@@ -372,7 +393,7 @@ def test_three_adamw_steps_match_hvt_build_train_step(geometry):
     ref_params = convert.swin_state_dict_from_flax(jax.tree.map(np.asarray, state.params))
 
     # the port
-    model = _port_model(geometry, tree)
+    model = _port_model(geometry, tree, fuse)
     opt = toptim.Optimizer(model.named_parameters(), "adamw", 1e-3, 0.05, 0.9,
                            tschedule.cosine_with_warmup(0, 10), grad_clip_norm=5.0,
                            no_decay_substrings=model.no_weight_decay_substrings)
@@ -386,16 +407,16 @@ def test_three_adamw_steps_match_hvt_build_train_step(geometry):
         if i == 0:  # p.grad holds the clipped gradient after the step
             grads = {n: p.grad.numpy().copy() for n, p in model.named_parameters()}
             grad_norm = float(stats["grad_norm"])
-    np.testing.assert_allclose(losses, ref_losses, rtol=1e-5)
-    assert ref_losses[0] != ref_losses[2]
     assert set(grads) == set(ref_grads)
     ref_norm = np.sqrt(sum(float(np.sum(np.square(g, dtype=np.float64))) for g in ref_grads.values()))
-    assert grad_norm == pytest.approx(ref_norm, rel=1e-4)
     clip_factor = min(1.0, 5.0 / ref_norm)
+    np.testing.assert_allclose(losses, ref_losses, rtol=tol["loss"])
+    assert ref_losses[0] != ref_losses[2]
+    assert grad_norm == pytest.approx(ref_norm, rel=tol["norm"])
     for name, g in grads.items():
-        _close(g, ref_grads[name] * clip_factor, 1e-3, f"step-1 gradient {name}")
+        _close(g, ref_grads[name] * clip_factor, tol["grad"], f"step-1 gradient {name}")
     for name, p in model.state_dict().items():
-        _close_after_adam(p.numpy(), ref_params[name], lr=1e-3, steps=3, what=name)
+        _close_after_adam(p.numpy(), ref_params[name], lr=1e-3, steps=3, what=name, fused=fuse)
 
 
 # ---------------------------------------------------------------------------
@@ -467,6 +488,18 @@ def test_trainer_takes_its_steps_and_draws_drop_path():
     assert rates == pytest.approx([0.0, 0.2])  # hvt's np.linspace(0, rate, depth)
 
 
+def test_main_trains_the_fused_route_on_the_cpu():
+    """``fuse: true`` with drop path 0.2: two steps through the fused halves'
+    autograd Functions (their plain versions on the CPU), both drop-path
+    draws per block, finite losses."""
+    seen = []
+    layer = _train_layer()
+    layer["model"]["args"]["fuse"] = True
+    metrics = tmain.main(tconfig.loads(layer), device="cpu",
+                         on_step=lambda step, stats: seen.append(float(stats["loss_sum"])))
+    assert len(seen) == 2 and all(np.isfinite(seen)) and np.isfinite(metrics["loss"])
+
+
 def test_entry_point_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -474,7 +507,6 @@ def test_entry_point_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("change,match", [
-    ({"model": {"name": "swinv2_micro", "args": {"fuse": True}}}, "queue 2, items 1-2"),
     ({"grad_accum": 2}, "queue 1, item 5"),
     ({"algorithms": [{"cls": "EMA", "args": {}}]}, "EMA: ROADMAP.md queue 1, item 4"),
     ({"algorithms": [{"cls": "SAM", "args": {}}]}, "SAM: ROADMAP.md queue 1, item 5"),
