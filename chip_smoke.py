@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py              # needs one CUDA card; builds the kernels itself
     python3 chip_smoke.py --profile    # also: per-kernel device time of one forward and
-                                       # of one training step per route
+                                       # of one training step per route and per
+                                       # ResNet-50 BatchNorm
 
 Phases, in order; any failure exits non-zero and prints no result:
   1. the card's name and power limit (nvidia-smi);
@@ -31,7 +32,22 @@ Phases, in order; any failure exits non-zero and prints no result:
      synthetic source: finite losses, 12 launches per step of each kernel
      of the route (0 of the other route's), step ms, images/s and peak
      memory; then one step's loss and gradients, from the same weights and
-     batch, on the kernel path against the plain path.
+     batch, on the kernel path against the plain path;
+  8. the BatchNorm reduction kernels against f64 sums of the same bf16 inputs
+     and against their plain versions, at each of the 12 BatchNorm shapes of
+     ResNet-50 at batch 256 and 224 px, and ``bn_train``'s forward and
+     backward through them against the plain path; then each timed beside
+     its bound, its plain version and a library call (torch's
+     batch_norm_stats / batch_norm_backward_reduce), summed to a training
+     step with the 53 launches' shapes;
+  9. the ResNet-50 training path: ``hvt_torch.main.main`` trains ResNet-50
+     (configs/pretrain/inat21.yaml less ProgressiveResizing, bench.py's R50
+     settings: batch 256, stem_s2d, DecoupledSGDW at lr 2.048, EMA
+     100ba/20ba, smoothing 0.08, clip 2.0; 10,000 classes, synthetic source)
+     for 30 steps with bn_pallas: true: finite losses, 53 launches per step
+     of each BatchNorm kernel and none of the SwinV2 kernels, EMA updated at
+     steps 0 and 20, one step's loss and gradients against the plain path;
+     then the same run with bn_pallas: false (torch's BatchNorm, no kernel).
 
 Comparisons run with TF32 off (cuDNN and matmul), so the f32 parts of the
 plain path (patch-embed conv, head) are true f32. The kernel table goes on a
@@ -56,6 +72,7 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = pathlib.Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
+H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, the same data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3
 # SwinV2-T at 224 px: (grid, channels, heads, blocks) per stage
 STAGES = ((56, 96, 3, 2), (28, 192, 6, 2), (14, 384, 12, 6), (7, 768, 24, 2))
@@ -85,11 +102,12 @@ TRAIN_KERNELS = {  # kernels each training step launches 12 times, per route
     False: ("window_attention_packed_fwd", BWD_KERNEL),
     True: ("mlp_half_fwd", "attention_half_nhwc_fwd", *FUSED_BWD),
 }
-# Kernel names of each route's backward and forward in a profile.
+# Kernel names of each training path's backward and forward in a profile.
 PROFILE_NAMES = {
     False: {"backward": ("packed_attention_bwd",), "forward": ("packed_attention_fwd",)},
     True: {"backward": ("mlp_half_bwd_rows", "attn_half_bwd_", "grad_tn", "sum_parts"),
            "forward": ("mlp_half_fwd", "attn_half_nhwc_fwd")},
+    "resnet": {"backward": ("bwd_reduce_kernel",), "forward": ("channel_sums_kernel",)},
 }
 KEEP = 0.8  # drop-path keep probability of the scales in phase 6's inputs
 # max|kernel - plain| ≤ TOL·max|plain|: both sides share the arithmetic
@@ -118,6 +136,24 @@ FUSED_GRADS = {
 LOSS_RTOL = 1e-2
 GRAD_COSINE = 0.99
 GRAD_NORM_RTOL = 0.05
+# Phases 8 and 9: ResNet-50 at bench.py's batch per chip. Each BatchNorm input
+# shape at 224 px as (H = W, channels, BatchNorm layers of that shape).
+RESNET_BATCH = 256
+RESNET_STEPS = 30
+RESNET_BN_SHAPES = ((112, 64, 1), (56, 64, 6), (56, 256, 4), (56, 128, 1), (28, 128, 7),
+                    (28, 512, 5), (28, 256, 1), (14, 256, 11), (14, 1024, 7), (14, 512, 1),
+                    (7, 512, 5), (7, 2048, 4))
+RESNET_BN_LAYERS = 53
+BN_KERNELS = {  # name: (source, TPU kernel it replaces)
+    "bn_channel_sums": ("hvt_torch/ops/csrc/bn_stats.cu", "hvt/ops/bn_stats_pallas.py:94"),
+    "bn_bwd_reduce": ("hvt_torch/ops/csrc/bn_stats.cu", "hvt/ops/bn_stats_pallas.py:181"),
+}
+# Each kernel sum within BN_SUM_TOL·Σ|terms| of the f64 sum of the same bf16
+# inputs, per channel (f32 partials over about 1,000 chunks, added in a fixed
+# order); bn_train's dscale and dbias, both f32 sums, within twice that of
+# the plain path's; its y and dx (bf16 at the store) within 1e-2·max|plain|.
+BN_SUM_TOL = 1e-5
+BN_BF16_TOL = 1e-2
 # Whole-model logits, kernel path vs plain path: 24 block halves, each
 # within its kernel's tolerance, feed one bf16 residual stream.
 LOGIT_TOL = 5e-2
@@ -151,12 +187,14 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def kernel_counters():
+    from hvt_torch.ops import bn_stats_cuda as bsc
     from hvt_torch.ops import fused_halves_cuda as fh
     from hvt_torch.ops import window_attention_cuda as wac
 
     return {"window_attention_packed_fwd": wac.KERNEL, "mlp_half_fwd": fh.MLP_KERNEL,
             "attention_half_nhwc_fwd": fh.ATTN_KERNEL, BWD_KERNEL: wac.BWD_KERNEL,
-            "mlp_half_bwd": fh.MLP_BWD_KERNEL, "attention_half_nhwc_bwd": fh.ATTN_BWD_KERNEL}
+            "mlp_half_bwd": fh.MLP_BWD_KERNEL, "attention_half_nhwc_bwd": fh.ATTN_BWD_KERNEL,
+            "bn_channel_sums": bsc.SUMS_KERNEL, "bn_bwd_reduce": bsc.BWD_KERNEL}
 
 
 @contextlib.contextmanager
@@ -177,16 +215,41 @@ def plain_versions():
     """The model's kernel wrappers swapped for their plain versions: the
     reference the kernel path is held against. Only this script does this.
     The packed attention becomes the plain forward under torch autograd; the
-    fused halves keep their autograd Functions with the plain forward and
-    backward in the kernels' place."""
+    fused halves and ``bn_train`` keep their autograd Functions with the
+    plain versions in the kernels' place."""
     from hvt_torch.ops import fused_halves_cuda as fh
     from hvt_torch.ops import window_attention_cuda as wac
 
     with swapped(wac, window_attention_packed=wac.window_attention_packed_plain), \
             swapped(fh, mlp_half_forward=fh.mlp_half_plain,
                     attention_half_nhwc_forward=fh.attention_half_nhwc_plain), \
-            plain_fused_backward():
+            plain_fused_backward(), plain_bn_reductions():
         yield
+
+
+def plain_bn_reductions():
+    """The BatchNorm reductions swapped for their plain versions inside
+    ``bn_train``, which keeps its elementwise forward and backward."""
+    from hvt_torch.ops import bn_stats
+
+    return swapped(bn_stats, channel_sums=bn_stats.channel_sums_plain,
+                   bn_bwd_reduce=bn_stats.bn_bwd_reduce_plain)
+
+
+def exact_bn_reductions():
+    """The plain BatchNorm reductions summed in f64 and rounded to f32: the
+    plain path with other (exact) sums, which shows how far a change of the
+    sums' last bits alone moves the model's gradients."""
+    from hvt_torch.ops import bn_stats
+
+    def sums(x):
+        return tuple(t.float() for t in bn_stats.channel_sums_plain(x.double()))
+
+    def bwd(g, x, mean, rstd):
+        return tuple(t.float() for t in bn_stats.bn_bwd_reduce_plain(
+            g.double(), x.double(), mean.double(), rstd.double()))
+
+    return swapped(bn_stats, channel_sums=sums, bn_bwd_reduce=bwd)
 
 
 def plain_backward():
@@ -360,10 +423,11 @@ def kernel_records(timing: bool) -> dict:
     return records
 
 
-def finish_record(rec: dict, timing: bool) -> None:
-    """The bound of a kernel's launches, and its times summed over them."""
+def finish_record(rec: dict, timing: bool, peak_ops: float = H100_BF16_FLOPS) -> None:
+    """The bound of a kernel's launches (its operations at ``peak_ops``), and
+    its times summed over them."""
     t_bytes = rec["bytes"] / H100_BYTES_PER_S * 1e3
-    t_ops = rec["flops"] / H100_BF16_FLOPS * 1e3
+    t_ops = rec["flops"] / peak_ops * 1e3
     rec["bound_ms"], rec["bound_by"] = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
     if timing:
         total = lambda key: sum(s["launches_per_forward"] * s[key] for s in rec["stages"])  # noqa: E731
@@ -819,16 +883,24 @@ def training_config(**model_args):
     })
 
 
-def train_run(fuse: bool) -> dict:
-    """Drive the main path of one route: hvt_torch.main.main(config), with
-    every launch counter set to 0 just before and read just after. A CUDA
-    event after each step times it; the losses are read back after the run."""
+def train_run(config, per_step: dict, label: str):
+    """Drive a training path through the entry point a user calls:
+    hvt_torch.main.main(config), with every launch counter set to 0 just
+    before and read just after; each kernel of ``per_step`` must launch that
+    many times a step, every other kernel never. A CUDA event after each step
+    times it; the losses are read back after the run. Returns the record and
+    the Trainer that ran."""
     import torch
 
     from hvt_torch import main as main_lib
 
     counters = kernel_counters()
-    events, losses = [], []
+    events, losses, trainers = [], [], []
+
+    class RecordingTrainer(main_lib.Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            trainers.append(self)
 
     def on_step(step, stats):
         ev = torch.cuda.Event(enable_timing=True)
@@ -836,13 +908,15 @@ def train_run(fuse: bool) -> dict:
         events.append(ev)
         losses.append(stats["loss_sum"])
 
-    config = training_config(fuse=fuse)
+    steps = int(config.max_duration.removesuffix("ba"))
+    batch = config.train_dataset.global_batch_size
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.launches = 0
     t0 = time.perf_counter()
-    metrics = main_lib.main(config, on_step=on_step)
+    with swapped(main_lib, Trainer=RecordingTrainer):
+        metrics = main_lib.main(config, on_step=on_step)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
@@ -850,60 +924,74 @@ def train_run(fuse: bool) -> dict:
     step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]  # step 2 onwards
     steady = sorted(step_ms[4:])  # the steps after the first 5
     median_ms = steady[len(steady) // 2]
-    log(f"  fuse={fuse}: {len(losses)} steps: loss {losses[0]:.4f} → {losses[-1]:.4f}; step {median_ms:.2f} ms "
-        f"median after the first 5 ({TRAIN_BATCH / median_ms * 1e3:.1f} img/s); launches "
-        f"{launches}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  {label}: {len(losses)} steps: loss {losses[0]:.4f} → {losses[-1]:.4f}; step {median_ms:.2f} ms "
+        f"median after the first 5 ({batch / median_ms * 1e3:.1f} img/s); launches "
+        f"{ {k: v for k, v in launches.items() if v} }; peak memory {peak_gib:.1f} GiB; "
         f"{wall_s:.1f} s in all")
-    if len(losses) != TRAIN_STEPS or not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"training losses: {losses}")
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{label}: training losses {losses}")
     for name, n in launches.items():
-        want = 12 * TRAIN_STEPS if name in TRAIN_KERNELS[fuse] else 0
+        want = per_step.get(name, 0) * steps
         if n != want:
-            raise AssertionError(f"{name}: {n} launches in {TRAIN_STEPS} training steps on the "
-                                 f"fuse={fuse} route, expected {want}")
-    return {"fuse": fuse, "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "launches": launches, "losses": losses,
+            raise AssertionError(f"{name}: {n} launches in {steps} training steps of {label}, "
+                                 f"expected {want}")
+    return {"label": label, "steps": steps, "batch": batch, "launches": launches, "losses": losses,
             "step_ms": step_ms, "step_ms_median": median_ms,
-            "images_per_s": TRAIN_BATCH / median_ms * 1e3, "wall_s": wall_s,
-            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30, "metrics": metrics}
+            "images_per_s": batch / median_ms * 1e3, "wall_s": wall_s,
+            "peak_memory_gib": peak_gib, "metrics": metrics}, trainers[0]
 
 
-def train_batch(seed: int):
+def train_batch(seed: int, batch: int):
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
-    images = rng.integers(0, 256, size=(TRAIN_BATCH, 224, 224, 3), dtype=np.uint8)
-    labels = rng.integers(0, CLASSES, size=TRAIN_BATCH)
+    images = rng.integers(0, 256, size=(batch, 224, 224, 3), dtype=np.uint8)
+    labels = rng.integers(0, CLASSES, size=batch)
     return (torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda(),
-            torch.ones(TRAIN_BATCH, device="cuda"))
+            torch.ones(batch, device="cuda"))
 
 
-def gradient_check(fuse: bool) -> dict:
+def gradient_check(config, label: str, randomize: bool = True, hold_gradients: bool = True,
+                   path=contextlib.nullcontext) -> dict:
     """One step's loss and parameter gradients from the same seeded weights
-    and batch (drop path 0) on the kernel path and on the plain path."""
+    and batch on the kernel path (or under ``path()``) and on the plain path,
+    with cuDNN deterministic so that only the kernels tell the paths apart;
+    ``randomize`` draws every SwinV2 parameter (its res-post-norm starts at
+    zero). Without ``hold_gradients`` only the loss is held and the
+    gradients' agreement is recorded."""
     import torch
 
     from hvt_torch import objectives
     from hvt_torch.data import DevicePrep
     from hvt_torch.data import device as device_prep
     from hvt_torch.models import build_model
+    from hvt_torch.train import algorithms
 
-    config = training_config(drop_path_rate=0.0, fuse=fuse)
     model = build_model(config, CLASSES).cuda().train()
-    randomize_(model, seed=13)
+    if randomize:
+        randomize_(model, seed=13)
     prep = DevicePrep.from_config(config.train_dataset, config.precision)
-    images, labels, mask = train_batch(seed=17)
+    smoothing = algorithms.parse_algorithms(config).label_smoothing
+    images, labels, mask = train_batch(17, config.train_dataset.global_batch_size)
 
     def loss_and_grads():
         model.zero_grad(set_to_none=True)
-        targets = device_prep.prepare_targets(labels, CLASSES, 0.1)
+        targets = device_prep.prepare_targets(labels, CLASSES, smoothing)
         loss = objectives.soft_cross_entropy(model(prep.normalize(images)), targets, mask)
         loss.backward()
         return float(loss.detach()), {n: p.grad.float().clone() for n, p in model.named_parameters()}
 
-    loss, grads = loss_and_grads()
-    with plain_versions():
-        ref_loss, ref = loss_and_grads()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with path():
+            loss, grads = loss_and_grads()
+        with plain_versions():
+            ref_loss, ref = loss_and_grads()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     rows = []
     for name, g in grads.items():
         r = ref[name]
@@ -911,31 +999,33 @@ def gradient_check(fuse: bool) -> dict:
         rows.append((cos, float(g.norm() / r.norm().clamp_min(1e-30)), name))
     worst = min(rows, key=lambda row: (row[0], -abs(row[1] - 1.0)))
     worst_norm = max(rows, key=lambda row: abs(row[1] - 1.0))
-    log(f"  fuse={fuse}: loss kernel path {loss:.6f}, plain path {ref_loss:.6f}; {len(rows)} gradient tensors: "
+    log(f"  {label}: loss {loss:.6f}, plain path {ref_loss:.6f}; {len(rows)} gradient tensors: "
         f"worst cosine {worst[0]:.6f} ({worst[2]}), worst norm ratio {worst_norm[1]:.4f} "
         f"({worst_norm[2]})")
-    bad = [r for r in rows if r[0] < GRAD_COSINE or abs(r[1] - 1.0) > GRAD_NORM_RTOL]
+    bad = [r for r in rows if hold_gradients and (r[0] < GRAD_COSINE or abs(r[1] - 1.0) > GRAD_NORM_RTOL)]
     if abs(loss - ref_loss) > LOSS_RTOL * abs(ref_loss) or bad:
-        raise AssertionError(f"kernel-path gradients disagree with the plain path: loss {loss} vs "
-                             f"{ref_loss}; tensors {bad[:5]}")
+        raise AssertionError(f"{label}: kernel-path gradients disagree with the plain path: loss "
+                             f"{loss} vs {ref_loss}; tensors {bad[:5]}")
     del model, grads, ref
     torch.cuda.empty_cache()
-    return {"loss": loss, "plain_loss": ref_loss, "tensors": len(rows),
+    return {"dtype": config.precision.compute_dtype, "gradients_held": hold_gradients,
+            "loss": loss, "plain_loss": ref_loss, "tensors": len(rows),
             "worst_cosine": worst[0], "worst_cosine_tensor": worst[2],
             "worst_norm_ratio": worst_norm[1], "worst_norm_tensor": worst_norm[2]}
 
 
-def profile_train_step(fuse: bool) -> dict:
-    """Device time by kernel over one training step of the route (--profile),
-    after two warm-up steps, through the Trainer's own step. Only kernel rows are
-    summed: an operator's row repeats the time of the kernels it launched,
-    and a user annotation's (``Optimizer.step#...``) the time it spans."""
+def profile_train_step(config, names: dict) -> dict:
+    """Device time by kernel over one training step of ``config`` (--profile),
+    after two warm-up steps, through the Trainer's own step; ``names`` picks
+    the backward and forward kernels' rows. Only kernel rows are summed: an
+    operator's row repeats the time of the kernels it launched, and a user
+    annotation's (``Optimizer.step#...``) the time it spans."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from hvt_torch.train.loop import Trainer
 
-    trainer = Trainer(training_config(fuse=fuse))
+    trainer = Trainer(config)
     batch = next(trainer.train_loader.epoch(0))
     for _ in range(2):
         trainer.train_step(*trainer._to_device(batch), trainer.generator)
@@ -956,7 +1046,6 @@ def profile_train_step(fuse: bool) -> dict:
     rows.sort(key=lambda r: -r["ms_per_step"])
     ops.sort(key=lambda r: -r["ms_per_step"])
     total = sum(r["ms_per_step"] for r in rows)
-    names = PROFILE_NAMES[fuse]
     bwd = sum(r["ms_per_step"] for r in rows if any(k in r["name"] for k in names["backward"]))
     fwd = sum(r["ms_per_step"] for r in rows if any(k in r["name"] for k in names["forward"]))
     optimizer = optimizer_times(trainer.optimizer)
@@ -996,6 +1085,200 @@ def optimizer_times(opt, iters: int = 5) -> dict:
             if not (getattr(e, "is_user_annotation", False) or e.key.startswith("Optimizer."))))
     median = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
     return {"host_ms": median(host), "span_ms": median(span), "kernel_ms": median(kernel)}
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the BatchNorm reduction kernels at ResNet-50's shapes
+# ---------------------------------------------------------------------------
+
+
+def bn_inputs(grid: int, c: int, seed: int):
+    """x and g (rows, C) bf16, the (rows, C) views of NHWC maps at
+    RESNET_BATCH, x with channel means away from 0; scale ~ U(0, 1) as hvt's
+    init draws it, and a drawn bias."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    rows = RESNET_BATCH * grid * grid
+    x = torch.randn(rows, c, device="cuda", generator=gen).mul_(1.5).add_(
+        torch.randn(c, device="cuda", generator=gen)).bfloat16()
+    g = torch.randn(rows, c, device="cuda", generator=gen).bfloat16()
+    scale = torch.rand(c, device="cuda", generator=gen)
+    bias = 0.1 * torch.randn(c, device="cuda", generator=gen)
+    return x, g, scale, bias
+
+
+def sums_error(got, terms, what: str) -> float:
+    """max over channels of |got − Σ terms| / Σ|terms|, the sums in f64; raises
+    beyond BN_SUM_TOL."""
+    import torch
+
+    ref, mag = terms.sum(0), terms.abs().sum(0)
+    rel = float(((got.double() - ref).abs() / mag.clamp_min(1e-300)).max())
+    if not (bool(torch.isfinite(got).all()) and rel <= BN_SUM_TOL):
+        raise AssertionError(f"{what}: |kernel − f64| / Σ|terms| = {rel:.3g} > {BN_SUM_TOL}")
+    return rel
+
+
+def bn_train_check(x, g, scale, bias, what: str) -> dict:
+    """bn_train's forward and backward through the kernels against the same
+    Function with the plain reductions, on the same inputs."""
+    import torch
+
+    from hvt_torch.ops import bn_stats
+
+    def run():
+        leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+        y, _, _ = bn_stats.bn_train(*leaves, 1e-5, torch.bfloat16)
+        y.backward(g)
+        return y.detach(), *(t.grad for t in leaves)
+
+    got = run()
+    torch.cuda.synchronize()
+    with plain_bn_reductions():
+        ref = run()
+    errs = {}
+    for name, a, b in zip(("y", "dx"), got[:2], ref[:2]):
+        err, top = float((a.float() - b.float()).abs().max()), float(b.float().abs().max())
+        errs[name] = err / top
+        if not (bool(torch.isfinite(a).all()) and err <= BN_BF16_TOL * top):
+            raise AssertionError(f"bn_train {name} {what}: max|Δ| {err:.4g} > {BN_BF16_TOL}·{top:.4g}")
+    # dscale = Σg·x̂, dbias = Σg: each side an f32 sum within BN_SUM_TOL of the exact
+    xh = (x.double() - x.double().mean(0)) / x.double().var(0, unbiased=False).add(1e-5).sqrt()
+    for name, a, b, mag in zip(("dscale", "dbias"), got[2:], ref[2:],
+                               ((g.double() * xh).abs().sum(0), g.double().abs().sum(0))):
+        rel = float(((a.double() - b.double()).abs() / mag).max())
+        errs[name] = rel
+        if rel > 2 * BN_SUM_TOL:
+            raise AssertionError(f"bn_train {name} {what}: |Δ| / Σ|terms| = {rel:.3g}")
+    return errs
+
+
+def bn_records(timing: bool) -> dict:
+    """Both BatchNorm kernels at every ResNet-50 BatchNorm shape at
+    RESNET_BATCH: checked against f64 sums, their plain versions and (through
+    ``bn_train``) the plain path; or timed with their plain versions and the
+    library calls. Per training step: each shape's launches summed."""
+    import torch
+
+    from hvt_torch.ops import bn_stats
+
+    records = {name: {"max_abs_err": 0.0, "bytes": 0, "flops": 0, "stages": []}
+               for name in BN_KERNELS}
+    for i, (grid, c, layers) in enumerate(RESNET_BN_SHAPES):
+        x, g, scale, bias = bn_inputs(grid, c, seed=500 + i)
+        rows = x.shape[0]
+        s, q = bn_stats.channel_sums(x)
+        mean = s / rows
+        rstd = torch.rsqrt(torch.clamp_min(q / rows - mean * mean, 0.0) + 1e-5)
+        x4 = x.view(RESNET_BATCH, grid, grid, c).permute(0, 3, 1, 2)  # channels-last views
+        g4 = g.view(RESNET_BATCH, grid, grid, c).permute(0, 3, 1, 2)
+        cases = {
+            "bn_channel_sums": (lambda: bn_stats.channel_sums(x),
+                                lambda: bn_stats.channel_sums_plain(x),
+                                lambda: torch.batch_norm_stats(x4, 1e-5), 2 * rows * c + 8 * c,
+                                3 * rows * c),
+            "bn_bwd_reduce": (lambda: bn_stats.bn_bwd_reduce(g, x, mean, rstd),
+                              lambda: bn_stats.bn_bwd_reduce_plain(g, x, mean, rstd),
+                              lambda: torch.batch_norm_backward_reduce(g4, x4, mean, rstd, scale,
+                                                                       True, True, True),
+                              4 * rows * c + 16 * c, 5 * rows * c),
+        }
+        for name, (kern, plain, library, nbytes, flops) in cases.items():
+            rec = records[name]
+            st = {"shape": [rows, c], "launches_per_forward": layers, "bytes": nbytes,
+                  "flops": flops}
+            rec["bytes"] += layers * nbytes
+            rec["flops"] += layers * flops
+            if timing:
+                st["ms"] = cuda_time_ms(kern)
+                st["plain_ms"] = cuda_time_ms(plain, iters=5)
+                st["library_ms"] = cuda_time_ms(library, iters=10)
+            else:
+                got = kern()
+                torch.cuda.synchronize()
+                xd = x.double()
+                if name == "bn_channel_sums":
+                    terms = (xd, xd * xd)
+                else:
+                    gd = g.double()
+                    terms = (gd, gd * ((xd - mean.double()) * rstd.double()))
+                st["relative_to_f64"] = max(sums_error(a, t, f"{name} ({rows}, {c})")
+                                            for a, t in zip(got, terms))
+                st["max_abs_err"] = max(float((a - b).abs().max()) for a, b in zip(got, plain()))
+                rec["max_abs_err"] = max(rec["max_abs_err"], st["max_abs_err"])
+                del terms, xd
+            rec["stages"].append(st)
+        if not timing:
+            errs = bn_train_check(x, g, scale, bias, f"({rows}, {c})")
+            records["bn_bwd_reduce"]["stages"][-1]["bn_train"] = errs
+            worst = max(records[n]["stages"][-1]["relative_to_f64"] for n in BN_KERNELS)
+            log(f"  ({rows:7d}, {c:4d}) x{layers:2d}: Σx, Σx², Σg, Σg·x̂ within {worst:.2g}·Σ|terms| "
+                f"of f64 (tol {BN_SUM_TOL}); bn_train vs plain path: y {errs['y']:.2g}, dx "
+                f"{errs['dx']:.2g}·max|plain|, dscale {errs['dscale']:.2g}, dbias "
+                f"{errs['dbias']:.2g}·Σ|terms| ok")
+        del x, g, x4, g4
+        torch.cuda.empty_cache()
+    for rec in records.values():
+        finish_record(rec, timing, H100_F32_FLOPS)  # f32 adds and multiplies on CUDA cores
+    return records
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the ResNet-50 training path
+# ---------------------------------------------------------------------------
+
+
+def resnet_config(bn_pallas: bool, compute_dtype: str = "bfloat16"):
+    """configs/pretrain/inat21.yaml less ProgressiveResizing, with bench.py's
+    R50 settings (bench.py:285-338): batch RESNET_BATCH, stem_s2d,
+    DecoupledSGDW at lr 2.048, momentum 0.875, wd 5e-4, EMA 100ba/20ba,
+    smoothing 0.08, clip 2.0 (bench.py's list, which leaves out BlurPool);
+    10,000 classes on the synthetic source, RESNET_STEPS steps with a 5-step
+    warmup, activations in ``compute_dtype``."""
+    from hvt_torch import config as config_lib
+
+    base = config_lib.load(machine=str(ROOT / "configs/machines/local.yaml"),
+                           exps=[str(ROOT / "configs/pretrain/inat21.yaml")])
+    return config_lib.loads(config_lib.to_dict(base), {
+        "max_duration": f"{RESNET_STEPS}ba",
+        "scheduler": {"args": {"t_warmup": "5ba"}},
+        "model": {"args": {"stem_s2d": True, "bn_pallas": bn_pallas}},
+        "optim": {"name": "DecoupledSGDW", "lr": 2.048, "momentum": 0.875, "weight_decay": 5e-4},
+        "algorithms": [
+            {"cls": "EMA", "args": {"half_life": "100ba", "update_interval": "20ba"}},
+            {"cls": "LabelSmoothing", "args": {"smoothing": 0.08}},
+            {"cls": "GradientClipping", "args": {"clipping_type": "norm", "clipping_threshold": 2.0}},
+        ],
+        "train_dataset": {"source": "synthetic", "synthetic_num_classes": CLASSES,
+                          "synthetic_num_samples": RESNET_BATCH * RESNET_STEPS,
+                          "global_batch_size": RESNET_BATCH},
+        "precision": {"compute_dtype": compute_dtype},
+    })
+
+
+def check_ema(trainer, label: str) -> dict:
+    """The Trainer's EMA after RESNET_STEPS steps at interval 20: updated at
+    steps 0 and 20, its weights apart from the live ones, every running
+    statistic (live and averaged) finite."""
+    import torch
+
+    from hvt_torch.train import ema as ema_lib
+
+    ema = trainer.ema
+    live = dict(trainer.model.named_parameters())
+    apart = sum(not torch.equal(ema.params[n], p) for n, p in live.items())
+    stats = {**ema_lib.batch_stats(trainer.model), **{f"ema {k}": v for k, v in ema.batch_stats.items()}}
+    finite = all(bool(torch.isfinite(v).all()) for v in stats.values())
+    want = len(range(0, RESNET_STEPS, ema.cfg.update_interval_steps))
+    log(f"  {label}: EMA decay {ema.cfg.decay:.6f}, {ema.updates} updates (steps 0 and 20 of "
+        f"{RESNET_STEPS}); {apart}/{len(live)} averaged parameters apart from the live ones; "
+        f"{len(stats)} running statistics finite: {finite}")
+    if ema.updates != want or apart == 0 or not finite:
+        raise AssertionError(f"{label}: EMA updates {ema.updates} (want {want}), {apart} tensors "
+                             f"apart, finite {finite}")
+    return {"decay": ema.cfg.decay, "updates": ema.updates, "params_apart": apart,
+            "params": len(live), "stats_finite": finite}
 
 
 def main(argv=None) -> int:
@@ -1087,8 +1370,12 @@ def main(argv=None) -> int:
         f"{TRAIN_STEPS} steps (hvt_torch.main), per route")
     train = {}
     for fuse in (False, True):
-        train[f"fuse={fuse}"] = train_run(fuse)
-        train[f"fuse={fuse}"]["gradients"] = gradient_check(fuse)
+        label = f"fuse={fuse}"
+        train[label], trainer = train_run(training_config(fuse=fuse),
+                                          {k: 12 for k in TRAIN_KERNELS[fuse]}, label)
+        del trainer
+        train[label]["gradients"] = gradient_check(training_config(drop_path_rate=0.0, fuse=fuse),
+                                                   label)
     kernels.append({
         "name": BWD_KERNEL, "route": "cuda", "source": BWD_SOURCE[0], "replaces": BWD_SOURCE[1],
         "launches": train["fuse=False"]["launches"][BWD_KERNEL] // TRAIN_STEPS,
@@ -1105,20 +1392,68 @@ def main(argv=None) -> int:
             "library_ms": None,
         })
 
+    log(f"[8] BatchNorm reduction kernels vs f64 sums and plain versions, bf16, the "
+        f"{len(RESNET_BN_SHAPES)} BatchNorm shapes of ResNet-50 at batch {RESNET_BATCH}")
+    bn_checked = bn_records(timing=False)
+    bn_timed = bn_records(timing=True)
+    for name, rec in bn_timed.items():
+        log(f"  {name}: {rec['ms']:.4f} ms kernel, {rec['plain_ms']:.4f} ms plain, bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), library {rec['library_ms']:.4f} ms, per "
+            f"training step ({RESNET_BN_LAYERS} launches) on {card}; per launch (kernel/bound/plain/"
+            f"library ms): " + "; ".join(
+                f"{st['shape'][0]}x{st['shape'][1]} x{st['launches_per_forward']} {st['ms']:.4f}/"
+                f"{st['bytes'] / H100_BYTES_PER_S * 1e3:.4f}/{st['plain_ms']:.4f}/{st['library_ms']:.4f}"
+                for st in rec["stages"]))
+
+    log(f"[9] training ResNet-50 at 224 px, {CLASSES} classes, batch {RESNET_BATCH}, "
+        f"{RESNET_STEPS} steps (hvt_torch.main), bn_pallas true then false")
+    resnet = {}
+    resnet["bn_pallas=True"], trainer = train_run(
+        resnet_config(True), {k: RESNET_BN_LAYERS for k in BN_KERNELS}, "resnet50 bn_pallas=True")
+    resnet["bn_pallas=True"]["ema"] = check_ema(trainer, "resnet50 bn_pallas=True")
+    del trainer
+    # In bf16 the paths' f32 sums, equal to ~1e-7, flip some bf16 BatchNorm
+    # outputs by an ulp, and 53 BatchNorm backwards magnify the flips in the
+    # first layers' gradients: there the loss is held and the gradients are
+    # recorded. In f32 nothing rounds to bf16, and every gradient is held.
+    resnet["bn_pallas=True"]["gradients_bf16"] = gradient_check(
+        resnet_config(True), "resnet50 bn_pallas=True bf16", randomize=False, hold_gradients=False)
+    resnet["bn_pallas=True"]["gradients_bf16_exact_sums"] = gradient_check(
+        resnet_config(True), "resnet50 bf16, plain path with f64 sums (no kernel)", randomize=False,
+        hold_gradients=False, path=exact_bn_reductions)
+    resnet["bn_pallas=True"]["gradients"] = gradient_check(
+        resnet_config(True, "float32"), "resnet50 bn_pallas=True f32", randomize=False)
+    resnet["bn_pallas=False"], trainer = train_run(resnet_config(False), {}, "resnet50 bn_pallas=False")
+    resnet["bn_pallas=False"]["ema"] = check_ema(trainer, "resnet50 bn_pallas=False")
+    del trainer
+    for name, (source, replaces) in BN_KERNELS.items():
+        rec = bn_timed[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": resnet["bn_pallas=True"]["launches"][name],
+            "max_abs_err": bn_checked[name]["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"],
+        })
+
     report = {"card": card, "batch": BATCH, "kernels": kernels, "routes": routes,
               "kernel_stages": {k: {"check": checked[k]["stages"], "timed": timed[k]["stages"]}
                                 for k in KERNELS},
               "backward_stages": {"check": bwd_checked["stages"], "timed": bwd["stages"]},
               "fused_backward_stages": {k: {"check": fused_checked[k]["stages"],
                                             "timed": fused[k]["stages"]} for k in FUSED_BWD},
-              "train": train}
+              "train": train,
+              "bn_stages": {k: {"check": bn_checked[k]["stages"], "timed": bn_timed[k]["stages"]}
+                            for k in BN_KERNELS},
+              "resnet50": resnet}
     if args.profile:
         report["profile"] = {f"fuse={f}": profile_route(f) for f in (False, True)}
         for route, rows in report["profile"].items():
             log(f"  profile {route}: " + "; ".join(
                 f"{r['name'][:40]} {r['ms_per_forward']:.3f} ms x{r['calls']}" for r in rows[:8]))
         for fuse in (False, True):
-            prof = report["profile"][f"train_step fuse={fuse}"] = profile_train_step(fuse)
+            prof = report["profile"][f"train_step fuse={fuse}"] = profile_train_step(
+                training_config(fuse=fuse), PROFILE_NAMES[fuse])
             prof["share_of_median_step"] = prof["device_ms"] / train[f"fuse={fuse}"]["step_ms_median"]
             log(f"  profile train step fuse={fuse}: {prof['device_ms']:.2f} ms of kernel time in a "
                 f"{prof['step_ms']:.2f} ms profiled step (busy {100 * prof['busy_share']:.1f}%; "
@@ -1132,6 +1467,19 @@ def main(argv=None) -> int:
             log("  profile train step by operator (device time of the kernels each launched; "
                 "Optimizer.step's is the span of its launches): " + "; ".join(
                 f"{r['name'][:40]} {r['ms_per_step']:.3f} ms x{r['calls']}" for r in prof["ops"][:12]))
+        for pallas in (True, False):
+            label = f"bn_pallas={pallas}"
+            prof = report["profile"][f"resnet50 train_step {label}"] = profile_train_step(
+                resnet_config(pallas), PROFILE_NAMES["resnet"])
+            prof["share_of_median_step"] = prof["device_ms"] / resnet[label]["step_ms_median"]
+            log(f"  profile ResNet-50 train step {label}: {prof['device_ms']:.2f} ms of kernel time "
+                f"in a {prof['step_ms']:.2f} ms profiled step (busy {100 * prof['busy_share']:.1f}%; "
+                f"{100 * prof['share_of_median_step']:.1f}% of phase 9's median step), BatchNorm "
+                f"kernels: backward {prof['backward_kernel_ms']:.3f} ms, forward "
+                f"{prof['forward_kernel_ms']:.3f} ms; " + "; ".join(
+                    f"{r['name'][:40]} {r['ms_per_step']:.3f} ms x{r['calls']}" for r in prof["rows"][:14]))
+            log("  by operator: " + "; ".join(
+                f"{r['name'][:40]} {r['ms_per_step']:.3f} ms x{r['calls']}" for r in prof["ops"][:14]))
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     print(json.dumps({"kernels": kernels}))

@@ -63,9 +63,8 @@ class InferenceEngine:
         unsupported = self.device.type == "cuda" and model.cuda_unsupported(data_cfg.crop_size)
         if unsupported:
             raise NotImplementedError(
-                f"{config.model.name} (fuse={model.stage0_block0.fuse}) at "
-                f"{data_cfg.crop_size} px does not run on the CUDA kernels yet: "
-                + "; ".join(unsupported)
+                f"{config.model.name} {dict(config.model.args)} at {data_cfg.crop_size} px "
+                "does not run on the CUDA kernels yet: " + "; ".join(unsupported)
             )
         self.model = predict_lib._resolve_weights(config, model).to(self.device).eval()
         prep = DevicePrep.from_config(data_cfg, config.precision)

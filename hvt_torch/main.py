@@ -4,11 +4,15 @@
         --exp configs/pretrain/swinv2_tiny.yaml [more YAMLs] [--device cpu]
 
 Runs on the CUDA card unless ``--device cpu`` (and raises when there is no
-card). SwinV2 trains on the ``fuse: false`` route, through the packed
-window-attention kernel and its backward; ``fuse: true`` and the algorithms
-the port's train step does not run yet raise. Unlike hvt's ``main.py`` it
-neither evaluates nor writes checkpoints (see :mod:`hvt_torch.train.loop`);
-it prints the train metrics of the last log window as one JSON line.
+card). SwinV2 trains on both routes (``fuse: false`` through the packed
+window-attention kernel and its backward, ``fuse: true`` through the fused
+halves and theirs); ResNet trains with torch's BatchNorm, or with
+``model.args.bn_pallas: true`` through the BatchNorm reduction kernels, and
+with EMA where the recipe asks for it (configs/pretrain/inat21.yaml). The
+algorithms the port's train step does not run yet raise. Unlike hvt's
+``main.py`` it neither evaluates nor writes checkpoints (see
+:mod:`hvt_torch.train.loop`); it prints the train metrics of the last log
+window as one JSON line.
 """
 
 from __future__ import annotations

@@ -1,12 +1,14 @@
-"""Weights carried across: hvt's flax SwinV2 parameter tree → the port's model.
+"""Weights carried across: hvt's flax SwinV2 and ResNet trees → the port's models.
 
 The one place where the two layouts differ. A flax ``Dense`` kernel is
 (in, out) and an ``nn.Linear`` weight (out, in); a flax ``Conv`` kernel is
-HWIO and ``nn.Conv2d``'s OIHW; a flax ``LayerNorm`` has ``scale`` where
-PyTorch has ``weight``; WindowAttention's raw params (``qkv_kernel``,
-``cpb_w1``/``cpb_b1``/``cpb_w2``) map onto the port's ``qkv`` and ``cpb_fc*``
-Linears. The same tree serves both routes (``fuse`` false or true): hvt's
-fused path materialises the identical tree.
+HWIO and ``nn.Conv2d``'s OIHW; a flax ``LayerNorm`` or ``BatchNorm`` has
+``scale`` where PyTorch has ``weight``, and a BatchNorm's ``batch_stats``
+``mean``/``var`` are the port's ``running_mean``/``running_var`` buffers;
+WindowAttention's raw params (``qkv_kernel``, ``cpb_w1``/``cpb_b1``/
+``cpb_w2``) map onto the port's ``qkv`` and ``cpb_fc*`` Linears. The same
+SwinV2 tree serves both routes (``fuse`` false or true): hvt's fused path
+materialises the identical tree.
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ def swin_state_dict_from_flax(tree: Mapping) -> dict[str, np.ndarray]:
     out: dict[str, np.ndarray] = {}
     for key, sub in tree.items():
         if key == "patch_embed":
-            out["patch_embed.weight"] = np.asarray(sub["kernel"]).transpose(3, 2, 0, 1)
+            out["patch_embed.weight"] = _hwio(sub["kernel"])
             out["patch_embed.bias"] = np.asarray(sub["bias"])
         elif key in ("patch_norm", "norm"):
             _norm(sub, key, out)
@@ -62,20 +64,54 @@ def swin_state_dict_from_flax(tree: Mapping) -> dict[str, np.ndarray]:
         elif key.startswith("stage") and "_block" in key:
             _block(sub, key, out)
         elif key == "head":
-            if "kernel" in sub:
-                _dense(sub, "head", out)
-            else:
-                for tier, tsub in sub.items():
-                    _dense(tsub, f"head.{tier}", out)
+            _head(sub, out)
         else:
             raise KeyError(f"flax parameter {key!r} has no counterpart in the port")
     return out
 
 
-def swin_params_from_flax(model: torch.nn.Module, tree: Mapping) -> torch.nn.Module:
-    """Load a flax SwinV2 parameter tree into the port's ``SwinTransformerV2``
-    (every parameter must match in name and shape). Returns the model."""
-    state = swin_state_dict_from_flax(tree)
+def _head(sub, out: dict) -> None:
+    if "kernel" in sub:
+        _dense(sub, "head", out)
+    else:
+        for tier, tsub in sub.items():
+            _dense(tsub, f"head.{tier}", out)
+
+
+def _hwio(kernel) -> np.ndarray:
+    return np.asarray(kernel).transpose(3, 2, 0, 1)
+
+
+def _batch_norm(params, stats, prefix: str, out: dict) -> None:
+    _norm(params, prefix, out)
+    if stats is not None:
+        out[f"{prefix}.running_mean"] = np.asarray(stats["mean"])
+        out[f"{prefix}.running_var"] = np.asarray(stats["var"])
+
+
+def resnet_state_dict_from_flax(params: Mapping, batch_stats: Mapping | None = None
+                                ) -> dict[str, np.ndarray]:
+    """Flax ResNet params (and, when given, ``batch_stats``) → the port's
+    state-dict entries. Both stem paths load: ``stem/kernel`` (hvt's
+    ``stem_s2d``) and ``stem/Conv_0/kernel``, one (7, 7, 3, width) kernel."""
+    out: dict[str, np.ndarray] = {}
+    for key, sub in params.items():
+        stats = None if batch_stats is None else batch_stats.get(key)
+        if key == "head":
+            _head(sub, out)
+        elif key == "stem" or (key.startswith("stage") and "_block" in key):
+            convs = ({key: (sub, stats)} if key == "stem" else
+                     {f"{key}.{n}": (c, stats and stats[n]) for n, c in sub.items()})
+            for prefix, (csub, cstats) in convs.items():
+                kernel = csub["kernel"] if "kernel" in csub else csub["Conv_0"]["kernel"]
+                out[f"{prefix}.conv.weight"] = _hwio(kernel)
+                _batch_norm(csub["BatchNorm_0"], cstats and cstats["BatchNorm_0"], f"{prefix}.bn", out)
+        else:
+            raise KeyError(f"flax parameter {key!r} has no counterpart in the port")
+    return out
+
+
+def _load(model: torch.nn.Module, state: dict[str, np.ndarray]) -> torch.nn.Module:
     ref = model.state_dict()
     tensors = {}
     for name, arr in state.items():
@@ -87,3 +123,16 @@ def swin_params_from_flax(model: torch.nn.Module, tree: Mapping) -> torch.nn.Mod
         tensors[name] = t
     model.load_state_dict(tensors, strict=True)
     return model
+
+
+def swin_params_from_flax(model: torch.nn.Module, tree: Mapping) -> torch.nn.Module:
+    """Load a flax SwinV2 parameter tree into the port's ``SwinTransformerV2``
+    (every parameter must match in name and shape). Returns the model."""
+    return _load(model, swin_state_dict_from_flax(tree))
+
+
+def resnet_params_from_flax(model: torch.nn.Module, variables: Mapping) -> torch.nn.Module:
+    """Load flax ResNet ``variables`` ({"params": ..., "batch_stats": ...})
+    into the port's ``ResNet``: every parameter and running statistic must
+    match in name and shape. Returns the model."""
+    return _load(model, resnet_state_dict_from_flax(variables["params"], variables["batch_stats"]))

@@ -1,14 +1,16 @@
 """Model factory: config → nn.Module — port of ``hvt/models/factory.py``.
 
-This slice carries the SwinV2 family. Every other name of hvt's registry
-raises, naming the ROADMAP item that ports it.
+The port carries the SwinV2 and ResNet families. Every other name of hvt's
+registry raises, naming the ROADMAP item that ports it. As in hvt, BlurPool
+in the algorithms list sets ``blurpool``, and StochasticDepth sets a
+ResNet's ``stochastic_depth_rate`` or a SwinV2's ``drop_path_rate``.
 """
 
 from __future__ import annotations
 
 from typing import Union
 
-from hvt_torch.models import swinv2
+from hvt_torch.models import resnet, swinv2
 
 VALID_VARIANTS = (
     "full-tuning",
@@ -29,8 +31,16 @@ _SWIN = (
     "swinv2_large",
     "swinv2_large_window12_192",
 )
+_RESNET = (
+    "resnet50",
+    "resnet101",
+    "resnet152",
+    "resnet34",
+    "resnet18",
+    "resnet_micro",
+    "resnet_micro_bottleneck",
+)
 _NOT_PORTED = {
-    "resnet": "ROADMAP.md queue 1, item 7 (ResNet-50)",
     "vit_": "ROADMAP.md queue 1, item 9 (other model families)",
     "convnext_": "ROADMAP.md queue 1, item 9 (other model families)",
     "efficientnet_": "ROADMAP.md queue 1, item 9 (other model families)",
@@ -50,17 +60,19 @@ def build_model(config, num_classes: Union[int, tuple[int, ...]]):
             f"unknown model.variant {config.model.variant!r} (valid: {VALID_VARIANTS})"
         )
     name = config.model.name
-    if name not in _SWIN:
+    if name not in _SWIN + _RESNET:
         for prefix, item in _NOT_PORTED.items():
             if name.startswith(prefix):
                 raise NotImplementedError(f"model {name!r} is not ported yet: {item}")
-        raise ValueError(f"unknown model {name!r}; hvt_torch has {list(_SWIN)}")
+        raise ValueError(f"unknown model {name!r}; hvt_torch has {list(_SWIN + _RESNET)}")
+    family = resnet if name in _RESNET else swinv2
     kwargs = dict(config.model.args)
     kwargs.setdefault("dtype", config.precision.compute_dtype)
     kwargs.setdefault("seed", config.seed)
     for algo in config.algorithms:
         if algo.cls == "StochasticDepth":
-            kwargs.setdefault("drop_path_rate", float(algo.args.get("drop_rate", 0.1)))
+            key = "stochastic_depth_rate" if family is resnet else "drop_path_rate"
+            kwargs.setdefault(key, float(algo.args.get("drop_rate", 0.1)))
     blurpool = any(a.cls == "BlurPool" for a in config.algorithms)
-    return getattr(swinv2, name)(num_classes, blurpool=blurpool, **kwargs)
+    return getattr(family, name)(num_classes, blurpool=blurpool, **kwargs)
 

@@ -24,7 +24,8 @@ import threading
 
 CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).parent / "_build"
-SOURCES = ("window_attention", "window_attention_bwd", "fused_halves", "fused_halves_bwd")
+SOURCES = ("window_attention", "window_attention_bwd", "fused_halves", "fused_halves_bwd",
+           "bn_stats")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--expt-relaxed-constexpr",
@@ -124,3 +125,4 @@ class Kernel:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong

@@ -406,6 +406,32 @@ __device__ __forceinline__ void attention_core_bwd(float* Q, float* K, float* V,
   }
 }
 
+// out[i] = Σ_p part[p·count + i], i < count: 8 groups of parts, each summed
+// in order, then the groups in order — the same bits on every run.
+__global__ void __launch_bounds__(256)
+sum_parts_kernel(const float* __restrict__ part, int parts, long long count,
+                 float* __restrict__ out) {
+  __shared__ float red[8][33];
+  const int lane = threadIdx.x & 31, grp = threadIdx.x >> 5;
+  const long long i = (long long)blockIdx.x * 32 + lane;
+  float s = 0.f;
+  if (i < count)
+    for (int p = grp; p < parts; p += 8) s += part[p * count + i];
+  red[grp][lane] = s;
+  __syncthreads();
+  if (grp == 0 && i < count) {
+    float total = 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) total += red[k][lane];
+    out[i] = total;
+  }
+}
+
+inline int sum_parts(const float* part, int parts, long long count, float* out, cudaStream_t st) {
+  sum_parts_kernel<<<(unsigned)((count + 31) / 32), 256, 0, st>>>(part, parts, count, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace hvt
 
 // Message for a status returned by a launcher (each library is loaded on its

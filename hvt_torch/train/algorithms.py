@@ -12,24 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-from hvt_torch.train.schedule import parse_duration
-
-
-@dataclasses.dataclass(frozen=True)
-class EmaConfig:
-    """Composer EMA: every ``update_interval_steps`` the average moves by
-    decay = 0.5 ** (interval / half_life)."""
-
-    half_life_steps: int = 100
-    update_interval_steps: int = 20
-
-    @classmethod
-    def from_args(cls, args: dict) -> "EmaConfig":
-        half = parse_duration(args.get("half_life", "100ba"))
-        interval = parse_duration(args.get("update_interval", "20ba"))
-        if half.unit != "ba" or interval.unit != "ba":
-            raise ValueError("EMA half_life/update_interval must be in batches ('ba')")
-        return cls(int(half.value), int(interval.value))
+from hvt_torch.train.ema import EmaConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,10 +92,9 @@ def parse_algorithms(config) -> AlgorithmSettings:
 def unported(s: AlgorithmSettings) -> list[str]:
     """One line per parsed setting the port's train step does not run yet,
     naming the ROADMAP.md item that ports it."""
-    item4 = "ROADMAP.md queue 1, item 4 (device prep and EMA)"
+    item4 = "ROADMAP.md queue 1, item 4 (device prep)"
     item5 = "ROADMAP.md queue 1, item 5 (train step)"
     found = [
-        (s.ema is not None, f"EMA: {item4}"),
         (s.sam_rho is not None, f"SAM: {item5}"),
         (s.mixup_alpha is not None, f"MixUp: {item4}"),
         (s.cutmix_alpha is not None, f"CutMix: {item4}"),

@@ -2,16 +2,17 @@
 ``_fit_loop`` in ``hvt/train/loop.py``.
 
 Assembles from a Config the train loader, the durations and lr schedule, the
-model, the objective, the optimizer (with the model's no-decay names and
-gradient clipping) and the train step, on one device (the CUDA card unless
-the caller asks for the CPU), and trains for ``max_duration``.
+model (SwinV2 or ResNet, through the factory), the objective, the optimizer
+(with the model's no-decay names and gradient clipping), the EMA where the
+algorithms ask for it, and the train step, on one device (the CUDA card
+unless the caller asks for the CPU), and trains for ``max_duration``.
 
 Not hvt's ``fit()`` yet: hvt evaluates before training and at every
 ``eval_interval``, saves periodic and final checkpoints, resumes from
 ``load_path``/``auto_resume``, and logs through its RunLogger. This
 Trainer does none of these (evaluation and checkpoints are ROADMAP.md
 queue 1, items 5 and 8): its ``fit()`` runs the train steps and returns the
-train metrics of the last log window. EMA, SAM, MixUp, CutMix, progressive
+train metrics of the last log window. SAM, MixUp, CutMix, progressive
 resizing, device RandAugment/ColOut, a pretrained backbone and
 ``grad_accum`` > 1 are refused, never ignored. ``grad_accum: auto``
 resolves to 1 (hvt probes device memory; the port does not yet).
@@ -32,6 +33,7 @@ from hvt_torch.data import DevicePrep
 from hvt_torch.data.loader import Batch, build_loader
 from hvt_torch.models import build_model
 from hvt_torch.train import algorithms as algorithms_lib
+from hvt_torch.train import ema as ema_lib
 from hvt_torch.train import optim as optim_lib
 from hvt_torch.train import schedule as schedule_lib
 from hvt_torch.train import step as step_lib
@@ -68,6 +70,7 @@ class Trainer:
                 raise NotImplementedError(
                     f"the CUDA kernels cannot train {config.model.name}: " + "; ".join(why))
         self.model = model.to(self.device)
+        self.ema = ema_lib.Ema(self.algos.ema, self.model) if self.algos.ema else None
         self.objective = objectives_lib.build_objective(
             config, self.info, getattr(self.train_loader.dataset, "classes", None))
         self.optimizer = optim_lib.build_optimizer(
@@ -79,9 +82,19 @@ class Trainer:
             num_classes=self.info.num_classes, smoothing=self.algos.label_smoothing,
             grad_accum=grad_accum)
         self.train_step = step_lib.build_train_step(
-            self.model, self.objective, self.optimizer, self.prep, self.settings)
+            self.model, self.objective, self.optimizer, self.prep, self.settings, self.ema)
         # stochastic-depth draws; hvt folds the step into its key instead
         self.generator = torch.Generator(self.device).manual_seed(int(config.seed))
+
+    @property
+    def eval_params(self) -> dict[str, torch.Tensor]:
+        """The parameters evaluation uses: the EMA copy when there is one."""
+        return self.ema.params if self.ema else dict(self.model.named_parameters())
+
+    @property
+    def eval_batch_stats(self) -> dict[str, torch.Tensor]:
+        """The running statistics evaluation uses: the EMA copy when there is one."""
+        return self.ema.batch_stats if self.ema else ema_lib.batch_stats(self.model)
 
     def _to_device(self, batch: Batch):
         images = torch.from_numpy(batch.images)

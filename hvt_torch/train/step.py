@@ -2,14 +2,16 @@
 
 One step: uint8 NHWC images → ``DevicePrep.normalize`` → (smoothed)
 one-hot targets → the model's train-mode forward (stochastic depth drawn
-from the caller's generator) → objective → backward (kernel 1's backward
-on the card) → clip + optimizer update → metric partial sums. hvt's step
-is one jitted XLA program; here it runs eagerly and never waits for the
-device, so the host prepares the next batch while the card works.
+from the caller's generator; BatchNorm running statistics updated in place)
+→ objective → backward (the model's backward kernels on the card) → clip +
+optimizer update → EMA of the parameters and running statistics → metric
+partial sums. hvt's step is one jitted XLA program; here it runs eagerly and
+never waits for the device, so the host prepares the next batch while the
+card works.
 
-This slice runs ``grad_accum == 1`` without SAM, EMA, MixUp, CutMix,
-progressive resizing or device RandAugment/ColOut: :func:`build_train_step`
-raises on each (ROADMAP.md queue 1, items 4-6).
+The port runs ``grad_accum == 1`` without SAM, MixUp, CutMix, progressive
+resizing or device RandAugment/ColOut: :func:`build_train_step` raises on
+grad accumulation, the Trainer on the rest (ROADMAP.md queue 1, items 4-6).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from hvt_torch import metrics as metrics_lib
 from hvt_torch.data import device as device_prep
+from hvt_torch.train import ema as ema_lib
 from hvt_torch.train import optim as optim_lib
 
 
@@ -33,12 +36,13 @@ class StepSettings:
 
 def build_train_step(model: torch.nn.Module, objective: Callable,
                      optimizer: optim_lib.Optimizer, prep: device_prep.DevicePrep,
-                     settings: StepSettings) -> Callable:
+                     settings: StepSettings, ema: Optional[ema_lib.Ema] = None) -> Callable:
     """Returns ``step(images, labels, mask, generator)`` → stats: device
     scalars ``loss_sum``, ``grad_norm`` (of the raw gradients), ``batches``,
     ``correct@1``, ``correct@5``, ``ce_sum`` and ``count``. The model, its
     parameters and the batch share one device; the parameters update in
-    place."""
+    place, and then ``ema`` with the optimizer's count of updates before
+    this one (hvt's ``state.step``)."""
     if settings.grad_accum != 1:
         raise NotImplementedError(
             f"grad_accum {settings.grad_accum}: gradient accumulation is ROADMAP.md "
@@ -53,7 +57,10 @@ def build_train_step(model: torch.nn.Module, objective: Callable,
         loss = objective(out, targets, mask)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        step_before = optimizer.count
         grad_norm = optimizer.step()
+        if ema is not None:
+            ema.update(step_before)
         with torch.no_grad():
             detached = [o.detach() for o in out] if isinstance(out, list) else out.detach()
             stats = metrics_lib.batch_stats(detached, labels, mask)

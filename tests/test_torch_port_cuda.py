@@ -12,7 +12,9 @@ Inputs are bf16 at SwinV2-T widths (C = 96 and 768, head dim 32,
 window 7); kernel and plain version share the arithmetic contract (bf16
 operands, f32 accumulation, f32 softmax and LayerNorm), so they differ by
 accumulation order and the odd bf16 rounding flip: max|Δ| ≤ 1e-2·max|plain|
-for the attention core (1e-4 in f32), 2e-2 for the fused halves.
+for the attention core (1e-4 in f32), 2e-2 for the fused halves. The
+BatchNorm reductions run at ResNet-50 widths (C = 64 to 2048) against f64
+sums of the same inputs; each test states its tolerance.
 """
 
 import math
@@ -21,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+from hvt_torch.ops import bn_stats as bs
+from hvt_torch.ops import bn_stats_cuda as bsc
 from hvt_torch.ops import fused_halves_cuda as fh
 from hvt_torch.ops import window_attention as wa
 from hvt_torch.ops import window_attention_cuda as wac
@@ -259,3 +263,70 @@ def test_training_step_kernel_path_matches_plain_path(cuda, monkeypatch):
         r = ref[name]
         cos = float((g * r).sum() / (g.norm() * r.norm()))
         assert cos >= 0.99 and abs(float(g.norm() / r.norm()) - 1.0) <= 0.05, (name, cos)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,c", [(50176, 64), (12544, 2048), (2003, 264)])
+def test_bn_channel_reduction_kernels(cuda, m, c, dtype):
+    """ResNet-50 BatchNorm widths (C = 64 and 2048; 264 = 8·33 leaves a
+    ragged channel tile, 2003 rows a ragged last chunk): each of Σx, Σx², Σg
+    and Σg·x̂ within 1e-5 of the matching Σ|·|, per channel, of an f64 sum of
+    the same inputs (f32 partials over chunks summed in a fixed order)."""
+    gen = torch.Generator(cuda).manual_seed(m + c)
+    x = (torch.randn(m, c, device=cuda, generator=gen) * 2.0 + 0.5).to(dtype)
+    g = torch.randn(m, c, device=cuda, generator=gen).to(dtype)
+    mean = torch.randn(c, device=cuda, generator=gen) * 0.5
+    rstd = torch.rand(c, device=cuda, generator=gen) + 0.5
+    before = bsc.SUMS_KERNEL.launches, bsc.BWD_KERNEL.launches
+    got = [*bs.channel_sums(x), *bs.bn_bwd_reduce(g, x, mean, rstd)]
+    torch.cuda.synchronize()
+    assert (bsc.SUMS_KERNEL.launches, bsc.BWD_KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    xd, gd = x.double(), g.double()
+    gxh = gd * ((xd - mean.double()) * rstd.double())
+    for name, a, terms in zip(("Σx", "Σx²", "Σg", "Σg·x̂"), got, (xd, xd * xd, gd, gxh)):
+        assert a.dtype == torch.float32 and a.shape == (c,)
+        err = (a.double() - terms.sum(0)).abs()
+        assert bool((err <= 1e-5 * terms.abs().sum(0)).all()), (name, float(err.max()))
+
+
+def test_bn_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros(64, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        bs.channel_sums(x[:, ::2])
+    with pytest.raises(ValueError, match="multiple of 8"):
+        bs.channel_sums(x[:, :12].contiguous())
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        bs.channel_sums(x.half())
+    with pytest.raises(ValueError, match="one dtype"):
+        bs.bn_bwd_reduce(x, x.float(), torch.zeros(128, device=cuda), torch.ones(128, device=cuda))
+
+
+@pytest.mark.parametrize("m,c", [(200704, 128), (12544, 2048)])
+def test_bn_train_through_the_kernels(cuda, monkeypatch, m, c):
+    """``bn_train`` in bf16 through both kernels against the same Function
+    with the plain reductions: y and dx (bf16 at the store) within
+    1e-2·max|plain|, mean, var, dscale and dbias (f32 sums in another order)
+    within 1e-4·max|plain|."""
+    gen = torch.Generator(cuda).manual_seed(c)
+    x = (torch.randn(m, c, device=cuda, generator=gen) * 1.5 + 0.3).bfloat16()
+    g = torch.randn(m, c, device=cuda, generator=gen).bfloat16()
+    scale = torch.rand(c, device=cuda, generator=gen)
+    bias = torch.randn(c, device=cuda, generator=gen) * 0.1
+
+    def run():
+        leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+        y, mean, var = bs.bn_train(*leaves, 1e-5, torch.bfloat16)
+        y.backward(g)
+        return [y, mean, var] + [t.grad for t in leaves]
+
+    before = bsc.SUMS_KERNEL.launches, bsc.BWD_KERNEL.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert (bsc.SUMS_KERNEL.launches, bsc.BWD_KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    monkeypatch.setattr(bs, "channel_sums", bs.channel_sums_plain)
+    monkeypatch.setattr(bs, "bn_bwd_reduce", bs.bn_bwd_reduce_plain)
+    ref = run()
+    assert got[0].dtype == got[3].dtype == torch.bfloat16
+    for name, a, b, tol in zip(("y", "mean", "var", "dx", "dscale", "dbias"), got, ref,
+                               (1e-2, 1e-4, 1e-4, 1e-2, 1e-4, 1e-4)):
+        _close(a, b, tol, f"bn_train {name} ({m}, {c})")

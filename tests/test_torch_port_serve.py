@@ -273,11 +273,13 @@ spec.loader.exec_module(importlib.util.module_from_spec(spec))
 print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "hvt"))))
 print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] == "hvt_torch")))
 """
-# the training slice's modules, which the walk above must reach
+# the training slices' modules, which the walk above must reach
 _TRAINING_MODULES = {
     "hvt_torch.main", "hvt_torch.objectives", "hvt_torch.metrics", "hvt_torch.models.common",
     "hvt_torch.train.algorithms", "hvt_torch.train.loop", "hvt_torch.train.optim",
     "hvt_torch.train.schedule", "hvt_torch.train.step", "hvt_torch.ops.window_attention_cuda",
+    "hvt_torch.train.ema", "hvt_torch.models.resnet", "hvt_torch.ops.bn_stats",
+    "hvt_torch.ops.bn_stats_cuda",
 }
 
 

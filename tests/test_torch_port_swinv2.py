@@ -213,7 +213,7 @@ def test_factory_builds_swin_and_names_unported_families():
     again = build_model(cfg, 5)
     torch.testing.assert_close(model.state_dict(), again.state_dict())  # seeded
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(tconfig.loads({"model": {"name": "resnet50"}}), 5)
+        build_model(tconfig.loads({"model": {"name": "vit_base_patch16_224"}}), 5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(tconfig.loads({"model": {"name": "swinv2_micro", "args": {"pipe": 2}}}), 5)
 

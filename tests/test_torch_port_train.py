@@ -22,7 +22,8 @@ and to the port, in f32:
   of 0.1·lr per tensor (``FUSED_TOL``, ``_close_after_adam``);
 * the synthetic train loader's batches, element for element;
 * the entry point: ``python -m hvt_torch.main --device cpu`` trains on
-  both routes, no device and no card raises, and what is not ported raises.
+  both routes, no device and no card raises, and what is not ported raises
+  (ResNet's training path is in ``test_torch_port_resnet.py``).
 
 hvt's side runs first in each test and is copied to numpy before torch
 runs a backward (JAX beside torch autograd, ROADMAP.md queue 3).
@@ -508,7 +509,8 @@ def test_entry_point_without_a_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("change,match", [
     ({"grad_accum": 2}, "queue 1, item 5"),
-    ({"algorithms": [{"cls": "EMA", "args": {}}]}, "EMA: ROADMAP.md queue 1, item 4"),
+    ({"model": {"name": "resnet_micro_bottleneck", "args": {"bn_groups": 2}}},
+     "bn_groups 2 .*ROADMAP.md queue 1, item 7"),
     ({"algorithms": [{"cls": "SAM", "args": {}}]}, "SAM: ROADMAP.md queue 1, item 5"),
     ({"algorithms": [{"cls": "MixUp", "args": {}}]}, "MixUp"),
     ({"algorithms": [{"cls": "CutMix", "args": {}}]}, "CutMix"),
