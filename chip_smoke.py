@@ -47,7 +47,19 @@ Phases, in order; any failure exits non-zero and prints no result:
      for 30 steps with bn_pallas: true: finite losses, 53 launches per step
      of each BatchNorm kernel and none of the SwinV2 kernels, EMA updated at
      steps 0 and 20, one step's loss and gradients against the plain path;
-     then the same run with bn_pallas: false (torch's BatchNorm, no kernel).
+     then the same run with bn_pallas: false (torch's BatchNorm, no kernel);
+ 10. the SwinV2-B training path on fuse: true: ``hvt_torch.main.main`` trains
+     SwinV2-B (swinv2_tiny.yaml's recipe with model.name swinv2_base,
+     grad_accum auto, which must resolve to 1 on the card; 10,000 classes,
+     batch 128) for 30 steps: finite losses; per step 24 launches of each
+     attention-half kernel, 22 of each MLP-half kernel (stages 1-3) and 2 of
+     each chunked-MLP kernel (stage 4, K = 2, one launch per block for all
+     chunks), none of the others; step ms, images/s and peak memory; one
+     step's loss and gradients against the plain path.
+Phases 3, 5 and 6 also hold the SwinV2-B block shapes: the two fused
+forwards at batch 64 (eval, every stage unchunked), the two fused backwards
+and the chunked MLP (forward and backward, stage 4, K = 2) at batch 128,
+each timed per SwinV2-B training step beside its bound and plain version.
 
 Comparisons run with TF32 off (cuDNN and matmul), so the f32 parts of the
 plain path (patch-embed conv, head) are true f32. The kernel table goes on a
@@ -74,8 +86,9 @@ OUT_DIR = ROOT / "chiprun_out"
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, the same data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3
-# SwinV2-T at 224 px: (grid, channels, heads, blocks) per stage
+# SwinV2-T and SwinV2-B at 224 px: (grid, channels, heads, blocks) per stage
 STAGES = ((56, 96, 3, 2), (28, 192, 6, 2), (14, 384, 12, 6), (7, 768, 24, 2))
+BASE_STAGES = ((56, 128, 4, 2), (28, 256, 8, 2), (14, 512, 16, 18), (7, 1024, 32, 2))
 WINDOW = 7
 CLASSES = 10_000  # iNat21 species
 BATCH = 64  # the engine's batch shape on the main path and in phases 3 and 5
@@ -98,6 +111,18 @@ FUSED_BWD = {  # name: (source, TPU kernel it replaces) — the fuse: true route
     "attention_half_nhwc_bwd": ("hvt_torch/ops/csrc/fused_halves_bwd.cu",
                                 "hvt/ops/fused_halves_pallas.py:1386"),
 }
+CHUNKED = {  # name: (source, TPU kernel it replaces) — SwinV2-B's stage-4 MLP in training
+    "mlp_half_chunked_fwd": ("hvt_torch/ops/csrc/fused_halves.cu",
+                             "hvt/ops/fused_halves_pallas.py:592"),
+    "mlp_half_chunked_bwd": ("hvt_torch/ops/csrc/fused_halves_chunked.cu",
+                             "hvt/ops/fused_halves_pallas.py:627"),
+}
+CHUNKS = 2  # hvt's K for a C = 1024 MLP half in training at its default budget
+# Phase 10: launches of each kernel per SwinV2-B training step (24 blocks;
+# stage 4's two MLP halves chunked, one launch per block for all K chunks)
+BASE_TRAIN_PER_STEP = {"attention_half_nhwc_fwd": 24, "attention_half_nhwc_bwd": 24,
+                       "mlp_half_fwd": 22, "mlp_half_bwd": 22, "mlp_half_chunked_fwd": 2,
+                       "mlp_half_chunked_bwd": 2}
 TRAIN_KERNELS = {  # kernels each training step launches 12 times, per route
     False: ("window_attention_packed_fwd", BWD_KERNEL),
     True: ("mlp_half_fwd", "attention_half_nhwc_fwd", *FUSED_BWD),
@@ -107,6 +132,9 @@ PROFILE_NAMES = {
     False: {"backward": ("packed_attention_bwd",), "forward": ("packed_attention_fwd",)},
     True: {"backward": ("mlp_half_bwd_rows", "attn_half_bwd_", "grad_tn", "sum_parts"),
            "forward": ("mlp_half_fwd", "attn_half_nhwc_fwd")},
+    "base": {"backward": ("mlp_half_bwd_rows", "attn_half_bwd_", "chunked_", "grad_tn",
+                          "sum_parts"),
+             "forward": ("mlp_half_fwd", "attn_half_nhwc_fwd", "mlp_half_chunked_fwd")},
     "resnet": {"backward": ("bwd_reduce_kernel",), "forward": ("channel_sums_kernel",)},
 }
 KEEP = 0.8  # drop-path keep probability of the scales in phase 6's inputs
@@ -194,6 +222,8 @@ def kernel_counters():
     return {"window_attention_packed_fwd": wac.KERNEL, "mlp_half_fwd": fh.MLP_KERNEL,
             "attention_half_nhwc_fwd": fh.ATTN_KERNEL, BWD_KERNEL: wac.BWD_KERNEL,
             "mlp_half_bwd": fh.MLP_BWD_KERNEL, "attention_half_nhwc_bwd": fh.ATTN_BWD_KERNEL,
+            "mlp_half_chunked_fwd": fh.MLP_CHUNKED_KERNEL,
+            "mlp_half_chunked_bwd": fh.MLP_CHUNKED_BWD_KERNEL,
             "bn_channel_sums": bsc.SUMS_KERNEL, "bn_bwd_reduce": bsc.BWD_KERNEL}
 
 
@@ -222,7 +252,8 @@ def plain_versions():
 
     with swapped(wac, window_attention_packed=wac.window_attention_packed_plain), \
             swapped(fh, mlp_half_forward=fh.mlp_half_plain,
-                    attention_half_nhwc_forward=fh.attention_half_nhwc_plain), \
+                    attention_half_nhwc_forward=fh.attention_half_nhwc_plain,
+                    mlp_half_chunked_forward=fh.mlp_half_chunked_plain), \
             plain_fused_backward(), plain_bn_reductions():
         yield
 
@@ -266,7 +297,8 @@ def plain_fused_backward():
     from hvt_torch.ops import fused_halves_cuda as fh
 
     return swapped(fh, mlp_half_backward=fh.mlp_half_backward_plain,
-                   attention_half_nhwc_backward=fh.attention_half_nhwc_backward_plain)
+                   attention_half_nhwc_backward=fh.attention_half_nhwc_backward_plain,
+                   mlp_half_chunked_backward=fh.mlp_half_chunked_backward_plain)
 
 
 # ---------------------------------------------------------------------------
@@ -274,7 +306,7 @@ def plain_fused_backward():
 # ---------------------------------------------------------------------------
 
 
-def stage_inputs(stage: int, shift: int, seed: int, batch: int = BATCH):
+def stage_inputs(stage: int, shift: int, seed: int, batch: int = BATCH, stages=STAGES):
     """Seeded random inputs of one stage's block at ``batch``: every
     parameter drawn (res-post-norm scales around 1, not the zero init)."""
     import numpy as np
@@ -282,7 +314,7 @@ def stage_inputs(stage: int, shift: int, seed: int, batch: int = BATCH):
 
     from hvt_torch.ops import window_attention as wa
 
-    grid, c, heads, _ = STAGES[stage]
+    grid, c, heads, _ = stages[stage]
     n = WINDOW * WINDOW
     rng = np.random.default_rng(seed)
     dev = torch.device("cuda")
@@ -369,11 +401,11 @@ def kernel_cases(p):
     ]
 
 
-def block_shapes():
-    """(stage, shift, blocks of one forward) of every SwinV2-T block shape:
-    a stage's blocks alternate unshifted and shifted by window // 2, and the
-    7 x 7 stage is one global window, never shifted."""
-    for stage, (grid, _, _, blocks) in enumerate(STAGES):
+def block_shapes(stages=STAGES):
+    """(stage, shift, blocks of one forward) of every block shape of a model
+    (SwinV2-T by default): a stage's blocks alternate unshifted and shifted by
+    window // 2, and the 7 x 7 stage is one global window, never shifted."""
+    for stage, (grid, _, _, blocks) in enumerate(stages):
         if grid > WINDOW:
             yield stage, 0, blocks // 2
             yield stage, WINDOW // 2, blocks // 2
@@ -381,22 +413,37 @@ def block_shapes():
             yield stage, 0, blocks
 
 
-def kernel_records(timing: bool) -> dict:
-    """Every kernel against its plain version at each block shape (phase 3),
-    or timed (phase 5). Per kernel, the numbers of one SwinV2-T forward: the
-    block shapes' launches (12 in all) summed."""
+def train_launches(name: str, c: int) -> int:
+    """Launches per block of width c in a training step: 0 for the unchunked
+    MLP kernels where hvt's routing chunks the block's MLP (SwinV2-B's
+    stage 4), else 1."""
+    from hvt_torch.ops import fused_halves_cuda as fh
+
+    return 0 if name.startswith("mlp_half_") and fh.mlp_route(c, 4 * c, True) != 1 else 1
+
+
+def kernel_records(timing: bool, stages=STAGES, batch: int = BATCH, names=tuple(KERNELS),
+                   per_block=None) -> dict:
+    """Every kernel of ``names`` against its plain version at each block
+    shape of ``stages`` (phase 3), or timed (phase 5). Per kernel, the numbers
+    of one forward (12 launches of SwinV2-T's), or of one training step with
+    ``per_block(name, c)`` launches per block: the block shapes' launches
+    summed."""
     import torch
 
-    records = {name: {"max_abs_err": 0.0, "bytes": 0, "flops": 0, "stages": []} for name in KERNELS}
-    for stage, shift, blocks in block_shapes():
-        c = STAGES[stage][1]
-        p = stage_inputs(stage, shift, seed=100 + 10 * stage + shift)
+    records = {name: {"max_abs_err": 0.0, "bytes": 0, "flops": 0, "stages": []} for name in names}
+    for stage, shift, blocks in block_shapes(stages):
+        c = stages[stage][1]
+        p = stage_inputs(stage, shift, seed=100 + 10 * stage + shift, batch=batch, stages=stages)
         for name, kern, plain, library, nbytes, flops in kernel_cases(p):
+            n = blocks * (per_block(name, c) if per_block else 1)
+            if name not in names or n == 0:
+                continue
             rec = records[name]
-            st = {"stage": stage + 1, "shift": shift, "launches_per_forward": blocks,
+            st = {"stage": stage + 1, "shift": shift, "launches_per_forward": n,
                   "bytes": nbytes, "flops": flops}
-            rec["bytes"] += blocks * nbytes
-            rec["flops"] += blocks * flops
+            rec["bytes"] += n * nbytes
+            rec["flops"] += n * flops
             if timing:
                 st["ms"] = cuda_time_ms(kern)
                 st["plain_ms"] = cuda_time_ms(plain, iters=5)
@@ -568,13 +615,14 @@ def fused_backward_cases(p):
     ]
 
 
-def fused_backward_records(timing: bool) -> dict:
+def fused_backward_records(timing: bool, stages=STAGES) -> dict:
     """The fused halves' backward kernels through their autograd Functions
     against the same Functions with the plain backward in the kernel's
-    place, at every SwinV2-T block shape (check), or timed as the model runs
-    them (``torch.autograd.grad`` through the Function, its set-up and tail
-    included), the launch wrapper alone and the plain version. Per training
-    step: the 12 launches of each summed."""
+    place, at every block shape of ``stages`` (check), or timed as the model
+    runs them (``torch.autograd.grad`` through the Function, its set-up and
+    tail included), the launch wrapper alone and the plain version. Per
+    training step: the launches of each summed (12 of SwinV2-T's; SwinV2-B's
+    stage-4 MLP halves train through the chunked MLP instead)."""
     import torch
 
     from hvt_torch.ops import fused_halves_cuda as fh
@@ -582,15 +630,19 @@ def fused_backward_records(timing: bool) -> dict:
 
     records = {name: {"max_abs_err": 0.0, "bytes": 0, "flops": 0, "stages": []}
                for name in FUSED_BWD}
-    for stage, shift, blocks in block_shapes():
-        p = stage_inputs(stage, shift, seed=300 + 10 * stage + shift, batch=TRAIN_BATCH)
+    for stage, shift, blocks in block_shapes(stages):
+        p = stage_inputs(stage, shift, seed=300 + 10 * stage + shift, batch=TRAIN_BATCH,
+                         stages=stages)
         gen = torch.Generator("cuda").manual_seed(400 + 10 * stage + shift)
         for name, half, leaves, nbytes, flops in fused_backward_cases(p):
+            n = blocks * train_launches(name, p["c"])
+            if n == 0:
+                continue
             rec = records[name]
-            st = {"stage": stage + 1, "shift": shift, "launches_per_forward": blocks,
+            st = {"stage": stage + 1, "shift": shift, "launches_per_forward": n,
                   "bytes": nbytes, "flops": flops, "library_ms": None}
-            rec["bytes"] += blocks * nbytes
-            rec["flops"] += blocks * flops
+            rec["bytes"] += n * nbytes
+            rec["flops"] += n * flops
             ls = [t.detach().clone().requires_grad_() for t in leaves]
             out = half(*ls)
             g = torch.randn(out.shape, device="cuda", generator=gen).bfloat16()
@@ -639,6 +691,90 @@ def fused_backward_records(timing: bool) -> dict:
         torch.cuda.empty_cache()
     for rec in records.values():
         finish_record(rec, timing)
+    return records
+
+
+def chunked_records(timing: bool) -> dict:
+    """The chunked MLP's two kernels at SwinV2-B's stage-4 shape in training
+    (batch 128: T = 6,272, C = 1,024, K = CHUNKS): the forward's branch and
+    pre-LN sum against ``mlp_half_chunked_plain``, and every gradient through
+    the autograd Function against the same Function with the plain backward
+    in the kernel's place (check); or each timed with its plain version, the
+    backward as the model runs it and in its launch wrapper alone, per
+    training step (2 blocks). Bytes: each input read and each output written
+    once (x, pre, g, dx and the branch in bf16, the weights in bf16 as the
+    kernels take them, the gradients in f32); operations 4·T·C·4C forward (fc1
+    and fc2) and 10·T·C·4C backward (fc1 recomputed, dh, dx, dW1 and dW2: fc2
+    is not recomputed, the saved pre stands in for it)."""
+    import torch
+
+    from hvt_torch.ops import fused_halves_cuda as fh
+
+    grid, c, _, blocks = BASE_STAGES[3]
+    p = stage_inputs(3, 0, seed=600, batch=TRAIN_BATCH, stages=BASE_STAGES)
+    t = TRAIN_BATCH * grid * grid
+    x = p["x"].reshape(t, c)
+    args = [p[k] for k in ("w1", "b1", "w2", "b2", "lns", "lnb")]
+    g = torch.randn(x.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(601)).bfloat16()
+    w_bytes = 2 * 8 * c * c
+    cases = {
+        "mlp_half_chunked_fwd": (3 * 2 * t * c + w_bytes + 4 * 7 * c, 16 * t * c * c),
+        "mlp_half_chunked_bwd": (4 * 2 * t * c + w_bytes + 4 * (8 * c * c + 12 * c),
+                                 40 * t * c * c),
+    }
+    records = {name: {"max_abs_err": 0.0, "bytes": blocks * nb, "flops": blocks * fl,
+                      "stages": [{"stage": 4, "shift": 0, "launches_per_forward": blocks,
+                                  "bytes": nb, "flops": fl, "library_ms": None}]}
+               for name, (nb, fl) in cases.items()}
+    fwd, bwd = (records[n]["stages"][0] for n in CHUNKED)
+    leaves = [t_.detach().clone().requires_grad_() for t_ in [x] + args]
+    out = fh.mlp_half_chunked(*leaves, CHUNKS)
+    if timing:
+        fwd["ms"] = cuda_time_ms(lambda: fh.mlp_half_chunked_forward(x, *args, CHUNKS))
+        fwd["plain_ms"] = cuda_time_ms(lambda: fh.mlp_half_chunked_plain(x, *args, CHUNKS), iters=5)
+        _, pre = fh.mlp_half_chunked_forward(x, *args, CHUNKS)
+        model_bwd = lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)  # noqa: E731
+        bwd["ms"] = cuda_time_ms(model_bwd, iters=10)
+        bwd["wrapper_ms"] = cuda_time_ms(lambda: fh.mlp_half_chunked_backward(
+            x, p["w1"], p["b1"], p["w2"], p["lns"], pre, g, CHUNKS), iters=10)
+        with plain_fused_backward():
+            bwd["plain_ms"] = cuda_time_ms(model_bwd, iters=3, warmup=1)
+    else:
+        got = fh.mlp_half_chunked_forward(x, *args, CHUNKS)
+        torch.cuda.synchronize()
+        ref = fh.mlp_half_chunked_plain(x, *args, CHUNKS)
+        errs = {}
+        for key, a, b in zip(("branch", "pre"), got, ref):
+            err, top = float((a.float() - b.float()).abs().max()), float(b.float().abs().max())
+            errs[key] = err / top
+            if not (bool(torch.isfinite(a).all()) and err <= TOL["mlp_half_fwd"] * top):
+                raise AssertionError(f"mlp_half_chunked_fwd {key} disagrees with its plain version: "
+                                     f"max|Δ| {err:.4g} vs max|plain| {top:.4g}")
+        fwd["max_abs_err"] = float((got[0].float() - ref[0].float()).abs().max())
+        fwd["relative_errors"] = errs
+        grads = torch.autograd.grad(out, leaves, g, retain_graph=True)
+        torch.cuda.synchronize()
+        with plain_fused_backward():
+            ref = torch.autograd.grad(out, leaves, g)
+        berrs = {}
+        for key, a, b in zip(FUSED_GRADS["mlp_half_bwd"], grads, ref):
+            err, top = float((a.float() - b.float()).abs().max()), float(b.float().abs().max())
+            berrs[key] = err / top if top else err
+            if not (bool(torch.isfinite(a).all()) and err <= FUSED_BWD_TOL * top):
+                raise AssertionError(f"mlp_half_chunked_bwd {key} disagrees with its plain version: "
+                                     f"max|Δ| {err:.4g} vs max|plain| {top:.4g}")
+        bwd["max_abs_err"] = float((grads[0].float() - ref[0].float()).abs().max())
+        bwd["relative_errors"] = berrs
+        worst = max(berrs, key=berrs.get)
+        log(f"  mlp_half_chunked stage 4 C={c} K={CHUNKS}: branch {errs['branch']:.3g}, pre "
+            f"{errs['pre']:.3g}·max|plain| (tol {TOL['mlp_half_fwd']}); every gradient within "
+            f"{FUSED_BWD_TOL}·max|plain| (worst {worst} {berrs[worst]:.3g}; dx {berrs['dx']:.3g}) ok")
+    for name, rec in records.items():
+        rec["max_abs_err"] = rec["stages"][0].get("max_abs_err", 0.0)
+        finish_record(rec, timing)
+    del p, x, g, out, leaves
+    torch.cuda.empty_cache()
     return records
 
 
@@ -864,19 +1000,20 @@ def profile_route(fuse: bool) -> list:
 # ---------------------------------------------------------------------------
 
 
-def training_config(**model_args):
+def training_config(name: str = "swinv2_tiny", grad_accum=1, **model_args):
     """configs/pretrain/swinv2_tiny.yaml (adamw at lr 1e-3, wd 0.05, cosine
-    schedule, smoothing 0.1, clip 5.0, drop path 0.2, fuse unset) on the
-    synthetic train source at 10,000 classes, batch TRAIN_BATCH, for
-    TRAIN_STEPS steps with a 5-step warmup."""
+    schedule, smoothing 0.1, clip 5.0, drop path 0.2, fuse unset, grad_accum
+    1) with model ``name`` on the synthetic train source at 10,000 classes,
+    batch TRAIN_BATCH, for TRAIN_STEPS steps with a 5-step warmup."""
     from hvt_torch import config as config_lib
 
     base = config_lib.load(machine=str(ROOT / "configs/machines/local.yaml"),
                            exps=[str(ROOT / "configs/pretrain/swinv2_tiny.yaml")])
     return config_lib.loads(config_lib.to_dict(base), {
         "max_duration": f"{TRAIN_STEPS}ba",
+        "grad_accum": grad_accum,
         "scheduler": {"args": {"t_warmup": "5ba"}},
-        "model": {"args": model_args},
+        "model": {"name": name, "args": model_args},
         "train_dataset": {"source": "synthetic", "synthetic_num_classes": CLASSES,
                           "synthetic_num_samples": TRAIN_BATCH * TRAIN_STEPS,
                           "global_batch_size": TRAIN_BATCH},
@@ -887,9 +1024,10 @@ def train_run(config, per_step: dict, label: str):
     """Drive a training path through the entry point a user calls:
     hvt_torch.main.main(config), with every launch counter set to 0 just
     before and read just after; each kernel of ``per_step`` must launch that
-    many times a step, every other kernel never. A CUDA event after each step
-    times it; the losses are read back after the run. Returns the record and
-    the Trainer that ran."""
+    many times a step, every other kernel never. With grad_accum auto the
+    Trainer's memory probe, one forward and backward at the batch, launches
+    as one more step. A CUDA event after each step times it; the losses are
+    read back after the run. Returns the record and the Trainer that ran."""
     import torch
 
     from hvt_torch import main as main_lib
@@ -931,12 +1069,14 @@ def train_run(config, per_step: dict, label: str):
         f"{wall_s:.1f} s in all")
     if len(losses) != steps or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{label}: training losses {losses}")
+    probes = 1 if config.grad_accum == "auto" else 0
     for name, n in launches.items():
-        want = per_step.get(name, 0) * steps
+        want = per_step.get(name, 0) * (steps + probes)
         if n != want:
-            raise AssertionError(f"{name}: {n} launches in {steps} training steps of {label}, "
-                                 f"expected {want}")
-    return {"label": label, "steps": steps, "batch": batch, "launches": launches, "losses": losses,
+            raise AssertionError(f"{name}: {n} launches in {steps} training steps "
+                                 f"(+{probes} probe) of {label}, expected {want}")
+    return {"label": label, "steps": steps, "batch": batch, "launches": launches,
+            "probes": probes, "grad_accum": trainers[0].grad_accum, "losses": losses,
             "step_ms": step_ms, "step_ms_median": median_ms,
             "images_per_s": batch / median_ms * 1e3, "wall_s": wall_s,
             "peak_memory_gib": peak_gib, "metrics": metrics}, trainers[0]
@@ -1316,6 +1456,8 @@ def main(argv=None) -> int:
 
     log(f"[3] kernels vs plain versions, bf16, batch {BATCH}")
     checked = kernel_records(timing=False)
+    log(f"[3] the fused forwards at SwinV2-B's block shapes, bf16, batch {BATCH} (eval)")
+    base_checked = kernel_records(False, BASE_STAGES, BATCH, ("mlp_half_fwd", "attention_half_nhwc_fwd"))
 
     log(f"[4] serving SwinV2-T at 224 px, {CLASSES} classes, batch {BATCH}")
     routes = [serve_route(fuse) for fuse in (False, True)]
@@ -1334,6 +1476,14 @@ def main(argv=None) -> int:
         })
         log(f"  {name}: {rec['ms']:.4f} ms kernel, {rec['plain_ms']:.4f} ms plain, "
             f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), library {rec['library_ms']}")
+    base_timed = kernel_records(True, BASE_STAGES, TRAIN_BATCH, ("mlp_half_fwd", "attention_half_nhwc_fwd"), train_launches)
+    for name, rec in base_timed.items():
+        log(f"  SwinV2-B {name}: {rec['ms']:.4f} ms kernel, {rec['plain_ms']:.4f} ms plain, bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), per SwinV2-B training step at batch "
+            f"{TRAIN_BATCH} ({sum(st['launches_per_forward'] for st in rec['stages'])} launches); "
+            "per launch (kernel/plain ms): " + "; ".join(
+                f"stage {st['stage']} shift {st['shift']} x{st['launches_per_forward']} "
+                f"{st['ms']:.3f}/{st['plain_ms']:.3f}" for st in rec["stages"]))
     for r in routes:
         log(f"  fuse={r['fuse']}: forward {r['forward_ms']:.3f} ms on kernels, "
             f"{r['forward_plain_ms']:.3f} ms on plain versions; engine step "
@@ -1363,6 +1513,22 @@ def main(argv=None) -> int:
             f"({rec['bound_by']}), library none, per training step on {card}; per launch (model "
             f"backward/wrapper/bound/plain): " + "; ".join(
                 f"stage {st['stage']} shift {st['shift']} {st['ms']:.3f}/{st['wrapper_ms']:.3f}/"
+                f"{max(st['bytes'] / H100_BYTES_PER_S, st['flops'] / H100_BF16_FLOPS) * 1e3:.3f}/"
+                f"{st['plain_ms']:.3f}" for st in rec["stages"]))
+
+    log(f"[6] SwinV2-B: the fused halves' backward kernels and the chunked MLP vs plain "
+        f"versions, bf16, batch {TRAIN_BATCH}")
+    base_bwd_checked = fused_backward_records(False, BASE_STAGES)
+    chunked_checked = chunked_records(timing=False)
+    base_bwd = fused_backward_records(True, BASE_STAGES)
+    chunked = chunked_records(timing=True)
+    for name, rec in {**base_bwd, **chunked}.items():
+        log(f"  SwinV2-B {name}: {rec['ms']:.4f} ms kernel through the model's backward or "
+            f"forward, {rec['plain_ms']:.4f} ms plain, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}), library none, per SwinV2-B training step on {card}; per launch "
+            "(kernel/wrapper/bound/plain ms): " + "; ".join(
+                f"stage {st['stage']} shift {st['shift']} x{st['launches_per_forward']} "
+                f"{st['ms']:.3f}/{st.get('wrapper_ms', st['ms']):.3f}/"
                 f"{max(st['bytes'] / H100_BYTES_PER_S, st['flops'] / H100_BF16_FLOPS) * 1e3:.3f}/"
                 f"{st['plain_ms']:.3f}" for st in rec["stages"]))
 
@@ -1436,6 +1602,26 @@ def main(argv=None) -> int:
             "library_ms": rec["library_ms"],
         })
 
+    log(f"[10] training SwinV2-B on fuse: true at 224 px, {CLASSES} classes, batch {TRAIN_BATCH}, "
+        f"{TRAIN_STEPS} steps (hvt_torch.main), grad_accum auto")
+    base_train, trainer = train_run(training_config("swinv2_base", "auto", fuse=True),
+                                    BASE_TRAIN_PER_STEP, "swinv2_base fuse=True")
+    log(f"  grad_accum auto resolved to {trainer.grad_accum} for batch {TRAIN_BATCH} on {card}")
+    if trainer.grad_accum != 1:
+        raise AssertionError(f"grad_accum auto resolved to {trainer.grad_accum}, not 1")
+    del trainer
+    base_train["gradients"] = gradient_check(
+        training_config("swinv2_base", drop_path_rate=0.0, fuse=True), "swinv2_base fuse=True")
+    for name, (source, replaces) in CHUNKED.items():
+        rec = chunked[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": base_train["launches"][name],
+            "max_abs_err": chunked_checked[name]["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None,
+        })
+
     report = {"card": card, "batch": BATCH, "kernels": kernels, "routes": routes,
               "kernel_stages": {k: {"check": checked[k]["stages"], "timed": timed[k]["stages"]}
                                 for k in KERNELS},
@@ -1445,7 +1631,21 @@ def main(argv=None) -> int:
               "train": train,
               "bn_stages": {k: {"check": bn_checked[k]["stages"], "timed": bn_timed[k]["stages"]}
                             for k in BN_KERNELS},
-              "resnet50": resnet}
+              "resnet50": resnet,
+              "swinv2_base": {
+                  "forward_stages": {k: {"check": base_checked[k]["stages"],
+                                         "timed": base_timed[k]["stages"]} for k in base_timed},
+                  "forward_per_step": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
+                                                             "bound_by")}
+                                       for k, v in base_timed.items()},
+                  "backward_stages": {k: {"check": base_bwd_checked[k]["stages"],
+                                          "timed": base_bwd[k]["stages"]} for k in FUSED_BWD},
+                  "backward_per_step": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
+                                                              "bound_by")}
+                                        for k, v in base_bwd.items()},
+                  "chunked": {k: {"check": chunked_checked[k]["stages"],
+                                  "timed": chunked[k]["stages"]} for k in CHUNKED},
+                  "train": base_train}}
     if args.profile:
         report["profile"] = {f"fuse={f}": profile_route(f) for f in (False, True)}
         for route, rows in report["profile"].items():
@@ -1480,6 +1680,15 @@ def main(argv=None) -> int:
                     f"{r['name'][:40]} {r['ms_per_step']:.3f} ms x{r['calls']}" for r in prof["rows"][:14]))
             log("  by operator: " + "; ".join(
                 f"{r['name'][:40]} {r['ms_per_step']:.3f} ms x{r['calls']}" for r in prof["ops"][:14]))
+        prof = report["profile"]["swinv2_base train_step fuse=True"] = profile_train_step(
+            training_config("swinv2_base", fuse=True), PROFILE_NAMES["base"])
+        prof["share_of_median_step"] = prof["device_ms"] / base_train["step_ms_median"]
+        log(f"  profile SwinV2-B train step fuse=True: {prof['device_ms']:.2f} ms of kernel time in "
+            f"a {prof['step_ms']:.2f} ms profiled step (busy {100 * prof['busy_share']:.1f}%; "
+            f"{100 * prof['share_of_median_step']:.1f}% of phase 10's median step), backward "
+            f"kernels {prof['backward_kernel_ms']:.3f} ms, forward kernels "
+            f"{prof['forward_kernel_ms']:.3f} ms; " + "; ".join(
+                f"{r['name'][:40]} {r['ms_per_step']:.3f} ms x{r['calls']}" for r in prof["rows"][:16]))
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     print(json.dumps({"kernels": kernels}))

@@ -16,18 +16,25 @@ default); the head runs in f32. Two routes, as in hvt:
   projections, LayerNorms, MLP and residuals are plain PyTorch.
 * ``fuse=True``: each block is two fused kernels, ``attention_half_nhwc``
   (kernel 3, with the cyclic shift folded into its gather) and ``mlp_half``
-  (kernel 2), each returning x + branch.
+  (kernel 2), each returning x + branch. The MLP half is routed as hvt's
+  ``_mlp_half_fused`` routes it, by hvt's own ``fits_vmem``/``mlp_chunks``
+  (copied in :mod:`hvt_torch.ops.fused_halves_cuda`): where the unchunked
+  MLP does not fit hvt's budget (SwinV2-B's C = 1024 stage in training), it
+  takes ``mlp_half_chunked`` with K chunks, or, with ``fuse_mlp_chunked``
+  false, the plain LayerNorm(MLP); either returns the branch alone, and the
+  residual and drop path run outside it, as in hvt.
 
 On CPU tensors every kernel call runs its plain version. Both routes train
 (train mode, stochastic depth at hvt's per-block rates ``linspace(0, rate,
 depth)``): ``fuse=False`` through kernel 1's backward, ``fuse=True`` through
 the fused halves' backward kernels, each half taking a per-image drop-path
-scale s drawn as hvt draws it (one mask per half). hvt's TPU routing knobs
-(``use_pallas``, ``fallback_xla``, ``fuse_attn_train``, ``fuse_mlp_chunked``,
-``fuse_nhwc``, ``fuse_resid``) are accepted and change nothing here: their
-VMEM gating has no counterpart on this card, and every fused block takes the
-NHWC attention kernel and the MLP kernel with the residual fused (s = 1 in
-eval).
+scale s drawn as hvt draws it (one mask per half). ``fuse_mlp_chunked``
+routes as in hvt (above). hvt's other TPU routing knobs (``use_pallas``,
+``fallback_xla``, ``fuse_attn_train``, ``fuse_nhwc``, ``fuse_resid``) are
+accepted and change nothing here: every fused block takes the NHWC attention
+kernel, and an unchunked MLP half the kernel with the residual fused (s = 1
+in eval). A block whose attention half does not fit hvt's budget (hvt's XLA
+fallback) is not ported; ``cuda_unsupported`` names it.
 """
 
 from __future__ import annotations
@@ -125,10 +132,10 @@ class WindowAttention(nn.Module):
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window: int, shift: int,
                  mlp_ratio: float = 4.0, pretrained_window: int = 0, fuse: bool = False,
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0, fuse_mlp_chunked: bool = True):
         super().__init__()
         self.dim, self.num_heads, self.window, self.shift = dim, num_heads, window, shift
-        self.fuse = fuse
+        self.fuse, self.fuse_mlp_chunked = fuse, fuse_mlp_chunked
         self.drop_path_rate = drop_path_rate
         self.attn = WindowAttention(dim, num_heads, pretrained_window)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
@@ -157,10 +164,15 @@ class SwinBlock(nn.Module):
         x = shortcut + drop_path(_layer_norm(self.norm1, y), rate, training, generator)
         return x + drop_path(_layer_norm(self.norm2, self.mlp(x)), rate, training, generator)
 
+    def mlp_route(self, training: bool) -> int:
+        """The MLP half's route on ``fuse=True``: 1 (``mlp_half``), K > 1
+        (``mlp_half_chunked``) or 0 (plain), as hvt's ``_mlp_half_fused``."""
+        return fh.mlp_route(self.dim, self.mlp.fc1.out_features, training, self.fuse_mlp_chunked)
+
     def _fused(self, x, window: int, shift: int, mask, generator):
-        """Both halves as fused kernels, each returning x + s·branch: s is the
-        half's per-image drop-path scale in train mode (the attention half's
-        drawn first, as hvt's ``_fused_call``), else 1."""
+        """The attention half as a fused kernel returning x + s·branch, s the
+        half's per-image drop-path scale in train mode (drawn first, as hvt's
+        ``_fused_call``), else 1; then the MLP half by :meth:`mlp_route`."""
         b, h, w, c = x.shape
         attn, mlp = self.attn, self.mlp
 
@@ -174,11 +186,16 @@ class SwinBlock(nn.Module):
             attn.proj.weight, attn.proj.bias, self.norm1.weight, self.norm1.bias, window,
             self.num_heads, dp=scale(), shift=shift,
         )
-        out = fh.mlp_half(
-            x.reshape(b * h * w, c), mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight, mlp.fc2.bias,
-            self.norm2.weight, self.norm2.bias, tpi=h * w, dp=scale(),
-        )
-        return out.reshape(b, h, w, c)
+        route = self.mlp_route(self.training)
+        mlp_args = (x.reshape(b * h * w, c), mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight,
+                    mlp.fc2.bias, self.norm2.weight, self.norm2.bias)
+        if route == 1:
+            return fh.mlp_half(*mlp_args, tpi=h * w, dp=scale()).reshape(b, h, w, c)
+        if route > 1:
+            branch = fh.mlp_half_chunked(*mlp_args, route).reshape(b, h, w, c)
+        else:
+            branch = _layer_norm(self.norm2, self.mlp(x))
+        return x + drop_path(branch, self.drop_path_rate, self.training, generator)
 
 
 class PatchMerging(nn.Module):
@@ -231,8 +248,8 @@ class SwinTransformerV2(nn.Module):
         seed: int = 0,
     ):
         super().__init__()
-        # TPU routing knobs: accepted, no effect in eval on this card (module doc).
-        del use_pallas, fuse_attn_train, fallback_xla, fuse_nhwc, fuse_mlp_chunked, fuse_resid
+        # TPU routing knobs: accepted, no effect on this card (module doc).
+        del use_pallas, fuse_attn_train, fallback_xla, fuse_nhwc, fuse_resid
         del pipe_microbatches, pipe_stage, moe_from_stage, moe_every, moe_capacity, moe_aux_weight
         if pipe > 1:
             raise NotImplementedError("pipe > 1: pipeline parallelism is ROADMAP queue 1, item 11")
@@ -260,7 +277,7 @@ class SwinTransformerV2(nn.Module):
                 self.add_module(name, SwinBlock(
                     dim, heads, window_size, 0 if i % 2 == 0 else window_size // 2,
                     mlp_ratio, pretrained_window_sizes[stage], fuse,
-                    next(rates),
+                    next(rates), fuse_mlp_chunked,
                 ))
                 self.layer_names.append(name)
             if stage < len(depths) - 1:
@@ -314,9 +331,10 @@ class SwinTransformerV2(nn.Module):
         """Why the CUDA kernels cannot run this model at ``image_size`` px
         (forward, or forward and backward when ``training``): one line per
         stage whose blocks they do not take, empty when every block runs.
-        The fused halves' backward kernels take the shapes their forward
-        kernels take. The kernels hold SwinV2-T's shapes; wider ones are
-        ROADMAP.md queue 2, "Kernel coverage"."""
+        A fused block's halves are routed as hvt routes them (a half hvt
+        would not fuse is refused: its fallback is not ported), and each
+        kernel has its own widths. The kernels hold SwinV2-T's and SwinV2-B's
+        shapes; others are ROADMAP.md queue 2, "Kernel coverage"."""
         found = []
         grid = image_size // self.patch_embed.stride[0]
         for stage in range(len(self.depths)):
@@ -324,6 +342,12 @@ class SwinTransformerV2(nn.Module):
             window = min(grid, block.window)
             if block.fuse and grid % window == 0:
                 why = fh.unsupported(block.dim, block.num_heads, window)
+                if why is None and not fh.fits_vmem(block.dim, block.num_heads, window * window,
+                                                    train=training):
+                    why = (f"the attention half at C={block.dim} does not fit hvt's fused budget, "
+                           "and hvt's fallback for it is not ported")
+                why = why or fh.mlp_unsupported(block.dim, block.mlp.fc1.out_features,
+                                                block.mlp_route(training), training)
             else:
                 why = wac.unsupported(window * window, block.dim, block.num_heads, training)
             if why:

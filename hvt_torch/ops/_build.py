@@ -3,11 +3,15 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc -gencode arch=compute_90a,
 code=sm_90a`` into ``_build/lib<name>-<digest>.so``, a shared library with a
 plain C interface, loaded through ``ctypes``: no PyTorch header is compiled,
-so a build takes seconds. The digest covers the sources and flags, so an
-edited kernel never loads a stale library. Libraries build at first use, or
-all at once (one ``nvcc`` per source, in parallel) through :func:`build_all`.
+so a build takes seconds. The digest covers every file under ``csrc/`` (a
+source may include another, as ``fused_halves_base.cu`` includes
+``fused_halves.cu``) and the flags, so an edited kernel never loads a stale
+library. Libraries build at first use, or all at once (one ``nvcc`` per
+source, in parallel) through :func:`build_all`.
 
-A :class:`Kernel` is one C entry point. Calling it launches on the stream
+A :class:`Kernel` is one C entry point, in one library or, where the widths
+a kernel is built for are split over two sources so that their builds run
+side by side, in one library per width. Calling it launches on the stream
 passed in, raises if the launcher returns a nonzero ``cudaError_t``, and only
 then counts the launch in ``Kernel.launches``.
 """
@@ -25,7 +29,7 @@ import threading
 CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).parent / "_build"
 SOURCES = ("window_attention", "window_attention_bwd", "fused_halves", "fused_halves_bwd",
-           "bn_stats")
+           "fused_halves_base", "fused_halves_bwd_base", "fused_halves_chunked", "bn_stats")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--expt-relaxed-constexpr",
@@ -53,7 +57,8 @@ def nvcc() -> str:
 
 def library_path(name: str) -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    h.update(name.encode())
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -101,24 +106,28 @@ def load(name: str) -> ctypes.CDLL:
 
 
 class Kernel:
-    """One C launcher of a csrc library, with its launch count."""
+    """One C launcher, with its launch count. ``library`` names the csrc
+    source that holds it, or maps each width to one: a call then passes
+    ``width=``, and a width outside the map raises."""
 
-    def __init__(self, library: str, symbol: str, argtypes: list):
+    def __init__(self, library: "str | dict[int, str]", symbol: str, argtypes: list):
         self.library = library
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
-        self._fn = None
+        self._fns: dict[str, ctypes._CFuncPtr] = {}
 
-    def __call__(self, *args) -> None:
-        if self._fn is None:
-            fn = getattr(load(self.library), self.symbol)
+    def __call__(self, *args, width: "int | None" = None) -> None:
+        name = self.library if isinstance(self.library, str) else self.library[width]
+        fn = self._fns.get(name)
+        if fn is None:
+            fn = getattr(load(name), self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
-            self._fn = fn
-        err = self._fn(*args)
+            self._fns[name] = fn
+        err = fn(*args)
         if err != 0:
-            msg = load(self.library).hvt_error_string(err).decode()
+            msg = load(name).hvt_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: launch failed ({err}: {msg})")
         self.launches += 1
 

@@ -1,0 +1,73 @@
+"""Time the kernels' build as ``_build.build_all`` runs it (one ``nvcc`` per
+source, all started together), and the same with each fused-halves family
+in one translation unit: the forwards at all eight widths in one ``nvcc``,
+the backwards in another, in place of the two per family that
+``fused_halves_base.cu`` and ``fused_halves_bwd_base.cu`` split off.
+
+    python -m hvt_torch.ops.build_times
+
+Needs ``nvcc``. Builds into ``_build/timing/`` (deleted after) with
+``_build.NVCC_FLAGS`` and prints one JSON object: for each layout, the wall
+seconds of the parallel build and the seconds at which each source's
+``nvcc`` ended.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+import subprocess
+import time
+
+from hvt_torch.ops import _build
+from hvt_torch.ops import fused_halves_cuda as fh
+
+
+def _widths(macro: str, widths) -> str:
+    return f"#define {macro}(F) " + " ".join(f"F({c})" for c in widths) + "\n"
+
+
+def _run(sources: dict[str, str], out_dir) -> dict:
+    t0 = time.perf_counter()
+    procs = {}
+    for name, path in sources.items():
+        with open(out_dir / f"{name}.log", "w") as log:
+            procs[name] = subprocess.Popen(
+                [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+                 "-o", str(out_dir / f"{name}.so"), path],
+                stdout=log, stderr=subprocess.STDOUT)
+    each = {}
+    while len(each) < len(procs):
+        time.sleep(0.05)
+        for name, proc in procs.items():
+            if name not in each and proc.poll() is not None:
+                each[name] = time.perf_counter() - t0
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed for {name}:\n"
+                                       + (out_dir / f"{name}.log").read_text())
+    return {"wall_s": time.perf_counter() - t0, "sources_s": each}
+
+
+def main() -> None:
+    out_dir = _build.BUILD_DIR / "timing"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    try:
+        split = {name: str(_build.CSRC / f"{name}.cu") for name in _build.SOURCES}
+        units = {
+            "fused_halves_all": _widths("HVT_WIDTHS", fh.WIDTHS)
+            + _widths("HVT_CHUNKED_WIDTHS", fh.CHUNKED_WIDTHS) + '#include "fused_halves.cu"\n',
+            "fused_halves_bwd_all": _widths("HVT_WIDTHS", fh.WIDTHS)
+            + _widths("HVT_MLP_WIDTHS", fh.MLP_BWD_WIDTHS) + '#include "fused_halves_bwd.cu"\n',
+        }
+        one_unit = {name: path for name, path in split.items() if name not in
+                    ("fused_halves", "fused_halves_base", "fused_halves_bwd", "fused_halves_bwd_base")}
+        for name, text in units.items():
+            (out_dir / f"{name}.cu").write_text(text)
+            one_unit[name] = str(out_dir / f"{name}.cu")
+        print(json.dumps({"split": _run(split, out_dir), "one_unit": _run(one_unit, out_dir)}))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,12 +1,18 @@
-"""Kernels 2-5: the fused SwinV2 block halves, forward and backward.
+"""Kernels 2-5 and the chunked MLP: the fused SwinV2 block halves, forward
+and backward, and hvt's routing between them.
 
-Port of ``mlp_half`` (hvt/ops/fused_halves_pallas.py:397) and
-``attention_half_nhwc`` (same file, 1491) with their custom VJPs
-(``_mlp_half_bwd`` :415, ``_attn_half_nhwc_bwd`` :1444). Both are
-``torch.autograd.Function``s that save only their inputs. The forward
-wrappers launch ``csrc/fused_halves.cu`` and the backward wrappers
-``csrc/fused_halves_bwd.cu`` for a CUDA tensor, and run their plain versions
-for a CPU tensor; nothing else selects between them.
+Port of ``mlp_half`` (hvt/ops/fused_halves_pallas.py:397),
+``mlp_half_chunked`` (:645) and ``attention_half_nhwc`` (:1491) with their
+custom VJPs (``_mlp_half_bwd`` :415, ``_mlp_chunked_bwd`` :659,
+``_attn_half_nhwc_bwd`` :1444). Each is a ``torch.autograd.Function``: the
+two halves save only their inputs, the chunked MLP its inputs and the pre-LN
+sum, as hvt's ``_mlp_chunked_fwd``. The forward wrappers launch
+``csrc/fused_halves.cu`` (``fused_halves_base.cu`` at SwinV2-B's widths; the
+chunked MLP's forward is its MLP kernel storing the pre-LN sum as well), the
+backward wrappers ``csrc/fused_halves_bwd.cu`` (``fused_halves_bwd_base.cu``)
+and ``csrc/fused_halves_chunked.cu`` (the chunked MLP's) for a CUDA tensor,
+and run their plain versions for a CPU tensor; nothing else selects between
+them.
 
 The arithmetic contract is the TPU kernels': every product rounds its
 operands to bf16 and accumulates in f32 (``_dot``/``_dot_t``, the weight
@@ -46,25 +52,50 @@ from hvt_torch.ops.window_attention_cuda import (
 )
 
 P, I = _build.P, _build.I
+#: SwinV2-T's stage widths (SwinV2-S's too) and SwinV2-B's: each set is built
+#: from its own sources, so that the two builds run side by side
+TINY_WIDTHS = (96, 192, 384, 768)
+BASE_WIDTHS = (128, 256, 512, 1024)
+#: the widths each kernel is built for: both halves' forwards and the
+#: attention half's backward take all eight; the MLP half's backward no
+#: C = 1024 (hvt sends that width to the chunked MLP in training, and the row
+#: kernel's layout would not fit 227 KB there); the chunked MLP SwinV2-B's
+#: stage 4, the one width hvt chunks at its default budget
+WIDTHS = TINY_WIDTHS + BASE_WIDTHS
+MLP_BWD_WIDTHS = TINY_WIDTHS + (128, 256, 512)
+CHUNKED_WIDTHS = (1024,)
+
+
+def _by_width(source: str, widths=WIDTHS) -> dict[int, str]:
+    return {c: source if c in TINY_WIDTHS else f"{source}_base" for c in widths}
+
+
 MLP_KERNEL = _build.Kernel(
-    "fused_halves", "hvt_mlp_half_fwd", [P, P, P, P, P, P, P, P, I, P, I, I, P]
+    _by_width("fused_halves"), "hvt_mlp_half_fwd", [P, P, P, P, P, P, P, P, I, P, I, I, P]
 )
 ATTN_KERNEL = _build.Kernel(
-    "fused_halves",
+    _by_width("fused_halves"),
     "hvt_attention_half_nhwc_fwd",
     [P, P, P, P, P, I, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
 )
 MLP_BWD_KERNEL = _build.Kernel(
-    "fused_halves_bwd", "hvt_mlp_half_bwd", [P] * 7 + [I] + [P] * 10 + [I] * 4 + [P]
+    _by_width("fused_halves_bwd", MLP_BWD_WIDTHS), "hvt_mlp_half_bwd",
+    [P] * 7 + [I] + [P] * 10 + [I] * 4 + [P]
 )
 ATTN_BWD_KERNEL = _build.Kernel(
-    "fused_halves_bwd",
+    _by_width("fused_halves_bwd"),
     "hvt_attention_half_nhwc_bwd",
     [P] * 5 + [I] + [P] * 19 + [I] * 11 + [P],
 )
-#: channel widths the kernels are built for (SwinV2-T's stages)
-WIDTHS = (96, 192, 384, 768)
+MLP_CHUNKED_KERNEL = _build.Kernel(
+    "fused_halves_base", "hvt_mlp_half_chunked_fwd", [P] * 9 + [I, I, P]
+)
+MLP_CHUNKED_BWD_KERNEL = _build.Kernel(
+    "fused_halves_chunked", "hvt_mlp_half_chunked_bwd", [P] * 17 + [I] * 5 + [P]
+)
 HEAD_DIM = 32
+#: rows of the chunked MLP backward's LayerNorm and hidden kernels' blocks
+CHUNKED_ROWS = 64
 #: blocks of a weight-gradient product to aim for: 8 per SM of the H100
 GRAD_BLOCKS = 1056
 _LN_EPS = 1e-5
@@ -73,8 +104,8 @@ _INV_SQRT_2PI = 0.3989422804014327
 
 
 def unsupported(c: int, heads: int, window: int) -> str | None:
-    """Why the kernels (forward and backward) cannot run a fused block of
-    width ``c`` with ``heads`` heads and ``window``, or None."""
+    """Why the attention half's kernels (forward and backward) cannot run a
+    fused block of width ``c`` with ``heads`` heads and ``window``, or None."""
     if c not in WIDTHS:
         return f"width {c} is not one the kernels are built for {WIDTHS}"
     if c != heads * HEAD_DIM:
@@ -82,6 +113,88 @@ def unsupported(c: int, heads: int, window: int) -> str | None:
     if window * window > 64:
         return f"window {window} has more than 64 tokens"
     return None
+
+
+def mlp_unsupported(c: int, hidden: int, nchunks: int, training: bool) -> str | None:
+    """Why the kernels cannot run an MLP half of width ``c`` routed to
+    ``nchunks`` (1: ``mlp_half``, K > 1: ``mlp_half_chunked``, 0: plain
+    PyTorch, no kernel), forward or, when ``training``, forward and
+    backward; or None."""
+    if nchunks == 0:
+        return None
+    if hidden != 4 * c:
+        return f"hidden {hidden} is not 4C"
+    if nchunks > 1:
+        return chunked_unsupported(c, hidden, nchunks)
+    widths = MLP_BWD_WIDTHS if training else WIDTHS
+    if c not in widths:
+        return f"width {c} is not one the MLP kernels are built for {widths}"
+    return None
+
+
+def chunked_unsupported(c: int, hidden: int, nchunks: int) -> str | None:
+    """Why the chunked MLP's kernels (forward and backward) cannot run width
+    ``c`` with ``hidden`` in ``nchunks`` chunks, or None."""
+    if hidden != 4 * c or c not in CHUNKED_WIDTHS:
+        return (f"width {c}, hidden {hidden}: the chunked MLP kernels are built for "
+                f"{CHUNKED_WIDTHS} and hidden 4C")
+    if nchunks < 1 or hidden % nchunks or (hidden // nchunks) % 32:
+        return f"{nchunks} chunks of the hidden dim {hidden} are not multiples of 32"
+    return None
+
+
+# ---------------------------------------------------------------------------
+# hvt's routing: which kernel takes a block's half
+# ---------------------------------------------------------------------------
+
+#: the routing threshold at hvt's defaults: ``fits_vmem`` (fused_halves_pallas.py
+#: :1669) compares with max(12 MiB, budget + 8 MiB), the budget being
+#: ``_fused_attn_budget_bytes`` (:1133), 32 MiB. hvt reads both from
+#: environment variables for TPU experiments; the port reads none, and tests
+#: patch this constant.
+FITS_THRESHOLD_BYTES = max(12 * 2**20, 32 * 2**20 + 8 * 2**20)
+
+
+def fits_vmem(c: int, heads: int, n: int, mlp_hidden: int | None = None,
+              train: bool = True) -> bool:
+    """hvt's ``fits_vmem``: whether a fused half's resident set (weights,
+    f32 weight-gradient accumulators when ``train``, live blocks) is under
+    the routing threshold. It decides which kernel takes a block exactly as
+    hvt decides; its bytes are the TPU kernels' VMEM, not this card's shared
+    memory."""
+    if mlp_hidden is not None:
+        r = max(64, (512 * 96) // c)
+        weights = 2 * c * mlp_hidden * 2
+        grads = 2 * c * mlp_hidden * 4 if train else 0
+        live = (6 if train else 3) * r * max(mlp_hidden, c) * 4
+    else:
+        weights = 4 * c * c * 2
+        grads = 4 * c * c * 4 if train else 0
+        n_rows = -(-n // 8) * 8
+        n_pad = n_rows * (-(-n // 128) * 128)
+        live = 8 * n_pad * 48 + 6 * 8 * n_rows * 4 * c
+    return weights + grads + live < FITS_THRESHOLD_BYTES
+
+
+def mlp_chunks(c: int, hidden: int, train: bool = True, cap: int = 4) -> int:
+    """hvt's ``mlp_chunks``: the smallest power-of-two K ≤ ``cap`` dividing
+    ``hidden`` whose chunk fits :func:`fits_vmem`; 0 if none does."""
+    k = 1
+    while k <= cap:
+        if hidden % k == 0 and fits_vmem(c, 0, 0, mlp_hidden=hidden // k, train=train):
+            return k
+        k *= 2
+    return 0
+
+
+def mlp_route(c: int, hidden: int, train: bool, chunked: bool = True) -> int:
+    """hvt's choice for a fused block's MLP half (``_mlp_half_fused``,
+    hvt/models/swinv2.py:416): 1 where the unchunked half fits, else the K > 1
+    of :func:`mlp_chunks` when ``chunked`` (``fuse_mlp_chunked``), else 0, the
+    plain LayerNorm(MLP) (hvt's XLA fallback)."""
+    if fits_vmem(c, 0, 0, mlp_hidden=hidden, train=train):
+        return 1
+    return mlp_chunks(c, hidden, train) if chunked else 0
 
 
 def _acc(t: torch.Tensor) -> torch.dtype:
@@ -199,12 +312,12 @@ def mlp_half_backward_plain(x, w1, b1, w2, b2, lns, g, tpi: int = 0, dp=None):
             _bf16(dout).t() @ _bf16(hidden), dout.sum(0), (gs * normed).sum(0), gs.sum(0))
 
 
-def _check_mlp(name, x, w1, tpi, dp):
+def _check_mlp(name, x, w1, tpi, dp, widths=WIDTHS):
     t, c = x.shape
-    if x.dtype != torch.bfloat16 or c not in WIDTHS or tuple(w1.shape) != (4 * c, c):
+    if x.dtype != torch.bfloat16 or c not in widths or tuple(w1.shape) != (4 * c, c):
         raise ValueError(
             f"{name}: x {tuple(x.shape)} {x.dtype}, w1 {tuple(w1.shape)}; the kernel "
-            f"takes bf16 x with C in {WIDTHS} and hidden 4C"
+            f"takes bf16 x with C in {widths} and hidden 4C"
         )
     if dp is not None and (tpi <= 0 or t != tpi * dp.numel()):
         raise ValueError(f"{name}: {t} rows are not {dp.numel()} images of {tpi} tokens")
@@ -227,7 +340,8 @@ def mlp_half_forward(x, w1, b1, w2, b2, lns, lnb, tpi: int = 0, dp=None):
     args, f32, s = _mlp_args(x, w1, b1, w2, b2, lns, dp)
     out = torch.empty_like(x)
     MLP_KERNEL(x.data_ptr(), *(a.data_ptr() for a in args), f32(lnb).data_ptr(),
-               None if s is None else s.data_ptr(), max(tpi, 1), out.data_ptr(), t, c, _stream(x))
+               None if s is None else s.data_ptr(), max(tpi, 1), out.data_ptr(), t, c, _stream(x),
+               width=c)
     return out
 
 
@@ -236,7 +350,7 @@ def mlp_half_backward(x, w1, b1, w2, b2, lns, g, tpi: int = 0, dp=None):
     for a CPU one: (dx, dw1, db1, dw2, db2, dlns, dlnb)."""
     if not _on_card("mlp_half backward", x):
         return mlp_half_backward_plain(x, w1, b1, w2, b2, lns, g, tpi, dp)
-    _check_mlp("mlp_half backward", x, w1, tpi, dp)
+    _check_mlp("mlp_half backward", x, w1, tpi, dp, MLP_BWD_WIDTHS)
     t, c = x.shape
     x = x.contiguous()
     g = g.to(torch.bfloat16).contiguous()
@@ -254,7 +368,7 @@ def mlp_half_backward(x, w1, b1, w2, b2, lns, g, tpi: int = 0, dp=None):
     MLP_BWD_KERNEL(x.data_ptr(), *(a.data_ptr() for a in args), None if s is None else s.data_ptr(),
                    max(tpi, 1), g.data_ptr(), dx.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
                    dsmall.data_ptr(), hid.data_ptr(), dpre.data_ptr(), dout.data_ptr(),
-                   part.data_ptr(), wpart.data_ptr(), s1, s2, t, c, _stream(x))
+                   part.data_ptr(), wpart.data_ptr(), s1, s2, t, c, _stream(x), width=c)
     return (dx, dw1, dsmall[:4 * c], dw2, dsmall[4 * c:5 * c], dsmall[5 * c:6 * c],
             dsmall[6 * c:])
 
@@ -283,6 +397,143 @@ def mlp_half(x, w1, b1, w2, b2, lns, lnb, tpi: int = 0, dp=None):
     gives a scale per image of ``tpi`` consecutive rows. w1 (4C, C) and
     w2 (C, 4C) in nn.Linear layout. Differentiable in x and the parameters."""
     return _MlpHalf.apply(x, w1, b1, w2, b2, lns, lnb, tpi, dp)
+
+
+# ---------------------------------------------------------------------------
+# MLP half with the hidden dim in chunks
+# ---------------------------------------------------------------------------
+
+
+def _chunks(hidden: int, nchunks: int) -> int:
+    if nchunks < 1 or hidden % nchunks:
+        raise ValueError(f"{nchunks} chunks do not divide the hidden dim {hidden}")
+    return hidden // nchunks
+
+
+def mlp_half_chunked_plain(x, w1, b1, w2, b2, lns, lnb, nchunks: int):
+    """Plain PyTorch version of the chunked forward (any device), as hvt's
+    ``_mlp_chunk_fwd_kernel``: (branch, pre) in x's dtype, pre the pre-LN
+    sum Σₖ gelu(x·W1ₖᵀ + b1ₖ)·W2ₖᵀ + b2 (f32 over the chunks) rounded to x's
+    dtype; the branch is the LayerNorm of the unrounded sum."""
+    hk = _chunks(w1.shape[0], nchunks)
+    out = 0.0
+    for k in range(nchunks):
+        hid = slice(k * hk, (k + 1) * hk)
+        hidden = gelu_as(bf16_linear(x, w1[hid], b1[hid]))
+        out = out + _bf16(hidden) @ _bf16(w2[:, hid].to(hidden.dtype)).t()
+    out = out + b2.to(out.dtype)
+    return layer_norm(out, lns, lnb).to(x.dtype), out.to(x.dtype)
+
+
+def mlp_half_chunked_backward_plain(x, w1, b1, w2, lns, pre, g, nchunks: int):
+    """Plain PyTorch version of the chunked backward (any device), as hvt's
+    ``_mlp_chunked_bwd`` and its K calls of ``_mlp_chunk_bwd_kernel``: the
+    LayerNorm statistics from the saved ``pre``; per chunk, dpre and its dx
+    partial rounded to x's dtype; the partials summed in f32 and rounded.
+    Returns (dx in x's dtype, dw1 (4C, C), db1, dw2 (C, 4C), db2, dlns, dlnb)
+    in f32 (f64 on f64)."""
+    ad = _acc(x)
+    hk = _chunks(w1.shape[0], nchunks)
+    gf = g.to(ad)
+    normed, inv = _ln_stats(pre.to(ad))
+    dout = _ln_bwd(gf, normed, inv, lns)
+    dx = 0.0
+    dw1, db1, dw2 = [], [], []
+    for k in range(nchunks):
+        hid = slice(k * hk, (k + 1) * hk)
+        hidden, dgelu = gelu_and_grad(bf16_linear(x, w1[hid], b1[hid]))
+        dpre = (_bf16(dout) @ _bf16(w2[:, hid].to(ad))) * dgelu
+        dx = dx + (_bf16(dpre) @ _bf16(w1[hid].to(ad))).to(x.dtype).to(ad)
+        dw1.append(_bf16(dpre).t() @ _bf16(x.to(ad)))
+        db1.append(dpre.sum(0))
+        dw2.append(_bf16(dout).t() @ _bf16(hidden))
+    return (dx.to(x.dtype), torch.cat(dw1), torch.cat(db1), torch.cat(dw2, 1), dout.sum(0),
+            (gf * normed).sum(0), gf.sum(0))
+
+
+def _check_chunked(name, x, w1, nchunks):
+    t, c = x.shape
+    why = chunked_unsupported(c, w1.shape[0], nchunks)
+    if x.dtype != torch.bfloat16 or tuple(w1.shape) != (4 * c, c) or why:
+        raise ValueError(f"{name}: x {tuple(x.shape)} {x.dtype}, w1 {tuple(w1.shape)}, "
+                         f"{nchunks} chunks: {why or 'bf16 x and hidden 4C wanted'}")
+
+
+def mlp_half_chunked_forward(x, w1, b1, w2, b2, lns, lnb, nchunks: int):
+    """The chunked forward kernel (``hvt_mlp_half_chunked_fwd``) for a CUDA
+    tensor, its plain version for a CPU one: (branch, pre)."""
+    if not _on_card("mlp_half_chunked", x):
+        return mlp_half_chunked_plain(x, w1, b1, w2, b2, lns, lnb, nchunks)
+    _check_chunked("mlp_half_chunked", x, w1, nchunks)
+    t, c = x.shape
+    x = x.contiguous()
+    args, f32, _ = _mlp_args(x, w1, b1, w2, b2, lns, None)
+    out, pre = torch.empty_like(x), torch.empty_like(x)
+    MLP_CHUNKED_KERNEL(x.data_ptr(), *(a.data_ptr() for a in args), f32(lnb).data_ptr(),
+                       out.data_ptr(), pre.data_ptr(), t, c, _stream(x))
+    return out, pre
+
+
+def mlp_half_chunked_backward(x, w1, b1, w2, lns, pre, g, nchunks: int):
+    """The chunked backward kernel (``hvt_mlp_half_chunked_bwd``, one launch
+    for all K chunks) for a CUDA tensor, its plain version for a CPU one:
+    (dx, dw1, db1, dw2, db2, dlns, dlnb)."""
+    if not _on_card("mlp_half_chunked backward", x):
+        return mlp_half_chunked_backward_plain(x, w1, b1, w2, lns, pre, g, nchunks)
+    _check_chunked("mlp_half_chunked backward", x, w1, nchunks)
+    t, c = x.shape
+    x = x.contiguous()
+    pre = pre.to(torch.bfloat16).contiguous()
+    g = g.to(torch.bfloat16).contiguous()
+    w1b, w2b = (w.to(device=x.device, dtype=torch.bfloat16).contiguous() for w in (w1, w2))
+    b1f, lnsf = (v.to(device=x.device, dtype=torch.float32).contiguous() for v in (b1, lns))
+    s1, s2 = _splits(4 * c, c, t), _splits(c, 4 * c, t)
+    rows = -(-t // CHUNKED_ROWS)
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=x.device)
+
+    dx, dw1, dw2, dsmall = torch.empty_like(x), empty(4 * c, c), empty(c, 4 * c), empty(7 * c)
+    hid, dpre = empty(t, 4 * c, dtype=x.dtype), empty(t, 4 * c, dtype=x.dtype)
+    dout = empty(t, c, dtype=x.dtype)
+    part_ln, part_h = empty(rows, 3 * c), empty(rows, 4 * c)
+    wpart = empty(max(s1, s2) * 4 * c * c if max(s1, s2) > 1 else 1)
+    MLP_CHUNKED_BWD_KERNEL(
+        x.data_ptr(), w1b.data_ptr(), b1f.data_ptr(), w2b.data_ptr(), lnsf.data_ptr(),
+        pre.data_ptr(), g.data_ptr(), dx.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
+        dsmall.data_ptr(), hid.data_ptr(), dpre.data_ptr(), dout.data_ptr(), part_ln.data_ptr(),
+        part_h.data_ptr(), wpart.data_ptr(), s1, s2, 4 * c // nchunks, t, c, _stream(x))
+    return (dx, dw1, dsmall[:4 * c], dw2, dsmall[4 * c:5 * c], dsmall[5 * c:6 * c],
+            dsmall[6 * c:])
+
+
+class _MlpHalfChunked(torch.autograd.Function):
+    """The custom VJP of hvt's ``mlp_half_chunked``: the chunked forward
+    saves (x, the weights, pre), the backward derives every gradient from
+    them."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, lns, lnb, nchunks):
+        ctx.nchunks = nchunks
+        out, pre = mlp_half_chunked_forward(x, w1, b1, w2, b2, lns, lnb, nchunks)
+        ctx.save_for_backward(x, w1, b1, w2, b2, lns, pre)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, b1, w2, b2, lns, pre = ctx.saved_tensors
+        dx, dw1, db1, dw2, db2, dlns, dlnb = mlp_half_chunked_backward(x, w1, b1, w2, lns, pre, g,
+                                                                       ctx.nchunks)
+        return (dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(b2.dtype),
+                dlns.to(lns.dtype), dlnb.to(lns.dtype), None)
+
+
+def mlp_half_chunked(x, w1, b1, w2, b2, lns, lnb, nchunks: int):
+    """x (T, C) → LN(fc2(GELU(fc1 x))) with the hidden dim in ``nchunks``
+    chunks, no residual (hvt routes a block here where the unchunked MLP does
+    not fit: :func:`mlp_route`). w1 (4C, C) and w2 (C, 4C) in nn.Linear
+    layout. Differentiable in x and the parameters."""
+    return _MlpHalfChunked.apply(x, w1, b1, w2, b2, lns, lnb, nchunks)
 
 
 # ---------------------------------------------------------------------------
@@ -374,7 +625,7 @@ def attention_half_nhwc_forward(x, wqkv, bqkv, logit_scale, bias, mask, wproj, b
                 f32(attention_scale(logit_scale)).data_ptr(), z.data_ptr(), z.shape[0],
                 wp.data_ptr(), bp.data_ptr(), ls.data_ptr(), f32(lnb).data_ptr(),
                 None if s is None else s.data_ptr(), out.data_ptr(), b, h, w, c, heads, window,
-                shift, _stream(x))
+                shift, _stream(x), width=c)
     return out
 
 
@@ -418,7 +669,7 @@ def attention_half_nhwc_backward(x, wqkv, bqkv, scale, z, wproj, bproj, lns, g, 
         dscale.data_ptr(), dz.data_ptr(), ao.data_ptr(), dproj.data_ptr(), dqkv.data_ptr(),
         part_a.data_ptr(), part_b.data_ptr(), dz_part.data_ptr(), ds_part.data_ptr(),
         wpart.data_ptr(), per_block, chunks, sq, sp, b, h, w, c, heads, window, shift,
-        _stream(x))
+        _stream(x), width=c)
     return (dx, dwqkv, dsmall[:3 * c], dscale, dz, dwproj, dsmall[3 * c:4 * c],
             dsmall[4 * c:5 * c], dsmall[5 * c:])
 

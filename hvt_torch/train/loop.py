@@ -14,8 +14,12 @@ Trainer does none of these (evaluation and checkpoints are ROADMAP.md
 queue 1, items 5 and 8): its ``fit()`` runs the train steps and returns the
 train metrics of the last log window. SAM, MixUp, CutMix, progressive
 resizing, device RandAugment/ColOut, a pretrained backbone and
-``grad_accum`` > 1 are refused, never ignored. ``grad_accum: auto``
-resolves to 1 (hvt probes device memory; the port does not yet).
+``grad_accum`` > 1 are refused, never ignored. ``grad_accum: auto`` is sized
+on the card as hvt sizes it (:mod:`hvt_torch.train.microbatch`: the peak
+memory of a probe forward and backward at the full batch against the card's
+memory) and resolves to 1 where the batch fits, and to 1 on the CPU, as
+hvt's does without a memory limit; where the batch would need more
+microbatches the Trainer raises, since gradient accumulation is not ported.
 """
 
 from __future__ import annotations
@@ -30,10 +34,12 @@ from hvt_torch import device as device_lib
 from hvt_torch import metrics as metrics_lib
 from hvt_torch import objectives as objectives_lib
 from hvt_torch.data import DevicePrep
+from hvt_torch.data import device as device_prep
 from hvt_torch.data.loader import Batch, build_loader
 from hvt_torch.models import build_model
 from hvt_torch.train import algorithms as algorithms_lib
 from hvt_torch.train import ema as ema_lib
+from hvt_torch.train import microbatch
 from hvt_torch.train import optim as optim_lib
 from hvt_torch.train import schedule as schedule_lib
 from hvt_torch.train import step as step_lib
@@ -48,7 +54,6 @@ class Trainer:
         refused = algorithms_lib.unported(self.algos)
         if refused:
             raise NotImplementedError("not ported to hvt_torch's train step yet: " + "; ".join(refused))
-        grad_accum = 1 if config.grad_accum == "auto" else int(config.grad_accum)
         self.device = device_lib.resolve(device)
 
         # Data ------------------------------------------------------------
@@ -78,6 +83,17 @@ class Trainer:
             grad_clip_norm=self.algos.grad_clip_norm,
             no_decay_substrings=self.model.no_weight_decay_substrings)
         self.prep = DevicePrep.from_config(config.train_dataset, config.precision)
+        if config.grad_accum == "auto":
+            grad_accum = self._auto_grad_accum()
+            print(f"[{config.run_name}] grad_accum auto: {grad_accum}", flush=True)
+            if grad_accum > 1:
+                raise NotImplementedError(
+                    f"grad_accum auto: a batch of {config.train_dataset.global_batch_size} needs "
+                    f"{grad_accum} microbatches on {self.device}; gradient accumulation is "
+                    "ROADMAP.md queue 1, item 5 (train step)")
+        else:
+            grad_accum = int(config.grad_accum)
+        self.grad_accum = grad_accum
         self.settings = step_lib.StepSettings(
             num_classes=self.info.num_classes, smoothing=self.algos.label_smoothing,
             grad_accum=grad_accum)
@@ -85,6 +101,34 @@ class Trainer:
             self.model, self.objective, self.optimizer, self.prep, self.settings, self.ema)
         # stochastic-depth draws; hvt folds the step into its key instead
         self.generator = torch.Generator(self.device).manual_seed(int(config.seed))
+
+    def _auto_grad_accum(self) -> int:
+        """``grad_accum: auto`` as hvt's ``_resolve_auto_grad_accum``: the
+        smallest power-of-two split of the batch whose probe step fits the
+        device, by :func:`microbatch.choose_grad_accum`. The probe (zero
+        images, class-0 labels, its own generator) leaves the model, the
+        optimizer, the EMA and the Trainer's generator as it found them."""
+        cfg = self.config.train_dataset
+        batch, crop = int(cfg.global_batch_size), int(cfg.crop_size)
+        limit = microbatch.device_bytes_limit(self.device)
+        if limit is None:
+            return microbatch.choose_grad_accum(lambda accum: None, batch, None)
+        classes = self.info.num_classes
+        generator = torch.Generator(self.device).manual_seed(0)
+
+        def loss(model, n):
+            images = torch.zeros((n, crop, crop, 3), dtype=torch.uint8, device=self.device)
+            tiers = (len(classes),) if isinstance(classes, tuple) else ()
+            labels = torch.zeros((n, *tiers), dtype=torch.int32, device=self.device)
+            targets = device_prep.prepare_targets(labels, classes, self.algos.label_smoothing)
+            out = model(self.prep.normalize(images), generator=generator)
+            return self.objective(out, targets, torch.ones(n, device=self.device))
+
+        state = microbatch.optimizer_state_bytes(self.optimizer)
+        return microbatch.choose_grad_accum(
+            lambda accum: state + microbatch.probe_peak_bytes(self.model, loss, batch // accum,
+                                                              self.device),
+            batch, limit)
 
     @property
     def eval_params(self) -> dict[str, torch.Tensor]:

@@ -8,8 +8,8 @@ CUDA toolkit:
 
 This file imports neither jax nor hvt, so it runs where only the port is
 installed (``--noconftest`` skips tests/conftest.py, which sets up jax).
-Inputs are bf16 at SwinV2-T widths (C = 96 and 768, head dim 32,
-window 7); kernel and plain version share the arithmetic contract (bf16
+Inputs are bf16 at SwinV2-T and SwinV2-B widths (C = 96 to 1024, head dim
+32, window 7); kernel and plain version share the arithmetic contract (bf16
 operands, f32 accumulation, f32 softmax and LayerNorm), so they differ by
 accumulation order and the odd bf16 rounding flip: max|Δ| ≤ 1e-2·max|plain|
 for the attention core (1e-4 in f32), 2e-2 for the fused halves. The
@@ -87,7 +87,7 @@ def test_window_attention_packed_kernel(cuda, c, shift, dtype, tol):
     _close(got, ref, tol, f"packed attention C={c} {dtype}")
 
 
-@pytest.mark.parametrize("c", [96, 768])
+@pytest.mark.parametrize("c", [96, 768, 128, 1024])
 def test_mlp_half_kernel(cuda, c):
     p = _params(c, c // 32, 49, cuda, seed=c)
     x = p["x"].reshape(-1, c)
@@ -101,7 +101,7 @@ def test_mlp_half_kernel(cuda, c):
     _close(got_resid, fh.mlp_half_plain(x, *args, tpi=196, dp=dp), 2e-2, f"mlp_half resid C={c}")
 
 
-@pytest.mark.parametrize("c,shift", [(96, 3), (96, 0), (768, 0)])
+@pytest.mark.parametrize("c,shift", [(96, 3), (96, 0), (768, 0), (128, 3), (1024, 0)])
 def test_attention_half_nhwc_kernel(cuda, c, shift):
     heads, window = c // 32, 7
     p = _params(c, heads, 49, cuda, seed=2 * c + shift)
@@ -155,7 +155,7 @@ def test_window_attention_packed_backward_kernel(cuda, c, shift, dtype):
     _close(dls, rls, 1e-3, f"dlogit_scale C={c} shift={shift}")
 
 
-@pytest.mark.parametrize("c,resid", [(96, True), (96, False), (768, True)])
+@pytest.mark.parametrize("c,resid", [(96, True), (96, False), (768, True), (512, True)])
 def test_mlp_half_backward_kernel(cuda, c, resid):
     """Stage 1 and stage 4 widths at batch 2 (196 tokens an image), one image
     dropped (s = 0) and one kept at 1/keep. Kernel and plain version share
@@ -176,7 +176,7 @@ def test_mlp_half_backward_kernel(cuda, c, resid):
         _close(a, b, 2e-2, f"mlp_half C={c} resid={resid} {name}")
 
 
-@pytest.mark.parametrize("c,shift", [(96, 0), (96, 3), (768, 0)])
+@pytest.mark.parametrize("c,shift", [(96, 0), (96, 3), (768, 0), (128, 3), (1024, 0)])
 def test_attention_half_nhwc_backward_kernel(cuda, monkeypatch, c, shift):
     """Stage 1 (unshifted and shifted) and stage 4 widths at batch 2 through
     the autograd Function: every gradient within 2e-2·max|plain| (as the
@@ -210,8 +210,41 @@ def test_attention_half_nhwc_backward_kernel(cuda, monkeypatch, c, shift):
         _close(a, b, 2e-2, f"attention half C={c} shift={shift} d{name}")
 
 
+@pytest.mark.parametrize("nchunks", [2, 4])
+def test_mlp_half_chunked_kernels(cuda, nchunks):
+    """SwinV2-B's stage-4 width (C = 1024) at batch 2 (196 tokens an image):
+    the chunked forward's branch and pre-LN sum and every gradient of its
+    backward against the plain versions, 2e-2·max|plain| (the fused halves'
+    tolerance: bf16 operands and stores on both sides, another summation
+    order). One launch each, for all K chunks."""
+    c = 1024
+    p = _params(c, c // 32, 49, cuda, seed=11 * nchunks)
+    x = p["x"].reshape(-1, c)
+    g = torch.randn(x.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(9)).bfloat16()
+    args = (p["w1"], p["b1"], p["w2"], p["b2"], p["lns"], p["lnb"])
+    before = fh.MLP_CHUNKED_KERNEL.launches, fh.MLP_CHUNKED_BWD_KERNEL.launches
+    out, pre = fh.mlp_half_chunked_forward(x, *args, nchunks)
+    grads = fh.mlp_half_chunked_backward(x, p["w1"], p["b1"], p["w2"], p["lns"], pre, g, nchunks)
+    torch.cuda.synchronize()
+    assert (fh.MLP_CHUNKED_KERNEL.launches, fh.MLP_CHUNKED_BWD_KERNEL.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref_out, ref_pre = fh.mlp_half_chunked_plain(x, *args, nchunks)
+    _close(out, ref_out, 2e-2, f"chunked K={nchunks} branch")
+    _close(pre, ref_pre, 2e-2, f"chunked K={nchunks} pre")
+    ref = fh.mlp_half_chunked_backward_plain(x, p["w1"], p["b1"], p["w2"], p["lns"], pre, g,
+                                             nchunks)
+    for name, a, b in zip(("dx", "dw1", "db1", "dw2", "db2", "dlns", "dlnb"), grads, ref):
+        _close(a, b, 2e-2, f"chunked K={nchunks} {name}")
+
+
 def test_kernels_refuse_unsupported_shapes(cuda):
     """A CUDA tensor the kernel does not take raises; it never falls back."""
+    big = torch.zeros((49, 1024), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="C in"):  # no unchunked MLP backward at C = 1024
+        fh.mlp_half_backward(big, torch.zeros((4096, 1024), device=cuda), *[None] * 5)
+    with pytest.raises(ValueError, match="chunked MLP kernels are built for"):
+        fh.mlp_half_chunked_forward(big[:, :768], torch.zeros((3072, 768), device=cuda),
+                                    *[None] * 5, 2)
     with pytest.raises(ValueError, match="C in"):
         fh.mlp_half(torch.zeros((49, 64), device=cuda, dtype=torch.bfloat16),
                     torch.zeros((256, 64), device=cuda), *[None] * 5)

@@ -223,12 +223,14 @@ def test_factory_builds_swin_and_names_unported_families():
     ("swinv2_tiny", True, 224, []),
     ("swinv2_tiny_window8_256", True, 256, []),
     ("swinv2_tiny_window16_256", False, 256, [1, 2, 3]),  # 256 tokens: N x N logits overflow smem
-    ("swinv2_base", True, 224, [1, 2, 3, 4]),  # widths 128-1024
+    ("swinv2_base", True, 224, []),  # widths 128-1024, stage 4's MLP chunked in training
     ("swinv2_large", True, 224, [4]),  # width 1536
     ("swinv2_large_window12_192", True, 192, [1, 2, 3, 4]),  # 144-token windows, width 1536
 ])
 def test_cuda_unsupported_names_the_stages_the_kernels_cannot_take(name, fuse, image_size, stages):
+    """The same stages in eval and in training (forward and backward)."""
     with torch.device("meta"):  # the structure only: no weights drawn
         model = getattr(tswin, name)(10, fuse=fuse)
-    found = model.cuda_unsupported(image_size)
-    assert [int(line.split()[1]) for line in found] == stages, found
+    for training in (False, True):
+        found = model.cuda_unsupported(image_size, training=training)
+        assert [int(line.split()[1]) for line in found] == stages, (training, found)
