@@ -55,11 +55,26 @@ Phases, in order; any failure exits non-zero and prints no result:
      attention-half kernel, 22 of each MLP-half kernel (stages 1-3) and 2 of
      each chunked-MLP kernel (stage 4, K = 2, one launch per block for all
      chunks), none of the others; step ms, images/s and peak memory; one
-     step's loss and gradients against the plain path.
-Phases 3, 5 and 6 also hold the SwinV2-B block shapes: the two fused
-forwards at batch 64 (eval, every stage unchunked), the two fused backwards
-and the chunked MLP (forward and backward, stage 4, K = 2) at batch 128,
-each timed per SwinV2-B training step beside its bound and plain version.
+     step's loss and gradients against the plain path;
+ 11. the fused block's other routes, training SwinV2-T (10,000 classes,
+     batch 128) through ``hvt_torch.main.main``: (a) fuse_nhwc: false for 30
+     steps, 12 launches per step of the windowed attention half's two
+     kernels and of the MLP half's two, none of the NHWC or packed pairs,
+     step ms, images/s and peak memory, one step against the plain path;
+     (b) fuse_resid: false for 10 steps, 12 per step of the NHWC and MLP
+     pairs (every residual outside the kernels), one step against the plain
+     path; (c) fuse_attn_train: false with fallback_xla: false for 10 steps,
+     12 per step of the packed attention pair and the MLP pair; (d) hvt's
+     op on split q, k, v, ``hvt_torch.ops.window_attention.window_attention``,
+     forward and backward at each of SwinV2-T's 12 block shapes at batch 128:
+     12 launches of each split kernel.
+Phases 3, 5 and 6 also hold the SwinV2-B block shapes: the fused forwards
+(NHWC and windowed attention halves, MLP half) at batch 64 (eval, every
+stage unchunked), the fused backwards and the chunked MLP (forward and
+backward, stage 4, K = 2) at batch 128, each timed per SwinV2-B training
+step beside its bound and plain version. Phases 3, 5 and 6 hold and time the
+windowed attention half (forward, backward) and split-q/k/v window attention
+(forward in bf16 and f32, backward) at SwinV2-T's block shapes as well.
 
 Comparisons run with TF32 off (cuDNN and matmul), so the f32 parts of the
 plain path (patch-embed conv, head) are true f32. The kernel table goes on a
@@ -117,6 +132,19 @@ CHUNKED = {  # name: (source, TPU kernel it replaces) — SwinV2-B's stage-4 MLP
     "mlp_half_chunked_bwd": ("hvt_torch/ops/csrc/fused_halves_chunked.cu",
                              "hvt/ops/fused_halves_pallas.py:627"),
 }
+WINDOWED = {  # name: (source, TPU kernel it replaces) — hvt's fuse_nhwc: false route
+    "attention_half_fwd": ("hvt_torch/ops/csrc/attention_half.cu",
+                           "hvt/ops/fused_halves_pallas.py:1216"),
+    "attention_half_bwd": ("hvt_torch/ops/csrc/attention_half.cu",
+                           "hvt/ops/fused_halves_pallas.py:1257"),
+}
+SPLIT = {  # name: (source, TPU kernel it replaces) — hvt's window_attention op on split q, k, v
+    "window_attention_fwd": ("hvt_torch/ops/csrc/window_attention.cu",
+                             "hvt/ops/window_attention_pallas.py:107"),
+    "window_attention_bwd": ("hvt_torch/ops/csrc/window_attention_bwd.cu",
+                             "hvt/ops/window_attention_pallas.py:246"),
+}
+ROUTE_STEPS = 10  # phase 11 (b) and (c)
 CHUNKS = 2  # hvt's K for a C = 1024 MLP half in training at its default budget
 # Phase 10: launches of each kernel per SwinV2-B training step (24 blocks;
 # stage 4's two MLP halves chunked, one launch per block for all K chunks)
@@ -129,12 +157,12 @@ TRAIN_KERNELS = {  # kernels each training step launches 12 times, per route
 }
 # Kernel names of each training path's backward and forward in a profile.
 PROFILE_NAMES = {
-    False: {"backward": ("packed_attention_bwd",), "forward": ("packed_attention_fwd",)},
+    False: {"backward": ("attention_bwd_",), "forward": ("attention_fwd_kernel",)},
     True: {"backward": ("mlp_half_bwd_rows", "attn_half_bwd_", "grad_tn", "sum_parts"),
-           "forward": ("mlp_half_fwd", "attn_half_nhwc_fwd")},
+           "forward": ("mlp_half_fwd", "attn_half_fwd")},
     "base": {"backward": ("mlp_half_bwd_rows", "attn_half_bwd_", "chunked_", "grad_tn",
                           "sum_parts"),
-             "forward": ("mlp_half_fwd", "attn_half_nhwc_fwd", "mlp_half_chunked_fwd")},
+             "forward": ("mlp_half_fwd", "attn_half_fwd", "mlp_half_chunked_fwd")},
     "resnet": {"backward": ("bwd_reduce_kernel",), "forward": ("channel_sums_kernel",)},
 }
 KEEP = 0.8  # drop-path keep probability of the scales in phase 6's inputs
@@ -143,12 +171,15 @@ KEEP = 0.8  # drop-path keep probability of the scales in phase 6's inputs
 # differ only in summation order and the odd bf16 rounding flip of an
 # operand or output.
 TOL = {"window_attention_packed_fwd": 1e-2, "mlp_half_fwd": 2e-2,
-       "attention_half_nhwc_fwd": 2e-2}
+       "attention_half_nhwc_fwd": 2e-2, "attention_half_fwd": 2e-2,
+       "window_attention_fwd": 1e-2,  # bf16: P and the output rounded on both sides
+       "window_attention_fwd_f32": 1e-4}  # f32 in and out: summation order only
 # The backward kernel against packed_heads_backward, relative to max|plain|:
 # dqkv is rounded to bf16 at the store on both sides (1e-2, as the
 # forward); dbias and dlogit_scale are f32 sums over up to 8,192 windows in
 # another order (1e-3).
 BWD_TOL = {"dqkv": 1e-2, "dbias": 1e-3, "dlogit_scale": 1e-3}
+SPLIT_BWD_TOL = {"dq": 1e-2, "dk": 1e-2, "dv": 1e-2, "dbias": 1e-3, "dlogit_scale": 1e-3}
 # The fused halves' backward kernels against their plain versions, every
 # gradient relative to max|plain|: both sides round every product's operands
 # to bf16 (hvt's _dot/_dot_t, weight gradients included) and dx to bf16 at
@@ -160,6 +191,7 @@ FUSED_GRADS = {
     "attention_half_nhwc_bwd": ("dx", "dwqkv", "dbqkv", "dlogit_scale", "dbias", "dwproj",
                                 "dbproj", "dlns", "dlnb"),
 }
+FUSED_GRADS["attention_half_bwd"] = FUSED_GRADS["attention_half_nhwc_bwd"]
 # Phase 7, one training step on the kernel path against the plain path.
 LOSS_RTOL = 1e-2
 GRAD_COSINE = 0.99
@@ -224,7 +256,9 @@ def kernel_counters():
             "mlp_half_bwd": fh.MLP_BWD_KERNEL, "attention_half_nhwc_bwd": fh.ATTN_BWD_KERNEL,
             "mlp_half_chunked_fwd": fh.MLP_CHUNKED_KERNEL,
             "mlp_half_chunked_bwd": fh.MLP_CHUNKED_BWD_KERNEL,
-            "bn_channel_sums": bsc.SUMS_KERNEL, "bn_bwd_reduce": bsc.BWD_KERNEL}
+            "bn_channel_sums": bsc.SUMS_KERNEL, "bn_bwd_reduce": bsc.BWD_KERNEL,
+            "attention_half_fwd": fh.ATTN_WIN_KERNEL, "attention_half_bwd": fh.ATTN_WIN_BWD_KERNEL,
+            "window_attention_fwd": wac.SPLIT_KERNEL, "window_attention_bwd": wac.SPLIT_BWD_KERNEL}
 
 
 @contextlib.contextmanager
@@ -253,6 +287,7 @@ def plain_versions():
     with swapped(wac, window_attention_packed=wac.window_attention_packed_plain), \
             swapped(fh, mlp_half_forward=fh.mlp_half_plain,
                     attention_half_nhwc_forward=fh.attention_half_nhwc_plain,
+                    attention_half_forward=fh.attention_half_plain,
                     mlp_half_chunked_forward=fh.mlp_half_chunked_plain), \
             plain_fused_backward(), plain_bn_reductions():
         yield
@@ -284,11 +319,13 @@ def exact_bn_reductions():
 
 
 def plain_backward():
-    """The packed backward kernel's wrapper swapped for its plain version
-    inside the attention's autograd Function, which keeps its set-up and tail."""
+    """The packed and split backward kernels' wrappers swapped for their plain
+    versions inside the attention's autograd Functions, which keep their
+    set-up and tail."""
     from hvt_torch.ops import window_attention_cuda as wac
 
-    return swapped(wac, packed_backward=wac.packed_heads_backward)
+    return swapped(wac, packed_backward=wac.packed_heads_backward,
+                   split_backward=wac.split_heads_backward)
 
 
 def plain_fused_backward():
@@ -298,6 +335,7 @@ def plain_fused_backward():
 
     return swapped(fh, mlp_half_backward=fh.mlp_half_backward_plain,
                    attention_half_nhwc_backward=fh.attention_half_nhwc_backward_plain,
+                   attention_half_backward=fh.attention_half_backward_plain,
                    mlp_half_chunked_backward=fh.mlp_half_chunked_backward_plain)
 
 
@@ -379,8 +417,26 @@ def kernel_cases(p):
     def sdpa():
         return F.scaled_dot_product_attention(q, k, v, attn_mask=zb, scale=1.0)
 
+    # hvt's op on split q, k, v: (nWB, H, N, D) each, split from the same
+    # projection, in bf16 and in f32; its SDPA yardstick in each dtype.
+    split = {dt: [t.contiguous() for t in wa.split_heads(qkv.to(dt), heads)]
+             for dt in (torch.bfloat16, torch.float32)}
+    q32, k32, v32, zb32 = q.float(), k.float(), v.float(), zb.float()
+
+    def sdpa_f32():
+        return F.scaled_dot_product_attention(q32, k32, v32, attn_mask=zb32, scale=1.0)
+
+    def split_case(name, dt, library):
+        sq, sk, sv = split[dt]
+        size = 2 if dt == torch.bfloat16 else 4
+        return (name,
+                lambda: wa.window_attention(sq, sk, sv, p["logit_scale"], p["bias"], mask),
+                lambda: wac.split_heads_forward(sq, sk, sv, z, scale),
+                library, size * 4 * sq.numel() + z_bytes, 4 * tokens * n * c)
+
     attn_args = (p["wqkv"], p["bqkv"], p["logit_scale"], p["bias"], mask, p["wproj"],
                  p["bproj"], p["lns"], p["lnb"], WINDOW, heads)
+    win_args = attn_args[:-2] + (heads,)
     mlp_args = (p["w1"], p["b1"], p["w2"], p["b2"], p["lns"], p["lnb"])
     xt = x.reshape(tokens, c)
     io_bytes = 2 * 2 * tokens * c  # bf16 map read once, written once
@@ -398,6 +454,13 @@ def kernel_cases(p):
          lambda: fh.attention_half_nhwc(x, *attn_args, dp=p["dp"], shift=shift),
          lambda: fh.attention_half_nhwc_plain(x, *attn_args, dp=p["dp"], shift=shift),
          None, io_bytes + 2 * 4 * c * c + z_bytes, 8 * tokens * c * c + 4 * tokens * n * c),
+        # the windows partitioned from the rolled map, as the model's block does
+        ("attention_half_fwd",
+         lambda: fh.attention_half(xw, *win_args),
+         lambda: fh.attention_half_plain(xw, *win_args),
+         None, io_bytes + 2 * 4 * c * c + z_bytes, 8 * tokens * c * c + 4 * tokens * n * c),
+        split_case("window_attention_fwd", torch.bfloat16, sdpa),
+        split_case("window_attention_fwd_f32", torch.float32, sdpa_f32),
     ]
 
 
@@ -422,7 +485,11 @@ def train_launches(name: str, c: int) -> int:
     return 0 if name.startswith("mlp_half_") and fh.mlp_route(c, 4 * c, True) != 1 else 1
 
 
-def kernel_records(timing: bool, stages=STAGES, batch: int = BATCH, names=tuple(KERNELS),
+FORWARD_NAMES = (*KERNELS, "attention_half_fwd", "window_attention_fwd",
+                 "window_attention_fwd_f32")
+
+
+def kernel_records(timing: bool, stages=STAGES, batch: int = BATCH, names=FORWARD_NAMES,
                    per_block=None) -> dict:
     """Every kernel of ``names`` against its plain version at each block
     shape of ``stages`` (phase 3), or timed (phase 5). Per kernel, the numbers
@@ -581,13 +648,95 @@ def backward_records(timing: bool) -> dict:
     return rec
 
 
+def split_backward_records(timing: bool) -> dict:
+    """hvt's op on split q, k, v (``window_attention``, the split kernels)
+    against the same autograd Function with the plain versions, at every
+    SwinV2-T block shape at batch TRAIN_BATCH in bf16, q, k and v split from
+    the projection ``backward_case`` gives (check: dq, dk, dv, dbias,
+    dlogit_scale, the clamped head's exactly 0); or its backward timed
+    through autograd (``_SplitAttention.backward``, set-up and tail
+    included), the launch wrapper alone, the plain version and SDPA's
+    backward on the same q, k, v. Per training step: 12 launches summed."""
+    import torch
+    import torch.nn.functional as F
+
+    from hvt_torch.ops import window_attention as wa
+    from hvt_torch.ops import window_attention_cuda as wac
+
+    rec = {"max_abs_err": 0.0, "bytes": 0, "flops": 0, "stages": []}
+    for stage, shift, blocks in block_shapes():
+        p = stage_inputs(stage, shift, seed=700 + 10 * stage + shift, batch=TRAIN_BATCH)
+        qkv, dout, z, scale = backward_case(p)
+        heads, ls, mask = p["heads"], p["logit_scale"], p["mask"]
+        nwb, n, c3 = qkv.shape
+        d = c3 // 3 // heads
+        q, k, v = (t.contiguous() for t in wa.split_heads(qkv, heads))
+        g = dout.reshape(nwb, n, heads, d).transpose(1, 2).contiguous()
+        st = {"stage": stage + 1, "shift": shift, "launches_per_forward": blocks,
+              "bytes": 2 * 7 * q.numel() + 2 * 4 * z.numel(),
+              "flops": 10 * heads * n * n * d * nwb}
+        rec["bytes"] += blocks * st["bytes"]
+        rec["flops"] += blocks * st["flops"]
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, ls, p["bias"])]
+        out = wa.window_attention(*leaves, mask)
+        model_bwd = lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)  # noqa: E731
+        if timing:
+            st["ms"] = cuda_time_ms(model_bwd)
+            st["wrapper_ms"] = cuda_time_ms(lambda: wac.split_backward(q, k, v, g, z, scale))
+            with plain_backward():
+                st["plain_ms"] = cuda_time_ms(model_bwd, iters=5)
+            qn = q.float() * torch.rsqrt((q.float() ** 2).sum(-1, keepdim=True) + 1e-24)
+            kn = k.float() * torch.rsqrt((k.float() ** 2).sum(-1, keepdim=True) + 1e-24)
+            sl = [(qn * scale.reshape(1, heads, 1, 1)).bfloat16().requires_grad_(),
+                  kn.bfloat16().requires_grad_(), v.clone().requires_grad_()]
+            zb = z.expand(nwb // z.shape[0], -1, -1, -1, -1).reshape(nwb, heads, n, n).bfloat16()
+            lib_out = F.scaled_dot_product_attention(*sl, attn_mask=zb, scale=1.0)
+            st["library_ms"] = cuda_time_ms(
+                lambda: torch.autograd.grad(lib_out, sl, g, retain_graph=True), iters=5)
+            del lib_out, sl, zb
+        else:
+            got = dict(zip(("dq", "dk", "dv", "dlogit_scale", "dbias"), model_bwd()))
+            torch.cuda.synchronize()
+            with plain_backward():
+                ref = dict(zip(("dq", "dk", "dv", "dlogit_scale", "dbias"), model_bwd()))
+            errs = {}
+            for key, tol in SPLIT_BWD_TOL.items():
+                a, b = got[key].float(), ref[key].float()
+                err, top = float((a - b).abs().max()), float(b.abs().max())
+                errs[key] = err / top if top else err
+                if not (bool(torch.isfinite(a).all()) and err <= tol * top):
+                    raise AssertionError(f"window_attention_bwd {key} disagrees with its plain "
+                                         f"version at stage {stage + 1}, shift {shift}: max|Δ| "
+                                         f"{err:.4g} vs max|plain| {top:.4g}")
+            if float(got["dlogit_scale"].reshape(-1)[0]) != 0.0:
+                raise AssertionError("window_attention_bwd: gradient above the logit-scale clamp "
+                                     f"{float(got['dlogit_scale'].reshape(-1)[0])}, not 0")
+            log(f"  window_attention_bwd stage {stage + 1} shift={shift}: every gradient within "
+                f"its tolerance (max|Δ|/max|plain|: "
+                f"{', '.join(f'{k} {v:.3g}' for k, v in errs.items())}) ok")
+            st["max_abs_err"] = max(float((got[k].float() - ref[k].float()).abs().max())
+                                    for k in ("dq", "dk", "dv"))
+            st["relative_errors"] = errs
+            rec["max_abs_err"] = max(rec["max_abs_err"], st["max_abs_err"])
+        rec["stages"].append(st)
+        del p, qkv, dout, z, q, k, v, g, out, leaves
+        torch.cuda.empty_cache()
+    finish_record(rec, timing)
+    return rec
+
+
 def fused_backward_cases(p):
-    """(name, half, leaves, bytes, operations) of one stage's two fused
-    halves at TRAIN_BATCH, called as the model's block calls them: image 0's
-    drop-path scale 0, image 1's 1/keep, head 0's logit scale above the log
-    100 clamp. Bytes: x and g read and dx written (bf16), the weights read
-    (bf16), the gradients written (f32) and z read and dz written (f32)."""
+    """(name, half, leaves, bytes, operations) of one stage's fused halves
+    at TRAIN_BATCH, called as the model's block calls them: the MLP half and
+    the NHWC attention half with image 0's drop-path scale 0 and image 1's
+    1/keep, the windowed attention half (no residual) on the partitioned
+    windows; head 0's logit scale above the log 100 clamp. Bytes: x and g
+    read and dx written (bf16), the weights read (bf16), the gradients
+    written (f32) and z read and dz written (f32)."""
+    import torch
+
     from hvt_torch.ops import fused_halves_cuda as fh
+    from hvt_torch.ops import window_attention as wa
 
     x, c, heads, grid, shift = p["x"], p["c"], p["heads"], p["grid"], p["shift"]
     tokens, n = x.shape[0] * grid * grid, WINDOW * WINDOW
@@ -602,16 +751,23 @@ def fused_backward_cases(p):
         return fh.attention_half_nhwc(xm, wq, bq, ls, bias, p["mask"], wp, bp, lns, lnb, WINDOW,
                                       heads, dp=p["dp"], shift=shift)
 
+    def windowed(xw, wq, bq, ls, bias, wp, bp, lns, lnb):
+        return fh.attention_half(xw, wq, bq, ls, bias, p["mask"], wp, bp, lns, lnb, heads)
+
     io = 2 * 3 * tokens * c
+    attn_params = [p[k] for k in ("wqkv", "bqkv", "logit_scale", "bias", "wproj", "bproj", "lns",
+                                  "lnb")]
+    attn_bytes = io + 2 * 4 * c * c + 4 * (4 * c * c + 6 * c) + 2 * 4 * nwz * heads * n * n
+    xs = torch.roll(x, (-shift, -shift), (1, 2)) if shift else x
     return [
         ("mlp_half_bwd", mlp,
          [x.reshape(tokens, c)] + [p[k] for k in ("w1", "b1", "w2", "b2", "lns", "lnb")],
          io + 2 * 8 * c * c + 4 * (8 * c * c + 7 * c), 48 * tokens * c * c),
-        ("attention_half_nhwc_bwd", attn,
-         [x] + [p[k] for k in ("wqkv", "bqkv", "logit_scale", "bias", "wproj", "bproj", "lns",
-                               "lnb")],
-         io + 2 * 4 * c * c + 4 * (4 * c * c + 6 * c) + 2 * 4 * nwz * heads * n * n,
+        ("attention_half_nhwc_bwd", attn, [x] + attn_params, attn_bytes,
          (24 * c * c + 10 * n * c) * tokens),
+        # the windows partitioned from the rolled map, as the model's block does
+        ("attention_half_bwd", windowed, [wa.window_partition(xs, WINDOW)] + attn_params,
+         attn_bytes, (24 * c * c + 10 * n * c) * tokens),
     ]
 
 
@@ -629,7 +785,7 @@ def fused_backward_records(timing: bool, stages=STAGES) -> dict:
     from hvt_torch.ops import window_attention_cuda as wac
 
     records = {name: {"max_abs_err": 0.0, "bytes": 0, "flops": 0, "stages": []}
-               for name in FUSED_BWD}
+               for name in FUSED_GRADS}
     for stage, shift, blocks in block_shapes(stages):
         p = stage_inputs(stage, shift, seed=300 + 10 * stage + shift, batch=TRAIN_BATCH,
                          stages=stages)
@@ -649,15 +805,18 @@ def fused_backward_records(timing: bool, stages=STAGES) -> dict:
             if timing:
                 model_bwd = lambda: torch.autograd.grad(out, ls, g, retain_graph=True)  # noqa: E731
                 st["ms"] = cuda_time_ms(model_bwd, iters=10)
+                z = wac.merge_bias_mask(p["bias"], p["mask"])
+                scale = wac.attention_scale(p["logit_scale"])
+                weights = (p["wqkv"], p["bqkv"], scale, z, p["wproj"], p["bproj"], p["lns"], g)
                 if name == "mlp_half_bwd":
                     wrapper = lambda: fh.mlp_half_backward(  # noqa: E731
                         leaves[0], *leaves[1:6], g, tpi=p["grid"] ** 2, dp=p["dp"])
+                elif name == "attention_half_bwd":
+                    wrapper = lambda: fh.attention_half_backward(  # noqa: E731
+                        leaves[0], *weights, p["heads"])
                 else:
-                    z = wac.merge_bias_mask(p["bias"], p["mask"])
-                    scale = wac.attention_scale(p["logit_scale"])
                     wrapper = lambda: fh.attention_half_nhwc_backward(  # noqa: E731
-                        leaves[0], p["wqkv"], p["bqkv"], scale, z, p["wproj"], p["bproj"], p["lns"],
-                        g, WINDOW, p["heads"], dp=p["dp"], shift=shift)
+                        leaves[0], *weights, WINDOW, p["heads"], dp=p["dp"], shift=shift)
                 st["wrapper_ms"] = cuda_time_ms(wrapper, iters=10)
                 with plain_fused_backward():
                     st["plain_ms"] = cuda_time_ms(model_bwd, iters=3, warmup=1)
@@ -675,7 +834,7 @@ def fused_backward_records(timing: bool, stages=STAGES) -> dict:
                         raise AssertionError(f"{name} {key} disagrees with its plain version at "
                                              f"stage {stage + 1}, shift {shift}: max|Δ| {err:.4g} "
                                              f"vs max|plain| {top:.4g}")
-                if name == "attention_half_nhwc_bwd" and float(got[3].reshape(-1)[0]) != 0.0:
+                if name != "mlp_half_bwd" and float(got[3].reshape(-1)[0]) != 0.0:
                     raise AssertionError(f"{name}: gradient above the logit-scale clamp "
                                          f"{float(got[3].reshape(-1)[0])}, not 0")
                 worst = max(errs, key=errs.get)
@@ -1000,24 +1159,73 @@ def profile_route(fuse: bool) -> list:
 # ---------------------------------------------------------------------------
 
 
-def training_config(name: str = "swinv2_tiny", grad_accum=1, **model_args):
+def training_config(name: str = "swinv2_tiny", grad_accum=1, steps: int = TRAIN_STEPS,
+                    **model_args):
     """configs/pretrain/swinv2_tiny.yaml (adamw at lr 1e-3, wd 0.05, cosine
     schedule, smoothing 0.1, clip 5.0, drop path 0.2, fuse unset, grad_accum
     1) with model ``name`` on the synthetic train source at 10,000 classes,
-    batch TRAIN_BATCH, for TRAIN_STEPS steps with a 5-step warmup."""
+    batch TRAIN_BATCH, for ``steps`` steps with a 5-step warmup."""
     from hvt_torch import config as config_lib
 
     base = config_lib.load(machine=str(ROOT / "configs/machines/local.yaml"),
                            exps=[str(ROOT / "configs/pretrain/swinv2_tiny.yaml")])
     return config_lib.loads(config_lib.to_dict(base), {
-        "max_duration": f"{TRAIN_STEPS}ba",
+        "max_duration": f"{steps}ba",
         "grad_accum": grad_accum,
         "scheduler": {"args": {"t_warmup": "5ba"}},
         "model": {"name": name, "args": model_args},
         "train_dataset": {"source": "synthetic", "synthetic_num_classes": CLASSES,
-                          "synthetic_num_samples": TRAIN_BATCH * TRAIN_STEPS,
+                          "synthetic_num_samples": TRAIN_BATCH * steps,
                           "global_batch_size": TRAIN_BATCH},
     })
+
+
+def split_op_run() -> dict:
+    """Phase 11 (d): hvt's op on split q, k, v as a user calls it,
+    ``hvt_torch.ops.window_attention.window_attention``, forward and backward
+    once for each of SwinV2-T's 12 blocks at batch TRAIN_BATCH (q, k, v split
+    from the block's projection, its bias and shift mask), with every launch
+    counter set to 0 just before and read just after: 12 launches of each
+    split kernel, none of any other; finite outputs and gradients."""
+    import torch
+
+    from hvt_torch.ops import window_attention as wa
+
+    counters = kernel_counters()
+    cases = []
+    for stage, shift, blocks in block_shapes():
+        p = stage_inputs(stage, shift, seed=800 + 10 * stage + shift, batch=TRAIN_BATCH)
+        qkv, dout, _, _ = backward_case(p)
+        q, k, v = (t.contiguous() for t in wa.split_heads(qkv, p["heads"]))
+        g = dout.reshape(q.shape[0], q.shape[2], p["heads"], -1).transpose(1, 2).contiguous()
+        cases.append((blocks, [q, k, v, p["logit_scale"], p["bias"]], p["mask"], g))
+        del p, qkv, dout
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    for blocks, tensors, mask, g in cases:
+        for _ in range(blocks):
+            leaves = [t.clone().requires_grad_() for t in tensors]
+            out = wa.window_attention(*leaves, mask)
+            out.backward(g)
+            if out.shape != g.shape or not all(bool(torch.isfinite(t).all()) for t in
+                                               [out] + [x.grad for x in leaves]):
+                raise AssertionError(f"window_attention: output {tuple(out.shape)} or its "
+                                     "gradients not finite")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    log(f"  window_attention (split q, k, v) forward and backward at SwinV2-T's 12 block shapes, "
+        f"batch {TRAIN_BATCH}: launches { {k: v for k, v in launches.items() if v} }, "
+        f"{wall_s:.2f} s")
+    for name, n in launches.items():
+        if n != (12 if name in SPLIT else 0):
+            raise AssertionError(f"{name}: {n} launches driving window_attention, expected "
+                                 f"{12 if name in SPLIT else 0}")
+    del cases
+    torch.cuda.empty_cache()
+    return {"launches": launches, "wall_s": wall_s}
 
 
 def train_run(config, per_step: dict, label: str):
@@ -1427,6 +1635,7 @@ def main(argv=None) -> int:
                         help="also trace one forward per route and one training step with "
                              "torch.profiler")
     args = parser.parse_args(argv)
+    started = time.perf_counter()
 
     import torch
 
@@ -1457,7 +1666,8 @@ def main(argv=None) -> int:
     log(f"[3] kernels vs plain versions, bf16, batch {BATCH}")
     checked = kernel_records(timing=False)
     log(f"[3] the fused forwards at SwinV2-B's block shapes, bf16, batch {BATCH} (eval)")
-    base_checked = kernel_records(False, BASE_STAGES, BATCH, ("mlp_half_fwd", "attention_half_nhwc_fwd"))
+    base_names = ("mlp_half_fwd", "attention_half_nhwc_fwd", "attention_half_fwd")
+    base_checked = kernel_records(False, BASE_STAGES, BATCH, base_names)
 
     log(f"[4] serving SwinV2-T at 224 px, {CLASSES} classes, batch {BATCH}")
     routes = [serve_route(fuse) for fuse in (False, True)]
@@ -1476,7 +1686,14 @@ def main(argv=None) -> int:
         })
         log(f"  {name}: {rec['ms']:.4f} ms kernel, {rec['plain_ms']:.4f} ms plain, "
             f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), library {rec['library_ms']}")
-    base_timed = kernel_records(True, BASE_STAGES, TRAIN_BATCH, ("mlp_half_fwd", "attention_half_nhwc_fwd"), train_launches)
+    for name in FORWARD_NAMES[len(KERNELS):]:
+        rec = timed[name]
+        log(f"  {name}: {rec['ms']:.4f} ms kernel, {rec['plain_ms']:.4f} ms plain, bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), library {rec['library_ms']}; per launch "
+            "(kernel/plain ms): " + "; ".join(
+                f"stage {st['stage']} shift {st['shift']} x{st['launches_per_forward']} "
+                f"{st['ms']:.3f}/{st['plain_ms']:.3f}" for st in rec["stages"]))
+    base_timed = kernel_records(True, BASE_STAGES, TRAIN_BATCH, base_names, train_launches)
     for name, rec in base_timed.items():
         log(f"  SwinV2-B {name}: {rec['ms']:.4f} ms kernel, {rec['plain_ms']:.4f} ms plain, bound "
             f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), per SwinV2-B training step at batch "
@@ -1502,6 +1719,18 @@ def main(argv=None) -> int:
             f"stage {st['stage']} shift {st['shift']} {st['ms']:.3f}/{st['wrapper_ms']:.3f}/"
             f"{st['bytes'] / H100_BYTES_PER_S * 1e3:.3f}/{st['plain_ms']:.3f}/{st['library_ms']:.3f}"
             for st in bwd["stages"]))
+
+    log(f"[6] window_attention_bwd (split q, k, v) vs plain version, bf16, batch {TRAIN_BATCH}")
+    split_checked = split_backward_records(timing=False)
+    split_bwd = split_backward_records(timing=True)
+    wrapper_ms = sum(st["launches_per_forward"] * st["wrapper_ms"] for st in split_bwd["stages"])
+    log(f"  window_attention_bwd: {split_bwd['ms']:.4f} ms kernel through autograd "
+        f"({wrapper_ms:.4f} ms in the launch wrapper alone), {split_bwd['plain_ms']:.4f} ms plain, "
+        f"bound {split_bwd['bound_ms']:.4f} ms ({split_bwd['bound_by']}), library "
+        f"{split_bwd['library_ms']:.4f} ms (SDPA backward), per training step's 12 block shapes on "
+        f"{card}; per launch (autograd/wrapper/plain/library): " + "; ".join(
+            f"stage {st['stage']} shift {st['shift']} {st['ms']:.3f}/{st['wrapper_ms']:.3f}/"
+            f"{st['plain_ms']:.3f}/{st['library_ms']:.3f}" for st in split_bwd["stages"]))
 
     log(f"[6] fused halves' backward kernels vs plain versions, bf16, batch {TRAIN_BATCH}")
     fused_checked = fused_backward_records(timing=False)
@@ -1622,12 +1851,55 @@ def main(argv=None) -> int:
             "library_ms": None,
         })
 
+    log(f"[11] the fused block's other routes: training SwinV2-T at 224 px, {CLASSES} classes, "
+        f"batch {TRAIN_BATCH} (hvt_torch.main); hvt's window_attention op on split q, k, v")
+    routes_train = {}
+    mlp_pair = {"mlp_half_fwd": 12, "mlp_half_bwd": 12}
+    for label, knobs, steps, per_step in (
+            ("fuse_nhwc=False", {"fuse_nhwc": False}, TRAIN_STEPS,
+             {**mlp_pair, "attention_half_fwd": 12, "attention_half_bwd": 12}),
+            ("fuse_resid=False", {"fuse_resid": False}, ROUTE_STEPS,
+             {**mlp_pair, "attention_half_nhwc_fwd": 12, "attention_half_nhwc_bwd": 12}),
+            ("fuse_attn_train=False fallback_xla=False",
+             {"fuse_attn_train": False, "fallback_xla": False}, ROUTE_STEPS,
+             {**mlp_pair, "window_attention_packed_fwd": 12, BWD_KERNEL: 12})):
+        rec, trainer = train_run(training_config(fuse=True, steps=steps, **knobs), per_step,
+                                 f"fuse=True {label}")
+        del trainer
+        if label != "fuse_attn_train=False fallback_xla=False":
+            rec["gradients"] = gradient_check(
+                training_config(drop_path_rate=0.0, fuse=True, **knobs), f"fuse=True {label}")
+        routes_train[label] = rec
+    routes_train["window_attention"] = split_op_run()
+    new_timed = {"attention_half_fwd": timed["attention_half_fwd"],
+                 "attention_half_bwd": fused["attention_half_bwd"],
+                 "window_attention_fwd": timed["window_attention_fwd"],
+                 "window_attention_bwd": split_bwd}
+    new_checked = {"attention_half_fwd": checked["attention_half_fwd"],
+                   "attention_half_bwd": fused_checked["attention_half_bwd"],
+                   "window_attention_fwd": checked["window_attention_fwd"],
+                   "window_attention_bwd": split_checked}
+    for name, (source, replaces) in {**WINDOWED, **SPLIT}.items():
+        rec, check = new_timed[name], new_checked[name]
+        run = routes_train["window_attention" if name in SPLIT else "fuse_nhwc=False"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": run["launches"][name], "max_abs_err": check["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+        })
+
     report = {"card": card, "batch": BATCH, "kernels": kernels, "routes": routes,
               "kernel_stages": {k: {"check": checked[k]["stages"], "timed": timed[k]["stages"]}
-                                for k in KERNELS},
+                                for k in FORWARD_NAMES},
               "backward_stages": {"check": bwd_checked["stages"], "timed": bwd["stages"]},
               "fused_backward_stages": {k: {"check": fused_checked[k]["stages"],
-                                            "timed": fused[k]["stages"]} for k in FUSED_BWD},
+                                            "timed": fused[k]["stages"]} for k in FUSED_GRADS},
+              "split_backward_stages": {"check": split_checked["stages"],
+                                        "timed": split_bwd["stages"]},
+              "window_attention_fwd_f32": {"check": checked["window_attention_fwd_f32"]["stages"],
+                                           "timed": timed["window_attention_fwd_f32"]["stages"]},
+              "routes_train": routes_train,
               "train": train,
               "bn_stages": {k: {"check": bn_checked[k]["stages"], "timed": bn_timed[k]["stages"]}
                             for k in BN_KERNELS},
@@ -1639,7 +1911,7 @@ def main(argv=None) -> int:
                                                              "bound_by")}
                                        for k, v in base_timed.items()},
                   "backward_stages": {k: {"check": base_bwd_checked[k]["stages"],
-                                          "timed": base_bwd[k]["stages"]} for k in FUSED_BWD},
+                                          "timed": base_bwd[k]["stages"]} for k in FUSED_GRADS},
                   "backward_per_step": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
                                                               "bound_by")}
                                         for k, v in base_bwd.items()},
@@ -1680,6 +1952,18 @@ def main(argv=None) -> int:
                     f"{r['name'][:40]} {r['ms_per_step']:.3f} ms x{r['calls']}" for r in prof["rows"][:14]))
             log("  by operator: " + "; ".join(
                 f"{r['name'][:40]} {r['ms_per_step']:.3f} ms x{r['calls']}" for r in prof["ops"][:14]))
+        prof = report["profile"]["train_step fuse=True fuse_nhwc=False"] = profile_train_step(
+            training_config(fuse=True, fuse_nhwc=False), PROFILE_NAMES[True])
+        prof["share_of_median_step"] = (prof["device_ms"]
+                                        / routes_train["fuse_nhwc=False"]["step_ms_median"])
+        log(f"  profile train step fuse=True fuse_nhwc=False: {prof['device_ms']:.2f} ms of kernel "
+            f"time in a {prof['step_ms']:.2f} ms profiled step (busy {100 * prof['busy_share']:.1f}%; "
+            f"{100 * prof['share_of_median_step']:.1f}% of phase 11's median step), backward "
+            f"kernels {prof['backward_kernel_ms']:.3f} ms, forward kernels "
+            f"{prof['forward_kernel_ms']:.3f} ms; " + "; ".join(
+                f"{r['name'][:40]} {r['ms_per_step']:.3f} ms x{r['calls']}" for r in prof["rows"][:14]))
+        log("  by operator: " + "; ".join(
+            f"{r['name'][:40]} {r['ms_per_step']:.3f} ms x{r['calls']}" for r in prof["ops"][:14]))
         prof = report["profile"]["swinv2_base train_step fuse=True"] = profile_train_step(
             training_config("swinv2_base", fuse=True), PROFILE_NAMES["base"])
         prof["share_of_median_step"] = prof["device_ms"] / base_train["step_ms_median"]
@@ -1690,6 +1974,7 @@ def main(argv=None) -> int:
             f"{prof['forward_kernel_ms']:.3f} ms; " + "; ".join(
                 f"{r['name'][:40]} {r['ms_per_step']:.3f} ms x{r['calls']}" for r in prof["rows"][:16]))
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    log(f"[done] every phase passed in {time.perf_counter() - started:.1f} s")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

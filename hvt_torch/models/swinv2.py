@@ -9,32 +9,39 @@ multitask head). Module names mirror the flax ones (``stage{s}_block{i}``,
 layouts, and :mod:`hvt_torch.models.convert` maps a flax tree onto them.
 
 Compute dtype: parameters stay f32; activations run in ``dtype`` (bf16 by
-default); the head runs in f32. Two routes, as in hvt:
+default); the head runs in f32. Blocks are routed as hvt routes them
+(``SwinBlock.__call__`` and ``_fused_call``, hvt/models/swinv2.py:195-470),
+by the same knobs with hvt's defaults:
 
-* ``fuse=False``: each block's attention goes through
-  ``window_attention_packed`` (kernel 1) on the packed qkv projection; the
-  projections, LayerNorms, MLP and residuals are plain PyTorch.
-* ``fuse=True``: each block is two fused kernels, ``attention_half_nhwc``
-  (kernel 3, with the cyclic shift folded into its gather) and ``mlp_half``
-  (kernel 2), each returning x + branch. The MLP half is routed as hvt's
-  ``_mlp_half_fused`` routes it, by hvt's own ``fits_vmem``/``mlp_chunks``
-  (copied in :mod:`hvt_torch.ops.fused_halves_cuda`): where the unchunked
-  MLP does not fit hvt's budget (SwinV2-B's C = 1024 stage in training), it
-  takes ``mlp_half_chunked`` with K chunks, or, with ``fuse_mlp_chunked``
-  false, the plain LayerNorm(MLP); either returns the branch alone, and the
-  residual and drop path run outside it, as in hvt.
+* ``fuse=False``: each block's attention goes through hvt's
+  ``window_attention_qkv`` on the packed qkv projection: the packed kernel
+  (``window_attention_packed``) with ``use_pallas``, else the reference
+  (``window_attention_reference``, hvt's XLA route); the projections,
+  LayerNorms, MLP and residuals are plain PyTorch.
+* ``fuse=True`` (where the window tiles the map), per block:
+
+  - the attention half is fused where ``fits_vmem`` (hvt's, copied in
+    :mod:`hvt_torch.ops.fused_halves_cuda`) admits it, and in training only
+    with ``fuse_attn_train``. Fused: with ``fuse_nhwc`` and ``fuse_resid``,
+    ``attention_half_nhwc`` returning x + s·branch (the cyclic shift folded
+    into its gather); with ``fuse_nhwc`` alone, the same kernel returning
+    the branch; without ``fuse_nhwc``, ``attention_half`` on the windows
+    partitioned from the rolled map, then window_reverse and the un-roll.
+    Not fused: ``WindowAttention`` on the partitioned windows, through the
+    packed kernel where ``use_pallas`` and not ``fallback_xla``, else the
+    reference; then norm1. Outside a fused residual, the residual and drop
+    path run in PyTorch.
+  - the MLP half is routed as hvt's ``_mlp_half_fused``: ``mlp_half`` where
+    the unchunked MLP fits, with its residual fused only where ``fuse_resid``
+    and hvt's ``mlp_resid_images_per_block`` allow it (an image's tokens a
+    multiple of 8: not SwinV2's 14 x 14 and 7 x 7 stages); where it does not
+    fit (SwinV2-B's C = 1024 stage in training), ``mlp_half_chunked`` in K
+    chunks, or with ``fuse_mlp_chunked`` false the plain LayerNorm(MLP).
 
 On CPU tensors every kernel call runs its plain version. Both routes train
 (train mode, stochastic depth at hvt's per-block rates ``linspace(0, rate,
-depth)``): ``fuse=False`` through kernel 1's backward, ``fuse=True`` through
-the fused halves' backward kernels, each half taking a per-image drop-path
-scale s drawn as hvt draws it (one mask per half). ``fuse_mlp_chunked``
-routes as in hvt (above). hvt's other TPU routing knobs (``use_pallas``,
-``fallback_xla``, ``fuse_attn_train``, ``fuse_nhwc``, ``fuse_resid``) are
-accepted and change nothing here: every fused block takes the NHWC attention
-kernel, and an unchunked MLP half the kernel with the residual fused (s = 1
-in eval). A block whose attention half does not fit hvt's budget (hvt's XLA
-fallback) is not ported; ``cuda_unsupported`` names it.
+depth)``), every kernel through its backward kernel; a fused residual takes
+a per-image drop-path scale s drawn as hvt draws it (one mask per half).
 """
 
 from __future__ import annotations
@@ -121,21 +128,27 @@ class WindowAttention(nn.Module):
         return wa.cpb_bias(self.cpb_fc1.weight, self.cpb_fc1.bias, self.cpb_fc2.weight, coords,
                            index, self.num_heads)
 
-    def forward(self, x, window: int, mask=None):
-        """x (nW·B, N, C) → (nW·B, N, C); mask (nW, N, N) or None."""
+    def forward(self, x, window: int, mask=None, use_pallas: bool = True):
+        """x (nW·B, N, C) → (nW·B, N, C); mask (nW, N, N) or None. The
+        attention takes the packed kernel with ``use_pallas``, else hvt's
+        reference (``window_attention_qkv``)."""
         qkv = F.linear(x, self.qkv.weight.to(x.dtype)) + self.qkv_bias().to(x.dtype)
-        out = wac.window_attention_packed(qkv, self.logit_scale, self.rel_bias(window), mask,
-                                          num_heads=self.num_heads)
+        out = wa.window_attention_qkv(qkv, self.logit_scale, self.rel_bias(window), mask,
+                                      num_heads=self.num_heads, use_pallas=use_pallas)
         return _linear(self.proj, out)
 
 
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window: int, shift: int,
                  mlp_ratio: float = 4.0, pretrained_window: int = 0, fuse: bool = False,
-                 drop_path_rate: float = 0.0, fuse_mlp_chunked: bool = True):
+                 drop_path_rate: float = 0.0, fuse_mlp_chunked: bool = True,
+                 use_pallas: bool = True, fuse_attn_train: bool = True,
+                 fallback_xla: bool = True, fuse_nhwc: bool = True, fuse_resid: bool = True):
         super().__init__()
         self.dim, self.num_heads, self.window, self.shift = dim, num_heads, window, shift
         self.fuse, self.fuse_mlp_chunked = fuse, fuse_mlp_chunked
+        self.use_pallas, self.fuse_attn_train, self.fallback_xla = use_pallas, fuse_attn_train, fallback_xla
+        self.fuse_nhwc, self.fuse_resid = fuse_nhwc, fuse_resid
         self.drop_path_rate = drop_path_rate
         self.attn = WindowAttention(dim, num_heads, pretrained_window)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
@@ -152,47 +165,91 @@ class SwinBlock(nn.Module):
             window, shift = min(h, w), 0
         mask = _shift_mask(h, w, window, shift, str(x.device)) if shift else None
         if self.fuse and h % window == 0 and w % window == 0:
-            return self._fused(x, window, shift, mask, generator)
-
-        shortcut = x
-        xs = torch.roll(x, (-shift, -shift), (1, 2)) if shift else x
-        y = self.attn(wa.window_partition(xs, window), window, mask)
-        y = wa.window_reverse(y, window, h, w)
-        if shift:
-            y = torch.roll(y, (shift, shift), (1, 2))
+            return self._mlp_half(self._attention_half(x, window, shift, mask, generator),
+                                  generator)
         rate, training = self.drop_path_rate, self.training
-        x = shortcut + drop_path(_layer_norm(self.norm1, y), rate, training, generator)
+        y = self._on_windows(x, window, shift,
+                             lambda xw: self.attn(xw, window, mask, self.use_pallas))
+        x = x + drop_path(_layer_norm(self.norm1, y), rate, training, generator)
         return x + drop_path(_layer_norm(self.norm2, self.mlp(x)), rate, training, generator)
+
+    @staticmethod
+    def _on_windows(x, window: int, shift: int, fn):
+        """``fn`` on the windows of x rolled by -shift, put back in place."""
+        b, h, w, c = x.shape
+        xs = torch.roll(x, (-shift, -shift), (1, 2)) if shift else x
+        y = wa.window_reverse(fn(wa.window_partition(xs, window)), window, h, w)
+        return torch.roll(y, (shift, shift), (1, 2)) if shift else y
+
+    def attn_route(self, n: int, training: bool) -> str:
+        """The attention half's route on ``fuse=True`` for windows of ``n``
+        tokens, as hvt's ``_fused_call`` decides it: "nhwc_resid"
+        (``attention_half_nhwc`` with the residual fused), "nhwc" (the same
+        kernel, the branch alone), "windows" (``attention_half``), or, where
+        hvt does not fuse the half, "packed" (``WindowAttention`` through the
+        packed kernel) or "reference" (through hvt's XLA reference)."""
+        if (not training or self.fuse_attn_train) and fh.fits_vmem(self.dim, self.num_heads, n,
+                                                                   train=training):
+            if self.fuse_nhwc:
+                return "nhwc_resid" if self.fuse_resid else "nhwc"
+            return "windows"
+        return "packed" if self.use_pallas and not self.fallback_xla else "reference"
 
     def mlp_route(self, training: bool) -> int:
         """The MLP half's route on ``fuse=True``: 1 (``mlp_half``), K > 1
         (``mlp_half_chunked``) or 0 (plain), as hvt's ``_mlp_half_fused``."""
         return fh.mlp_route(self.dim, self.mlp.fc1.out_features, training, self.fuse_mlp_chunked)
 
-    def _fused(self, x, window: int, shift: int, mask, generator):
-        """The attention half as a fused kernel returning x + s·branch, s the
-        half's per-image drop-path scale in train mode (drawn first, as hvt's
-        ``_fused_call``), else 1; then the MLP half by :meth:`mlp_route`."""
+    def mlp_resid(self, tokens: int, tokens_per_image: int) -> bool:
+        """Whether the MLP half fuses its residual (route 1 only), as hvt:
+        ``fuse_resid`` and ``mlp_resid_images_per_block`` > 0."""
+        return self.fuse_resid and fh.mlp_resid_images_per_block(
+            tokens, tokens_per_image, self.dim, self.mlp.fc1.out_features) > 0
+
+    def _scale(self, b: int, generator, device) -> torch.Tensor:
+        """A fused residual's per-image drop-path scale s in train mode (one
+        draw per half, as hvt's), else ones."""
+        if self.training and self.drop_path_rate > 0.0:
+            return drop_path_scale(b, self.drop_path_rate, generator, device)
+        return torch.ones(b, dtype=torch.float32, device=device)
+
+    def _attention_half(self, x, window: int, shift: int, mask, generator):
+        """x + the attention half's branch on ``fuse=True``, by
+        :meth:`attn_route`; a residual the kernel does not fuse, and its drop
+        path, run here."""
+        attn, n1 = self.attn, self.norm1
+        route = self.attn_route(window * window, self.training)
+        if route in ("packed", "reference"):
+            branch = _layer_norm(n1, self._on_windows(
+                x, window, shift, lambda xw: attn(xw, window, mask, route == "packed")))
+        else:
+            args = (attn.qkv.weight, attn.qkv_bias(), attn.logit_scale, attn.rel_bias(window), mask,
+                    attn.proj.weight, attn.proj.bias, n1.weight, n1.bias)
+            if route == "nhwc_resid":
+                return fh.attention_half_nhwc(x, *args, window, self.num_heads, shift=shift,
+                                              dp=self._scale(x.shape[0], generator, x.device))
+            if route == "nhwc":  # the kernel gathers and scatters through the shift
+                branch = fh.attention_half_nhwc(x, *args, window, self.num_heads, shift=shift)
+            else:
+                branch = self._on_windows(
+                    x, window, shift, lambda xw: fh.attention_half(xw, *args, self.num_heads))
+        return x + drop_path(branch, self.drop_path_rate, self.training, generator)
+
+    def _mlp_half(self, x, generator):
+        """x + the MLP half's branch on ``fuse=True``, by :meth:`mlp_route`,
+        the residual fused where :meth:`mlp_resid` allows."""
         b, h, w, c = x.shape
-        attn, mlp = self.attn, self.mlp
-
-        def scale():
-            if self.training and self.drop_path_rate > 0.0:
-                return drop_path_scale(b, self.drop_path_rate, generator, x.device)
-            return torch.ones(b, dtype=torch.float32, device=x.device)
-
-        x = fh.attention_half_nhwc(
-            x, attn.qkv.weight, attn.qkv_bias(), attn.logit_scale, attn.rel_bias(window), mask,
-            attn.proj.weight, attn.proj.bias, self.norm1.weight, self.norm1.bias, window,
-            self.num_heads, dp=scale(), shift=shift,
-        )
-        route = self.mlp_route(self.training)
-        mlp_args = (x.reshape(b * h * w, c), mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight,
-                    mlp.fc2.bias, self.norm2.weight, self.norm2.bias)
-        if route == 1:
-            return fh.mlp_half(*mlp_args, tpi=h * w, dp=scale()).reshape(b, h, w, c)
-        if route > 1:
-            branch = fh.mlp_half_chunked(*mlp_args, route).reshape(b, h, w, c)
+        mlp = self.mlp
+        nchunks = self.mlp_route(self.training)
+        args = (x.reshape(b * h * w, c), mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight,
+                mlp.fc2.bias, self.norm2.weight, self.norm2.bias)
+        if nchunks == 1 and self.mlp_resid(b * h * w, h * w):
+            return fh.mlp_half(*args, tpi=h * w,
+                               dp=self._scale(b, generator, x.device)).reshape(b, h, w, c)
+        if nchunks == 1:
+            branch = fh.mlp_half(*args).reshape(b, h, w, c)
+        elif nchunks > 1:
+            branch = fh.mlp_half_chunked(*args, nchunks).reshape(b, h, w, c)
         else:
             branch = _layer_norm(self.norm2, self.mlp(x))
         return x + drop_path(branch, self.drop_path_rate, self.training, generator)
@@ -248,8 +305,6 @@ class SwinTransformerV2(nn.Module):
         seed: int = 0,
     ):
         super().__init__()
-        # TPU routing knobs: accepted, no effect on this card (module doc).
-        del use_pallas, fuse_attn_train, fallback_xla, fuse_nhwc, fuse_resid
         del pipe_microbatches, pipe_stage, moe_from_stage, moe_every, moe_capacity, moe_aux_weight
         if pipe > 1:
             raise NotImplementedError("pipe > 1: pipeline parallelism is ROADMAP queue 1, item 11")
@@ -277,7 +332,8 @@ class SwinTransformerV2(nn.Module):
                 self.add_module(name, SwinBlock(
                     dim, heads, window_size, 0 if i % 2 == 0 else window_size // 2,
                     mlp_ratio, pretrained_window_sizes[stage], fuse,
-                    next(rates), fuse_mlp_chunked,
+                    next(rates), fuse_mlp_chunked, use_pallas, fuse_attn_train, fallback_xla,
+                    fuse_nhwc, fuse_resid,
                 ))
                 self.layer_names.append(name)
             if stage < len(depths) - 1:
@@ -331,25 +387,30 @@ class SwinTransformerV2(nn.Module):
         """Why the CUDA kernels cannot run this model at ``image_size`` px
         (forward, or forward and backward when ``training``): one line per
         stage whose blocks they do not take, empty when every block runs.
-        A fused block's halves are routed as hvt routes them (a half hvt
-        would not fuse is refused: its fallback is not ported), and each
-        kernel has its own widths. The kernels hold SwinV2-T's and SwinV2-B's
-        shapes; others are ROADMAP.md queue 2, "Kernel coverage"."""
+        Each block is routed as hvt routes it (``SwinBlock.attn_route``,
+        ``mlp_route``), and each kernel has its own widths; a route without a
+        kernel (hvt's XLA reference, the plain LayerNorm(MLP)) takes every
+        shape. The kernels hold SwinV2-T's and SwinV2-B's shapes; others are
+        ROADMAP.md queue 2, "Kernel coverage"."""
         found = []
         grid = image_size // self.patch_embed.stride[0]
         for stage in range(len(self.depths)):
             block = getattr(self, f"stage{stage}_block0")
             window = min(grid, block.window)
+            n = window * window
             if block.fuse and grid % window == 0:
-                why = fh.unsupported(block.dim, block.num_heads, window)
-                if why is None and not fh.fits_vmem(block.dim, block.num_heads, window * window,
-                                                    train=training):
-                    why = (f"the attention half at C={block.dim} does not fit hvt's fused budget, "
-                           "and hvt's fallback for it is not ported")
+                route = block.attn_route(n, training)
+                if route == "packed":
+                    why = wac.unsupported(n, block.dim, block.num_heads, training)
+                elif route == "reference":
+                    why = None
+                else:  # the NHWC and the windowed kernels take the same shapes
+                    why = fh.unsupported(block.dim, block.num_heads, n)
                 why = why or fh.mlp_unsupported(block.dim, block.mlp.fc1.out_features,
                                                 block.mlp_route(training), training)
             else:
-                why = wac.unsupported(window * window, block.dim, block.num_heads, training)
+                why = (wac.unsupported(n, block.dim, block.num_heads, training)
+                       if block.use_pallas else None)
             if why:
                 found.append(f"stage {stage + 1} ({'fused' if block.fuse else 'unfused'}): {why}")
             grid //= 2

@@ -25,6 +25,10 @@ template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat16(v); }
 
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -239,6 +243,15 @@ __device__ __forceinline__ void ln_epilogue(float (&acc)[NT][4], const float* __
   }
 }
 
+// Where the attention kernels find the (window w, head h) tile of a layout:
+// row i at element w·win + h·head + i·row from its base pointer.
+struct HeadTiles {
+  long long win, head, row;
+  __device__ size_t at(int w, int h, int i) const {
+    return (size_t)w * win + (size_t)h * head + (size_t)i * row;
+  }
+};
+
 // Cosine attention for one (window, head) on f32 operands in shared memory,
 // the math of packed_heads_forward (hvt/ops/window_attention_pallas.py):
 //   q̂ = q·rsqrt(Σq² + 1e-24), k̂ likewise,
@@ -246,11 +259,14 @@ __device__ __forceinline__ void ln_epilogue(float (&acc)[NT][4], const float* __
 // Q, K, V: N rows, row stride ld (odd, so column walks avoid bank
 // conflicts); Q and K are normalized in place. S: N x (N+1) scratch. z: the
 // (N, N) f32 bias(+mask) slice of this window and head. All threads of the
-// block take part; out(i, c, value) receives each output element.
+// block take part; out(i, c, value) receives each output element. With
+// round_p, P is rounded to bf16 before P·v (hvt's split-q/k/v kernel rounds
+// it to v's dtype, `attn.astype(v.dtype)`); the packed kernels keep it f32.
 template <typename OutFn>
 __device__ __forceinline__ void cosine_attention(float* Q, float* K, const float* V, int ld,
                                                  float* S, int N, int D, float scale,
-                                                 const float* __restrict__ z, OutFn out) {
+                                                 const float* __restrict__ z, OutFn out,
+                                                 bool round_p = false) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
   for (int r = warp; r < 2 * N; r += nwarps) {
@@ -283,7 +299,7 @@ __device__ __forceinline__ void cosine_attention(float* Q, float* K, const float
       sum += e;
     }
     const float inv = 1.f / warp_sum(sum);
-    for (int j = lane; j < N; j += 32) s[j] *= inv;
+    for (int j = lane; j < N; j += 32) s[j] = round_p ? round_bf16(s[j] * inv) : s[j] * inv;
   }
   __syncthreads();
   for (int e = tid; e < N * D; e += blockDim.x) {

@@ -33,7 +33,9 @@
 //    (f32), then the f32 cosine-attention core of kernel 1 runs on it; the
 //    head's output lands bf16 in a (49 x C) tile. proj, LayerNorm and the
 //    residual follow, and the result is scattered back to the tokens' own
-//    positions.
+//    positions. The kernel (`attn_half_fwd_kernel`, fused_halves.cuh) takes
+//    its token layout as a template argument; attention_half.cu builds it on
+//    pre-partitioned windows, hvt's other entry.
 // Weights arrive in nn.Linear's (out, in) layout, so both operands of every
 // product keep the reduction dim contiguous. Weight tiles stream through
 // shared memory in slices of 32 along k; this first version does not overlap
@@ -121,90 +123,6 @@ int launch_mlp(const void* x, const void* w1, const float* b1, const void* w2, c
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// Attention half, straight from the NHWC map
-// ---------------------------------------------------------------------------
-
-template <int C>
-__global__ void __launch_bounds__(kThreads)
-attn_half_nhwc_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
-                          const float* __restrict__ bqkv, const float* __restrict__ scale,
-                          const float* __restrict__ z, int nwz, const bf16* __restrict__ wproj,
-                          const float* __restrict__ bproj, const float* __restrict__ lns,
-                          const float* __restrict__ lnb, const float* __restrict__ s,
-                          bf16* __restrict__ out, int H, int W, int ws, int shift, int heads) {
-  constexpr int LDX = C + 8, NT = C / 32;
-  const int n = ws * ws;
-  const AttnSmem L(n, C);
-  extern __shared__ uint4 smem_u4[];
-  char* smem = reinterpret_cast<char*>(smem_u4);
-  bf16* Xs = reinterpret_cast<bf16*>(smem + L.x);
-  bf16* WB = Xs;  // phase B reuses the token tile's space
-  bf16* Os = reinterpret_cast<bf16*>(smem + L.o);
-  float* QKV = reinterpret_cast<float*>(smem + L.qkv);
-  float* S = reinterpret_cast<float*>(smem + L.s);
-  bf16* WA = reinterpret_cast<bf16*>(smem + L.wa);
-  float* red = reinterpret_cast<float*>(smem + L.red);
-
-  const int warp = threadIdx.x >> 5;
-  const int wid = blockIdx.x, b = blockIdx.y;
-  const int nwx = W / ws, wy = wid / nwx, wx = wid - wy * nwx;
-  // token i of this window sits at ((wy·ws + i/ws + shift) mod H, (wx·ws + i%ws + shift) mod W)
-  auto token = [&](int i) -> size_t {
-    const int r = i / ws, cc = i - r * ws;
-    const int yy = (wy * ws + r + shift) % H, xx = (wx * ws + cc + shift) % W;
-    return (((size_t)b * H + yy) * W + xx) * C;
-  };
-  copy_rows(Xs, LDX, n, C, [&](int i) { return x + token(i); });
-  const float* zw = z + (size_t)(nwz > 1 ? wid : 0) * heads * n * n;
-
-  // ---- phase A, per head: q|k|v = x·W_h + b_h (tensor cores) -> cosine attention ----
-  attn_heads_fwd<C>(Xs, Os, QKV, S, WA, n, heads, wqkv, bqkv, scale, zw);
-
-  // ---- phase B, per 32-row half: proj (tensor cores) -> LayerNorm -> residual ----
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps over (32 x C)
-  const float sc = s != nullptr ? s[b] : 0.f;
-  for (int r0 = 0; r0 < n; r0 += 32) {
-    float acc[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    for (int k0 = 0; k0 < C; k0 += kKS) {
-      __syncthreads();
-      copy_rows(WB, kLDK, C, kKS, [&](int r) { return wproj + (size_t)r * C + k0; });
-      __syncthreads();
-      warp_mma<NT, kKS>(acc, Os + (r0 + wm * 16) * LDX + k0, LDX, n - r0 - wm * 16,
-                        WB + wn * (C / 4) * kLDK, kLDK);
-    }
-    ln_epilogue<NT>(acc, bproj, lns, lnb, red, [&](int r, int col, float y0, float y1) {
-      const int i = r0 + r;
-      if (i >= n) return;
-      const size_t off = token(i) + col;
-      if (s != nullptr) {
-        y0 = to_f32(x[off]) + sc * y0;
-        y1 = to_f32(x[off + 1]) + sc * y1;
-      }
-      *reinterpret_cast<uint32_t*>(out + off) = pack_bf16x2(y0, y1);
-    });
-  }
-}
-
-template <int C>
-int launch_attn(const void* x, const void* wqkv, const float* bqkv, const float* scale,
-                const float* z, int nwz, const void* wproj, const float* bproj, const float* lns,
-                const float* lnb, const float* s, void* out, int B, int H, int W, int heads,
-                int ws, int shift, cudaStream_t stream) {
-  const size_t smem = AttnSmem(ws * ws, C).bytes;
-  auto kernel = attn_half_nhwc_fwd_kernel<C>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3((H / ws) * (W / ws), B), kThreads, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv), bqkv, scale, z, nwz,
-      static_cast<const bf16*>(wproj), bproj, lns, lnb, s, static_cast<bf16*>(out), H, W, ws,
-      shift, heads);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace hvt
 
 // Widths built: SwinV2-T's four stages here; fused_halves_base.cu defines
@@ -260,7 +178,7 @@ extern "C" int hvt_attention_half_nhwc_fwd(const void* x, const void* wqkv, cons
 #define HVT_CASE(CC)                                                                       \
   case CC:                                                                                 \
     return hvt::launch_attn<CC>(x, wqkv, bqkv, scale, z, nwz, wproj, bproj, lns, lnb, s, \
-                                out, b, h, w, heads, ws, shift, st);
+                                out, b, hvt::NhwcWindows{h, w, ws, shift}, heads, st);
     HVT_WIDTHS(HVT_CASE)
 #undef HVT_CASE
     default:

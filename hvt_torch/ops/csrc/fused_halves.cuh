@@ -1,6 +1,7 @@
 // Device code shared by the fused SwinV2 block halves' forward
-// (fused_halves.cu) and backward (fused_halves_bwd.cu): the forward of each
-// half up to its pre-LayerNorm sum, which the backward recomputes.
+// (fused_halves.cu, attention_half.cu) and backward (fused_halves_bwd.cu):
+// the forward of each half up to its pre-LayerNorm sum, which the backward
+// recomputes, the attention half's token layouts and its forward kernel.
 #pragma once
 
 #include "common.cuh"
@@ -163,6 +164,130 @@ __device__ __forceinline__ void attn_heads_fwd(const bf16* Xs, bf16* Os, float* 
                        Os[i * LDX + h * kD + c] = __float2bfloat16(o);
                      });
   }
+}
+
+// ---------------------------------------------------------------------------
+// Token layouts of the attention half
+// ---------------------------------------------------------------------------
+//
+// The attention half's kernels take the windows of B images, nw = windows()
+// an image, one block (or one loop step) per (image b, window wid), and find
+// token i of a window at row at(b, wid).token(i) of a (rows, C) view of x
+// and of every per-token buffer. The window id that indexes z is wid. Only
+// the layout tells hvt's two entries apart: the TPU kernels share one body
+// (`_attn_half_fwd_body`, `_attn_half_bwd_body`) and differ in the
+// BlockSpecs that gather a window's tokens.
+
+// The NHWC map (B, H, W, C) itself, the cyclic shift folded in: token i of
+// window (wy, wx) sits at ((wy·ws + i/ws + shift) mod H, (wx·ws + i%ws +
+// shift) mod W). hvt's `_attn_forward_nhwc` and `_attn_backward_nhwc`.
+struct NhwcWindows {
+  int H, W, ws, shift;
+  struct Window {
+    int b, wy, wx, H, W, ws, shift;
+    __device__ size_t token(int i) const {
+      const int r = i / ws, cc = i - r * ws;
+      const int yy = (wy * ws + r + shift) % H, xx = (wx * ws + cc + shift) % W;
+      return ((size_t)b * H + yy) * W + xx;
+    }
+  };
+  __host__ __device__ int n() const { return ws * ws; }
+  __host__ __device__ int windows() const { return (H / ws) * (W / ws); }
+  __device__ Window at(int b, int wid) const {
+    return {b, wid / (W / ws), wid % (W / ws), H, W, ws, shift};
+  }
+};
+
+// Windows already partitioned, (nWB, N, C) with batch-major rows: window
+// w = b·nw + wid, token i at row w·N + i. hvt's `_attn_forward` and
+// `_attn_backward` on their (nb, nwz, n, c) view, with nw = nWZ.
+struct FlatWindows {
+  int nw, tokens;
+  struct Window {
+    size_t base;
+    __device__ size_t token(int i) const { return base + i; }
+  };
+  __host__ __device__ int n() const { return tokens; }
+  __host__ __device__ int windows() const { return nw; }
+  __device__ Window at(int b, int wid) const { return {((size_t)b * nw + wid) * tokens}; }
+};
+
+// The attention half's forward, one block per (image, window): the window's
+// tokens gathered through the layout, per head q|k|v = x·W_h + b_h (tensor
+// cores) and the f32 cosine-attention core, then per 32-row half proj
+// (tensor cores), LayerNorm and, where s is given, the residual
+// x + s[b]·branch; the result goes back to the tokens' own rows.
+template <int C, typename Layout>
+__global__ void __launch_bounds__(kThreads)
+attn_half_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
+                     const float* __restrict__ bqkv, const float* __restrict__ scale,
+                     const float* __restrict__ z, int nwz, const bf16* __restrict__ wproj,
+                     const float* __restrict__ bproj, const float* __restrict__ lns,
+                     const float* __restrict__ lnb, const float* __restrict__ s,
+                     bf16* __restrict__ out, Layout lay, int heads) {
+  constexpr int LDX = C + 8, NT = C / 32;
+  const int n = lay.n(), nw = lay.windows();
+  const AttnSmem L(n, C);
+  extern __shared__ uint4 smem_u4[];
+  char* smem = reinterpret_cast<char*>(smem_u4);
+  bf16* Xs = reinterpret_cast<bf16*>(smem + L.x);
+  bf16* WB = Xs;  // phase B reuses the token tile's space
+  bf16* Os = reinterpret_cast<bf16*>(smem + L.o);
+  float* QKV = reinterpret_cast<float*>(smem + L.qkv);
+  float* S = reinterpret_cast<float*>(smem + L.s);
+  bf16* WA = reinterpret_cast<bf16*>(smem + L.wa);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x / nw, wid = blockIdx.x - b * nw;
+  const auto win = lay.at(b, wid);
+  copy_rows(Xs, LDX, n, C, [&](int i) { return x + win.token(i) * C; });
+  const float* zw = z + (size_t)(nwz > 1 ? wid : 0) * heads * n * n;
+
+  // ---- phase A, per head: q|k|v = x·W_h + b_h (tensor cores) -> cosine attention ----
+  attn_heads_fwd<C>(Xs, Os, QKV, S, WA, n, heads, wqkv, bqkv, scale, zw);
+
+  // ---- phase B, per 32-row half: proj (tensor cores) -> LayerNorm -> residual ----
+  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps over (32 x C)
+  const float sc = s != nullptr ? s[b] : 0.f;
+  for (int r0 = 0; r0 < n; r0 += 32) {
+    float acc[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    for (int k0 = 0; k0 < C; k0 += kKS) {
+      __syncthreads();
+      copy_rows(WB, kLDK, C, kKS, [&](int r) { return wproj + (size_t)r * C + k0; });
+      __syncthreads();
+      warp_mma<NT, kKS>(acc, Os + (r0 + wm * 16) * LDX + k0, LDX, n - r0 - wm * 16,
+                        WB + wn * (C / 4) * kLDK, kLDK);
+    }
+    ln_epilogue<NT>(acc, bproj, lns, lnb, red, [&](int r, int col, float y0, float y1) {
+      const int i = r0 + r;
+      if (i >= n) return;
+      const size_t off = win.token(i) * C + col;
+      if (s != nullptr) {
+        y0 = to_f32(x[off]) + sc * y0;
+        y1 = to_f32(x[off + 1]) + sc * y1;
+      }
+      *reinterpret_cast<uint32_t*>(out + off) = pack_bf16x2(y0, y1);
+    });
+  }
+}
+
+template <int C, typename Layout>
+int launch_attn(const void* x, const void* wqkv, const float* bqkv, const float* scale,
+                const float* z, int nwz, const void* wproj, const float* bproj, const float* lns,
+                const float* lnb, const float* s, void* out, int B, Layout lay, int heads,
+                cudaStream_t stream) {
+  const size_t smem = AttnSmem(lay.n(), C).bytes;
+  auto kernel = attn_half_fwd_kernel<C, Layout>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<B * lay.windows(), kThreads, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv), bqkv, scale, z, nwz,
+      static_cast<const bf16*>(wproj), bproj, lns, lnb, s, static_cast<bf16*>(out), lay, heads);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace hvt

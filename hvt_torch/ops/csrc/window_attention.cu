@@ -1,67 +1,74 @@
-// window_attention_packed_fwd: cosine window attention on the packed qkv
-// projection, (nWB, N, 3C) -> (nWB, N, C).
+// Cosine window attention, forward, in two layouts:
 //
-// Replaces: hvt/ops/window_attention_pallas.py `_packed_forward` (the
-// pallas_call at line 473; body `_packed_fwd_kernel` -> `packed_heads_forward`).
+//   window_attention_packed_fwd: on the packed qkv projection, (nWB, N, 3C) -> (nWB, N, C)
+//   window_attention_fwd:        on split q, k, v, each (nWB, H, N, D) -> (nWB, H, N, D)
 //
-// What bounds it on the H100: the bytes. Per (window, head) it reads 3·N·D
-// inputs and writes N·D outputs (bf16: 12.5 KB in, 3 KB out at N=49, D=32)
-// for 4·N²·D = 0.3 MFLOP, about 20 FLOP per byte, far below the card's
+// Replace: hvt/ops/window_attention_pallas.py `_packed_forward` (the
+// pallas_call at line 473; body `_packed_fwd_kernel` -> `packed_heads_forward`)
+// and `_forward` (the pallas_call at line 107; body `_attention_kernel`).
+//
+// What bounds them on the H100: the bytes. Per (window, head) a kernel reads
+// 3·N·D inputs and writes N·D outputs (bf16: 12.5 KB in, 3 KB out at N=49,
+// D=32) for 4·N²·D = 0.3 MFLOP, about 20 FLOP per byte, far below the card's
 // ~295 FLOP/byte balance point for bf16 tensor cores. At SwinV2-T shapes and
 // batch 64, the 12 launches of one forward move ~0.74 GB (0.22 ms at 3.35 TB/s).
 //
-// Design: one block per (window, head). The head's q, k, v are gathered
-// straight from the packed layout into shared memory (no head-split
-// transpose ever reaches device memory, like the TPU kernel), normalized,
+// Design: one block per (window, head). The head's q, k, v tiles are
+// gathered into shared memory through their layout's strides (from the
+// packed rows no head-split transpose ever reaches device memory, like the
+// TPU kernel; the split layout's tiles are contiguous N x D), normalized,
 // and the N x N logits, softmax and P·v stay in shared memory in f32, so
-// device memory sees qkv once and the output once. The N x N work runs on
-// CUDA cores in f32 (N = 49 fits no tensor-core tile without 30% padding,
-// and the kernel is bound by bytes, not operations).
+// device memory sees the inputs once and the output once. The N x N work
+// runs on CUDA cores in f32 (N = 49 fits no tensor-core tile without 30%
+// padding, and the kernels are bound by bytes, not operations). The two
+// contracts differ in one rounding: hvt's split kernel rounds P to v's dtype
+// before P·v (`attn.astype(v.dtype)`), the packed one keeps P in f32.
 #include "common.cuh"
 
 namespace hvt {
 
 template <typename T>
 __global__ void __launch_bounds__(128)
-packed_attention_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ scale,
-                            const float* __restrict__ z, int nwz, T* __restrict__ out, int n,
-                            int c, int heads) {
+attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     HeadTiles in, const float* __restrict__ scale, const float* __restrict__ z,
+                     int nwz, T* __restrict__ out, HeadTiles ot, int n, int d, int heads,
+                     bool round_p) {
   extern __shared__ float smem[];
-  const int d = c / heads, ld = d + 1;
+  const int ld = d + 1;
   float* Q = smem;
   float* K = Q + n * ld;
   float* V = K + n * ld;
   float* S = V + n * ld;
   const int w = blockIdx.x, h = blockIdx.y;
-  const T* src = qkv + (size_t)w * n * 3 * c + h * d;
   for (int e = threadIdx.x; e < n * d; e += blockDim.x) {
     const int i = e / d, j = e - i * d;
-    const T* row = src + (size_t)i * 3 * c + j;
-    Q[i * ld + j] = to_f32(row[0]);
-    K[i * ld + j] = to_f32(row[c]);
-    V[i * ld + j] = to_f32(row[2 * c]);
+    const size_t off = in.at(w, h, i) + j;
+    Q[i * ld + j] = to_f32(q[off]);
+    K[i * ld + j] = to_f32(k[off]);
+    V[i * ld + j] = to_f32(v[off]);
   }
   __syncthreads();
-  // window id = row mod nW (batch-major rows), as _packed_forward's z index map
+  // window id = row mod nW (batch-major rows), as the TPU kernels' z index maps
   const float* zh = z + ((size_t)(w % nwz) * heads + h) * n * n;
-  T* dst = out + (size_t)w * n * c + h * d;
-  cosine_attention(Q, K, V, ld, S, n, d, scale[h], zh,
-                   [&](int i, int j, float o) { dst[(size_t)i * c + j] = from_f32<T>(o); });
+  cosine_attention(
+      Q, K, V, ld, S, n, d, scale[h], zh,
+      [&](int i, int j, float o) { out[ot.at(w, h, i) + j] = from_f32<T>(o); }, round_p);
 }
 
 template <typename T>
-int launch_packed(const void* qkv, const float* scale, const float* z, int nwz, void* out,
-                  int nwb, int n, int c, int heads, cudaStream_t stream) {
-  const int d = c / heads;
+int launch_attention(const void* q, const void* k, const void* v, HeadTiles in,
+                     const float* scale, const float* z, int nwz, void* out, HeadTiles ot,
+                     int nwb, int n, int d, int heads, bool round_p, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (3 * n * (d + 1) + n * (n + 1));
-  auto kernel = packed_attention_fwd_kernel<T>;
+  auto kernel = attention_fwd_kernel<T>;
   if (smem > 48 * 1024) {
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<dim3(nwb, heads), 128, smem, stream>>>(static_cast<const T*>(qkv), scale, z, nwz,
-                                                   static_cast<T*>(out), n, c, heads);
+  kernel<<<dim3(nwb, heads), 128, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), in, scale, z,
+      nwz, static_cast<T*>(out), ot, n, d, heads, round_p);
   return (int)cudaGetLastError();
 }
 
@@ -73,7 +80,30 @@ extern "C" int hvt_window_attention_packed_fwd(const void* qkv, const float* sca
                                                int n, int c, int heads, int dtype,
                                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int d = c / heads;
+  const hvt::HeadTiles in{(long long)n * 3 * c, d, 3 * c}, ot{(long long)n * c, d, c};
+  if (dtype == 0) {
+    const hvt::bf16* p = static_cast<const hvt::bf16*>(qkv);
+    return hvt::launch_attention<hvt::bf16>(p, p + c, p + 2 * c, in, scale, z, nwz, out, ot, nwb,
+                                            n, d, heads, false, s);
+  }
+  const float* p = static_cast<const float*>(qkv);
+  return hvt::launch_attention<float>(p, p + c, p + 2 * c, in, scale, z, nwz, out, ot, nwb, n, d,
+                                      heads, false, s);
+}
+
+// q, k, v and out (nWB, H, N, D), all of one dtype: 0 = bf16 (P is rounded
+// to bf16 before P·v, hvt's `attn.astype(v.dtype)`), 1 = f32. Returns a
+// cudaError_t.
+extern "C" int hvt_window_attention_fwd(const void* q, const void* k, const void* v,
+                                        const float* scale, const float* z, int nwz, void* out,
+                                        int nwb, int n, int d, int heads, int dtype,
+                                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const hvt::HeadTiles tiles{(long long)heads * n * d, (long long)n * d, d};
   if (dtype == 0)
-    return hvt::launch_packed<hvt::bf16>(qkv, scale, z, nwz, out, nwb, n, c, heads, s);
-  return hvt::launch_packed<float>(qkv, scale, z, nwz, out, nwb, n, c, heads, s);
+    return hvt::launch_attention<hvt::bf16>(q, k, v, tiles, scale, z, nwz, out, tiles, nwb, n, d,
+                                            heads, true, s);
+  return hvt::launch_attention<float>(q, k, v, tiles, scale, z, nwz, out, tiles, nwb, n, d, heads,
+                                      false, s);
 }

@@ -1,9 +1,15 @@
-// window_attention_packed_bwd: backward of the cosine window attention on the
-// packed qkv projection, (qkv (nWB, N, 3C), dO (nWB, N, C)) ->
-// (dqkv (nWB, N, 3C), dz (nWZ, H, N, N) f32, dscale (H,) f32).
+// Backward of the cosine window attention, in two layouts:
 //
-// Replaces: hvt/ops/window_attention_pallas.py `_packed_backward` (the
-// pallas_call at line 558; body `_packed_bwd_kernel` -> `packed_heads_backward`).
+//   window_attention_packed_bwd: (qkv (nWB, N, 3C), dO (nWB, N, C)) ->
+//                                (dqkv (nWB, N, 3C), dz (nWZ, H, N, N) f32, dscale (H,) f32)
+//   window_attention_bwd:        (q, k, v, dO, each (nWB, H, N, D)) ->
+//                                (dq, dk, dv (nWB, H, N, D), dz, dscale)
+//
+// Replace: hvt/ops/window_attention_pallas.py `_packed_backward` (the
+// pallas_call at line 558; body `_packed_bwd_kernel` -> `packed_heads_backward`)
+// and `_backward` (the pallas_call at line 246; body `_attention_bwd_kernel`).
+// Both TPU bodies are the same f32 math; only the layouts differ, and the
+// one kernel here reads and writes each through its strides (HeadTiles).
 //
 // Per (window, head), in f32, recomputed from qkv as the TPU kernel does:
 //   q̂ = q·rsqrt(Σq² + 1e-24), k̂ likewise, cos = q̂k̂ᵀ, P = softmax(scale·cos + z)
@@ -11,8 +17,8 @@
 //   dz += dS (summed over the windows that share a window id), dscale += Σ dS ⊙ cos
 //   dq̂ = scale·dS·k̂, dk̂ = scale·dSᵀ·q̂, dq = (dq̂ − q̂⟨dq̂, q̂⟩)·rsqrt(Σq² + 1e-24), dk likewise.
 //
-// What bounds it on the H100: the bytes. Per token it reads qkv (3C) and dO
-// (C) and writes dqkv (3C): 7C values, 14C bytes in bf16 (≈ 2.6 GB for the
+// What bounds it on the H100: the bytes. Per token it reads q, k, v (3C) and
+// dO (C) and writes their gradients (3C): 7C values, 14C bytes in bf16 (≈ 2.6 GB for the
 // 12 launches of one SwinV2-T step at batch 128, ≈ 0.77 ms at 3.35 TB/s),
 // for 10·N²·D FLOP per (window, head), about 35 FLOP per byte.
 //
@@ -32,23 +38,25 @@
 // where one block per (window id, head) would give 24 blocks. The partials
 // cost ~10 MB of traffic at stage 1 against 0.5 GB of qkv, dO and dqkv.
 // The N x N work runs on CUDA cores in f32 like the forward (N = 49 fits
-// no tensor-core tile without 30% padding); dqkv is rounded to qkv's dtype
-// once, at the store, and dz and dscale stay f32.
+// no tensor-core tile without 30% padding); dq, dk and dv are rounded to the
+// inputs' dtype once, at the store, and dz and dscale stay f32.
 #include "common.cuh"
 
 namespace hvt {
 
 constexpr int kBwdThreads = 256;
 
+// q, k, v and their gradients in the layout `in`, dO in `go`.
 template <typename T>
 __global__ void __launch_bounds__(kBwdThreads)
-packed_attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-                            const float* __restrict__ scale, const float* __restrict__ z,
-                            int nwz, T* __restrict__ dqkv, float* __restrict__ dz_part,
-                            float* __restrict__ ds_part, int nb, int per_block, int n, int c,
-                            int heads) {
+attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     HeadTiles in, const T* __restrict__ dout, HeadTiles go,
+                     const float* __restrict__ scale, const float* __restrict__ z, int nwz,
+                     T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+                     float* __restrict__ dz_part, float* __restrict__ ds_part, int nb,
+                     int per_block, int n, int d, int heads) {
   extern __shared__ float smem[];
-  const int d = c / heads, ld = d + 1, ldS = n + 1;
+  const int ld = d + 1, ldS = n + 1;
   float* Q = smem;           // q, then q̂
   float* K = Q + n * ld;     // k, then k̂
   float* V = K + n * ld;     // v, then dq̂
@@ -71,26 +79,23 @@ packed_attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dou
 
   const int b_end = min((chunk + 1) * per_block, nb);
   for (int b = chunk * per_block; b < b_end; ++b) {
-    // window id = row mod nWZ (batch-major rows), as _packed_backward's index map
-    const size_t w = (size_t)b * nwz + wz;
-    const T* src = qkv + w * n * 3 * c + h * d;
-    const T* gsrc = dout + w * n * c + h * d;
-    T* dst = dqkv + w * n * 3 * c + h * d;
+    // window id = row mod nWZ (batch-major rows), as the TPU kernels' index maps
+    const int w = b * nwz + wz;
     __syncthreads();  // the previous window's last readers are done
     for (int e = tid; e < n * d; e += blockDim.x) {
       const int i = e / d, j = e - i * d;
-      const T* row = src + (size_t)i * 3 * c + j;
-      Q[i * ld + j] = to_f32(row[0]);
-      K[i * ld + j] = to_f32(row[c]);
-      V[i * ld + j] = to_f32(row[2 * c]);
-      G[i * ld + j] = to_f32(gsrc[(size_t)i * c + j]);
+      const size_t off = in.at(w, h, i) + j;
+      Q[i * ld + j] = to_f32(q[off]);
+      K[i * ld + j] = to_f32(k[off]);
+      V[i * ld + j] = to_f32(v[off]);
+      G[i * ld + j] = to_f32(dout[go.at(w, h, i) + j]);
     }
     __syncthreads();
     attention_core_bwd(
         Q, K, V, G, P, D, Cs, Z, invQ, invK, n, d, ld, sc, zh, dscale,
-        [&](int j, int cc, float v) { dst[(size_t)j * 3 * c + 2 * c + cc] = from_f32<T>(v); },
-        [&](bool isq, int i, int cc, float v) {
-          dst[(size_t)i * 3 * c + (isq ? 0 : c) + cc] = from_f32<T>(v);
+        [&](int j, int cc, float val) { dv[in.at(w, h, j) + cc] = from_f32<T>(val); },
+        [&](bool isq, int i, int cc, float val) {
+          (isq ? dq : dk)[in.at(w, h, i) + cc] = from_f32<T>(val);
         });
   }
 
@@ -108,10 +113,10 @@ packed_attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dou
 
 // dz[e] = Σ_chunk dz_part[chunk][e] and dscale[h] = Σ_(chunk, wz) ds_part[chunk][wz][h],
 // each summed in a fixed order.
-__global__ void packed_attention_bwd_reduce(const float* __restrict__ dz_part,
-                                            const float* __restrict__ ds_part,
-                                            float* __restrict__ dz, float* __restrict__ dscale,
-                                            int chunks, int nwz, int heads, int nn) {
+__global__ void attention_bwd_reduce(const float* __restrict__ dz_part,
+                                     const float* __restrict__ ds_part, float* __restrict__ dz,
+                                     float* __restrict__ dscale, int chunks, int nwz, int heads,
+                                     int nn) {
   const size_t total = (size_t)nwz * heads * nn;
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx < total) {
@@ -127,29 +132,44 @@ __global__ void packed_attention_bwd_reduce(const float* __restrict__ dz_part,
 }
 
 template <typename T>
-int launch_packed_bwd(const void* qkv, const void* dout, const float* scale, const float* z,
-                      int nwz, void* dqkv, float* dz, float* dscale, float* dz_part,
-                      float* ds_part, int nwb, int n, int c, int heads, int per_block,
-                      int chunks, cudaStream_t stream) {
-  const int d = c / heads;
+int launch_attention_bwd(const void* q, const void* k, const void* v, HeadTiles in,
+                         const void* dout, HeadTiles go, const float* scale, const float* z,
+                         int nwz, void* dq, void* dk, void* dv, float* dz, float* dscale,
+                         float* dz_part, float* ds_part, int nwb, int n, int d, int heads,
+                         int per_block, int chunks, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (4 * n * (d + 1) + 3 * n * (n + 1) + n * n + 2 * n + kBwdThreads / 32);
-  auto kernel = packed_attention_bwd_kernel<T>;
+  auto kernel = attention_bwd_kernel<T>;
   if (smem > 48 * 1024) {
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   kernel<<<dim3(chunks * nwz, heads), kBwdThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(dout), scale, z, nwz,
-      static_cast<T*>(dqkv), dz_part, ds_part, nwb / nwz, per_block, n, c, heads);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), in,
+      static_cast<const T*>(dout), go, scale, z, nwz, static_cast<T*>(dq), static_cast<T*>(dk),
+      static_cast<T*>(dv), dz_part, ds_part, nwb / nwz, per_block, n, d, heads);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t total = (size_t)nwz * heads * n * n;
   const size_t work = total > (size_t)heads ? total : (size_t)heads;
-  packed_attention_bwd_reduce<<<(unsigned)((work + 255) / 256), 256, 0, stream>>>(
+  attention_bwd_reduce<<<(unsigned)((work + 255) / 256), 256, 0, stream>>>(
       dz_part, ds_part, dz, dscale, chunks, nwz, heads, n * n);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_packed_bwd(const void* qkv, const void* dout, const float* scale, const float* z,
+                      int nwz, void* dqkv, float* dz, float* dscale, float* dz_part,
+                      float* ds_part, int nwb, int n, int c, int heads, int per_block,
+                      int chunks, cudaStream_t stream) {
+  const int d = c / heads;
+  const HeadTiles in{(long long)n * 3 * c, d, 3 * c}, go{(long long)n * c, d, c};
+  const T* p = static_cast<const T*>(qkv);
+  T* g = static_cast<T*>(dqkv);
+  return launch_attention_bwd<T>(p, p + c, p + 2 * c, in, dout, go, scale, z, nwz, g, g + c,
+                                 g + 2 * c, dz, dscale, dz_part, ds_part, nwb, n, d, heads,
+                                 per_block, chunks, stream);
 }
 
 }  // namespace hvt
@@ -169,4 +189,24 @@ extern "C" int hvt_window_attention_packed_bwd(const void* qkv, const void* dout
                                              ds_part, nwb, n, c, heads, per_block, chunks, s);
   return hvt::launch_packed_bwd<float>(qkv, dout, scale, z, nwz, dqkv, dz, dscale, dz_part,
                                        ds_part, nwb, n, c, heads, per_block, chunks, s);
+}
+
+// q, k, v, dout and dq, dk, dv (nWB, H, N, D), all of one dtype: 0 = bf16,
+// 1 = f32; nWB a multiple of nWZ. Scratch and chunks as the packed entry's.
+// Returns a cudaError_t.
+extern "C" int hvt_window_attention_bwd(const void* q, const void* k, const void* v,
+                                        const void* dout, const float* scale, const float* z,
+                                        int nwz, void* dq, void* dk, void* dv, float* dz,
+                                        float* dscale, float* dz_part, float* ds_part, int nwb,
+                                        int n, int d, int heads, int per_block, int chunks,
+                                        int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const hvt::HeadTiles tiles{(long long)heads * n * d, (long long)n * d, d};
+  if (dtype == 0)
+    return hvt::launch_attention_bwd<hvt::bf16>(q, k, v, tiles, dout, tiles, scale, z, nwz, dq,
+                                                dk, dv, dz, dscale, dz_part, ds_part, nwb, n, d,
+                                                heads, per_block, chunks, s);
+  return hvt::launch_attention_bwd<float>(q, k, v, tiles, dout, tiles, scale, z, nwz, dq, dk, dv,
+                                          dz, dscale, dz_part, ds_part, nwb, n, d, heads,
+                                          per_block, chunks, s);
 }

@@ -1,18 +1,20 @@
-"""Kernels 2-5 and the chunked MLP: the fused SwinV2 block halves, forward
-and backward, and hvt's routing between them.
+"""Kernels 2-5, the chunked MLP and the windowed attention half: the fused
+SwinV2 block halves, forward and backward, and hvt's routing between them.
 
 Port of ``mlp_half`` (hvt/ops/fused_halves_pallas.py:397),
-``mlp_half_chunked`` (:645) and ``attention_half_nhwc`` (:1491) with their
-custom VJPs (``_mlp_half_bwd`` :415, ``_mlp_chunked_bwd`` :659,
-``_attn_half_nhwc_bwd`` :1444). Each is a ``torch.autograd.Function``: the
-two halves save only their inputs, the chunked MLP its inputs and the pre-LN
-sum, as hvt's ``_mlp_chunked_fwd``. The forward wrappers launch
-``csrc/fused_halves.cu`` (``fused_halves_base.cu`` at SwinV2-B's widths; the
-chunked MLP's forward is its MLP kernel storing the pre-LN sum as well), the
-backward wrappers ``csrc/fused_halves_bwd.cu`` (``fused_halves_bwd_base.cu``)
-and ``csrc/fused_halves_chunked.cu`` (the chunked MLP's) for a CUDA tensor,
-and run their plain versions for a CPU tensor; nothing else selects between
-them.
+``mlp_half_chunked`` (:645), ``attention_half_nhwc`` (:1491) and
+``attention_half`` (:1564) with their custom VJPs (``_mlp_half_bwd`` :415,
+``_mlp_chunked_bwd`` :659, ``_attn_half_nhwc_bwd`` :1444, ``_attn_half_bwd``
+:1599). Each is a ``torch.autograd.Function``: the halves save only their
+inputs, the chunked MLP its inputs and the pre-LN sum, as hvt's
+``_mlp_chunked_fwd``. The forward wrappers launch ``csrc/fused_halves.cu``
+(``fused_halves_base.cu`` at SwinV2-B's widths; the chunked MLP's forward is
+its MLP kernel storing the pre-LN sum as well), the backward wrappers
+``csrc/fused_halves_bwd.cu`` (``fused_halves_bwd_base.cu``) and
+``csrc/fused_halves_chunked.cu`` (the chunked MLP's), and the windowed
+attention half both ways ``csrc/attention_half.cu``
+(``attention_half_base.cu``), for a CUDA tensor, and run their plain
+versions for a CPU tensor; nothing else selects between them.
 
 The arithmetic contract is the TPU kernels': every product rounds its
 operands to bf16 and accumulates in f32 (``_dot``/``_dot_t``, the weight
@@ -25,8 +27,12 @@ the pass-through g to dx. On f64 CPU tensors the plain versions skip the
 bf16 rounding, so ``torch.autograd.gradcheck`` can hold them to finite
 differences.
 
-Layouts follow hvt's public functions: x is (T, C) flat tokens for the MLP
-and the NHWC map (B, H, W, C) for the attention half. Weights are in
+Layouts follow hvt's public functions: x is (T, C) flat tokens for the MLP,
+the NHWC map (B, H, W, C) for ``attention_half_nhwc`` and window tokens
+(nWB, N, C), window id = row mod nW, for ``attention_half``, whose kernels
+are the NHWC ones on another token layout (hvt's two entries share their
+bodies too). hvt pads a window's N to a multiple of 8 for the TPU's tiles;
+the port takes N as it is. Weights are in
 nn.Linear's (out, in) layout (hvt_torch/models/convert.py maps the flax
 ones), and ``dp`` is the per-image scale as a (B,) vector (hvt broadcasts it
 to (B, 8, 128) for the TPU's tiling); it gets no gradient, nor does the
@@ -87,6 +93,12 @@ ATTN_BWD_KERNEL = _build.Kernel(
     "hvt_attention_half_nhwc_bwd",
     [P] * 5 + [I] + [P] * 19 + [I] * 11 + [P],
 )
+ATTN_WIN_KERNEL = _build.Kernel(
+    _by_width("attention_half"), "hvt_attention_half_fwd", [P] * 5 + [I] + [P] * 5 + [I] * 4 + [P]
+)
+ATTN_WIN_BWD_KERNEL = _build.Kernel(
+    _by_width("attention_half"), "hvt_attention_half_bwd", [P] * 5 + [I] + [P] * 18 + [I] * 8 + [P]
+)
 MLP_CHUNKED_KERNEL = _build.Kernel(
     "fused_halves_base", "hvt_mlp_half_chunked_fwd", [P] * 9 + [I, I, P]
 )
@@ -103,15 +115,16 @@ _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
 
 
-def unsupported(c: int, heads: int, window: int) -> str | None:
-    """Why the attention half's kernels (forward and backward) cannot run a
-    fused block of width ``c`` with ``heads`` heads and ``window``, or None."""
+def unsupported(c: int, heads: int, n: int) -> str | None:
+    """Why the attention half's kernels (forward and backward, on the NHWC
+    map or on window tokens) cannot run a fused block of width ``c`` with
+    ``heads`` heads and windows of ``n`` tokens, or None."""
     if c not in WIDTHS:
         return f"width {c} is not one the kernels are built for {WIDTHS}"
     if c != heads * HEAD_DIM:
         return f"head dim {c // heads} is not {HEAD_DIM}"
-    if window * window > 64:
-        return f"window {window} has more than 64 tokens"
+    if n > 64:
+        return f"windows of {n} tokens are more than 64"
     return None
 
 
@@ -147,12 +160,14 @@ def chunked_unsupported(c: int, hidden: int, nchunks: int) -> str | None:
 # hvt's routing: which kernel takes a block's half
 # ---------------------------------------------------------------------------
 
+#: hvt's fused budget at its default, ``_fused_attn_budget_bytes``
+#: (fused_halves_pallas.py:1133): it sizes the fused-residual MLP's row blocks
+BUDGET_BYTES = 32 * 2**20
 #: the routing threshold at hvt's defaults: ``fits_vmem`` (fused_halves_pallas.py
-#: :1669) compares with max(12 MiB, budget + 8 MiB), the budget being
-#: ``_fused_attn_budget_bytes`` (:1133), 32 MiB. hvt reads both from
+#: :1669) compares with max(12 MiB, budget + 8 MiB). hvt reads both from
 #: environment variables for TPU experiments; the port reads none, and tests
-#: patch this constant.
-FITS_THRESHOLD_BYTES = max(12 * 2**20, 32 * 2**20 + 8 * 2**20)
+#: patch these constants.
+FITS_THRESHOLD_BYTES = max(12 * 2**20, BUDGET_BYTES + 8 * 2**20)
 
 
 def fits_vmem(c: int, heads: int, n: int, mlp_hidden: int | None = None,
@@ -195,6 +210,35 @@ def mlp_route(c: int, hidden: int, train: bool, chunked: bool = True) -> int:
     if fits_vmem(c, 0, 0, mlp_hidden=hidden, train=train):
         return 1
     return mlp_chunks(c, hidden, train) if chunked else 0
+
+
+def _mlp_target_rows(c: int, hidden: int) -> int:
+    """hvt's ``_mlp_target_rows`` (fused_halves_pallas.py:275): the row-block
+    target of the MLP kernels from the budget."""
+    per_row = 4 * c + 12 * hidden + 4 * c
+    weights = 2 * c * hidden * (2 + 4)
+    rows = (BUDGET_BYTES - weights) // per_row
+    return int(max(64, (512 * 96) // c, min(rows, 8192)))
+
+
+def mlp_resid_images_per_block(t: int, tpi: int, c: int, hidden: int) -> int:
+    """hvt's ``mlp_resid_images_per_block`` (fused_halves_pallas.py:288):
+    images per row block of the fused-residual MLP, whole images of ``tpi``
+    rows each, 8-aligned, under the row target; 0 where there is none. hvt
+    fuses a block's MLP residual only where this is positive (its row blocks
+    must hold whole images); elsewhere the residual and drop path run outside
+    the kernel, as they do here, though this card's kernel needs no such
+    blocks. At 224 px that is SwinV2's stages 3 and 4 (196 and 49 tokens)."""
+    if tpi <= 0 or tpi % 8 or t % tpi:
+        return 0
+    b_loc = t // tpi
+    target = _mlp_target_rows(c, hidden)
+    if tpi > target:
+        return 0
+    for m in range(min(b_loc, target // tpi), 0, -1):
+        if b_loc % m == 0:
+            return m
+    return 0
 
 
 def _acc(t: torch.Tensor) -> torch.dtype:
@@ -545,15 +589,40 @@ def _rolled(t: torch.Tensor, shift: int) -> torch.Tensor:
     return torch.roll(t, (shift, shift), (1, 2)) if shift else t
 
 
+def _attn_branch(xw, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj, lns, lnb, heads: int):
+    """The attention half's branch on window tokens xw (g, N, C), in the
+    arithmetic dtype (f32, f64 on f64): hvt's ``_attn_half_fwd_body``."""
+    qkv = bf16_linear(xw.to(_acc(xw)), wqkv, bqkv)
+    z = merge_bias_mask(bias, mask).to(xw.device)
+    attn = packed_heads_forward(qkv, z, attention_scale(logit_scale).to(xw.device), heads)
+    return layer_norm(bf16_linear(attn, wproj, bproj), lns, lnb)
+
+
+def _attn_branch_backward(xw, gw, wqkv, bqkv, scale, z, wproj, bproj, lns, heads: int):
+    """The gradients of ``_attn_branch`` given gw (g, N, C), recomputing the
+    forward: hvt's ``_attn_half_bwd_body``. Returns (dxw, dwqkv (3C, C),
+    dbqkv, dscale (H,), dz (nWZ, H, N, N), dwproj (C, C), dbproj, dlns,
+    dlnb), all in the arithmetic dtype."""
+    ad = _acc(xw)
+    xw = xw.to(ad)
+    qkv = bf16_linear(xw, wqkv, bqkv)
+    attn = packed_heads_forward(qkv, z, scale, heads)
+    normed, inv = _ln_stats(bf16_linear(attn, wproj, bproj))
+    dproj = _ln_bwd(gw, normed, inv, lns)
+    dqkv, dz, dscale = packed_heads_backward(qkv, _bf16(dproj) @ _bf16(wproj.to(ad)), z, scale,
+                                             heads)
+    return (_bf16(dqkv) @ _bf16(wqkv.to(ad)), _bf16(_flat(dqkv)).t() @ _bf16(_flat(xw)),
+            _flat(dqkv).sum(0), dscale, dz, _bf16(_flat(dproj)).t() @ _bf16(_flat(attn)),
+            _flat(dproj).sum(0), _flat(gw * normed).sum(0), _flat(gw).sum(0))
+
+
 def attention_half_nhwc_plain(x, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj, lns, lnb,
                               window: int, heads: int, dp=None, shift: int = 0):
     """Plain PyTorch version of kernel 3 (any device)."""
     b, h, w, c = x.shape
     xs = _rolled(x, -shift)
-    qkv = bf16_linear(wa.window_partition(xs.to(_acc(x)), window), wqkv, bqkv)
-    z = merge_bias_mask(bias, mask).to(x.device)
-    attn = packed_heads_forward(qkv, z, attention_scale(logit_scale).to(x.device), heads)
-    branch = layer_norm(bf16_linear(attn, wproj, bproj), lns, lnb)
+    branch = _attn_branch(wa.window_partition(xs, window), wqkv, bqkv, logit_scale, bias, mask,
+                          wproj, bproj, lns, lnb, heads)
     out = wa.window_reverse(branch, window, h, w)
     if dp is not None:
         out = xs.to(out.dtype) + dp.to(out.dtype).reshape(b, 1, 1, 1) * out
@@ -572,25 +641,18 @@ def attention_half_nhwc_backward_plain(x, wqkv, bqkv, scale, z, wproj, bproj, ln
     gr = _rolled(g, -shift).to(ad)
     # hvt rounds s·g to the activation dtype before the branch backward
     gs = gr if dp is None else (dp.to(ad).reshape(b, 1, 1, 1) * gr).to(g.dtype).to(ad)
-    xw = wa.window_partition(_rolled(x, -shift).to(ad), window)
-    gw = wa.window_partition(gs, window)
-    qkv = bf16_linear(xw, wqkv, bqkv)
-    attn = packed_heads_forward(qkv, z, scale, heads)
-    normed, inv = _ln_stats(bf16_linear(attn, wproj, bproj))
-    dproj = _ln_bwd(gw, normed, inv, lns)
-    dqkv, dz, dscale = packed_heads_backward(qkv, _bf16(dproj) @ _bf16(wproj.to(ad)), z, scale,
-                                             heads)
-    dx = wa.window_reverse(_bf16(dqkv) @ _bf16(wqkv.to(ad)), window, h, w)
+    dxw, *grads = _attn_branch_backward(
+        wa.window_partition(_rolled(x, -shift), window), wa.window_partition(gs, window), wqkv,
+        bqkv, scale, z, wproj, bproj, lns, heads)
+    dx = wa.window_reverse(dxw, window, h, w)
     if dp is not None:
         dx = gr + dx
-    return (_rolled(dx, shift).to(x.dtype), _bf16(_flat(dqkv)).t() @ _bf16(_flat(xw)),
-            _flat(dqkv).sum(0), dscale, dz, _bf16(_flat(dproj)).t() @ _bf16(_flat(attn)),
-            _flat(dproj).sum(0), _flat(gw * normed).sum(0), _flat(gw).sum(0))
+    return (_rolled(dx, shift).to(x.dtype), *grads)
 
 
 def _check_attn(name, x, heads, window, dp, shift):
     b, h, w, c = x.shape
-    why = unsupported(c, heads, window)
+    why = unsupported(c, heads, window * window)
     if h % window or w % window:
         why = "the window does not tile the map"
     if x.dtype != torch.bfloat16 or why:
@@ -710,3 +772,138 @@ def attention_half_nhwc(x, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj, ln
     Differentiable in x, the weights, logit_scale and bias."""
     return _AttnHalfNhwc.apply(x, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj, lns, lnb,
                                window, heads, dp, shift)
+
+
+# ---------------------------------------------------------------------------
+# Attention half on window tokens
+# ---------------------------------------------------------------------------
+
+
+def attention_half_plain(x, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj, lns, lnb,
+                         heads: int):
+    """Plain PyTorch version of the windowed forward kernel (any device): the
+    branch of window tokens x (nWB, N, C), in x's dtype."""
+    return _attn_branch(x, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj, lns, lnb,
+                        heads).to(x.dtype)
+
+
+def attention_half_backward_plain(x, wqkv, bqkv, scale, z, wproj, bproj, lns, g, heads: int):
+    """Plain PyTorch version of the windowed backward kernel (any device): the
+    gradients of ``attention_half_plain`` given g, on the merged z and the
+    clamped scale, recomputing the forward as ``_attn_bwd_kernel`` does.
+    Returns (dx in x's dtype, dwqkv (3C, C), dbqkv, dscale (H,),
+    dz (nWZ, H, N, N), dwproj (C, C), dbproj, dlns, dlnb) in f32 (f64 on f64)."""
+    dx, *grads = _attn_branch_backward(x, g.to(_acc(x)), wqkv, bqkv, scale, z, wproj, bproj, lns,
+                                       heads)
+    return (dx.to(x.dtype), *grads)
+
+
+def _check_windows(name, x, heads, nwz, wqkv, wproj):
+    nwb, n, c = x.shape
+    why = unsupported(c, heads, n)
+    if nwb % nwz:
+        why = f"{nwb} windows are not a whole number of images of {nwz} windows"
+    if tuple(wqkv.shape) != (3 * c, c) or tuple(wproj.shape) != (c, c):
+        why = f"wqkv {tuple(wqkv.shape)}, wproj {tuple(wproj.shape)} for width {c}"
+    if x.dtype != torch.bfloat16 or why:
+        raise ValueError(f"{name}: x {tuple(x.shape)} {x.dtype}, {heads} heads: "
+                         f"{why or 'bf16 wanted'}")
+
+
+def attention_half_forward(x, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj, lns, lnb,
+                           heads: int):
+    """The windowed forward kernel (``hvt_attention_half_fwd``) for a CUDA
+    tensor, its plain version for a CPU one."""
+    if not _on_card("attention_half", x):
+        return attention_half_plain(x, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj, lns,
+                                    lnb, heads)
+    z = merge_bias_mask(bias, mask).to(x.device)
+    _check_windows("attention_half", x, heads, z.shape[0], wqkv, wproj)
+    nwb, n, c = x.shape
+    x = x.contiguous()
+    wq, bq, wp, bp, ls, f32, _ = _attn_args(x, wqkv, bqkv, wproj, bproj, lns, None)
+    out = torch.empty_like(x)
+    ATTN_WIN_KERNEL(x.data_ptr(), wq.data_ptr(), bq.data_ptr(),
+                    f32(attention_scale(logit_scale)).data_ptr(), z.data_ptr(), z.shape[0],
+                    wp.data_ptr(), bp.data_ptr(), ls.data_ptr(), f32(lnb).data_ptr(),
+                    out.data_ptr(), nwb, n, c, heads, _stream(x), width=c)
+    return out
+
+
+def attention_half_backward(x, wqkv, bqkv, scale, z, wproj, bproj, lns, g, heads: int):
+    """The windowed backward kernel (``hvt_attention_half_bwd``) for a CUDA
+    tensor, its plain version for a CPU one: (dx, dwqkv, dbqkv, dscale, dz,
+    dwproj, dbproj, dlns, dlnb) on the merged z and the clamped scale."""
+    if not _on_card("attention_half backward", x):
+        return attention_half_backward_plain(x, wqkv, bqkv, scale, z, wproj, bproj, lns, g, heads)
+    name = "attention_half backward"
+    z = z.to(x.device, torch.float32).contiguous()
+    nwz = z.shape[0]
+    _check_windows(name, x, heads, nwz, wqkv, wproj)
+    nwb, n, c = x.shape
+    if z.shape[1:] != (heads, n, n) or g.shape != x.shape:
+        raise ValueError(f"{name}: z {tuple(z.shape)}, g {tuple(g.shape)} for windows "
+                         f"{tuple(x.shape)}")
+    t = nwb * n
+    x = x.contiguous()
+    g = g.to(torch.bfloat16).contiguous()
+    wq, bq, wp, bp, ls, f32, _ = _attn_args(x, wqkv, bqkv, wproj, bproj, lns, None)
+    scale = f32(scale)
+    per_block, chunks = backward_chunks(nwb, nwz, heads)
+    sq, sp = _splits(3 * c, c, t), _splits(c, c, t)
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=x.device)
+
+    dx, dwqkv, dwproj, dsmall = torch.empty_like(x), empty(3 * c, c), empty(c, c), empty(6 * c)
+    dscale, dz = empty(heads), empty(nwz, heads, n, n)
+    ao, dproj = empty(t, c, dtype=x.dtype), empty(t, c, dtype=x.dtype)
+    dqkv = empty(t, 3 * c, dtype=x.dtype)
+    part_a, part_b = empty(nwb, 3 * c), empty(chunks * nwz, 3 * c)
+    dz_part, ds_part = empty(chunks, nwz, heads, n, n), empty(chunks, nwz, heads)
+    wpart = empty(max(sq, sp) * 3 * c * c if max(sq, sp) > 1 else 1)
+    ATTN_WIN_BWD_KERNEL(
+        x.data_ptr(), wq.data_ptr(), bq.data_ptr(), scale.data_ptr(), z.data_ptr(), nwz,
+        wp.data_ptr(), bp.data_ptr(), ls.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        dwqkv.data_ptr(), dwproj.data_ptr(), dsmall.data_ptr(), dscale.data_ptr(), dz.data_ptr(),
+        ao.data_ptr(), dproj.data_ptr(), dqkv.data_ptr(), part_a.data_ptr(), part_b.data_ptr(),
+        dz_part.data_ptr(), ds_part.data_ptr(), wpart.data_ptr(), per_block, chunks, sq, sp, nwb,
+        n, c, heads, _stream(x), width=c)
+    return (dx, dwqkv, dsmall[:3 * c], dscale, dz, dwproj, dsmall[3 * c:4 * c],
+            dsmall[4 * c:5 * c], dsmall[5 * c:])
+
+
+class _AttnHalf(torch.autograd.Function):
+    """The custom VJP of hvt's ``_attention_half_core``: the windowed forward
+    kernel, the windowed backward kernel recomputing from the saved inputs,
+    with ``_attn_half_bwd``'s tail: dbias = Σ dz over window ids, the logit
+    scale's gradient zero above the log 100 clamp, no gradient for the mask."""
+
+    @staticmethod
+    def forward(ctx, x, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj, lns, lnb, heads):
+        ctx.heads = heads
+        ctx.save_for_backward(x, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj, lns)
+        return attention_half_forward(x, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj, lns,
+                                      lnb, heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj, lns = ctx.saved_tensors
+        scale = attention_scale(logit_scale)
+        z = merge_bias_mask(bias, mask).to(x.device)
+        dx, dwqkv, dbqkv, dscale, dz, dwproj, dbproj, dlns, dlnb = attention_half_backward(
+            x, wqkv, bqkv, scale, z, wproj, bproj, lns, g, ctx.heads)
+        ls = logit_scale.to(scale.dtype).reshape(-1)
+        dls = (dscale.to(scale.dtype) * scale * (ls < LOG_MAX_SCALE)).reshape(logit_scale.shape)
+        return (dx, dwqkv.to(wqkv.dtype), dbqkv.to(bqkv.dtype), dls.to(logit_scale.dtype),
+                dz.sum(0).to(bias.dtype), None, dwproj.to(wproj.dtype), dbproj.to(bproj.dtype),
+                dlns.to(lns.dtype), dlnb.to(lns.dtype), None)
+
+
+def attention_half(x, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj, lns, lnb, heads: int):
+    """Window tokens x (nWB, N, C), batch-major (window id = row mod nW) →
+    the branch LN(proj(window attention(qkv(x)))) (nWB, N, C) in x's dtype,
+    no residual. wqkv (3C, C), bqkv (3C,) = [q_b, 0, v_b], wproj (C, C);
+    bias (heads, N, N), mask (nW, N, N) or None. Differentiable in x, the
+    weights, logit_scale and bias."""
+    return _AttnHalf.apply(x, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj, lns, lnb, heads)

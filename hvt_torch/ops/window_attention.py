@@ -5,10 +5,13 @@ batch-major rows (window id = row mod nW), packed (nWB, N, 3C) qkv with
 columns [q all heads | k | v], and (heads, N, N) biases. The geometry tables
 are numpy constants, as in hvt; the rest is plain torch.
 
-The fused kernel for the packed layout lives in
+The kernels for the packed and the split layouts live in
 :mod:`hvt_torch.ops.window_attention_cuda`; :func:`window_attention_reference`
 here is the port of hvt's jnp oracle (its ``max(‖q‖, 1e-12)`` normalization,
-where the kernels use ``rsqrt(Σq² + 1e-24)``).
+where the kernels use ``rsqrt(Σq² + 1e-24)``). :func:`window_attention` and
+:func:`window_attention_qkv` dispatch between them as hvt's ops of the same
+names do: the kernel where hvt takes its Pallas kernel, the reference where
+hvt runs plain XLA.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from hvt_torch.ops import window_attention_cuda as wac
 
 
 def relative_coords_table(window_size: int, pretrained_window_size: int = 0) -> np.ndarray:
@@ -124,3 +129,29 @@ def window_attention_reference(
         attn = attn.reshape(-1, *attn.shape[2:])
     attn = torch.softmax(attn, dim=-1)
     return attn.to(dtype) @ v
+
+
+def window_attention(q, k, v, logit_scale, bias, mask=None, use_pallas: bool = True):
+    """hvt's op on split q, k, v (nWB, heads, N, head_dim) → (nWB, heads, N,
+    head_dim) in q's dtype: the split-q/k/v kernels
+    (``window_attention_cuda.window_attention_split``, forward and backward)
+    for a CUDA tensor with ``use_pallas``; :func:`window_attention_reference`
+    under torch autograd for a CPU tensor or without ``use_pallas``, as hvt
+    dispatches to its jnp reference off the TPU."""
+    if use_pallas and q.device.type == "cuda":
+        return wac.window_attention_split(q, k, v, logit_scale, bias, mask)
+    return window_attention_reference(q, k, v, logit_scale, bias, mask)
+
+
+def window_attention_qkv(qkv, logit_scale, bias, mask=None, *, num_heads: int,
+                         use_pallas: bool = True):
+    """hvt's op on the packed projection (nWB, N, 3C) → (nWB, N, C): with
+    ``use_pallas`` the packed kernels (``window_attention_packed``, their
+    plain versions on a CPU tensor); without, split_heads around
+    :func:`window_attention_reference`, hvt's XLA route."""
+    if use_pallas:
+        return wac.window_attention_packed(qkv, logit_scale, bias, mask, num_heads=num_heads)
+    nwb, n, c3 = qkv.shape
+    q, k, v = split_heads(qkv, num_heads)
+    out = window_attention_reference(q, k, v, logit_scale, bias, mask)
+    return out.transpose(1, 2).reshape(nwb, n, c3 // 3)

@@ -1,19 +1,24 @@
-"""Kernel 1: cosine window attention on the packed qkv projection, with its
-backward.
+"""Cosine window attention kernels, forward and backward, in two layouts.
 
 Port of ``window_attention_packed`` (hvt/ops/window_attention_pallas.py:613)
-and its custom VJP (``_packed_bwd``, :593). ``window_attention_packed`` is a
-``torch.autograd.Function``: its forward launches ``csrc/window_attention.cu``
-for a CUDA tensor and runs ``packed_heads_forward`` for a CPU tensor; its
-backward launches ``csrc/window_attention_bwd.cu`` for a CUDA tensor and runs
-``packed_heads_backward`` for a CPU tensor. Nothing else selects between
-them. Both compute, per head,
+and its custom VJP (``_packed_bwd``, :593) on the packed (nWB, N, 3C) qkv
+projection, and of ``window_attention_kernel`` (:323) and its custom VJP
+(``_bwd``, :285) on split q, k, v, each (nWB, H, N, D).
+``window_attention_packed`` and ``window_attention_split`` are
+``torch.autograd.Function``s: their forwards launch
+``csrc/window_attention.cu`` for a CUDA tensor and run ``packed_heads_forward``
+/ ``split_heads_forward`` for a CPU tensor; their backwards launch
+``csrc/window_attention_bwd.cu`` for a CUDA tensor and run
+``packed_heads_backward`` / ``split_heads_backward`` for a CPU tensor.
+Nothing else selects between them. All compute, per head,
 
     out = softmax(exp(min(ls, log 100)) · q̂k̂ᵀ + z) · v,   q̂ = q·rsqrt(Σq² + 1e-24)
 
 in f32 (f64 for f64 inputs on the CPU), with z = bias (H, N, N) [+ mask
-(nW, N, N)] and window id = row mod nW. The gradient of the logit scale is
-zero above the clamp, and the mask gets none.
+(nW, N, N)] and window id = row mod nW. The split layout's contract rounds P
+to v's dtype before P·v (``attn.astype(v.dtype)``); the packed one keeps P
+in f32. The gradient of the logit scale is zero above the clamp, and the
+mask gets none.
 """
 
 from __future__ import annotations
@@ -35,6 +40,14 @@ BWD_KERNEL = _build.Kernel(
     "hvt_window_attention_packed_bwd",
     [_build.P, _build.P, _build.P, _build.P, _build.I, _build.P, _build.P, _build.P, _build.P,
      _build.P, _build.I, _build.I, _build.I, _build.I, _build.I, _build.I, _build.I, _build.P],
+)
+SPLIT_KERNEL = _build.Kernel(
+    "window_attention", "hvt_window_attention_fwd",
+    [_build.P] * 5 + [_build.I, _build.P] + [_build.I] * 5 + [_build.P],
+)
+SPLIT_BWD_KERNEL = _build.Kernel(
+    "window_attention_bwd", "hvt_window_attention_bwd",
+    [_build.P] * 6 + [_build.I] + [_build.P] * 7 + [_build.I] * 7 + [_build.P],
 )
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 SMEM_BYTES = 227 * 1024  # the H100's dynamic shared memory per block
@@ -111,17 +124,13 @@ def packed_heads_forward(qkv: torch.Tensor, z: torch.Tensor, scale: torch.Tensor
     return out.transpose(1, 2).reshape(g, n, c3 // 3)
 
 
-def packed_heads_backward(qkv: torch.Tensor, dout: torch.Tensor, z: torch.Tensor,
-                          scale: torch.Tensor, heads: int):
-    """Plain version of the backward kernel (hvt's ``packed_heads_backward``,
-    window_attention_pallas.py:377): recomputes the forward from qkv and
-    returns (dqkv (g, N, 3C) in qkv's dtype, dz (nWZ, H, N, N), dscale (H,)),
-    dz summed over the windows of each window id, both f32 (f64 on f64)."""
-    g, n, c3 = qkv.shape
-    c = c3 // 3
+def _heads_backward(q, k, v, go, z: torch.Tensor, scale: torch.Tensor):
+    """The core's backward on (g, H, N, D) q, k, v and dO in the arithmetic
+    dtype, recomputing the forward with P in f32 (both TPU backwards do):
+    (dq, dk, dv, dz (nWZ, H, N, N) summed over the windows of each window
+    id, dscale (H,))."""
+    g, heads, n, _ = q.shape
     nwz = z.shape[0]
-    q, k, v = _split(qkv, heads)
-    go = dout.to(q.dtype).reshape(g, n, heads, c // heads).transpose(1, 2)
     sc = scale.to(q.dtype).reshape(1, heads, 1, 1)
     qn, inv_q = _normalize(q)
     kn, inv_k = _normalize(k)
@@ -136,6 +145,19 @@ def packed_heads_backward(qkv: torch.Tensor, dout: torch.Tensor, z: torch.Tensor
     dkn = (ds * sc).transpose(-1, -2) @ qn
     dq = (dqn - qn * (dqn * qn).sum(-1, keepdim=True)) * inv_q
     dk = (dkn - kn * (dkn * kn).sum(-1, keepdim=True)) * inv_k
+    return dq, dk, dv, dz, dscale
+
+
+def packed_heads_backward(qkv: torch.Tensor, dout: torch.Tensor, z: torch.Tensor,
+                          scale: torch.Tensor, heads: int):
+    """Plain version of the backward kernel (hvt's ``packed_heads_backward``,
+    window_attention_pallas.py:377): recomputes the forward from qkv and
+    returns (dqkv (g, N, 3C) in qkv's dtype, dz (nWZ, H, N, N), dscale (H,)),
+    dz summed over the windows of each window id, both f32 (f64 on f64)."""
+    g, n, c3 = qkv.shape
+    q, k, v = _split(qkv, heads)
+    go = dout.to(q.dtype).reshape(g, n, heads, c3 // 3 // heads).transpose(1, 2)
+    dq, dk, dv, dz, dscale = _heads_backward(q, k, v, go, z, scale)
     dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(g, n, c3)
     return dqkv.to(qkv.dtype), dz, dscale
 
@@ -246,3 +268,129 @@ def window_attention_packed_plain(qkv, logit_scale, bias, mask=None, *, num_head
     z = merge_bias_mask(bias, mask)
     out = packed_heads_forward(qkv, z, attention_scale(logit_scale), num_heads)
     return out.to(qkv.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Split q, k, v (hvt's ``window_attention_kernel``)
+# ---------------------------------------------------------------------------
+
+
+def split_heads_forward(q, k, v, z: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Plain version of the split forward kernel (hvt's ``_attention_kernel``,
+    window_attention_pallas.py:45) on q, k, v (nWB, H, N, D): P rounded to
+    v's dtype before P·v, the output in q's dtype. z is (nWZ, H, N, N) with
+    window id = row mod nWZ."""
+    nwb, heads, n, _ = q.shape
+    ad = _acc_dtype(q)
+    qn, _ = _normalize(q.to(ad))
+    kn, _ = _normalize(k.to(ad))
+    zw = z.to(ad)[torch.arange(nwb, device=z.device) % z.shape[0]]
+    p = torch.softmax((qn @ kn.transpose(-1, -2)) * scale.to(ad).reshape(1, heads, 1, 1) + zw, -1)
+    return (p.to(v.dtype).to(ad) @ v.to(ad)).to(q.dtype)
+
+
+def split_heads_backward(q, k, v, dout, z: torch.Tensor, scale: torch.Tensor):
+    """Plain version of the split backward kernel (hvt's
+    ``_attention_bwd_kernel``, :126, all in f32 with P unrounded) and of
+    ``_bwd``'s roundings: (dq, dk, dv (nWB, H, N, D), each rounded to q's
+    dtype and then to its own, as hvt's ``_backward`` outputs in q's dtype;
+    dz (nWZ, H, N, N) and dscale (H,) in f32, f64 on f64)."""
+    ad = _acc_dtype(q)
+    dq, dk, dv, dz, dscale = _heads_backward(q.to(ad), k.to(ad), v.to(ad), dout.to(ad), z.to(ad),
+                                             scale)
+    return (dq.to(q.dtype), dk.to(q.dtype).to(k.dtype), dv.to(q.dtype).to(v.dtype), dz, dscale)
+
+
+def _check_split(name: str, q, k, v, z: torch.Tensor, backward: bool = False) -> None:
+    nwb, heads, n, d = q.shape
+    why = unsupported(n, heads * d, heads, backward)
+    if k.shape != q.shape or v.shape != q.shape:
+        why = f"k {tuple(k.shape)} and v {tuple(v.shape)} differ from q"
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype or why:
+        raise ValueError(f"{name}: q {tuple(q.shape)} {q.dtype}, k {k.dtype}, v {v.dtype}: "
+                         f"{why or 'one dtype, bf16 or f32, wanted'}")
+    if z.shape[1:] != (heads, n, n):
+        raise ValueError(f"{name}: z {tuple(z.shape)} vs q {tuple(q.shape)}")
+    if backward and nwb % z.shape[0]:
+        raise ValueError(f"{name}: {nwb} windows are not a whole number of images of "
+                         f"{z.shape[0]} windows (q {tuple(q.shape)}, z {tuple(z.shape)})")
+
+
+def split_forward(q, k, v, z: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The split forward on a merged z and scale: the kernel for a CUDA
+    tensor, ``split_heads_forward`` for a CPU one. Output in q's dtype."""
+    if q.device.type == "cpu":
+        return split_heads_forward(q, k, v, z, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"window_attention: unsupported device {q.device}")
+    z = z.to(q.device, torch.float32).contiguous()
+    _check_split("window_attention", q, k, v, z)
+    nwb, heads, n, d = q.shape
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    scale = scale.to(q.device, torch.float32).contiguous()
+    out = torch.empty_like(q)
+    SPLIT_KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), scale.data_ptr(), z.data_ptr(),
+                 z.shape[0], out.data_ptr(), nwb, n, d, heads, _DTYPES[q.dtype],
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    return out
+
+
+def split_backward(q, k, v, dout, z: torch.Tensor, scale: torch.Tensor):
+    """(dq, dk, dv, dz, dscale) of the forward above: the kernel for a CUDA
+    tensor, ``split_heads_backward`` for a CPU one. On the card a batch of
+    windows that is not a whole number of images (nWB not a multiple of nWZ)
+    raises: hvt falls back to its reference's VJP there, and the port has no
+    such fallback on the card."""
+    if q.device.type == "cpu":
+        return split_heads_backward(q, k, v, dout, z, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"window_attention backward: unsupported device {q.device}")
+    z = z.to(q.device, torch.float32).contiguous()
+    _check_split("window_attention backward", q, k, v, z, backward=True)
+    if dout.shape != q.shape:
+        raise ValueError(f"window_attention backward: dO {tuple(dout.shape)} vs q "
+                         f"{tuple(q.shape)}")
+    nwb, heads, n, d = q.shape
+    nwz = z.shape[0]
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    g = dout.to(q.dtype).contiguous()
+    scale = scale.to(q.device, torch.float32).contiguous()
+    per_block, chunks = backward_chunks(nwb, nwz, heads)
+    dev = q.device
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dz = torch.empty((nwz, heads, n, n), dtype=torch.float32, device=dev)
+    dscale = torch.empty((heads,), dtype=torch.float32, device=dev)
+    dz_part = torch.empty((chunks, nwz, heads, n, n), dtype=torch.float32, device=dev)
+    ds_part = torch.empty((chunks, nwz, heads), dtype=torch.float32, device=dev)
+    SPLIT_BWD_KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), scale.data_ptr(),
+                     z.data_ptr(), nwz, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dz.data_ptr(),
+                     dscale.data_ptr(), dz_part.data_ptr(), ds_part.data_ptr(), nwb, n, d, heads,
+                     per_block, chunks, _DTYPES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    return dq, dk, dv, dz, dscale
+
+
+class _SplitAttention(torch.autograd.Function):
+    """The custom VJP of hvt's ``_window_attention``: the forward kernel,
+    and a backward that recomputes from q, k, v, with ``_bwd``'s tail."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, logit_scale, bias, mask):
+        ctx.save_for_backward(q, k, v, logit_scale, bias, mask)
+        return split_forward(q, k, v, merge_bias_mask(bias, mask), attention_scale(logit_scale))
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, logit_scale, bias, mask = ctx.saved_tensors
+        scale = attention_scale(logit_scale)
+        dq, dk, dv, dz, dscale = split_backward(q, k, v, dout, merge_bias_mask(bias, mask), scale)
+        ls = logit_scale.to(scale.dtype).reshape(-1)
+        dls = (dscale.to(scale.dtype) * scale * (ls < LOG_MAX_SCALE)).reshape(logit_scale.shape)
+        return dq, dk, dv, dls.to(logit_scale.dtype), dz.sum(0).to(bias.dtype), None
+
+
+def window_attention_split(q, k, v, logit_scale, bias, mask=None):
+    """q, k, v (nWB, H, N, D) → (nWB, H, N, D) in q's dtype, differentiable
+    in q, k, v, logit_scale and bias. A CPU tensor takes the plain versions
+    (any dtypes, as hvt's contract); CUDA tensors, all bf16 or all f32, take
+    the kernels."""
+    return _SplitAttention.apply(q, k, v, logit_scale, bias, mask)

@@ -8,8 +8,10 @@ CUDA toolkit:
 
 This file imports neither jax nor hvt, so it runs where only the port is
 installed (``--noconftest`` skips tests/conftest.py, which sets up jax).
-Inputs are bf16 at SwinV2-T and SwinV2-B widths (C = 96 to 1024, head dim
-32, window 7); kernel and plain version share the arithmetic contract (bf16
+Inputs are bf16 (and f32 for the attention cores) at SwinV2-T and SwinV2-B
+widths (C = 96 to 1024, head dim 32, window 7), on every layout: packed and
+split q/k/v attention, the NHWC and the windowed attention half; kernel and
+plain version share the arithmetic contract (bf16
 operands, f32 accumulation, f32 softmax and LayerNorm), so they differ by
 accumulation order and the odd bf16 rounding flip: max|Δ| ≤ 1e-2·max|plain|
 for the attention core (1e-4 in f32), 2e-2 for the fused halves. The
@@ -235,6 +237,104 @@ def test_mlp_half_chunked_kernels(cuda, nchunks):
                                              nchunks)
     for name, a, b in zip(("dx", "dw1", "db1", "dw2", "db2", "dlns", "dlnb"), grads, ref):
         _close(a, b, 2e-2, f"chunked K={nchunks} {name}")
+
+
+@pytest.mark.parametrize("c,shift", [(96, 3), (96, 0), (768, 0), (128, 3), (1024, 0)])
+def test_attention_half_windowed_kernels(cuda, monkeypatch, c, shift):
+    """The attention half on window tokens (hvt's ``fuse_nhwc: false``
+    route), forward and backward through the autograd Function, at batch 2,
+    the windows partitioned from the rolled map as the model does: the
+    branch and every gradient within 2e-2·max|plain| (the NHWC half's
+    tolerance), and head 0's logit scale, above the log 100 clamp, gets
+    exactly 0."""
+    heads, window = c // 32, 7
+    p = _params(c, heads, 49, cuda, seed=13 * c + shift)
+    p["ls"][0] = 5.0
+    mask = torch.as_tensor(wa.shift_attn_mask((14, 14), window, shift), device=cuda) if shift else None
+    xw = wa.window_partition(torch.roll(p["x"], (-shift, -shift), (1, 2)), window).contiguous()
+    g = torch.randn(xw.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(c)).bfloat16()
+    names = ("x", "wqkv", "bqkv", "ls", "bias", "wproj", "bproj", "lns", "lnb")
+
+    def run():
+        leaves = [(xw if k == "x" else p[k]).clone().requires_grad_() for k in names]
+        x, wq, bq, ls, bias, wp, bp, lns, lnb = leaves
+        out = fh.attention_half(x, wq, bq, ls, bias, mask, wp, bp, lns, lnb, heads)
+        out.backward(g)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    before = fh.ATTN_WIN_KERNEL.launches, fh.ATTN_WIN_BWD_KERNEL.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert (fh.ATTN_WIN_KERNEL.launches, fh.ATTN_WIN_BWD_KERNEL.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert got[0].dtype == got[1].dtype == torch.bfloat16 and got[4][0].item() == 0.0
+    monkeypatch.setattr(fh, "attention_half_forward", fh.attention_half_plain)
+    monkeypatch.setattr(fh, "attention_half_backward", fh.attention_half_backward_plain)
+    ref = run()
+    assert fh.ATTN_WIN_KERNEL.launches == before[0] + 1
+    for name, a, b in zip(("branch",) + tuple(f"d{k}" for k in names), got, ref):
+        _close(a, b, 2e-2, f"windowed attention half C={c} shift={shift} {name}")
+
+
+@pytest.mark.parametrize("c,shift,dtype", [
+    (96, 3, torch.bfloat16), (768, 0, torch.bfloat16), (96, 3, torch.float32),
+    (384, 0, torch.float32),
+])
+def test_window_attention_split_kernels(cuda, monkeypatch, c, shift, dtype):
+    """hvt's op on split q, k, v (nWB, H, N, D), forward and backward through
+    the split kernels, against the same autograd Function with the plain
+    versions: out, dq, dk and dv within 1e-2·max|plain| in bf16 (both round
+    P to bf16 before P·v, and every output at the store) and 1e-4 in f32;
+    dbias and dlogit_scale, f32 sums over windows in another order, 1e-3;
+    head 0's logit scale, above the clamp, gets exactly 0."""
+    heads, window = c // 32, 7
+    p = _params(c, heads, 49, cuda, seed=17 * c + shift)
+    p["ls"][0] = 5.0
+    mask = torch.as_tensor(wa.shift_attn_mask((14, 14), window, shift), device=cuda) if shift else None
+    qkv = fh.bf16_linear(wa.window_partition(p["x"], window), p["wqkv"], p["bqkv"]).to(dtype)
+    q, k, v = (t.contiguous() for t in wa.split_heads(qkv, heads))
+    g = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(c)).to(dtype)
+
+    def run():
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, p["ls"], p["bias"])]
+        out = wa.window_attention(*leaves, mask)
+        out.backward(g)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    before = wac.SPLIT_KERNEL.launches, wac.SPLIT_BWD_KERNEL.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert (wac.SPLIT_KERNEL.launches, wac.SPLIT_BWD_KERNEL.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert got[0].dtype == got[1].dtype == dtype and got[4][0].item() == 0.0
+    monkeypatch.setattr(wac, "split_forward", wac.split_heads_forward)
+    monkeypatch.setattr(wac, "split_backward", wac.split_heads_backward)
+    ref = run()
+    assert wac.SPLIT_KERNEL.launches == before[0] + 1
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    for name, a, b, t in zip(("out", "dq", "dk", "dv", "dlogit_scale", "dbias"), got, ref,
+                             (tol, tol, tol, tol, 1e-3, 1e-3)):
+        _close(a, b, t, f"split attention C={c} shift={shift} {dtype} {name}")
+
+
+def test_new_layouts_refuse_what_their_kernels_do_not_take(cuda):
+    """A batch of windows that is not whole images of the mask's windows:
+    the split forward runs (window id = row mod nW, as hvt's), its backward
+    raises naming the shape, and so does the windowed attention half."""
+    q = torch.randn(6, 2, 49, 32, device=cuda, requires_grad=True)
+    mask = torch.zeros(4, 49, 49, device=cuda)
+    out = wa.window_attention(q, q, q, torch.zeros(2, 1, 1, device=cuda),
+                              torch.zeros(2, 49, 49, device=cuda), mask)
+    with pytest.raises(ValueError, match="not a whole number of images"):
+        out.sum().backward()
+    xw = torch.zeros(6, 49, 96, device=cuda, dtype=torch.bfloat16)
+    p = _params(96, 3, 49, cuda, seed=0)
+    with pytest.raises(ValueError, match="not a whole number of images"):
+        fh.attention_half(xw, p["wqkv"], p["bqkv"], p["ls"], p["bias"], mask, p["wproj"],
+                          p["bproj"], p["lns"], p["lnb"], 3)
+    with pytest.raises(ValueError, match="width 64"):
+        fh.attention_half(xw[:4, :, :64], *[p[k] for k in ("wqkv", "bqkv", "ls", "bias")], mask,
+                          *[p[k] for k in ("wproj", "bproj", "lns", "lnb")], 2)
 
 
 def test_kernels_refuse_unsupported_shapes(cuda):
