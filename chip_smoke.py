@@ -67,7 +67,14 @@ Phases, in order; any failure exits non-zero and prints no result:
      12 per step of the packed attention pair and the MLP pair; (d) hvt's
      op on split q, k, v, ``hvt_torch.ops.window_attention.window_attention``,
      forward and backward at each of SwinV2-T's 12 block shapes at batch 128:
-     12 launches of each split kernel.
+     12 launches of each split kernel;
+ 12. the retired fused halves (``hvt_torch.ops.swin_block_cuda``, hvt's
+     ``swin_block_pallas``, which no model routes to) as their caller
+     composes them: at each of SwinV2-T's 12 block shapes at batch 64, the
+     map rolled by -shift, the attention branch rolled back and added, then
+     the MLP branch added, in f32 and in bf16: 12 launches of each per
+     dtype and none of any other kernel; the stream after each block shape's
+     blocks is held against the same chain on the plain versions.
 Phases 3, 5 and 6 also hold the SwinV2-B block shapes: the fused forwards
 (NHWC and windowed attention halves, MLP half) at batch 64 (eval, every
 stage unchunked), the fused backwards and the chunked MLP (forward and
@@ -75,6 +82,10 @@ backward, stage 4, K = 2) at batch 128, each timed per SwinV2-B training
 step beside its bound and plain version. Phases 3, 5 and 6 hold and time the
 windowed attention half (forward, backward) and split-q/k/v window attention
 (forward in bf16 and f32, backward) at SwinV2-T's block shapes as well.
+Phase 3 holds the retired fused halves at SwinV2-T's and SwinV2-B's block
+shapes at batch 64, in f32 (x and every weight) and in bf16; phase 5 times
+them at SwinV2-T's, each with a bound that counts a product's operations at
+the f32 rate unless both its operands are bf16.
 
 Comparisons run with TF32 off (cuDNN and matmul), so the f32 parts of the
 plain path (patch-embed conv, head) are true f32. The kernel table goes on a
@@ -101,6 +112,7 @@ OUT_DIR = ROOT / "chiprun_out"
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, the same data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3
+PEAK_OPS = {"bf16": H100_BF16_FLOPS, "f32": H100_F32_FLOPS}
 # SwinV2-T and SwinV2-B at 224 px: (grid, channels, heads, blocks) per stage
 STAGES = ((56, 96, 3, 2), (28, 192, 6, 2), (14, 384, 12, 6), (7, 768, 24, 2))
 BASE_STAGES = ((56, 128, 4, 2), (28, 256, 8, 2), (14, 512, 16, 18), (7, 1024, 32, 2))
@@ -144,6 +156,13 @@ SPLIT = {  # name: (source, TPU kernel it replaces) — hvt's window_attention o
     "window_attention_bwd": ("hvt_torch/ops/csrc/window_attention_bwd.cu",
                              "hvt/ops/window_attention_pallas.py:246"),
 }
+RETIRED = {  # name: (source, TPU kernel it replaces) — hvt's retired fused halves, phase 12
+    "swin_block_attention_fwd": ("hvt_torch/ops/csrc/swin_block.cu",
+                                 "hvt/ops/swin_block_pallas.py:160"),
+    "swin_block_mlp_fwd": ("hvt_torch/ops/csrc/swin_block.cu", "hvt/ops/swin_block_pallas.py:244"),
+}
+# phases 3 and 5: each retired half in f32 (its name) and in bf16
+RETIRED_CASES = tuple(name + sfx for name in RETIRED for sfx in ("", "_bf16"))
 ROUTE_STEPS = 10  # phase 11 (b) and (c)
 CHUNKS = 2  # hvt's K for a C = 1024 MLP half in training at its default budget
 # Phase 10: launches of each kernel per SwinV2-B training step (24 blocks;
@@ -174,6 +193,12 @@ TOL = {"window_attention_packed_fwd": 1e-2, "mlp_half_fwd": 2e-2,
        "attention_half_nhwc_fwd": 2e-2, "attention_half_fwd": 2e-2,
        "window_attention_fwd": 1e-2,  # bf16: P and the output rounded on both sides
        "window_attention_fwd_f32": 1e-4}  # f32 in and out: summation order only
+# The retired halves compute every product, the core and the LayerNorm in f32
+# on both sides: in f32 they differ in summation order only; in bf16 also in
+# the output's rounding (and the odd flip of the GELU output's rounding to
+# bf16, which the next ulp of the output covers).
+TOL.update({"swin_block_attention_fwd": 1e-4, "swin_block_mlp_fwd": 1e-4,
+            "swin_block_attention_fwd_bf16": 2e-2, "swin_block_mlp_fwd_bf16": 2e-2})
 # The backward kernel against packed_heads_backward, relative to max|plain|:
 # dqkv is rounded to bf16 at the store on both sides (1e-2, as the
 # forward); dbias and dlogit_scale are f32 sums over up to 8,192 windows in
@@ -249,6 +274,7 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def kernel_counters():
     from hvt_torch.ops import bn_stats_cuda as bsc
     from hvt_torch.ops import fused_halves_cuda as fh
+    from hvt_torch.ops import swin_block_cuda as sbc
     from hvt_torch.ops import window_attention_cuda as wac
 
     return {"window_attention_packed_fwd": wac.KERNEL, "mlp_half_fwd": fh.MLP_KERNEL,
@@ -258,7 +284,8 @@ def kernel_counters():
             "mlp_half_chunked_bwd": fh.MLP_CHUNKED_BWD_KERNEL,
             "bn_channel_sums": bsc.SUMS_KERNEL, "bn_bwd_reduce": bsc.BWD_KERNEL,
             "attention_half_fwd": fh.ATTN_WIN_KERNEL, "attention_half_bwd": fh.ATTN_WIN_BWD_KERNEL,
-            "window_attention_fwd": wac.SPLIT_KERNEL, "window_attention_bwd": wac.SPLIT_BWD_KERNEL}
+            "window_attention_fwd": wac.SPLIT_KERNEL, "window_attention_bwd": wac.SPLIT_BWD_KERNEL,
+            "swin_block_attention_fwd": sbc.ATTN_KERNEL, "swin_block_mlp_fwd": sbc.MLP_KERNEL}
 
 
 @contextlib.contextmanager
@@ -384,11 +411,13 @@ def stage_inputs(stage: int, shift: int, seed: int, batch: int = BATCH, stages=S
 def kernel_cases(p):
     """(name, kernel call, plain call, library call or None, bytes moved,
     operations) for one stage's inputs, with the arguments the model's
-    block passes at that stage."""
+    block passes at that stage. Operations are a number (at the bf16
+    tensor-core rate) or {"f32" or "bf16": operations} (see ops_ms)."""
     import torch
     import torch.nn.functional as F
 
     from hvt_torch.ops import fused_halves_cuda as fh
+    from hvt_torch.ops import swin_block_cuda as sbc
     from hvt_torch.ops import window_attention as wa
     from hvt_torch.ops import window_attention_cuda as wac
 
@@ -441,7 +470,31 @@ def kernel_cases(p):
     xt = x.reshape(tokens, c)
     io_bytes = 2 * 2 * tokens * c  # bf16 map read once, written once
     z_bytes = 4 * z.numel()
-    return [
+
+    # hvt's retired halves on the map its caller rolls, x and every weight in
+    # dt; a product counts at the bf16 rate only where both operands are bf16
+    # (qkv and the MLP's two in bf16), else at the f32 rate.
+    def retired_cases(dt):
+        xd = (torch.roll(x, (-shift, -shift), (1, 2)) if shift else x).to(dt)
+        wq, wp, w1, w2 = (p[k].to(dt) for k in ("wqkv", "wproj", "w1", "w2"))
+        attn = (xd, wq, p["bqkv"], scale.reshape(heads, 1, 1), z, wp, p["bproj"], p["lns"],
+                p["lnb"])
+        mlp = (xd, w1, p["b1"], w2, p["b2"], p["lns"], p["lnb"])
+        kw = {"window": WINDOW, "num_heads": heads}
+        rate, sfx = ("bf16", "_bf16") if dt == torch.bfloat16 else ("f32", "")
+        xs, ws = xd.element_size(), wq.element_size()
+        attn_ops = {"f32": 2 * tokens * c * c + 4 * tokens * n * c}
+        attn_ops[rate] = attn_ops.get(rate, 0) + 6 * tokens * c * c
+        return [
+            ("swin_block_attention_fwd" + sfx, lambda: sbc.fused_attention_branch(*attn, **kw),
+             lambda: sbc.fused_attention_branch_plain(*attn, **kw), None,
+             2 * xs * tokens * c + 4 * ws * c * c + 4 * 6 * c + z_bytes, attn_ops),
+            ("swin_block_mlp_fwd" + sfx, lambda: sbc.fused_mlp_branch(*mlp),
+             lambda: sbc.fused_mlp_branch_plain(*mlp), None,
+             2 * xs * tokens * c + 8 * ws * c * c + 4 * 7 * c, {rate: 16 * tokens * c * c}),
+        ]
+
+    return retired_cases(torch.float32) + retired_cases(torch.bfloat16) + [
         ("window_attention_packed_fwd",
          lambda: wac.window_attention_packed(qkv, p["logit_scale"], p["bias"], mask, num_heads=heads),
          lambda: wac.window_attention_packed_plain(qkv, p["logit_scale"], p["bias"], mask, num_heads=heads),
@@ -486,7 +539,15 @@ def train_launches(name: str, c: int) -> int:
 
 
 FORWARD_NAMES = (*KERNELS, "attention_half_fwd", "window_attention_fwd",
-                 "window_attention_fwd_f32")
+                 "window_attention_fwd_f32", *RETIRED_CASES)
+
+
+def ops_ms(flops) -> float:
+    """Milliseconds of ``flops`` at the card's peak: a number counts at the
+    bf16 tensor-core rate, a dict {"f32" or "bf16": operations} each part at
+    its type's rate."""
+    parts = flops if isinstance(flops, dict) else {"bf16": flops}
+    return sum(ops / PEAK_OPS[kind] for kind, ops in parts.items()) * 1e3
 
 
 def kernel_records(timing: bool, stages=STAGES, batch: int = BATCH, names=FORWARD_NAMES,
@@ -498,7 +559,8 @@ def kernel_records(timing: bool, stages=STAGES, batch: int = BATCH, names=FORWAR
     summed."""
     import torch
 
-    records = {name: {"max_abs_err": 0.0, "bytes": 0, "flops": 0, "stages": []} for name in names}
+    records = {name: {"max_abs_err": 0.0, "bytes": 0, "flops": 0, "ops_ms": 0.0, "stages": []}
+               for name in names}
     for stage, shift, blocks in block_shapes(stages):
         c = stages[stage][1]
         p = stage_inputs(stage, shift, seed=100 + 10 * stage + shift, batch=batch, stages=stages)
@@ -510,7 +572,8 @@ def kernel_records(timing: bool, stages=STAGES, batch: int = BATCH, names=FORWAR
             st = {"stage": stage + 1, "shift": shift, "launches_per_forward": n,
                   "bytes": nbytes, "flops": flops}
             rec["bytes"] += n * nbytes
-            rec["flops"] += n * flops
+            rec["flops"] += n * (sum(flops.values()) if isinstance(flops, dict) else flops)
+            rec["ops_ms"] += n * ops_ms(flops)
             if timing:
                 st["ms"] = cuda_time_ms(kern)
                 st["plain_ms"] = cuda_time_ms(plain, iters=5)
@@ -538,10 +601,11 @@ def kernel_records(timing: bool, stages=STAGES, batch: int = BATCH, names=FORWAR
 
 
 def finish_record(rec: dict, timing: bool, peak_ops: float = H100_BF16_FLOPS) -> None:
-    """The bound of a kernel's launches (its operations at ``peak_ops``), and
-    its times summed over them."""
+    """The bound of a kernel's launches (its operations at ``peak_ops``, or
+    ``ops_ms`` where kernel_records summed them per type), and its times
+    summed over them."""
     t_bytes = rec["bytes"] / H100_BYTES_PER_S * 1e3
-    t_ops = rec["flops"] / peak_ops * 1e3
+    t_ops = rec["ops_ms"] if "ops_ms" in rec else rec["flops"] / peak_ops * 1e3
     rec["bound_ms"], rec["bound_by"] = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
     if timing:
         total = lambda key: sum(s["launches_per_forward"] * s[key] for s in rec["stages"])  # noqa: E731
@@ -1154,6 +1218,70 @@ def profile_route(fuse: bool) -> list:
     return rows
 
 
+def retired_op_run() -> dict:
+    """Phase 12: hvt's retired fused halves (``swin_block_cuda``) as their
+    caller composes them (hvt/ops/swin_block_pallas.py's docstring): per
+    block, the map rolled by -shift, the attention branch rolled back and
+    added, then the MLP branch added; each of SwinV2-T's 7 block shapes at
+    batch BATCH chains its blocks (12 in all) on the residual stream, in f32
+    and in bf16 (x and every weight). The launch counts are zeroed just
+    before and read just after: 12 of each branch per dtype and none of any
+    other kernel. Each shape's stream is held against the same chain on the
+    plain versions (TOL of the branch in that dtype)."""
+    import torch
+
+    from hvt_torch.ops import swin_block_cuda as sbc
+    from hvt_torch.ops import window_attention_cuda as wac
+
+    def chain(p, dt, blocks, attention, mlp):
+        shift, heads = p["shift"], p["heads"]
+        w = {k: p[k].to(dt) for k in ("wqkv", "wproj", "w1", "w2")}
+        scale = wac.attention_scale(p["logit_scale"]).reshape(heads, 1, 1)
+        z = wac.merge_bias_mask(p["bias"], p["mask"])
+        x = p["x"].to(dt)
+        for _ in range(blocks):
+            xs = torch.roll(x, (-shift, -shift), (1, 2)) if shift else x
+            a = attention(xs, w["wqkv"], p["bqkv"], scale, z, w["wproj"], p["bproj"], p["lns"],
+                          p["lnb"], window=WINDOW, num_heads=heads)
+            x = x + (torch.roll(a, (shift, shift), (1, 2)) if shift else a)
+            x = x + mlp(x, w["w1"], p["b1"], w["w2"], p["b2"], p["lns"], p["lnb"])
+        return x
+
+    counters = kernel_counters()
+    shapes = [(stage, shift, blocks, stage_inputs(stage, shift, seed=900 + 10 * stage + shift))
+              for stage, shift, blocks in block_shapes()]
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        outs = [(dt, stage, shift, blocks, p, chain(p, dt, blocks, sbc.fused_attention_branch,
+                                                    sbc.fused_mlp_branch))
+                for dt in (torch.float32, torch.bfloat16)
+                for stage, shift, blocks, p in shapes]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in counters.items()}
+    log(f"  launches: {launches} in {seconds:.2f} s")
+    want = {name: 24 if name in RETIRED else 0 for name in counters}
+    if launches != want:
+        raise AssertionError(f"the retired halves' run launched {launches}, not {want}")
+    stages = []
+    for dt, stage, shift, blocks, p, got in outs:
+        ref = chain(p, dt, blocks, sbc.fused_attention_branch_plain, sbc.fused_mlp_branch_plain)
+        tol = max(TOL[name + ("_bf16" if dt == torch.bfloat16 else "")] for name in RETIRED)
+        err, scale = float((got.float() - ref.float()).abs().max()), float(ref.float().abs().max())
+        ok = bool(torch.isfinite(got).all()) and got.shape == ref.shape and err <= tol * scale
+        log(f"  stage {stage + 1} shift {shift} x{blocks} {dt}: max|kernel-plain| {err:.4g} "
+            f"(tol {tol}·max|plain| = {tol * scale:.4g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the retired halves' chain disagrees with the plain chain at "
+                                 f"stage {stage + 1}, shift {shift}, {dt}")
+        stages.append({"stage": stage + 1, "shift": shift, "blocks": blocks, "dtype": str(dt),
+                       "max_abs_err": err})
+    return {"launches": {name: launches[name] for name in RETIRED}, "seconds": seconds,
+            "stages": stages}
+
+
 # ---------------------------------------------------------------------------
 # Phase 7: the training path
 # ---------------------------------------------------------------------------
@@ -1663,11 +1791,12 @@ def main(argv=None) -> int:
     log(f"[2] built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     (OUT_DIR / "ptxas.txt").write_text("\n".join(f"== {k}\n{v}" for k, v in logs.items()))
 
-    log(f"[3] kernels vs plain versions, bf16, batch {BATCH}")
+    log(f"[3] kernels vs plain versions, bf16 (the retired halves also f32), batch {BATCH}")
     checked = kernel_records(timing=False)
-    log(f"[3] the fused forwards at SwinV2-B's block shapes, bf16, batch {BATCH} (eval)")
+    log(f"[3] the fused forwards and the retired halves at SwinV2-B's block shapes, bf16 "
+        f"(the retired halves also f32), batch {BATCH} (eval)")
     base_names = ("mlp_half_fwd", "attention_half_nhwc_fwd", "attention_half_fwd")
-    base_checked = kernel_records(False, BASE_STAGES, BATCH, base_names)
+    base_checked = kernel_records(False, BASE_STAGES, BATCH, base_names + RETIRED_CASES)
 
     log(f"[4] serving SwinV2-T at 224 px, {CLASSES} classes, batch {BATCH}")
     routes = [serve_route(fuse) for fuse in (False, True)]
@@ -1889,6 +2018,18 @@ def main(argv=None) -> int:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
         })
 
+    log(f"[12] the retired fused halves as their caller composes them: SwinV2-T's 12 block "
+        f"shapes at batch {BATCH}, f32 and bf16")
+    retired_run = retired_op_run()
+    for name, (source, replaces) in RETIRED.items():
+        rec, check = timed[name], checked[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": retired_run["launches"][name], "max_abs_err": check["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None,
+        })
+
     report = {"card": card, "batch": BATCH, "kernels": kernels, "routes": routes,
               "kernel_stages": {k: {"check": checked[k]["stages"], "timed": timed[k]["stages"]}
                                 for k in FORWARD_NAMES},
@@ -1900,6 +2041,9 @@ def main(argv=None) -> int:
               "window_attention_fwd_f32": {"check": checked["window_attention_fwd_f32"]["stages"],
                                            "timed": timed["window_attention_fwd_f32"]["stages"]},
               "routes_train": routes_train,
+              "retired": {"op_run": retired_run,
+                          "swinv2_base_check": {k: base_checked[k]["stages"]
+                                                for k in RETIRED_CASES}},
               "train": train,
               "bn_stages": {k: {"check": bn_checked[k]["stages"], "timed": bn_timed[k]["stages"]}
                             for k in BN_KERNELS},

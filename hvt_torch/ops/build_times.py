@@ -10,6 +10,10 @@ kernels:
   forwards at all eight widths in one ``nvcc`` and the backwards (with the
   windowed attention half) in another.
 
+The sources outside those families (the attention cores,
+``fused_halves_chunked``, ``bn_stats`` and ``swin_block``) build as they
+are in all three layouts.
+
     python -m hvt_torch.ops.build_times
 
 Needs ``nvcc``. Builds into ``_build/timing/`` (deleted after) with

@@ -50,6 +50,23 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// GELU and its derivative with erf by Abramowitz–Stegun 7.1.26, as
+// _gelu_and_grad: 0.5·x·(1 + erf(x/√2)) and Φ(x) + x·exp(-x²/2)/√(2π),
+// the erf polynomial's exp(-(x/√2)²) being the pdf's exp(-x²/2).
+__device__ __forceinline__ float gelu_as(float x, float* grad = nullptr) {
+  const float u = x * 0.7071067811865476f;
+  const float au = fabsf(u);
+  const float t = 1.f / (1.f + 0.3275911f * au);
+  const float poly =
+      t * (0.254829592f +
+           t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+  const float e = expf(-au * au);
+  const float mag = 1.f - poly * e;
+  const float erf = u > 0.f ? mag : (u < 0.f ? -mag : 0.f);
+  if (grad != nullptr) *grad = 0.5f * (1.f + erf) + x * 0.3989422804014327f * e;
+  return 0.5f * x * (1.f + erf);
+}
+
 // D = A·B + D for one 16x8x16 tile. Fragment layout (PTX ISA, mma.m16n8k16,
 // g = lane / 4, t = lane % 4): a0 = A[g][2t..2t+1], a1 = A[g+8][2t..],
 // a2 = A[g][2t+8..], a3 = A[g+8][2t+8..]; b0 = B[2t..2t+1][g],
@@ -309,6 +326,55 @@ __device__ __forceinline__ void cosine_attention(float* Q, float* K, const float
     for (int j = 0; j < N; ++j) o += p[j] * V[j * ld + c];
     out(i, c, o);
   }
+}
+
+// The attention core's forward, one block per (window, head): the head's
+// q, k, v tiles gathered through their layout's strides into shared memory,
+// then cosine_attention. window_attention.cu launches it on packed and split
+// layouts in bf16 and f32, swin_block.cu on its f32 qkv scratch.
+template <typename T>
+__global__ void __launch_bounds__(128)
+attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     HeadTiles in, const float* __restrict__ scale, const float* __restrict__ z,
+                     int nwz, T* __restrict__ out, HeadTiles ot, int n, int d, int heads,
+                     bool round_p) {
+  extern __shared__ float smem[];
+  const int ld = d + 1;
+  float* Q = smem;
+  float* K = Q + n * ld;
+  float* V = K + n * ld;
+  float* S = V + n * ld;
+  const int w = blockIdx.x, h = blockIdx.y;
+  for (int e = threadIdx.x; e < n * d; e += blockDim.x) {
+    const int i = e / d, j = e - i * d;
+    const size_t off = in.at(w, h, i) + j;
+    Q[i * ld + j] = to_f32(q[off]);
+    K[i * ld + j] = to_f32(k[off]);
+    V[i * ld + j] = to_f32(v[off]);
+  }
+  __syncthreads();
+  // window id = row mod nW (batch-major rows), as the TPU kernels' z index maps
+  const float* zh = z + ((size_t)(w % nwz) * heads + h) * n * n;
+  cosine_attention(
+      Q, K, V, ld, S, n, d, scale[h], zh,
+      [&](int i, int j, float o) { out[ot.at(w, h, i) + j] = from_f32<T>(o); }, round_p);
+}
+
+template <typename T>
+int launch_attention(const void* q, const void* k, const void* v, HeadTiles in,
+                     const float* scale, const float* z, int nwz, void* out, HeadTiles ot,
+                     int nwb, int n, int d, int heads, bool round_p, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (3 * n * (d + 1) + n * (n + 1));
+  auto kernel = attention_fwd_kernel<T>;
+  if (smem > 48 * 1024) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<dim3(nwb, heads), 128, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), in, scale, z,
+      nwz, static_cast<T*>(out), ot, n, d, heads, round_p);
+  return (int)cudaGetLastError();
 }
 
 // The backward of the cosine attention core for one (window, head), the math

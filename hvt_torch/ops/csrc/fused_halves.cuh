@@ -16,23 +16,6 @@ constexpr int kLDQ = 3 * kD + 1;    // f32 row stride of the per-head q|k|v tile
 
 __host__ __device__ constexpr size_t align16(size_t bytes) { return (bytes + 15) / 16 * 16; }
 
-// GELU and its derivative with erf by Abramowitz–Stegun 7.1.26, as
-// _gelu_and_grad: 0.5·x·(1 + erf(x/√2)) and Φ(x) + x·exp(-x²/2)/√(2π),
-// the erf polynomial's exp(-(x/√2)²) being the pdf's exp(-x²/2).
-__device__ __forceinline__ float gelu_as(float x, float* grad = nullptr) {
-  const float u = x * 0.7071067811865476f;
-  const float au = fabsf(u);
-  const float t = 1.f / (1.f + 0.3275911f * au);
-  const float poly =
-      t * (0.254829592f +
-           t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  const float e = expf(-au * au);
-  const float mag = 1.f - poly * e;
-  const float erf = u > 0.f ? mag : (u < 0.f ? -mag : 0.f);
-  if (grad != nullptr) *grad = 0.5f * (1.f + erf) + x * 0.3989422804014327f * e;
-  return 0.5f * x * (1.f + erf);
-}
-
 // ---------------------------------------------------------------------------
 // MLP half: a block owns 32 rows of x (T, C)
 // ---------------------------------------------------------------------------

@@ -22,57 +22,9 @@
 // runs on CUDA cores in f32 (N = 49 fits no tensor-core tile without 30%
 // padding, and the kernels are bound by bytes, not operations). The two
 // contracts differ in one rounding: hvt's split kernel rounds P to v's dtype
-// before P·v (`attn.astype(v.dtype)`), the packed one keeps P in f32.
+// before P·v (`attn.astype(v.dtype)`), the packed one keeps P in f32. The
+// kernel, attention_fwd_kernel, is in common.cuh (swin_block.cu runs it too).
 #include "common.cuh"
-
-namespace hvt {
-
-template <typename T>
-__global__ void __launch_bounds__(128)
-attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     HeadTiles in, const float* __restrict__ scale, const float* __restrict__ z,
-                     int nwz, T* __restrict__ out, HeadTiles ot, int n, int d, int heads,
-                     bool round_p) {
-  extern __shared__ float smem[];
-  const int ld = d + 1;
-  float* Q = smem;
-  float* K = Q + n * ld;
-  float* V = K + n * ld;
-  float* S = V + n * ld;
-  const int w = blockIdx.x, h = blockIdx.y;
-  for (int e = threadIdx.x; e < n * d; e += blockDim.x) {
-    const int i = e / d, j = e - i * d;
-    const size_t off = in.at(w, h, i) + j;
-    Q[i * ld + j] = to_f32(q[off]);
-    K[i * ld + j] = to_f32(k[off]);
-    V[i * ld + j] = to_f32(v[off]);
-  }
-  __syncthreads();
-  // window id = row mod nW (batch-major rows), as the TPU kernels' z index maps
-  const float* zh = z + ((size_t)(w % nwz) * heads + h) * n * n;
-  cosine_attention(
-      Q, K, V, ld, S, n, d, scale[h], zh,
-      [&](int i, int j, float o) { out[ot.at(w, h, i) + j] = from_f32<T>(o); }, round_p);
-}
-
-template <typename T>
-int launch_attention(const void* q, const void* k, const void* v, HeadTiles in,
-                     const float* scale, const float* z, int nwz, void* out, HeadTiles ot,
-                     int nwb, int n, int d, int heads, bool round_p, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (3 * n * (d + 1) + n * (n + 1));
-  auto kernel = attention_fwd_kernel<T>;
-  if (smem > 48 * 1024) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kernel<<<dim3(nwb, heads), 128, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), in, scale, z,
-      nwz, static_cast<T*>(out), ot, n, d, heads, round_p);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace hvt
 
 // dtype: 0 = bf16, 1 = f32 (qkv and out share it). Returns a cudaError_t.
 extern "C" int hvt_window_attention_packed_fwd(const void* qkv, const float* scale,

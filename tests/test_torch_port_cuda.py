@@ -16,7 +16,9 @@ operands, f32 accumulation, f32 softmax and LayerNorm), so they differ by
 accumulation order and the odd bf16 rounding flip: max|Δ| ≤ 1e-2·max|plain|
 for the attention core (1e-4 in f32), 2e-2 for the fused halves. The
 BatchNorm reductions run at ResNet-50 widths (C = 64 to 2048) against f64
-sums of the same inputs; each test states its tolerance.
+sums of the same inputs. The retired fused halves (``swin_block_cuda``)
+compute in f32 on both sides: 1e-4·max|plain| with f32 x and weights,
+2e-2 with bf16 ones (the output rounding). Each test states its tolerance.
 """
 
 import math
@@ -28,6 +30,7 @@ import torch
 from hvt_torch.ops import bn_stats as bs
 from hvt_torch.ops import bn_stats_cuda as bsc
 from hvt_torch.ops import fused_halves_cuda as fh
+from hvt_torch.ops import swin_block_cuda as sb
 from hvt_torch.ops import window_attention as wa
 from hvt_torch.ops import window_attention_cuda as wac
 
@@ -463,3 +466,53 @@ def test_bn_train_through_the_kernels(cuda, monkeypatch, m, c):
     for name, a, b, tol in zip(("y", "mean", "var", "dx", "dscale", "dbias"), got, ref,
                                (1e-2, 1e-4, 1e-4, 1e-2, 1e-4, 1e-4)):
         _close(a, b, tol, f"bn_train {name} ({m}, {c})")
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_retired_fused_halves_kernels(cuda, dtype, tol):
+    """Both retired halves at SwinV2-T's stage 1 (56 x 56, C = 96, 3 heads)
+    on a map rolled by -3 with z per window, x and weights all in ``dtype``,
+    against their plain versions: f32 differs in summation order only, bf16
+    also in the output's rounding."""
+    c, heads, window, shift = 96, 3, 7, 3
+    p = _params(c, heads, 49, cuda, seed=5)
+    gen = torch.Generator(cuda).manual_seed(5)
+    x = torch.roll(torch.randn(4, 56, 56, c, device=cuda, generator=gen), (-shift, -shift), (1, 2))
+    mask = torch.as_tensor(wa.shift_attn_mask((56, 56), window, shift), device=cuda)
+    attn = (x.to(dtype), p["wqkv"].to(dtype), p["bqkv"], wac.attention_scale(p["ls"]).reshape(-1, 1, 1),
+            wac.merge_bias_mask(p["bias"], mask), p["wproj"].to(dtype), p["bproj"], p["lns"],
+            p["lnb"])
+    mlp = (x.to(dtype), p["w1"].to(dtype), p["b1"], p["w2"].to(dtype), p["b2"], p["lns"], p["lnb"])
+    before = sb.ATTN_KERNEL.launches, sb.MLP_KERNEL.launches
+    got_attn = sb.fused_attention_branch(*attn, window=window, num_heads=heads)
+    got_mlp = sb.fused_mlp_branch(*mlp)
+    torch.cuda.synchronize()
+    assert (sb.ATTN_KERNEL.launches, sb.MLP_KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    assert got_attn.dtype == got_mlp.dtype == dtype
+    _close(got_attn, sb.fused_attention_branch_plain(*attn, window=window, num_heads=heads), tol,
+           f"fused_attention_branch {dtype}")
+    _close(got_mlp, sb.fused_mlp_branch_plain(*mlp), tol, f"fused_mlp_branch {dtype}")
+
+
+def test_retired_fused_halves_refuse_what_they_do_not_take(cuda):
+    """Forward only: an input that requires grad raises, naming the kernel,
+    unless grad is off; a width that is no multiple of 32 and mixed weight
+    dtypes raise too."""
+    p = _params(96, 3, 49, cuda, seed=6)
+    x = torch.randn(2, 14, 14, 96, device=cuda)
+    mlp = [x, p["w1"], p["b1"], p["w2"], p["b2"], p["lns"], p["lnb"]]
+    w1 = p["w1"].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="fused_mlp_branch: the kernel is forward only"):
+        sb.fused_mlp_branch(mlp[0], w1, *mlp[2:])
+    with torch.no_grad():
+        assert sb.fused_mlp_branch(mlp[0], w1, *mlp[2:]).grad_fn is None
+    z = wac.merge_bias_mask(p["bias"], None)
+    attn = [x, p["wqkv"], p["bqkv"], wac.attention_scale(p["ls"]), z, p["wproj"], p["bproj"],
+            p["lns"], p["lnb"]]
+    with pytest.raises(RuntimeError, match="fused_attention_branch: the kernel is forward only"):
+        sb.fused_attention_branch(x.clone().requires_grad_(), *attn[1:], window=7, num_heads=3)
+    with pytest.raises(ValueError, match="all bf16 or all f32"):
+        sb.fused_mlp_branch(x, p["w1"], p["b1"], p["w2"].bfloat16(), *mlp[4:])
+    with pytest.raises(ValueError, match="a multiple of 32"):
+        sb.fused_mlp_branch(x[..., :80], p["w1"][:320, :80], p["b1"][:320], p["w2"][:80, :320],
+                            p["b2"][:80], p["lns"][:80], p["lnb"][:80])
