@@ -8,7 +8,9 @@
 
 Phases, in order; any failure exits non-zero and prints no result:
   1. the card's name and power limit (nvidia-smi);
-  2. build every kernel from hvt_torch/ops/csrc (one nvcc per source, in parallel);
+  2. build every kernel from hvt_torch/ops/csrc (one nvcc per source, in parallel),
+     and print each kernel's registers, static shared memory and spills
+     (ptxas) and the attention backward's dynamic shared memory;
   3. each kernel against its plain PyTorch version on the card, in bf16, at
      every SwinV2-T block shape at batch 64 (each stage unshifted and, where
      the map holds more than one window, shifted);
@@ -23,9 +25,11 @@ Phases, in order; any failure exits non-zero and prints no result:
      block shape at batch 128: the packed attention's (dqkv, dz → dbias,
      dlogit_scale) and the fused halves' (every gradient of each half, with
      one image's drop-path scale 0 and one's 1/keep); one head's logit scale
-     sits above the log 100 clamp, and its gradient must be exactly 0. Then
-     each is timed through the model's backward beside its bound and its
-     plain version (and SDPA's backward for the packed kernel);
+     sits above the log 100 clamp, and its gradient must be exactly 0; the
+     packed and split attention backwards also in f32 (check only, every
+     gradient within 1e-4·max|plain|). Then each is timed through the
+     model's backward beside its bound and its plain version (and SDPA's
+     backward for the packed kernel);
   7. the training path, once per route (model.args.fuse false, then true):
      ``hvt_torch.main.main`` trains SwinV2-T (10,000 classes, batch 128,
      configs/pretrain/swinv2_tiny.yaml's recipe) for 30 steps on the
@@ -183,6 +187,9 @@ PROFILE_NAMES = {
                           "sum_parts"),
              "forward": ("mlp_half_fwd", "attn_half_fwd", "mlp_half_chunked_fwd")},
     "resnet": {"backward": ("bwd_reduce_kernel",), "forward": ("channel_sums_kernel",)},
+    # the fused route with the packed attention pair (phase 11 (c))
+    "packed_fused": {"backward": ("attention_bwd_", "mlp_half_bwd_rows", "grad_tn", "sum_parts"),
+                     "forward": ("attention_fwd_kernel", "mlp_half_fwd")},
 }
 KEEP = 0.8  # drop-path keep probability of the scales in phase 6's inputs
 # max|kernel - plain| ≤ TOL·max|plain|: both sides share the arithmetic
@@ -205,6 +212,10 @@ TOL.update({"swin_block_attention_fwd": 1e-4, "swin_block_mlp_fwd": 1e-4,
 # another order (1e-3).
 BWD_TOL = {"dqkv": 1e-2, "dbias": 1e-3, "dlogit_scale": 1e-3}
 SPLIT_BWD_TOL = {"dq": 1e-2, "dk": 1e-2, "dv": 1e-2, "dbias": 1e-3, "dlogit_scale": 1e-3}
+# Both backward kernels in f32 (phase 6, check only): f32 in and out on both
+# sides, the kernel's bf16 pieces keeping f32 accuracy; every gradient within
+# F32_BWD_TOL·max|plain|.
+F32_BWD_TOL = 1e-4
 # The fused halves' backward kernels against their plain versions, every
 # gradient relative to max|plain|: both sides round every product's operands
 # to bf16 (hvt's _dot/_dot_t, weight gradients included) and dx to bf16 at
@@ -269,6 +280,44 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_device_ms(fn, iters: int = 10) -> tuple[float, float]:
+    """(host ms, device ms) of one call of ``fn`` from an idle card: the
+    median time the host takes to return from the call (its launches are
+    asynchronous, so this is the time it spends issuing them), and the mean
+    kernel time in it from torch.profiler. Where the host's ms exceed the
+    device's, back-to-back calls (cuda_time_ms) wait on the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    host = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+                 for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
+    return sorted(host)[iters // 2], dev_us / 1e3 / iters
+
+
+def host_device_line(rec: dict) -> str:
+    """Phase 6's host and device times of a backward through autograd and
+    in its launch wrapper, per training step and per launch."""
+    total = lambda key: sum(st["launches_per_forward"] * st[key] for st in rec["stages"])  # noqa: E731
+    return (f"host {total('host_ms'):.4f} / device {total('device_ms'):.4f} ms per step through "
+            f"autograd, host {total('wrapper_host_ms'):.4f} / device "
+            f"{total('wrapper_device_ms'):.4f} ms in the wrapper; per launch (autograd host/device, "
+            "wrapper host/device): " + "; ".join(
+                f"stage {st['stage']} shift {st['shift']} {st['host_ms']:.3f}/{st['device_ms']:.3f}, "
+                f"{st['wrapper_host_ms']:.3f}/{st['wrapper_device_ms']:.3f}" for st in rec["stages"]))
 
 
 def kernel_counters():
@@ -618,9 +667,10 @@ def finish_record(rec: dict, timing: bool, peak_ops: float = H100_BF16_FLOPS) ->
 # ---------------------------------------------------------------------------
 
 
-def backward_case(p):
+def backward_case(p, dtype=None):
     """qkv, dO, z, scale of one stage's attention at batch TRAIN_BATCH, with
-    head 0's logit scale above the log 100 clamp."""
+    head 0's logit scale above the log 100 clamp; qkv and dO in ``dtype``
+    (bf16 by default)."""
     import torch
 
     from hvt_torch.ops import fused_halves_cuda as fh
@@ -630,27 +680,32 @@ def backward_case(p):
     x, shift = p["x"], p["shift"]
     p["logit_scale"][0] = 5.0
     xw = wa.window_partition(torch.roll(x, (-shift, -shift), (1, 2)) if shift else x, WINDOW)
-    qkv = fh.bf16_linear(xw, p["wqkv"], p["bqkv"]).to(torch.bfloat16).contiguous()
+    dtype = dtype or torch.bfloat16
+    qkv = fh.bf16_linear(xw, p["wqkv"], p["bqkv"]).to(dtype).contiguous()
     gen = torch.Generator("cuda").manual_seed(p["c"] + shift)
-    dout = torch.randn(qkv.shape[0], qkv.shape[1], p["c"], device="cuda", generator=gen).bfloat16()
+    dout = torch.randn(qkv.shape[0], qkv.shape[1], p["c"], device="cuda", generator=gen).to(dtype)
     return qkv, dout, wac.merge_bias_mask(p["bias"], p["mask"]), wac.attention_scale(p["logit_scale"])
 
 
-def backward_records(timing: bool) -> dict:
+def backward_records(timing: bool, dtype=None) -> dict:
     """The backward kernel against packed_heads_backward at every SwinV2-T
-    block shape (check), or timed with its bound, the plain version and
-    SDPA's backward. Timed as the model runs it (``_PackedAttention.backward``
-    through autograd, its set-up and tail included), and the launch wrapper
-    alone. Per training step: the 12 launches summed."""
+    block shape (check, in bf16 or ``dtype``), or timed (bf16) with its bound,
+    the plain version and SDPA's backward. Timed as the model runs it
+    (``_PackedAttention.backward`` through autograd, its set-up and tail
+    included), and the launch wrapper alone. Per training step: the 12
+    launches summed."""
     import torch
     import torch.nn.functional as F
 
     from hvt_torch.ops import window_attention_cuda as wac
 
+    f32 = dtype == torch.float32
+    tols = {k: F32_BWD_TOL for k in BWD_TOL} if f32 else BWD_TOL
+    name = BWD_KERNEL + (" f32" if f32 else "")
     rec = {"max_abs_err": 0.0, "bytes": 0, "flops": 0, "stages": []}
     for stage, shift, blocks in block_shapes():
         p = stage_inputs(stage, shift, seed=200 + 10 * stage + shift, batch=TRAIN_BATCH)
-        qkv, dout, z, scale = backward_case(p)
+        qkv, dout, z, scale = backward_case(p, dtype)
         heads, ls = p["heads"], p["logit_scale"]
         nwb, n, c3 = qkv.shape
         d = c3 // 3 // heads
@@ -672,8 +727,11 @@ def backward_records(timing: bool) -> dict:
                       p["bias"].clone().requires_grad_()]
             wa_out = wac.window_attention_packed(*leaves, p["mask"], num_heads=heads)
             model_bwd = lambda: torch.autograd.grad(wa_out, leaves, dout, retain_graph=True)  # noqa: E731
+            wrapper = lambda: wac.packed_backward(qkv, dout, z, scale, heads)  # noqa: E731
             st["ms"] = cuda_time_ms(model_bwd)
-            st["wrapper_ms"] = cuda_time_ms(lambda: wac.packed_backward(qkv, dout, z, scale, heads))
+            st["wrapper_ms"] = cuda_time_ms(wrapper)
+            st["host_ms"], st["device_ms"] = host_device_ms(model_bwd)
+            st["wrapper_host_ms"], st["wrapper_device_ms"] = host_device_ms(wrapper)
             with plain_backward():
                 st["plain_ms"] = cuda_time_ms(model_bwd, iters=5)
             st["library_ms"] = cuda_time_ms(
@@ -689,12 +747,12 @@ def backward_records(timing: bool) -> dict:
                    "dlogit_scale": (rs * scale * (ls.reshape(-1) < math.log(100.0))).reshape(ls.shape)}
             torch.cuda.synchronize()
             errs = {}
-            for key, tol in BWD_TOL.items():
+            for key, tol in tols.items():
                 a, b = got[key].float(), ref[key].float()
                 err, top = float((a - b).abs().max()), float(b.abs().max())
                 errs[key] = err
                 ok = bool(torch.isfinite(a).all()) and err <= tol * top
-                log(f"  {BWD_KERNEL} stage {stage + 1} shift={shift} {key:12s}: max|kernel-plain| "
+                log(f"  {name} stage {stage + 1} shift={shift} {key:12s}: max|kernel-plain| "
                     f"{err:.4g} (tol {tol}·max|plain| = {tol * top:.4g}) {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError(f"{BWD_KERNEL} {key} disagrees with its plain version at "
@@ -712,10 +770,11 @@ def backward_records(timing: bool) -> dict:
     return rec
 
 
-def split_backward_records(timing: bool) -> dict:
+def split_backward_records(timing: bool, dtype=None) -> dict:
     """hvt's op on split q, k, v (``window_attention``, the split kernels)
     against the same autograd Function with the plain versions, at every
-    SwinV2-T block shape at batch TRAIN_BATCH in bf16, q, k and v split from
+    SwinV2-T block shape at batch TRAIN_BATCH in bf16 (or ``dtype``, check
+    only), q, k and v split from
     the projection ``backward_case`` gives (check: dq, dk, dv, dbias,
     dlogit_scale, the clamped head's exactly 0); or its backward timed
     through autograd (``_SplitAttention.backward``, set-up and tail
@@ -727,10 +786,13 @@ def split_backward_records(timing: bool) -> dict:
     from hvt_torch.ops import window_attention as wa
     from hvt_torch.ops import window_attention_cuda as wac
 
+    f32 = dtype == torch.float32
+    tols = {k: F32_BWD_TOL for k in SPLIT_BWD_TOL} if f32 else SPLIT_BWD_TOL
+    name = "window_attention_bwd" + (" f32" if f32 else "")
     rec = {"max_abs_err": 0.0, "bytes": 0, "flops": 0, "stages": []}
     for stage, shift, blocks in block_shapes():
         p = stage_inputs(stage, shift, seed=700 + 10 * stage + shift, batch=TRAIN_BATCH)
-        qkv, dout, z, scale = backward_case(p)
+        qkv, dout, z, scale = backward_case(p, dtype)
         heads, ls, mask = p["heads"], p["logit_scale"], p["mask"]
         nwb, n, c3 = qkv.shape
         d = c3 // 3 // heads
@@ -745,8 +807,11 @@ def split_backward_records(timing: bool) -> dict:
         out = wa.window_attention(*leaves, mask)
         model_bwd = lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)  # noqa: E731
         if timing:
+            wrapper = lambda: wac.split_backward(q, k, v, g, z, scale)  # noqa: E731
             st["ms"] = cuda_time_ms(model_bwd)
-            st["wrapper_ms"] = cuda_time_ms(lambda: wac.split_backward(q, k, v, g, z, scale))
+            st["wrapper_ms"] = cuda_time_ms(wrapper)
+            st["host_ms"], st["device_ms"] = host_device_ms(model_bwd)
+            st["wrapper_host_ms"], st["wrapper_device_ms"] = host_device_ms(wrapper)
             with plain_backward():
                 st["plain_ms"] = cuda_time_ms(model_bwd, iters=5)
             qn = q.float() * torch.rsqrt((q.float() ** 2).sum(-1, keepdim=True) + 1e-24)
@@ -764,18 +829,18 @@ def split_backward_records(timing: bool) -> dict:
             with plain_backward():
                 ref = dict(zip(("dq", "dk", "dv", "dlogit_scale", "dbias"), model_bwd()))
             errs = {}
-            for key, tol in SPLIT_BWD_TOL.items():
+            for key, tol in tols.items():
                 a, b = got[key].float(), ref[key].float()
                 err, top = float((a - b).abs().max()), float(b.abs().max())
                 errs[key] = err / top if top else err
                 if not (bool(torch.isfinite(a).all()) and err <= tol * top):
-                    raise AssertionError(f"window_attention_bwd {key} disagrees with its plain "
+                    raise AssertionError(f"{name} {key} disagrees with its plain "
                                          f"version at stage {stage + 1}, shift {shift}: max|Δ| "
                                          f"{err:.4g} vs max|plain| {top:.4g}")
             if float(got["dlogit_scale"].reshape(-1)[0]) != 0.0:
-                raise AssertionError("window_attention_bwd: gradient above the logit-scale clamp "
+                raise AssertionError(f"{name}: gradient above the logit-scale clamp "
                                      f"{float(got['dlogit_scale'].reshape(-1)[0])}, not 0")
-            log(f"  window_attention_bwd stage {stage + 1} shift={shift}: every gradient within "
+            log(f"  {name} stage {stage + 1} shift={shift}: every gradient within "
                 f"its tolerance (max|Δ|/max|plain|: "
                 f"{', '.join(f'{k} {v:.3g}' for k, v in errs.items())}) ok")
             st["max_abs_err"] = max(float((got[k].float() - ref[k].float()).abs().max())
@@ -1757,6 +1822,47 @@ def check_ema(trainer, label: str) -> dict:
             "params": len(live), "stats_finite": finite}
 
 
+def ptxas_summary(logs: dict) -> dict:
+    """{source: [{kernel, registers, static_smem, spill_stores, spill_loads}]}
+    from ``nvcc -Xptxas -v``'s report of each entry function."""
+    import re
+
+    out = {}
+    for source, text in logs.items():
+        rows, row = [], None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                mangled = m.group(1)
+                name = re.match(r"_ZN3hvt(\d+)", mangled)
+                kernel = mangled
+                if name:  # hvt::<name><template arguments>: dtypes and integers
+                    end = name.end() + int(name.group(1))
+                    kernel, rest = mangled[name.end():end], mangled[end:]
+                    if rest.startswith("I") and "EE" in rest:
+                        args = re.findall(r"(13__nv_bfloat16)|^(f)E|Li(\d+)E|Lb(\d)E",
+                                          rest[1:rest.index("EE") + 1])
+                        kernel += "<" + ", ".join(
+                            {"13__nv_bfloat16": "bf16", "f": "f32"}.get(a, a)
+                            for a in ("".join(t) for t in args)) + ">"
+                row = {"kernel": kernel, "registers": None, "static_smem": 0, "spill_stores": 0,
+                       "spill_loads": 0}
+                rows.append(row)
+                continue
+            if row is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                row["spill_stores"], row["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                row["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                row["static_smem"] = int(sm.group(1)) if sm else 0
+        out[source] = rows
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -1790,6 +1896,14 @@ def main(argv=None) -> int:
     logs = _build.build_all()
     log(f"[2] built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     (OUT_DIR / "ptxas.txt").write_text("\n".join(f"== {k}\n{v}" for k, v in logs.items()))
+    ptxas = ptxas_summary(logs)
+    for source, rows in ptxas.items():
+        log(f"  ptxas {source}: " + "; ".join(
+            f"{r['kernel']} {r['registers']} regs, {r['static_smem']} B static smem, spills "
+            f"{r['spill_stores']}/{r['spill_loads']} B" for r in rows))
+    bwd_smem = _build.load("window_attention_bwd").hvt_window_attention_bwd_smem
+    log("  window_attention_bwd dynamic shared memory per block: "
+        f"bf16 {bwd_smem(0)} B, f32 {bwd_smem(1)} B")
 
     log(f"[3] kernels vs plain versions, bf16 (the retired halves also f32), batch {BATCH}")
     checked = kernel_records(timing=False)
@@ -1848,10 +1962,17 @@ def main(argv=None) -> int:
             f"stage {st['stage']} shift {st['shift']} {st['ms']:.3f}/{st['wrapper_ms']:.3f}/"
             f"{st['bytes'] / H100_BYTES_PER_S * 1e3:.3f}/{st['plain_ms']:.3f}/{st['library_ms']:.3f}"
             for st in bwd["stages"]))
+    log(f"  {BWD_KERNEL}: " + host_device_line(bwd))
+
+    log(f"[6] {BWD_KERNEL} vs plain version, f32, batch {TRAIN_BATCH} (check only)")
+    bwd_f32 = backward_records(False, torch.float32)
 
     log(f"[6] window_attention_bwd (split q, k, v) vs plain version, bf16, batch {TRAIN_BATCH}")
     split_checked = split_backward_records(timing=False)
     split_bwd = split_backward_records(timing=True)
+    log(f"[6] window_attention_bwd (split q, k, v) vs plain version, f32, batch {TRAIN_BATCH} "
+        "(check only)")
+    split_f32 = split_backward_records(False, torch.float32)
     wrapper_ms = sum(st["launches_per_forward"] * st["wrapper_ms"] for st in split_bwd["stages"])
     log(f"  window_attention_bwd: {split_bwd['ms']:.4f} ms kernel through autograd "
         f"({wrapper_ms:.4f} ms in the launch wrapper alone), {split_bwd['plain_ms']:.4f} ms plain, "
@@ -1860,6 +1981,7 @@ def main(argv=None) -> int:
         f"{card}; per launch (autograd/wrapper/plain/library): " + "; ".join(
             f"stage {st['stage']} shift {st['shift']} {st['ms']:.3f}/{st['wrapper_ms']:.3f}/"
             f"{st['plain_ms']:.3f}/{st['library_ms']:.3f}" for st in split_bwd["stages"]))
+    log("  window_attention_bwd: " + host_device_line(split_bwd))
 
     log(f"[6] fused halves' backward kernels vs plain versions, bf16, batch {TRAIN_BATCH}")
     fused_checked = fused_backward_records(timing=False)
@@ -2038,6 +2160,8 @@ def main(argv=None) -> int:
                                             "timed": fused[k]["stages"]} for k in FUSED_GRADS},
               "split_backward_stages": {"check": split_checked["stages"],
                                         "timed": split_bwd["stages"]},
+              "backward_f32_check": {"packed": bwd_f32["stages"], "split": split_f32["stages"]},
+              "ptxas": ptxas,
               "window_attention_fwd_f32": {"check": checked["window_attention_fwd_f32"]["stages"],
                                            "timed": timed["window_attention_fwd_f32"]["stages"]},
               "routes_train": routes_train,
@@ -2108,6 +2232,17 @@ def main(argv=None) -> int:
                 f"{r['name'][:40]} {r['ms_per_step']:.3f} ms x{r['calls']}" for r in prof["rows"][:14]))
         log("  by operator: " + "; ".join(
             f"{r['name'][:40]} {r['ms_per_step']:.3f} ms x{r['calls']}" for r in prof["ops"][:14]))
+        label = "fuse_attn_train=False fallback_xla=False"
+        prof = report["profile"][f"train_step fuse=True {label}"] = profile_train_step(
+            training_config(fuse=True, fuse_attn_train=False, fallback_xla=False),
+            PROFILE_NAMES["packed_fused"])
+        prof["share_of_median_step"] = prof["device_ms"] / routes_train[label]["step_ms_median"]
+        log(f"  profile train step fuse=True {label}: {prof['device_ms']:.2f} ms of kernel "
+            f"time in a {prof['step_ms']:.2f} ms profiled step (busy {100 * prof['busy_share']:.1f}%; "
+            f"{100 * prof['share_of_median_step']:.1f}% of phase 11's median step), backward "
+            f"kernels {prof['backward_kernel_ms']:.3f} ms, forward kernels "
+            f"{prof['forward_kernel_ms']:.3f} ms; " + "; ".join(
+                f"{r['name'][:40]} {r['ms_per_step']:.3f} ms x{r['calls']}" for r in prof["rows"][:14]))
         prof = report["profile"]["swinv2_base train_step fuse=True"] = profile_train_step(
             training_config("swinv2_base", fuse=True), PROFILE_NAMES["base"])
         prof["share_of_median_step"] = prof["device_ms"] / base_train["step_ms_median"]

@@ -24,90 +24,161 @@
 //
 // Design. The TPU kernel carries dz and dscale across its sequential batch
 // grid axis; blocks on Hopper run in no order, so that does not carry over,
-// and per-window dz partials would be 236 MB at stage 1. Here one block owns
-// (a chunk of `per_block` images, one window id, one head): it loops over the
-// chunk's windows of that id, keeping the head's q̂, k̂, v, dO, P, dS and cos in
-// dynamic shared memory (65 KB at N = 49, D = 32, above the 48 KB static
-// limit) and the chunk's dz sum in shared memory (each thread owns the same
-// elements in every window, so the sum needs no atomics). Each block writes
-// one (N, N) dz partial and one dscale partial; a second kernel sums the
-// partials over chunks in a fixed order. The result is deterministic, and
-// the wrapper picks the chunk size so that every stage launches about 1,000
-// blocks (about 2.5 waves of the 132 SMs at 3 resident blocks each, the
-// shared memory's limit), including stage 4,
-// where one block per (window id, head) would give 24 blocks. The partials
-// cost ~10 MB of traffic at stage 1 against 0.5 GB of qkv, dO and dqkv.
-// The N x N work runs on CUDA cores in f32 like the forward (N = 49 fits
-// no tensor-core tile without 30% padding); dq, dk and dv are rounded to the
-// inputs' dtype once, at the store, and dz and dscale stay f32.
-#include "common.cuh"
+// and per-window dz partials would be 236 MB at stage 1. Here one block of
+// four warps owns (a chunk of `per_block` images, one window id, one head)
+// and loops over the chunk's windows of that id. Each window's q, k, v and
+// dO tiles (N <= 64 rows of D = 32, zero-padded to 64 rows) arrive by
+// cp.async in 16-byte pieces into one of two buffers, so the next window
+// loads while this one computes (f32 inputs are split into three bf16
+// pieces on their way in, synchronously). The per-window math is
+// attention_window_bwd_tc (attention_bwd_tc.cuh): all five products on
+// mma.sync tensor cores with bf16 operands and f32 accumulation, the
+// normalisation folded out of the products and every f32 operand split into
+// bf16 pieces, so the results keep f32 accuracy. The chunk's dz stays
+// in registers (a lane holds the same (i, j) elements in every window) and
+// dscale in one register per thread; each block writes one (N, N) dz partial
+// and one dscale partial, and a second kernel sums the partials over chunks
+// in a fixed order: no atomics, the same bits on every run. Shared memory is
+// 66.5 KB a block in bf16 (130.5 KB in f32): two input buffers, P and the
+// scaled dS (their hi and lo halves, one after the other in the same tiles),
+// the chunk's z (loaded once) and the rows' inverse norms. dq, dk and dv
+// are rounded to the inputs' dtype once, at the store, and dz and dscale
+// stay f32. The wrapper (window_attention_cuda.tc_backward_chunks) sizes
+// the chunks: about one wave of blocks a launch.
+#include "attention_bwd_tc.cuh"
 
 namespace hvt {
 
-constexpr int kBwdThreads = 256;
-
-// q, k, v and their gradients in the layout `in`, dO in `go`.
+// Input pieces: bf16 inputs as they are, f32 inputs in three bf16 pieces.
 template <typename T>
-__global__ void __launch_bounds__(kBwdThreads)
-attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     HeadTiles in, const T* __restrict__ dout, HeadTiles go,
-                     const float* __restrict__ scale, const float* __restrict__ z, int nwz,
-                     T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
-                     float* __restrict__ dz_part, float* __restrict__ ds_part, int nb,
-                     int per_block, int n, int d, int heads) {
-  extern __shared__ float smem[];
-  const int ld = d + 1, ldS = n + 1;
-  float* Q = smem;           // q, then q̂
-  float* K = Q + n * ld;     // k, then k̂
-  float* V = K + n * ld;     // v, then dq̂
-  float* G = V + n * ld;     // dO, then dk̂
-  float* P = G + n * ld;     // logits, then softmax
-  float* D = P + n * ldS;    // dO·vᵀ, then dS
-  float* Cs = D + n * ldS;   // cos = q̂k̂ᵀ
-  float* Z = Cs + n * ldS;   // this block's dz sum, n x n
-  float* invQ = Z + n * n;   // rsqrt(Σq² + 1e-24) per row
-  float* invK = invQ + n;
-  float* red = invK + n;     // one partial per warp
+constexpr int tc_pieces() {
+  return sizeof(T) == 4 ? 3 : 1;
+}
+
+// Input buffer of one window: the pieces' tiles of q, k, v, dO.
+template <typename T>
+constexpr int tc_stage_elems() {
+  return tc_pieces<T>() * 4 * kTcTile;
+}
+
+// x = p0 + p1 + p2 for a pair (a, b), each piece a packed bf16 pair.
+__device__ __forceinline__ void split3_bf16x2(float a, float b, uint32_t (&p)[3]) {
+  p[0] = pack_bf16x2(a, b);
+  const float2 r = unpack_bf16x2(p[0]);
+  split_bf16x2(a - r.x, b - r.y, p[1], p[2]);
+}
+
+template <typename T>
+constexpr size_t tc_bwd_smem_bytes() {
+  return sizeof(bf16) * (2 * tc_stage_elems<T>() + 2 * kTcRows * kTcRows) +
+         sizeof(float) * (kTcRows * kTcZLd + 2 * kTcRows + kTcThreads / 32);
+}
+
+// q, k, v and their gradients in the layout `in`, dO in `go`; n <= kTcRows,
+// head dim kTcHeadDim, rows 16-byte aligned.
+template <typename T>
+__global__ void __launch_bounds__(kTcThreads, 3)  // registers capped for 3 blocks an SM
+attention_bwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                        HeadTiles in, const T* __restrict__ dout, HeadTiles go,
+                        const float* __restrict__ scale, const float* __restrict__ z, int nwz,
+                        T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+                        float* __restrict__ dz_part, float* __restrict__ ds_part, int nb,
+                        int per_block, int n, int heads) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int kParts = tc_pieces<T>(), kStage = tc_stage_elems<T>();
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* const stages = reinterpret_cast<bf16*>(tc_smem);
+  bf16* const ps = stages + 2 * kStage;
+  float* const zs = reinterpret_cast<float*>(ps + 2 * kTcRows * kTcRows);
+  float* const inv = zs + kTcRows * kTcZLd;
+  float* const red = inv + 2 * kTcRows;
 
   const int wz = blockIdx.x % nwz, chunk = blockIdx.x / nwz, h = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
   const float sc = scale[h];
   const float* zh = z + ((size_t)wz * heads + h) * n * n;
-  for (int e = tid; e < n * n; e += blockDim.x) Z[e] = 0.f;
+  // this (window id, head)'s z, the same for every window of the chunk
+  for (int e = tid; e < kTcRows * kTcRows; e += kTcThreads) {
+    const int r = e / kTcRows, c = e - r * kTcRows;
+    zs[r * kTcZLd + c] = r < n && c < n ? zh[r * n + c] * kLog2e : -INFINITY;
+  }
+
+  // rows n.. of every tile stay zero: the loads below write rows < n only
+  for (int e = tid; e < 2 * kParts * 4 * (kTcRows - n) * 4; e += kTcThreads) {
+    const int ch = e & 3, r = e >> 2, row = n + r % (kTcRows - n), t4 = r / (kTcRows - n);
+    *reinterpret_cast<uint4*>(stages + t4 * kTcTile + swz32(row, 8 * ch)) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+  // window b's tiles into buffer s (window id = row mod nWZ, batch-major rows)
+  auto load = [&](int b, int s) {
+    const int w = b * nwz + wz;
+    bf16* dst = stages + s * kStage;
+    constexpr int kPieces = kF32 ? 8 : 4;  // 16-byte pieces per row
+    for (int e = tid; e < 4 * n * kPieces; e += kTcThreads) {
+      const int op = e / (n * kPieces), rem = e - op * n * kPieces;
+      const int row = rem / kPieces, pc = rem - row * kPieces;
+      const T* from = op == 3 ? dout + go.at(w, h, row)
+                              : (op == 0 ? q : op == 1 ? k : v) + in.at(w, h, row);
+      if constexpr (kF32) {
+        const float4 x = *reinterpret_cast<const float4*>(from + 4 * pc);
+        uint32_t p01[3], p23[3];
+        split3_bf16x2(x.x, x.y, p01);
+        split3_bf16x2(x.z, x.w, p23);
+#pragma unroll
+        for (int part = 0; part < 3; ++part)
+          *reinterpret_cast<uint2*>(dst + (4 * part + op) * kTcTile + swz32(row, 4 * pc)) =
+              make_uint2(p01[part], p23[part]);
+      } else {
+        cp_async16(dst + op * kTcTile + swz32(row, 8 * pc), from + 8 * pc);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float dz[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dz[nt][e] = 0.f;
   float dscale = 0.f;
 
-  const int b_end = min((chunk + 1) * per_block, nb);
-  for (int b = chunk * per_block; b < b_end; ++b) {
-    // window id = row mod nWZ (batch-major rows), as the TPU kernels' index maps
-    const int w = b * nwz + wz;
-    __syncthreads();  // the previous window's last readers are done
-    for (int e = tid; e < n * d; e += blockDim.x) {
-      const int i = e / d, j = e - i * d;
-      const size_t off = in.at(w, h, i) + j;
-      Q[i * ld + j] = to_f32(q[off]);
-      K[i * ld + j] = to_f32(k[off]);
-      V[i * ld + j] = to_f32(v[off]);
-      G[i * ld + j] = to_f32(dout[go.at(w, h, i) + j]);
-    }
+  const int b0 = chunk * per_block, b_end = min(b0 + per_block, nb);
+  load(b0, 0);
+  for (int b = b0; b < b_end; ++b) {
+    const int s = (b - b0) & 1;
+    // the other buffer was last read in the previous window, which ended in a barrier
+    if (b + 1 < b_end) load(b + 1, s ^ 1);
+    else cp_async_commit();
+    cp_async_wait<1>();  // window b's group has landed
     __syncthreads();
-    attention_core_bwd(
-        Q, K, V, G, P, D, Cs, Z, invQ, invK, n, d, ld, sc, zh, dscale,
-        [&](int j, int cc, float val) { dv[in.at(w, h, j) + cc] = from_f32<T>(val); },
-        [&](bool isq, int i, int cc, float val) {
-          (isq ? dq : dk)[in.at(w, h, i) + cc] = from_f32<T>(val);
+    const int w = b * nwz + wz;
+    attention_window_bwd_tc<kParts>(
+        stages + s * kStage, ps, inv, n, sc, zs, dz, dscale,
+        [&](int op, int row, int col, float v0, float v1) {
+          T* p = (op == 0 ? dq : op == 1 ? dk : dv) + in.at(w, h, row) + col;
+          if constexpr (kF32) *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+          else *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(v0, v1);
         });
+    __syncthreads();  // this window's buffers are free
   }
 
   const size_t part = ((size_t)chunk * nwz + wz) * heads + h;
-  for (int e = tid; e < n * n; e += blockDim.x) dz_part[part * n * n + e] = Z[e];
+  float* zp = dz_part + part * n * n;
+  const int r0 = 16 * warp + (lane >> 2), c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + (e >> 1) * 8, col = 8 * nt + c0 + (e & 1);
+      if (row < n && col < n) zp[row * n + col] = dz[nt][e];
+    }
   dscale = warp_sum(dscale);
   if (lane == 0) red[warp] = dscale;
   __syncthreads();
   if (tid == 0) {
-    float s = 0.f;
-    for (int i = 0; i < nwarps; ++i) s += red[i];
-    ds_part[part] = s;
+    float sum = 0.f;
+    for (int i = 0; i < kTcThreads / 32; ++i) sum += red[i];
+    ds_part[part] = sum;
   }
 }
 
@@ -137,19 +208,17 @@ int launch_attention_bwd(const void* q, const void* k, const void* v, HeadTiles 
                          int nwz, void* dq, void* dk, void* dv, float* dz, float* dscale,
                          float* dz_part, float* ds_part, int nwb, int n, int d, int heads,
                          int per_block, int chunks, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (4 * n * (d + 1) + 3 * n * (n + 1) + n * n + 2 * n + kBwdThreads / 32);
-  auto kernel = attention_bwd_kernel<T>;
-  if (smem > 48 * 1024) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kernel<<<dim3(chunks * nwz, heads), kBwdThreads, smem, stream>>>(
+  if (n < 1 || n > kTcRows || d != kTcHeadDim) return -1;
+  const size_t smem = tc_bwd_smem_bytes<T>();
+  auto kernel = attention_bwd_tc_kernel<T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(chunks * nwz, heads), kTcThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), in,
       static_cast<const T*>(dout), go, scale, z, nwz, static_cast<T*>(dq), static_cast<T*>(dk),
-      static_cast<T*>(dv), dz_part, ds_part, nwb / nwz, per_block, n, d, heads);
-  cudaError_t err = cudaGetLastError();
+      static_cast<T*>(dv), dz_part, ds_part, nwb / nwz, per_block, n, heads);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t total = (size_t)nwz * heads * n * n;
   const size_t work = total > (size_t)heads ? total : (size_t)heads;
@@ -209,4 +278,10 @@ extern "C" int hvt_window_attention_bwd(const void* q, const void* k, const void
   return hvt::launch_attention_bwd<float>(q, k, v, tiles, dout, tiles, scale, z, nwz, dq, dk, dv,
                                           dz, dscale, dz_part, ds_part, nwb, n, d, heads,
                                           per_block, chunks, s);
+}
+
+// Dynamic shared memory a block of the backward kernel takes, dtype as above.
+extern "C" int hvt_window_attention_bwd_smem(int dtype) {
+  return dtype == 0 ? (int)hvt::tc_bwd_smem_bytes<hvt::bf16>()
+                     : (int)hvt::tc_bwd_smem_bytes<float>();
 }

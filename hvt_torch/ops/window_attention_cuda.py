@@ -52,21 +52,30 @@ SPLIT_BWD_KERNEL = _build.Kernel(
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 SMEM_BYTES = 227 * 1024  # the H100's dynamic shared memory per block
 BWD_BLOCKS = 1056  # backward blocks per launch to aim for: 8 per SM of the H100
+# The tensor-core backward (csrc/attention_bwd_tc.cuh): head dim and padded
+# window it is built for, and blocks per launch to aim for: one wave of 3
+# resident blocks (its register cap) on each of the H100's 132 SMs.
+TC_HEAD_DIM = 32
+TC_ROWS = 64
+TC_BWD_BLOCKS = 396
 LOG_MAX_SCALE = math.log(100.0)
 
 
 def unsupported(n: int, c: int, heads: int, backward: bool = False) -> str | None:
     """Why the forward (or the ``backward``) kernel cannot take windows of
-    ``n`` tokens at width ``c`` with ``heads`` heads, or None: one block
-    holds the head's q, k, v (and dO) and the N x N logits (and their
-    gradients) in f32 shared memory."""
+    ``n`` tokens at width ``c`` with ``heads`` heads, or None. The forward
+    holds the head's q, k, v and the N x N logits in f32 shared memory; the
+    backward runs on tensor cores at head dim TC_HEAD_DIM with the window
+    padded to TC_ROWS tokens."""
     if c % heads:
         return f"width {c} does not split into {heads} heads"
     d = c // heads
     if backward:
-        smem = 4 * (4 * n * (d + 1) + 3 * n * (n + 1) + n * n + 2 * n + 8)
-    else:
-        smem = 4 * (3 * n * (d + 1) + n * (n + 1))
+        if d != TC_HEAD_DIM or n > TC_ROWS:
+            return (f"the backward kernel takes head dim {TC_HEAD_DIM} and windows of at most "
+                    f"{TC_ROWS} tokens, not head dim {d} and {n} tokens")
+        return None
+    smem = 4 * (3 * n * (d + 1) + n * (n + 1))
     if smem > SMEM_BYTES:
         return (f"windows of {n} tokens at head dim {d} need {smem} B of shared memory "
                 f"(the card has {SMEM_BYTES})")
@@ -200,6 +209,33 @@ def backward_chunks(nwb: int, nwz: int, heads: int) -> tuple[int, int]:
     return per_block, -(-nb // per_block)
 
 
+def tc_backward_chunks(nwb: int, nwz: int, heads: int) -> tuple[int, int]:
+    """(images per block, chunks) of the tensor-core backward kernel: one
+    block per (chunk of images, window id, head), the chunks as few and
+    long as give about TC_BWD_BLOCKS blocks in all."""
+    nb = nwb // nwz
+    per_block = -(-nb // max(1, round(TC_BWD_BLOCKS / (nwz * heads))))
+    return per_block, -(-nb // per_block)
+
+
+def _refuse_backward(name: str, n: int, c: int, heads: int, *inputs) -> None:
+    """Raise before the forward runs where autograd would later call a
+    backward kernel that cannot take the shape: CUDA inputs, grad enabled
+    and one of ``inputs`` requiring it."""
+    if not (inputs[0].is_cuda and torch.is_grad_enabled()
+            and any(t is not None and t.requires_grad for t in inputs)):
+        return
+    why = unsupported(n, c, heads, backward=True)
+    if why:
+        raise ValueError(f"{name}: {why}")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t itself where its data starts on a 16-byte boundary (the kernel's
+    16-byte loads), else a copy that does."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def packed_backward(qkv: torch.Tensor, dout: torch.Tensor, z: torch.Tensor,
                     scale: torch.Tensor, num_heads: int):
     """(dqkv, dz, dscale) of the forward above: the kernel for a CUDA
@@ -215,10 +251,10 @@ def packed_backward(qkv: torch.Tensor, dout: torch.Tensor, z: torch.Tensor,
         raise ValueError(f"window_attention_packed backward: dO {tuple(dout.shape)} "
                          f"vs qkv {tuple(qkv.shape)}")
     nwz = z.shape[0]
-    qkv = qkv.contiguous()
-    dout = dout.to(qkv.dtype).contiguous()
+    qkv = _aligned(qkv.contiguous())
+    dout = _aligned(dout.to(qkv.dtype).contiguous())
     scale = scale.to(qkv.device, torch.float32).contiguous()
-    per_block, chunks = backward_chunks(nwb, nwz, num_heads)
+    per_block, chunks = tc_backward_chunks(nwb, nwz, num_heads)
     dev = qkv.device
     dqkv = torch.empty_like(qkv)
     dz = torch.empty((nwz, num_heads, n, n), dtype=torch.float32, device=dev)
@@ -258,7 +294,10 @@ class _PackedAttention(torch.autograd.Function):
 def window_attention_packed(qkv, logit_scale, bias, mask=None, *, num_heads):
     """qkv (nWB, N, 3C) → (nWB, N, C), same dtype, differentiable in qkv,
     logit_scale and bias. A CPU tensor takes the plain versions; a CUDA
-    tensor (bf16 or f32) takes the kernels."""
+    tensor (bf16 or f32) takes the kernels; where it needs a gradient, a
+    shape the backward kernel cannot take raises before the forward runs."""
+    nwb, n, c3 = qkv.shape
+    _refuse_backward("window_attention_packed", n, c3 // 3, num_heads, qkv, logit_scale, bias)
     return _PackedAttention.apply(qkv, logit_scale, bias, mask, num_heads)
 
 
@@ -352,10 +391,10 @@ def split_backward(q, k, v, dout, z: torch.Tensor, scale: torch.Tensor):
                          f"{tuple(q.shape)}")
     nwb, heads, n, d = q.shape
     nwz = z.shape[0]
-    q, k, v = (t.contiguous() for t in (q, k, v))
-    g = dout.to(q.dtype).contiguous()
+    q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
+    g = _aligned(dout.to(q.dtype).contiguous())
     scale = scale.to(q.device, torch.float32).contiguous()
-    per_block, chunks = backward_chunks(nwb, nwz, heads)
+    per_block, chunks = tc_backward_chunks(nwb, nwz, heads)
     dev = q.device
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dz = torch.empty((nwz, heads, n, n), dtype=torch.float32, device=dev)
@@ -392,5 +431,8 @@ def window_attention_split(q, k, v, logit_scale, bias, mask=None):
     """q, k, v (nWB, H, N, D) → (nWB, H, N, D) in q's dtype, differentiable
     in q, k, v, logit_scale and bias. A CPU tensor takes the plain versions
     (any dtypes, as hvt's contract); CUDA tensors, all bf16 or all f32, take
-    the kernels."""
+    the kernels; where they need a gradient, a shape the backward kernel
+    cannot take raises before the forward runs."""
+    nwb, heads, n, d = q.shape
+    _refuse_backward("window_attention", n, heads * d, heads, q, k, v, logit_scale, bias)
     return _SplitAttention.apply(q, k, v, logit_scale, bias, mask)

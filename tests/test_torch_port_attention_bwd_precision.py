@@ -1,0 +1,220 @@
+"""The precision plan of the tensor-core window-attention backward, on the CPU.
+
+``csrc/attention_bwd_tc.cuh`` runs every product of the attention core's
+backward on tensor cores (bf16 operands, f32 accumulation) and keeps f32
+accuracy by these means: the normalisation is folded out of the products
+(cos = (q·kᵀ)·invQ·invK, dq̂ = scale·(dS·diag(invK))·k, dk̂ =
+scale·(diag(invQ)·dS)ᵀ·q), so bf16 q, k, v and dO enter unrounded; P and the
+scaled dS are split into bf16 halves hi = bf16(x), lo = bf16(x − hi) and
+multiplied as hi·b + lo·b; f32 inputs are split into three bf16 pieces
+p0 + p1 + p2, cos and dP take the six piece products (p0p0, p0p1, p1p0, p1p1,
+p0p2, p2p0), the norms the pieces' sum, and P and dS meet p0 and p1 (hi·p0 +
+hi·p1 + lo·p0). ``_plan_backward`` below emulates that operand handling in
+plain torch: bf16-exact operands multiplied in f32 (each product exact, the
+sum in f32, as the tensor cores accumulate). The card cannot be asked here,
+so this shows the plan before the card runs it.
+
+At SwinV2-T's four stage shapes (window 7; C = 96, 192, 384, 768 with 3,
+6, 12, 24 heads; stages 1-3 shifted by 3 with the mask) at batch 2, from
+numpy-seeded qkv and dO, the emulation is held against hvt's
+``packed_heads_backward`` (the packed kernels' body) and ``_backward`` (the
+split-q/k/v Pallas kernel, in interpret mode) within the tolerances
+``chip_smoke.py`` holds the kernels to: with bf16 inputs the gradients of q,
+k and v are rounded to bf16 on both sides, 1e-2·max|ref|, and dz and dscale
+(f32 sums) 1e-3; with f32 inputs every output 1e-4. A control shows the test
+can fail: rounding P and dS to one bf16 each, with the f32 inputs still
+in pieces, misses 1e-4; and two pieces of f32 inputs leave less than a
+factor 2.5 of margin where three leave more than 5.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hvt.ops import window_attention_pallas as jwap
+from hvt_torch.ops import window_attention as wa
+
+WINDOW, BATCH = 7, 2
+STAGES = ((56, 96, 3), (28, 192, 6), (14, 384, 12), (7, 768, 24))  # (grid, C, heads)
+
+
+def _inputs(stage: int, dtype: torch.dtype):
+    """qkv (nWB, N, 3C) and dO (nWB, N, C) in ``dtype``, held as f32; z
+    (nWZ, H, N, N); scale (H,) with head 0 clamped at 100."""
+    grid, c, heads = STAGES[stage]
+    rng = np.random.default_rng(40 + stage)
+    n, nwz = WINDOW * WINDOW, (grid // WINDOW) ** 2
+    nwb = BATCH * nwz
+    qkv = rng.normal(size=(nwb, n, 3 * c)) + rng.normal(size=3 * c) * 0.5
+    dout = rng.normal(size=(nwb, n, c))
+    ls = np.log(10.0) + rng.normal(size=heads) * 0.3
+    ls[0] = 5.0
+    bias = 16.0 / (1.0 + np.exp(-rng.normal(size=(heads, n, n))))
+    shift = WINDOW // 2 if grid > WINDOW else 0
+    z = bias[None]
+    if shift:
+        z = z + wa.shift_attn_mask((grid, grid), WINDOW, shift)[:, None]
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a, np.float32)).to(dt).float()
+
+    scale = torch.exp(torch.clamp(t(ls, torch.float32), max=float(np.log(100.0))))
+    return t(qkv), t(dout), t(z, torch.float32), scale, heads
+
+
+def _pieces(x: torch.Tensor, count: int) -> list:
+    """x as ``count`` bf16 pieces (held in f32), largest first."""
+    out = []
+    for _ in range(count):
+        out.append(x.to(torch.bfloat16).float())
+        x = x - out[-1]
+    return out
+
+
+def _bf16_exact(x: torch.Tensor) -> bool:
+    return bool(torch.equal(x, x.to(torch.bfloat16).float()))
+
+
+def _mm(a: list, b: list, terms) -> torch.Tensor:
+    """Σ a[i] @ b[j] over the piece products ``terms``, as the tensor cores
+    run them: every piece bf16-exact, each product exact in f32."""
+    assert all(_bf16_exact(x) for x in a + b)
+    return sum(a[i] @ b[j] for i, j in terms)
+
+
+SIX = ((0, 0), (0, 1), (1, 0), (1, 1), (0, 2), (2, 0))  # f32 inputs, cos and dP
+THREE = ((0, 0), (0, 1), (1, 0))  # hi·p0 + hi·p1 + lo·p0: P or dS against f32 inputs
+TWO = ((0, 0), (1, 0))  # hi·x + lo·x: P or dS against bf16 inputs
+
+
+def _plan_backward(q, k, v, go, z, scale, f32_inputs: bool, halves: bool = True,
+                   count: int = 3):
+    """The kernel's operand handling on (g, H, N, D) f32 q, k, v, dO:
+    (dq, dk, dv, dz (nWZ, H, N, N), dscale (H,)), all f32. The controls:
+    with ``halves`` False, P and dS enter their products as one bf16 each;
+    ``count`` < 3 cuts f32 inputs into fewer pieces."""
+    g, heads, n, _ = q.shape
+    nwz = z.shape[0]
+    count = count if f32_inputs else 1
+    Q, K, V, G = (_pieces(x, count) for x in (q, k, v, go))
+    q, k = sum(Q), sum(K)  # what the norms and the norm's backward see
+    sq = tuple(t for t in SIX if max(t) < count) if f32_inputs else ((0, 0),)
+    sp = THREE if f32_inputs else TWO
+    if not halves:  # P or dS as its hi half alone
+        sp = tuple(term for term in sp if term[0] == 0)
+
+    def tr(pieces):
+        return [x.transpose(-1, -2) for x in pieces]
+
+    def with_inputs(a, pieces):  # P or dS (split in two) against an input's pieces
+        return _mm(_pieces(a, 2), pieces, sp)
+
+    sc = scale.reshape(1, heads, 1, 1)
+    iq = torch.rsqrt((q * q).sum(-1, keepdim=True) + 1e-24)
+    ik = torch.rsqrt((k * k).sum(-1, keepdim=True) + 1e-24)
+    cos = _mm(Q, tr(K), sq) * iq * ik.transpose(-1, -2)
+    logits = (cos * sc).reshape(g // nwz, nwz, heads, n, n) + z[None]
+    p = torch.softmax(logits.reshape(g, heads, n, n), dim=-1)
+    dp = _mm(G, tr(V), sq)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dz = ds.reshape(g // nwz, nwz, heads, n, n).sum(0)
+    dscale = (ds * cos).sum((0, 2, 3))
+    dqh = sc * with_inputs(ds * ik.transpose(-1, -2), K)
+    dkh = sc * with_inputs((iq * ds).transpose(-1, -2), Q)
+    dv = with_inputs(p.transpose(-1, -2), G)
+    dq = (dqh - q * iq * iq * (dqh * q).sum(-1, keepdim=True)) * iq
+    dk = (dkh - k * ik * ik * (dkh * k).sum(-1, keepdim=True)) * ik
+    return dq, dk, dv, dz, dscale
+
+
+def _heads(qkv, dout, heads):
+    """(g, N, 3C), (g, N, C) → q, k, v, dO each (g, H, N, D)."""
+    g, n, c3 = qkv.shape
+    q, k, v = wa.split_heads(qkv, heads)
+    return q, k, v, dout.reshape(g, n, heads, c3 // 3 // heads).transpose(1, 2)
+
+
+def _hvt_packed(qkv, dout, z, scale, heads):
+    """hvt's packed_heads_backward on the f32 values, z expanded per window:
+    (dq, dk, dv (g, H, N, D), dz, dscale)."""
+    g, n, c3 = qkv.shape
+    nwz = z.shape[0]
+    zw = jnp.asarray(z.repeat(g // nwz, 1, 1, 1).numpy())
+    dqkv, dz, dscale = jwap.packed_heads_backward(
+        jnp.asarray(qkv.numpy()), jnp.asarray(dout.numpy()), zw,
+        jnp.asarray(scale.numpy()).reshape(heads, 1, 1), heads, g, n, c3 // 3, g)
+    dqkv = torch.as_tensor(np.array(dqkv))
+    dq, dk, dv = (t.reshape(g, n, heads, -1).transpose(1, 2) for t in dqkv.split(c3 // 3, -1))
+    dz = torch.as_tensor(np.array(dz)).reshape(g // nwz, nwz, heads, n, n).sum(0)
+    return dq, dk, dv, dz, torch.as_tensor(np.array(dscale)).sum(-1)
+
+
+def _hvt_split(q, k, v, go, z, scale, dtype):
+    """hvt's split-q/k/v Pallas backward ``_backward`` in interpret mode, on
+    inputs of ``dtype`` (its dq, dk, dv come out in that dtype)."""
+    jd = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    args = [jnp.asarray(x.contiguous().numpy()).astype(jd) for x in (q, k, v)]
+    heads = q.shape[1]
+    out = jwap._backward(*args, jnp.asarray(scale.numpy()).reshape(heads, 1, 1),
+                         jnp.asarray(z.numpy()), jnp.asarray(go.contiguous().numpy()).astype(jd),
+                         interpret=True)
+    dq, dk, dv, dz, dscale = (torch.as_tensor(np.array(x.astype(jnp.float32))) for x in out)
+    return dq, dk, dv, dz, dscale.sum(-1)
+
+
+def _close(got, ref, tol, what):
+    got, ref = got.double(), ref.double()
+    assert got.shape == ref.shape, (what, got.shape, ref.shape)
+    assert torch.isfinite(got).all(), what
+    err, top = float((got - ref).abs().max()), float(ref.abs().max())
+    assert err <= tol * top, f"{what}: max|Δ| {err:.3g} > {tol}·{top:.3g}"
+
+
+@pytest.mark.parametrize("layout", ["packed", "split"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("stage", range(4))
+def test_precision_plan_matches_hvt_backward(stage, dtype, layout):
+    qkv, dout, z, scale, heads = _inputs(stage, dtype)
+    q, k, v, go = _heads(qkv, dout, heads)
+    f32_inputs = dtype == torch.float32
+    assert f32_inputs or all(_bf16_exact(x) for x in (q, k, v, go))
+    got = _plan_backward(q, k, v, go, z, scale, f32_inputs)
+    if layout == "packed":
+        ref = _hvt_packed(qkv, dout, z, scale, heads)
+    else:
+        ref = _hvt_split(q, k, v, go, z, scale, dtype)
+    grad_tol, sum_tol = (1e-4, 1e-4) if f32_inputs else (1e-2, 1e-3)
+    for name, a, b, tol in zip(("dq", "dk", "dv", "dz", "dscale"), got, ref,
+                               (grad_tol, grad_tol, grad_tol, sum_tol, sum_tol)):
+        if name in ("dq", "dk", "dv") and dtype == torch.bfloat16:  # rounded at the store
+            a, b = a.to(dtype), b.to(dtype)
+        _close(a, b, tol, f"{layout} stage {stage + 1} {dtype} {name}")
+
+
+def test_single_bf16_p_and_ds_miss_the_f32_tolerance():
+    """The control: f32 inputs still in pieces, but P and dS enter their
+    products as one bf16 each. dq, dk or dv then misses 1e-4·max|ref|
+    against hvt, which the plan meets (above)."""
+    qkv, dout, z, scale, heads = _inputs(0, torch.float32)
+    q, k, v, go = _heads(qkv, dout, heads)
+    ref = _hvt_packed(qkv, dout, z, scale, heads)
+    got = _plan_backward(q, k, v, go, z, scale, True, halves=False)
+    rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(got[:3], ref[:3])]
+    assert max(rel) > 1e-4, rel
+
+
+def test_three_pieces_of_f32_inputs_where_two_leave_a_thin_margin():
+    """Why f32 inputs enter as three bf16 pieces: with two, the inputs are
+    2^-18 off, which the logit scale (100 at head 0) multiplies, and dq, dk
+    or dv land more than 4e-5·max|ref| from hvt's, within a factor 2.5 of
+    the 1e-4 tolerance; with three, below 2e-5."""
+    qkv, dout, z, scale, heads = _inputs(0, torch.float32)
+    q, k, v, go = _heads(qkv, dout, heads)
+    ref = _hvt_packed(qkv, dout, z, scale, heads)
+
+    def worst(count):
+        got = _plan_backward(q, k, v, go, z, scale, True, count=count)
+        return max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(got[:3], ref[:3]))
+
+    assert worst(2) > 4e-5 and worst(3) < 2e-5, (worst(2), worst(3))

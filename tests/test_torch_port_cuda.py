@@ -9,7 +9,8 @@ CUDA toolkit:
 This file imports neither jax nor hvt, so it runs where only the port is
 installed (``--noconftest`` skips tests/conftest.py, which sets up jax).
 Inputs are bf16 (and f32 for the attention cores) at SwinV2-T and SwinV2-B
-widths (C = 96 to 1024, head dim 32, window 7), on every layout: packed and
+widths (C = 96 to 1024, head dim 32, window 7; the attention backwards
+also at window 8), on every layout: packed and
 split q/k/v attention, the NHWC and the windowed attention half; kernel and
 plain version share the arithmetic contract (bf16
 operands, f32 accumulation, f32 softmax and LayerNorm), so they differ by
@@ -125,22 +126,44 @@ def test_attention_half_nhwc_kernel(cuda, c, shift):
            f"attention half resid C={c}")
 
 
-@pytest.mark.parametrize("c,shift,dtype", [
-    (96, 0, torch.bfloat16), (96, 3, torch.bfloat16), (768, 0, torch.bfloat16),
-    (96, 3, torch.float32),
-])
-def test_window_attention_packed_backward_kernel(cuda, c, shift, dtype):
-    """Stage 1 (C = 96, unshifted and shifted) and stage 4 (C = 768) widths
-    at batch 2. dqkv is rounded to qkv's dtype at the store: max|Δ| ≤
-    1e-2·max|plain| in bf16, 1e-4 in f32; dbias and dlogit_scale are f32
-    sums over windows in another order: 1e-3."""
-    heads, window = c // 32, 7
-    p = _params(c, heads, 49, cuda, seed=3 * c + shift)
+def _window_inputs(c, window, shift, dtype, device, seed):
+    """_params for windows of window² tokens on a 2 x 2-window map per image
+    (batch 2), the shift mask, and qkv projected from the partitioned map."""
+    heads, n = c // 32, window * window
+    p = _params(c, heads, n, device, seed)
+    if window != 7:
+        rng = np.random.default_rng(seed + 1)
+        p["x"] = torch.as_tensor(rng.normal(size=(2, 2 * window, 2 * window, c)).astype(np.float32),
+                                 device=device).bfloat16()
     p["ls"][0] = 5.0  # above the log 100 clamp
-    mask = torch.as_tensor(wa.shift_attn_mask((14, 14), window, shift), device=cuda) if shift else None
-    xw = wa.window_partition(p["x"], window)
-    qkv = fh.bf16_linear(xw, p["wqkv"], p["bqkv"]).to(dtype).contiguous()
-    dout = torch.randn(qkv.shape[0], 49, c, device=cuda, generator=torch.Generator(cuda).manual_seed(c)).to(dtype)
+    side = 2 * window if window != 7 else 14
+    mask = (torch.as_tensor(wa.shift_attn_mask((side, side), window, shift), device=device)
+            if shift else None)
+    qkv = fh.bf16_linear(wa.window_partition(p["x"], window), p["wqkv"], p["bqkv"]).to(dtype)
+    return p, mask, qkv.contiguous()
+
+
+# Stage 1 (C = 96, unshifted and shifted), stages 2-3 (C = 192, 384) and
+# stage 4 (C = 768) widths at window 7, and window 8 (N = 64, the padded
+# tile's full height), in bf16 and f32.
+BACKWARD_CASES = [
+    (96, 0, torch.bfloat16, 7), (96, 3, torch.bfloat16, 7), (768, 0, torch.bfloat16, 7),
+    (96, 3, torch.float32, 7), (192, 3, torch.bfloat16, 7), (384, 0, torch.bfloat16, 7),
+    (192, 3, torch.float32, 7), (384, 0, torch.float32, 7), (96, 4, torch.bfloat16, 8),
+    (96, 4, torch.float32, 8), (384, 0, torch.bfloat16, 8), (384, 0, torch.float32, 8),
+]
+
+
+@pytest.mark.parametrize("c,shift,dtype,window", BACKWARD_CASES)
+def test_window_attention_packed_backward_kernel(cuda, c, shift, dtype, window):
+    """The packed backward kernel at batch 2 through the autograd Function.
+    dqkv is rounded to qkv's dtype at the store: max|Δ| ≤ 1e-2·max|plain| in
+    bf16, 1e-4 in f32; dbias and dlogit_scale are f32 sums over windows in
+    another order: 1e-3."""
+    heads, n = c // 32, window * window
+    p, mask, qkv = _window_inputs(c, window, shift, dtype, cuda, seed=3 * c + shift)
+    gen = torch.Generator(cuda).manual_seed(c)
+    dout = torch.randn(qkv.shape[0], n, c, device=cuda, generator=gen).to(dtype)
 
     def grads(fn):
         leaves = [qkv.clone().requires_grad_(), p["ls"].clone().requires_grad_(),
@@ -155,9 +178,77 @@ def test_window_attention_packed_backward_kernel(cuda, c, shift, dtype):
     rq, rls, rb = grads(wac.window_attention_packed_plain)  # torch autograd of the plain forward
     assert wac.BWD_KERNEL.launches == before + 1
     assert dq.dtype == dtype and dls[0].item() == 0.0
-    _close(dq, rq, 1e-2 if dtype == torch.bfloat16 else 1e-4, f"dqkv C={c} shift={shift}")
-    _close(db, rb, 1e-3, f"dbias C={c} shift={shift}")
-    _close(dls, rls, 1e-3, f"dlogit_scale C={c} shift={shift}")
+    what = f"C={c} shift={shift} window={window} {dtype}"
+    _close(dq, rq, 1e-2 if dtype == torch.bfloat16 else 1e-4, f"dqkv {what}")
+    _close(db, rb, 1e-3, f"dbias {what}")
+    _close(dls, rls, 1e-3, f"dlogit_scale {what}")
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_window_attention_backward_kernels_are_deterministic(cuda, split):
+    """Two runs of a backward kernel on the same inputs give bit-identical
+    dz and dscale (per-chunk partials summed in a fixed order, no atomics),
+    and dq, dk, dv too; so do inputs whose data start 2 bytes past a 16-byte
+    boundary (the wrapper copies them for the kernel's 16-byte loads).
+    Stage 1's width with the shift mask, bf16."""
+    c, heads = 96, 3
+    p, mask, qkv = _window_inputs(c, 7, 3, torch.bfloat16, cuda, seed=31)
+    z, scale = wac.merge_bias_mask(p["bias"], mask), wac.attention_scale(p["ls"])
+    gen = torch.Generator(cuda).manual_seed(5)
+    dout = torch.randn(qkv.shape[0], 49, c, device=cuda, generator=gen).bfloat16()
+
+    def off(t):
+        return torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)[1:].view(t.shape).copy_(t)
+
+    if split:
+        q, k, v = (t.contiguous() for t in wa.split_heads(qkv, heads))
+        g = dout.reshape(q.shape[0], 49, heads, 32).transpose(1, 2).contiguous()
+        runs = [lambda: wac.split_backward(q, k, v, g, z, scale)] * 2
+        runs.append(lambda: wac.split_backward(off(q), off(k), off(v), off(g), z, scale))
+    else:
+        runs = [lambda: wac.packed_backward(qkv, dout, z, scale, heads)] * 2
+        runs.append(lambda: wac.packed_backward(off(qkv), off(dout), z, scale, heads))
+    first, *others = (run() for run in runs)
+    torch.cuda.synchronize()
+    for other in others:
+        for a, b in zip(first, other):
+            assert torch.equal(a, b)
+
+
+def test_window_attention_backward_refuses_what_its_kernel_does_not_take(cuda):
+    """The tensor-core backward takes head dim 32 and windows of at most 64
+    tokens, raise naming the limits, and nothing is launched: the wrappers,
+    and the public ops before their forward where a gradient is wanted. The
+    forward still runs head dim 64 where none is (no_grad, or no input
+    requiring one)."""
+    before = wac.BWD_KERNEL.launches, wac.SPLIT_BWD_KERNEL.launches
+    fwd_before = wac.KERNEL.launches, wac.SPLIT_KERNEL.launches
+    limits = "head dim 32 and windows of at most 64 tokens"
+    for n, c, heads in ((49, 128, 2), (81, 96, 3)):
+        qkv = torch.zeros(4, n, 3 * c, device=cuda, dtype=torch.bfloat16)
+        z = torch.zeros(1, heads, n, n, device=cuda)
+        scale = torch.ones(heads, device=cuda)
+        with pytest.raises(ValueError, match=limits):
+            wac.packed_backward(qkv, qkv[..., :c], z, scale, heads)
+        q = torch.zeros(4, heads, n, c // heads, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match=limits):
+            wac.split_backward(q, q, q, q, z, scale)
+        ls = torch.zeros(heads, 1, 1, device=cuda, requires_grad=True)
+        bias = torch.zeros(heads, n, n, device=cuda)
+        with pytest.raises(ValueError, match=limits):
+            wac.window_attention_packed(qkv, ls, bias, num_heads=heads)
+        with pytest.raises(ValueError, match=limits):
+            wac.window_attention_split(q, q, q.clone().requires_grad_(), ls.detach(), bias)
+    assert (wac.KERNEL.launches, wac.SPLIT_KERNEL.launches) == fwd_before
+    qkv = torch.zeros(4, 49, 384, device=cuda, dtype=torch.bfloat16)
+    ls = torch.zeros(2, 1, 1, device=cuda, requires_grad=True)
+    bias = torch.zeros(2, 49, 49, device=cuda)
+    wac.packed_forward(qkv, torch.zeros(1, 2, 49, 49, device=cuda), torch.ones(2, device=cuda), 2)
+    with torch.no_grad():
+        wac.window_attention_packed(qkv, ls, bias, num_heads=2)
+    wac.window_attention_packed(qkv, ls.detach(), bias, num_heads=2)
+    assert wac.KERNEL.launches == fwd_before[0] + 3
+    assert (wac.BWD_KERNEL.launches, wac.SPLIT_BWD_KERNEL.launches) == before
 
 
 @pytest.mark.parametrize("c,resid", [(96, True), (96, False), (768, True), (512, True)])
@@ -279,23 +370,22 @@ def test_attention_half_windowed_kernels(cuda, monkeypatch, c, shift):
         _close(a, b, 2e-2, f"windowed attention half C={c} shift={shift} {name}")
 
 
-@pytest.mark.parametrize("c,shift,dtype", [
-    (96, 3, torch.bfloat16), (768, 0, torch.bfloat16), (96, 3, torch.float32),
-    (384, 0, torch.float32),
+@pytest.mark.parametrize("c,shift,dtype,window", [
+    (96, 3, torch.bfloat16, 7), (768, 0, torch.bfloat16, 7), (96, 3, torch.float32, 7),
+    (384, 0, torch.float32, 7), (192, 3, torch.bfloat16, 7), (384, 0, torch.bfloat16, 7),
+    (192, 3, torch.float32, 7), (96, 4, torch.bfloat16, 8), (96, 4, torch.float32, 8),
+    (384, 0, torch.bfloat16, 8), (384, 0, torch.float32, 8),
 ])
-def test_window_attention_split_kernels(cuda, monkeypatch, c, shift, dtype):
+def test_window_attention_split_kernels(cuda, monkeypatch, c, shift, dtype, window):
     """hvt's op on split q, k, v (nWB, H, N, D), forward and backward through
     the split kernels, against the same autograd Function with the plain
     versions: out, dq, dk and dv within 1e-2·max|plain| in bf16 (both round
     P to bf16 before P·v, and every output at the store) and 1e-4 in f32;
     dbias and dlogit_scale, f32 sums over windows in another order, 1e-3;
-    head 0's logit scale, above the clamp, gets exactly 0."""
-    heads, window = c // 32, 7
-    p = _params(c, heads, 49, cuda, seed=17 * c + shift)
-    p["ls"][0] = 5.0
-    mask = torch.as_tensor(wa.shift_attn_mask((14, 14), window, shift), device=cuda) if shift else None
-    qkv = fh.bf16_linear(wa.window_partition(p["x"], window), p["wqkv"], p["bqkv"]).to(dtype)
-    q, k, v = (t.contiguous() for t in wa.split_heads(qkv, heads))
+    head 0's logit scale, above the clamp, gets exactly 0. Window 7 at
+    SwinV2-T's four stage widths, and window 8 (N = 64)."""
+    p, mask, qkv = _window_inputs(c, window, shift, dtype, cuda, seed=17 * c + shift)
+    q, k, v = (t.contiguous() for t in wa.split_heads(qkv, c // 32))
     g = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(c)).to(dtype)
 
     def run():
@@ -317,7 +407,7 @@ def test_window_attention_split_kernels(cuda, monkeypatch, c, shift, dtype):
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
     for name, a, b, t in zip(("out", "dq", "dk", "dv", "dlogit_scale", "dbias"), got, ref,
                              (tol, tol, tol, tol, 1e-3, 1e-3)):
-        _close(a, b, t, f"split attention C={c} shift={shift} {dtype} {name}")
+        _close(a, b, t, f"split attention C={c} shift={shift} window={window} {dtype} {name}")
 
 
 def test_new_layouts_refuse_what_their_kernels_do_not_take(cuda):
