@@ -10,17 +10,21 @@ Phases, in order; any failure exits non-zero and prints no result:
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel from hvt_torch/ops/csrc (one nvcc per source, in parallel),
      and print each kernel's registers, static shared memory and spills
-     (ptxas) and the attention backward's dynamic shared memory;
+     (ptxas) and the dynamic shared memory of the window-attention
+     tensor-core kernels (backward, forward);
   3. each kernel against its plain PyTorch version on the card, in bf16, at
      every SwinV2-T block shape at batch 64 (each stage unshifted and, where
-     the map holds more than one window, shifted);
+     the map holds more than one window, shifted); the window-attention
+     forwards (packed and split) also in f32, and at N = 144 (window 12,
+     the shape their CUDA-core kernel takes) in both dtypes;
   4. the main path, once per route (model.args.fuse false, then true): an
      InferenceEngine serving SwinV2-T at 224 px (10,000 classes, batch 64,
      seeded random weights) answers HTTP requests on 127.0.0.1; each kernel
      of the route must launch 12 times per forward, and the logits on the
      kernel path must match the same model's plain path on the card;
   5. times: each kernel, its plain version and a library call where one
-     computes the same function, at batch 64; images/s per route;
+     computes the same function, at batch 64 (the window-attention forwards
+     beside SDPA in each dtype); images/s per route;
   6. the backward kernels against their plain versions at every SwinV2-T
      block shape at batch 128: the packed attention's (dqkv, dz → dbias,
      dlogit_scale) and the fused halves' (every gradient of each half, with
@@ -179,8 +183,10 @@ TRAIN_KERNELS = {  # kernels each training step launches 12 times, per route
     True: ("mlp_half_fwd", "attention_half_nhwc_fwd", *FUSED_BWD),
 }
 # Kernel names of each training path's backward and forward in a profile.
+# The window-attention forwards run attention_fwd_tc_kernel at SwinV2's shapes
+# (head dim 32, N <= 64) and attention_fwd_kernel at others.
 PROFILE_NAMES = {
-    False: {"backward": ("attention_bwd_",), "forward": ("attention_fwd_kernel",)},
+    False: {"backward": ("attention_bwd_",), "forward": ("attention_fwd_tc", "attention_fwd_kernel")},
     True: {"backward": ("mlp_half_bwd_rows", "attn_half_bwd_", "grad_tn", "sum_parts"),
            "forward": ("mlp_half_fwd", "attn_half_fwd")},
     "base": {"backward": ("mlp_half_bwd_rows", "attn_half_bwd_", "chunked_", "grad_tn",
@@ -189,7 +195,7 @@ PROFILE_NAMES = {
     "resnet": {"backward": ("bwd_reduce_kernel",), "forward": ("channel_sums_kernel",)},
     # the fused route with the packed attention pair (phase 11 (c))
     "packed_fused": {"backward": ("attention_bwd_", "mlp_half_bwd_rows", "grad_tn", "sum_parts"),
-                     "forward": ("attention_fwd_kernel", "mlp_half_fwd")},
+                     "forward": ("attention_fwd_tc", "attention_fwd_kernel", "mlp_half_fwd")},
 }
 KEEP = 0.8  # drop-path keep probability of the scales in phase 6's inputs
 # max|kernel - plain| ≤ TOL·max|plain|: both sides share the arithmetic
@@ -199,7 +205,8 @@ KEEP = 0.8  # drop-path keep probability of the scales in phase 6's inputs
 TOL = {"window_attention_packed_fwd": 1e-2, "mlp_half_fwd": 2e-2,
        "attention_half_nhwc_fwd": 2e-2, "attention_half_fwd": 2e-2,
        "window_attention_fwd": 1e-2,  # bf16: P and the output rounded on both sides
-       "window_attention_fwd_f32": 1e-4}  # f32 in and out: summation order only
+       "window_attention_fwd_f32": 1e-4,  # f32 in and out: summation order only
+       "window_attention_packed_fwd_f32": 1e-4}
 # The retired halves compute every product, the core and the LayerNorm in f32
 # on both sides: in f32 they differ in summation order only; in bf16 also in
 # the output's rounding (and the odd flip of the GELU output's rounding to
@@ -282,11 +289,12 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def host_device_ms(fn, iters: int = 10) -> tuple[float, float]:
+def host_device_ms(fn, iters: int = 10, kernels: tuple = ()) -> tuple[float, float]:
     """(host ms, device ms) of one call of ``fn`` from an idle card: the
     median time the host takes to return from the call (its launches are
     asynchronous, so this is the time it spends issuing them), and the mean
-    kernel time in it from torch.profiler. Where the host's ms exceed the
+    kernel time in it from torch.profiler (of the kernels whose names
+    contain one of ``kernels``, where given). Where the host's ms exceed the
     device's, back-to-back calls (cuda_time_ms) wait on the host."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -304,7 +312,8 @@ def host_device_ms(fn, iters: int = 10) -> tuple[float, float]:
             fn()
         torch.cuda.synchronize()
     dev_us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-                 for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
+                 for e in prof.key_averages() if str(e.device_type).endswith("CUDA")
+                 and (not kernels or any(k in e.key for k in kernels)))
     return sorted(host)[iters // 2], dev_us / 1e3 / iters
 
 
@@ -543,11 +552,19 @@ def kernel_cases(p):
              2 * xs * tokens * c + 8 * ws * c * c + 4 * 7 * c, {rate: 16 * tokens * c * c}),
         ]
 
+    def packed_case(name, qx, library):
+        size = qx.element_size()
+        return (name,
+                lambda: wac.window_attention_packed(qx, p["logit_scale"], p["bias"], mask,
+                                                    num_heads=heads),
+                lambda: wac.window_attention_packed_plain(qx, p["logit_scale"], p["bias"], mask,
+                                                          num_heads=heads),
+                library, size * (qx.numel() + tokens * c) + z_bytes, 4 * tokens * n * c)
+
     return retired_cases(torch.float32) + retired_cases(torch.bfloat16) + [
-        ("window_attention_packed_fwd",
-         lambda: wac.window_attention_packed(qkv, p["logit_scale"], p["bias"], mask, num_heads=heads),
-         lambda: wac.window_attention_packed_plain(qkv, p["logit_scale"], p["bias"], mask, num_heads=heads),
-         sdpa, 2 * qkv.numel() + 2 * tokens * c + z_bytes, 4 * tokens * n * c),
+        packed_case("window_attention_packed_fwd", qkv, sdpa),
+        # the same projection in f32 (the f32 forward is checked and timed, not served)
+        packed_case("window_attention_packed_fwd_f32", qkv.float(), sdpa_f32),
         ("mlp_half_fwd",
          lambda: fh.mlp_half(xt, *mlp_args, tpi=grid * grid, dp=p["dp"]),
          lambda: fh.mlp_half_plain(xt, *mlp_args, tpi=grid * grid, dp=p["dp"]),
@@ -588,7 +605,10 @@ def train_launches(name: str, c: int) -> int:
 
 
 FORWARD_NAMES = (*KERNELS, "attention_half_fwd", "window_attention_fwd",
-                 "window_attention_fwd_f32", *RETIRED_CASES)
+                 "window_attention_fwd_f32", "window_attention_packed_fwd_f32", *RETIRED_CASES)
+# The two window-attention forwards in each dtype, timed beside SDPA in that dtype.
+WA_FORWARDS = ("window_attention_packed_fwd", "window_attention_packed_fwd_f32",
+               "window_attention_fwd", "window_attention_fwd_f32")
 
 
 def ops_ms(flops) -> float:
@@ -627,6 +647,8 @@ def kernel_records(timing: bool, stages=STAGES, batch: int = BATCH, names=FORWAR
                 st["ms"] = cuda_time_ms(kern)
                 st["plain_ms"] = cuda_time_ms(plain, iters=5)
                 st["library_ms"] = None if library is None else cuda_time_ms(library, iters=5)
+                if name in WA_FORWARDS:  # the wrapper's host time and the kernel's own device time
+                    st["host_ms"], st["device_ms"] = host_device_ms(kern, kernels=("attention_fwd",))
             else:
                 got = kern().float()
                 torch.cuda.synchronize()
@@ -647,6 +669,56 @@ def kernel_records(timing: bool, stages=STAGES, batch: int = BATCH, names=FORWAR
     for rec in records.values():
         finish_record(rec, timing)
     return records
+
+
+def wide_window_check() -> dict:
+    """Phase 3's N = 144 case: both window-attention forwards at window 12
+    (swinv2_large_window12_192's stage 1: a 48 x 48 map, C = 192, 6 heads,
+    shifted by 6) at batch 8, in bf16 and f32, against their plain versions
+    within TOL: the shape the tensor-core forward does not take, which runs
+    attention_fwd_kernel. Returns max|kernel-plain| / max|plain| per case."""
+    import numpy as np
+    import torch
+
+    from hvt_torch.ops import window_attention as wa
+    from hvt_torch.ops import window_attention_cuda as wac
+
+    grid, c, heads, window, shift, batch = 48, 192, 6, 12, 6, 8
+    n = window * window
+    rng = np.random.default_rng(900)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device="cuda")
+
+    qkv = t(rng.normal(size=(batch * (grid // window) ** 2, n, 3 * c)))
+    ls = t(np.log(10.0) + rng.normal(size=(heads, 1, 1)) * 0.3)
+    bias = t(16.0 / (1.0 + np.exp(-rng.normal(size=(heads, n, n)))))
+    mask = t(wa.shift_attn_mask((grid, grid), window, shift))
+    z, scale = wac.merge_bias_mask(bias, mask), wac.attention_scale(ls)
+    errors = {}
+    for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        x = qkv.to(dt)
+        q, k, v = (u.contiguous() for u in wa.split_heads(x, heads))
+        cases = {
+            "window_attention_packed_fwd": (
+                lambda: wac.window_attention_packed(x, ls, bias, mask, num_heads=heads),
+                lambda: wac.window_attention_packed_plain(x, ls, bias, mask, num_heads=heads)),
+            "window_attention_fwd": (lambda: wa.window_attention(q, k, v, ls, bias, mask),
+                                     lambda: wac.split_heads_forward(q, k, v, z, scale)),
+        }
+        for name, (kern, plain) in cases.items():
+            got = kern().float()
+            torch.cuda.synchronize()
+            ref = plain().float()
+            err, top = float((got - ref).abs().max()), float(ref.abs().max())
+            tol = TOL[name + sfx]
+            ok = bool(torch.isfinite(got).all()) and err <= tol * top
+            log(f"  {name + sfx:31s} N={n} C={c} shift={shift} batch {batch}: max|kernel-plain| "
+                f"{err:.4g} (tol {tol}·max|plain| = {tol * top:.4g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name + sfx} disagrees with its plain version at N = {n}")
+            errors[name + sfx] = err / top
+    return errors
 
 
 def finish_record(rec: dict, timing: bool, peak_ops: float = H100_BF16_FLOPS) -> None:
@@ -1840,7 +1912,7 @@ def ptxas_summary(logs: dict) -> dict:
                     end = name.end() + int(name.group(1))
                     kernel, rest = mangled[name.end():end], mangled[end:]
                     if rest.startswith("I") and "EE" in rest:
-                        args = re.findall(r"(13__nv_bfloat16)|^(f)E|Li(\d+)E|Lb(\d)E",
+                        args = re.findall(r"(13__nv_bfloat16)|^(f)(?=[EL])|Li(\d+)E|Lb(\d)E",
                                           rest[1:rest.index("EE") + 1])
                         kernel += "<" + ", ".join(
                             {"13__nv_bfloat16": "bf16", "f": "f32"}.get(a, a)
@@ -1904,9 +1976,15 @@ def main(argv=None) -> int:
     bwd_smem = _build.load("window_attention_bwd").hvt_window_attention_bwd_smem
     log("  window_attention_bwd dynamic shared memory per block: "
         f"bf16 {bwd_smem(0)} B, f32 {bwd_smem(1)} B")
+    fwd_smem = _build.load("window_attention").hvt_window_attention_fwd_smem
+    log("  window_attention forwards' attention_fwd_tc_kernel dynamic shared memory per block: "
+        f"bf16 {fwd_smem(0)} B, f32 {fwd_smem(1)} B")
 
-    log(f"[3] kernels vs plain versions, bf16 (the retired halves also f32), batch {BATCH}")
+    log(f"[3] kernels vs plain versions, bf16 (the retired halves and the window-attention "
+        f"forwards also f32), batch {BATCH}")
     checked = kernel_records(timing=False)
+    log("[3] the window-attention forwards at N = 144 (window 12), bf16 and f32")
+    wide_checked = wide_window_check()
     log(f"[3] the fused forwards and the retired halves at SwinV2-B's block shapes, bf16 "
         f"(the retired halves also f32), batch {BATCH} (eval)")
     base_names = ("mlp_half_fwd", "attention_half_nhwc_fwd", "attention_half_fwd")
@@ -1936,6 +2014,18 @@ def main(argv=None) -> int:
             "(kernel/plain ms): " + "; ".join(
                 f"stage {st['stage']} shift {st['shift']} x{st['launches_per_forward']} "
                 f"{st['ms']:.3f}/{st['plain_ms']:.3f}" for st in rec["stages"]))
+    log("  window-attention forwards against SDPA in the same dtype, ms per SwinV2-T forward "
+        "(kernel / SDPA / bound): " + "; ".join(
+            f"{k} {timed[k]['ms']:.4f} / {timed[k]['library_ms']:.4f} / {timed[k]['bound_ms']:.4f}"
+            for k in WA_FORWARDS))
+    for k in WA_FORWARDS:
+        stages = timed[k]["stages"]
+        timed[k]["host_ms"], timed[k]["device_ms"] = (
+            sum(st["launches_per_forward"] * st[key] for st in stages) for key in ("host_ms", "device_ms"))
+        log(f"  {k}: host {timed[k]['host_ms']:.4f} ms a forward in the call, device "
+            f"{timed[k]['device_ms']:.4f} ms in the kernel alone; per launch (host/device): " + "; ".join(
+                f"stage {st['stage']} shift {st['shift']} {st['host_ms']:.3f}/{st['device_ms']:.3f}"
+                for st in stages))
     base_timed = kernel_records(True, BASE_STAGES, TRAIN_BATCH, base_names, train_launches)
     for name, rec in base_timed.items():
         log(f"  SwinV2-B {name}: {rec['ms']:.4f} ms kernel, {rec['plain_ms']:.4f} ms plain, bound "
@@ -2164,6 +2254,13 @@ def main(argv=None) -> int:
               "ptxas": ptxas,
               "window_attention_fwd_f32": {"check": checked["window_attention_fwd_f32"]["stages"],
                                            "timed": timed["window_attention_fwd_f32"]["stages"]},
+              "window_attention_forwards": {
+                  "ms": {k: timed[k]["ms"] for k in WA_FORWARDS},
+                  "library_ms": {k: timed[k]["library_ms"] for k in WA_FORWARDS},
+                  "bound_ms": {k: timed[k]["bound_ms"] for k in WA_FORWARDS},
+                  "host_ms": {k: timed[k]["host_ms"] for k in WA_FORWARDS},
+                  "device_ms": {k: timed[k]["device_ms"] for k in WA_FORWARDS},
+                  "n144_relative_errors": wide_checked},
               "routes_train": routes_train,
               "retired": {"op_run": retired_run,
                           "swinv2_base_check": {k: base_checked[k]["stages"]

@@ -35,78 +35,9 @@
 // stores are free of bank conflicts.
 #pragma once
 
-#include "common.cuh"
+#include "attention_tc.cuh"
 
 namespace hvt {
-
-constexpr int kTcRows = 64;      // N padded to four 16-row tiles
-constexpr int kTcHeadDim = 32;   // D
-constexpr int kTcThreads = 128;  // four warps
-constexpr int kTcTile = kTcRows * kTcHeadDim;  // bf16 elements of one operand tile
-// Row stride of the f32 z tile: 72 floats keep a half-warp's 8-byte reads
-// (rows g, columns 8·tile + 2·(lane%4)) in distinct banks.
-constexpr int kTcZLd = 72;
-constexpr float kLog2e = 1.4426950408889634f;
-
-// Element (row, col) of a tile of 32-element (4-chunk) or 64-element
-// (8-chunk) bf16 rows, the 16-byte chunk index XOR-swizzled by the row: the
-// eight rows an ldmatrix reads at one chunk fall in eight distinct banks.
-__device__ __forceinline__ int swz32(int row, int col) {
-  return row * 32 + ((((col >> 3) ^ (row >> 1)) & 3) << 3) + (col & 7);
-}
-__device__ __forceinline__ int swz64(int row, int col) {
-  return row * 64 + ((((col >> 3) ^ row) & 7) << 3) + (col & 7);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 bf16 matrices; lane l gives the row address of matrix l / 8.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-__device__ __forceinline__ float2 unpack_bf16x2(uint32_t u) {
-  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
-}
-
-// (a, b) as packed bf16 pairs hi = bf16(x) and lo = bf16(x − hi).
-__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi, uint32_t& lo) {
-  hi = pack_bf16x2(a, b);
-  const float2 h = unpack_bf16x2(hi);
-  lo = pack_bf16x2(a - h.x, b - h.y);
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
 
 // The backward of one (window, head), all kTcThreads threads of the block
 // taking part (it synchronises the block inside).
@@ -144,28 +75,7 @@ __device__ __forceinline__ void attention_window_bwd_tc(const bf16* __restrict__
   bf16* const ph = ps;
   bf16* const pl = ps + kTcRows * kTcRows;
 
-  {  // rsqrt(Σx² + 1e-24) of each q row (threads 0-63) and k row (64-127)
-    const int op = tid >> 6, row = tid & (kTcRows - 1);
-    float ss = 0.f;
-#pragma unroll
-    for (int ch = 0; ch < 4; ++ch) {
-      float xs[8] = {};
-#pragma unroll
-      for (int part = kParts - 1; part >= 0; --part) {  // smallest piece first
-        const uint4 u = *reinterpret_cast<const uint4*>(tile(part, op) + swz32(row, 8 * ch));
-        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = unpack_bf16x2(w[e]);
-          xs[2 * e] += f.x;
-          xs[2 * e + 1] += f.y;
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) ss += xs[e] * xs[e];
-    }
-    inv[tid] = rsqrtf(ss + 1e-24f);
-  }
+  tc_inverse_norms<kParts, 4>(x, inv);  // invQ, invK
   __syncthreads();
 
   // dx = (scale·acc − x·inv²·⟨scale·acc, x⟩)·inv for the 16 rows row0.. of

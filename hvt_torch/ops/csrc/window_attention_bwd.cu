@@ -49,23 +49,10 @@
 
 namespace hvt {
 
-// Input pieces: bf16 inputs as they are, f32 inputs in three bf16 pieces.
-template <typename T>
-constexpr int tc_pieces() {
-  return sizeof(T) == 4 ? 3 : 1;
-}
-
 // Input buffer of one window: the pieces' tiles of q, k, v, dO.
 template <typename T>
 constexpr int tc_stage_elems() {
   return tc_pieces<T>() * 4 * kTcTile;
-}
-
-// x = p0 + p1 + p2 for a pair (a, b), each piece a packed bf16 pair.
-__device__ __forceinline__ void split3_bf16x2(float a, float b, uint32_t (&p)[3]) {
-  p[0] = pack_bf16x2(a, b);
-  const float2 r = unpack_bf16x2(p[0]);
-  split_bf16x2(a - r.x, b - r.y, p[1], p[2]);
 }
 
 template <typename T>
@@ -96,43 +83,16 @@ attention_bwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
   const int wz = blockIdx.x % nwz, chunk = blockIdx.x / nwz, h = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float sc = scale[h];
-  const float* zh = z + ((size_t)wz * heads + h) * n * n;
   // this (window id, head)'s z, the same for every window of the chunk
-  for (int e = tid; e < kTcRows * kTcRows; e += kTcThreads) {
-    const int r = e / kTcRows, c = e - r * kTcRows;
-    zs[r * kTcZLd + c] = r < n && c < n ? zh[r * n + c] * kLog2e : -INFINITY;
-  }
-
+  tc_load_z(zs, z + ((size_t)wz * heads + h) * n * n, n);
   // rows n.. of every tile stay zero: the loads below write rows < n only
-  for (int e = tid; e < 2 * kParts * 4 * (kTcRows - n) * 4; e += kTcThreads) {
-    const int ch = e & 3, r = e >> 2, row = n + r % (kTcRows - n), t4 = r / (kTcRows - n);
-    *reinterpret_cast<uint4*>(stages + t4 * kTcTile + swz32(row, 8 * ch)) =
-        make_uint4(0u, 0u, 0u, 0u);
-  }
+  tc_zero_pad_rows(stages, 2 * kParts * 4, n);
   // window b's tiles into buffer s (window id = row mod nWZ, batch-major rows)
   auto load = [&](int b, int s) {
     const int w = b * nwz + wz;
-    bf16* dst = stages + s * kStage;
-    constexpr int kPieces = kF32 ? 8 : 4;  // 16-byte pieces per row
-    for (int e = tid; e < 4 * n * kPieces; e += kTcThreads) {
-      const int op = e / (n * kPieces), rem = e - op * n * kPieces;
-      const int row = rem / kPieces, pc = rem - row * kPieces;
-      const T* from = op == 3 ? dout + go.at(w, h, row)
-                              : (op == 0 ? q : op == 1 ? k : v) + in.at(w, h, row);
-      if constexpr (kF32) {
-        const float4 x = *reinterpret_cast<const float4*>(from + 4 * pc);
-        uint32_t p01[3], p23[3];
-        split3_bf16x2(x.x, x.y, p01);
-        split3_bf16x2(x.z, x.w, p23);
-#pragma unroll
-        for (int part = 0; part < 3; ++part)
-          *reinterpret_cast<uint2*>(dst + (4 * part + op) * kTcTile + swz32(row, 4 * pc)) =
-              make_uint2(p01[part], p23[part]);
-      } else {
-        cp_async16(dst + op * kTcTile + swz32(row, 8 * pc), from + 8 * pc);
-      }
-    }
-    cp_async_commit();
+    tc_load_tiles<T, 4>(stages + s * kStage, n, [&](int op, int row) {
+      return op == 3 ? dout + go.at(w, h, row) : (op == 0 ? q : op == 1 ? k : v) + in.at(w, h, row);
+    });
   };
 
   float dz[8][4];

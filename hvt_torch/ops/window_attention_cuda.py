@@ -32,8 +32,7 @@ from hvt_torch.ops import _build
 KERNEL = _build.Kernel(
     "window_attention",
     "hvt_window_attention_packed_fwd",
-    [_build.P, _build.P, _build.P, _build.I, _build.P, _build.I, _build.I, _build.I,
-     _build.I, _build.I, _build.P],
+    [_build.P, _build.P, _build.P, _build.I, _build.P] + [_build.I] * 7 + [_build.P],
 )
 BWD_KERNEL = _build.Kernel(
     "window_attention_bwd",
@@ -43,7 +42,7 @@ BWD_KERNEL = _build.Kernel(
 )
 SPLIT_KERNEL = _build.Kernel(
     "window_attention", "hvt_window_attention_fwd",
-    [_build.P] * 5 + [_build.I, _build.P] + [_build.I] * 5 + [_build.P],
+    [_build.P] * 5 + [_build.I, _build.P] + [_build.I] * 7 + [_build.P],
 )
 SPLIT_BWD_KERNEL = _build.Kernel(
     "window_attention_bwd", "hvt_window_attention_bwd",
@@ -52,21 +51,27 @@ SPLIT_BWD_KERNEL = _build.Kernel(
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 SMEM_BYTES = 227 * 1024  # the H100's dynamic shared memory per block
 BWD_BLOCKS = 1056  # backward blocks per launch to aim for: 8 per SM of the H100
-# The tensor-core backward (csrc/attention_bwd_tc.cuh): head dim and padded
-# window it is built for, and blocks per launch to aim for: one wave of 3
-# resident blocks (its register cap) on each of the H100's 132 SMs.
+# The tensor-core forward and backward (csrc/attention_fwd_tc.cuh,
+# attention_bwd_tc.cuh): head dim and padded window they are built for, and
+# blocks per launch to aim for: one wave on the H100's 132 SMs, of 3 resident
+# blocks an SM for the backward (its register cap), and for the forward as
+# many as its shared memory admits: 5 in bf16 (43.5 KB a block), 2 in f32
+# (92.7 KB).
 TC_HEAD_DIM = 32
 TC_ROWS = 64
 TC_BWD_BLOCKS = 396
+TC_FWD_BLOCKS = {torch.bfloat16: 660, torch.float32: 264}
 LOG_MAX_SCALE = math.log(100.0)
 
 
 def unsupported(n: int, c: int, heads: int, backward: bool = False) -> str | None:
     """Why the forward (or the ``backward``) kernel cannot take windows of
     ``n`` tokens at width ``c`` with ``heads`` heads, or None. The forward
-    holds the head's q, k, v and the N x N logits in f32 shared memory; the
-    backward runs on tensor cores at head dim TC_HEAD_DIM with the window
-    padded to TC_ROWS tokens."""
+    runs on tensor cores at head dim TC_HEAD_DIM with the window padded to
+    TC_ROWS tokens, and any other shape on CUDA cores with the head's q, k,
+    v and the N x N logits in f32 shared memory (csrc/window_attention.cu
+    chooses by shape), so it takes what fits there; the backward runs on
+    tensor cores only."""
     if c % heads:
         return f"width {c} does not split into {heads} heads"
     d = c // heads
@@ -193,12 +198,26 @@ def packed_forward(qkv: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
     z = z.to(qkv.device, torch.float32).contiguous()
     _check("window_attention_packed", qkv, z, num_heads)
     nwb, n, c3 = qkv.shape
-    qkv = qkv.contiguous()
+    qkv = _aligned(qkv.contiguous())
     scale = scale.to(qkv.device, torch.float32).contiguous()
+    per_block, chunks = tc_forward_chunks(nwb, z.shape[0], num_heads, qkv.dtype)
     out = torch.empty((nwb, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     KERNEL(qkv.data_ptr(), scale.data_ptr(), z.data_ptr(), z.shape[0], out.data_ptr(), nwb, n,
-           c3 // 3, num_heads, _DTYPES[qkv.dtype], torch.cuda.current_stream(qkv.device).cuda_stream)
+           c3 // 3, num_heads, per_block, chunks, _DTYPES[qkv.dtype],
+           torch.cuda.current_stream(qkv.device).cuda_stream)
     return out
+
+
+def tc_forward_chunks(nwb: int, nwz: int, heads: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(images per block, chunks) of the tensor-core forward kernel: one block
+    per (chunk of images, window id, head), image b holding windows b·nwz..
+    (the last one partial where nwz does not divide nwb); as many chunks as
+    keep the blocks within TC_FWD_BLOCKS[dtype], one wave, so that every
+    block starts at once and does the same work (at least one chunk). On
+    the card half a wave ran slower and two waves no faster."""
+    nb = -(-nwb // nwz)
+    per_block = -(-nb // max(1, TC_FWD_BLOCKS[dtype] // (nwz * heads)))
+    return per_block, -(-nb // per_block)
 
 
 def backward_chunks(nwb: int, nwz: int, heads: int) -> tuple[int, int]:
@@ -365,12 +384,13 @@ def split_forward(q, k, v, z: torch.Tensor, scale: torch.Tensor) -> torch.Tensor
     z = z.to(q.device, torch.float32).contiguous()
     _check_split("window_attention", q, k, v, z)
     nwb, heads, n, d = q.shape
-    q, k, v = (t.contiguous() for t in (q, k, v))
+    q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
     scale = scale.to(q.device, torch.float32).contiguous()
+    per_block, chunks = tc_forward_chunks(nwb, z.shape[0], heads, q.dtype)
     out = torch.empty_like(q)
     SPLIT_KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), scale.data_ptr(), z.data_ptr(),
-                 z.shape[0], out.data_ptr(), nwb, n, d, heads, _DTYPES[q.dtype],
-                 torch.cuda.current_stream(q.device).cuda_stream)
+                 z.shape[0], out.data_ptr(), nwb, n, d, heads, per_block, chunks,
+                 _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     return out
 
 

@@ -75,22 +75,64 @@ def _close(got, ref, tol, what):
     assert err <= tol * scale, f"{what}: max|Δ| {err:.3g} > {tol}·{scale:.3g}"
 
 
-@pytest.mark.parametrize("c,shift,dtype,tol", [
-    (96, 3, torch.bfloat16, 1e-2), (768, 0, torch.bfloat16, 1e-2),
-    (96, 3, torch.float32, 1e-4),  # f32 in and out: summation order only
+@pytest.mark.parametrize("c,shift,dtype,tol,window", [
+    (96, 3, torch.bfloat16, 1e-2, 7), (768, 0, torch.bfloat16, 1e-2, 7),
+    (96, 3, torch.float32, 1e-4, 7),  # f32 in and out: summation order only
+    (96, 4, torch.bfloat16, 1e-2, 8), (384, 0, torch.float32, 1e-4, 8),  # N = 64
+    (192, 6, torch.bfloat16, 1e-2, 12), (192, 6, torch.float32, 1e-4, 12),  # N = 144
 ])
-def test_window_attention_packed_kernel(cuda, c, shift, dtype, tol):
-    heads, window = c // 32, 7
-    p = _params(c, heads, 49, cuda, seed=c + shift)
-    mask = torch.as_tensor(wa.shift_attn_mask((14, 14), window, shift), device=cuda) if shift else None
-    xw = wa.window_partition(p["x"], window)
-    qkv = fh.bf16_linear(xw, p["wqkv"], p["bqkv"]).to(dtype).contiguous()
+def test_window_attention_packed_kernel(cuda, c, shift, dtype, tol, window):
+    """The packed forward at batch 2 against its plain version. Head dim 32
+    and N <= 64 (windows 7 and 8) run the tensor-core kernel, N = 144
+    (window 12) the CUDA-core one: the same tolerances."""
+    heads = c // 32
+    if window == 7:
+        p = _params(c, heads, 49, cuda, seed=c + shift)
+        mask = (torch.as_tensor(wa.shift_attn_mask((14, 14), window, shift), device=cuda)
+                if shift else None)
+        xw = wa.window_partition(p["x"], window)
+        qkv = fh.bf16_linear(xw, p["wqkv"], p["bqkv"]).to(dtype).contiguous()
+    else:
+        p, mask, qkv = _window_inputs(c, window, shift, dtype, cuda, seed=c + shift)
     before = wac.KERNEL.launches
     got = wac.window_attention_packed(qkv, p["ls"], p["bias"], mask, num_heads=heads)
     torch.cuda.synchronize()
     assert wac.KERNEL.launches == before + 1 and got.dtype == dtype
     ref = wac.window_attention_packed_plain(qkv, p["ls"], p["bias"], mask, num_heads=heads)
-    _close(got, ref, tol, f"packed attention C={c} {dtype}")
+    _close(got, ref, tol, f"packed attention C={c} window={window} {dtype}")
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["packed", "split"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_window_attention_forward_kernels_are_deterministic(cuda, split, dtype):
+    """Two runs of a forward kernel on the same inputs give bit-identical
+    outputs, and so do inputs whose data start one element (2 bytes in bf16,
+    4 in f32) past a 16-byte boundary (the wrapper copies them for the
+    kernel's 16-byte loads). On split q, k, v, which may hold a batch of
+    windows that is not whole images (6 windows with a 4-window mask: the
+    last image partial; the packed layout refuses one), those windows get
+    the bits they get in the whole batch. Stage 1's width with the shift
+    mask."""
+    c, heads = 96, 3
+    p, mask, qkv = _window_inputs(c, 7, 3, dtype, cuda, seed=37)
+    z, scale = wac.merge_bias_mask(p["bias"], mask), wac.attention_scale(p["ls"])
+
+    def off(t):
+        return torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)[1:].view(t.shape).copy_(t)
+
+    if split:
+        q, k, v = (t.contiguous() for t in wa.split_heads(qkv, heads))
+        runs = [lambda: wac.split_forward(q, k, v, z, scale)] * 2
+        runs.append(lambda: wac.split_forward(off(q), off(k), off(v), z, scale))
+        runs.append(lambda: wac.split_forward(q[:6], k[:6], v[:6], z, scale))
+    else:
+        runs = [lambda: wac.packed_forward(qkv, z, scale, heads)] * 2
+        runs.append(lambda: wac.packed_forward(off(qkv), z, scale, heads))
+    first, *others = (run() for run in runs)
+    torch.cuda.synchronize()
+    assert qkv.shape[0] == 8 and z.shape[0] == 4
+    for other in others:
+        assert torch.equal(first[:other.shape[0]], other)
 
 
 @pytest.mark.parametrize("c", [96, 768, 128, 1024])
@@ -374,7 +416,8 @@ def test_attention_half_windowed_kernels(cuda, monkeypatch, c, shift):
     (96, 3, torch.bfloat16, 7), (768, 0, torch.bfloat16, 7), (96, 3, torch.float32, 7),
     (384, 0, torch.float32, 7), (192, 3, torch.bfloat16, 7), (384, 0, torch.bfloat16, 7),
     (192, 3, torch.float32, 7), (96, 4, torch.bfloat16, 8), (96, 4, torch.float32, 8),
-    (384, 0, torch.bfloat16, 8), (384, 0, torch.float32, 8),
+    (384, 0, torch.bfloat16, 8), (384, 0, torch.float32, 8), (192, 6, torch.bfloat16, 12),
+    (192, 6, torch.float32, 12),
 ])
 def test_window_attention_split_kernels(cuda, monkeypatch, c, shift, dtype, window):
     """hvt's op on split q, k, v (nWB, H, N, D), forward and backward through
@@ -383,14 +426,19 @@ def test_window_attention_split_kernels(cuda, monkeypatch, c, shift, dtype, wind
     P to bf16 before P·v, and every output at the store) and 1e-4 in f32;
     dbias and dlogit_scale, f32 sums over windows in another order, 1e-3;
     head 0's logit scale, above the clamp, gets exactly 0. Window 7 at
-    SwinV2-T's four stage widths, and window 8 (N = 64)."""
+    SwinV2-T's four stage widths, and window 8 (N = 64); window 12 (N = 144,
+    the CUDA-core forward) forward only, as the backward kernel takes at
+    most 64 tokens."""
     p, mask, qkv = _window_inputs(c, window, shift, dtype, cuda, seed=17 * c + shift)
     q, k, v = (t.contiguous() for t in wa.split_heads(qkv, c // 32))
     g = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(c)).to(dtype)
+    grad = window * window <= wac.TC_ROWS
 
     def run():
-        leaves = [t.clone().requires_grad_() for t in (q, k, v, p["ls"], p["bias"])]
+        leaves = [t.clone().requires_grad_(grad) for t in (q, k, v, p["ls"], p["bias"])]
         out = wa.window_attention(*leaves, mask)
+        if not grad:
+            return [out]
         out.backward(g)
         return [out.detach()] + [t.grad for t in leaves]
 
@@ -398,8 +446,8 @@ def test_window_attention_split_kernels(cuda, monkeypatch, c, shift, dtype, wind
     got = run()
     torch.cuda.synchronize()
     assert (wac.SPLIT_KERNEL.launches, wac.SPLIT_BWD_KERNEL.launches) == \
-        (before[0] + 1, before[1] + 1)
-    assert got[0].dtype == got[1].dtype == dtype and got[4][0].item() == 0.0
+        (before[0] + 1, before[1] + grad)
+    assert got[0].dtype == dtype and (not grad or (got[1].dtype == dtype and got[4][0].item() == 0.0))
     monkeypatch.setattr(wac, "split_forward", wac.split_heads_forward)
     monkeypatch.setattr(wac, "split_backward", wac.split_heads_backward)
     ref = run()
