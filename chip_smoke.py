@@ -33,7 +33,14 @@ Phases, in order; any failure exits non-zero and prints no result:
      packed and split attention backwards also in f32 (check only, every
      gradient within 1e-4·max|plain|). Then each is timed through the
      model's backward beside its bound and its plain version (and SDPA's
-     backward for the packed kernel);
+     backward for the packed kernel); the attention half's two backwards
+     (NHWC and windowed) also with their host and device time
+     (``host_device_ms``), each of their kernels' device ms a step
+     (attention output, proj, core, dx, both weight-gradient products,
+     the fixed-order sums), the registers, shared memory and spills of
+     their kernels, and the composite yardstick: the unfused route's ops
+     computing the same function (F.linear, the packed window attention,
+     F.layer_norm, roll, partition, residual) timed through autograd;
   7. the training path, once per route (model.args.fuse false, then true):
      ``hvt_torch.main.main`` trains SwinV2-T (10,000 classes, batch 128,
      configs/pretrain/swinv2_tiny.yaml's recipe) for 30 steps on the
@@ -235,6 +242,17 @@ FUSED_GRADS = {
                                 "dbproj", "dlns", "dlnb"),
 }
 FUSED_GRADS["attention_half_bwd"] = FUSED_GRADS["attention_half_nhwc_bwd"]
+# The attention half's two backward rows: phase 6 also splits their time
+# between host and device and among their kernels, and times the composite
+# yardstick beside them (SwinV2-T's block shapes).
+ATTN_HALF_BWD = ("attention_half_nhwc_bwd", "attention_half_bwd")
+# The sub-kernels of an attention-half backward call, by the kernel's name:
+# the attention output, proj and the LayerNorm backward (one kernel that also
+# recomputes the attention output in the parent's design), the core, dx, the
+# two weight-gradient products (dWqkv, then dWproj) and the fixed-order sums.
+SUB_KERNELS = (("attn_half_bwd_ao", "ao"), ("attn_half_bwd_proj", "proj"),
+               ("attn_half_bwd_core", "core"), ("attn_half_bwd_dx", "dx"),
+               ("grad_tn", "grad_tn"), ("sum_parts", "sum_parts"))
 # Phase 7, one training step on the kernel path against the plain path.
 LOSS_RTOL = 1e-2
 GRAD_COSINE = 0.99
@@ -327,6 +345,70 @@ def host_device_line(rec: dict) -> str:
             "wrapper host/device): " + "; ".join(
                 f"stage {st['stage']} shift {st['shift']} {st['host_ms']:.3f}/{st['device_ms']:.3f}, "
                 f"{st['wrapper_host_ms']:.3f}/{st['wrapper_device_ms']:.3f}" for st in rec["stages"]))
+
+
+def kernel_split(fn, iters: int = 5) -> dict:
+    """Mean device ms a call of ``fn`` spends in each kind of kernel
+    (SUB_KERNELS; the first ``grad_tn`` after ``dx`` is dWqkv's, the second
+    dWproj's; any other kernel is "other"), from a torch.profiler trace of
+    ``iters`` calls (chiprun_out/attention_half_bwd_trace.json)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    path = OUT_DIR / "attention_half_bwd_trace.json"
+    prof.export_chrome_trace(str(path))
+    events = sorted((e for e in json.loads(path.read_text())["traceEvents"]
+                     if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    split, grads = {}, 0
+    for e in events:
+        key = next((k for pattern, k in SUB_KERNELS if pattern in e["name"]), "other")
+        if key == "dx":
+            grads = 0
+        elif key == "grad_tn":
+            key = ("grad_tn dWqkv", "grad_tn dWproj")[min(grads, 1)]
+            grads += 1
+        split[key] = split.get(key, 0.0) + e["dur"] / 1e3 / iters
+    return split
+
+
+def composite_attention_half(p, windowed: bool):
+    """The unfused route's computation of the attention half (the
+    yardstick of the two attention-half backward rows): F.linear qkv in
+    bf16, the packed tensor-core window attention
+    (``window_attention_packed``), F.linear proj, F.layer_norm with f32
+    statistics; on the NHWC map also the roll, partition, reverse, roll
+    back and the residual x + dp·branch. Same leaves as
+    ``fused_backward_cases``' halves."""
+    import torch
+    import torch.nn.functional as F
+
+    from hvt_torch.ops import window_attention as wa
+    from hvt_torch.ops import window_attention_cuda as wac
+
+    c, heads, grid, shift, mask = p["c"], p["heads"], p["grid"], p["shift"], p["mask"]
+
+    def branch(xw, wq, bq, ls, bias, wp, bp, lns, lnb):
+        qkv = F.linear(xw, wq.to(xw.dtype), bq.to(xw.dtype))
+        out = wac.window_attention_packed(qkv, ls, bias, mask, num_heads=heads)
+        proj = F.linear(out, wp.to(xw.dtype), bp.to(xw.dtype))
+        return F.layer_norm(proj.float(), (c,), lns, lnb, 1e-5).to(xw.dtype)
+
+    if windowed:
+        return branch
+
+    def nhwc(xm, *params):
+        xs = torch.roll(xm, (-shift, -shift), (1, 2)) if shift else xm
+        y = wa.window_reverse(branch(wa.window_partition(xs, WINDOW), *params), WINDOW, grid, grid)
+        y = torch.roll(y, (shift, shift), (1, 2)) if shift else y
+        return xm + p["dp"].to(xm.dtype).reshape(-1, 1, 1, 1) * y
+
+    return nhwc
 
 
 def kernel_counters():
@@ -1021,6 +1103,15 @@ def fused_backward_records(timing: bool, stages=STAGES) -> dict:
                 st["wrapper_ms"] = cuda_time_ms(wrapper, iters=10)
                 with plain_fused_backward():
                     st["plain_ms"] = cuda_time_ms(model_bwd, iters=3, warmup=1)
+                if name in ATTN_HALF_BWD and stages is STAGES:
+                    st["host_ms"], st["device_ms"] = host_device_ms(model_bwd)
+                    st["wrapper_host_ms"], st["wrapper_device_ms"] = host_device_ms(wrapper)
+                    st["kernels_ms"] = kernel_split(wrapper)
+                    cs = [t.detach().clone().requires_grad_() for t in leaves]
+                    c_out = composite_attention_half(p, name == "attention_half_bwd")(*cs)
+                    st["composite_ms"] = cuda_time_ms(
+                        lambda: torch.autograd.grad(c_out, cs, g, retain_graph=True), iters=10)
+                    del c_out, cs
             else:
                 got = torch.autograd.grad(out, ls, g, retain_graph=True)
                 torch.cuda.synchronize()
@@ -1049,8 +1140,16 @@ def fused_backward_records(timing: bool, stages=STAGES) -> dict:
             del out, ls, g
         del p
         torch.cuda.empty_cache()
-    for rec in records.values():
+    for name, rec in records.items():
         finish_record(rec, timing)
+        if timing and name in ATTN_HALF_BWD and stages is STAGES:
+            rec["composite_ms"] = sum(st["launches_per_forward"] * st["composite_ms"]
+                                      for st in rec["stages"])
+            rec["kernels_ms"] = {}
+            for st in rec["stages"]:
+                for key, ms in st["kernels_ms"].items():
+                    rec["kernels_ms"][key] = (rec["kernels_ms"].get(key, 0.0)
+                                              + st["launches_per_forward"] * ms)
     return records
 
 
@@ -1912,7 +2011,8 @@ def ptxas_summary(logs: dict) -> dict:
                     end = name.end() + int(name.group(1))
                     kernel, rest = mangled[name.end():end], mangled[end:]
                     if rest.startswith("I") and "EE" in rest:
-                        args = re.findall(r"(13__nv_bfloat16)|^(f)(?=[EL])|Li(\d+)E|Lb(\d)E",
+                        args = re.findall(r"(13__nv_bfloat16)|^(f)(?=[EL])|Li(\d+)E|Lb(\d)E|"
+                                          r"\d+(NhwcWindows|FlatWindows)",
                                           rest[1:rest.index("EE") + 1])
                         kernel += "<" + ", ".join(
                             {"13__nv_bfloat16": "bf16", "f": "f32"}.get(a, a)
@@ -2086,6 +2186,24 @@ def main(argv=None) -> int:
                 f"{max(st['bytes'] / H100_BYTES_PER_S, st['flops'] / H100_BF16_FLOPS) * 1e3:.3f}/"
                 f"{st['plain_ms']:.3f}" for st in rec["stages"]))
 
+    for name in ATTN_HALF_BWD:
+        rec = fused[name]
+        log(f"  {name}: " + host_device_line(rec))
+        log(f"  {name}: device ms per SwinV2-T step by kernel (the wrapper's calls): " + "; ".join(
+            f"{k} {v:.4f}" for k, v in sorted(rec["kernels_ms"].items(), key=lambda kv: -kv[1])))
+        log(f"  {name}: composite yardstick (the unfused route's ops through autograd) "
+            f"{rec['composite_ms']:.4f} ms per SwinV2-T step against {rec['ms']:.4f} ms through "
+            "the kernels; per launch (kernels/composite): " + "; ".join(
+                f"stage {st['stage']} shift {st['shift']} {st['ms']:.3f}/{st['composite_ms']:.3f}"
+                for st in rec["stages"]))
+    smem = _build.load("fused_halves_bwd").hvt_attention_half_bwd_smem
+    log("  attention half backward kernels (ptxas, per instance; dynamic shared memory per block: "
+        f"attention output {smem(0, 96)} B, core {smem(1, 96)} B, proj "
+        + ", ".join(f"C={c} {smem(2, c)} B" for c in (96, 192, 384, 768)) + "): " + "; ".join(
+            f"{source} {r['kernel']} {r['registers']} regs, spills {r['spill_stores']}/"
+            f"{r['spill_loads']} B" for source, rows in ptxas.items()
+            for r in rows if r["kernel"].startswith("attn_half_bwd_")))
+
     log(f"[6] SwinV2-B: the fused halves' backward kernels and the chunked MLP vs plain "
         f"versions, bf16, batch {TRAIN_BATCH}")
     base_bwd_checked = fused_backward_records(False, BASE_STAGES)
@@ -2248,6 +2366,9 @@ def main(argv=None) -> int:
               "backward_stages": {"check": bwd_checked["stages"], "timed": bwd["stages"]},
               "fused_backward_stages": {k: {"check": fused_checked[k]["stages"],
                                             "timed": fused[k]["stages"]} for k in FUSED_GRADS},
+              "attention_half_backward": {k: {f: fused[k][f] for f in (
+                  "ms", "plain_ms", "bound_ms", "composite_ms", "kernels_ms")}
+                  for k in ATTN_HALF_BWD},
               "split_backward_stages": {"check": split_checked["stages"],
                                         "timed": split_bwd["stages"]},
               "backward_f32_check": {"packed": bwd_f32["stages"], "split": split_f32["stages"]},

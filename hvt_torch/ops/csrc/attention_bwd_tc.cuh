@@ -1,6 +1,10 @@
 // The cosine attention core's backward for one (window, head) on tensor
-// cores: the math of attention_core_bwd (common.cuh), with all five products
-// on mma.sync.m16n8k16 (bf16 operands, f32 accumulation) at f32 accuracy.
+// cores: the math of hvt's packed_heads_backward (window_attention_cuda.py's
+// plain version), with all five products on mma.sync.m16n8k16 (bf16
+// operands, f32 accumulation) at f32 accuracy:
+//   q̂ = q·rsqrt(Σq² + 1e-24), k̂ likewise, cos = q̂k̂ᵀ, P = softmax(scale·cos + z)
+//   dv = Pᵀ·dO,  dS = P ⊙ (dO·vᵀ − rowsum(dO·vᵀ ⊙ P)),  dz += dS, dscale += Σ dS ⊙ cos
+//   dq̂ = scale·dS·k̂, dk̂ = scale·dSᵀ·q̂, dq = (dq̂ − q̂⟨dq̂, q̂⟩)·rsqrt(Σq² + 1e-24), dk likewise.
 //
 // Shapes: N <= 64 tokens padded to kTcRows = 64 (four 16-row tiles), head
 // dim kTcHeadDim = 32. Padded keys get -inf logits, padded rows zero P and

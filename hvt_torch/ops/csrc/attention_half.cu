@@ -53,17 +53,17 @@ extern "C" int hvt_attention_half_fwd(const void* x, const void* wqkv, const flo
 // dwqkv (3C, C), dwproj (C, C), dsmall = [dbqkv (3C) | dbproj | dlns |
 // dlnb], dscale (heads), dz (nwz, heads, N, N). Scratch as
 // hvt_attention_half_nhwc_bwd's: ao, dproj (T, C) and dqkv (T, 3C) bf16,
-// T = nWB·N; part_a nWB·3C, part_b chunks·nwz·3C, dz_part
+// T = nWB·N; part_a ceil(T/proj_rows)·3C, part_b chunks·nwz·3C, dz_part
 // chunks·nwz·heads·N·N, ds_part chunks·nwz·heads floats; wpart
-// max(splits)·3C·C floats. Chunk k of the backward core covers windows
-// u·nwz + wz for u in [k·per_block, min((k+1)·per_block, nWB/nwz)).
+// max(splits)·3C·C floats. Chunk k of the tensor-core kernels covers
+// windows u·nwz + wz for u in [k·per_block, min((k+1)·per_block, nWB/nwz)).
 extern "C" int hvt_attention_half_bwd(
     const void* x, const void* wqkv, const float* bqkv, const float* scale, const float* z,
     int nwz, const void* wproj, const float* bproj, const float* lns, const void* g, void* dx,
     float* dwqkv, float* dwproj, float* dsmall, float* dscale, float* dz, void* ao, void* dproj,
     void* dqkv, float* part_a, float* part_b, float* dz_part, float* ds_part, float* wpart,
-    int per_block, int chunks, int splits_qkv, int splits_proj, int nwb, int n, int c, int heads,
-    void* stream) {
+    int per_block, int chunks, int proj_rows, int splits_qkv, int splits_proj, int nwb, int n,
+    int c, int heads, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (c) {
 #define HVT_CASE(CC)                                                                             \
@@ -71,7 +71,7 @@ extern "C" int hvt_attention_half_bwd(
     return hvt::launch_attn_bwd<CC>(x, wqkv, bqkv, scale, z, nwz, wproj, bproj, lns, nullptr, g, \
                                     dx, dwqkv, dwproj, dsmall, dscale, dz, ao, dproj, dqkv,      \
                                     part_a, part_b, dz_part, ds_part, wpart, per_block, chunks,  \
-                                    splits_qkv, splits_proj, nwb / nwz,                          \
+                                    proj_rows, splits_qkv, splits_proj, nwb / nwz,               \
                                     hvt::FlatWindows{nwz, n}, heads, st);
     HVT_WIDTHS(HVT_CASE)
 #undef HVT_CASE

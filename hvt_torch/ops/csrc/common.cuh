@@ -377,117 +377,6 @@ int launch_attention(const void* q, const void* k, const void* v, HeadTiles in,
   return (int)cudaGetLastError();
 }
 
-// The backward of the cosine attention core for one (window, head), the math
-// of packed_heads_backward, in f32 on shared memory, all threads of the
-// block taking part:
-//   q̂ = q·rsqrt(Σq² + 1e-24), k̂ likewise, cos = q̂k̂ᵀ, P = softmax(scale·cos + z)
-//   dv = Pᵀ·dO,  dS = P ⊙ (dO·vᵀ − rowsum(dO·vᵀ ⊙ P))
-//   Z += dS, dscale += Σ dS ⊙ cos (thread e owns Z[e], so Z may sum windows)
-//   dq̂ = scale·dS·k̂, dk̂ = scale·dSᵀ·q̂, dq = (dq̂ − q̂⟨dq̂, q̂⟩)·rsqrt(Σq² + 1e-24), dk likewise.
-// On entry Q, K, V and G (= dO) hold N rows of D (row stride ld) and the
-// block has synchronised; Q and K become q̂ and k̂, V and G are consumed.
-// P, Dm and Cs are N x (N+1) scratch, invQ and invK N floats; zh is the
-// (N, N) f32 bias(+mask) of this window and head. store_dv(j, c, value)
-// receives dv, then store_dqk(is_q, i, c, value) dq and dk (each element
-// once, from the thread that computed it; writing dq into V[i·ld + c] or dk
-// into G[i·ld + c] in place is safe).
-template <typename DvFn, typename DqkFn>
-__device__ __forceinline__ void attention_core_bwd(float* Q, float* K, float* V, float* G,
-                                                   float* P, float* Dm, float* Cs, float* Z,
-                                                   float* invQ, float* invK, int N, int D, int ld,
-                                                   float scale, const float* __restrict__ zh,
-                                                   float& dscale, DvFn store_dv, DqkFn store_dqk) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5, ldS = N + 1;
-  for (int r = warp; r < 2 * N; r += nwarps) {
-    float* v = r < N ? Q + r * ld : K + (r - N) * ld;
-    float ss = 0.f;
-    for (int c = lane; c < D; c += 32) ss += v[c] * v[c];
-    const float inv = rsqrtf(warp_sum(ss) + 1e-24f);
-    for (int c = lane; c < D; c += 32) v[c] *= inv;
-    if (lane == 0) {
-      if (r < N) invQ[r] = inv;
-      else invK[r - N] = inv;
-    }
-  }
-  __syncthreads();
-  for (int e = tid; e < N * N; e += blockDim.x) {
-    const int i = e / N, j = e - i * N;
-    const float* q = Q + i * ld;
-    const float* k = K + j * ld;
-    const float* g = G + i * ld;
-    const float* v = V + j * ld;
-    float dot = 0.f, dp = 0.f;
-    for (int c = 0; c < D; ++c) {
-      dot += q[c] * k[c];
-      dp += g[c] * v[c];
-    }
-    Cs[i * ldS + j] = dot;
-    P[i * ldS + j] = dot * scale + zh[e];
-    Dm[i * ldS + j] = dp;
-  }
-  __syncthreads();
-  // softmax of each row, then dS = P ⊙ (dP − Σ_j dP ⊙ P)
-  for (int i = warp; i < N; i += nwarps) {
-    float* s = P + i * ldS;
-    float* dp = Dm + i * ldS;
-    float m = -INFINITY;
-    for (int j = lane; j < N; j += 32) m = fmaxf(m, s[j]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < N; j += 32) {
-      const float ex = expf(s[j] - m);
-      s[j] = ex;
-      sum += ex;
-    }
-    const float inv = 1.f / warp_sum(sum);
-    float r = 0.f;
-    for (int j = lane; j < N; j += 32) {
-      s[j] *= inv;
-      r += s[j] * dp[j];
-    }
-    r = warp_sum(r);
-    for (int j = lane; j < N; j += 32) dp[j] = s[j] * (dp[j] - r);
-  }
-  __syncthreads();
-  for (int e = tid; e < N * D; e += blockDim.x) {  // dv = Pᵀ·dO
-    const int j = e / D, c = e - j * D;
-    float acc = 0.f;
-    for (int i = 0; i < N; ++i) acc += P[i * ldS + j] * G[i * ld + c];
-    store_dv(j, c, acc);
-  }
-  for (int e = tid; e < N * N; e += blockDim.x) {
-    const int i = e / N, j = e - i * N;
-    const float ds = Dm[i * ldS + j];
-    Z[e] += ds;
-    dscale += ds * Cs[i * ldS + j];
-  }
-  __syncthreads();  // v and dO are read for the last time above
-  for (int e = tid; e < N * D; e += blockDim.x) {  // dq̂ -> V, dk̂ -> G
-    const int i = e / D, c = e - i * D;
-    float aq = 0.f, ak = 0.f;
-    for (int j = 0; j < N; ++j) {
-      aq += Dm[i * ldS + j] * K[j * ld + c];
-      ak += Dm[j * ldS + i] * Q[j * ld + c];
-    }
-    V[i * ld + c] = aq * scale;
-    G[i * ld + c] = ak * scale;
-  }
-  __syncthreads();
-  // the norm's backward, one warp per row: dx = (dx̂ − x̂⟨dx̂, x̂⟩)·rsqrt(Σx² + 1e-24)
-  for (int r = warp; r < 2 * N; r += nwarps) {
-    const bool isq = r < N;
-    const int i = isq ? r : r - N;
-    const float* x = (isq ? Q : K) + i * ld;
-    const float* gx = (isq ? V : G) + i * ld;
-    float dot = 0.f;
-    for (int c = lane; c < D; c += 32) dot += gx[c] * x[c];
-    dot = warp_sum(dot);
-    const float inv = isq ? invQ[i] : invK[i];
-    for (int c = lane; c < D; c += 32) store_dqk(isq, i, c, (gx[c] - x[c] * dot) * inv);
-  }
-}
-
 // out[i] = Σ_p part[p·count + i], i < count: 8 groups of parts, each summed
 // in order, then the groups in order — the same bits on every run.
 __global__ void __launch_bounds__(256)

@@ -73,14 +73,13 @@ __device__ __forceinline__ void mlp_fc_chunks(float (&acc)[C / 32][4], const bf1
 // Attention half: a block owns one window of one image
 // ---------------------------------------------------------------------------
 
-// The backward's first kernel reuses this layout: after the heads, the
-// q|k|v tile's space (running on into S's) holds 2·3·C f32 column sums.
 // A head's qkv weight slices (WA) and its logits (S) are never live at the
 // same time, so they share one region: at C = 1024 that is what brings the
 // window's layout (tokens and outputs, 2 x 101 KB) under the 227 KB a block
-// may have.
+// may have. The epilogues' 128 floats of row sums (red) reuse S's space
+// after the heads.
 struct AttnSmem {
-  size_t x, o, qkv, s, wa, colacc, red, bytes;
+  size_t x, o, qkv, s, wa, red, bytes;
   __host__ __device__ AttnSmem(int n, int c) {
     const int ldx = c + 8;
     const size_t r1 = sizeof(bf16) * (size_t)(n * ldx > c * kLDK ? n * ldx : c * kLDK);
@@ -89,13 +88,10 @@ struct AttnSmem {
     qkv = o + align16(sizeof(bf16) * n * ldx);
     s = qkv + align16(sizeof(float) * n * kLDQ);
     wa = s;
+    red = s;
     const size_t s_bytes = sizeof(float) * n * (n + 1);
     const size_t wa_bytes = sizeof(bf16) * 3 * kD * kLDK;
-    const size_t s_end = s + align16(s_bytes > wa_bytes ? s_bytes : wa_bytes);
-    colacc = qkv;
-    const size_t colacc_end = colacc + align16(sizeof(float) * 6 * c);
-    red = colacc_end > s ? colacc_end : s;  // 128 floats of the epilogues' row sums
-    bytes = s_end > red + sizeof(float) * 128 ? s_end : red + sizeof(float) * 128;
+    bytes = s + align16(s_bytes > wa_bytes ? s_bytes : wa_bytes);
   }
 };
 

@@ -2,9 +2,12 @@
 // attention_half.cu) and the chunked MLP half (fused_halves_chunked.cu):
 // the LayerNorm backward epilogue, the weight-gradient product `grad_tn`,
 // the shared-memory opt-in, and the attention half's backward kernels,
-// templated on the token layout (fused_halves.cuh).
+// templated on the token layout (fused_halves.cuh), whose attention core runs
+// on tensor cores (attention_fwd_tc.cuh, attention_bwd_tc.cuh).
 #pragma once
 
+#include "attention_bwd_tc.cuh"
+#include "attention_fwd_tc.cuh"
 #include "fused_halves.cuh"
 
 namespace hvt {
@@ -160,53 +163,261 @@ int allow_smem(K kernel, size_t bytes) {
 // ---------------------------------------------------------------------------
 // Attention half
 // ---------------------------------------------------------------------------
+//
+// Four kernels, then dx and the weight gradients:
+//  1. attn_half_bwd_ao_kernel: the attention output ao (bf16, T x C), one
+//     block of kTcThreads threads per (chunk of windows, window id, head) on
+//     tensor cores: the head's q|k|v = x·W_h + b_h (mma.sync, C streamed in
+//     kKS slices by cp.async), split into three bf16 pieces, then
+//     attention_window_fwd_tc (attention_fwd_tc.cuh) with P kept f32;
+//  2. attn_half_bwd_proj_kernel: per 32 token rows, proj = ao·Wprojᵀ + b
+//     and the LayerNorm backward on gs = bf16(s·g) to dproj (bf16), with
+//     the column partials of dbproj, dlns and dlnb;
+//  3. attn_half_bwd_core_kernel: per (chunk of windows, window id, head),
+//     q|k|v and dao = dproj·Wproj[:, head] recomputed on tensor cores in one
+//     stream over C, split into three pieces each, then
+//     attention_window_bwd_tc<3> (attention_bwd_tc.cuh): dq, dk, dv to dqkv
+//     (bf16) at the tokens' own rows, dz and dscale in registers across the
+//     chunk's windows, the head's dbqkv columns summed in a fixed order;
+//     one partial of each per block;
+//  4. attn_half_bwd_dx_kernel: dx = g + dqkv·Wqkv per 32 token rows.
+// Kernels 1 and 3 take C at run time (their tiles do not grow with it); 2 and
+// 4 hold a (32 x C) tile and take it as a template parameter.
 
-// One block per (image, window): the forward to proj (as
-// attn_half_fwd_kernel), the attention output to `ao`, and the LayerNorm
-// backward on gs = bf16(s·g) (g where s is null) to `dproj` (both bf16, at
-// the tokens' own rows); part[block] gets the column sums [dbproj | dlns |
-// dlnb].
-template <int C, typename Layout>
-__global__ void __launch_bounds__(kThreads)
-attn_half_bwd_proj_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
-                          const float* __restrict__ bqkv, const float* __restrict__ scale,
-                          const float* __restrict__ z, int nwz, const bf16* __restrict__ wproj,
-                          const float* __restrict__ bproj, const float* __restrict__ lns,
-                          const float* __restrict__ s, const bf16* __restrict__ gout,
-                          bf16* __restrict__ ao, bf16* __restrict__ dproj,
-                          float* __restrict__ part, Layout lay, int heads) {
-  constexpr int LDX = C + 8, NT = C / 32;
-  const int n = lay.n(), nw = lay.windows();
-  const AttnSmem L(n, C);
-  extern __shared__ uint4 smem_u4[];
-  char* smem = reinterpret_cast<char*>(smem_u4);
-  bf16* Xs = reinterpret_cast<bf16*>(smem + L.x);
-  bf16* WB = Xs;  // the proj pass reuses the token tile's space
-  bf16* Os = reinterpret_cast<bf16*>(smem + L.o);
-  float* QKV = reinterpret_cast<float*>(smem + L.qkv);
-  float* colacc = reinterpret_cast<float*>(smem + L.colacc);  // after the heads
-  float* S = reinterpret_cast<float*>(smem + L.s);
-  bf16* WA = reinterpret_cast<bf16*>(smem + L.wa);
-  float* red = reinterpret_cast<float*>(smem + L.red);
+// Streamed operands arrive in slices of kKS columns of the reduction dim at
+// row stride kLDK bf16 (80 bytes): the eight rows an ldmatrix reads fall in
+// distinct banks.
+constexpr int kTcQkvRows = 3 * kD;  // the head's q|k|v weight rows
+// f32 row stride of the output staging tiles: 40 floats keep a half-warp's
+// 8-byte fragment stores (rows g, columns 2t) in distinct banks.
+constexpr int kTcOutLd = 40;
 
-  const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.x / nw, wid = blockIdx.x - b * nw;
-  const auto win = lay.at(b, wid);
-  copy_rows(Xs, LDX, n, C, [&](int i) { return x + win.token(i) * C; });
-  const float* zw = z + (size_t)(nwz > 1 ? wid : 0) * heads * n * n;
+// Shared memory of kernels 1 and 3, bytes: the operand tiles (three pieces
+// of each of kOps operands), z, the inverse norms and four floats of row
+// sums, then one region that holds the two stages of streamed slices
+// (kStageRows rows each) during the projections and, during the attention,
+// kScratch bytes of the helper's and the outputs' tiles.
+template <int kOps, int kStageRows, size_t kScratch>
+struct TcHalfSmem {
+  static constexpr size_t zs = sizeof(bf16) * 3 * kOps * kTcTile;  // the tiles come first
+  static constexpr size_t inv = zs + sizeof(float) * kTcRows * kTcZLd;
+  static constexpr size_t region = inv + sizeof(float) * (2 * kTcRows + kTcThreads / 32);
+  static constexpr size_t stages = sizeof(bf16) * 2 * kStageRows * kLDK;
+  static constexpr size_t bytes = region + (kScratch > stages ? kScratch : stages);
+};
+// Kernel 1: q, k, v; stages of 64 token rows and 96 weight rows; the f32
+// output tile.
+using AoSmem = TcHalfSmem<3, kTcRows + kTcQkvRows, sizeof(float) * kTcRows * kTcOutLd>;
+// Kernel 3: q, k, v, dao; stages of 64 token rows, 96 q|k|v weight rows, 64
+// dproj rows and 32 Wproj rows; P's and dS's bf16 halves and the f32 dq,
+// dk, dv tiles.
+constexpr int kCoreStageRows = kTcRows + kTcQkvRows + kTcRows + kD;
+using CoreSmem = TcHalfSmem<4, kCoreStageRows,
+                            sizeof(bf16) * 2 * kTcRows * kTcRows +
+                                sizeof(float) * 3 * kTcRows * kTcOutLd>;
 
-  attn_heads_fwd<C>(Xs, Os, QKV, S, WA, n, heads, wqkv, bqkv, scale, zw);
-  __syncthreads();
-  for (int e = threadIdx.x; e < n * (C / 8); e += kThreads) {
-    const int i = e / (C / 8), v = e - i * (C / 8);
-    *reinterpret_cast<uint4*>(ao + win.token(i) * C + v * 8) =
-        *reinterpret_cast<const uint4*>(Os + i * LDX + v * 8);
+// Runs compute(stage) on each of the C / kKS slices of the reduction dim, slice
+// s loaded by load(k0, stage) (cp.async, one group) into stage s & 1 while
+// slice s − 1 is computed. Both stages must be free on entry; ends in a barrier.
+template <typename LoadFn, typename ComputeFn>
+__device__ __forceinline__ void stream_slices(int C, LoadFn load, ComputeFn compute) {
+  const int steps = C / kKS;
+  load(0, 0);
+  for (int s = 0; s < steps; ++s) {
+    if (s + 1 < steps) load((s + 1) * kKS, (s + 1) & 1);
+    else cp_async_commit();
+    cp_async_wait<1>();  // slice s has landed
+    __syncthreads();
+    compute(s & 1);
+    __syncthreads();  // stage s & 1 is free for slice s + 2
   }
-  for (int i = threadIdx.x; i < 6 * C; i += kThreads) colacc[i] = 0.f;
+}
 
+// acc[j] += A·Bᵀ over one slice for the warp's 16 rows (16·warp..) of A and
+// rows 8j.. of B: A (kTcRows x kKS) and B (8·NT x kKS) bf16 at row stride
+// kLDK, the reduction dim contiguous in both.
+template <int NT>
+__device__ __forceinline__ void slice_mma_nt(float (&acc)[NT][4], const bf16* A, const bf16* B) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + (lane >> 4) * 8, b_col = ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int ks = 0; ks < kKS / 16; ++ks) {
+    uint32_t a[4];
+    ldsm_x4(a, A + (16 * warp + a_row) * kLDK + 16 * ks + a_col);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      ldsm_x4(b, B + (16 * np + b_row) * kLDK + 16 * ks + b_col);
+      mma_bf16_16816(acc[2 * np], a, b[0], b[1]);
+      mma_bf16_16816(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// As slice_mma_nt with B (kKS x 8·NT) k-major: element (k, j) at B[k·kLDK + j].
+template <int NT>
+__device__ __forceinline__ void slice_mma_nn(float (&acc)[NT][4], const bf16* A, const bf16* B) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
+#pragma unroll
+  for (int ks = 0; ks < kKS / 16; ++ks) {
+    uint32_t a[4];
+    ldsm_x4(a, A + (16 * warp + a_row) * kLDK + 16 * ks + a_col);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      ldsm_x4_t(b, B + (16 * ks + a_row) * kLDK + 16 * np + a_col);
+      mma_bf16_16816(acc[2 * np], a, b[0], b[1]);
+      mma_bf16_16816(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// The pair (v0, v1) at (row, col) of operand `op` (of `ops` a piece) as three
+// bf16 pieces into the swizzled tiles; zeros at row >= n.
+__device__ __forceinline__ void put_pieces(bf16* tiles, int ops, int op, int row, int col,
+                                           float v0, float v1, int n) {
+  uint32_t p[3] = {0u, 0u, 0u};
+  if (row < n) split3_bf16x2(v0, v1, p);
+#pragma unroll
+  for (int part = 0; part < 3; ++part)
+    *reinterpret_cast<uint32_t*>(tiles + (part * ops + op) * kTcTile + swz32(row, col)) = p[part];
+}
+
+// The q|k|v projection's fragments (acc[j]: columns 8j.. of the head's 96,
+// rows 16·warp + lane/4 (+8)) plus the bias, into the tiles of operands 0-2.
+__device__ __forceinline__ void put_qkv(bf16* tiles, int ops, const float (&acc)[12][4],
+                                        const float* __restrict__ bqkv, int C, int h, int n) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int r0 = 16 * (threadIdx.x >> 5) + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < 12; ++j) {
+    const int op = j >> 2, col = 8 * (j & 3) + 2 * t;
+    const float b0 = bqkv[op * C + h * kD + col], b1 = bqkv[op * C + h * kD + col + 1];
+    put_pieces(tiles, ops, op, r0, col, acc[j][0] + b0, acc[j][1] + b1, n);
+    put_pieces(tiles, ops, op, r0 + 8, col, acc[j][2] + b0, acc[j][3] + b1, n);
+  }
+}
+
+// Thread tid streams 16-byte piece tid & 3 of rows tid/4 + 32·i of each
+// slice, and reads and writes the same pieces of the window's token rows.
+// tok[i]: the element offset of token row tid/4 + 32·i in a (rows, C) view,
+// or -1 at or beyond n.
+template <typename Window>
+__device__ __forceinline__ void token_offsets(long long (&tok)[2], const Window& win, int n,
+                                              int C) {
+  const int r = threadIdx.x >> 2;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) tok[i] = r + 32 * i < n ? (long long)win.token(r + 32 * i) * C : -1;
+}
+
+// The head's q|k|v weight rows (Wqkv rows part·C + h·32 + r) of slice k0 into
+// the stage's rows 64.., one cp.async a 16-byte piece.
+__device__ __forceinline__ void load_wqkv(bf16* stage, const bf16* __restrict__ wqkv, int C,
+                                          int h, int k0) {
+  const int r = threadIdx.x >> 2, ch = threadIdx.x & 3;
+#pragma unroll
+  for (int part = 0; part < 3; ++part)
+    cp_async16(stage + (kTcRows + part * kD + r) * kLDK + 8 * ch,
+               wqkv + ((size_t)part * C + h * kD + r) * C + k0 + 8 * ch);
+}
+
+// Slice k0 of the window's token rows of `src` (rows < n) into the stage's
+// rows `row0`.., one cp.async a 16-byte piece.
+__device__ __forceinline__ void load_tokens(bf16* stage, int row0, const bf16* __restrict__ src,
+                                            const long long (&tok)[2], int k0) {
+  const int r = threadIdx.x >> 2, ch = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    if (tok[i] >= 0) cp_async16(stage + (row0 + r + 32 * i) * kLDK + 8 * ch, src + tok[i] + k0 + 8 * ch);
+}
+
+// Kernel 1. Window w = u·nwz + wz, u in [chunk·per_block, (chunk + 1)·per_block)
+// (window id w mod nwz), head h: ao's head columns at the window's tokens.
+template <typename Layout>
+__global__ void __launch_bounds__(kTcThreads, 2)
+attn_half_bwd_ao_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
+                        const float* __restrict__ bqkv, const float* __restrict__ scale,
+                        const float* __restrict__ z, int nwz, bf16* __restrict__ ao, int nwin,
+                        int per_block, Layout lay, int C, int heads) {
+  constexpr int kStage = (kTcRows + kTcQkvRows) * kLDK;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* const tiles = reinterpret_cast<bf16*>(tc_smem);
+  float* const zs = reinterpret_cast<float*>(tc_smem + AoSmem::zs);
+  float* const inv = reinterpret_cast<float*>(tc_smem + AoSmem::inv);
+  bf16* const stages = reinterpret_cast<bf16*>(tc_smem + AoSmem::region);
+  float* const out = reinterpret_cast<float*>(tc_smem + AoSmem::region);  // after the projection
+
+  const int n = lay.n(), nw = lay.windows();
+  const int wz = blockIdx.x % nwz, chunk = blockIdx.x / nwz, h = blockIdx.y;
+  const int r = threadIdx.x >> 2, ch = threadIdx.x & 3;
+  const float sc = scale[h];
+  tc_load_z(zs, z + ((size_t)wz * heads + h) * n * n, n);  // the same for every window of the chunk
+
+  const int u_end = min((chunk + 1) * per_block, nwin / nwz);
+  for (int u = chunk * per_block; u < u_end; ++u) {
+    const int w = u * nwz + wz;
+    long long tok[2];
+    token_offsets(tok, lay.at(w / nw, w % nw), n, C);
+    float acc[12][4];
+#pragma unroll
+    for (int j = 0; j < 12; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    stream_slices(
+        C,
+        [&](int k0, int s) {
+          load_tokens(stages + s * kStage, 0, x, tok, k0);
+          load_wqkv(stages + s * kStage, wqkv, C, h, k0);
+          cp_async_commit();
+        },
+        [&](int s) { slice_mma_nt<12>(acc, stages + s * kStage, stages + s * kStage + kTcRows * kLDK); });
+    put_qkv(tiles, 3, acc, bqkv, C, h, n);
+    __syncthreads();
+    attention_window_fwd_tc<float, false>(tiles, inv, n, sc, zs,
+                                          [&](int row) { return out + row * kTcOutLd; });
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (tok[i] < 0) continue;
+      const float* o = out + (r + 32 * i) * kTcOutLd + 8 * ch;
+      const float4 a = *reinterpret_cast<const float4*>(o), b = *reinterpret_cast<const float4*>(o + 4);
+      *reinterpret_cast<uint4*>(ao + tok[i] + h * kD + 8 * ch) =
+          make_uint4(pack_bf16x2(a.x, a.y), pack_bf16x2(a.z, a.w), pack_bf16x2(b.x, b.y),
+                     pack_bf16x2(b.z, b.w));
+    }
+    __syncthreads();  // out shares the stages' space, and the tiles are rewritten next
+  }
+}
+
+// Kernel 2, rows [blockIdx.x·rows_per_block, ...) of T in tiles of 32: proj =
+// ao·Wprojᵀ (tensor cores), the LayerNorm backward on gs = bf16(s·g) (g where
+// s is null; s indexed by the row's image, tpi rows an image) to dproj
+// (bf16), and part[block] = the block's column sums [dbproj | dlns | dlnb].
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+attn_half_bwd_proj_kernel(const bf16* __restrict__ ao, const bf16* __restrict__ wproj,
+                          const float* __restrict__ bproj, const float* __restrict__ lns,
+                          const float* __restrict__ s, int tpi, const bf16* __restrict__ gout,
+                          bf16* __restrict__ dproj, float* __restrict__ part, int T,
+                          int rows_per_block) {
+  constexpr int LDA = C + 8, NT = C / 32;
+  extern __shared__ uint4 smem_u4[];
+  bf16* As = reinterpret_cast<bf16*>(smem_u4);  // 32 rows of ao
+  bf16* WB = As + 32 * LDA;                     // a kKS slice of Wproj's columns
+  float* colacc = reinterpret_cast<float*>(WB + C * kLDK);  // 2 x 3 x C column sums
+  float* red = colacc + 6 * C;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps over (32 x C)
-  const float sc = s != nullptr ? s[b] : 1.f;
-  for (int r0 = 0; r0 < n; r0 += 32) {
+  const int r_lo = wm * 16 + (lane >> 2), r_hi = r_lo + 8;
+  for (int i = threadIdx.x; i < 6 * C; i += kThreads) colacc[i] = 0.f;
+  const int row_end = min(T, (blockIdx.x + 1) * rows_per_block);
+  for (int row0 = blockIdx.x * rows_per_block; row0 < row_end; row0 += 32) {
+    const int rows = min(32, row_end - row0);
+    __syncthreads();  // the previous tile is done with As
+    copy_rows(As, LDA, 32, C, [&](int r) -> const bf16* {
+      return r < rows ? ao + (size_t)(row0 + r) * C : nullptr;
+    });
     float acc[NT][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
@@ -214,19 +425,23 @@ attn_half_bwd_proj_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w
       __syncthreads();
       copy_rows(WB, kLDK, C, kKS, [&](int r) { return wproj + (size_t)r * C + k0; });
       __syncthreads();
-      warp_mma<NT, kKS>(acc, Os + (r0 + wm * 16) * LDX + k0, LDX, n - r0 - wm * 16,
-                        WB + wn * (C / 4) * kLDK, kLDK);
+      warp_mma<NT, kKS>(acc, As + wm * 16 * LDA + k0, LDA, 16, WB + wn * (C / 4) * kLDK, kLDK);
+    }
+    float sc_lo = 1.f, sc_hi = 1.f;
+    if (s != nullptr) {
+      sc_lo = r_lo < rows ? s[(row0 + r_lo) / tpi] : 0.f;
+      sc_hi = r_hi < rows ? s[(row0 + r_hi) / tpi] : 0.f;
     }
     auto grad = [&](int r, int col) -> float2 {
-      const int i = r0 + r;
-      if (i >= n) return make_float2(0.f, 0.f);
-      const bf16* gr = gout + win.token(i) * C + col;
+      if (r >= rows) return make_float2(0.f, 0.f);
+      const bf16* gr = gout + (size_t)(row0 + r) * C + col;
       if (s == nullptr) return make_float2(to_f32(gr[0]), to_f32(gr[1]));
+      const float sc = r == r_lo ? sc_lo : sc_hi;
       return make_float2(round_bf16(sc * to_f32(gr[0])), round_bf16(sc * to_f32(gr[1])));
     };
     ln_bwd_epilogue<NT>(acc, bproj, lns, red, colacc, grad, [&](int r, int col, float d0, float d1) {
-      const int i = r0 + r;
-      if (i < n) *reinterpret_cast<uint32_t*>(dproj + win.token(i) * C + col) = pack_bf16x2(d0, d1);
+      if (r < rows)
+        *reinterpret_cast<uint32_t*>(dproj + (size_t)(row0 + r) * C + col) = pack_bf16x2(d0, d1);
     });
   }
   __syncthreads();
@@ -234,149 +449,132 @@ attn_half_bwd_proj_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w
   for (int i = threadIdx.x; i < 3 * C; i += kThreads) bpart[i] = colacc[i] + colacc[3 * C + i];
 }
 
-__host__ __device__ inline size_t core_smem_floats(int n) {
-  constexpr int ld = kD + 1;
-  return 5 * n * ld + 3 * n * (n + 1) + n * n + 2 * n + kThreads / 32;
+template <int C>
+constexpr size_t proj_smem_bytes() {
+  return sizeof(bf16) * (32 * (C + 8) + C * kLDK) + sizeof(float) * (6 * C + 128);
 }
 
-__host__ __device__ inline size_t core_smem_bytes(int n) {
-  return align16(sizeof(float) * core_smem_floats(n)) + sizeof(bf16) * (64 + 3 * kD) * kLDK;
-}
-
-// One block per (chunk of windows, window id, head), as window_attention_bwd.cu:
-// for each window of the chunk, q|k|v of the head (x·Wqkv_h + b, tensor
-// cores) and dao = dproj·Wproj[:, head] (tensor cores), then the f32 core
-// backward of packed_heads_backward. dqkv goes out bf16 at the tokens' own
-// rows (T, 3C); the chunk's dz sum stays in shared memory (each thread
-// owns the same elements in every window), and dz, dscale and the head's
-// dbqkv columns leave as one partial per block.
-template <int C, typename Layout>
-__global__ void __launch_bounds__(kThreads)
+// Kernel 3, blocks as kernel 1's. Per window: q|k|v of head h and dao =
+// dproj·Wproj[:, h·32..] in one stream over C, the core's backward, dq, dk,
+// dv to dqkv (bf16, T x 3C) at the tokens' own rows. The chunk's dz and
+// dscale stay in registers and the head's dbqkv columns in threads 0-95
+// (each summing its column's rows in order); the block writes one partial of
+// each: dz_part and ds_part at ((chunk·nwz + wz)·heads + h), db_part's 96
+// columns of the head at (chunk·nwz + wz).
+template <typename Layout>
+__global__ void __launch_bounds__(kTcThreads, 2)
 attn_half_bwd_core_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
                           const float* __restrict__ bqkv, const float* __restrict__ scale,
                           const float* __restrict__ z, int nwz, const bf16* __restrict__ wproj,
                           const bf16* __restrict__ dproj, bf16* __restrict__ dqkv,
                           float* __restrict__ dz_part, float* __restrict__ ds_part,
                           float* __restrict__ db_part, int nwin, int per_block, Layout lay,
-                          int heads) {
-  constexpr int ld = kD + 1;
-  const int n = lay.n(), ldS = n + 1, nw = lay.windows();
-  extern __shared__ uint4 smem_u4[];
-  float* Q = reinterpret_cast<float*>(smem_u4);  // q, then q̂
-  float* K = Q + n * ld;                         // k, then k̂
-  float* V = K + n * ld;                         // v, then dq̂ -> dq
-  float* G = V + n * ld;                         // dao, then dk̂ -> dk
-  float* DV = G + n * ld;                        // dv
-  float* P = DV + n * ld;                        // logits, then softmax
-  float* D = P + n * ldS;                        // dao·vᵀ, then dS
-  float* Cs = D + n * ldS;                       // cos = q̂k̂ᵀ
-  float* Z = Cs + n * ldS;                       // the chunk's dz sum
-  float* invQ = Z + n * n;
-  float* invK = invQ + n;
-  float* red = invK + n;
-  bf16* As = reinterpret_cast<bf16*>(reinterpret_cast<char*>(smem_u4) +
-                                     align16(sizeof(float) * core_smem_floats(n)));
-  bf16* Ws = As + 64 * kLDK;
+                          int C, int heads) {
+  constexpr int kStage = kCoreStageRows * kLDK;
+  constexpr int kDRow = kTcRows + kTcQkvRows, kPRow = kDRow + kTcRows;  // dproj, Wproj rows
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* const tiles = reinterpret_cast<bf16*>(tc_smem);
+  float* const zs = reinterpret_cast<float*>(tc_smem + CoreSmem::zs);
+  float* const inv = reinterpret_cast<float*>(tc_smem + CoreSmem::inv);
+  float* const red = inv + 2 * kTcRows;
+  bf16* const stages = reinterpret_cast<bf16*>(tc_smem + CoreSmem::region);
+  // during the attention: P's and dS's halves, then the f32 dq, dk, dv tiles
+  bf16* const ps = stages;
+  float* const dout = reinterpret_cast<float*>(ps + 2 * kTcRows * kTcRows);
 
+  const int n = lay.n(), nw = lay.windows();
   const int wz = blockIdx.x % nwz, chunk = blockIdx.x / nwz, h = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = kThreads / 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 1, wn = warp & 1;  // 4 x 2 warps over 64 rows
+  const int r = tid >> 2, ch = tid & 3;
   const float sc = scale[h];
-  const float* zh = z + ((size_t)wz * heads + h) * n * n;
-  for (int e = tid; e < n * n; e += kThreads) Z[e] = 0.f;
+  tc_load_z(zs, z + ((size_t)wz * heads + h) * n * n, n);
+  float dz[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dz[nt][e] = 0.f;
   float dscale = 0.f, dbias = 0.f;  // thread tid < 96 owns dbqkv column tid of the head
 
   const int u_end = min((chunk + 1) * per_block, nwin / nwz);
   for (int u = chunk * per_block; u < u_end; ++u) {
-    const int w = u * nwz + wz;  // window id = w mod nwz
-    const auto win = lay.at(w / nw, w % nw);
-
-    // q|k|v of head h: (64 x 96), warp (wm, wn) -> rows 16·wm.., cols 48·wn..
-    float acc[6][4];
+    const int w = u * nwz + wz;
+    long long tok[2];
+    token_offsets(tok, lay.at(w / nw, w % nw), n, C);
+    float acc[12][4], dacc[4][4];
 #pragma unroll
-    for (int j = 0; j < 6; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    for (int k0 = 0; k0 < C; k0 += kKS) {
-      __syncthreads();
-      copy_rows(As, kLDK, 64, kKS, [&](int i) -> const bf16* {
-        return i < n ? x + win.token(i) * C + k0 : nullptr;
-      });
-      copy_rows(Ws, kLDK, 3 * kD, kKS, [&](int r) {
-        return wqkv + (size_t)((r / kD) * C + h * kD + r % kD) * C + k0;
-      });
-      __syncthreads();
-      warp_mma<6, kKS>(acc, As + wm * 16 * kLDK, kLDK, 16, Ws + wn * 48 * kLDK, kLDK);
-    }
+    for (int j = 0; j < 12; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 6; ++j) {
-      const int col = wn * 48 + j * 8 + 2 * t, part = col / kD, cc = col % kD;
-      float* dst = part == 0 ? Q : (part == 1 ? K : V);
-      const float bb0 = bqkv[part * C + h * kD + cc], bb1 = bqkv[part * C + h * kD + cc + 1];
-      const int r_lo = wm * 16 + g, r_hi = r_lo + 8;
-      if (r_lo < n) {
-        dst[r_lo * ld + cc] = acc[j][0] + bb0;
-        dst[r_lo * ld + cc + 1] = acc[j][1] + bb1;
+    for (int j = 0; j < 4; ++j) dacc[j][0] = dacc[j][1] = dacc[j][2] = dacc[j][3] = 0.f;
+    stream_slices(
+        C,
+        [&](int k0, int s) {
+          bf16* st = stages + s * kStage;
+          load_tokens(st, 0, x, tok, k0);
+          load_wqkv(st, wqkv, C, h, k0);
+          load_tokens(st, kDRow, dproj, tok, k0);
+          cp_async16(st + (kPRow + r) * kLDK + 8 * ch, wproj + (size_t)(k0 + r) * C + h * kD + 8 * ch);
+          cp_async_commit();
+        },
+        [&](int s) {
+          const bf16* st = stages + s * kStage;
+          slice_mma_nt<12>(acc, st, st + kTcRows * kLDK);
+          slice_mma_nn<4>(dacc, st + kDRow * kLDK, st + kPRow * kLDK);
+        });
+    put_qkv(tiles, 4, acc, bqkv, C, h, n);
+    {
+      const int r0 = 16 * warp + (lane >> 2), t = lane & 3;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        put_pieces(tiles, 4, 3, r0, 8 * j + 2 * t, dacc[j][0], dacc[j][1], n);
+        put_pieces(tiles, 4, 3, r0 + 8, 8 * j + 2 * t, dacc[j][2], dacc[j][3], n);
       }
-      if (r_hi < n) {
-        dst[r_hi * ld + cc] = acc[j][2] + bb0;
-        dst[r_hi * ld + cc + 1] = acc[j][3] + bb1;
-      }
-    }
-
-    // dao of head h = dproj (64 x C) · Wproj[:, h·32..] : (64 x 32), warp -> cols 16·wn..
-    float dacc[2][4];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) dacc[j][0] = dacc[j][1] = dacc[j][2] = dacc[j][3] = 0.f;
-    for (int k0 = 0; k0 < C; k0 += kKS) {
-      __syncthreads();
-      copy_rows(As, kLDK, 64, kKS, [&](int i) -> const bf16* {
-        return i < n ? dproj + win.token(i) * C + k0 : nullptr;
-      });
-      copy_rows(Ws, kLDK, kKS, kD, [&](int r) { return wproj + (size_t)(k0 + r) * C + h * kD; });
-      __syncthreads();
-      warp_mma_kn<2, kKS>(dacc, As + wm * 16 * kLDK, kLDK, 16, Ws + wn * 16, kLDK);
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int col = wn * 16 + j * 8 + 2 * t;
-      const int r_lo = wm * 16 + g, r_hi = r_lo + 8;
-      if (r_lo < n) { G[r_lo * ld + col] = dacc[j][0]; G[r_lo * ld + col + 1] = dacc[j][1]; }
-      if (r_hi < n) { G[r_hi * ld + col] = dacc[j][2]; G[r_hi * ld + col + 1] = dacc[j][3]; }
     }
     __syncthreads();
-
-    attention_core_bwd(
-        Q, K, V, G, P, D, Cs, Z, invQ, invK, n, kD, ld, sc, zh, dscale,
-        [&](int j, int cc, float v) { DV[j * ld + cc] = v; },
-        [&](bool isq, int i, int cc, float v) { (isq ? V : G)[i * ld + cc] = v; });
+    attention_window_bwd_tc<3>(tiles, ps, inv, n, sc, zs, dz, dscale,
+                               [&](int op, int row, int col, float v0, float v1) {
+                                 *reinterpret_cast<float2*>(dout + (op * kTcRows + row) * kTcOutLd +
+                                                            col) = make_float2(v0, v1);
+                               });
     __syncthreads();
-    // dq (V), dk (G), dv (DV) -> dqkv bf16; the head's bias-gradient columns
-    for (int e = tid; e < n * 3 * kD; e += kThreads) {
-      const int i = e / (3 * kD), col = e - i * 3 * kD, part = col / kD, cc = col % kD;
-      const float* src = part == 0 ? V : (part == 1 ? G : DV);
-      dqkv[win.token(i) * 3 * C + part * C + h * kD + cc] = __float2bfloat16(src[i * ld + cc]);
-    }
+#pragma unroll
+    for (int op = 0; op < 3; ++op)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (tok[i] < 0) continue;
+        const float* o = dout + (op * kTcRows + r + 32 * i) * kTcOutLd + 8 * ch;
+        const float4 a = *reinterpret_cast<const float4*>(o), b = *reinterpret_cast<const float4*>(o + 4);
+        *reinterpret_cast<uint4*>(dqkv + 3 * tok[i] + (size_t)op * C + h * kD + 8 * ch) =
+            make_uint4(pack_bf16x2(a.x, a.y), pack_bf16x2(a.z, a.w), pack_bf16x2(b.x, b.y),
+                       pack_bf16x2(b.z, b.w));
+      }
     if (tid < 3 * kD) {
-      const float* src = (tid < kD ? V : (tid < 2 * kD ? G : DV)) + tid % kD;
+      const float* o = dout + (tid / kD) * kTcRows * kTcOutLd + tid % kD;
       float cs = 0.f;
-      for (int i = 0; i < n; ++i) cs += src[i * ld];
+      for (int i = 0; i < n; ++i) cs += o[i * kTcOutLd];
       dbias += cs;
     }
+    __syncthreads();  // dout shares the stages' space, and the tiles are rewritten next
   }
 
-  const size_t pidx = ((size_t)chunk * nwz + wz) * heads + h;
-  for (int e = tid; e < n * n; e += kThreads) dz_part[pidx * n * n + e] = Z[e];
+  const size_t part = ((size_t)chunk * nwz + wz) * heads + h;
+  float* zp = dz_part + part * n * n;
+  const int r0 = 16 * warp + (lane >> 2), c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + (e >> 1) * 8, col = 8 * nt + c0 + (e & 1);
+      if (row < n && col < n) zp[row * n + col] = dz[nt][e];
+    }
   if (tid < 3 * kD)
     db_part[((size_t)chunk * nwz + wz) * 3 * C + (tid / kD) * C + h * kD + tid % kD] = dbias;
   dscale = warp_sum(dscale);
-  __syncthreads();
   if (lane == 0) red[warp] = dscale;
   __syncthreads();
   if (tid == 0) {
     float sum = 0.f;
-    for (int i = 0; i < nwarps; ++i) sum += red[i];
-    ds_part[pidx] = sum;
+    for (int i = 0; i < kTcThreads / 32; ++i) sum += red[i];
+    ds_part[part] = sum;
   }
 }
 
@@ -424,37 +622,46 @@ attn_half_bwd_dx_kernel(const bf16* __restrict__ dqkv, const bf16* __restrict__ 
     }
   }
 }
-
 template <int C, typename Layout>
 int launch_attn_bwd(const void* x, const void* wqkv, const float* bqkv, const float* scale,
                     const float* z, int nwz, const void* wproj, const float* bproj,
                     const float* lns, const float* s, const void* g, void* dx, float* dwqkv,
                     float* dwproj, float* dsmall, float* dscale, float* dz, void* ao,
                     void* dproj, void* dqkv, float* part_a, float* part_b, float* dz_part,
-                    float* ds_part, float* wpart, int per_block, int chunks, int splits_qkv,
-                    int splits_proj, int B, Layout lay, int heads, cudaStream_t st) {
-  const int n = lay.n(), nw = lay.windows(), T = B * nw * n;
+                    float* ds_part, float* wpart, int per_block, int chunks, int proj_rows,
+                    int splits_qkv, int splits_proj, int B, Layout lay, int heads,
+                    cudaStream_t st) {
+  const int n = lay.n(), nw = lay.windows(), nwin = B * nw, T = nwin * n;
+  if (n < 1 || n > kTcRows || proj_rows % 32) return -1;
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* wq = static_cast<const bf16*>(wqkv);
   const bf16* wp = static_cast<const bf16*>(wproj);
   const bf16* gb = static_cast<const bf16*>(g);
+  bf16* aob = static_cast<bf16*>(ao);
+  bf16* dpb = static_cast<bf16*>(dproj);
+  bf16* dqb = static_cast<bf16*>(dqkv);
+  const dim3 heads_grid(chunks * nwz, heads);
   int err;
 
-  auto proj = attn_half_bwd_proj_kernel<C, Layout>;
-  const size_t smem_a = AttnSmem(n, C).bytes;
-  if ((err = allow_smem(proj, smem_a))) return err;
-  proj<<<B * nw, kThreads, smem_a, st>>>(xb, wq, bqkv, scale, z, nwz, wp, bproj, lns, s, gb,
-                                        static_cast<bf16*>(ao), static_cast<bf16*>(dproj), part_a,
-                                        lay, heads);
+  auto aok = attn_half_bwd_ao_kernel<Layout>;
+  if ((err = allow_smem(aok, AoSmem::bytes))) return err;
+  aok<<<heads_grid, kTcThreads, AoSmem::bytes, st>>>(xb, wq, bqkv, scale, z, nwz, aob, nwin,
+                                                     per_block, lay, C, heads);
   if ((err = (int)cudaGetLastError())) return err;
-  if ((err = sum_parts(part_a, B * nw, 3LL * C, dsmall + 3 * C, st))) return err;
 
-  auto core = attn_half_bwd_core_kernel<C, Layout>;
-  const size_t smem_b = core_smem_bytes(n);
-  if ((err = allow_smem(core, smem_b))) return err;
-  core<<<dim3(chunks * nwz, heads), kThreads, smem_b, st>>>(
-      xb, wq, bqkv, scale, z, nwz, wp, static_cast<const bf16*>(dproj), static_cast<bf16*>(dqkv),
-      dz_part, ds_part, part_b, B * nw, per_block, lay, heads);
+  auto proj = attn_half_bwd_proj_kernel<C>;
+  const int proj_blocks = (T + proj_rows - 1) / proj_rows;
+  if ((err = allow_smem(proj, proj_smem_bytes<C>()))) return err;
+  proj<<<proj_blocks, kThreads, proj_smem_bytes<C>(), st>>>(aob, wp, bproj, lns, s, nw * n, gb,
+                                                            dpb, part_a, T, proj_rows);
+  if ((err = (int)cudaGetLastError())) return err;
+  if ((err = sum_parts(part_a, proj_blocks, 3LL * C, dsmall + 3 * C, st))) return err;
+
+  auto core = attn_half_bwd_core_kernel<Layout>;
+  if ((err = allow_smem(core, CoreSmem::bytes))) return err;
+  core<<<heads_grid, kTcThreads, CoreSmem::bytes, st>>>(xb, wq, bqkv, scale, z, nwz, wp, dpb, dqb,
+                                                        dz_part, ds_part, part_b, nwin, per_block,
+                                                        lay, C, heads);
   if ((err = (int)cudaGetLastError())) return err;
   if ((err = sum_parts(dz_part, chunks, (long long)nwz * heads * n * n, dz, st))) return err;
   if ((err = sum_parts(ds_part, chunks * nwz, heads, dscale, st))) return err;
@@ -463,14 +670,11 @@ int launch_attn_bwd(const void* x, const void* wqkv, const float* bqkv, const fl
   auto dxk = attn_half_bwd_dx_kernel<C>;
   const size_t smem_c = sizeof(bf16) * (32 * kLDK + kKS * (C + 8));
   if ((err = allow_smem(dxk, smem_c))) return err;
-  dxk<<<(T + 31) / 32, kThreads, smem_c, st>>>(static_cast<const bf16*>(dqkv), wq, gb,
-                                                s != nullptr, static_cast<bf16*>(dx), T);
+  dxk<<<(T + 31) / 32, kThreads, smem_c, st>>>(dqb, wq, gb, s != nullptr, static_cast<bf16*>(dx),
+                                                T);
   if ((err = (int)cudaGetLastError())) return err;
-  if ((err = grad_tn(static_cast<const bf16*>(dqkv), xb, dwqkv, wpart, splits_qkv, T, 3 * C, C,
-                     st)))
-    return err;
-  return grad_tn(static_cast<const bf16*>(dproj), static_cast<const bf16*>(ao), dwproj, wpart,
-                 splits_proj, T, C, C, st);
+  if ((err = grad_tn(dqb, xb, dwqkv, wpart, splits_qkv, T, 3 * C, C, st))) return err;
+  return grad_tn(dpb, aob, dwproj, wpart, splits_proj, T, C, C, st);
 }
 
 }  // namespace hvt

@@ -50,11 +50,12 @@ from hvt_torch.ops import _build
 from hvt_torch.ops import window_attention as wa
 from hvt_torch.ops.window_attention_cuda import (
     LOG_MAX_SCALE,
+    _aligned,
     attention_scale,
-    backward_chunks,
     merge_bias_mask,
     packed_heads_backward,
     packed_heads_forward,
+    tc_backward_chunks,
 )
 
 P, I = _build.P, _build.I
@@ -91,13 +92,13 @@ MLP_BWD_KERNEL = _build.Kernel(
 ATTN_BWD_KERNEL = _build.Kernel(
     _by_width("fused_halves_bwd"),
     "hvt_attention_half_nhwc_bwd",
-    [P] * 5 + [I] + [P] * 19 + [I] * 11 + [P],
+    [P] * 5 + [I] + [P] * 19 + [I] * 12 + [P],
 )
 ATTN_WIN_KERNEL = _build.Kernel(
     _by_width("attention_half"), "hvt_attention_half_fwd", [P] * 5 + [I] + [P] * 5 + [I] * 4 + [P]
 )
 ATTN_WIN_BWD_KERNEL = _build.Kernel(
-    _by_width("attention_half"), "hvt_attention_half_bwd", [P] * 5 + [I] + [P] * 18 + [I] * 8 + [P]
+    _by_width("attention_half"), "hvt_attention_half_bwd", [P] * 5 + [I] + [P] * 18 + [I] * 9 + [P]
 )
 MLP_CHUNKED_KERNEL = _build.Kernel(
     "fused_halves_base", "hvt_mlp_half_chunked_fwd", [P] * 9 + [I, I, P]
@@ -110,6 +111,13 @@ HEAD_DIM = 32
 CHUNKED_ROWS = 64
 #: blocks of a weight-gradient product to aim for: 8 per SM of the H100
 GRAD_BLOCKS = 1056
+#: blocks of the attention half's backward proj/LayerNorm kernel to aim for
+#: (8 per SM), each taking a run of whole 32-row tiles
+PROJ_BLOCKS = 1056
+#: blocks of the attention half's two tensor-core backward kernels (attention
+#: output, core) to aim for: one wave at their 2 resident blocks an SM (115 KB
+#: and 81 KB of shared memory)
+TC_HALF_BLOCKS = 264
 _LN_EPS = 1e-5
 _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
@@ -702,36 +710,51 @@ def attention_half_nhwc_backward(x, wqkv, bqkv, scale, z, wproj, bproj, lns, g, 
     name = "attention_half_nhwc backward"
     _check_attn(name, x, heads, window, dp, shift)
     b, h, w, c = x.shape
-    n, nw, t = window * window, (h // window) * (w // window), b * h * w
+    n, nw = window * window, (h // window) * (w // window)
     z = z.to(x.device, torch.float32).contiguous()
     nwz = z.shape[0]
     if z.shape[1:] != (heads, n, n) or nwz not in (1, nw):
         raise ValueError(f"{name}: z {tuple(z.shape)} for {nw} windows of {n} tokens")
-    x = x.contiguous()
-    g = g.to(torch.bfloat16).contiguous()
+    x = _aligned(x.contiguous())
+    g = _aligned(g.to(torch.bfloat16).contiguous())
     wq, bq, wp, bp, ls, f32, s = _attn_args(x, wqkv, bqkv, wproj, bproj, lns, dp)
     scale = f32(scale)
-    per_block, chunks = backward_chunks(b * nw, nwz, heads)
+    dx, out, scratch, sizes = _attn_bwd_buffers(x, b * nw, nwz, n, c, heads)
+    ATTN_BWD_KERNEL(
+        x.data_ptr(), wq.data_ptr(), bq.data_ptr(), scale.data_ptr(), z.data_ptr(), nwz,
+        wp.data_ptr(), bp.data_ptr(), ls.data_ptr(), None if s is None else s.data_ptr(),
+        g.data_ptr(), dx.data_ptr(), *(t.data_ptr() for t in out + scratch), *sizes, b, h, w,
+        c, heads, window, shift, _stream(x), width=c)
+    return _attn_bwd_result(dx, out, c)
+
+
+def _attn_bwd_buffers(x, nwb: int, nwz: int, n: int, c: int, heads: int):
+    """The backward launchers' outputs and scratch for ``nwb`` windows of
+    ``n`` tokens of x: (dx, outputs (dwqkv, dwproj, dsmall, dscale, dz),
+    scratch (ao, dproj, dqkv, part_a, part_b, dz_part, ds_part, wpart),
+    sizes (per_block, chunks, proj_rows, splits of dWqkv and dWproj)), in
+    the C entries' order."""
+    t = nwb * n
+    per_block, chunks = tc_backward_chunks(nwb, nwz, heads, TC_HALF_BLOCKS)
+    tiles = -(-t // 32)
+    proj_rows = 32 * -(-tiles // PROJ_BLOCKS)
     sq, sp = _splits(3 * c, c, t), _splits(c, c, t)
 
     def empty(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=x.device)
 
-    dx, dwqkv, dwproj, dsmall = torch.empty_like(x), empty(3 * c, c), empty(c, c), empty(6 * c)
-    dscale, dz = empty(heads), empty(nwz, heads, n, n)
-    ao, dproj = empty(t, c, dtype=x.dtype), empty(t, c, dtype=x.dtype)
-    dqkv = empty(t, 3 * c, dtype=x.dtype)
-    part_a, part_b = empty(b * nw, 3 * c), empty(chunks * nwz, 3 * c)
-    dz_part, ds_part = empty(chunks, nwz, heads, n, n), empty(chunks, nwz, heads)
-    wpart = empty(max(sq, sp) * 3 * c * c if max(sq, sp) > 1 else 1)
-    ATTN_BWD_KERNEL(
-        x.data_ptr(), wq.data_ptr(), bq.data_ptr(), scale.data_ptr(), z.data_ptr(), nwz,
-        wp.data_ptr(), bp.data_ptr(), ls.data_ptr(), None if s is None else s.data_ptr(),
-        g.data_ptr(), dx.data_ptr(), dwqkv.data_ptr(), dwproj.data_ptr(), dsmall.data_ptr(),
-        dscale.data_ptr(), dz.data_ptr(), ao.data_ptr(), dproj.data_ptr(), dqkv.data_ptr(),
-        part_a.data_ptr(), part_b.data_ptr(), dz_part.data_ptr(), ds_part.data_ptr(),
-        wpart.data_ptr(), per_block, chunks, sq, sp, b, h, w, c, heads, window, shift,
-        _stream(x), width=c)
+    out = (empty(3 * c, c), empty(c, c), empty(6 * c), empty(heads), empty(nwz, heads, n, n))
+    scratch = (empty(t, c, dtype=x.dtype), empty(t, c, dtype=x.dtype),
+               empty(t, 3 * c, dtype=x.dtype), empty(-(-t // proj_rows), 3 * c),
+               empty(chunks * nwz, 3 * c), empty(chunks, nwz, heads, n, n),
+               empty(chunks, nwz, heads), empty(max(sq, sp) * 3 * c * c if max(sq, sp) > 1 else 1))
+    return torch.empty_like(x), out, scratch, (per_block, chunks, proj_rows, sq, sp)
+
+
+def _attn_bwd_result(dx, out, c: int):
+    """(dx, dwqkv, dbqkv, dscale, dz, dwproj, dbproj, dlns, dlnb) from the
+    launchers' outputs."""
+    dwqkv, dwproj, dsmall, dscale, dz = out
     return (dx, dwqkv, dsmall[:3 * c], dscale, dz, dwproj, dsmall[3 * c:4 * c],
             dsmall[4 * c:5 * c], dsmall[5 * c:])
 
@@ -844,33 +867,16 @@ def attention_half_backward(x, wqkv, bqkv, scale, z, wproj, bproj, lns, g, heads
     if z.shape[1:] != (heads, n, n) or g.shape != x.shape:
         raise ValueError(f"{name}: z {tuple(z.shape)}, g {tuple(g.shape)} for windows "
                          f"{tuple(x.shape)}")
-    t = nwb * n
-    x = x.contiguous()
-    g = g.to(torch.bfloat16).contiguous()
+    x = _aligned(x.contiguous())
+    g = _aligned(g.to(torch.bfloat16).contiguous())
     wq, bq, wp, bp, ls, f32, _ = _attn_args(x, wqkv, bqkv, wproj, bproj, lns, None)
     scale = f32(scale)
-    per_block, chunks = backward_chunks(nwb, nwz, heads)
-    sq, sp = _splits(3 * c, c, t), _splits(c, c, t)
-
-    def empty(*shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device=x.device)
-
-    dx, dwqkv, dwproj, dsmall = torch.empty_like(x), empty(3 * c, c), empty(c, c), empty(6 * c)
-    dscale, dz = empty(heads), empty(nwz, heads, n, n)
-    ao, dproj = empty(t, c, dtype=x.dtype), empty(t, c, dtype=x.dtype)
-    dqkv = empty(t, 3 * c, dtype=x.dtype)
-    part_a, part_b = empty(nwb, 3 * c), empty(chunks * nwz, 3 * c)
-    dz_part, ds_part = empty(chunks, nwz, heads, n, n), empty(chunks, nwz, heads)
-    wpart = empty(max(sq, sp) * 3 * c * c if max(sq, sp) > 1 else 1)
+    dx, out, scratch, sizes = _attn_bwd_buffers(x, nwb, nwz, n, c, heads)
     ATTN_WIN_BWD_KERNEL(
         x.data_ptr(), wq.data_ptr(), bq.data_ptr(), scale.data_ptr(), z.data_ptr(), nwz,
         wp.data_ptr(), bp.data_ptr(), ls.data_ptr(), g.data_ptr(), dx.data_ptr(),
-        dwqkv.data_ptr(), dwproj.data_ptr(), dsmall.data_ptr(), dscale.data_ptr(), dz.data_ptr(),
-        ao.data_ptr(), dproj.data_ptr(), dqkv.data_ptr(), part_a.data_ptr(), part_b.data_ptr(),
-        dz_part.data_ptr(), ds_part.data_ptr(), wpart.data_ptr(), per_block, chunks, sq, sp, nwb,
-        n, c, heads, _stream(x), width=c)
-    return (dx, dwqkv, dsmall[:3 * c], dscale, dz, dwproj, dsmall[3 * c:4 * c],
-            dsmall[4 * c:5 * c], dsmall[5 * c:])
+        *(t.data_ptr() for t in out + scratch), *sizes, nwb, n, c, heads, _stream(x), width=c)
+    return _attn_bwd_result(dx, out, c)
 
 
 class _AttnHalf(torch.autograd.Function):

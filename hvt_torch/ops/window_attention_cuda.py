@@ -50,7 +50,6 @@ SPLIT_BWD_KERNEL = _build.Kernel(
 )
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 SMEM_BYTES = 227 * 1024  # the H100's dynamic shared memory per block
-BWD_BLOCKS = 1056  # backward blocks per launch to aim for: 8 per SM of the H100
 # The tensor-core forward and backward (csrc/attention_fwd_tc.cuh,
 # attention_bwd_tc.cuh): head dim and padded window they are built for, and
 # blocks per launch to aim for: one wave on the H100's 132 SMs, of 3 resident
@@ -220,20 +219,14 @@ def tc_forward_chunks(nwb: int, nwz: int, heads: int, dtype: torch.dtype) -> tup
     return per_block, -(-nb // per_block)
 
 
-def backward_chunks(nwb: int, nwz: int, heads: int) -> tuple[int, int]:
-    """(images per block, chunks) of the backward kernel: one block per
-    (chunk of images, window id, head), about BWD_BLOCKS blocks in all."""
-    nb = nwb // nwz
-    per_block = max(1, -(-nb * nwz * heads // BWD_BLOCKS))
-    return per_block, -(-nb // per_block)
-
-
-def tc_backward_chunks(nwb: int, nwz: int, heads: int) -> tuple[int, int]:
-    """(images per block, chunks) of the tensor-core backward kernel: one
+def tc_backward_chunks(nwb: int, nwz: int, heads: int,
+                       blocks: int = TC_BWD_BLOCKS) -> tuple[int, int]:
+    """(images per block, chunks) of a tensor-core backward kernel: one
     block per (chunk of images, window id, head), the chunks as few and
-    long as give about TC_BWD_BLOCKS blocks in all."""
+    long as give about ``blocks`` blocks in all (TC_BWD_BLOCKS for the
+    window-attention backward's)."""
     nb = nwb // nwz
-    per_block = -(-nb // max(1, round(TC_BWD_BLOCKS / (nwz * heads))))
+    per_block = -(-nb // max(1, round(blocks / (nwz * heads))))
     return per_block, -(-nb // per_block)
 
 

@@ -314,18 +314,31 @@ def test_mlp_half_backward_kernel(cuda, c, resid):
         _close(a, b, 2e-2, f"mlp_half C={c} resid={resid} {name}")
 
 
-@pytest.mark.parametrize("c,shift", [(96, 0), (96, 3), (768, 0), (128, 3), (1024, 0)])
-def test_attention_half_nhwc_backward_kernel(cuda, monkeypatch, c, shift):
-    """Stage 1 (unshifted and shifted) and stage 4 widths at batch 2 through
-    the autograd Function: every gradient within 2e-2·max|plain| (as the
-    MLP half), and head 0's logit scale, above the log 100 clamp, gets
-    exactly 0."""
-    heads, window = c // 32, 7
-    p = _params(c, heads, 49, cuda, seed=7 * c + shift)
-    p["ls"][0] = 5.0
-    mask = torch.as_tensor(wa.shift_attn_mask((14, 14), window, shift), device=cuda) if shift else None
+# Every SwinV2-T and SwinV2-B width at window 7 (shifted by 3 with the mask
+# or not), and window 8 (N = 64, the tensor-core tile's full height, no
+# padding) shifted by 4 and not.
+HALF_BACKWARD_CASES = [
+    (96, 0, 7), (96, 3, 7), (192, 3, 7), (384, 0, 7), (768, 0, 7), (128, 3, 7), (256, 0, 7),
+    (512, 3, 7), (1024, 0, 7), (96, 4, 8), (384, 0, 8),
+]
+
+
+def _half_inputs(c, window, shift, device, seed):
+    """_params with x on a 2 x 2-window map per image (batch 2), head 0's
+    logit scale above the log 100 clamp, the shift mask, and the drop-path
+    scales 0 (image 0 dropped) and 1/keep."""
+    p, mask, _ = _window_inputs(c, window, shift, torch.bfloat16, device, seed)
+    return p, mask, torch.tensor([0.0, 1.25], device=device)
+
+
+@pytest.mark.parametrize("c,shift,window", HALF_BACKWARD_CASES)
+def test_attention_half_nhwc_backward_kernel(cuda, monkeypatch, c, shift, window):
+    """Through the autograd Function at batch 2: every gradient within
+    2e-2·max|plain| (as the MLP half), and head 0's logit scale, above the
+    log 100 clamp, gets exactly 0."""
+    heads = c // 32
+    p, mask, dp = _half_inputs(c, window, shift, cuda, seed=7 * c + shift)
     g = torch.randn(p["x"].shape, device=cuda, generator=torch.Generator(cuda).manual_seed(c)).bfloat16()
-    dp = torch.tensor([0.0, 1.25], device=cuda)
     names = ("x", "wqkv", "bqkv", "ls", "bias", "wproj", "bproj", "lns", "lnb")
 
     def grads():
@@ -345,7 +358,54 @@ def test_attention_half_nhwc_backward_kernel(cuda, monkeypatch, c, shift):
     ref = grads()
     assert fh.ATTN_BWD_KERNEL.launches == before + 1
     for name, a, b in zip(names, got, ref):
-        _close(a, b, 2e-2, f"attention half C={c} shift={shift} d{name}")
+        _close(a, b, 2e-2, f"attention half C={c} shift={shift} window={window} d{name}")
+
+
+@pytest.mark.parametrize("windowed", [False, True])
+@pytest.mark.parametrize("blocks", [None, 2])
+def test_attention_half_backward_kernels_chunks_and_reruns(cuda, monkeypatch, windowed, blocks):
+    """Both attention-half backward wrappers at stage 1's width (C = 96, 3
+    heads, shifted by 3) at batch 4: with the default grid (chunks of one
+    window here) and with ``TC_HALF_BLOCKS`` = 2 (one chunk of the 4
+    windows of each window id a block). Two runs give bit-identical outputs
+    (per-block partials summed in a fixed order, no atomics), and so do x
+    and g starting 2 bytes past a 16-byte boundary (the wrapper copies them
+    for the kernels' 16-byte loads); every output within 2e-2·max|plain|."""
+    c, heads, window, shift = 96, 3, 7, 3
+    if blocks is not None:
+        monkeypatch.setattr(fh, "TC_HALF_BLOCKS", blocks)
+    p, mask, _ = _half_inputs(c, window, shift, cuda, seed=41)
+    rng = np.random.default_rng(43)
+    x = torch.as_tensor(rng.normal(size=(4, 14, 14, c)).astype(np.float32), device=cuda).bfloat16()
+    dp = torch.tensor([0.0, 1.25, 1.25, 1.0], device=cuda)
+    z, scale = wac.merge_bias_mask(p["bias"], mask), wac.attention_scale(p["ls"])
+    weights = (p["wqkv"], p["bqkv"], scale, z, p["wproj"], p["bproj"], p["lns"])
+    g = torch.randn(x.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(3)).bfloat16()
+    if windowed:
+        x, g = (wa.window_partition(torch.roll(t, (-shift, -shift), (1, 2)), window).contiguous()
+                for t in (x, g))
+
+    def run(xi, gi, fn=None):
+        if windowed:
+            return (fn or fh.attention_half_backward)(xi, *weights, gi, heads)
+        return (fn or fh.attention_half_nhwc_backward)(xi, *weights, gi, window, heads, dp=dp,
+                                                       shift=shift)
+
+    def off(t):
+        return torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)[1:].view(t.shape).copy_(t)
+
+    kernel = fh.ATTN_WIN_BWD_KERNEL if windowed else fh.ATTN_BWD_KERNEL
+    before = kernel.launches
+    first, second, shifted = run(x, g), run(x, g), run(off(x), off(g))
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 3
+    for a, b, d in zip(first, second, shifted):
+        assert torch.equal(a, b) and torch.equal(a, d)
+    ref = run(x, g, fh.attention_half_backward_plain if windowed
+              else fh.attention_half_nhwc_backward_plain)
+    for name, a, b in zip(("dx", "dwqkv", "dbqkv", "dscale", "dz", "dwproj", "dbproj", "dlns",
+                           "dlnb"), first, ref):
+        _close(a, b, 2e-2, f"{'windowed' if windowed else 'NHWC'} half blocks={blocks} {name}")
 
 
 @pytest.mark.parametrize("nchunks", [2, 4])
@@ -375,18 +435,16 @@ def test_mlp_half_chunked_kernels(cuda, nchunks):
         _close(a, b, 2e-2, f"chunked K={nchunks} {name}")
 
 
-@pytest.mark.parametrize("c,shift", [(96, 3), (96, 0), (768, 0), (128, 3), (1024, 0)])
-def test_attention_half_windowed_kernels(cuda, monkeypatch, c, shift):
+@pytest.mark.parametrize("c,shift,window", HALF_BACKWARD_CASES)
+def test_attention_half_windowed_kernels(cuda, monkeypatch, c, shift, window):
     """The attention half on window tokens (hvt's ``fuse_nhwc: false``
     route), forward and backward through the autograd Function, at batch 2,
     the windows partitioned from the rolled map as the model does: the
     branch and every gradient within 2e-2·max|plain| (the NHWC half's
     tolerance), and head 0's logit scale, above the log 100 clamp, gets
     exactly 0."""
-    heads, window = c // 32, 7
-    p = _params(c, heads, 49, cuda, seed=13 * c + shift)
-    p["ls"][0] = 5.0
-    mask = torch.as_tensor(wa.shift_attn_mask((14, 14), window, shift), device=cuda) if shift else None
+    heads = c // 32
+    p, mask, _ = _half_inputs(c, window, shift, cuda, seed=13 * c + shift)
     xw = wa.window_partition(torch.roll(p["x"], (-shift, -shift), (1, 2)), window).contiguous()
     g = torch.randn(xw.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(c)).bfloat16()
     names = ("x", "wqkv", "bqkv", "ls", "bias", "wproj", "bproj", "lns", "lnb")
@@ -409,7 +467,7 @@ def test_attention_half_windowed_kernels(cuda, monkeypatch, c, shift):
     ref = run()
     assert fh.ATTN_WIN_KERNEL.launches == before[0] + 1
     for name, a, b in zip(("branch",) + tuple(f"d{k}" for k in names), got, ref):
-        _close(a, b, 2e-2, f"windowed attention half C={c} shift={shift} {name}")
+        _close(a, b, 2e-2, f"windowed attention half C={c} shift={shift} window={window} {name}")
 
 
 @pytest.mark.parametrize("c,shift,dtype,window", [
