@@ -33,14 +33,16 @@ Phases, in order; any failure exits non-zero and prints no result:
      packed and split attention backwards also in f32 (check only, every
      gradient within 1e-4·max|plain|). Then each is timed through the
      model's backward beside its bound and its plain version (and SDPA's
-     backward for the packed kernel); the attention half's two backwards
-     (NHWC and windowed) also with their host and device time
+     backward for the packed kernel); the fused halves' three backward
+     rows (the MLP half, the NHWC and the windowed attention half) and the
+     chunked MLP's backward also with their host and device time
      (``host_device_ms``), each of their kernels' device ms a step
-     (attention output, proj, core, dx, both weight-gradient products,
-     the fixed-order sums), the registers, shared memory and spills of
-     their kernels, and the composite yardstick: the unfused route's ops
-     computing the same function (F.linear, the packed window attention,
-     F.layer_norm, roll, partition, residual) timed through autograd;
+     (attention half: attention output, proj, core, dx, dWqkv, dWproj;
+     MLP: fc1, fc2, LayerNorm backward, hidden, dx, dW1, dW2; both: the
+     fixed-order sums), the registers, shared memory and spills of their
+     kernels, and the composite yardstick: the unfused route's ops
+     computing the same function (F.linear, the packed window attention or
+     F.gelu, F.layer_norm, roll, partition, residual) timed through autograd;
   7. the training path, once per route (model.args.fuse false, then true):
      ``hvt_torch.main.main`` trains SwinV2-T (10,000 classes, batch 128,
      configs/pretrain/swinv2_tiny.yaml's recipe) for 30 steps on the
@@ -112,6 +114,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import http.client as http_client
 import json
 import math
@@ -148,16 +151,14 @@ KERNELS = {  # name: (source, TPU kernel it replaces, route of the main path)
 BWD_KERNEL = "window_attention_packed_bwd"
 BWD_SOURCE = ("hvt_torch/ops/csrc/window_attention_bwd.cu", "hvt/ops/window_attention_pallas.py:558")
 FUSED_BWD = {  # name: (source, TPU kernel it replaces) — the fuse: true route's backward
-    "mlp_half_bwd": ("hvt_torch/ops/csrc/fused_halves_bwd.cu",
-                     "hvt/ops/fused_halves_pallas.py:371"),
+    "mlp_half_bwd": ("hvt_torch/ops/csrc/mlp_bwd.cu", "hvt/ops/fused_halves_pallas.py:371"),
     "attention_half_nhwc_bwd": ("hvt_torch/ops/csrc/fused_halves_bwd.cu",
                                 "hvt/ops/fused_halves_pallas.py:1386"),
 }
 CHUNKED = {  # name: (source, TPU kernel it replaces) — SwinV2-B's stage-4 MLP in training
     "mlp_half_chunked_fwd": ("hvt_torch/ops/csrc/fused_halves.cu",
                              "hvt/ops/fused_halves_pallas.py:592"),
-    "mlp_half_chunked_bwd": ("hvt_torch/ops/csrc/fused_halves_chunked.cu",
-                             "hvt/ops/fused_halves_pallas.py:627"),
+    "mlp_half_chunked_bwd": ("hvt_torch/ops/csrc/mlp_bwd.cu", "hvt/ops/fused_halves_pallas.py:627"),
 }
 WINDOWED = {  # name: (source, TPU kernel it replaces) — hvt's fuse_nhwc: false route
     "attention_half_fwd": ("hvt_torch/ops/csrc/attention_half.cu",
@@ -194,14 +195,13 @@ TRAIN_KERNELS = {  # kernels each training step launches 12 times, per route
 # (head dim 32, N <= 64) and attention_fwd_kernel at others.
 PROFILE_NAMES = {
     False: {"backward": ("attention_bwd_",), "forward": ("attention_fwd_tc", "attention_fwd_kernel")},
-    True: {"backward": ("mlp_half_bwd_rows", "attn_half_bwd_", "grad_tn", "sum_parts"),
+    True: {"backward": ("mlp_bwd_", "attn_half_bwd_", "grad_tn", "sum_parts"),
            "forward": ("mlp_half_fwd", "attn_half_fwd")},
-    "base": {"backward": ("mlp_half_bwd_rows", "attn_half_bwd_", "chunked_", "grad_tn",
-                          "sum_parts"),
+    "base": {"backward": ("mlp_bwd_", "attn_half_bwd_", "grad_tn", "sum_parts"),
              "forward": ("mlp_half_fwd", "attn_half_fwd", "mlp_half_chunked_fwd")},
     "resnet": {"backward": ("bwd_reduce_kernel",), "forward": ("channel_sums_kernel",)},
     # the fused route with the packed attention pair (phase 11 (c))
-    "packed_fused": {"backward": ("attention_bwd_", "mlp_half_bwd_rows", "grad_tn", "sum_parts"),
+    "packed_fused": {"backward": ("attention_bwd_", "mlp_bwd_", "grad_tn", "sum_parts"),
                      "forward": ("attention_fwd_tc", "attention_fwd_kernel", "mlp_half_fwd")},
 }
 KEEP = 0.8  # drop-path keep probability of the scales in phase 6's inputs
@@ -242,17 +242,27 @@ FUSED_GRADS = {
                                 "dbproj", "dlns", "dlnb"),
 }
 FUSED_GRADS["attention_half_bwd"] = FUSED_GRADS["attention_half_nhwc_bwd"]
-# The attention half's two backward rows: phase 6 also splits their time
+# The fused halves' three backward rows: phase 6 also splits their time
 # between host and device and among their kernels, and times the composite
-# yardstick beside them (SwinV2-T's block shapes).
+# yardstick beside them (SwinV2-T's block shapes; the chunked MLP's backward
+# likewise at its SwinV2-B shape).
 ATTN_HALF_BWD = ("attention_half_nhwc_bwd", "attention_half_bwd")
-# The sub-kernels of an attention-half backward call, by the kernel's name:
-# the attention output, proj and the LayerNorm backward (one kernel that also
-# recomputes the attention output in the parent's design), the core, dx, the
-# two weight-gradient products (dWqkv, then dWproj) and the fixed-order sums.
-SUB_KERNELS = (("attn_half_bwd_ao", "ao"), ("attn_half_bwd_proj", "proj"),
-               ("attn_half_bwd_core", "core"), ("attn_half_bwd_dx", "dx"),
-               ("grad_tn", "grad_tn"), ("sum_parts", "sum_parts"))
+SPLIT_BWD = (*ATTN_HALF_BWD, "mlp_half_bwd")
+# The sub-kernels of a backward call, by the kernel's name, and the names of
+# its two weight-gradient products (the first grad_tn after dx, then the
+# second). Attention half: the attention output, proj and the LayerNorm
+# backward, the core, dx, dWqkv and dWproj, the fixed-order sums. MLP half
+# (both sites): fc1 and fc2 (unchunked only), the LayerNorm backward, the
+# hidden kernel, dx, dW1 and dW2, the sums. A kernel matching none is keyed
+# by its own name.
+ATTN_SUB_KERNELS = ((("attn_half_bwd_ao", "ao"), ("attn_half_bwd_proj", "proj"),
+                     ("attn_half_bwd_core", "core"), ("attn_half_bwd_dx", "dx"),
+                     ("grad_tn", "grad_tn"), ("sum_parts", "sum_parts")),
+                    ("grad_tn dWqkv", "grad_tn dWproj"))
+MLP_SUB_KERNELS = ((("mlp_bwd_fc1", "fc1"), ("mlp_bwd_fc2", "fc2"),
+                    ("mlp_bwd_ln", "LayerNorm backward"), ("mlp_bwd_hidden", "hidden"),
+                    ("mlp_bwd_dx", "dx"), ("grad_tn", "grad_tn"), ("sum_parts", "sum_parts")),
+                   ("grad_tn dW1", "grad_tn dW2"))
 # Phase 7, one training step on the kernel path against the plain path.
 LOSS_RTOL = 1e-2
 GRAD_COSINE = 0.99
@@ -347,31 +357,38 @@ def host_device_line(rec: dict) -> str:
                 f"{st['wrapper_host_ms']:.3f}/{st['wrapper_device_ms']:.3f}" for st in rec["stages"]))
 
 
-def kernel_split(fn, iters: int = 5) -> dict:
+def kernel_split(fn, sub_kernels=ATTN_SUB_KERNELS, trace: str = "attention_half_bwd",
+                 iters: int = 5) -> dict:
     """Mean device ms a call of ``fn`` spends in each kind of kernel
-    (SUB_KERNELS; the first ``grad_tn`` after ``dx`` is dWqkv's, the second
-    dWproj's; any other kernel is "other"), from a torch.profiler trace of
-    ``iters`` calls (chiprun_out/attention_half_bwd_trace.json)."""
+    (``sub_kernels``: (pattern, key) pairs and the names of the first and
+    second ``grad_tn`` after ``dx``; a kernel matching no pattern is keyed
+    by its own name), from a torch.profiler trace of ``iters`` calls
+    (chiprun_out/<trace>_trace.json)."""
+    import re
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    patterns, grad_names = sub_kernels
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    path = OUT_DIR / "attention_half_bwd_trace.json"
+    path = OUT_DIR / f"{trace}_trace.json"
     prof.export_chrome_trace(str(path))
     events = sorted((e for e in json.loads(path.read_text())["traceEvents"]
                      if e.get("cat") == "kernel"), key=lambda e: e["ts"])
     split, grads = {}, 0
     for e in events:
-        key = next((k for pattern, k in SUB_KERNELS if pattern in e["name"]), "other")
+        own = re.search(r"(\w+)(?:<|\()", e["name"])
+        key = next((k for pattern, k in patterns if pattern in e["name"]),
+                   own.group(1) if own else e["name"])
         if key == "dx":
             grads = 0
         elif key == "grad_tn":
-            key = ("grad_tn dWqkv", "grad_tn dWproj")[min(grads, 1)]
+            key = grad_names[min(grads, 1)]
             grads += 1
         split[key] = split.get(key, 0.0) + e["dur"] / 1e3 / iters
     return split
@@ -409,6 +426,32 @@ def composite_attention_half(p, windowed: bool):
         return xm + p["dp"].to(xm.dtype).reshape(-1, 1, 1, 1) * y
 
     return nhwc
+
+
+def split_line(kernels_ms: dict) -> str:
+    return "; ".join(f"{k} {v:.4f}" for k, v in sorted(kernels_ms.items(), key=lambda kv: -kv[1]))
+
+
+def composite_mlp_half(p, resid: bool):
+    """The unfused route's computation of the MLP half (the yardstick of the
+    MLP backward rows): F.linear fc1 in bf16, F.gelu, F.linear fc2,
+    F.layer_norm with f32 statistics and, where ``resid``, the residual x +
+    dp·branch over each image's tokens (``hvt_torch/models/swinv2.py``'s
+    Mlp, _layer_norm and drop_path). Same leaves as ``fused_backward_cases``'
+    MLP half."""
+    import torch.nn.functional as F
+
+    tpi = p["grid"] ** 2
+
+    def half(xt, w1, b1, w2, b2, lns, lnb):
+        h = F.gelu(F.linear(xt, w1.to(xt.dtype), b1.to(xt.dtype)))
+        y = F.linear(h, w2.to(xt.dtype), b2.to(xt.dtype))
+        branch = F.layer_norm(y.float(), (xt.shape[-1],), lns, lnb, 1e-5).to(xt.dtype)
+        if not resid:
+            return branch
+        return xt + p["dp"].to(xt.dtype).repeat_interleave(tpi)[:, None] * branch
+
+    return half
 
 
 def kernel_counters():
@@ -1103,12 +1146,15 @@ def fused_backward_records(timing: bool, stages=STAGES) -> dict:
                 st["wrapper_ms"] = cuda_time_ms(wrapper, iters=10)
                 with plain_fused_backward():
                     st["plain_ms"] = cuda_time_ms(model_bwd, iters=3, warmup=1)
-                if name in ATTN_HALF_BWD and stages is STAGES:
+                if name in SPLIT_BWD and stages is STAGES:
                     st["host_ms"], st["device_ms"] = host_device_ms(model_bwd)
                     st["wrapper_host_ms"], st["wrapper_device_ms"] = host_device_ms(wrapper)
-                    st["kernels_ms"] = kernel_split(wrapper)
+                    mlp = name == "mlp_half_bwd"
+                    st["kernels_ms"] = kernel_split(wrapper, MLP_SUB_KERNELS, "mlp_half_bwd") \
+                        if mlp else kernel_split(wrapper)
                     cs = [t.detach().clone().requires_grad_() for t in leaves]
-                    c_out = composite_attention_half(p, name == "attention_half_bwd")(*cs)
+                    c_out = (composite_mlp_half(p, True) if mlp else
+                             composite_attention_half(p, name == "attention_half_bwd"))(*cs)
                     st["composite_ms"] = cuda_time_ms(
                         lambda: torch.autograd.grad(c_out, cs, g, retain_graph=True), iters=10)
                     del c_out, cs
@@ -1142,7 +1188,7 @@ def fused_backward_records(timing: bool, stages=STAGES) -> dict:
         torch.cuda.empty_cache()
     for name, rec in records.items():
         finish_record(rec, timing)
-        if timing and name in ATTN_HALF_BWD and stages is STAGES:
+        if timing and name in SPLIT_BWD and stages is STAGES:
             rec["composite_ms"] = sum(st["launches_per_forward"] * st["composite_ms"]
                                       for st in rec["stages"])
             rec["kernels_ms"] = {}
@@ -1195,10 +1241,19 @@ def chunked_records(timing: bool) -> dict:
         _, pre = fh.mlp_half_chunked_forward(x, *args, CHUNKS)
         model_bwd = lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)  # noqa: E731
         bwd["ms"] = cuda_time_ms(model_bwd, iters=10)
-        bwd["wrapper_ms"] = cuda_time_ms(lambda: fh.mlp_half_chunked_backward(
-            x, p["w1"], p["b1"], p["w2"], p["lns"], pre, g, CHUNKS), iters=10)
+        wrapper = lambda: fh.mlp_half_chunked_backward(  # noqa: E731
+            x, p["w1"], p["b1"], p["w2"], p["lns"], pre, g, CHUNKS)
+        bwd["wrapper_ms"] = cuda_time_ms(wrapper, iters=10)
         with plain_fused_backward():
             bwd["plain_ms"] = cuda_time_ms(model_bwd, iters=3, warmup=1)
+        bwd["host_ms"], bwd["device_ms"] = host_device_ms(model_bwd)
+        bwd["wrapper_host_ms"], bwd["wrapper_device_ms"] = host_device_ms(wrapper)
+        bwd["kernels_ms"] = kernel_split(wrapper, MLP_SUB_KERNELS, "mlp_half_chunked_bwd")
+        cs = [t_.detach().clone().requires_grad_() for t_ in [x] + args]
+        c_out = composite_mlp_half(p, False)(*cs)
+        bwd["composite_ms"] = cuda_time_ms(
+            lambda: torch.autograd.grad(c_out, cs, g, retain_graph=True), iters=10)
+        del c_out, cs
     else:
         got = fh.mlp_half_chunked_forward(x, *args, CHUNKS)
         torch.cuda.synchronize()
@@ -1232,6 +1287,10 @@ def chunked_records(timing: bool) -> dict:
     for name, rec in records.items():
         rec["max_abs_err"] = rec["stages"][0].get("max_abs_err", 0.0)
         finish_record(rec, timing)
+    if timing:
+        rec = records["mlp_half_chunked_bwd"]
+        rec["composite_ms"] = blocks * bwd["composite_ms"]
+        rec["kernels_ms"] = {k: blocks * ms for k, ms in bwd["kernels_ms"].items()}
     del p, x, g, out, leaves
     torch.cuda.empty_cache()
     return records
@@ -1620,7 +1679,9 @@ def train_run(config, per_step: dict, label: str):
 
     steps = int(config.max_duration.removesuffix("ba"))
     batch = config.train_dataset.global_batch_size
+    gc.collect()  # what earlier phases left in reference cycles is not this run's
     torch.cuda.empty_cache()
+    start_gib = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.launches = 0
@@ -1637,8 +1698,8 @@ def train_run(config, per_step: dict, label: str):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     log(f"  {label}: {len(losses)} steps: loss {losses[0]:.4f} → {losses[-1]:.4f}; step {median_ms:.2f} ms "
         f"median after the first 5 ({batch / median_ms * 1e3:.1f} img/s); launches "
-        f"{ {k: v for k, v in launches.items() if v} }; peak memory {peak_gib:.1f} GiB; "
-        f"{wall_s:.1f} s in all")
+        f"{ {k: v for k, v in launches.items() if v} }; peak memory {peak_gib:.2f} GiB "
+        f"({start_gib:.2f} allocated before the run); {wall_s:.1f} s in all")
     if len(losses) != steps or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{label}: training losses {losses}")
     probes = 1 if config.grad_accum == "auto" else 0
@@ -1651,7 +1712,7 @@ def train_run(config, per_step: dict, label: str):
             "probes": probes, "grad_accum": trainers[0].grad_accum, "losses": losses,
             "step_ms": step_ms, "step_ms_median": median_ms,
             "images_per_s": batch / median_ms * 1e3, "wall_s": wall_s,
-            "peak_memory_gib": peak_gib, "metrics": metrics}, trainers[0]
+            "peak_memory_gib": peak_gib, "start_memory_gib": start_gib, "metrics": metrics}, trainers[0]
 
 
 def train_batch(seed: int, batch: int):
@@ -2186,11 +2247,11 @@ def main(argv=None) -> int:
                 f"{max(st['bytes'] / H100_BYTES_PER_S, st['flops'] / H100_BF16_FLOPS) * 1e3:.3f}/"
                 f"{st['plain_ms']:.3f}" for st in rec["stages"]))
 
-    for name in ATTN_HALF_BWD:
+    for name in SPLIT_BWD:
         rec = fused[name]
         log(f"  {name}: " + host_device_line(rec))
-        log(f"  {name}: device ms per SwinV2-T step by kernel (the wrapper's calls): " + "; ".join(
-            f"{k} {v:.4f}" for k, v in sorted(rec["kernels_ms"].items(), key=lambda kv: -kv[1])))
+        log(f"  {name}: device ms per SwinV2-T step by kernel (the wrapper's calls): "
+            + split_line(rec["kernels_ms"]))
         log(f"  {name}: composite yardstick (the unfused route's ops through autograd) "
             f"{rec['composite_ms']:.4f} ms per SwinV2-T step against {rec['ms']:.4f} ms through "
             "the kernels; per launch (kernels/composite): " + "; ".join(
@@ -2203,6 +2264,13 @@ def main(argv=None) -> int:
             f"{source} {r['kernel']} {r['registers']} regs, spills {r['spill_stores']}/"
             f"{r['spill_loads']} B" for source, rows in ptxas.items()
             for r in rows if r["kernel"].startswith("attn_half_bwd_")))
+
+    mlp_smem = _build.load("mlp_bwd").hvt_mlp_bwd_smem
+    log("  MLP backward kernels, both sites (ptxas; dynamic shared memory per block, B, at C = "
+        "96 / 768: " + "; ".join(f"{k} {mlp_smem(i, 96)} / {mlp_smem(i, 768)}" for i, k in enumerate(
+            ("fc1", "fc2", "LayerNorm backward", "hidden", "dx", "grad_tn"))) + "): " + "; ".join(
+            f"{r['kernel']} {r['registers']} regs, {r['static_smem']} B static, spills "
+            f"{r['spill_stores']}/{r['spill_loads']} B" for r in ptxas.get("mlp_bwd", [])))
 
     log(f"[6] SwinV2-B: the fused halves' backward kernels and the chunked MLP vs plain "
         f"versions, bf16, batch {TRAIN_BATCH}")
@@ -2219,6 +2287,13 @@ def main(argv=None) -> int:
                 f"{st['ms']:.3f}/{st.get('wrapper_ms', st['ms']):.3f}/"
                 f"{max(st['bytes'] / H100_BYTES_PER_S, st['flops'] / H100_BF16_FLOPS) * 1e3:.3f}/"
                 f"{st['plain_ms']:.3f}" for st in rec["stages"]))
+    rec = chunked["mlp_half_chunked_bwd"]
+    log("  SwinV2-B mlp_half_chunked_bwd: " + host_device_line(rec))
+    log("  SwinV2-B mlp_half_chunked_bwd: device ms per SwinV2-B step by kernel (the wrapper's "
+        "calls): " + split_line(rec["kernels_ms"]))
+    log(f"  SwinV2-B mlp_half_chunked_bwd: composite yardstick (the unfused route's ops through "
+        f"autograd) {rec['composite_ms']:.4f} ms per SwinV2-B step against {rec['ms']:.4f} ms "
+        "through the kernels")
 
     log(f"[7] training SwinV2-T at 224 px, {CLASSES} classes, batch {TRAIN_BATCH}, "
         f"{TRAIN_STEPS} steps (hvt_torch.main), per route")
@@ -2366,9 +2441,9 @@ def main(argv=None) -> int:
               "backward_stages": {"check": bwd_checked["stages"], "timed": bwd["stages"]},
               "fused_backward_stages": {k: {"check": fused_checked[k]["stages"],
                                             "timed": fused[k]["stages"]} for k in FUSED_GRADS},
-              "attention_half_backward": {k: {f: fused[k][f] for f in (
+              "fused_backward_splits": {k: {f: fused[k][f] for f in (
                   "ms", "plain_ms", "bound_ms", "composite_ms", "kernels_ms")}
-                  for k in ATTN_HALF_BWD},
+                  for k in SPLIT_BWD},
               "split_backward_stages": {"check": split_checked["stages"],
                                         "timed": split_bwd["stages"]},
               "backward_f32_check": {"packed": bwd_f32["stages"], "split": split_f32["stages"]},

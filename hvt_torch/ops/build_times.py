@@ -11,7 +11,7 @@ kernels:
   windowed attention half) in another.
 
 The sources outside those families (the attention cores,
-``fused_halves_chunked``, ``bn_stats`` and ``swin_block``) build as they
+``mlp_bwd``, ``bn_stats`` and ``swin_block``) build as they
 are in all three layouts.
 
     python -m hvt_torch.ops.build_times
@@ -84,14 +84,12 @@ def main() -> None:
         base = _widths("HVT_WIDTHS", fh.BASE_WIDTHS)
         folded = _layout(out_dir, rest + ("fused_halves", "fused_halves_base"), {
             "fused_halves_bwd_folded": _includes("fused_halves_bwd", "attention_half"),
-            "fused_halves_bwd_base_folded": base + _widths("HVT_MLP_WIDTHS", [c for c in fh.MLP_BWD_WIDTHS if c in fh.BASE_WIDTHS])
-            + _includes("fused_halves_bwd", "attention_half"),
+            "fused_halves_bwd_base_folded": base + _includes("fused_halves_bwd", "attention_half"),
         })
         one_unit = _layout(out_dir, rest, {
             "fused_halves_all": _widths("HVT_WIDTHS", fh.WIDTHS)
             + _widths("HVT_CHUNKED_WIDTHS", fh.CHUNKED_WIDTHS) + _includes("fused_halves"),
             "fused_halves_bwd_all": _widths("HVT_WIDTHS", fh.WIDTHS)
-            + _widths("HVT_MLP_WIDTHS", fh.MLP_BWD_WIDTHS)
             + _includes("fused_halves_bwd", "attention_half"),
         })
         print(json.dumps({"split": _run(split, out_dir), "folded": _run(folded, out_dir),

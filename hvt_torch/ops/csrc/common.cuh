@@ -134,37 +134,6 @@ __device__ __forceinline__ void warp_mma_kn(float (&acc)[NT][4], const bf16* A, 
   }
 }
 
-// acc[i][j] += A(KS, 16 cols i*16..)ᵀ · B(KS, 8 cols j*8..) for i < MT, j < NT,
-// one warp, both operands k-major (rows of tokens): element (k, m) at
-// A[k·lda + m], (k, n) at B[k·ldb + n] — a weight gradient Σ_t a_tᵀ b_t.
-template <int MT, int NT, int KS>
-__device__ __forceinline__ void warp_mma_tn(float (&acc)[MT][NT][4], const bf16* A, int lda,
-                                            const bf16* B, int ldb) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < KS; kk += 16) {
-    const bf16* A0 = A + (kk + 2 * t) * lda + g;
-    const bf16* B0 = B + (kk + 2 * t) * ldb + g;
-    uint32_t a[MT][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const bf16* Ai = A0 + i * 16;
-      a[i][0] = pack2(Ai[0], Ai[lda]);
-      a[i][1] = pack2(Ai[8], Ai[lda + 8]);
-      a[i][2] = pack2(Ai[8 * lda], Ai[9 * lda]);
-      a[i][3] = pack2(Ai[8 * lda + 8], Ai[9 * lda + 8]);
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const bf16* Bj = B0 + j * 8;
-      const uint32_t b0 = pack2(Bj[0], Bj[ldb]), b1 = pack2(Bj[8 * ldb], Bj[9 * ldb]);
-#pragma unroll
-      for (int i = 0; i < MT; ++i) mma_bf16_16816(acc[i][j], a[i], b0, b1);
-    }
-  }
-}
-
 // Copy `rows` rows of `cols` bf16 (cols % 8 == 0, 16-byte aligned rows)
 // from global to shared memory with 16-byte accesses, all threads of the
 // block. src_row(r) gives the global row pointer (column 0 of the slice),
@@ -398,8 +367,36 @@ sum_parts_kernel(const float* __restrict__ part, int parts, long long count,
   }
 }
 
+// out[i] = Σ_p part[p·count + i] in order p = 0, 1, ..., four outputs a
+// thread (count4 = count / 4): for many outputs over few parts, where
+// sum_parts_kernel's 32 outputs a block would launch blocks by the hundred
+// thousand.
+__global__ void __launch_bounds__(256)
+sum_parts_wide_kernel(const float4* __restrict__ part, int parts, long long count4,
+                      float4* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= count4) return;
+  float4 s = part[i];
+  for (int p = 1; p < parts; ++p) {
+    const float4 t = part[p * count4 + i];
+    s.x += t.x; s.y += t.y; s.z += t.z; s.w += t.w;
+  }
+  out[i] = s;
+}
+
+// The partials summed in a fixed order (the same bits on every run): four
+// outputs a thread where there are enough of them to fill the card and
+// their vectors are 16-byte aligned, else 32 a block with the parts spread
+// over its 8 warps.
 inline int sum_parts(const float* part, int parts, long long count, float* out, cudaStream_t st) {
-  sum_parts_kernel<<<(unsigned)((count + 31) / 32), 256, 0, st>>>(part, parts, count, out);
+  const bool wide = count >= (1 << 18) && count % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(part) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (wide)
+    sum_parts_wide_kernel<<<(unsigned)((count / 4 + 255) / 256), 256, 0, st>>>(
+        reinterpret_cast<const float4*>(part), parts, count / 4, reinterpret_cast<float4*>(out));
+  else
+    sum_parts_kernel<<<(unsigned)((count + 31) / 32), 256, 0, st>>>(part, parts, count, out);
   return (int)cudaGetLastError();
 }
 

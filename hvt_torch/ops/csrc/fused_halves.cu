@@ -50,7 +50,7 @@ namespace hvt {
 
 // kPre: the chunked MLP's forward (hvt's `_mlp_chunked_forward`, pallas_call
 // at line 592): also store the pre-LN sum, rounded to x's dtype, for the
-// backward's LayerNorm (fused_halves_chunked.cu). hvt streams the hidden dim
+// backward's LayerNorm (mlp_bwd.cu). hvt streams the hidden dim
 // in K chunks to bound its VMEM; mlp_fc_chunks already streams it in chunks
 // of 32 into an f32 sum, so the result does not depend on K.
 template <int C, bool kPre>

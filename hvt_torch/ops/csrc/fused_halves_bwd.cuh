@@ -1,14 +1,15 @@
-// Device code shared by the fused halves' backwards (fused_halves_bwd.cu,
-// attention_half.cu) and the chunked MLP half (fused_halves_chunked.cu):
-// the LayerNorm backward epilogue, the weight-gradient product `grad_tn`,
-// the shared-memory opt-in, and the attention half's backward kernels,
-// templated on the token layout (fused_halves.cuh), whose attention core runs
-// on tensor cores (attention_fwd_tc.cuh, attention_bwd_tc.cuh).
+// Device code of the attention half's backward (fused_halves_bwd.cu on the
+// NHWC map, attention_half.cu on pre-partitioned windows): the LayerNorm
+// backward epilogue and the backward kernels, templated on the token layout
+// (fused_halves.cuh), whose attention core runs on tensor cores
+// (attention_fwd_tc.cuh, attention_bwd_tc.cuh); the weight gradients go
+// through gemm_tc.cuh's `grad_tn`.
 #pragma once
 
 #include "attention_bwd_tc.cuh"
 #include "attention_fwd_tc.cuh"
 #include "fused_halves.cuh"
+#include "gemm_tc.cuh"
 
 namespace hvt {
 
@@ -79,85 +80,6 @@ __device__ __forceinline__ void ln_bwd_epilogue(float (&acc)[NT][4], const float
       }
     }
   }
-}
-
-// ---------------------------------------------------------------------------
-// Reductions and the weight-gradient product
-// ---------------------------------------------------------------------------
-
-constexpr int kGM = 64, kGN = 64, kGK = 32;  // tile of grad_tn_kernel: M x N, tokens per step
-
-// out[z][m][n] = Σ_t A[t][m]·B[t][n] over the tokens of slice z
-// (blockIdx.z); A (T, M) and B (T, N) bf16 row-major. Warps 2 (m) x 4 (n),
-// each a 32 x 16 tile.
-__global__ void __launch_bounds__(kThreads)
-grad_tn_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, float* __restrict__ out,
-               int T, int M, int N, int per_split) {
-  __shared__ __align__(16) bf16 As[kGK * (kGM + 8)];
-  __shared__ __align__(16) bf16 Bs[kGK * (kGN + 8)];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
-  const int t_begin = blockIdx.z * per_split;
-  const int t_end = min(T, t_begin + per_split);
-  float acc[2][2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  for (int t0 = t_begin; t0 < t_end; t0 += kGK) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < kGK * (kGM / 8); e += kThreads) {
-      const int r = e / (kGM / 8), v = e - r * (kGM / 8);
-      const int tok = t0 + r;
-      uint4 a = make_uint4(0u, 0u, 0u, 0u), b = make_uint4(0u, 0u, 0u, 0u);
-      if (tok < t_end && m0 + v * 8 < M)
-        a = *reinterpret_cast<const uint4*>(A + (size_t)tok * M + m0 + v * 8);
-      if (tok < t_end && n0 + v * 8 < N)
-        b = *reinterpret_cast<const uint4*>(B + (size_t)tok * N + n0 + v * 8);
-      *reinterpret_cast<uint4*>(As + r * (kGM + 8) + v * 8) = a;
-      *reinterpret_cast<uint4*>(Bs + r * (kGN + 8) + v * 8) = b;
-    }
-    __syncthreads();
-    warp_mma_tn<2, 2, kGK>(acc, As + wm * 32, kGM + 8, Bs + wn * 16, kGN + 8);
-  }
-
-  float* o = out + (size_t)blockIdx.z * M * N;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int m = m0 + wm * 32 + i * 16 + g, n = n0 + wn * 16 + j * 8 + 2 * t;
-      if (n >= N) continue;
-      if (m < M) { o[(size_t)m * N + n] = acc[i][j][0]; o[(size_t)m * N + n + 1] = acc[i][j][1]; }
-      if (m + 8 < M) {
-        o[(size_t)(m + 8) * N + n] = acc[i][j][2];
-        o[(size_t)(m + 8) * N + n + 1] = acc[i][j][3];
-      }
-    }
-}
-
-// out (M, N) = Aᵀ·B over T tokens in `splits` slices; slices beyond the
-// first land in `part` (splits·M·N floats) and are summed in order.
-inline int grad_tn(const bf16* A, const bf16* B, float* out, float* part, int splits, int T,
-                   int M, int N, cudaStream_t st) {
-  int per = (T + splits - 1) / splits;
-  per = (per + kGK - 1) / kGK * kGK;
-  splits = (T + per - 1) / per;
-  const dim3 grid((N + kGN - 1) / kGN, (M + kGM - 1) / kGM, splits);
-  grad_tn_kernel<<<grid, kThreads, 0, st>>>(A, B, splits == 1 ? out : part, T, M, N, per);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  return sum_parts(part, splits, (long long)M * N, out, st);
-}
-
-template <typename K>
-int allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)bytes);
 }
 
 // ---------------------------------------------------------------------------
@@ -673,8 +595,8 @@ int launch_attn_bwd(const void* x, const void* wqkv, const float* bqkv, const fl
   dxk<<<(T + 31) / 32, kThreads, smem_c, st>>>(dqb, wq, gb, s != nullptr, static_cast<bf16*>(dx),
                                                 T);
   if ((err = (int)cudaGetLastError())) return err;
-  if ((err = grad_tn(dqb, xb, dwqkv, wpart, splits_qkv, T, 3 * C, C, st))) return err;
-  return grad_tn(dpb, aob, dwproj, wpart, splits_proj, T, C, C, st);
+  if ((err = grad_tn(dqb, xb, dwqkv, wpart, splits_qkv, T, 3 * C, C, false, st))) return err;
+  return grad_tn(dpb, aob, dwproj, wpart, splits_proj, T, C, C, false, st);
 }
 
 }  // namespace hvt

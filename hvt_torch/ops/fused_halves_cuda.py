@@ -9,9 +9,9 @@ Port of ``mlp_half`` (hvt/ops/fused_halves_pallas.py:397),
 inputs, the chunked MLP its inputs and the pre-LN sum, as hvt's
 ``_mlp_chunked_fwd``. The forward wrappers launch ``csrc/fused_halves.cu``
 (``fused_halves_base.cu`` at SwinV2-B's widths; the chunked MLP's forward is
-its MLP kernel storing the pre-LN sum as well), the backward wrappers
-``csrc/fused_halves_bwd.cu`` (``fused_halves_bwd_base.cu``) and
-``csrc/fused_halves_chunked.cu`` (the chunked MLP's), and the windowed
+its MLP kernel storing the pre-LN sum as well), the attention half's
+backward ``csrc/fused_halves_bwd.cu`` (``fused_halves_bwd_base.cu``), both
+MLP backwards (unchunked and chunked) ``csrc/mlp_bwd.cu``, and the windowed
 attention half both ways ``csrc/attention_half.cu``
 (``attention_half_base.cu``), for a CUDA tensor, and run their plain
 versions for a CPU tensor; nothing else selects between them.
@@ -63,11 +63,11 @@ P, I = _build.P, _build.I
 #: from its own sources, so that the two builds run side by side
 TINY_WIDTHS = (96, 192, 384, 768)
 BASE_WIDTHS = (128, 256, 512, 1024)
-#: the widths each kernel is built for: both halves' forwards and the
-#: attention half's backward take all eight; the MLP half's backward no
-#: C = 1024 (hvt sends that width to the chunked MLP in training, and the row
-#: kernel's layout would not fit 227 KB there); the chunked MLP SwinV2-B's
-#: stage 4, the one width hvt chunks at its default budget
+#: the widths each kernel takes: both halves' forwards and the attention
+#: half's backward all eight; the MLP half's backward no C = 1024 (hvt sends
+#: that width to the chunked MLP in training); the chunked MLP SwinV2-B's
+#: stage 4, the one width hvt chunks at its default budget. Both MLP
+#: backwards take C at run time from one library (``csrc/mlp_bwd.cu``).
 WIDTHS = TINY_WIDTHS + BASE_WIDTHS
 MLP_BWD_WIDTHS = TINY_WIDTHS + (128, 256, 512)
 CHUNKED_WIDTHS = (1024,)
@@ -85,10 +85,7 @@ ATTN_KERNEL = _build.Kernel(
     "hvt_attention_half_nhwc_fwd",
     [P, P, P, P, P, I, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
 )
-MLP_BWD_KERNEL = _build.Kernel(
-    _by_width("fused_halves_bwd", MLP_BWD_WIDTHS), "hvt_mlp_half_bwd",
-    [P] * 7 + [I] + [P] * 10 + [I] * 4 + [P]
-)
+MLP_BWD_KERNEL = _build.Kernel("mlp_bwd", "hvt_mlp_half_bwd", [P] * 7 + [I] + [P] * 11 + [I] * 4 + [P])
 ATTN_BWD_KERNEL = _build.Kernel(
     _by_width("fused_halves_bwd"),
     "hvt_attention_half_nhwc_bwd",
@@ -104,11 +101,15 @@ MLP_CHUNKED_KERNEL = _build.Kernel(
     "fused_halves_base", "hvt_mlp_half_chunked_fwd", [P] * 9 + [I, I, P]
 )
 MLP_CHUNKED_BWD_KERNEL = _build.Kernel(
-    "fused_halves_chunked", "hvt_mlp_half_chunked_bwd", [P] * 17 + [I] * 5 + [P]
+    "mlp_bwd", "hvt_mlp_half_chunked_bwd", [P] * 17 + [I] * 5 + [P]
 )
+#: the weight-gradient product both halves' backwards launch inside their C
+#: entries, bound on its own for the tests: out = aᵀ·b over token slices
+GRAD_TN_KERNEL = _build.Kernel("mlp_bwd", "hvt_grad_tn", [P] * 4 + [I] * 5 + [P])
 HEAD_DIM = 32
-#: rows of the chunked MLP backward's LayerNorm and hidden kernels' blocks
-CHUNKED_ROWS = 64
+#: rows of a block of the MLP backwards' LayerNorm kernel, and of the tiled
+#: kernels' (and grad_tn's) output tiles
+LN_ROWS, TILE_ROWS = 64, 128
 #: blocks of a weight-gradient product to aim for: 8 per SM of the H100
 GRAD_BLOCKS = 1056
 #: blocks of the attention half's backward proj/LayerNorm kernel to aim for
@@ -315,8 +316,10 @@ def _stream(t: torch.Tensor) -> int:
 
 def _splits(m: int, n: int, t: int) -> int:
     """Token slices of the (m, n) weight-gradient product over t tokens:
-    about GRAD_BLOCKS blocks of 64 x 64, at least 256 tokens a slice."""
-    tiles = -(-m // 64) * -(-n // 64)
+    about GRAD_BLOCKS blocks of 128 x 64 (half as many where the kernel
+    takes 128 x 128 tiles, each slice's partial then summed once), at least
+    256 tokens a slice."""
+    tiles = -(-m // TILE_ROWS) * -(-n // 64)
     return max(1, min(-(-GRAD_BLOCKS // tiles), t // 256))
 
 
@@ -328,6 +331,33 @@ def _on_card(name: str, x: torch.Tensor) -> bool:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     return True
+
+
+def weight_grad_plain(a: torch.Tensor, b: torch.Tensor, trans: bool = False) -> torch.Tensor:
+    """Plain version of ``grad_tn`` (any device): aᵀ·b in f32 for a (T, M)
+    and b (T, N), (M, N), or its transpose where ``trans``."""
+    out = a.float().t() @ b.float()
+    return out.t() if trans else out
+
+
+def weight_grad(a: torch.Tensor, b: torch.Tensor, splits: int = 1, trans: bool = False):
+    """``grad_tn`` (``hvt_grad_tn``) for CUDA tensors, its plain version for
+    CPU ones: aᵀ·b (M, N) in f32 for bf16 a (T, M) and b (T, N), over
+    ``splits`` token slices summed in a fixed order, or its transpose (N, M)
+    where ``trans``. Both halves' backwards launch the same kernel inside
+    their C entries; this binding serves the tests."""
+    if not _on_card("weight_grad", a):
+        return weight_grad_plain(a, b, trans)
+    (t, m), n = a.shape, b.shape[1]
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 or b.shape[0] != t or m % 8 or n % 8:
+        raise ValueError(f"weight_grad: a {tuple(a.shape)} {a.dtype}, b {tuple(b.shape)} "
+                         f"{b.dtype}; bf16 (T, M) and (T, N) with M and N multiples of 8 wanted")
+    a, b = _aligned(a.contiguous()), _aligned(b.contiguous())
+    out = torch.empty((n, m) if trans else (m, n), dtype=torch.float32, device=a.device)
+    part = torch.empty(splits * m * n if splits > 1 else 1, dtype=torch.float32, device=a.device)
+    GRAD_TN_KERNEL(a.data_ptr(), b.data_ptr(), out.data_ptr(), part.data_ptr(), splits, t, m, n,
+                   int(trans), _stream(a))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -404,23 +434,38 @@ def mlp_half_backward(x, w1, b1, w2, b2, lns, g, tpi: int = 0, dp=None):
         return mlp_half_backward_plain(x, w1, b1, w2, b2, lns, g, tpi, dp)
     _check_mlp("mlp_half backward", x, w1, tpi, dp, MLP_BWD_WIDTHS)
     t, c = x.shape
-    x = x.contiguous()
-    g = g.to(torch.bfloat16).contiguous()
+    x = _aligned(x.contiguous())
+    g = _aligned(g.to(torch.bfloat16).contiguous())
     args, _, s = _mlp_args(x, w1, b1, w2, b2, lns, dp)
-    s1, s2 = _splits(4 * c, c, t), _splits(c, 4 * c, t)
+    out, scratch, splits = _mlp_bwd_buffers(x)
+    # the f32 pre-LN sum lives in dpre's buffer (scratch[1]) until dpre is written
+    MLP_BWD_KERNEL(x.data_ptr(), *(a.data_ptr() for a in args), None if s is None else s.data_ptr(),
+                   max(tpi, 1), g.data_ptr(), *(b.data_ptr() for b in out + scratch), *splits,
+                   t, c, _stream(x))
+    return _mlp_bwd_result(out, c)
+
+
+def _mlp_bwd_buffers(x):
+    """Both MLP backward launchers' outputs (dx, dw1, dw2, dsmall) and scratch
+    (hid, dpre, dout, part_ln, part_h, wpart) for x (T, C), and the token
+    slices of dW1 and dW2, in the C entries' order."""
+    t, c = x.shape
+    splits = _splits(4 * c, c, t), _splits(4 * c, c, t)  # dW2 is formed as (hᵀ·dout)ᵀ
 
     def empty(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=x.device)
 
-    dx, dw1, dw2, dsmall = torch.empty_like(x), empty(4 * c, c), empty(c, 4 * c), empty(7 * c)
-    hid, dpre = empty(t, 4 * c, dtype=x.dtype), empty(t, 4 * c, dtype=x.dtype)
-    dout = empty(t, c, dtype=x.dtype)
-    part = empty(-(-t // 32), 7 * c)
-    wpart = empty(max(s1, s2) * 4 * c * c if max(s1, s2) > 1 else 1)
-    MLP_BWD_KERNEL(x.data_ptr(), *(a.data_ptr() for a in args), None if s is None else s.data_ptr(),
-                   max(tpi, 1), g.data_ptr(), dx.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
-                   dsmall.data_ptr(), hid.data_ptr(), dpre.data_ptr(), dout.data_ptr(),
-                   part.data_ptr(), wpart.data_ptr(), s1, s2, t, c, _stream(x), width=c)
+    out = (torch.empty_like(x), empty(4 * c, c), empty(c, 4 * c), empty(7 * c))
+    scratch = (empty(t, 4 * c, dtype=x.dtype), empty(t, 4 * c, dtype=x.dtype),
+               empty(t, c, dtype=x.dtype), empty(-(-t // LN_ROWS), 3 * c),
+               empty(-(-t // TILE_ROWS), 4 * c),
+               empty(max(splits) * 4 * c * c if max(splits) > 1 else 1))
+    return out, scratch, splits
+
+
+def _mlp_bwd_result(out, c: int):
+    """(dx, dw1, db1, dw2, db2, dlns, dlnb) from the launchers' outputs."""
+    dx, dw1, dw2, dsmall = out
     return (dx, dw1, dsmall[:4 * c], dw2, dsmall[4 * c:5 * c], dsmall[5 * c:6 * c],
             dsmall[6 * c:])
 
@@ -534,29 +579,17 @@ def mlp_half_chunked_backward(x, w1, b1, w2, lns, pre, g, nchunks: int):
         return mlp_half_chunked_backward_plain(x, w1, b1, w2, lns, pre, g, nchunks)
     _check_chunked("mlp_half_chunked backward", x, w1, nchunks)
     t, c = x.shape
-    x = x.contiguous()
-    pre = pre.to(torch.bfloat16).contiguous()
-    g = g.to(torch.bfloat16).contiguous()
+    x = _aligned(x.contiguous())
+    pre = _aligned(pre.to(torch.bfloat16).contiguous())
+    g = _aligned(g.to(torch.bfloat16).contiguous())
     w1b, w2b = (w.to(device=x.device, dtype=torch.bfloat16).contiguous() for w in (w1, w2))
     b1f, lnsf = (v.to(device=x.device, dtype=torch.float32).contiguous() for v in (b1, lns))
-    s1, s2 = _splits(4 * c, c, t), _splits(c, 4 * c, t)
-    rows = -(-t // CHUNKED_ROWS)
-
-    def empty(*shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device=x.device)
-
-    dx, dw1, dw2, dsmall = torch.empty_like(x), empty(4 * c, c), empty(c, 4 * c), empty(7 * c)
-    hid, dpre = empty(t, 4 * c, dtype=x.dtype), empty(t, 4 * c, dtype=x.dtype)
-    dout = empty(t, c, dtype=x.dtype)
-    part_ln, part_h = empty(rows, 3 * c), empty(rows, 4 * c)
-    wpart = empty(max(s1, s2) * 4 * c * c if max(s1, s2) > 1 else 1)
+    out, scratch, splits = _mlp_bwd_buffers(x)
     MLP_CHUNKED_BWD_KERNEL(
         x.data_ptr(), w1b.data_ptr(), b1f.data_ptr(), w2b.data_ptr(), lnsf.data_ptr(),
-        pre.data_ptr(), g.data_ptr(), dx.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
-        dsmall.data_ptr(), hid.data_ptr(), dpre.data_ptr(), dout.data_ptr(), part_ln.data_ptr(),
-        part_h.data_ptr(), wpart.data_ptr(), s1, s2, 4 * c // nchunks, t, c, _stream(x))
-    return (dx, dw1, dsmall[:4 * c], dw2, dsmall[4 * c:5 * c], dsmall[5 * c:6 * c],
-            dsmall[6 * c:])
+        pre.data_ptr(), g.data_ptr(), *(b.data_ptr() for b in out + scratch), *splits,
+        4 * c // nchunks, t, c, _stream(x))
+    return _mlp_bwd_result(out, c)
 
 
 class _MlpHalfChunked(torch.autograd.Function):

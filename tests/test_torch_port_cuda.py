@@ -293,25 +293,64 @@ def test_window_attention_backward_refuses_what_its_kernel_does_not_take(cuda):
     assert (wac.BWD_KERNEL.launches, wac.SPLIT_BWD_KERNEL.launches) == before
 
 
-@pytest.mark.parametrize("c,resid", [(96, True), (96, False), (768, True), (512, True)])
+@pytest.mark.parametrize("c,resid", [(c, resid) for c in fh.MLP_BWD_WIDTHS for resid in (True, False)])
 def test_mlp_half_backward_kernel(cuda, c, resid):
-    """Stage 1 and stage 4 widths at batch 2 (196 tokens an image), one image
-    dropped (s = 0) and one kept at 1/keep. Kernel and plain version share
+    """Every width the MLP backward takes (SwinV2-T's and SwinV2-B's) at
+    batch 3 (588 tokens: not a multiple of the 128-row tiles, and dW1, dW2
+    over 2 token slices), with and without the fused residual, one image
+    dropped (s = 0) and two kept at 1/keep. Kernel and plain version share
     the contract (bf16 operands, f32 accumulation) and differ in summation
     order and the odd bf16 flip of an operand: every gradient within
-    2e-2·max|plain|, the forward halves' tolerance."""
+    2e-2·max|plain|, the forward halves' tolerance. Two runs give
+    bit-identical outputs (fixed-order sums, no atomics), and so do x and g
+    starting 2 bytes past a 16-byte boundary (the wrapper copies them for
+    the kernels' 16-byte loads)."""
     p = _params(c, c // 32, 49, cuda, seed=5 * c)
-    x = p["x"].reshape(-1, c)
+    rng = np.random.default_rng(c)
+    x = torch.as_tensor(rng.normal(size=(3 * 196, c)).astype(np.float32), device=cuda).bfloat16()
     g = torch.randn(x.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(c)).bfloat16()
     args = (p["w1"], p["b1"], p["w2"], p["b2"], p["lns"])
-    extra = dict(tpi=196, dp=torch.tensor([0.0, 1.25], device=cuda)) if resid else {}
+    extra = dict(tpi=196, dp=torch.tensor([0.0, 1.25, 1.25], device=cuda)) if resid else {}
+
+    def off(t):
+        return torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)[1:].view(t.shape).copy_(t)
+
     before = fh.MLP_BWD_KERNEL.launches
     got = fh.mlp_half_backward(x, *args, g, **extra)
+    second = fh.mlp_half_backward(x, *args, g, **extra)
+    shifted = fh.mlp_half_backward(off(x), *args, off(g), **extra)
     torch.cuda.synchronize()
-    assert fh.MLP_BWD_KERNEL.launches == before + 1 and got[0].dtype == torch.bfloat16
+    assert fh.MLP_BWD_KERNEL.launches == before + 3 and got[0].dtype == torch.bfloat16
+    for a, b, d in zip(got, second, shifted):
+        assert torch.equal(a, b) and torch.equal(a, d)
     ref = fh.mlp_half_backward_plain(x, *args, g, **extra)
     for name, a, b in zip(("dx", "dw1", "db1", "dw2", "db2", "dlns", "dlnb"), got, ref):
         _close(a, b, 2e-2, f"mlp_half C={c} resid={resid} {name}")
+    if resid:  # image 0's branch is dropped: dx is the pass-through g there
+        assert torch.equal(got[0][:196], g[:196])
+
+
+@pytest.mark.parametrize("t,m,n,splits,trans", [
+    (1000, 200, 72, 1, False), (1000, 200, 72, 3, True), (37, 8, 16, 1, False),
+    (4099, 384, 96, 7, False), (4099, 96, 1536, 2, True), (777, 200, 256, 2, False),
+])
+def test_grad_tn_kernel(cuda, t, m, n, splits, trans):
+    """The weight-gradient product both fused halves' backwards launch,
+    aᵀ·b over token slices, at M, N and T that are not multiples of its
+    128 x 64 and 128 x 128 tiles and 32-token steps, in one slice and in several, and
+    transposed: within 1e-5·max|ref| of ``a.float().T @ b.float()`` taken in
+    f64 (the kernel sums the same bf16 products in f32), bit-identical over
+    two runs."""
+    gen = torch.Generator(cuda).manual_seed(t + m + n)
+    a = torch.randn(t, m, device=cuda, generator=gen).bfloat16()
+    b = torch.randn(t, n, device=cuda, generator=gen).bfloat16()
+    before = fh.GRAD_TN_KERNEL.launches
+    got, again = fh.weight_grad(a, b, splits, trans), fh.weight_grad(a, b, splits, trans)
+    torch.cuda.synchronize()
+    assert fh.GRAD_TN_KERNEL.launches == before + 2
+    ref = a.double().t() @ b.double()
+    assert got.shape == (ref.t() if trans else ref).shape and torch.equal(got, again)
+    _close(got, ref.t() if trans else ref, 1e-5, f"grad_tn t={t} m={m} n={n} splits={splits}")
 
 
 # Every SwinV2-T and SwinV2-B width at window 7 (shifted by 3 with the mask

@@ -80,10 +80,15 @@ MLP_NAMES = ("x", "w1", "b1", "w2", "b2", "lns", "lnb")
 MLP_TRANSPOSED = ("w1", "w2")  # flax (in, out) vs nn.Linear (out, in)
 
 
-@pytest.mark.parametrize("resid", [False, True])
-def test_mlp_half_gradients_match_pallas(resid):
+# C = 64 and the card's widths 96 (not a multiple of 64) and 128; the C = 64
+# cases keep the ids they had before the widths were added.
+@pytest.mark.parametrize("c,resid", [
+    pytest.param(64, False, id="False"), pytest.param(64, True, id="True"),
+    *(pytest.param(c, resid, id=f"{c}-{resid}") for c in (96, 128) for resid in (False, True)),
+])
+def test_mlp_half_gradients_match_pallas(c, resid):
     rng = np.random.default_rng(21)
-    b, tpi, c = 4, 16, 64
+    b, tpi = 4, 16
     p = _block_params(rng, c, 2, 16)
     p["x"] = rng.normal(size=(b * tpi, c)).astype(np.float32)
     gout = rng.normal(size=(b * tpi, c)).astype(np.float32)
@@ -102,7 +107,8 @@ def test_mlp_half_gradients_match_pallas(resid):
     assert _launches() == before  # a CPU tensor never reaches a kernel
     for name, leaf, r in zip(MLP_NAMES, leaves, ref):
         got = leaf.grad.numpy()
-        _close(got.T if name in MLP_TRANSPOSED else got, r, TOL, f"mlp_half resid={resid} d{name}")
+        _close(got.T if name in MLP_TRANSPOSED else got, r, TOL,
+               f"mlp_half C={c} resid={resid} d{name}")
 
 
 ATTN_NAMES = ("x", "wqkv", "bqkv", "ls", "bias", "wproj", "bproj", "lns", "lnb")
