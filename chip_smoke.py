@@ -24,7 +24,14 @@ Phases, in order; any failure exits non-zero and prints no result:
      kernel path must match the same model's plain path on the card;
   5. times: each kernel, its plain version and a library call where one
      computes the same function, at batch 64 (the window-attention forwards
-     beside SDPA in each dtype); images/s per route;
+     beside SDPA in each dtype); the fused forwards (MLP half, both
+     attention halves; the chunked MLP's in phase 6) beside the composite
+     yardstick, the unfused route's ops computing the same half without
+     grad; the two attention-half forwards also with their host and device
+     ms (``host_device_ms``), the device ms of each of their three kernels
+     (attention output, proj, LayerNorm and residual; a trace in
+     chiprun_out/<name>_trace.json), the design's byte floor, and the
+     kernels' registers, shared memory and spills; images/s per route;
   6. the backward kernels against their plain versions at every SwinV2-T
      block shape at batch 128: the packed attention's (dqkv, dz → dbias,
      dlogit_scale) and the fused halves' (every gradient of each half, with
@@ -192,13 +199,16 @@ TRAIN_KERNELS = {  # kernels each training step launches 12 times, per route
 }
 # Kernel names of each training path's backward and forward in a profile.
 # The window-attention forwards run attention_fwd_tc_kernel at SwinV2's shapes
-# (head dim 32, N <= 64) and attention_fwd_kernel at others.
+# (head dim 32, N <= 64) and attention_fwd_kernel at others. The attention
+# half's forward runs attn_half_fwd_ao_kernel, attn_half_fwd_proj_kernel and
+# ln_resid_fwd_kernel; its backward recomputes the attention output in
+# attn_half_bwd_ao_kernel, a name of its own.
 PROFILE_NAMES = {
     False: {"backward": ("attention_bwd_",), "forward": ("attention_fwd_tc", "attention_fwd_kernel")},
     True: {"backward": ("mlp_bwd_", "attn_half_bwd_", "grad_tn", "sum_parts"),
-           "forward": ("mlp_half_fwd", "attn_half_fwd")},
+           "forward": ("mlp_half_fwd", "attn_half_fwd_", "ln_resid_fwd")},
     "base": {"backward": ("mlp_bwd_", "attn_half_bwd_", "grad_tn", "sum_parts"),
-             "forward": ("mlp_half_fwd", "attn_half_fwd", "mlp_half_chunked_fwd")},
+             "forward": ("mlp_half_fwd", "attn_half_fwd_", "ln_resid_fwd", "mlp_half_chunked_fwd")},
     "resnet": {"backward": ("bwd_reduce_kernel",), "forward": ("channel_sums_kernel",)},
     # the fused route with the packed attention pair (phase 11 (c))
     "packed_fused": {"backward": ("attention_bwd_", "mlp_bwd_", "grad_tn", "sum_parts"),
@@ -259,6 +269,11 @@ ATTN_SUB_KERNELS = ((("attn_half_bwd_ao", "ao"), ("attn_half_bwd_proj", "proj"),
                      ("attn_half_bwd_core", "core"), ("attn_half_bwd_dx", "dx"),
                      ("grad_tn", "grad_tn"), ("sum_parts", "sum_parts")),
                     ("grad_tn dWqkv", "grad_tn dWproj"))
+# The attention half's forward (both entries): the attention output, proj and
+# the LayerNorm-and-residual pass (no weight-gradient product).
+ATTN_HALF_FWD = ("attention_half_nhwc_fwd", "attention_half_fwd")
+FWD_SUB_KERNELS = ((("attn_half_fwd_ao", "ao"), ("attn_half_fwd_proj", "proj"),
+                    ("ln_resid_fwd", "LayerNorm")), ())
 MLP_SUB_KERNELS = ((("mlp_bwd_fc1", "fc1"), ("mlp_bwd_fc2", "fc2"),
                     ("mlp_bwd_ln", "LayerNorm backward"), ("mlp_bwd_hidden", "hidden"),
                     ("mlp_bwd_dx", "dx"), ("grad_tn", "grad_tn"), ("sum_parts", "sum_parts")),
@@ -396,7 +411,7 @@ def kernel_split(fn, sub_kernels=ATTN_SUB_KERNELS, trace: str = "attention_half_
 
 def composite_attention_half(p, windowed: bool):
     """The unfused route's computation of the attention half (the
-    yardstick of the two attention-half backward rows): F.linear qkv in
+    yardstick of the two attention-half rows, forward and backward): F.linear qkv in
     bf16, the packed tensor-core window attention
     (``window_attention_packed``), F.linear proj, F.layer_norm with f32
     statistics; on the NHWC map also the roll, partition, reverse, roll
@@ -434,7 +449,7 @@ def split_line(kernels_ms: dict) -> str:
 
 def composite_mlp_half(p, resid: bool):
     """The unfused route's computation of the MLP half (the yardstick of the
-    MLP backward rows): F.linear fc1 in bf16, F.gelu, F.linear fc2,
+    MLP rows, forward and backward): F.linear fc1 in bf16, F.gelu, F.linear fc2,
     F.layer_norm with f32 statistics and, where ``resid``, the residual x +
     dp·branch over each image's tokens (``hvt_torch/models/swinv2.py``'s
     Mlp, _layer_norm and drop_path). Same leaves as ``fused_backward_cases``'
@@ -595,7 +610,8 @@ def kernel_cases(p):
     """(name, kernel call, plain call, library call or None, bytes moved,
     operations) for one stage's inputs, with the arguments the model's
     block passes at that stage. Operations are a number (at the bf16
-    tensor-core rate) or {"f32" or "bf16": operations} (see ops_ms)."""
+    tensor-core rate) or {"f32" or "bf16": operations} (see ops_ms). Also
+    {name: call} of the composite yardstick of the fused forwards."""
     import torch
     import torch.nn.functional as F
 
@@ -648,6 +664,8 @@ def kernel_cases(p):
 
     attn_args = (p["wqkv"], p["bqkv"], p["logit_scale"], p["bias"], mask, p["wproj"],
                  p["bproj"], p["lns"], p["lnb"], WINDOW, heads)
+    attn_leaves = [p[k] for k in ("wqkv", "bqkv", "logit_scale", "bias", "wproj", "bproj", "lns",
+                                  "lnb")]
     win_args = attn_args[:-2] + (heads,)
     mlp_args = (p["w1"], p["b1"], p["w2"], p["b2"], p["lns"], p["lnb"])
     xt = x.reshape(tokens, c)
@@ -686,7 +704,12 @@ def kernel_cases(p):
                                                           num_heads=heads),
                 library, size * (qx.numel() + tokens * c) + z_bytes, 4 * tokens * n * c)
 
-    return retired_cases(torch.float32) + retired_cases(torch.bfloat16) + [
+    composites = {
+        "mlp_half_fwd": lambda: composite_mlp_half(p, True)(xt, *mlp_args),
+        "attention_half_nhwc_fwd": lambda: composite_attention_half(p, False)(x, *attn_leaves),
+        "attention_half_fwd": lambda: composite_attention_half(p, True)(xw, *attn_leaves),
+    }
+    return composites, retired_cases(torch.float32) + retired_cases(torch.bfloat16) + [
         packed_case("window_attention_packed_fwd", qkv, sdpa),
         # the same projection in f32 (the f32 forward is checked and timed, not served)
         packed_case("window_attention_packed_fwd_f32", qkv.float(), sdpa_f32),
@@ -758,7 +781,8 @@ def kernel_records(timing: bool, stages=STAGES, batch: int = BATCH, names=FORWAR
     for stage, shift, blocks in block_shapes(stages):
         c = stages[stage][1]
         p = stage_inputs(stage, shift, seed=100 + 10 * stage + shift, batch=batch, stages=stages)
-        for name, kern, plain, library, nbytes, flops in kernel_cases(p):
+        composites, cases = kernel_cases(p)
+        for name, kern, plain, library, nbytes, flops in cases:
             n = blocks * (per_block(name, c) if per_block else 1)
             if name not in names or n == 0:
                 continue
@@ -774,6 +798,16 @@ def kernel_records(timing: bool, stages=STAGES, batch: int = BATCH, names=FORWAR
                 st["library_ms"] = None if library is None else cuda_time_ms(library, iters=5)
                 if name in WA_FORWARDS:  # the wrapper's host time and the kernel's own device time
                     st["host_ms"], st["device_ms"] = host_device_ms(kern, kernels=("attention_fwd",))
+                if name in composites and stages is STAGES:
+                    with torch.no_grad():
+                        st["composite_ms"] = cuda_time_ms(composites[name], iters=10)
+                if name in ATTN_HALF_FWD and stages is STAGES:
+                    # the call's host and device ms, its three kernels' device ms, and the
+                    # design's byte floor: the ao (bf16) and pre (f32) round trips added
+                    st["host_ms"], st["device_ms"] = host_device_ms(kern)
+                    st["kernels_ms"] = kernel_split(kern, FWD_SUB_KERNELS, name)
+                    st["design_floor_ms"] = max((nbytes + 12 * p["x"].numel()) / H100_BYTES_PER_S,
+                                                flops / H100_BF16_FLOPS) * 1e3
             else:
                 got = kern().float()
                 torch.cuda.synchronize()
@@ -791,8 +825,21 @@ def kernel_records(timing: bool, stages=STAGES, batch: int = BATCH, names=FORWAR
             rec["stages"].append(st)
         del p
         torch.cuda.empty_cache()
-    for rec in records.values():
+    for name, rec in records.items():
         finish_record(rec, timing)
+        if not (timing and rec["stages"]):
+            continue
+        total = lambda key: sum(st["launches_per_forward"] * st[key] for st in rec["stages"])  # noqa: E731
+        if "composite_ms" in rec["stages"][0]:
+            rec["composite_ms"] = total("composite_ms")
+        if name in ATTN_HALF_FWD and "kernels_ms" in rec["stages"][0]:
+            for key in ("host_ms", "device_ms", "design_floor_ms"):
+                rec[key] = total(key)
+            rec["kernels_ms"] = {}
+            for st in rec["stages"]:
+                for key, ms in st["kernels_ms"].items():
+                    rec["kernels_ms"][key] = (rec["kernels_ms"].get(key, 0.0)
+                                              + st["launches_per_forward"] * ms)
     return records
 
 
@@ -1238,6 +1285,9 @@ def chunked_records(timing: bool) -> dict:
     if timing:
         fwd["ms"] = cuda_time_ms(lambda: fh.mlp_half_chunked_forward(x, *args, CHUNKS))
         fwd["plain_ms"] = cuda_time_ms(lambda: fh.mlp_half_chunked_plain(x, *args, CHUNKS), iters=5)
+        with torch.no_grad():
+            fwd["composite_ms"] = cuda_time_ms(lambda: composite_mlp_half(p, False)(x, *args),
+                                               iters=10)
         _, pre = fh.mlp_half_chunked_forward(x, *args, CHUNKS)
         model_bwd = lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)  # noqa: E731
         bwd["ms"] = cuda_time_ms(model_bwd, iters=10)
@@ -1288,6 +1338,7 @@ def chunked_records(timing: bool) -> dict:
         rec["max_abs_err"] = rec["stages"][0].get("max_abs_err", 0.0)
         finish_record(rec, timing)
     if timing:
+        records["mlp_half_chunked_fwd"]["composite_ms"] = blocks * fwd["composite_ms"]
         rec = records["mlp_half_chunked_bwd"]
         rec["composite_ms"] = blocks * bwd["composite_ms"]
         rec["kernels_ms"] = {k: blocks * ms for k, ms in bwd["kernels_ms"].items()}
@@ -2187,6 +2238,30 @@ def main(argv=None) -> int:
             f"{timed[k]['device_ms']:.4f} ms in the kernel alone; per launch (host/device): " + "; ".join(
                 f"stage {st['stage']} shift {st['shift']} {st['host_ms']:.3f}/{st['device_ms']:.3f}"
                 for st in stages))
+    for name in ("mlp_half_fwd", *ATTN_HALF_FWD):
+        rec = timed[name]
+        log(f"  {name}: composite yardstick (the unfused route's ops, no grad) "
+            f"{rec['composite_ms']:.4f} ms per SwinV2-T forward against {rec['ms']:.4f} ms through "
+            "the kernels; per launch (kernels/composite): " + "; ".join(
+                f"stage {st['stage']} shift {st['shift']} {st['ms']:.3f}/{st['composite_ms']:.3f}"
+                for st in rec["stages"]))
+    for name in ATTN_HALF_FWD:
+        rec = timed[name]
+        log(f"  {name}: host {rec['host_ms']:.4f} / device {rec['device_ms']:.4f} ms per SwinV2-T "
+            f"forward in the call; device ms by kernel: {split_line(rec['kernels_ms'])}; bound "
+            f"{rec['bound_ms']:.4f} ms, the design's floor (ao and pre through device memory) "
+            f"{rec['design_floor_ms']:.4f} ms; per launch (host/device, ao/proj/LayerNorm): " + "; ".join(
+                f"stage {st['stage']} shift {st['shift']} {st['host_ms']:.3f}/{st['device_ms']:.3f}, "
+                + "/".join(f"{st['kernels_ms'].get(k, 0.0):.3f}" for k in ("ao", "proj", "LayerNorm"))
+                for st in rec["stages"]))
+    fwd_smem = _build.load("fused_halves").hvt_attention_half_fwd_smem
+    log("  attention half forward kernels (ptxas, per instance; dynamic shared memory per block: "
+        f"attention output {fwd_smem(0, 96)} B, proj C=96 {fwd_smem(1, 96)} B, C=768 "
+        f"{fwd_smem(1, 768)} B, LayerNorm {fwd_smem(2, 96)} B): " + "; ".join(
+            f"{source} {r['kernel']} {r['registers']} regs, {r['static_smem']} B static, spills "
+            f"{r['spill_stores']}/{r['spill_loads']} B" for source, rows in ptxas.items()
+            if source in ("fused_halves", "attention_half") for r in rows
+            if r["kernel"].startswith(("attn_half_fwd_", "ln_resid_fwd"))))
     base_timed = kernel_records(True, BASE_STAGES, TRAIN_BATCH, base_names, train_launches)
     for name, rec in base_timed.items():
         log(f"  SwinV2-B {name}: {rec['ms']:.4f} ms kernel, {rec['plain_ms']:.4f} ms plain, bound "
@@ -2291,6 +2366,9 @@ def main(argv=None) -> int:
     log("  SwinV2-B mlp_half_chunked_bwd: " + host_device_line(rec))
     log("  SwinV2-B mlp_half_chunked_bwd: device ms per SwinV2-B step by kernel (the wrapper's "
         "calls): " + split_line(rec["kernels_ms"]))
+    log(f"  SwinV2-B mlp_half_chunked_fwd: composite yardstick (the unfused route's ops, no grad) "
+        f"{chunked['mlp_half_chunked_fwd']['composite_ms']:.4f} ms per SwinV2-B step against "
+        f"{chunked['mlp_half_chunked_fwd']['ms']:.4f} ms through the kernel")
     log(f"  SwinV2-B mlp_half_chunked_bwd: composite yardstick (the unfused route's ops through "
         f"autograd) {rec['composite_ms']:.4f} ms per SwinV2-B step against {rec['ms']:.4f} ms "
         "through the kernels")
@@ -2441,6 +2519,12 @@ def main(argv=None) -> int:
               "backward_stages": {"check": bwd_checked["stages"], "timed": bwd["stages"]},
               "fused_backward_stages": {k: {"check": fused_checked[k]["stages"],
                                             "timed": fused[k]["stages"]} for k in FUSED_GRADS},
+              "forward_splits": {k: {f: timed[k][f] for f in (
+                  "ms", "plain_ms", "bound_ms", "design_floor_ms", "composite_ms", "host_ms",
+                  "device_ms", "kernels_ms")} for k in ATTN_HALF_FWD},
+              "forward_composite_ms": {"mlp_half_fwd": timed["mlp_half_fwd"]["composite_ms"],
+                                       "mlp_half_chunked_fwd":
+                                           chunked["mlp_half_chunked_fwd"]["composite_ms"]},
               "fused_backward_splits": {k: {f: fused[k][f] for f in (
                   "ms", "plain_ms", "bound_ms", "composite_ms", "kernels_ms")}
                   for k in SPLIT_BWD},

@@ -11,14 +11,15 @@
 //
 // hvt's windowed and NHWC entries share their bodies and differ only in the
 // BlockSpecs that gather a window's tokens. So do these: the kernels are
-// those of attention_half_nhwc (fused_halves.cu, fused_halves_bwd.cu),
-// instantiated on the FlatWindows layout, where token i of window w is row
-// w·N + i. Window id = w mod nWZ (batch-major windows), as `_attn_forward`'s
-// BlockSpecs. hvt pads N to a multiple of 8 for the TPU's tiles (49 -> 56,
-// -1e9 bias columns); the tensor-core tiles here read rows past N as zeros,
-// so N is taken as it is. Arithmetic, bounds and design are the NHWC
-// kernels' (see those files); nothing is rolled or fused as a residual
-// here: hvt's windowed kernel has neither.
+// those of attention_half_nhwc (fused_halves.cuh's three forward kernels,
+// fused_halves_bwd.cuh's backward), instantiated on the FlatWindows layout,
+// where token i of window w is row w·N + i. Window id = w mod nWZ
+// (batch-major windows), as `_attn_forward`'s BlockSpecs. hvt pads N to a
+// multiple of 8 for the TPU's tiles (49 -> 56, -1e9 bias columns); the
+// tensor-core tiles here read rows past N as zeros, so N is taken as it is.
+// Arithmetic, bounds and design are the NHWC kernels' (see
+// fused_halves.cu, fused_halves_bwd.cu); nothing is rolled or fused as a
+// residual here: hvt's windowed kernel has neither.
 //
 // A library of its own, so that its nvcc runs beside those of the NHWC
 // kernels; attention_half_base.cu builds it at SwinV2-B's widths.
@@ -28,25 +29,31 @@
 #define HVT_WIDTHS(F) F(96) F(192) F(384) F(768)
 #endif
 
-// x, out (nWB, N, C) bf16; wqkv (3C, C), wproj (C, C) bf16; bqkv, scale
-// (heads), z (nwz, heads, N, N), bproj, lns, lnb f32; nWB a multiple of
-// nwz. Returns a cudaError_t, or -1 for a width not built here.
+// x, out (nWB, N, C) bf16, x 16-byte aligned; wqkv (3C, C), wproj (C, C)
+// bf16; bqkv, scale (heads), z (nwz, heads, N, N), bproj, lns, lnb f32; nWB a
+// multiple of nwz. Scratch: ao (nWB·N, C) bf16 and pre (nWB·N, C) f32; the
+// chunks as hvt_attention_half_bwd's. Returns a cudaError_t, or -1 for a
+// width not built here.
 extern "C" int hvt_attention_half_fwd(const void* x, const void* wqkv, const float* bqkv,
                                       const float* scale, const float* z, int nwz,
                                       const void* wproj, const float* bproj, const float* lns,
-                                      const float* lnb, void* out, int nwb, int n, int c,
-                                      int heads, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+                                      const float* lnb, void* out, void* ao, float* pre,
+                                      int per_block, int chunks, int nwb, int n, int c, int heads,
+                                      void* stream) {
   switch (c) {
-#define HVT_CASE(CC)                                                                          \
-  case CC:                                                                                    \
-    return hvt::launch_attn<CC>(x, wqkv, bqkv, scale, z, nwz, wproj, bproj, lns, lnb, nullptr, \
-                                out, nwb / nwz, hvt::FlatWindows{nwz, n}, heads, st);
+#define HVT_CASE(CC) case CC:
     HVT_WIDTHS(HVT_CASE)
 #undef HVT_CASE
+    break;
     default:
       return -1;
   }
+  using hvt::bf16;
+  return hvt::launch_attn_fwd(static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv), bqkv,
+                              scale, z, nwz, static_cast<const bf16*>(wproj), bproj, lns, lnb,
+                              nullptr, static_cast<bf16*>(out), static_cast<bf16*>(ao), pre,
+                              per_block, chunks, nwb / nwz, hvt::FlatWindows{nwz, n}, c, heads,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // x, g, dx (nWB, N, C) bf16; weights and z as the forward's. Outputs f32:

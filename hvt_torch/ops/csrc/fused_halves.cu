@@ -16,30 +16,30 @@
 // bytes; both sit above the ~295 FLOP/byte balance point of bf16 tensor
 // cores, so the floor is the tensor-core rate.
 //
-// Design: the products run on tensor cores (mma.sync m16n8k16, bf16 in, f32
-// accumulate: the TPU kernels' _dot contract) and every intermediate stays
-// on chip, so device memory sees x once, the weights (from L2) and the
-// output once, as on the TPU:
-//  * MLP: a block owns 32 rows. The 4C hidden dim is streamed in chunks of
-//    32: fc1 of the chunk -> bias -> GELU (the A&S erf polynomial of
-//    _gelu) -> bf16 in shared memory -> accumulated into the 32 x C fc2
-//    result, which stays in registers across chunks. No (T, 4C) hidden ever
-//    reaches device memory. LayerNorm and the residual run in the epilogue.
-//  * Attention: a block owns one window of one image. Its 49 tokens are
-//    gathered straight from the NHWC map, with the cyclic shift folded into
-//    the gather index ((y + shift) mod H), so neither torch.roll nor
-//    window_partition/window_reverse exists on this path. Per head, the
-//    (49 x 3·32) qkv slice is one tensor-core product into shared memory
-//    (f32), then the f32 cosine-attention core of kernel 1 runs on it; the
-//    head's output lands bf16 in a (49 x C) tile. proj, LayerNorm and the
-//    residual follow, and the result is scattered back to the tokens' own
-//    positions. The kernel (`attn_half_fwd_kernel`, fused_halves.cuh) takes
-//    its token layout as a template argument; attention_half.cu builds it on
-//    pre-partitioned windows, hvt's other entry.
+// MLP half (this file): a block owns 32 rows. The 4C hidden dim is streamed
+// in chunks of 32: fc1 of the chunk -> bias -> GELU (the A&S erf polynomial
+// of _gelu) -> bf16 in shared memory -> accumulated into the 32 x C fc2
+// result, which stays in registers across chunks. No (T, 4C) hidden ever
+// reaches device memory. LayerNorm and the residual run in the epilogue.
+// Products on mma.sync m16n8k16 (bf16 in, f32 accumulate: the TPU kernels'
+// _dot contract); weight tiles stream through shared memory in slices of 32
+// along k, without a cp.async pipeline.
+//
+// Attention half (fused_halves.cuh, launch_attn_fwd): three kernels whose
+// tiles do not grow with C. (1) The attention output, one block of 4 warps
+// per (chunk of windows, window id, head): the window's tokens gathered
+// straight from the NHWC map, the cyclic shift folded into the gather index
+// ((y + shift) mod H), so neither torch.roll nor window_partition exists on
+// this path; the head's q|k|v on tensor cores with C streamed by two-stage
+// cp.async, the f32 cosine core on tensor cores (attention_fwd_tc.cuh, P
+// kept f32), ao stored bf16 at the tokens' own rows. The backward recomputes
+// ao with the same device code. (2) proj = ao·Wprojᵀ + b into an f32 (T, C)
+// buffer on gemm_tc.cuh's tiled core. (3) LayerNorm and the residual, one
+// warp a row. The ao (bf16) and pre (f32) round trips add 12 bytes per
+// token-channel to x's 4: the design's byte floor. attention_half.cu builds
+// the same kernels on pre-partitioned windows, hvt's other entry.
 // Weights arrive in nn.Linear's (out, in) layout, so both operands of every
-// product keep the reduction dim contiguous. Weight tiles stream through
-// shared memory in slices of 32 along k; this first version does not overlap
-// those copies with the products (no cp.async/TMA pipeline yet).
+// product keep the reduction dim contiguous.
 #include "fused_halves.cuh"
 
 namespace hvt {
@@ -167,21 +167,39 @@ extern "C" int hvt_mlp_half_chunked_fwd(const void* x, const void* w1, const flo
   }
 }
 
+// x, out (B, H, W, C) bf16, un-rolled (the shift is folded into the window
+// gather), 16-byte aligned; wqkv (3C, C), wproj (C, C) bf16; bqkv, scale
+// (heads), z (nwz, heads, N, N), bproj, lns, lnb, s (B) f32 (s null: the
+// branch alone, no residual). Scratch: ao (T, C) bf16 and pre (T, C) f32, T
+// = B·H·W. Chunk k of the attention-output kernel covers windows u·nwz + wz
+// for u in [k·per_block, min((k+1)·per_block, B·nW/nwz)). Returns a
+// cudaError_t, or -1 for a width not built here.
 extern "C" int hvt_attention_half_nhwc_fwd(const void* x, const void* wqkv, const float* bqkv,
                                            const float* scale, const float* z, int nwz,
                                            const void* wproj, const float* bproj,
                                            const float* lns, const float* lnb, const float* s,
-                                           void* out, int b, int h, int w, int c, int heads,
+                                           void* out, void* ao, float* pre, int per_block,
+                                           int chunks, int b, int h, int w, int c, int heads,
                                            int ws, int shift, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (c) {
-#define HVT_CASE(CC)                                                                       \
-  case CC:                                                                                 \
-    return hvt::launch_attn<CC>(x, wqkv, bqkv, scale, z, nwz, wproj, bproj, lns, lnb, s, \
-                                out, b, hvt::NhwcWindows{h, w, ws, shift}, heads, st);
+#define HVT_CASE(CC) case CC:
     HVT_WIDTHS(HVT_CASE)
 #undef HVT_CASE
+    break;
     default:
       return -1;
   }
+  using hvt::bf16;
+  return hvt::launch_attn_fwd(static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv), bqkv,
+                              scale, z, nwz, static_cast<const bf16*>(wproj), bproj, lns, lnb, s,
+                              static_cast<bf16*>(out), static_cast<bf16*>(ao), pre, per_block,
+                              chunks, b, hvt::NhwcWindows{h, w, ws, shift}, c, heads,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory a block of the attention half's forward kernels takes
+// at width c (both layouts): kernel 0 the attention output, 1 proj, 2 the
+// LayerNorm pass; -1 for another kernel.
+extern "C" int hvt_attention_half_fwd_smem(int kernel, int c) {
+  return kernel >= 0 && kernel < 3 ? (int)hvt::attn_fwd_smem(kernel, c) : -1;
 }

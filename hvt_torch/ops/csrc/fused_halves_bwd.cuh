@@ -87,11 +87,11 @@ __device__ __forceinline__ void ln_bwd_epilogue(float (&acc)[NT][4], const float
 // ---------------------------------------------------------------------------
 //
 // Four kernels, then dx and the weight gradients:
-//  1. attn_half_bwd_ao_kernel: the attention output ao (bf16, T x C), one
-//     block of kTcThreads threads per (chunk of windows, window id, head) on
-//     tensor cores: the head's q|k|v = x·W_h + b_h (mma.sync, C streamed in
-//     kKS slices by cp.async), split into three bf16 pieces, then
-//     attention_window_fwd_tc (attention_fwd_tc.cuh) with P kept f32;
+//  1. attn_half_bwd_ao_kernel: the attention output ao (bf16, T x C)
+//     recomputed by the forward's device code (attn_half_ao,
+//     fused_halves.cuh), one block of kTcThreads threads per (chunk of
+//     windows, window id, head) on tensor cores, so it equals the
+//     forward's bit for bit;
 //  2. attn_half_bwd_proj_kernel: per 32 token rows, proj = ao·Wprojᵀ + b
 //     and the LayerNorm backward on gs = bf16(s·g) to dproj (bf16), with
 //     the column partials of dbproj, dlns and dlnb;
@@ -106,30 +106,6 @@ __device__ __forceinline__ void ln_bwd_epilogue(float (&acc)[NT][4], const float
 // Kernels 1 and 3 take C at run time (their tiles do not grow with it); 2 and
 // 4 hold a (32 x C) tile and take it as a template parameter.
 
-// Streamed operands arrive in slices of kKS columns of the reduction dim at
-// row stride kLDK bf16 (80 bytes): the eight rows an ldmatrix reads fall in
-// distinct banks.
-constexpr int kTcQkvRows = 3 * kD;  // the head's q|k|v weight rows
-// f32 row stride of the output staging tiles: 40 floats keep a half-warp's
-// 8-byte fragment stores (rows g, columns 2t) in distinct banks.
-constexpr int kTcOutLd = 40;
-
-// Shared memory of kernels 1 and 3, bytes: the operand tiles (three pieces
-// of each of kOps operands), z, the inverse norms and four floats of row
-// sums, then one region that holds the two stages of streamed slices
-// (kStageRows rows each) during the projections and, during the attention,
-// kScratch bytes of the helper's and the outputs' tiles.
-template <int kOps, int kStageRows, size_t kScratch>
-struct TcHalfSmem {
-  static constexpr size_t zs = sizeof(bf16) * 3 * kOps * kTcTile;  // the tiles come first
-  static constexpr size_t inv = zs + sizeof(float) * kTcRows * kTcZLd;
-  static constexpr size_t region = inv + sizeof(float) * (2 * kTcRows + kTcThreads / 32);
-  static constexpr size_t stages = sizeof(bf16) * 2 * kStageRows * kLDK;
-  static constexpr size_t bytes = region + (kScratch > stages ? kScratch : stages);
-};
-// Kernel 1: q, k, v; stages of 64 token rows and 96 weight rows; the f32
-// output tile.
-using AoSmem = TcHalfSmem<3, kTcRows + kTcQkvRows, sizeof(float) * kTcRows * kTcOutLd>;
 // Kernel 3: q, k, v, dao; stages of 64 token rows, 96 q|k|v weight rows, 64
 // dproj rows and 32 Wproj rows; P's and dS's bf16 halves and the f32 dq,
 // dk, dv tiles.
@@ -137,45 +113,6 @@ constexpr int kCoreStageRows = kTcRows + kTcQkvRows + kTcRows + kD;
 using CoreSmem = TcHalfSmem<4, kCoreStageRows,
                             sizeof(bf16) * 2 * kTcRows * kTcRows +
                                 sizeof(float) * 3 * kTcRows * kTcOutLd>;
-
-// Runs compute(stage) on each of the C / kKS slices of the reduction dim, slice
-// s loaded by load(k0, stage) (cp.async, one group) into stage s & 1 while
-// slice s − 1 is computed. Both stages must be free on entry; ends in a barrier.
-template <typename LoadFn, typename ComputeFn>
-__device__ __forceinline__ void stream_slices(int C, LoadFn load, ComputeFn compute) {
-  const int steps = C / kKS;
-  load(0, 0);
-  for (int s = 0; s < steps; ++s) {
-    if (s + 1 < steps) load((s + 1) * kKS, (s + 1) & 1);
-    else cp_async_commit();
-    cp_async_wait<1>();  // slice s has landed
-    __syncthreads();
-    compute(s & 1);
-    __syncthreads();  // stage s & 1 is free for slice s + 2
-  }
-}
-
-// acc[j] += A·Bᵀ over one slice for the warp's 16 rows (16·warp..) of A and
-// rows 8j.. of B: A (kTcRows x kKS) and B (8·NT x kKS) bf16 at row stride
-// kLDK, the reduction dim contiguous in both.
-template <int NT>
-__device__ __forceinline__ void slice_mma_nt(float (&acc)[NT][4], const bf16* A, const bf16* B) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
-  const int b_row = (lane & 7) + (lane >> 4) * 8, b_col = ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int ks = 0; ks < kKS / 16; ++ks) {
-    uint32_t a[4];
-    ldsm_x4(a, A + (16 * warp + a_row) * kLDK + 16 * ks + a_col);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t b[4];
-      ldsm_x4(b, B + (16 * np + b_row) * kLDK + 16 * ks + b_col);
-      mma_bf16_16816(acc[2 * np], a, b[0], b[1]);
-      mma_bf16_16816(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
 
 // As slice_mma_nt with B (kKS x 8·NT) k-major: element (k, j) at B[k·kLDK + j].
 template <int NT>
@@ -196,119 +133,15 @@ __device__ __forceinline__ void slice_mma_nn(float (&acc)[NT][4], const bf16* A,
   }
 }
 
-// The pair (v0, v1) at (row, col) of operand `op` (of `ops` a piece) as three
-// bf16 pieces into the swizzled tiles; zeros at row >= n.
-__device__ __forceinline__ void put_pieces(bf16* tiles, int ops, int op, int row, int col,
-                                           float v0, float v1, int n) {
-  uint32_t p[3] = {0u, 0u, 0u};
-  if (row < n) split3_bf16x2(v0, v1, p);
-#pragma unroll
-  for (int part = 0; part < 3; ++part)
-    *reinterpret_cast<uint32_t*>(tiles + (part * ops + op) * kTcTile + swz32(row, col)) = p[part];
-}
-
-// The q|k|v projection's fragments (acc[j]: columns 8j.. of the head's 96,
-// rows 16·warp + lane/4 (+8)) plus the bias, into the tiles of operands 0-2.
-__device__ __forceinline__ void put_qkv(bf16* tiles, int ops, const float (&acc)[12][4],
-                                        const float* __restrict__ bqkv, int C, int h, int n) {
-  const int lane = threadIdx.x & 31, t = lane & 3;
-  const int r0 = 16 * (threadIdx.x >> 5) + (lane >> 2);
-#pragma unroll
-  for (int j = 0; j < 12; ++j) {
-    const int op = j >> 2, col = 8 * (j & 3) + 2 * t;
-    const float b0 = bqkv[op * C + h * kD + col], b1 = bqkv[op * C + h * kD + col + 1];
-    put_pieces(tiles, ops, op, r0, col, acc[j][0] + b0, acc[j][1] + b1, n);
-    put_pieces(tiles, ops, op, r0 + 8, col, acc[j][2] + b0, acc[j][3] + b1, n);
-  }
-}
-
-// Thread tid streams 16-byte piece tid & 3 of rows tid/4 + 32·i of each
-// slice, and reads and writes the same pieces of the window's token rows.
-// tok[i]: the element offset of token row tid/4 + 32·i in a (rows, C) view,
-// or -1 at or beyond n.
-template <typename Window>
-__device__ __forceinline__ void token_offsets(long long (&tok)[2], const Window& win, int n,
-                                              int C) {
-  const int r = threadIdx.x >> 2;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) tok[i] = r + 32 * i < n ? (long long)win.token(r + 32 * i) * C : -1;
-}
-
-// The head's q|k|v weight rows (Wqkv rows part·C + h·32 + r) of slice k0 into
-// the stage's rows 64.., one cp.async a 16-byte piece.
-__device__ __forceinline__ void load_wqkv(bf16* stage, const bf16* __restrict__ wqkv, int C,
-                                          int h, int k0) {
-  const int r = threadIdx.x >> 2, ch = threadIdx.x & 3;
-#pragma unroll
-  for (int part = 0; part < 3; ++part)
-    cp_async16(stage + (kTcRows + part * kD + r) * kLDK + 8 * ch,
-               wqkv + ((size_t)part * C + h * kD + r) * C + k0 + 8 * ch);
-}
-
-// Slice k0 of the window's token rows of `src` (rows < n) into the stage's
-// rows `row0`.., one cp.async a 16-byte piece.
-__device__ __forceinline__ void load_tokens(bf16* stage, int row0, const bf16* __restrict__ src,
-                                            const long long (&tok)[2], int k0) {
-  const int r = threadIdx.x >> 2, ch = threadIdx.x & 3;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    if (tok[i] >= 0) cp_async16(stage + (row0 + r + 32 * i) * kLDK + 8 * ch, src + tok[i] + k0 + 8 * ch);
-}
-
-// Kernel 1. Window w = u·nwz + wz, u in [chunk·per_block, (chunk + 1)·per_block)
-// (window id w mod nwz), head h: ao's head columns at the window's tokens.
+// Kernel 1: the forward's attention output (attn_half_ao, fused_halves.cuh),
+// recomputed, under a name of its own.
 template <typename Layout>
 __global__ void __launch_bounds__(kTcThreads, 2)
 attn_half_bwd_ao_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
                         const float* __restrict__ bqkv, const float* __restrict__ scale,
                         const float* __restrict__ z, int nwz, bf16* __restrict__ ao, int nwin,
                         int per_block, Layout lay, int C, int heads) {
-  constexpr int kStage = (kTcRows + kTcQkvRows) * kLDK;
-  extern __shared__ __align__(16) unsigned char tc_smem[];
-  bf16* const tiles = reinterpret_cast<bf16*>(tc_smem);
-  float* const zs = reinterpret_cast<float*>(tc_smem + AoSmem::zs);
-  float* const inv = reinterpret_cast<float*>(tc_smem + AoSmem::inv);
-  bf16* const stages = reinterpret_cast<bf16*>(tc_smem + AoSmem::region);
-  float* const out = reinterpret_cast<float*>(tc_smem + AoSmem::region);  // after the projection
-
-  const int n = lay.n(), nw = lay.windows();
-  const int wz = blockIdx.x % nwz, chunk = blockIdx.x / nwz, h = blockIdx.y;
-  const int r = threadIdx.x >> 2, ch = threadIdx.x & 3;
-  const float sc = scale[h];
-  tc_load_z(zs, z + ((size_t)wz * heads + h) * n * n, n);  // the same for every window of the chunk
-
-  const int u_end = min((chunk + 1) * per_block, nwin / nwz);
-  for (int u = chunk * per_block; u < u_end; ++u) {
-    const int w = u * nwz + wz;
-    long long tok[2];
-    token_offsets(tok, lay.at(w / nw, w % nw), n, C);
-    float acc[12][4];
-#pragma unroll
-    for (int j = 0; j < 12; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    stream_slices(
-        C,
-        [&](int k0, int s) {
-          load_tokens(stages + s * kStage, 0, x, tok, k0);
-          load_wqkv(stages + s * kStage, wqkv, C, h, k0);
-          cp_async_commit();
-        },
-        [&](int s) { slice_mma_nt<12>(acc, stages + s * kStage, stages + s * kStage + kTcRows * kLDK); });
-    put_qkv(tiles, 3, acc, bqkv, C, h, n);
-    __syncthreads();
-    attention_window_fwd_tc<float, false>(tiles, inv, n, sc, zs,
-                                          [&](int row) { return out + row * kTcOutLd; });
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      if (tok[i] < 0) continue;
-      const float* o = out + (r + 32 * i) * kTcOutLd + 8 * ch;
-      const float4 a = *reinterpret_cast<const float4*>(o), b = *reinterpret_cast<const float4*>(o + 4);
-      *reinterpret_cast<uint4*>(ao + tok[i] + h * kD + 8 * ch) =
-          make_uint4(pack_bf16x2(a.x, a.y), pack_bf16x2(a.z, a.w), pack_bf16x2(b.x, b.y),
-                     pack_bf16x2(b.z, b.w));
-    }
-    __syncthreads();  // out shares the stages' space, and the tiles are rewritten next
-  }
+  attn_half_ao(x, wqkv, bqkv, scale, z, nwz, ao, nwin, per_block, lay, C, heads);
 }
 
 // Kernel 2, rows [blockIdx.x·rows_per_block, ...) of T in tiles of 32: proj =

@@ -1,6 +1,8 @@
-// The tiled bf16 GEMM core of the MLP half's backward (mlp_bwd.cu) and the
-// weight-gradient product `grad_tn` that the MLP and attention halves'
-// backwards share (mlp_bwd.cu, fused_halves_bwd.cuh).
+// The tiled bf16 GEMM core of the MLP half's backward (mlp_bwd.cu) and of the
+// attention half's forward proj (fused_halves.cuh), the weight-gradient
+// product `grad_tn` that the MLP and attention halves' backwards share
+// (mlp_bwd.cu, fused_halves_bwd.cuh), and the LayerNorm-and-residual row
+// pass that ends the attention half's forward (ln_resid_fwd).
 //
 // A block of kGemmThreads threads (4 warps, 2 (m) x 2 (n), each a 64 x BN/2
 // warp tile) owns a kBM x BN output tile, BN 64 or 128, and streams the
@@ -168,6 +170,48 @@ __device__ __forceinline__ void tile_pairs(int m0, int n0, Fn fn) {
       for (int e = 0; e < 4; e += 2) fn(i, j, e, r0 + 16 * i + 4 * e, c0 + 8 * j);
 }
 
+// acc = A·Wᵀ for the block's tile (rows m0.., BN columns n0..): A (rows, K)
+// and W (n_rows, K), both K-contiguous with row stride K.
+template <int BN>
+__device__ __forceinline__ void gemm_nt(float (&acc)[4][BN / 16][4], const bf16* __restrict__ A,
+                                        int rows, const bf16* __restrict__ W, int n_rows, int K,
+                                        int m0, int n0) {
+  extern __shared__ __align__(16) unsigned char gemm_smem[];
+  constexpr int kStage = kTileAR + tile_br<BN>();
+  bf16* const sm = reinterpret_cast<bf16*>(gemm_smem);
+  gemm_pipeline(
+      K / kBK,
+      [&](int s, int st) {
+        bf16* d = sm + st * kStage;
+        load_rows_k<kBM>(d, A, K, m0, rows, s * kBK);
+        load_rows_k<BN>(d + kTileAR, W, K, n0, n_rows, s * kBK);
+      },
+      [&](int, int st) {
+        tile_mma<false, false, BN>(acc, sm + st * kStage, sm + st * kStage + kTileAR);
+      });
+}
+
+template <int BN>
+constexpr size_t fc_smem() { return sizeof(bf16) * kGemmStages * (kTileAR + tile_br<BN>()); }
+
+// out (rows, N) f32 = A·Wᵀ + b over the block's tile, rows m0 = blockIdx.y·kBM..
+// and columns n0 = blockIdx.x·BN..: grid (ceil(N / BN), ceil(rows / kBM)).
+// A (rows, K) and W (N, K) bf16, K-contiguous; b f32 (N).
+template <int BN>
+__device__ __forceinline__ void linear_f32_tile(const bf16* __restrict__ A,
+                                                const bf16* __restrict__ W,
+                                                const float* __restrict__ b, float* __restrict__ out,
+                                                int rows, int N, int K) {
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * kBM;
+  float acc[4][BN / 16][4] = {};
+  gemm_nt<BN>(acc, A, rows, W, N, K, m0, n0);
+  tile_pairs<BN>(m0, n0, [&](int i, int j, int e, int row, int col) {
+    if (row < rows && col < N)
+      *reinterpret_cast<float2*>(out + (size_t)row * N + col) =
+          make_float2(acc[i][j][e] + b[col], acc[i][j][e + 1] + b[col + 1]);
+  });
+}
+
 // out[z] = Aᵀ·B over the tokens of slice z (blockIdx.z), tokens [z·per_split,
 // min(T, (z + 1)·per_split)); A (T, M) and B (T, N) bf16 row-major, both
 // k-major operands here (the tokens are the reduction dim). out[z] is (M, N)
@@ -235,6 +279,71 @@ inline int grad_tn(const bf16* A, const bf16* B, float* out, float* part, int sp
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   return sum_parts(part, splits, (long long)M * N, out, st);
+}
+
+// ---------------------------------------------------------------------------
+// LayerNorm rows: one warp a row, the row in registers
+// ---------------------------------------------------------------------------
+
+constexpr int kLnThreads = 256;
+constexpr int kMaxV = 32;  // columns a lane holds at the widest C (1024)
+
+inline bool ln_width_ok(int C) { return C > 0 && C % 32 == 0 && C <= 32 * kMaxV; }
+
+// One warp per row of pre (T, C) f32: the LayerNorm statistics (two-pass,
+// eps 1e-5, as _ln_fwd), y = normed·lns + lnb, and out = bf16(x + s[row /
+// tpi]·y) where s is given (the residual added in f32 before the one
+// rounding), else bf16(y). Lane l holds the columns l + 32v, v < C/32 <= kV:
+// kV is the smallest of 4, 8, 16 and 32 that holds C. Bound by bytes: 8·T·C
+// (pre read, out written) and 2·T·C more with the residual.
+template <int kV>
+__global__ void __launch_bounds__(kLnThreads)
+ln_resid_fwd_kernel(const float* __restrict__ pre, const float* __restrict__ lns,
+                    const float* __restrict__ lnb, const bf16* __restrict__ x,
+                    const float* __restrict__ s, int tpi, bf16* __restrict__ out, int T, int C) {
+  const int lane = threadIdx.x & 31, nv = C / 32;
+  const int row = blockIdx.x * (kLnThreads / 32) + (threadIdx.x >> 5);
+  if (row >= T) return;
+  const size_t base = (size_t)row * C + lane;
+  float p[kV];
+  float sum = 0.f;
+#pragma unroll
+  for (int v = 0; v < kV; ++v)
+    if (v < nv) {
+      p[v] = pre[base + 32 * v];
+      sum += p[v];
+    }
+  const float mu = warp_sum(sum) / C;
+  float var = 0.f;
+#pragma unroll
+  for (int v = 0; v < kV; ++v)
+    if (v < nv) {
+      p[v] -= mu;
+      var += p[v] * p[v];
+    }
+  const float inv = rsqrtf(warp_sum(var) / C + 1e-5f);
+  const float sc = s != nullptr ? s[row / tpi] : 0.f;
+#pragma unroll
+  for (int v = 0; v < kV; ++v)
+    if (v < nv) {
+      const int col = 32 * v + lane;
+      float y = p[v] * inv * lns[col] + lnb[col];
+      if (s != nullptr) y = to_f32(x[base + 32 * v]) + sc * y;
+      out[base + 32 * v] = __float2bfloat16(y);
+    }
+}
+
+// ln_resid_fwd_kernel at the register bucket of C, one warp a row.
+inline int ln_resid_fwd(const float* pre, const float* lns, const float* lnb, const bf16* x,
+                        const float* s, int tpi, bf16* out, int T, int C, cudaStream_t st) {
+  if (T < 1 || !ln_width_ok(C)) return -1;
+  auto kernel = C <= 128   ? ln_resid_fwd_kernel<4>
+                : C <= 256 ? ln_resid_fwd_kernel<8>
+                : C <= 512 ? ln_resid_fwd_kernel<16>
+                           : ln_resid_fwd_kernel<kMaxV>;
+  constexpr int rows = kLnThreads / 32;
+  kernel<<<(T + rows - 1) / rows, kLnThreads, 0, st>>>(pre, lns, lnb, x, s, tpi, out, T, C);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace hvt

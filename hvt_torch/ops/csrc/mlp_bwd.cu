@@ -66,33 +66,7 @@
 
 namespace hvt {
 
-constexpr int kLnRows = 64;     // rows of a LayerNorm-backward block: 8 per warp
-constexpr int kLnThreads = 256;
-constexpr int kMaxV = 32;       // columns a lane holds at the widest C (1024)
-
-// acc = A·Wᵀ for the block's tile (rows m0.., BN columns n0..): A (rows, K)
-// and W (n_rows, K), both K-contiguous with row stride K.
-template <int BN>
-__device__ __forceinline__ void gemm_nt(float (&acc)[4][BN / 16][4], const bf16* __restrict__ A,
-                                        int rows, const bf16* __restrict__ W, int n_rows, int K,
-                                        int m0, int n0) {
-  extern __shared__ __align__(16) unsigned char gemm_smem[];
-  constexpr int kStage = kTileAR + tile_br<BN>();
-  bf16* const sm = reinterpret_cast<bf16*>(gemm_smem);
-  gemm_pipeline(
-      K / kBK,
-      [&](int s, int st) {
-        bf16* d = sm + st * kStage;
-        load_rows_k<kBM>(d, A, K, m0, rows, s * kBK);
-        load_rows_k<BN>(d + kTileAR, W, K, n0, n_rows, s * kBK);
-      },
-      [&](int, int st) {
-        tile_mma<false, false, BN>(acc, sm + st * kStage, sm + st * kStage + kTileAR);
-      });
-}
-
-template <int BN>
-constexpr size_t fc_smem() { return sizeof(bf16) * kGemmStages * (kTileAR + tile_br<BN>()); }
+constexpr int kLnRows = 64;  // rows of a LayerNorm-backward block: 8 per warp
 
 // Step 1: hid (T, 4C) = bf16(gelu(x·W1ᵀ + b1)); grid (4C / kBN, row tiles).
 // 64 columns: its GELU epilogue runs best at four blocks an SM.
@@ -114,14 +88,7 @@ template <int BN>
 __global__ void __launch_bounds__(kGemmThreads)
 mlp_bwd_fc2_kernel(const bf16* __restrict__ hid, const bf16* __restrict__ w2,
                    const float* __restrict__ b2, float* __restrict__ pre, int T, int C) {
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * kBM;
-  float acc[4][BN / 16][4] = {};
-  gemm_nt<BN>(acc, hid, T, w2, C, 4 * C, m0, n0);
-  tile_pairs<BN>(m0, n0, [&](int i, int j, int e, int row, int col) {
-    if (row < T && col < C)
-      *reinterpret_cast<float2*>(pre + (size_t)row * C + col) =
-          make_float2(acc[i][j][e] + b2[col], acc[i][j][e + 1] + b2[col + 1]);
-  });
+  linear_f32_tile<BN>(hid, w2, b2, pre, T, C, 4 * C);
 }
 
 // Step 3, one warp per row of pre (T, C) and g: the row's LayerNorm
@@ -368,7 +335,7 @@ int mlp_bwd_tail(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
   return grad_tn(hid, dout, dw2, wpart, splits2, T, HID, C, true, st);
 }
 
-inline bool mlp_bwd_width_ok(int T, int C) { return T > 0 && C > 0 && C % 32 == 0 && C <= 32 * kMaxV; }
+inline bool mlp_bwd_width_ok(int T, int C) { return T > 0 && ln_width_ok(C); }
 
 }  // namespace hvt
 

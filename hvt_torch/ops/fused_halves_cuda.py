@@ -81,9 +81,7 @@ MLP_KERNEL = _build.Kernel(
     _by_width("fused_halves"), "hvt_mlp_half_fwd", [P, P, P, P, P, P, P, P, I, P, I, I, P]
 )
 ATTN_KERNEL = _build.Kernel(
-    _by_width("fused_halves"),
-    "hvt_attention_half_nhwc_fwd",
-    [P, P, P, P, P, I, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    _by_width("fused_halves"), "hvt_attention_half_nhwc_fwd", [P] * 5 + [I] + [P] * 8 + [I] * 9 + [P]
 )
 MLP_BWD_KERNEL = _build.Kernel("mlp_bwd", "hvt_mlp_half_bwd", [P] * 7 + [I] + [P] * 11 + [I] * 4 + [P])
 ATTN_BWD_KERNEL = _build.Kernel(
@@ -92,7 +90,7 @@ ATTN_BWD_KERNEL = _build.Kernel(
     [P] * 5 + [I] + [P] * 19 + [I] * 12 + [P],
 )
 ATTN_WIN_KERNEL = _build.Kernel(
-    _by_width("attention_half"), "hvt_attention_half_fwd", [P] * 5 + [I] + [P] * 5 + [I] * 4 + [P]
+    _by_width("attention_half"), "hvt_attention_half_fwd", [P] * 5 + [I] + [P] * 7 + [I] * 6 + [P]
 )
 ATTN_WIN_BWD_KERNEL = _build.Kernel(
     _by_width("attention_half"), "hvt_attention_half_bwd", [P] * 5 + [I] + [P] * 18 + [I] * 9 + [P]
@@ -116,9 +114,15 @@ GRAD_BLOCKS = 1056
 #: (8 per SM), each taking a run of whole 32-row tiles
 PROJ_BLOCKS = 1056
 #: blocks of the attention half's two tensor-core backward kernels (attention
-#: output, core) to aim for: one wave at their 2 resident blocks an SM (115 KB
-#: and 81 KB of shared memory)
+#: output, core) to aim for: one wave at their 2 resident blocks an SM (81 KB
+#: and 115 KB of shared memory)
 TC_HALF_BLOCKS = 264
+#: blocks of the forward's attention-output kernel to aim for: four waves.
+#: The forward sums no per-block partials, so shorter chunks cost only z's
+#: reload, and they fill the card where one wave would leave it part-used
+#: (the shifted stages' 192 or 288 blocks at TC_HALF_BLOCKS); chosen by
+#: timing the forward at SwinV2-T's block shapes on the H100 at 264 to 4,224
+TC_HALF_FWD_BLOCKS = 1056
 _LN_EPS = 1e-5
 _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
@@ -321,6 +325,15 @@ def _splits(m: int, n: int, t: int) -> int:
     256 tokens a slice."""
     tiles = -(-m // TILE_ROWS) * -(-n // 64)
     return max(1, min(-(-GRAD_BLOCKS // tiles), t // 256))
+
+
+def tc_half_fwd_chunks(nwb: int, nwz: int, heads: int) -> tuple[int, int]:
+    """(per_block, chunks) of the forward's attention-output kernel for
+    ``nwb`` windows of ``nwz`` window ids and ``heads`` heads: block
+    (k·nwz + wz, h) takes windows u·nwz + wz, u in [k·per_block,
+    min((k + 1)·per_block, nwb / nwz)), about TC_HALF_FWD_BLOCKS blocks in
+    all (the backward's kernels: TC_HALF_BLOCKS, the same rule)."""
+    return tc_backward_chunks(nwb, nwz, heads, TC_HALF_FWD_BLOCKS)
 
 
 def _on_card(name: str, x: torch.Tensor) -> bool:
@@ -714,22 +727,46 @@ def _attn_args(x, wqkv, bqkv, wproj, bproj, lns, dp):
 
 def attention_half_nhwc_forward(x, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj, lns, lnb,
                                 window: int, heads: int, dp=None, shift: int = 0):
-    """Kernel 3 for a CUDA tensor, its plain version for a CPU one."""
+    """Kernel 3 (``hvt_attention_half_nhwc_fwd``: the attention output, proj,
+    LayerNorm and residual) for a CUDA tensor, its plain version for a CPU
+    one."""
     if not _on_card("attention_half_nhwc", x):
         return attention_half_nhwc_plain(x, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj,
                                          lns, lnb, window, heads, dp, shift)
-    _check_attn("attention_half_nhwc", x, heads, window, dp, shift)
+    name = "attention_half_nhwc"
+    _check_attn(name, x, heads, window, dp, shift)
     b, h, w, c = x.shape
-    z = merge_bias_mask(bias, mask).to(x.device)
-    x = x.contiguous()
+    nw = (h // window) * (w // window)
+    z = _merged_z(name, merge_bias_mask(bias, mask), x, heads, window * window, (1, nw))
+    x = _aligned(x.contiguous())
     wq, bq, wp, bp, ls, f32, s = _attn_args(x, wqkv, bqkv, wproj, bproj, lns, dp)
-    out = torch.empty_like(x)
+    out, ao, pre = _attn_fwd_buffers(x, c)
     ATTN_KERNEL(x.data_ptr(), wq.data_ptr(), bq.data_ptr(),
                 f32(attention_scale(logit_scale)).data_ptr(), z.data_ptr(), z.shape[0],
                 wp.data_ptr(), bp.data_ptr(), ls.data_ptr(), f32(lnb).data_ptr(),
-                None if s is None else s.data_ptr(), out.data_ptr(), b, h, w, c, heads, window,
+                None if s is None else s.data_ptr(), out.data_ptr(), ao.data_ptr(), pre.data_ptr(),
+                *tc_half_fwd_chunks(b * nw, z.shape[0], heads), b, h, w, c, heads, window,
                 shift, _stream(x), width=c)
     return out
+
+
+def _merged_z(name, z, x, heads: int, n: int, nwz_ok) -> torch.Tensor:
+    """z (nWZ, heads, N, N) as the kernels read it: f32, contiguous, on x's
+    device, nWZ one of ``nwz_ok``."""
+    z = z.to(x.device, torch.float32).contiguous()
+    if z.shape[1:] != (heads, n, n) or z.shape[0] not in nwz_ok:
+        raise ValueError(f"{name}: z {tuple(z.shape)} for windows of {n} tokens and {heads} heads "
+                         f"(nWZ in {tuple(nwz_ok)})")
+    return z
+
+
+def _attn_fwd_buffers(x, c: int):
+    """The forward launchers' output (x's shape and dtype) and scratch: the
+    attention output ao (T, C) in x's dtype and the pre-LN sum (T, C) in f32,
+    T = x.numel() / C, at the tokens' own rows."""
+    t = x.numel() // c
+    return (torch.empty_like(x), torch.empty((t, c), dtype=x.dtype, device=x.device),
+            torch.empty((t, c), dtype=torch.float32, device=x.device))
 
 
 def attention_half_nhwc_backward(x, wqkv, bqkv, scale, z, wproj, bproj, lns, g, window: int,
@@ -744,10 +781,8 @@ def attention_half_nhwc_backward(x, wqkv, bqkv, scale, z, wproj, bproj, lns, g, 
     _check_attn(name, x, heads, window, dp, shift)
     b, h, w, c = x.shape
     n, nw = window * window, (h // window) * (w // window)
-    z = z.to(x.device, torch.float32).contiguous()
+    z = _merged_z(name, z, x, heads, n, (1, nw))
     nwz = z.shape[0]
-    if z.shape[1:] != (heads, n, n) or nwz not in (1, nw):
-        raise ValueError(f"{name}: z {tuple(z.shape)} for {nw} windows of {n} tokens")
     x = _aligned(x.contiguous())
     g = _aligned(g.to(torch.bfloat16).contiguous())
     wq, bq, wp, bp, ls, f32, s = _attn_args(x, wqkv, bqkv, wproj, bproj, lns, dp)
@@ -868,21 +903,26 @@ def _check_windows(name, x, heads, nwz, wqkv, wproj):
 
 def attention_half_forward(x, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj, lns, lnb,
                            heads: int):
-    """The windowed forward kernel (``hvt_attention_half_fwd``) for a CUDA
-    tensor, its plain version for a CPU one."""
+    """The windowed forward kernels (``hvt_attention_half_fwd``, the NHWC
+    half's three on window tokens) for a CUDA tensor, its plain version for a
+    CPU one."""
     if not _on_card("attention_half", x):
         return attention_half_plain(x, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj, lns,
                                     lnb, heads)
-    z = merge_bias_mask(bias, mask).to(x.device)
-    _check_windows("attention_half", x, heads, z.shape[0], wqkv, wproj)
+    name = "attention_half"
+    z = merge_bias_mask(bias, mask)
+    _check_windows(name, x, heads, z.shape[0], wqkv, wproj)
     nwb, n, c = x.shape
-    x = x.contiguous()
+    z = _merged_z(name, z, x, heads, n, (z.shape[0],))
+    x = _aligned(x.contiguous())
     wq, bq, wp, bp, ls, f32, _ = _attn_args(x, wqkv, bqkv, wproj, bproj, lns, None)
-    out = torch.empty_like(x)
+    out, ao, pre = _attn_fwd_buffers(x, c)
     ATTN_WIN_KERNEL(x.data_ptr(), wq.data_ptr(), bq.data_ptr(),
                     f32(attention_scale(logit_scale)).data_ptr(), z.data_ptr(), z.shape[0],
                     wp.data_ptr(), bp.data_ptr(), ls.data_ptr(), f32(lnb).data_ptr(),
-                    out.data_ptr(), nwb, n, c, heads, _stream(x), width=c)
+                    out.data_ptr(), ao.data_ptr(), pre.data_ptr(),
+                    *tc_half_fwd_chunks(nwb, z.shape[0], heads), nwb, n, c, heads, _stream(x),
+                    width=c)
     return out
 
 
@@ -893,13 +933,12 @@ def attention_half_backward(x, wqkv, bqkv, scale, z, wproj, bproj, lns, g, heads
     if not _on_card("attention_half backward", x):
         return attention_half_backward_plain(x, wqkv, bqkv, scale, z, wproj, bproj, lns, g, heads)
     name = "attention_half backward"
-    z = z.to(x.device, torch.float32).contiguous()
-    nwz = z.shape[0]
-    _check_windows(name, x, heads, nwz, wqkv, wproj)
+    _check_windows(name, x, heads, z.shape[0], wqkv, wproj)
     nwb, n, c = x.shape
-    if z.shape[1:] != (heads, n, n) or g.shape != x.shape:
-        raise ValueError(f"{name}: z {tuple(z.shape)}, g {tuple(g.shape)} for windows "
-                         f"{tuple(x.shape)}")
+    z = _merged_z(name, z, x, heads, n, (z.shape[0],))
+    nwz = z.shape[0]
+    if g.shape != x.shape:
+        raise ValueError(f"{name}: g {tuple(g.shape)} for windows {tuple(x.shape)}")
     x = _aligned(x.contiguous())
     g = _aligned(g.to(torch.bfloat16).contiguous())
     wq, bq, wp, bp, ls, f32, _ = _attn_args(x, wqkv, bqkv, wproj, bproj, lns, None)

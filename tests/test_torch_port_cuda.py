@@ -11,7 +11,8 @@ installed (``--noconftest`` skips tests/conftest.py, which sets up jax).
 Inputs are bf16 (and f32 for the attention cores) at SwinV2-T and SwinV2-B
 widths (C = 96 to 1024, head dim 32, window 7; the attention backwards
 also at window 8), on every layout: packed and
-split q/k/v attention, the NHWC and the windowed attention half; kernel and
+split q/k/v attention, the NHWC and the windowed attention half (forward
+and backward: reruns, chunk plans and x off a 16-byte boundary); kernel and
 plain version share the arithmetic contract (bf16
 operands, f32 accumulation, f32 softmax and LayerNorm), so they differ by
 accumulation order and the odd bf16 rounding flip: max|Δ| ≤ 1e-2·max|plain|
@@ -149,7 +150,7 @@ def test_mlp_half_kernel(cuda, c):
     _close(got_resid, fh.mlp_half_plain(x, *args, tpi=196, dp=dp), 2e-2, f"mlp_half resid C={c}")
 
 
-@pytest.mark.parametrize("c,shift", [(96, 3), (96, 0), (768, 0), (128, 3), (1024, 0)])
+@pytest.mark.parametrize("c,shift", [(96, 3), (96, 0), (768, 0), (128, 3), (1024, 0), (1024, 3)])
 def test_attention_half_nhwc_kernel(cuda, c, shift):
     heads, window = c // 32, 7
     p = _params(c, heads, 49, cuda, seed=2 * c + shift)
@@ -445,6 +446,49 @@ def test_attention_half_backward_kernels_chunks_and_reruns(cuda, monkeypatch, wi
     for name, a, b in zip(("dx", "dwqkv", "dbqkv", "dscale", "dz", "dwproj", "dbproj", "dlns",
                            "dlnb"), first, ref):
         _close(a, b, 2e-2, f"{'windowed' if windowed else 'NHWC'} half blocks={blocks} {name}")
+
+
+@pytest.mark.parametrize("windowed", [False, True])
+def test_attention_half_forward_kernels_chunks_reruns_and_alignment(cuda, monkeypatch, windowed):
+    """Both attention-half forward wrappers at stage 1's width (C = 96, 3
+    heads, shifted by 3) at batch 4, the NHWC one with drop-path scales:
+    two runs, x starting 2 bytes past a 16-byte boundary (the wrapper copies
+    it for the kernels' 16-byte loads) and another chunk plan
+    (``TC_HALF_FWD_BLOCKS`` = 2: one chunk of the 4 windows of each window id
+    a block, against chunks of one window) all give bit-identical outputs (the
+    attention output's arithmetic does not depend on the chunks); the output
+    within 2e-2·max|plain|."""
+    c, heads, window, shift = 96, 3, 7, 3
+    p, mask, _ = _half_inputs(c, window, shift, cuda, seed=45)
+    rng = np.random.default_rng(47)
+    x = torch.as_tensor(rng.normal(size=(4, 14, 14, c)).astype(np.float32), device=cuda).bfloat16()
+    dp = torch.tensor([0.0, 1.25, 1.25, 1.0], device=cuda)
+    args = (p["wqkv"], p["bqkv"], p["ls"], p["bias"], mask, p["wproj"], p["bproj"], p["lns"],
+            p["lnb"])
+    if windowed:
+        x = wa.window_partition(torch.roll(x, (-shift, -shift), (1, 2)), window).contiguous()
+
+    def run(xi, fn=None):
+        if windowed:
+            return (fn or fh.attention_half_forward)(xi, *args, heads)
+        return (fn or fh.attention_half_nhwc_forward)(xi, *args, window, heads, dp=dp, shift=shift)
+
+    def off(t):
+        return torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)[1:].view(t.shape).copy_(t)
+
+    kernel = fh.ATTN_WIN_KERNEL if windowed else fh.ATTN_KERNEL
+    before = kernel.launches
+    default_plan = fh.tc_half_fwd_chunks(16, 4, heads)
+    first, second, shifted = run(x), run(x), run(off(x))
+    monkeypatch.setattr(fh, "TC_HALF_FWD_BLOCKS", 2)
+    assert fh.tc_half_fwd_chunks(16, 4, heads) != default_plan
+    other_plan = run(x)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 4
+    for out in (second, shifted, other_plan):
+        assert torch.equal(first, out)
+    _close(first, run(x, fh.attention_half_plain if windowed else fh.attention_half_nhwc_plain),
+           2e-2, f"{'windowed' if windowed else 'NHWC'} forward")
 
 
 @pytest.mark.parametrize("nchunks", [2, 4])
