@@ -27,10 +27,11 @@ Phases, in order; any failure exits non-zero and prints no result:
      beside SDPA in each dtype); the fused forwards (MLP half, both
      attention halves; the chunked MLP's in phase 6) beside the composite
      yardstick, the unfused route's ops computing the same half without
-     grad; the two attention-half forwards also with their host and device
-     ms (``host_device_ms``), the device ms of each of their three kernels
-     (attention output, proj, LayerNorm and residual; a trace in
-     chiprun_out/<name>_trace.json), the design's byte floor, and the
+     grad; the two attention-half forwards and the MLP half's also with
+     their host and device ms (``host_device_ms``), the device ms of each
+     of their three kernels (attention output, proj, LayerNorm and residual;
+     fc1, fc2, LayerNorm and residual, with fc1's and fc2's TFLOP/s; a trace
+     in chiprun_out/<name>_trace.json), the design's byte floor, and the
      kernels' registers, shared memory and spills; images/s per route;
   6. the backward kernels against their plain versions at every SwinV2-T
      block shape at batch 128: the packed attention's (dqkv, dz → dbias,
@@ -50,6 +51,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      kernels, and the composite yardstick: the unfused route's ops
      computing the same function (F.linear, the packed window attention or
      F.gelu, F.layer_norm, roll, partition, residual) timed through autograd;
+     the chunked MLP's forward also with its host and device ms and its
+     three kernels' (fc1, fc2, the LayerNorm pass storing the pre-LN sum);
   7. the training path, once per route (model.args.fuse false, then true):
      ``hvt_torch.main.main`` trains SwinV2-T (10,000 classes, batch 128,
      configs/pretrain/swinv2_tiny.yaml's recipe) for 30 steps on the
@@ -150,22 +153,20 @@ REQUESTS = 8  # single requests served on each route before the timed burst
 KERNELS = {  # name: (source, TPU kernel it replaces, route of the main path)
     "window_attention_packed_fwd": ("hvt_torch/ops/csrc/window_attention.cu",
                                     "hvt/ops/window_attention_pallas.py:473", False),
-    "mlp_half_fwd": ("hvt_torch/ops/csrc/fused_halves.cu",
-                     "hvt/ops/fused_halves_pallas.py:338", True),
+    "mlp_half_fwd": ("hvt_torch/ops/csrc/mlp.cu", "hvt/ops/fused_halves_pallas.py:338", True),
     "attention_half_nhwc_fwd": ("hvt_torch/ops/csrc/fused_halves.cu",
                                 "hvt/ops/fused_halves_pallas.py:1330", True),
 }
 BWD_KERNEL = "window_attention_packed_bwd"
 BWD_SOURCE = ("hvt_torch/ops/csrc/window_attention_bwd.cu", "hvt/ops/window_attention_pallas.py:558")
 FUSED_BWD = {  # name: (source, TPU kernel it replaces) — the fuse: true route's backward
-    "mlp_half_bwd": ("hvt_torch/ops/csrc/mlp_bwd.cu", "hvt/ops/fused_halves_pallas.py:371"),
+    "mlp_half_bwd": ("hvt_torch/ops/csrc/mlp.cu", "hvt/ops/fused_halves_pallas.py:371"),
     "attention_half_nhwc_bwd": ("hvt_torch/ops/csrc/fused_halves_bwd.cu",
                                 "hvt/ops/fused_halves_pallas.py:1386"),
 }
 CHUNKED = {  # name: (source, TPU kernel it replaces) — SwinV2-B's stage-4 MLP in training
-    "mlp_half_chunked_fwd": ("hvt_torch/ops/csrc/fused_halves.cu",
-                             "hvt/ops/fused_halves_pallas.py:592"),
-    "mlp_half_chunked_bwd": ("hvt_torch/ops/csrc/mlp_bwd.cu", "hvt/ops/fused_halves_pallas.py:627"),
+    "mlp_half_chunked_fwd": ("hvt_torch/ops/csrc/mlp.cu", "hvt/ops/fused_halves_pallas.py:592"),
+    "mlp_half_chunked_bwd": ("hvt_torch/ops/csrc/mlp.cu", "hvt/ops/fused_halves_pallas.py:627"),
 }
 WINDOWED = {  # name: (source, TPU kernel it replaces) — hvt's fuse_nhwc: false route
     "attention_half_fwd": ("hvt_torch/ops/csrc/attention_half.cu",
@@ -202,17 +203,21 @@ TRAIN_KERNELS = {  # kernels each training step launches 12 times, per route
 # (head dim 32, N <= 64) and attention_fwd_kernel at others. The attention
 # half's forward runs attn_half_fwd_ao_kernel, attn_half_fwd_proj_kernel and
 # ln_resid_fwd_kernel; its backward recomputes the attention output in
-# attn_half_bwd_ao_kernel, a name of its own.
+# attn_half_bwd_ao_kernel, a name of its own. The MLP half's forward (both
+# sites) runs mlp_fwd_fc1_kernel, mlp_fwd_fc2_kernel and ln_resid_fwd_kernel;
+# its backward recomputes h and the pre-LN sum in mlp_bwd_fc1_kernel and
+# mlp_bwd_fc2_kernel.
 PROFILE_NAMES = {
     False: {"backward": ("attention_bwd_",), "forward": ("attention_fwd_tc", "attention_fwd_kernel")},
     True: {"backward": ("mlp_bwd_", "attn_half_bwd_", "grad_tn", "sum_parts"),
-           "forward": ("mlp_half_fwd", "attn_half_fwd_", "ln_resid_fwd")},
+           "forward": ("mlp_fwd_", "attn_half_fwd_", "ln_resid_fwd")},
     "base": {"backward": ("mlp_bwd_", "attn_half_bwd_", "grad_tn", "sum_parts"),
-             "forward": ("mlp_half_fwd", "attn_half_fwd_", "ln_resid_fwd", "mlp_half_chunked_fwd")},
+             "forward": ("mlp_fwd_", "attn_half_fwd_", "ln_resid_fwd")},
     "resnet": {"backward": ("bwd_reduce_kernel",), "forward": ("channel_sums_kernel",)},
     # the fused route with the packed attention pair (phase 11 (c))
     "packed_fused": {"backward": ("attention_bwd_", "mlp_bwd_", "grad_tn", "sum_parts"),
-                     "forward": ("attention_fwd_tc", "attention_fwd_kernel", "mlp_half_fwd")},
+                     "forward": ("attention_fwd_tc", "attention_fwd_kernel", "mlp_fwd_",
+                                 "ln_resid_fwd")},
 }
 KEEP = 0.8  # drop-path keep probability of the scales in phase 6's inputs
 # max|kernel - plain| ≤ TOL·max|plain|: both sides share the arithmetic
@@ -274,6 +279,18 @@ ATTN_SUB_KERNELS = ((("attn_half_bwd_ao", "ao"), ("attn_half_bwd_proj", "proj"),
 ATTN_HALF_FWD = ("attention_half_nhwc_fwd", "attention_half_fwd")
 FWD_SUB_KERNELS = ((("attn_half_fwd_ao", "ao"), ("attn_half_fwd_proj", "proj"),
                     ("ln_resid_fwd", "LayerNorm")), ())
+# The MLP half's forward (both sites): fc1, fc2 and the LayerNorm-and-residual
+# pass.
+MLP_FWD_SUB_KERNELS = ((("mlp_fwd_fc1", "fc1"), ("mlp_fwd_fc2", "fc2"),
+                        ("ln_resid_fwd", "LayerNorm")), ())
+# The fused forwards phase 5 splits into host/device ms and their three
+# kernels' device ms: their sub-kernels and the bytes per token-channel that
+# their design adds to the function's through device memory (the attention
+# half: ao and pre; the MLP half: h written and read in bf16, pre in f32, x
+# read twice).
+FWD_SPLITS = {"attention_half_nhwc_fwd": (FWD_SUB_KERNELS, 12),
+              "attention_half_fwd": (FWD_SUB_KERNELS, 12),
+              "mlp_half_fwd": (MLP_FWD_SUB_KERNELS, 26)}
 MLP_SUB_KERNELS = ((("mlp_bwd_fc1", "fc1"), ("mlp_bwd_fc2", "fc2"),
                     ("mlp_bwd_ln", "LayerNorm backward"), ("mlp_bwd_hidden", "hidden"),
                     ("mlp_bwd_dx", "dx"), ("grad_tn", "grad_tn"), ("sum_parts", "sum_parts")),
@@ -801,12 +818,13 @@ def kernel_records(timing: bool, stages=STAGES, batch: int = BATCH, names=FORWAR
                 if name in composites and stages is STAGES:
                     with torch.no_grad():
                         st["composite_ms"] = cuda_time_ms(composites[name], iters=10)
-                if name in ATTN_HALF_FWD and stages is STAGES:
+                if name in FWD_SPLITS and stages is STAGES:
                     # the call's host and device ms, its three kernels' device ms, and the
-                    # design's byte floor: the ao (bf16) and pre (f32) round trips added
+                    # design's byte floor: its round trips through device memory added
+                    sub_kernels, extra = FWD_SPLITS[name]
                     st["host_ms"], st["device_ms"] = host_device_ms(kern)
-                    st["kernels_ms"] = kernel_split(kern, FWD_SUB_KERNELS, name)
-                    st["design_floor_ms"] = max((nbytes + 12 * p["x"].numel()) / H100_BYTES_PER_S,
+                    st["kernels_ms"] = kernel_split(kern, sub_kernels, name)
+                    st["design_floor_ms"] = max((nbytes + extra * p["x"].numel()) / H100_BYTES_PER_S,
                                                 flops / H100_BF16_FLOPS) * 1e3
             else:
                 got = kern().float()
@@ -832,7 +850,7 @@ def kernel_records(timing: bool, stages=STAGES, batch: int = BATCH, names=FORWAR
         total = lambda key: sum(st["launches_per_forward"] * st[key] for st in rec["stages"])  # noqa: E731
         if "composite_ms" in rec["stages"][0]:
             rec["composite_ms"] = total("composite_ms")
-        if name in ATTN_HALF_FWD and "kernels_ms" in rec["stages"][0]:
+        if name in FWD_SPLITS and "kernels_ms" in rec["stages"][0]:
             for key in ("host_ms", "device_ms", "design_floor_ms"):
                 rec[key] = total(key)
             rec["kernels_ms"] = {}
@@ -1283,7 +1301,10 @@ def chunked_records(timing: bool) -> dict:
     leaves = [t_.detach().clone().requires_grad_() for t_ in [x] + args]
     out = fh.mlp_half_chunked(*leaves, CHUNKS)
     if timing:
-        fwd["ms"] = cuda_time_ms(lambda: fh.mlp_half_chunked_forward(x, *args, CHUNKS))
+        fwd_call = lambda: fh.mlp_half_chunked_forward(x, *args, CHUNKS)  # noqa: E731
+        fwd["ms"] = cuda_time_ms(fwd_call)
+        fwd["host_ms"], fwd["device_ms"] = host_device_ms(fwd_call)
+        fwd["kernels_ms"] = kernel_split(fwd_call, MLP_FWD_SUB_KERNELS, "mlp_half_chunked_fwd")
         fwd["plain_ms"] = cuda_time_ms(lambda: fh.mlp_half_chunked_plain(x, *args, CHUNKS), iters=5)
         with torch.no_grad():
             fwd["composite_ms"] = cuda_time_ms(lambda: composite_mlp_half(p, False)(x, *args),
@@ -1338,7 +1359,10 @@ def chunked_records(timing: bool) -> dict:
         rec["max_abs_err"] = rec["stages"][0].get("max_abs_err", 0.0)
         finish_record(rec, timing)
     if timing:
-        records["mlp_half_chunked_fwd"]["composite_ms"] = blocks * fwd["composite_ms"]
+        rec = records["mlp_half_chunked_fwd"]
+        for key in ("composite_ms", "host_ms", "device_ms"):
+            rec[key] = blocks * fwd[key]
+        rec["kernels_ms"] = {k: blocks * ms for k, ms in fwd["kernels_ms"].items()}
         rec = records["mlp_half_chunked_bwd"]
         rec["composite_ms"] = blocks * bwd["composite_ms"]
         rec["kernels_ms"] = {k: blocks * ms for k, ms in bwd["kernels_ms"].items()}
@@ -2245,15 +2269,34 @@ def main(argv=None) -> int:
             "the kernels; per launch (kernels/composite): " + "; ".join(
                 f"stage {st['stage']} shift {st['shift']} {st['ms']:.3f}/{st['composite_ms']:.3f}"
                 for st in rec["stages"]))
-    for name in ATTN_HALF_FWD:
+    for name, (sub_kernels, _) in FWD_SPLITS.items():
         rec = timed[name]
+        keys = [k for _, k in sub_kernels[0]]
         log(f"  {name}: host {rec['host_ms']:.4f} / device {rec['device_ms']:.4f} ms per SwinV2-T "
             f"forward in the call; device ms by kernel: {split_line(rec['kernels_ms'])}; bound "
-            f"{rec['bound_ms']:.4f} ms, the design's floor (ao and pre through device memory) "
-            f"{rec['design_floor_ms']:.4f} ms; per launch (host/device, ao/proj/LayerNorm): " + "; ".join(
+            f"{rec['bound_ms']:.4f} ms, the design's floor (its round trips through device memory) "
+            f"{rec['design_floor_ms']:.4f} ms; per launch (host/device, {'/'.join(keys)}): " + "; ".join(
                 f"stage {st['stage']} shift {st['shift']} {st['host_ms']:.3f}/{st['device_ms']:.3f}, "
-                + "/".join(f"{st['kernels_ms'].get(k, 0.0):.3f}" for k in ("ao", "proj", "LayerNorm"))
+                + "/".join(f"{st['kernels_ms'].get(k, 0.0):.3f}" for k in keys)
                 for st in rec["stages"]))
+    # fc1 and fc2 each do 8·T·C² operations a launch (T tokens, C channels)
+    for st in timed["mlp_half_fwd"]["stages"]:
+        st["tflops"] = {k: st["flops"] / 2 / st["kernels_ms"][k] / 1e9 for k in ("fc1", "fc2")
+                        if st["kernels_ms"].get(k)}
+    log("  mlp_half_fwd products, TFLOP/s per launch (fc1/fc2): " + "; ".join(
+        f"stage {st['stage']} shift {st['shift']} " + "/".join(
+            f"{st['tflops'].get(k, 0.0):.1f}" for k in ("fc1", "fc2"))
+        for st in timed["mlp_half_fwd"]["stages"]))
+    from hvt_torch.ops import fused_halves_cuda as fh
+
+    mlp_fwd_smem = _build.load("mlp").hvt_mlp_fwd_smem
+    log("  MLP forward kernels, both sites (ptxas; dynamic shared memory per block, B, at C = "
+        "96 / 768: " + "; ".join(
+            f"{k} {mlp_fwd_smem(i, fh.fc2_cols(96))} / {mlp_fwd_smem(i, fh.fc2_cols(768))}"
+            for i, k in enumerate(("fc1", "fc2", "LayerNorm"))) + "): " + "; ".join(
+            f"{r['kernel']} {r['registers']} regs, {r['static_smem']} B static, spills "
+            f"{r['spill_stores']}/{r['spill_loads']} B" for r in ptxas.get("mlp", [])
+            if r["kernel"].startswith(("mlp_fwd_", "ln_resid_fwd"))))
     fwd_smem = _build.load("fused_halves").hvt_attention_half_fwd_smem
     log("  attention half forward kernels (ptxas, per instance; dynamic shared memory per block: "
         f"attention output {fwd_smem(0, 96)} B, proj C=96 {fwd_smem(1, 96)} B, C=768 "
@@ -2340,12 +2383,14 @@ def main(argv=None) -> int:
             f"{r['spill_loads']} B" for source, rows in ptxas.items()
             for r in rows if r["kernel"].startswith("attn_half_bwd_")))
 
-    mlp_smem = _build.load("mlp_bwd").hvt_mlp_bwd_smem
+    mlp_smem = _build.load("mlp").hvt_mlp_bwd_smem
     log("  MLP backward kernels, both sites (ptxas; dynamic shared memory per block, B, at C = "
         "96 / 768: " + "; ".join(f"{k} {mlp_smem(i, 96)} / {mlp_smem(i, 768)}" for i, k in enumerate(
-            ("fc1", "fc2", "LayerNorm backward", "hidden", "dx", "grad_tn"))) + "): " + "; ".join(
+            ("LayerNorm backward", "hidden", "dx", "grad_tn")))
+        + "; fc1 and fc2 the forward's): " + "; ".join(
             f"{r['kernel']} {r['registers']} regs, {r['static_smem']} B static, spills "
-            f"{r['spill_stores']}/{r['spill_loads']} B" for r in ptxas.get("mlp_bwd", [])))
+            f"{r['spill_stores']}/{r['spill_loads']} B" for r in ptxas.get("mlp", [])
+            if r["kernel"].startswith(("mlp_bwd_", "grad_tn", "sum_parts"))))
 
     log(f"[6] SwinV2-B: the fused halves' backward kernels and the chunked MLP vs plain "
         f"versions, bf16, batch {TRAIN_BATCH}")
@@ -2366,9 +2411,13 @@ def main(argv=None) -> int:
     log("  SwinV2-B mlp_half_chunked_bwd: " + host_device_line(rec))
     log("  SwinV2-B mlp_half_chunked_bwd: device ms per SwinV2-B step by kernel (the wrapper's "
         "calls): " + split_line(rec["kernels_ms"]))
+    fwd = chunked["mlp_half_chunked_fwd"]
     log(f"  SwinV2-B mlp_half_chunked_fwd: composite yardstick (the unfused route's ops, no grad) "
-        f"{chunked['mlp_half_chunked_fwd']['composite_ms']:.4f} ms per SwinV2-B step against "
-        f"{chunked['mlp_half_chunked_fwd']['ms']:.4f} ms through the kernel")
+        f"{fwd['composite_ms']:.4f} ms per SwinV2-B step against {fwd['ms']:.4f} ms through the "
+        f"kernels; host {fwd['host_ms']:.4f} / device {fwd['device_ms']:.4f} ms per step in the "
+        f"call; device ms by kernel: {split_line(fwd['kernels_ms'])}; fc1/fc2 TFLOP/s "
+        + "/".join(f"{fwd['flops'] / 2 / fwd['kernels_ms'][k] / 1e9:.1f}" for k in ("fc1", "fc2")
+                   if fwd["kernels_ms"].get(k)))
     log(f"  SwinV2-B mlp_half_chunked_bwd: composite yardstick (the unfused route's ops through "
         f"autograd) {rec['composite_ms']:.4f} ms per SwinV2-B step against {rec['ms']:.4f} ms "
         "through the kernels")
@@ -2521,7 +2570,7 @@ def main(argv=None) -> int:
                                             "timed": fused[k]["stages"]} for k in FUSED_GRADS},
               "forward_splits": {k: {f: timed[k][f] for f in (
                   "ms", "plain_ms", "bound_ms", "design_floor_ms", "composite_ms", "host_ms",
-                  "device_ms", "kernels_ms")} for k in ATTN_HALF_FWD},
+                  "device_ms", "kernels_ms")} for k in FWD_SPLITS},
               "forward_composite_ms": {"mlp_half_fwd": timed["mlp_half_fwd"]["composite_ms"],
                                        "mlp_half_chunked_fwd":
                                            chunked["mlp_half_chunked_fwd"]["composite_ms"]},
@@ -2560,6 +2609,8 @@ def main(argv=None) -> int:
                   "backward_per_step": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
                                                               "bound_by")}
                                         for k, v in base_bwd.items()},
+                  "chunked_forward_split": {f: chunked["mlp_half_chunked_fwd"][f] for f in (
+                      "ms", "bound_ms", "composite_ms", "host_ms", "device_ms", "kernels_ms")},
                   "chunked": {k: {"check": chunked_checked[k]["stages"],
                                   "timed": chunked[k]["stages"]} for k in CHUNKED},
                   "train": base_train}}

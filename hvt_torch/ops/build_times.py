@@ -11,7 +11,7 @@ kernels:
   windowed attention half) in another.
 
 The sources outside those families (the attention cores,
-``mlp_bwd``, ``bn_stats`` and ``swin_block``) build as they
+``mlp``, ``bn_stats`` and ``swin_block``) build as they
 are in all three layouts.
 
     python -m hvt_torch.ops.build_times
@@ -87,8 +87,7 @@ def main() -> None:
             "fused_halves_bwd_base_folded": base + _includes("fused_halves_bwd", "attention_half"),
         })
         one_unit = _layout(out_dir, rest, {
-            "fused_halves_all": _widths("HVT_WIDTHS", fh.WIDTHS)
-            + _widths("HVT_CHUNKED_WIDTHS", fh.CHUNKED_WIDTHS) + _includes("fused_halves"),
+            "fused_halves_all": _widths("HVT_WIDTHS", fh.WIDTHS) + _includes("fused_halves"),
             "fused_halves_bwd_all": _widths("HVT_WIDTHS", fh.WIDTHS)
             + _includes("fused_halves_bwd", "attention_half"),
         })

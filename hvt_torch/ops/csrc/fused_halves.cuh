@@ -1,8 +1,7 @@
 // Device code shared by the fused SwinV2 block halves' forward
 // (fused_halves.cu, attention_half.cu) and backward (fused_halves_bwd.cu):
-// the MLP half's forward up to its pre-LayerNorm sum, the attention half's
-// token layouts, its attention output on tensor cores (which the backward
-// recomputes) and its three forward kernels.
+// the attention half's token layouts, its attention output on tensor cores
+// (which the backward recomputes) and its three forward kernels.
 #pragma once
 
 #include "attention_fwd_tc.cuh"
@@ -14,61 +13,6 @@ constexpr int kThreads = 256;  // 8 warps
 constexpr int kKS = 32;        // k-slice of streamed weight tiles
 constexpr int kLDK = kKS + 8;  // padded row stride of a k-slice tile (bank-conflict free)
 constexpr int kD = 32;         // head dim (every SwinV2 variant)
-
-__host__ __device__ constexpr size_t align16(size_t bytes) { return (bytes + 15) / 16 * 16; }
-
-// ---------------------------------------------------------------------------
-// MLP half: a block owns 32 rows of x (T, C)
-// ---------------------------------------------------------------------------
-
-template <int C>
-struct MlpSmem {
-  static constexpr int BM = 32, HC = 32, LDX = C + 8;
-  static constexpr size_t x = 0;
-  static constexpr size_t w1 = x + align16(sizeof(bf16) * BM * LDX);
-  static constexpr size_t w2 = w1 + align16(sizeof(bf16) * HC * LDX);
-  static constexpr size_t h = w2 + align16(sizeof(bf16) * C * kLDK);
-  static constexpr size_t red = h + align16(sizeof(bf16) * BM * kLDK);
-  static constexpr size_t bytes = red + sizeof(float) * 128;
-};
-
-// fc2(GELU(fc1 x)) of the block's 32 rows (Xs, bf16 in shared memory) into
-// acc, without b2: the 4C hidden dim is streamed in chunks of HC = 32 —
-// fc1 of the chunk -> bias -> GELU -> bf16 in Hs -> accumulated into the
-// 32 x C fc2 result held as fragments by warps 2 (rows) x 4 (columns).
-template <int C>
-__device__ __forceinline__ void mlp_fc_chunks(float (&acc)[C / 32][4], const bf16* Xs, bf16* W1s,
-                                              bf16* W2s, bf16* Hs, const bf16* __restrict__ w1,
-                                              const float* __restrict__ b1,
-                                              const bf16* __restrict__ w2) {
-  using L = MlpSmem<C>;
-  constexpr int HC = L::HC, LDX = L::LDX, HID = 4 * C, NT = C / 32;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  for (int h0 = 0; h0 < HID; h0 += HC) {
-    __syncthreads();  // the previous chunk is done with W1s, W2s and Hs
-    copy_rows(W1s, LDX, HC, C, [&](int r) { return w1 + (size_t)(h0 + r) * C; });
-    copy_rows(W2s, kLDK, C, HC, [&](int r) { return w2 + (size_t)r * HID + h0; });
-    __syncthreads();
-
-    // fc1 on this hidden chunk: warp (wm, wn) -> rows 16·wm.., hidden cols 8·wn..
-    float hacc[1][4] = {{0.f, 0.f, 0.f, 0.f}};
-    warp_mma<1, C>(hacc, Xs + wm * 16 * LDX, LDX, 16, W1s + wn * 8 * LDX, LDX);
-    const int col = wn * 8 + 2 * t;
-    const float bb0 = b1[h0 + col], bb1 = b1[h0 + col + 1];
-    *reinterpret_cast<uint32_t*>(Hs + (wm * 16 + g) * kLDK + col) =
-        pack_bf16x2(gelu_as(hacc[0][0] + bb0), gelu_as(hacc[0][1] + bb1));
-    *reinterpret_cast<uint32_t*>(Hs + (wm * 16 + g + 8) * kLDK + col) =
-        pack_bf16x2(gelu_as(hacc[0][2] + bb0), gelu_as(hacc[0][3] + bb1));
-    __syncthreads();
-
-    // fc2 partial: rows 16·wm.., output cols wn·C/4..
-    warp_mma<NT, HC>(acc, Hs + wm * 16 * kLDK, kLDK, 16, W2s + wn * (C / 4) * kLDK, kLDK);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Attention half: tensor-core pieces of the attention output, per (chunk of
@@ -372,7 +316,7 @@ int launch_attn_fwd(const bf16* x, const bf16* wqkv, const float* bqkv, const fl
                                      fc_smem<kBN>(), st>>>(ao, wproj, bproj, pre, T, C);
   }
   if ((err = (int)cudaGetLastError())) return err;
-  return ln_resid_fwd(pre, lns, lnb, x, s, nw * n, out, T, C, st);
+  return ln_resid_fwd(pre, lns, lnb, x, s, nw * n, out, nullptr, T, C, st);
 }
 
 }  // namespace hvt

@@ -6,7 +6,7 @@
 // Replaces: hvt/ops/fused_halves_pallas.py `_attn_backward_nhwc`
 // (pallas_call at line 1386, body `_attn_bwd_kernel_nhwc` ->
 // `_attn_half_bwd_body` -> `_heads_bwd_from_cache`). The MLP half's backward
-// is mlp_bwd.cu.
+// is mlp.cu.
 //
 // Arithmetic contract, hvt's _dot/_dot_t: every product, the weight-gradient
 // products included, rounds its operands to bf16 and accumulates in f32;

@@ -14,8 +14,8 @@
 namespace hvt {
 
 // LayerNorm backward on a (32 x C) f32 tile of pre-LN sums without their
-// bias, held as in ln_epilogue. Recomputes the LayerNorm statistics
-// (ln_center), then with gs = grad(row, col) (the branch's upstream
+// bias, laid out as tile_row_sums (common.cuh) describes. Recomputes the
+// LayerNorm statistics (ln_center), then with gs = grad(row, col) (the branch's upstream
 // gradient, a pair of neighbouring columns; zeros for a row outside the
 // tile's valid rows):
 //   dy = (gs·lns − mean(gs·lns) − normed·mean(gs·lns·normed))·inv   (_ln_bwd)

@@ -1,8 +1,8 @@
-// The tiled bf16 GEMM core of the MLP half's backward (mlp_bwd.cu) and of the
-// attention half's forward proj (fused_halves.cuh), the weight-gradient
-// product `grad_tn` that the MLP and attention halves' backwards share
-// (mlp_bwd.cu, fused_halves_bwd.cuh), and the LayerNorm-and-residual row
-// pass that ends the attention half's forward (ln_resid_fwd).
+// The tiled bf16 GEMM core of the MLP half (mlp.cu) and of the attention
+// half's forward proj (fused_halves.cuh), the weight-gradient product
+// `grad_tn` that the MLP and attention halves' backwards share (mlp.cu,
+// fused_halves_bwd.cuh), and the LayerNorm-and-residual row pass that ends
+// both halves' forwards (ln_resid_fwd).
 //
 // A block of kGemmThreads threads (4 warps, 2 (m) x 2 (n), each a 64 x BN/2
 // warp tile) owns a kBM x BN output tile, BN 64 or 128, and streams the
@@ -293,14 +293,17 @@ inline bool ln_width_ok(int C) { return C > 0 && C % 32 == 0 && C <= 32 * kMaxV;
 // One warp per row of pre (T, C) f32: the LayerNorm statistics (two-pass,
 // eps 1e-5, as _ln_fwd), y = normed·lns + lnb, and out = bf16(x + s[row /
 // tpi]·y) where s is given (the residual added in f32 before the one
-// rounding), else bf16(y). Lane l holds the columns l + 32v, v < C/32 <= kV:
+// rounding), else bf16(y); where pre_out is given, also the row's sum
+// itself rounded once to bf16 (hvt's `want_pre` store, which the chunked
+// MLP's backward reads). Lane l holds the columns l + 32v, v < C/32 <= kV:
 // kV is the smallest of 4, 8, 16 and 32 that holds C. Bound by bytes: 8·T·C
-// (pre read, out written) and 2·T·C more with the residual.
+// (pre read, out written), 2·T·C more with the residual or pre_out.
 template <int kV>
 __global__ void __launch_bounds__(kLnThreads)
 ln_resid_fwd_kernel(const float* __restrict__ pre, const float* __restrict__ lns,
                     const float* __restrict__ lnb, const bf16* __restrict__ x,
-                    const float* __restrict__ s, int tpi, bf16* __restrict__ out, int T, int C) {
+                    const float* __restrict__ s, int tpi, bf16* __restrict__ out,
+                    bf16* __restrict__ pre_out, int T, int C) {
   const int lane = threadIdx.x & 31, nv = C / 32;
   const int row = blockIdx.x * (kLnThreads / 32) + (threadIdx.x >> 5);
   if (row >= T) return;
@@ -312,6 +315,7 @@ ln_resid_fwd_kernel(const float* __restrict__ pre, const float* __restrict__ lns
     if (v < nv) {
       p[v] = pre[base + 32 * v];
       sum += p[v];
+      if (pre_out != nullptr) pre_out[base + 32 * v] = __float2bfloat16(p[v]);
     }
   const float mu = warp_sum(sum) / C;
   float var = 0.f;
@@ -335,14 +339,16 @@ ln_resid_fwd_kernel(const float* __restrict__ pre, const float* __restrict__ lns
 
 // ln_resid_fwd_kernel at the register bucket of C, one warp a row.
 inline int ln_resid_fwd(const float* pre, const float* lns, const float* lnb, const bf16* x,
-                        const float* s, int tpi, bf16* out, int T, int C, cudaStream_t st) {
+                        const float* s, int tpi, bf16* out, bf16* pre_out, int T, int C,
+                        cudaStream_t st) {
   if (T < 1 || !ln_width_ok(C)) return -1;
   auto kernel = C <= 128   ? ln_resid_fwd_kernel<4>
                 : C <= 256 ? ln_resid_fwd_kernel<8>
                 : C <= 512 ? ln_resid_fwd_kernel<16>
                            : ln_resid_fwd_kernel<kMaxV>;
   constexpr int rows = kLnThreads / 32;
-  kernel<<<(T + rows - 1) / rows, kLnThreads, 0, st>>>(pre, lns, lnb, x, s, tpi, out, T, C);
+  kernel<<<(T + rows - 1) / rows, kLnThreads, 0, st>>>(pre, lns, lnb, x, s, tpi, out, pre_out,
+                                                          T, C);
   return (int)cudaGetLastError();
 }
 

@@ -1,23 +1,35 @@
-// The MLP half's backward, unchunked and chunked, on tiled tensor-core
-// kernels (training on fuse: true):
+// The MLP half of the fused SwinV2 block, both directions, both sites, on
+// tiled tensor-core kernels that take C at run time (one library):
 //
-//   hvt_mlp_half_bwd:         gradients of out = x + s·LN(fc2(GELU(fc1 x)))
-//                             (or of the branch alone), recomputing the
-//                             forward from x
+//   hvt_mlp_half_fwd:         out = x + s·LN(fc2(GELU(fc1 x))), or the branch alone
+//   hvt_mlp_half_chunked_fwd: the branch and its pre-LN sum rounded to x's
+//                             dtype, for the chunked backward
+//   hvt_mlp_half_bwd:         gradients of out (or of the branch alone),
+//                             recomputing the forward from x
 //   hvt_mlp_half_chunked_bwd: gradients of the branch
 //                             LN(Σₖ gelu(x·W1ₖ + b1ₖ)·W2ₖ + b2) given g, from x
 //                             and the saved pre-LN sum `pre`
 //
-// Replace: hvt/ops/fused_halves_pallas.py `_mlp_backward` (pallas_call at
-// line 371, body `_mlp_bwd_kernel`) and `_mlp_chunk_backward` (pallas_call at
-// line 627, body `_mlp_chunk_bwd_kernel`) with its caller `_mlp_chunked_bwd`
-// (659): one launch here computes what hvt's K calls and the XLA sum after
-// them compute.
+// Replace: hvt/ops/fused_halves_pallas.py `_mlp_forward` (pallas_call at
+// line 338, body `_mlp_fwd_kernel`), `_mlp_chunked_forward` (pallas_call at
+// line 592, body `_mlp_chunk_fwd_kernel`), `_mlp_backward` (pallas_call at
+// line 371, body `_mlp_bwd_kernel`) and `_mlp_chunk_backward` (pallas_call
+// at line 627, body `_mlp_chunk_bwd_kernel`) with its caller
+// `_mlp_chunked_bwd` (659): one launch here computes what hvt's K calls and
+// the XLA sum after them compute.
 //
 // Arithmetic contract, hvt's: every product rounds its operands to bf16 and
 // accumulates in f32 (_dot/_dot_t, the weight gradients included); GELU and
 // its derivative by the A&S erf polynomial; LayerNorm and its backward in
 // f32.
+//  * Forward (`_mlp_fwd_kernel`): h = gelu(x·W1ᵀ + b1) rounded to bf16 (the
+//    next product's operand), the pre-LN sum h·W2ᵀ + b2 in f32, LayerNorm
+//    of it and x + s·y rounded once. The chunked site (`_mlp_chunk_fwd_kernel`)
+//    is the same chain over the whole 4C: hvt adds the K chunks' products in
+//    an f32 VMEM scratch across its grid steps, fc2 here adds them in f32
+//    registers across its K slices, so the result does not depend on K; the
+//    pre-LN sum is also stored rounded to x's dtype, and the LayerNorm runs
+//    on the unrounded sum, as hvt's.
 //  * Unchunked (`_mlp_bwd_kernel`): nothing of the forward is saved; the
 //    pre-LN sum is recomputed from x and stays f32; the branch runs on s·g
 //    kept in f32; dx = g + dpre·W1 is rounded to x's dtype once where the
@@ -27,22 +39,44 @@
 //    partial dpreₖ·W1ₖ is rounded to x's dtype, the partials are summed in
 //    f32 and the sum is rounded once more.
 //
-// What bounds them on the H100: the operations. The unchunked backward does
+// What bounds them on the H100. The forward does 2 products of 2·T·C·4C
+// FLOP, 16·T·C² (0.359 ms a SwinV2-T forward at batch 64 at 989 TFLOP/s)
+// for 4·T·C bytes of x and out; the chain below adds h's round trip (16
+// bytes per token-channel, written and read in bf16) and the f32 pre-LN
+// sum's (8): 30 bytes per token-channel with x read twice, 2.75 GB or 0.82
+// ms a SwinV2-T forward at 3.35 TB/s, the design's byte floor. fc1 does
+// 0.8·C FLOP per byte of x and h (77 at C = 96, 614 at 768): stages 1-2 are
+// bound by h's round trip, stages 3-4 by the products. The unchunked backward does
 // 7 products of 2·T·C·4C FLOP (fc1 twice, fc2, dh, dx, dW1, dW2): 56·T·C²,
 // 2.5e11 per SwinV2-T launch at batch 128 (0.25 ms at 989 TFLOP/s), against
 // some 70·T·C bytes through device memory (x, g, dx, h, dpre, dout and the
 // f32 pre-LN sum; 0.13 ms at 3.35 TB/s). The chunked one does 5 (the saved
 // pre stands in for fc1's first pass and fc2).
 //
-// Design. The TPU kernels add the weight gradients into VMEM across a
-// sequential grid; Hopper's blocks run in no order. So the backward is a
-// chain of kernels whose tiles do not grow with C (C is a run-time
-// argument), each product on the tiled core of gemm_tc.cuh (128 x 64 output
-// tiles, 128 x 128 for fc2, dx and grad_tn where their columns are a multiple
-// of 128; K in slices of 32 through a three-stage cp.async ring, ldmatrix and
-// ldmatrix.trans into mma.sync). The operands of the weight-gradient
-// products pass through device memory in bf16, which the contract rounds
-// them to anyway:
+// Design. The TPU kernels keep the (rows, 4C) hidden activation in VMEM
+// and add the weight gradients into VMEM across a sequential grid; a
+// Hopper block has 227 KB of shared memory and blocks run in no order. A
+// kernel that keeps h on chip owns a few rows and re-reads all of W1 and W2
+// (16·C² bytes) for them, and its tile grows with C. So both directions are
+// chains of kernels whose tiles do not grow with C (C is a run-time
+// argument), each product on a tiled core with 128-row output tiles, so
+// that each weight slice serves 128 rows. The forward (forward-named
+// kernels, so that a profile tells them apart from the backward's):
+//   1. `mlp_fwd_fc1_kernel`: h (T, 4C) = bf16(gelu(x·W1ᵀ + b1)), the same
+//      device code as the backward's step 1, so that the backward's
+//      recompute of h equals the forward's bit for bit;
+//   2. `mlp_fwd_fc2_kernel`: pre (T, C) = h·W2ᵀ + b2 in f32;
+//   3. `ln_resid_fwd_kernel` (gemm_tc.cuh), one warp a row: LayerNorm of
+//      pre, x + s·y rounded once (and the bf16 pre-LN sum, chunked site).
+// fc1 and fc2, in both directions, run on gemm_wgmma.cuh's warpgroup core
+// (wgmma from shared memory, 128 x 128 tiles, fc2's 96 or 64 columns wide
+// where C is not a multiple of 128; K in 64-wide swizzled slices through a
+// three-stage cp.async ring). The backward's other products run on
+// gemm_tc.cuh's core (128 x 64 output tiles, 128 x 128 for dx and grad_tn
+// where their columns are a multiple of 128; K in slices of 32 through a
+// three-stage cp.async ring, ldmatrix and ldmatrix.trans into mma.sync).
+// The operands of the weight-gradient products pass through device memory
+// in bf16, which the contract rounds them to anyway. The backward:
 //   1. (unchunked) `mlp_bwd_fc1_kernel`: h = gelu(x·W1ᵀ + b1), stored bf16;
 //   2. (unchunked) `mlp_bwd_fc2_kernel`: pre = h·W2ᵀ + b2, stored f32 in the
 //      dpre buffer, which step 4 writes only after step 3 has read it;
@@ -62,33 +96,115 @@
 //      the transpose of hᵀ·dout so that both products tile the 4C dim by 128.
 // Partials are summed by sum_parts in a fixed order: every result is
 // deterministic (no atomics).
-#include "gemm_tc.cuh"
+#include "gemm_wgmma.cuh"
 
 namespace hvt {
 
 constexpr int kLnRows = 64;  // rows of a LayerNorm-backward block: 8 per warp
 
-// Step 1: hid (T, 4C) = bf16(gelu(x·W1ᵀ + b1)); grid (4C / kBN, row tiles).
-// 64 columns: its GELU epilogue runs best at four blocks an SM.
-__global__ void __launch_bounds__(kGemmThreads)
+inline bool mlp_width_ok(int T, int C) { return T > 0 && ln_width_ok(C); }
+
+// ---------------------------------------------------------------------------
+// fc1 and fc2, shared by both directions
+// ---------------------------------------------------------------------------
+
+// fc1 and fc2 run on gemm_wgmma.cuh's warpgroup core, 128-row output
+// tiles, two blocks an SM (73-97 KB of shared memory each).
+//
+// hid (T, 4C) = bf16(gelu(x·W1ᵀ + b1)) over the block's tile, rows
+// blockIdx.y·kWgBM.., hidden units blockIdx.x·kFc1Cols..: grid (4C /
+// kFc1Cols, row tiles); 4C is a multiple of 128 wherever C is one of 32.
+// The epilogue is bound by its instructions at C = 96-384 (16,384 GELUs a
+// block against 2-6 K slices of products), so it takes gelu_as_fast and
+// sends h out through shared memory in 16-byte pieces (wg_store_bf16):
+// each of the two cut fc1's time at those widths on the H100.
+constexpr int kFc1Cols = 128;
+
+__device__ __forceinline__ void fc1_tile(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                                         const float* __restrict__ b1, bf16* __restrict__ hid,
+                                         int T, int C) {
+  const int HID = 4 * C, n0 = blockIdx.x * kFc1Cols, m0 = blockIdx.y * kWgBM;
+  float acc[kFc1Cols / 2];
+  wg_gemm_nt<kFc1Cols>(acc, x, T, w1, HID, C, m0, n0);
+  wg_store_bf16<kFc1Cols>(
+      acc,
+      [&](int c, float v0, float v1) {
+        return pack_bf16x2(gelu_as_fast(v0 + b1[n0 + c]), gelu_as_fast(v1 + b1[n0 + c + 1]));
+      },
+      hid, HID, m0, n0, T);
+}
+
+__global__ void __launch_bounds__(kWgThreads, 2)
+mlp_fwd_fc1_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                   const float* __restrict__ b1, bf16* __restrict__ hid, int T, int C) {
+  fc1_tile(x, w1, b1, hid, T, C);
+}
+
+// The backward's step 1: the forward's h again, under the backward's name.
+__global__ void __launch_bounds__(kWgThreads, 2)
 mlp_bwd_fc1_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                    const float* __restrict__ b1, bf16* __restrict__ hid, int T, int C) {
-  const int HID = 4 * C, n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
-  float acc[4][kBN / 16][4] = {};
-  gemm_nt<kBN>(acc, x, T, w1, HID, C, m0, n0);
-  tile_pairs<kBN>(m0, n0, [&](int i, int j, int e, int row, int col) {
-    if (row < T)
-      *reinterpret_cast<uint32_t*>(hid + (size_t)row * HID + col) = pack_bf16x2(
-          gelu_as(acc[i][j][e] + b1[col]), gelu_as(acc[i][j][e + 1] + b1[col + 1]));
+  fc1_tile(x, w1, b1, hid, T, C);
+}
+
+// pre (T, C) = h·W2ᵀ + b2 in f32 over the block's tile: grid (ceil(C / BN),
+// row tiles); columns past C are masked.
+template <int BN>
+__device__ __forceinline__ void fc2_tile(const bf16* __restrict__ hid, const bf16* __restrict__ w2,
+                                         const float* __restrict__ b2, float* __restrict__ pre,
+                                         int T, int C) {
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * kWgBM;
+  float acc[BN / 2];
+  wg_gemm_nt<BN>(acc, hid, T, w2, C, 4 * C, m0, n0);
+  wg_pairs<BN>(acc, m0, n0, [&](int row, int col, float v0, float v1) {
+    if (row < T && col < C)
+      *reinterpret_cast<float2*>(pre + (size_t)row * C + col) =
+          make_float2(v0 + b2[col], v1 + b2[col + 1]);
   });
 }
 
-// Step 2: pre (T, C) = h·W2ᵀ + b2 in f32; grid (ceil(C / BN), row tiles).
 template <int BN>
-__global__ void __launch_bounds__(kGemmThreads)
+__global__ void __launch_bounds__(kWgThreads, 2)
+mlp_fwd_fc2_kernel(const bf16* __restrict__ hid, const bf16* __restrict__ w2,
+                   const float* __restrict__ b2, float* __restrict__ pre, int T, int C) {
+  fc2_tile<BN>(hid, w2, b2, pre, T, C);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kWgThreads, 2)
 mlp_bwd_fc2_kernel(const bf16* __restrict__ hid, const bf16* __restrict__ w2,
                    const float* __restrict__ b2, float* __restrict__ pre, int T, int C) {
-  linear_f32_tile<BN>(hid, w2, b2, pre, T, C, 4 * C);
+  fc2_tile<BN>(hid, w2, b2, pre, T, C);
+}
+
+// fc2's output tile widths; the caller picks one for C (fused_halves_cuda's
+// fc2_cols: SwinV2-T's C = 96 and 192 take 96, no masked columns).
+inline bool fc2_cols_ok(int bn) { return bn == 64 || bn == 96 || bn == 128; }
+
+template <int BN, bool kFwd>
+int launch_fc2(const bf16* hid, const bf16* w2, const float* b2, float* pre, int T, int C,
+               cudaStream_t st) {
+  auto fc2 = kFwd ? &mlp_fwd_fc2_kernel<BN> : &mlp_bwd_fc2_kernel<BN>;
+  if (int err = allow_smem(fc2, wg_smem<BN>())) return err;
+  fc2<<<dim3((C + BN - 1) / BN, (T + kWgBM - 1) / kWgBM), kWgThreads, wg_smem<BN>(), st>>>(
+      hid, w2, b2, pre, T, C);
+  return (int)cudaGetLastError();
+}
+
+// fc1 into hid and fc2 into pre (f32) for x (T, C), fc2 in tiles of bn
+// columns, under the forward's names (kFwd) or the backward's.
+template <bool kFwd>
+int launch_fc(const bf16* x, const bf16* w1, const float* b1, const bf16* w2, const float* b2,
+              bf16* hid, float* pre, int bn, int T, int C, cudaStream_t st) {
+  if (!fc2_cols_ok(bn)) return -1;
+  auto fc1 = kFwd ? &mlp_fwd_fc1_kernel : &mlp_bwd_fc1_kernel;
+  if (int err = allow_smem(fc1, wg_smem<kFc1Cols>())) return err;
+  fc1<<<dim3(4 * C / kFc1Cols, (T + kWgBM - 1) / kWgBM), kWgThreads, wg_smem<kFc1Cols>(), st>>>(
+      x, w1, b1, hid, T, C);
+  if (int err = (int)cudaGetLastError()) return err;
+  if (bn == 128) return launch_fc2<128, kFwd>(hid, w2, b2, pre, T, C, st);
+  if (bn == 96) return launch_fc2<96, kFwd>(hid, w2, b2, pre, T, C, st);
+  return launch_fc2<64, kFwd>(hid, w2, b2, pre, T, C, st);
 }
 
 // Step 3, one warp per row of pre (T, C) and g: the row's LayerNorm
@@ -335,9 +451,56 @@ int mlp_bwd_tail(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
   return grad_tn(hid, dout, dw2, wpart, splits2, T, HID, C, true, st);
 }
 
-inline bool mlp_bwd_width_ok(int T, int C) { return T > 0 && ln_width_ok(C); }
-
 }  // namespace hvt
+
+// x, out (T, C) bf16, 16-byte aligned; w1 (4C, C), w2 (C, 4C) bf16; b1, b2,
+// lns, lnb f32; s f32 (s null: the branch alone, no residual; s[row / tpi]
+// scales row's branch). Scratch: hid (T, 4C) bf16 and pre (T, C) f32. fc2
+// in output tiles of bn2 columns. C a multiple of 32 up to 1024. Returns a
+// cudaError_t, or -1.
+extern "C" int hvt_mlp_half_fwd(const void* x, const void* w1, const float* b1, const void* w2,
+                                const float* b2, const float* lns, const float* lnb,
+                                const float* s, int tpi, void* out, void* hid, float* pre,
+                                int bn2, int t, int c, void* stream) {
+  using namespace hvt;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!mlp_width_ok(t, c)) return -1;
+  const bf16* xb = static_cast<const bf16*>(x);
+  if (int err = launch_fc<true>(xb, static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2),
+                                b2, static_cast<bf16*>(hid), pre, bn2, t, c, st))
+    return err;
+  return ln_resid_fwd(pre, lns, lnb, xb, s, tpi, static_cast<bf16*>(out), nullptr, t, c, st);
+}
+
+// The chunked MLP's forward: the same chain over the whole 4C, no residual.
+// x, out, pre_out (T, C) bf16: out the branch, pre_out the pre-LN sum
+// rounded once. Scratch and the rest as hvt_mlp_half_fwd's.
+extern "C" int hvt_mlp_half_chunked_fwd(const void* x, const void* w1, const float* b1,
+                                        const void* w2, const float* b2, const float* lns,
+                                        const float* lnb, void* out, void* pre_out, void* hid,
+                                        float* pre, int bn2, int t, int c, void* stream) {
+  using namespace hvt;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!mlp_width_ok(t, c)) return -1;
+  if (int err = launch_fc<true>(static_cast<const bf16*>(x), static_cast<const bf16*>(w1), b1,
+                                static_cast<const bf16*>(w2), b2, static_cast<bf16*>(hid), pre,
+                                bn2, t, c, st))
+    return err;
+  return ln_resid_fwd(pre, lns, lnb, nullptr, nullptr, 1, static_cast<bf16*>(out),
+                      static_cast<bf16*>(pre_out), t, c, st);
+}
+
+// Dynamic shared memory of a block of fc1 and fc2 (both directions) and of
+// the forward's LayerNorm pass, bytes: kernel 0 fc1, 1 fc2 in tiles of bn2
+// columns, 2 the LayerNorm pass; -1 for another kernel or tile width.
+extern "C" int hvt_mlp_fwd_smem(int kernel, int bn2) {
+  using namespace hvt;
+  if (kernel == 1 && !fc2_cols_ok(bn2)) return -1;
+  const size_t bytes[] = {wg_smem<kFc1Cols>(),
+                          bn2 == 128 ? wg_smem<128>() : bn2 == 96 ? wg_smem<96>() : wg_smem<64>(),
+                          0};
+  return kernel >= 0 && kernel < 3 ? (int)bytes[kernel] : -1;
+}
 
 // x, g, dx (T, C) bf16; w1 (4C, C), w2 (C, 4C) bf16; b1, b2, lns, s f32 (s
 // null: no fused residual; s[row / tpi] scales row's branch). Outputs:
@@ -345,35 +508,24 @@ inline bool mlp_bwd_width_ok(int T, int C) { return T > 0 && ln_width_ok(C); }
 // Scratch: hid, dpre (T, 4C) and dout (T, C) bf16, the f32 pre-LN sum
 // (T, C) living in dpre's buffer until the hidden kernel writes it;
 // part_ln ceil(T/64)·3C and part_h ceil(T/128)·4C floats; wpart
-// max(splits)·4C·C floats (unused where both splits are 1). C a multiple
-// of 32 up to 1024. Returns a cudaError_t, or -1.
+// max(splits)·4C·C floats (unused where both splits are 1). fc2 recomputed
+// in tiles of bn2 columns, as the forward. C a multiple of 32 up to 1024.
+// Returns a cudaError_t, or -1.
 extern "C" int hvt_mlp_half_bwd(const void* x, const void* w1, const float* b1, const void* w2,
                                 const float* b2, const float* lns, const float* s, int tpi,
                                 const void* g, void* dx, float* dw1, float* dw2, float* dsmall,
                                 void* hid, void* dpre, void* dout, float* part_ln,
-                                float* part_h, float* wpart, int splits1, int splits2, int t,
-                                int c, void* stream) {
+                                float* part_h, float* wpart, int splits1, int splits2, int bn2,
+                                int t, int c, void* stream) {
   using namespace hvt;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!mlp_bwd_width_ok(t, c)) return -1;
+  if (!mlp_width_ok(t, c)) return -1;
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* w1b = static_cast<const bf16*>(w1);
   const bf16* w2b = static_cast<const bf16*>(w2);
   bf16* hb = static_cast<bf16*>(hid);
   float* pre = static_cast<float*>(dpre);
-  const int row_tiles = (t + kBM - 1) / kBM;
-  int err;
-  if ((err = allow_smem(mlp_bwd_fc2_kernel<128>, fc_smem<128>()))) return err;
-  mlp_bwd_fc1_kernel<<<dim3(4 * c / kBN, row_tiles), kGemmThreads, fc_smem<kBN>(), st>>>(
-      xb, w1b, b1, hb, t, c);
-  if ((err = (int)cudaGetLastError())) return err;
-  if (tile_cols(c) == 128)
-    mlp_bwd_fc2_kernel<128><<<dim3(c / 128, row_tiles), kGemmThreads, fc_smem<128>(), st>>>(
-        hb, w2b, b2, pre, t, c);
-  else
-    mlp_bwd_fc2_kernel<kBN><<<dim3((c + kBN - 1) / kBN, row_tiles), kGemmThreads, fc_smem<kBN>(),
-                              st>>>(hb, w2b, b2, pre, t, c);
-  if ((err = (int)cudaGetLastError())) return err;
+  if (int err = launch_fc<false>(xb, w1b, b1, w2b, b2, hb, pre, bn2, t, c, st)) return err;
   return mlp_bwd_tail(xb, w1b, b1, w2b, lns, static_cast<const float*>(pre), s, tpi,
                       static_cast<const bf16*>(g), s != nullptr, static_cast<bf16*>(dx), dw1, dw2,
                       dsmall, hb, false, static_cast<bf16*>(dpre), static_cast<bf16*>(dout),
@@ -391,7 +543,7 @@ extern "C" int hvt_mlp_half_chunked_bwd(const void* x, const void* w1, const flo
                                         float* part_ln, float* part_h, float* wpart, int splits1,
                                         int splits2, int hk, int t, int c, void* stream) {
   using namespace hvt;
-  if (!mlp_bwd_width_ok(t, c) || hk <= 0 || hk % kBK || (4 * c) % hk) return -1;
+  if (!mlp_width_ok(t, c) || hk <= 0 || hk % kBK || (4 * c) % hk) return -1;
   return mlp_bwd_tail(static_cast<const bf16*>(x), static_cast<const bf16*>(w1), b1,
                       static_cast<const bf16*>(w2), lns, static_cast<const bf16*>(pre), nullptr,
                       1, static_cast<const bf16*>(g), false, static_cast<bf16*>(dx), dw1, dw2,
@@ -409,14 +561,14 @@ extern "C" int hvt_grad_tn(const void* a, const void* b, float* out, float* part
                       part, splits, t, m, n, trans != 0, static_cast<cudaStream_t>(stream));
 }
 
-// Dynamic shared memory of a block at width c, bytes: kernel 0 fc1, 1 fc2,
-// 2 the LayerNorm backward, 3 hidden, 4 dx (unchunked), 5 grad_tn with c
-// columns; -1 for another kernel.
+// Dynamic shared memory of a block of the backward's own kernels at width
+// c, bytes: kernel 0 the LayerNorm backward, 1 hidden, 2 dx (unchunked), 3
+// grad_tn with c columns; -1 for another kernel. Its fc1 and fc2 are the
+// forward's (hvt_mlp_fwd_smem).
 extern "C" int hvt_mlp_bwd_smem(int kernel, int c) {
   using namespace hvt;
   const bool wide = tile_cols(c) == 128;
-  const size_t bytes[] = {fc_smem<kBN>(), wide ? fc_smem<128>() : fc_smem<kBN>(),
-                          ln_smem_bytes(c), kHiddenSmem, wide ? dx_smem<128>() : dx_smem<kBN>(),
+  const size_t bytes[] = {ln_smem_bytes(c), kHiddenSmem, wide ? dx_smem<128>() : dx_smem<kBN>(),
                           wide ? grad_tn_smem<128>() : grad_tn_smem<kBN>()};
-  return kernel >= 0 && kernel < 6 ? (int)bytes[kernel] : -1;
+  return kernel >= 0 && kernel < 4 ? (int)bytes[kernel] : -1;
 }

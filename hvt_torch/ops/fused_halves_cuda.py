@@ -7,14 +7,14 @@ Port of ``mlp_half`` (hvt/ops/fused_halves_pallas.py:397),
 ``_mlp_chunked_bwd`` :659, ``_attn_half_nhwc_bwd`` :1444, ``_attn_half_bwd``
 :1599). Each is a ``torch.autograd.Function``: the halves save only their
 inputs, the chunked MLP its inputs and the pre-LN sum, as hvt's
-``_mlp_chunked_fwd``. The forward wrappers launch ``csrc/fused_halves.cu``
-(``fused_halves_base.cu`` at SwinV2-B's widths; the chunked MLP's forward is
-its MLP kernel storing the pre-LN sum as well), the attention half's
-backward ``csrc/fused_halves_bwd.cu`` (``fused_halves_bwd_base.cu``), both
-MLP backwards (unchunked and chunked) ``csrc/mlp_bwd.cu``, and the windowed
-attention half both ways ``csrc/attention_half.cu``
-(``attention_half_base.cu``), for a CUDA tensor, and run their plain
-versions for a CPU tensor; nothing else selects between them.
+``_mlp_chunked_fwd``. The wrappers launch, for a CUDA tensor, the MLP
+half's forward and backward at both sites ``csrc/mlp.cu`` (one library, C
+at run time), the attention half's forward ``csrc/fused_halves.cu``
+(``fused_halves_base.cu`` at SwinV2-B's widths) and backward
+``csrc/fused_halves_bwd.cu`` (``fused_halves_bwd_base.cu``), and the
+windowed attention half both ways ``csrc/attention_half.cu``
+(``attention_half_base.cu``), and run their plain versions for a CPU
+tensor; nothing else selects between them.
 
 The arithmetic contract is the TPU kernels': every product rounds its
 operands to bf16 and accumulates in f32 (``_dot``/``_dot_t``, the weight
@@ -59,31 +59,33 @@ from hvt_torch.ops.window_attention_cuda import (
 )
 
 P, I = _build.P, _build.I
-#: SwinV2-T's stage widths (SwinV2-S's too) and SwinV2-B's: each set is built
-#: from its own sources, so that the two builds run side by side
+#: SwinV2-T's stage widths (SwinV2-S's too) and SwinV2-B's: the attention
+#: half's kernels are built for these, each set from its own sources, so
+#: that the two builds run side by side
 TINY_WIDTHS = (96, 192, 384, 768)
 BASE_WIDTHS = (128, 256, 512, 1024)
-#: the widths each kernel takes: both halves' forwards and the attention
-#: half's backward all eight; the MLP half's backward no C = 1024 (hvt sends
-#: that width to the chunked MLP in training); the chunked MLP SwinV2-B's
-#: stage 4, the one width hvt chunks at its default budget. Both MLP
-#: backwards take C at run time from one library (``csrc/mlp_bwd.cu``).
 WIDTHS = TINY_WIDTHS + BASE_WIDTHS
+#: The MLP kernels (``csrc/mlp.cu``, both sites, both directions) take C at
+#: run time: a multiple of 32 up to MLP_MAX_WIDTH, hidden 4C. Their
+#: LayerNorm passes hold a row in one warp's registers, 32 columns a
+#: register, in buckets of 4, 8, 16 and 32 registers: 1024 columns at most.
+MLP_MAX_WIDTH = 1024
+#: the unchunked MLP backward's widest C: hvt trains C = 1024 through the
+#: chunked MLP (``mlp_route``), and the card's checks hold the unchunked
+#: backward at SwinV2-T's and SwinV2-B's other widths (MLP_BWD_WIDTHS)
+MLP_BWD_MAX_WIDTH = 768
 MLP_BWD_WIDTHS = TINY_WIDTHS + (128, 256, 512)
-CHUNKED_WIDTHS = (1024,)
 
 
 def _by_width(source: str, widths=WIDTHS) -> dict[int, str]:
     return {c: source if c in TINY_WIDTHS else f"{source}_base" for c in widths}
 
 
-MLP_KERNEL = _build.Kernel(
-    _by_width("fused_halves"), "hvt_mlp_half_fwd", [P, P, P, P, P, P, P, P, I, P, I, I, P]
-)
+MLP_KERNEL = _build.Kernel("mlp", "hvt_mlp_half_fwd", [P] * 8 + [I] + [P] * 3 + [I] * 3 + [P])
 ATTN_KERNEL = _build.Kernel(
     _by_width("fused_halves"), "hvt_attention_half_nhwc_fwd", [P] * 5 + [I] + [P] * 8 + [I] * 9 + [P]
 )
-MLP_BWD_KERNEL = _build.Kernel("mlp_bwd", "hvt_mlp_half_bwd", [P] * 7 + [I] + [P] * 11 + [I] * 4 + [P])
+MLP_BWD_KERNEL = _build.Kernel("mlp", "hvt_mlp_half_bwd", [P] * 7 + [I] + [P] * 11 + [I] * 5 + [P])
 ATTN_BWD_KERNEL = _build.Kernel(
     _by_width("fused_halves_bwd"),
     "hvt_attention_half_nhwc_bwd",
@@ -95,19 +97,21 @@ ATTN_WIN_KERNEL = _build.Kernel(
 ATTN_WIN_BWD_KERNEL = _build.Kernel(
     _by_width("attention_half"), "hvt_attention_half_bwd", [P] * 5 + [I] + [P] * 18 + [I] * 9 + [P]
 )
-MLP_CHUNKED_KERNEL = _build.Kernel(
-    "fused_halves_base", "hvt_mlp_half_chunked_fwd", [P] * 9 + [I, I, P]
-)
+MLP_CHUNKED_KERNEL = _build.Kernel("mlp", "hvt_mlp_half_chunked_fwd", [P] * 11 + [I] * 3 + [P])
 MLP_CHUNKED_BWD_KERNEL = _build.Kernel(
-    "mlp_bwd", "hvt_mlp_half_chunked_bwd", [P] * 17 + [I] * 5 + [P]
+    "mlp", "hvt_mlp_half_chunked_bwd", [P] * 17 + [I] * 5 + [P]
 )
 #: the weight-gradient product both halves' backwards launch inside their C
 #: entries, bound on its own for the tests: out = aᵀ·b over token slices
-GRAD_TN_KERNEL = _build.Kernel("mlp_bwd", "hvt_grad_tn", [P] * 4 + [I] * 5 + [P])
+GRAD_TN_KERNEL = _build.Kernel("mlp", "hvt_grad_tn", [P] * 4 + [I] * 5 + [P])
 HEAD_DIM = 32
 #: rows of a block of the MLP backwards' LayerNorm kernel, and of the tiled
 #: kernels' (and grad_tn's) output tiles
 LN_ROWS, TILE_ROWS = 64, 128
+#: the MLP forward's output tile widths: fc1's (its columns, 4C, are always a
+#: multiple), and those fc2 takes (``fc2_cols``)
+FC1_COLS = 128
+FC2_COLS = (64, 96, 128)
 #: blocks of a weight-gradient product to aim for: 8 per SM of the H100
 GRAD_BLOCKS = 1056
 #: blocks of the attention half's backward proj/LayerNorm kernel to aim for
@@ -141,6 +145,18 @@ def unsupported(c: int, heads: int, n: int) -> str | None:
     return None
 
 
+def mlp_width_unsupported(c: int, hidden: int) -> str | None:
+    """Why the MLP kernels (both sites, forward and backward) cannot take
+    width ``c`` with ``hidden`` units, or None."""
+    if hidden != 4 * c:
+        return f"hidden {hidden} is not 4C ({4 * c})"
+    if c <= 0 or c % 32 or c > MLP_MAX_WIDTH:
+        return (f"width {c}: the MLP kernels' LayerNorm passes hold a row in one warp's "
+                f"registers, in buckets of at most {MLP_MAX_WIDTH // 32} registers of 32 "
+                f"columns: C a multiple of 32 up to {MLP_MAX_WIDTH}")
+    return None
+
+
 def mlp_unsupported(c: int, hidden: int, nchunks: int, training: bool) -> str | None:
     """Why the kernels cannot run an MLP half of width ``c`` routed to
     ``nchunks`` (1: ``mlp_half``, K > 1: ``mlp_half_chunked``, 0: plain
@@ -148,25 +164,22 @@ def mlp_unsupported(c: int, hidden: int, nchunks: int, training: bool) -> str | 
     backward; or None."""
     if nchunks == 0:
         return None
-    if hidden != 4 * c:
-        return f"hidden {hidden} is not 4C"
     if nchunks > 1:
         return chunked_unsupported(c, hidden, nchunks)
-    widths = MLP_BWD_WIDTHS if training else WIDTHS
-    if c not in widths:
-        return f"width {c} is not one the MLP kernels are built for {widths}"
-    return None
+    why = mlp_width_unsupported(c, hidden)
+    if why is None and training and c > MLP_BWD_MAX_WIDTH:
+        why = (f"width {c}: the unchunked MLP backward takes C up to {MLP_BWD_MAX_WIDTH} "
+               "(hvt trains wider MLP halves through the chunked MLP)")
+    return why
 
 
 def chunked_unsupported(c: int, hidden: int, nchunks: int) -> str | None:
     """Why the chunked MLP's kernels (forward and backward) cannot run width
     ``c`` with ``hidden`` in ``nchunks`` chunks, or None."""
-    if hidden != 4 * c or c not in CHUNKED_WIDTHS:
-        return (f"width {c}, hidden {hidden}: the chunked MLP kernels are built for "
-                f"{CHUNKED_WIDTHS} and hidden 4C")
-    if nchunks < 1 or hidden % nchunks or (hidden // nchunks) % 32:
-        return f"{nchunks} chunks of the hidden dim {hidden} are not multiples of 32"
-    return None
+    why = mlp_width_unsupported(c, hidden)
+    if why is None and (nchunks < 1 or hidden % nchunks or (hidden // nchunks) % 32):
+        why = f"{nchunks} chunks of the hidden dim {hidden} are not multiples of 32"
+    return why
 
 
 # ---------------------------------------------------------------------------
@@ -407,13 +420,12 @@ def mlp_half_backward_plain(x, w1, b1, w2, b2, lns, g, tpi: int = 0, dp=None):
             _bf16(dout).t() @ _bf16(hidden), dout.sum(0), (gs * normed).sum(0), gs.sum(0))
 
 
-def _check_mlp(name, x, w1, tpi, dp, widths=WIDTHS):
+def _check_mlp(name, x, w1, tpi, dp, training: bool = False):
     t, c = x.shape
-    if x.dtype != torch.bfloat16 or c not in widths or tuple(w1.shape) != (4 * c, c):
-        raise ValueError(
-            f"{name}: x {tuple(x.shape)} {x.dtype}, w1 {tuple(w1.shape)}; the kernel "
-            f"takes bf16 x with C in {widths} and hidden 4C"
-        )
+    why = mlp_unsupported(c, w1.shape[0], 1, training)
+    if x.dtype != torch.bfloat16 or w1.shape[1] != c or why:
+        raise ValueError(f"{name}: x {tuple(x.shape)} {x.dtype}, w1 {tuple(w1.shape)}: "
+                         f"{why or 'bf16 x and w1 (4C, C) wanted'}")
     if dp is not None and (tpi <= 0 or t != tpi * dp.numel()):
         raise ValueError(f"{name}: {t} rows are not {dp.numel()} images of {tpi} tokens")
 
@@ -425,18 +437,46 @@ def _mlp_args(x, w1, b1, w2, b2, lns, dp):
     return [bf(w1), f32(b1), bf(w2), f32(b2), f32(lns)], f32, s
 
 
+def fc2_cols(c: int) -> int:
+    """fc2's output tile width for C columns, which both directions pass to
+    their C entries: 128 where C is a multiple of it, else 96 where C is one
+    of 96, else 64 (the last tile masked where C is not a multiple of 64)."""
+    return 128 if c % 128 == 0 else 96 if c % 96 == 0 else 64
+
+
+def mlp_fwd_plan(t: int, c: int) -> dict:
+    """The MLP forward chain's tiles and scratch for x (T, C), as both
+    forward wrappers launch it: per product, (rows, columns) of an output
+    tile and the grid (column tiles, row tiles) that the C entry launches
+    (fc1: h (T, 4C); fc2: the pre-LN sum (T, C), its tile width passed to
+    the C entry); and the scratch (shape, dtype) of h and pre."""
+    rows = -(-t // TILE_ROWS)
+    bn = fc2_cols(c)
+    return {"fc1": ((TILE_ROWS, FC1_COLS), (4 * c // FC1_COLS, rows)),
+            "fc2": ((TILE_ROWS, bn), (-(-c // bn), rows)),
+            "scratch": {"hid": ((t, 4 * c), torch.bfloat16), "pre": ((t, c), torch.float32)}}
+
+
+def _mlp_fwd_scratch(x, plan: dict):
+    return [torch.empty(shape, dtype=dtype, device=x.device)
+            for shape, dtype in plan["scratch"].values()]
+
+
 def mlp_half_forward(x, w1, b1, w2, b2, lns, lnb, tpi: int = 0, dp=None):
-    """Kernel 2 for a CUDA tensor, its plain version for a CPU one."""
+    """Kernel 2 (``hvt_mlp_half_fwd``: fc1, fc2, LayerNorm and residual) for
+    a CUDA tensor, its plain version for a CPU one."""
     if not _on_card("mlp_half", x):
         return mlp_half_plain(x, w1, b1, w2, b2, lns, lnb, tpi, dp)
     _check_mlp("mlp_half", x, w1, tpi, dp)
     t, c = x.shape
-    x = x.contiguous()
+    x = _aligned(x.contiguous())
     args, f32, s = _mlp_args(x, w1, b1, w2, b2, lns, dp)
+    plan = mlp_fwd_plan(t, c)
+    hid, pre = _mlp_fwd_scratch(x, plan)
     out = torch.empty_like(x)
     MLP_KERNEL(x.data_ptr(), *(a.data_ptr() for a in args), f32(lnb).data_ptr(),
-               None if s is None else s.data_ptr(), max(tpi, 1), out.data_ptr(), t, c, _stream(x),
-               width=c)
+               None if s is None else s.data_ptr(), max(tpi, 1), out.data_ptr(), hid.data_ptr(),
+               pre.data_ptr(), plan["fc2"][0][1], t, c, _stream(x))
     return out
 
 
@@ -445,7 +485,7 @@ def mlp_half_backward(x, w1, b1, w2, b2, lns, g, tpi: int = 0, dp=None):
     for a CPU one: (dx, dw1, db1, dw2, db2, dlns, dlnb)."""
     if not _on_card("mlp_half backward", x):
         return mlp_half_backward_plain(x, w1, b1, w2, b2, lns, g, tpi, dp)
-    _check_mlp("mlp_half backward", x, w1, tpi, dp, MLP_BWD_WIDTHS)
+    _check_mlp("mlp_half backward", x, w1, tpi, dp, training=True)
     t, c = x.shape
     x = _aligned(x.contiguous())
     g = _aligned(g.to(torch.bfloat16).contiguous())
@@ -454,7 +494,7 @@ def mlp_half_backward(x, w1, b1, w2, b2, lns, g, tpi: int = 0, dp=None):
     # the f32 pre-LN sum lives in dpre's buffer (scratch[1]) until dpre is written
     MLP_BWD_KERNEL(x.data_ptr(), *(a.data_ptr() for a in args), None if s is None else s.data_ptr(),
                    max(tpi, 1), g.data_ptr(), *(b.data_ptr() for b in out + scratch), *splits,
-                   t, c, _stream(x))
+                   fc2_cols(c), t, c, _stream(x))
     return _mlp_bwd_result(out, c)
 
 
@@ -564,23 +604,29 @@ def mlp_half_chunked_backward_plain(x, w1, b1, w2, lns, pre, g, nchunks: int):
 def _check_chunked(name, x, w1, nchunks):
     t, c = x.shape
     why = chunked_unsupported(c, w1.shape[0], nchunks)
-    if x.dtype != torch.bfloat16 or tuple(w1.shape) != (4 * c, c) or why:
+    if x.dtype != torch.bfloat16 or w1.shape[1] != c or why:
         raise ValueError(f"{name}: x {tuple(x.shape)} {x.dtype}, w1 {tuple(w1.shape)}, "
-                         f"{nchunks} chunks: {why or 'bf16 x and hidden 4C wanted'}")
+                         f"{nchunks} chunks: {why or 'bf16 x and w1 (4C, C) wanted'}")
 
 
 def mlp_half_chunked_forward(x, w1, b1, w2, b2, lns, lnb, nchunks: int):
-    """The chunked forward kernel (``hvt_mlp_half_chunked_fwd``) for a CUDA
-    tensor, its plain version for a CPU one: (branch, pre)."""
+    """The chunked forward (``hvt_mlp_half_chunked_fwd``: the unchunked
+    site's chain over the whole 4C, the pre-LN sum also stored) for a CUDA
+    tensor, its plain version for a CPU one: (branch, pre). ``nchunks`` is
+    checked and reaches nothing else: fc2 adds the chunks' products in f32
+    as hvt's VMEM scratch does, so the result does not depend on it."""
     if not _on_card("mlp_half_chunked", x):
         return mlp_half_chunked_plain(x, w1, b1, w2, b2, lns, lnb, nchunks)
     _check_chunked("mlp_half_chunked", x, w1, nchunks)
     t, c = x.shape
-    x = x.contiguous()
+    x = _aligned(x.contiguous())
     args, f32, _ = _mlp_args(x, w1, b1, w2, b2, lns, None)
+    plan = mlp_fwd_plan(t, c)
+    hid, pre_f32 = _mlp_fwd_scratch(x, plan)
     out, pre = torch.empty_like(x), torch.empty_like(x)
     MLP_CHUNKED_KERNEL(x.data_ptr(), *(a.data_ptr() for a in args), f32(lnb).data_ptr(),
-                       out.data_ptr(), pre.data_ptr(), t, c, _stream(x))
+                       out.data_ptr(), pre.data_ptr(), hid.data_ptr(), pre_f32.data_ptr(),
+                       plan["fc2"][0][1], t, c, _stream(x))
     return out, pre
 
 

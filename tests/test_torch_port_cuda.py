@@ -150,6 +150,94 @@ def test_mlp_half_kernel(cuda, c):
     _close(got_resid, fh.mlp_half_plain(x, *args, tpi=196, dp=dp), 2e-2, f"mlp_half resid C={c}")
 
 
+def _mlp_inputs(c, cuda, seed, images=3):
+    """Seeded MLP parameters and bf16 x of ``images`` images of 196 tokens."""
+    p = _params(c, c // 32, 49, cuda, seed=seed)
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.normal(size=(images * 196, c)).astype(np.float32), device=cuda)
+    return x.bfloat16(), (p["w1"], p["b1"], p["w2"], p["b2"], p["lns"], p["lnb"])
+
+
+def _off(t):
+    """A copy of t starting 2 bytes past a 16-byte boundary."""
+    return torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("c", [64, 160])
+@pytest.mark.parametrize("resid", [True, False])
+def test_mlp_forwards_at_run_time_widths(cuda, c, resid):
+    """Both MLP forwards take C at run time: at widths no kernel was built
+    for before (64; 160, not a multiple of fc2's 64- and 128-column tiles),
+    588 tokens (not a multiple of the 128-row tiles), the unchunked forward
+    with and without the fused residual, and the chunked one (K = 2), within
+    2e-2·max|plain| (the fused halves' tolerance: bf16 operands and stores
+    on both sides, another summation order); the chunked backward on its
+    output too. A rerun and x 2 bytes off a 16-byte boundary give
+    bit-identical outputs."""
+    x, args = _mlp_inputs(c, cuda, seed=17 * c)
+    extra = dict(tpi=196, dp=torch.tensor([0.0, 1.25, 1.0], device=cuda)) if resid else {}
+    before = fh.MLP_KERNEL.launches, fh.MLP_CHUNKED_KERNEL.launches
+    runs = [fh.mlp_half(x, *args, **extra), fh.mlp_half(x, *args, **extra),
+            fh.mlp_half(_off(x), *args, **extra)]
+    chunked = [fh.mlp_half_chunked_forward(x, *args, 2), fh.mlp_half_chunked_forward(_off(x), *args, 2)]
+    torch.cuda.synchronize()
+    assert (fh.MLP_KERNEL.launches, fh.MLP_CHUNKED_KERNEL.launches) == (before[0] + 3, before[1] + 2)
+    for other in runs[1:]:
+        assert torch.equal(runs[0], other)
+    for a, b in zip(*chunked):
+        assert torch.equal(a, b)
+    _close(runs[0], fh.mlp_half_plain(x, *args, **extra), 2e-2, f"mlp_half C={c} resid={resid}")
+    out, pre = chunked[0]
+    ref_out, ref_pre = fh.mlp_half_chunked_plain(x, *args, 2)
+    _close(out, ref_out, 2e-2, f"chunked C={c} branch")
+    _close(pre, ref_pre, 2e-2, f"chunked C={c} pre")
+    g = torch.randn(x.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(c)).bfloat16()
+    w1, b1, w2, _, lns, _ = args
+    grads = fh.mlp_half_chunked_backward(x, w1, b1, w2, lns, pre, g, 2)
+    ref = fh.mlp_half_chunked_backward_plain(x, w1, b1, w2, lns, pre, g, 2)
+    for name, a, b in zip(("dx", "dw1", "db1", "dw2", "db2", "dlns", "dlnb"), grads, ref):
+        _close(a, b, 2e-2, f"chunked C={c} {name}")
+
+
+def _bf16_order(t):
+    """bf16 values as integers in the order of the values they encode, so
+    that neighbouring values differ by 1 (±0 both 0)."""
+    bits = t.contiguous().view(torch.int16).int()
+    return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+
+@pytest.mark.parametrize("c", [96, 1024])
+@pytest.mark.parametrize("nchunks", [2, 4])
+def test_mlp_chunked_forward_is_the_unchunked_chain(cuda, monkeypatch, c, nchunks):
+    """The chunked forward runs the unchunked forward's chain over the whole
+    4C, its sums in f32 whatever K: its branch equals the unchunked forward's
+    without residual bit for bit. Its pre is the f32 pre-LN sum (the
+    kernel's own scratch) rounded once to bf16, bit for bit; that f32 sum is
+    within 1e-5·max|ref| of h·W2ᵀ + b2 taken in f64 on the kernel's own bf16
+    h (the same bf16 products summed in another order), so against that
+    reference rounded to bf16 every element of pre whose magnitude is at
+    least 1e-2·max|ref| (where the sum's error is below half a bf16 ulp) is
+    within one bf16 ulp; and h within 2e-2·max|plain| of the plain GELU(fc1
+    x)."""
+    x, args = _mlp_inputs(c, cuda, seed=c + nchunks, images=2)
+    scratch = []
+    allocate = fh._mlp_fwd_scratch
+    monkeypatch.setattr(fh, "_mlp_fwd_scratch", lambda *a: scratch.append(allocate(*a)) or scratch[-1])
+    out, pre = fh.mlp_half_chunked_forward(x, *args, nchunks)
+    hid, pre32 = scratch[-1]
+    unchunked = fh.mlp_half(x, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, unchunked)
+    assert torch.equal(pre, pre32.bfloat16())
+    w1, b1, w2, b2 = args[:4]
+    pre64 = hid.double() @ w2.bfloat16().double().t() + b2.double()
+    _close(pre32, pre64, 1e-5, f"f32 pre C={c} K={nchunks}")
+    big = pre64.abs() >= 1e-2 * pre64.abs().max()
+    steps = (_bf16_order(pre) - _bf16_order(pre64.bfloat16())).abs()[big]
+    assert int(steps.max()) <= 1, f"pre C={c} K={nchunks}: {int(steps.max())} bf16 steps apart"
+    _close(hid, fh.gelu_as(fh.bf16_linear(x, w1, b1)), 2e-2, f"h C={c}")
+
+
 @pytest.mark.parametrize("c,shift", [(96, 3), (96, 0), (768, 0), (128, 3), (1024, 0), (1024, 3)])
 def test_attention_half_nhwc_kernel(cuda, c, shift):
     heads, window = c // 32, 7
@@ -294,10 +382,12 @@ def test_window_attention_backward_refuses_what_its_kernel_does_not_take(cuda):
     assert (wac.BWD_KERNEL.launches, wac.SPLIT_BWD_KERNEL.launches) == before
 
 
-@pytest.mark.parametrize("c,resid", [(c, resid) for c in fh.MLP_BWD_WIDTHS for resid in (True, False)])
+@pytest.mark.parametrize("c,resid", [(c, resid) for c in fh.MLP_BWD_WIDTHS + (64, 160)
+                                     for resid in (True, False)])
 def test_mlp_half_backward_kernel(cuda, c, resid):
-    """Every width the MLP backward takes (SwinV2-T's and SwinV2-B's) at
-    batch 3 (588 tokens: not a multiple of the 128-row tiles, and dW1, dW2
+    """The unchunked MLP backward at SwinV2-T's and SwinV2-B's widths, and at
+    two widths of no model (it takes C at run time: 160 is not a multiple of
+    its 64- and 128-column tiles), at batch 3 (588 tokens: not a multiple of the 128-row tiles, and dW1, dW2
     over 2 token slices), with and without the fused residual, one image
     dropped (s = 0) and two kept at 1/keep. Kernel and plain version share
     the contract (bf16 operands, f32 accumulation) and differ in summation
@@ -620,16 +710,19 @@ def test_new_layouts_refuse_what_their_kernels_do_not_take(cuda):
 
 
 def test_kernels_refuse_unsupported_shapes(cuda):
-    """A CUDA tensor the kernel does not take raises; it never falls back."""
+    """A CUDA tensor the kernel does not take raises; it never falls back.
+    The MLP kernels take C at run time, a multiple of 32 up to 1024 with
+    hidden 4C (the unchunked backward up to 768): C = 1536 and a hidden that
+    is not 4C are refused."""
     big = torch.zeros((49, 1024), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="C in"):  # no unchunked MLP backward at C = 1024
+    with pytest.raises(ValueError, match="C up to 768"):  # hvt trains C = 1024 chunked
         fh.mlp_half_backward(big, torch.zeros((4096, 1024), device=cuda), *[None] * 5)
-    with pytest.raises(ValueError, match="chunked MLP kernels are built for"):
-        fh.mlp_half_chunked_forward(big[:, :768], torch.zeros((3072, 768), device=cuda),
-                                    *[None] * 5, 2)
-    with pytest.raises(ValueError, match="C in"):
+    with pytest.raises(ValueError, match="LayerNorm"):
+        fh.mlp_half_chunked_forward(torch.zeros((49, 1536), device=cuda, dtype=torch.bfloat16),
+                                    torch.zeros((6144, 1536), device=cuda), *[None] * 5, 2)
+    with pytest.raises(ValueError, match="is not 4C"):
         fh.mlp_half(torch.zeros((49, 64), device=cuda, dtype=torch.bfloat16),
-                    torch.zeros((256, 64), device=cuda), *[None] * 5)
+                    torch.zeros((128, 64), device=cuda), *[None] * 5)
     with pytest.raises(ValueError, match="bf16"):
         fh.mlp_half(torch.zeros((49, 96), device=cuda), torch.zeros((384, 96), device=cuda),
                     *[None] * 5)
