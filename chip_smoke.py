@@ -101,7 +101,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      map rolled by -shift, the attention branch rolled back and added, then
      the MLP branch added, in f32 and in bf16: 12 launches of each per
      dtype and none of any other kernel; the stream after each block shape's
-     blocks is held against the same chain on the plain versions.
+     blocks is held against the same chain on the plain versions; a profile
+     of the chains names only the branches' tensor-core kernels, the f32
+     operands' pieces and the LayerNorm pass.
 Phases 3, 5 and 6 also hold the SwinV2-B block shapes: the fused forwards
 (NHWC and windowed attention halves, MLP half) at batch 64 (eval, every
 stage unchunked), the fused backwards and the chunked MLP (forward and
@@ -111,8 +113,13 @@ windowed attention half (forward, backward) and split-q/k/v window attention
 (forward in bf16 and f32, backward) at SwinV2-T's block shapes as well.
 Phase 3 holds the retired fused halves at SwinV2-T's and SwinV2-B's block
 shapes at batch 64, in f32 (x and every weight) and in bf16; phase 5 times
-them at SwinV2-T's, each with a bound that counts a product's operations at
-the f32 rate unless both its operands are bf16.
+them at both models' block shapes, with their host and device ms, each
+sub-kernel's device ms (the f32 operands' pieces, qkv, the core, proj,
+LayerNorm; fc1, fc2), each product's TFLOP/s, and the composite yardstick
+(F.linear in f32, SDPA in f32 on the normalised q and k with z as its mask,
+F.layer_norm, no grad); their bound counts every product's operations
+times its bf16 piece products at the tensor-core rate, PR 8's count (the
+f32 rate unless both operands are bf16) beside it.
 
 Comparisons run with TF32 off (cuDNN and matmul), so the f32 parts of the
 plain path (patch-embed conv, head) are true f32. The kernel table goes on a
@@ -187,6 +194,12 @@ RETIRED = {  # name: (source, TPU kernel it replaces) — hvt's retired fused ha
 }
 # phases 3 and 5: each retired half in f32 (its name) and in bf16
 RETIRED_CASES = tuple(name + sfx for name in RETIRED for sfx in ("", "_bf16"))
+# phase 12: the device kernels the retired halves may run at SwinV2's shapes:
+# the f32 operands' pieces, the four tensor-core products, the tensor-core
+# attention core and the LayerNorm pass
+RETIRED_DEVICE_KERNELS = ("sb_split_kernel", "sb_qkv_kernel", "attention_fwd_tc_kernel",
+                          "sb_proj_kernel", "sb_fc1_kernel", "sb_fc2_kernel",
+                          "sb_layer_norm_kernel")
 ROUTE_STEPS = 10  # phase 11 (b) and (c)
 CHUNKS = 2  # hvt's K for a C = 1024 MLP half in training at its default budget
 # Phase 10: launches of each kernel per SwinV2-B training step (24 blocks;
@@ -229,10 +242,11 @@ TOL = {"window_attention_packed_fwd": 1e-2, "mlp_half_fwd": 2e-2,
        "window_attention_fwd": 1e-2,  # bf16: P and the output rounded on both sides
        "window_attention_fwd_f32": 1e-4,  # f32 in and out: summation order only
        "window_attention_packed_fwd_f32": 1e-4}
-# The retired halves compute every product, the core and the LayerNorm in f32
-# on both sides: in f32 they differ in summation order only; in bf16 also in
-# the output's rounding (and the odd flip of the GELU output's rounding to
-# bf16, which the next ulp of the output covers).
+# The retired halves compute every product, the core and the LayerNorm at f32
+# accuracy on both sides (the kernels from bf16 pieces on tensor cores): in
+# f32 they differ in summation order only; in bf16 also in the output's
+# rounding (and the odd flip of the GELU output's rounding to bf16, which the
+# next ulp of the output covers).
 TOL.update({"swin_block_attention_fwd": 1e-4, "swin_block_mlp_fwd": 1e-4,
             "swin_block_attention_fwd_bf16": 2e-2, "swin_block_mlp_fwd_bf16": 2e-2})
 # The backward kernel against packed_heads_backward, relative to max|plain|:
@@ -291,6 +305,21 @@ MLP_FWD_SUB_KERNELS = ((("mlp_fwd_fc1", "fc1"), ("mlp_fwd_fc2", "fc2"),
 FWD_SPLITS = {"attention_half_nhwc_fwd": (FWD_SUB_KERNELS, 12),
               "attention_half_fwd": (FWD_SUB_KERNELS, 12),
               "mlp_half_fwd": (MLP_FWD_SUB_KERNELS, 26)}
+# The retired halves' chains (csrc/swin_block.cu): the f32 operands' pieces,
+# the products, the attention core, the LayerNorm pass; bytes per
+# token-channel their design adds through device memory, written and read:
+# attention, x's pieces (f32 x: 6 and 6), qkv (12, 12), the core's output
+# (4, 4) and its pieces (6, 6), the f32 pre-LN sum (4, 4); MLP, x's pieces,
+# h (4 hidden units a channel: bf16 2 and 2 each, or W2 f32: its three
+# pieces, 6 and 6), the pre-LN sum.
+RETIRED_ATTN_SUB = ((("sb_split", "pieces"), ("sb_qkv", "qkv"), ("attention_fwd", "core"),
+                     ("sb_proj", "proj"), ("sb_layer_norm", "LayerNorm")), ())
+RETIRED_MLP_SUB = ((("sb_split", "pieces"), ("sb_fc1", "fc1"), ("sb_fc2", "fc2"),
+                    ("sb_layer_norm", "LayerNorm")), ())
+FWD_SPLITS.update({"swin_block_attention_fwd": (RETIRED_ATTN_SUB, 64),
+                   "swin_block_attention_fwd_bf16": (RETIRED_ATTN_SUB, 52),
+                   "swin_block_mlp_fwd": (RETIRED_MLP_SUB, 68),
+                   "swin_block_mlp_fwd_bf16": (RETIRED_MLP_SUB, 24)})
 MLP_SUB_KERNELS = ((("mlp_bwd_fc1", "fc1"), ("mlp_bwd_fc2", "fc2"),
                     ("mlp_bwd_ln", "LayerNorm backward"), ("mlp_bwd_hidden", "hidden"),
                     ("mlp_bwd_dx", "dx"), ("grad_tn", "grad_tn"), ("sum_parts", "sum_parts")),
@@ -623,6 +652,102 @@ def stage_inputs(stage: int, shift: int, seed: int, batch: int = BATCH, stages=S
     return p
 
 
+def piece_products(a_pieces: int, b_pieces: int) -> int:
+    """Piece products of order at most 2 of operands in 1 or 3 bf16 pieces
+    (csrc/swin_block.cu's piece_terms): 1, 3 or 6."""
+    return sum(1 for i in range(a_pieces) for j in range(b_pieces) if i + j <= 2)
+
+
+def retired_product_ops(name: str, tokens: int, c: int, dt) -> dict:
+    """{product: operations} of one retired half's launch at width c over
+    ``tokens`` (window 7), x and the weights in dt, each product's
+    operations times its piece products, as the tensor cores run them: qkv
+    and fc1 1 (bf16) or 6 (f32), proj 3 or 6 (the f32 core output against
+    the weights), fc2 1 or 6, the core's q·kᵀ 6 and P·v 3 (the f32 qkv)."""
+    import torch
+
+    n = WINDOW * WINDOW
+    pieces = 3 if dt == torch.float32 else 1
+    if name.startswith("swin_block_attention_fwd"):
+        return {"qkv": 6 * tokens * c * c * piece_products(pieces, pieces),
+                "core": (6 + 3) * 2 * tokens * n * c,
+                "proj": 2 * tokens * c * c * piece_products(3, pieces)}
+    return {k: 8 * tokens * c * c * piece_products(pieces, pieces) for k in ("fc1", "fc2")}
+
+
+def retired_ops(name: str, tokens: int, c: int, dt, restated: bool = True) -> dict:
+    """Operations of one retired half's launch (see ops_ms). Restated, this
+    design's bound: retired_product_ops, all at the bf16 tensor-core rate.
+    Else PR 8's count: a product at the bf16 rate where both its operands
+    are bf16, every other one and the core at the f32 CUDA-core rate."""
+    import torch
+
+    if restated:
+        return {"bf16": sum(retired_product_ops(name, tokens, c, dt).values())}
+    rate, n = ("f32" if dt == torch.float32 else "bf16"), WINDOW * WINDOW
+    if name.startswith("swin_block_attention_fwd"):
+        ops = {"f32": 2 * tokens * c * c + 4 * tokens * n * c}
+        ops[rate] = ops.get(rate, 0) + 6 * tokens * c * c
+        return ops
+    return {rate: 16 * tokens * c * c}
+
+
+def retired_times(rec: dict, name: str, stages, batch: int) -> None:
+    """A timed retired half's extras, per forward of the model of ``stages``:
+    PR 8's bound beside the restated one (rec["f32_rate_bound_ms"]), and per
+    launch the TFLOP/s of each product (st["tflops"], piece products
+    counted, from its device ms)."""
+    import torch
+
+    dt = torch.bfloat16 if name.endswith("_bf16") else torch.float32
+    old_ms = 0.0
+    for st in rec["stages"]:
+        grid, c = stages[st["stage"] - 1][:2]
+        tokens = batch * grid * grid
+        old_ms += st["launches_per_forward"] * ops_ms(retired_ops(name, tokens, c, dt, False))
+        st["tflops"] = {k: ops / st["kernels_ms"][k] / 1e9
+                        for k, ops in retired_product_ops(name, tokens, c, dt).items()
+                        if st["kernels_ms"].get(k)}
+    rec["f32_rate_bound_ms"] = max(rec["bytes"] / H100_BYTES_PER_S * 1e3, old_ms)
+
+
+def composite_attention_branch(p, attn):
+    """The retired attention branch through torch's library calls, no grad
+    (its yardstick): F.linear in f32 (TF32 off) on the window-partitioned
+    map, q and k normalised (q also scaled) for F.scaled_dot_product_attention
+    in f32 with z as attn_mask, F.linear proj, F.layer_norm, the windows
+    reversed, in x's dtype."""
+    import torch
+    import torch.nn.functional as F
+
+    from hvt_torch.ops import window_attention as wa
+
+    x, wq, bq, scale, z, wp, bp, lns, lnb = attn
+    c, heads, grid = p["c"], p["heads"], p["grid"]
+    d, n = c // heads, WINDOW * WINDOW
+    xw = wa.window_partition(x.float(), WINDOW)
+    nwb = xw.shape[0]
+    q, k, v = F.linear(xw, wq.float(), bq).reshape(nwb, n, 3, heads, d).permute(2, 0, 3, 1, 4)
+    q = q * torch.rsqrt((q * q).sum(-1, keepdim=True) + 1e-24) * scale.reshape(1, heads, 1, 1)
+    k = k * torch.rsqrt((k * k).sum(-1, keepdim=True) + 1e-24)
+    zb = z.expand(nwb // z.shape[0], -1, -1, -1, -1).reshape(nwb, heads, n, n)
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=zb, scale=1.0)
+    y = F.layer_norm(F.linear(o.transpose(1, 2).reshape(nwb, n, c), wp.float(), bp), (c,), lns,
+                     lnb, 1e-5)
+    return wa.window_reverse(y, WINDOW, grid, grid).to(x.dtype)
+
+
+def composite_mlp_branch(mlp):
+    """The retired MLP branch through torch's library calls, no grad: F.linear
+    in f32 (TF32 off), F.gelu (exact), h rounded to W2's dtype, F.linear in
+    f32, F.layer_norm, in x's dtype."""
+    import torch.nn.functional as F
+
+    x, w1, b1, w2, b2, lns, lnb = mlp
+    h = F.gelu(F.linear(x.float(), w1.float(), b1)).to(w2.dtype).float()
+    return F.layer_norm(F.linear(h, w2.float(), b2), (x.shape[-1],), lns, lnb, 1e-5).to(x.dtype)
+
+
 def kernel_cases(p):
     """(name, kernel call, plain call, library call or None, bytes moved,
     operations) for one stage's inputs, with the arguments the model's
@@ -690,8 +815,7 @@ def kernel_cases(p):
     z_bytes = 4 * z.numel()
 
     # hvt's retired halves on the map its caller rolls, x and every weight in
-    # dt; a product counts at the bf16 rate only where both operands are bf16
-    # (qkv and the MLP's two in bf16), else at the f32 rate.
+    # dt; operations as the tensor cores run them (retired_ops).
     def retired_cases(dt):
         xd = (torch.roll(x, (-shift, -shift), (1, 2)) if shift else x).to(dt)
         wq, wp, w1, w2 = (p[k].to(dt) for k in ("wqkv", "wproj", "w1", "w2"))
@@ -699,17 +823,19 @@ def kernel_cases(p):
                 p["lnb"])
         mlp = (xd, w1, p["b1"], w2, p["b2"], p["lns"], p["lnb"])
         kw = {"window": WINDOW, "num_heads": heads}
-        rate, sfx = ("bf16", "_bf16") if dt == torch.bfloat16 else ("f32", "")
+        sfx = "_bf16" if dt == torch.bfloat16 else ""
         xs, ws = xd.element_size(), wq.element_size()
-        attn_ops = {"f32": 2 * tokens * c * c + 4 * tokens * n * c}
-        attn_ops[rate] = attn_ops.get(rate, 0) + 6 * tokens * c * c
+        composites["swin_block_attention_fwd" + sfx] = lambda: composite_attention_branch(p, attn)
+        composites["swin_block_mlp_fwd" + sfx] = lambda: composite_mlp_branch(mlp)
         return [
             ("swin_block_attention_fwd" + sfx, lambda: sbc.fused_attention_branch(*attn, **kw),
              lambda: sbc.fused_attention_branch_plain(*attn, **kw), None,
-             2 * xs * tokens * c + 4 * ws * c * c + 4 * 6 * c + z_bytes, attn_ops),
+             2 * xs * tokens * c + 4 * ws * c * c + 4 * 6 * c + z_bytes,
+             retired_ops("swin_block_attention_fwd", tokens, c, dt)),
             ("swin_block_mlp_fwd" + sfx, lambda: sbc.fused_mlp_branch(*mlp),
              lambda: sbc.fused_mlp_branch_plain(*mlp), None,
-             2 * xs * tokens * c + 8 * ws * c * c + 4 * 7 * c, {rate: 16 * tokens * c * c}),
+             2 * xs * tokens * c + 8 * ws * c * c + 4 * 7 * c,
+             retired_ops("swin_block_mlp_fwd", tokens, c, dt)),
         ]
 
     def packed_case(name, qx, library):
@@ -815,17 +941,18 @@ def kernel_records(timing: bool, stages=STAGES, batch: int = BATCH, names=FORWAR
                 st["library_ms"] = None if library is None else cuda_time_ms(library, iters=5)
                 if name in WA_FORWARDS:  # the wrapper's host time and the kernel's own device time
                     st["host_ms"], st["device_ms"] = host_device_ms(kern, kernels=("attention_fwd",))
-                if name in composites and stages is STAGES:
+                whole = stages is STAGES or name in RETIRED_CASES
+                if name in composites and whole:
                     with torch.no_grad():
                         st["composite_ms"] = cuda_time_ms(composites[name], iters=10)
-                if name in FWD_SPLITS and stages is STAGES:
+                if name in FWD_SPLITS and whole:
                     # the call's host and device ms, its three kernels' device ms, and the
                     # design's byte floor: its round trips through device memory added
                     sub_kernels, extra = FWD_SPLITS[name]
                     st["host_ms"], st["device_ms"] = host_device_ms(kern)
                     st["kernels_ms"] = kernel_split(kern, sub_kernels, name)
-                    st["design_floor_ms"] = max((nbytes + extra * p["x"].numel()) / H100_BYTES_PER_S,
-                                                flops / H100_BF16_FLOPS) * 1e3
+                    st["design_floor_ms"] = max(
+                        (nbytes + extra * p["x"].numel()) / H100_BYTES_PER_S * 1e3, ops_ms(flops))
             else:
                 got = kern().float()
                 torch.cuda.synchronize()
@@ -1597,8 +1724,13 @@ def retired_op_run() -> dict:
     and in bf16 (x and every weight). The launch counts are zeroed just
     before and read just after: 12 of each branch per dtype and none of any
     other kernel. Each shape's stream is held against the same chain on the
-    plain versions (TOL of the branch in that dtype)."""
+    plain versions (TOL of the branch in that dtype). The chains then run
+    once more under torch.profiler: every device kernel of the hvt library
+    they launch must be one of RETIRED_DEVICE_KERNELS."""
+    import re
+
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from hvt_torch.ops import swin_block_cuda as sbc
     from hvt_torch.ops import window_attention_cuda as wac
@@ -1648,8 +1780,25 @@ def retired_op_run() -> dict:
                                  f"stage {stage + 1}, shift {shift}, {dt}")
         stages.append({"stage": stage + 1, "shift": shift, "blocks": blocks, "dtype": str(dt),
                        "max_abs_err": err})
+    # the same chains once more under the profiler: the device kernels the
+    # branches ran, none of them an FFMA product or the CUDA-core core
+    # (attention_fwd_kernel, which SwinV2's head dim 32 and N = 49 never take)
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for dt, stage, shift, blocks, p, _ in outs:
+            chain(p, dt, blocks, sbc.fused_attention_branch, sbc.fused_mlp_branch)
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        name = re.search(r"hvt::(\w+)", e.key)
+        if name:
+            us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+            kernels[name.group(1)] = kernels.get(name.group(1), 0.0) + us / 1e3
+    stray = sorted(set(kernels) - set(RETIRED_DEVICE_KERNELS))
+    if stray:
+        raise AssertionError(f"the retired halves' chain ran {stray}, not only "
+                             f"{RETIRED_DEVICE_KERNELS}")
     return {"launches": {name: launches[name] for name in RETIRED}, "seconds": seconds,
-            "stages": stages}
+            "stages": stages, "device_kernels_ms": kernels}
 
 
 # ---------------------------------------------------------------------------
@@ -2313,6 +2462,30 @@ def main(argv=None) -> int:
             "per launch (kernel/plain ms): " + "; ".join(
                 f"stage {st['stage']} shift {st['shift']} x{st['launches_per_forward']} "
                 f"{st['ms']:.3f}/{st['plain_ms']:.3f}" for st in rec["stages"]))
+    base_retired = kernel_records(True, BASE_STAGES, BATCH, RETIRED_CASES)
+    sb_smem = _build.load("swin_block").hvt_swin_block_smem
+    core_smem = _build.load("window_attention").hvt_window_attention_fwd_smem(1)
+    log(f"  retired halves (csrc/swin_block.cu; dynamic shared memory per block: products "
+        f"{sb_smem(96)} B at 96 columns, {sb_smem(128)} B at 128; the core's f32 "
+        f"attention_fwd_tc_kernel {core_smem} B): " + "; ".join(f"{r['kernel']} {r['registers']} regs, {r['static_smem']} B static, "
+                            f"spills {r['spill_stores']}/{r['spill_loads']} B"
+                            for r in ptxas.get("swin_block", [])))
+    retired_timed = {"SwinV2-T": (timed, STAGES), "SwinV2-B": (base_retired, BASE_STAGES)}
+    for label, (recs, stages) in retired_timed.items():
+        for name in RETIRED_CASES:
+            rec = recs[name]
+            retired_times(rec, name, stages, BATCH)
+            log(f"  {label} {name}: {rec['ms']:.4f} ms a forward at batch {BATCH} (host "
+                f"{rec['host_ms']:.4f} / device {rec['device_ms']:.4f} in the call), plain "
+                f"{rec['plain_ms']:.4f}, composite {rec['composite_ms']:.4f}; bound "
+                f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; PR 8's f32-rate bound "
+                f"{rec['f32_rate_bound_ms']:.4f}), the design's floor "
+                f"{rec['design_floor_ms']:.4f}; "
+                f"device ms by kernel: {split_line(rec['kernels_ms'])}; per launch ms and TFLOP/s "
+                "by product (piece products counted): " + "; ".join(
+                    f"stage {st['stage']} shift {st['shift']} x{st['launches_per_forward']} "
+                    f"{st['ms']:.3f}, " + "/".join(f"{k} {v:.0f}" for k, v in st["tflops"].items())
+                    for st in rec["stages"]))
     for r in routes:
         log(f"  fuse={r['fuse']}: forward {r['forward_ms']:.3f} ms on kernels, "
             f"{r['forward_plain_ms']:.3f} ms on plain versions; engine step "
@@ -2553,6 +2726,9 @@ def main(argv=None) -> int:
     log(f"[12] the retired fused halves as their caller composes them: SwinV2-T's 12 block "
         f"shapes at batch {BATCH}, f32 and bf16")
     retired_run = retired_op_run()
+    log("  the branches' device kernels (profiled, ms over the 24 launches): " + "; ".join(
+        f"{k} {v:.3f}" for k, v in sorted(retired_run["device_kernels_ms"].items(),
+                                          key=lambda kv: -kv[1])))
     for name, (source, replaces) in RETIRED.items():
         rec, check = timed[name], checked[name]
         kernels.append({
@@ -2593,7 +2769,12 @@ def main(argv=None) -> int:
               "routes_train": routes_train,
               "retired": {"op_run": retired_run,
                           "swinv2_base_check": {k: base_checked[k]["stages"]
-                                                for k in RETIRED_CASES}},
+                                                for k in RETIRED_CASES},
+                          "timed": {label: {k: {f: recs[k][f] for f in (
+                              "ms", "plain_ms", "composite_ms", "bound_ms", "f32_rate_bound_ms",
+                              "design_floor_ms", "host_ms", "device_ms", "kernels_ms", "stages")}
+                              for k in RETIRED_CASES}
+                              for label, (recs, _) in retired_timed.items()}},
               "train": train,
               "bn_stages": {k: {"check": bn_checked[k]["stages"], "timed": bn_timed[k]["stages"]}
                             for k in BN_KERNELS},

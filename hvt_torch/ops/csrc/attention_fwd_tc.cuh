@@ -1,5 +1,7 @@
 // The cosine attention core's forward for one (window, head) on tensor
-// cores: the math of cosine_attention (common.cuh),
+// cores, and attention_fwd_tc_kernel, which runs it per (chunk of images,
+// window id, head) for window_attention.cu's two forwards and the retired
+// attention branch (swin_block.cu): the math of cosine_attention (common.cuh),
 //   out = softmax(scale·q̂k̂ᵀ + z)·v,   q̂ = q·rsqrt(Σq² + 1e-24), k̂ likewise,
 // with both products on mma.sync.m16n8k16 (bf16 operands, f32 accumulation).
 //
@@ -214,6 +216,78 @@ __device__ __forceinline__ void attention_window_fwd_tc(bf16* __restrict__ x,
             *reinterpret_cast<const uint4*>(ot + swz32(row, 8 * ch));
     }
   }
+}
+
+// ---- the kernel: one block per (chunk of images, window id, head)
+
+template <typename T>
+constexpr size_t tc_fwd_smem_bytes() {
+  return sizeof(bf16) * 2 * tc_pieces<T>() * 3 * kTcTile +
+         sizeof(float) * (kTcRows * kTcZLd + 2 * kTcRows);
+}
+
+inline bool tc_forward_takes(int n, int d) { return n >= 1 && n <= kTcRows && d == kTcHeadDim; }
+
+// q, k, v in the layout `in`, out in `ot`; window w (< nwb) has window id
+// w mod nwz, and the chunk's image b covers window b·nwz + wz; rows 16-byte
+// aligned. Blocks an SM: as many as shared memory admits, 5 in bf16 (43.5 KB
+// each; the cap leaves 102 registers a thread, ptxas uses 80-88) and 2 in
+// f32 (92.7 KB each; 140 registers).
+template <typename T, bool kRoundP>
+__global__ void __launch_bounds__(kTcThreads, sizeof(T) == 4 ? 2 : 5)
+attention_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                        HeadTiles in, const float* __restrict__ scale, const float* __restrict__ z,
+                        int nwz, T* __restrict__ out, HeadTiles ot, int nwb, int per_block, int n,
+                        int heads) {
+  constexpr int kParts = tc_pieces<T>(), kStage = kParts * 3 * kTcTile;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* const stages = reinterpret_cast<bf16*>(tc_smem);
+  float* const zs = reinterpret_cast<float*>(stages + 2 * kStage);
+  float* const inv = zs + kTcRows * kTcZLd;
+
+  const int wz = blockIdx.x % nwz, chunk = blockIdx.x / nwz, h = blockIdx.y;
+  // the images b with window b·nwz + wz < nwb (the last image may be partial)
+  const int b0 = chunk * per_block, b_end = min(b0 + per_block, (nwb - wz + nwz - 1) / nwz);
+  if (b0 >= b_end) return;
+  const float sc = scale[h];
+  tc_load_z(zs, z + ((size_t)wz * heads + h) * n * n, n);  // the same for every window of the chunk
+  tc_zero_pad_rows(stages, 2 * kParts * 3, n);  // the loads below write rows < n only
+  auto load = [&](int b, int s) {
+    const int w = b * nwz + wz;
+    tc_load_tiles<T, 3>(stages + s * kStage, n, [&](int op, int row) {
+      return (op == 0 ? q : op == 1 ? k : v) + in.at(w, h, row);
+    });
+  };
+
+  load(b0, 0);
+  for (int b = b0; b < b_end; ++b) {
+    const int s = (b - b0) & 1;
+    // the other buffer was last read in the previous window, which ended in a barrier
+    if (b + 1 < b_end) load(b + 1, s ^ 1);
+    else cp_async_commit();
+    cp_async_wait<1>();  // window b's group has landed
+    __syncthreads();
+    const int w = b * nwz + wz;
+    attention_window_fwd_tc<T, kRoundP>(stages + s * kStage, inv, n, sc, zs,
+                                        [&](int row) { return out + ot.at(w, h, row); });
+    __syncthreads();  // this window's buffers and inv are free
+  }
+}
+
+template <typename T, bool kRoundP>
+int launch_attention_fwd_tc(const void* q, const void* k, const void* v, HeadTiles in,
+                            const float* scale, const float* z, int nwz, void* out, HeadTiles ot,
+                            int nwb, int n, int heads, int per_block, int chunks,
+                            cudaStream_t stream) {
+  const size_t smem = tc_fwd_smem_bytes<T>();
+  auto kernel = attention_fwd_tc_kernel<T, kRoundP>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(chunks * nwz, heads), kTcThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), in, scale, z,
+      nwz, static_cast<T*>(out), ot, nwb, per_block, n, heads);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace hvt

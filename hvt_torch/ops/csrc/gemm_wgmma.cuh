@@ -1,6 +1,7 @@
 // The warpgroup-MMA core of the MLP half's two products, fc1 and fc2 (mlp.cu:
-// the forward's, and the backward's recompute of h and the pre-LN sum), on
-// Hopper's `wgmma`, the one way to the card's full bf16 tensor-core rate.
+// the forward's, and the backward's recompute of h and the pre-LN sum), and
+// of the retired block halves' four (swin_block.cu, through wg_gemm_slices),
+// on Hopper's `wgmma`, the one way to the card's full bf16 tensor-core rate.
 //
 // out = A·Bᵀ for A (rows, K) and B (n_rows, K) bf16, both K-contiguous with
 // row stride K (x or h, and a weight in nn.Linear's (out, in) layout). A
@@ -157,27 +158,23 @@ __device__ __forceinline__ unsigned char* wg_smem_base() {
   return wg_raw + ((1024 - (smem_u32(wg_raw) & 1023)) & 1023);
 }
 
-// acc = A·Bᵀ for the block's tile (rows m0.., BN columns n0..), the calling
-// thread's share of its warpgroup's 64 rows (wg_pairs). Every thread of the
-// block calls it. On return every product has completed, but the other
-// warpgroup's may not: wait on the block before reusing the ring.
-template <int BN>
-__device__ __forceinline__ void wg_gemm_nt(float (&acc)[BN / 2], const bf16* __restrict__ A,
-                                           int rows, const bf16* __restrict__ B, int n_rows, int K,
-                                           int m0, int n0) {
+// acc = the sum of `steps` K slices of a block's kWgBM x BN tile, the
+// calling thread's share of its warpgroup's 64 rows (wg_pairs):
+// load(s, stage) fills `stage` with slice s (cp.async, kWgBM swizzled rows
+// of A at stage, BN of B at stage + kWgBM·128; the ring commits and waits).
+// Every thread of the block calls it. On return every product has
+// completed, but the other warpgroup's may not: wait on the block before
+// reusing the ring.
+template <int BN, typename LoadFn>
+__device__ __forceinline__ void wg_gemm_slices(float (&acc)[BN / 2], int steps, LoadFn load) {
   unsigned char* const sm = wg_smem_base();
   constexpr int kA = kWgBM * 128, kStage = (kWgBM + BN) * 128;
-  const int wg = threadIdx.x >> 7, steps = (K + kWgBK - 1) / kWgBK;
-  auto load = [&](int s, int st) {
-    unsigned char* d = sm + st * kStage;
-    wg_load_slice<kWgBM>(d, A, K, m0, rows, s * kWgBK, K);
-    wg_load_slice<BN>(d + kA, B, K, n0, n_rows, s * kWgBK, K);
-  };
+  const int wg = threadIdx.x >> 7;
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int s = 0; s < kWgStages - 1; ++s) {
-    if (s < steps) load(s, s);
+    if (s < steps) load(s, sm + s * kStage);
     cp_async_commit();
   }
   for (int s = 0; s < steps; ++s) {
@@ -185,7 +182,7 @@ __device__ __forceinline__ void wg_gemm_nt(float (&acc)[BN / 2], const bf16* __r
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();  // ... for every thread; every warpgroup is done with slice s − 1
     const int next = s + kWgStages - 1;
-    if (next < steps) load(next, next % kWgStages);
+    if (next < steps) load(next, sm + (next % kWgStages) * kStage);
     cp_async_commit();
     const uint32_t a = smem_u32(sm + (s % kWgStages) * kStage) + wg * 64 * 128;
     const uint32_t b = smem_u32(sm + (s % kWgStages) * kStage + kA);
@@ -198,6 +195,18 @@ __device__ __forceinline__ void wg_gemm_nt(float (&acc)[BN / 2], const bf16* __r
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     wg_fence_acc(acc);
   }
+}
+
+// acc = A·Bᵀ for the block's tile (rows m0.., BN columns n0..), as
+// wg_gemm_slices: K in ceil(K / kWgBK) slices of A's and B's rows.
+template <int BN>
+__device__ __forceinline__ void wg_gemm_nt(float (&acc)[BN / 2], const bf16* __restrict__ A,
+                                           int rows, const bf16* __restrict__ B, int n_rows, int K,
+                                           int m0, int n0) {
+  wg_gemm_slices<BN>(acc, (K + kWgBK - 1) / kWgBK, [&](int s, unsigned char* d) {
+    wg_load_slice<kWgBM>(d, A, K, m0, rows, s * kWgBK, K);
+    wg_load_slice<BN>(d + kWgBM * 128, B, K, n0, n_rows, s * kWgBK, K);
+  });
 }
 
 // fn(row, col, v0, v1) for each pair of neighbouring columns of the calling

@@ -36,88 +36,16 @@
 // from the packed rows no head-split transpose ever reaches device memory)
 // arrive by cp.async in 16-byte pieces into one of two buffers, so the next
 // window loads while this one computes (f32 inputs are split into three bf16
-// pieces on the way in, synchronously). The per-window math is
-// attention_window_fwd_tc (attention_fwd_tc.cuh): both products on mma.sync
-// with the normalisation folded out, the softmax in registers, P·v from the
-// logit accumulators, f32 accuracy from bf16 pieces. Device memory sees
-// the inputs once, the output once (rounded once, at the store), and z once
-// a block. Shared memory: 43,520 B a block in bf16, 92,672 B in f32. The
-// wrapper (window_attention_cuda.tc_forward_chunks) sizes the chunks.
+// pieces on the way in, synchronously). The kernel and its launcher live in
+// attention_fwd_tc.cuh, which the retired block halves (swin_block.cu)
+// share; the per-window math is attention_window_fwd_tc there: both products
+// on mma.sync with the normalisation folded out, the softmax in registers,
+// P·v from the logit accumulators, f32 accuracy from bf16 pieces. Device
+// memory sees the inputs once, the output once (rounded once, at the
+// store), and z once a block. Shared memory: 43,520 B a block in bf16,
+// 92,672 B in f32. The wrapper (window_attention_cuda.tc_forward_chunks)
+// sizes the chunks.
 #include "attention_fwd_tc.cuh"
-
-namespace hvt {
-
-template <typename T>
-constexpr size_t tc_fwd_smem_bytes() {
-  return sizeof(bf16) * 2 * tc_pieces<T>() * 3 * kTcTile +
-         sizeof(float) * (kTcRows * kTcZLd + 2 * kTcRows);
-}
-
-inline bool tc_forward_takes(int n, int d) { return n >= 1 && n <= kTcRows && d == kTcHeadDim; }
-
-// q, k, v in the layout `in`, out in `ot`; window w (< nwb) has window id
-// w mod nwz, and the chunk's image b covers window b·nwz + wz; rows 16-byte
-// aligned. Blocks an SM: as many as shared memory admits, 5 in bf16 (43.5 KB
-// each; the cap leaves 102 registers a thread, ptxas uses 80-88) and 2 in
-// f32 (92.7 KB each; 140 registers).
-template <typename T, bool kRoundP>
-__global__ void __launch_bounds__(kTcThreads, sizeof(T) == 4 ? 2 : 5)
-attention_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                        HeadTiles in, const float* __restrict__ scale, const float* __restrict__ z,
-                        int nwz, T* __restrict__ out, HeadTiles ot, int nwb, int per_block, int n,
-                        int heads) {
-  constexpr int kParts = tc_pieces<T>(), kStage = kParts * 3 * kTcTile;
-  extern __shared__ __align__(16) unsigned char tc_smem[];
-  bf16* const stages = reinterpret_cast<bf16*>(tc_smem);
-  float* const zs = reinterpret_cast<float*>(stages + 2 * kStage);
-  float* const inv = zs + kTcRows * kTcZLd;
-
-  const int wz = blockIdx.x % nwz, chunk = blockIdx.x / nwz, h = blockIdx.y;
-  // the images b with window b·nwz + wz < nwb (the last image may be partial)
-  const int b0 = chunk * per_block, b_end = min(b0 + per_block, (nwb - wz + nwz - 1) / nwz);
-  if (b0 >= b_end) return;
-  const float sc = scale[h];
-  tc_load_z(zs, z + ((size_t)wz * heads + h) * n * n, n);  // the same for every window of the chunk
-  tc_zero_pad_rows(stages, 2 * kParts * 3, n);  // the loads below write rows < n only
-  auto load = [&](int b, int s) {
-    const int w = b * nwz + wz;
-    tc_load_tiles<T, 3>(stages + s * kStage, n, [&](int op, int row) {
-      return (op == 0 ? q : op == 1 ? k : v) + in.at(w, h, row);
-    });
-  };
-
-  load(b0, 0);
-  for (int b = b0; b < b_end; ++b) {
-    const int s = (b - b0) & 1;
-    // the other buffer was last read in the previous window, which ended in a barrier
-    if (b + 1 < b_end) load(b + 1, s ^ 1);
-    else cp_async_commit();
-    cp_async_wait<1>();  // window b's group has landed
-    __syncthreads();
-    const int w = b * nwz + wz;
-    attention_window_fwd_tc<T, kRoundP>(stages + s * kStage, inv, n, sc, zs,
-                                        [&](int row) { return out + ot.at(w, h, row); });
-    __syncthreads();  // this window's buffers and inv are free
-  }
-}
-
-template <typename T, bool kRoundP>
-int launch_attention_fwd_tc(const void* q, const void* k, const void* v, HeadTiles in,
-                            const float* scale, const float* z, int nwz, void* out, HeadTiles ot,
-                            int nwb, int n, int heads, int per_block, int chunks,
-                            cudaStream_t stream) {
-  const size_t smem = tc_fwd_smem_bytes<T>();
-  auto kernel = attention_fwd_tc_kernel<T, kRoundP>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(chunks * nwz, heads), kTcThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), in, scale, z,
-      nwz, static_cast<T*>(out), ot, nwb, per_block, n, heads);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace hvt
 
 // dtype: 0 = bf16, 1 = f32 (qkv and out share it). Head dim 32 and N <= 64
 // run attention_fwd_tc_kernel, one block per (chunk k of images, window id,

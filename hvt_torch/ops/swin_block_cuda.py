@@ -1,4 +1,4 @@
-"""The retired mega-fused SwinV2 block halves, forward only, in f32.
+"""The retired mega-fused SwinV2 block halves, forward only, at f32 accuracy.
 
 Port of ``fused_attention_branch`` (hvt/ops/swin_block_pallas.py:160) and
 ``fused_mlp_branch`` (:244) as ``csrc/swin_block.cu``. hvt's fused block
@@ -32,6 +32,13 @@ attention core takes (``window_attention_cuda.unsupported``) and a hidden
 width that is a multiple of 32, and raises on anything else. It raises too
 where grad is enabled and an input requires it. A CPU x runs the plain
 version; nothing else selects between them.
+
+On the card every product runs on bf16 tensor cores with f32 accumulation:
+an f32 operand as three bf16 pieces, the piece products of order at most 2
+summed (``csrc/swin_block.cu``); the attention core on tensor cores at head
+dim 32 and N <= 64 (``csrc/attention_fwd_tc.cuh``). The wrapper allocates
+the chain's scratch: the pieces of f32 operands, qkv and the core's output
+(attention), h (MLP) and the f32 pre-LN sums.
 """
 
 from __future__ import annotations
@@ -45,9 +52,9 @@ from hvt_torch.ops import window_attention_cuda as wac
 
 P, I = _build.P, _build.I
 ATTN_KERNEL = _build.Kernel(
-    "swin_block", "hvt_swin_block_attention_fwd", [P] * 5 + [I] + [P] * 7 + [I] * 8 + [P]
+    "swin_block", "hvt_swin_block_attention_fwd", [P] * 5 + [I] + [P] * 9 + [I] * 10 + [P]
 )
-MLP_KERNEL = _build.Kernel("swin_block", "hvt_swin_block_mlp_fwd", [P] * 10 + [I] * 5 + [P])
+MLP_KERNEL = _build.Kernel("swin_block", "hvt_swin_block_mlp_fwd", [P] * 12 + [I] * 5 + [P])
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 
@@ -105,6 +112,13 @@ def _check(name: str, x: torch.Tensor, weights: dict, vectors: dict) -> None:
         raise ValueError(f"{name}: {why}")
 
 
+def _pieces(t: torch.Tensor, numel: int) -> torch.Tensor:
+    """Scratch for the three bf16 pieces of an f32 operand t of ``numel``
+    values, or a placeholder the kernel does not read where t is bf16."""
+    n = 3 * numel if t.dtype == torch.float32 else 1
+    return torch.empty(n, dtype=torch.bfloat16, device=t.device)
+
+
 def _f32(t: torch.Tensor) -> torch.Tensor:
     """A per-channel operand as the kernel reads it. The caller binds the
     result to a name until the launch: a temporary would be freed before the
@@ -135,16 +149,20 @@ def fused_attention_branch(x, wqkv, bqkv, scale, z, wproj, bproj, lns, lnb, *, w
         why = f"z {tuple(z.shape)} on {z.device}: (1 or {n_win}, {num_heads}, {n}, {n}) wanted"
     if why:
         raise ValueError(f"fused_attention_branch: {why}")
-    x, wqkv, wproj = x.contiguous(), wqkv.contiguous(), wproj.contiguous()
+    x, wqkv, wproj = (wac._aligned(t.contiguous()) for t in (x, wqkv, wproj))
     z = z.to(torch.float32).contiguous()
     t = b * h * w
     qkv = torch.empty((t, 3 * c), dtype=torch.float32, device=x.device)
     attn = torch.empty((t, c), dtype=torch.float32, device=x.device)
+    pieces = torch.empty((3, t, c), dtype=torch.bfloat16, device=x.device)  # x's, then attn's
+    w_pieces = _pieces(wqkv, 4 * c * c)
+    per_block, chunks = wac.tc_forward_chunks(t // n, z.shape[0], num_heads, torch.float32)
     bq, sc, bp, ls, lb = (_f32(v) for v in (bqkv, scale, bproj, lns, lnb))
     out = torch.empty_like(x)
     ATTN_KERNEL(x.data_ptr(), wqkv.data_ptr(), bq.data_ptr(), sc.data_ptr(), z.data_ptr(),
                 z.shape[0], wproj.data_ptr(), bp.data_ptr(), ls.data_ptr(), lb.data_ptr(),
-                qkv.data_ptr(), attn.data_ptr(), out.data_ptr(), b, h, w, c, num_heads, window,
+                qkv.data_ptr(), attn.data_ptr(), pieces.data_ptr(), w_pieces.data_ptr(),
+                out.data_ptr(), b, h, w, c, num_heads, window, per_block, chunks,
                 _DTYPES[x.dtype], _DTYPES[wqkv.dtype],
                 torch.cuda.current_stream(x.device).cuda_stream)
     return out
@@ -162,14 +180,18 @@ def fused_mlp_branch(x, w1, b1, w2, b2, lns, lnb) -> torch.Tensor:
            {"b1": (b1, hid), "b2": (b2, c), "lns": (lns, c), "lnb": (lnb, c)})
     if hid % 32:
         raise ValueError(f"fused_mlp_branch: hidden width {hid}: a multiple of 32 wanted")
-    x, w1, w2 = x.contiguous(), w1.contiguous(), w2.contiguous()
+    x, w1, w2 = (wac._aligned(t.contiguous()) for t in (x, w1, w2))
     t = x.numel() // c
-    hidden = torch.empty((t, hid), dtype=w2.dtype, device=x.device)
+    x_pieces = _pieces(x, t * c)
+    w_pieces = _pieces(w1, 2 * hid * c)
+    # h in w2's dtype: bf16, or the three bf16 pieces of f32 h
+    hidden = torch.empty((3 if w2.dtype == torch.float32 else 1, t, hid), dtype=torch.bfloat16,
+                         device=x.device)
     pre = torch.empty((t, c), dtype=torch.float32, device=x.device)
     v1, v2, ls, lb = (_f32(v) for v in (b1, b2, lns, lnb))
     out = torch.empty_like(x)
     MLP_KERNEL(x.data_ptr(), w1.data_ptr(), v1.data_ptr(), w2.data_ptr(), v2.data_ptr(),
-               ls.data_ptr(), lb.data_ptr(), hidden.data_ptr(), pre.data_ptr(), out.data_ptr(),
-               t, c, hid, _DTYPES[x.dtype], _DTYPES[w2.dtype],
-               torch.cuda.current_stream(x.device).cuda_stream)
+               ls.data_ptr(), lb.data_ptr(), x_pieces.data_ptr(), w_pieces.data_ptr(),
+               hidden.data_ptr(), pre.data_ptr(), out.data_ptr(), t, c, hid, _DTYPES[x.dtype],
+               _DTYPES[w2.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     return out

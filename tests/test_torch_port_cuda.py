@@ -19,8 +19,10 @@ accumulation order and the odd bf16 rounding flip: max|Δ| ≤ 1e-2·max|plain|
 for the attention core (1e-4 in f32), 2e-2 for the fused halves. The
 BatchNorm reductions run at ResNet-50 widths (C = 64 to 2048) against f64
 sums of the same inputs. The retired fused halves (``swin_block_cuda``)
-compute in f32 on both sides: 1e-4·max|plain| with f32 x and weights,
-2e-2 with bf16 ones (the output rounding). Each test states its tolerance.
+compute at f32 accuracy on both sides: 1e-4·max|plain| with f32 x, 2e-2
+with bf16 x (the output rounding), at every SwinV2-T and SwinV2-B block
+shape and each pair of x's and the weights' dtypes. Each test states its
+tolerance.
 """
 
 import math
@@ -840,30 +842,109 @@ def test_bn_train_through_the_kernels(cuda, monkeypatch, m, c):
         _close(a, b, tol, f"bn_train {name} ({m}, {c})")
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-def test_retired_fused_halves_kernels(cuda, dtype, tol):
-    """Both retired halves at SwinV2-T's stage 1 (56 x 56, C = 96, 3 heads)
-    on a map rolled by -3 with z per window, x and weights all in ``dtype``,
-    against their plain versions: f32 differs in summation order only, bf16
-    also in the output's rounding."""
-    c, heads, window, shift = 96, 3, 7, 3
-    p = _params(c, heads, 49, cuda, seed=5)
-    gen = torch.Generator(cuda).manual_seed(5)
-    x = torch.roll(torch.randn(4, 56, 56, c, device=cuda, generator=gen), (-shift, -shift), (1, 2))
-    mask = torch.as_tensor(wa.shift_attn_mask((56, 56), window, shift), device=cuda)
-    attn = (x.to(dtype), p["wqkv"].to(dtype), p["bqkv"], wac.attention_scale(p["ls"]).reshape(-1, 1, 1),
-            wac.merge_bias_mask(p["bias"], mask), p["wproj"].to(dtype), p["bproj"], p["lns"],
-            p["lnb"])
-    mlp = (x.to(dtype), p["w1"].to(dtype), p["b1"], p["w2"].to(dtype), p["b2"], p["lns"], p["lnb"])
+# Every block shape of SwinV2-T and SwinV2-B at 224 px, window 7: (grid, C,
+# heads, shift), each stage unshifted and, where the map holds more than one
+# window, shifted by 3.
+RETIRED_SHAPES = [(g, c, h, s) for g, c, h in ((56, 96, 3), (28, 192, 6), (14, 384, 12),
+                                               (7, 768, 24), (56, 128, 4), (28, 256, 8),
+                                               (14, 512, 16), (7, 1024, 32))
+                  for s in ((0, 3) if g > 7 else (0,))]
+# (x's dtype, the weights' dtype): the four pairs the kernels take
+RETIRED_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                  (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)]
+DT_IDS = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _retired_args(grid, c, heads, shift, xdt, wdt, seed, batch=2, window=7):
+    """Both halves' arguments on a map of ``batch`` images rolled by -shift,
+    z per window where shifted (bias + mask), else the bias broadcast: x in
+    xdt, the four weights in wdt, vectors f32."""
+    n = window * window
+    p = _params(c, heads, n, "cuda", seed=seed)
+    gen = torch.Generator("cuda").manual_seed(seed)
+    x = torch.randn(batch, grid, grid, c, device="cuda", generator=gen)
+    x = torch.roll(x, (-shift, -shift), (1, 2)) if shift else x
+    mask = (torch.as_tensor(wa.shift_attn_mask((grid, grid), window, shift), device="cuda")
+            if shift else None)
+    w = {k: p[k].to(wdt) for k in ("wqkv", "wproj", "w1", "w2")}
+    attn = (x.to(xdt), w["wqkv"], p["bqkv"], wac.attention_scale(p["ls"]).reshape(-1, 1, 1),
+            wac.merge_bias_mask(p["bias"], mask), w["wproj"], p["bproj"], p["lns"], p["lnb"])
+    mlp = (x.to(xdt), w["w1"], p["b1"], w["w2"], p["b2"], p["lns"], p["lnb"])
+    return attn, mlp
+
+
+@pytest.mark.parametrize("xdt,wdt", RETIRED_DTYPES,
+                         ids=[f"x{DT_IDS[a]}-w{DT_IDS[b]}" for a, b in RETIRED_DTYPES])
+@pytest.mark.parametrize("grid,c,heads,shift", RETIRED_SHAPES,
+                         ids=[f"{g}x{g}-C{c}-shift{s}" for g, c, _, s in RETIRED_SHAPES])
+def test_retired_fused_halves_kernels(cuda, grid, c, heads, shift, xdt, wdt):
+    """Both retired halves at every SwinV2-T and SwinV2-B block shape (batch
+    2), for each pair of x's and the weights' dtypes, against their plain
+    versions, one launch each. Both sides keep every product, the core and
+    the LayerNorm at f32 accuracy (the kernel from bf16 pieces on tensor
+    cores), so with f32 out they differ in summation order only: 1e-4·
+    max|plain|; bf16 out rounds once at the store: 2e-2. The MLP with f32 x
+    and bf16 weights rounds h to bf16 on both sides (the contract): where
+    the two sides' f32 sums of fc1 straddle a rounding boundary (about one
+    value in 7,000), h differs by one bf16 ulp, which moves its row's pre-LN
+    sum by |w2|·ulp(h), up to about 3e-3·max|plain| after the LayerNorm:
+    2e-3 there (the plain version on the CPU lands 1.7e-4 from hvt's kernel
+    at SwinV2-T's stage 4, tests/test_torch_port_swin_block_tc_plan.py)."""
+    attn, mlp = _retired_args(grid, c, heads, shift, xdt, wdt, seed=c + shift)
+    tol = 1e-4 if xdt == torch.float32 else 2e-2
+    mlp_tol = 2e-3 if (xdt, wdt) == (torch.float32, torch.bfloat16) else tol
     before = sb.ATTN_KERNEL.launches, sb.MLP_KERNEL.launches
-    got_attn = sb.fused_attention_branch(*attn, window=window, num_heads=heads)
+    got_attn = sb.fused_attention_branch(*attn, window=7, num_heads=heads)
     got_mlp = sb.fused_mlp_branch(*mlp)
     torch.cuda.synchronize()
     assert (sb.ATTN_KERNEL.launches, sb.MLP_KERNEL.launches) == (before[0] + 1, before[1] + 1)
-    assert got_attn.dtype == got_mlp.dtype == dtype
-    _close(got_attn, sb.fused_attention_branch_plain(*attn, window=window, num_heads=heads), tol,
-           f"fused_attention_branch {dtype}")
-    _close(got_mlp, sb.fused_mlp_branch_plain(*mlp), tol, f"fused_mlp_branch {dtype}")
+    assert got_attn.dtype == got_mlp.dtype == xdt
+    what = f"C={c} shift={shift} x {xdt} w {wdt}"
+    _close(got_attn, sb.fused_attention_branch_plain(*attn, window=7, num_heads=heads), tol,
+           f"fused_attention_branch {what}")
+    _close(got_mlp, sb.fused_mlp_branch_plain(*mlp), mlp_tol, f"fused_mlp_branch {what}")
+
+
+@pytest.mark.parametrize("xdt,wdt", RETIRED_DTYPES,
+                         ids=[f"x{DT_IDS[a]}-w{DT_IDS[b]}" for a, b in RETIRED_DTYPES])
+def test_retired_fused_halves_rerun_bit_identical(cuda, xdt, wdt):
+    """Two calls on the same inputs give the same bits, and so does a third on
+    an x that starts one element off a 16-byte boundary (the wrapper copies
+    it onto one): every sum runs in a fixed order (no atomics), at
+    SwinV2-T's shifted stage 1 and stage 4."""
+    for grid, c, heads, shift in ((56, 96, 3, 3), (7, 768, 24, 0)):
+        attn, mlp = _retired_args(grid, c, heads, shift, xdt, wdt, seed=7)
+        x = attn[0]
+        off = torch.empty(x.numel() + 1, dtype=xdt, device=cuda)[1:].view_as(x).copy_(x)
+        assert off.data_ptr() % 16
+        runs = [(sb.fused_attention_branch(xi, *attn[1:], window=7, num_heads=heads),
+                 sb.fused_mlp_branch(xi, *mlp[1:])) for xi in (x, x, off)]
+        torch.cuda.synchronize()
+        for run in runs[1:]:
+            assert torch.equal(runs[0][0], run[0]), f"attention C={c} x {xdt} w {wdt}"
+            assert torch.equal(runs[0][1], run[1]), f"MLP C={c} x {xdt} w {wdt}"
+
+
+@pytest.mark.parametrize("xdt,wdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16)], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c,heads,window", [(96, 6, 7), (96, 3, 8), (160, 5, 7), (1536, 48, 7)],
+                         ids=["headdim16", "window8", "C160", "C1536"])
+def test_retired_fused_halves_other_shapes(cuda, c, heads, window, xdt, wdt):
+    """Both halves beyond SwinV2-T's and SwinV2-B's shapes: head dim 16 (the
+    CUDA-core core, attention_fwd_kernel), window 8 (N = 64, the tensor-core
+    core's widest window), C = 160 (3C = 480, and C in tiles of 128 with
+    masked columns) and C = 1536 (swinv2_large's stage 4, one 7 x 7 window:
+    rows wider than the LayerNorm's register buckets). Tolerances as
+    test_retired_fused_halves_kernels'."""
+    grid = window if c == 1536 else 2 * window * (2 if window == 7 else 1)
+    shift = window // 2 if grid > window else 0
+    attn, mlp = _retired_args(grid, c, heads, shift, xdt, wdt, seed=c + window, window=window)
+    tol = 1e-4 if xdt == torch.float32 else 2e-2
+    got = sb.fused_attention_branch(*attn, window=window, num_heads=heads)
+    _close(got, sb.fused_attention_branch_plain(*attn, window=window, num_heads=heads), tol,
+           f"fused_attention_branch C={c} heads={heads} window={window} {xdt}")
+    got = sb.fused_mlp_branch(*mlp)
+    _close(got, sb.fused_mlp_branch_plain(*mlp), tol, f"fused_mlp_branch C={c} {xdt}")
 
 
 def test_retired_fused_halves_refuse_what_they_do_not_take(cuda):
