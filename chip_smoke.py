@@ -103,7 +103,25 @@ Phases, in order; any failure exits non-zero and prints no result:
      dtype and none of any other kernel; the stream after each block shape's
      blocks is held against the same chain on the plain versions; a profile
      of the chains names only the branches' tensor-core kernels, the f32
-     operands' pieces and the LayerNorm pass.
+     operands' pieces and the LayerNorm pass;
+ 13. evaluation at iNat21's eval batch: ``hvt_torch.main.main`` evaluates
+     SwinV2-T on fuse: true and on fuse: false, ResNet-50 (phase 9's
+     config, EMA) and SwinV2-B on fuse: true (224 px, 10,000 classes,
+     synthetic eval source of 4,100 images: two batches of 2,048 and a
+     padded tail of 4), each once with ``is_train: false`` (with tree-dist),
+     SwinV2-T fuse: true and ResNet-50 also for 4 training steps evaluated
+     at steps 0, 2 and 4: every evaluation counts exactly 4,100 images with
+     finite metrics; each forward kernel of the route launches 12 (SwinV2-T)
+     or 24 (SwinV2-B) times a batch and no backward kernel launches; the
+     first batch's logits within 5e-2·max|logit| of the plain path and the
+     metrics over the set within 1e-2 relative (cross-entropy) and 0.5%
+     (acc@1, acc@5; tree-dist 0.5% of its range) of it; the EMA run's
+     metrics move when its averaged weights are replaced by the live ones;
+     eval images/s (a warm evaluation on the host clock), eval ms a batch
+     (CUDA events) and peak memory per model.
+Phases 7 and 9-11 evaluate each training run on one synthetic batch before
+its first step and after its last (``eval_interval: 1dur``), outside the
+timed steps; those forwards' launches are counted apart.
 Phases 3, 5 and 6 also hold the SwinV2-B block shapes: the fused forwards
 (NHWC and windowed attention halves, MLP half) at batch 64 (eval, every
 stage unchunked), the fused backwards and the chunked MLP (forward and
@@ -350,6 +368,33 @@ BN_BF16_TOL = 1e-2
 # within its kernel's tolerance, feed one bf16 residual stream.
 LOGIT_TOL = 5e-2
 TOP1_MARGIN = 1e-2
+# Phase 13 and every evaluation of phases 7 and 9-11: launches of each
+# kernel per eval forward (a batch), by model and route. Eval routes as hvt
+# does in eval mode: the fused attention half on every fuse: true knob
+# (fuse_attn_train steers training only), SwinV2-B's stage-4 MLP unchunked
+# (mlp_route(1024, 4096, train=False) = 1); no backward kernel, and no
+# BatchNorm kernel (eval normalises with the running statistics).
+EVAL_PER_FORWARD = {
+    "swinv2_tiny fuse=True": {"mlp_half_fwd": 12, "attention_half_nhwc_fwd": 12},
+    "swinv2_tiny fuse=False": {"window_attention_packed_fwd": 12},
+    "resnet50": {},
+    "swinv2_base fuse=True": {"mlp_half_fwd": 24, "attention_half_nhwc_fwd": 24},
+}
+# Phase 13: iNat21's eval batch (eval_dataset.global_batch_size of
+# configs/pretrain/swinv2_tiny.yaml and inat21.yaml) over 4,100 images, two
+# full batches and a padded tail of 4; the plain path runs EVAL_CHUNK
+# images at a time (its f32 MLP hidden activations at 2048 images would take
+# 10-13 GB a tensor). Against the plain path: the first batch's logits within
+# LOGIT_TOL·max|logit|, cross-entropy within EVAL_CE_RTOL relative, acc@1 and
+# acc@5 within EVAL_ACC_ATOL absolute, tree-dist within EVAL_ACC_ATOL of its
+# range (0-7): each argmax flip moves acc by 1/4,100 and tree-dist by up to
+# 7/4,100, so these hold about 20 flips.
+EVAL_BATCH = 2048
+EVAL_IMAGES = 4100
+EVAL_CHUNK = 256
+EVAL_CE_RTOL = 1e-2
+EVAL_ACC_ATOL = 5e-3
+EVAL_TRAIN_STEPS = 4  # the runs that train: max_duration 4ba, eval_interval 2ba
 
 
 def log(msg: str) -> None:
@@ -1811,19 +1856,24 @@ def training_config(name: str = "swinv2_tiny", grad_accum=1, steps: int = TRAIN_
     """configs/pretrain/swinv2_tiny.yaml (adamw at lr 1e-3, wd 0.05, cosine
     schedule, smoothing 0.1, clip 5.0, drop path 0.2, fuse unset, grad_accum
     1) with model ``name`` on the synthetic train source at 10,000 classes,
-    batch TRAIN_BATCH, for ``steps`` steps with a 5-step warmup."""
+    batch TRAIN_BATCH, for ``steps`` steps with a 5-step warmup; evaluated
+    (one synthetic batch of TRAIN_BATCH) before the first step and after the
+    last (``eval_interval: 1dur``), outside the timed steps."""
     from hvt_torch import config as config_lib
 
     base = config_lib.load(machine=str(ROOT / "configs/machines/local.yaml"),
                            exps=[str(ROOT / "configs/pretrain/swinv2_tiny.yaml")])
     return config_lib.loads(config_lib.to_dict(base), {
         "max_duration": f"{steps}ba",
+        "eval_interval": "1dur",
         "grad_accum": grad_accum,
         "scheduler": {"args": {"t_warmup": "5ba"}},
         "model": {"name": name, "args": model_args},
         "train_dataset": {"source": "synthetic", "synthetic_num_classes": CLASSES,
                           "synthetic_num_samples": TRAIN_BATCH * steps,
                           "global_batch_size": TRAIN_BATCH},
+        "eval_dataset": {"source": "synthetic", "synthetic_num_classes": CLASSES,
+                         "synthetic_num_samples": TRAIN_BATCH, "global_batch_size": TRAIN_BATCH},
     })
 
 
@@ -1875,25 +1925,31 @@ def split_op_run() -> dict:
     return {"launches": launches, "wall_s": wall_s}
 
 
-def train_run(config, per_step: dict, label: str):
+def train_run(config, per_step: dict, label: str, eval_per_forward: dict):
     """Drive a training path through the entry point a user calls:
     hvt_torch.main.main(config), with every launch counter set to 0 just
     before and read just after; each kernel of ``per_step`` must launch that
-    many times a step, every other kernel never. With grad_accum auto the
-    Trainer's memory probe, one forward and backward at the batch, launches
-    as one more step. A CUDA event after each step times it; the losses are
-    read back after the run. Returns the record and the Trainer that ran."""
+    many times a step, and each of ``eval_per_forward`` that many times a
+    batch of the two evaluations (before the first step and after the last),
+    every other kernel never. With grad_accum auto the Trainer's memory
+    probe, one forward and backward at the batch, launches as one more
+    step. A CUDA event after each step times it; the losses are read back
+    after the run. Returns the record and the Trainer that ran."""
     import torch
 
     from hvt_torch import main as main_lib
 
     counters = kernel_counters()
-    events, losses, trainers = [], [], []
+    events, losses, trainers, evals = [], [], [], []
 
     class RecordingTrainer(main_lib.Trainer):
         def __init__(self, *args, **kwargs):
             super().__init__(*args, **kwargs)
             trainers.append(self)
+
+        def _evaluate_at(self, step):
+            evals.append(step)
+            return super()._evaluate_at(step)
 
     def on_step(step, stats):
         ev = torch.cuda.Event(enable_timing=True)
@@ -1927,12 +1983,18 @@ def train_run(config, per_step: dict, label: str):
     if len(losses) != steps or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{label}: training losses {losses}")
     probes = 1 if config.grad_accum == "auto" else 0
+    eval_batches = len(evals) * trainers[0].eval_loader.batches_per_epoch
+    if evals != [0, steps]:
+        raise AssertionError(f"{label}: evaluations at steps {evals}, expected [0, {steps}]")
     for name, n in launches.items():
-        want = per_step.get(name, 0) * (steps + probes)
+        want = (per_step.get(name, 0) * (steps + probes)
+                + eval_per_forward.get(name, 0) * eval_batches)
         if n != want:
             raise AssertionError(f"{name}: {n} launches in {steps} training steps "
-                                 f"(+{probes} probe) of {label}, expected {want}")
+                                 f"(+{probes} probe) and {eval_batches} eval batches of {label}, "
+                                 f"expected {want}")
     return {"label": label, "steps": steps, "batch": batch, "launches": launches,
+            "eval_steps": evals, "eval_batches": eval_batches,
             "probes": probes, "grad_accum": trainers[0].grad_accum, "losses": losses,
             "step_ms": step_ms, "step_ms_median": median_ms,
             "images_per_s": batch / median_ms * 1e3, "wall_s": wall_s,
@@ -2232,13 +2294,15 @@ def resnet_config(bn_pallas: bool, compute_dtype: str = "bfloat16"):
     DecoupledSGDW at lr 2.048, momentum 0.875, wd 5e-4, EMA 100ba/20ba,
     smoothing 0.08, clip 2.0 (bench.py's list, which leaves out BlurPool);
     10,000 classes on the synthetic source, RESNET_STEPS steps with a 5-step
-    warmup, activations in ``compute_dtype``."""
+    warmup, activations in ``compute_dtype``; evaluated (one synthetic batch
+    of RESNET_BATCH) before the first step and after the last."""
     from hvt_torch import config as config_lib
 
     base = config_lib.load(machine=str(ROOT / "configs/machines/local.yaml"),
                            exps=[str(ROOT / "configs/pretrain/inat21.yaml")])
     return config_lib.loads(config_lib.to_dict(base), {
         "max_duration": f"{RESNET_STEPS}ba",
+        "eval_interval": "1dur",
         "scheduler": {"args": {"t_warmup": "5ba"}},
         "model": {"args": {"stem_s2d": True, "bn_pallas": bn_pallas}},
         "optim": {"name": "DecoupledSGDW", "lr": 2.048, "momentum": 0.875, "weight_decay": 5e-4},
@@ -2250,6 +2314,8 @@ def resnet_config(bn_pallas: bool, compute_dtype: str = "bfloat16"):
         "train_dataset": {"source": "synthetic", "synthetic_num_classes": CLASSES,
                           "synthetic_num_samples": RESNET_BATCH * RESNET_STEPS,
                           "global_batch_size": RESNET_BATCH},
+        "eval_dataset": {"source": "synthetic", "synthetic_num_classes": CLASSES,
+                         "synthetic_num_samples": RESNET_BATCH, "global_batch_size": RESNET_BATCH},
         "precision": {"compute_dtype": compute_dtype},
     })
 
@@ -2276,6 +2342,246 @@ def check_ema(trainer, label: str) -> dict:
                              f"apart, finite {finite}")
     return {"decay": ema.cfg.decay, "updates": ema.updates, "params_apart": apart,
             "params": len(live), "stats_finite": finite}
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: evaluation at iNat21's eval batch
+# ---------------------------------------------------------------------------
+
+
+def eval_config(base, is_train: bool):
+    """``base`` (a phase 7, 9 or 10 config) with the synthetic eval source at
+    CLASSES classes, EVAL_IMAGES images and batch EVAL_BATCH; eval-only, or
+    trained for EVAL_TRAIN_STEPS steps and evaluated every 2 steps."""
+    from hvt_torch import config as config_lib
+
+    return config_lib.loads(config_lib.to_dict(base), {
+        "is_train": is_train,
+        "max_duration": f"{EVAL_TRAIN_STEPS}ba",
+        "eval_interval": "2ba",
+        "eval_dataset": {"source": "synthetic", "synthetic_num_classes": CLASSES,
+                         "synthetic_num_samples": EVAL_IMAGES, "global_batch_size": EVAL_BATCH},
+    })
+
+
+def eval_run(config, label: str, per_forward: dict, seed=None):
+    """Drive evaluation through the entry point a user calls,
+    hvt_torch.main.main(config), every launch counter set to 0 just before
+    and read just after: each kernel of ``per_forward`` launches that many
+    times an eval batch, plus its training launches where the run trains
+    (``train_per_step`` of the label's phase), and no other kernel; every
+    evaluation counts exactly EVAL_IMAGES images and finite metrics. ``seed``
+    draws every SwinV2 parameter (randomize_) once the Trainer is built.
+    CUDA events time each eval step; the host clock each evaluation. Then,
+    outside the main path, one more evaluation times the warm path. Returns
+    the record and the Trainer."""
+    import torch
+
+    from hvt_torch import main as main_lib
+
+    counters = kernel_counters()
+    trainers, evals, batches = [], [], []
+
+    class RecordingTrainer(main_lib.Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            if seed is not None:
+                randomize_(self.model, seed)
+            step = self.eval_step
+
+            def timed(*args):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = step(*args)
+                end.record()
+                batches.append((start, end, out["count"]))
+                return out
+
+            self.eval_step = timed
+            trainers.append(self)
+
+        def _evaluate_at(self, step):
+            before = {n: c.launches for n, c in counters.items()}
+            first = len(batches)
+            t0 = time.perf_counter()
+            metrics = super()._evaluate_at(step)
+            evals.append({"step": step, "wall_s": time.perf_counter() - t0, "metrics": metrics,
+                          "batches": (first, len(batches)),
+                          "launches": {n: c.launches - before[n] for n, c in counters.items()}})
+            return metrics
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    with swapped(main_lib, Trainer=RecordingTrainer):
+        metrics = main_lib.main(config)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    trainer = trainers[0]
+    n_batches = trainer.eval_loader.batches_per_epoch
+    want_steps = [0] if not config.is_train else [0, 2, EVAL_TRAIN_STEPS]
+    if [e["step"] for e in evals] != want_steps:
+        raise AssertionError(f"{label}: evaluations at {[e['step'] for e in evals]}, "
+                             f"expected {want_steps}")
+    for e in evals:
+        lo, hi = e["batches"]
+        e["count"] = sum(float(b[2]) for b in batches[lo:hi])
+        e["batch_ms"] = [a.elapsed_time(b) for a, b, _ in batches[lo:hi]]
+        if e["count"] != EVAL_IMAGES or hi - lo != n_batches or not all(
+                math.isfinite(v) for v in e["metrics"].values()):
+            raise AssertionError(f"{label}: evaluation at step {e['step']} counted {e['count']} "
+                                 f"images in {hi - lo} batches, metrics {e['metrics']}")
+        for name, n in e["launches"].items():
+            if n != per_forward.get(name, 0) * n_batches:
+                raise AssertionError(f"{name}: {n} launches in the evaluation at step "
+                                     f"{e['step']} of {label}, expected "
+                                     f"{per_forward.get(name, 0) * n_batches}")
+    train_per_step = {"resnet50": {k: RESNET_BN_LAYERS for k in BN_KERNELS},
+                      "swinv2_tiny fuse=True": {k: 12 for k in TRAIN_KERNELS[True]}}
+    per_step = train_per_step.get(label, {}) if config.is_train else {}
+    steps = EVAL_TRAIN_STEPS if config.is_train else 0
+    for name, n in launches.items():
+        want = per_step.get(name, 0) * steps + per_forward.get(name, 0) * n_batches * len(evals)
+        if n != want:
+            raise AssertionError(f"{name}: {n} launches in {label} "
+                                 f"({'trained' if config.is_train else 'eval only'}), "
+                                 f"expected {want}")
+    if ("tree-dist" in metrics) == bool(config.is_train):  # an eval-only run's metric
+        raise AssertionError(f"{label}: metrics {sorted(metrics)} (eval only: "
+                             f"{not config.is_train})")
+    # the warm path, timed once more outside the main path
+    first = len(batches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = trainer.evaluate()
+    warm_s = time.perf_counter() - t0
+    batch_ms = sorted(a.elapsed_time(b) for a, b, _ in batches[first:])
+    rec = {"label": label, "is_train": bool(config.is_train), "launches": launches,
+           "evals": [{k: v for k, v in e.items() if k != "batches"} for e in evals],
+           "metrics": metrics, "warm_metrics": warm, "warm_wall_s": warm_s,
+           "images_per_s": EVAL_IMAGES / warm_s, "batch_ms": batch_ms,
+           "batch_ms_median": batch_ms[len(batch_ms) // 2],
+           "first_wall_s": evals[0]["wall_s"], "wall_s": wall_s, "peak_memory_gib": peak_gib}
+    log(f"  {label} ({'4 steps, evaluated at steps 0, 2, 4' if config.is_train else 'eval only'}): "
+        + "; ".join(f"step {e['step']}: {e['count']:.0f} images in {len(e['batch_ms'])} batches of "
+                    f"{EVAL_BATCH}, " + " ".join(f"{k} {v:.4f}" for k, v in e["metrics"].items())
+                    for e in evals)
+        + f"; warm evaluation {warm_s:.3f} s ({rec['images_per_s']:.1f} img/s), eval step "
+        f"{rec['batch_ms_median']:.2f} ms a batch (device, median of {len(batch_ms)}: "
+        + ", ".join(f"{v:.2f}" for v in batch_ms)
+        + f"); first evaluation {evals[0]['wall_s']:.3f} s; peak memory {peak_gib:.2f} GiB; launches { {k: v for k, v in launches.items() if v} }; "
+        f"{wall_s:.1f} s in all")
+    return rec, trainer
+
+
+def plain_eval_check(trainer, label: str, kernel_metrics: dict) -> dict:
+    """The eval path on the kernels (``kernel_metrics``, the Trainer's last
+    evaluation) against the plain path (the same eval step with the
+    kernels' plain versions, EVAL_CHUNK images at a time) on the Trainer's
+    eval weights: the first batch's logits, and the metrics over the whole
+    eval set (tolerances at EVAL_CE_RTOL)."""
+    import torch
+
+    from hvt_torch import metrics as metrics_lib
+    from hvt_torch.train import step as step_lib
+
+    params, stats = trainer.eval_params, trainer.eval_batch_stats
+    batches = trainer.eval_loader.epoch(0)
+    images, labels, mask = trainer._to_device(next(batches))
+    with torch.inference_mode():
+        logits = step_lib._eval_forward(trainer.model, params, stats,
+                                        trainer.eval_prep.normalize(images)).float()
+    sums, worst = {}, 0.0
+    with plain_versions():
+        for i, (images, labels, mask) in enumerate(
+                [(images, labels, mask)] + [trainer._to_device(b) for b in batches]):
+            for lo in range(0, EVAL_BATCH, EVAL_CHUNK):
+                part = slice(lo, lo + EVAL_CHUNK)
+                if i == 0:
+                    with torch.inference_mode():
+                        ref = step_lib._eval_forward(trainer.model, params, stats,
+                                                     trainer.eval_prep.normalize(images[part]))
+                    err = float((logits[part] - ref.float()).abs().max())
+                    worst = max(worst, err / float(ref.float().abs().max()))
+                for k, v in trainer.eval_step(params, stats, images[part], labels[part],
+                                              mask[part]).items():
+                    sums[k] = sums.get(k, 0.0) + float(v)
+    acc = metrics_lib.MetricAccumulator()
+    acc.update(sums)
+    plain = acc.compute()
+    tol = {k: EVAL_ACC_ATOL * (7 if k == "tree-dist" else 1) for k in kernel_metrics}
+    tol["cross-entropy"] = EVAL_CE_RTOL * abs(plain["cross-entropy"])
+    bad = [k for k in kernel_metrics if abs(kernel_metrics[k] - plain[k]) > tol[k]]
+    log(f"  {label}: kernel path vs plain path: first batch's logits within "
+        f"{worst:.2g}·max|logit| (tol {LOGIT_TOL}); metrics " + ", ".join(
+            f"{k} {kernel_metrics[k]:.5f} / {plain[k]:.5f}" for k in kernel_metrics)
+        + f" ({sums['count']:.0f} images on the plain path)")
+    if worst > LOGIT_TOL or bad or sums["count"] != EVAL_IMAGES:
+        raise AssertionError(f"{label}: the eval path disagrees with the plain path: logits "
+                             f"{worst}, metrics {bad}, count {sums['count']}")
+    return {"logits_rel_err": worst, "metrics": kernel_metrics, "plain_metrics": plain}
+
+
+def ema_eval_check(trainer, label: str) -> dict:
+    """The Trainer evaluates its EMA copy: with the averaged parameters and
+    running statistics replaced by the live ones, the metrics move."""
+    from hvt_torch.train import ema as ema_lib
+
+    ema = trainer.ema
+    on_ema = trainer.evaluate()
+    saved = ema.params, ema.batch_stats
+    ema.params, ema.batch_stats = dict(trainer.model.named_parameters()), ema_lib.batch_stats(
+        trainer.model)
+    try:
+        on_live = trainer.evaluate()
+    finally:
+        ema.params, ema.batch_stats = saved
+    moved = abs(on_live["cross-entropy"] - on_ema["cross-entropy"])
+    log(f"  {label}: EMA ({ema.updates} updates) cross-entropy {on_ema['cross-entropy']:.5f}, with "
+        f"the live weights in its place {on_live['cross-entropy']:.5f}")
+    if moved <= 1e-4 * abs(on_ema["cross-entropy"]):
+        raise AssertionError(f"{label}: replacing the EMA weights left the metrics at {on_ema}")
+    return {"ema": on_ema, "live": on_live}
+
+
+def evaluation_phase(card: str) -> dict:
+    """Phase 13: each model evaluated alone (``is_train: false``, with
+    tree-dist), held against the plain path; SwinV2-T on fuse: true and
+    ResNet-50 (EMA) also trained for 4 steps and evaluated at steps 0, 2
+    and 4; the EMA run's metrics come from the EMA weights."""
+    import torch
+
+    out = {}
+    models = (("swinv2_tiny fuse=True", lambda: training_config(fuse=True), 13, True),
+              ("swinv2_tiny fuse=False", lambda: training_config(fuse=False), 13, False),
+              ("resnet50", lambda: resnet_config(True), None, True),
+              ("swinv2_base fuse=True", lambda: training_config("swinv2_base", fuse=True), 13,
+               False))
+    for label, base, seed, trains in models:
+        rec, trainer = eval_run(eval_config(base(), False), label, EVAL_PER_FORWARD[label], seed)
+        rec["plain_check"] = plain_eval_check(trainer, label, rec["warm_metrics"])
+        del trainer
+        out[label] = {"eval_only": rec}
+        if trains:
+            rec, trainer = eval_run(eval_config(base(), True), label, EVAL_PER_FORWARD[label], seed)
+            if trainer.ema is not None:
+                rec["ema_check"] = ema_eval_check(trainer, label)
+            del trainer
+            out[label]["trained"] = rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    for label, recs in out.items():
+        rec = recs["eval_only"]
+        log(f"  {label}: eval {rec['images_per_s']:.1f} img/s (warm, host clock, {EVAL_IMAGES} "
+            f"images), {rec['batch_ms_median']:.2f} ms a batch of {EVAL_BATCH} (device), peak "
+            f"memory {rec['peak_memory_gib']:.2f} GiB, on {card}")
+    return out
 
 
 def ptxas_summary(logs: dict) -> dict:
@@ -2601,7 +2907,8 @@ def main(argv=None) -> int:
     for fuse in (False, True):
         label = f"fuse={fuse}"
         train[label], trainer = train_run(training_config(fuse=fuse),
-                                          {k: 12 for k in TRAIN_KERNELS[fuse]}, label)
+                                          {k: 12 for k in TRAIN_KERNELS[fuse]}, label,
+                                          EVAL_PER_FORWARD[f"swinv2_tiny fuse={fuse}"])
         del trainer
         train[label]["gradients"] = gradient_check(training_config(drop_path_rate=0.0, fuse=fuse),
                                                    label)
@@ -2638,7 +2945,8 @@ def main(argv=None) -> int:
         f"{RESNET_STEPS} steps (hvt_torch.main), bn_pallas true then false")
     resnet = {}
     resnet["bn_pallas=True"], trainer = train_run(
-        resnet_config(True), {k: RESNET_BN_LAYERS for k in BN_KERNELS}, "resnet50 bn_pallas=True")
+        resnet_config(True), {k: RESNET_BN_LAYERS for k in BN_KERNELS}, "resnet50 bn_pallas=True",
+        EVAL_PER_FORWARD["resnet50"])
     resnet["bn_pallas=True"]["ema"] = check_ema(trainer, "resnet50 bn_pallas=True")
     del trainer
     # In bf16 the paths' f32 sums, equal to ~1e-7, flip some bf16 BatchNorm
@@ -2652,7 +2960,8 @@ def main(argv=None) -> int:
         hold_gradients=False, path=exact_bn_reductions)
     resnet["bn_pallas=True"]["gradients"] = gradient_check(
         resnet_config(True, "float32"), "resnet50 bn_pallas=True f32", randomize=False)
-    resnet["bn_pallas=False"], trainer = train_run(resnet_config(False), {}, "resnet50 bn_pallas=False")
+    resnet["bn_pallas=False"], trainer = train_run(resnet_config(False), {},
+                                                   "resnet50 bn_pallas=False", {})
     resnet["bn_pallas=False"]["ema"] = check_ema(trainer, "resnet50 bn_pallas=False")
     del trainer
     for name, (source, replaces) in BN_KERNELS.items():
@@ -2668,7 +2977,8 @@ def main(argv=None) -> int:
     log(f"[10] training SwinV2-B on fuse: true at 224 px, {CLASSES} classes, batch {TRAIN_BATCH}, "
         f"{TRAIN_STEPS} steps (hvt_torch.main), grad_accum auto")
     base_train, trainer = train_run(training_config("swinv2_base", "auto", fuse=True),
-                                    BASE_TRAIN_PER_STEP, "swinv2_base fuse=True")
+                                    BASE_TRAIN_PER_STEP, "swinv2_base fuse=True",
+                                    EVAL_PER_FORWARD["swinv2_base fuse=True"])
     log(f"  grad_accum auto resolved to {trainer.grad_accum} for batch {TRAIN_BATCH} on {card}")
     if trainer.grad_accum != 1:
         raise AssertionError(f"grad_accum auto resolved to {trainer.grad_accum}, not 1")
@@ -2689,16 +2999,18 @@ def main(argv=None) -> int:
         f"batch {TRAIN_BATCH} (hvt_torch.main); hvt's window_attention op on split q, k, v")
     routes_train = {}
     mlp_pair = {"mlp_half_fwd": 12, "mlp_half_bwd": 12}
-    for label, knobs, steps, per_step in (
+    nhwc_eval = EVAL_PER_FORWARD["swinv2_tiny fuse=True"]  # eval runs no fuse_attn_train route
+    for label, knobs, steps, per_step, per_eval in (
             ("fuse_nhwc=False", {"fuse_nhwc": False}, TRAIN_STEPS,
-             {**mlp_pair, "attention_half_fwd": 12, "attention_half_bwd": 12}),
+             {**mlp_pair, "attention_half_fwd": 12, "attention_half_bwd": 12},
+             {"mlp_half_fwd": 12, "attention_half_fwd": 12}),
             ("fuse_resid=False", {"fuse_resid": False}, ROUTE_STEPS,
-             {**mlp_pair, "attention_half_nhwc_fwd": 12, "attention_half_nhwc_bwd": 12}),
+             {**mlp_pair, "attention_half_nhwc_fwd": 12, "attention_half_nhwc_bwd": 12}, nhwc_eval),
             ("fuse_attn_train=False fallback_xla=False",
              {"fuse_attn_train": False, "fallback_xla": False}, ROUTE_STEPS,
-             {**mlp_pair, "window_attention_packed_fwd": 12, BWD_KERNEL: 12})):
+             {**mlp_pair, "window_attention_packed_fwd": 12, BWD_KERNEL: 12}, nhwc_eval)):
         rec, trainer = train_run(training_config(fuse=True, steps=steps, **knobs), per_step,
-                                 f"fuse=True {label}")
+                                 f"fuse=True {label}", per_eval)
         del trainer
         if label != "fuse_attn_train=False fallback_xla=False":
             rec["gradients"] = gradient_check(
@@ -2738,7 +3050,13 @@ def main(argv=None) -> int:
             "bound_by": rec["bound_by"], "library_ms": None,
         })
 
+    log(f"[13] evaluation through hvt_torch.main at 224 px, {CLASSES} classes, batch "
+        f"{EVAL_BATCH}, {EVAL_IMAGES} images: SwinV2-T on both routes, ResNet-50 with EMA, "
+        "SwinV2-B on fuse: true")
+    evaluation = evaluation_phase(card)
+
     report = {"card": card, "batch": BATCH, "kernels": kernels, "routes": routes,
+              "evaluation": evaluation,
               "kernel_stages": {k: {"check": checked[k]["stages"], "timed": timed[k]["stages"]}
                                 for k in FORWARD_NAMES},
               "backward_stages": {"check": bwd_checked["stages"], "timed": bwd["stages"]},

@@ -6,7 +6,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import pathlib
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -17,9 +17,12 @@ IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".gif", ".webp", ".ppm", ".ti
 
 @dataclasses.dataclass(frozen=True)
 class DatasetInfo:
-    """num_classes: an int (flat) or per-tier counts (multitask)."""
+    """num_classes: an int (flat) or per-tier counts (multitask); tree_dists:
+    the class×class tree-distance matrix, built for eval-only runs
+    (``is_train: false``)."""
 
     num_classes: int | tuple[int, ...]
+    tree_dists: Optional[np.ndarray] = None
 
     @property
     def fine_grained_num_classes(self) -> int:

@@ -1,26 +1,35 @@
 """Datasets and the host-side loader — port of ``hvt/data/loader.py``.
 
-* Eval split: the dataset, its transform and the batch size
-  (:class:`EvalLoader`), which the serving path reads.
-* Train split: :class:`Loader` over the synthetic source, with hvt's batch
-  order for one process: a permutation seeded by (seed, epoch) when
-  shuffling, the tail dropped under ``drop_last``, a padded last batch with
-  a validity mask otherwise. A folder train source
-  needs the training transform (RandomResizedCrop, RandAugment, ColOut) and
-  raises until it is ported (ROADMAP.md queue 1, item 6).
+:class:`Loader` gives hvt's batch order for one process: a permutation
+seeded by (seed, epoch) when shuffling, the tail dropped under
+``drop_last``, a padded last batch with a validity mask otherwise, so eval
+metrics are exact at one static batch shape.
 
-Batches are built on the calling thread: a synthetic batch is a copy out of
-a 64-image pool, and the train step does not wait for the card, so the host
-builds the next batch while the card runs the last one.
+* Train split: the synthetic source. A folder train source needs the
+  training transform (RandomResizedCrop, RandAugment, ColOut) and raises
+  until it is ported (ROADMAP.md queue 1, item 6).
+* Eval split: the synthetic source or an image folder's ``val/``, never
+  shuffled, each image decoded through Pillow with ``EvalTransform`` (hvt's
+  native JPEG core is item 6 too). Evaluation and serving read it. An
+  eval-only run (``is_train: false``) also gets the tree-distance matrix.
+
+Synthetic batches are built on the calling thread (a copy out of a
+64-image pool); folder images are decoded by ``num_workers`` threads, as
+Pillow releases the interpreter lock while it decodes. The train and eval
+steps do not wait for the card, so the host builds the next batch while the
+card runs the last one.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator, Optional
 
 import numpy as np
+from PIL import Image
 
+from hvt_torch import hierarchy
 from hvt_torch.data import folder as folder_lib
 from hvt_torch.data import synthetic as synthetic_lib
 from hvt_torch.data import transforms as T
@@ -28,15 +37,6 @@ from hvt_torch.data import transforms as T
 _TRAIN_FOLDER = ("a folder train source needs the training transform (TrainTransform, "
                  "RandAugment, ColOut): ROADMAP.md queue 1, item 6; use "
                  "train_dataset.source: synthetic")
-
-
-@dataclasses.dataclass(frozen=True)
-class EvalLoader:
-    """The eval split's dataset, its transform and the batch size."""
-
-    dataset: object
-    transform: T.EvalTransform
-    batch_size: int
 
 
 @dataclasses.dataclass
@@ -49,17 +49,21 @@ class Batch:
 
 
 class Loader:
-    """Iterable over epochs of host-local batches of a synthetic dataset."""
+    """Iterable over epochs of host-local batches of a synthetic dataset, or
+    of a folder dataset decoded with ``transform``."""
 
-    def __init__(self, dataset: synthetic_lib.SyntheticDataset, local_batch_size: int, *,
-                 shuffle: bool = False, drop_last: bool = False, seed: int = 0):
-        if not isinstance(dataset, synthetic_lib.SyntheticDataset):
-            raise NotImplementedError(_TRAIN_FOLDER)
+    def __init__(self, dataset, local_batch_size: int, *,
+                 transform: Optional[T.EvalTransform] = None, shuffle: bool = False,
+                 drop_last: bool = False, seed: int = 0, num_workers: int = 1):
+        if not isinstance(dataset, synthetic_lib.SyntheticDataset) and transform is None:
+            raise ValueError("a folder dataset needs a transform to decode its images")
         self.dataset = dataset
+        self.transform = transform
         self.local_batch_size = local_batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.num_workers = max(1, num_workers)
         n = len(dataset)
         if drop_last:
             self.batches_per_epoch = n // local_batch_size
@@ -78,12 +82,22 @@ class Loader:
             order = order[: self.batches_per_epoch * self.local_batch_size]
         return order
 
+    def _decode(self, index: int) -> np.ndarray:
+        with Image.open(self.dataset.paths[index]) as img:
+            return self.transform(img)
+
+    def _images(self, idxs: np.ndarray) -> list[np.ndarray]:
+        if isinstance(self.dataset, synthetic_lib.SyntheticDataset):
+            return [self.dataset.load(int(i)) for i in idxs]
+        with ThreadPoolExecutor(self.num_workers) as pool:
+            return list(pool.map(self._decode, (int(i) for i in idxs)))
+
     def _make_batch(self, idxs: np.ndarray) -> Batch:
         bs, n_valid = self.local_batch_size, len(idxs)
-        first = self.dataset.load(int(idxs[0]))
-        images = np.zeros((bs, *first.shape), dtype=np.uint8)
-        for row, i in enumerate(idxs):
-            images[row] = self.dataset.load(int(i))
+        arrays = self._images(idxs)
+        images = np.zeros((bs, *arrays[0].shape), dtype=np.uint8)
+        for row, arr in enumerate(arrays):
+            images[row] = arr
         label_arr = self.dataset.labels[idxs]
         labels = np.zeros((bs, *label_arr.shape[1:]), dtype=np.int32)
         labels[:n_valid] = label_arr
@@ -100,7 +114,10 @@ class Loader:
 
 
 def build_dataset(config, is_train: bool = False):
-    """Scan/construct the split's dataset → (dataset, DatasetInfo)."""
+    """Scan/construct the split's dataset → (dataset, DatasetInfo). The
+    tree-distance matrix is built for eval-only runs (``config.is_train``
+    false): over the synthetic class names, or over the folder's train∪val
+    classes (cached in the folder)."""
     data_cfg = config.train_dataset if is_train else config.eval_dataset
     hierarchical = config.hierarchy.variant == "multitask"
     if data_cfg.source == "synthetic":
@@ -111,23 +128,28 @@ def build_dataset(config, is_train: bool = False):
             hierarchical=hierarchical,
             seed=config.seed,
         )
-    elif is_train:
+        tree_dists = None
+        if not config.is_train:
+            tree_dists = hierarchy.tree_dist_matrix(
+                [hierarchy.HierarchicalLabel.parse(name) for name in dataset.classes])
+        return dataset, folder_lib.DatasetInfo(dataset.num_classes, tree_dists)
+    if is_train:
         raise NotImplementedError(_TRAIN_FOLDER)
-    else:
-        path = config.machine.datasets[data_cfg.path]
-        dataset = folder_lib.scan_image_folder(path, "val", hierarchical=hierarchical)
-    return dataset, folder_lib.DatasetInfo(dataset.num_classes)
+    path = config.machine.datasets[data_cfg.path]
+    dataset = folder_lib.scan_image_folder(path, "val", hierarchical=hierarchical)
+    tree_dists = None if config.is_train else hierarchy.build_tree_dist_matrix(path)
+    return dataset, folder_lib.DatasetInfo(dataset.num_classes, tree_dists)
 
 
 def build_loader(config, is_train: bool = False):
-    """Config → (Loader, DatasetInfo) for the train split, or
-    (EvalLoader, DatasetInfo) for the eval split."""
+    """Config → (Loader, DatasetInfo) for the train split (shuffled as the
+    config says) or the eval split (never shuffled, decoded with
+    ``EvalTransform``)."""
     dataset, info = build_dataset(config, is_train)
-    if not is_train:
-        data_cfg = config.eval_dataset
-        transform = T.EvalTransform(crop_size=data_cfg.crop_size, resize_size=data_cfg.resize_size)
-        return EvalLoader(dataset, transform, data_cfg.global_batch_size), info
-    data_cfg = config.train_dataset
-    loader = Loader(dataset, data_cfg.global_batch_size,
-                    shuffle=data_cfg.shuffle, drop_last=data_cfg.drop_last, seed=config.seed)
+    data_cfg = config.train_dataset if is_train else config.eval_dataset
+    transform = None if is_train else T.EvalTransform(crop_size=data_cfg.crop_size,
+                                                      resize_size=data_cfg.resize_size)
+    loader = Loader(dataset, data_cfg.global_batch_size, transform=transform,
+                    shuffle=data_cfg.shuffle if is_train else False, drop_last=data_cfg.drop_last,
+                    seed=config.seed, num_workers=config.loader.num_workers)
     return loader, info

@@ -1,18 +1,22 @@
-"""Pretraining entry point of the port, with the CLI of hvt's ``main.py``.
+"""Pretraining and evaluation entry point of the port, with the CLI of
+hvt's ``main.py``.
 
     python -m hvt_torch.main --machine configs/machines/local.yaml \\
         --exp configs/pretrain/swinv2_tiny.yaml [more YAMLs] [--device cpu]
 
 Runs on the CUDA card unless ``--device cpu`` (and raises when there is no
-card). SwinV2 trains on both routes (``fuse: false`` through the packed
-window-attention kernel and its backward, ``fuse: true`` through the fused
-halves and theirs); ResNet trains with torch's BatchNorm, or with
-``model.args.bn_pallas: true`` through the BatchNorm reduction kernels, and
-with EMA where the recipe asks for it (configs/pretrain/inat21.yaml). The
-algorithms the port's train step does not run yet raise. Unlike hvt's
-``main.py`` it neither evaluates nor writes checkpoints (see
-:mod:`hvt_torch.train.loop`); it prints the train metrics of the last log
-window as one JSON line.
+card). As hvt's ``main.py``, it evaluates before training, at every
+``eval_interval`` and at the end, on the EMA copy where there is one, and
+with ``is_train: false`` only evaluates, adding the tree-distance metric;
+it prints the last eval metrics (acc@1, acc@5, cross-entropy, tree-dist)
+as one JSON line. SwinV2 trains and evaluates on both routes (``fuse:
+false`` through the packed window-attention kernel, and its backward in
+training; ``fuse: true`` through the fused halves); ResNet trains with
+torch's BatchNorm, or with ``model.args.bn_pallas: true`` through the
+BatchNorm reduction kernels, and with EMA where the recipe asks for it
+(configs/pretrain/inat21.yaml). The algorithms the port's train step does
+not run yet raise. Unlike hvt's ``main.py`` it writes no checkpoint and
+does not resume (see :mod:`hvt_torch.train.loop`).
 """
 
 from __future__ import annotations

@@ -108,6 +108,10 @@ HEAD_DIM = 32
 #: rows of a block of the MLP backwards' LayerNorm kernel, and of the tiled
 #: kernels' (and grad_tn's) output tiles
 LN_ROWS, TILE_ROWS = 64, 128
+#: CUDA's limit on gridDim.y, which holds the row tiles of the MLP's products
+#: (both directions, both sites) and of the attention half's forward proj:
+#: 8,388,480 token rows, a SwinV2 stage-1 map of 2,674 images at 224 px
+MAX_ROW_TILES = 65535
 #: the MLP forward's output tile widths: fc1's (its columns, 4C, are always a
 #: multiple), and those fc2 takes (``fc2_cols``)
 FC1_COLS = 128
@@ -420,8 +424,25 @@ def mlp_half_backward_plain(x, w1, b1, w2, b2, lns, g, tpi: int = 0, dp=None):
             _bf16(dout).t() @ _bf16(hidden), dout.sum(0), (gs * normed).sum(0), gs.sum(0))
 
 
+def rows_unsupported(t: int) -> str | None:
+    """Why the kernels that put TILE_ROWS-row tiles on gridDim.y cannot take
+    ``t`` token rows, or None."""
+    tiles = -(-t // TILE_ROWS)
+    if tiles > MAX_ROW_TILES:
+        return (f"{t} token rows make {tiles} row tiles of {TILE_ROWS}, past CUDA's gridDim.y "
+                f"limit of {MAX_ROW_TILES}: split the batch")
+    return None
+
+
+def _check_rows(name: str, t: int) -> None:
+    why = rows_unsupported(t)
+    if why:
+        raise ValueError(f"{name}: {why}")
+
+
 def _check_mlp(name, x, w1, tpi, dp, training: bool = False):
     t, c = x.shape
+    _check_rows(name, t)
     why = mlp_unsupported(c, w1.shape[0], 1, training)
     if x.dtype != torch.bfloat16 or w1.shape[1] != c or why:
         raise ValueError(f"{name}: x {tuple(x.shape)} {x.dtype}, w1 {tuple(w1.shape)}: "
@@ -603,6 +624,7 @@ def mlp_half_chunked_backward_plain(x, w1, b1, w2, lns, pre, g, nchunks: int):
 
 def _check_chunked(name, x, w1, nchunks):
     t, c = x.shape
+    _check_rows(name, t)
     why = chunked_unsupported(c, w1.shape[0], nchunks)
     if x.dtype != torch.bfloat16 or w1.shape[1] != c or why:
         raise ValueError(f"{name}: x {tuple(x.shape)} {x.dtype}, w1 {tuple(w1.shape)}, "
@@ -782,6 +804,7 @@ def attention_half_nhwc_forward(x, wqkv, bqkv, logit_scale, bias, mask, wproj, b
     name = "attention_half_nhwc"
     _check_attn(name, x, heads, window, dp, shift)
     b, h, w, c = x.shape
+    _check_rows(name, b * h * w)
     nw = (h // window) * (w // window)
     z = _merged_z(name, merge_bias_mask(bias, mask), x, heads, window * window, (1, nw))
     x = _aligned(x.contiguous())
@@ -959,6 +982,7 @@ def attention_half_forward(x, wqkv, bqkv, logit_scale, bias, mask, wproj, bproj,
     z = merge_bias_mask(bias, mask)
     _check_windows(name, x, heads, z.shape[0], wqkv, wproj)
     nwb, n, c = x.shape
+    _check_rows(name, nwb * n)
     z = _merged_z(name, z, x, heads, n, (z.shape[0],))
     x = _aligned(x.contiguous())
     wq, bq, wp, bp, ls, f32, _ = _attn_args(x, wqkv, bqkv, wproj, bproj, lns, None)

@@ -1,25 +1,29 @@
-"""The Trainer — port of ``Trainer.__init__`` and the step loop of
-``_fit_loop`` in ``hvt/train/loop.py``.
+"""The Trainer — port of ``Trainer.__init__``, ``evaluate`` and the step
+and evaluation schedule of ``fit`` in ``hvt/train/loop.py``.
 
-Assembles from a Config the train loader, the durations and lr schedule, the
-model (SwinV2 or ResNet, through the factory), the objective, the optimizer
-(with the model's no-decay names and gradient clipping), the EMA where the
-algorithms ask for it, and the train step, on one device (the CUDA card
-unless the caller asks for the CPU), and trains for ``max_duration``.
+Assembles from a Config the train and eval loaders, the durations and lr
+schedule, the model (SwinV2 or ResNet, through the factory), the objective,
+the optimizer (with the model's no-decay names and gradient clipping), the
+EMA where the algorithms ask for it, the train step and the eval step (with
+the tree-distance matrix of an eval-only run), on one device (the CUDA card
+unless the caller asks for the CPU).
 
-Not hvt's ``fit()`` yet: hvt evaluates before training and at every
-``eval_interval``, saves periodic and final checkpoints, resumes from
-``load_path``/``auto_resume``, and logs through its RunLogger. This
-Trainer does none of these (evaluation and checkpoints are ROADMAP.md
-queue 1, items 5 and 8): its ``fit()`` runs the train steps and returns the
-train metrics of the last log window. SAM, MixUp, CutMix, progressive
-resizing, device RandAugment/ColOut, a pretrained backbone and
-``grad_accum`` > 1 are refused, never ignored. ``grad_accum: auto`` is sized
-on the card as hvt sizes it (:mod:`hvt_torch.train.microbatch`: the peak
-memory of a probe forward and backward at the full batch against the card's
-memory) and resolves to 1 where the batch fits, and to 1 on the CPU, as
-hvt's does without a memory limit; where the batch would need more
-microbatches the Trainer raises, since gradient accumulation is not ported.
+``fit()`` follows hvt's: it evaluates before training (and returns at once
+when ``is_train`` is false), at every ``eval_interval`` in the Composer time
+grammar ("Nep" at epoch ends, "Nba" every N steps, "Fdur" as a fraction of
+``max_duration``) and at the end unless it just did, on the EMA copy where
+there is one; it prints one line per evaluation and per log window and
+returns the last eval metrics (the last window's train metrics stay in
+``train_metrics``). Unlike hvt's it saves no checkpoint, does not resume
+from ``load_path``/``auto_resume`` and has no RunLogger (ROADMAP.md queue 1,
+item 8). SAM, MixUp, CutMix, progressive resizing, device RandAugment/ColOut,
+a pretrained backbone and ``grad_accum`` > 1 are refused, never ignored.
+``grad_accum: auto`` is sized on the card as hvt sizes it
+(:mod:`hvt_torch.train.microbatch`: the peak memory of a probe forward and
+backward at the full batch against the card's memory) and resolves to 1
+where the batch fits, and to 1 on the CPU, as hvt's does without a memory
+limit; where the batch would need more microbatches the Trainer raises,
+since gradient accumulation is not ported.
 """
 
 from __future__ import annotations
@@ -58,7 +62,9 @@ class Trainer:
 
         # Data ------------------------------------------------------------
         self.train_loader, self.info = build_loader(config, is_train=True)
+        self.eval_loader, eval_info = build_loader(config, is_train=False)
         self.steps_per_epoch = self.train_loader.batches_per_epoch
+        self.tree_dists = eval_info.tree_dists
 
         # Durations / schedule -------------------------------------------
         self.total_steps = schedule_lib.parse_duration(config.max_duration).to_steps(
@@ -70,10 +76,13 @@ class Trainer:
         # Model / objective / optimizer ----------------------------------
         model = build_model(config, self.info.num_classes)
         if self.device.type == "cuda":
-            why = model.cuda_unsupported(config.train_dataset.crop_size, training=True)
+            why = model.cuda_unsupported(config.eval_dataset.crop_size, training=False)
+            if config.is_train:
+                why += [w for w in model.cuda_unsupported(config.train_dataset.crop_size,
+                                                          training=True) if w not in why]
             if why:
                 raise NotImplementedError(
-                    f"the CUDA kernels cannot train {config.model.name}: " + "; ".join(why))
+                    f"the CUDA kernels cannot run {config.model.name}: " + "; ".join(why))
         self.model = model.to(self.device)
         self.ema = ema_lib.Ema(self.algos.ema, self.model) if self.algos.ema else None
         self.objective = objectives_lib.build_objective(
@@ -83,6 +92,7 @@ class Trainer:
             grad_clip_norm=self.algos.grad_clip_norm,
             no_decay_substrings=self.model.no_weight_decay_substrings)
         self.prep = DevicePrep.from_config(config.train_dataset, config.precision)
+        self.eval_prep = DevicePrep.from_config(config.eval_dataset, config.precision)
         if config.grad_accum == "auto":
             grad_accum = self._auto_grad_accum()
             print(f"[{config.run_name}] grad_accum auto: {grad_accum}", flush=True)
@@ -99,8 +109,10 @@ class Trainer:
             grad_accum=grad_accum)
         self.train_step = step_lib.build_train_step(
             self.model, self.objective, self.optimizer, self.prep, self.settings, self.ema)
+        self.eval_step = step_lib.build_eval_step(self.model, self.eval_prep, self.tree_dists)
         # stochastic-depth draws; hvt folds the step into its key instead
         self.generator = torch.Generator(self.device).manual_seed(int(config.seed))
+        self.train_metrics: dict[str, float] = {}  # of the last log window
 
     def _auto_grad_accum(self) -> int:
         """``grad_accum: auto`` as hvt's ``_resolve_auto_grad_accum``: the
@@ -148,14 +160,45 @@ class Trainer:
                 torch.from_numpy(batch.labels).to(self.device),
                 torch.from_numpy(batch.mask).to(self.device))
 
+    def evaluate(self) -> dict[str, float]:
+        """hvt's metrics (acc@1, acc@5, cross-entropy, and tree-dist in an
+        eval-only run) over one pass of the eval loader, on ``eval_params``
+        and ``eval_batch_stats``. The batches' sums add up on the device;
+        one host sync reads them at the end."""
+        params, batch_stats = self.eval_params, self.eval_batch_stats
+        sums = None
+        for batch in self.eval_loader.epoch(0):
+            stats = self.eval_step(params, batch_stats, *self._to_device(batch))
+            sums = stats if sums is None else {k: sums[k] + v for k, v in stats.items()}
+        acc = metrics_lib.MetricAccumulator()
+        if sums is not None:
+            acc.update(dict(zip(sums, torch.stack(list(sums.values())).tolist())))
+        return acc.compute()
+
+    def _evaluate_at(self, step: int) -> dict[str, float]:
+        metrics = self.evaluate()
+        print(f"[{self.config.run_name}] eval at step {step}: "
+              + " ".join(f"{k} {v:.4g}" for k, v in metrics.items()), flush=True)
+        return metrics
+
     def fit(self, on_step: Optional[Callable[[int, dict], None]] = None) -> dict[str, float]:
-        """Train for ``max_duration`` from the model's current weights; returns the train
-        metrics (acc@1, acc@5, cross-entropy, loss, lr) of the last log
-        window. ``on_step(step, stats)`` is called after each step with its
-        device-side stats."""
+        """Evaluate, then (unless ``is_train`` is false) train for
+        ``max_duration`` from the model's current weights, evaluating at
+        every ``eval_interval`` and at the end, as hvt's ``fit``; returns the
+        last eval metrics. ``on_step(step, stats)`` is called after each
+        step with its device-side stats, before that step's evaluation."""
+        eval_metrics = self._evaluate_at(0)
+        if not self.config.is_train:
+            return eval_metrics
+        eval_every = schedule_lib.parse_duration(self.config.eval_interval)
+        eval_every_ep = eval_every_ba = None
+        if eval_every.unit == "ep":
+            eval_every_ep = max(1, int(eval_every.value))
+        else:
+            eval_every_ba = max(1, eval_every.to_steps(self.steps_per_epoch, self.total_steps))
+        last_eval_step = -1
         acc = metrics_lib.MetricAccumulator()
         window = None
-        last: dict[str, float] = {}
         step = 0
         for epoch in range(self.total_epochs):
             for batch in self.train_loader.epoch(epoch):
@@ -166,12 +209,23 @@ class Trainer:
                 step += 1
                 if on_step is not None:
                     on_step(step, stats)
+                if eval_every_ba is not None and step % eval_every_ba == 0:
+                    eval_metrics = self._evaluate_at(step)
+                    last_eval_step = step
                 if step % LOG_INTERVAL == 0 or step == self.total_steps:
                     acc.reset()
                     acc.update(window)  # the one host sync of the window
                     window = None
-                    last = acc.compute()
-                    last["lr"] = float(self.config.optim.lr * self.lr_multiplier(step))
+                    self.train_metrics = acc.compute()
+                    self.train_metrics["lr"] = float(
+                        self.config.optim.lr * self.lr_multiplier(step))
                     print(f"[{self.config.run_name}] step {step}/{self.total_steps} "
-                          + " ".join(f"{k} {v:.4g}" for k, v in last.items()), flush=True)
-        return last
+                          + " ".join(f"{k} {v:.4g}" for k, v in self.train_metrics.items()),
+                          flush=True)
+            due_ep = eval_every_ep is not None and (epoch + 1) % eval_every_ep == 0
+            if (due_ep or step >= self.total_steps) and last_eval_step != step:
+                eval_metrics = self._evaluate_at(step)
+                last_eval_step = step
+            if step >= self.total_steps:
+                break
+        return eval_metrics

@@ -1,4 +1,5 @@
-"""The train step — port of ``build_train_step`` in ``hvt/train/step.py``.
+"""The train, eval and feature steps — port of ``build_train_step``,
+``build_eval_step`` and ``build_feature_step`` in ``hvt/train/step.py``.
 
 One step: uint8 NHWC images → ``DevicePrep.normalize`` → (smoothed)
 one-hot targets → the model's train-mode forward (stochastic depth drawn
@@ -8,6 +9,12 @@ optimizer update → EMA of the parameters and running statistics → metric
 partial sums. hvt's step is one jitted XLA program; here it runs eagerly and
 never waits for the device, so the host prepares the next batch while the
 card works.
+
+The eval and feature steps run the model's eval-mode forward (its forward
+kernels on the card, no backward) under ``torch.inference_mode`` on the
+parameters and running statistics they are given, through
+``torch.func.functional_call``, as hvt's take ``params, batch_stats``:
+evaluating the EMA copy neither copies the model nor touches its weights.
 
 The port runs ``grad_accum == 1`` without SAM, MixUp, CutMix, progressive
 resizing or device RandAugment/ColOut: :func:`build_train_step` raises on
@@ -19,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from hvt_torch import metrics as metrics_lib
@@ -68,5 +76,49 @@ def build_train_step(model: torch.nn.Module, objective: Callable,
         stats["batches"] = torch.ones((), device=loss.device)
         stats["grad_norm"] = grad_norm
         return stats
+
+    return step
+
+
+def _eval_forward(model: torch.nn.Module, params: dict, batch_stats: dict, x: torch.Tensor,
+                  features_only: bool = False):
+    """The model's eval-mode forward on ``params`` and ``batch_stats`` in
+    place of its own, its train/eval mode put back after."""
+    training = model.training
+    model.eval()
+    try:
+        return torch.func.functional_call(model, {**params, **batch_stats}, (x,),
+                                          {"features_only": features_only})
+    finally:
+        model.train(training)
+
+
+def build_eval_step(model: torch.nn.Module, prep: device_prep.DevicePrep,
+                    tree_dists=None) -> Callable:
+    """Returns ``eval(params, batch_stats, images, labels, mask)`` → the
+    device scalars of ``metrics.batch_stats``: ``correct@1``, ``correct@5``,
+    ``ce_sum``, ``count`` and, given ``tree_dists`` (classes × classes),
+    ``tree_dist_sum``. The matrix is copied to the model's device once,
+    here."""
+    device = next(model.parameters()).device
+    td = None if tree_dists is None else torch.from_numpy(np.asarray(tree_dists)).to(device)
+
+    @torch.inference_mode()
+    def step(params: dict, batch_stats: dict, images: torch.Tensor, labels: torch.Tensor,
+             mask: torch.Tensor) -> dict[str, torch.Tensor]:
+        out = _eval_forward(model, params, batch_stats, prep.normalize(images))
+        return metrics_lib.batch_stats(out, labels, mask, tree_dists=td)
+
+    return step
+
+
+def build_feature_step(model: torch.nn.Module, prep: device_prep.DevicePrep) -> Callable:
+    """Returns ``features(params, batch_stats, images)`` → the frozen pooled
+    features (B, F) in f32, for the linear probe and SimpleShot."""
+
+    @torch.inference_mode()
+    def step(params: dict, batch_stats: dict, images: torch.Tensor) -> torch.Tensor:
+        return _eval_forward(model, params, batch_stats, prep.normalize(images),
+                             features_only=True).float()
 
     return step

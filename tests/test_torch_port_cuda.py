@@ -969,3 +969,154 @@ def test_retired_fused_halves_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="a multiple of 32"):
         sb.fused_mlp_branch(x[..., :80], p["w1"][:320, :80], p["b1"][:320], p["w2"][:80, :320],
                             p["b2"][:80], p["lns"][:80], p["lnb"][:80])
+
+
+# ---------------------------------------------------------------------------
+# Evaluation at iNat21's eval batch (2048 images at 224 px)
+# ---------------------------------------------------------------------------
+
+EVAL_BATCH = 2048
+STAGE1 = 56  # SwinV2's stage-1 map at 224 px: 3,136 tokens an image
+
+
+def _big(shape, device, seed):
+    gen = torch.Generator(device).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=device).bfloat16()
+
+
+@pytest.mark.parametrize("c", [96, 128])
+def test_mlp_forward_past_int32_elements(cuda, c):
+    """The MLP half's forward at SwinV2-T's and SwinV2-B's stage-1 width
+    over 2048 images (6,422,528 rows): h holds 2.47e9 (C = 96) or 3.29e9
+    (C = 128) elements, past 2³¹. The chain is row-wise, so whole images
+    are held against the plain version on their own: the first, the one
+    holding h's element 2³¹, and the last; 2e-2·max|plain| (the fused
+    halves' tolerance)."""
+    tpi = STAGE1 * STAGE1
+    t = EVAL_BATCH * tpi
+    assert t * 4 * c > 2**31
+    p = _params(c, c // 32, 49, cuda, seed=c + 1)
+    args = (p["w1"], p["b1"], p["w2"], p["b2"], p["lns"], p["lnb"])
+    x = _big((t, c), cuda, seed=c)
+    dp = torch.linspace(0.5, 1.5, EVAL_BATCH, device=cuda)
+    before = fh.MLP_KERNEL.launches
+    with torch.inference_mode():
+        got = fh.mlp_half(x, *args, tpi=tpi, dp=dp)
+    torch.cuda.synchronize()
+    assert fh.MLP_KERNEL.launches == before + 1
+    for img in (0, 2**31 // (4 * c) // tpi, EVAL_BATCH - 1):
+        rows = slice(img * tpi, (img + 1) * tpi)
+        ref = fh.mlp_half_plain(x[rows], *args, tpi=tpi, dp=dp[img:img + 1])
+        _close(got[rows], ref, 2e-2, f"mlp_half C={c} image {img} of {EVAL_BATCH}")
+
+
+@pytest.mark.parametrize("c", [96, 128])
+def test_attention_half_forward_at_the_eval_batch(cuda, c):
+    """The NHWC attention half's forward, shifted, at SwinV2-T's and
+    SwinV2-B's stage-1 shape over 2048 images: ao and the f32 pre-LN sum
+    span 2.47-3.29e9 bytes. Each image's windows are its own, so images 0,
+    1,000 and 2,047 are held against the plain version alone; 2e-2."""
+    heads, window, shift = c // 32, 7, 3
+    p = _params(c, heads, 49, cuda, seed=c + 2)
+    mask = torch.as_tensor(wa.shift_attn_mask((STAGE1, STAGE1), window, shift), device=cuda)
+    args = (p["wqkv"], p["bqkv"], p["ls"], p["bias"], mask, p["wproj"], p["bproj"], p["lns"],
+            p["lnb"], window, heads)
+    x = _big((EVAL_BATCH, STAGE1, STAGE1, c), cuda, seed=c + 3)
+    dp = torch.linspace(0.5, 1.5, EVAL_BATCH, device=cuda)
+    before = fh.ATTN_KERNEL.launches
+    with torch.inference_mode():
+        got = fh.attention_half_nhwc(x, *args, dp=dp, shift=shift)
+    torch.cuda.synchronize()
+    assert fh.ATTN_KERNEL.launches == before + 1
+    for img in (0, 1000, EVAL_BATCH - 1):
+        ref = fh.attention_half_nhwc_plain(x[img:img + 1], *args, dp=dp[img:img + 1], shift=shift)
+        _close(got[img:img + 1], ref, 2e-2, f"attention half C={c} image {img} of {EVAL_BATCH}")
+
+
+def test_packed_forward_past_int32_elements(cuda):
+    """The packed window attention at SwinV2-B's stage-1 shape (C = 128, 4
+    heads, window 7, shifted) over 2048 images: qkv (131,072 windows, 49,
+    384) holds 2.47e9 elements, past 2³¹. Whole images of 64 windows (the
+    mask's period) are held against the plain version alone: the first,
+    the one holding qkv's element 2³¹, and the last; 1e-2·max|plain|."""
+    c, heads, window, nw = 128, 4, 7, 64
+    n = window * window
+    nwb = EVAL_BATCH * nw
+    assert nwb * n * 3 * c > 2**31
+    p = _params(c, heads, n, cuda, seed=5)
+    mask = torch.as_tensor(wa.shift_attn_mask((STAGE1, STAGE1), window, 3), device=cuda)
+    qkv = _big((nwb, n, 3 * c), cuda, seed=6)
+    before = wac.KERNEL.launches
+    with torch.inference_mode():
+        got = wac.window_attention_packed(qkv, p["ls"], p["bias"], mask, num_heads=heads)
+    torch.cuda.synchronize()
+    assert wac.KERNEL.launches == before + 1
+    for img in (0, 2**31 // (n * 3 * c) // nw, EVAL_BATCH - 1):
+        w = slice(img * nw, (img + 1) * nw)
+        ref = wac.window_attention_packed_plain(qkv[w], p["ls"], p["bias"], mask, num_heads=heads)
+        _close(got[w], ref, 1e-2, f"packed attention image {img} of {EVAL_BATCH}")
+
+
+def test_rows_past_the_grid_limit_are_refused_before_a_launch(cuda):
+    """65,536 tiles of 128 rows are one more than gridDim.y holds: the MLP
+    and attention-half wrappers raise, naming the limit, and launch nothing."""
+    c = 32
+    p = _params(c, 1, 49, cuda, seed=7)
+    x = torch.zeros((fh.MAX_ROW_TILES * fh.TILE_ROWS + 1, c), dtype=torch.bfloat16, device=cuda)
+    before = fh.MLP_KERNEL.launches
+    with pytest.raises(ValueError, match="gridDim.y limit of 65535"):
+        fh.mlp_half_forward(x, p["w1"], p["b1"], p["w2"], p["b2"], p["lns"], p["lnb"])
+    assert fh.MLP_KERNEL.launches == before
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+def test_eval_step_kernel_path_matches_plain_path(cuda, monkeypatch, fuse):
+    """``build_eval_step`` on SwinV2-T (224 px, 100 classes, bf16, every
+    parameter drawn) over 8 images, one of them padding, with tree
+    distances: each forward kernel of the route launches 12 times and no
+    backward kernel; against the same step with the kernels' plain
+    versions: the count exact, ce_sum within 1e-2 relative, correct@1 and
+    correct@5 within one image, tree_dist_sum within one image's 7."""
+    import torch.nn as nn
+
+    from hvt_torch import hierarchy
+    from hvt_torch.data import DevicePrep
+    from hvt_torch.data.synthetic import synthetic_class_names
+    from hvt_torch.models import swinv2 as tswin
+    from hvt_torch.train import step as tstep
+
+    model = tswin.swinv2_tiny(100, fuse=fuse, drop_path_rate=0.2).to(cuda)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, prm in model.named_parameters():
+            owner = model.get_submodule(name.rsplit(".", 1)[0])
+            if isinstance(owner, nn.LayerNorm) and name.endswith("weight"):
+                prm.copy_(1.0 + 0.1 * torch.randn(prm.shape, generator=gen))
+            elif name.endswith("logit_scale"):
+                prm.copy_(math.log(10.0) + 0.3 * torch.randn(prm.shape, generator=gen))
+            else:
+                prm.copy_(torch.randn(prm.shape, generator=gen)
+                          * (prm[0].numel() ** -0.5 if prm.ndim > 1 else 0.1))
+    td = hierarchy.tree_dist_matrix([hierarchy.HierarchicalLabel.parse(s)
+                                     for s in synthetic_class_names(100)])
+    prep = DevicePrep(mean=(118.0, 122.4, 95.9), std=(60.7, 58.4, 63.0))
+    step = tstep.build_eval_step(model, prep, td)
+    images = torch.randint(0, 256, (8, 224, 224, 3), generator=gen, dtype=torch.uint8).to(cuda)
+    labels = torch.randint(0, 100, (8,), generator=gen, dtype=torch.int32).to(cuda)
+    mask = torch.tensor([1.0] * 7 + [0.0], device=cuda)
+    state = (dict(model.named_parameters()), {})
+    forward = ((fh.MLP_KERNEL, fh.ATTN_KERNEL) if fuse else (wac.KERNEL,))
+    backward = (fh.MLP_BWD_KERNEL, fh.ATTN_BWD_KERNEL, wac.BWD_KERNEL)
+    before = [k.launches for k in forward + backward]
+    got = {k: float(v) for k, v in step(*state, images, labels, mask).items()}
+    assert [k.launches - b for k, b in zip(forward + backward, before)] == (
+        [12] * len(forward) + [0] * len(backward))
+    monkeypatch.setattr(fh, "mlp_half_forward", fh.mlp_half_plain)
+    monkeypatch.setattr(fh, "attention_half_nhwc_forward", fh.attention_half_nhwc_plain)
+    monkeypatch.setattr(wac, "window_attention_packed", wac.window_attention_packed_plain)
+    ref = {k: float(v) for k, v in step(*state, images, labels, mask).items()}
+    assert got["count"] == ref["count"] == 7.0
+    assert abs(got["ce_sum"] - ref["ce_sum"]) <= 1e-2 * abs(ref["ce_sum"])
+    for k in ("correct@1", "correct@5"):
+        assert abs(got[k] - ref[k]) <= 1, k
+    assert abs(got["tree_dist_sum"] - ref["tree_dist_sum"]) <= 7

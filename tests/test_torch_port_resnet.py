@@ -297,6 +297,9 @@ def _train_layer(**model_args):
         "train_dataset": {"source": "synthetic", "crop_size": 32,
                           "synthetic_num_classes": NUM_CLASSES, "synthetic_num_samples": 8,
                           "global_batch_size": 4},
+        "eval_dataset": {"source": "synthetic", "crop_size": 32,
+                         "synthetic_num_classes": NUM_CLASSES, "synthetic_num_samples": 6,
+                         "global_batch_size": 4},
         "optim": {"name": "DecoupledSGDW", "lr": 0.2, "momentum": 0.875, "weight_decay": 5e-4},
         "scheduler": {"args": {"t_warmup": "1ba"}},
         "precision": {"compute_dtype": "float32"},
@@ -315,7 +318,8 @@ def test_trainer_holds_and_exposes_the_ema():
     init = {k: v.clone() for k, v in trainer.model.state_dict().items()}
     seen = []
     metrics = trainer.fit(on_step=lambda step, stats: seen.append(float(stats["loss_sum"])))
-    assert len(seen) == 3 and all(np.isfinite(seen)) and np.isfinite(metrics["loss"])
+    assert len(seen) == 3 and all(np.isfinite(seen)) and np.isfinite(trainer.train_metrics["loss"])
+    assert set(metrics) == {"acc@1", "acc@5", "cross-entropy"}  # the last evaluation's
     assert trainer.ema.updates == 2  # steps 0 and 2
     live = trainer.model.state_dict()
     assert trainer.eval_params is trainer.ema.params
@@ -341,9 +345,9 @@ def test_main_trains_resnet_with_ema_on_the_cpu(tmp_path):
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
-    assert "step 3/3" in lines[-2]
+    assert "step 3/3" in lines[-3] and "eval at step 3:" in lines[-2]
     metrics = json.loads(lines[-1])
-    assert np.isfinite(metrics["loss"]) and 0.0 <= metrics["acc@1"] <= 1.0
+    assert np.isfinite(metrics["cross-entropy"]) and 0.0 <= metrics["acc@1"] <= 1.0
 
 
 def test_inference_engine_serves_resnet_on_the_cpu():

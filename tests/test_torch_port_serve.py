@@ -213,7 +213,7 @@ def test_synthetic_data_and_eval_loader_match_hvt(hierarchical):
     jdataset, jinfo = jloader.build_dataset(jconfig.loads(tconfig.to_dict(cfg)), False)
     assert tuple(loader.dataset.classes) == tuple(jdataset.classes)
     assert info.num_classes == jinfo.num_classes
-    assert loader.batch_size == 4 and loader.transform.crop_size == 32
+    assert loader.local_batch_size == 4 and loader.transform.crop_size == 32
     np.testing.assert_array_equal(loader.dataset.load(2), jdataset.load(2))
 
 

@@ -228,6 +228,8 @@ def _layer(model="resnet_micro_bottleneck"):
         "model": {"name": model, "args": {}},
         "train_dataset": {"source": "synthetic", "crop_size": 32, "synthetic_num_classes": NUM_CLASSES,
                           "synthetic_num_samples": 8, "global_batch_size": 4},
+        "eval_dataset": {"source": "synthetic", "crop_size": 32, "synthetic_num_classes": NUM_CLASSES,
+                         "synthetic_num_samples": 4, "global_batch_size": 4},
         "optim": {"name": "adamw", "lr": 1e-3, "weight_decay": 0.05},
         "precision": {"compute_dtype": "float32"},
     }

@@ -431,6 +431,8 @@ def _train_layer(**dataset):
         "model": {"name": "swinv2_micro", "args": {"drop_path_rate": 0.2}},
         "train_dataset": {"source": "synthetic", "crop_size": 32, "synthetic_num_classes": NUM_CLASSES,
                           "synthetic_num_samples": 10, "global_batch_size": 4, **dataset},
+        "eval_dataset": {"source": "synthetic", "crop_size": 32, "synthetic_num_classes": NUM_CLASSES,
+                         "synthetic_num_samples": 6, "global_batch_size": 4},
         "optim": {"name": "adamw", "lr": 1e-3, "weight_decay": 0.05},
         "scheduler": {"args": {"t_warmup": "1ba"}},
         "precision": {"compute_dtype": "float32"},
@@ -471,19 +473,28 @@ def test_main_trains_on_the_cpu(tmp_path):
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
-    assert "step 2/2" in lines[-2]
+    assert "step 2/2" in lines[-3] and "eval at step 2:" in lines[-2]
     metrics = json.loads(lines[-1])
-    assert np.isfinite(metrics["loss"]) and 0.0 <= metrics["acc@1"] <= 1.0
+    assert np.isfinite(metrics["cross-entropy"]) and 0.0 <= metrics["acc@1"] <= 1.0
 
 
 def test_trainer_takes_its_steps_and_draws_drop_path():
-    seen = []
+    seen, trainers = [], []
+
+    class Recording(tmain.Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            trainers.append(self)
+
     layer = _train_layer()
     layer["max_duration"] = "3ba"  # 2 batches per epoch: crosses an epoch
-    metrics = tmain.main(tconfig.loads(layer), device="cpu",
-                         on_step=lambda step, stats: seen.append((step, float(stats["loss_sum"]))))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tmain, "Trainer", Recording)
+        metrics = tmain.main(tconfig.loads(layer), device="cpu",
+                             on_step=lambda step, stats: seen.append((step, float(stats["loss_sum"]))))
     assert [s for s, _ in seen] == [1, 2, 3] and all(np.isfinite([v for _, v in seen]))
-    assert set(metrics) == {"acc@1", "acc@5", "cross-entropy", "loss", "lr"}
+    assert set(metrics) == {"acc@1", "acc@5", "cross-entropy"}  # the last evaluation's
+    assert set(trainers[0].train_metrics) == {"acc@1", "acc@5", "cross-entropy", "loss", "lr"}
     model = tswin.swinv2_micro(NUM_CLASSES, drop_path_rate=0.2)
     rates = [getattr(model, n).drop_path_rate for n in model.layer_names if "block" in n]
     assert rates == pytest.approx([0.0, 0.2])  # hvt's np.linspace(0, rate, depth)
@@ -498,7 +509,7 @@ def test_main_trains_the_fused_route_on_the_cpu():
     layer["model"]["args"]["fuse"] = True
     metrics = tmain.main(tconfig.loads(layer), device="cpu",
                          on_step=lambda step, stats: seen.append(float(stats["loss_sum"])))
-    assert len(seen) == 2 and all(np.isfinite(seen)) and np.isfinite(metrics["loss"])
+    assert len(seen) == 2 and all(np.isfinite(seen)) and np.isfinite(metrics["cross-entropy"])
 
 
 def test_entry_point_without_a_card_raises(monkeypatch):
