@@ -118,7 +118,36 @@ Phases, in order; any failure exits non-zero and prints no result:
      (acc@1, acc@5; tree-dist 0.5% of its range) of it; the EMA run's
      metrics move when its averaged weights are replaced by the live ones;
      eval images/s (a warm evaluation on the host clock), eval ms a batch
-     (CUDA events) and peak memory per model.
+     (CUDA events) and peak memory per model;
+ 14. checkpoints on the card, through ``hvt_torch.main.main``: (a) SwinV2-T
+     on fuse: true (phase 7's recipe, drop path 0.2, batch 128) trains 6
+     steps straight, twice, then once more saving at steps 3 and 6, and a
+     new Trainer with ``load_path: ckpt://...:3`` trains steps 4-6: the
+     restored state equals the step-3 state bit for bit (parameters, Adam's
+     mu and nu, the count, the generator), and the resumed losses and final
+     state lie within 4 times the straight runs' own difference (exactly
+     equal where those are); 12 launches a step of each fused kernel;
+     (b) the same for ResNet-50 with EMA and bn_pallas (phase 9's config, 4
+     steps, saved at and resumed from step 2; the EMA copies and running
+     statistics included; 53 launches a step of each BatchNorm kernel);
+     (c) SIGTERM to this process after step 2 of a 6-step SwinV2-T run with
+     ``auto_resume``: ``fit`` returns, checkpoint 2 exists, the previous
+     handler is back, and the same config again resumes at 2 and ends at 6;
+     (d) ``hvt_torch.tools.export_torch`` writes (a)'s step-6 checkpoint as
+     a swin:// file that a SwinV2-T with 1,000 classes loads through a
+     strict PretrainedBackbone (backbone equal to the checkpoint's, head at
+     its init) and evaluates through the fused kernels; ``InferenceEngine``
+     with ``load_path`` at (b)'s checkpoint gives logits within
+     5e-2·max|logit| of the Trainer's eval forward on the EMA weights, and
+     with ``use_ema=False`` on the live weights; (e) the cost of a
+     checkpoint of SwinV2-T, ResNet-50 with EMA and SwinV2-B (phase 10's
+     model after one step): bytes on disk, ``save``'s blocking ms (host
+     clock and CUDA events), the background write's seconds and
+     ``restore``'s.
+Every Trainer writes its checkpoints and run log under a temporary
+``machine.save_root``, emptied at the end of each run or phase and removed
+at exit; the Trainers' own lines (the RunLogger's config and records) go to
+chiprun_out/trainer_log.txt.
 Phases 7 and 9-11 evaluate each training run on one synthetic batch before
 its first step and after its last (``eval_interval: 1dur``), outside the
 timed steps; those forwards' launches are counted apart.
@@ -153,9 +182,13 @@ import gc
 import http.client as http_client
 import json
 import math
+import os
 import pathlib
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -395,10 +428,51 @@ EVAL_CHUNK = 256
 EVAL_CE_RTOL = 1e-2
 EVAL_ACC_ATOL = 5e-3
 EVAL_TRAIN_STEPS = 4  # the runs that train: max_duration 4ba, eval_interval 2ba
+# Phase 14: SwinV2-T (fuse: true, phase 7's recipe) trains CKPT_STEPS steps,
+# saved at CKPT_AT and resumed from it; ResNet-50 (phase 9's, EMA) trains
+# RESNET_CKPT_STEPS, saved at and resumed from RESNET_CKPT_AT; SIGTERM at
+# SIGTERM_AT. A resumed run's losses and final state must lie within
+# SPREAD_FACTOR times the two straight runs' own difference (exactly equal
+# where the straight runs are), the loss's floor one part in LOSS_FLOOR
+# where the straight runs differ at all.
+CKPT_STEPS = 6
+CKPT_AT = 3
+RESNET_CKPT_STEPS = 4
+RESNET_CKPT_AT = 2
+SIGTERM_AT = 2
+SPREAD_FACTOR = 4.0
+LOSS_FLOOR = 1e-6
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_RUNS: list[pathlib.Path] = []  # the save_root of every Trainer of this script
+
+
+def runs_root() -> pathlib.Path:
+    """A temporary ``machine.save_root`` for every run: the Trainer writes its
+    checkpoints and run log there (SwinV2-B's final save is about 1.2 GB);
+    ``clear_runs`` empties it at each phase's end, ``main`` removes it."""
+    if not _RUNS:
+        _RUNS.append(pathlib.Path(tempfile.mkdtemp(prefix="hvt-chip-smoke-")))
+    return _RUNS[0]
+
+
+def clear_runs() -> None:
+    if _RUNS:
+        for child in _RUNS[0].iterdir():
+            shutil.rmtree(child) if child.is_dir() else child.unlink()
+
+
+@contextlib.contextmanager
+def trainer_output():
+    """The Trainers' own stdout (the RunLogger's config and records) sent
+    to chiprun_out/trainer_log.txt, so that this script's lines stay
+    readable."""
+    with open(OUT_DIR / "trainer_log.txt", "a") as f, contextlib.redirect_stdout(f):
+        yield
 
 
 def card_line() -> str:
@@ -1866,6 +1940,8 @@ def training_config(name: str = "swinv2_tiny", grad_accum=1, steps: int = TRAIN_
     return config_lib.loads(config_lib.to_dict(base), {
         "max_duration": f"{steps}ba",
         "eval_interval": "1dur",
+        "machine": {"save_root": str(runs_root())},
+        "save": {"wandb": False},  # the card's machine has the wandb package, and no network
         "grad_accum": grad_accum,
         "scheduler": {"args": {"t_warmup": "5ba"}},
         "model": {"name": name, "args": model_args},
@@ -1966,10 +2042,11 @@ def train_run(config, per_step: dict, label: str, eval_per_forward: dict):
     for c in counters.values():
         c.launches = 0
     t0 = time.perf_counter()
-    with swapped(main_lib, Trainer=RecordingTrainer):
+    with swapped(main_lib, Trainer=RecordingTrainer), trainer_output():
         metrics = main_lib.main(config, on_step=on_step)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
+    clear_runs()
     launches = {name: c.launches for name, c in counters.items()}
     losses = [float(v) for v in losses]
     step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]  # step 2 onwards
@@ -2084,7 +2161,10 @@ def profile_train_step(config, names: dict) -> dict:
 
     from hvt_torch.train.loop import Trainer
 
-    trainer = Trainer(config)
+    with trainer_output():
+        trainer = Trainer(config)
+    trainer.close()  # only its train step runs here
+    clear_runs()
     batch = next(trainer.train_loader.epoch(0))
     for _ in range(2):
         trainer.train_step(*trainer._to_device(batch), trainer.generator)
@@ -2288,12 +2368,12 @@ def bn_records(timing: bool) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def resnet_config(bn_pallas: bool, compute_dtype: str = "bfloat16"):
+def resnet_config(bn_pallas: bool, compute_dtype: str = "bfloat16", steps: int = RESNET_STEPS):
     """configs/pretrain/inat21.yaml less ProgressiveResizing, with bench.py's
     R50 settings (bench.py:285-338): batch RESNET_BATCH, stem_s2d,
     DecoupledSGDW at lr 2.048, momentum 0.875, wd 5e-4, EMA 100ba/20ba,
     smoothing 0.08, clip 2.0 (bench.py's list, which leaves out BlurPool);
-    10,000 classes on the synthetic source, RESNET_STEPS steps with a 5-step
+    10,000 classes on the synthetic source, ``steps`` steps with a 5-step
     warmup, activations in ``compute_dtype``; evaluated (one synthetic batch
     of RESNET_BATCH) before the first step and after the last."""
     from hvt_torch import config as config_lib
@@ -2301,8 +2381,10 @@ def resnet_config(bn_pallas: bool, compute_dtype: str = "bfloat16"):
     base = config_lib.load(machine=str(ROOT / "configs/machines/local.yaml"),
                            exps=[str(ROOT / "configs/pretrain/inat21.yaml")])
     return config_lib.loads(config_lib.to_dict(base), {
-        "max_duration": f"{RESNET_STEPS}ba",
+        "max_duration": f"{steps}ba",
         "eval_interval": "1dur",
+        "machine": {"save_root": str(runs_root())},
+        "save": {"wandb": False},
         "scheduler": {"args": {"t_warmup": "5ba"}},
         "model": {"args": {"stem_s2d": True, "bn_pallas": bn_pallas}},
         "optim": {"name": "DecoupledSGDW", "lr": 2.048, "momentum": 0.875, "weight_decay": 5e-4},
@@ -2312,7 +2394,7 @@ def resnet_config(bn_pallas: bool, compute_dtype: str = "bfloat16"):
             {"cls": "GradientClipping", "args": {"clipping_type": "norm", "clipping_threshold": 2.0}},
         ],
         "train_dataset": {"source": "synthetic", "synthetic_num_classes": CLASSES,
-                          "synthetic_num_samples": RESNET_BATCH * RESNET_STEPS,
+                          "synthetic_num_samples": RESNET_BATCH * steps,
                           "global_batch_size": RESNET_BATCH},
         "eval_dataset": {"source": "synthetic", "synthetic_num_classes": CLASSES,
                          "synthetic_num_samples": RESNET_BATCH, "global_batch_size": RESNET_BATCH},
@@ -2417,10 +2499,11 @@ def eval_run(config, label: str, per_forward: dict, seed=None):
     for c in counters.values():
         c.launches = 0
     t0 = time.perf_counter()
-    with swapped(main_lib, Trainer=RecordingTrainer):
+    with swapped(main_lib, Trainer=RecordingTrainer), trainer_output():
         metrics = main_lib.main(config)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
+    clear_runs()
     launches = {name: c.launches for name, c in counters.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     trainer = trainers[0]
@@ -2581,6 +2664,363 @@ def evaluation_phase(card: str) -> dict:
         log(f"  {label}: eval {rec['images_per_s']:.1f} img/s (warm, host clock, {EVAL_IMAGES} "
             f"images), {rec['batch_ms_median']:.2f} ms a batch of {EVAL_BATCH} (device), peak "
             f"memory {rec['peak_memory_gib']:.2f} GiB, on {card}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: checkpoints, resume, preemption and weights on the card
+# ---------------------------------------------------------------------------
+
+
+def with_changes(config, **change):
+    from hvt_torch import config as config_lib
+
+    return config_lib.loads(config_lib.to_dict(config), change)
+
+
+def ckpt_run(config, label: str, per_step: dict, eval_per_forward: dict,
+             capture_at=None, signal_at=None):
+    """Drive ``hvt_torch.main.main(config)`` with every launch counter 0
+    just before and read just after: each kernel of ``per_step`` launches
+    that many times a step taken, each of ``eval_per_forward`` that many
+    times an eval batch, every other kernel never. ``capture_at``: the
+    Trainer's state copied to the host after that step (before its save);
+    ``signal_at``: a SIGTERM sent to this process after that step. Returns
+    the record (each step's loss as a host float), the Trainer (its state
+    right after construction, any restore included, in ``initial``) and the
+    captured state."""
+    import torch
+
+    from hvt_torch import main as main_lib
+    from hvt_torch.train import checkpoint as ckpt_lib
+
+    counters = kernel_counters()
+    trainers, losses, evals, captured = [], [], [], {}
+
+    class RecordingTrainer(main_lib.Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.initial = ckpt_lib.to_host(self.state_dict())
+            trainers.append(self)
+
+        def _evaluate_at(self, step):
+            evals.append(step)
+            return super()._evaluate_at(step)
+
+    def on_step(step, stats):
+        losses.append(stats["loss_sum"])
+        if step == capture_at:
+            captured.update(ckpt_lib.to_host(trainers[0].state_dict()))
+        if step == signal_at:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    with swapped(main_lib, Trainer=RecordingTrainer), trainer_output():
+        metrics = main_lib.main(config, on_step=on_step)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    trainer = trainers[0]
+    start = trainer.initial["step"]
+    steps = trainer.step - start
+    eval_batches = len(evals) * trainer.eval_loader.batches_per_epoch
+    losses = [float(v) for v in losses]
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{label}: {steps} steps, losses {losses}")
+    for name, n in launches.items():
+        want = per_step.get(name, 0) * steps + eval_per_forward.get(name, 0) * eval_batches
+        if n != want:
+            raise AssertionError(f"{name}: {n} launches in {label} ({steps} steps, "
+                                 f"{eval_batches} eval batches), expected {want}")
+    log(f"  {label}: steps {start} → {trainer.step}, losses "
+        + " ".join(f"{v:.6f}" for v in losses) + f"; evaluations at {evals}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; {wall_s:.1f} s")
+    return ({"label": label, "start_step": start, "end_step": trainer.step, "losses": losses,
+             "eval_steps": evals, "eval_batches": eval_batches, "launches": launches,
+             "wall_s": wall_s, "metrics": metrics}, trainer, captured)
+
+
+def state_diff(a: dict, b: dict) -> float:
+    """max|a − b| over every tensor of two host checkpoint states:
+    parameters, running statistics, EMA copies and optimizer tensors."""
+    pairs = []
+    for key in ("params", "batch_stats", "ema_params", "ema_batch_stats"):
+        if (a[key] is None) != (b[key] is None) or (a[key] or {}).keys() != (b[key] or {}).keys():
+            raise AssertionError(f"states differ in {key}'s names")
+        pairs += [(t, b[key][n]) for n, t in (a[key] or {}).items()]
+    opt_a, opt_b = a["opt_state"]["state"], b["opt_state"]["state"]
+    if opt_a.keys() != opt_b.keys():
+        raise AssertionError("states differ in the optimizer's slots")
+    pairs += [(t, opt_b[i][slot]) for i, slots in opt_a.items() for slot, t in slots.items()]
+    return max((float((x.double() - y.double()).abs().max()) for x, y in pairs if x.numel()),
+               default=0.0)
+
+
+def bit_equal(a: dict, b: dict) -> bool:
+    """Two host checkpoint states equal bit for bit, count and generator included."""
+    import torch
+
+    return (a["step"] == b["step"] and a["opt_state"]["count"] == b["opt_state"]["count"]
+            and torch.equal(a["rng"], b["rng"]) and a["ema_updates"] == b["ema_updates"]
+            and state_diff(a, b) == 0.0)
+
+
+def resume_check(label: str, tag: str, base, steps: int, at: int, per_step: dict,
+                 eval_per_forward: dict) -> tuple:
+    """Phase 14 (a) and (b): ``base`` trained ``steps`` steps straight, twice;
+    once more saving every ``at`` steps (keep 2), its state captured at
+    ``at``; then a new Trainer restored from the step-``at`` checkpoint
+    (``load_path: ckpt://...:at``) trains to ``steps``. The restored state
+    must equal the captured one bit for bit (parameters, running statistics,
+    EMA copies, optimizer tensors, count, generator); the resumed losses and
+    final state must lie within SPREAD_FACTOR times the straight runs'
+    difference. Each run is named ``<tag>_<run>``. Returns the record, the
+    resumed Trainer and the interrupted run's checkpoints directory."""
+    from hvt_torch.train import checkpoint as ckpt_lib
+
+    def run(name, **change):
+        rec, trainer, captured = ckpt_run(with_changes(base, run_name=f"{tag}_{name}", **change),
+                                          f"{label} {name}", per_step, eval_per_forward,
+                                          capture_at=at if name == "interrupted" else None)
+        state = ckpt_lib.to_host(trainer.state_dict())
+        return rec, trainer, state, captured
+
+    s1, t, state1, _ = run("straight1")
+    del t
+    s2, t, state2, _ = run("straight2")
+    del t
+    cut, t, _, captured = run("interrupted", save={"interval": f"{at}ba",
+                                                   "num_checkpoints_to_keep": 2})
+    ckpts = t.checkpointer.directory
+    saved_steps = t.checkpointer.steps()
+    del t
+    if saved_steps != [at, steps]:
+        raise AssertionError(f"{label}: checkpoints at {saved_steps}, expected [{at}, {steps}]")
+    resumed, trainer, state_r, _ = run("resumed", load_path=f"ckpt://{ckpts}:{at}")
+    restored_equal = bit_equal(trainer.initial, captured)
+    if not restored_equal or resumed["start_step"] != at or resumed["end_step"] != steps:
+        raise AssertionError(f"{label}: the restore from step {at} is not the saved state "
+                             f"(bit-equal: {restored_equal}; steps {resumed['start_step']} → "
+                             f"{resumed['end_step']})")
+    loss_spread = max(abs(a - b) for a, b in zip(s1["losses"], s2["losses"]))
+    loss_diff = max(abs(a - b) for a, b in zip(resumed["losses"], s1["losses"][at:]))
+    cut_diff = max(abs(a - b) for a, b in zip(cut["losses"], s1["losses"]))
+    state_spread = state_diff(state1, state2)
+    state_r_diff = state_diff(state_r, state1)
+    noisy = loss_spread > 0 or state_spread > 0
+    scale = max(abs(v) for v in s1["losses"])
+    loss_bound = SPREAD_FACTOR * max(loss_spread, LOSS_FLOOR * scale) if noisy else 0.0
+    state_bound = SPREAD_FACTOR * state_spread
+    rec = {"straight": [s1, s2], "interrupted": cut, "resumed": resumed,
+           "restored_bit_equal": restored_equal, "checkpoints": saved_steps,
+           "loss_spread": loss_spread, "loss_diff": loss_diff, "interrupted_loss_diff": cut_diff,
+           "state_spread": state_spread, "state_diff": state_r_diff,
+           "straight_runs_bit_equal": bit_equal(state1, state2),
+           "resumed_bit_equal": bit_equal(state_r, state1),
+           "loss_bound": loss_bound, "state_bound": state_bound}
+    log(f"  {label}: restore from step {at} bit-equal to the saved state: {restored_equal}; "
+        f"straight runs apart by {loss_spread:.3g} in loss (steps 1-{steps}) and "
+        f"{state_spread:.3g} "
+        f"in any state element (bit-equal: {rec['straight_runs_bit_equal']}); resumed run apart "
+        f"from straight run 1 by {loss_diff:.3g} in loss (steps {at + 1}-{steps}; bound "
+        f"{loss_bound:.3g}) and {state_r_diff:.3g} in state (bound {state_bound:.3g}; bit-equal: "
+        f"{rec['resumed_bit_equal']}); the interrupted run by {cut_diff:.3g} in loss")
+    if loss_diff > loss_bound or state_r_diff > state_bound or cut_diff > loss_bound:
+        raise AssertionError(f"{label}: the resumed run left the straight runs' spread: {rec}")
+    return rec, trainer, ckpts
+
+
+def sigterm_check() -> dict:
+    """Phase 14 (c): SwinV2-T as in (a) with ``auto_resume``; a SIGTERM to
+    this process after step SIGTERM_AT: ``fit`` returns, the checkpoint of
+    that step exists, the previous handler is back; the same config again
+    resumes there and trains to CKPT_STEPS."""
+    config = with_changes(training_config(fuse=True, steps=CKPT_STEPS), run_name="preempted",
+                          auto_resume=True)
+    per_step = {k: 12 for k in TRAIN_KERNELS[True]}
+    per_eval = EVAL_PER_FORWARD["swinv2_tiny fuse=True"]
+    before = signal.getsignal(signal.SIGTERM)
+    first, trainer, _ = ckpt_run(config, "SIGTERM run", per_step, per_eval, signal_at=SIGTERM_AT)
+    ckpts = trainer.checkpointer.directory
+    saved, restored = trainer.checkpointer.steps(), signal.getsignal(signal.SIGTERM) == before
+    del trainer
+    second, trainer, _ = ckpt_run(config, "resubmitted", per_step, per_eval)
+    del trainer
+    ok = (first["end_step"] == SIGTERM_AT and saved == [SIGTERM_AT] and restored
+          and second["start_step"] == SIGTERM_AT and second["end_step"] == CKPT_STEPS)
+    log(f"  SIGTERM after step {SIGTERM_AT}: fit returned at step {first['end_step']}, "
+        f"checkpoints {saved} under {ckpts.name}/, handler restored: {restored}; the "
+        f"resubmission trained {second['start_step']} → {second['end_step']}")
+    if not ok:
+        raise AssertionError(f"SIGTERM round trip: {first}, {saved}, {restored}, {second}")
+    return {"first": first, "checkpoints": saved, "handler_restored": restored,
+            "resubmitted": second}
+
+
+def weights_check(swin_ckpts, resnet_trainer) -> dict:
+    """Phase 14 (d): (a)'s step-CKPT_STEPS checkpoint exported by
+    ``hvt_torch.tools.export_torch`` as a swin:// file and loaded through a
+    strict PretrainedBackbone into a SwinV2-T with 1,000 classes, evaluated
+    (eval only) through the fused kernels: backbone equal to the
+    checkpoint's, head at its seeded init. Then ``InferenceEngine`` with
+    ``load_path`` at (b)'s resumed checkpoint: logits within
+    LOGIT_TOL·max|logit| of the Trainer's eval forward on its EMA weights,
+    and with ``use_ema=False`` on its live weights."""
+    import torch
+
+    from hvt_torch import config as config_lib
+    from hvt_torch.downstream import serve as serve_lib
+    from hvt_torch.models import build_model
+    from hvt_torch.tools import export_torch
+    from hvt_torch.train import checkpoint as ckpt_lib
+    from hvt_torch.train import ema as ema_lib
+    from hvt_torch.train import step as step_lib
+
+    out = runs_root() / "swinv2_tiny_step6.pt"
+    uri = f"ckpt://{swin_ckpts}:{CKPT_STEPS}"
+    info = export_torch.export(uri, str(out))
+    base = training_config(fuse=True)
+    backbone = {"cls": "PretrainedBackbone",
+                "args": {"checkpoint": f"swin://{out}", "strict": True}}
+    classes = {"synthetic_num_classes": 1000}
+    config = with_changes(base, run_name="from_swin", is_train=False,
+                          train_dataset=classes, eval_dataset=classes,
+                          algorithms=[*config_lib.to_dict(base)["algorithms"], backbone])
+    rec, trainer, _ = ckpt_run(config, "SwinV2-T, 1,000 classes, PretrainedBackbone swin://", {},
+                               EVAL_PER_FORWARD["swinv2_tiny fuse=True"])
+    saved = ckpt_lib.load_raw(uri)["params"]
+    init = build_model(config, 1000).state_dict()
+    live = {n: p.detach().cpu() for n, p in trainer.model.named_parameters()}
+    backbone_equal = all(torch.equal(t, saved[n]) for n, t in live.items()
+                         if not n.startswith("head."))
+    head_init = all(torch.equal(t, init[n]) for n, t in live.items() if n.startswith("head."))
+    del trainer
+    log(f"  export_torch wrote {info['keys']} tensors ({info['family']}, {info['source']}, "
+        f"{out.stat().st_size / 1e6:.1f} MB); backbone equal to the checkpoint's: "
+        f"{backbone_equal}; head ({live['head.weight'].shape[0]} classes) at its init: {head_init}")
+    if not (backbone_equal and head_init):
+        raise AssertionError("the swin:// backbone did not load as saved")
+
+    serve_config = with_changes(resnet_trainer.config, run_name="serve",
+                                load_path=f"ckpt://{resnet_trainer.checkpointer.directory}:"
+                                          f"{resnet_trainer.step}")
+    batch = next(resnet_trainer.eval_loader.epoch(0))
+    images = torch.from_numpy(batch.images[:BATCH]).cuda()
+    x = resnet_trainer.eval_prep.normalize(images)
+    serving = {}
+    for use_ema, params, stats in (
+            (True, resnet_trainer.ema.params, resnet_trainer.ema.batch_stats),
+            (False, dict(resnet_trainer.model.named_parameters()),
+             ema_lib.batch_stats(resnet_trainer.model))):
+        with trainer_output():
+            engine = serve_lib.InferenceEngine(serve_config, batch=BATCH, use_ema=use_ema)
+        try:
+            with torch.inference_mode():
+                got = engine.model(x).float()
+                ref = step_lib._eval_forward(resnet_trainer.model, params, stats, x).float()
+            err = float((got - ref).abs().max()) / float(ref.abs().max())
+            rec_engine = engine.predict_image(ppm(5))
+        finally:
+            engine.close()
+        serving[f"use_ema={use_ema}"] = {"logits_rel_err": err, "record": rec_engine}
+        log(f"  InferenceEngine, ResNet-50 from load_path (step {resnet_trainer.step}), use_ema="
+            f"{use_ema}: logits within {err:.3g}·max|logit| of the Trainer's eval forward "
+            f"(tol {LOGIT_TOL}); a served record: {rec_engine['class_ids'][:3]}")
+        if err > LOGIT_TOL:
+            raise AssertionError(f"serving use_ema={use_ema}: logits {err} apart")
+    return {"export": info, "pretrained": rec, "backbone_equal": backbone_equal,
+            "head_at_init": head_init, "serving": serving}
+
+
+def checkpoint_cost(trainer, label: str) -> dict:
+    """Phase 14 (e): one more save of the Trainer's state at its step: the
+    bytes on disk, ``save``'s blocking time (the host copy; CUDA events
+    around it and the host clock), the background write's seconds (from
+    ``save``'s return to the joined write) and ``restore``'s (reading the
+    file, then copying it onto the card)."""
+    import torch
+
+    from hvt_torch.train import checkpoint as ckpt_lib
+
+    step = trainer.step
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    trainer.save_checkpoint(step)
+    t1 = time.perf_counter()
+    end.record()
+    end.synchronize()
+    trainer.checkpointer.wait()
+    t2 = time.perf_counter()
+    path = trainer.checkpointer.directory / str(step)
+    nbytes = (path / ckpt_lib.STATE_FILE).stat().st_size
+    t3 = time.perf_counter()
+    raw = ckpt_lib.load_raw(str(path))
+    t4 = time.perf_counter()
+    trainer.restore(raw)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    params = sum(p.numel() for p in trainer.model.parameters())
+    rec = {"label": label, "params": params, "bytes": nbytes, "bytes_per_param": nbytes / params,
+           "save_ms_host": (t1 - t0) * 1e3, "save_ms_events": start.elapsed_time(end),
+           "write_s": t2 - t1, "restore_s": t5 - t3, "read_s": t4 - t3, "to_card_s": t5 - t4,
+           "host_copy_gb_per_s": nbytes / (t1 - t0) / 1e9}
+    log(f"  checkpoint of {label}: {params / 1e6:.2f} M params, {nbytes / 1e9:.3f} GB on disk "
+        f"({rec['bytes_per_param']:.2f} B a param); save blocks {rec['save_ms_host']:.1f} ms (host "
+        f"clock) / {rec['save_ms_events']:.1f} ms (CUDA events), {rec['host_copy_gb_per_s']:.2f} "
+        f"GB/s; background write {rec['write_s']:.2f} s; restore {rec['restore_s']:.2f} s (read "
+        f"{rec['read_s']:.2f}, onto the card {rec['to_card_s']:.2f})")
+    return rec
+
+
+def checkpoint_phase(card: str) -> dict:
+    """Phase 14: (a) SwinV2-T fuse: true resumed from step CKPT_AT, (b)
+    ResNet-50 with EMA and bn_pallas resumed from RESNET_CKPT_AT, (c) the
+    SIGTERM round trip, (d) weights through export_torch, swin:// and
+    serving's load_path, (e) the cost of a checkpoint for SwinV2-T,
+    ResNet-50 and SwinV2-B. Each run under the temporary save_root, emptied
+    at the end."""
+    import torch
+
+    from hvt_torch.train.loop import Trainer
+
+    out = {}
+    swin, swin_trainer, swin_ckpts = resume_check(
+        "SwinV2-T fuse=True", "swinv2_tiny", training_config(fuse=True, steps=CKPT_STEPS),
+        CKPT_STEPS, CKPT_AT,
+        {k: 12 for k in TRAIN_KERNELS[True]}, EVAL_PER_FORWARD["swinv2_tiny fuse=True"])
+    out["swinv2_tiny"] = swin
+    resnet, resnet_trainer, _ = resume_check(
+        "ResNet-50 EMA bn_pallas", "resnet50", resnet_config(True, steps=RESNET_CKPT_STEPS),
+        RESNET_CKPT_STEPS, RESNET_CKPT_AT, {k: RESNET_BN_LAYERS for k in BN_KERNELS},
+        EVAL_PER_FORWARD["resnet50"])
+    out["resnet50"] = resnet
+    out["sigterm"] = sigterm_check()
+    out["weights"] = weights_check(swin_ckpts, resnet_trainer)
+    costs = [checkpoint_cost(swin_trainer, "SwinV2-T"),
+             checkpoint_cost(resnet_trainer, "ResNet-50 with EMA")]
+    del swin_trainer, resnet_trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    with trainer_output():
+        base = Trainer(with_changes(training_config("swinv2_base", fuse=True),
+                                    run_name="base_cost"))
+    base.train_step(*base._to_device(next(base.train_loader.epoch(0))), base.generator)
+    costs.append(checkpoint_cost(base, "SwinV2-B"))
+    base.close()
+    del base
+    out["costs"] = costs
+    clear_runs()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for c in costs:
+        log(f"  {c['label']}: {c['bytes'] / 1e9:.3f} GB, save {c['save_ms_host']:.1f} ms blocking, "
+            f"write {c['write_s']:.2f} s, restore {c['restore_s']:.2f} s, on {card}")
     return out
 
 
@@ -3055,8 +3495,13 @@ def main(argv=None) -> int:
         "SwinV2-B on fuse: true")
     evaluation = evaluation_phase(card)
 
+    log(f"[14] checkpoints on the card: SwinV2-T fuse: true ({CKPT_STEPS} steps, resumed from "
+        f"{CKPT_AT}), ResNet-50 with EMA ({RESNET_CKPT_STEPS} steps, resumed from "
+        f"{RESNET_CKPT_AT}), SIGTERM, swin:// and serving's load_path, the cost of a checkpoint")
+    checkpoints = checkpoint_phase(card)
+
     report = {"card": card, "batch": BATCH, "kernels": kernels, "routes": routes,
-              "evaluation": evaluation,
+              "evaluation": evaluation, "checkpoints": checkpoints,
               "kernel_stages": {k: {"check": checked[k]["stages"], "timed": timed[k]["stages"]}
                                 for k in FORWARD_NAMES},
               "backward_stages": {"check": bwd_checked["stages"], "timed": bwd["stages"]},
@@ -3190,4 +3635,9 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        for root in _RUNS:
+            shutil.rmtree(root, ignore_errors=True)
+    sys.exit(code)

@@ -1,7 +1,7 @@
 """Typed, layered YAML configuration — the port's own copy of ``hvt/config.py``.
 
 Same schema and merge engine as hvt, so the repository's YAML trees load
-unchanged. PyYAML is imported only where a YAML file is read:
+unchanged. PyYAML is imported only where a YAML file is read or written:
 ``loads`` of dict layers needs nothing beyond the standard library.
 
 Mirrors the reference's config system (reference configs.py:1-128, utils.py:15-35,
@@ -418,6 +418,13 @@ def loads(*layers: dict) -> Config:
         tree = merge_dicts(tree, layer)
     tree = resolve_interpolations(tree)
     return _from_dict(Config, tree, "config")
+
+
+def to_yaml(config: Config) -> str:
+    """The resolved config as YAML, key order kept (hvt's ``to_yaml``)."""
+    import yaml
+
+    return yaml.safe_dump(to_dict(config), sort_keys=False)
 
 
 def add_exp_args(parser) -> None:

@@ -105,11 +105,13 @@ class Loader:
         mask[:n_valid] = 1.0
         return Batch(images=images, labels=labels, mask=mask)
 
-    def epoch(self, epoch: int) -> Iterator[Batch]:
-        """The epoch's batches."""
+    def epoch(self, epoch: int, start_batch: int = 0) -> Iterator[Batch]:
+        """The epoch's batches from batch ``start_batch`` on: the order is a
+        pure function of (seed, epoch), so a resume mid-epoch continues at
+        the next batch without building the skipped ones."""
         indices = self.epoch_indices(epoch)
         bs = self.local_batch_size
-        for start in range(0, len(indices), bs):
+        for start in range(start_batch * bs, len(indices), bs):
             yield self._make_batch(indices[start:start + bs])
 
 

@@ -12,22 +12,27 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from hvt_torch.downstream import features as features_lib
+from hvt_torch.train import checkpoint as checkpoint_lib
+from hvt_torch.train import ema as ema_lib
 
-def _resolve_weights(config, model: torch.nn.Module) -> torch.nn.Module:
-    """Weights of a serving model. With no ``load_path`` and no pretrained
-    backbone the model keeps its seeded init (``config.seed``); checkpoints
-    and pretrained URIs raise until their port lands."""
+
+def _resolve_weights(config, model: torch.nn.Module, use_ema: bool = True) -> torch.nn.Module:
+    """Load a serving model's weights (hvt's order): ``load_path``, a port
+    checkpoint (its EMA copy unless ``use_ema`` is false), else the
+    pretrained URIs (``ckpt://``, ``swin://``, ``torch://``; the head from
+    the model's seeded init), else the seeded init (``config.seed``).
+    Returns the model."""
+    params, batch_stats = dict(model.named_parameters()), ema_lib.batch_stats(model)
     if config.load_path:
-        raise NotImplementedError(
-            f"load_path {config.load_path!r}: loading hvt (Orbax) checkpoints is a later "
-            "slice of the port (ROADMAP.md queue 1, item 8)"
-        )
-    if config.model.pretrained_checkpoint or any(
-        a.cls == "PretrainedBackbone" for a in config.algorithms
-    ):
-        raise NotImplementedError(
-            "pretrained backbones (ckpt://, swin://) are not ported yet (ROADMAP.md queue 1, item 8)"
-        )
+        raw = checkpoint_lib.load_raw(config.load_path)
+        src, src_stats = raw["params"], raw["batch_stats"]
+        if use_ema and raw.get("ema_params") is not None:
+            src, src_stats = raw["ema_params"], raw["ema_batch_stats"]
+    else:
+        src, src_stats = features_lib.load_pretrained_variables(config, params, batch_stats)
+    checkpoint_lib.copy_into(params, src, "params")
+    checkpoint_lib.copy_into(batch_stats, src_stats, "batch_stats")
     return model
 
 

@@ -47,7 +47,6 @@ class InferenceEngine:
             raise NotImplementedError(
                 "int8 serving (quantize/calibrate) is not ported yet (ROADMAP.md queue 1, item 10)"
             )
-        del use_ema  # no checkpoint yet, so no EMA weights to prefer
         self.device = device_lib.resolve(device)
         self.config = config
         self.model_name = config.model.name
@@ -66,7 +65,7 @@ class InferenceEngine:
                 f"{config.model.name} {dict(config.model.args)} at {data_cfg.crop_size} px "
                 "does not run on the CUDA kernels yet: " + "; ".join(unsupported)
             )
-        self.model = predict_lib._resolve_weights(config, model).to(self.device).eval()
+        self.model = predict_lib._resolve_weights(config, model, use_ema).to(self.device).eval()
         prep = DevicePrep.from_config(data_cfg, config.precision)
         lookups = (predict_lib.taxonomy_lookups(self.classes, info.num_classes)
                    if hierarchical else None)

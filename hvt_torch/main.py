@@ -15,8 +15,18 @@ training; ``fuse: true`` through the fused halves); ResNet trains with
 torch's BatchNorm, or with ``model.args.bn_pallas: true`` through the
 BatchNorm reduction kernels, and with EMA where the recipe asks for it
 (configs/pretrain/inat21.yaml). The algorithms the port's train step does
-not run yet raise. Unlike hvt's ``main.py`` it writes no checkpoint and
-does not resume (see :mod:`hvt_torch.train.loop`).
+not run yet raise.
+
+What persists, as with hvt's ``main.py``: checkpoints under
+``<save_root>/<run_name>/checkpoints/<step>/state.pt`` (at every
+``save.interval``, at the end, and on SIGTERM, keeping
+``save.num_checkpoints_to_keep``) and the run log
+``<save_root>/<run_name>/logs/log0.txt`` (the config, then one JSON record
+per evaluation and log window). ``load_path: ckpt://<dir>[:step]`` resumes
+from a checkpoint, ``auto_resume: true`` from the run's own latest, and a
+PretrainedBackbone loads ``ckpt://``, ``swin://`` or ``torch://`` weights
+(see :mod:`hvt_torch.train.loop`). The last checkpoint write is joined
+before the JSON line is printed.
 """
 
 from __future__ import annotations
@@ -31,7 +41,11 @@ from hvt_torch.train.loop import Trainer
 
 def main(config: config_lib.Config, device=None,
          on_step: Optional[Callable[[int, dict], None]] = None) -> dict:
-    return Trainer(config, device=device).fit(on_step=on_step)
+    trainer = Trainer(config, device=device)
+    try:
+        return trainer.fit(on_step=on_step)
+    finally:
+        trainer.close()
 
 
 if __name__ == "__main__":

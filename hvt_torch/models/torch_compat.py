@@ -1,0 +1,208 @@
+"""Torch-format weight files — the port's copy of the SwinV2 and ResNet parts
+of ``hvt/models/torch_compat.py``.
+
+hvt reads Microsoft-format SwinV2 files (``swin://<path>``, reference
+swinv2.py:870-895) and timm-format ResNet files (``torch://<path>``), each a
+``.pt`` holding ``{"model": state_dict}``, and writes them back from its
+checkpoints. Here the same files map to and from the port's own state-dict
+names (:mod:`hvt_torch.models.convert` lists them), tensor for tensor: both
+sides are PyTorch, so no layout changes, only names.
+
+* SwinV2: ``patch_embed.proj`` → ``patch_embed``, ``patch_embed.norm`` →
+  ``patch_norm``, ``layers.{s}.blocks.{i}`` → ``stage{s}_block{i}`` (its
+  ``attn.cpb_mlp.0``/``.2`` → ``attn.cpb_fc1``/``cpb_fc2``),
+  ``layers.{s}.downsample`` → ``stage{s}_merge``, ``head.heads.{t}`` →
+  ``head.tier{t}``; the derived buffers (:data:`NON_PERSISTENT`) are dropped.
+* ResNet: ``conv1``/``bn1`` → ``stem.conv``/``stem.bn``,
+  ``layer{s}.{b}.conv{i}``/``bn{i}`` → ``stage{s}_block{b}.conv{i}.conv``/
+  ``.bn``, ``downsample.0``/``.1`` → ``downsample.conv``/``.bn``, ``fc`` →
+  ``head``; BatchNorm running statistics travel with the weights, and
+  ``num_batches_tracked`` (which the port does not keep) is written as 0.
+
+Files are read with ``torch.load(..., weights_only=True)``. ViT, DINOv2,
+ConvNeXt, EfficientNet and RegNet files raise, naming the ROADMAP item that
+ports those families, rather than being mapped onto the wrong model.
+"""
+
+from __future__ import annotations
+
+import re
+from collections.abc import Mapping
+
+import torch
+
+# Buffers that are derived, not learned (reference swinv2.py:887-894).
+NON_PERSISTENT = ("relative_position_index", "relative_coords_table", "logit_clamp_max")
+OTHER_FAMILIES = "ROADMAP.md queue 1, item 9 (other model families)"
+
+_SWIN_URI = re.compile(r"^swin://(.+)$")
+_TORCH_URI = re.compile(r"^torch://(.+)$")
+
+
+def filter_buffers(state_dict: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    return {k: v for k, v in state_dict.items() if not any(n in k for n in NON_PERSISTENT)}
+
+
+def infer_depths(state_dict: Mapping) -> tuple[int, ...]:
+    """Stage depths from ``layers.{s}.blocks.{i}.*`` key names."""
+    return _counts(state_dict, r"^layers\.(\d+)\.blocks\.(\d+)\.", "layers.*.blocks.*", "Swin")
+
+
+def infer_resnet_stage_sizes(state_dict: Mapping) -> tuple[int, ...]:
+    """Stage sizes from ``layer{s}.{b}.*`` key names."""
+    return _counts(state_dict, r"^layer(\d+)\.(\d+)\.", "layer{s}.{b}", "torch ResNet")
+
+
+def _counts(state_dict, pattern: str, keys: str, family: str) -> tuple[int, ...]:
+    counts: dict[int, int] = {}
+    pat = re.compile(pattern)
+    for key in state_dict:
+        m = pat.match(key)
+        if m:
+            s, i = int(m.group(1)), int(m.group(2))
+            counts[s] = max(counts.get(s, 0), i + 1)
+    if not counts:
+        raise ValueError(f"no {keys} keys: not a {family} state dict?")
+    return tuple(counts[s] for s in sorted(counts))
+
+
+# (Microsoft SwinV2 name, port name) rewrites, applied in order to each key
+_SWIN_NAMES = (
+    (r"^patch_embed\.proj\.", "patch_embed."),
+    (r"^patch_embed\.norm\.", "patch_norm."),
+    (r"^layers\.(\d+)\.blocks\.(\d+)\.", r"stage\1_block\2."),
+    (r"^layers\.(\d+)\.downsample\.", r"stage\1_merge."),
+    (r"\.attn\.cpb_mlp\.0\.", ".attn.cpb_fc1."),
+    (r"\.attn\.cpb_mlp\.2\.", ".attn.cpb_fc2."),
+    (r"^head\.heads\.(\d+)\.", r"head.tier\1."),
+)
+_SWIN_EXPORT = (
+    (r"^patch_embed\.", "patch_embed.proj."),
+    (r"^patch_norm\.", "patch_embed.norm."),
+    (r"^stage(\d+)_block(\d+)\.", r"layers.\1.blocks.\2."),
+    (r"^stage(\d+)_merge\.", r"layers.\1.downsample."),
+    (r"\.attn\.cpb_fc1\.", ".attn.cpb_mlp.0."),
+    (r"\.attn\.cpb_fc2\.", ".attn.cpb_mlp.2."),
+    (r"^head\.tier(\d+)\.", r"head.heads.\1."),
+)
+_RESNET_NAMES = (
+    (r"^conv1\.", "stem.conv."),
+    (r"^bn1\.", "stem.bn."),
+    (r"^layer(\d+)\.(\d+)\.conv(\d)\.", r"stage\1_block\2.conv\3.conv."),
+    (r"^layer(\d+)\.(\d+)\.bn(\d)\.", r"stage\1_block\2.conv\3.bn."),
+    (r"^layer(\d+)\.(\d+)\.downsample\.0\.", r"stage\1_block\2.downsample.conv."),
+    (r"^layer(\d+)\.(\d+)\.downsample\.1\.", r"stage\1_block\2.downsample.bn."),
+    (r"^fc\.heads\.(\d+)\.", r"head.tier\1."),
+    (r"^fc\.", "head."),
+)
+_RESNET_EXPORT = (
+    (r"^stem\.conv\.", "conv1."),
+    (r"^stem\.bn\.", "bn1."),
+    (r"^stage(\d+)_block(\d+)\.conv(\d)\.conv\.", r"layer\1.\2.conv\3."),
+    (r"^stage(\d+)_block(\d+)\.conv(\d)\.bn\.", r"layer\1.\2.bn\3."),
+    (r"^stage(\d+)_block(\d+)\.downsample\.conv\.", r"layer\1.\2.downsample.0."),
+    (r"^stage(\d+)_block(\d+)\.downsample\.bn\.", r"layer\1.\2.downsample.1."),
+    (r"^head\.tier(\d+)\.", r"fc.heads.\1."),
+    (r"^head\.", "fc."),
+)
+_STATS = ("running_mean", "running_var")
+
+
+def _rename(key: str, rules) -> str:
+    for pattern, repl in rules:
+        key = re.sub(pattern, repl, key)
+    return key
+
+
+def _tensor(v) -> torch.Tensor:
+    return torch.as_tensor(v).detach().cpu()
+
+
+def convert_swin_state_dict(state_dict: Mapping) -> dict[str, torch.Tensor]:
+    """Microsoft SwinV2 state dict → the port's SwinTransformerV2 names."""
+    infer_depths(state_dict)  # raises on a file that is not a Swin state dict
+    return {_rename(k, _SWIN_NAMES): _tensor(v) for k, v in filter_buffers(state_dict).items()}
+
+
+def export_swin_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """The port's SwinV2 parameters → the Microsoft SwinV2 state dict, the
+    exact inverse of :func:`convert_swin_state_dict`."""
+    return {_rename(k, _SWIN_EXPORT): _tensor(v).float() for k, v in params.items()}
+
+
+def convert_resnet_state_dict(state_dict: Mapping) -> tuple[dict, dict]:
+    """timm/torchvision ResNet state dict → (params, batch_stats) in the
+    port's ResNet names. The stem is ``stem.conv`` whether or not the model
+    was built with hvt's ``stem_s2d`` (the port's stem is one conv either
+    way), so no stem layout needs adapting."""
+    infer_resnet_stage_sizes(state_dict)
+    params, stats = {}, {}
+    for k, v in state_dict.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        name = _rename(k, _RESNET_NAMES)
+        (stats if name.endswith(_STATS) else params)[name] = _tensor(v)
+    return params, stats
+
+
+def export_resnet_state_dict(params: Mapping, batch_stats: Mapping) -> dict[str, torch.Tensor]:
+    """(params, batch_stats) of the port's ResNet → the timm state dict, the
+    exact inverse of :func:`convert_resnet_state_dict`; each BatchNorm's
+    ``num_batches_tracked`` is written as 0, as hvt writes it."""
+    sd = {}
+    for k, v in {**params, **batch_stats}.items():
+        name = _rename(k, _RESNET_EXPORT)
+        sd[name] = _tensor(v).float()
+        if name.endswith(".running_var"):
+            tracked = name.removesuffix("running_var") + "num_batches_tracked"
+            sd[tracked] = torch.zeros((), dtype=torch.int64)
+    return sd
+
+
+def save_swin_checkpoint(params: Mapping, path: str) -> int:
+    """Write the port's SwinV2 parameters as a reference-format ``.pt``
+    (``{"model": state_dict}``); returns the number of tensors written."""
+    sd = export_swin_state_dict(params)
+    torch.save({"model": sd}, path)
+    return len(sd)
+
+
+def save_resnet_checkpoint(params: Mapping, batch_stats: Mapping, path: str) -> int:
+    """Write the port's ResNet variables as a timm-format ``.pt``; returns
+    the number of tensors written."""
+    sd = export_resnet_state_dict(params, batch_stats)
+    torch.save({"model": sd}, path)
+    return len(sd)
+
+
+def load_torch_variables(uri: str) -> tuple[dict, dict]:
+    """``torch://<path>`` or ``swin://<path>`` → (params, batch_stats) in the
+    port's names. The family comes from the key names: ``layers.*`` is
+    SwinV2 (no batch statistics), ``layer1.*``/``conv1`` ResNet."""
+    m = _TORCH_URI.match(uri) or _SWIN_URI.match(uri)
+    if not m:
+        raise ValueError(f"uri {uri!r} doesn't match torch://<path> or swin://<path>")
+    blob = torch.load(m.group(1), map_location="cpu", weights_only=True)
+    sd = blob.get("model", blob.get("state_dict", blob))
+    if any(k.startswith("layers.") for k in sd):
+        return convert_swin_state_dict(sd), {}
+    if any(k.startswith("layer1.") for k in sd) or "conv1.weight" in sd:
+        return convert_resnet_state_dict(sd)
+    families = (
+        ("DINOv2", lambda k: "layer_scale1" in k or k.startswith("dinov2.")),
+        ("ViT", lambda k: "cls_token" in k
+         or k.startswith(("encoder.layer.", "vit.encoder.layer."))),
+        ("RegNet", lambda k: k.startswith(("regnet.", "embedder."))),
+        ("ConvNeXt", lambda k: k.startswith(("stages.", "encoder.stages.", "convnext.",
+                                             "stem.0."))),
+        ("EfficientNet", lambda k: k.startswith(("efficientnet.", "encoder.blocks.",
+                                                 "embeddings.convolution"))),
+    )
+    for family, match in families:
+        if any(match(k) for k in sd):
+            raise NotImplementedError(
+                f"torch checkpoint {uri!r} holds a {family} model, which is not ported yet: "
+                f"{OTHER_FAMILIES}")
+    raise ValueError(
+        f"torch checkpoint {uri!r}: unrecognized family (expected SwinV2 'layers.*' or ResNet "
+        "'layer{s}.{b}'/'conv1' key names)")

@@ -6,7 +6,10 @@
 
 Then ``curl -s localhost:8000/healthz`` and
 ``curl -s --data-binary @image.jpg localhost:8000/predict?topk=3``.
-Runs on the CUDA card unless ``--device cpu``. Serving artifacts and int8
+Runs on the CUDA card unless ``--device cpu``. Weights: ``load_path`` (a
+port checkpoint, its EMA copy unless ``--raw-weights``), else a
+PretrainedBackbone or ``model.pretrained_checkpoint`` URI (``ckpt://``,
+``swin://``, ``torch://``), else the seeded init. Serving artifacts and int8
 (``--artifact``, ``--quantize``, ``--calibrate``) are not ported yet.
 """
 

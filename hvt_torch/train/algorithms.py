@@ -35,7 +35,7 @@ class AlgorithmSettings:
     sam_rho: Optional[float] = None
     sam_interval: int = 1
     stochastic_depth_rate: Optional[float] = None  # read by the model factory
-    pretrained_backbone: Optional[tuple[str, bool]] = None
+    pretrained_backbone: Optional[tuple[str, bool]] = None  # (checkpoint URI, strict)
     # host-side RandAugment/ColOut belong to the folder train transform
     colout_device: Optional[tuple[float, float]] = None
     randaugment_device: Optional[tuple[int, int, bool]] = None
@@ -102,7 +102,5 @@ def unported(s: AlgorithmSettings) -> list[str]:
         (s.randaugment_device is not None,
          "RandAugment with device: true: ROADMAP.md queue 1, item 6 (training loader)"),
         (s.colout_device is not None, f"ColOut with device: true: {item4}"),
-        (s.pretrained_backbone is not None,
-         "PretrainedBackbone: ROADMAP.md queue 1, item 8 (checkpoints)"),
     ]
     return [why for on, why in found if on]

@@ -17,6 +17,7 @@ import dataclasses
 
 import torch
 
+from hvt_torch.train.checkpoint import copy_into
 from hvt_torch.train.schedule import parse_duration
 
 
@@ -70,3 +71,14 @@ class Ema:
         torch._foreach_lerp_(self._avg, self._live, 1.0 - self.cfg.decay)
         self.updates += 1
         return True
+
+    def state_dict(self) -> dict:
+        return {"params": self.params, "batch_stats": self.batch_stats, "updates": self.updates}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Copies into the averaged tensors in place: ``update`` averages into
+        the tensors it listed at init, so swapping in new ones would leave it
+        averaging into stale copies. Every name and shape must match."""
+        copy_into(self.params, state["params"], "EMA params")
+        copy_into(self.batch_stats, state["batch_stats"], "EMA batch_stats")
+        self.updates = int(state["updates"])

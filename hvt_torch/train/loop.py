@@ -1,34 +1,51 @@
-"""The Trainer — port of ``Trainer.__init__``, ``evaluate`` and the step
-and evaluation schedule of ``fit`` in ``hvt/train/loop.py``.
+"""The Trainer — port of ``hvt/train/loop.py``.
 
 Assembles from a Config the train and eval loaders, the durations and lr
 schedule, the model (SwinV2 or ResNet, through the factory), the objective,
 the optimizer (with the model's no-decay names and gradient clipping), the
 EMA where the algorithms ask for it, the train step and the eval step (with
 the tree-distance matrix of an eval-only run), on one device (the CUDA card
-unless the caller asks for the CPU).
+unless the caller asks for the CPU). Then, as hvt's: a PretrainedBackbone is
+merged into the model (its BatchNorm statistics with it); the
+:class:`~hvt_torch.train.checkpoint.Checkpointer` opens
+``<save_root>/<run_name>/checkpoints``; ``load_path`` (a ``ckpt://`` URI or
+path), or else with ``auto_resume`` the run's own latest checkpoint, is
+restored; the RunLogger writes ``<save_root>/<run_name>/logs/log0.txt``.
+
+A restore sets the model's parameters and running statistics, the optimizer
+state with its update count (hvt's ``state.step``), the EMA copies in place
+and the state of the generator that draws drop-path masks. hvt folds the
+step into one base key, so its resume redraws nothing; the port draws from
+one advancing ``torch.Generator``, whose state is therefore saved too. With
+the batch order a pure function of (seed, epoch), a resume mid-epoch
+continues at the next batch and reproduces the uninterrupted run bit for
+bit on the CPU.
 
 ``fit()`` follows hvt's: it evaluates before training (and returns at once
 when ``is_train`` is false), at every ``eval_interval`` in the Composer time
 grammar ("Nep" at epoch ends, "Nba" every N steps, "Fdur" as a fraction of
 ``max_duration``) and at the end unless it just did, on the EMA copy where
-there is one; it prints one line per evaluation and per log window and
-returns the last eval metrics (the last window's train metrics stay in
-``train_metrics``). Unlike hvt's it saves no checkpoint, does not resume
-from ``load_path``/``auto_resume`` and has no RunLogger (ROADMAP.md queue 1,
-item 8). SAM, MixUp, CutMix, progressive resizing, device RandAugment/ColOut,
-a pretrained backbone and ``grad_accum`` > 1 are refused, never ignored.
-``grad_accum: auto`` is sized on the card as hvt sizes it
-(:mod:`hvt_torch.train.microbatch`: the peak memory of a probe forward and
-backward at the full batch against the card's memory) and resolves to 1
-where the batch fits, and to 1 on the CPU, as hvt's does without a memory
-limit; where the batch would need more microbatches the Trainer raises,
-since gradient accumulation is not ported.
+there is one; it saves at every ``save.interval`` (same grammar) and always
+at the end; a SIGTERM finishes the step in flight, saves and returns. Its
+records go through the RunLogger with hvt's prefixes (``eval``, ``train``
+every ``log_interval`` steps with the lr, samples/sec and memory,
+``train-epoch``); it returns the last eval metrics, and ``train_metrics``
+keeps the last train record's metrics with its lr. SAM, MixUp, CutMix,
+progressive resizing, device RandAugment/ColOut and ``grad_accum`` > 1 are
+refused, never ignored. ``grad_accum: auto`` is sized on the card as hvt
+sizes it (:mod:`hvt_torch.train.microbatch`: the peak memory of a probe
+forward and backward at the full batch against the card's memory) and
+resolves to 1 where the batch fits, and to 1 on the CPU, as hvt's does
+without a memory limit; where the batch would need more microbatches the
+Trainer raises, since gradient accumulation is not ported.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import signal
+import threading
 from typing import Callable, Optional
 
 import torch
@@ -42,18 +59,19 @@ from hvt_torch.data import device as device_prep
 from hvt_torch.data.loader import Batch, build_loader
 from hvt_torch.models import build_model
 from hvt_torch.train import algorithms as algorithms_lib
+from hvt_torch.train import checkpoint as checkpoint_lib
 from hvt_torch.train import ema as ema_lib
 from hvt_torch.train import microbatch
 from hvt_torch.train import optim as optim_lib
 from hvt_torch.train import schedule as schedule_lib
 from hvt_torch.train import step as step_lib
-
-LOG_INTERVAL = 50  # steps per log window: one host sync and one printed line each
+from hvt_torch.utils.logging import RunLogger, SpeedMonitor, memory_stats
 
 
 class Trainer:
-    def __init__(self, config: config_lib.Config, device=None):
+    def __init__(self, config: config_lib.Config, device=None, log_interval: int = 50):
         self.config = config
+        self.log_interval = log_interval  # steps between train records: one host sync each
         self.algos = algorithms_lib.parse_algorithms(config)
         refused = algorithms_lib.unported(self.algos)
         if refused:
@@ -112,7 +130,34 @@ class Trainer:
         self.eval_step = step_lib.build_eval_step(self.model, self.eval_prep, self.tree_dists)
         # stochastic-depth draws; hvt folds the step into its key instead
         self.generator = torch.Generator(self.device).manual_seed(int(config.seed))
-        self.train_metrics: dict[str, float] = {}  # of the last log window
+        self.train_metrics: dict[str, float] = {}  # of the last train record, with its lr
+
+        # Pretrained backbone: into the model only; the EMA copy keeps the
+        # init, as hvt's state does.
+        if self.algos.pretrained_backbone is not None:
+            uri, strict = self.algos.pretrained_backbone
+            live = dict(self.model.named_parameters())
+            live_stats = ema_lib.batch_stats(self.model)
+            params, stats = checkpoint_lib.load_pretrained(uri, live, live_stats, strict=strict)
+            checkpoint_lib.copy_into(live, params, uri)
+            checkpoint_lib.copy_into(live_stats, stats, uri)
+
+        # Checkpointing / logging -----------------------------------------
+        save_folder = os.path.join(config.machine.save_root, config.run_name)
+        self.checkpointer = checkpoint_lib.Checkpointer(
+            os.path.join(save_folder, "checkpoints"),
+            max_to_keep=config.save.num_checkpoints_to_keep)
+        if config.load_path:
+            self.restore(checkpoint_lib.load_raw(config.load_path))
+        elif config.auto_resume and (step := self.checkpointer.latest_step()) is not None:
+            self.restore(self.checkpointer.restore(step))
+            print(f"[{config.run_name}] auto-resumed from step {step}", flush=True)
+        self.logger = RunLogger(save_folder, config.run_name, use_wandb=config.save.wandb,
+                                wandb_entity=config.wandb.entity,
+                                wandb_project=config.wandb.project, tags=list(config.tags))
+        self.logger.log_config(config_lib.to_yaml(config))
+        self.speed = SpeedMonitor(window_size=50)
+        self._preempted = False
 
     def _auto_grad_accum(self) -> int:
         """``grad_accum: auto`` as hvt's ``_resolve_auto_grad_accum``: the
@@ -141,6 +186,54 @@ class Trainer:
             lambda accum: state + microbatch.probe_peak_bytes(self.model, loss, batch // accum,
                                                               self.device),
             batch, limit)
+
+    @property
+    def step(self) -> int:
+        """Updates taken: the optimizer's count, hvt's ``state.step``."""
+        return self.optimizer.count
+
+    def state_dict(self) -> dict:
+        """The checkpoint's fields (hvt's TrainState names; see
+        :mod:`hvt_torch.train.checkpoint`), as live tensors."""
+        ema = self.ema.state_dict() if self.ema else {}
+        return {"step": self.step, "params": dict(self.model.named_parameters()),
+                "batch_stats": ema_lib.batch_stats(self.model),
+                "opt_state": self.optimizer.state_dict(),
+                "ema_params": ema.get("params"), "ema_batch_stats": ema.get("batch_stats"),
+                "ema_updates": ema.get("updates"), "rng": self.generator.get_state(),
+                "config": config_lib.to_yaml(self.config)}
+
+    def restore(self, state: dict) -> None:
+        """Set the model, the optimizer (its count included), the EMA (in
+        place) and the generator from a saved :meth:`state_dict`."""
+        checkpoint_lib.copy_into(dict(self.model.named_parameters()), state["params"], "params")
+        checkpoint_lib.copy_into(ema_lib.batch_stats(self.model), state["batch_stats"],
+                                 "batch_stats")
+        self.optimizer.load_state_dict(state["opt_state"])
+        if (self.ema is None) != (state["ema_params"] is None):
+            raise ValueError(f"the checkpoint {'has' if self.ema is None else 'lacks'} an EMA "
+                             f"copy and this run {'has none' if self.ema is None else 'has one'}")
+        if self.ema is not None:
+            self.ema.load_state_dict({"params": state["ema_params"],
+                                      "batch_stats": state["ema_batch_stats"],
+                                      "updates": state["ema_updates"]})
+        self.generator.set_state(state["rng"])
+        if self.step != state["step"]:
+            raise ValueError(f"checkpoint step {state['step']} but optimizer count {self.step}")
+
+    def save_checkpoint(self, step: int) -> None:
+        """Save (hvt's ``_save_checkpoint``): the host copy now, the write in
+        the background; with a wandb run, the step is uploaded as an artifact
+        with the ``latest``/``ep{N}-ba{M}`` aliases (reference
+        monkey_patch.py:33-91)."""
+        self.checkpointer.save(step, self.state_dict())
+        if self.config.save.wandb and self.logger.uploads:
+            self.checkpointer.wait()  # the upload reads the files
+            epoch = step // self.steps_per_epoch
+            self.logger.log_artifact(self.checkpointer.directory / str(step),
+                                     name=f"{self.config.run_name}-checkpoints",
+                                     aliases=["latest", f"ep{epoch}-ba{step}"],
+                                     metadata={"step": step, "epoch": epoch})
 
     @property
     def eval_params(self) -> dict[str, torch.Tensor]:
@@ -177,55 +270,117 @@ class Trainer:
 
     def _evaluate_at(self, step: int) -> dict[str, float]:
         metrics = self.evaluate()
-        print(f"[{self.config.run_name}] eval at step {step}: "
-              + " ".join(f"{k} {v:.4g}" for k, v in metrics.items()), flush=True)
+        self.logger.log(step, metrics, prefix="eval")
         return metrics
 
+    def request_preempt(self) -> None:
+        """Ask the loop to checkpoint and return at the next step boundary;
+        the SIGTERM handler that ``fit`` installs calls it."""
+        self._preempted = True
+
     def fit(self, on_step: Optional[Callable[[int, dict], None]] = None) -> dict[str, float]:
-        """Evaluate, then (unless ``is_train`` is false) train for
-        ``max_duration`` from the model's current weights, evaluating at
-        every ``eval_interval`` and at the end, as hvt's ``fit``; returns the
-        last eval metrics. ``on_step(step, stats)`` is called after each
-        step with its device-side stats, before that step's evaluation."""
-        eval_metrics = self._evaluate_at(0)
+        """Evaluate, then (unless ``is_train`` is false) train from the
+        current step to ``max_duration``, evaluating and saving on hvt's
+        schedule, and save at the end; returns the last eval metrics.
+        ``on_step(step, stats)`` is called after each step with its
+        device-side stats, before that step's evaluation.
+
+        On SIGTERM (preemptible machines and SLURM send it ahead of the
+        kill) the step in flight finishes, a checkpoint is saved and ``fit``
+        returns; a resubmission with ``auto_resume`` continues from it. The
+        handler only sets a flag; it is installed on the main thread only
+        and the previous one is put back in ``finally`` (``SIG_DFL`` where
+        that was a C-level handler)."""
+        eval_metrics = self._evaluate_at(self.step)
         if not self.config.is_train:
             return eval_metrics
-        eval_every = schedule_lib.parse_duration(self.config.eval_interval)
-        eval_every_ep = eval_every_ba = None
-        if eval_every.unit == "ep":
-            eval_every_ep = max(1, int(eval_every.value))
-        else:
-            eval_every_ba = max(1, eval_every.to_steps(self.steps_per_epoch, self.total_steps))
+        self._preempted = False
+        installed = threading.current_thread() is threading.main_thread()
+        previous = None
+        if installed:
+            previous = signal.signal(signal.SIGTERM, lambda _sig, _frame: self.request_preempt())
+        try:
+            return self._fit_loop(eval_metrics, on_step)
+        finally:
+            if installed:
+                signal.signal(signal.SIGTERM, previous if previous is not None else signal.SIG_DFL)
+
+    def _every(self, interval: Optional[str]) -> tuple[Optional[int], Optional[int]]:
+        """(every N epochs, every N steps) of a Composer duration; one is None."""
+        if not interval:
+            return None, None
+        dur = schedule_lib.parse_duration(interval)
+        if dur.unit == "ep":
+            return max(1, int(dur.value)), None
+        return None, max(1, dur.to_steps(self.steps_per_epoch, self.total_steps))
+
+    def _fit_loop(self, eval_metrics, on_step) -> dict[str, float]:
+        eval_every_ep, eval_every_ba = self._every(self.config.eval_interval)
+        save_every_ep, save_every_ba = self._every(self.config.save.interval)
+        step = self.step
+        start_epoch = step // self.steps_per_epoch
+        resume_offset = step % self.steps_per_epoch  # the interrupted epoch's next batch
         last_eval_step = -1
         acc = metrics_lib.MetricAccumulator()
-        window = None
-        step = 0
-        for epoch in range(self.total_epochs):
-            for batch in self.train_loader.epoch(epoch):
+        sums = None  # the steps' stats, added on the device until a record needs them
+
+        def drain():
+            nonlocal sums
+            if sums is not None:
+                acc.update(dict(zip(sums, torch.stack(list(sums.values())).tolist())))
+                sums = None
+
+        def record(step: int) -> dict[str, float]:
+            drain()
+            metrics = acc.compute()
+            lr = float(self.config.optim.lr * self.lr_multiplier(step))
+            self.train_metrics = {**metrics, "lr": lr}
+            return metrics
+
+        for epoch in range(start_epoch, self.total_epochs):
+            skip = resume_offset if epoch == start_epoch else 0
+            for batch in self.train_loader.epoch(epoch, start_batch=skip):
                 if step >= self.total_steps:
                     break
                 stats = self.train_step(*self._to_device(batch), self.generator)
-                window = stats if window is None else {k: window[k] + v for k, v in stats.items()}
+                sums = stats if sums is None else {k: sums[k] + v for k, v in stats.items()}
+                self.speed.batch_end(int(batch.mask.sum()))  # known on the host: no sync
                 step += 1
                 if on_step is not None:
                     on_step(step, stats)
+                if self._preempted:
+                    break
                 if eval_every_ba is not None and step % eval_every_ba == 0:
                     eval_metrics = self._evaluate_at(step)
                     last_eval_step = step
-                if step % LOG_INTERVAL == 0 or step == self.total_steps:
-                    acc.reset()
-                    acc.update(window)  # the one host sync of the window
-                    window = None
-                    self.train_metrics = acc.compute()
-                    self.train_metrics["lr"] = float(
-                        self.config.optim.lr * self.lr_multiplier(step))
-                    print(f"[{self.config.run_name}] step {step}/{self.total_steps} "
-                          + " ".join(f"{k} {v:.4g}" for k, v in self.train_metrics.items()),
-                          flush=True)
+                if save_every_ba is not None and step % save_every_ba == 0:
+                    self.save_checkpoint(step)
+                if step % self.log_interval == 0:
+                    record(step)
+                    self.logger.log(step, {**self.train_metrics, "scale": 1.0,  # no resizing
+                                           **self.speed.metrics(), **memory_stats(self.device)},
+                                    prefix="train")
+            if self._preempted:
+                break
+            self.logger.log(step, record(step), prefix="train-epoch")
+            acc.reset()
             due_ep = eval_every_ep is not None and (epoch + 1) % eval_every_ep == 0
             if (due_ep or step >= self.total_steps) and last_eval_step != step:
                 eval_metrics = self._evaluate_at(step)
                 last_eval_step = step
+            if save_every_ep is not None and (epoch + 1) % save_every_ep == 0:
+                self.save_checkpoint(step)
             if step >= self.total_steps:
                 break
+        if self._preempted:
+            print(f"[{self.config.run_name}] preempted (SIGTERM): checkpointing at step {step} "
+                  "and exiting cleanly", flush=True)
+        self.save_checkpoint(step)  # always the final state: on preemption, the resume point
         return eval_metrics
+
+    def close(self) -> None:
+        """Join the last checkpoint write (raising what it raised), close the log."""
+        try:
+            self.checkpointer.close()
+        finally:
+            self.logger.close()

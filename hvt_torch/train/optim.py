@@ -73,7 +73,7 @@ class Optimizer(torch.optim.Optimizer):
         self.name, self.lr, self.weight_decay, self.momentum = name, lr, weight_decay, momentum
         self.multiplier = multiplier
         self.grad_clip_norm = grad_clip_norm
-        self.count = 0  # updates taken; the schedule's step
+        self.count = 0  # updates taken: hvt's state.step (the schedule's step, Adam's t)
 
     @torch.no_grad()
     def step(self, closure=None) -> torch.Tensor:
@@ -126,6 +126,18 @@ class Optimizer(torch.optim.Optimizer):
                 torch._foreach_add_(ps, upd, alpha=-lr)
         self.count += 1
         return norm
+
+    def state_dict(self) -> dict:
+        """torch's state dict (mu/nu or the momentum trace per parameter,
+        the groups) with ``count``, which sets the lr multiplier, Adam's bias
+        corrections and the EMA's interval: a resume without it would restart
+        warmup and bias correction at t = 1."""
+        return {**super().state_dict(), "count": self.count}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        state_dict = dict(state_dict)
+        self.count = int(state_dict.pop("count"))
+        super().load_state_dict(state_dict)
 
     def _state(self, params, key: str) -> list[torch.Tensor]:
         out = []

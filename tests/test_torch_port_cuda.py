@@ -1120,3 +1120,63 @@ def test_eval_step_kernel_path_matches_plain_path(cuda, monkeypatch, fuse):
     for k in ("correct@1", "correct@5"):
         assert abs(got[k] - ref[k]) <= 1, k
     assert abs(got["tree_dist_sum"] - ref["tree_dist_sum"]) <= 7
+
+
+def test_checkpoint_host_copy_precedes_the_next_update(cuda, tmp_path):
+    """``Checkpointer.save`` copies CUDA tensors to the host before it
+    returns: an in-place update queued on the card right after (as the next
+    step's ``_foreach_`` update would be) does not reach the file."""
+    from hvt_torch.train import checkpoint as tckpt
+
+    w = torch.arange(1 << 22, dtype=torch.float32, device=cuda)
+    want = w.cpu()
+    ck = tckpt.Checkpointer(tmp_path, max_to_keep=1)
+    ck.save(1, {"step": 1, "params": {"w": w}})
+    torch._foreach_add_([w], 1.0)
+    ck.close()
+    assert torch.equal(ck.restore(1)["params"]["w"], want)
+
+
+def test_trainer_restore_is_bit_equal_on_the_card(cuda, tmp_path):
+    """A Trainer on the card (ResNet micro, EMA, stochastic depth drawn from
+    the CUDA generator) saves at step 2 of 4; a new Trainer restored from it
+    holds every parameter, running statistic, EMA copy, optimizer tensor,
+    the count and the generator state bit for bit, and both go on to the
+    same step 4."""
+    from hvt_torch import config as tconfig
+    from hvt_torch.train import checkpoint as tckpt
+    from hvt_torch.train.loop import Trainer
+
+    layer = {
+        "run_name": "card", "seed": 3, "max_duration": "4ba", "grad_accum": 1,
+        "machine": {"save_root": str(tmp_path)},
+        "model": {"name": "resnet_micro_bottleneck", "args": {}},
+        "train_dataset": {"source": "synthetic", "crop_size": 32, "global_batch_size": 8,
+                          "synthetic_num_classes": 10, "synthetic_num_samples": 16},
+        "eval_dataset": {"source": "synthetic", "crop_size": 32, "global_batch_size": 8,
+                         "synthetic_num_classes": 10, "synthetic_num_samples": 8},
+        "optim": {"name": "DecoupledSGDW", "lr": 0.2, "momentum": 0.875, "weight_decay": 5e-4},
+        "scheduler": {"args": {"t_warmup": "1ba"}},
+        "precision": {"compute_dtype": "float32"},
+        "save": {"interval": "2ba", "num_checkpoints_to_keep": 3, "wandb": False},
+        "algorithms": [{"cls": "EMA", "args": {"half_life": "4ba", "update_interval": "1ba"}},
+                       {"cls": "StochasticDepth", "args": {"drop_rate": 0.5}}],
+    }
+    straight = Trainer(tconfig.loads(layer), device=cuda)
+    straight.fit()
+    straight.close()
+    saved = tckpt.load_raw(f"ckpt://{tmp_path}/card/checkpoints:2")
+    resumed = Trainer(tconfig.loads({**layer, "run_name": "resumed",
+                                     "load_path": f"ckpt://{tmp_path}/card/checkpoints:2"}),
+                      device=cuda)
+    got = tckpt.to_host(resumed.state_dict())
+    assert got["step"] == saved["step"] == 2 and torch.equal(got["rng"], saved["rng"])
+    for key in ("params", "batch_stats", "ema_params", "ema_batch_stats"):
+        for name, t in saved[key].items():
+            assert torch.equal(got[key][name], t), f"{key} {name}"
+    for i, slots in saved["opt_state"]["state"].items():
+        for slot, t in slots.items():
+            assert torch.equal(got["opt_state"]["state"][i][slot], t), f"optimizer {i} {slot}"
+    resumed.fit()
+    resumed.close()
+    assert resumed.step == straight.step == 4

@@ -439,8 +439,9 @@ def _eval_sums(trainer, params, stats):
     return sums
 
 
-def test_trainer_evaluates_the_ema_and_leaves_the_training_weights():
-    trainer = Trainer(tconfig.loads(_trainer_layer()), device="cpu")
+def test_trainer_evaluates_the_ema_and_leaves_the_training_weights(tmp_path):
+    trainer = Trainer(tconfig.loads(_trainer_layer(machine={"save_root": str(tmp_path)})),
+                      device="cpu")
     trainer.fit()
     live = {k: v.clone() for k, v in trainer.model.state_dict().items()}
     ema = {k: v.clone() for k, v in {**trainer.ema.params, **trainer.ema.batch_stats}.items()}
@@ -479,7 +480,8 @@ def _hvt_eval_steps(layer, tmp_path):
 @pytest.mark.parametrize("interval,steps", [("2ba", [0, 2, 4, 6, 7]), ("1ep", [0, 3, 6, 7]),
                                             ("0.5dur", [0, 3, 6, 7])])
 def test_fit_evaluates_at_hvts_steps(tmp_path, interval, steps):
-    layer = _trainer_layer(max_duration="7ba", eval_interval=interval)
+    layer = _trainer_layer(max_duration="7ba", eval_interval=interval,
+                           machine={"save_root": str(tmp_path / "port")})
     assert _hvt_eval_steps(layer, tmp_path) == steps
     trainer = Trainer(tconfig.loads(layer), device="cpu")
     seen, trained = [], []
@@ -490,8 +492,8 @@ def test_fit_evaluates_at_hvts_steps(tmp_path, interval, steps):
     assert set(metrics) == {"acc@1", "acc@5", "cross-entropy"}
 
 
-def test_an_eval_only_run_evaluates_once_with_tree_distances():
-    layer = _trainer_layer(is_train=False)
+def test_an_eval_only_run_evaluates_once_with_tree_distances(tmp_path):
+    layer = _trainer_layer(is_train=False, machine={"save_root": str(tmp_path)})
     trainer = Trainer(tconfig.loads(layer), device="cpu")
     seen, trained = [], []
     evaluate = trainer._evaluate_at
@@ -518,22 +520,23 @@ def test_an_eval_only_run_evaluates_once_with_tree_distances():
 
 def test_main_evaluates_on_the_cpu(tmp_path):
     exp = tmp_path / "eval_only.yaml"
-    exp.write_text(yaml.safe_dump({"is_train": False}))
+    exp.write_text(yaml.safe_dump({"is_train": False, "machine": {"save_root": str(tmp_path)}}))
     out = subprocess.run(
         [sys.executable, "-m", "hvt_torch.main", "--machine", "configs/machines/local.yaml",
          "--exp", "configs/pretrain/debug_synthetic.yaml", str(exp), "--device", "cpu"],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
-    assert lines[-2].startswith("[r50_debug_synthetic] eval at step 0:")
+    assert lines[-2].startswith("[r50_debug_synthetic] step=0, eval/acc@1=")
     metrics = json.loads(lines[-1])
     assert set(metrics) == {"acc@1", "acc@5", "cross-entropy", "tree-dist"}
     assert all(np.isfinite(v) for v in metrics.values())
     assert 0.0 <= metrics["tree-dist"] <= 7.0
 
 
-def test_main_returns_the_eval_metrics():
-    metrics = tmain.main(tconfig.loads(_trainer_layer(max_duration="2ba")), device="cpu")
+def test_main_returns_the_eval_metrics(tmp_path):
+    layer = _trainer_layer(max_duration="2ba", machine={"save_root": str(tmp_path)})
+    metrics = tmain.main(tconfig.loads(layer), device="cpu")
     assert set(metrics) == {"acc@1", "acc@5", "cross-entropy"}
 
 

@@ -290,9 +290,10 @@ def test_three_sgdw_steps_with_ema_match_hvt_build_train_step(interval, bn_palla
 # ---------------------------------------------------------------------------
 
 
-def _train_layer(**model_args):
+def _train_layer(save_root, **model_args):
     return {
         "run_name": "resnet_test", "seed": 5, "max_duration": "3ba", "grad_accum": 1,
+        "machine": {"save_root": str(save_root)},
         "model": {"name": "resnet_micro_bottleneck", "args": {"stem_s2d": True, **model_args}},
         "train_dataset": {"source": "synthetic", "crop_size": 32,
                           "synthetic_num_classes": NUM_CLASSES, "synthetic_num_samples": 8,
@@ -313,8 +314,8 @@ def _train_layer(**model_args):
     }
 
 
-def test_trainer_holds_and_exposes_the_ema():
-    trainer = Trainer(tconfig.loads(_train_layer(bn_pallas=True)), device="cpu")
+def test_trainer_holds_and_exposes_the_ema(tmp_path):
+    trainer = Trainer(tconfig.loads(_train_layer(tmp_path, bn_pallas=True)), device="cpu")
     init = {k: v.clone() for k, v in trainer.model.state_dict().items()}
     seen = []
     metrics = trainer.fit(on_step=lambda step, stats: seen.append(float(stats["loss_sum"])))
@@ -329,7 +330,7 @@ def test_trainer_holds_and_exposes_the_ema():
     assert not torch.equal(trainer.eval_params[w], live[w])
     assert not torch.equal(trainer.eval_batch_stats["stem.bn.running_var"], init["stem.bn.running_var"])
     # without EMA, evaluation uses the live tensors
-    layer = _train_layer()
+    layer = _train_layer(tmp_path / "plain")
     layer["algorithms"] = layer["algorithms"][2:]
     plain = Trainer(tconfig.loads(layer), device="cpu")
     assert plain.ema is None
@@ -338,14 +339,15 @@ def test_trainer_holds_and_exposes_the_ema():
 
 def test_main_trains_resnet_with_ema_on_the_cpu(tmp_path):
     exp = tmp_path / "resnet.yaml"
-    exp.write_text(yaml.safe_dump(_train_layer(bn_pallas=True)))
+    exp.write_text(yaml.safe_dump(_train_layer(tmp_path, bn_pallas=True)))
     out = subprocess.run(
         [sys.executable, "-m", "hvt_torch.main", "--machine", "configs/machines/local.yaml",
          "--exp", str(exp), "--device", "cpu"],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
-    assert "step 3/3" in lines[-3] and "eval at step 3:" in lines[-2]
+    assert lines[-3].startswith("[resnet_test] step=3, train-epoch/acc@1=")
+    assert lines[-2].startswith("[resnet_test] step=3, eval/acc@1=")
     metrics = json.loads(lines[-1])
     assert np.isfinite(metrics["cross-entropy"]) and 0.0 <= metrics["acc@1"] <= 1.0
 

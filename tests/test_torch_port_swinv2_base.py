@@ -222,9 +222,10 @@ def test_choose_grad_accum_matches_hvt(need, batch, limit, max_accum):
     assert run(tmicrobatch.choose_grad_accum) == run(jmicrobatch.choose_grad_accum)
 
 
-def _layer(model="resnet_micro_bottleneck"):
+def _layer(save_root, model="resnet_micro_bottleneck"):
     return {
         "run_name": "auto_accum", "seed": 5, "max_duration": "1ba", "grad_accum": "auto",
+        "machine": {"save_root": str(save_root)},
         "model": {"name": model, "args": {}},
         "train_dataset": {"source": "synthetic", "crop_size": 32, "synthetic_num_classes": NUM_CLASSES,
                           "synthetic_num_samples": 8, "global_batch_size": 4},
@@ -235,12 +236,13 @@ def _layer(model="resnet_micro_bottleneck"):
     }
 
 
-def test_grad_accum_auto_resolves_to_1_on_the_cpu():
-    trainer = tloop.Trainer(tconfig.loads(_layer()), device="cpu")
+def test_grad_accum_auto_resolves_to_1_on_the_cpu(tmp_path):
+    trainer = tloop.Trainer(tconfig.loads(_layer(tmp_path)), device="cpu")
     assert trainer.grad_accum == 1 and trainer.settings.grad_accum == 1
 
 
-def test_grad_accum_auto_probes_without_touching_the_model_and_refuses_a_split(monkeypatch):
+def test_grad_accum_auto_probes_without_touching_the_model_and_refuses_a_split(monkeypatch,
+                                                                              tmp_path):
     """The card is faked: a limit of 300 bytes, and a probe that runs the
     Trainer's real probe step on the CPU and reports 100 bytes per image. A
     batch of 4 (400 bytes) then needs 2 microbatches, and the Trainer
@@ -258,13 +260,14 @@ def test_grad_accum_auto_probes_without_touching_the_model_and_refuses_a_split(m
     monkeypatch.setattr(tmicrobatch, "optimizer_state_bytes", lambda opt: 0)
     monkeypatch.setattr(tmicrobatch, "device_bytes_limit", lambda device: 300)
     with pytest.raises(NotImplementedError, match="2 microbatches.*queue 1, item 5"):
-        tloop.Trainer(tconfig.loads(_layer()), device="cpu")
+        tloop.Trainer(tconfig.loads(_layer(tmp_path)), device="cpu")
     assert probed == [4, 2]
 
     monkeypatch.setattr(tmicrobatch, "device_bytes_limit", lambda device: 10**6)
-    trainer = tloop.Trainer(tconfig.loads(_layer()), device="cpu")
+    trainer = tloop.Trainer(tconfig.loads(_layer(tmp_path)), device="cpu")
     assert probed[2:] == [4] and trainer.grad_accum == 1
-    plain = tloop.Trainer(tconfig.loads({**_layer(), "grad_accum": 1}), device="cpu")
+    plain = tloop.Trainer(tconfig.loads({**_layer(tmp_path / "plain"), "grad_accum": 1}),
+                          device="cpu")
     got, ref = trainer.model.state_dict(), plain.model.state_dict()
     assert any("running_mean" in name for name in ref)  # BatchNorm buffers are covered
     for name in ref:

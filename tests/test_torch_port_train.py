@@ -466,19 +466,20 @@ def test_folder_train_source_raises():
 
 def test_main_trains_on_the_cpu(tmp_path):
     exp = tmp_path / "micro.yaml"
-    exp.write_text(yaml.safe_dump(_train_layer()))
+    exp.write_text(yaml.safe_dump({**_train_layer(), "machine": {"save_root": str(tmp_path)}}))
     out = subprocess.run(
         [sys.executable, "-m", "hvt_torch.main", "--machine", "configs/machines/local.yaml",
          "--exp", str(exp), "--device", "cpu"],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
-    assert "step 2/2" in lines[-3] and "eval at step 2:" in lines[-2]
+    assert lines[-3].startswith("[train_test] step=2, train-epoch/acc@1=")
+    assert lines[-2].startswith("[train_test] step=2, eval/acc@1=")
     metrics = json.loads(lines[-1])
     assert np.isfinite(metrics["cross-entropy"]) and 0.0 <= metrics["acc@1"] <= 1.0
 
 
-def test_trainer_takes_its_steps_and_draws_drop_path():
+def test_trainer_takes_its_steps_and_draws_drop_path(tmp_path):
     seen, trainers = [], []
 
     class Recording(tmain.Trainer):
@@ -486,7 +487,7 @@ def test_trainer_takes_its_steps_and_draws_drop_path():
             super().__init__(*args, **kwargs)
             trainers.append(self)
 
-    layer = _train_layer()
+    layer = {**_train_layer(), "machine": {"save_root": str(tmp_path)}}
     layer["max_duration"] = "3ba"  # 2 batches per epoch: crosses an epoch
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tmain, "Trainer", Recording)
@@ -500,12 +501,12 @@ def test_trainer_takes_its_steps_and_draws_drop_path():
     assert rates == pytest.approx([0.0, 0.2])  # hvt's np.linspace(0, rate, depth)
 
 
-def test_main_trains_the_fused_route_on_the_cpu():
+def test_main_trains_the_fused_route_on_the_cpu(tmp_path):
     """``fuse: true`` with drop path 0.2: two steps through the fused halves'
     autograd Functions (their plain versions on the CPU), both drop-path
     draws per block, finite losses."""
     seen = []
-    layer = _train_layer()
+    layer = {**_train_layer(), "machine": {"save_root": str(tmp_path)}}
     layer["model"]["args"]["fuse"] = True
     metrics = tmain.main(tconfig.loads(layer), device="cpu",
                          on_step=lambda step, stats: seen.append(float(stats["loss_sum"])))
