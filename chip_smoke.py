@@ -7,7 +7,9 @@
                                        # ResNet-50 BatchNorm
 
 Phases, in order; any failure exits non-zero and prints no result:
-  1. the card's name and power limit (nvidia-smi);
+  1. the card's name and power limit (nvidia-smi); the host the loader runs
+     on: CPU count and affinity, g++, jpeglib.h and -ljpeg (a probe
+     program compiled and linked), sklearn;
   2. build every kernel from hvt_torch/ops/csrc (one nvcc per source, in parallel),
      and print each kernel's registers, static shared memory and spills
      (ptxas) and the dynamic shared memory of the window-attention
@@ -143,7 +145,33 @@ Phases, in order; any failure exits non-zero and prints no result:
      checkpoint of SwinV2-T, ResNet-50 with EMA and SwinV2-B (phase 10's
      model after one step): bytes on disk, ``save``'s blocking ms (host
      clock and CUDA events), the background write's seconds and
-     ``restore``'s.
+     ``restore``'s;
+ 15. training from JPEG folders: (a) hvt's loader fixture at iNat21's width
+     (10,000 class directories, 2,560 train and 512 val JPEGs of seeded
+     noise at 500x375, written by Pillow on every core); (b) the loader
+     alone (``hvt_torch.tools.loader_bench``): img/s on the native and the
+     Pillow route at 1, 4, 8 and every thread, train (bare, and with host
+     RandAugment + ColOut) and eval; (c) ``hvt_torch.main.main`` trains
+     ResNet-50 from configs/pretrain/inat21.yaml as written but for batch
+     256, bn_pallas and 20 steps (two epochs, every progressive bucket,
+     112 → 224 px): 53 launches a step of each BatchNorm kernel, the loop's
+     ms a step per bucket beside the step alone on a resident batch (busy
+     share); the BatchNorm pair against f64 sums and its plain version and
+     timed at each smaller bucket's shapes (from forward hooks); one step
+     at 136 px against the plain path in bf16 (loss) and f32 (gradients);
+     (d) SwinV2-T on fuse: true at batch 128 from the fixture, with host
+     RandAugment + ColOut + MixUp, then device RandAugment + ColOut +
+     CutMix: 12 launches a step of each fused kernel, loop and resident
+     step ms, busy share; (e) ``hvt_torch.tools.train_input_bench`` on
+     (c)'s and (d)'s Trainers: host, device and combined img/s,
+     overlap_efficiency, the host ms of a step call alone and in the loop;
+     (f) every device augmentation on the card against the CPU with the
+     same draws (RandAugment's pointwise ops equal, its geometric ops, both
+     policies and ColOut within 1 on under 1% of pixels, MixUp, CutMix and
+     the progressive resize in f32 and bf16), then timed at batches 256 and
+     128; (g) ResNet-50 from the fixture with every augmentation, resumed
+     from step 2 of 4 as in 14 (b). (c)-(e) must decode natively where
+     phase 1 found libjpeg; without it they run on Pillow and say so.
 Every Trainer writes its checkpoints and run log under a temporary
 ``machine.save_root``, emptied at the end of each run or phase and removed
 at exit; the Trainers' own lines (the RunLogger's config and records) go to
@@ -2090,13 +2118,16 @@ def train_batch(seed: int, batch: int):
 
 
 def gradient_check(config, label: str, randomize: bool = True, hold_gradients: bool = True,
-                   path=contextlib.nullcontext) -> dict:
+                   path=contextlib.nullcontext, prepare=None) -> dict:
     """One step's loss and parameter gradients from the same seeded weights
     and batch on the kernel path (or under ``path()``) and on the plain path,
     with cuDNN deterministic so that only the kernels tell the paths apart;
     ``randomize`` draws every SwinV2 parameter (its res-post-norm starts at
     zero). Without ``hold_gradients`` only the loss is held and the
-    gradients' agreement is recorded."""
+    gradients' agreement is recorded. ``prepare(images, labels)`` → (model
+    input, targets), computed once for both paths, stands in for
+    normalize and the smoothed targets (phase 15: the train step's
+    augmentations with fixed draws)."""
     import torch
 
     from hvt_torch import objectives
@@ -2111,11 +2142,14 @@ def gradient_check(config, label: str, randomize: bool = True, hold_gradients: b
     prep = DevicePrep.from_config(config.train_dataset, config.precision)
     smoothing = algorithms.parse_algorithms(config).label_smoothing
     images, labels, mask = train_batch(17, config.train_dataset.global_batch_size)
+    if prepare is None:
+        x, targets = prep.normalize(images), device_prep.prepare_targets(labels, CLASSES, smoothing)
+    else:
+        x, targets = prepare(images, labels)
 
     def loss_and_grads():
         model.zero_grad(set_to_none=True)
-        targets = device_prep.prepare_targets(labels, CLASSES, smoothing)
-        loss = objectives.soft_cross_entropy(model(prep.normalize(images)), targets, mask)
+        loss = objectives.soft_cross_entropy(model(x), targets, mask)
         loss.backward()
         return float(loss.detach()), {n: p.grad.float().clone() for n, p in model.named_parameters()}
 
@@ -2293,18 +2327,19 @@ def bn_train_check(x, g, scale, bias, what: str) -> dict:
     return errs
 
 
-def bn_records(timing: bool) -> dict:
-    """Both BatchNorm kernels at every ResNet-50 BatchNorm shape at
-    RESNET_BATCH: checked against f64 sums, their plain versions and (through
-    ``bn_train``) the plain path; or timed with their plain versions and the
-    library calls. Per training step: each shape's launches summed."""
+def bn_records(timing: bool, shapes=RESNET_BN_SHAPES) -> dict:
+    """Both BatchNorm kernels at every ResNet-50 BatchNorm shape (``shapes``:
+    (H = W, channels, layers); 224 px by default) at RESNET_BATCH: checked
+    against f64 sums, their plain versions and (through ``bn_train``) the
+    plain path; or timed with their plain versions and the library calls.
+    Per training step: each shape's launches summed."""
     import torch
 
     from hvt_torch.ops import bn_stats
 
     records = {name: {"max_abs_err": 0.0, "bytes": 0, "flops": 0, "stages": []}
                for name in BN_KERNELS}
-    for i, (grid, c, layers) in enumerate(RESNET_BN_SHAPES):
+    for i, (grid, c, layers) in enumerate(shapes):
         x, g, scale, bias = bn_inputs(grid, c, seed=500 + i)
         rows = x.shape[0]
         s, q = bn_stats.channel_sums(x)
@@ -3024,6 +3059,451 @@ def checkpoint_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 1's host facts and phase 15: training from JPEG folders
+# ---------------------------------------------------------------------------
+
+
+def host_facts() -> dict:
+    """The host the loader runs on: CPU count and affinity, whether g++
+    exists, whether jpeglib.h is found and -ljpeg links (one tiny program
+    compiled and linked), whether sklearn imports."""
+    import importlib
+
+    facts = {"cpu_count": os.cpu_count(), "affinity": len(os.sched_getaffinity(0)),
+             "gxx": shutil.which("g++"), "jpeglib_h": False, "ljpeg_links": False}
+    if facts["gxx"]:
+        with tempfile.TemporaryDirectory(prefix="hvt-chip-jpeg-") as tmp:
+            src = pathlib.Path(tmp) / "probe.cc"
+            src.write_text("#include <cstddef>\n#include <cstdio>\n#include <jpeglib.h>\n"
+                           "int main() { jpeg_error_mgr e; jpeg_std_error(&e); return 0; }\n")
+            facts["jpeglib_h"] = subprocess.run(
+                ["g++", "-E", str(src), "-o", os.devnull], capture_output=True, timeout=60,
+            ).returncode == 0
+            facts["ljpeg_links"] = subprocess.run(
+                ["g++", str(src), "-o", str(pathlib.Path(tmp) / "probe"), "-ljpeg"],
+                capture_output=True, timeout=60).returncode == 0
+    try:
+        importlib.import_module("sklearn")
+        facts["sklearn"] = True
+    except ImportError:
+        facts["sklearn"] = False
+    facts["libjpeg"] = facts["jpeglib_h"] and facts["ljpeg_links"]
+    return facts
+
+
+FIXTURE_TRAIN = 2560  # ten ResNet-50 batches of 256: an epoch of (c)
+FIXTURE_VAL = 512
+FOLDER_STEPS = 20  # (c): two epochs, across every progressive bucket
+LOADER_BATCH = 64  # (b)
+LOADER_BATCHES = 4
+INPUT_BENCH_STEPS = 10  # (e), each rate
+AUG_CHECK_BATCH = 32  # (f): the batch both devices augment
+_FIXTURES: list[pathlib.Path] = []  # removed at exit
+
+
+def write_fixture() -> dict:
+    """(a) hvt's fixture at iNat21's width: 10,000 class directories, 2,560
+    train and 512 val JPEGs of seeded noise, 500x375, written by Pillow
+    on every core."""
+    from hvt_torch.tools import loader_bench
+
+    root = pathlib.Path(tempfile.mkdtemp(prefix="hvt-chip-folder-"))
+    _FIXTURES.append(root)
+    fx = loader_bench.make_fixture(root, FIXTURE_TRAIN, FIXTURE_VAL, classes=CLASSES,
+                                   workers=os.cpu_count() or 1)
+    log(f"  (a) fixture: {fx['images']} JPEGs (500x375, quality 85) over {CLASSES} classes in "
+        f"{fx['seconds']:.1f} s, mean file {fx['mean_bytes'] / 1e3:.1f} kB")
+    return fx
+
+
+def loader_rates(root: str, native: bool, cpus: int) -> list:
+    """(b) the Loader alone (the ported loader_bench): img/s on each route at
+    1, 4, 8 and every thread of the host, train (bare and with host
+    RandAugment + ColOut) and eval."""
+    from hvt_torch.data import native as native_lib
+    from hvt_torch.tools import loader_bench
+
+    rows = []
+    for threads in sorted({1, 4, 8, cpus}):
+        for mode, augment in (("train", "none"), ("train", "host"), ("eval", "none")):
+            for route in ("native", "pillow"):
+                r = loader_bench.bench_pipeline(root, LOADER_BATCH, LOADER_BATCHES, threads, route,
+                                                mode == "train", augment)
+                if "skipped" in r:
+                    if native or route != "native":
+                        raise AssertionError(f"loader_bench {route}: {r['skipped']}")
+                    continue
+                rows.append(r)
+    if not native:
+        log("  (b) native route skipped (no libjpeg on this host): "
+            f"{native_lib.unavailable_reason()}")
+    for r in rows:
+        log(f"  (b) {r['route']:6s} {r['mode']:5s} augment {r['augment']:4s} threads "
+            f"{r['threads']:3d}: {r['images_per_sec']:8.1f} img/s ({r['images_per_sec'] / r['threads']:.1f} "
+            f"a thread; {cpus} CPUs)")
+    return rows
+
+
+def folder_layer(root: str, batch: int, eval_batch: int) -> dict:
+    return {"machine": {"save_root": str(runs_root()), "datasets": {"inat_fixture": root}},
+            "save": {"wandb": False}, "eval_interval": "1dur",
+            "train_dataset": {"source": "imagefolder", "path": "inat_fixture",
+                              "global_batch_size": batch},
+            "eval_dataset": {"source": "imagefolder", "path": "inat_fixture",
+                             "global_batch_size": eval_batch}}
+
+
+def folder_resnet_config(root: str, steps: int = FOLDER_STEPS, extra_algorithms=(),
+                         eval_batch=None):
+    """(c) configs/pretrain/inat21.yaml as written (BlurPool, EMA 100ba/20ba,
+    ProgressiveResizing 0.5/0.4/0.2, smoothing 0.08, clip 2.0, its optimizer
+    and schedule), except: batch RESNET_BATCH, bn_pallas, ``steps`` steps,
+    the fixture as its train and val folders, evaluated before the first
+    step and after the last; ``extra_algorithms`` appended."""
+    from hvt_torch import config as config_lib
+
+    base = config_lib.load(machine=str(ROOT / "configs/machines/local.yaml"),
+                           exps=[str(ROOT / "configs/pretrain/inat21.yaml")])
+    tree = config_lib.to_dict(base)
+    layer = folder_layer(root, RESNET_BATCH, eval_batch or tree["eval_dataset"]["global_batch_size"])
+    layer.update({"max_duration": f"{steps}ba", "model": {"args": {"bn_pallas": True}},
+                  "algorithms": tree["algorithms"] + list(extra_algorithms)})
+    return config_lib.loads(tree, layer)
+
+
+def folder_swin_config(root: str, extra_algorithms, steps: int = FOLDER_STEPS):
+    """(d) phase 7's SwinV2-T recipe on fuse: true at batch TRAIN_BATCH from
+    the fixture, ``extra_algorithms`` appended."""
+    from hvt_torch import config as config_lib
+
+    base = training_config(fuse=True, steps=steps)
+    tree = config_lib.to_dict(base)
+    layer = folder_layer(root, TRAIN_BATCH, TRAIN_BATCH)
+    layer["algorithms"] = tree["algorithms"] + list(extra_algorithms)
+    layer["eval_dataset"]["resize_size"] = 256
+    return config_lib.loads(tree, layer)
+
+
+def resident_step_ms(trainer, scale: float, iters: int = 5) -> float:
+    """The Trainer's step alone at ``scale`` on one batch already on the card
+    (CUDA events, after two warm steps): its device time a step."""
+    import torch
+
+    batch = trainer._to_device(next(trainer.train_loader.epoch(0)))
+    for _ in range(2):
+        trainer.train_step(*batch, trainer.generator, scale)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        trainer.train_step(*batch, trainer.generator, scale)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bn_shapes_at(model, size: int) -> tuple:
+    """(H = W, channels, layers) of every BatchNorm input of ``model`` at a
+    ``size`` px image: forward hooks over one eval forward of one image."""
+    import collections
+
+    import torch
+
+    from hvt_torch.models.common import PallasBatchNorm
+
+    seen = collections.Counter()
+    hooks = [m.register_forward_hook(lambda _m, args, _out: seen.update([tuple(args[0].shape[1:])]))
+             for m in model.modules() if isinstance(m, PallasBatchNorm)]
+    training = model.training
+    try:
+        model.eval()
+        with torch.no_grad():
+            model(torch.zeros((1, size, size, 3), device="cuda", dtype=torch.bfloat16))
+    finally:
+        model.train(training)
+        for h in hooks:
+            h.remove()
+    return tuple((h, c, n) for (h, _w, c), n in sorted(seen.items(), key=lambda kv: (-kv[0][0], kv[0][2])))
+
+
+def bucket_steps(trainer, steps: int) -> dict:
+    """Step indices (0-based) of each progressive bucket's image size."""
+    from hvt_torch.data import device as device_prep
+
+    crop = trainer.config.train_dataset.crop_size
+    out: dict = {}
+    for k in range(steps):
+        scale = trainer._scale_for_step(k)
+        size = crop if scale >= 1.0 else device_prep.resized_size(crop, scale)
+        out.setdefault(size, {"scale": scale, "steps": []})["steps"].append(k)
+    return out
+
+
+def folder_resnet(root: str, native: bool, card: str) -> dict:
+    """(c), and (e) for its model."""
+    import torch
+
+    from hvt_torch.data import device as device_prep
+    from hvt_torch.train import step as step_lib
+
+    per_step = {k: RESNET_BN_LAYERS for k in BN_KERNELS}
+    rec, trainer = train_run(folder_resnet_config(root), per_step, "resnet50 inat21.yaml folder", {})
+    decoder = trainer.train_loader.decoder
+    if native and decoder != "native":
+        raise AssertionError(f"phase 1 found libjpeg, but the train loader decoded with {decoder}")
+    buckets = bucket_steps(trainer, rec["steps"])
+    if sorted(buckets) != [112, 136, 168, 192, 224]:
+        raise AssertionError(f"progressive buckets {sorted(buckets)}")
+    for size, b in buckets.items():
+        loop = [rec["step_ms"][k - 1] for k in b["steps"] if k >= 1]  # event gaps: step k's
+        later = sorted(loop[1:]) if len(loop) > 1 else loop
+        b["loop_ms"] = loop
+        b["loop_ms_median"] = later[len(later) // 2]
+        b["first_step_only"] = len(loop) <= 1
+        b["device_ms"] = resident_step_ms(trainer, b["scale"])
+        b["busy_share"] = b["device_ms"] / b["loop_ms_median"]
+        log(f"  (c) {size} px (scale {b['scale']}, steps {b['steps']}): loop {b['loop_ms_median']:.2f} ms "
+            f"a step{' (its only step, the first)' if b['first_step_only'] else ' (median after the first)'}, "
+            f"the step alone on a resident batch {b['device_ms']:.2f} ms: busy {100 * b['busy_share']:.1f}%")
+    rec["decoder"], rec["buckets"] = decoder, buckets
+    rec["bn_launches_per_step"] = {k: rec["launches"][k] / rec["steps"] for k in BN_KERNELS}
+    log(f"  (c) decoder {decoder}; BatchNorm launches a step {rec['bn_launches_per_step']}")
+    bench = train_input_bench_row(trainer, "resnet50")
+    model = trainer.model
+    del trainer
+    rec["bn"] = {}
+    for size in (112, 136, 168, 192):
+        shapes = bn_shapes_at(model, size)
+        if sum(n for _, _, n in shapes) != RESNET_BN_LAYERS:
+            raise AssertionError(f"{size} px: BatchNorm shapes {shapes}")
+        log(f"  (c) BatchNorm pair vs f64 and plain versions at {size} px: maps "
+            f"{sorted({h for h, _, _ in shapes}, reverse=True)}")
+        checked = bn_records(False, shapes)
+        timed = bn_records(True, shapes)
+        rec["bn"][size] = {"shapes": shapes, **{k: {
+            "max_abs_err": checked[k]["max_abs_err"], "ms": timed[k]["ms"],
+            "plain_ms": timed[k]["plain_ms"], "bound_ms": timed[k]["bound_ms"],
+            "library_ms": timed[k]["library_ms"],
+            "stages": {"check": checked[k]["stages"], "timed": timed[k]["stages"]}}
+            for k in BN_KERNELS}}
+        for k in BN_KERNELS:
+            r = rec["bn"][size][k]
+            log(f"  (c) {k} at {size} px: {r['ms']:.4f} ms a step ({RESNET_BN_LAYERS} launches), "
+                f"plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f}, library {r['library_ms']:.4f} "
+                f"on {card}")
+    del model
+    torch.cuda.empty_cache()
+    scale = 0.625  # 136 px: odd maps 17, 9, 5
+    rec["gradients"] = {}
+    for dtype, hold in (("bfloat16", False), ("float32", True)):
+        cfg = with_changes(folder_resnet_config(root), precision={"compute_dtype": dtype})
+        prep = device_prep.DevicePrep.from_config(cfg.train_dataset, cfg.precision)
+        settings = step_lib.StepSettings(num_classes=CLASSES, smoothing=0.08)
+        rec["gradients"][dtype] = gradient_check(
+            cfg, f"resnet50 folder recipe at 136 px, {dtype}", randomize=False,
+            hold_gradients=hold,
+            prepare=lambda im, la: step_lib.augment(im, la, prep, settings, scale, {}))
+    rec["input_bench"] = bench
+    return rec
+
+
+def train_input_bench_row(trainer, label: str) -> dict:
+    """(e) the ported train_input_bench on a Trainer that has trained."""
+    from hvt_torch.tools import train_input_bench
+
+    row = train_input_bench.measure(trainer, INPUT_BENCH_STEPS)
+    log(f"  (e) {label}: host {row['host_only_img_s']:.1f}, device {row['device_only_img_s']:.1f}, "
+        f"combined {row['combined_img_s']:.1f} img/s; overlap predicts "
+        f"{row['predicted_overlap_img_s']:.1f}, serial {row['predicted_serial_img_s']:.1f}; "
+        f"overlap efficiency {row['overlap_efficiency']:.3f} ({row['workers']} workers, "
+        f"decoder {row['decoder']}); host ms of a step call: {row['step_call_ms_alone']:.2f} "
+        f"alone, {row['step_call_ms_in_loop']:.2f} in the loop (median)")
+    return row
+
+
+SWIN_HOST_AUG = ({"cls": "RandAugment", "args": {"depth": 1, "severity": 9}},
+                 {"cls": "ColOut", "args": {"p_row": 0.05, "p_col": 0.05}},
+                 {"cls": "MixUp", "args": {"alpha": 0.2}})
+SWIN_DEVICE_AUG = ({"cls": "RandAugment", "args": {"depth": 1, "severity": 9, "device": True}},
+                   {"cls": "ColOut", "args": {"p_row": 0.05, "p_col": 0.05, "device": True}},
+                   {"cls": "CutMix", "args": {"alpha": 1.0}})
+
+
+def folder_swin(root: str, native: bool) -> dict:
+    """(d), and (e) for its model."""
+    out = {}
+    for label, algos in (("host RandAugment + ColOut, MixUp", SWIN_HOST_AUG),
+                         ("device RandAugment + ColOut, CutMix", SWIN_DEVICE_AUG)):
+        rec, trainer = train_run(folder_swin_config(root, algos),
+                                 {k: 12 for k in TRAIN_KERNELS[True]}, f"swinv2_tiny fuse=True {label}",
+                                 EVAL_PER_FORWARD["swinv2_tiny fuse=True"])
+        if native and trainer.train_loader.decoder != "native":
+            raise AssertionError(f"(d) {label}: decoder {trainer.train_loader.decoder}")
+        rec["device_ms"] = resident_step_ms(trainer, 1.0)
+        rec["busy_share"] = rec["device_ms"] / rec["step_ms_median"]
+        log(f"  (d) {label}: {rec['step_ms_median']:.2f} ms a step in the loop "
+            f"({rec['images_per_s']:.1f} img/s), the step alone {rec['device_ms']:.2f} ms: busy "
+            f"{100 * rec['busy_share']:.1f}%")
+        rec["input_bench"] = train_input_bench_row(trainer, f"swinv2_tiny {label}")
+        out[label] = rec
+        del trainer
+    return out
+
+
+def _uint8_close(a, b, what: str, exact: bool) -> dict:
+    d = (a.cpu().int() - b.int()).abs()
+    share = float((d > 0).float().mean())
+    if (exact and share > 0) or int(d.max()) > 1 or share >= 0.01:
+        raise AssertionError(f"{what}: card vs CPU max |Δ| {int(d.max())} on {share:.4%} of pixels")
+    return {"max": int(d.max()), "share": share}
+
+
+def _float_close(a, b, what: str, bf16: bool) -> float:
+    import torch
+
+    a, b = a.cpu().float(), b.float()
+    if bf16:  # one ulp at the CPU's value plus one ulp of max|x| (an intermediate rounded apart)
+        ulp = torch.exp2(torch.floor(torch.log2(b.abs().clamp_min(1e-30))) - 7)
+        ulp = ulp + 2.0 ** (math.floor(math.log2(float(b.abs().max()))) - 7)
+        ok = bool(((a - b).abs() <= ulp).all())
+    else:
+        ok = float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    if not ok:
+        raise AssertionError(f"{what}: card vs CPU max |Δ| {float((a - b).abs().max()):.3g}")
+    return float((a - b).abs().max())
+
+
+def augment_checks(card: str) -> dict:
+    """(f) every device augmentation on the card against the same function on
+    the CPU, the same draws (made on the card, copied), at 224 px: each
+    RandAugment op (pointwise equal, geometric within 1 on under 1% of
+    pixels), both policies and ColOut (within 1 on under 1%), MixUp and
+    CutMix (f32 within 1e-5·max, bf16 within an ulp), progressive_resize at
+    every bucket (f32 within 1e-5·max|x|, bf16 within one ulp of the value
+    plus one of max|x|); then each timed on the card at the batches the
+    recipes train (ResNet-50 256, SwinV2-T 128)."""
+    import numpy as np
+    import torch
+
+    from hvt_torch.data import device as dp
+    from hvt_torch.data import randaugment as ra
+
+    rng = np.random.default_rng(41)
+    b = AUG_CHECK_BATCH
+    gy, gx = np.mgrid[0:224, 0:224]
+    base = np.stack([gx, gy, (gx + gy) // 2], -1)
+    host = (base[None] + rng.integers(0, 64, (b, 224, 224, 3))).clip(0, 255).astype(np.uint8)
+    x_cpu = torch.from_numpy(host)
+    x = x_cpu.cuda()
+    gen = torch.Generator("cuda").manual_seed(43)
+    out = {"ops": {}, "policies": {}, "resize": {}}
+    coin = torch.rand(b, generator=gen, device="cuda")
+    sign = torch.where(coin < 0.5, 1.0, -1.0)
+    factor = ra._factor(sign, 9)
+    for name in ra.OP_NAMES:
+        got = ra._apply_op_static(name, x, sign, factor, 9)
+        ref = ra._apply_op_static(name, x_cpu, sign.cpu(), factor.cpu(), 9)
+        out["ops"][name] = _uint8_close(got, ref, f"RandAugment {name}",
+                                        exact=name not in ("rotate", "shear_x", "shear_y",
+                                                           "translate_x", "translate_y"))
+    for stratified in (True, False):
+        draws = ra.draw_rand_augment(gen, b, 1, stratified, "cuda")
+        got = ra.rand_augment(x, draws, 9, stratified)
+        ref = ra.rand_augment(x_cpu, [(c.cpu(), s.cpu()) for c, s in draws], 9, stratified)
+        out["policies"]["stratified" if stratified else "iid"] = _uint8_close(
+            got, ref, f"RandAugment stratified={stratified}", exact=False)
+    draws = dp.draw_colout(gen, b, 224, 224, 0.05, 0.05, "cuda")
+    out["colout"] = _uint8_close(dp.colout(x, draws), dp.colout(x_cpu, tuple(d.cpu() for d in draws)),
+                                 "ColOut", exact=False)
+    xf = torch.randn((b, 224, 224, 3), generator=gen, device="cuda")
+    onehot = dp.prepare_targets(torch.randint(0, 100, (b,), generator=gen, device="cuda"), 100, 0.1)
+    lam = dp.draw_beta(gen, 0.2, "cuda")
+    cut = dp.draw_cutmix(gen, 1.0, 224, 224, "cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = xf.to(dtype)
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        for name, fn, args in (("mixup", dp.mixup, (lam,)), ("cutmix", dp.cutmix, cut)):
+            gi, gt = fn(xd, onehot, *args)
+            ri, rt = fn(xd.cpu(), onehot.cpu(), *(a.cpu() for a in args))
+            out[f"{name}_{tag}"] = max(_float_close(gi, ri, f"{name} {tag}", dtype == torch.bfloat16),
+                                       _float_close(gt, rt, f"{name} targets {tag}", False))
+        for scale in (0.5, 0.625, 0.75, 0.875):
+            got = dp.progressive_resize(xd, scale)
+            out["resize"][f"{scale} {tag}"] = _float_close(
+                got, dp.progressive_resize(xd.cpu(), scale), f"resize {scale} {tag}",
+                dtype == torch.bfloat16)
+    log(f"  (f) card vs CPU, the same draws, batch {b} at 224 px: RandAugment ops "
+        + ", ".join(f"{k} {v['max']}/{100 * v['share']:.3f}%" for k, v in out["ops"].items())
+        + "; policies " + ", ".join(f"{k} {v['max']}/{100 * v['share']:.3f}%"
+                                    for k, v in out["policies"].items())
+        + f"; ColOut {out['colout']['max']}/{100 * out['colout']['share']:.3f}% (max |Δ| / share of "
+        f"pixels); MixUp, CutMix, resize max |Δ| " + ", ".join(
+            f"{k} {v:.3g}" for k, v in {**{k: v for k, v in out.items() if k.startswith(('mixup', 'cutmix'))},
+                                        **out["resize"]}.items()))
+    times = {}
+    for batch in (RESNET_BATCH, TRAIN_BATCH):
+        xb = torch.from_numpy(np.concatenate([host] * (batch // b))).cuda()
+        xn = torch.randn((batch, 224, 224, 3), device="cuda", dtype=torch.bfloat16)
+        oh = dp.prepare_targets(torch.zeros(batch, dtype=torch.long, device="cuda"), CLASSES, 0.1)
+        t = times[batch] = {}
+        for stratified in (True, False):
+            d = ra.draw_rand_augment(gen, batch, 1, stratified, "cuda")
+            t[f"randaugment {'stratified' if stratified else 'iid'}"] = cuda_time_ms(
+                lambda: ra.rand_augment(xb, d, 9, stratified), iters=5, warmup=1)
+        d = dp.draw_colout(gen, batch, 224, 224, 0.05, 0.05, "cuda")
+        t["colout"] = cuda_time_ms(lambda: dp.colout(xb, d), iters=5, warmup=1)
+        t["mixup"] = cuda_time_ms(lambda: dp.mixup(xn, oh, lam), iters=5, warmup=1)
+        t["cutmix"] = cuda_time_ms(lambda: dp.cutmix(xn, oh, *cut), iters=5, warmup=1)
+        for scale in (0.5, 0.625, 0.75, 0.875):
+            t[f"resize {scale}"] = cuda_time_ms(lambda: dp.progressive_resize(xn, scale),
+                                                iters=5, warmup=1)
+        log(f"  (f) device ms at batch {batch} (224 px, bf16 after normalize) on {card}: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in t.items()))
+        del xb, xn
+    out["ms"] = times
+    torch.cuda.empty_cache()
+    return out
+
+
+def folder_resume(root: str) -> dict:
+    """(g) ResNet-50 from the fixture with every augmentation on (device
+    RandAugment and ColOut, MixUp, CutMix, the recipe's ProgressiveResizing
+    crossing 112 → 136 → 192 px): resumed from step RESNET_CKPT_AT of
+    RESNET_CKPT_STEPS, as phase 14's check."""
+    algos = ({"cls": "RandAugment", "args": {"depth": 1, "severity": 9, "device": True}},
+             {"cls": "ColOut", "args": {"p_row": 0.05, "p_col": 0.05, "device": True}},
+             {"cls": "MixUp", "args": {"alpha": 0.2}}, {"cls": "CutMix", "args": {"alpha": 1.0}})
+    cfg = folder_resnet_config(root, RESNET_CKPT_STEPS, algos, eval_batch=RESNET_BATCH)
+    rec, trainer, _ = resume_check("resnet50 folder, every augmentation", "augmented", cfg,
+                                   RESNET_CKPT_STEPS, RESNET_CKPT_AT,
+                                   {k: RESNET_BN_LAYERS for k in BN_KERNELS}, {})
+    del trainer
+    clear_runs()
+    return rec
+
+
+def input_phase(card: str, host: dict) -> dict:
+    """Phase 15 (a)-(g)."""
+    fx = write_fixture()
+    root = fx["root"]
+    native = host["libjpeg"]
+    if not native:
+        log("  phase 15 runs on Pillow: phase 1 found no libjpeg on this host")
+    out = {"fixture": fx, "native_expected": native}
+    out["loader"] = loader_rates(root, native, host["cpu_count"] or 1)
+    log("  (c) ResNet-50, configs/pretrain/inat21.yaml from the fixture (batch 256, bn_pallas, 20 steps)")
+    out["resnet50"] = folder_resnet(root, native, card)
+    clear_runs()
+    log("  (d) SwinV2-T fuse: true from the fixture, batch 128, twice")
+    out["swinv2_tiny"] = folder_swin(root, native)
+    clear_runs()
+    log("  (f) the device augmentations on the card against the CPU")
+    out["augment"] = augment_checks(card)
+    log("  (g) resume with every augmentation on")
+    out["resume"] = folder_resume(root)
+    return out
+
+
 def ptxas_summary(logs: dict) -> dict:
     """{source: [{kernel, registers, static_smem, spill_stores, spill_loads}]}
     from ``nvcc -Xptxas -v``'s report of each entry function."""
@@ -3094,6 +3574,11 @@ def main(argv=None) -> int:
     card = card_line()
     log(f"[1] card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
         f"Pillow {PIL.__version__}, PyYAML {yaml.__version__}")
+    host = host_facts()
+    log(f"[1] host: {host['cpu_count']} CPUs ({host['affinity']} in this process's affinity); "
+        f"g++ {host['gxx'] or 'missing'}; jpeglib.h {'found' if host['jpeglib_h'] else 'missing'}, "
+        f"-ljpeg {'links' if host['ljpeg_links'] else 'does not link'}; sklearn "
+        f"{'imports' if host['sklearn'] else 'missing'}")
 
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -3500,7 +3985,13 @@ def main(argv=None) -> int:
         f"{RESNET_CKPT_AT}), SIGTERM, swin:// and serving's load_path, the cost of a checkpoint")
     checkpoints = checkpoint_phase(card)
 
-    report = {"card": card, "batch": BATCH, "kernels": kernels, "routes": routes,
+    log(f"[15] training from JPEG folders: the fixture, the loader alone, ResNet-50 "
+        f"(inat21.yaml, progressive resizing) and SwinV2-T fuse: true from it, the input bench, "
+        f"the device augmentations against the CPU, a resume with every augmentation")
+    folders = input_phase(card, host)
+
+    report = {"card": card, "host": host, "folders": folders, "batch": BATCH, "kernels": kernels,
+              "routes": routes,
               "evaluation": evaluation, "checkpoints": checkpoints,
               "kernel_stages": {k: {"check": checked[k]["stages"], "timed": timed[k]["stages"]}
                                 for k in FORWARD_NAMES},
@@ -3638,6 +4129,6 @@ if __name__ == "__main__":
     try:
         code = main()
     finally:
-        for root in _RUNS:
+        for root in _RUNS + _FIXTURES:
             shutil.rmtree(root, ignore_errors=True)
     sys.exit(code)

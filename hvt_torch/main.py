@@ -13,9 +13,12 @@ as one JSON line. SwinV2 trains and evaluates on both routes (``fuse:
 false`` through the packed window-attention kernel, and its backward in
 training; ``fuse: true`` through the fused halves); ResNet trains with
 torch's BatchNorm, or with ``model.args.bn_pallas: true`` through the
-BatchNorm reduction kernels, and with EMA where the recipe asks for it
-(configs/pretrain/inat21.yaml). The algorithms the port's train step does
-not run yet raise.
+BatchNorm reduction kernels, and with EMA where the recipe asks for it.
+Training reads the synthetic source or an image folder (the native JPEG
+core or Pillow, with hvt's augmentations: host or device RandAugment and
+ColOut, MixUp, CutMix, progressive resizing), so
+configs/pretrain/inat21.yaml runs as written. The algorithms the port's
+train step does not run yet (SAM) raise.
 
 What persists, as with hvt's ``main.py``: checkpoints under
 ``<save_root>/<run_name>/checkpoints/<step>/state.pt`` (at every

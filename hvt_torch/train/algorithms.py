@@ -4,7 +4,7 @@ Parses every algorithm hvt's configs name (BlurPool, ChannelsLast, EMA,
 GradientClipping, ProgressiveResizing, LabelSmoothing, PretrainedBackbone,
 MixUp, CutMix, SAM, ColOut, RandAugment, StochasticDepth) into a settings
 struct. :func:`unported` names those the port's train step does not run
-yet; the Trainer refuses them rather than ignoring them.
+yet (SAM); the Trainer refuses them rather than ignoring them.
 """
 
 from __future__ import annotations
@@ -17,9 +17,31 @@ from hvt_torch.train.ema import EmaConfig
 
 @dataclasses.dataclass(frozen=True)
 class ProgressiveResizing:
+    """Composer's schedule: hold ``initial_scale`` for ``delay_fraction`` of
+    training, ramp linearly to 1.0, train at full size for the last
+    ``finetune_fraction``; quantized to ``num_buckets`` steps above
+    ``initial_scale``, so the step meets a few image sizes only."""
+
     initial_scale: float = 0.5
     delay_fraction: float = 0.4
     finetune_fraction: float = 0.2
+    num_buckets: int = 4
+
+    def scale_at(self, frac_of_training: float) -> float:
+        t = frac_of_training
+        if t < self.delay_fraction:
+            s = self.initial_scale
+        elif t > 1.0 - self.finetune_fraction:
+            s = 1.0
+        else:
+            ramp = (t - self.delay_fraction) / max(
+                1.0 - self.finetune_fraction - self.delay_fraction, 1e-9)
+            s = self.initial_scale + ramp * (1.0 - self.initial_scale)
+        width = (1.0 - self.initial_scale) / self.num_buckets
+        if width <= 0:
+            return 1.0
+        k = round((s - self.initial_scale) / width)
+        return min(1.0, self.initial_scale + k * width)
 
 
 @dataclasses.dataclass
@@ -36,7 +58,9 @@ class AlgorithmSettings:
     sam_interval: int = 1
     stochastic_depth_rate: Optional[float] = None  # read by the model factory
     pretrained_backbone: Optional[tuple[str, bool]] = None  # (checkpoint URI, strict)
-    # host-side RandAugment/ColOut belong to the folder train transform
+    # without device: true, RandAugment/ColOut belong to the folder train
+    # transform (hvt_torch.data.loader.build_transform); with it, the train
+    # step runs them on the batch: (p_row, p_col), (depth, severity, stratified)
     colout_device: Optional[tuple[float, float]] = None
     randaugment_device: Optional[tuple[int, int, bool]] = None
 
@@ -92,15 +116,5 @@ def parse_algorithms(config) -> AlgorithmSettings:
 def unported(s: AlgorithmSettings) -> list[str]:
     """One line per parsed setting the port's train step does not run yet,
     naming the ROADMAP.md item that ports it."""
-    item4 = "ROADMAP.md queue 1, item 4 (device prep)"
-    item5 = "ROADMAP.md queue 1, item 5 (train step)"
-    found = [
-        (s.sam_rho is not None, f"SAM: {item5}"),
-        (s.mixup_alpha is not None, f"MixUp: {item4}"),
-        (s.cutmix_alpha is not None, f"CutMix: {item4}"),
-        (s.progressive is not None, f"ProgressiveResizing: {item4}"),
-        (s.randaugment_device is not None,
-         "RandAugment with device: true: ROADMAP.md queue 1, item 6 (training loader)"),
-        (s.colout_device is not None, f"ColOut with device: true: {item4}"),
-    ]
+    found = [(s.sam_rho is not None, "SAM: ROADMAP.md queue 1, item 5 (train step)")]
     return [why for on, why in found if on]

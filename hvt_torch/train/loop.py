@@ -1,6 +1,9 @@
 """The Trainer — port of ``hvt/train/loop.py``.
 
-Assembles from a Config the train and eval loaders, the durations and lr
+Assembles from a Config the train and eval loaders (prefetching on a
+producer thread, which pins each batch for the card; the first log line
+names each loader's decoder: synthetic, the native libjpeg core or Pillow),
+the durations and lr
 schedule, the model (SwinV2 or ResNet, through the factory), the objective,
 the optimizer (with the model's no-decay names and gradient clipping), the
 EMA where the algorithms ask for it, the train step and the eval step (with
@@ -28,11 +31,14 @@ grammar ("Nep" at epoch ends, "Nba" every N steps, "Fdur" as a fraction of
 there is one; it saves at every ``save.interval`` (same grammar) and always
 at the end; a SIGTERM finishes the step in flight, saves and returns. Its
 records go through the RunLogger with hvt's prefixes (``eval``, ``train``
-every ``log_interval`` steps with the lr, samples/sec and memory,
-``train-epoch``); it returns the last eval metrics, and ``train_metrics``
-keeps the last train record's metrics with its lr. SAM, MixUp, CutMix,
-progressive resizing, device RandAugment/ColOut and ``grad_accum`` > 1 are
-refused, never ignored. ``grad_accum: auto`` is sized on the card as hvt
+every ``log_interval`` steps with the lr, the step's progressive-resize
+scale, samples/sec and memory, ``train-epoch``); it returns the last eval
+metrics, and ``train_metrics`` keeps the last train record's metrics with
+its lr. MixUp, CutMix, progressive resizing (``_scale_for_step``: hvt's
+bucketed schedule over the fraction of training) and host or device
+RandAugment/ColOut run, their draws from the one saved generator, so a
+resume stays exact with them on; SAM and ``grad_accum`` > 1 are refused,
+never ignored. ``grad_accum: auto`` is sized on the card as hvt
 sizes it (:mod:`hvt_torch.train.microbatch`: the peak memory of a probe
 forward and backward at the full batch against the card's memory) and
 resolves to 1 where the batch fits, and to 1 on the CPU, as hvt's does
@@ -56,7 +62,7 @@ from hvt_torch import metrics as metrics_lib
 from hvt_torch import objectives as objectives_lib
 from hvt_torch.data import DevicePrep
 from hvt_torch.data import device as device_prep
-from hvt_torch.data.loader import Batch, build_loader
+from hvt_torch.data.loader import Batch, build_loader, host_tensor
 from hvt_torch.models import build_model
 from hvt_torch.train import algorithms as algorithms_lib
 from hvt_torch.train import checkpoint as checkpoint_lib
@@ -79,10 +85,15 @@ class Trainer:
         self.device = device_lib.resolve(device)
 
         # Data ------------------------------------------------------------
-        self.train_loader, self.info = build_loader(config, is_train=True)
-        self.eval_loader, eval_info = build_loader(config, is_train=False)
+        pin = self.device.type == "cuda"  # the producer pins; _to_device only copies
+        self.train_loader, self.info = build_loader(config, is_train=True, pin_memory=pin)
+        self.eval_loader, eval_info = build_loader(config, is_train=False, pin_memory=pin)
         self.steps_per_epoch = self.train_loader.batches_per_epoch
         self.tree_dists = eval_info.tree_dists
+        print(f"[{config.run_name}] train loader: {len(self.train_loader.dataset)} images, "
+              f"decoder {self.train_loader.decoder}; eval loader: "
+              f"{len(self.eval_loader.dataset)} images, decoder {self.eval_loader.decoder}",
+              flush=True)
 
         # Durations / schedule -------------------------------------------
         self.total_steps = schedule_lib.parse_duration(config.max_duration).to_steps(
@@ -96,8 +107,8 @@ class Trainer:
         if self.device.type == "cuda":
             why = model.cuda_unsupported(config.eval_dataset.crop_size, training=False)
             if config.is_train:
-                why += [w for w in model.cuda_unsupported(config.train_dataset.crop_size,
-                                                          training=True) if w not in why]
+                for size in self._train_sizes():
+                    why += [w for w in model.cuda_unsupported(size, training=True) if w not in why]
             if why:
                 raise NotImplementedError(
                     f"the CUDA kernels cannot run {config.model.name}: " + "; ".join(why))
@@ -124,11 +135,13 @@ class Trainer:
         self.grad_accum = grad_accum
         self.settings = step_lib.StepSettings(
             num_classes=self.info.num_classes, smoothing=self.algos.label_smoothing,
-            grad_accum=grad_accum)
+            mixup_alpha=self.algos.mixup_alpha, cutmix_alpha=self.algos.cutmix_alpha,
+            grad_accum=grad_accum, randaugment=self.algos.randaugment_device,
+            colout=self.algos.colout_device)
         self.train_step = step_lib.build_train_step(
             self.model, self.objective, self.optimizer, self.prep, self.settings, self.ema)
         self.eval_step = step_lib.build_eval_step(self.model, self.eval_prep, self.tree_dists)
-        # stochastic-depth draws; hvt folds the step into its key instead
+        # augmentation and stochastic-depth draws; hvt folds the step into its key instead
         self.generator = torch.Generator(self.device).manual_seed(int(config.seed))
         self.train_metrics: dict[str, float] = {}  # of the last train record, with its lr
 
@@ -186,6 +199,21 @@ class Trainer:
             lambda accum: state + microbatch.probe_peak_bytes(self.model, loss, batch // accum,
                                                               self.device),
             batch, limit)
+
+    def _scale_for_step(self, step: int) -> float:
+        """The progressive-resize scale of step ``step`` (1.0 without it)."""
+        if self.algos.progressive is None:
+            return 1.0
+        return self.algos.progressive.scale_at(step / max(self.total_steps, 1))
+
+    def _train_sizes(self) -> list[int]:
+        """The image sizes training meets: each progressive bucket's, and the crop."""
+        crop = int(self.config.train_dataset.crop_size)
+        prog = self.algos.progressive
+        if prog is None:
+            return [crop]
+        scales = {prog.scale_at(t / 1000) for t in range(1001)}
+        return sorted({crop if s >= 1.0 else device_prep.resized_size(crop, s) for s in scales})
 
     @property
     def step(self) -> int:
@@ -246,12 +274,10 @@ class Trainer:
         return self.ema.batch_stats if self.ema else ema_lib.batch_stats(self.model)
 
     def _to_device(self, batch: Batch):
-        images = torch.from_numpy(batch.images)
-        if self.device.type == "cuda":  # pinned, so the copy does not wait for the card
-            images = images.pin_memory()
-        return (images.to(self.device, non_blocking=True),
-                torch.from_numpy(batch.labels).to(self.device),
-                torch.from_numpy(batch.mask).to(self.device))
+        """The batch's copies to the device, queued behind the card's work: the
+        loader's producer pinned them (on the card)."""
+        return tuple(host_tensor(a).to(self.device, non_blocking=True)
+                     for a in (batch.images, batch.labels, batch.mask))
 
     def evaluate(self) -> dict[str, float]:
         """hvt's metrics (acc@1, acc@5, cross-entropy, and tree-dist in an
@@ -342,7 +368,8 @@ class Trainer:
             for batch in self.train_loader.epoch(epoch, start_batch=skip):
                 if step >= self.total_steps:
                     break
-                stats = self.train_step(*self._to_device(batch), self.generator)
+                scale = self._scale_for_step(step)
+                stats = self.train_step(*self._to_device(batch), self.generator, scale)
                 sums = stats if sums is None else {k: sums[k] + v for k, v in stats.items()}
                 self.speed.batch_end(int(batch.mask.sum()))  # known on the host: no sync
                 step += 1
@@ -357,7 +384,7 @@ class Trainer:
                     self.save_checkpoint(step)
                 if step % self.log_interval == 0:
                     record(step)
-                    self.logger.log(step, {**self.train_metrics, "scale": 1.0,  # no resizing
+                    self.logger.log(step, {**self.train_metrics, "scale": scale,
                                            **self.speed.metrics(), **memory_stats(self.device)},
                                     prefix="train")
             if self._preempted:

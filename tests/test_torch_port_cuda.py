@@ -1180,3 +1180,124 @@ def test_trainer_restore_is_bit_equal_on_the_card(cuda, tmp_path):
     resumed.fit()
     resumed.close()
     assert resumed.step == straight.step == 4
+
+
+# ---------------------------------------------------------------------------
+# The training input path on the card: device augmentations, pinned batches
+# ---------------------------------------------------------------------------
+
+GEOMETRIC_OPS = ("rotate", "shear_x", "shear_y", "translate_x", "translate_y")
+
+
+def _aug_images(b, size, seed):
+    rng = np.random.default_rng(seed)
+    gy, gx = np.mgrid[0:size, 0:size]
+    base = np.stack([gx, gy, (gx + gy) // 2], -1)
+    return torch.from_numpy((base[None] + rng.integers(0, 64, (b, size, size, 3)))
+                            .clip(0, 255).astype(np.uint8))
+
+
+def _near(got, ref, exact):
+    """uint8: equal, or (geometric, an f32 resize rounded) within 1 on under 1% of pixels."""
+    d = (got.cpu().int() - ref.int()).abs()
+    if exact:
+        assert int(d.max()) == 0
+    else:
+        assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 0.01
+
+
+@pytest.mark.parametrize("size", [64, 224])
+def test_device_augmentations_match_the_cpu(cuda, size):
+    """Each device augmentation on the card against the same function on the
+    CPU, with the same draws (made on the card): RandAugment's pointwise
+    ops equal, its geometric ops, both policies and ColOut within 1 on
+    under 1% of pixels; MixUp and CutMix in f32 within 1e-5·max; the
+    progressive resize at every bucket in f32 within 1e-5·max|x|."""
+    from hvt_torch.data import device as dp
+    from hvt_torch.data import randaugment as ra
+
+    b = 16
+    x_cpu = _aug_images(b, size, seed=size)
+    x = x_cpu.to(cuda)
+    gen = torch.Generator(cuda).manual_seed(7)
+    sign = torch.where(torch.rand(b, generator=gen, device=cuda) < 0.5, 1.0, -1.0)
+    factor = ra._factor(sign, 9)
+    for name in ra.OP_NAMES:
+        _near(ra._apply_op_static(name, x, sign, factor, 9),
+              ra._apply_op_static(name, x_cpu, sign.cpu(), factor.cpu(), 9),
+              exact=name not in GEOMETRIC_OPS)
+    for stratified in (True, False):
+        draws = ra.draw_rand_augment(gen, b, 2, stratified, cuda)
+        _near(ra.rand_augment(x, draws, 9, stratified),
+              ra.rand_augment(x_cpu, [(c.cpu(), s.cpu()) for c, s in draws], 9, stratified), False)
+    draws = dp.draw_colout(gen, b, size, size, 0.1, 0.1, cuda)
+    _near(dp.colout(x, draws), dp.colout(x_cpu, tuple(d.cpu() for d in draws)), False)
+    xf = torch.randn((b, size, size, 3), generator=gen, device=cuda)
+    onehot = dp.prepare_targets(torch.randint(0, 10, (b,), generator=gen, device=cuda), 10, 0.1)
+    for fn, args in ((dp.mixup, (dp.draw_beta(gen, 0.2, cuda),)),
+                     (dp.cutmix, dp.draw_cutmix(gen, 1.0, size, size, cuda))):
+        gi, gt = fn(xf, onehot, *args)
+        ri, rt = fn(xf.cpu(), onehot.cpu(), *(a.cpu() for a in args))
+        assert float((gi.cpu() - ri).abs().max()) <= 1e-5 * float(ri.abs().max())
+        assert float((gt.cpu() - rt).abs().max()) <= 1e-5
+    for scale in (0.5, 0.625, 0.75, 0.875):
+        got, ref = dp.progressive_resize(xf, scale), dp.progressive_resize(xf.cpu(), scale)
+        assert got.shape == ref.shape
+        assert float((got.cpu() - ref).abs().max()) <= 1e-5 * float(xf.abs().max())
+
+
+def test_loader_pins_its_batches_for_the_card(cuda):
+    """With ``pin_memory`` the producer thread builds each batch in
+    page-locked memory, and the Trainer's copy of it is queued without a
+    wait; the batches equal those of an unpinned loader."""
+    from hvt_torch.data import loader as tloader
+    from hvt_torch.data import synthetic as tsynthetic
+
+    ds = tsynthetic.build_synthetic(num_samples=10, num_leaf_classes=5, crop_size=16)
+    pinned = tloader.Loader(ds, None, 4, shuffle=True, pin_memory=True)
+    plain = tloader.Loader(ds, None, 4, shuffle=True)
+    for a, b in zip(pinned.epoch(1), plain.epoch(1)):
+        for field in ("images", "labels", "mask"):
+            t = tloader.host_tensor(getattr(a, field))
+            assert t.is_pinned(), field
+            assert not tloader.host_tensor(getattr(b, field)).is_pinned()
+            np.testing.assert_array_equal(getattr(a, field), getattr(b, field))
+            assert torch.equal(t.to(cuda, non_blocking=True).cpu(), torch.from_numpy(getattr(b, field)))
+
+
+def test_train_step_with_every_augmentation_on_the_card(cuda, tmp_path):
+    """A ResNet micro with bn_pallas trains 4 steps on the card with device
+    RandAugment and ColOut, MixUp, CutMix and progressive resizing (its
+    scale crossing 0.5 → 0.875): finite losses, the BatchNorm kernels
+    launched every step, and the loop never waits on a pageable copy."""
+    from hvt_torch import config as tconfig
+    from hvt_torch.ops import bn_stats_cuda as bsc
+    from hvt_torch.train.loop import Trainer
+
+    layer = {
+        "run_name": "aug", "seed": 3, "max_duration": "4ba", "grad_accum": 1,
+        "machine": {"save_root": str(tmp_path)},
+        "model": {"name": "resnet_micro_bottleneck", "args": {"bn_pallas": True}},
+        "train_dataset": {"source": "synthetic", "crop_size": 64, "global_batch_size": 16,
+                          "synthetic_num_classes": 10, "synthetic_num_samples": 32},
+        "eval_dataset": {"source": "synthetic", "crop_size": 64, "global_batch_size": 16,
+                         "synthetic_num_classes": 10, "synthetic_num_samples": 16},
+        "optim": {"name": "DecoupledSGDW", "lr": 0.2, "momentum": 0.875, "weight_decay": 5e-4},
+        "scheduler": {"args": {"t_warmup": "1ba"}},
+        "save": {"interval": None, "wandb": False},
+        "algorithms": [
+            {"cls": "RandAugment", "args": {"depth": 1, "severity": 9, "device": True}},
+            {"cls": "ColOut", "args": {"device": True}},
+            {"cls": "MixUp", "args": {"alpha": 0.2}}, {"cls": "CutMix", "args": {"alpha": 1.0}},
+            {"cls": "ProgressiveResizing", "args": {"initial_scale": 0.5}}],
+    }
+    trainer = Trainer(tconfig.loads(layer), device=cuda)
+    assert trainer.train_loader.pin_memory
+    bsc.SUMS_KERNEL.launches = 0
+    losses = []
+    trainer.fit(on_step=lambda step, stats: losses.append(stats["loss_sum"]))
+    trainer.close()
+    assert len(losses) == 4 and all(math.isfinite(float(v)) for v in losses)
+    layers = sum(isinstance(m, torch.nn.Module) and type(m).__name__ == "PallasBatchNorm"
+                 for m in trainer.model.modules())
+    assert bsc.SUMS_KERNEL.launches == 4 * layers

@@ -257,8 +257,9 @@ def test_eval_loader_matches_hvt(jpeg_root, source, hierarchical, drop_last):
                         hierarchical=hierarchical, drop_last=drop_last)
     ref, ref_info = jloader.build_loader(jconfig.loads(layer), is_train=False, process_index=0,
                                          process_count=1)
-    ref.use_native = False  # hvt's Pillow path
     got, info = tloader.build_loader(tconfig.loads(layer), is_train=False)
+    # the Pillow route on both sides (the native route: test_torch_port_loader.py)
+    ref.use_native = got.use_native = False
     assert got.batches_per_epoch == ref.batches_per_epoch == (2 if drop_last else 3)
     assert info.num_classes == ref_info.num_classes
     np.testing.assert_array_equal(info.tree_dists, ref_info.tree_dists)

@@ -457,10 +457,15 @@ def test_synthetic_train_loader_matches_hvt(shuffle, drop_last):
                 np.testing.assert_array_equal(getattr(a, field), getattr(b, field))
 
 
-def test_folder_train_source_raises():
+def test_folder_train_source_raises(tmp_path):
+    """A folder train source trains (test_torch_port_loader.py); one the
+    machine does not name, or whose train/ split is missing, raises."""
     layer = _train_layer()
-    layer["train_dataset"]["source"] = "imagefolder"
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+    layer["train_dataset"].update(source="imagefolder", path="fix")
+    with pytest.raises(KeyError):
+        tloader.build_loader(tconfig.loads(layer), is_train=True)
+    layer["machine"] = {"datasets": {"fix": str(tmp_path)}}
+    with pytest.raises(FileNotFoundError):
         tloader.build_loader(tconfig.loads(layer), is_train=True)
 
 
@@ -524,10 +529,6 @@ def test_entry_point_without_a_card_raises(monkeypatch):
     ({"model": {"name": "resnet_micro_bottleneck", "args": {"bn_groups": 2}}},
      "bn_groups 2 .*ROADMAP.md queue 1, item 7"),
     ({"algorithms": [{"cls": "SAM", "args": {}}]}, "SAM: ROADMAP.md queue 1, item 5"),
-    ({"algorithms": [{"cls": "MixUp", "args": {}}]}, "MixUp"),
-    ({"algorithms": [{"cls": "CutMix", "args": {}}]}, "CutMix"),
-    ({"algorithms": [{"cls": "ProgressiveResizing", "args": {}}]}, "ProgressiveResizing"),
-    ({"algorithms": [{"cls": "RandAugment", "args": {"device": True}}]}, "item 6"),
 ])
 def test_trainer_refuses_what_is_not_ported(change, match):
     layer = {**_train_layer(), **change}
