@@ -171,7 +171,38 @@ Phases, in order; any failure exits non-zero and prints no result:
      the progressive resize in f32 and bf16), then timed at batches 256 and
      128; (g) ResNet-50 from the fixture with every augmentation, resumed
      from step 2 of 4 as in 14 (b). (c)-(e) must decode natively where
-     phase 1 found libjpeg; without it they run on Pillow and say so.
+     phase 1 found libjpeg; without it they run on Pillow and say so;
+ 16. downstream on the card: (a) ``extract_features`` at full width from
+     the synthetic source at 10,000 classes (20,480 train and 4,096 eval
+     images): ResNet-50 from configs/simpleshot/r50_base.yaml (2048-d, batch
+     4,096) and SwinV2-T on fuse: true (768-d, batch 2,048), each from a
+     seeded torch:// PretrainedBackbone: img/s, ms a batch, peak memory, 12
+     launches of each fused forward kernel a SwinV2-T batch and none for
+     ResNet-50, one batch through the kernels against the plain path
+     (cosine >= 0.999 a row, max|Δ| within 5e-2·max|f|), and a second call
+     that hits the cache and builds no forward; (b) flat SimpleShot (cl2n,
+     l2n) on the card against the same fit on the CPU in f64, on (a)'s
+     ResNet-50 features (equal but where the CPU's nearest centroids tie:
+     the synthetic source repeats 64 images) and on ResNet-50 features of
+     seeded class images at 10,000 classes (equal); (c) the linear probe's
+     grid search (5 folds x 3 alphas and the refit) on the card in f32 on
+     ResNet-50 features of 1,000 seeded classes x 10 images, against the
+     same grid in f64 on the card (the alpha, >= 99.5% of the test
+     predictions, each objective within 1e-4) and the card's f64 refit
+     against the CPU's over 10 iterations (within 1e-8), each fold's fit
+     timed, then one fit of the chosen alpha at 10,000 classes x 5 images;
+     (d) on a JPEG fixture (40 taxonomy-shaped classes, 400 train and 80 val
+     images): ``hvt_torch.simpleshot.main`` with
+     configs/simpleshot/r50_hierarchical.yaml, ``hvt_torch.linear_probe.main``
+     with configs/linear_probe/r50_base.yaml and the predict module's ``run``
+     on a multitask SwinV2-T on fuse: true, flat and hierarchical: their
+     metrics, one JSONL row an image, top-1 equal to the plain path's where
+     its top-2 margin passes 1e-2, 12 launches of each fused forward kernel
+     a batch; (e) HTTP serving as phase 4 of ResNet-50 (inat21.yaml) and
+     SwinV2-B on fuse: true at batch 64 (24 launches of each fused forward
+     kernel a forward); (f) ``hvt_torch.tools.serve_bench`` on SwinV2-T
+     fuse: true, engine and --http, 8 clients x 25 requests at batch 8, its
+     JSON line each.
 Every Trainer writes its checkpoints and run log under a temporary
 ``machine.save_root``, emptied at the end of each run or phase and removed
 at exit; the Trainers' own lines (the RunLogger's config and records) go to
@@ -1728,9 +1759,19 @@ def check_record(code: int, rec: dict, k: int) -> None:
 
 
 def serve_route(fuse: bool) -> dict:
-    """Drive the main path of one route through the entry points a user
-    calls: InferenceEngine + make_server, HTTP requests, with every launch
-    counter set to 0 just before and read just after."""
+    """Phase 4's main path on one SwinV2-T route (``serve_model``)."""
+    route_kernels = [k for k, (_, _, f) in KERNELS.items() if f == fuse]
+    return {"fuse": fuse, **serve_model(serving_config(fuse), f"fuse={fuse}",
+                                        {k: 12 for k in route_kernels})}
+
+
+def serve_model(config, label: str, per_forward: dict) -> dict:
+    """Drive a model's serving path through the entry points a user calls:
+    InferenceEngine + make_server, HTTP requests, with every launch counter
+    set to 0 just before and read just after (each kernel of
+    ``per_forward`` launches that many times a forward, no other kernel);
+    the whole model's logits held against the plain path; forward ms, the
+    engine's img/s."""
     import numpy as np
     import torch
 
@@ -1738,11 +1779,10 @@ def serve_route(fuse: bool) -> dict:
     from hvt_torch.downstream import serve as serve_lib
 
     counters = kernel_counters()
-    route_kernels = [k for k, (_, _, f) in KERNELS.items() if f == fuse]
     for c in counters.values():
         c.launches = 0
     t0 = time.perf_counter()
-    engine = serve_lib.InferenceEngine(serving_config(fuse), batch=BATCH, topk=5)
+    engine = serve_lib.InferenceEngine(config, batch=BATCH, topk=5)
     setup_s = time.perf_counter() - t0
     randomize_(engine.model, seed=7)
     server = serve_lib.make_server(engine, "127.0.0.1", 0)
@@ -1776,18 +1816,19 @@ def serve_route(fuse: bool) -> dict:
         server.server_close()
     launches = {name: c.launches for name, c in counters.items()}
     forwards = 1 + stats["dispatches"]  # the engine's warm-up forward, then one per dispatch
-    log(f"  fuse={fuse}: {REQUESTS} + {burst} requests answered 200 with top-5 records; "
+    log(f"  {label}: {REQUESTS} + {burst} requests answered 200 with top-5 records; "
         f"{stats['dispatches']} dispatches, mean rows {stats['mean_rows_per_dispatch']}; "
         f"launches {launches} over {forwards} forwards")
     if health["classes"] != CLASSES or stats["requests"] != REQUESTS + burst or stats["errors"]:
         raise AssertionError(f"healthz {health} / stats {stats}")
     for name, n in launches.items():
-        want = 12 * forwards if name in route_kernels else 0
+        want = per_forward.get(name, 0) * forwards
         if n != want:
-            raise AssertionError(f"{name}: {n} launches on the fuse={fuse} route, expected {want}")
+            raise AssertionError(f"{name}: {n} launches on the {label} route, expected {want}")
 
     # the whole model, kernel path against plain path, on the same weights and batch
-    images = np.random.default_rng(11).integers(0, 256, size=(BATCH, 224, 224, 3), dtype=np.uint8)
+    crop = config.eval_dataset.crop_size
+    images = np.random.default_rng(11).integers(0, 256, size=(BATCH, crop, crop, 3), dtype=np.uint8)
     norm = DevicePrep.from_config(engine.config.eval_dataset, engine.config.precision)
     with torch.inference_mode():
         x = norm.normalize(torch.from_numpy(images).cuda())
@@ -1800,15 +1841,15 @@ def serve_route(fuse: bool) -> dict:
         decided = (top2[:, 0] - top2[:, 1]) > TOP1_MARGIN
         same = got.argmax(-1) == ref.argmax(-1)
         agree = int((same & decided).sum())
-        log(f"  fuse={fuse}: logits kernel vs plain path max|Δ| {err:.4g} "
+        log(f"  {label}: logits kernel vs plain path max|Δ| {err:.4g} "
             f"(tol {LOGIT_TOL}·max|plain| = {LOGIT_TOL * scale:.4g}); top-1 equal on "
             f"{agree}/{int(decided.sum())} rows with top-2 margin > {TOP1_MARGIN} "
             f"({int(same.sum())}/{BATCH} overall)")
         if not (bool(torch.isfinite(got).all()) and err <= LOGIT_TOL * scale
                 and agree == int(decided.sum())):
-            raise AssertionError(f"fuse={fuse}: kernel-path logits disagree with the plain path")
+            raise AssertionError(f"{label}: kernel-path logits disagree with the plain path")
 
-        # phase 5 for the route: forward time on the card and images/s through the engine
+        # forward time on the card and images/s through the engine (phase 5 for a route)
         fwd_ms = cuda_time_ms(lambda: engine.model(x), iters=10)
         with plain_versions():
             fwd_plain_ms = cuda_time_ms(lambda: engine.model(x), iters=5, warmup=1)
@@ -1823,7 +1864,7 @@ def serve_route(fuse: bool) -> dict:
     del engine
     torch.cuda.empty_cache()
     return {
-        "fuse": fuse, "launches": launches, "forwards": forwards, "requests": REQUESTS + burst,
+        "launches": launches, "forwards": forwards, "requests": REQUESTS + burst,
         "dispatches": stats["dispatches"], "engine_setup_s": setup_s,
         "http_images_per_s": burst / http_s, "http_clients": 32,
         "http_latency_ms_p50": latency_ms[len(latency_ms) // 2],
@@ -3504,6 +3545,517 @@ def input_phase(card: str, host: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the downstream entry points on the card
+# ---------------------------------------------------------------------------
+
+FEATURE_TRAIN = 20_480  # (a): the synthetic train split, about 2 images of each class
+FEATURE_EVAL = 4_096
+RESNET_FEATURE_BATCH = 4_096  # configs/simpleshot/r50_base.yaml's
+SWIN_FEATURE_BATCH = EVAL_BATCH  # the fused kernels' row tiles take at most 2,675 images at 224 px
+FEATURE_CHECK_ROWS = 256
+FEATURE_COSINE = 0.999
+TIE_RTOL = 1e-9  # (b): nearest centroids closer than this are a tie within f64 rounding
+PROBE_CLASSES = 1_000  # (c): rand_species_10shot's shape at a tenth of iNat21's classes
+PROBE_SHOTS, PROBE_TEST_SHOTS = 10, 2
+INAT_PROBE_SHOTS = 5  # (c): one fit of one alpha at iNat21's 10,000 classes
+INAT_PROBE_MAX_ITER = 300
+PROBE_AGREE = 0.995
+PROBE_OBJECTIVE_RTOL = 1e-4
+CPU_PROBE_ITERS = 10  # (c): the CPU's f64 fit against the card's, iterations
+CPU_PROBE_RTOL = 1e-8
+DOWNSTREAM_FIXTURE = (40, 400, 80)  # (d): classes, train and val JPEGs
+BENCH_CLIENTS, BENCH_REQUESTS, BENCH_BATCH = 8, 25, 8  # (f)
+SWIN_FEATURE_PER_BATCH = {"mlp_half_fwd": 12, "attention_half_nhwc_fwd": 12}
+
+
+def exp_file(layer: dict) -> str:
+    """``layer`` as a YAML file under the run root: the layers given to
+    ``config.load`` merge before ``${...}`` interpolations resolve."""
+    import yaml
+
+    fd, path = tempfile.mkstemp(suffix=".yaml", dir=runs_root())
+    with os.fdopen(fd, "w") as f:
+        yaml.safe_dump(layer, f)
+    return path
+
+
+def downstream_config(exps, layer: dict):
+    """configs/machines/local.yaml, the repository's ``exps`` and ``layer``,
+    with the run root as save_root and no wandb."""
+    from hvt_torch import config as config_lib
+
+    base = {"machine": {"save_root": str(runs_root())}, "save": {"wandb": False}}
+    layer = {**layer, "machine": {**base["machine"], **layer.get("machine", {})}}
+    return config_lib.load(machine=str(ROOT / "configs/machines/local.yaml"),
+                           exps=[str(ROOT / "configs" / e) for e in exps]
+                           + [exp_file({**base, **layer})])
+
+
+def synthetic_splits(train: int, evaluate: int, batch: int) -> dict:
+    return {f"{split}_dataset": {"source": "synthetic", "path": "", "synthetic_num_classes": CLASSES,
+                                 "synthetic_num_samples": n, "global_batch_size": batch}
+            for split, n in (("train", train), ("eval", evaluate))}
+
+
+def write_backbone(name: str) -> str:
+    """A seeded model's weights as a torch:// file (SwinV2 drawn with
+    randomize_, ResNet at its seeded init), the PretrainedBackbone of
+    phase 16's configs."""
+    from hvt_torch import config as config_lib
+    from hvt_torch.models import build_model
+    from hvt_torch.models import torch_compat
+    from hvt_torch.train import ema as ema_lib
+
+    model = build_model(config_lib.loads({"model": {"name": name}}), CLASSES)
+    path = runs_root() / f"{name}.pt"
+    if name.startswith("swinv2"):
+        randomize_(model, seed=16)
+        torch_compat.save_swin_checkpoint(dict(model.named_parameters()), str(path))
+    else:
+        torch_compat.save_resnet_checkpoint(dict(model.named_parameters()),
+                                            ema_lib.batch_stats(model), str(path))
+    return f"torch://{path}"
+
+
+@contextlib.contextmanager
+def recorded_feature_steps():
+    """``build_feature_step`` wrapped: each step built is recorded with its
+    model and prep, and each of its calls timed with CUDA events."""
+    import torch
+
+    from hvt_torch.train import step as step_lib
+
+    built, calls = [], []
+    build_feature_step = step_lib.build_feature_step
+
+    def build(model, prep):
+        step = build_feature_step(model, prep)
+        built.append((model, prep))
+
+        def timed(*args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(*args)
+            end.record()
+            calls.append((start, end))
+            return out
+
+        return timed
+
+    with swapped(step_lib, build_feature_step=build):
+        yield built, calls
+
+
+def feature_run(label: str, config, batch: int, per_batch: dict):
+    """(a) ``extract_features`` on both splits, the launch counters set to 0
+    just before and read just after (``per_batch`` launches of each kernel a
+    feature batch, no other kernel); ms a batch (CUDA events), img/s (host
+    clock, the model's build and weights included), peak memory; one batch
+    through the kernels against the plain path; a second call that hits
+    the cache builds no step and launches nothing. → (record, {split:
+    (features, labels)}, (model, prep))."""
+    import numpy as np
+    import torch
+
+    from hvt_torch.downstream import features as features_lib
+
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec, data = {}, {}
+    with recorded_feature_steps() as (built, calls):
+        for split, is_train, n in (("train", True, FEATURE_TRAIN), ("eval", False, FEATURE_EVAL)):
+            first = len(calls)
+            t0 = time.perf_counter()
+            feats, labels = features_lib.extract_features(config, is_train, "simpleshot")
+            seconds = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            ms = sorted(s.elapsed_time(e) for s, e in calls[first:])
+            if feats.shape[0] != n or labels.shape != (n,) or not np.isfinite(feats).all():
+                raise AssertionError(f"{label} {split}: features {feats.shape}, labels {labels.shape}")
+            rec[split] = {"images": n, "batches": len(ms), "seconds": seconds,
+                          "images_per_s": n / seconds, "batch_ms_median": ms[len(ms) // 2],
+                          "device_images_per_s": batch / ms[len(ms) // 2] * 1e3}
+            data[split] = (feats, labels)
+    rec["dim"] = int(data["train"][0].shape[1])
+    rec["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    launches = {name: c.launches for name, c in counters.items()}
+    batches = rec["train"]["batches"] + rec["eval"]["batches"]
+    for name, n in launches.items():
+        if n != per_batch.get(name, 0) * batches:
+            raise AssertionError(f"{label}: {name} launched {n} times over {batches} feature "
+                                 f"batches, expected {per_batch.get(name, 0)} a batch")
+    rec["launches"] = {k: v for k, v in launches.items() if v}
+
+    model, prep = built.pop(0)
+    images = np.random.default_rng(16).integers(0, 256, (FEATURE_CHECK_ROWS, 224, 224, 3), np.uint8)
+    with torch.inference_mode():
+        x = prep.normalize(torch.from_numpy(images).cuda())
+        got = model(x, features_only=True).float()
+        with plain_versions():
+            ref = model(x, features_only=True).float()
+        cosine = float(torch.nn.functional.cosine_similarity(got, ref, dim=1).min())
+        err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    if not (cosine >= FEATURE_COSINE and err <= LOGIT_TOL * scale):
+        raise AssertionError(f"{label}: features through the kernels against the plain path: worst "
+                             f"cosine {cosine:.6f}, max|Δ| {err:.4g} (scale {scale:.4g})")
+    rec["plain_check"] = {"rows": FEATURE_CHECK_ROWS, "min_cosine": cosine, "max_abs_err": err,
+                          "max_abs": scale}
+    del got, ref, x
+
+    for c in counters.values():
+        c.launches = 0
+    with recorded_feature_steps() as (built, calls):
+        t0 = time.perf_counter()
+        feats, labels = features_lib.extract_features(config, True, "simpleshot")
+        hit_s = time.perf_counter() - t0
+    if built or calls or any(c.launches for c in counters.values()) or not (
+            np.array_equal(feats, data["train"][0]) and np.array_equal(labels, data["train"][1])):
+        raise AssertionError(f"{label}: a cache hit ran a forward or returned other features")
+    rec["cache_hit_s"] = hit_s
+    log(f"  (a) {label}: {rec['dim']}-d features of {FEATURE_TRAIN} + {FEATURE_EVAL} images in "
+        f"{rec['train']['batches']} + {rec['eval']['batches']} batches of {batch}: "
+        f"{rec['train']['images_per_s']:.1f} / {rec['eval']['images_per_s']:.1f} img/s (host clock, "
+        f"model build included), {rec['train']['batch_ms_median']:.2f} ms a batch on the card "
+        f"({rec['train']['device_images_per_s']:.1f} img/s); peak {rec['peak_memory_gib']:.2f} GiB; "
+        f"launches {rec['launches'] or 'none (no kernel in this eval path)'}; against the plain path "
+        f"on {FEATURE_CHECK_ROWS} images: worst cosine {cosine:.6f}, max|Δ| {err:.4g} (tol "
+        f"{LOGIT_TOL}·{scale:.4g}); the cache hit {hit_s:.2f} s, no forward")
+    return rec, data, (model, prep)
+
+
+def simpleshot_check(label: str, train, test, exact: bool) -> dict:
+    """(b) flat SimpleShot (cl2n, l2n) on the card against the same fit on
+    the CPU in f64: predictions equal; with ``exact`` false a row may
+    differ only where the CPU's two nearest centroids tie within TIE_RTOL
+    (hvt's synthetic source repeats 64 images, so its classes share
+    centroids)."""
+    import numpy as np
+    import torch
+
+    from hvt_torch.downstream import centroid as centroid_lib
+    from hvt_torch.downstream import features as features_lib
+
+    (x_train, y_train), (x_test, y_test) = train, test
+    out = {}
+    for variant in ("cl2n", "l2n"):
+        xs = [x_train, x_test]
+        if variant == "cl2n":
+            xs = [features_lib.center(x) for x in xs]
+        xs = [features_lib.l2_normalize(x) for x in xs]
+        t0 = time.perf_counter()
+        card = centroid_lib.NearestCentroid(device="cuda").fit(xs[0], y_train)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        preds = card.predict(xs[1])
+        predict_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = centroid_lib.NearestCentroid().fit(xs[0], y_train)
+        cpu_preds = cpu.predict(xs[1])
+        cpu_s = time.perf_counter() - t0
+        differ = np.flatnonzero(preds != cpu_preds)
+        ties = 0
+        if differ.size:
+            d = torch.cdist(torch.from_numpy(xs[1][differ]).double(), cpu.centroids_)
+            two = d.topk(2, dim=1, largest=False).values
+            ties = int(((two[:, 1] - two[:, 0]) <= TIE_RTOL * two[:, 0]).sum())
+        if (exact and differ.size) or ties != differ.size:
+            raise AssertionError(f"{label} {variant}: the card's SimpleShot predicts {differ.size} "
+                                 f"rows otherwise than the CPU's f64 fit ({ties} of them ties)")
+        acc = float(np.mean(preds == y_test))
+        out[variant] = {"acc@1": acc, "fit_s": fit_s, "predict_s": predict_s, "cpu_s": cpu_s,
+                        "rows": int(len(y_test)), "classes": int(card.classes_.size),
+                        "differ_at_ties": int(differ.size)}
+        log(f"  (b) {label} {variant}: {card.classes_.size} centroids, acc@1 {acc:.4f}; card fit "
+            f"{fit_s * 1e3:.1f} ms, predict {predict_s * 1e3:.1f} ms ({len(y_test)} rows); the CPU "
+            f"(f64) {cpu_s:.2f} s; predictions equal"
+            + (f" but on {differ.size} rows whose nearest centroids tie" if differ.size else ""))
+    return out
+
+
+def clustered_features(model, prep, classes: int, shots: int, draw: int, pattern_seed: int = 16):
+    """ResNet-50 features of seeded class images: each class a 7x7 colour
+    pattern (``pattern_seed``), bilinear to 224 px, plus noise (``draw``),
+    through the feature step, rows in a seeded order → (features f32
+    numpy, labels)."""
+    import numpy as np
+    import torch
+
+    from hvt_torch.train import ema as ema_lib
+    from hvt_torch.train import step as step_lib
+
+    gen = torch.Generator(device="cuda").manual_seed(pattern_seed)
+    patterns = 128 + 40 * torch.randn((classes, 3, 7, 7), generator=gen, device="cuda")
+    gen.manual_seed(1000 * pattern_seed + draw)
+    labels = np.random.default_rng(draw).permutation(np.repeat(np.arange(classes), shots))
+    step = step_lib.build_feature_step(model, prep)
+    params, stats = dict(model.named_parameters()), ema_lib.batch_stats(model)
+    feats = []
+    for start in range(0, labels.size, RESNET_FEATURE_BATCH):
+        rows = torch.from_numpy(labels[start:start + RESNET_FEATURE_BATCH]).cuda()
+        img = torch.nn.functional.interpolate(patterns[rows], size=(224, 224), mode="bilinear")
+        img = img + 50 * torch.randn(img.shape, generator=gen, device="cuda")
+        images = img.clamp_(0, 255).to(torch.uint8).permute(0, 2, 3, 1).contiguous()
+        feats.append(step(params, stats, images).cpu())
+    return torch.cat(feats).numpy(), labels
+
+
+def probe_check(model, prep) -> dict:
+    """(c) the linear probe's whole grid search on the card (f32) on
+    ResNet-50 features of PROBE_CLASSES seeded classes × PROBE_SHOTS, held
+    against the same grid in f64 on the card (alpha, ≥ 99.5% of the test
+    predictions, the objective within 1e-4), the card's f64 fit against the
+    CPU's over CPU_PROBE_ITERS iterations (within 1e-8), each fold's fit
+    timed; then one fit of one alpha at CLASSES classes × INAT_PROBE_SHOTS."""
+    import numpy as np
+    import torch
+
+    from hvt_torch.downstream import linear as linear_lib
+
+    x, y = clustered_features(model, prep, PROBE_CLASSES, PROBE_SHOTS, draw=1, pattern_seed=161)
+    x_test, y_test = clustered_features(model, prep, PROBE_CLASSES, PROBE_TEST_SHOTS, draw=2,
+                                        pattern_seed=161)
+    out, fits = {}, {}
+    for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        t0 = time.perf_counter()
+        fits[name] = linear_lib.LinearProbe(device="cuda", dtype=dtype).fit(x, y)
+        seconds = time.perf_counter() - t0
+        probe = fits[name]
+        preds = probe.predict(x_test)
+        out[name] = {"seconds": seconds, "best_alpha": probe.best_alpha_,
+                     "mean_scores": probe.mean_scores_.tolist(), "fold_fits": probe.fold_fits_,
+                     "refit": {"objective": probe.model_.objective,
+                               "iterations": probe.model_.iterations, "stop": probe.model_.stop},
+                     "test_acc": float(np.mean(preds == y_test)), "preds": preds}
+        log(f"  (c) {name} grid on the card, {PROBE_CLASSES} classes x {PROBE_SHOTS} shots "
+            f"({len(y)} x {x.shape[1]}): {seconds:.2f} s, alpha {probe.best_alpha_} (mean fold "
+            f"accuracy {probe.mean_scores_.round(4).tolist()}), test acc@1 "
+            f"{out[name]['test_acc']:.4f}; refit {probe.model_.iterations} iterations "
+            f"({probe.model_.stop}), objective {probe.model_.objective:.10g}; each fold's fit (s, "
+            "iterations, stop): " + "; ".join(
+                f"alpha {a}: " + ", ".join(f"{f['seconds']:.2f}/{f['iterations']}/{f['stop'][0]}"
+                                           for f in probe.fold_fits_ if f["alpha"] == a)
+                for a in linear_lib.ALPHAS))
+    agree = float(np.mean(out["f32"]["preds"] == out["f64"]["preds"]))
+    obj32, obj64 = out["f32"]["refit"]["objective"], out["f64"]["refit"]["objective"]
+    fold_rel = max(abs(a["objective"] - b["objective"]) / b["objective"]
+                   for a, b in zip(out["f32"]["fold_fits"], out["f64"]["fold_fits"]))
+    if not (out["f32"]["best_alpha"] == out["f64"]["best_alpha"] and agree >= PROBE_AGREE
+            and abs(obj32 - obj64) <= PROBE_OBJECTIVE_RTOL * obj64
+            and fold_rel <= PROBE_OBJECTIVE_RTOL):
+        raise AssertionError(f"(c) f32 probe against f64: alpha {out['f32']['best_alpha']} / "
+                             f"{out['f64']['best_alpha']}, predictions agree on {agree:.4f}, "
+                             f"objective {obj32} / {obj64}, worst fold {fold_rel:.3g}")
+    log(f"  (c) f32 against f64: the same alpha, test predictions equal on {100 * agree:.2f}% of "
+        f"{len(y_test)} rows, refit objective within {abs(obj32 - obj64) / obj64:.3g} relative "
+        f"(each fold's within {fold_rel:.3g}; tol {PROBE_OBJECTIVE_RTOL})")
+    # the CPU's f64 fit against the card's, over the first iterations of the refit
+    alpha = out["f64"]["best_alpha"]
+    t0 = time.perf_counter()
+    cpu = linear_lib.fit_ovr(torch.from_numpy(x).double(), y, alpha, max_iter=CPU_PROBE_ITERS)
+    cpu_s = time.perf_counter() - t0
+    card = linear_lib.fit_ovr(torch.from_numpy(x).double().cuda(), y, alpha,
+                              max_iter=CPU_PROBE_ITERS)
+    rel = abs(cpu.objective - card.objective) / cpu.objective
+    cpu_agree = float(np.mean(cpu.predict(torch.from_numpy(x_test).double())
+                              == card.predict(torch.from_numpy(x_test).double().cuda())))
+    if not (rel <= CPU_PROBE_RTOL and cpu_agree >= PROBE_AGREE):
+        raise AssertionError(f"(c) the CPU's f64 fit against the card's: objective {cpu.objective} "
+                             f"/ {card.objective}, predictions agree on {cpu_agree:.4f}")
+    log(f"  (c) the CPU's f64 refit against the card's over {CPU_PROBE_ITERS} iterations: objective "
+        f"within {rel:.3g} relative (tol {CPU_PROBE_RTOL}), test predictions equal on "
+        f"{100 * cpu_agree:.2f}%; the CPU took {cpu_s:.1f} s")
+    out["cpu_f64"] = {"iterations": CPU_PROBE_ITERS, "objective_rel": rel, "agree": cpu_agree,
+                      "seconds": cpu_s}
+    out["f32_f64_agree"] = agree
+    for name in ("f32", "f64"):
+        out[name]["preds"] = None
+    del fits, x_test
+
+    # one fit of one alpha at iNat21's width
+    x, y = clustered_features(model, prep, CLASSES, INAT_PROBE_SHOTS, draw=1, pattern_seed=163)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fit = linear_lib.fit_ovr(torch.from_numpy(x).cuda(), y, alpha, max_iter=INAT_PROBE_MAX_ITER)
+    seconds = time.perf_counter() - t0
+    train_acc = float(np.mean(fit.predict(torch.from_numpy(x).cuda()) == y))
+    out["inat_width"] = {"classes": CLASSES, "rows": int(len(y)), "alpha": alpha, "seconds": seconds,
+                         "iterations": fit.iterations, "stop": fit.stop,
+                         "max_iter": INAT_PROBE_MAX_ITER,
+                         "ms_per_iteration": seconds / max(fit.iterations, 1) * 1e3,
+                         "objective": fit.objective, "train_acc": train_acc,
+                         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"  (c) one f32 fit at alpha {alpha}, {CLASSES} classes x {INAT_PROBE_SHOTS} shots "
+        f"({len(y)} x {x.shape[1]}): {seconds:.2f} s, {fit.iterations} iterations "
+        f"(stop: {fit.stop}; "
+        f"{out['inat_width']['ms_per_iteration']:.1f} ms an iteration), train acc@1 "
+        f"{train_acc:.4f}, peak {out['inat_width']['peak_memory_gib']:.2f} GiB")
+    return out
+
+
+def entry_points(resnet_uri: str, swin_uri: str) -> dict:
+    """(d) hvt_torch.simpleshot.main (r50_hierarchical.yaml), linear_probe.main
+    (linear_probe/r50_base.yaml) and predict's run (a multitask SwinV2-T on
+    fuse: true, flat and --hierarchical, against the plain path's top-1) on
+    a JPEG fixture of taxonomy-shaped classes (loader_bench's make_fixture)."""
+    import numpy as np
+
+    from hvt_torch import linear_probe, simpleshot
+    from hvt_torch.downstream import predict as predict_lib
+    from hvt_torch.tools import loader_bench
+
+    classes, n_train, n_val = DOWNSTREAM_FIXTURE
+    root = pathlib.Path(tempfile.mkdtemp(prefix="hvt-chip-downstream-"))
+    _FIXTURES.append(root)
+    loader_bench.make_fixture(root, n_train, n_val, classes=classes, workers=os.cpu_count() or 1)
+    data = {"machine": {"save_root": str(runs_root()), "datasets": {"fix": str(root)}},
+            "train_dataset": {"source": "imagefolder", "path": "fix"},
+            "eval_dataset": {"source": "imagefolder", "path": "fix"}}
+    out = {}
+    with trainer_output():
+        out["simpleshot"] = simpleshot.main(downstream_config(
+            ["simpleshot/r50_base.yaml", "simpleshot/r50_hierarchical.yaml"],
+            {**data, "model": {"pretrained_checkpoint": resnet_uri}}))
+        out["linear_probe"] = linear_probe.main(downstream_config(
+            ["linear_probe/r50_base.yaml"], {**data, "model": {"pretrained_checkpoint": resnet_uri}}))
+    log(f"  (d) {n_train} + {n_val} JPEGs over {classes} classes: hvt_torch.simpleshot "
+        f"(r50_hierarchical.yaml) {out['simpleshot']}; hvt_torch.linear_probe "
+        f"(linear_probe/r50_base.yaml) {out['linear_probe']}")
+    counters = kernel_counters()
+    cfg = downstream_config(["pretrain/swinv2_tiny.yaml"], {
+        **data, "model": {"args": {"fuse": True}, "pretrained_checkpoint": swin_uri},
+        "hierarchy": {"variant": "multitask"},
+        "eval_dataset": {"source": "imagefolder", "path": "fix", "global_batch_size": BATCH}})
+    forwards = -(-n_val // BATCH)
+    for hierarchical in (False, True):
+        label = "hierarchical" if hierarchical else "flat"
+        for c in counters.values():
+            c.launches = 0
+        path = runs_root() / f"predict-{label}.jsonl"
+        with trainer_output():
+            summary = predict_lib.run(cfg, str(path), topk=5, hierarchical=hierarchical)
+        launches = {name: c.launches for name, c in counters.items()}
+        with plain_versions():
+            plain = list(predict_lib.predict(cfg, topk=5, hierarchical=hierarchical))
+        rows = [json.loads(line) for line in path.read_text().splitlines()]
+        decided = [len(p["probs"]) < 2 or p["probs"][0] - p["probs"][1] > TOP1_MARGIN for p in plain]
+        same = [r["class_ids"][0] == p["class_ids"][0] for r, p in zip(rows, plain)]
+        for name, n in launches.items():
+            if n != SWIN_FEATURE_PER_BATCH.get(name, 0) * forwards:
+                raise AssertionError(f"(d) predict {label}: {name} launched {n} times over "
+                                     f"{forwards} forwards")
+        if len(rows) != n_val or summary["count"] != n_val or not all(
+                s for s, d in zip(same, decided) if d):
+            raise AssertionError(f"(d) predict {label}: {len(rows)} rows for {n_val} images, top-1 "
+                                 f"equal to the plain path's on {sum(same)}")
+        out[f"predict_{label}"] = {**summary, "launches": {k: v for k, v in launches.items() if v},
+                                   "top1_equal": int(sum(same)), "top1_decided": int(sum(decided))}
+        log(f"  (d) hvt_torch.predict run, multitask SwinV2-T fuse: true, {label}: {len(rows)} JSONL "
+            f"rows for {n_val} val images, top1 {summary['top1']:.4f} topk {summary['topk']:.4f}; "
+            f"top-1 equal to the plain path's on {sum(same)}/{len(rows)} rows ({sum(decided)} with a "
+            f"top-2 margin > {TOP1_MARGIN}, all equal); launches {out[f'predict_{label}']['launches']}"
+            + ("; tier ids on every row" if hierarchical and all(len(r["tier_ids"]) == 7
+                                                                for r in rows) else ""))
+        if hierarchical and not all(len(r["tier_ids"]) == 7 for r in rows):
+            raise AssertionError("(d) predict --hierarchical: a row without its 7 tier ids")
+    if not (np.isfinite(list(out["simpleshot"].values())).all()
+            and np.isfinite(list(out["linear_probe"].values())).all()):
+        raise AssertionError(f"(d) metrics not finite: {out}")
+    return out
+
+
+def serve_bench_runs() -> dict:
+    """(f) hvt_torch.tools.serve_bench on SwinV2-T fuse: true (10,000 classes),
+    engine mode and --http, BENCH_CLIENTS clients × BENCH_REQUESTS requests."""
+    from hvt_torch.tools import serve_bench
+
+    exp = exp_file({
+        "model": {"args": {"fuse": True}}, "save": {"wandb": False},
+        "eval_dataset": {"source": "synthetic", "synthetic_num_classes": CLASSES,
+                         "synthetic_num_samples": BATCH, "global_batch_size": BATCH}})
+    out = {}
+    for mode in ("engine", "http"):
+        argv = ["--machine", str(ROOT / "configs/machines/local.yaml"), "--exp",
+                str(ROOT / "configs/pretrain/swinv2_tiny.yaml"), exp, "--clients", str(BENCH_CLIENTS),
+                "--requests", str(BENCH_REQUESTS), "--batch", str(BENCH_BATCH)]
+        rec = serve_bench.main(argv + (["--http"] if mode == "http" else []))  # prints its line
+        if rec["failed_requests"] or rec["mode"] != mode:
+            raise AssertionError(f"(f) serve_bench {mode}: {rec}")
+        out[mode] = rec
+    return out
+
+
+def downstream_phase(card: str) -> dict:
+    """Phase 16 (a)-(f)."""
+    import torch
+
+    out = {}
+    resnet_uri, swin_uri = write_backbone("resnet50"), write_backbone("swinv2_tiny")
+    log(f"  (a) features from the synthetic source at {CLASSES} classes through extract_features")
+    resnet_cfg = downstream_config(["simpleshot/r50_base.yaml"], {
+        "model": {"variant": "simpleshot", "pretrained_checkpoint": resnet_uri},
+        **synthetic_splits(FEATURE_TRAIN, FEATURE_EVAL, RESNET_FEATURE_BATCH)})
+    out["features_resnet50"], resnet_data, (model, prep) = feature_run(
+        "ResNet-50 (simpleshot/r50_base.yaml)", resnet_cfg, RESNET_FEATURE_BATCH, {})
+    swin_cfg = downstream_config(["pretrain/swinv2_tiny.yaml"], {
+        "model": {"variant": "simpleshot", "pretrained_checkpoint": swin_uri,
+                  "args": {"fuse": True}},
+        **synthetic_splits(FEATURE_TRAIN, FEATURE_EVAL, SWIN_FEATURE_BATCH)})
+    out["features_swinv2_tiny"], _, _ = feature_run("SwinV2-T fuse: true", swin_cfg,
+                                                    SWIN_FEATURE_BATCH, SWIN_FEATURE_PER_BATCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"  (b) flat SimpleShot on the card against the CPU in f64, {CLASSES} classes")
+    out["simpleshot_synthetic"] = simpleshot_check("ResNet-50, synthetic source",
+                                                   resnet_data["train"], resnet_data["eval"],
+                                                   exact=False)
+    del resnet_data
+    out["simpleshot_classes"] = simpleshot_check(
+        "ResNet-50, seeded class images (2 shots)", clustered_features(model, prep, CLASSES, 2, 1),
+        clustered_features(model, prep, CLASSES, 1, 2), exact=True)
+
+    log(f"  (c) the linear probe's grid search on the card; {PROBE_CLASSES} classes x "
+        f"{PROBE_SHOTS} shots is rand_species_10shot's shape cut to a tenth of iNat21's classes")
+    out["probe"] = probe_check(model, prep)
+    del model, prep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("  (d) the entry points as users run them, on a JPEG fixture")
+    out["entry_points"] = entry_points(resnet_uri, swin_uri)
+
+    log(f"  (e) HTTP serving at batch {BATCH}, {CLASSES} classes: ResNet-50 (inat21.yaml) and "
+        f"SwinV2-B fuse: true")
+    eval_synthetic = {"eval_dataset": {"source": "synthetic", "synthetic_num_classes": CLASSES,
+                                       "synthetic_num_samples": BATCH, "global_batch_size": BATCH}}
+    out["serving"] = {}
+    for label, exps, layer, per_forward in (
+            ("resnet50", ["pretrain/inat21.yaml"], {}, {}),
+            ("swinv2_base fuse=True", ["pretrain/swinv2_tiny.yaml"],
+             {"model": {"name": "swinv2_base", "args": {"fuse": True}}},
+             {"mlp_half_fwd": 24, "attention_half_nhwc_fwd": 24})):
+        r = out["serving"][label] = serve_model(downstream_config(exps, {**layer, **eval_synthetic}),
+                                                label, per_forward)
+        log(f"  (e) {label}: forward {r['forward_ms']:.3f} ms on kernels, {r['forward_plain_ms']:.3f} "
+            f"ms on plain versions; engine step {r['step_images_per_s']:.1f} img/s; HTTP "
+            f"{r['http_images_per_s']:.1f} img/s, latency p50 {r['http_latency_ms_p50']:.1f} ms p90 "
+            f"{r['http_latency_ms_p90']:.1f} ms, on {card}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    log(f"  (f) serve_bench, SwinV2-T fuse: true, {BENCH_CLIENTS} clients x {BENCH_REQUESTS} "
+        f"requests, batch {BENCH_BATCH}, engine and --http (one JSON line each)")
+    out["serve_bench"] = serve_bench_runs()
+    clear_runs()
+    return out
+
+
 def ptxas_summary(logs: dict) -> dict:
     """{source: [{kernel, registers, static_smem, spill_stores, spill_loads}]}
     from ``nvcc -Xptxas -v``'s report of each entry function."""
@@ -3990,7 +4542,13 @@ def main(argv=None) -> int:
         f"the device augmentations against the CPU, a resume with every augmentation")
     folders = input_phase(card, host)
 
-    report = {"card": card, "host": host, "folders": folders, "batch": BATCH, "kernels": kernels,
+    log(f"[16] downstream on the card: feature extraction and its cache (ResNet-50, SwinV2-T fuse: "
+        f"true), SimpleShot and the linear probe's grid search against the CPU's f64 fits, the "
+        f"entry points on a JPEG fixture, HTTP serving of ResNet-50 and SwinV2-B, serve_bench")
+    downstream = downstream_phase(card)
+
+    report = {"card": card, "host": host, "folders": folders, "downstream": downstream,
+              "batch": BATCH, "kernels": kernels,
               "routes": routes,
               "evaluation": evaluation, "checkpoints": checkpoints,
               "kernel_stages": {k: {"check": checked[k]["stages"], "timed": timed[k]["stages"]}

@@ -1,18 +1,33 @@
-"""Top-k inference step and decode — port of the parts of
-``hvt/downstream/predict.py`` that the server uses.
+"""Top-k inference: the server's step and batch prediction — port of
+``hvt/downstream/predict.py`` without its serving-artifact and int8
+branches (ROADMAP.md queue 1, item 10).
 
 ``build_topk_step`` returns ``step(images uint8 (B, H, W, 3) numpy) →
 (top_i, top_p, tiers, n_allowed)`` as numpy: device prep, the forward under
 ``torch.inference_mode()``, then the flat or constrained hierarchical
-(top-down) decode, on the model's device.
+(top-down) decode, on the model's device. ``predict`` runs it over the eval
+split and yields one record per image (the top-k ``classes``, ``class_ids``
+and ``probs``, ``tier_ids`` with the hierarchical decode, the ``label``, and
+the file ``path`` of a folder dataset); ``run`` writes them as JSONL.
+
+Weights resolve in hvt's order: ``load_path`` (a port checkpoint, its EMA
+copy unless ``use_ema`` is false), else the pretrained URIs (``ckpt://``,
+``swin://``, ``torch://``; the head from the model's seeded init), else the
+seeded init.
 """
 
 from __future__ import annotations
 
+import json
+from typing import Optional
+
 import numpy as np
 import torch
 
+from hvt_torch import device as device_lib
+from hvt_torch.data import DevicePrep, build_loader
 from hvt_torch.downstream import features as features_lib
+from hvt_torch.models import build_model
 from hvt_torch.train import checkpoint as checkpoint_lib
 from hvt_torch.train import ema as ema_lib
 
@@ -110,3 +125,78 @@ def topk_record(classes, row, top_i, top_p, tiers, n_allowed, k) -> dict:
     if tiers is not None:
         rec["tier_ids"] = [int(t) for t in tiers[row]]
     return rec
+
+
+
+def predict(config, *, topk: int = 5, use_ema: bool = True, hierarchical: bool = False,
+            limit_batches: Optional[int] = None, artifact: Optional[str] = None,
+            quantize: Optional[str] = None, calibrate: int = 0, device=None):
+    """→ an iterator of one top-k record per image of the eval split (padded
+    rows skipped), over at most ``limit_batches`` batches. ``hierarchical``
+    (multitask models): the top-down decode, the species tier's top-k.
+    ``device`` None means the CUDA card (an error without one). Serving
+    artifacts and int8 (``artifact``, ``quantize``, ``calibrate``) raise."""
+    if artifact is not None or quantize is not None or calibrate:
+        raise NotImplementedError("prediction from serving artifacts and int8 (artifact, quantize, "
+                                  "calibrate) is not ported yet (ROADMAP.md queue 1, item 10)")
+    device = device_lib.resolve(device)
+    loader, info = build_loader(config, is_train=False)
+    data_cfg = config.eval_dataset
+    model = build_model(config, info.num_classes)
+    unsupported = device.type == "cuda" and model.cuda_unsupported(data_cfg.crop_size)
+    if unsupported:
+        raise NotImplementedError(
+            f"{config.model.name} {dict(config.model.args)} at {data_cfg.crop_size} px "
+            "does not run on the CUDA kernels yet: " + "; ".join(unsupported))
+    classes = list(getattr(loader.dataset, "classes", ()))
+    lookups = taxonomy_lookups(classes, info.num_classes) if hierarchical else None
+    k = min(topk, info.fine_grained_num_classes)
+    model = _resolve_weights(config, model, use_ema).to(device).eval()
+    step = build_topk_step(model, DevicePrep.from_config(data_cfg, config.precision), lookups, k,
+                           device)
+    return _records(loader, step, classes, k, limit_batches)
+
+
+def _records(loader, step, classes, k, limit_batches):
+    paths = getattr(loader.dataset, "paths", None)
+    for batch_idx, batch in enumerate(loader.epoch(0)):
+        if limit_batches is not None and batch_idx >= limit_batches:
+            break
+        top_i, top_p, tiers, n_allowed = step(batch.images)
+        for row in range(batch.images.shape[0]):
+            if batch.mask[row] <= 0:
+                continue
+            rec = topk_record(classes, row, top_i, top_p, tiers, n_allowed, k)
+            label = batch.labels[row]
+            rec["label"] = [int(t) for t in label] if np.ndim(label) else int(label)
+            if paths is not None and batch.indices is not None:
+                rec["path"] = str(paths[int(batch.indices[row])])
+            yield rec
+
+
+def run(config, output: Optional[str], **kwargs) -> dict:
+    """Predict and write JSONL to ``output`` (stdout without one); returns
+    ``{"count", "top1", "topk"}``, the accuracy against the dataset's labels
+    (the species tier of a multitask label)."""
+    n = hit1 = hitk = 0
+    records = predict(config, **kwargs)
+    out_f = open(output, "w") if output else None
+    try:
+        for rec in records:
+            n += 1
+            label = rec["label"][-1] if isinstance(rec["label"], list) else rec["label"]
+            hit1 += label == rec["class_ids"][0]
+            hitk += label in rec["class_ids"]
+            line = json.dumps(rec)
+            if out_f is not None:
+                out_f.write(line + "\n")
+            else:
+                print(line)
+    finally:
+        if out_f is not None:
+            out_f.close()
+    summary = {"count": n, "top1": hit1 / n if n else 0.0, "topk": hitk / n if n else 0.0}
+    if output:
+        print(f"[{config.run_name}] wrote {n} predictions to {output} "
+              f"(top1={summary['top1']:.4f}, topk={summary['topk']:.4f})")
+    return summary

@@ -8,7 +8,8 @@ of ``hvt/hierarchy.py`` (pure Python/numpy).
   classes, cached on disk as ``tree_dist_cache.npy`` (evaluation's
   ``tree-dist`` metric),
 * per-tier class indices in first-seen order over the sorted class list,
-* child → parent index vectors for the constrained top-down decode,
+* child → parent index vectors for the constrained top-down decode and
+  the hierarchical SimpleShot centroid,
 * ``LeafCountLookup``, the leaf counts under every node.
 """
 
@@ -83,6 +84,12 @@ def parent_lookup_from_classes(classes: Sequence[str]) -> list[np.ndarray]:
         vec[table[:, tier]] = table[:, tier - 1]
         vectors.append(vec)
     return vectors
+
+
+def build_parent_label_lookup(directory: str | os.PathLike) -> list[np.ndarray]:
+    """:func:`parent_lookup_from_classes` over the union of the folder's
+    train/ and val/ class directories (SimpleShot's hierarchical centroid)."""
+    return parent_lookup_from_classes([lab.raw for lab in union_labels(directory)])
 
 
 def tree_dist_matrix(labels: Sequence[HierarchicalLabel]) -> np.ndarray:

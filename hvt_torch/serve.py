@@ -19,12 +19,13 @@ import argparse
 
 from hvt_torch import config as config_lib
 
-_NOT_PORTED = "is not ported to hvt_torch yet (ROADMAP.md queue 1, item 10)"
+NOT_PORTED = "is not ported to hvt_torch yet (ROADMAP.md queue 1, item 10)"
 
 
-class _NotPorted(argparse.Action):
-    """A flag of hvt's server that the port refuses as soon as it is parsed,
-    before the required --machine/--exp are checked."""
+class NotPorted(argparse.Action):
+    """A flag of hvt's serving tools (``serve.py``, ``predict.py``,
+    ``serve_bench``) that the port refuses as soon as it is parsed, before
+    the required --machine/--exp are checked."""
 
     def __call__(self, parser, namespace, values, option_string=None):
         parser.error(f"{option_string}: {self.help}")
@@ -42,11 +43,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--hierarchical", action="store_true")
     parser.add_argument("--device", default=None,
                         help="torch device; default the CUDA card (an error without one)")
-    parser.add_argument("--artifact", action=_NotPorted,
-                        help=f"serving a StableHLO artifact directory {_NOT_PORTED}")
-    parser.add_argument("--quantize", action=_NotPorted, help=f"int8 serving {_NOT_PORTED}")
-    parser.add_argument("--calibrate", action=_NotPorted, metavar="N",
-                        help=f"static int8 calibration {_NOT_PORTED}")
+    parser.add_argument("--artifact", action=NotPorted,
+                        help=f"serving a StableHLO artifact directory {NOT_PORTED}")
+    parser.add_argument("--quantize", action=NotPorted, help=f"int8 serving {NOT_PORTED}")
+    parser.add_argument("--calibrate", action=NotPorted, metavar="N",
+                        help=f"static int8 calibration {NOT_PORTED}")
     return parser
 
 

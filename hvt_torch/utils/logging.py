@@ -9,7 +9,8 @@ warns, as hvt's does, when the package is missing; the package is imported
 only then). :class:`SpeedMonitor`
 gives samples/sec over a sliding window (reference main.py:92,
 window_size=50). :func:`memory_stats` reads the card's allocator under hvt's
-key names. The port is one process: rank 0, no broadcast.
+key names. :func:`publish_run_metrics` is the downstream entry points'
+one-shot logger. The port is one process: rank 0, no broadcast.
 """
 
 from __future__ import annotations
@@ -103,6 +104,26 @@ class RunLogger:
         self._file.close()
         if self._wandb_run is not None:
             self._wandb_run.finish()
+
+
+def publish_run_metrics(config, metrics: dict, prefix: str) -> None:
+    """One record of a downstream entry point's metrics (linear probe,
+    SimpleShot) through a one-shot :class:`RunLogger` under
+    ``<save_root>/<run_name>``: the config's YAML, then the metrics under
+    ``prefix/`` at step 0; the wandb sink only where ``save.wandb`` asks and
+    the package imports."""
+    import os
+
+    from hvt_torch import config as config_lib
+
+    logger = RunLogger(os.path.join(config.machine.save_root, config.run_name), config.run_name,
+                       use_wandb=config.save.wandb, wandb_entity=config.wandb.entity,
+                       wandb_project=config.wandb.project, tags=list(config.tags))
+    try:
+        logger.log_config(config_lib.to_yaml(config))
+        logger.log(0, metrics, prefix=prefix)
+    finally:
+        logger.close()
 
 
 def _scalar(v):

@@ -21,8 +21,10 @@ BatchNorm reductions run at ResNet-50 widths (C = 64 to 2048) against f64
 sums of the same inputs. The retired fused halves (``swin_block_cuda``)
 compute at f32 accuracy on both sides: 1e-4·max|plain| with f32 x, 2e-2
 with bf16 x (the output rounding), at every SwinV2-T and SwinV2-B block
-shape and each pair of x's and the weights' dtypes. Each test states its
-tolerance.
+shape and each pair of x's and the weights' dtypes. The downstream layer:
+the linear probe's grid search in f32 on the card against f64 on the CPU,
+the centroids (f64) against the CPU's, and ``extract_features`` on ResNet-50
+and SwinV2-T fused against the plain path. Each test states its tolerance.
 """
 
 import math
@@ -1301,3 +1303,116 @@ def test_train_step_with_every_augmentation_on_the_card(cuda, tmp_path):
     layers = sum(isinstance(m, torch.nn.Module) and type(m).__name__ == "PallasBatchNorm"
                  for m in trainer.model.modules())
     assert bsc.SUMS_KERNEL.launches == 4 * layers
+
+
+# ---------------------------------------------------------------------------
+# Downstream: the probe's fit, the centroids and feature extraction
+# ---------------------------------------------------------------------------
+
+
+def _clusters(seed, classes=12, per_class=50, dim=64):
+    rng = np.random.default_rng(seed)
+    centres = rng.normal(size=(classes, dim)) * 0.6
+    y = rng.permutation(np.repeat(np.arange(classes), per_class))
+    mix = rng.normal(size=(dim, dim)) / np.sqrt(dim) + np.eye(dim)
+    return ((centres[y] + rng.normal(size=(y.size, dim))) @ mix + 3.0).astype(np.float32), y
+
+
+def test_linear_probe_on_the_card_matches_the_cpu_f64(cuda):
+    """The whole grid search in f32 on the card against f64 on the CPU: the
+    same alpha, the test predictions equal on >= 99.5% of rows, the refit's
+    objective within 1e-4 relative; 10 iterations in f64 on the card and on
+    the CPU within 1e-8 of each other."""
+    from hvt_torch.downstream import linear as L
+
+    x, y = _clusters(0)
+    x_test, y_test = _clusters(0, per_class=25)
+    card = L.LinearProbe(device=cuda).fit(x, y)
+    cpu = L.LinearProbe().fit(x, y)
+    assert card.model_.weight.dtype == torch.float32 and card.model_.weight.is_cuda
+    assert card.best_alpha_ == cpu.best_alpha_
+    assert np.mean(card.predict(x_test) == cpu.predict(x_test)) >= 0.995
+    assert abs(card.model_.objective - cpu.model_.objective) <= 1e-4 * cpu.model_.objective
+    x64 = torch.from_numpy(x).double()
+    card64 = L.fit_ovr(x64.to(cuda), y, cpu.best_alpha_, max_iter=10)
+    cpu64 = L.fit_ovr(x64, y, cpu.best_alpha_, max_iter=10)
+    assert abs(card64.objective - cpu64.objective) <= 1e-8 * cpu64.objective
+
+
+def test_centroids_on_the_card_match_the_cpu(cuda):
+    """Flat and hierarchical nearest centroids (f64 on both): predictions
+    equal, centroids within 1e-12 relative."""
+    from hvt_torch import hierarchy
+    from hvt_torch.data.synthetic import synthetic_class_names
+    from hvt_torch.downstream import centroid as C
+
+    x, y = _clusters(1, classes=40, per_class=5)
+    queries, _ = _clusters(2, classes=40, per_class=130)  # past one chunk of 4096
+    card, cpu = C.NearestCentroid(cuda).fit(x, y), C.NearestCentroid().fit(x, y)
+    _close(card.centroids_.cpu(), cpu.centroids_, 1e-12, "centroids")
+    np.testing.assert_array_equal(card.predict(queries), cpu.predict(queries))
+    names = synthetic_class_names(40)
+    table, _ = hierarchy.assign_tier_indices(names)
+    lookups = hierarchy.parent_lookup_from_classes(names)
+    hcard = C.HierarchicalNearestCentroid(lookups, cuda).fit(x, table[y])
+    hcpu = C.HierarchicalNearestCentroid(lookups).fit(x, table[y])
+    np.testing.assert_array_equal(hcard.predict(queries), hcpu.predict(queries))
+
+
+@pytest.mark.parametrize("name", ["resnet50", "swinv2_tiny"])
+def test_extract_features_on_the_card_matches_the_plain_path(cuda, tmp_path, monkeypatch, name):
+    """``extract_features`` at 224 px on the synthetic source (20 images,
+    batch 8, a padded tail): the features on the card against the plain
+    path (SwinV2-T fused: the kernels' plain versions on the card, 12
+    launches of each fused forward kernel a batch; ResNet-50, which runs no
+    kernel in eval: the CPU), worst row cosine >= 0.999 and max|Δ| within
+    5e-2·max|f|; the labels equal; a second call reads the cache."""
+    from hvt_torch import config as config_lib
+    from hvt_torch.downstream import features
+    from hvt_torch.models import build_model, torch_compat
+    from hvt_torch.train import ema as ema_lib
+
+    swin = name.startswith("swin")
+    model = build_model(config_lib.loads({"model": {"name": name}}), 10)
+    path = tmp_path / "weights.pt"
+    if swin:
+        gen = torch.Generator().manual_seed(3)
+        with torch.no_grad():
+            for pname, prm in model.named_parameters():
+                if pname.endswith("logit_scale"):
+                    prm.copy_(math.log(10.0) + 0.3 * torch.randn(prm.shape, generator=gen))
+                elif "norm" in pname and pname.endswith("weight"):
+                    prm.copy_(1.0 + 0.1 * torch.randn(prm.shape, generator=gen))
+                else:
+                    prm.copy_(torch.randn(prm.shape, generator=gen)
+                              * (prm[0].numel() ** -0.5 if prm.ndim > 1 else 0.1))
+        torch_compat.save_swin_checkpoint(dict(model.named_parameters()), str(path))
+    else:
+        torch_compat.save_resnet_checkpoint(dict(model.named_parameters()),
+                                            ema_lib.batch_stats(model), str(path))
+    data = {"source": "synthetic", "synthetic_num_classes": 10, "synthetic_num_samples": 20,
+            "global_batch_size": 8, "crop_size": 224}
+
+    def config(root):
+        return config_lib.loads({
+            "model": {"name": name, "variant": "simpleshot", "pretrained_checkpoint": f"torch://{path}",
+                      "args": {"fuse": True} if swin else {}},
+            "machine": {"save_root": str(tmp_path / root)}, "save": {"wandb": False},
+            "train_dataset": data, "eval_dataset": data})
+
+    before = (fh.MLP_KERNEL.launches, fh.ATTN_KERNEL.launches)
+    got, labels = features.extract_features(config("card"), True, "simpleshot", device=cuda)
+    launches = (fh.MLP_KERNEL.launches - before[0], fh.ATTN_KERNEL.launches - before[1])
+    assert launches == ((36, 36) if swin else (0, 0))  # 3 batches
+    if swin:
+        monkeypatch.setattr(fh, "mlp_half_forward", fh.mlp_half_plain)
+        monkeypatch.setattr(fh, "attention_half_nhwc_forward", fh.attention_half_nhwc_plain)
+    ref, ref_labels = features.extract_features(config("plain"), True, "simpleshot",
+                                                device=cuda if swin else "cpu")
+    assert got.shape == ref.shape == (20, 768 if swin else 2048)
+    np.testing.assert_array_equal(labels, ref_labels)
+    g, r = torch.from_numpy(got), torch.from_numpy(ref)
+    assert float(torch.nn.functional.cosine_similarity(g, r, dim=1).min()) >= 0.999
+    _close(g, r, 5e-2, f"{name} features")
+    again, _ = features.extract_features(config("card"), True, "simpleshot", device=cuda)
+    np.testing.assert_array_equal(again, got)

@@ -8,8 +8,10 @@
 * The host-side pieces against hvt's: config trees, synthetic data, folder
   scans, the eval transform and device prep.
 * Hygiene: importing every ``hvt_torch`` module and ``chip_smoke.py``
-  loads neither jax nor hvt, and an entry point given no device raises
-  when CUDA is absent instead of drifting to the CPU.
+  loads neither jax nor hvt nor sklearn (the card's machine has none of
+  them), and an entry point given no device (the server, feature
+  extraction, batch prediction, serve_bench) raises when CUDA is absent
+  instead of drifting to the CPU.
 """
 
 import http.client
@@ -270,7 +272,8 @@ for m in pkgutil.walk_packages(hvt_torch.__path__, "hvt_torch."):
     importlib.import_module(m.name)
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
-print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "hvt"))))
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "flax", "hvt", "sklearn"))))
 print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] == "hvt_torch")))
 """
 # the training slices' modules, which the walk above must reach
@@ -281,6 +284,13 @@ _TRAINING_MODULES = {
     "hvt_torch.train.ema", "hvt_torch.models.resnet", "hvt_torch.ops.bn_stats",
     "hvt_torch.ops.bn_stats_cuda",
 }
+# the downstream slice's modules: the card's machine has no sklearn either
+_DOWNSTREAM_MODULES = {
+    "hvt_torch.linear_probe", "hvt_torch.simpleshot", "hvt_torch.predict",
+    "hvt_torch.tools.serve_bench", "hvt_torch.downstream.features",
+    "hvt_torch.downstream.centroid", "hvt_torch.downstream.linear",
+    "hvt_torch.downstream.predict",
+}
 
 
 def test_port_imports_neither_jax_nor_hvt():
@@ -289,19 +299,33 @@ def test_port_imports_neither_jax_nor_hvt():
     assert out.returncode == 0, out.stderr
     foreign, imported = (json.loads(line) for line in out.stdout.strip().splitlines()[-2:])
     assert foreign == []
-    assert _TRAINING_MODULES <= set(imported), _TRAINING_MODULES - set(imported)
+    wanted = _TRAINING_MODULES | _DOWNSTREAM_MODULES
+    assert wanted <= set(imported), wanted - set(imported)
     # and no import of them hides inside a function
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|hvt)(\.|\s|$)", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|hvt|sklearn)(\.|\s|$)", re.M)
     for path in [*sorted((ROOT / "hvt_torch").rglob("*.py")), ROOT / "chip_smoke.py"]:
         assert not pattern.search(path.read_text()), path
 
 
-def test_entry_points_never_drift_to_the_cpu(monkeypatch):
+def test_entry_points_never_drift_to_the_cpu(monkeypatch, tmp_path):
+    from hvt_torch.downstream import features, predict
+    from hvt_torch.tools import serve_bench
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         device_lib.resolve()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_lib.InferenceEngine(_config())
+    cfg = tconfig.loads(tconfig.to_dict(_config()), {"machine": {"save_root": str(tmp_path)},
+                                                       "train_dataset": {"source": "synthetic"}})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        features.extract_features(cfg, is_train=False, kind="simpleshot")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        predict.predict(cfg)
+    exp = tmp_path / "exp.yaml"
+    exp.write_text(tconfig.to_yaml(cfg))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_bench.main(["--machine", str(ROOT / "configs/machines/local.yaml"), "--exp", str(exp)])
     with pytest.raises(RuntimeError, match="not available"):
         device_lib.resolve("cuda")
     assert device_lib.resolve("cpu") == torch.device("cpu")
