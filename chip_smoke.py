@@ -203,6 +203,33 @@ Phases, in order; any failure exits non-zero and prints no result:
      kernel a forward); (f) ``hvt_torch.tools.serve_bench`` on SwinV2-T
      fuse: true, engine and --http, 8 clients x 25 requests at batch 8, its
      JSON line each.
+ 17. the rest of training, through ``hvt_torch.main.main`` at 10,000 classes
+     on the synthetic source, every run at its config's written batch with
+     ``grad_accum: auto`` (the probe's launches set apart; each step's and
+     the run's launches exact: a pass launches each kernel per microbatch
+     as a step did before, a SAM step makes two passes): (a) ResNet-50 from
+     inat21.yaml + recipes/hot_tpu.yaml with bn_pallas at 2,048 for 12
+     steps, SAM (rho 0.5, interval 10) at steps 0 and 10, the resolved
+     accumulation, losses, the EMA's update, step ms of SAM and other steps,
+     img/s, peak memory, and the BatchNorm pair checked and timed at the
+     microbatch's shapes at the sizes SAM's steps ran at, beside
+     batch_norm_stats / batch_norm_backward_reduce; (b) swinv2_tiny.yaml on
+     fuse: true at 2,048 for 4 steps; (c) SwinV2-B (phase 10's) at 2,048
+     for 3 steps; (d) SwinV2-T fuse: true at 256, drop path 0: one step at
+     grad_accum 2 against 1 (each gradient's cosine >= 0.999, loss within
+     1e-3) and SAM with 2 microbatches on the kernel path against the plain
+     path (phase 7's tolerances); (e) at 128, the same weights, batch and
+     generator with and without recomputation, under deterministic
+     settings: SwinV2-T ``remat`` on both routes (forward kernels 24,
+     backward 12 a step) and ResNet-50 ``remat_stages: [1, 2, 3, 4]`` with
+     bn_pallas and stochastic depth (the sums kernel once more for each of
+     the 52 BatchNorms in the stages: 105; the reduce 53), gradients and
+     running statistics bit-equal, peak memory of each; (f) SwinV2-T with
+     ``ape`` on fuse: true, one step against the plain path; (g)
+     ``bn_custom`` against ``bn_pallas`` on ResNet-50 at 256 (no BatchNorm
+     kernel launch, each gradient's cosine >= 0.99) and inat21.yaml +
+     fixed/r50_rand_species_multitask_pretrain_1.yaml (``bn_groups: 4``,
+     the multitask hierarchy of the synthetic source) at 2,048 for 4 steps.
 Every Trainer writes its checkpoints and run log under a temporary
 ``machine.save_root``, emptied at the end of each run or phase and removed
 at exit; the Trainers' own lines (the RunLogger's config and records) go to
@@ -2203,25 +2230,35 @@ def gradient_check(config, label: str, randomize: bool = True, hold_gradients: b
             ref_loss, ref = loss_and_grads()
     finally:
         torch.backends.cudnn.deterministic = deterministic
+    log(f"  {label}: loss {loss:.6f}, plain path {ref_loss:.6f}")
+    if abs(loss - ref_loss) > LOSS_RTOL * abs(ref_loss):
+        raise AssertionError(f"{label}: kernel-path loss {loss} vs the plain path's {ref_loss}")
+    held = compare_gradients(grads, ref, label, GRAD_COSINE if hold_gradients else -1.0,
+                             GRAD_NORM_RTOL if hold_gradients else math.inf)
+    del model, grads, ref
+    torch.cuda.empty_cache()
+    return {"dtype": config.precision.compute_dtype, "gradients_held": hold_gradients,
+            "loss": loss, "plain_loss": ref_loss, **held}
+
+
+def compare_gradients(grads: dict, ref: dict, label: str, cosine: float,
+                      norm_rtol: float = GRAD_NORM_RTOL) -> dict:
+    """Each tensor's cosine and norm ratio against ``ref``; raises where a
+    cosine falls below ``cosine`` or a norm ratio strays past ``norm_rtol``
+    (-1 and inf record without holding)."""
     rows = []
     for name, g in grads.items():
         r = ref[name]
         cos = float((g * r).sum() / (g.norm() * r.norm()).clamp_min(1e-30))
         rows.append((cos, float(g.norm() / r.norm().clamp_min(1e-30)), name))
-    worst = min(rows, key=lambda row: (row[0], -abs(row[1] - 1.0)))
+    worst = min(rows)
     worst_norm = max(rows, key=lambda row: abs(row[1] - 1.0))
-    log(f"  {label}: loss {loss:.6f}, plain path {ref_loss:.6f}; {len(rows)} gradient tensors: "
-        f"worst cosine {worst[0]:.6f} ({worst[2]}), worst norm ratio {worst_norm[1]:.4f} "
-        f"({worst_norm[2]})")
-    bad = [r for r in rows if hold_gradients and (r[0] < GRAD_COSINE or abs(r[1] - 1.0) > GRAD_NORM_RTOL)]
-    if abs(loss - ref_loss) > LOSS_RTOL * abs(ref_loss) or bad:
-        raise AssertionError(f"{label}: kernel-path gradients disagree with the plain path: loss "
-                             f"{loss} vs {ref_loss}; tensors {bad[:5]}")
-    del model, grads, ref
-    torch.cuda.empty_cache()
-    return {"dtype": config.precision.compute_dtype, "gradients_held": hold_gradients,
-            "loss": loss, "plain_loss": ref_loss, "tensors": len(rows),
-            "worst_cosine": worst[0], "worst_cosine_tensor": worst[2],
+    bad = [r for r in rows if r[0] < cosine or abs(r[1] - 1.0) > norm_rtol]
+    log(f"    {label}: {len(rows)} gradient tensors, worst cosine {worst[0]:.6f} ({worst[2]}), "
+        f"worst norm ratio {worst_norm[1]:.5f} ({worst_norm[2]})")
+    if bad:
+        raise AssertionError(f"{label}: gradients disagree: {bad[:5]}")
+    return {"tensors": len(rows), "worst_cosine": worst[0], "worst_cosine_tensor": worst[2],
             "worst_norm_ratio": worst_norm[1], "worst_norm_tensor": worst_norm[2]}
 
 
@@ -2306,14 +2343,14 @@ def optimizer_times(opt, iters: int = 5) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def bn_inputs(grid: int, c: int, seed: int):
+def bn_inputs(grid: int, c: int, seed: int, batch: int = RESNET_BATCH):
     """x and g (rows, C) bf16, the (rows, C) views of NHWC maps at
-    RESNET_BATCH, x with channel means away from 0; scale ~ U(0, 1) as hvt's
+    ``batch``, x with channel means away from 0; scale ~ U(0, 1) as hvt's
     init draws it, and a drawn bias."""
     import torch
 
     gen = torch.Generator("cuda").manual_seed(seed)
-    rows = RESNET_BATCH * grid * grid
+    rows = batch * grid * grid
     x = torch.randn(rows, c, device="cuda", generator=gen).mul_(1.5).add_(
         torch.randn(c, device="cuda", generator=gen)).bfloat16()
     g = torch.randn(rows, c, device="cuda", generator=gen).bfloat16()
@@ -2368,9 +2405,9 @@ def bn_train_check(x, g, scale, bias, what: str) -> dict:
     return errs
 
 
-def bn_records(timing: bool, shapes=RESNET_BN_SHAPES) -> dict:
+def bn_records(timing: bool, shapes=RESNET_BN_SHAPES, batch: int = RESNET_BATCH) -> dict:
     """Both BatchNorm kernels at every ResNet-50 BatchNorm shape (``shapes``:
-    (H = W, channels, layers); 224 px by default) at RESNET_BATCH: checked
+    (H = W, channels, layers); 224 px by default) at ``batch``: checked
     against f64 sums, their plain versions and (through ``bn_train``) the
     plain path; or timed with their plain versions and the library calls.
     Per training step: each shape's launches summed."""
@@ -2381,13 +2418,13 @@ def bn_records(timing: bool, shapes=RESNET_BN_SHAPES) -> dict:
     records = {name: {"max_abs_err": 0.0, "bytes": 0, "flops": 0, "stages": []}
                for name in BN_KERNELS}
     for i, (grid, c, layers) in enumerate(shapes):
-        x, g, scale, bias = bn_inputs(grid, c, seed=500 + i)
+        x, g, scale, bias = bn_inputs(grid, c, seed=500 + i, batch=batch)
         rows = x.shape[0]
         s, q = bn_stats.channel_sums(x)
         mean = s / rows
         rstd = torch.rsqrt(torch.clamp_min(q / rows - mean * mean, 0.0) + 1e-5)
-        x4 = x.view(RESNET_BATCH, grid, grid, c).permute(0, 3, 1, 2)  # channels-last views
-        g4 = g.view(RESNET_BATCH, grid, grid, c).permute(0, 3, 1, 2)
+        x4 = x.view(batch, grid, grid, c).permute(0, 3, 1, 2)  # channels-last views
+        g4 = g.view(batch, grid, grid, c).permute(0, 3, 1, 2)
         cases = {
             "bn_channel_sums": (lambda: bn_stats.channel_sums(x),
                                 lambda: bn_stats.channel_sums_plain(x),
@@ -4056,6 +4093,437 @@ def downstream_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the rest of training (SAM, accumulation, the BatchNorm options,
+# recomputation, ape)
+# ---------------------------------------------------------------------------
+
+HOT_STEPS = 12  # (a): SAM (rho 0.5, interval 10) fires at steps 0 and 10
+SWIN_FULL_STEPS = 4  # (b)
+BASE_FULL_STEPS = 3  # (c)
+GROUPS_STEPS = 4  # (g)
+FULL_EVAL_IMAGES = 256  # each evaluation of (a)-(c) and (g): one synthetic batch
+EQUIV_BATCH = 256  # (d), and (g)'s bn_custom step
+REMAT_BATCH = 128  # (e)
+ACCUM_COSINE = 0.999  # (d): accumulation against one pass, each gradient tensor
+ACCUM_LOSS_RTOL = 1e-3
+BN_PASS = {k: RESNET_BN_LAYERS for k in BN_KERNELS}  # a ResNet-50 pass's launches
+SWIN_PASS = {k: 12 for k in TRAIN_KERNELS[True]}  # a fused SwinV2-T pass's
+
+
+def full_config(exps, steps: int, **layer):
+    """The repository's ``exps`` (under configs/) as written, their global
+    batch included, with ``grad_accum: auto``, on the synthetic train source
+    at CLASSES classes for ``steps`` steps, evaluated on one synthetic batch
+    of FULL_EVAL_IMAGES before the first step and after the last; ``layer``
+    merged last."""
+    from hvt_torch import config as config_lib
+
+    base = config_lib.load(machine=str(ROOT / "configs/machines/local.yaml"),
+                           exps=[str(ROOT / "configs" / e) for e in exps])
+    return config_lib.loads(config_lib.to_dict(base), {
+        "max_duration": f"{steps}ba",
+        "eval_interval": "1dur",
+        "grad_accum": "auto",
+        "machine": {"save_root": str(runs_root())},
+        "save": {"wandb": False},
+        "train_dataset": {"source": "synthetic", "synthetic_num_classes": CLASSES,
+                          "synthetic_num_samples": base.train_dataset.global_batch_size * steps},
+        "eval_dataset": {"source": "synthetic", "synthetic_num_classes": CLASSES,
+                         "synthetic_num_samples": FULL_EVAL_IMAGES,
+                         "global_batch_size": FULL_EVAL_IMAGES},
+    }, layer)
+
+
+def full_run(config, per_pass: dict, label: str, eval_per_forward: dict, sam_steps=()):
+    """Train through ``hvt_torch.main.main(config)`` at the config's batch
+    with ``grad_accum: auto``. Every launch counter is set to 0 when the
+    Trainer is built, after its memory probe (a candidate that runs out of
+    memory launches as many kernels as it reached), and read after the run:
+    each kernel of ``per_pass`` must launch that many times per microbatch
+    of a pass, a step making one pass or, at ``sam_steps``, two (SAM); each
+    of ``eval_per_forward`` that many times an eval batch; every other
+    kernel never. The launches of each step are read around it too. CUDA
+    events around each step time it on the card; peak memory from the
+    Trainer's end of construction. Returns the record and the Trainer."""
+    import torch
+
+    from hvt_torch import main as main_lib
+
+    counters = kernel_counters()
+    rows, losses, trainers, evals = [], [], [], []
+
+    class RecordingTrainer(main_lib.Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            trainers.append(self)
+            inner = self.train_step
+
+            def timed(*a, **k):
+                before = {n: c.launches for n, c in counters.items()}
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                stats = inner(*a, **k)
+                end.record()
+                rows.append((start, end, a[4], {n: c.launches - before[n]
+                                                for n, c in counters.items()}))
+                return stats
+
+            self.train_step = timed
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters.values():
+                c.launches = 0
+
+        def _evaluate_at(self, step):
+            evals.append(step)
+            return super()._evaluate_at(step)
+
+    steps = int(config.max_duration.removesuffix("ba"))
+    batch = config.train_dataset.global_batch_size
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with swapped(main_lib, Trainer=RecordingTrainer), trainer_output():
+        metrics = main_lib.main(config, on_step=lambda step, stats: losses.append(stats["loss_sum"]))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    clear_runs()
+    trainer = trainers[0]
+    accum = trainer.grad_accum
+    launches = {name: c.launches for name, c in counters.items()}
+    losses = [float(v) for v in losses]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    step_rows = [{"step": i, "scale": scale, "sam": i in sam_steps, "ms": s.elapsed_time(e),
+                  "images_per_s": batch / s.elapsed_time(e) * 1e3,
+                  "launches": {k: v for k, v in n.items() if v}}
+                 for i, (s, e, scale, n) in enumerate(rows)]
+    log(f"  {label}: grad_accum auto resolved to {accum} ({batch // accum} images a microbatch) "
+        f"for batch {batch}; {len(losses)} steps: loss {losses[0]:.4f} → {losses[-1]:.4f}; peak "
+        f"memory {peak_gib:.2f} GiB; {wall_s:.1f} s in all")
+    log("    per step (ms on the card, img/s, scale, SAM): " + "; ".join(
+        f"{r['step']}: {r['ms']:.1f} ({r['images_per_s']:.0f}, {r['scale']:.3f}"
+        f"{', SAM' if r['sam'] else ''})" for r in step_rows))
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{label}: training losses {losses}")
+    if evals != [0, steps]:
+        raise AssertionError(f"{label}: evaluations at steps {evals}, expected [0, {steps}]")
+    for r in step_rows:
+        passes = 2 if r["sam"] else 1
+        for name in counters:
+            if r["launches"].get(name, 0) != per_pass.get(name, 0) * accum * passes:
+                raise AssertionError(f"{label} step {r['step']}: {name} launched "
+                                     f"{r['launches'].get(name, 0)} times, expected "
+                                     f"{per_pass.get(name, 0) * accum * passes}")
+    eval_batches = len(evals) * trainer.eval_loader.batches_per_epoch
+    passes = steps + len(sam_steps)
+    for name, n in launches.items():
+        want = per_pass.get(name, 0) * accum * passes + eval_per_forward.get(name, 0) * eval_batches
+        if n != want:
+            raise AssertionError(f"{name}: {n} launches in {steps} steps ({passes} passes of "
+                                 f"{accum} microbatches) and {eval_batches} eval batches of "
+                                 f"{label}, expected {want}")
+    log(f"    launches {({k: v for k, v in launches.items() if v})} in {passes} passes of "
+        f"{accum} microbatches and {eval_batches} eval batches: as expected")
+    return {"label": label, "batch": batch, "grad_accum": accum, "steps": steps,
+            "sam_steps": list(sam_steps), "losses": losses, "step_rows": step_rows,
+            "launches": launches, "eval_batches": eval_batches, "peak_memory_gib": peak_gib,
+            "wall_s": wall_s, "metrics": metrics}, trainer
+
+
+def step_gradients(model, config, batch: int, accum: int = 1, sam_rho=None, seed: int = 17):
+    """One step's loss and gradients of ``model`` through the train step's
+    gradient pass (``hvt_torch.train.step.build_gradients``: ``accum``
+    microbatches, SAM's second pass with ``sam_rho``) on a seeded batch and
+    a generator seeded 0, every launch counter 0 just before and read just
+    after. Returns (loss, {name: f32 gradient}, {name: buffer}, launches,
+    the generator's state after)."""
+    import torch
+
+    from hvt_torch import objectives
+    from hvt_torch.data import DevicePrep
+    from hvt_torch.train import algorithms
+    from hvt_torch.train import step as step_lib
+
+    settings = step_lib.StepSettings(
+        num_classes=CLASSES, smoothing=algorithms.parse_algorithms(config).label_smoothing,
+        grad_accum=accum, sam_rho=sam_rho)
+    prep = DevicePrep.from_config(config.train_dataset, config.precision)
+    gradients = step_lib.build_gradients(model, objectives.soft_cross_entropy, prep, settings)
+    images, labels, mask = train_batch(seed, batch)
+    generator = torch.Generator(images.device).manual_seed(0)
+    counters = kernel_counters()
+    model.train()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    loss, _ = gradients(images, labels, mask, generator, sam=sam_rho is not None)
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counters.items()}
+    grads = {n: p.grad.float().clone() for n, p in model.named_parameters()}
+    buffers = {n: b.clone() for n, b in model.named_buffers()}
+    model.zero_grad(set_to_none=True)
+    return float(loss), grads, buffers, launches, generator.get_state()
+
+
+def expect_launches(launches: dict, want: dict, label: str) -> None:
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{label}: {name} launched {n} times, expected {want.get(name, 0)}")
+
+
+def bit_equal_states(got: dict, ref: dict, label: str) -> None:
+    """Raises naming every tensor of ``got`` that differs from ``ref``, with its max|Δ|."""
+    import torch
+
+    diff = {n: float((t.double() - ref[n].double()).abs().max()) for n, t in got.items()
+            if not torch.equal(t, ref[n])}
+    if diff:
+        raise AssertionError(f"{label}: {len(diff)} tensors differ: "
+                             + "; ".join(f"{n} {d:.3g}" for n, d in list(diff.items())[:8]))
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's deterministic convolutions and torch's deterministic
+    algorithms (warning where an op has none), then the settings as they
+    were: what separates two runs of the same work is then the work."""
+    import torch
+
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[:2]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
+
+
+def twin_models(config, change: dict, seed: int = 13, randomize: bool = True):
+    """The model of ``config`` on the card, seeded weights (every SwinV2
+    parameter drawn with ``randomize``), and the model of ``config`` with
+    the model args ``change`` carrying the same weights and buffers."""
+    from hvt_torch.models import build_model
+
+    model = build_model(config, CLASSES).cuda()
+    if randomize:
+        randomize_(model, seed=seed)
+    twin = build_model(with_changes(config, model={"args": change}), CLASSES).cuda()
+    twin.load_state_dict(model.state_dict())
+    return model, twin
+
+
+def full_batch_runs(card: str) -> dict:
+    """Phase 17 (a)-(c): the repository's 2048-image configs at their
+    written batch with ``grad_accum: auto``."""
+    import torch
+
+    from hvt_torch.data import device as device_prep
+
+    out = {}
+    log(f"  (a) ResNet-50: inat21.yaml + recipes/hot_tpu.yaml (176 px crop, progressive "
+        f"resizing, BlurPool, EMA, MixUp, device RandAugment and ColOut, stochastic depth, SAM "
+        f"rho 0.5 every 10 updates) with bn_pallas, {HOT_STEPS} steps")
+    rec, trainer = full_run(full_config(["pretrain/inat21.yaml", "recipes/hot_tpu.yaml"], HOT_STEPS,
+                                        model={"args": {"bn_pallas": True}}),
+                            BN_PASS, "resnet50 hot_tpu bn_pallas", {}, sam_steps=(0, 10))
+    ema = trainer.ema
+    rec["ema_updates"] = ema.updates
+    finite = all(bool(torch.isfinite(v).all()) for v in [*ema.params.values(),
+                                                         *ema.batch_stats.values()])
+    log(f"    EMA: {ema.updates} update (step 0; interval {ema.cfg.update_interval_steps}), "
+        f"averaged tensors finite: {finite}")
+    if ema.updates != 1 or not finite:
+        raise AssertionError(f"(a) EMA updates {ema.updates}, finite {finite}")
+    sam_ms = [r["ms"] for r in rec["step_rows"] if r["sam"]]
+    full = [r["ms"] for r in rec["step_rows"] if r["scale"] >= 1.0 and not r["sam"]]
+    log(f"    SAM steps {', '.join(f'{m:.1f}' for m in sam_ms)} ms; non-SAM steps at the crop "
+        f"{', '.join(f'{m:.1f}' for m in full)} ms ({rec['batch'] / min(full) * 1e3:.0f} img/s)")
+    micro = rec["batch"] // rec["grad_accum"]
+    rec["bn_pair"] = {}
+    crop = int(trainer.config.train_dataset.crop_size)
+    sam_sizes = {crop if s >= 1.0 else device_prep.resized_size(crop, s)
+                 for s in (trainer._scale_for_step(k) for k in (0, 10))}
+    for size in sorted(sam_sizes):  # the sizes SAM's steps ran at
+        shapes = bn_shapes_at(trainer.model, size)
+        bn_records(False, shapes, batch=micro)
+        timed = bn_records(True, shapes, batch=micro)
+        rec["bn_pair"][size] = {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "library_ms")}
+                                for k, v in timed.items()}
+        log(f"    BatchNorm pair at {size} px, microbatch {micro} (53 launches): " + "; ".join(
+            f"{k} {v['ms']:.3f} ms (bound {v['bound_ms']:.3f}, plain {v['plain_ms']:.3f}, "
+            f"library {v['library_ms']:.3f})" for k, v in timed.items()) + f" on {card}")
+    out["resnet50_hot"] = rec
+    del trainer, ema
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"  (b) SwinV2-T: swinv2_tiny.yaml with fuse: true, {SWIN_FULL_STEPS} steps")
+    out["swinv2_tiny"], trainer = full_run(
+        full_config(["pretrain/swinv2_tiny.yaml"], SWIN_FULL_STEPS, model={"args": {"fuse": True}}),
+        SWIN_PASS, "swinv2_tiny fuse=True", EVAL_PER_FORWARD["swinv2_tiny fuse=True"])
+    del trainer
+    log(f"  (c) SwinV2-B: phase 10's (swinv2_tiny.yaml's recipe, fuse: true), {BASE_FULL_STEPS} steps")
+    out["swinv2_base"], trainer = full_run(
+        full_config(["pretrain/swinv2_tiny.yaml"], BASE_FULL_STEPS,
+                    model={"name": "swinv2_base", "args": {"fuse": True}}),
+        BASE_TRAIN_PER_STEP, "swinv2_base fuse=True", EVAL_PER_FORWARD["swinv2_base fuse=True"])
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def equivalence_checks() -> dict:
+    """Phase 17 (d): accumulation against one pass, SAM with accumulation
+    against the plain path."""
+    import torch
+
+    log(f"  (d) SwinV2-T fuse: true, drop path 0, no MixUp, batch {EQUIV_BATCH}: accumulation "
+        "against one pass, and SAM (rho 0.05) with 2 microbatches against the plain path")
+    config = with_changes(training_config(drop_path_rate=0.0, fuse=True),
+                          train_dataset={"global_batch_size": EQUIV_BATCH})
+    model, _ = twin_models(config, {})
+    loss1, g1, _, n1, _ = step_gradients(model, config, EQUIV_BATCH, accum=1)
+    loss2, g2, _, n2, _ = step_gradients(model, config, EQUIV_BATCH, accum=2)
+    expect_launches(n1, SWIN_PASS, "(d) grad_accum 1")
+    expect_launches(n2, {k: 2 * v for k, v in SWIN_PASS.items()}, "(d) grad_accum 2")
+    log(f"    grad_accum 2 loss {loss2:.6f}, grad_accum 1 {loss1:.6f}")
+    if abs(loss2 - loss1) > ACCUM_LOSS_RTOL * abs(loss1):
+        raise AssertionError(f"(d) accumulated loss {loss2} vs one pass {loss1}")
+    out = {"loss": loss2, "loss_one_pass": loss1,
+           "gradients": compare_gradients(g2, g1, "grad_accum 2 vs 1", ACCUM_COSINE)}
+    del g1, g2
+    loss, g, _, n, _ = step_gradients(model, config, EQUIV_BATCH, accum=2, sam_rho=0.05)
+    expect_launches(n, {k: 4 * v for k, v in SWIN_PASS.items()}, "(d) SAM grad_accum 2")
+    with plain_versions():
+        ref_loss, ref, _, _, _ = step_gradients(model, config, EQUIV_BATCH, accum=2, sam_rho=0.05)
+    log(f"    SAM, grad_accum 2: loss {loss:.6f}, plain path {ref_loss:.6f}")
+    if abs(loss - ref_loss) > LOSS_RTOL * abs(ref_loss):
+        raise AssertionError(f"(d) SAM loss {loss} vs plain path {ref_loss}")
+    out["sam"] = {"loss": loss, "plain_loss": ref_loss,
+                  "gradients": compare_gradients(g, ref, "SAM grad_accum 2 vs plain", GRAD_COSINE)}
+    del model, g, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_checks() -> dict:
+    """Phase 17 (e): recomputation against none, bit for bit."""
+    import torch
+
+    from hvt_torch.models.common import _BatchNormBase
+
+    log(f"  (e) recomputation against none, batch {REMAT_BATCH}, same weights, batch and "
+        "generator, deterministic settings: gradients and running statistics bit-equal")
+    out, cases = {}, []
+    for fuse, fwd, bwd in ((False, ("window_attention_packed_fwd",), (BWD_KERNEL,)),
+                           (True, tuple(KERNELS)[1:], tuple(FUSED_BWD))):
+        cases.append((f"swinv2_tiny fuse={fuse}", training_config(fuse=fuse), {"remat": True},
+                      True, {k: 12 for k in fwd + bwd},
+                      {**{k: 24 for k in fwd}, **{k: 12 for k in bwd}}))
+    r50 = with_changes(resnet_config(True), train_dataset={"global_batch_size": REMAT_BATCH},
+                       model={"args": {"stochastic_depth_rate": 0.1}})
+    cases.append(("resnet50 bn_pallas", r50, {"remat_stages": [1, 2, 3, 4]}, False, BN_PASS, None))
+    for label, config, change, randomize, plain_want, remat_want in cases:
+        model, twin = twin_models(config, change, randomize=randomize)
+        if remat_want is None:  # each BatchNorm of the recomputed stages runs its forward twice
+            staged = sum(isinstance(m, _BatchNormBase) for n in twin.remat_names
+                         for m in getattr(twin, n).modules())
+            remat_want = {"bn_channel_sums": RESNET_BN_LAYERS + staged,
+                          "bn_bwd_reduce": RESNET_BN_LAYERS}
+        peaks, results = [], []
+        with deterministic():
+            for m in (model, twin):
+                torch.cuda.reset_peak_memory_stats()
+                results.append(step_gradients(m, config, REMAT_BATCH))
+                peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        (loss, g, buf, n, state), (rloss, rg, rbuf, rn, rstate) = results
+        expect_launches(n, plain_want, f"(e) {label}")
+        expect_launches(rn, remat_want, f"(e) {label} remat")
+        bit_equal_states(rg, g, f"(e) {label} gradients with remat")
+        bit_equal_states(rbuf, buf, f"(e) {label} running statistics with remat")
+        if rloss != loss or not torch.equal(rstate, state):
+            raise AssertionError(f"(e) {label}: loss {rloss} vs {loss}, or the generator moved apart")
+        log(f"    {label}: loss {loss:.6f} both; {len(g)} gradients and {len(buf)} buffers "
+            f"bit-equal; launches {({k: v for k, v in rn.items() if v})} with remat, "
+            f"{({k: v for k, v in n.items() if v})} without; peak {peaks[1]:.2f} GiB with, "
+            f"{peaks[0]:.2f} GiB without")
+        out[label] = {"loss": loss, "launches_remat": rn, "launches": n,
+                      "peak_gib_remat": peaks[1], "peak_gib": peaks[0]}
+        del model, twin, results, g, rg
+        torch.cuda.empty_cache()
+    return out
+
+
+def bn_option_checks() -> dict:
+    """Phase 17 (g): ``bn_custom`` against ``bn_pallas``, and ``bn_groups``
+    at the fixed config's batch."""
+    import torch
+
+    from hvt_torch.models.common import GroupedBatchNorm
+
+    log(f"  (g) bn_custom against bn_pallas on ResNet-50, batch {EQUIV_BATCH}, same weights and "
+        "batch, in bf16 (the loss held, the gradients recorded: as phase 9's, an ulp of the "
+        "bf16 outputs moves the first layers' gradients) and f32 (every gradient held)")
+    out = {"bn_custom": {}}
+    for dtype, hold in (("bfloat16", False), ("float32", True)):
+        config = with_changes(resnet_config(True, dtype),
+                              train_dataset={"global_batch_size": EQUIV_BATCH})
+        model, custom = twin_models(config, {"bn_pallas": False, "bn_custom": True},
+                                    randomize=False)
+        loss, g, _, n, _ = step_gradients(model, config, EQUIV_BATCH)
+        closs, cg, _, cn, _ = step_gradients(custom, config, EQUIV_BATCH)
+        expect_launches(n, BN_PASS, f"(g) bn_pallas {dtype}")
+        expect_launches(cn, {}, f"(g) bn_custom {dtype}")
+        log(f"    {dtype}: bn_custom loss {closs:.6f}, bn_pallas {loss:.6f}; BatchNorm kernel "
+            f"launches {({k: cn[k] for k in BN_KERNELS})} with bn_custom, "
+            f"{({k: n[k] for k in BN_KERNELS})} with bn_pallas")
+        if abs(closs - loss) > LOSS_RTOL * abs(loss):
+            raise AssertionError(f"(g) bn_custom loss {closs} vs bn_pallas {loss}")
+        out["bn_custom"][dtype] = {
+            "loss": closs, "bn_pallas_loss": loss, "launches": cn, "gradients_held": hold,
+            "gradients": compare_gradients(cg, g, f"bn_custom vs bn_pallas {dtype}",
+                                           GRAD_COSINE if hold else -1.0,
+                                           GRAD_NORM_RTOL if hold else math.inf)}
+        del model, custom, g, cg
+        torch.cuda.empty_cache()
+    log("    inat21.yaml + fixed/r50_rand_species_multitask_pretrain_1.yaml (bn_groups 4, "
+        f"multitask) at its batch, {GROUPS_STEPS} steps")
+    out["bn_groups"], trainer = full_run(
+        full_config(["pretrain/inat21.yaml",
+                     "pretrain/fixed/r50_rand_species_multitask_pretrain_1.yaml"], GROUPS_STEPS),
+        {}, "resnet50 bn_groups=4 multitask", {})
+    groups = {m.groups for m in trainer.model.modules() if isinstance(m, GroupedBatchNorm)}
+    tiers = trainer.info.num_classes
+    log(f"    BatchNorm groups {groups}; multitask tiers {tiers}")
+    if groups != {4} or not isinstance(tiers, tuple):
+        raise AssertionError(f"(g) bn_groups run: groups {groups}, classes {tiers}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def rest_of_training_phase(card: str) -> dict:
+    """Phase 17: (a)-(c) the repository's 2048-image configs at their
+    written batch with ``grad_accum: auto``, (d) accumulation and SAM
+    against one pass and the plain path, (e) recomputation, (f) ``ape``,
+    (g) ``bn_custom`` and ``bn_groups``."""
+    out = full_batch_runs(card)
+    out["equivalence"] = equivalence_checks()
+    out["remat"] = remat_checks()
+    log(f"  (f) ape: SwinV2-T fuse: true with the absolute position embedding, batch "
+        f"{TRAIN_BATCH}, one step against the plain path")
+    out["ape"] = gradient_check(training_config(drop_path_rate=0.0, fuse=True, ape=True),
+                                "swinv2_tiny ape fuse=True")
+    out.update(bn_option_checks())
+    return out
+
+
 def ptxas_summary(logs: dict) -> dict:
     """{source: [{kernel, registers, static_smem, spill_stores, spill_loads}]}
     from ``nvcc -Xptxas -v``'s report of each entry function."""
@@ -4547,7 +5015,17 @@ def main(argv=None) -> int:
         f"entry points on a JPEG fixture, HTTP serving of ResNet-50 and SwinV2-B, serve_bench")
     downstream = downstream_phase(card)
 
+    log(f"[17] the rest of training: inat21.yaml + hot_tpu.yaml (ResNet-50, SAM, bn_pallas), "
+        f"swinv2_tiny.yaml and SwinV2-B at their batch of 2048 with grad_accum auto; "
+        f"accumulation and SAM against one pass and the plain path; recomputation; ape; "
+        f"bn_custom and bn_groups ({CLASSES} classes, synthetic source)")
+    t17 = time.perf_counter()
+    rest = rest_of_training_phase(card)
+    rest["wall_s"] = time.perf_counter() - t17
+    log(f"  phase 17 took {rest['wall_s']:.1f} s")
+
     report = {"card": card, "host": host, "folders": folders, "downstream": downstream,
+              "rest_of_training": rest,
               "batch": BATCH, "kernels": kernels,
               "routes": routes,
               "evaluation": evaluation, "checkpoints": checkpoints,

@@ -1,9 +1,9 @@
-"""Shared model pieces — port of ``hvt/models/common.py``: stochastic depth
-and the two BatchNorm modules of the conv models.
+"""Shared model pieces — port of ``hvt/models/common.py``: stochastic depth,
+the BatchNorm modules of the conv models, and recomputation.
 
-Both BatchNorms take an NHWC activation, hold ``weight``/``bias``
+Every BatchNorm takes an NHWC activation, holds ``weight``/``bias``
 parameters (flax's ``scale``/``bias``) and ``running_mean``/``running_var``
-buffers (flax's ``batch_stats`` ``mean``/``var``), and keep flax
+buffers (flax's ``batch_stats`` ``mean``/``var``), and keeps flax
 ``nn.BatchNorm``'s semantics rather than torch's:
 
 * training normalises with the biased batch moments in f32 and updates
@@ -11,13 +11,26 @@ buffers (flax's ``batch_stats`` ``mean``/``var``), and keep flax
   would use the unbiased one and call 0.1 its momentum), eps 1e-5, output in
   the input's dtype;
 * eval computes (x − ra_mean)·rsqrt(ra_var + eps)·scale + bias.
+
+The four training routes, which ResNet's knobs pick as hvt's
+``make_batch_norm`` does: :class:`BatchNorm` (torch's batch norm),
+:class:`PallasBatchNorm` (``bn_pallas``: the BatchNorm kernels),
+:class:`CustomBatchNorm` (``bn_custom``: the same custom backward with
+torch's reductions) and :class:`GroupedBatchNorm` (``bn_groups`` > 1).
+
+:func:`recompute` runs a block under ``torch.utils.checkpoint`` (hvt's
+``nn.remat``): the block's BatchNorms update their running statistics in the
+forward only, and the recomputation draws the forward's drop-path masks.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from hvt_torch.ops import bn_stats
 
@@ -56,9 +69,12 @@ class _BatchNormBase(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.recomputing = False  # set by recompute(): the forward already updated
 
     @torch.no_grad()
     def _update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        if self.recomputing:
+            return
         m = self.momentum
         self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
         self.running_var.copy_(m * self.running_var + (1 - m) * var)
@@ -92,10 +108,101 @@ class PallasBatchNorm(_BatchNormBase):
     the running statistics update from the mean and var it returns. The view
     raises on an input that is not NHWC-contiguous: no silent copy."""
 
+    torch_reductions = False  # bn_train's reductions: the kernels on the card
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return self._eval(x)
         c = x.shape[-1]
-        y, mean, var = bn_stats.bn_train(x.view(-1, c), self.weight, self.bias, self.eps, x.dtype)
+        y, mean, var = bn_stats.bn_train(x.view(-1, c), self.weight, self.bias, self.eps, x.dtype,
+                                         self.torch_reductions)
         self._update(mean, var)
         return y.view(x.shape)
+
+
+class CustomBatchNorm(PallasBatchNorm):
+    """hvt's ``bn_custom`` (``PallasBatchNorm(use_pallas=False)``): the same
+    custom backward (``bn_train``, which saves x in its dtype and the
+    per-channel moments and recomputes x̂), its two reductions torch's ops on
+    every device. The config picks it; no kernel of this repository runs."""
+
+    torch_reductions = True
+
+
+class GroupedBatchNorm(_BatchNormBase):
+    """hvt's ``GroupedBatchNorm`` (``bn_groups`` > 1, ghost BatchNorm): the
+    batch splits into ``groups`` equal slices, each normalised in f32 over
+    its own moments (the statistics of the reference's per-GPU DDP
+    BatchNorm), the output in the input's dtype; the running statistics
+    update from the pooled moments (mean of the means; mean of the
+    variances plus the variance of the means, the law of total variance).
+    Under gradient accumulation the groups split each microbatch, as hvt's
+    do. torch's autograd differentiates it; no kernel of this repository
+    runs."""
+
+    def __init__(self, channels: int, groups: int, eps: float = 1e-5):
+        super().__init__(channels, eps)
+        self.groups = int(groups)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return self._eval(x)
+        b, g, c = x.shape[0], self.groups, x.shape[-1]
+        if b % g:
+            raise ValueError(f"batch {b} not divisible by bn groups {g}")
+        xg = x.float().reshape(g, b // g, *x.shape[1:])
+        axes = tuple(range(1, xg.ndim - 1))  # each group's batch and spatial dims
+        mean_g = xg.mean(axes, keepdim=True)
+        var_g = (xg - mean_g).square().mean(axes, keepdim=True)
+        y = ((xg - mean_g) * torch.rsqrt(var_g + self.eps)).reshape(x.shape)
+        y = y * self.weight + self.bias
+        with torch.no_grad():
+            gm, gv = mean_g.reshape(g, c), var_g.reshape(g, c)
+            mean = gm.mean(0)
+            self._update(mean, gv.mean(0) + (gm - mean).square().mean(0))
+        return y.to(x.dtype)
+
+
+REMAT_POLICIES = ("nothing", "dots")
+
+
+def remat_policy(name: str) -> str:
+    """hvt's ``REMAT_POLICIES`` names. Both recompute the whole block here:
+    hvt's "dots" saves only ``dot_general`` outputs, and the blocks that use
+    it (ResNet's) hold convolutions, which are not ``dot_general``, so it
+    saves nothing either (hvt/models/resnet.py:52-57)."""
+    if name not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {name!r}: one of {REMAT_POLICIES}")
+    return name
+
+
+def recompute(block: nn.Module, x: torch.Tensor, generator: torch.Generator | None = None):
+    """``block(x, generator)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    the backward runs the block's forward again instead of keeping its
+    activations, and with it each kernel's forward. The recomputation starts
+    ``generator`` from its state at the forward, so it draws the same
+    drop-path masks (checkpoint's own RNG handling covers only torch's
+    default generators), and puts the generator back after; the block's
+    BatchNorms skip their running-statistics update in it, so they update
+    once a step, as under flax's ``nn.remat``."""
+    norms = [m for m in block.modules() if isinstance(m, _BatchNormBase)]
+    state = generator.get_state() if generator is not None else None
+
+    @contextlib.contextmanager
+    def recomputing():
+        current = generator.get_state() if generator is not None else None
+        if generator is not None:
+            generator.set_state(state)
+        for m in norms:
+            m.recomputing = True
+        try:
+            yield
+        finally:
+            for m in norms:
+                m.recomputing = False
+            if generator is not None:
+                generator.set_state(current)
+
+    return torch.utils.checkpoint.checkpoint(
+        block, x, generator, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), recomputing()))

@@ -6,7 +6,8 @@ HWIO and ``nn.Conv2d``'s OIHW; a flax ``LayerNorm`` or ``BatchNorm`` has
 ``scale`` where PyTorch has ``weight``, and a BatchNorm's ``batch_stats``
 ``mean``/``var`` are the port's ``running_mean``/``running_var`` buffers;
 WindowAttention's raw params (``qkv_kernel``, ``cpb_w1``/``cpb_b1``/
-``cpb_w2``) map onto the port's ``qkv`` and ``cpb_fc*`` Linears. The same
+``cpb_w2``) map onto the port's ``qkv`` and ``cpb_fc*`` Linears; ``ape``'s
+``absolute_pos_embed`` has one layout in both. The same
 SwinV2 tree serves both routes (``fuse`` false or true): hvt's fused path
 materialises the identical tree.
 """
@@ -58,6 +59,8 @@ def swin_state_dict_from_flax(tree: Mapping) -> dict[str, np.ndarray]:
             out["patch_embed.bias"] = np.asarray(sub["bias"])
         elif key in ("patch_norm", "norm"):
             _norm(sub, key, out)
+        elif key == "absolute_pos_embed":  # (1, H/patch, W/patch, C) in both
+            out[key] = np.asarray(sub)
         elif key.endswith("_merge"):
             _dense(sub["reduction"], f"{key}.reduction", out)
             _norm(sub["norm"], f"{key}.norm", out)

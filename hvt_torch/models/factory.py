@@ -69,6 +69,8 @@ def build_model(config, num_classes: Union[int, tuple[int, ...]]):
     kwargs = dict(config.model.args)
     kwargs.setdefault("dtype", config.precision.compute_dtype)
     kwargs.setdefault("seed", config.seed)
+    if family is swinv2:  # the size ``ape``'s embedding is made at, as hvt's init sample
+        kwargs.setdefault("img_size", int(config.train_dataset.crop_size))
     for algo in config.algorithms:
         if algo.cls == "StochasticDepth":
             key = "stochastic_depth_rate" if family is resnet else "drop_path_rate"

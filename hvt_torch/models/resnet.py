@@ -18,16 +18,23 @@ Layout: NHWC end to end. Parameters stay f32, activations run in ``dtype``.
 Each convolution is ``F.conv2d`` on the channels-last NCHW view of the NHWC
 tensor with a channels-last weight (cuDNN's NHWC kernels on the card), so it
 returns NHWC memory and each BatchNorm input is a free (rows, C) view.
-BatchNorm is :class:`~hvt_torch.models.common.BatchNorm` (torch's batch norm
-with flax's running statistics), or with ``bn_pallas``
-:class:`~hvt_torch.models.common.PallasBatchNorm`, whose training
-reductions run the BatchNorm kernels (``csrc/bn_stats.cu``) on the card.
-Eval uses the running statistics and no kernel.
+BatchNorm is picked as hvt's ``make_batch_norm`` picks it (:func:`batch_norm`):
+``bn_groups`` > 1 → :class:`~hvt_torch.models.common.GroupedBatchNorm`;
+else ``bn_pallas`` → :class:`~hvt_torch.models.common.PallasBatchNorm`,
+whose training reductions run the BatchNorm kernels (``csrc/bn_stats.cu``)
+on the card; else ``bn_custom`` →
+:class:`~hvt_torch.models.common.CustomBatchNorm` (the same backward, torch's
+reductions); else :class:`~hvt_torch.models.common.BatchNorm` (torch's batch
+norm with flax's running statistics). Eval uses the running statistics and
+no kernel.
+
+``remat_stages`` (1-based) runs each block of the listed stages under
+:func:`~hvt_torch.models.common.recompute` in training, as hvt's
+``maybe_remat``; ``remat_policy`` is "nothing" or "dots", the same here.
 
 ``stem_s2d``: hvt computes the 7×7/2 stem as a 4×4/1 conv over
 space-to-depth input, a TPU tiling trick with the same math; here it is the
-plain 7×7/2 conv, over the same (7, 7, 3, width) kernel. ``bn_groups`` > 1,
-``bn_custom`` and ``remat_stages`` raise (ROADMAP.md queue 1, item 7).
+plain 7×7/2 conv, over the same (7, 7, 3, width) kernel.
 """
 
 from __future__ import annotations
@@ -40,7 +47,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from hvt_torch.models.common import BatchNorm, PallasBatchNorm, drop_path
+from hvt_torch.models import common
+from hvt_torch.models.common import PallasBatchNorm, drop_path
 from hvt_torch.models.heads import MultitaskHead
 from hvt_torch.ops import bn_stats_cuda
 
@@ -70,18 +78,34 @@ def max_pool_3x3(x: torch.Tensor, stride: int) -> torch.Tensor:
     return _nhwc(F.max_pool2d(_nchw(x), 3, stride, 1))
 
 
+def batch_norm(channels: int, bn: dict) -> common._BatchNormBase:
+    """hvt's ``make_batch_norm``: ``bn_groups`` > 1 wins, then ``bn_pallas``,
+    then ``bn_custom``, else the default BatchNorm. ``bn`` holds the three
+    knobs."""
+    if bn["bn_groups"] > 1:
+        return common.GroupedBatchNorm(channels, bn["bn_groups"])
+    if bn["bn_pallas"]:
+        return common.PallasBatchNorm(channels)
+    if bn["bn_custom"]:
+        return common.CustomBatchNorm(channels)
+    return common.BatchNorm(channels)
+
+
+_DEFAULT_BN = {"bn_groups": 1, "bn_pallas": False, "bn_custom": False}
+
+
 class ConvBN(nn.Module):
     """Conv (no bias) + BatchNorm + optional ReLU; with ``blurpool`` a strided
     conv blurs its input first (Composer's BlurConv2d)."""
 
     def __init__(self, in_ch: int, features: int, kernel_size: int, stride: int = 1,
-                 act: bool = True, blurpool: bool = False, bn_pallas: bool = False):
+                 act: bool = True, blurpool: bool = False, bn: dict = _DEFAULT_BN):
         super().__init__()
         self.act = act
         self.blur = blurpool and stride > 1
         self.conv = nn.Conv2d(in_ch, features, kernel_size, stride, kernel_size // 2, bias=False)
         self.conv.weight.data = self.conv.weight.data.contiguous(memory_format=torch.channels_last)
-        self.bn = (PallasBatchNorm if bn_pallas else BatchNorm)(features)
+        self.bn = batch_norm(features, bn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.blur:
@@ -99,10 +123,10 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, in_ch: int, features: int, stride: int = 1, blurpool: bool = False,
-                 drop_path_rate: float = 0.0, bn_pallas: bool = False):
+                 drop_path_rate: float = 0.0, bn: dict = _DEFAULT_BN):
         super().__init__()
         out = features * 4
-        conv = lambda *a, **k: ConvBN(*a, blurpool=blurpool, bn_pallas=bn_pallas, **k)  # noqa: E731
+        conv = lambda *a, **k: ConvBN(*a, blurpool=blurpool, bn=bn, **k)  # noqa: E731
         self.downsample = (conv(in_ch, out, 1, stride, act=False)
                            if in_ch != out or stride != 1 else None)
         self.conv1 = conv(in_ch, features, 1)
@@ -123,10 +147,10 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, in_ch: int, features: int, stride: int = 1, blurpool: bool = False,
-                 drop_path_rate: float = 0.0, bn_pallas: bool = False):
+                 drop_path_rate: float = 0.0, bn: dict = _DEFAULT_BN):
         super().__init__()
         del drop_path_rate  # hvt's basic blocks have no stochastic depth
-        conv = lambda *a, **k: ConvBN(*a, blurpool=blurpool, bn_pallas=bn_pallas, **k)  # noqa: E731
+        conv = lambda *a, **k: ConvBN(*a, blurpool=blurpool, bn=bn, **k)  # noqa: E731
         self.downsample = (conv(in_ch, features, 1, stride, act=False)
                            if in_ch != features or stride != 1 else None)
         self.conv1 = conv(in_ch, features, 3, stride)
@@ -146,16 +170,24 @@ class ResNet(nn.Module):
                  num_classes: Union[int, tuple[int, ...]] = 1000, width: int = 64,
                  blurpool: bool = False, stochastic_depth_rate: float = 0.0,
                  dtype: torch.dtype = torch.bfloat16, bn_scale_init: str = "uniform01",
-                 bn_pallas: bool = False, seed: int = 0):
+                 bn_pallas: bool = False, seed: int = 0, bn_groups: int = 1,
+                 bn_custom: bool = False, remat_stages: Sequence[int] = (),
+                 remat_policy: str = "nothing"):
         super().__init__()
         if bn_scale_init not in BN_SCALE_INITS:
             raise ValueError(f"bn_scale_init {bn_scale_init!r}: one of {BN_SCALE_INITS}")
         self.stage_sizes = tuple(stage_sizes)
         self.width, self.blurpool = width, blurpool
         self.dtype, self.bn_scale_init, self.bn_pallas = dtype, bn_scale_init, bn_pallas
+        remat_stages = tuple(int(s) for s in remat_stages)
+        if remat_stages:
+            common.remat_policy(remat_policy)  # hvt looks the policy up only where it remats
+        bn = {"bn_groups": int(bn_groups), "bn_pallas": bool(bn_pallas),
+              "bn_custom": bool(bn_custom)}
         # Composer's BlurPool leaves the stem conv alone
-        self.stem = ConvBN(3, width, 7, stride=2, bn_pallas=bn_pallas)
+        self.stem = ConvBN(3, width, 7, stride=2, bn=bn)
         self.layer_names: list[str] = []
+        self.remat_names: set[str] = set()
         total, in_ch = sum(self.stage_sizes), width
         for stage, blocks in enumerate(self.stage_sizes):
             for block in range(blocks):
@@ -163,8 +195,10 @@ class ResNet(nn.Module):
                 rate = stochastic_depth_rate * len(self.layer_names) / max(total - 1, 1)
                 features = width * 2 ** stage
                 self.add_module(name, self.block(in_ch, features, 2 if stage > 0 and block == 0 else 1,
-                                                 blurpool, rate, bn_pallas))
+                                                 blurpool, rate, bn))
                 self.layer_names.append(name)
+                if stage + 1 in remat_stages:
+                    self.remat_names.add(name)
                 in_ch = features * self.block.expansion
         self.num_features = in_ch
         if isinstance(num_classes, tuple):
@@ -189,7 +223,7 @@ class ResNet(nn.Module):
                 module.weight.normal_(0.0, math.sqrt(2.0 / module.weight[0].numel()), generator=gen)
                 if module.bias is not None:
                     module.bias.zero_()
-            elif isinstance(module, (BatchNorm, PallasBatchNorm)):
+            elif isinstance(module, common._BatchNormBase):
                 if self.bn_scale_init == "uniform01":
                     module.weight.uniform_(0.0, 1.0, generator=gen)
                 else:
@@ -208,7 +242,7 @@ class ResNet(nn.Module):
             return []
         found = []
         for name, module in self.named_modules():
-            if isinstance(module, PallasBatchNorm):
+            if isinstance(module, PallasBatchNorm) and not module.torch_reductions:
                 why = bn_stats_cuda.unsupported(module.weight.shape[0])
                 if why:
                     found.append(f"{name}: {why}")
@@ -225,10 +259,15 @@ class ResNet(nn.Module):
         """x: (B, H, W, 3) normalized image → logits (B, classes) f32, or one
         tensor per tier for a multitask head; ``features_only`` → the pooled
         (B, F) f32 features. ``generator`` draws the stochastic-depth masks
+        in train mode; the blocks of ``remat_stages`` run under ``recompute``
         in train mode."""
         x = self._stem(x.to(self.dtype))
         for name in self.layer_names:
-            x = getattr(self, name)(x, generator)
+            block = getattr(self, name)
+            if self.training and name in self.remat_names:
+                x = common.recompute(block, x, generator)
+            else:
+                x = block(x, generator)
         x = x.mean(dim=(1, 2)).float()
         if features_only:
             return x
@@ -248,26 +287,16 @@ def _dtype(dtype) -> torch.dtype:
     return getattr(torch, dtype) if isinstance(dtype, str) else dtype
 
 
-def _refuse(bn_groups: int, bn_custom: bool, remat_stages: Sequence[int]) -> None:
-    item = "ROADMAP.md queue 1, item 7 (ResNet-50, the rest)"
-    if int(bn_groups) > 1:
-        raise NotImplementedError(f"bn_groups {bn_groups} (GroupedBatchNorm) is not ported yet: {item}")
-    if bn_custom:
-        raise NotImplementedError(f"bn_custom (the custom-VJP jnp BatchNorm) is not ported yet: {item}")
-    if tuple(remat_stages):
-        raise NotImplementedError(f"remat_stages {list(remat_stages)} is not ported yet: {item}")
-
-
 def _bottleneck(stage_sizes, width=64, default_dtype="bfloat16", default_scale="uniform01"):
     def build(num_classes, *, blurpool: bool = False, stochastic_depth_rate: float = 0.0,
               stem_s2d: bool = False, dtype=default_dtype, bn_scale_init: str = default_scale,
               bn_groups: int = 1, bn_pallas: bool = False, bn_custom: bool = False,
               remat_stages: Sequence[int] = (), remat_policy: str = "nothing", seed: int = 0,
               **unused) -> ResNet:
-        del stem_s2d, remat_policy, unused  # the stem is the plain 7×7/2 conv either way
-        _refuse(bn_groups, bn_custom, remat_stages)
+        del stem_s2d, unused  # the stem is the plain 7×7/2 conv either way
         return ResNet(stage_sizes, num_classes, width, blurpool, float(stochastic_depth_rate),
-                      _dtype(dtype), bn_scale_init, bool(bn_pallas), seed)
+                      _dtype(dtype), bn_scale_init, bool(bn_pallas), seed, bn_groups,
+                      bn_custom, remat_stages, remat_policy)
 
     return build
 
@@ -280,10 +309,11 @@ def _basic(name, stage_sizes, width=64, default_dtype="bfloat16", default_scale=
                 f"{name} (BasicResNet) ignores stochastic_depth_rate="
                 f"{unused['stochastic_depth_rate']}; only the bottleneck family "
                 "(resnet50) implements stochastic depth", stacklevel=2)
-        _refuse(unused.get("bn_groups", 1), unused.get("bn_custom", False),
-                unused.get("remat_stages", ()))
         return BasicResNet(stage_sizes, num_classes, width, blurpool, 0.0, _dtype(dtype),
-                           bn_scale_init, bool(unused.get("bn_pallas", False)), seed)
+                           bn_scale_init, bool(unused.get("bn_pallas", False)), seed,
+                           int(unused.get("bn_groups", 1)), bool(unused.get("bn_custom", False)),
+                           tuple(unused.get("remat_stages", ())),
+                           str(unused.get("remat_policy", "nothing")))
 
     return build
 

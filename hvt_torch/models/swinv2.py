@@ -38,6 +38,14 @@ by the same knobs with hvt's defaults:
     fit (SwinV2-B's C = 1024 stage in training), ``mlp_half_chunked`` in K
     chunks, or with ``fuse_mlp_chunked`` false the plain LayerNorm(MLP).
 
+``remat`` runs every ``SwinBlock`` under
+:func:`~hvt_torch.models.common.recompute` in training (hvt's ``nn.remat``):
+the backward runs each block's forward again, its kernels included. ``ape``
+adds hvt's absolute position embedding, a (1, H/patch, W/patch, C)
+parameter made at ``img_size`` (the factory passes the train crop), after
+``patch_norm``; another input size raises, where hvt fails on the
+parameter's shape.
+
 On CPU tensors every kernel call runs its plain version. Both routes train
 (train mode, stochastic depth at hvt's per-block rates ``linspace(0, rate,
 depth)``), every kernel through its backward kernel; a fused residual takes
@@ -55,7 +63,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from hvt_torch.models.common import drop_path, drop_path_scale
+from hvt_torch.models.common import drop_path, drop_path_scale, recompute
 from hvt_torch.models.heads import MultitaskHead
 from hvt_torch.ops import fused_halves_cuda as fh
 from hvt_torch.ops import window_attention as wa
@@ -302,6 +310,7 @@ class SwinTransformerV2(nn.Module):
         moe_every: int = 2,
         moe_capacity: float = 1.25,
         moe_aux_weight: float = 0.01,
+        img_size: int = 224,
         seed: int = 0,
     ):
         super().__init__()
@@ -310,11 +319,8 @@ class SwinTransformerV2(nn.Module):
             raise NotImplementedError("pipe > 1: pipeline parallelism is ROADMAP queue 1, item 11")
         if moe_experts > 0:
             raise NotImplementedError("moe_experts > 0: the Switch-MoE MLP is ROADMAP queue 1, item 11")
-        if remat:
-            raise NotImplementedError("remat: activation checkpointing belongs to training, ROADMAP queue 1")
-        if ape:
-            raise NotImplementedError("ape: the absolute position embedding is not ported yet (ROADMAP queue 1)")
         self.num_classes = num_classes
+        self.remat = remat
         self.embed_dim = embed_dim
         self.depths = tuple(depths)
         self.dtype = dtype
@@ -324,6 +330,10 @@ class SwinTransformerV2(nn.Module):
         rates = iter(np.linspace(0, drop_path_rate, sum(depths)).tolist())
         self.patch_embed = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size)
         self.patch_norm = nn.LayerNorm(embed_dim, eps=1e-5) if patch_norm else None
+        # hvt makes it at the first input's token grid; the port at img_size's
+        grid = img_size // patch_size
+        self.absolute_pos_embed = (nn.Parameter(torch.zeros(1, grid, grid, embed_dim))
+                                   if ape else None)
         self.layer_names: list[str] = []
         dim = embed_dim
         for stage, (depth, heads) in enumerate(zip(depths, num_heads)):
@@ -353,8 +363,8 @@ class SwinTransformerV2(nn.Module):
     def no_weight_decay_substrings(self) -> tuple[str, ...]:
         """Parameter-name substrings the optimizer never decays: hvt's
         ("absolute_pos_embed", "cpb_", "logit_scale") in the port's names
-        (the cpb MLP is ``cpb_fc1``/``cpb_fc2``; ``ape`` is not ported)."""
-        return ("cpb_fc", "logit_scale")
+        (the cpb MLP is ``cpb_fc1``/``cpb_fc2``)."""
+        return ("absolute_pos_embed", "cpb_fc", "logit_scale")
 
     @torch.no_grad()
     def reset_parameters(self, seed: int) -> None:
@@ -382,6 +392,8 @@ class SwinTransformerV2(nn.Module):
                     ln.bias.zero_()
         if isinstance(self.head, MultitaskHead):
             self.head.reset_parameters(gen)
+        if self.absolute_pos_embed is not None:
+            _trunc02_(self.absolute_pos_embed, gen)
 
     def cuda_unsupported(self, image_size: int, training: bool = False) -> list[str]:
         """Why the CUDA kernels cannot run this model at ``image_size`` px
@@ -427,9 +439,24 @@ class SwinTransformerV2(nn.Module):
                      stride=self.patch_embed.stride).permute(0, 2, 3, 1).contiguous()
         if self.patch_norm is not None:
             x = _layer_norm(self.patch_norm, x)
+        if self.absolute_pos_embed is not None:
+            pos = self.absolute_pos_embed
+            if x.shape[1:3] != pos.shape[1:3]:
+                raise ValueError(
+                    f"ape's position embedding is a {pos.shape[1]}x{pos.shape[2]} "
+                    f"token grid ({pos.shape[1] * self.patch_embed.stride[0]} px) and this "
+                    f"input's is {x.shape[1]}x{x.shape[2]} ({x.shape[1] * self.patch_embed.stride[0]}"
+                    " px); as hvt, the port does not interpolate it")
+            x = x + pos.to(x.dtype)
+        remat = self.remat and self.training
         for name in self.layer_names:
             layer = getattr(self, name)
-            x = layer(x, generator) if isinstance(layer, SwinBlock) else layer(x)
+            if not isinstance(layer, SwinBlock):
+                x = layer(x)
+            elif remat:
+                x = recompute(layer, x, generator)
+            else:
+                x = layer(x, generator)
         x = _layer_norm(self.norm, x)
         x = x.reshape(b, -1, x.shape[-1]).mean(1).float()  # token average pool
         if features_only:

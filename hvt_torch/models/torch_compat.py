@@ -12,7 +12,9 @@ sides are PyTorch, so no layout changes, only names.
   ``patch_norm``, ``layers.{s}.blocks.{i}`` → ``stage{s}_block{i}`` (its
   ``attn.cpb_mlp.0``/``.2`` → ``attn.cpb_fc1``/``cpb_fc2``),
   ``layers.{s}.downsample`` → ``stage{s}_merge``, ``head.heads.{t}`` →
-  ``head.tier{t}``; the derived buffers (:data:`NON_PERSISTENT`) are dropped.
+  ``head.tier{t}``; ``absolute_pos_embed`` (``ape``) is Microsoft's (1, L, C)
+  and the port's (1, H, W, C) over a square grid, as hvt reshapes it; the
+  derived buffers (:data:`NON_PERSISTENT`) are dropped.
 * ResNet: ``conv1``/``bn1`` → ``stem.conv``/``stem.bn``,
   ``layer{s}.{b}.conv{i}``/``bn{i}`` → ``stage{s}_block{b}.conv{i}.conv``/
   ``.bn``, ``downsample.0``/``.1`` → ``downsample.conv``/``.bn``, ``fc`` →
@@ -118,16 +120,27 @@ def _tensor(v) -> torch.Tensor:
     return torch.as_tensor(v).detach().cpu()
 
 
+_APE = "absolute_pos_embed"
+
+
 def convert_swin_state_dict(state_dict: Mapping) -> dict[str, torch.Tensor]:
     """Microsoft SwinV2 state dict → the port's SwinTransformerV2 names."""
     infer_depths(state_dict)  # raises on a file that is not a Swin state dict
-    return {_rename(k, _SWIN_NAMES): _tensor(v) for k, v in filter_buffers(state_dict).items()}
+    out = {_rename(k, _SWIN_NAMES): _tensor(v) for k, v in filter_buffers(state_dict).items()}
+    if _APE in out:  # (1, L, C) → (1, side, side, C)
+        ape = out[_APE]
+        side = int(round(ape.shape[1] ** 0.5))
+        out[_APE] = ape.reshape(1, side, side, ape.shape[-1])
+    return out
 
 
 def export_swin_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
     """The port's SwinV2 parameters → the Microsoft SwinV2 state dict, the
     exact inverse of :func:`convert_swin_state_dict`."""
-    return {_rename(k, _SWIN_EXPORT): _tensor(v).float() for k, v in params.items()}
+    out = {_rename(k, _SWIN_EXPORT): _tensor(v).float() for k, v in params.items()}
+    if _APE in out:  # (1, H, W, C) → (1, H·W, C)
+        out[_APE] = out[_APE].reshape(1, -1, out[_APE].shape[-1])
+    return out
 
 
 def convert_resnet_state_dict(state_dict: Mapping) -> tuple[dict, dict]:

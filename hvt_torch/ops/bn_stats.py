@@ -11,7 +11,10 @@
 The reductions dispatch by device only: a CPU tensor takes the plain version
 (``*_plain``), a CUDA tensor the kernel of :mod:`hvt_torch.ops.bn_stats_cuda`,
 which raises on what it does not take. Accumulation is f32 (f64 for f64
-inputs on the CPU).
+inputs on the CPU). ``bn_train(..., torch_reductions=True)`` is hvt's
+``use_pallas=False`` route (the model's ``bn_custom``): the same Function
+with the two reductions in torch's ops on every device, chosen by the
+caller, never taken on a kernel's failure.
 """
 
 from __future__ import annotations
@@ -67,15 +70,16 @@ class _BnTrain(torch.autograd.Function):
     place, which keeps each one a single allocation."""
 
     @staticmethod
-    def forward(ctx, x2d, scale, bias, eps, out_dtype):
+    def forward(ctx, x2d, scale, bias, eps, out_dtype, torch_reductions):
         n = x2d.shape[0]
-        s, q = channel_sums(x2d)
+        s, q = (channel_sums_plain if torch_reductions else channel_sums)(x2d)
         mean = s / n
         var = torch.clamp_min(q / n - mean * mean, 0.0)
         rstd = torch.rsqrt(var + eps)
         acc = mean.dtype
         y = (x2d - mean).mul_(rstd).mul_(scale.to(acc)).add_(bias.to(acc)).to(out_dtype)
         ctx.save_for_backward(x2d, mean, rstd, scale)
+        ctx.torch_reductions = torch_reductions
         ctx.set_materialize_grads(False)
         return y, mean, var
 
@@ -86,7 +90,8 @@ class _BnTrain(torch.autograd.Function):
         acc = mean.dtype
         if dy is None:  # only the mean or var output is differentiated
             dy = torch.zeros(x2d.shape, dtype=x2d.dtype, device=x2d.device)
-        sg, sgx = bn_bwd_reduce(dy, x2d, mean, rstd)
+        reduce = bn_bwd_reduce_plain if ctx.torch_reductions else bn_bwd_reduce
+        sg, sgx = reduce(dy, x2d, mean, rstd)
         xh = (x2d - mean).mul_(rstd)
         # dx = scale·rstd·(g − Σg/n − x̂·Σgx̂/n)
         dx = torch.sub(dy, sg / n).sub_(xh.mul_(sgx / n)).mul_(scale.to(acc) * rstd)
@@ -96,13 +101,17 @@ class _BnTrain(torch.autograd.Function):
             dx.add_(dmean / n)
         if dvar is not None:
             dx.add_((x2d - mean).mul_(dvar * (2.0 / n)))
-        return dx.to(x2d.dtype), sgx.to(scale.dtype), sg.to(scale.dtype), None, None
+        return dx.to(x2d.dtype), sgx.to(scale.dtype), sg.to(scale.dtype), None, None, None
 
 
 def bn_train(x2d: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float,
-             out_dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+             out_dtype: torch.dtype, torch_reductions: bool = False
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Training BatchNorm over the rows of ``x2d`` (rows, C): returns
     (y in ``out_dtype``, mean, var), mean and var the f32 biased batch moments
     for the running statistics, var = max(E[x²] − E[x]², 0) (flax's fast
-    variance). Differentiable in x2d, scale and bias."""
-    return _BnTrain.apply(x2d, scale, bias, eps, out_dtype)
+    variance). Differentiable in x2d, scale and bias. ``torch_reductions``
+    (hvt's ``use_pallas=False``) computes the two reductions with torch's
+    ops on any device instead of :func:`channel_sums` and
+    :func:`bn_bwd_reduce`."""
+    return _BnTrain.apply(x2d, scale, bias, eps, out_dtype, torch_reductions)

@@ -3,8 +3,7 @@
 Parses every algorithm hvt's configs name (BlurPool, ChannelsLast, EMA,
 GradientClipping, ProgressiveResizing, LabelSmoothing, PretrainedBackbone,
 MixUp, CutMix, SAM, ColOut, RandAugment, StochasticDepth) into a settings
-struct. :func:`unported` names those the port's train step does not run
-yet (SAM); the Trainer refuses them rather than ignoring them.
+struct, which the Trainer, the train step and the model factory read.
 """
 
 from __future__ import annotations
@@ -112,9 +111,3 @@ def parse_algorithms(config) -> AlgorithmSettings:
             raise ValueError(f"unknown algorithm {cls!r}")
     return s
 
-
-def unported(s: AlgorithmSettings) -> list[str]:
-    """One line per parsed setting the port's train step does not run yet,
-    naming the ROADMAP.md item that ports it."""
-    found = [(s.sam_rho is not None, "SAM: ROADMAP.md queue 1, item 5 (train step)")]
-    return [why for on, why in found if on]

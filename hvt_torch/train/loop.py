@@ -37,13 +37,13 @@ metrics, and ``train_metrics`` keeps the last train record's metrics with
 its lr. MixUp, CutMix, progressive resizing (``_scale_for_step``: hvt's
 bucketed schedule over the fraction of training) and host or device
 RandAugment/ColOut run, their draws from the one saved generator, so a
-resume stays exact with them on; SAM and ``grad_accum`` > 1 are refused,
-never ignored. ``grad_accum: auto`` is sized on the card as hvt
-sizes it (:mod:`hvt_torch.train.microbatch`: the peak memory of a probe
-forward and backward at the full batch against the card's memory) and
-resolves to 1 where the batch fits, and to 1 on the CPU, as hvt's does
-without a memory limit; where the batch would need more microbatches the
-Trainer raises, since gradient accumulation is not ported.
+resume stays exact with them on; so do SAM and gradient accumulation
+(:mod:`hvt_torch.train.step`). ``grad_accum: auto`` is sized on the card as
+hvt sizes it, with hvt's doubling (:mod:`hvt_torch.train.microbatch`: the
+peak memory of the step's gradient pass at the full batch, split into the
+candidate's microbatches and with SAM's second pass where the algorithms
+ask for SAM, against the card's memory), and resolves to 1 on the CPU, as
+hvt's does without a memory limit.
 """
 
 from __future__ import annotations
@@ -79,9 +79,6 @@ class Trainer:
         self.config = config
         self.log_interval = log_interval  # steps between train records: one host sync each
         self.algos = algorithms_lib.parse_algorithms(config)
-        refused = algorithms_lib.unported(self.algos)
-        if refused:
-            raise NotImplementedError("not ported to hvt_torch's train step yet: " + "; ".join(refused))
         self.device = device_lib.resolve(device)
 
         # Data ------------------------------------------------------------
@@ -125,19 +122,10 @@ class Trainer:
         if config.grad_accum == "auto":
             grad_accum = self._auto_grad_accum()
             print(f"[{config.run_name}] grad_accum auto: {grad_accum}", flush=True)
-            if grad_accum > 1:
-                raise NotImplementedError(
-                    f"grad_accum auto: a batch of {config.train_dataset.global_batch_size} needs "
-                    f"{grad_accum} microbatches on {self.device}; gradient accumulation is "
-                    "ROADMAP.md queue 1, item 5 (train step)")
         else:
             grad_accum = int(config.grad_accum)
         self.grad_accum = grad_accum
-        self.settings = step_lib.StepSettings(
-            num_classes=self.info.num_classes, smoothing=self.algos.label_smoothing,
-            mixup_alpha=self.algos.mixup_alpha, cutmix_alpha=self.algos.cutmix_alpha,
-            grad_accum=grad_accum, randaugment=self.algos.randaugment_device,
-            colout=self.algos.colout_device)
+        self.settings = self._settings(grad_accum)
         self.train_step = step_lib.build_train_step(
             self.model, self.objective, self.optimizer, self.prep, self.settings, self.ema)
         self.eval_step = step_lib.build_eval_step(self.model, self.eval_prep, self.tree_dists)
@@ -172,33 +160,44 @@ class Trainer:
         self.speed = SpeedMonitor(window_size=50)
         self._preempted = False
 
+    def _settings(self, grad_accum: int) -> step_lib.StepSettings:
+        a = self.algos
+        return step_lib.StepSettings(
+            num_classes=self.info.num_classes, smoothing=a.label_smoothing,
+            mixup_alpha=a.mixup_alpha, cutmix_alpha=a.cutmix_alpha, grad_accum=grad_accum,
+            sam_rho=a.sam_rho, sam_interval=a.sam_interval, randaugment=a.randaugment_device,
+            colout=a.colout_device)
+
     def _auto_grad_accum(self) -> int:
         """``grad_accum: auto`` as hvt's ``_resolve_auto_grad_accum``: the
-        smallest power-of-two split of the batch whose probe step fits the
-        device, by :func:`microbatch.choose_grad_accum`. The probe (zero
-        images, class-0 labels, its own generator) leaves the model, the
-        optimizer, the EMA and the Trainer's generator as it found them."""
+        smallest power-of-two split of the batch whose step fits the device,
+        by :func:`microbatch.choose_grad_accum`. Each candidate runs the
+        step's gradient pass on the full batch (zero images, class-0 labels,
+        its own generator), with SAM's second pass where SAM is on, as hvt
+        sizes the step with SAM's branch in it; the probe leaves the model,
+        the optimizer, the EMA and the Trainer's generator as it found them."""
         cfg = self.config.train_dataset
         batch, crop = int(cfg.global_batch_size), int(cfg.crop_size)
         limit = microbatch.device_bytes_limit(self.device)
         if limit is None:
             return microbatch.choose_grad_accum(lambda accum: None, batch, None)
         classes = self.info.num_classes
-        generator = torch.Generator(self.device).manual_seed(0)
+        tiers = (len(classes),) if isinstance(classes, tuple) else ()
+        images = torch.zeros((batch, crop, crop, 3), dtype=torch.uint8, device=self.device)
+        labels = torch.zeros((batch, *tiers), dtype=torch.int32, device=self.device)
+        mask = torch.ones(batch, device=self.device)
+        sam = bool(self.algos.sam_rho)
 
-        def loss(model, n):
-            images = torch.zeros((n, crop, crop, 3), dtype=torch.uint8, device=self.device)
-            tiers = (len(classes),) if isinstance(classes, tuple) else ()
-            labels = torch.zeros((n, *tiers), dtype=torch.int32, device=self.device)
-            targets = device_prep.prepare_targets(labels, classes, self.algos.label_smoothing)
-            out = model(self.prep.normalize(images), generator=generator)
-            return self.objective(out, targets, torch.ones(n, device=self.device))
+        def measure(accum: int) -> float:
+            gradients = step_lib.build_gradients(self.model, self.objective, self.prep,
+                                                 self._settings(accum))
+            generator = torch.Generator(self.device).manual_seed(0)
+            return microbatch.probe_peak_bytes(
+                self.model, lambda: gradients(images, labels, mask, generator, sam=sam),
+                self.device)
 
         state = microbatch.optimizer_state_bytes(self.optimizer)
-        return microbatch.choose_grad_accum(
-            lambda accum: state + microbatch.probe_peak_bytes(self.model, loss, batch // accum,
-                                                              self.device),
-            batch, limit)
+        return microbatch.choose_grad_accum(lambda accum: state + measure(accum), batch, limit)
 
     def _scale_for_step(self, step: int) -> float:
         """The progressive-resize scale of step ``step`` (1.0 without it)."""

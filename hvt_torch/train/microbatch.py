@@ -2,10 +2,11 @@
 
 hvt lowers candidate train steps and reads XLA's compile-time memory
 analysis, doubling the microbatch count until the step fits the device. The
-port measures instead: ``measure(accum)`` is the peak device memory of one
-probe forward and backward at the microbatch size, plus the optimizer state
-the first update will allocate, and an out-of-memory error in the probe reads
-as "does not fit". :func:`choose_grad_accum`, the doubling itself, is hvt's
+port measures instead: ``measure(accum)`` is the peak device memory of the
+step's gradient pass as the step runs it (every microbatch of the batch, the
+gradients summed across them and, with SAM, the parameter copy and the second
+pass), plus the optimizer state the first update will allocate, and an
+out-of-memory error in the probe reads as "does not fit". :func:`choose_grad_accum`, the doubling itself, is hvt's
 own, copied. On the CPU no limit is known, and it resolves to 1, as hvt's
 does without one.
 """
@@ -88,12 +89,11 @@ def optimizer_state_bytes(optimizer: torch.optim.Optimizer) -> int:
                        for group in optimizer.param_groups for p in group["params"])
 
 
-def probe_step(model: torch.nn.Module, loss_fn: Callable[[torch.nn.Module, int], torch.Tensor],
-               batch: int) -> None:
-    """One forward and backward of ``loss_fn(model, batch)`` in train mode
-    that leaves the model as it found it: parameters and their gradients,
-    buffers (BatchNorm running statistics) and the training flag. The caller
-    passes a loss that draws from its own generator."""
+def probe_step(model: torch.nn.Module, run: Callable[[], None]) -> None:
+    """``run()``, a forward and backward of ``model`` in train mode, done so
+    that it leaves the model as it found it: parameters' gradients, buffers
+    (BatchNorm running statistics) and the training flag. ``run`` draws from
+    its own generator and puts back any parameter it moves (SAM)."""
     training = model.training
     buffers = {name: b.detach().clone() for name, b in model.named_buffers()}
     grads = {name: p.grad for name, p in model.named_parameters()}
@@ -101,7 +101,7 @@ def probe_step(model: torch.nn.Module, loss_fn: Callable[[torch.nn.Module, int],
         for p in model.parameters():
             p.grad = None  # backward() would accumulate into a held gradient in place
         model.train()
-        loss_fn(model, batch).backward()
+        run()
     finally:
         with torch.no_grad():
             for name, b in model.named_buffers():
@@ -111,13 +111,13 @@ def probe_step(model: torch.nn.Module, loss_fn: Callable[[torch.nn.Module, int],
         model.train(training)
 
 
-def probe_peak_bytes(model, loss_fn, batch: int, device: torch.device) -> float:
-    """Peak device memory of :func:`probe_step` at ``batch``; inf where the
+def probe_peak_bytes(model, run, device: torch.device) -> float:
+    """Peak device memory of :func:`probe_step` of ``run``; inf where the
     card runs out of memory."""
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
     try:
-        probe_step(model, loss_fn, batch)
+        probe_step(model, run)
         torch.cuda.synchronize(device)
         return float(torch.cuda.max_memory_allocated(device))
     except torch.cuda.OutOfMemoryError:

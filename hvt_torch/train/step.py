@@ -19,8 +19,20 @@ parameters and running statistics they are given, through
 ``torch.func.functional_call``, as hvt's take ``params, batch_stats``:
 evaluating the EMA copy neither copies the model nor touches its weights.
 
-The port runs ``grad_accum == 1`` without SAM: :func:`build_train_step`
-raises on grad accumulation, the Trainer on SAM (ROADMAP.md queue 1, item 5).
+Gradient accumulation and SAM are hvt's (``hvt/train/step.py:130-213``),
+in :func:`build_gradients`. The batch splits into ``grad_accum`` equal
+microbatches, run one after another: each draws its own augmentations and
+drop-path masks from the generator (hvt folds its key per microbatch), the
+BatchNorm running statistics chain through them, their gradients sum in
+``p.grad`` and are divided by ``grad_accum``, the loss is the mean of theirs
+and the metric sums add up. SAM (every ``sam_interval`` updates, counting
+the optimizer's updates before this one) runs the microbatches again at
+``p + (rho / max(|g|, 1e-12))·g`` and steps on those gradients; the first
+pass's loss, metric sums and running statistics are kept. hvt gives both
+passes one key, so the port replays the generator from the state it had at
+the start of the step; the parameters are put back from a copy (``p + e −
+e`` is not ``p``), the running statistics from a snapshot taken after the
+first pass, and the generator to its state after the first pass.
 """
 
 from __future__ import annotations
@@ -45,6 +57,9 @@ class StepSettings:
     mixup_alpha: Optional[float] = None
     cutmix_alpha: Optional[float] = None
     grad_accum: int = 1
+    # SAM: every sam_interval updates, the gradients again at p + rho·g/|g|
+    sam_rho: Optional[float] = None
+    sam_interval: int = 1
     # device RandAugment (depth, severity, stratified), on the uint8 batch
     # before ColOut and normalization, the host order
     randaugment: Optional[tuple[int, int, bool]] = None
@@ -92,42 +107,113 @@ def augment(images: torch.Tensor, labels: torch.Tensor, prep: device_prep.Device
     return x, targets
 
 
+def build_gradients(model: torch.nn.Module, objective: Callable, prep: device_prep.DevicePrep,
+                    settings: StepSettings) -> Callable:
+    """Returns ``gradients(images, labels, mask, generator=None, scale=1.0,
+    draws=None, sam=False)`` → (loss, metric sums): the step's gradients,
+    left in ``p.grad``, through ``settings.grad_accum`` microbatches, and
+    with ``sam`` at the perturbed point. ``draws`` are the microbatches'
+    augmentation draws, one :func:`draw_augmentations` dict each (a list, or
+    one dict at ``grad_accum`` 1), taken from ``generator`` when not given.
+    The running statistics update as the first pass goes; the parameters,
+    the second pass's statistics and the generator are put back even when a
+    pass raises (the Trainer's memory probe runs out of memory on purpose)."""
+    accum = int(settings.grad_accum)
+    if accum < 1:
+        raise ValueError(f"grad_accum {accum}: at least 1")
+
+    def one_pass(chunks, generator, scale, draws):
+        loss_sum, sums = None, None
+        for i, (images, labels, mask) in enumerate(chunks):
+            d = draws[i] if draws is not None else draw_augmentations(
+                generator, settings, tuple(images.shape), scale, images.device)
+            x, targets = augment(images, labels, prep, settings, scale, d)
+            out = model(x, generator=generator)
+            loss = objective(out, targets, mask)
+            loss.backward()
+            with torch.no_grad():
+                detached = [o.detach() for o in out] if isinstance(out, list) else out.detach()
+                stats = metrics_lib.batch_stats(detached, labels, mask)
+            loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
+            sums = stats if sums is None else {k: sums[k] + v for k, v in stats.items()}
+        if accum > 1:
+            with torch.no_grad():
+                for p in model.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(accum)
+        return loss_sum / accum if accum > 1 else loss_sum, sums
+
+    def gradients(images: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
+                  generator: Optional[torch.Generator] = None, scale: float = 1.0,
+                  draws=None, sam: bool = False):
+        b = images.shape[0]
+        if b % accum:
+            raise ValueError(f"batch {b} not divisible by grad_accum {accum}")
+        chunks = list(zip(*(a.split(b // accum) for a in (images, labels, mask))))
+        if isinstance(draws, dict):
+            draws = [draws]
+        if draws is not None and len(draws) != accum:
+            raise ValueError(f"{len(draws)} sets of draws for {accum} microbatches")
+        params = [p for p in model.parameters() if p.requires_grad]
+        for p in params:
+            p.grad = None
+        if sam and generator is None:
+            raise ValueError("SAM replays the step's draws for its second pass: pass a generator")
+        start = generator.get_state() if sam else None
+        loss, stats = one_pass(chunks, generator, scale, draws)
+        if not sam:
+            return loss, stats
+        after = generator.get_state()
+        buffers = [(b, b.detach().clone()) for b in model.buffers()]
+        saved = [p.detach().clone() for p in params]
+        try:
+            with torch.no_grad():
+                grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+                factor = settings.sam_rho / optim_lib.global_norm(grads).clamp_min(1e-12)
+                for p, g in zip(params, grads):
+                    p.add_(factor * g.to(p.dtype))
+            del grads
+            for p in params:
+                p.grad = None
+            generator.set_state(start)
+            one_pass(chunks, generator, scale, draws)
+        finally:
+            with torch.no_grad():
+                for p, s in zip(params, saved):
+                    p.copy_(s)
+                for b, s in buffers:
+                    b.copy_(s)
+            generator.set_state(after)
+        return loss, stats
+
+    return gradients
+
+
 def build_train_step(model: torch.nn.Module, objective: Callable,
                      optimizer: optim_lib.Optimizer, prep: device_prep.DevicePrep,
                      settings: StepSettings, ema: Optional[ema_lib.Ema] = None) -> Callable:
     """Returns ``step(images, labels, mask, generator, scale=1.0, draws=None)``
     → stats: device scalars ``loss_sum``, ``grad_norm`` (of the raw
-    gradients), ``batches``, ``correct@1``, ``correct@5``, ``ce_sum`` and
-    ``count``. ``scale`` is the progressive-resize scale; ``draws`` (of
-    :func:`draw_augmentations`) are taken from ``generator`` when not
-    given. The model, its parameters and the batch share one device; the
-    parameters update in place, and then ``ema`` with the optimizer's count
-    of updates before this one (hvt's ``state.step``)."""
-    if settings.grad_accum != 1:
-        raise NotImplementedError(
-            f"grad_accum {settings.grad_accum}: gradient accumulation is ROADMAP.md "
-            "queue 1, item 5 (train step); set grad_accum: 1")
+    gradients the optimizer steps on: SAM's second ones), ``batches``,
+    ``correct@1``, ``correct@5``, ``ce_sum`` and ``count``. ``scale`` is
+    the progressive-resize scale; ``draws`` (see :func:`build_gradients`)
+    are taken from ``generator`` when not given. The model, its parameters
+    and the batch share one device; the parameters update in place once,
+    and then ``ema`` with the optimizer's count of updates before this one
+    (hvt's ``state.step``), which also decides whether SAM runs."""
+    gradients = build_gradients(model, objective, prep, settings)
 
     def step(images: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
              generator: Optional[torch.Generator] = None, scale: float = 1.0,
-             draws: Optional[dict] = None) -> dict[str, torch.Tensor]:
+             draws=None) -> dict[str, torch.Tensor]:
         model.train()
-        if draws is None:
-            draws = draw_augmentations(generator, settings, tuple(images.shape), scale,
-                                       images.device)
-        x, targets = augment(images, labels, prep, settings, scale, draws)
-        out = model(x, generator=generator)
-        loss = objective(out, targets, mask)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
         step_before = optimizer.count
+        sam = bool(settings.sam_rho) and step_before % settings.sam_interval == 0
+        loss, stats = gradients(images, labels, mask, generator, scale, draws, sam)
         grad_norm = optimizer.step()
         if ema is not None:
             ema.update(step_before)
-        with torch.no_grad():
-            detached = [o.detach() for o in out] if isinstance(out, list) else out.detach()
-            stats = metrics_lib.batch_stats(detached, labels, mask)
-        stats["loss_sum"] = loss.detach().float()
+        stats["loss_sum"] = loss.float()
         stats["batches"] = torch.ones((), device=loss.device)
         stats["grad_norm"] = grad_norm
         return stats

@@ -319,12 +319,30 @@ def test_progressive_schedule_matches_hvt():
             assert got.scale_at(float(t)) == ref.scale_at(float(t)), (args, t)
 
 
-def test_only_sam_is_unported():
+def test_every_algorithm_runs_in_the_step():
+    """The algorithms the port once refused in part (SAM) parse into the
+    step's settings with the augmentations, and one step of the micro ResNet
+    runs them all: SAM at its default rho 0.05 and interval 1."""
     names = ["MixUp", "CutMix", "ProgressiveResizing", "SAM", "RandAugment", "ColOut"]
     layer = {"algorithms": [{"cls": n, "args": {"device": True} if n in ("RandAugment", "ColOut")
                              else {}} for n in names]}
-    got = talgorithms.unported(talgorithms.parse_algorithms(tconfig.loads(layer)))
-    assert got == ["SAM: ROADMAP.md queue 1, item 5 (train step)"]
+    s = talgorithms.parse_algorithms(tconfig.loads(layer))
+    assert (s.sam_rho, s.sam_interval) == (0.05, 1)
+    settings = tstep.StepSettings(NUM_CLASSES, mixup_alpha=s.mixup_alpha,
+                                  cutmix_alpha=s.cutmix_alpha, sam_rho=s.sam_rho,
+                                  sam_interval=s.sam_interval, randaugment=s.randaugment_device,
+                                  colout=s.colout_device)
+    model = tresnet.resnet_micro_bottleneck(NUM_CLASSES)
+    opt = toptim.Optimizer(model.named_parameters(), "adamw", 1e-3, 0.05, 0.9,
+                           tschedule.cosine_with_warmup(1, 10))
+    prep = tdevice.DevicePrep(mean=(0.5, 0.5, 0.5), std=(0.25, 0.25, 0.25),
+                              compute_dtype=torch.float32)
+    step = tstep.build_train_step(model, tobjectives.soft_cross_entropy, opt, prep, settings)
+    rng = np.random.default_rng(2)
+    stats = step(_t(rng.integers(0, 256, size=(4, 48, 48, 3), dtype=np.uint8)),
+                 _t(rng.integers(0, NUM_CLASSES, size=4)), torch.ones(4),
+                 torch.Generator().manual_seed(1), s.progressive.scale_at(0.0))
+    assert all(bool(torch.isfinite(v)) for v in stats.values()) and opt.count == 1
 
 
 # ---------------------------------------------------------------------------

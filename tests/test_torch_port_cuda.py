@@ -1416,3 +1416,163 @@ def test_extract_features_on_the_card_matches_the_plain_path(cuda, tmp_path, mon
     _close(g, r, 5e-2, f"{name} features")
     again, _ = features.extract_features(config("card"), True, "simpleshot", device=cuda)
     np.testing.assert_array_equal(again, got)
+
+
+# ---------------------------------------------------------------------------
+# The rest of training: accumulation, SAM, recomputation, bn_custom
+# ---------------------------------------------------------------------------
+
+
+def _tiny_swin(device, seed=0, **kw):
+    """The tiny SwinV2-T geometry (embed 96, depths 2-2, heads 3-6, window 7,
+    56 px, bf16 activations) with every parameter drawn."""
+    import torch.nn as nn
+
+    from hvt_torch.models import swinv2 as tswin
+
+    model = tswin.SwinTransformerV2(num_classes=10, embed_dim=96, depths=(2, 2), num_heads=(3, 6),
+                                    window_size=7, img_size=56, **kw)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if isinstance(model.get_submodule(name.rsplit(".", 1)[0]), nn.LayerNorm) and name.endswith("weight"):
+                p.copy_(1.0 + 0.1 * torch.randn(p.shape, generator=gen))
+            elif name.endswith("logit_scale"):
+                p.copy_(math.log(10.0) + 0.3 * torch.randn(p.shape, generator=gen))
+            else:
+                p.copy_(torch.randn(p.shape, generator=gen) * (p[0].numel() ** -0.5 if p.ndim > 1 else 0.1))
+    return model.to(device)
+
+
+def _gradients(model, device, accum=1, sam_rho=None, size=56, batch=8):
+    """One step's gradient pass (``build_gradients``) on a seeded uint8 batch
+    with a generator seeded 0: (loss, {name: f32 gradient}, {name: buffer},
+    the generator's state)."""
+    from hvt_torch.data import device as tdevice
+    from hvt_torch.objectives import soft_cross_entropy
+    from hvt_torch.train import step as tstep
+
+    prep = tdevice.DevicePrep(mean=(0.46, 0.48, 0.38), std=(0.24, 0.23, 0.25),
+                              compute_dtype=torch.bfloat16)
+    gradients = tstep.build_gradients(model, soft_cross_entropy, prep,
+                                      tstep.StepSettings(10, smoothing=0.1, grad_accum=accum,
+                                                         sam_rho=sam_rho))
+    gen = torch.Generator().manual_seed(1)
+    images = torch.randint(0, 256, (batch, size, size, 3), generator=gen, dtype=torch.uint8).to(device)
+    labels = torch.randint(0, 10, (batch,), generator=gen).to(device)
+    generator = torch.Generator(device).manual_seed(0)
+    model.train()
+    loss, _ = gradients(images, labels, torch.ones(batch, device=device), generator,
+                        sam=sam_rho is not None)
+    grads = {n: p.grad.float().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return (float(loss), grads, {n: b.clone() for n, b in model.named_buffers()},
+            generator.get_state())
+
+
+def _cosines(grads, ref, cosine, norm_rtol):
+    for name, g in grads.items():
+        r = ref[name]
+        cos = float((g * r).sum() / (g.norm() * r.norm()).clamp_min(1e-30))
+        ratio = float(g.norm() / r.norm().clamp_min(1e-30))
+        assert cos >= cosine and abs(ratio - 1.0) <= norm_rtol, (name, cos, ratio)
+
+
+_FUSED = (fh.MLP_KERNEL, fh.ATTN_KERNEL, fh.MLP_BWD_KERNEL, fh.ATTN_BWD_KERNEL)
+
+
+def _launches(kernels):
+    return [k.launches for k in kernels]
+
+
+def test_accumulation_equals_one_pass_on_the_fused_route(cuda):
+    """Two microbatches against one pass from the same weights and batch on
+    ``fuse: true`` (no BatchNorm, drop path 0): each gradient's cosine >=
+    0.999 and norm within 1%, the loss within 1e-3; each fused kernel
+    launches once a block per microbatch."""
+    model = _tiny_swin(cuda, fuse=True, drop_path_rate=0.0)
+    before = _launches(_FUSED)
+    loss, grads, _, _ = _gradients(model, cuda, accum=1)
+    middle = _launches(_FUSED)
+    loss2, grads2, _, _ = _gradients(model, cuda, accum=2)
+    after = _launches(_FUSED)
+    assert [m - b for m, b in zip(middle, before)] == [4] * 4
+    assert [a - m for a, m in zip(after, middle)] == [8] * 4
+    assert abs(loss2 - loss) <= 1e-3 * abs(loss)
+    _cosines(grads2, grads, 0.999, 0.01)
+
+
+def test_sam_kernel_path_matches_plain_path(cuda, monkeypatch):
+    """SAM (rho 0.05) with two microbatches on ``fuse: true``: the kernel
+    path (each fused kernel once a block per microbatch per pass) against
+    the plain path, loss within 1e-2, every gradient at cosine >= 0.99 and
+    norm within 5%."""
+    model = _tiny_swin(cuda, fuse=True, drop_path_rate=0.0)
+    before = _launches(_FUSED)
+    loss, grads, _, _ = _gradients(model, cuda, accum=2, sam_rho=0.05)
+    assert [a - b for a, b in zip(_launches(_FUSED), before)] == [16] * 4
+    monkeypatch.setattr(fh, "mlp_half_forward", fh.mlp_half_plain)
+    monkeypatch.setattr(fh, "attention_half_nhwc_forward", fh.attention_half_nhwc_plain)
+    monkeypatch.setattr(fh, "mlp_half_backward", fh.mlp_half_backward_plain)
+    monkeypatch.setattr(fh, "attention_half_nhwc_backward", fh.attention_half_nhwc_backward_plain)
+    ref_loss, ref, _, _ = _gradients(model, cuda, accum=2, sam_rho=0.05)
+    assert abs(loss - ref_loss) <= 1e-2 * abs(ref_loss)
+    _cosines(grads, ref, 0.99, 0.05)
+
+
+@pytest.mark.parametrize("case", ["swinv2 fuse", "resnet bn_pallas"])
+def test_recomputation_is_bit_equal_on_the_card(cuda, case):
+    """The same weights, batch and generator (drop path on) with and without
+    recomputation, cuDNN deterministic: gradients, running statistics, loss
+    and the generator's state equal bit for bit. Each forward kernel runs
+    twice a step under recomputation and each backward kernel once: on
+    SwinV2 the fused forwards 8 and the backwards 4 (4 blocks); on the micro
+    ResNet the sums kernel 9 + 8 (the 8 BatchNorms of its two recomputed
+    stages) and the reduce 9."""
+    from hvt_torch.models import resnet as tresnet
+
+    if case.startswith("swin"):
+        models = [_tiny_swin(cuda, fuse=True, drop_path_rate=0.3, remat=r) for r in (False, True)]
+        kernels, size = _FUSED, 56
+        want = ([4, 4, 4, 4], [8, 8, 4, 4])
+    else:
+        models = [tresnet.resnet_micro_bottleneck(10, dtype="bfloat16", bn_pallas=True,
+                                                  stochastic_depth_rate=0.5, seed=4,
+                                                  remat_stages=r).to(cuda) for r in ((), (1, 2))]
+        kernels, size = (bsc.SUMS_KERNEL, bsc.BWD_KERNEL), 64
+        want = ([9, 9], [17, 9])
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        results = []
+        for model, w in zip(models, want):
+            before = _launches(kernels)
+            results.append(_gradients(model, cuda, size=size))
+            assert [a - b for a, b in zip(_launches(kernels), before)] == w
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (loss, grads, bufs, state), (rloss, rgrads, rbufs, rstate) = results
+    assert loss == rloss and torch.equal(state, rstate)
+    for name, g in grads.items():
+        assert torch.equal(rgrads[name], g), (name, float((rgrads[name] - g).abs().max()))
+    for name, b in bufs.items():
+        assert torch.equal(rbufs[name], b), name
+
+
+def test_bn_custom_launches_no_batch_norm_kernel(cuda):
+    """``bn_custom`` (torch's reductions in the custom BatchNorm backward)
+    against ``bn_pallas`` from the same weights and batch on the micro
+    ResNet: no BatchNorm kernel launch against 9 of each, every gradient at
+    cosine >= 0.99 and norm within 5%."""
+    from hvt_torch.models import resnet as tresnet
+
+    pallas = tresnet.resnet_micro_bottleneck(10, dtype="bfloat16", bn_pallas=True, seed=5).to(cuda)
+    custom = tresnet.resnet_micro_bottleneck(10, dtype="bfloat16", bn_custom=True, seed=5).to(cuda)
+    kernels = (bsc.SUMS_KERNEL, bsc.BWD_KERNEL)
+    before = _launches(kernels)
+    _, ref, _, _ = _gradients(pallas, cuda, size=64)
+    middle = _launches(kernels)
+    _, grads, _, _ = _gradients(custom, cuda, size=64)
+    assert [m - b for m, b in zip(middle, before)] == [9, 9]
+    assert _launches(kernels) == middle
+    _cosines(grads, ref, 0.99, 0.05)

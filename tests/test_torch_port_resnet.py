@@ -181,15 +181,29 @@ def test_init_is_seeded_with_hvts_distributions():
     assert rates == pytest.approx([0.3 * i / 15 for i in range(16)])  # hvt's per-block rate
 
 
-@pytest.mark.parametrize("args,match", [
-    ({"bn_groups": 2}, "bn_groups 2"),
-    ({"bn_custom": True}, "bn_custom"),
-    ({"remat_stages": [1, 2]}, "remat_stages"),
+@pytest.mark.parametrize("args,cls", [
+    ({"bn_groups": 2}, tcommon.GroupedBatchNorm),
+    ({"bn_custom": True}, tcommon.CustomBatchNorm),
+    ({"remat_stages": [1, 2]}, tcommon.BatchNorm),
 ])
-def test_factory_refuses_the_unported_batch_norm_knobs(args, match):
+def test_factory_builds_the_batch_norm_knobs(args, cls):
+    """Each knob builds ResNet-50 as hvt's factory does, and a train-mode
+    forward and backward runs (4 images of 32 px; the groups split them in
+    2), the recomputed stages' blocks running twice."""
     cfg = tconfig.loads({"model": {"name": "resnet50", "args": args}})
-    with pytest.raises(NotImplementedError, match=f"{match}.*ROADMAP.md queue 1, item 7"):
-        build_model(cfg, NUM_CLASSES)
+    model = build_model(cfg, NUM_CLASSES)
+    norms = [m for m in model.modules() if isinstance(m, tcommon._BatchNormBase)]
+    assert len(norms) == 53 and all(type(m) is cls for m in norms)
+    assert model.remat_names == {n for n in model.layer_names
+                                 if int(n[5]) in args.get("remat_stages", ())}
+    calls = []
+    for name in model.layer_names:
+        getattr(model, name).register_forward_pre_hook(lambda m, a: calls.append(m))
+    out = model.train()(torch.randn(4, 32, 32, 3), generator=torch.Generator().manual_seed(0))
+    out.float().square().mean().backward()
+    assert out.shape == (4, NUM_CLASSES) and torch.isfinite(out).all()
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+    assert len(calls) == 16 + 7 * bool(args.get("remat_stages"))  # stages 1 and 2: 3 + 4 blocks
 
 
 def test_factory_builds_resnet_with_the_algorithms_knobs():

@@ -18,9 +18,9 @@
   ``jax.eval_shape``) onto the port's model leaf for leaf, shape for shape.
 * ``grad_accum: "auto"``: the port's ``choose_grad_accum`` gives hvt's
   answers on a table of cases; a Trainer whose probe needs more than the
-  card holds raises; on the CPU it resolves to 1; the probe leaves the
-  parameters, buffers, optimizer and generator as it found them, and
-  gradients the parameters already hold unchanged, to the bit.
+  card holds splits the batch and trains; on the CPU it resolves to 1; the
+  probe leaves the parameters, buffers, optimizer and generator as it found
+  them, and gradients the parameters already hold unchanged, to the bit.
 """
 
 import types
@@ -241,41 +241,52 @@ def test_grad_accum_auto_resolves_to_1_on_the_cpu(tmp_path):
     assert trainer.grad_accum == 1 and trainer.settings.grad_accum == 1
 
 
-def test_grad_accum_auto_probes_without_touching_the_model_and_refuses_a_split(monkeypatch,
-                                                                              tmp_path):
+def test_grad_accum_auto_probes_without_touching_the_model_and_trains_a_split(monkeypatch,
+                                                                             tmp_path):
     """The card is faked: a limit of 300 bytes, and a probe that runs the
-    Trainer's real probe step on the CPU and reports 100 bytes per image. A
-    batch of 4 (400 bytes) then needs 2 microbatches, and the Trainer
-    refuses; with a limit that holds the batch it trains, and the probe
-    left every parameter, buffer, the optimizer and the generator as a
-    Trainer without a probe has them."""
+    Trainer's real probe (the step's gradient pass) on the CPU and reports
+    100 bytes per image of the largest microbatch it ran. A batch of 4 (400
+    bytes) then needs 2 microbatches, and the Trainer trains at 2; with a
+    limit that holds the batch it resolves to 1. Either way the probe left
+    every parameter, buffer, the optimizer and the generator as a Trainer
+    without a probe has them."""
     probed = []
 
-    def probe(model, loss, batch, device):
-        tmicrobatch.probe_step(model, loss, batch)
-        probed.append(batch)
-        return 100.0 * batch
+    def probe(model, run, device):
+        sizes = []
+        handle = model.register_forward_pre_hook(lambda m, args: sizes.append(args[0].shape[0]))
+        try:
+            tmicrobatch.probe_step(model, run)
+        finally:
+            handle.remove()
+        probed.append(max(sizes))
+        return 100.0 * max(sizes)
 
     monkeypatch.setattr(tmicrobatch, "probe_peak_bytes", probe)
     monkeypatch.setattr(tmicrobatch, "optimizer_state_bytes", lambda opt: 0)
     monkeypatch.setattr(tmicrobatch, "device_bytes_limit", lambda device: 300)
-    with pytest.raises(NotImplementedError, match="2 microbatches.*queue 1, item 5"):
-        tloop.Trainer(tconfig.loads(_layer(tmp_path)), device="cpu")
-    assert probed == [4, 2]
+    split = tloop.Trainer(tconfig.loads(_layer(tmp_path / "split")), device="cpu")
+    assert probed == [4, 2] and split.grad_accum == 2 and split.settings.grad_accum == 2
 
     monkeypatch.setattr(tmicrobatch, "device_bytes_limit", lambda device: 10**6)
     trainer = tloop.Trainer(tconfig.loads(_layer(tmp_path)), device="cpu")
     assert probed[2:] == [4] and trainer.grad_accum == 1
     plain = tloop.Trainer(tconfig.loads({**_layer(tmp_path / "plain"), "grad_accum": 1}),
                           device="cpu")
-    got, ref = trainer.model.state_dict(), plain.model.state_dict()
+    ref = plain.model.state_dict()
     assert any("running_mean" in name for name in ref)  # BatchNorm buffers are covered
-    for name in ref:
-        torch.testing.assert_close(got[name], ref[name], rtol=0, atol=0, msg=name)
-    assert all(p.grad is None for p in trainer.model.parameters())
-    assert not trainer.optimizer.state and trainer.optimizer.count == 0
-    assert torch.equal(trainer.generator.get_state(), plain.generator.get_state())
-    assert trainer.model.training == plain.model.training
+    for probed_trainer in (trainer, split):
+        got = probed_trainer.model.state_dict()
+        for name in ref:
+            torch.testing.assert_close(got[name], ref[name], rtol=0, atol=0, msg=name)
+        assert all(p.grad is None for p in probed_trainer.model.parameters())
+        assert not probed_trainer.optimizer.state and probed_trainer.optimizer.count == 0
+        assert torch.equal(probed_trainer.generator.get_state(), plain.generator.get_state())
+        assert probed_trainer.model.training == plain.model.training
+    seen = []
+    split.fit(on_step=lambda step, stats: seen.append(float(stats["loss_sum"])))
+    split.close()
+    assert len(seen) == 1 and np.isfinite(seen[0]) and split.step == 1
 
 
 def test_probe_step_leaves_held_gradients_as_they_were():
@@ -292,7 +303,7 @@ def test_probe_step_leaves_held_gradients_as_they_were():
     def loss(m, batch):
         return m(torch.randn(batch, 3, generator=torch.Generator().manual_seed(1))).square().sum()
 
-    tmicrobatch.probe_step(model, loss, 8)
+    tmicrobatch.probe_step(model, lambda: loss(model, 8).backward())
     for name, p in model.named_parameters():
         assert p.grad is held[name][0], name
         torch.testing.assert_close(p.grad, held[name][1], rtol=0, atol=0, msg=name)

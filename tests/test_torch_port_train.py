@@ -22,8 +22,9 @@ and to the port, in f32:
   of 0.1·lr per tensor (``FUSED_TOL``, ``_close_after_adam``);
 * the synthetic train loader's batches, element for element;
 * the entry point: ``python -m hvt_torch.main --device cpu`` trains on
-  both routes, no device and no card raises, and what is not ported raises
-  (ResNet's training path is in ``test_torch_port_resnet.py``).
+  both routes, no device and no card raises, and what the port once
+  refused (accumulation, ghost BatchNorm, SAM) trains (ResNet's training
+  path is in ``test_torch_port_resnet.py``).
 
 hvt's side runs first in each test and is copied to numpy before torch
 runs a backward (JAX beside torch autograd, ROADMAP.md queue 3).
@@ -524,13 +525,16 @@ def test_entry_point_without_a_card_raises(monkeypatch):
         tmain.main(tconfig.loads(_train_layer()))
 
 
-@pytest.mark.parametrize("change,match", [
-    ({"grad_accum": 2}, "queue 1, item 5"),
-    ({"model": {"name": "resnet_micro_bottleneck", "args": {"bn_groups": 2}}},
-     "bn_groups 2 .*ROADMAP.md queue 1, item 7"),
-    ({"algorithms": [{"cls": "SAM", "args": {}}]}, "SAM: ROADMAP.md queue 1, item 5"),
+@pytest.mark.parametrize("change", [
+    {"grad_accum": 2},
+    {"model": {"name": "resnet_micro_bottleneck", "args": {"bn_groups": 2}}},
+    {"algorithms": [{"cls": "SAM", "args": {}}]},
 ])
-def test_trainer_refuses_what_is_not_ported(change, match):
-    layer = {**_train_layer(), **change}
-    with pytest.raises(NotImplementedError, match=match):
-        tmain.main(tconfig.loads(layer), device="cpu")
+def test_trainer_trains_what_was_refused(change, tmp_path):
+    """Gradient accumulation, ghost BatchNorm and SAM (rho 0.05, every
+    step): two steps each through ``hvt_torch.main``, finite losses."""
+    seen = []
+    layer = {**_train_layer(), **change, "machine": {"save_root": str(tmp_path)}}
+    metrics = tmain.main(tconfig.loads(layer), device="cpu",
+                         on_step=lambda step, stats: seen.append(float(stats["loss_sum"])))
+    assert len(seen) == 2 and all(np.isfinite(seen)) and np.isfinite(metrics["cross-entropy"])
