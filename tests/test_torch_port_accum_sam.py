@@ -58,6 +58,11 @@ from hvt_torch.train import optim as toptim
 from hvt_torch.train import schedule as tschedule
 from hvt_torch.train import step as tstep
 
+# This module keeps torch's default thread count, as its bounds were set
+# under: SAM's second pass at rho 0.5 routes max-pool gradients through ties,
+# and at one thread another order of the convolutions' sums moves the
+# step-2 gradient norm of test_sam_matches_hvt[2-2] by 8e-4 against hvt's.
+
 NUM_CLASSES = 10
 IMG, BATCH = 32, 8
 SWIN_MICRO = dict(embed_dim=16, depths=(1, 1), num_heads=(2, 4), window_size=4)

@@ -34,6 +34,7 @@ import torch
 
 from hvt.ops import window_attention_pallas as jwap
 from hvt_torch.ops import window_attention as wa
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 WINDOW, BATCH = 7, 2
 STAGES = ((56, 96, 3), (28, 192, 6), (14, 384, 12), (7, 768, 24))  # (grid, C, heads)

@@ -41,6 +41,7 @@ import torch
 from hvt.ops import window_attention_pallas as jwap
 from hvt_torch.ops import window_attention as wa
 from hvt_torch.ops import window_attention_cuda as wac
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BATCH = 2
 # (grid, C, heads, window): SwinV2-T's four stages at window 7, and window 8

@@ -34,6 +34,7 @@ import torch
 from hvt.ops import fused_halves_pallas as jfh
 from hvt_torch.ops import fused_halves_cuda as fh
 from hvt_torch.ops import window_attention as wa
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = {"float32": 5e-3, "bfloat16": 1e-2}
 NAMES = ("x", "wqkv", "bqkv", "ls", "bias", "wproj", "bproj", "lns", "lnb")
@@ -96,7 +97,8 @@ def test_attention_half_matches_pallas_forward_and_gradients(window, shift, dtyp
 
     args = [jnp.asarray(p["x"]).astype(jdt)] + [jnp.asarray(p[k]) for k in NAMES[1:]]
     ref_out = np.asarray(fwd(*args).astype(jnp.float32))
-    ref = [np.asarray(r, np.float32) for r in jax.grad(loss, argnums=tuple(range(9)))(*args)]
+    grad = jax.jit(jax.grad(loss, argnums=tuple(range(9))))
+    ref = [np.asarray(r, np.float32) for r in grad(*args)]
     assert ref[3][0, 0, 0] == 0.0  # hvt: no gradient above the clamp
 
     before = _launches()

@@ -60,6 +60,7 @@ import test_torch_port_attention_fwd_precision as fwd_plan
 from hvt.ops import fused_halves_pallas as jfh
 from hvt_torch.ops import fused_halves_cuda as fh
 from hvt_torch.ops import window_attention as wa
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 5e-3
 WINDOW, BATCH, KEEP = 7, 2, 0.8
@@ -112,7 +113,7 @@ def _hvt_gradients(stage: int):
 
     args = [jnp.asarray(np.roll(p["x"], (-shift, -shift), (1, 2)))]
     args += [jnp.asarray(p[k]) for k in NAMES[1:]]
-    ref = [np.asarray(r) for r in jax.grad(loss, argnums=tuple(range(9)))(*args)]
+    ref = [np.asarray(r) for r in jax.jit(jax.grad(loss, argnums=tuple(range(9))))(*args)]
     ref[0] = np.roll(ref[0], (shift, shift), (1, 2))
     return ref
 

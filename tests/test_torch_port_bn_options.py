@@ -28,6 +28,7 @@ from test_torch_port_accum_sam import RESNET_TOL, check_both, run_both
 from hvt.models import common as jcommon
 from hvt_torch.models import common as tcommon
 from hvt_torch.models import resnet as tresnet
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NUM_CLASSES = 10
 
@@ -71,7 +72,7 @@ def test_grouped_batch_norm_matches_hvt(groups, dtype):
                          mutable=["batch_stats"])
         return jnp.sum(y.astype(jnp.float32) * cot)
 
-    ref_g = jax.grad(loss, argnums=(0, 1))(v["params"], jnp.asarray(xs[0]).astype(jdt))
+    ref_g = jax.jit(jax.grad(loss, argnums=(0, 1)))(v["params"], jnp.asarray(xs[0]).astype(jdt))
     ref_dx = np.asarray(ref_g[1].astype(jnp.float32))
     ref_dscale, ref_dbias = (np.asarray(ref_g[0][k]) for k in ("scale", "bias"))
     if groups > 1:  # every batch divides into one group

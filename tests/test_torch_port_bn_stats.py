@@ -29,6 +29,7 @@ from hvt.models import common as jcommon
 from hvt.ops import bn_stats_pallas as bsp
 from hvt_torch.models import common as tcommon
 from hvt_torch.ops import bn_stats as bs
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _t(a):
@@ -89,7 +90,7 @@ def test_bn_train_forward_and_gradients_match_hvt(through_moments):
         y, mean, var = bsp.bn_train(x, scale, bias, 1e-5, jnp.float32, True, True)
         return _bn_loss(y, mean, var, jnp, through_moments), (y, mean, var)
 
-    (_, ref_out), ref_g = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+    (_, ref_out), ref_g = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True))(
         jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias))
     ref_out = [np.asarray(a) for a in ref_out]
     ref_g = [np.asarray(a) for a in ref_g]

@@ -53,6 +53,7 @@ from hvt_torch.train import checkpoint as tckpt
 from hvt_torch.train import ema as tema
 from hvt_torch.train import step as tstep
 from hvt_torch.train.loop import Trainer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 NUM_CLASSES = 10

@@ -55,6 +55,7 @@ from hvt_torch.downstream import centroid as tcentroid
 from hvt_torch.downstream import features as tfeatures
 from hvt_torch.train import step as tstep
 from hvt_torch.utils import logging as tlogging
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NAMES = [
     "00001_animalia_chordata_aves_accipitriformes_accipitridae_accipiter_badius",

@@ -69,6 +69,7 @@ from hvt_torch.models import swinv2 as tswin
 from hvt_torch.ops import fused_halves_cuda as fh
 from hvt_torch.train import step as tstep
 from hvt_torch.train.loop import Trainer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 NUM_CLASSES = 10

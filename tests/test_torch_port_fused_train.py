@@ -31,6 +31,7 @@ import torch
 from hvt.ops import fused_halves_pallas as jfh
 from hvt_torch.ops import fused_halves_cuda as fh
 from hvt_torch.ops import window_attention as wa
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 5e-3
 KEEP = 0.8
@@ -98,7 +99,7 @@ def test_mlp_half_gradients_match_pallas(c, resid):
         out = jfh.mlp_half(*args, True, tpi if resid else 0, dp=dp)
         return jnp.sum(out * jnp.asarray(gout))
 
-    ref = jax.grad(loss, argnums=tuple(range(7)))(*(jnp.asarray(p[k]) for k in MLP_NAMES))
+    ref = jax.jit(jax.grad(loss, argnums=tuple(range(7))))(*(jnp.asarray(p[k]) for k in MLP_NAMES))
     ref = [np.asarray(r) for r in ref]
     before = _launches()
     leaves = [_t(p[k].T if k in MLP_TRANSPOSED else p[k]).requires_grad_() for k in MLP_NAMES]
@@ -137,7 +138,7 @@ def test_attention_half_nhwc_gradients_match_pallas(shift):
 
     args = [jnp.asarray(np.roll(p["x"], (-shift, -shift), (1, 2)))]
     args += [jnp.asarray(p[k]) for k in ATTN_NAMES[1:]]
-    ref = [np.asarray(r) for r in jax.grad(loss, argnums=tuple(range(9)))(*args)]
+    ref = [np.asarray(r) for r in jax.jit(jax.grad(loss, argnums=tuple(range(9))))(*args)]
     ref[0] = np.roll(ref[0], (shift, shift), (1, 2))
     assert ref[3][0, 0, 0] == 0.0  # hvt: no gradient above the clamp
 

@@ -40,6 +40,7 @@ from hvt_torch import main as tmain
 from hvt_torch.data import loader as tloader
 from hvt_torch.data import native as tnative
 from hvt_torch.data import transforms as ttransforms
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CLASSES = ("00000_animalia_chordata_aves_accipitriformes_accipitridae_accipiter_badius",
            "00001_animalia_chordata_aves_accipitriformes_accipitridae_accipiter_nisus",

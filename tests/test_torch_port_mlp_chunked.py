@@ -35,6 +35,7 @@ import torch
 from hvt.models import swinv2 as jswin
 from hvt.ops import fused_halves_pallas as jfh
 from hvt_torch.ops import fused_halves_cuda as fh
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 5e-3
 NAMES = ("x", "w1", "b1", "w2", "b2", "lns", "lnb")
@@ -80,7 +81,7 @@ def test_mlp_half_chunked_matches_pallas(nchunks, dtype):
         out = jfh.mlp_half_chunked(x.astype(jd), *weights, nchunks, True)
         return jnp.sum(out.astype(jnp.float32) * jnp.asarray(gout).astype(jd).astype(jnp.float32)), out
 
-    (_, ref_out), ref = jax.value_and_grad(loss, argnums=tuple(range(7)), has_aux=True)(
+    (_, ref_out), ref = jax.jit(jax.value_and_grad(loss, argnums=tuple(range(7)), has_aux=True))(
         *(jnp.asarray(p[k]) for k in NAMES))
     ref = [np.asarray(r, np.float32) for r in ref]
 

@@ -31,6 +31,7 @@ from hvt.ops import fused_halves_pallas as jfh
 from hvt_torch.models import factory
 from hvt_torch.models import swinv2 as tswin
 from hvt_torch.ops import fused_halves_cuda as fh
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # (grid, C) of each stage at 224 px
 SWINV2_T = ((56, 96), (28, 192), (14, 384), (7, 768))

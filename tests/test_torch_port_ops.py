@@ -29,6 +29,7 @@ from hvt.ops import window_attention_pallas as jwap
 from hvt_torch.ops import fused_halves_cuda as fh
 from hvt_torch.ops import window_attention as wa
 from hvt_torch.ops import window_attention_cuda as wac
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _close(got, ref, tol, what):

@@ -45,6 +45,7 @@ import test_torch_port_downstream as downstream
 from hvt_torch import linear_probe as tprobe
 from hvt_torch.data import synthetic as tsynthetic
 from hvt_torch.downstream import linear as L
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _unbalanced(seed=0):

@@ -39,6 +39,7 @@ from hvt_torch.models import swinv2 as tswin
 from hvt_torch.models import torch_compat as tcompat
 from hvt_torch.train import optim as toptim
 from hvt_torch.train import step as tstep
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NUM_CLASSES = 10
 IMG = 32
@@ -150,7 +151,7 @@ def test_ape_forward_and_gradients_match_hvt():
         out = jm.apply({"params": params}, jnp.asarray(x), train=True)
         return jnp.sum(jax.nn.log_softmax(out) * targets), out
 
-    (_, ref_out), ref_g = jax.value_and_grad(loss, has_aux=True)(
+    (_, ref_out), ref_g = jax.jit(jax.value_and_grad(loss, has_aux=True))(
         jax.tree.map(jnp.asarray, tree["params"]))
     ref_out = np.asarray(ref_out)
     ref_g = convert.swin_state_dict_from_flax(jax.tree.map(np.asarray, ref_g))

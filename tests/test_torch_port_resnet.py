@@ -58,6 +58,7 @@ from hvt_torch.train import optim as toptim
 from hvt_torch.train import schedule as tschedule
 from hvt_torch.train import step as tstep
 from hvt_torch.train.loop import Trainer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 NUM_CLASSES = 10

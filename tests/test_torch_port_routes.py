@@ -36,6 +36,7 @@ from hvt_torch.models import convert
 from hvt_torch.models import swinv2 as tswin
 from hvt_torch.ops import fused_halves_cuda as fh
 from hvt_torch.ops import window_attention as wa
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GEOMETRY = dict(embed_dim=32, depths=(2, 2), num_heads=(1, 2), window_size=7)
 IMAGE, BATCH, NUM_CLASSES = 112, 2, 10
@@ -180,7 +181,7 @@ def test_training_gradients_and_routes_match_hvt(tree_and_batch, monkeypatch, ca
         return jnp.sum(jm.apply({"params": params}, jnp.asarray(x), train=True) * jnp.asarray(g))
 
     ref = convert.swin_state_dict_from_flax(
-        jax.tree.map(np.asarray, jax.grad(loss)(jax.tree.map(jnp.asarray, tree))))
+        jax.tree.map(np.asarray, jax.jit(jax.grad(loss))(jax.tree.map(jnp.asarray, tree))))
     tm.train()
     (tm(torch.from_numpy(x)) * torch.from_numpy(g)).sum().backward()
     assert hvt_log == routes, hvt_log

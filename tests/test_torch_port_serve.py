@@ -46,6 +46,7 @@ from hvt_torch.data import loader as tloader
 from hvt_torch.data import synthetic as tsynthetic
 from hvt_torch.data import transforms as ttransforms
 from hvt_torch.downstream import serve as serve_lib
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 NUM_CLASSES = 10

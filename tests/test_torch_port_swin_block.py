@@ -39,6 +39,7 @@ from hvt_torch.ops import fused_halves_cuda as fh
 from hvt_torch.ops import swin_block_cuda as sb
 from hvt_torch.ops import window_attention as wa
 from hvt_torch.ops import window_attention_cuda as wac
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, GRID, WINDOW, HEADS = 2, 14, 7, 2
 N = WINDOW * WINDOW

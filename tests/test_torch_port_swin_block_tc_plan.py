@@ -52,6 +52,7 @@ from hvt.ops import swin_block_pallas as sbp
 from hvt_torch.ops import fused_halves_cuda as fh
 from hvt_torch.ops import window_attention as wa
 from hvt_torch.ops import window_attention_cuda as wac
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BATCH, WINDOW = 1, 7
 N = WINDOW * WINDOW

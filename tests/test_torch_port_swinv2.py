@@ -27,6 +27,7 @@ import torch
 from hvt.models import swinv2 as jswin
 from hvt_torch.models import convert
 from hvt_torch.models import swinv2 as tswin
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GEOMETRIES = {
     # name: (hvt builder kwargs, image size)

@@ -51,6 +51,7 @@ from hvt_torch.train import microbatch as tmicrobatch
 from hvt_torch.train import optim as toptim
 from hvt_torch.train import schedule as tschedule
 from hvt_torch.train import step as tstep
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GEOMETRY = dict(embed_dim=32, depths=(2, 2), num_heads=(1, 2), window_size=7)
 IMAGE = 56
@@ -122,7 +123,7 @@ def test_three_adamw_steps_on_the_chunked_route_match_hvt(chunked, chunked_budge
         return objective(out, jdevice.prepare_targets(labels, NUM_CLASSES, 0.1), mask)
 
     ref_grads = convert.swin_state_dict_from_flax(
-        jax.tree.map(np.asarray, jax.grad(loss_fn)(jax.tree.map(jnp.asarray, tree))))
+        jax.tree.map(np.asarray, jax.jit(jax.grad(loss_fn))(jax.tree.map(jnp.asarray, tree))))
     tx = joptim.build_optimizer(
         types.SimpleNamespace(name="adamw", lr=LR, weight_decay=0.05, momentum=0.9),
         jschedule.cosine_with_warmup(0, 10), grad_clip_norm=5.0,

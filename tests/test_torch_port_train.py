@@ -66,6 +66,7 @@ from hvt_torch.models import swinv2 as tswin
 from hvt_torch.train import optim as toptim
 from hvt_torch.train import schedule as tschedule
 from hvt_torch.train import step as tstep
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -379,7 +380,7 @@ def test_three_adamw_steps_match_hvt_build_train_step(geometry, fuse):
         return objective(out, targets, mask)
 
     ref_grads = convert.swin_state_dict_from_flax(
-        jax.tree.map(np.asarray, jax.grad(loss_fn)(jax.tree.map(jnp.asarray, tree))))
+        jax.tree.map(np.asarray, jax.jit(jax.grad(loss_fn))(jax.tree.map(jnp.asarray, tree))))
     tx = joptim.build_optimizer(_optim_cfg(), jschedule.cosine_with_warmup(0, 10),
                                 grad_clip_norm=5.0, no_decay_substrings=jm.no_weight_decay_substrings)
     jtrain = jstep.build_train_step(jm, objective, tx, jprep,

@@ -23,6 +23,7 @@ from hvt.ops import window_attention_pallas as jwap
 from hvt_torch.models.common import drop_path
 from hvt_torch.ops import window_attention as wa
 from hvt_torch.ops import window_attention_cuda as wac
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # (windows, heads, tokens, head dim, window ids): unshifted, stage-1-like
 # shifted (one image of 64 windows), and 4 window ids over 4 images
@@ -71,7 +72,8 @@ def test_packed_attention_gradients_match_pallas(nwb, heads, n, d, nwz):
         out = jwap.window_attention_packed(q, s, b, jmask, num_heads=heads, interpret=True)
         return jnp.sum(out * jnp.asarray(dout))
 
-    ref = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(qkv), jnp.asarray(ls), jnp.asarray(bias))
+    grad = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))
+    ref = grad(jnp.asarray(qkv), jnp.asarray(ls), jnp.asarray(bias))
     ref = [np.asarray(r) for r in ref]  # to numpy before torch runs its backward
     before = wac.BWD_KERNEL.launches
     got = _port_grads(qkv, ls, bias, mask, dout, heads)

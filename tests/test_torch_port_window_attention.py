@@ -37,6 +37,7 @@ from hvt.ops import window_attention as jwa
 from hvt.ops import window_attention_pallas as jwap
 from hvt_torch.ops import window_attention as wa
 from hvt_torch.ops import window_attention_cuda as wac
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 HEADS, D, IMAGES = 2, 32, 2
 
@@ -75,7 +76,7 @@ def _hvt(qkv, ls, bias, mask, gout, dtypes):
     args = [jnp.asarray(a).astype(getattr(jnp, dt)) for a, dt in zip(qkv, dtypes)]
     args += [jnp.asarray(ls), jnp.asarray(bias)]
     out = fwd(*args)
-    grads = jax.grad(loss, argnums=tuple(range(5)))(*args)
+    grads = jax.jit(jax.grad(loss, argnums=tuple(range(5))))(*args)
     return out, [np.asarray(g.astype(jnp.float32)) for g in grads]
 
 
@@ -145,7 +146,7 @@ def test_window_attention_dispatches_to_the_reference_off_the_card(use_pallas):
 
     args = [jnp.asarray(a) for a in qkv] + [jnp.asarray(ls), jnp.asarray(bias)]
     ref_out = np.asarray(jwa.window_attention_reference(*args, jmask))
-    ref = jax.grad(loss, argnums=tuple(range(5)))(*args)
+    ref = jax.jit(jax.grad(loss, argnums=tuple(range(5))))(*args)
     before = _launches()
     out, got = _port(lambda *a: wa.window_attention(*a, use_pallas=use_pallas), qkv, ls, bias,
                      mask, gout, ["float32"] * 3)
