@@ -230,6 +230,25 @@ Phases, in order; any failure exits non-zero and prints no result:
      kernel launch, each gradient's cosine >= 0.99) and inat21.yaml +
      fixed/r50_rand_species_multitask_pretrain_1.yaml (``bn_groups: 4``,
      the multitask hierarchy of the synthetic source) at 2,048 for 4 steps.
+ 18. ViT and DINOv2 through the flash-attention kernels (forward, dK/dV,
+     dQ; csrc/flash_attention.cu): (a) each against its plain version in
+     bf16 at (B, H, N) = (64, 12, 197), (64, 12, 257), (8, 12, 1025) and
+     (4, 12, 1370) (o, dq, dk, dv within 1e-2/2e-2 of max|plain|, the
+     log-sum-exp 1e-4), the backward's rerun bit-equal; (b) each kernel's
+     ms, host and device ms, bound and plain version's ms at (2048, 12, 197)
+     (one ViT-B/16 block at vit_b16.yaml's batch) and at the four shapes,
+     beside SDPA's flash and efficient backends (forward, and forward plus
+     backward) on the same q, k, v; (c) pretrain/vit_b16.yaml (ViT-B/16,
+     10,000 classes) at 2,048 with grad_accum auto for 3 steps on one
+     synthetic batch, no warmup, on use_flash true (12 launches of each
+     kernel a microbatch pass, 12 forward launches an eval batch) and false
+     (no kernel): the resolved accumulation, peak memory, a falling loss,
+     and on use_flash one step's loss and gradients at batch 64 against the
+     plain path; (d) hvt_torch.linear_probe and hvt_torch.simpleshot on
+     configs/{linear_probe,simpleshot}/dinov2_b14.yaml with use_flash and
+     seeded weights on 2,048 + 512 synthetic images (12 forward launches a
+     feature batch), and 256 images' 1,536-d features against the plain
+     path. The three kernels close the JSON line.
 Every Trainer writes its checkpoints and run log under a temporary
 ``machine.save_root``, emptied at the end of each run or phase and removed
 at exit; the Trainers' own lines (the RunLogger's config and records) go to
@@ -722,11 +741,14 @@ def composite_mlp_half(p, resid: bool):
 
 def kernel_counters():
     from hvt_torch.ops import bn_stats_cuda as bsc
+    from hvt_torch.ops import flash_attention as fa
     from hvt_torch.ops import fused_halves_cuda as fh
     from hvt_torch.ops import swin_block_cuda as sbc
     from hvt_torch.ops import window_attention_cuda as wac
 
-    return {"window_attention_packed_fwd": wac.KERNEL, "mlp_half_fwd": fh.MLP_KERNEL,
+    return {"flash_attention_fwd": fa.FWD_KERNEL, "flash_attention_bwd_dkv": fa.BWD_DKV_KERNEL,
+            "flash_attention_bwd_dq": fa.BWD_DQ_KERNEL,
+            "window_attention_packed_fwd": wac.KERNEL, "mlp_half_fwd": fh.MLP_KERNEL,
             "attention_half_nhwc_fwd": fh.ATTN_KERNEL, BWD_KERNEL: wac.BWD_KERNEL,
             "mlp_half_bwd": fh.MLP_BWD_KERNEL, "attention_half_nhwc_bwd": fh.ATTN_BWD_KERNEL,
             "mlp_half_chunked_fwd": fh.MLP_CHUNKED_KERNEL,
@@ -755,12 +777,14 @@ def plain_versions():
     """The model's kernel wrappers swapped for their plain versions: the
     reference the kernel path is held against. Only this script does this.
     The packed attention becomes the plain forward under torch autograd; the
-    fused halves and ``bn_train`` keep their autograd Functions with the
-    plain versions in the kernels' place."""
+    fused halves, ``bn_train`` and the flash attention keep their autograd
+    Functions with the plain versions in the kernels' place."""
+    from hvt_torch.ops import flash_attention as fa
     from hvt_torch.ops import fused_halves_cuda as fh
     from hvt_torch.ops import window_attention_cuda as wac
 
     with swapped(wac, window_attention_packed=wac.window_attention_packed_plain), \
+            swapped(fa, forward=fa.forward_plain, backward=fa.backward_plain), \
             swapped(fh, mlp_half_forward=fh.mlp_half_plain,
                     attention_half_nhwc_forward=fh.attention_half_nhwc_plain,
                     attention_half_forward=fh.attention_half_plain,
@@ -4524,6 +4548,293 @@ def rest_of_training_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: ViT and DINOv2 through the flash-attention kernels
+# ---------------------------------------------------------------------------
+
+_FLASH_SRC = "hvt_torch/ops/csrc/flash_attention.cu"
+_JAX_FLASH = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+FLASH = {  # name: (source, TPU kernel it replaces, the kernel's device symbol)
+    "flash_attention_fwd": (_FLASH_SRC, f"{_JAX_FLASH}:758 (hvt/models/vit.py:50 _attend_flash)",
+                            "flash_fwd_kernel"),
+    "flash_attention_bwd_dkv": (_FLASH_SRC, f"{_JAX_FLASH}:1121 (hvt/models/vit.py:50)",
+                                "flash_bwd_dkv_kernel"),
+    "flash_attention_bwd_dq": (_FLASH_SRC, f"{_JAX_FLASH}:1456 (hvt/models/vit.py:50)",
+                               "flash_bwd_dq_kernel"),
+}
+# (B, H, N): ViT-B/16 at 224 px, DINOv2-B/14 at 224, ViT-B/16 at 512, DINOv2 at 518
+FLASH_SHAPES = ((64, 12, 197), (64, 12, 257), (8, 12, 1025), (4, 12, 1370))
+FLASH_TIMED = (2048, 12, 197)  # one ViT-B/16 block's launch at vit_b16.yaml's batch
+# Kernel against plain version, max|Δ| over max|plain|: the kernel rounds the
+# unnormalised p, P and dS·sm_scale to bf16 before their products and o and
+# the gradients at the store; the plain version keeps them in f32. The
+# log-sum-exp is f32 sums of exact bf16 products on both sides.
+FLASH_TOL = {"o": 1e-2, "lse": 1e-4, "dq": 2e-2, "dk": 2e-2, "dv": 2e-2}
+VIT_STEPS = 3
+VIT_PASS = {name: 12 for name in FLASH}  # a ViT-B/16 pass: one launch of each a block
+VIT_EVAL = {"flash_attention_fwd": 12}
+VIT_CHECK_BATCH = 64
+DINO_IMAGES = (2048, 512)  # synthetic train and eval images of the feature runs
+DINO_CLASSES = 16
+DINO_BATCH = 512  # configs/{linear_probe,simpleshot}/dinov2_b14.yaml's
+
+
+def flash_inputs(b: int, h: int, n: int, seed: int = 0):
+    """Seeded packed qkv (B, N, 3·H·64) and dO (B, N, H·64), bf16 on the card,
+    at unit variance (logits of unit variance at sm_scale 1/8)."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    c = h * 64
+    qkv = torch.randn((b, n, 3 * c), generator=gen, device="cuda").bfloat16()
+    dout = torch.randn((b, n, c), generator=gen, device="cuda").bfloat16()
+    return qkv, dout
+
+
+def flash_bounds(b: int, h: int, n: int) -> dict:
+    """{kernel: (bound ms, "bytes" or "operations", bytes, flop)}: each bf16
+    operand (B·H·N·64) and each f32 row vector (lse, D) read once, each
+    output written once; the products over the N real keys (q·kᵀ and p·v in
+    the forward; dK/dV recomputes q·kᵀ and forms dO·vᵀ, Pᵀ·dO and dSᵀ·q, dQ
+    q·kᵀ, dO·vᵀ and dS·k), at the bf16 tensor-core peak."""
+    t, rows, mm = b * h * n * 64 * 2, b * h * n * 4, 2 * b * h * n * n * 64
+    out = {}
+    for name, nbytes, flop in (("flash_attention_fwd", 4 * t + rows, 2 * mm),
+                               ("flash_attention_bwd_dkv", 6 * t + 2 * rows, 4 * mm),
+                               ("flash_attention_bwd_dq", 5 * t + 2 * rows, 3 * mm)):
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flop / H100_BF16_FLOPS * 1e3
+        out[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+                     nbytes, flop)
+    return out
+
+
+def flash_case(b: int, h: int, n: int) -> dict:
+    """The three kernels against the plain versions on one shape (each held
+    to FLASH_TOL); also the kernel path's determinism (a rerun bit-equal)."""
+    import torch
+
+    from hvt_torch.ops import flash_attention as fa
+
+    qkv, dout = flash_inputs(b, h, n, seed=n)
+    out, lse = fa.forward(qkv, h, 0.125)
+    dqkv = fa.backward(qkv, out, lse, dout, h, 0.125)
+    ref, ref_lse = fa.forward_plain(qkv, h, 0.125)
+    ref_d = fa.backward_plain(qkv, ref, ref_lse, dout, h, 0.125)
+    again = fa.backward(qkv, out, lse, dout, h, 0.125)
+    torch.cuda.synchronize()
+    c = h * 64
+    pairs = {"o": (out, ref), "lse": (lse, ref_lse),
+             **{g: (dqkv[..., i * c:(i + 1) * c], ref_d[..., i * c:(i + 1) * c])
+                for i, g in enumerate(("dq", "dk", "dv"))}}
+    rec = {"shape": (b, h, n), "rerun_bit_equal": bool(torch.equal(dqkv, again))}
+    for key, (got, want) in pairs.items():
+        got, want = got.float(), want.float()
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        rec[key] = {"max_abs_err": err, "max_abs": scale, "finite": bool(torch.isfinite(got).all())}
+        if not rec[key]["finite"] or err > FLASH_TOL[key] * scale:
+            raise AssertionError(f"flash attention {b}x{h}x{n} {key}: max|Δ| {err:.4g} against "
+                                 f"{FLASH_TOL[key]}·{scale:.4g}")
+    if not rec["rerun_bit_equal"]:
+        raise AssertionError(f"flash attention {b}x{h}x{n}: a rerun of the backward differs")
+    del qkv, dout, out, lse, dqkv, ref, ref_lse, ref_d, again
+    torch.cuda.empty_cache()
+    return rec
+
+
+def flash_times(b: int, h: int, n: int) -> dict:
+    """Each kernel's ms (CUDA events over back-to-back launches), its host
+    and device ms (torch.profiler), its plain version's ms (the forward's;
+    the plain backward computes dq, dk and dv together, and its ms stands
+    beside both backward kernels) and bound; SDPA's flash and efficient
+    backends on the same (B, H, N, 64) bf16 q, k, v: forward, and forward
+    plus backward."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from hvt_torch.ops import flash_attention as fa
+
+    qkv, dout = flash_inputs(b, h, n, seed=1)
+    out, lse = fa.forward(qkv, h, 0.125)
+    delta = fa.delta_rows(out, dout, h)
+    dqkv = torch.empty_like(qkv)
+    launch = {
+        "flash_attention_fwd": lambda: fa.forward(qkv, h, 0.125),
+        "flash_attention_bwd_dkv": lambda: fa.backward_dkv(qkv, dout, lse, delta, dqkv, h, 0.125),
+        "flash_attention_bwd_dq": lambda: fa.backward_dq(qkv, dout, lse, delta, dqkv, h, 0.125),
+    }
+    plain = {"flash_attention_fwd": cuda_time_ms(lambda: fa.forward_plain(qkv, h, 0.125), 3, 1)}
+    plain["flash_attention_bwd_dkv"] = plain["flash_attention_bwd_dq"] = cuda_time_ms(
+        lambda: fa.backward_plain(qkv, out, lse, dout, h, 0.125), 3, 1)
+    q, k, v = (t.contiguous() for t in qkv.view(b, n, 3, h, 64).permute(2, 0, 3, 1, 4))
+    go = dout.view(b, n, h, 64).transpose(1, 2).contiguous()
+    library = {}
+    for label, backend in (("flash", SDPBackend.FLASH_ATTENTION),
+                           ("efficient", SDPBackend.EFFICIENT_ATTENTION)):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        with sdpa_kernel(backend):
+            fwd = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+
+            def both():
+                F.scaled_dot_product_attention(*leaves).backward(go)
+
+            library[label] = {"fwd_ms": fwd, "fwd_bwd_ms": cuda_time_ms(both, 10, 2)}
+        library[label]["bwd_ms"] = library[label]["fwd_bwd_ms"] - fwd
+    rec = {"shape": (b, h, n), "library": library, "kernels": {}}
+    for name, (bound, by, nbytes, flop) in flash_bounds(b, h, n).items():
+        host, device = host_device_ms(launch[name], 5, kernels=(FLASH[name][2],))
+        ms = cuda_time_ms(launch[name])
+        rec["kernels"][name] = {
+            "ms": ms, "host_ms": host, "device_ms": device, "plain_ms": plain[name],
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flop": flop,
+            "tflops": flop / ms / 1e9, "roofline_share": bound / ms,
+            "library_ms": library["flash"]["fwd_ms"] if name == "flash_attention_fwd" else None}
+    del qkv, dout, out, lse, delta, dqkv, q, k, v, go
+    torch.cuda.empty_cache()
+    return rec
+
+
+def vit_config(use_flash: bool, **layer):
+    """configs/pretrain/vit_b16.yaml at its batch of 2,048 with grad_accum
+    auto (full_config), ``use_flash`` on or off, for VIT_STEPS steps on one
+    synthetic batch seen at every step, with no warmup, so that the loss
+    falls over three steps (the config's lr, cosine decay, smoothing, clip
+    and drop path as written)."""
+    config = full_config(["pretrain/vit_b16.yaml"], VIT_STEPS,
+                         model={"args": {"use_flash": use_flash}},
+                         scheduler={"args": {"t_warmup": "0ba"}})
+    batch = layer.get("train_dataset", {}).get("global_batch_size",
+                                               config.train_dataset.global_batch_size)
+    change = {"train_dataset": {"synthetic_num_samples": batch}}
+    for key, value in layer.items():
+        change[key] = {**change.get(key, {}), **value}
+    return with_changes(config, **change)
+
+
+def dinov2_feature_runs(card: str) -> dict:
+    """(d) ``hvt_torch.linear_probe.main`` and ``hvt_torch.simpleshot.main``
+    on configs/{linear_probe,simpleshot}/dinov2_b14.yaml with ``use_flash``,
+    seeded weights (no pretrained file in the repository), DINO_IMAGES
+    synthetic images of DINO_CLASSES classes: the launch counters set to 0
+    before each and read after (12 forward launches a feature batch, no
+    other kernel); then one batch of features through the kernel against
+    the plain path."""
+    import numpy as np
+    import torch
+
+    from hvt_torch import linear_probe, simpleshot
+    from hvt_torch.data import DevicePrep
+    from hvt_torch.models import build_model
+
+    counters = kernel_counters()
+    data = {f"{split}_dataset": {"source": "synthetic", "path": "",
+                                 "synthetic_num_classes": DINO_CLASSES,
+                                 "synthetic_num_samples": n, "global_batch_size": DINO_BATCH}
+            for split, n in zip(("train", "eval"), DINO_IMAGES)}
+    layer = {**data, "model": {"args": {"use_flash": True}}}
+    batches = sum(-(-n // DINO_BATCH) for n in DINO_IMAGES)
+    out = {}
+    for label, main, exps in (("linear_probe", linear_probe.main, ["linear_probe/dinov2_b14.yaml"]),
+                              ("simpleshot", simpleshot.main, ["simpleshot/dinov2_b14.yaml"])):
+        config = downstream_config(exps, layer)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        with trainer_output():
+            metrics = main(config)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items() if c.launches}
+        want = {"flash_attention_fwd": 12 * batches}
+        log(f"  (d) {label} on {exps[0]} (DINOv2-B/14, use_flash, {DINO_IMAGES[0]} + "
+            f"{DINO_IMAGES[1]} synthetic images, {DINO_CLASSES} classes): {metrics}; launches "
+            f"{launches} over {batches} feature batches of {DINO_BATCH}; {seconds:.1f} s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if launches != want:
+            raise AssertionError(f"(d) {label}: launches {launches}, expected {want}")
+        if not np.isfinite(list(metrics.values())).all():
+            raise AssertionError(f"(d) {label}: metrics {metrics}")
+        out[label] = {"metrics": metrics, "launches": launches, "seconds": seconds,
+                      "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+        clear_runs()
+
+    model = build_model(config, 2).cuda().eval()
+    prep = DevicePrep.from_config(config.eval_dataset, config.precision)
+    images = np.random.default_rng(18).integers(0, 256, (FEATURE_CHECK_ROWS, 224, 224, 3), np.uint8)
+    with torch.inference_mode():
+        x = prep.normalize(torch.from_numpy(images).cuda())
+        got = model(x, features_only=True).float()
+        ms = cuda_time_ms(lambda: model(x, features_only=True), 5, 1)
+        with plain_versions():
+            ref = model(x, features_only=True).float()
+            plain_ms = cuda_time_ms(lambda: model(x, features_only=True), 5, 1)
+    cosine = float(torch.nn.functional.cosine_similarity(got, ref, dim=1).min())
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    log(f"    features of {FEATURE_CHECK_ROWS} images ({got.shape[1]}-d): against the plain path "
+        f"worst cosine {cosine:.6f}, max|Δ| {err:.4g} (tol {LOGIT_TOL}·{scale:.4g}); "
+        f"{ms:.2f} ms a batch through the kernels, {plain_ms:.2f} ms on the plain path, on {card}")
+    if got.shape[1] != 1536 or not (cosine >= FEATURE_COSINE and err <= LOGIT_TOL * scale):
+        raise AssertionError(f"(d) DINOv2 features against the plain path: {got.shape}, cosine "
+                             f"{cosine}, max|Δ| {err} (scale {scale})")
+    out["plain_check"] = {"rows": FEATURE_CHECK_ROWS, "min_cosine": cosine, "max_abs_err": err,
+                          "max_abs": scale, "batch_ms": ms, "plain_batch_ms": plain_ms}
+    del model, x, got, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def vit_phase(card: str) -> dict:
+    """Phase 18: (a) the three flash kernels against their plain versions at
+    FLASH_SHAPES; (b) their times beside SDPA and the bound at FLASH_TIMED
+    and FLASH_SHAPES; (c) vit_b16.yaml on both routes at 2,048 with
+    grad_accum auto, and one step's loss and gradients on each route against
+    the plain path at VIT_CHECK_BATCH; (d) DINOv2-B/14's features."""
+    import torch
+
+    out = {"checks": []}
+    for shape in FLASH_SHAPES:
+        rec = flash_case(*shape)
+        out["checks"].append(rec)
+        log(f"  (a) flash attention {shape[0]}x{shape[1]}x{shape[2]} bf16, kernel against plain "
+            "(max|Δ| / max|plain|): " + "; ".join(
+                f"{k} {rec[k]['max_abs_err']:.3g}/{rec[k]['max_abs']:.3g}" for k in FLASH_TOL)
+            + "; backward rerun bit-equal")
+    out["times"] = [flash_times(*shape) for shape in (FLASH_TIMED, *FLASH_SHAPES)]
+    for rec in out["times"]:
+        lib = rec["library"]
+        log(f"  (b) {rec['shape'][0]}x{rec['shape'][1]}x{rec['shape'][2]}: " + "; ".join(
+            f"{k.removeprefix('flash_attention_')} {v['ms']:.3f} ms (host {v['host_ms']:.3f}, "
+            f"device {v['device_ms']:.3f}; bound {v['bound_ms']:.3f} by {v['bound_by']}, "
+            f"{100 * v['roofline_share']:.1f}%; {v['tflops']:.1f} TFLOP/s; plain "
+            f"{v['plain_ms']:.3f})" for k, v in rec["kernels"].items())
+            + f"; SDPA flash fwd {lib['flash']['fwd_ms']:.3f} / bwd {lib['flash']['bwd_ms']:.3f} "
+            f"ms, efficient fwd {lib['efficient']['fwd_ms']:.3f} / bwd "
+            f"{lib['efficient']['bwd_ms']:.3f} ms, on {card}")
+
+    out["train"] = {}
+    for use_flash in (True, False):
+        label = f"vit_base_patch16_224 use_flash={use_flash}"
+        log(f"  (c) {label}: pretrain/vit_b16.yaml at 2,048, grad_accum auto, {VIT_STEPS} steps")
+        rec, trainer = full_run(vit_config(use_flash), VIT_PASS if use_flash else {}, label,
+                                VIT_EVAL if use_flash else {})
+        if not rec["losses"][-1] < rec["losses"][0]:
+            raise AssertionError(f"(c) {label}: the loss did not fall: {rec['losses']}")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        if use_flash:  # the dense route runs no kernel: its plain path is itself
+            rec["gradient_check"] = gradient_check(
+                vit_config(True, train_dataset={"global_batch_size": VIT_CHECK_BATCH},
+                           model={"args": {"drop_path_rate": 0.0}}),
+                f"{label} batch {VIT_CHECK_BATCH}", randomize=False)
+        out["train"][label] = rec
+    out["features"] = dinov2_feature_runs(card)
+    return out
+
+
 def ptxas_summary(logs: dict) -> dict:
     """{source: [{kernel, registers, static_smem, spill_stores, spill_loads}]}
     from ``nvcc -Xptxas -v``'s report of each entry function."""
@@ -5024,8 +5335,29 @@ def main(argv=None) -> int:
     rest["wall_s"] = time.perf_counter() - t17
     log(f"  phase 17 took {rest['wall_s']:.1f} s")
 
+    log("[18] ViT and DINOv2 through the flash-attention kernels: the kernels against their "
+        "plain versions and beside SDPA; vit_b16.yaml (ViT-B/16) at 2,048 with grad_accum auto "
+        "on use_flash true and false; DINOv2-B/14's linear probe and SimpleShot features")
+    t18 = time.perf_counter()
+    vit = vit_phase(card)
+    vit["wall_s"] = time.perf_counter() - t18
+    log(f"  phase 18 took {vit['wall_s']:.1f} s")
+    flash_run = vit["train"]["vit_base_patch16_224 use_flash=True"]
+    timed_flash = vit["times"][0]["kernels"]
+    for name, (source, replaces, _) in FLASH.items():
+        rec = timed_flash[name]
+        check = max(c[g]["max_abs_err"] for c in vit["checks"]
+                    for g in (("o",) if name == "flash_attention_fwd" else
+                              ("dk", "dv") if name == "flash_attention_bwd_dkv" else ("dq",)))
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": flash_run["launches"][name], "max_abs_err": check,
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+        })
+
     report = {"card": card, "host": host, "folders": folders, "downstream": downstream,
-              "rest_of_training": rest,
+              "rest_of_training": rest, "vit": vit,
               "batch": BATCH, "kernels": kernels,
               "routes": routes,
               "evaluation": evaluation, "checkpoints": checkpoints,

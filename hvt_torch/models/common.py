@@ -1,5 +1,6 @@
-"""Shared model pieces — port of ``hvt/models/common.py``: stochastic depth,
-the BatchNorm modules of the conv models, and recomputation.
+"""Shared model pieces — port of ``hvt/models/common.py``: flax's Dense and
+LayerNorm arithmetic, the transformer MLP, stochastic depth, the BatchNorm
+modules of the conv models, and recomputation.
 
 Every BatchNorm takes an NHWC activation, holds ``weight``/``bias``
 parameters (flax's ``scale``/``bias``) and ``running_mean``/``running_var``
@@ -33,6 +34,35 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from hvt_torch.ops import bn_stats
+
+
+def trunc02_(w: torch.Tensor, gen: torch.Generator) -> None:
+    """hvt's ``trunc02`` initialiser, drawn from ``gen``."""
+    nn.init.trunc_normal_(w, std=0.02, a=-0.04, b=0.04, generator=gen)
+
+
+def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """flax LayerNorm(dtype=d): statistics in f32, output in x's dtype."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps).to(x.dtype)
+
+
+def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """flax Dense(dtype=d): input, kernel and bias cast to x's dtype."""
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    return F.linear(x, layer.weight.to(x.dtype), bias)
+
+
+class TransformerMlp(nn.Module):
+    """hvt's ``TransformerMlp``: fc1 → exact (erf) GELU → fc2, each Dense in
+    the input's dtype."""
+
+    def __init__(self, dim: int, hidden: int, out: int | None = None):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim if out is None else out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(self.fc2, F.gelu(linear(self.fc1, x)))
 
 
 def drop_path_scale(batch: int, rate: float, generator: torch.Generator | None = None,

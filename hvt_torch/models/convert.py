@@ -1,4 +1,4 @@
-"""Weights carried across: hvt's flax SwinV2 and ResNet trees → the port's models.
+"""Weights carried across: hvt's flax SwinV2, ResNet, ViT and DINOv2 trees → the port's models.
 
 The one place where the two layouts differ. A flax ``Dense`` kernel is
 (in, out) and an ``nn.Linear`` weight (out, in); a flax ``Conv`` kernel is
@@ -9,7 +9,11 @@ WindowAttention's raw params (``qkv_kernel``, ``cpb_w1``/``cpb_b1``/
 ``cpb_w2``) map onto the port's ``qkv`` and ``cpb_fc*`` Linears; ``ape``'s
 ``absolute_pos_embed`` has one layout in both. The same
 SwinV2 tree serves both routes (``fuse`` false or true): hvt's fused path
-materialises the identical tree.
+materialises the identical tree. ViT's and DINOv2's trees (one converter for
+both) keep their names; the patch embedding's HWIO kernel becomes the
+port's (D, C, p, p) weight, and ``cls_token``, ``pos_embed`` and DINOv2's
+``ls1``/``ls2`` keep their layouts. The same tree serves both attention
+routes.
 """
 
 from __future__ import annotations
@@ -114,6 +118,37 @@ def resnet_state_dict_from_flax(params: Mapping, batch_stats: Mapping | None = N
     return out
 
 
+def vit_state_dict_from_flax(tree: Mapping) -> dict[str, np.ndarray]:
+    """Flax VisionTransformer or Dinov2 params (with or without the top
+    ``params`` level) → the port's state-dict entries."""
+    if "params" in tree:
+        tree = tree["params"]
+    out: dict[str, np.ndarray] = {}
+    for key, sub in tree.items():
+        if key == "patch_embed":
+            out["patch_embed.weight"] = _hwio(sub["kernel"])
+            out["patch_embed.bias"] = np.asarray(sub["bias"])
+        elif key in ("cls_token", "pos_embed"):
+            out[key] = np.asarray(sub)
+        elif key == "norm":
+            _norm(sub, key, out)
+        elif key.startswith("block"):
+            for name in ("norm1", "norm2"):
+                _norm(sub[name], f"{key}.{name}", out)
+            for name in ("qkv", "proj"):
+                _dense(sub["attn"][name], f"{key}.attn.{name}", out)
+            for name, dense in sub["mlp"].items():  # fc1/fc2, or SwiGLU's weights_in/_out
+                _dense(dense, f"{key}.mlp.{name}", out)
+            for name in ("ls1", "ls2"):  # DINOv2's LayerScale
+                if name in sub:
+                    out[f"{key}.{name}"] = np.asarray(sub[name])
+        elif key == "head":
+            _head(sub, out)
+        else:
+            raise KeyError(f"flax parameter {key!r} has no counterpart in the port")
+    return out
+
+
 def _load(model: torch.nn.Module, state: dict[str, np.ndarray]) -> torch.nn.Module:
     ref = model.state_dict()
     tensors = {}
@@ -139,3 +174,10 @@ def resnet_params_from_flax(model: torch.nn.Module, variables: Mapping) -> torch
     into the port's ``ResNet``: every parameter and running statistic must
     match in name and shape. Returns the model."""
     return _load(model, resnet_state_dict_from_flax(variables["params"], variables["batch_stats"]))
+
+
+def vit_params_from_flax(model: torch.nn.Module, tree: Mapping) -> torch.nn.Module:
+    """Load a flax ViT or DINOv2 parameter tree into the port's
+    ``VisionTransformer`` or ``Dinov2`` (every parameter must match in name
+    and shape). Returns the model."""
+    return _load(model, vit_state_dict_from_flax(tree))

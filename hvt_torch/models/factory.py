@@ -1,16 +1,19 @@
 """Model factory: config → nn.Module — port of ``hvt/models/factory.py``.
 
-The port carries the SwinV2 and ResNet families. Every other name of hvt's
-registry raises, naming the ROADMAP item that ports it. As in hvt, BlurPool
-in the algorithms list sets ``blurpool``, and StochasticDepth sets a
-ResNet's ``stochastic_depth_rate`` or a SwinV2's ``drop_path_rate``.
+The port carries the SwinV2, ResNet, ViT and DINOv2 families. Every other
+name of hvt's registry raises, naming the ROADMAP item that ports it. As in
+hvt, BlurPool in the algorithms list sets ``blurpool``, and StochasticDepth
+sets a ResNet's ``stochastic_depth_rate`` or another family's
+``drop_path_rate``. SwinV2's ``ape`` embedding and ViT's and DINOv2's
+``pos_embed`` are made at the train crop (``img_size``), the size hvt's
+init sample has.
 """
 
 from __future__ import annotations
 
 from typing import Union
 
-from hvt_torch.models import resnet, swinv2
+from hvt_torch.models import dinov2, resnet, swinv2, vit
 
 VALID_VARIANTS = (
     "full-tuning",
@@ -40,13 +43,19 @@ _RESNET = (
     "resnet_micro",
     "resnet_micro_bottleneck",
 )
-_NOT_PORTED = {
-    "vit_": "ROADMAP.md queue 1, item 9 (other model families)",
-    "convnext_": "ROADMAP.md queue 1, item 9 (other model families)",
-    "efficientnet_": "ROADMAP.md queue 1, item 9 (other model families)",
-    "regnety_": "ROADMAP.md queue 1, item 9 (other model families)",
-    "dinov2_": "ROADMAP.md queue 1, item 9 (other model families)",
-}
+_VIT = (
+    "vit_tiny_patch16_224",
+    "vit_small_patch16_224",
+    "vit_base_patch16_224",
+    "vit_base_patch32_224",
+    "vit_large_patch16_224",
+    "vit_micro",
+)
+_DINOV2 = ("dinov2_vits14", "dinov2_vitb14", "dinov2_vitl14", "dinov2_vitg14", "dinov2_micro")
+_FAMILIES = {**{n: swinv2 for n in _SWIN}, **{n: resnet for n in _RESNET},
+             **{n: vit for n in _VIT}, **{n: dinov2 for n in _DINOV2}}
+_ITEM_9B = "ROADMAP.md queue 1, item 9b (ConvNeXt, EfficientNet, RegNet)"
+_NOT_PORTED = {"convnext_": _ITEM_9B, "efficientnet_": _ITEM_9B, "regnety_": _ITEM_9B}
 
 
 def build_model(config, num_classes: Union[int, tuple[int, ...]]):
@@ -60,16 +69,16 @@ def build_model(config, num_classes: Union[int, tuple[int, ...]]):
             f"unknown model.variant {config.model.variant!r} (valid: {VALID_VARIANTS})"
         )
     name = config.model.name
-    if name not in _SWIN + _RESNET:
+    if name not in _FAMILIES:
         for prefix, item in _NOT_PORTED.items():
             if name.startswith(prefix):
                 raise NotImplementedError(f"model {name!r} is not ported yet: {item}")
-        raise ValueError(f"unknown model {name!r}; hvt_torch has {list(_SWIN + _RESNET)}")
-    family = resnet if name in _RESNET else swinv2
+        raise ValueError(f"unknown model {name!r}; hvt_torch has {list(_FAMILIES)}")
+    family = _FAMILIES[name]
     kwargs = dict(config.model.args)
     kwargs.setdefault("dtype", config.precision.compute_dtype)
     kwargs.setdefault("seed", config.seed)
-    if family is swinv2:  # the size ``ape``'s embedding is made at, as hvt's init sample
+    if family is not resnet:  # the size position embeddings are made at
         kwargs.setdefault("img_size", int(config.train_dataset.crop_size))
     for algo in config.algorithms:
         if algo.cls == "StochasticDepth":

@@ -63,15 +63,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from hvt_torch.models.common import drop_path, drop_path_scale, recompute
+from hvt_torch.models.common import (TransformerMlp, drop_path, drop_path_scale, layer_norm,
+                                      linear, recompute, trunc02_)
 from hvt_torch.models.heads import MultitaskHead
 from hvt_torch.ops import fused_halves_cuda as fh
 from hvt_torch.ops import window_attention as wa
 from hvt_torch.ops import window_attention_cuda as wac
-
-
-def _trunc02_(w: torch.Tensor, gen: torch.Generator) -> None:
-    nn.init.trunc_normal_(w, std=0.02, a=-0.04, b=0.04, generator=gen)
 
 
 # The cached constants are made outside inference mode even when a serving
@@ -88,27 +85,6 @@ def _geometry(window: int, pretrained_window: int, device: str):
 def _shift_mask(h: int, w: int, window: int, shift: int, device: str) -> torch.Tensor:
     with torch.inference_mode(False):
         return torch.as_tensor(wa.shift_attn_mask((h, w), window, shift), device=device)
-
-
-def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    """flax LayerNorm(dtype=d): statistics in f32, output in x's dtype."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps).to(x.dtype)
-
-
-def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """flax Dense(dtype=d): input, kernel and bias cast to x's dtype."""
-    bias = None if layer.bias is None else layer.bias.to(x.dtype)
-    return F.linear(x, layer.weight.to(x.dtype), bias)
-
-
-class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int):
-        super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
-
-    def forward(self, x):
-        return _linear(self.fc2, F.gelu(_linear(self.fc1, x)))
 
 
 class WindowAttention(nn.Module):
@@ -143,7 +119,7 @@ class WindowAttention(nn.Module):
         qkv = F.linear(x, self.qkv.weight.to(x.dtype)) + self.qkv_bias().to(x.dtype)
         out = wa.window_attention_qkv(qkv, self.logit_scale, self.rel_bias(window), mask,
                                       num_heads=self.num_heads, use_pallas=use_pallas)
-        return _linear(self.proj, out)
+        return linear(self.proj, out)
 
 
 class SwinBlock(nn.Module):
@@ -160,7 +136,7 @@ class SwinBlock(nn.Module):
         self.drop_path_rate = drop_path_rate
         self.attn = WindowAttention(dim, num_heads, pretrained_window)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = TransformerMlp(dim, int(dim * mlp_ratio))
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
 
     def forward(self, x, generator: torch.Generator | None = None):
@@ -178,8 +154,8 @@ class SwinBlock(nn.Module):
         rate, training = self.drop_path_rate, self.training
         y = self._on_windows(x, window, shift,
                              lambda xw: self.attn(xw, window, mask, self.use_pallas))
-        x = x + drop_path(_layer_norm(self.norm1, y), rate, training, generator)
-        return x + drop_path(_layer_norm(self.norm2, self.mlp(x)), rate, training, generator)
+        x = x + drop_path(layer_norm(self.norm1, y), rate, training, generator)
+        return x + drop_path(layer_norm(self.norm2, self.mlp(x)), rate, training, generator)
 
     @staticmethod
     def _on_windows(x, window: int, shift: int, fn):
@@ -228,7 +204,7 @@ class SwinBlock(nn.Module):
         attn, n1 = self.attn, self.norm1
         route = self.attn_route(window * window, self.training)
         if route in ("packed", "reference"):
-            branch = _layer_norm(n1, self._on_windows(
+            branch = layer_norm(n1, self._on_windows(
                 x, window, shift, lambda xw: attn(xw, window, mask, route == "packed")))
         else:
             args = (attn.qkv.weight, attn.qkv_bias(), attn.logit_scale, attn.rel_bias(window), mask,
@@ -259,7 +235,7 @@ class SwinBlock(nn.Module):
         elif nchunks > 1:
             branch = fh.mlp_half_chunked(*args, nchunks).reshape(b, h, w, c)
         else:
-            branch = _layer_norm(self.norm2, self.mlp(x))
+            branch = layer_norm(self.norm2, self.mlp(x))
         return x + drop_path(branch, self.drop_path_rate, self.training, generator)
 
 
@@ -276,7 +252,7 @@ class PatchMerging(nn.Module):
             raise ValueError(f"odd resolution {h}x{w}")
         x = x.reshape(b, h // 2, 2, w // 2, 2, c)
         x = torch.cat([x[:, :, 0, :, 0], x[:, :, 1, :, 0], x[:, :, 0, :, 1], x[:, :, 1, :, 1]], -1)
-        return _layer_norm(self.norm, _linear(self.reduction, x))
+        return layer_norm(self.norm, linear(self.reduction, x))
 
 
 class SwinTransformerV2(nn.Module):
@@ -374,7 +350,7 @@ class SwinTransformerV2(nn.Module):
         gen = torch.Generator().manual_seed(seed)
         for module in self.modules():
             if isinstance(module, (nn.Linear, nn.Conv2d)):
-                _trunc02_(module.weight, gen)
+                trunc02_(module.weight, gen)
                 if module.bias is not None:
                     module.bias.zero_()
             elif isinstance(module, nn.LayerNorm):
@@ -393,7 +369,7 @@ class SwinTransformerV2(nn.Module):
         if isinstance(self.head, MultitaskHead):
             self.head.reset_parameters(gen)
         if self.absolute_pos_embed is not None:
-            _trunc02_(self.absolute_pos_embed, gen)
+            trunc02_(self.absolute_pos_embed, gen)
 
     def cuda_unsupported(self, image_size: int, training: bool = False) -> list[str]:
         """Why the CUDA kernels cannot run this model at ``image_size`` px
@@ -438,7 +414,7 @@ class SwinTransformerV2(nn.Module):
         x = F.conv2d(x, weight, self.patch_embed.bias.to(self.dtype),
                      stride=self.patch_embed.stride).permute(0, 2, 3, 1).contiguous()
         if self.patch_norm is not None:
-            x = _layer_norm(self.patch_norm, x)
+            x = layer_norm(self.patch_norm, x)
         if self.absolute_pos_embed is not None:
             pos = self.absolute_pos_embed
             if x.shape[1:3] != pos.shape[1:3]:
@@ -457,7 +433,7 @@ class SwinTransformerV2(nn.Module):
                 x = recompute(layer, x, generator)
             else:
                 x = layer(x, generator)
-        x = _layer_norm(self.norm, x)
+        x = layer_norm(self.norm, x)
         x = x.reshape(b, -1, x.shape[-1]).mean(1).float()  # token average pool
         if features_only:
             return x

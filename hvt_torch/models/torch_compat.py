@@ -1,5 +1,5 @@
-"""Torch-format weight files — the port's copy of the SwinV2 and ResNet parts
-of ``hvt/models/torch_compat.py``.
+"""Torch-format weight files — the port's copy of the SwinV2, ResNet, ViT and
+DINOv2 parts of ``hvt/models/torch_compat.py``.
 
 hvt reads Microsoft-format SwinV2 files (``swin://<path>``, reference
 swinv2.py:870-895) and timm-format ResNet files (``torch://<path>``), each a
@@ -21,13 +21,24 @@ sides are PyTorch, so no layout changes, only names.
   ``head``; BatchNorm running statistics travel with the weights, and
   ``num_batches_tracked`` (which the port does not keep) is written as 0.
 
-Files are read with ``torch.load(..., weights_only=True)``. ViT, DINOv2,
-ConvNeXt, EfficientNet and RegNet files raise, naming the ROADMAP item that
-ports those families, rather than being mapped onto the wrong model.
+* ViT (``convert_vit_state_dict``): timm (``blocks.{i}.attn.qkv``,
+  ``patch_embed.proj``, ``norm``, ``head``) or HF transformers
+  (``[vit.]embeddings.*``, ``encoder.layer.{i}.attention.attention.{query,
+  key,value}``, ``layernorm_before``/``_after``, ``intermediate``/``output``,
+  ``layernorm``, ``classifier``), HF's q, k, v Linears concatenated into the
+  fused qkv ([q; k; v], as timm's). DINOv2 (``convert_dinov2_state_dict``):
+  HF's layout under ``dinov2.``, LayerScale ``layer_scale{1,2}.lambda1`` →
+  ``ls1``/``ls2``, the plain or SwiGLU MLP, and optionally the position
+  embedding resized to another patch grid (``resize_pos_embed``).
+
+Files are read with ``torch.load(..., weights_only=True)``. ConvNeXt,
+EfficientNet and RegNet files raise, naming the ROADMAP item that ports those
+families, rather than being mapped onto the wrong model.
 """
 
 from __future__ import annotations
 
+import math
 import re
 from collections.abc import Mapping
 
@@ -35,7 +46,7 @@ import torch
 
 # Buffers that are derived, not learned (reference swinv2.py:887-894).
 NON_PERSISTENT = ("relative_position_index", "relative_coords_table", "logit_clamp_max")
-OTHER_FAMILIES = "ROADMAP.md queue 1, item 9 (other model families)"
+OTHER_FAMILIES = "ROADMAP.md queue 1, item 9b (ConvNeXt, EfficientNet, RegNet)"
 
 _SWIN_URI = re.compile(r"^swin://(.+)$")
 _TORCH_URI = re.compile(r"^torch://(.+)$")
@@ -172,6 +183,137 @@ def export_resnet_state_dict(params: Mapping, batch_stats: Mapping) -> dict[str,
     return sd
 
 
+def _strip_prefix(sd: dict, prefix: str) -> dict:
+    if any(k.startswith(prefix) for k in sd):
+        return {(k[len(prefix):] if k.startswith(prefix) else k): v for k, v in sd.items()}
+    return sd
+
+
+def _count(sd: Mapping, prefix: str, family: str) -> int:
+    pat = re.compile(rf"^{re.escape(prefix)}(\d+)\.")
+    idx = [int(m.group(1)) for k in sd if (m := pat.match(k))]
+    if not idx:
+        raise ValueError(f"no {prefix}* keys: not a {family} state dict?")
+    return max(idx) + 1
+
+
+def _fused_qkv(sd: Mapping, p: str, out: dict, to: str) -> None:
+    """HF's separate query/key/value Linears of block prefix ``p`` → ``to``.qkv."""
+    for part in ("weight", "bias"):
+        out[f"{to}.qkv.{part}"] = torch.cat(
+            [sd[f"{p}.attention.attention.{n}.{part}"] for n in ("query", "key", "value")])
+
+
+def _copy(sd: Mapping, src: str, dst: str, out: dict) -> None:
+    for part in ("weight", "bias"):
+        out[f"{dst}.{part}"] = sd[f"{src}.{part}"]
+
+
+def convert_vit_state_dict(state_dict: Mapping) -> dict[str, torch.Tensor]:
+    """timm or HF ViT state dict → the port's VisionTransformer names (hvt's
+    ``convert_vit_state_dict``, hvt/models/torch_compat.py:394)."""
+    sd = _strip_prefix({k: _tensor(v) for k, v in state_dict.items()}, "vit.")
+    out: dict[str, torch.Tensor] = {}
+    if any(k.startswith("encoder.layer.") for k in sd):  # HF
+        out["cls_token"] = sd["embeddings.cls_token"]
+        out["pos_embed"] = sd["embeddings.position_embeddings"]
+        _copy(sd, "embeddings.patch_embeddings.projection", "patch_embed", out)
+        for i in range(_count(sd, "encoder.layer.", "ViT")):
+            p, b = f"encoder.layer.{i}", f"block{i}"
+            _copy(sd, f"{p}.layernorm_before", f"{b}.norm1", out)
+            _copy(sd, f"{p}.layernorm_after", f"{b}.norm2", out)
+            _fused_qkv(sd, p, out, f"{b}.attn")
+            _copy(sd, f"{p}.attention.output.dense", f"{b}.attn.proj", out)
+            _copy(sd, f"{p}.intermediate.dense", f"{b}.mlp.fc1", out)
+            _copy(sd, f"{p}.output.dense", f"{b}.mlp.fc2", out)
+        _copy(sd, "layernorm", "norm", out)
+        head = "classifier"
+    else:  # timm
+        out["cls_token"], out["pos_embed"] = sd["cls_token"], sd["pos_embed"]
+        _copy(sd, "patch_embed.proj", "patch_embed", out)
+        for i in range(_count(sd, "blocks.", "ViT")):
+            p, b = f"blocks.{i}", f"block{i}"
+            for name in ("norm1", "norm2", "attn.qkv", "attn.proj", "mlp.fc1", "mlp.fc2"):
+                _copy(sd, f"{p}.{name}", f"{b}.{name}", out)
+        _copy(sd, "norm", "norm", out)
+        head = "head"
+    if f"{head}.weight" in sd:
+        _copy(sd, head, "head", out)
+    return out
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic kernel with a = -0.5, jax.image.resize's "bicubic"."""
+    x = x.abs()
+    near = ((1.5 * x - 2.5) * x) * x + 1.0
+    far = ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0
+    return torch.where(x >= 2.0, torch.zeros_like(x), torch.where(x >= 1.0, far, near))
+
+
+def _resize_weights(n_in: int, n_out: int) -> torch.Tensor:
+    """(n_out, n_in) f64 weights of jax.image.resize's bicubic along one axis
+    (half-pixel centres, the kernel widened when shrinking (antialias), each
+    row normalised; jax/_src/image/scale.py ``compute_weight_mat``)."""
+    scale = n_out / n_in
+    kernel_scale = max(1.0 / scale, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float64) + 0.5) / scale - 0.5
+    w = _keys_cubic((sample[:, None] - torch.arange(n_in, dtype=torch.float64)) / kernel_scale)
+    total = w.sum(1, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[:, None], w, torch.zeros_like(w))
+
+
+def resize_pos_embed(pos: torch.Tensor, new_grid: int) -> torch.Tensor:
+    """A (1, g²+1, D) position embedding resized bicubically to (1,
+    new_grid²+1, D), the class-token slot kept: hvt's ``resize_pos_embed``
+    (hvt/models/torch_compat.py:482, the HF/DINOv2 interpolate_pos_encoding
+    rule applied at load time)."""
+    n = pos.shape[1] - 1
+    g = math.isqrt(n)
+    if g * g != n:
+        raise ValueError(f"pos embed grid {n} is not square")
+    if g == new_grid:
+        return pos
+    w = _resize_weights(g, new_grid)
+    grid = pos[0, 1:].reshape(g, g, -1).double()
+    grid = torch.einsum("ai,bj,ijd->abd", w, w, grid).to(pos.dtype)
+    return torch.cat([pos[:, :1], grid.reshape(1, new_grid * new_grid, -1)], 1)
+
+
+def convert_dinov2_state_dict(state_dict: Mapping, grid: int | None = None
+                              ) -> dict[str, torch.Tensor]:
+    """HF DINOv2 state dict → the port's Dinov2 names (hvt's
+    ``convert_dinov2_state_dict``, hvt/models/torch_compat.py:511); ``grid``
+    resizes the position embedding to another patch grid."""
+    sd = _strip_prefix({k: _tensor(v) for k, v in state_dict.items()}, "dinov2.")
+    out: dict[str, torch.Tensor] = {"cls_token": sd["embeddings.cls_token"]}
+    pos = sd["embeddings.position_embeddings"]
+    out["pos_embed"] = pos if grid is None else resize_pos_embed(pos, grid)
+    _copy(sd, "embeddings.patch_embeddings.projection", "patch_embed", out)
+    i = 0
+    while f"encoder.layer.{i}.norm1.weight" in sd:
+        p, b = f"encoder.layer.{i}", f"block{i}"
+        _copy(sd, f"{p}.norm1", f"{b}.norm1", out)
+        _copy(sd, f"{p}.norm2", f"{b}.norm2", out)
+        _fused_qkv(sd, p, out, f"{b}.attn")
+        _copy(sd, f"{p}.attention.output.dense", f"{b}.attn.proj", out)
+        mlp = ("weights_in", "weights_out") if f"{p}.mlp.weights_in.weight" in sd else ("fc1", "fc2")
+        for name in mlp:
+            _copy(sd, f"{p}.mlp.{name}", f"{b}.mlp.{name}", out)
+        out[f"{b}.ls1"] = sd[f"{p}.layer_scale1.lambda1"]
+        out[f"{b}.ls2"] = sd[f"{p}.layer_scale2.lambda1"]
+        i += 1
+    if i == 0:
+        raise ValueError("no encoder.layer.* keys: not a DINOv2 state dict?")
+    _copy(sd, "layernorm", "norm", out)
+    if "classifier.weight" in sd:
+        _copy(sd, "classifier", "head", out)
+    return out
+
+
 def save_swin_checkpoint(params: Mapping, path: str) -> int:
     """Write the port's SwinV2 parameters as a reference-format ``.pt``
     (``{"model": state_dict}``); returns the number of tensors written."""
@@ -190,8 +332,11 @@ def save_resnet_checkpoint(params: Mapping, batch_stats: Mapping, path: str) -> 
 
 def load_torch_variables(uri: str) -> tuple[dict, dict]:
     """``torch://<path>`` or ``swin://<path>`` → (params, batch_stats) in the
-    port's names. The family comes from the key names: ``layers.*`` is
-    SwinV2 (no batch statistics), ``layer1.*``/``conv1`` ResNet."""
+    port's names. The family comes from the key names, in hvt's order:
+    ``layers.*`` is SwinV2 (no batch statistics), ``layer1.*``/``conv1``
+    ResNet, LayerScale lambdas or ``dinov2.*`` DINOv2 (before ViT: both
+    carry ``cls_token``/``encoder.layer.*``), ``cls_token`` or
+    ``[vit.]encoder.layer.*`` ViT."""
     m = _TORCH_URI.match(uri) or _SWIN_URI.match(uri)
     if not m:
         raise ValueError(f"uri {uri!r} doesn't match torch://<path> or swin://<path>")
@@ -201,10 +346,11 @@ def load_torch_variables(uri: str) -> tuple[dict, dict]:
         return convert_swin_state_dict(sd), {}
     if any(k.startswith("layer1.") for k in sd) or "conv1.weight" in sd:
         return convert_resnet_state_dict(sd)
+    if any("layer_scale1" in k or k.startswith("dinov2.") for k in sd):
+        return convert_dinov2_state_dict(sd), {}
+    if any("cls_token" in k or k.startswith(("encoder.layer.", "vit.encoder.layer.")) for k in sd):
+        return convert_vit_state_dict(sd), {}
     families = (
-        ("DINOv2", lambda k: "layer_scale1" in k or k.startswith("dinov2.")),
-        ("ViT", lambda k: "cls_token" in k
-         or k.startswith(("encoder.layer.", "vit.encoder.layer."))),
         ("RegNet", lambda k: k.startswith(("regnet.", "embedder."))),
         ("ConvNeXt", lambda k: k.startswith(("stages.", "encoder.stages.", "convnext.",
                                              "stem.0."))),
@@ -217,5 +363,5 @@ def load_torch_variables(uri: str) -> tuple[dict, dict]:
                 f"torch checkpoint {uri!r} holds a {family} model, which is not ported yet: "
                 f"{OTHER_FAMILIES}")
     raise ValueError(
-        f"torch checkpoint {uri!r}: unrecognized family (expected SwinV2 'layers.*' or ResNet "
-        "'layer{s}.{b}'/'conv1' key names)")
+        f"torch checkpoint {uri!r}: unrecognized family (expected SwinV2 'layers.*', ResNet "
+        "'layer{s}.{b}'/'conv1', DINOv2 or ViT key names)")

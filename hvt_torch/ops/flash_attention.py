@@ -1,0 +1,217 @@
+"""Flash attention over a whole sequence: ViT's and DINOv2's ``use_flash`` route.
+
+Port of ``_attend_flash`` (hvt/models/vit.py:50), which calls jax's TPU
+flash-attention op (three ``pallas_call``\\ s: the forward at
+jax/experimental/pallas/ops/tpu/flash_attention.py:758, dK/dV at :1121, dQ
+at :1456). Here one ``torch.autograd.Function`` runs ``csrc/flash_attention.cu``
+on a CUDA tensor: the forward kernel, then in the backward D = rowsum(dO∘O)
+in f32 (outside the kernels, as jax computes it, flash_attention.py:274) and
+the dK/dV and dQ kernels. A CPU tensor takes the plain versions below; nothing
+else selects between them. The contract:
+
+    o = softmax(sm_scale · q·kᵀ) · v      per (image, head), over the N real keys
+
+with q·kᵀ from the inputs' values summed in f32 and the softmax in f32; the
+kernel rounds the unnormalised p to v's dtype before p·v and P, dS·sm_scale to
+bf16 before the backward's products, as jax's kernels do, and the plain
+versions keep them in f32. The row log-sum-exp (natural log, f32) is saved
+for the backward. hvt pads N to 128 and masks with segment ids; the kernel
+masks the last key tile instead, so nothing is padded.
+
+The kernel takes head dim :data:`HEAD_DIM` only (every ViT and DINOv2 variant
+hvt defines beyond the test-only micro ones); another head dim on a CUDA
+tensor raises before anything launches (:func:`unsupported`).
+
+On the model's path (:func:`flash_attention_qkv`) the kernels read q, k and v
+straight from the packed (B, N, 3·D) qkv projection and write o into a
+(B, N, D) tensor and dq, dk, dv into one (B, N, 3·D) gradient, through
+strides: no head split or merge is copied.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from hvt_torch.ops import _build
+
+HEAD_DIM = 64
+_F = ctypes.c_float
+_STRIDED = [_build.P, _build.P, _build.P, _build.L, _build.L, _build.L,  # q, k, v, strides
+            _build.P, _build.L, _build.L, _build.L]                       # o or dO, strides
+FWD_KERNEL = _build.Kernel("flash_attention", "hvt_flash_attention_fwd",
+                           _STRIDED + [_build.P] + [_build.I] * 4 + [_F, _build.I, _build.P])
+BWD_DQ_KERNEL = _build.Kernel("flash_attention", "hvt_flash_attention_bwd_dq",
+                              _STRIDED + [_build.P] * 3 + [_build.I] * 4 + [_F, _build.I, _build.P])
+BWD_DKV_KERNEL = _build.Kernel("flash_attention", "hvt_flash_attention_bwd_dkv",
+                               _STRIDED + [_build.P] * 4 + [_build.I] * 4 + [_F, _build.I, _build.P])
+_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+COVERAGE_ITEM = "ROADMAP.md queue 2, 'Kernel coverage' (flash attention at other head dims)"
+
+
+def unsupported(head_dim: int) -> str | None:
+    """Why the kernels cannot take heads of ``head_dim``, or None."""
+    if head_dim != HEAD_DIM:
+        return (f"the flash-attention kernel takes head dim {HEAD_DIM}, not {head_dim}: "
+                f"{COVERAGE_ITEM}")
+    return None
+
+
+def _split(qkv: torch.Tensor, heads: int):
+    """(B, N, 3·D) → q, k, v (B, H, N, hd) views."""
+    b, n, c3 = qkv.shape
+    return qkv.view(b, n, 3, heads, c3 // 3 // heads).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+def _acc(t: torch.Tensor) -> torch.dtype:
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def forward_plain(qkv: torch.Tensor, heads: int, sm_scale: float):
+    """Plain version of the forward kernel: (o (B, N, D) in qkv's dtype, lse
+    (B, H, N) f32 (f64 on f64)), the dense softmax in f32."""
+    b, n, c3 = qkv.shape
+    q, k, v = (t.to(_acc(qkv)) for t in _split(qkv, heads))
+    s = (q @ k.transpose(-1, -2)) * sm_scale
+    lse = torch.logsumexp(s, -1)
+    o = torch.exp(s - lse[..., None]) @ v
+    return o.transpose(1, 2).reshape(b, n, c3 // 3).to(qkv.dtype), lse
+
+
+def delta_rows(out: torch.Tensor, dout: torch.Tensor, heads: int) -> torch.Tensor:
+    """D = rowsum(dO∘O) per (image, head, row), (B, H, N) f32 (f64 on f64)."""
+    b, n, c = out.shape
+    prod = out.to(_acc(out)) * dout.to(_acc(out))
+    return prod.view(b, n, heads, c // heads).sum(-1).transpose(1, 2).contiguous()
+
+
+def backward_plain(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                   heads: int, sm_scale: float) -> torch.Tensor:
+    """Plain version of the backward (D, then the dK/dV and dQ kernels):
+    dqkv (B, N, 3·D) in qkv's dtype from P = exp(s − lse) and
+    dS = P∘(dO·vᵀ − D)·sm_scale, in f32."""
+    b, n, c3 = qkv.shape
+    ad = _acc(qkv)
+    delta = delta_rows(out, dout, heads)
+    q, k, v = (t.to(ad) for t in _split(qkv, heads))
+    go = dout.to(ad).view(b, n, heads, c3 // 3 // heads).transpose(1, 2)
+    p = torch.exp((q @ k.transpose(-1, -2)) * sm_scale - lse[..., None].to(ad))
+    dv = p.transpose(-1, -2) @ go
+    ds = p * (go @ v.transpose(-1, -2) - delta[..., None].to(ad)) * sm_scale
+    dq, dk = ds @ k, ds.transpose(-1, -2) @ q
+    return torch.stack([dq, dk, dv], 2).permute(0, 3, 2, 1, 4).reshape(b, n, c3).to(qkv.dtype)
+
+
+def _check(qkv: torch.Tensor, heads: int) -> None:
+    b, n, c3 = qkv.shape
+    why = "3·D columns in whole heads wanted" if c3 % (3 * heads) else unsupported(c3 // 3 // heads)
+    if qkv.dtype not in _DTYPES or why:
+        raise ValueError(f"flash_attention: qkv {tuple(qkv.shape)} {qkv.dtype} with {heads} "
+                         f"heads: {why or 'bf16 or f32 wanted'}")
+
+
+def _packed(t: torch.Tensor) -> torch.Tensor:
+    """t (B, N, C) with rows on 16-byte boundaries, contiguous (a copy only
+    where it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def forward(qkv: torch.Tensor, heads: int, sm_scale: float):
+    """(o, lse) of the forward: the kernel for a CUDA tensor, ``forward_plain``
+    for a CPU one."""
+    if qkv.device.type == "cpu":
+        return forward_plain(qkv, heads, sm_scale)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {qkv.device}")
+    _check(qkv, heads)
+    qkv = _packed(qkv)
+    b, n, c3 = qkv.shape
+    out = torch.empty((b, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
+    FWD_KERNEL(*_strided(qkv, out, heads), lse.data_ptr(), *_tail(qkv, heads, sm_scale))
+    return out, lse
+
+
+def backward(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+             heads: int, sm_scale: float) -> torch.Tensor:
+    """dqkv of the forward: D in torch, then the dK/dV and the dQ kernel for
+    a CUDA tensor, ``backward_plain`` for a CPU one."""
+    if qkv.device.type == "cpu":
+        return backward_plain(qkv, out, lse, dout, heads, sm_scale)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"flash_attention backward: unsupported device {qkv.device}")
+    _check(qkv, heads)
+    delta = delta_rows(out, dout, heads)
+    qkv = _packed(qkv)
+    dout = _packed(dout.to(qkv.dtype))
+    dqkv = torch.empty_like(qkv)
+    backward_dkv(qkv, dout, lse, delta, dqkv, heads, sm_scale)
+    backward_dq(qkv, dout, lse, delta, dqkv, heads, sm_scale)
+    return dqkv
+
+
+def _strided(qkv: torch.Tensor, other: torch.Tensor, heads: int) -> tuple:
+    """The kernels' leading arguments: q, k and v as views of the packed qkv
+    (pointers and (image, head, row) strides in elements), then ``other``
+    (o or dO, (B, N, D)) likewise."""
+    b, n, c3 = qkv.shape
+    c, hd = c3 // 3, c3 // 3 // heads
+    base, step = qkv.data_ptr(), c * qkv.element_size()
+    return (base, base + step, base + 2 * step, n * c3, hd, c3, other.data_ptr(), n * c, hd, c)
+
+
+def _tail(qkv, heads, sm_scale):
+    b, n, c3 = qkv.shape
+    return (b, heads, n, c3 // 3 // heads, sm_scale, _DTYPES[qkv.dtype],
+            torch.cuda.current_stream(qkv.device).cuda_stream)
+
+
+def backward_dkv(qkv, dout, lse, delta, dqkv, heads: int, sm_scale: float) -> None:
+    """The dK/dV kernel into dqkv's k and v columns (``backward``'s launch:
+    contiguous CUDA qkv, dout and dqkv on 16-byte boundaries)."""
+    step = qkv.shape[-1] // 3 * qkv.element_size()
+    BWD_DKV_KERNEL(*_strided(qkv, dout, heads), lse.data_ptr(), delta.data_ptr(),
+                   dqkv.data_ptr() + step, dqkv.data_ptr() + 2 * step, *_tail(qkv, heads, sm_scale))
+
+
+def backward_dq(qkv, dout, lse, delta, dqkv, heads: int, sm_scale: float) -> None:
+    """The dQ kernel into dqkv's q columns (as ``backward_dkv``)."""
+    BWD_DQ_KERNEL(*_strided(qkv, dout, heads), lse.data_ptr(), delta.data_ptr(),
+                  dqkv.data_ptr(), *_tail(qkv, heads, sm_scale))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The custom VJP of jax's flash attention: the forward kernel saves the
+    row log-sum-exp; the backward recomputes P from it."""
+
+    @staticmethod
+    def forward(ctx, qkv, heads, sm_scale):
+        out, lse = forward(qkv, heads, sm_scale)
+        ctx.heads, ctx.sm_scale = heads, sm_scale
+        ctx.save_for_backward(qkv, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, out, lse = ctx.saved_tensors
+        return backward(qkv, out, lse, dout, ctx.heads, ctx.sm_scale), None, None
+
+
+def flash_attention_qkv(qkv: torch.Tensor, num_heads: int, sm_scale: float) -> torch.Tensor:
+    """The packed qkv projection (B, N, 3·D) → the attention output (B, N, D)
+    with its heads merged, in qkv's dtype, differentiable in qkv. A CUDA
+    tensor (bf16 or f32, head dim 64) takes the kernels, a CPU one the plain
+    versions; a shape the kernels refuse raises before anything launches."""
+    return _FlashAttention.apply(qkv, num_heads, float(sm_scale))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    sm_scale: float) -> torch.Tensor:
+    """hvt's ``_attend_flash`` signature: q, k, v (B, H, N, hd) → (B, H, N, hd)
+    in q's dtype, through :func:`flash_attention_qkv` on their packing."""
+    b, h, n, hd = q.shape
+    qkv = torch.stack([q, k.to(q.dtype), v.to(q.dtype)], 2).permute(0, 3, 2, 1, 4)
+    out = flash_attention_qkv(qkv.reshape(b, n, 3 * h * hd), h, sm_scale)
+    return out.view(b, n, h, hd).transpose(1, 2)

@@ -185,10 +185,10 @@ def test_torch_resnet_file_merges_as_hvts(tmp_path, file_s2d, model_s2d):
 
 
 def test_other_families_and_shapes_raise(tmp_path):
-    path = tmp_path / "vit.pt"
-    torch.save({"model": {"cls_token": torch.zeros(1, 1, 8), "blocks.0.attn.qkv.weight":
-                          torch.zeros(24, 8)}}, path)
-    with pytest.raises(NotImplementedError, match="ViT.*queue 1, item 9"):
+    path = tmp_path / "convnext.pt"
+    torch.save({"model": {"stem.0.weight": torch.zeros(8, 3, 4, 4),
+                          "stages.0.blocks.0.conv_dw.weight": torch.zeros(8, 1, 7, 7)}}, path)
+    with pytest.raises(NotImplementedError, match="ConvNeXt.*queue 1, item 9b"):
         ttc.load_torch_variables(f"torch://{path}")
     cur = {"a.weight": torch.zeros(2, 3)}
     with pytest.raises(ValueError, match="shape mismatch at a.weight"):

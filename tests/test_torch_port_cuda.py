@@ -73,10 +73,10 @@ def _params(c, heads, n, device, seed):
     }
 
 
-def _close(got, ref, tol, what):
+def _close(got, ref, tol, what, floor=0.0):
     got, ref = got.float(), ref.float()
     assert torch.isfinite(got).all(), what
-    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    err, scale = float((got - ref).abs().max()), max(float(ref.abs().max()), floor)
     assert err <= tol * scale, f"{what}: max|Δ| {err:.3g} > {tol}·{scale:.3g}"
 
 
@@ -1576,3 +1576,136 @@ def test_bn_custom_launches_no_batch_norm_kernel(cuda):
     assert [m - b for m, b in zip(middle, before)] == [9, 9]
     assert _launches(kernels) == middle
     _cosines(grads, ref, 0.99, 0.05)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (ViT's and DINOv2's use_flash route)
+# ---------------------------------------------------------------------------
+
+FLASH_SHAPES = ((64, 12, 197), (64, 12, 257), (8, 12, 1025), (4, 12, 1370))
+
+
+def _flash_case(b, h, n, device, dtype=torch.bfloat16, seed=0):
+    """Seeded packed qkv (B, N, 3·H·64) and dO (B, N, H·64), q and k at unit
+    variance (logits of unit variance at sm_scale 1/8)."""
+    from hvt_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(seed)
+    c = h * fa.HEAD_DIM
+    qkv = torch.as_tensor(rng.normal(size=(b, n, 3 * c)).astype(np.float32), device=device)
+    dout = torch.as_tensor(rng.normal(size=(b, n, c)).astype(np.float32), device=device)
+    return qkv.to(dtype), dout.to(dtype)
+
+
+def _flash_check(b, h, n, cuda, dtype=torch.bfloat16, tol=1e-2, grad_tol=2e-2):
+    """Kernel against plain version on one case: o within tol·max|o|, dq, dk
+    and dv each within grad_tol·max|plain|, or, where the exact dq and dk
+    are 0 (N = 1), within grad_tol·1e-3·max|plain dqkv|, and for f32 inputs,
+    whose dO and v enter dP rounded to bf16 against an f32 D, within the
+    most that moves dq or dk: 2^-7·max Σ_d|dO_d|·|v_d|·sm_scale·max(|q|,
+    |k|); the lse within
+    1e-4·max|lse| for bf16 inputs (f32 sums of exact products), and for f32
+    ones, whose q and k the kernel rounds to bf16 (2^-9 each), within
+    2^-8·sm_scale·max Σ_d|q_d|·|k_d|, the most a logit can move. Returns the
+    kernel's (o, lse, dqkv)."""
+    from hvt_torch.ops import flash_attention as fa
+
+    qkv, dout = _flash_case(b, h, n, cuda, dtype)
+    scale = fa.HEAD_DIM ** -0.5
+    out, lse = fa.forward(qkv, h, scale)
+    ref, ref_lse = fa.forward_plain(qkv, h, scale)
+    torch.cuda.synchronize()
+    _close(out, ref, tol, f"flash o {b}x{h}x{n} {dtype}")
+    if dtype == torch.bfloat16:
+        _close(lse, ref_lse, 1e-4, f"flash lse {b}x{h}x{n} {dtype}")
+    else:  # each logit moves by at most 2^-8·Σ|q_d·k_d|·sm_scale, and the lse by its largest move
+        q, k, _ = qkv.view(b, n, 3, h, fa.HEAD_DIM).permute(2, 0, 3, 1, 4)
+        bound = 2.0 ** -8 * scale * float((q.abs() @ k.abs().transpose(-1, -2)).max())
+        err = float((lse - ref_lse).abs().max())
+        assert err <= bound, f"flash lse {b}x{h}x{n} {dtype}: max|Δ| {err:.3g} > {bound:.3g}"
+    dqkv = fa.backward(qkv, out, lse, dout, h, scale)
+    ref_d = fa.backward_plain(qkv, ref, ref_lse, dout, h, scale)
+    torch.cuda.synchronize()
+    c = h * fa.HEAD_DIM
+    floor = 1e-3 * float(ref_d.abs().max())  # dq and dk are 0 in exact arithmetic at N = 1
+    if dtype == torch.float32:  # dP from bf16-rounded dO and v against an f32 D
+        q, k, v = qkv.view(b, n, 3, h, fa.HEAD_DIM).permute(2, 0, 3, 1, 4)
+        go = dout.view(b, n, h, fa.HEAD_DIM).transpose(1, 2)
+        ds = 2.0 ** -7 * float((go.abs() @ v.abs().transpose(-1, -2)).max())
+        moved = ds * scale * float(torch.maximum(q.abs().max(), k.abs().max()))
+        floor = max(floor, moved / grad_tol)  # dq and dk within that move
+    for i, name in enumerate(("dq", "dk", "dv")):
+        _close(dqkv[..., i * c:(i + 1) * c], ref_d[..., i * c:(i + 1) * c], grad_tol,
+               f"flash {name} {b}x{h}x{n} {dtype}", floor)
+    return out, lse, dqkv
+
+
+@pytest.mark.parametrize("b,h,n", FLASH_SHAPES)
+def test_flash_attention_matches_plain_at_the_models_shapes(cuda, b, h, n):
+    """ViT-B/16 at 224 px (N = 197), DINOv2-B/14 at 224 (257), ViT-B/16 at 512
+    (1,025), DINOv2 at 518 (1,370), bf16, forward and the three gradients
+    against the plain versions (f32 throughout): the kernel rounds the
+    unnormalised p, P and dS·sm_scale to bf16 before their products and o
+    and the gradients at the store, so o within 1e-2·max|o| and the gradients
+    within 2e-2·max|plain|; the log-sum-exp (f32 sums of exact bf16 products)
+    within 1e-4·max|lse|."""
+    from hvt_torch.ops import flash_attention as fa
+
+    before = (fa.FWD_KERNEL.launches, fa.BWD_DKV_KERNEL.launches, fa.BWD_DQ_KERNEL.launches)
+    _flash_check(b, h, n, cuda)
+    after = (fa.FWD_KERNEL.launches, fa.BWD_DKV_KERNEL.launches, fa.BWD_DQ_KERNEL.launches)
+    assert [a - z for a, z in zip(after, before)] == [1, 1, 1]
+
+
+@pytest.mark.parametrize("n", [193, 197, 257, 1, 64, 65])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_masks_the_last_key_tile(cuda, n, dtype):
+    """A last key tile of 1 to 64 keys (193 = 3·64 + 1, 197 = 3·64 + 5, 257 =
+    4·64 + 1, and 1, 64, 65), bf16 and f32 (f32 operands enter the tensor
+    cores rounded to bf16: the same tolerances): finite, against the plain
+    versions (the lse for f32 within _flash_check's rounding bound), and each image's rows
+    bit-equal whether it is run alone or inside the batch (nothing past N
+    leaks in from the next image's rows)."""
+    out, lse, dqkv = _flash_check(3, 4, n, cuda, dtype)
+    from hvt_torch.ops import flash_attention as fa
+
+    qkv, dout = _flash_case(3, 4, n, cuda, dtype)
+    scale = fa.HEAD_DIM ** -0.5
+    last = qkv[2:].clone()
+    o2, l2 = fa.forward(last, 4, scale)
+    d2 = fa.backward(last, o2, l2, dout[2:].clone(), 4, scale)
+    assert torch.equal(o2, out[2:]) and torch.equal(l2, lse[2:]) and torch.equal(d2, dqkv[2:])
+
+
+def test_flash_attention_autograd_and_strided_qkv(cuda):
+    """``flash_attention_qkv`` under autograd gives the wrapper's gradient,
+    and ``flash_attention`` on (B, H, N, 64) views the same o, bit for bit."""
+    from hvt_torch.ops import flash_attention as fa
+
+    qkv, dout = _flash_case(4, 6, 197, cuda)
+    scale = fa.HEAD_DIM ** -0.5
+    leaf = qkv.clone().requires_grad_(True)
+    out = fa.flash_attention_qkv(leaf, 6, scale)
+    out.backward(dout)
+    o, lse = fa.forward(qkv, 6, scale)
+    assert torch.equal(out.detach(), o)
+    assert torch.equal(leaf.grad, fa.backward(qkv, o, lse, dout, 6, scale))
+    q, k, v = qkv.view(4, 197, 3, 6, 64).permute(2, 0, 3, 1, 4).unbind(0)
+    split = fa.flash_attention(q, k, v, scale)
+    assert torch.equal(split, o.view(4, 197, 6, 64).transpose(1, 2))
+
+
+def test_flash_attention_refuses_other_head_dims_before_launch(cuda):
+    """Head dim 32 (and vit_micro's 16) raises, naming the ROADMAP item, and
+    launches nothing; a model with such heads says so in cuda_unsupported."""
+    from hvt_torch.models import vit
+    from hvt_torch.ops import flash_attention as fa
+
+    qkv = torch.zeros(2, 10, 3 * 4 * 32, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    before = fa.FWD_KERNEL.launches
+    with pytest.raises(ValueError, match="head dim 64, not 32.*Kernel coverage"):
+        fa.flash_attention_qkv(qkv, 4, 32 ** -0.5)
+    assert fa.FWD_KERNEL.launches == before
+    model = vit.vit_micro(5, use_flash=True, img_size=32)
+    assert "head dim 64, not 16" in model.cuda_unsupported(32, training=True)[0]
+    assert vit.vit_base_patch16_224(5, use_flash=True).cuda_unsupported(224, True) == []

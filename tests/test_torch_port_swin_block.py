@@ -179,7 +179,7 @@ def test_plain_versions_match_the_port_modules(c, shift):
     """The port's WindowAttention (hvt's reference attention) and Mlp, each
     followed by the res-post-norm, on the same parameters."""
     torch.manual_seed(c + shift)
-    attn, mlp = ts.WindowAttention(c, HEADS), ts.Mlp(c, 4 * c)
+    attn, mlp = ts.WindowAttention(c, HEADS), ts.TransformerMlp(c, 4 * c)
     for m in (attn, mlp):
         for prm in m.parameters():
             torch.nn.init.normal_(prm, std=0.3)
