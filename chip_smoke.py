@@ -231,14 +231,20 @@ Phases, in order; any failure exits non-zero and prints no result:
      fixed/r50_rand_species_multitask_pretrain_1.yaml (``bn_groups: 4``,
      the multitask hierarchy of the synthetic source) at 2,048 for 4 steps.
  18. ViT and DINOv2 through the flash-attention kernels (forward, dK/dV,
-     dQ; csrc/flash_attention.cu): (a) each against its plain version in
-     bf16 at (B, H, N) = (64, 12, 197), (64, 12, 257), (8, 12, 1025) and
-     (4, 12, 1370) (o, dq, dk, dv within 1e-2/2e-2 of max|plain|, the
-     log-sum-exp 1e-4), the backward's rerun bit-equal; (b) each kernel's
+     dQ; csrc/flash_attention.cu): (a) the kernels' plan (hvt_flash_plan)
+     equal to flash_attention.flash_plan at every N up to 1,400; each
+     kernel against its plain version in bf16 at (B, H, N) = (64, 12, 197),
+     (64, 12, 257), (8, 12, 1025) and (4, 12, 1370), and at (3, 4, N) in
+     bf16 and f32 at the plan's edges N = 1, 64, 208, 209, 256, 257 and
+     1,025 (o, dq, dk, dv within 1e-2/2e-2 of max|plain|, the log-sum-exp
+     1e-4; f32 tensors of bf16 values, which the f32 route's rounding
+     leaves as they are), the backward's rerun bit-equal; (b) each kernel's
      ms, host and device ms, bound and plain version's ms at (2048, 12, 197)
      (one ViT-B/16 block at vit_b16.yaml's batch) and at the four shapes,
-     beside SDPA's flash and efficient backends (forward, and forward plus
-     backward) on the same q, k, v; (c) pretrain/vit_b16.yaml (ViT-B/16,
+     beside ``delta_rows`` (D, in torch) and SDPA's flash and efficient
+     backends (forward, and forward plus backward) on the same q, k, v,
+     and the flash kernels' ptxas lines with each plan's dynamic shared
+     memory; (c) pretrain/vit_b16.yaml (ViT-B/16,
      10,000 classes) at 2,048 with grad_accum auto for 3 steps on one
      synthetic batch, no warmup, on use_flash true (12 launches of each
      kernel a microbatch pass, 12 forward launches an eval batch) and false
@@ -4554,7 +4560,8 @@ def rest_of_training_phase(card: str) -> dict:
 
 _FLASH_SRC = "hvt_torch/ops/csrc/flash_attention.cu"
 _JAX_FLASH = "jax/experimental/pallas/ops/tpu/flash_attention.py"
-FLASH = {  # name: (source, TPU kernel it replaces, the kernel's device symbol)
+FLASH = {  # name: (source, TPU kernel it replaces, the kernel's device symbol: the
+    #          forward's and dK/dV's, one instance a tile width, and dQ's by dtype)
     "flash_attention_fwd": (_FLASH_SRC, f"{_JAX_FLASH}:758 (hvt/models/vit.py:50 _attend_flash)",
                             "flash_fwd_kernel"),
     "flash_attention_bwd_dkv": (_FLASH_SRC, f"{_JAX_FLASH}:1121 (hvt/models/vit.py:50)",
@@ -4564,6 +4571,12 @@ FLASH = {  # name: (source, TPU kernel it replaces, the kernel's device symbol)
 }
 # (B, H, N): ViT-B/16 at 224 px, DINOv2-B/14 at 224, ViT-B/16 at 512, DINOv2 at 518
 FLASH_SHAPES = ((64, 12, 197), (64, 12, 257), (8, 12, 1025), (4, 12, 1370))
+# The edges of the Hopper kernels' plan (flash_attention.flash_plan): one
+# 64-key tile, the widest single tiles (208, 224, 256), the first two-tile
+# forward and streamed dK/dV (257), seven streamed key tiles (1,025); at
+# (3, 4, N) in bf16 and f32.
+FLASH_EDGES = (1, 64, 208, 209, 256, 257, 1025)
+FLASH_PLAN_N = 1400
 FLASH_TIMED = (2048, 12, 197)  # one ViT-B/16 block's launch at vit_b16.yaml's batch
 # Kernel against plain version, max|Δ| over max|plain|: the kernel rounds the
 # unnormalised p, P and dS·sm_scale to bf16 before their products and o and
@@ -4608,14 +4621,21 @@ def flash_bounds(b: int, h: int, n: int) -> dict:
     return out
 
 
-def flash_case(b: int, h: int, n: int) -> dict:
+def flash_case(b: int, h: int, n: int, dtype: str = "bf16") -> dict:
     """The three kernels against the plain versions on one shape (each held
-    to FLASH_TOL); also the kernel path's determinism (a rerun bit-equal)."""
+    to FLASH_TOL; the gradients' scale at least 1e-3·max|plain dqkv|, where
+    the exact dq and dk are 0 at N = 1); also the kernel path's determinism
+    (a rerun bit-equal). ``dtype`` "f32" passes flash_inputs' bf16 values as
+    f32 tensors: the f32 route (one bf16 copy for the forward and dK/dV, the
+    dQ kernel's f32 loads, f32 outputs) on inputs that the rounding to bf16
+    leaves as they are, so FLASH_TOL holds as for bf16."""
     import torch
 
     from hvt_torch.ops import flash_attention as fa
 
     qkv, dout = flash_inputs(b, h, n, seed=n)
+    if dtype == "f32":
+        qkv, dout = qkv.float(), dout.float()
     out, lse = fa.forward(qkv, h, 0.125)
     dqkv = fa.backward(qkv, out, lse, dout, h, 0.125)
     ref, ref_lse = fa.forward_plain(qkv, h, 0.125)
@@ -4626,19 +4646,61 @@ def flash_case(b: int, h: int, n: int) -> dict:
     pairs = {"o": (out, ref), "lse": (lse, ref_lse),
              **{g: (dqkv[..., i * c:(i + 1) * c], ref_d[..., i * c:(i + 1) * c])
                 for i, g in enumerate(("dq", "dk", "dv"))}}
-    rec = {"shape": (b, h, n), "rerun_bit_equal": bool(torch.equal(dqkv, again))}
+    floor = 1e-3 * float(ref_d.abs().max())
+    rec = {"shape": (b, h, n), "dtype": dtype, "rerun_bit_equal": bool(torch.equal(dqkv, again))}
     for key, (got, want) in pairs.items():
         got, want = got.float(), want.float()
         err, scale = float((got - want).abs().max()), float(want.abs().max())
-        rec[key] = {"max_abs_err": err, "max_abs": scale, "finite": bool(torch.isfinite(got).all())}
-        if not rec[key]["finite"] or err > FLASH_TOL[key] * scale:
-            raise AssertionError(f"flash attention {b}x{h}x{n} {key}: max|Δ| {err:.4g} against "
-                                 f"{FLASH_TOL[key]}·{scale:.4g}")
+        limit = FLASH_TOL[key] * (scale if key in ("o", "lse") else max(scale, floor))
+        rec[key] = {"max_abs_err": err, "max_abs": scale, "limit": limit,
+                    "finite": bool(torch.isfinite(got).all())}
+        if not rec[key]["finite"] or err > limit:
+            raise AssertionError(f"flash attention {b}x{h}x{n} {dtype} {key}: max|Δ| {err:.4g} "
+                                 f"against {limit:.4g}")
     if not rec["rerun_bit_equal"]:
-        raise AssertionError(f"flash attention {b}x{h}x{n}: a rerun of the backward differs")
+        raise AssertionError(f"flash attention {b}x{h}x{n} {dtype}: a rerun of the backward "
+                             "differs")
     del qkv, dout, out, lse, dqkv, ref, ref_lse, ref_d, again
     torch.cuda.empty_cache()
     return rec
+
+
+def flash_occupancy(n: int) -> tuple[int, int]:
+    """Blocks an SM of the forward's and dK/dV's instance at sequence length
+    n, with their plan's shared memory (the occupancy calculator)."""
+    import ctypes
+
+    from hvt_torch.ops import _build
+
+    lib = _build.load("flash_attention")
+    lib.hvt_flash_occupancy.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    got = (ctypes.c_int * 2)()
+    err = lib.hvt_flash_occupancy(n, got)
+    if err:
+        raise RuntimeError(f"hvt_flash_occupancy({n}): {lib.hvt_error_string(err).decode()}")
+    return got[0], got[1]
+
+
+def flash_plan_check() -> int:
+    """The kernels' own plan (``hvt_flash_plan``) equal to
+    ``flash_attention.flash_plan``, which the CPU tests check, at every N
+    from 1 to FLASH_PLAN_N. Returns the count of N checked."""
+    import ctypes
+
+    from hvt_torch.ops import _build
+    from hvt_torch.ops import flash_attention as fa
+
+    lib = _build.load("flash_attention")
+    lib.hvt_flash_plan.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.hvt_flash_plan.restype = None
+    got = (ctypes.c_int * 10)()
+    for n in range(1, FLASH_PLAN_N + 1):
+        lib.hvt_flash_plan(n, got)
+        want = [v for p in fa.flash_plan(n)
+                for v in (p.inner, p.tiles, p.outer, p.blocks_per_head, p.smem)]
+        if list(got) != want:
+            raise AssertionError(f"flash plan at N = {n}: kernel {list(got)}, python {want}")
+    return FLASH_PLAN_N
 
 
 def flash_times(b: int, h: int, n: int) -> dict:
@@ -4680,7 +4742,8 @@ def flash_times(b: int, h: int, n: int) -> dict:
 
             library[label] = {"fwd_ms": fwd, "fwd_bwd_ms": cuda_time_ms(both, 10, 2)}
         library[label]["bwd_ms"] = library[label]["fwd_bwd_ms"] - fwd
-    rec = {"shape": (b, h, n), "library": library, "kernels": {}}
+    rec = {"shape": (b, h, n), "library": library, "kernels": {},
+           "delta_rows_ms": cuda_time_ms(lambda: fa.delta_rows(out, dout, h))}
     for name, (bound, by, nbytes, flop) in flash_bounds(b, h, n).items():
         host, device = host_device_ms(launch[name], 5, kernels=(FLASH[name][2],))
         ms = cuda_time_ms(launch[name])
@@ -4794,13 +4857,16 @@ def vit_phase(card: str) -> dict:
     the plain path at VIT_CHECK_BATCH; (d) DINOv2-B/14's features."""
     import torch
 
-    out = {"checks": []}
-    for shape in FLASH_SHAPES:
-        rec = flash_case(*shape)
+    out = {"checks": [], "plan_checked": flash_plan_check()}
+    log(f"  (a) the kernels' plan (hvt_flash_plan) equals flash_attention.flash_plan at N = 1.."
+        f"{out['plan_checked']}")
+    for shape, dtype in ([(s, "bf16") for s in FLASH_SHAPES]
+                         + [((3, 4, n), d) for n in FLASH_EDGES for d in ("bf16", "f32")]):
+        rec = flash_case(*shape, dtype)
         out["checks"].append(rec)
-        log(f"  (a) flash attention {shape[0]}x{shape[1]}x{shape[2]} bf16, kernel against plain "
-            "(max|Δ| / max|plain|): " + "; ".join(
-                f"{k} {rec[k]['max_abs_err']:.3g}/{rec[k]['max_abs']:.3g}" for k in FLASH_TOL)
+        log(f"  (a) flash attention {shape[0]}x{shape[1]}x{shape[2]} {dtype}, kernel against "
+            "plain (max|Δ| / its limit): " + "; ".join(
+                f"{k} {rec[k]['max_abs_err']:.3g}/{rec[k]['limit']:.3g}" for k in FLASH_TOL)
             + "; backward rerun bit-equal")
     out["times"] = [flash_times(*shape) for shape in (FLASH_TIMED, *FLASH_SHAPES)]
     for rec in out["times"]:
@@ -4810,7 +4876,8 @@ def vit_phase(card: str) -> dict:
             f"device {v['device_ms']:.3f}; bound {v['bound_ms']:.3f} by {v['bound_by']}, "
             f"{100 * v['roofline_share']:.1f}%; {v['tflops']:.1f} TFLOP/s; plain "
             f"{v['plain_ms']:.3f})" for k, v in rec["kernels"].items())
-            + f"; SDPA flash fwd {lib['flash']['fwd_ms']:.3f} / bwd {lib['flash']['bwd_ms']:.3f} "
+            + f"; delta_rows {rec['delta_rows_ms']:.3f} ms; SDPA flash fwd "
+            f"{lib['flash']['fwd_ms']:.3f} / bwd {lib['flash']['bwd_ms']:.3f} "
             f"ms, efficient fwd {lib['efficient']['fwd_ms']:.3f} / bwd "
             f"{lib['efficient']['bwd_ms']:.3f} ms, on {card}")
 
@@ -4849,9 +4916,12 @@ def ptxas_summary(logs: dict) -> dict:
                 mangled = m.group(1)
                 name = re.match(r"_ZN3hvt(\d+)", mangled)
                 kernel = mangled
-                if name:  # hvt::<name><template arguments>: dtypes and integers
-                    end = name.end() + int(name.group(1))
-                    kernel, rest = mangled[name.end():end], mangled[end:]
+                if name:  # hvt::[namespace::]<name><template arguments>: dtypes and integers
+                    rest = mangled[len("_ZN3hvt"):]
+                    while rest[:1].isdigit():
+                        size = re.match(r"\d+", rest).group()
+                        kernel, rest = (rest[len(size):len(size) + int(size)],
+                                        rest[len(size) + int(size):])
                     if rest.startswith("I") and "EE" in rest:
                         args = re.findall(r"(13__nv_bfloat16)|^(f)(?=[EL])|Li(\d+)E|Lb(\d)E|"
                                           r"\d+(NhwcWindows|FlatWindows)",
@@ -5342,6 +5412,16 @@ def main(argv=None) -> int:
     vit = vit_phase(card)
     vit["wall_s"] = time.perf_counter() - t18
     log(f"  phase 18 took {vit['wall_s']:.1f} s")
+    from hvt_torch.ops import flash_attention as fa
+
+    vit["ptxas"] = [r for r in ptxas.get("flash_attention", []) if "flash" in r["kernel"]]
+    log("  flash kernels (ptxas): " + "; ".join(
+        f"{r['kernel']} {r['registers']} regs, {r['static_smem']} B static smem, spills "
+        f"{r['spill_stores']}/{r['spill_loads']} B" for r in vit["ptxas"])
+        + "; dynamic shared memory per block and blocks an SM (forward, dK/dV) at N = "
+        + ", ".join(f"{n}: {fwd.smem} / {dkv.smem} B, {occ[0]} / {occ[1]}"
+                    for n in (197, 257, 1025, 1370)
+                    for (fwd, dkv), occ in [(fa.flash_plan(n), flash_occupancy(n))]))
     flash_run = vit["train"]["vit_base_patch16_224 use_flash=True"]
     timed_flash = vit["times"][0]["kernels"]
     for name, (source, replaces, _) in FLASH.items():

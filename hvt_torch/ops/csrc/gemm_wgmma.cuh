@@ -2,6 +2,9 @@
 // the forward's, and the backward's recompute of h and the pre-LN sum), and
 // of the retired block halves' four (swin_block.cu, through wg_gemm_slices),
 // on Hopper's `wgmma`, the one way to the card's full bf16 tensor-core rate.
+// The flash-attention kernels (flash_attention.cu) take its instructions
+// alone: Wgmma<N> at every N a multiple of 16 from 64 to 256, and
+// wgmma64_rs_t, A from registers and B read MN-major.
 //
 // out = A·Bᵀ for A (rows, K) and B (n_rows, K) bf16, both K-contiguous with
 // row stride K (x or h, and a weight in nn.Linear's (out, in) layout). A
@@ -50,8 +53,17 @@ constexpr int kWgStages = 3;
 template <int BN>
 constexpr size_t wg_smem() { return 1024 + (size_t)kWgStages * (kWgBM + BN) * 128; }
 
+// wgmma.mma_async m64nNk16, bf16 operands, f32 sums, d += a·b: Wgmma<N>::mma
+// reads A and B from shared memory through descriptors, both K-major (N a
+// multiple of 16 from 64 to 256: the MLP's tiles and the flash kernels' key
+// or query tiles, csrc/flash_attention.cu). The operand lists are written
+// out, eight accumulators to a HVT_WG_D8.
 template <int N>
 struct Wgmma;
+
+#define HVT_WG_D8(i)                                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
 
 template <>
 struct Wgmma<64> {
@@ -60,14 +72,27 @@ struct Wgmma<64> {
         "{\n.reg .pred p;\n"
         "setp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
         "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : HVT_WG_D8(0), HVT_WG_D8(8), HVT_WG_D8(16), HVT_WG_D8(24)
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<80> {
+  __device__ __forceinline__ static void mma(float (&d)[40], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %42, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39"
+        "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+        : HVT_WG_D8(0), HVT_WG_D8(8), HVT_WG_D8(16), HVT_WG_D8(24),
+          HVT_WG_D8(32)
         : "l"(a), "l"(b), "r"(1));
   }
 };
@@ -79,17 +104,30 @@ struct Wgmma<96> {
         "{\n.reg .pred p;\n"
         "setp.ne.b32 p, %50, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
         "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : HVT_WG_D8(0), HVT_WG_D8(8), HVT_WG_D8(16), HVT_WG_D8(24),
+          HVT_WG_D8(32), HVT_WG_D8(40)
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<112> {
+  __device__ __forceinline__ static void mma(float (&d)[56], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %58, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+        "%53, %54, %55"
+        "}, %56, %57, p, 1, 1, 0, 0;\n}\n"
+        : HVT_WG_D8(0), HVT_WG_D8(8), HVT_WG_D8(16), HVT_WG_D8(24),
+          HVT_WG_D8(32), HVT_WG_D8(40), HVT_WG_D8(48)
         : "l"(a), "l"(b), "r"(1));
   }
 };
@@ -101,24 +139,214 @@ struct Wgmma<128> {
         "{\n.reg .pred p;\n"
         "setp.ne.b32 p, %66, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+        "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
         "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
-          "+f"(d[63])
+        : HVT_WG_D8(0), HVT_WG_D8(8), HVT_WG_D8(16), HVT_WG_D8(24),
+          HVT_WG_D8(32), HVT_WG_D8(40), HVT_WG_D8(48), HVT_WG_D8(56)
         : "l"(a), "l"(b), "r"(1));
   }
 };
+
+template <>
+struct Wgmma<144> {
+  __device__ __forceinline__ static void mma(float (&d)[72], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %74, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+        "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+        "%70, %71"
+        "}, %72, %73, p, 1, 1, 0, 0;\n}\n"
+        : HVT_WG_D8(0), HVT_WG_D8(8), HVT_WG_D8(16), HVT_WG_D8(24),
+          HVT_WG_D8(32), HVT_WG_D8(40), HVT_WG_D8(48), HVT_WG_D8(56),
+          HVT_WG_D8(64)
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<160> {
+  __device__ __forceinline__ static void mma(float (&d)[80], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %82, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+        "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+        "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+        "}, %80, %81, p, 1, 1, 0, 0;\n}\n"
+        : HVT_WG_D8(0), HVT_WG_D8(8), HVT_WG_D8(16), HVT_WG_D8(24),
+          HVT_WG_D8(32), HVT_WG_D8(40), HVT_WG_D8(48), HVT_WG_D8(56),
+          HVT_WG_D8(64), HVT_WG_D8(72)
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<176> {
+  __device__ __forceinline__ static void mma(float (&d)[88], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %90, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n176k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+        "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+        "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "
+        "%87"
+        "}, %88, %89, p, 1, 1, 0, 0;\n}\n"
+        : HVT_WG_D8(0), HVT_WG_D8(8), HVT_WG_D8(16), HVT_WG_D8(24),
+          HVT_WG_D8(32), HVT_WG_D8(40), HVT_WG_D8(48), HVT_WG_D8(56),
+          HVT_WG_D8(64), HVT_WG_D8(72), HVT_WG_D8(80)
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<192> {
+  __device__ __forceinline__ static void mma(float (&d)[96], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %98, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+        "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+        "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "
+        "%87, %88, %89, %90, %91, %92, %93, %94, %95"
+        "}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+        : HVT_WG_D8(0), HVT_WG_D8(8), HVT_WG_D8(16), HVT_WG_D8(24),
+          HVT_WG_D8(32), HVT_WG_D8(40), HVT_WG_D8(48), HVT_WG_D8(56),
+          HVT_WG_D8(64), HVT_WG_D8(72), HVT_WG_D8(80), HVT_WG_D8(88)
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<208> {
+  __device__ __forceinline__ static void mma(float (&d)[104], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %106, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n208k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+        "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+        "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "
+        "%87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103"
+        "}, %104, %105, p, 1, 1, 0, 0;\n}\n"
+        : HVT_WG_D8(0), HVT_WG_D8(8), HVT_WG_D8(16), HVT_WG_D8(24),
+          HVT_WG_D8(32), HVT_WG_D8(40), HVT_WG_D8(48), HVT_WG_D8(56),
+          HVT_WG_D8(64), HVT_WG_D8(72), HVT_WG_D8(80), HVT_WG_D8(88),
+          HVT_WG_D8(96)
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<224> {
+  __device__ __forceinline__ static void mma(float (&d)[112], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %114, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+        "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+        "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "
+        "%87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, "
+        "%103, %104, %105, %106, %107, %108, %109, %110, %111"
+        "}, %112, %113, p, 1, 1, 0, 0;\n}\n"
+        : HVT_WG_D8(0), HVT_WG_D8(8), HVT_WG_D8(16), HVT_WG_D8(24),
+          HVT_WG_D8(32), HVT_WG_D8(40), HVT_WG_D8(48), HVT_WG_D8(56),
+          HVT_WG_D8(64), HVT_WG_D8(72), HVT_WG_D8(80), HVT_WG_D8(88),
+          HVT_WG_D8(96), HVT_WG_D8(104)
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<240> {
+  __device__ __forceinline__ static void mma(float (&d)[120], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %122, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n240k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+        "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+        "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "
+        "%87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, "
+        "%103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, "
+        "%117, %118, %119"
+        "}, %120, %121, p, 1, 1, 0, 0;\n}\n"
+        : HVT_WG_D8(0), HVT_WG_D8(8), HVT_WG_D8(16), HVT_WG_D8(24),
+          HVT_WG_D8(32), HVT_WG_D8(40), HVT_WG_D8(48), HVT_WG_D8(56),
+          HVT_WG_D8(64), HVT_WG_D8(72), HVT_WG_D8(80), HVT_WG_D8(88),
+          HVT_WG_D8(96), HVT_WG_D8(104), HVT_WG_D8(112)
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<256> {
+  __device__ __forceinline__ static void mma(float (&d)[128], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+        "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+        "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "
+        "%87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, "
+        "%103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, "
+        "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+        : HVT_WG_D8(0), HVT_WG_D8(8), HVT_WG_D8(16), HVT_WG_D8(24),
+          HVT_WG_D8(32), HVT_WG_D8(40), HVT_WG_D8(48), HVT_WG_D8(56),
+          HVT_WG_D8(64), HVT_WG_D8(72), HVT_WG_D8(80), HVT_WG_D8(88),
+          HVT_WG_D8(96), HVT_WG_D8(104), HVT_WG_D8(112), HVT_WG_D8(120)
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+// d (64 x 64) += A·B with A from registers and B read MN-major (the
+// transpose bit): the flash kernels' p·v, Pᵀ·dO and dSᵀ·q, whose B is a
+// tile of 128-byte rows along K (keys or queries), each row 64 columns of N.
+// A is the calling warp's 16 rows of a 16-wide K step in mma.sync's m16n8k16
+// A layout: a[0] (row l/4, columns 2(l mod 4) + {0, 1}), a[1] (row + 8),
+// a[2] (columns + 8), a[3] (both), packed bf16 pairs, which is how the
+// m64nNk16 accumulator of the previous product lies (wg_pairs), so two of
+// its 8-column groups pack into one K step. The MN-major 128-byte swizzle
+// at N = 64 is one swizzle atom wide: the descriptor's leading offset is
+// unused and its stride is again 1024 bytes a group of eight K rows, so
+// wg_desc serves, and a K step of 16 rows advances it by 2048 bytes.
+__device__ __forceinline__ void wgmma64_rs_t(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : HVT_WG_D8(0), HVT_WG_D8(8), HVT_WG_D8(16), HVT_WG_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
 
 // The shared-memory matrix descriptor of a K-major tile in the 128-byte
 // swizzle at shared address addr: start address / 16, leading byte offset
@@ -135,6 +363,16 @@ template <int R>
 __device__ __forceinline__ void wg_fence_acc(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for register-A fragments (wgmma64_rs_t): the product reads them
+// after the instruction issues, so they stay live and unmoved until it retires.
+template <int R>
+__device__ __forceinline__ void wg_fence_frag(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 // A ROWS x kWgBK slice into dst, swizzled: row r from src + (r0 + r)·ld + k0,

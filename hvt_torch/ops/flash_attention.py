@@ -6,7 +6,10 @@ jax/experimental/pallas/ops/tpu/flash_attention.py:758, dK/dV at :1121, dQ
 at :1456). Here one ``torch.autograd.Function`` runs ``csrc/flash_attention.cu``
 on a CUDA tensor: the forward kernel, then in the backward D = rowsum(dO∘O)
 in f32 (outside the kernels, as jax computes it, flash_attention.py:274) and
-the dK/dV and dQ kernels. A CPU tensor takes the plain versions below; nothing
+the dK/dV and dQ kernels. The forward and dK/dV are Hopper kernels (TMA
+into the 128-byte swizzle, ``wgmma``, a whole (image, head) a block where
+its keys or queries fit, :func:`flash_plan`); the dQ kernel is still the
+``mma.sync`` one. A CPU tensor takes the plain versions below; nothing
 else selects between them. The contract:
 
     o = softmax(sm_scale · q·kᵀ) · v      per (image, head), over the N real keys
@@ -18,19 +21,22 @@ versions keep them in f32. The row log-sum-exp (natural log, f32) is saved
 for the backward. hvt pads N to 128 and masks with segment ids; the kernel
 masks the last key tile instead, so nothing is padded.
 
-The kernel takes head dim :data:`HEAD_DIM` only (every ViT and DINOv2 variant
+The kernels take head dim :data:`HEAD_DIM` only (every ViT and DINOv2 variant
 hvt defines beyond the test-only micro ones); another head dim on a CUDA
 tensor raises before anything launches (:func:`unsupported`).
 
 On the model's path (:func:`flash_attention_qkv`) the kernels read q, k and v
 straight from the packed (B, N, 3·D) qkv projection and write o into a
 (B, N, D) tensor and dq, dk, dv into one (B, N, 3·D) gradient, through
-strides: no head split or merge is copied.
+strides: no head split or merge is copied. An f32 input reaches the
+forward and dK/dV kernels as one bf16 copy (the values the tensor cores
+would take), and their outputs come out in f32.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -40,14 +46,89 @@ HEAD_DIM = 64
 _F = ctypes.c_float
 _STRIDED = [_build.P, _build.P, _build.P, _build.L, _build.L, _build.L,  # q, k, v, strides
             _build.P, _build.L, _build.L, _build.L]                       # o or dO, strides
+_SHAPE = [_build.I] * 4 + [_F, _build.I, _build.P]  # B, H, N, d; sm_scale, dtype, stream
 FWD_KERNEL = _build.Kernel("flash_attention", "hvt_flash_attention_fwd",
-                           _STRIDED + [_build.P] + [_build.I] * 4 + [_F, _build.I, _build.P])
+                           [_build.P] * 3 + _SHAPE)
 BWD_DQ_KERNEL = _build.Kernel("flash_attention", "hvt_flash_attention_bwd_dq",
-                              _STRIDED + [_build.P] * 3 + [_build.I] * 4 + [_F, _build.I, _build.P])
+                              _STRIDED + [_build.P] * 3 + _SHAPE)
 BWD_DKV_KERNEL = _build.Kernel("flash_attention", "hvt_flash_attention_bwd_dkv",
-                               _STRIDED + [_build.P] * 4 + [_build.I] * 4 + [_F, _build.I, _build.P])
+                               [_build.P] * 5 + _SHAPE)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 COVERAGE_ITEM = "ROADMAP.md queue 2, 'Kernel coverage' (flash attention at other head dims)"
+
+
+# The Hopper kernels' plan (csrc/flash_attention.cu `fwd_plan`, `dkv_plan`).
+ROWS = 64              # an outer tile: wgmma's M (queries forward, keys in dK/dV)
+MIN_INNER = 64         # the narrowest inner tile
+FWD_RESIDENT = 256     # the forward keeps one key tile of up to this many keys
+FWD_STREAM = 160       # its widest key tile where it takes several (two blocks an SM)
+DKV_CHUNK = 128        # dK/dV's widest query chunk (its registers)
+STAGING, BARS = 16384, 64  # the output staging tile (64 x 64 f32), the mbarriers
+SMEM_PER_BLOCK = 232448    # the most dynamic shared memory an H100 block takes (227 KB)
+BOX_MOST = 256             # the longest side of a TMA box
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelPlan:
+    """One kernel's walk over an (image, head) of N rows: ``outer`` tiles of
+    :data:`ROWS` rows (queries in the forward, keys and values in dK/dV),
+    each against ``tiles`` inner tiles of ``inner`` rows (keys and values;
+    dK/dV's queries, dO, lse and D), rows at or past N zero-filled or
+    masked. ``blocks_per_head`` blocks take an (image, head): one, looping
+    over every outer tile with the inner tiles resident, where there are at
+    most two inner tiles, else one for each outer tile, the inner tiles
+    streamed through two stages. ``smem`` is a block's dynamic shared memory, bytes;
+    ``boxes`` the rows of each TMA box (128 bytes of one head's columns)."""
+
+    kernel: str
+    n: int
+    inner: int
+    tiles: int
+    outer: int
+    blocks_per_head: int
+    smem: int
+    boxes: dict
+
+    @property
+    def resident(self) -> bool:
+        return self.tiles <= 2
+
+    def blocks(self, batch: int, heads: int) -> list[tuple[int, int, range]]:
+        """(image, head, outer tiles) of each block in linear block order:
+        the blocks of one (image, head) consecutive."""
+        per = self.blocks_per_head
+        return [(bh // heads, bh % heads,
+                 range(self.outer) if per == 1 else range(sub, sub + 1))
+                for bh in range(batch * heads) for sub in range(per)]
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _inner_tiles(n: int, most: int) -> tuple[int, int]:
+    """The fewest inner tiles of at most ``most`` rows covering n, all of
+    one width, a multiple of 16 and at least MIN_INNER: (tiles, width)."""
+    tiles = _ceil(n, most)
+    return tiles, max(MIN_INNER, 16 * _ceil(_ceil(n, tiles), 16))
+
+
+def flash_plan(n: int) -> tuple[KernelPlan, KernelPlan]:
+    """The forward's and dK/dV's plan at sequence length n, as the kernels'
+    host code computes it (``hvt_flash_plan`` returns the same numbers)."""
+    outer = _ceil(n, ROWS)
+    tiles, inner = _inner_tiles(n, FWD_RESIDENT if n <= FWD_RESIDENT else FWD_STREAM)
+    stages = min(tiles, 2)
+    fwd = KernelPlan("forward", n, inner, tiles, outer, 1 if tiles <= 2 else outer,
+                     1024 + stages * 2 * inner * 128 + ROWS * 128 + STAGING + BARS,
+                     {"q": ROWS, "k": inner, "v": inner, "o": ROWS})
+    tiles, inner = _inner_tiles(n, DKV_CHUNK)
+    stages = min(tiles, 2)
+    dkv = KernelPlan("dkv", n, inner, tiles, outer, 1 if tiles <= 2 else outer,
+                     1024 + stages * 2 * inner * 128 + 2 * ROWS * 128 + STAGING
+                     + stages * inner * 8 + BARS,
+                     {"k": ROWS, "v": ROWS, "q": inner, "do": inner, "dk": ROWS, "dv": ROWS})
+    return fwd, dkv
 
 
 def unsupported(head_dim: int) -> str | None:
@@ -130,7 +211,8 @@ def forward(qkv: torch.Tensor, heads: int, sm_scale: float):
     b, n, c3 = qkv.shape
     out = torch.empty((b, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
-    FWD_KERNEL(*_strided(qkv, out, heads), lse.data_ptr(), *_tail(qkv, heads, sm_scale))
+    src = _bf16(qkv)
+    FWD_KERNEL(src.data_ptr(), out.data_ptr(), lse.data_ptr(), *_tail(qkv, heads, sm_scale))
     return out, lse
 
 
@@ -163,17 +245,26 @@ def _strided(qkv: torch.Tensor, other: torch.Tensor, heads: int) -> tuple:
 
 
 def _tail(qkv, heads, sm_scale):
+    """The kernels' trailing arguments: B, H, N, head dim, sm_scale, the
+    dtype flag (1 = f32: the dQ kernel's inputs and the other two kernels'
+    outputs) and the stream."""
     b, n, c3 = qkv.shape
     return (b, heads, n, c3 // 3 // heads, sm_scale, _DTYPES[qkv.dtype],
             torch.cuda.current_stream(qkv.device).cuda_stream)
 
 
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """t as the TMA kernels read it: bf16 (an f32 tensor rounded once, as
+    the tensor cores would round it), on a 16-byte boundary."""
+    return t if t.dtype == torch.bfloat16 else _packed(t.to(torch.bfloat16))
+
+
 def backward_dkv(qkv, dout, lse, delta, dqkv, heads: int, sm_scale: float) -> None:
     """The dK/dV kernel into dqkv's k and v columns (``backward``'s launch:
     contiguous CUDA qkv, dout and dqkv on 16-byte boundaries)."""
-    step = qkv.shape[-1] // 3 * qkv.element_size()
-    BWD_DKV_KERNEL(*_strided(qkv, dout, heads), lse.data_ptr(), delta.data_ptr(),
-                   dqkv.data_ptr() + step, dqkv.data_ptr() + 2 * step, *_tail(qkv, heads, sm_scale))
+    src, grad = _bf16(qkv), _bf16(dout)
+    BWD_DKV_KERNEL(src.data_ptr(), grad.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                   dqkv.data_ptr(), *_tail(qkv, heads, sm_scale))
 
 
 def backward_dq(qkv, dout, lse, delta, dqkv, heads: int, sm_scale: float) -> None:

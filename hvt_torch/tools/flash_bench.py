@@ -1,0 +1,230 @@
+"""The flash-attention kernels on the card, beside an earlier version of them.
+
+    python -m hvt_torch.tools.flash_bench [--parent OLD/flash_attention.cu] \\
+        [--shapes 2048x12x197,64x12x197,...] [--out chiprun_out/flash_bench.json]
+
+Times, in one process, on bf16 packed qkv of each (B, H, N) shape at head
+dim 64 (seeded, unit variance, sm_scale 1/8), with CUDA events over
+back-to-back launches, each pair of versions in turns (old, new, new,
+old): the forward, dK/dV and dQ kernels of ``csrc/flash_attention.cu``;
+with ``--parent``, the same three of an earlier source of that file (its
+strided C interface, as it stood before the TMA kernels: built here with
+nvcc under another library name, against the current ``csrc`` headers),
+and that source once more with its two grid dimensions swapped, so that
+the query or key tiles of one (image, head) run next to each other;
+SDPA's flash forward on the same q, k, v, and ``delta_rows`` (D =
+rowsum(dO∘O), computed in torch before the backward kernels). The bounds
+are chip_smoke.py's (phase 18). Also the host ms a call
+takes to return (the tensor maps are encoded at each call), each kernel's
+registers, shared memory and spills from ptxas, and the largest
+difference between the versions' outputs. Prints one JSON line per shape
+and writes them all to ``--out``. Needs a CUDA card and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import pathlib
+import re
+import subprocess
+import tempfile
+import time
+
+SHAPES = ((2048, 12, 197), (64, 12, 197), (64, 12, 257), (8, 12, 1025), (4, 12, 1370))
+
+
+def swapped(source: str) -> str:
+    """The strided kernels' source with blockIdx.x and .y exchanged and its
+    grid built the other way round: (tiles, B·H)."""
+    grid = "return dim3((unsigned)batch * (unsigned)heads, (unsigned)((n + kRows - 1) / kRows));"
+    if grid not in source:
+        raise ValueError("the earlier source has no grid_of to swap")
+    out = source.replace("blockIdx.x", "@X@").replace("blockIdx.y", "blockIdx.x")
+    out = out.replace("@X@", "blockIdx.y")
+    return out.replace(grid, "return dim3((unsigned)((n + kRows - 1) / kRows), "
+                             "(unsigned)batch * (unsigned)heads);")
+
+
+def build_old(source: pathlib.Path, tag: str, workdir: pathlib.Path):
+    """An earlier flash_attention.cu (or its swapped copy) as a library of
+    its own: (ctypes library, ptxas report)."""
+    from hvt_torch.ops import _build
+
+    text = source.read_text()
+    src = workdir / f"flash_{tag}.cu"
+    src.write_text(swapped(text) if tag == "swapped" else text)
+    lib = workdir / f"libflash_{tag}.so"
+    cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib), str(src)]
+    done = subprocess.run(cmd, capture_output=True, text=True)
+    if done.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{done.stdout}{done.stderr}")
+    return ctypes.CDLL(str(lib)), done.stdout + done.stderr
+
+
+def ptxas_rows(log: str) -> list[dict]:
+    """[{kernel, registers, smem, spills}] of the flash kernels in a ptxas report."""
+    rows, row = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w*flash\w*)'", line)
+        if m:
+            row = {"kernel": m.group(1), "registers": None, "smem": 0, "spills": None}
+            rows.append(row)
+        elif row is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                row["spills"] = [int(m.group(1)), int(m.group(2))]
+            m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+            if m:
+                row["registers"], row["smem"] = int(m.group(1)), int(m.group(2) or 0)
+    return rows
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int = 10) -> float:
+    """The median ms a call takes to return from an idle card."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return sorted(times)[iters // 2]
+
+
+def old_launchers(lib, qkv, dout, out, lse, delta, dqkv, heads: int):
+    """The earlier source's three launches through its strided C interface."""
+    import torch
+
+    P, L, I, F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    strided = [P, P, P, L, L, L, P, L, L, L]
+    tail = [I, I, I, I, F, I, P]
+    lib.hvt_flash_attention_fwd.argtypes = strided + [P] + tail
+    lib.hvt_flash_attention_bwd_dkv.argtypes = strided + [P] * 4 + tail
+    lib.hvt_flash_attention_bwd_dq.argtypes = strided + [P] * 3 + tail
+    b, n, c3 = qkv.shape
+    c, step = c3 // 3, c3 // 3 * qkv.element_size()
+    base, gbase = qkv.data_ptr(), dqkv.data_ptr()
+    qkv_args = (base, base + step, base + 2 * step, n * c3, 64, c3)
+    rows = lambda t: (t.data_ptr(), n * c, 64, c)  # noqa: E731
+    shape = (b, heads, n, 64, 0.125, 0, torch.cuda.current_stream().cuda_stream)
+
+    def check(err):
+        if err:
+            raise RuntimeError(f"launch failed: {lib.hvt_error_string(err).decode()}")
+
+    lib.hvt_error_string.restype = ctypes.c_char_p
+    return {
+        "fwd": lambda: check(lib.hvt_flash_attention_fwd(*qkv_args, *rows(out), lse.data_ptr(),
+                                                         *shape)),
+        "dkv": lambda: check(lib.hvt_flash_attention_bwd_dkv(
+            *qkv_args, *rows(dout), lse.data_ptr(), delta.data_ptr(), gbase + step,
+            gbase + 2 * step, *shape)),
+        "dq": lambda: check(lib.hvt_flash_attention_bwd_dq(
+            *qkv_args, *rows(dout), lse.data_ptr(), delta.data_ptr(), gbase, *shape)),
+    }
+
+
+def bench_shape(b: int, h: int, n: int, olds: dict) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from hvt_torch.ops import flash_attention as fa
+
+    gen = torch.Generator("cuda").manual_seed(1)
+    qkv = torch.randn((b, n, 3 * h * 64), generator=gen, device="cuda").bfloat16()
+    dout = torch.randn((b, n, h * 64), generator=gen, device="cuda").bfloat16()
+    out, lse = fa.forward(qkv, h, 0.125)
+    delta = fa.delta_rows(out, dout, h)
+    new_d = torch.empty_like(qkv)
+    new = {"fwd": lambda: fa.forward(qkv, h, 0.125),
+           "dkv": lambda: fa.backward_dkv(qkv, dout, lse, delta, new_d, h, 0.125),
+           "dq": lambda: fa.backward_dq(qkv, dout, lse, delta, new_d, h, 0.125)}
+    versions = {"new": new}
+    outputs = {}
+    for tag, lib in olds.items():
+        o_out, o_lse, o_d = torch.empty_like(out), torch.empty_like(lse), torch.empty_like(qkv)
+        versions[tag] = old_launchers(lib, qkv, dout, o_out, o_lse, delta, o_d, h)
+        outputs[tag] = (o_out, o_lse, o_d)
+    rec = {"shape": [b, h, n], "ms": {}, "host_ms": {}}
+    for kernel in ("fwd", "dkv", "dq"):
+        for tag in versions:
+            rec["ms"].setdefault(tag, {})[kernel] = []
+        order = [t for t in versions if t != "new"]
+        for tag in (*order, "new", "new", *reversed(order)):  # old, new, new, old
+            rec["ms"][tag][kernel].append(time_ms(versions[tag][kernel]))
+        for tag in versions:
+            rec["host_ms"].setdefault(tag, {})[kernel] = host_ms(versions[tag][kernel])
+    torch.cuda.synchronize()
+    c = h * 64
+    for tag, (o_out, o_lse, o_d) in outputs.items():
+        rec.setdefault("max_abs_diff", {})[tag] = {
+            "o": float((o_out.float() - out.float()).abs().max()),
+            "lse": float((o_lse - lse).abs().max()),
+            "dk": float((o_d[..., c:2 * c].float() - new_d[..., c:2 * c].float()).abs().max()),
+            "dv": float((o_d[..., 2 * c:].float() - new_d[..., 2 * c:].float()).abs().max())}
+    q, k, v = (t.contiguous() for t in qkv.view(b, n, 3, h, 64).permute(2, 0, 3, 1, 4))
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        rec["sdpa_flash_fwd_ms"] = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    rec["delta_rows_ms"] = time_ms(lambda: fa.delta_rows(out, dout, h))
+    return rec
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--parent", type=pathlib.Path,
+                        help="an earlier csrc/flash_attention.cu with the strided C interface")
+    parser.add_argument("--shapes", default=",".join("x".join(map(str, s)) for s in SHAPES))
+    parser.add_argument("--out", type=pathlib.Path,
+                        default=pathlib.Path("chiprun_out/flash_bench.json"))
+    args = parser.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("flash_bench: needs a CUDA card")
+    from hvt_torch.ops import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    logs = {"new": _build._finish(*_build._start("flash_attention"), "flash_attention")}
+    olds = {}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        if args.parent:
+            for tag in ("parent", "swapped"):
+                olds[tag], logs[tag] = build_old(args.parent, tag, pathlib.Path(tmp))
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True)
+        head = {"card": card.stdout.strip(), "ptxas": {t: ptxas_rows(g) for t, g in logs.items()}}
+        print(json.dumps(head), flush=True)
+        records = [head]
+        for shape in args.shapes.split(","):
+            rec = bench_shape(*map(int, shape.split("x")), olds)
+            print(json.dumps(rec), flush=True)
+            records.append(rec)
+            torch.cuda.empty_cache()
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps(records, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1657,20 +1657,25 @@ def test_flash_attention_matches_plain_at_the_models_shapes(cuda, b, h, n):
     assert [a - z for a, z in zip(after, before)] == [1, 1, 1]
 
 
-@pytest.mark.parametrize("n", [193, 197, 257, 1, 64, 65])
+@pytest.mark.parametrize("n", [193, 197, 257, 1, 64, 65, 208, 209, 256, 1025])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_masks_the_last_key_tile(cuda, n, dtype):
     """A last key tile of 1 to 64 keys (193 = 3·64 + 1, 197 = 3·64 + 5, 257 =
-    4·64 + 1, and 1, 64, 65), bf16 and f32 (f32 operands enter the tensor
-    cores rounded to bf16: the same tolerances): finite, against the plain
-    versions (the lse for f32 within _flash_check's rounding bound), and each image's rows
-    bit-equal whether it is run alone or inside the batch (nothing past N
-    leaks in from the next image's rows)."""
+    4·64 + 1, and 1, 64, 65), and the edges of the kernels' plan
+    (``flash_plan``: 208 and 209 around one 208- and one 224-key tile, 256
+    the widest single tile, 257 the first two-tile forward and three-chunk
+    dK/dV, 1,025 seven streamed key tiles), bf16 and f32 (f32 operands enter
+    the tensor cores rounded to bf16: the same tolerances): finite, against
+    the plain versions (the lse for f32 within _flash_check's rounding
+    bound), each image's rows bit-equal whether it is run alone or inside
+    the batch (nothing past N leaks in from the next image's rows), and a
+    rerun of the backward bit-equal."""
     out, lse, dqkv = _flash_check(3, 4, n, cuda, dtype)
     from hvt_torch.ops import flash_attention as fa
 
     qkv, dout = _flash_case(3, 4, n, cuda, dtype)
     scale = fa.HEAD_DIM ** -0.5
+    assert torch.equal(fa.backward(qkv, out, lse, dout, 4, scale), dqkv)
     last = qkv[2:].clone()
     o2, l2 = fa.forward(last, 4, scale)
     d2 = fa.backward(last, o2, l2, dout[2:].clone(), 4, scale)
