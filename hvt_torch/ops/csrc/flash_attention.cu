@@ -11,61 +11,67 @@
 // with segment ids; here the kernels mask instead, so there is no padded
 // copy); an online softmax in f32; the unnormalised p rounded to v's dtype
 // before p·v (flash_attention.py:471), summed in f32; o in q's dtype; the
-// row log-sum-exp kept for the backward. The backward takes D = rowsum(dO∘O)
-// in f32 from the caller, as jax computes it outside its kernels
-// (flash_attention.py:274), recomputes P from the saved log-sum-exp, and
-// rounds P and dS·sm_scale to bf16 before their products, as jax's
-// kernels do (lines 900, 918, 1258): no N x N tensor reaches device memory.
-// f32 inputs enter the tensor cores rounded to bf16 (the TPU's default
-// precision for an f32 product: the wrapper casts them once for the forward
-// and dK/dV, the dQ kernel rounds them on its way in) and o, dq, dk, dv come
-// out in f32. No atomics: a rerun gives the same bits.
+// row log-sum-exp kept for the backward. The backward needs D =
+// rowsum(dO∘O) in f32, which jax computes outside its kernels
+// (flash_attention.py:274): here the dQ kernel forms it from O's and dO's
+// own values for the query rows it owns and writes it once for dK/dV, which
+// runs after it. Both recompute P from the saved log-sum-exp and round P and
+// dS·sm_scale to bf16 before their products, as jax's kernels do (lines
+// 900, 918, 1258): no N x N tensor reaches device memory. f32 inputs enter
+// the tensor cores rounded to bf16 (the TPU's default precision for an f32
+// product: the wrapper casts qkv and dO once) and o, dq, dk, dv come out in
+// f32; D of f32 inputs sums their f32 values. No atomics, and D summed in a
+// fixed order: a rerun gives the same bits.
 //
-// Layout: the forward and dK/dV read q, k and v straight from the packed
-// (B, N, 3·D) qkv projection (D = heads·64) and dO from (B, N, D), through
-// TMA tensor maps, and write o (B, N, D) and dk, dv into the packed
-// (B, N, 3·D) gradient the same way; the dQ kernel takes (image, head, row)
-// strides. The log-sum-exp and D are (B·H, N) f32.
+// Layout: the kernels read q, k and v straight from the packed (B, N, 3·D)
+// qkv projection (D = heads·64) and dO and O from (B, N, D), through TMA
+// tensor maps, and write o (B, N, D) and dq, dk, dv into the packed
+// (B, N, 3·D) gradient the same way. The log-sum-exp and D are (B·H, N) f32.
 //
 // What bounds it on the H100 at ViT-B/16's shapes (N = 197, head dim 64):
 // the bytes. One forward reads q, k, v and writes o, 8·N·64 bytes an (image,
 // head), and does 4·N²·64 FLOP: about 100 FLOP a byte, a third of the card's
 // ~295 FLOP/byte balance point for bf16 tensor cores.
 //
-// Forward and dK/dV (the Hopper design). A block is one warpgroup, two
-// blocks an SM, so that one block's loads and softmax overlap the other's
-// products. Its thread 0 issues every copy: 3-D TMA boxes of 64 columns (one
-// head, 128 bytes) by up to 256 rows of one image, which land in the
-// 128-byte swizzle `wgmma` reads; rows past N come back as zeros (TMA's
-// out-of-bounds fill), never as the next image's rows; each copy completes
-// an mbarrier that the warpgroup waits on. The "outer" operand (the forward's
-// 64-row query tile, dK/dV's 64-row key and value tiles) is `wgmma`'s M; the
+// The design, all three kernels. A block is one warpgroup, two blocks an SM,
+// so that one block's loads and softmax overlap the other's products. Its
+// thread 0 issues every copy: 3-D TMA boxes of 64 columns (one head, 128
+// bytes) by up to 256 rows of one image, which land in the 128-byte swizzle
+// `wgmma` reads; rows past N come back as zeros (TMA's out-of-bounds fill),
+// never as the next image's rows; each copy completes an mbarrier that the
+// warpgroup waits on. The "outer" operand (the forward's and dQ's 64-row
+// query tile, dK/dV's 64-row key and value tiles) is `wgmma`'s M; the
 // "inner" side (keys, or dK/dV's queries) comes in tiles of W rows, W a
 // multiple of 16 that the ragged end wastes little of (the plan below: 208
 // at N = 197, two of 144 at N = 257). Where the inner side takes at most two
-// tiles (N <= 320 forward, N <= 256 for dK/dV) they stay resident: one block
-// takes a whole (image, head), loops over its outer tiles, and reads each
-// operand of the head once from device memory; the next outer tile loads as
-// soon as the products that read the current one retire. Longer sequences
-// give a block one outer tile and stream the inner tiles through two
-// stages; the blocks of one head are consecutive, so their re-reads of the
-// head's inner tiles hit L2. Products: q·kᵀ, and dK/dV's k·qᵀ and v·dOᵀ,
-// are m64nWk16 `wgmma`s from shared memory, both operands K-major; p·v,
-// Pᵀ·dO and dSᵀ·q take A from registers (the accumulator's layout is the A
-// fragments', so P and dS never touch shared memory) and read B MN-major
-// (the transpose bit). With W <= 256 the forward's softmax over one tile is
-// exact in registers; a second or later tile rescales the row as an online
-// softmax. Outputs leave through a swizzled staging tile in shared memory
-// by TMA stores, which clip at N. No producer warp or `setmaxnreg`: a
+// tiles (N <= 320 forward, N <= 256 for dK/dV and dQ) they stay resident:
+// one block takes a whole (image, head), loops over its outer tiles, and
+// reads each operand of the head once from device memory; the next outer
+// tile loads as soon as the products that read the current one retire.
+// Longer sequences give a block one outer tile and stream the inner tiles
+// through two stages; the blocks of one head are consecutive, so their
+// re-reads of the head's inner tiles hit L2. Products: q·kᵀ, dO·vᵀ, and
+// dK/dV's k·qᵀ and v·dOᵀ, are m64nWk16 `wgmma`s from shared memory, both
+// operands K-major; p·v, Pᵀ·dO, dSᵀ·q and dS·k take A from registers (the
+// accumulator's layout is the A fragments', so P and dS never touch shared
+// memory) and read B MN-major (the transpose bit). With W <= 256 the
+// forward's softmax over one tile is exact in registers; a second or later
+// tile rescales the row as an online softmax. dK/dV and dQ hold two f32
+// W-wide products (s and dP) beside their sums, so their W is at most 128
+// (registers). Outputs leave through a swizzled staging tile in shared
+// memory by TMA stores, which clip at N. No producer warp or `setmaxnreg`: a
 // one-warpgroup block has no other warpgroup to give registers to, and a
 // copy costs its issuing thread a few instructions.
 //
-// dQ (a first, simple design, not yet redone for Hopper): blocks of four warps,
-// blockIdx.x = image·H + head, blockIdx.y = a 64-row query tile; each warp
-// owns 16 rows. The block loops over 64-row key tiles, double-buffered in
-// shared memory by cp.async (zero-filled past N; f32 inputs rounded on the
-// way in), 128-byte rows with their 16-byte chunks XOR-swizzled by row for
-// ldmatrix, every product mma.sync.m16n8k16.
+// D in the dQ kernel: before the first dS of a query tile, two threads a
+// row each sum 32 of the row's 64 products dO·O in column order, each
+// product rounded to f32 and added in turn (no fused multiply-add), and one
+// shuffle adds the two halves; the result goes to shared memory for the
+// tile's dS and, for rows < N, to the (B·H, N) buffer that dK/dV reads.
+// bf16 O arrives by TMA beside the q and dO tiles and D reads both tiles
+// from shared memory; f32 O and dO (the f32 route, whose products read
+// their bf16 copies) are read for D from the original tensors by plain
+// 16-byte loads, issued before the block waits for its tiles.
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
 
 #include "gemm_wgmma.cuh"
@@ -75,8 +81,7 @@ namespace flash {
 
 constexpr int kD = 64;          // head dim
 constexpr int kRows = 64;       // rows of a query or key tile (wgmma's M)
-constexpr int kThreads = 128;   // one warpgroup, or dQ's four warps of 16 rows
-constexpr int kTile = kRows * kD;  // bf16 elements of one 64-row tile (8 KB)
+constexpr int kThreads = 128;   // one warpgroup
 
 // ---------------------------------------------------------------------------
 // The plan of the Hopper kernels (hvt_torch/ops/flash_attention.py
@@ -86,6 +91,7 @@ constexpr int kMinInner = 64;         // narrowest inner tile
 constexpr int kFwdResident = 256;     // one resident key tile up to this N
 constexpr int kFwdStream = 160;       // widest key tile of two stages (two blocks an SM)
 constexpr int kDkvChunk = 128;        // widest query chunk of dK/dV (registers)
+constexpr int kDqTile = 128;          // widest key tile of dQ (registers)
 constexpr int kStaging = 16384;       // one 64 x 64 f32 output tile
 constexpr int kBars = 64;             // mbarriers
 
@@ -125,6 +131,18 @@ inline Plan dkv_plan(int n) {
   // and D a stage, barriers
   p.smem = 1024 + stages * 2 * p.inner * 128 + 2 * kRows * 128 + kStaging +
            stages * p.inner * 8 + kBars;
+  return p;
+}
+
+inline Plan dq_plan(int n) {
+  Plan p;
+  inner_tiles(n, kDqTile, p.tiles, p.inner);
+  p.outer = (n + kRows - 1) / kRows;
+  p.blocks_per_head = p.tiles <= 2 ? 1 : p.outer;
+  const int stages = p.tiles < 2 ? 1 : 2;
+  // 1024 to align, K and V a stage, the q, dO and O tiles, staging, D of the
+  // query tile, barriers
+  p.smem = 1024 + stages * 2 * p.inner * 128 + 3 * kRows * 128 + kStaging + kRows * 4 + kBars;
   return p;
 }
 
@@ -520,187 +538,188 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // ---------------------------------------------------------------------------
-// dQ: strided operands, cp.async tiles, mma.sync.
+// dQ, and D: the outer tile is 64 queries (their q, dO, O, lse), the inner
+// tiles W keys (their k and v): D = rowsum(dO∘O), P = exp(s − lse) with
+// keys >= n set to 0, dS = P ∘ (dO·vᵀ − D)·sm_scale, dq = dS·k.
 // ---------------------------------------------------------------------------
-struct Layout {  // strides in elements of a (B, H, N, kD) operand
-  long long b, h, n;
+struct DqArgs {
+  int heads, n, tiles, outer, blocks_per_head, out_f32;
+  float scale_log2, sm_scale;
 };
 
-__device__ __forceinline__ long long row_at(const Layout& l, int bi, int hi, int row) {
-  return (long long)bi * l.b + (long long)hi * l.h + (long long)row * l.n;
-}
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
 
-// Rows [row0, row0 + kRows) of one (image, head) of an operand into a
-// swizzled bf16 tile, rows at or past n as zeros. bf16 rows by cp.async (the
-// caller commits), f32 rows rounded to bf16 and stored.
-template <typename T>
-__device__ __forceinline__ void load_tile(bf16* __restrict__ dst, const T* __restrict__ base,
-                                          const Layout& l, int bi, int hi, int row0, int n) {
-  for (int e = threadIdx.x; e < kRows * 8; e += kThreads) {
-    const int r = e >> 3, ch = e & 7, row = row0 + r;
-    const bool valid = row < n;
-    const T* src = base + row_at(l, bi, hi, valid ? row : 0) + 8 * ch;
-    bf16* d = dst + swz64(r, 8 * ch);
-    if constexpr (sizeof(T) == 2) {
-      cp_async16_zfill(d, src, valid);
-    } else {
-      uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (valid) {
-        const float4 a = *reinterpret_cast<const float4*>(src);
-        const float4 b = *reinterpret_cast<const float4*>(src + 4);
-        u = make_uint4(pack_bf16x2(a.x, a.y), pack_bf16x2(a.z, a.w), pack_bf16x2(b.x, b.y),
-                       pack_bf16x2(b.z, b.w));
-      }
-      *reinterpret_cast<uint4*>(d) = u;
-    }
+// acc + Σ o_i·g_i over the 8 bf16 values of two 16-byte chunks, in order.
+__device__ __forceinline__ float dot_chunk(float acc, uint4 o, uint4 g) {
+  const uint32_t ow[4] = {o.x, o.y, o.z, o.w}, gw[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    acc = __fadd_rn(acc, __fmul_rn(bf16_lo(ow[i]), bf16_lo(gw[i])));
+    acc = __fadd_rn(acc, __fmul_rn(bf16_hi(ow[i]), bf16_hi(gw[i])));
   }
+  return acc;
 }
 
-// A fragments of rows [m0, m0 + 16) of a tile over the four 16-wide k-steps.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const bf16* tile, int m0, int lane) {
-  const int row = m0 + (lane & 7) + ((lane >> 3) & 1) * 8, col = (lane >> 4) * 8;
+// Half h (columns 32h..32h + 31) of row r's Σ O·dO from the swizzled bf16
+// tiles, in column order.
+__device__ __forceinline__ float half_dot_tiles(const unsigned char* so, const unsigned char* sdo,
+                                                int r, int h) {
+  float acc = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) ldsm_x4(a[kk], tile + swz64(row, 16 * kk + col));
-}
-
-// acc (16 x 64) += A (16 x kD) · tileᵀ: the tile's 64 rows are the product's
-// columns (B n-major: q·kᵀ, dO·vᵀ).
-__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const uint32_t (&a)[4][4],
-                                        const bf16* tile, int lane) {
-  const int row = (lane & 7) + (lane >> 4) * 8, col = ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b[4];
-      ldsm_x4(b, tile + swz64(16 * np + row, 16 * kk + col));
-      mma_bf16_16816(acc[2 * np], a[kk], b[0], b[1]);
-      mma_bf16_16816(acc[2 * np + 1], a[kk], b[2], b[3]);
-    }
-}
-
-// acc (16 x kD) += A (16 x 64) · tile: the tile's rows are the reduction
-// (B k-major, through ldmatrix.trans: dS·k).
-__device__ __forceinline__ void mma_ab(float (&acc)[8][4], const uint32_t (&a)[4][4],
-                                       const bf16* tile, int lane) {
-  const int row = (lane & 7) + ((lane >> 3) & 1) * 8, col = (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b[4];
-      ldsm_x4_t(b, tile + swz64(16 * kk + row, 16 * np + col));
-      mma_bf16_16816(acc[2 * np], a[kk], b[0], b[1]);
-      mma_bf16_16816(acc[2 * np + 1], a[kk], b[2], b[3]);
-    }
-}
-
-// Accumulators (16 x 64, f32) → bf16 A fragments of the next product: two
-// adjacent 8-column n-tiles are one 16-wide k-step.
-__device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&acc)[8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = pack_bf16x2(acc[2 * kk][0], acc[2 * kk][1]);
-    a[kk][1] = pack_bf16x2(acc[2 * kk][2], acc[2 * kk][3]);
-    a[kk][2] = pack_bf16x2(acc[2 * kk + 1][0], acc[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16x2(acc[2 * kk + 1][2], acc[2 * kk + 1][3]);
+  for (int ch = 4 * h; ch < 4 * h + 4; ++ch) {
+    const int at = r * 128 + ((ch ^ (r & 7)) << 4);
+    acc = dot_chunk(acc, *reinterpret_cast<const uint4*>(so + at),
+                    *reinterpret_cast<const uint4*>(sdo + at));
   }
+  return acc;
 }
 
-__device__ __forceinline__ void zero(float (&acc)[8][4]) {
+// The same from 32 f32 values each of O and dO in device memory (16-byte aligned).
+__device__ __forceinline__ float half_dot_f32(const float* __restrict__ o,
+                                              const float* __restrict__ g) {
+  float acc = 0.f;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(a, b);
-}
-
-// Rows [row0 + m0, +16) of a warp's (16 x kD) accumulators into rows < n of
-// an operand.
-template <typename T>
-__device__ __forceinline__ void store_rows(T* __restrict__ base, const Layout& l, int bi, int hi,
-                                           int row0, int n, const float (&acc)[8][4], int m0,
-                                           int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row0 + m0 + g + 8 * half;
-    if (row >= n) continue;
-    T* dst = base + row_at(l, bi, hi, row) + 2 * t;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) store2(dst + 8 * nt, acc[nt][2 * half], acc[nt][2 * half + 1]);
+  for (int i = 0; i < 8; ++i) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(o) + i);
+    const float4 b = __ldg(reinterpret_cast<const float4*>(g) + i);
+    acc = __fadd_rn(acc, __fmul_rn(a.x, b.x));
+    acc = __fadd_rn(acc, __fmul_rn(a.y, b.y));
+    acc = __fadd_rn(acc, __fmul_rn(a.z, b.z));
+    acc = __fadd_rn(acc, __fmul_rn(a.w, b.w));
   }
+  return acc;
 }
 
-// One block per (image·head, 64-query tile), looping over key tiles:
-//   P = exp(s − lse), dS = P ∘ (dO·vᵀ − D)·sm_scale, dq = dS·k.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, Layout in,
-    const T* __restrict__ dout, Layout ol, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq, int heads, int n, float scale_log2,
-    float sm_scale) {
-  __shared__ __align__(128) bf16 skv[2][2][kTile];  // [buffer][k, v]; q, dO first in buffer 1
-  const int bh = blockIdx.x, bi = bh / heads, hi = bh - bi * heads;
-  const int q0 = blockIdx.y * kRows;
-  const int lane = threadIdx.x & 31, m0 = 16 * (threadIdx.x >> 5), t = lane & 3;
-  const int tiles = (n + kRows - 1) / kRows;
+template <int W>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,    // qkv, 64-row boxes
+                        const __grid_constant__ CUtensorMap tkv,   // qkv, W-row boxes
+                        const __grid_constant__ CUtensorMap tdo,   // dO, 64-row boxes
+                        const __grid_constant__ CUtensorMap to,    // bf16 o, 64-row boxes
+                        const __grid_constant__ CUtensorMap tout,  // dqkv, 64-row boxes
+                        const float* __restrict__ o32, const float* __restrict__ do32,
+                        const float* __restrict__ lse, float* __restrict__ delta, DqArgs a) {
+  constexpr int kKV = W * 128;  // bytes of one K or V tile
+  unsigned char* const sm = wg_smem_base();
+  const int stages = a.tiles < 2 ? 1 : 2;
+  unsigned char* const sq = sm + stages * 2 * kKV;
+  unsigned char* const sdo = sq + kRows * 128;
+  unsigned char* const so = sdo + kRows * 128;
+  unsigned char* const st = so + kRows * 128;
+  float* const sd = reinterpret_cast<float*>(st + kStaging);  // D of the query tile's rows
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(sd + kRows);  // K/V stage 0, 1; q, dO, O
+  const int tid = threadIdx.x, lane = tid & 31, t = lane & 3;
+  const int blk = blockIdx.x, bh = blk / a.blocks_per_head, sub = blk - bh * a.blocks_per_head;
+  const int bi = bh / a.heads, hi = bh - bi * a.heads, c = a.heads * kD;
+  const int q_first = a.blocks_per_head == 1 ? 0 : sub;
+  const int q_end = a.blocks_per_head == 1 ? a.outer : sub + 1;
+  const bool f32 = a.out_f32 != 0;
 
-  uint32_t qa[4][4], da[4][4], sa[4][4];
-  load_tile(skv[1][0], q, in, bi, hi, q0, n);
-  load_tile(skv[1][1], dout, ol, bi, hi, q0, n);
-  load_tile(skv[0][0], k, in, bi, hi, 0, n);
-  load_tile(skv[0][1], v, in, bi, hi, 0, n);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  load_a(qa, skv[1][0], m0, lane);
-  load_a(da, skv[1][1], m0, lane);
+  auto load_q = [&](int qt) {
+    mbar_expect(&bars[2], (f32 ? 2 : 3) * kRows * 128);
+    tma_load(sq, &tq, &bars[2], hi * kD, qt * kRows, bi);
+    tma_load(sdo, &tdo, &bars[2], hi * kD, qt * kRows, bi);
+    if (!f32) tma_load(so, &to, &bars[2], hi * kD, qt * kRows, bi);
+  };
+  auto load_kv = [&](int s, int j) {
+    mbar_expect(&bars[s], 2 * kKV);
+    tma_load(sm + s * 2 * kKV, &tkv, &bars[s], c + hi * kD, j * W, bi);
+    tma_load(sm + s * 2 * kKV + kKV, &tkv, &bars[s], 2 * c + hi * kD, j * W, bi);
+  };
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) mbar_init(&bars[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    load_q(q_first);
+    for (int s = 0; s < stages; ++s) load_kv(s, s);
+  }
   __syncthreads();
 
-  float lse2[2], d_row[2];  // rows past n: zero q and dO, so dS = 0 there
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + m0 + (lane >> 2) + 8 * r;
-    const long long at = (long long)bh * n + row;
-    lse2[r] = row < n ? lse[at] * kLog2e : 0.f;
-    d_row[r] = row < n ? delta[at] : 0.f;
-  }
-
-  float dq_acc[8][4], s[8][4], dp[8][4];
-  zero(dq_acc);
-  for (int j = 0; j < tiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < tiles) {
-      load_tile(skv[buf ^ 1][0], k, in, bi, hi, (j + 1) * kRows, n);
-      load_tile(skv[buf ^ 1][1], v, in, bi, hi, (j + 1) * kRows, n);
+  const uint32_t q_addr = smem_u32(sq), do_addr = smem_u32(sdo);
+  const int d_r = tid >> 1, d_h = tid & 1;  // the row and half of it this thread sums D over
+  for (int qt = q_first, qi = 0; qt < q_end; ++qt, ++qi) {
+    // Rows past n: zero q, dO and O (TMA's fill), zero lse and D, so dS = 0 there.
+    float part = 0.f, lse2[2];
+    const int d_row = qt * kRows + d_r;
+    if (f32 && d_row < a.n) {
+      const long long at = ((long long)bi * a.n + d_row) * c + hi * kD + 32 * d_h;
+      part = half_dot_f32(o32 + at, do32 + at);
     }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    zero(s);
-    zero(dp);
-    mma_abt(s, qa, skv[buf][0], lane);
-    mma_abt(dp, da, skv[buf][1], lane);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int r = 0; r < 2; ++r) {
+      const int row = qt * kRows + 16 * (tid >> 5) + (lane >> 2) + 8 * r;
+      lse2[r] = row < a.n ? lse[(long long)bh * a.n + row] * kLog2e : 0.f;
+    }
+    mbar_wait(&bars[2], qi & 1);
+    if (!f32) part = half_dot_tiles(so, sdo, d_r, d_h);
+    const float dsum = part + __shfl_xor_sync(0xffffffffu, part, 1);
+    if (d_h == 0) {
+      sd[d_r] = dsum;
+      if (d_row < a.n) delta[(long long)bh * a.n + d_row] = dsum;
+    }
+    __syncthreads();  // D of every row of the tile is in sd
+    float drow[2];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = j * kRows + 8 * nt + 2 * t + (e & 1);
-        const float p = key < n ? exp2f(s[nt][e] * scale_log2 - lse2[e >> 1]) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - d_row[e >> 1]) * sm_scale;
+    for (int r = 0; r < 2; ++r) drow[r] = sd[16 * (tid >> 5) + (lane >> 2) + 8 * r];
+
+    float dq[32];
+    zero_acc(dq);
+    for (int j = 0; j < a.tiles; ++j) {
+      const int s = j & 1;
+      mbar_wait(&bars[s], (j >> 1) & 1);
+      const uint32_t k_addr = smem_u32(sm + s * 2 * kKV), v_addr = k_addr + kKV;
+      float sc[W / 2], dp[W / 2];
+      zero_acc(sc);
+      zero_acc(dp);
+      wg_fence_acc(sc);
+      wg_fence_acc(dp);
+      wg_arrive();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)  // s = q·kᵀ
+        Wgmma<W>::mma(sc, wg_desc(q_addr + 32 * kk), wg_desc(k_addr + 32 * kk));
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)  // dP = dO·vᵀ
+        Wgmma<W>::mma(dp, wg_desc(do_addr + 32 * kk), wg_desc(v_addr + 32 * kk));
+      wg_commit();
+      wg_wait();
+      wg_fence_acc(sc);
+      wg_fence_acc(dp);
+      if (j == a.tiles - 1 && qt + 1 < q_end) {
+        __syncthreads();  // every warp's q·kᵀ and dO·vᵀ have retired, D is read: the tiles are free
+        if (tid == 0) load_q(qt + 1);
       }
-    to_a(sa, s);  // dS·sm_scale rounded to bf16 (k's dtype) before dS·k
-    mma_ab(dq_acc, sa, skv[buf][0], lane);
+#pragma unroll
+      for (int jj = 0; jj < W / 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = j * W + 8 * jj + 2 * t + (e & 1), i = 4 * jj + e, r = e >> 1;
+          // A key past n gets P = 0 here, not through k's zero fill: its s = 0
+          // gives exp2(−lse2), which is inf for a row whose logits all lie
+          // below about −88, and inf·0 is NaN in dS·k.
+          const float p = key < a.n ? exp2_ftz(sc[i] * a.scale_log2 - lse2[r]) : 0.f;
+          dp[i] = p * ((dp[i] - drow[r]) * a.sm_scale);
+        }
+      uint32_t da[W / 16][4];
+      acc_to_frags<W / 2>(da, dp);  // dS·sm_scale rounded to bf16 (k's dtype) before dS·k
+      wg_fence_acc(dq);
+      wg_arrive();
+#pragma unroll
+      for (int kk = 0; kk < W / 16; ++kk) wgmma64_rs_t(dq, da[kk], wg_desc(k_addr + 2048 * kk));
+      wg_commit();
+      wg_wait();
+      wg_fence_acc(dq);
+      wg_fence_frag(da);
+      if (j + 2 < a.tiles) {
+        __syncthreads();  // every warp's dS·k has retired: stage s is free
+        if (tid == 0) load_kv(s, j + 2);
+      }
+    }
+    if (tid == 0) tma_wait_read();
     __syncthreads();
+    store_tile(st, &tout, dq, 1.f, 1.f, a.out_f32, hi * kD, qt * kRows, bi);
   }
-  store_rows(dq, in, bi, hi, q0, n, dq_acc, m0, lane);
+  if (tid == 0) tma_wait_all();
 }
 
 }  // namespace flash
@@ -709,8 +728,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 namespace {
 
 using hvt::flash::DkvArgs;
+using hvt::flash::DqArgs;
 using hvt::flash::FwdArgs;
-using hvt::flash::Layout;
 using hvt::flash::Plan;
 
 bool takes(int batch, int heads, int n, int d) {
@@ -720,6 +739,16 @@ bool takes(int batch, int heads, int n, int d) {
 }
 
 int launched() { return static_cast<int>(cudaGetLastError()); }
+
+// The current device's primary context made current in this thread.
+// cuTensorMapEncodeTiled fails without one, and a thread whose first
+// runtime call needing the context is yet to come has none: autograd runs
+// the backward on a thread of its own, where the dQ kernel is the first
+// launch. cudaSetDevice binds it (CUDA 12), and costs nothing once bound.
+bool bind_context() {
+  int dev = 0;
+  return cudaGetDevice(&dev) == cudaSuccess && cudaSetDevice(dev) == cudaSuccess;
+}
 
 // cuTensorMapEncodeTiled, a driver-API function, through the runtime's
 // entry-point query, so that the library links no libcuda.
@@ -769,6 +798,8 @@ bool tensor_map(CUtensorMap* map, const void* base, bool f32, long long images, 
 using FwdKernel = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, float*, FwdArgs);
 using DkvKernel = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, const float*,
                            const float*, DkvArgs);
+using DqKernel = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap,
+                          const float*, const float*, const float*, float*, DqArgs);
 
 // The instance of each kernel for an inner tile of w rows, or null.
 FwdKernel fwd_kernel(int w) {
@@ -794,33 +825,51 @@ DkvKernel dkv_kernel(int w) {
   return nullptr;
 }
 
+DqKernel dq_kernel(int w) {
+  switch (w) {
+#define HVT_W(W) \
+  case W:        \
+    return hvt::flash::flash_bwd_dq_kernel<W>;
+    HVT_W(64) HVT_W(80) HVT_W(96) HVT_W(112) HVT_W(128)
+#undef HVT_W
+  }
+  return nullptr;
+}
+
+// Blocks an SM of `kernel` with plan p's shared memory, into *out.
+template <typename K>
+int occupancy(K kernel, const Plan& p, int* out) {
+  const int err = hvt::allow_smem(kernel, (size_t)p.smem);
+  if (err) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, hvt::flash::kThreads, p.smem);
+}
+
 }  // namespace
 
 // The plan of the forward (out[0..4]: key tile rows, key tiles, query tiles,
-// blocks an (image, head), dynamic shared memory) and of dK/dV (out[5..9]:
+// blocks an (image, head), dynamic shared memory), of dK/dV (out[5..9]:
 // query chunk rows, chunks, key tiles, blocks an (image, head), shared
-// memory) at sequence length n.
+// memory) and of dQ (out[10..14]: key tile rows, key tiles, query tiles,
+// blocks an (image, head), shared memory) at sequence length n.
 extern "C" void hvt_flash_plan(int n, int* out) {
-  const Plan f = hvt::flash::fwd_plan(n), b = hvt::flash::dkv_plan(n);
-  const int v[10] = {f.inner, f.tiles, f.outer, f.blocks_per_head, f.smem,
-                     b.inner, b.tiles, b.outer, b.blocks_per_head, b.smem};
-  for (int i = 0; i < 10; ++i) out[i] = v[i];
+  const Plan plans[3] = {hvt::flash::fwd_plan(n), hvt::flash::dkv_plan(n),
+                         hvt::flash::dq_plan(n)};
+  for (int i = 0; i < 3; ++i) {
+    const Plan& p = plans[i];
+    const int v[5] = {p.inner, p.tiles, p.outer, p.blocks_per_head, p.smem};
+    for (int j = 0; j < 5; ++j) out[5 * i + j] = v[j];
+  }
 }
 
-// Blocks an SM of the forward's (out[0]) and dK/dV's (out[1]) instance at
-// sequence length n with their plan's shared memory, as the occupancy
-// calculator gives them (registers, shared memory, threads). Returns a
-// cudaError_t.
+// Blocks an SM of the forward's (out[0]), dK/dV's (out[1]) and dQ's
+// (out[2]) instance at sequence length n with their plan's shared memory, as
+// the occupancy calculator gives them (registers, shared memory, threads).
+// Returns a cudaError_t.
 extern "C" int hvt_flash_occupancy(int n, int* out) {
-  const Plan f = hvt::flash::fwd_plan(n), b = hvt::flash::dkv_plan(n);
-  const FwdKernel fk = fwd_kernel(f.inner);
-  const DkvKernel bk = dkv_kernel(b.inner);
-  int err = hvt::allow_smem(fk, (size_t)f.smem);
-  if (!err) err = hvt::allow_smem(bk, (size_t)b.smem);
-  if (!err)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fk, hvt::flash::kThreads, f.smem);
-  if (!err)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], bk, hvt::flash::kThreads, b.smem);
+  const Plan f = hvt::flash::fwd_plan(n), b = hvt::flash::dkv_plan(n), q = hvt::flash::dq_plan(n);
+  int err = occupancy(fwd_kernel(f.inner), f, &out[0]);
+  if (!err) err = occupancy(dkv_kernel(b.inner), b, &out[1]);
+  if (!err) err = occupancy(dq_kernel(q.inner), q, &out[2]);
   return err;
 }
 
@@ -830,6 +879,7 @@ extern "C" int hvt_flash_occupancy(int n, int* out) {
 extern "C" int hvt_flash_attention_fwd(const void* qkv, void* o, float* lse, int batch, int heads,
                                        int n, int d, float sm_scale, int out_f32, void* stream) {
   if (!takes(batch, heads, n, d)) return -1;
+  if (!bind_context()) return static_cast<int>(cudaErrorInvalidDevice);
   const Plan p = hvt::flash::fwd_plan(n);
   const long long c = (long long)heads * d;
   CUtensorMap tq, tkv, to;
@@ -847,33 +897,38 @@ extern "C" int hvt_flash_attention_fwd(const void* qkv, void* o, float* lse, int
   return launched();
 }
 
-// dq of the forward above, through (image, head, row) strides in elements:
-// q, k, v and dq (sb, sh, sn), dO (ob, oh, on); delta = rowsum(dO∘O) (B·H,
-// N) f32; dtype 0 = bf16, 1 = f32 for every operand. Returns as the forward.
-extern "C" int hvt_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
-                                          long long sb, long long sh, long long sn,
-                                          const void* dout, long long ob, long long oh,
-                                          long long on, const float* lse, const float* delta,
-                                          void* dq, int batch, int heads, int n, int d,
-                                          float sm_scale, int dtype, void* stream) {
-  if (!takes(batch, heads, n, d) || (long long)batch * heads > 0x7fffffffLL ||
-      (n + hvt::flash::kRows - 1) / hvt::flash::kRows > 65535)
-    return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Layout in{sb, sh, sn}, ol{ob, oh, on};
-  const dim3 grid((unsigned)batch * (unsigned)heads,
-                  (unsigned)((n + hvt::flash::kRows - 1) / hvt::flash::kRows));
-  const float scale_log2 = sm_scale * hvt::kLog2e;
-  if (dtype == 0)
-    hvt::flash::flash_bwd_dq_kernel<hvt::bf16><<<grid, hvt::flash::kThreads, 0, s>>>(
-        static_cast<const hvt::bf16*>(q), static_cast<const hvt::bf16*>(k),
-        static_cast<const hvt::bf16*>(v), in, static_cast<const hvt::bf16*>(dout), ol, lse,
-        delta, static_cast<hvt::bf16*>(dq), heads, n, scale_log2, sm_scale);
-  else
-    hvt::flash::flash_bwd_dq_kernel<float><<<grid, hvt::flash::kThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        in, static_cast<const float*>(dout), ol, lse, delta, static_cast<float*>(dq), heads, n,
-        scale_log2, sm_scale);
+// dq of the forward above into the q columns of the packed dqkv (B, N,
+// 3·D), and D = rowsum(dO∘O) into delta (B·H, N) f32 for dK/dV: qkv16 (B, N,
+// 3·D) and dout16 (B, N, D) bf16, the products' operands; o and dout (B, N,
+// D) the forward's output and the gradient as the caller has them, f32
+// where out_f32 (then D reads them, and dqkv is f32), else bf16 (then dout
+// is dout16 and D reads the tiles of o and dout16); all 16-byte aligned;
+// lse (B·H, N) f32. Returns as the forward.
+extern "C" int hvt_flash_attention_bwd_dq(const void* qkv16, const void* dout16, const void* o,
+                                          const void* dout, const float* lse, float* delta,
+                                          void* dqkv, int batch, int heads, int n, int d,
+                                          float sm_scale, int out_f32, void* stream) {
+  if (!takes(batch, heads, n, d)) return -1;
+  if (!bind_context()) return static_cast<int>(cudaErrorInvalidDevice);
+  const Plan p = hvt::flash::dq_plan(n);
+  const long long c = (long long)heads * d;
+  const bool f32 = out_f32 != 0;
+  CUtensorMap tq, tkv, tdo, to, tout;
+  if (!tensor_map(&tq, qkv16, false, batch, n, 3 * c, hvt::flash::kRows) ||
+      !tensor_map(&tkv, qkv16, false, batch, n, 3 * c, p.inner) ||
+      !tensor_map(&tdo, dout16, false, batch, n, c, hvt::flash::kRows) ||
+      !tensor_map(&to, f32 ? dout16 : o, false, batch, n, c, hvt::flash::kRows) ||  // unread for f32
+      !tensor_map(&tout, dqkv, f32, batch, n, 3 * c, hvt::flash::kRows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DqArgs a{heads, n, p.tiles, p.outer, p.blocks_per_head, out_f32,
+                 sm_scale * hvt::kLog2e, sm_scale};
+  const DqKernel kernel = dq_kernel(p.inner);
+  const int err = hvt::allow_smem(kernel, (size_t)p.smem);
+  if (err) return err;
+  kernel<<<batch * heads * p.blocks_per_head, hvt::flash::kThreads, p.smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      tq, tkv, tdo, to, tout, f32 ? static_cast<const float*>(o) : nullptr,
+      f32 ? static_cast<const float*>(dout) : nullptr, lse, delta, a);
   return launched();
 }
 
@@ -885,6 +940,7 @@ extern "C" int hvt_flash_attention_bwd_dkv(const void* qkv, const void* dout, co
                                            int n, int d, float sm_scale, int out_f32,
                                            void* stream) {
   if (!takes(batch, heads, n, d)) return -1;
+  if (!bind_context()) return static_cast<int>(cudaErrorInvalidDevice);
   const Plan p = hvt::flash::dkv_plan(n);
   const long long c = (long long)heads * d;
   CUtensorMap tkv, tq, tdo, tout;

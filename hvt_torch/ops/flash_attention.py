@@ -4,13 +4,14 @@ Port of ``_attend_flash`` (hvt/models/vit.py:50), which calls jax's TPU
 flash-attention op (three ``pallas_call``\\ s: the forward at
 jax/experimental/pallas/ops/tpu/flash_attention.py:758, dK/dV at :1121, dQ
 at :1456). Here one ``torch.autograd.Function`` runs ``csrc/flash_attention.cu``
-on a CUDA tensor: the forward kernel, then in the backward D = rowsum(dO∘O)
-in f32 (outside the kernels, as jax computes it, flash_attention.py:274) and
-the dK/dV and dQ kernels. The forward and dK/dV are Hopper kernels (TMA
-into the 128-byte swizzle, ``wgmma``, a whole (image, head) a block where
-its keys or queries fit, :func:`flash_plan`); the dQ kernel is still the
-``mma.sync`` one. A CPU tensor takes the plain versions below; nothing
-else selects between them. The contract:
+on a CUDA tensor: the forward kernel, then in the backward the dQ kernel,
+which also forms D = rowsum(dO∘O) in f32 (jax computes it outside its
+kernels, flash_attention.py:274) and writes it for the dK/dV kernel, which
+runs next: two launches, no torch pass between them. All three are Hopper
+kernels (TMA into the 128-byte swizzle, ``wgmma``, a whole (image, head) a
+block where its keys or queries fit, :func:`flash_plan`). A CPU tensor
+takes the plain versions below; nothing else selects between them. The
+contract:
 
     o = softmax(sm_scale · q·kᵀ) · v      per (image, head), over the N real keys
 
@@ -28,9 +29,10 @@ tensor raises before anything launches (:func:`unsupported`).
 On the model's path (:func:`flash_attention_qkv`) the kernels read q, k and v
 straight from the packed (B, N, 3·D) qkv projection and write o into a
 (B, N, D) tensor and dq, dk, dv into one (B, N, 3·D) gradient, through
-strides: no head split or merge is copied. An f32 input reaches the
-forward and dK/dV kernels as one bf16 copy (the values the tensor cores
-would take), and their outputs come out in f32.
+TMA tensor maps: no head split or merge is copied. An f32 input reaches
+the kernels' products as one bf16 copy of qkv and of dO (the values the
+tensor cores would take), their outputs come out in f32, and D sums the
+f32 values of O and dO.
 """
 
 from __future__ import annotations
@@ -44,25 +46,24 @@ from hvt_torch.ops import _build
 
 HEAD_DIM = 64
 _F = ctypes.c_float
-_STRIDED = [_build.P, _build.P, _build.P, _build.L, _build.L, _build.L,  # q, k, v, strides
-            _build.P, _build.L, _build.L, _build.L]                       # o or dO, strides
 _SHAPE = [_build.I] * 4 + [_F, _build.I, _build.P]  # B, H, N, d; sm_scale, dtype, stream
 FWD_KERNEL = _build.Kernel("flash_attention", "hvt_flash_attention_fwd",
                            [_build.P] * 3 + _SHAPE)
 BWD_DQ_KERNEL = _build.Kernel("flash_attention", "hvt_flash_attention_bwd_dq",
-                              _STRIDED + [_build.P] * 3 + _SHAPE)
+                              [_build.P] * 7 + _SHAPE)
 BWD_DKV_KERNEL = _build.Kernel("flash_attention", "hvt_flash_attention_bwd_dkv",
                                [_build.P] * 5 + _SHAPE)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 COVERAGE_ITEM = "ROADMAP.md queue 2, 'Kernel coverage' (flash attention at other head dims)"
 
 
-# The Hopper kernels' plan (csrc/flash_attention.cu `fwd_plan`, `dkv_plan`).
-ROWS = 64              # an outer tile: wgmma's M (queries forward, keys in dK/dV)
+# The Hopper kernels' plan (csrc/flash_attention.cu `fwd_plan`, `dkv_plan`, `dq_plan`).
+ROWS = 64              # an outer tile: wgmma's M (queries forward and in dQ, keys in dK/dV)
 MIN_INNER = 64         # the narrowest inner tile
 FWD_RESIDENT = 256     # the forward keeps one key tile of up to this many keys
 FWD_STREAM = 160       # its widest key tile where it takes several (two blocks an SM)
 DKV_CHUNK = 128        # dK/dV's widest query chunk (its registers)
+DQ_TILE = 128          # dQ's widest key tile (its registers)
 STAGING, BARS = 16384, 64  # the output staging tile (64 x 64 f32), the mbarriers
 SMEM_PER_BLOCK = 232448    # the most dynamic shared memory an H100 block takes (227 KB)
 BOX_MOST = 256             # the longest side of a TMA box
@@ -71,10 +72,11 @@ BOX_MOST = 256             # the longest side of a TMA box
 @dataclasses.dataclass(frozen=True)
 class KernelPlan:
     """One kernel's walk over an (image, head) of N rows: ``outer`` tiles of
-    :data:`ROWS` rows (queries in the forward, keys and values in dK/dV),
-    each against ``tiles`` inner tiles of ``inner`` rows (keys and values;
-    dK/dV's queries, dO, lse and D), rows at or past N zero-filled or
-    masked. ``blocks_per_head`` blocks take an (image, head): one, looping
+    :data:`ROWS` rows (queries, with dQ's dO, O and lse, in the forward and
+    dQ; keys and values in dK/dV), each against ``tiles`` inner tiles of
+    ``inner`` rows (keys and values; dK/dV's queries, dO, lse and D), rows
+    at or past N zero-filled or masked. ``blocks_per_head`` blocks take an
+    (image, head): one, looping
     over every outer tile with the inner tiles resident, where there are at
     most two inner tiles, else one for each outer tile, the inner tiles
     streamed through two stages. ``smem`` is a block's dynamic shared memory, bytes;
@@ -113,9 +115,10 @@ def _inner_tiles(n: int, most: int) -> tuple[int, int]:
     return tiles, max(MIN_INNER, 16 * _ceil(_ceil(n, tiles), 16))
 
 
-def flash_plan(n: int) -> tuple[KernelPlan, KernelPlan]:
-    """The forward's and dK/dV's plan at sequence length n, as the kernels'
-    host code computes it (``hvt_flash_plan`` returns the same numbers)."""
+def flash_plan(n: int) -> tuple[KernelPlan, KernelPlan, KernelPlan]:
+    """The forward's, dK/dV's and dQ's plan at sequence length n, as the
+    kernels' host code computes it (``hvt_flash_plan`` returns the same
+    numbers)."""
     outer = _ceil(n, ROWS)
     tiles, inner = _inner_tiles(n, FWD_RESIDENT if n <= FWD_RESIDENT else FWD_STREAM)
     stages = min(tiles, 2)
@@ -128,7 +131,12 @@ def flash_plan(n: int) -> tuple[KernelPlan, KernelPlan]:
                      1024 + stages * 2 * inner * 128 + 2 * ROWS * 128 + STAGING
                      + stages * inner * 8 + BARS,
                      {"k": ROWS, "v": ROWS, "q": inner, "do": inner, "dk": ROWS, "dv": ROWS})
-    return fwd, dkv
+    tiles, inner = _inner_tiles(n, DQ_TILE)
+    stages = min(tiles, 2)
+    dq = KernelPlan("dq", n, inner, tiles, outer, 1 if tiles <= 2 else outer,
+                    1024 + stages * 2 * inner * 128 + 3 * ROWS * 128 + STAGING + ROWS * 4 + BARS,
+                    {"q": ROWS, "do": ROWS, "o": ROWS, "k": inner, "v": inner, "dq": ROWS})
+    return fwd, dkv, dq
 
 
 def unsupported(head_dim: int) -> str | None:
@@ -167,21 +175,43 @@ def delta_rows(out: torch.Tensor, dout: torch.Tensor, heads: int) -> torch.Tenso
     return prod.view(b, n, heads, c // heads).sum(-1).transpose(1, 2).contiguous()
 
 
-def backward_plain(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
-                   heads: int, sm_scale: float) -> torch.Tensor:
-    """Plain version of the backward (D, then the dK/dV and dQ kernels):
-    dqkv (B, N, 3·D) in qkv's dtype from P = exp(s − lse) and
-    dS = P∘(dO·vᵀ − D)·sm_scale, in f32."""
+def _p_ds(qkv, dout, lse, delta, heads: int, sm_scale: float):
+    """q, k, dO (B, H, N, hd), P = exp(s − lse) and dS = P∘(dO·vᵀ − D)·sm_scale
+    in f32 (f64 on f64)."""
     b, n, c3 = qkv.shape
     ad = _acc(qkv)
-    delta = delta_rows(out, dout, heads)
     q, k, v = (t.to(ad) for t in _split(qkv, heads))
     go = dout.to(ad).view(b, n, heads, c3 // 3 // heads).transpose(1, 2)
     p = torch.exp((q @ k.transpose(-1, -2)) * sm_scale - lse[..., None].to(ad))
-    dv = p.transpose(-1, -2) @ go
     ds = p * (go @ v.transpose(-1, -2) - delta[..., None].to(ad)) * sm_scale
-    dq, dk = ds @ k, ds.transpose(-1, -2) @ q
-    return torch.stack([dq, dk, dv], 2).permute(0, 3, 2, 1, 4).reshape(b, n, c3).to(qkv.dtype)
+    return q, k, go, p, ds
+
+
+def _merge(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(B, H, N, hd) → (B, N, H·hd) in dtype."""
+    b, h, n, hd = t.shape
+    return t.transpose(1, 2).reshape(b, n, h * hd).to(dtype)
+
+
+def backward_dq_plain(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+                      heads: int, sm_scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the dQ kernel: (dq (B, N, D) in qkv's dtype, D =
+    rowsum(dO∘O) (B, H, N) f32, f64 on f64), D by :func:`delta_rows`, dq =
+    dS·k in f32."""
+    delta = delta_rows(out, dout, heads)
+    _, k, _, _, ds = _p_ds(qkv, dout, lse, delta, heads, sm_scale)
+    return _merge(ds @ k, qkv.dtype), delta
+
+
+def backward_plain(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                   heads: int, sm_scale: float) -> torch.Tensor:
+    """Plain version of the backward (the dQ kernel with its D, then dK/dV):
+    dqkv (B, N, 3·D) in qkv's dtype from P = exp(s − lse) and
+    dS = P∘(dO·vᵀ − D)·sm_scale, in f32."""
+    dq, delta = backward_dq_plain(qkv, out, dout, lse, heads, sm_scale)
+    q, _, go, p, ds = _p_ds(qkv, dout, lse, delta, heads, sm_scale)
+    dk, dv = ds.transpose(-1, -2) @ q, p.transpose(-1, -2) @ go
+    return torch.cat([dq, _merge(dk, qkv.dtype), _merge(dv, qkv.dtype)], -1)
 
 
 def _check(qkv: torch.Tensor, heads: int) -> None:
@@ -218,36 +248,30 @@ def forward(qkv: torch.Tensor, heads: int, sm_scale: float):
 
 def backward(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
              heads: int, sm_scale: float) -> torch.Tensor:
-    """dqkv of the forward: D in torch, then the dK/dV and the dQ kernel for
-    a CUDA tensor, ``backward_plain`` for a CPU one."""
+    """dqkv of the forward: the dQ kernel (which writes D), then the dK/dV
+    kernel (which reads it) for a CUDA tensor, ``backward_plain`` for a CPU
+    one."""
     if qkv.device.type == "cpu":
         return backward_plain(qkv, out, lse, dout, heads, sm_scale)
     if qkv.device.type != "cuda":
         raise ValueError(f"flash_attention backward: unsupported device {qkv.device}")
     _check(qkv, heads)
-    delta = delta_rows(out, dout, heads)
     qkv = _packed(qkv)
+    out = _packed(out.to(qkv.dtype))
     dout = _packed(dout.to(qkv.dtype))
+    copies = (_bf16(qkv), _bf16(dout))
+    b, n, _ = qkv.shape
+    delta = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
     dqkv = torch.empty_like(qkv)
-    backward_dkv(qkv, dout, lse, delta, dqkv, heads, sm_scale)
-    backward_dq(qkv, dout, lse, delta, dqkv, heads, sm_scale)
+    backward_dq(qkv, out, dout, lse, delta, dqkv, heads, sm_scale, copies)
+    backward_dkv(qkv, dout, lse, delta, dqkv, heads, sm_scale, copies)
     return dqkv
-
-
-def _strided(qkv: torch.Tensor, other: torch.Tensor, heads: int) -> tuple:
-    """The kernels' leading arguments: q, k and v as views of the packed qkv
-    (pointers and (image, head, row) strides in elements), then ``other``
-    (o or dO, (B, N, D)) likewise."""
-    b, n, c3 = qkv.shape
-    c, hd = c3 // 3, c3 // 3 // heads
-    base, step = qkv.data_ptr(), c * qkv.element_size()
-    return (base, base + step, base + 2 * step, n * c3, hd, c3, other.data_ptr(), n * c, hd, c)
 
 
 def _tail(qkv, heads, sm_scale):
     """The kernels' trailing arguments: B, H, N, head dim, sm_scale, the
-    dtype flag (1 = f32: the dQ kernel's inputs and the other two kernels'
-    outputs) and the stream."""
+    dtype flag (1 = f32: the kernels' outputs, and the o and dO that dQ's D
+    reads) and the stream."""
     b, n, c3 = qkv.shape
     return (b, heads, n, c3 // 3 // heads, sm_scale, _DTYPES[qkv.dtype],
             torch.cuda.current_stream(qkv.device).cuda_stream)
@@ -259,18 +283,27 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
     return t if t.dtype == torch.bfloat16 else _packed(t.to(torch.bfloat16))
 
 
-def backward_dkv(qkv, dout, lse, delta, dqkv, heads: int, sm_scale: float) -> None:
-    """The dK/dV kernel into dqkv's k and v columns (``backward``'s launch:
-    contiguous CUDA qkv, dout and dqkv on 16-byte boundaries)."""
-    src, grad = _bf16(qkv), _bf16(dout)
+def backward_dkv(qkv, dout, lse, delta, dqkv, heads: int, sm_scale: float,
+                 copies=None) -> None:
+    """The dK/dV kernel into dqkv's k and v columns, reading D from ``delta``
+    (``backward``'s launch: contiguous CUDA qkv, dout and dqkv on 16-byte
+    boundaries; ``copies`` the caller's ``_bf16`` of qkv and dout, else made
+    here)."""
+    src, grad = copies or (_bf16(qkv), _bf16(dout))
     BWD_DKV_KERNEL(src.data_ptr(), grad.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                    dqkv.data_ptr(), *_tail(qkv, heads, sm_scale))
 
 
-def backward_dq(qkv, dout, lse, delta, dqkv, heads: int, sm_scale: float) -> None:
-    """The dQ kernel into dqkv's q columns (as ``backward_dkv``)."""
-    BWD_DQ_KERNEL(*_strided(qkv, dout, heads), lse.data_ptr(), delta.data_ptr(),
-                  dqkv.data_ptr(), *_tail(qkv, heads, sm_scale))
+def backward_dq(qkv, out, dout, lse, delta, dqkv, heads: int, sm_scale: float,
+                copies=None) -> None:
+    """The dQ kernel into dqkv's q columns; it also writes D = rowsum(dO∘O)
+    of ``out`` and ``dout`` (f32, from their own values) into ``delta``
+    (B, H, N) f32, which ``backward_dkv`` reads (as ``backward_dkv``; out
+    and dout in qkv's dtype)."""
+    src, grad = copies or (_bf16(qkv), _bf16(dout))
+    BWD_DQ_KERNEL(src.data_ptr(), grad.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                  lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(),
+                  *_tail(qkv, heads, sm_scale))
 
 
 class _FlashAttention(torch.autograd.Function):

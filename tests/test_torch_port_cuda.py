@@ -1714,3 +1714,93 @@ def test_flash_attention_refuses_other_head_dims_before_launch(cuda):
     model = vit.vit_micro(5, use_flash=True, img_size=32)
     assert "head dim 64, not 16" in model.cuda_unsupported(32, training=True)[0]
     assert vit.vit_base_patch16_224(5, use_flash=True).cuda_unsupported(224, True) == []
+
+
+@pytest.mark.parametrize("n", [1, 64, 197, 209, 257, 1025])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_dq_kernel_writes_d(cuda, n, dtype):
+    """The dQ kernel's D (``backward_dq`` fills ``delta``) against
+    ``delta_rows`` within 1e-5·max over rows of Σ|dO∘O|: both are f32 sums
+    of the same products in another order (exact products for bf16; for f32
+    each rounded once). On the f32 route O (the forward's f32 output) and dO
+    hold values bf16 cannot, and D must sum those, not the bf16 copies that
+    the products read: the control shows that D of the bf16 copies misses
+    the tolerance. A rerun gives the same bits, D included."""
+    from hvt_torch.ops import flash_attention as fa
+
+    qkv, dout = _flash_case(3, 4, n, cuda, dtype)
+    scale = fa.HEAD_DIM ** -0.5
+    out, lse = fa.forward(qkv, 4, scale)
+    runs = []
+    for _ in range(2):
+        delta = torch.full((3, 4, n), float("nan"), device=cuda)
+        dqkv = torch.empty_like(qkv)
+        fa.backward_dq(qkv, out, dout, lse, delta, dqkv, 4, scale)
+        runs.append((delta, dqkv[..., :4 * fa.HEAD_DIM]))
+    torch.cuda.synchronize()
+    ref = fa.delta_rows(out, dout, 4)
+    limit = 1e-5 * float((out.float() * dout.float()).abs().view(3, n, 4, 64).sum(-1).max())
+    err = float((runs[0][0] - ref).abs().max())
+    assert torch.isfinite(runs[0][0]).all() and err <= limit, f"D n={n}: {err:.3g} > {limit:.3g}"
+    if dtype == torch.float32 and n > 1:
+        assert not torch.equal(out, out.bfloat16().float())
+        assert not torch.equal(dout, dout.bfloat16().float())
+        copies = fa.delta_rows(out.bfloat16(), dout.bfloat16(), 4)
+        assert float((copies - ref).abs().max()) > limit, "the control does not discriminate"
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.parametrize("n", [197, 209])
+def test_flash_backward_with_an_all_negative_row(cuda, n):
+    """One query row (image 0, row 3, every head) whose logits all lie below
+    -100 (k's first column 1 at every key, that row's q -6,400 there: about
+    -800 at sm_scale 1/8). A padded key of dQ's last tile (224 slots) has s =
+    0, and exp2(-lse·log2 e) is inf there: the kernel sets P = 0 for keys at
+    or past N, so o, dq, dk and dv stay finite and within _flash_check's
+    tolerances of the plain versions, and the D written is finite."""
+    from hvt_torch.ops import flash_attention as fa
+
+    qkv, dout = _flash_case(3, 4, n, cuda)
+    c = 4 * fa.HEAD_DIM
+    for head in range(4):
+        qkv[:, :, c + head * fa.HEAD_DIM] = 1.0
+        qkv[0, 3, head * fa.HEAD_DIM] = -6400.0
+    scale = fa.HEAD_DIM ** -0.5
+    out, lse = fa.forward(qkv, 4, scale)
+    ref, ref_lse = fa.forward_plain(qkv, 4, scale)
+    assert (ref_lse[0, :, 3] < -100).all()
+    _close(out, ref, 1e-2, f"o all-negative row n={n}")
+    delta = torch.empty((3, 4, n), device=cuda)
+    dqkv = torch.empty_like(qkv)
+    fa.backward_dq(qkv, out, dout, lse, delta, dqkv, 4, scale)
+    got = fa.backward(qkv, out, lse, dout, 4, scale)
+    ref_d = fa.backward_plain(qkv, ref, ref_lse, dout, 4, scale)
+    torch.cuda.synchronize()
+    assert torch.isfinite(delta).all()
+    floor = 1e-3 * float(ref_d.abs().max())
+    for i, name in enumerate(("dq", "dk", "dv")):
+        _close(got[..., i * c:(i + 1) * c], ref_d[..., i * c:(i + 1) * c], 2e-2,
+               f"flash {name} all-negative row n={n}", floor)
+
+
+def test_flash_backward_is_two_launches_and_no_eager_d(cuda, monkeypatch):
+    """Through autograd on the card, the backward is the dQ kernel (which
+    writes D) and then the dK/dV kernel (which reads it): ``delta_rows``,
+    the eager D, patched to raise, is never called."""
+    from hvt_torch.ops import flash_attention as fa
+
+    def eager(*_):
+        raise AssertionError("delta_rows called on the CUDA path")
+
+    monkeypatch.setattr(fa, "delta_rows", eager)
+    order = []
+    for name in ("BWD_DQ_KERNEL", "BWD_DKV_KERNEL"):
+        kernel = getattr(fa, name)
+        monkeypatch.setattr(fa, name, lambda *a, _k=kernel, _n=name: (order.append(_n), _k(*a)))
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv, dout = _flash_case(2, 6, 197, cuda, dtype)
+        leaf = qkv.clone().requires_grad_(True)
+        fa.flash_attention_qkv(leaf, 6, fa.HEAD_DIM ** -0.5).backward(dout)
+        torch.cuda.synchronize()
+        assert torch.isfinite(leaf.grad).all()
+    assert order == ["BWD_DQ_KERNEL", "BWD_DKV_KERNEL"] * 2
