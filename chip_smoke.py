@@ -392,7 +392,9 @@ PROFILE_NAMES = {
            "forward": ("mlp_fwd_", "attn_half_fwd_", "ln_resid_fwd")},
     "base": {"backward": ("mlp_bwd_", "attn_half_bwd_", "grad_tn", "sum_parts"),
              "forward": ("mlp_fwd_", "attn_half_fwd_", "ln_resid_fwd")},
-    "resnet": {"backward": ("bwd_reduce_kernel",), "forward": ("channel_sums_kernel",)},
+    # bn_train's four calls: each reduction's rows and finish launches, and a pass
+    "resnet": {"backward": ("bwd_reduce_kernel", "finish_kernel<1>", "hvt::dx_kernel"),
+               "forward": ("channel_sums_kernel", "finish_kernel<0>", "normalize_kernel")},
     # the fused route with the packed attention pair (phase 11 (c))
     "packed_fused": {"backward": ("attention_bwd_", "mlp_bwd_", "grad_tn", "sum_parts"),
                      "forward": ("attention_fwd_tc", "attention_fwd_kernel", "mlp_fwd_",
@@ -502,15 +504,25 @@ RESNET_BN_SHAPES = ((112, 64, 1), (56, 64, 6), (56, 256, 4), (56, 128, 1), (28, 
                     (28, 512, 5), (28, 256, 1), (14, 256, 11), (14, 1024, 7), (14, 512, 1),
                     (7, 512, 5), (7, 2048, 4))
 RESNET_BN_LAYERS = 53
-BN_KERNELS = {  # name: (source, TPU kernel it replaces)
+BN_KERNELS = {  # name: (source, TPU kernel it replaces); bn_train's four calls
     "bn_channel_sums": ("hvt_torch/ops/csrc/bn_stats.cu", "hvt/ops/bn_stats_pallas.py:94"),
+    "bn_normalize": ("hvt_torch/ops/csrc/bn_stats.cu",
+                     "hvt/ops/bn_stats_pallas.py:273 (_bn_train_fwd around :94)"),
     "bn_bwd_reduce": ("hvt_torch/ops/csrc/bn_stats.cu", "hvt/ops/bn_stats_pallas.py:181"),
+    "bn_dx": ("hvt_torch/ops/csrc/bn_stats.cu",
+              "hvt/ops/bn_stats_pallas.py:285 (_bn_train_bwd around :181)"),
 }
-# Each kernel sum within BN_SUM_TOL·Σ|terms| of the f64 sum of the same bf16
-# inputs, per channel (f32 partials over about 1,000 chunks, added in a fixed
-# order); bn_train's dscale and dbias, both f32 sums, within twice that of
-# the plain path's; its y and dx (bf16 at the store) within 1e-2·max|plain|.
+# Each reduction's sums within BN_SUM_TOL·Σ|terms| of the f64 sums of the
+# same bf16 inputs, per channel (f32 partials over up to 396 chunks, added
+# in a fixed order), and its finish (mean, var, rstd; scale·rstd, Σg/n,
+# Σg·x̂/n) within BN_FINISH_TOL·max|plain| of the plain formulas on those
+# sums; the normalize and dx passes bit-equal to their plain versions on the
+# same per-channel vectors (the same separately rounded f32 operations);
+# bn_train's dscale and dbias, both f32 sums, within twice BN_SUM_TOL of the
+# plain path's; its y and dx (bf16 at the store) within 1e-2·max|plain|.
 BN_SUM_TOL = 1e-5
+BN_FINISH_TOL = 1e-5
+BN_STEPS = ("bn_moments", "bn_normalize", "bn_bwd_terms", "bn_dx")  # bn_stats' four dispatchers
 BN_BF16_TOL = 1e-2
 # Whole-model logits, kernel path vs plain path: 24 block halves, each
 # within its kernel's tolerance, feed one bf16 residual stream.
@@ -763,7 +775,8 @@ def kernel_counters():
             "mlp_half_bwd": fh.MLP_BWD_KERNEL, "attention_half_nhwc_bwd": fh.ATTN_BWD_KERNEL,
             "mlp_half_chunked_fwd": fh.MLP_CHUNKED_KERNEL,
             "mlp_half_chunked_bwd": fh.MLP_CHUNKED_BWD_KERNEL,
-            "bn_channel_sums": bsc.SUMS_KERNEL, "bn_bwd_reduce": bsc.BWD_KERNEL,
+            "bn_channel_sums": bsc.SUMS_KERNEL, "bn_normalize": bsc.NORMALIZE_KERNEL,
+            "bn_bwd_reduce": bsc.BWD_KERNEL, "bn_dx": bsc.DX_KERNEL,
             "attention_half_fwd": fh.ATTN_WIN_KERNEL, "attention_half_bwd": fh.ATTN_WIN_BWD_KERNEL,
             "window_attention_fwd": wac.SPLIT_KERNEL, "window_attention_bwd": wac.SPLIT_BWD_KERNEL,
             "swin_block_attention_fwd": sbc.ATTN_KERNEL, "swin_block_mlp_fwd": sbc.MLP_KERNEL}
@@ -799,33 +812,41 @@ def plain_versions():
                     attention_half_nhwc_forward=fh.attention_half_nhwc_plain,
                     attention_half_forward=fh.attention_half_plain,
                     mlp_half_chunked_forward=fh.mlp_half_chunked_plain), \
-            plain_fused_backward(), plain_bn_reductions():
+            plain_fused_backward(), plain_bn_steps():
         yield
 
 
-def plain_bn_reductions():
-    """The BatchNorm reductions swapped for their plain versions inside
-    ``bn_train``, which keeps its elementwise forward and backward."""
+def plain_bn_steps():
+    """bn_train's four steps swapped for their plain versions (torch's
+    reductions, the eager formulas): the parent's route with torch's sums."""
     from hvt_torch.ops import bn_stats
 
-    return swapped(bn_stats, channel_sums=bn_stats.channel_sums_plain,
-                   bn_bwd_reduce=bn_stats.bn_bwd_reduce_plain)
+    return swapped(bn_stats, **{name: getattr(bn_stats, f"{name}_plain") for name in BN_STEPS})
 
 
 def exact_bn_reductions():
-    """The plain BatchNorm reductions summed in f64 and rounded to f32: the
-    plain path with other (exact) sums, which shows how far a change of the
-    sums' last bits alone moves the model's gradients."""
+    """The plain BatchNorm steps with their sums taken in f64 and rounded to
+    f32: the plain path with other (exact) sums, which shows how far a
+    change of the sums' last bits alone moves the model's gradients."""
+    import torch
+
     from hvt_torch.ops import bn_stats
 
-    def sums(x):
-        return tuple(t.float() for t in bn_stats.channel_sums_plain(x.double()))
+    def moments(x, eps):
+        n = x.shape[0]
+        s, q = (t.float() for t in bn_stats.channel_sums_plain(x.double()))
+        mean = s / n
+        var = torch.clamp_min(q / n - mean * mean, 0.0)
+        return mean, var, torch.rsqrt(var + eps)
 
-    def bwd(g, x, mean, rstd):
-        return tuple(t.float() for t in bn_stats.bn_bwd_reduce_plain(
+    def terms(g, x, mean, rstd, scale):
+        n = x.shape[0]
+        sg, sgx = (t.float() for t in bn_stats.bn_bwd_reduce_plain(
             g.double(), x.double(), mean.double(), rstd.double()))
+        return sg, sgx, scale.float() * rstd, sg / n, sgx / n  # bn_dx_plain reads the last three
 
-    return swapped(bn_stats, channel_sums=sums, bn_bwd_reduce=bwd)
+    return swapped(bn_stats, bn_moments=moments, bn_bwd_terms=terms,
+                   bn_normalize=bn_stats.bn_normalize_plain, bn_dx=bn_stats.bn_dx_plain)
 
 
 def plain_backward():
@@ -2420,7 +2441,7 @@ def bn_train_check(x, g, scale, bias, what: str) -> dict:
 
     got = run()
     torch.cuda.synchronize()
-    with plain_bn_reductions():
+    with plain_bn_steps():
         ref = run()
     errs = {}
     for name, a, b in zip(("y", "dx"), got[:2], ref[:2]):
@@ -2439,38 +2460,118 @@ def bn_train_check(x, g, scale, bias, what: str) -> dict:
     return errs
 
 
-def bn_records(timing: bool, shapes=RESNET_BN_SHAPES, batch: int = RESNET_BATCH) -> dict:
-    """Both BatchNorm kernels at every ResNet-50 BatchNorm shape (``shapes``:
-    (H = W, channels, layers); 224 px by default) at ``batch``: checked
-    against f64 sums, their plain versions and (through ``bn_train``) the
-    plain path; or timed with their plain versions and the library calls.
-    Per training step: each shape's launches summed."""
+def bn_cases(x, g, scale, bias, batch: int, grid: int) -> dict:
+    """bn_train's four calls on one shape: {name: (kernel call, plain call,
+    library call, bytes, operations)}, the bytes each must move (each input
+    read once, each output written once) and its f32 operations. The
+    library calls are torch's SyncBatchNorm pieces on the channels-last
+    view: batch_norm_stats, batch_norm_elemt, batch_norm_backward_reduce,
+    batch_norm_backward_elemt."""
     import torch
 
     from hvt_torch.ops import bn_stats
+
+    rows, c = x.shape
+    mean, _, rstd = bn_stats.bn_moments(x, 1e-5)
+    terms = bn_stats.bn_bwd_terms(g, x, mean, rstd, scale)
+    sg, sgx = terms[0], terms[1]
+    x4 = x.view(batch, grid, grid, c).permute(0, 3, 1, 2)  # channels-last views
+    g4 = g.view(batch, grid, grid, c).permute(0, 3, 1, 2)
+    count = torch.full((1,), rows, dtype=torch.int32, device="cuda")
+    sgxmu = sgx / rstd  # Σg·(x − mean), the library's second sum
+    mc = rows * c
+    return {
+        "bn_channel_sums": (lambda: bn_stats.bn_moments(x, 1e-5),
+                            lambda: bn_stats.bn_moments_plain(x, 1e-5),
+                            lambda: torch.batch_norm_stats(x4, 1e-5), 2 * mc + 20 * c, 3 * mc),
+        "bn_normalize": (lambda: bn_stats.bn_normalize(x, mean, rstd, scale, bias, torch.bfloat16),
+                         lambda: bn_stats.bn_normalize_plain(x, mean, rstd, scale, bias,
+                                                             torch.bfloat16),
+                         lambda: torch.batch_norm_elemt(x4, scale, bias, mean, rstd, 1e-5),
+                         4 * mc + 16 * c, 4 * mc),
+        "bn_bwd_reduce": (lambda: bn_stats.bn_bwd_terms(g, x, mean, rstd, scale),
+                          lambda: bn_stats.bn_bwd_terms_plain(g, x, mean, rstd, scale),
+                          lambda: torch.batch_norm_backward_reduce(g4, x4, mean, rstd, scale, True,
+                                                                   True, True),
+                          4 * mc + 32 * c, 5 * mc),
+        "bn_dx": (lambda: bn_stats.bn_dx(g, x, mean, rstd, terms),
+                  lambda: bn_stats.bn_dx_plain(g, x, mean, rstd, terms),
+                  lambda: torch.batch_norm_backward_elemt(g4, x4, mean, rstd, scale, sg, sgxmu,
+                                                          count),
+                  6 * mc + 20 * c, 7 * mc),
+    }
+
+
+def bn_check(name: str, x, g, scale, bias, what: str) -> tuple[float, float | None]:
+    """One call against its plain version: the reductions' sums against f64
+    sums of the same inputs (BN_SUM_TOL·Σ|terms|) and their finishes against
+    the plain formulas on those sums (BN_FINISH_TOL·max|plain|); the passes
+    bit-equal to their plain versions on the same per-channel vectors.
+    Returns (max|kernel − plain| of the sums or the pass's output, the sums'
+    worst |Δ|/Σ|terms| against f64 or None)."""
+    import torch
+
+    from hvt_torch.ops import bn_stats
+
+    rows = x.shape[0]
+    mean, var, rstd = bn_stats.bn_moments(x, 1e-5)
+    xd = x.double()
+    if name == "bn_channel_sums":
+        s, q = bn_stats.channel_sums(x)
+        rel = max(sums_error(a, t, f"{name} {what}") for a, t in zip((s, q), (xd, xd * xd)))
+        ref_mean = s / rows
+        ref_var = torch.clamp_min(q / rows - ref_mean * ref_mean, 0.0)
+        finish = {"mean": (mean, ref_mean), "var": (var, ref_var),
+                  "rstd": (rstd, torch.rsqrt(ref_var + 1e-5))}
+        plain = bn_stats.channel_sums_plain(x)
+        err = max(float((a - b).abs().max()) for a, b in zip((s, q), plain))
+    elif name == "bn_bwd_reduce":
+        sg, sgx, k, m1, m2 = bn_stats.bn_bwd_terms(g, x, mean, rstd, scale)  # the (5, C) rows
+        gd = g.double()
+        terms = (gd, gd * ((xd - mean.double()) * rstd.double()))
+        rel = max(sums_error(a, t, f"{name} {what}") for a, t in zip((sg, sgx), terms))
+        finish = {"scale·rstd": (k, scale * rstd), "Σg/n": (m1, sg / rows),
+                  "Σg·x̂/n": (m2, sgx / rows)}
+        plain = bn_stats.bn_bwd_reduce_plain(g, x, mean, rstd)
+        err = max(float((a - b).abs().max()) for a, b in zip((sg, sgx), plain))
+    else:
+        if name == "bn_normalize":
+            got = bn_stats.bn_normalize(x, mean, rstd, scale, bias, torch.bfloat16)
+            ref = bn_stats.bn_normalize_plain(x, mean, rstd, scale, bias, torch.bfloat16)
+        else:
+            terms = bn_stats.bn_bwd_terms(g, x, mean, rstd, scale)
+            got = bn_stats.bn_dx(g, x, mean, rstd, terms)
+            ref = bn_stats.bn_dx_plain(g, x, mean, rstd, terms)
+        err = float((got.float() - ref.float()).abs().max())
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{name} {what}: not bit-equal to its plain version "
+                                 f"(max|Δ| {err:.3g})")
+        return err, None
+    for key, (a, b) in finish.items():
+        gap, top = float((a - b).abs().max()), float(b.abs().max())
+        if not (bool(torch.isfinite(a).all()) and gap <= BN_FINISH_TOL * top):
+            raise AssertionError(f"{name} {what}: {key} max|Δ| {gap:.3g} > "
+                                 f"{BN_FINISH_TOL}·{top:.3g}")
+    return err, rel
+
+
+def bn_records(timing: bool, shapes=RESNET_BN_SHAPES, batch: int = RESNET_BATCH,
+               host: bool = False, plain_iters: int = 5) -> dict:
+    """bn_train's four calls at every ResNet-50 BatchNorm shape (``shapes``:
+    (H = W, channels, layers); 224 px by default) at ``batch``: checked
+    (bn_check, and bn_train against the plain path), or timed with their
+    plain versions (``plain_iters`` calls each) and library calls, and with
+    ``host`` each call's host ms and device ms from an idle card
+    (host_device_ms). Per training step: each shape's launches summed."""
+    import torch
 
     records = {name: {"max_abs_err": 0.0, "bytes": 0, "flops": 0, "stages": []}
                for name in BN_KERNELS}
     for i, (grid, c, layers) in enumerate(shapes):
         x, g, scale, bias = bn_inputs(grid, c, seed=500 + i, batch=batch)
         rows = x.shape[0]
-        s, q = bn_stats.channel_sums(x)
-        mean = s / rows
-        rstd = torch.rsqrt(torch.clamp_min(q / rows - mean * mean, 0.0) + 1e-5)
-        x4 = x.view(batch, grid, grid, c).permute(0, 3, 1, 2)  # channels-last views
-        g4 = g.view(batch, grid, grid, c).permute(0, 3, 1, 2)
-        cases = {
-            "bn_channel_sums": (lambda: bn_stats.channel_sums(x),
-                                lambda: bn_stats.channel_sums_plain(x),
-                                lambda: torch.batch_norm_stats(x4, 1e-5), 2 * rows * c + 8 * c,
-                                3 * rows * c),
-            "bn_bwd_reduce": (lambda: bn_stats.bn_bwd_reduce(g, x, mean, rstd),
-                              lambda: bn_stats.bn_bwd_reduce_plain(g, x, mean, rstd),
-                              lambda: torch.batch_norm_backward_reduce(g4, x4, mean, rstd, scale,
-                                                                       True, True, True),
-                              4 * rows * c + 16 * c, 5 * rows * c),
-        }
-        for name, (kern, plain, library, nbytes, flops) in cases.items():
+        for name, (kern, plain, library, nbytes, flops) in bn_cases(x, g, scale, bias, batch,
+                                                                     grid).items():
             rec = records[name]
             st = {"shape": [rows, c], "launches_per_forward": layers, "bytes": nbytes,
                   "flops": flops}
@@ -2478,36 +2579,97 @@ def bn_records(timing: bool, shapes=RESNET_BN_SHAPES, batch: int = RESNET_BATCH)
             rec["flops"] += layers * flops
             if timing:
                 st["ms"] = cuda_time_ms(kern)
-                st["plain_ms"] = cuda_time_ms(plain, iters=5)
+                st["plain_ms"] = cuda_time_ms(plain, iters=plain_iters, warmup=1)
                 st["library_ms"] = cuda_time_ms(library, iters=10)
+                if host:
+                    st["host_ms"], st["device_ms"] = host_device_ms(kern)
             else:
-                got = kern()
-                torch.cuda.synchronize()
-                xd = x.double()
-                if name == "bn_channel_sums":
-                    terms = (xd, xd * xd)
-                else:
-                    gd = g.double()
-                    terms = (gd, gd * ((xd - mean.double()) * rstd.double()))
-                st["relative_to_f64"] = max(sums_error(a, t, f"{name} ({rows}, {c})")
-                                            for a, t in zip(got, terms))
-                st["max_abs_err"] = max(float((a - b).abs().max()) for a, b in zip(got, plain()))
+                st["max_abs_err"], rel = bn_check(name, x, g, scale, bias, f"({rows}, {c})")
+                if rel is not None:
+                    st["relative_to_f64"] = rel
                 rec["max_abs_err"] = max(rec["max_abs_err"], st["max_abs_err"])
-                del terms, xd
             rec["stages"].append(st)
         if not timing:
             errs = bn_train_check(x, g, scale, bias, f"({rows}, {c})")
             records["bn_bwd_reduce"]["stages"][-1]["bn_train"] = errs
-            worst = max(records[n]["stages"][-1]["relative_to_f64"] for n in BN_KERNELS)
+            worst = max(records[n]["stages"][-1]["relative_to_f64"]
+                        for n in ("bn_channel_sums", "bn_bwd_reduce"))
             log(f"  ({rows:7d}, {c:4d}) x{layers:2d}: Σx, Σx², Σg, Σg·x̂ within {worst:.2g}·Σ|terms| "
-                f"of f64 (tol {BN_SUM_TOL}); bn_train vs plain path: y {errs['y']:.2g}, dx "
-                f"{errs['dx']:.2g}·max|plain|, dscale {errs['dscale']:.2g}, dbias "
-                f"{errs['dbias']:.2g}·Σ|terms| ok")
-        del x, g, x4, g4
+                f"of f64 (tol {BN_SUM_TOL}), finishes within {BN_FINISH_TOL}·max|plain|, "
+                f"normalize and dx bit-equal to their plain versions; bn_train vs plain path: y "
+                f"{errs['y']:.2g}, dx {errs['dx']:.2g}·max|plain|, dscale {errs['dscale']:.2g}, "
+                f"dbias {errs['dbias']:.2g}·Σ|terms| ok")
+        del x, g
         torch.cuda.empty_cache()
     for rec in records.values():
         finish_record(rec, timing, H100_F32_FLOPS)  # f32 adds and multiplies on CUDA cores
+        if timing and host:
+            for key in ("host_ms", "device_ms"):
+                rec[key] = sum(st["launches_per_forward"] * st[key] for st in rec["stages"])
     return records
+
+
+def bn_train_times(shapes=RESNET_BN_SHAPES, batch: int = RESNET_BATCH,
+                   plain_iters: int = 5) -> dict:
+    """bn_train's forward (the sums and the normalize) and backward (the
+    reduce and dx) a step, each shape's calls as the Function makes them
+    times its layers: through the kernels; through the plain versions (the
+    parent's eager formulas, with torch's sums); and torch.native_batch_norm
+    forward and backward on the channels-last view, the library's whole
+    BatchNorm. Bounds: the four calls' bytes (2 + 4 and 4 + 6 B an element
+    in bf16) and a single pass's each way (4 and 6 B: x read, y written;
+    g and x read, dx written)."""
+    import torch
+
+    from hvt_torch.ops import bn_stats
+
+    out = {d: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+               "one_pass_bound_ms": 0.0} for d in ("forward", "backward")}
+    for i, (grid, c, layers) in enumerate(shapes):
+        x, g, scale, bias = bn_inputs(grid, c, seed=700 + i, batch=batch)
+        mean, _, rstd = bn_stats.bn_moments(x, 1e-5)
+        x4 = x.view(batch, grid, grid, c).permute(0, 3, 1, 2)
+        g4 = g.view(batch, grid, grid, c).permute(0, 3, 1, 2)
+        _, save_mean, save_invstd = torch.native_batch_norm(x4, scale, bias, None, None, True, 0.0,
+                                                            1e-5)
+
+        def forward(moments, normalize):
+            m_, _, r_ = moments(x, 1e-5)
+            return normalize(x, m_, r_, scale, bias, torch.bfloat16)
+
+        def backward(terms, dx):
+            return dx(g, x, mean, rstd, terms(g, x, mean, rstd, scale))
+
+        calls = {
+            "forward": (lambda: forward(bn_stats.bn_moments, bn_stats.bn_normalize),
+                        lambda: forward(bn_stats.bn_moments_plain, bn_stats.bn_normalize_plain),
+                        lambda: torch.native_batch_norm(x4, scale, bias, None, None, True, 0.0,
+                                                        1e-5), 6, 4),
+            "backward": (lambda: backward(bn_stats.bn_bwd_terms, bn_stats.bn_dx),
+                         lambda: backward(bn_stats.bn_bwd_terms_plain, bn_stats.bn_dx_plain),
+                         lambda: torch.ops.aten.native_batch_norm_backward(
+                             g4, x4, scale, None, None, save_mean, save_invstd, True, 1e-5,
+                             [True, True, True]), 10, 6),
+        }
+        for d, (kern, plain, library, nbytes, one_pass) in calls.items():
+            rec = out[d]
+            rec["ms"] += layers * cuda_time_ms(kern)
+            rec["plain_ms"] += layers * cuda_time_ms(plain, iters=plain_iters, warmup=1)
+            rec["library_ms"] += layers * cuda_time_ms(library, iters=10)
+            rec["bound_ms"] += layers * nbytes * x.numel() / H100_BYTES_PER_S * 1e3
+            rec["one_pass_bound_ms"] += layers * one_pass * x.numel() / H100_BYTES_PER_S * 1e3
+        del x, g, x4, g4
+        torch.cuda.empty_cache()
+    out["forward_and_backward"] = {key: out["forward"][key] + out["backward"][key]
+                                   for key in out["forward"]}
+    return out
+
+
+def bn_train_line(rec: dict) -> str:
+    return "; ".join(
+        f"{d} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, native_batch_norm "
+        f"{r['library_ms']:.3f}, bound {r['bound_ms']:.3f}, one pass "
+        f"{r['one_pass_bound_ms']:.3f})" for d, r in rec.items())
 
 
 # ---------------------------------------------------------------------------
@@ -3388,7 +3550,7 @@ def folder_resnet(root: str, native: bool, card: str) -> dict:
         shapes = bn_shapes_at(model, size)
         if sum(n for _, _, n in shapes) != RESNET_BN_LAYERS:
             raise AssertionError(f"{size} px: BatchNorm shapes {shapes}")
-        log(f"  (c) BatchNorm pair vs f64 and plain versions at {size} px: maps "
+        log(f"  (c) bn_train's four calls vs f64 and plain versions at {size} px: maps "
             f"{sorted({h for h, _, _ in shapes}, reverse=True)}")
         checked = bn_records(False, shapes)
         timed = bn_records(True, shapes)
@@ -3397,12 +3559,13 @@ def folder_resnet(root: str, native: bool, card: str) -> dict:
             "plain_ms": timed[k]["plain_ms"], "bound_ms": timed[k]["bound_ms"],
             "library_ms": timed[k]["library_ms"],
             "stages": {"check": checked[k]["stages"], "timed": timed[k]["stages"]}}
-            for k in BN_KERNELS}}
+            for k in BN_KERNELS}, "bn_train": bn_train_times(shapes)}
         for k in BN_KERNELS:
             r = rec["bn"][size][k]
-            log(f"  (c) {k} at {size} px: {r['ms']:.4f} ms a step ({RESNET_BN_LAYERS} launches), "
+            log(f"  (c) {k} at {size} px: {r['ms']:.4f} ms a step ({RESNET_BN_LAYERS} calls), "
                 f"plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f}, library {r['library_ms']:.4f} "
                 f"on {card}")
+        log(f"  (c) bn_train at {size} px: {bn_train_line(rec['bn'][size]['bn_train'])}")
     del model
     torch.cuda.empty_cache()
     scale = 0.625  # 136 px: odd maps 17, 9, 5
@@ -4133,6 +4296,9 @@ def downstream_phase(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 HOT_STEPS = 12  # (a): SAM (rho 0.5, interval 10) fires at steps 0 and 10
+# (a) with bn_pallas false: SAM at step 0, scales 0.5 (steps 0-4), 0.625, 0.75, 0.875, then 1.0
+# twice (the first step at each scale also meets cuDNN's first choices at its shapes)
+HOT_TORCH_BN_STEPS = 10
 SWIN_FULL_STEPS = 4  # (b)
 BASE_FULL_STEPS = 3  # (c)
 GROUPS_STEPS = 4  # (g)
@@ -4384,14 +4550,36 @@ def full_batch_runs(card: str) -> dict:
     for size in sorted(sam_sizes):  # the sizes SAM's steps ran at
         shapes = bn_shapes_at(trainer.model, size)
         bn_records(False, shapes, batch=micro)
-        timed = bn_records(True, shapes, batch=micro)
+        timed = bn_records(True, shapes, batch=micro, plain_iters=2)  # plain: ~1 s a step
         rec["bn_pair"][size] = {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "library_ms")}
                                 for k, v in timed.items()}
-        log(f"    BatchNorm pair at {size} px, microbatch {micro} (53 launches): " + "; ".join(
-            f"{k} {v['ms']:.3f} ms (bound {v['bound_ms']:.3f}, plain {v['plain_ms']:.3f}, "
-            f"library {v['library_ms']:.3f})" for k, v in timed.items()) + f" on {card}")
+        rec["bn_pair"][size]["bn_train"] = bn_train_times(shapes, micro, plain_iters=2)
+        log(f"    bn_train's four calls at {size} px, microbatch {micro} (53 calls each): "
+            + "; ".join(f"{k} {v['ms']:.3f} ms (bound {v['bound_ms']:.3f}, plain "
+                        f"{v['plain_ms']:.3f}, library {v['library_ms']:.3f})"
+                        for k, v in timed.items()) + f" on {card}")
+        log(f"    bn_train at {size} px: {bn_train_line(rec['bn_pair'][size]['bn_train'])}")
     out["resnet50_hot"] = rec
     del trainer, ema
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (a) the same with bn_pallas: false (torch's batch norm), {HOT_TORCH_BN_STEPS} steps "
+        "(SAM at step 0; the last two at the crop)")
+    torch_bn, trainer = full_run(
+        full_config(["pretrain/inat21.yaml", "recipes/hot_tpu.yaml"], HOT_TORCH_BN_STEPS,
+                    model={"args": {"bn_pallas": False}}),
+        {}, "resnet50 hot_tpu bn_pallas=false", {}, sam_steps=(0,))
+    by_scale = {}
+    for tag, run in (("kernels", rec), ("torch", torch_bn)):
+        for r in run["step_rows"]:
+            if not r["sam"]:
+                by_scale.setdefault(r["scale"], {}).setdefault(tag, []).append(r["ms"])
+    log("    non-SAM step ms by scale, bn_pallas / torch's batch norm: " + "; ".join(
+        f"{scale:.3f}: {'/'.join(f'{m:.1f}' for m in v.get('kernels', []))} / "
+        f"{'/'.join(f'{m:.1f}' for m in v.get('torch', []))}"
+        for scale, v in sorted(by_scale.items())))
+    out["resnet50_hot_torch_bn"] = torch_bn
+    del trainer
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4468,7 +4656,8 @@ def remat_checks() -> dict:
             staged = sum(isinstance(m, _BatchNormBase) for n in twin.remat_names
                          for m in getattr(twin, n).modules())
             remat_want = {"bn_channel_sums": RESNET_BN_LAYERS + staged,
-                          "bn_bwd_reduce": RESNET_BN_LAYERS}
+                          "bn_normalize": RESNET_BN_LAYERS + staged,
+                          "bn_bwd_reduce": RESNET_BN_LAYERS, "bn_dx": RESNET_BN_LAYERS}
         peaks, results = [], []
         with deterministic():
             for m in (model, twin):
@@ -5298,18 +5487,23 @@ def main(argv=None) -> int:
             "library_ms": None,
         })
 
-    log(f"[8] BatchNorm reduction kernels vs f64 sums and plain versions, bf16, the "
-        f"{len(RESNET_BN_SHAPES)} BatchNorm shapes of ResNet-50 at batch {RESNET_BATCH}")
+    log(f"[8] bn_train's four calls (the two reductions with their finishes, the normalize and "
+        f"dx passes) vs f64 sums and plain versions, bf16, the {len(RESNET_BN_SHAPES)} BatchNorm "
+        f"shapes of ResNet-50 at batch {RESNET_BATCH}")
     bn_checked = bn_records(timing=False)
-    bn_timed = bn_records(timing=True)
+    bn_timed = bn_records(timing=True, host=True)
     for name, rec in bn_timed.items():
-        log(f"  {name}: {rec['ms']:.4f} ms kernel, {rec['plain_ms']:.4f} ms plain, bound "
-            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), library {rec['library_ms']:.4f} ms, per "
-            f"training step ({RESNET_BN_LAYERS} launches) on {card}; per launch (kernel/bound/plain/"
-            f"library ms): " + "; ".join(
+        log(f"  {name}: {rec['ms']:.4f} ms, {rec['plain_ms']:.4f} ms plain, bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), library {rec['library_ms']:.4f} ms, "
+            f"host {rec['host_ms']:.4f} / device {rec['device_ms']:.4f} ms from an idle card, per "
+            f"training step ({RESNET_BN_LAYERS} calls) on {card}; per call (ms/bound/plain/library "
+            f"ms, host/device µs): " + "; ".join(
                 f"{st['shape'][0]}x{st['shape'][1]} x{st['launches_per_forward']} {st['ms']:.4f}/"
-                f"{st['bytes'] / H100_BYTES_PER_S * 1e3:.4f}/{st['plain_ms']:.4f}/{st['library_ms']:.4f}"
+                f"{st['bytes'] / H100_BYTES_PER_S * 1e3:.4f}/{st['plain_ms']:.4f}/"
+                f"{st['library_ms']:.4f}, {st['host_ms'] * 1e3:.1f}/{st['device_ms'] * 1e3:.1f}"
                 for st in rec["stages"]))
+    bn_train_timed = bn_train_times()
+    log(f"  bn_train a step on {card}: {bn_train_line(bn_train_timed)}")
 
     log(f"[9] training ResNet-50 at 224 px, {CLASSES} classes, batch {RESNET_BATCH}, "
         f"{RESNET_STEPS} steps (hvt_torch.main), bn_pallas true then false")
@@ -5524,6 +5718,10 @@ def main(argv=None) -> int:
               "train": train,
               "bn_stages": {k: {"check": bn_checked[k]["stages"], "timed": bn_timed[k]["stages"]}
                             for k in BN_KERNELS},
+              "bn_per_step": {k: {f: bn_timed[k][f] for f in (
+                  "ms", "plain_ms", "library_ms", "bound_ms", "host_ms", "device_ms")}
+                  for k in BN_KERNELS},
+              "bn_train": bn_train_timed,
               "resnet50": resnet,
               "swinv2_base": {
                   "forward_stages": {k: {"check": base_checked[k]["stages"],

@@ -134,7 +134,9 @@ class BatchNorm(_BatchNormBase):
 class PallasBatchNorm(_BatchNormBase):
     """hvt's ``PallasBatchNorm`` (``bn_pallas: true``): training goes through
     :func:`hvt_torch.ops.bn_stats.bn_train` on the free (rows, C) view of the
-    NHWC input, so its two reductions run the BatchNorm kernels on the card;
+    NHWC input, and on the card every pass of it runs a kernel of
+    ``csrc/bn_stats.cu``: forward the sums with their finish (mean, var,
+    rstd) and the normalize, backward the reduce with its finish and dx;
     the running statistics update from the mean and var it returns. The view
     raises on an input that is not NHWC-contiguous: no silent copy."""
 
@@ -153,8 +155,9 @@ class PallasBatchNorm(_BatchNormBase):
 class CustomBatchNorm(PallasBatchNorm):
     """hvt's ``bn_custom`` (``PallasBatchNorm(use_pallas=False)``): the same
     custom backward (``bn_train``, which saves x in its dtype and the
-    per-channel moments and recomputes x̂), its two reductions torch's ops on
-    every device. The config picks it; no kernel of this repository runs."""
+    per-channel moments and recomputes x̂), every pass of it the plain
+    version (torch's reductions and eager elementwise formulas) on every
+    device. The config picks it; no kernel of this repository runs."""
 
     torch_reductions = True
 

@@ -136,3 +136,4 @@ class Kernel:
 P = ctypes.c_void_p
 I = ctypes.c_int
 L = ctypes.c_longlong
+F = ctypes.c_float

@@ -777,6 +777,15 @@ def test_training_step_kernel_path_matches_plain_path(cuda, monkeypatch):
         assert cos >= 0.99 and abs(float(g.norm() / r.norm()) - 1.0) <= 0.05, (name, cos)
 
 
+# bn_train's four launches on the card, and the four steps of bn_stats that
+# dispatch to them (each has a ``<name>_plain`` beside it).
+BN_KERNELS = (bsc.SUMS_KERNEL, bsc.NORMALIZE_KERNEL, bsc.BWD_KERNEL, bsc.DX_KERNEL)
+BN_STEPS = ("bn_moments", "bn_normalize", "bn_bwd_terms", "bn_dx")
+# ResNet-50's 12 BatchNorm input shapes at 224 px as (H = W, C)
+RESNET50_BN_SHAPES = ((112, 64), (56, 64), (56, 256), (56, 128), (28, 128), (28, 512), (28, 256),
+                      (14, 256), (14, 1024), (14, 512), (7, 512), (7, 2048))
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,c", [(50176, 64), (12544, 2048), (2003, 264)])
 def test_bn_channel_reduction_kernels(cuda, m, c, dtype):
@@ -815,10 +824,10 @@ def test_bn_kernels_refuse_what_they_do_not_take(cuda):
 
 @pytest.mark.parametrize("m,c", [(200704, 128), (12544, 2048)])
 def test_bn_train_through_the_kernels(cuda, monkeypatch, m, c):
-    """``bn_train`` in bf16 through both kernels against the same Function
-    with the plain reductions: y and dx (bf16 at the store) within
-    1e-2·max|plain|, mean, var, dscale and dbias (f32 sums in another order)
-    within 1e-4·max|plain|."""
+    """``bn_train`` in bf16 through its four kernels against the same
+    Function with the four steps' plain versions: y and dx (bf16 at the
+    store) within 1e-2·max|plain|, mean, var, dscale and dbias (f32 sums in
+    another order) within 1e-4·max|plain|."""
     gen = torch.Generator(cuda).manual_seed(c)
     x = (torch.randn(m, c, device=cuda, generator=gen) * 1.5 + 0.3).bfloat16()
     g = torch.randn(m, c, device=cuda, generator=gen).bfloat16()
@@ -831,17 +840,139 @@ def test_bn_train_through_the_kernels(cuda, monkeypatch, m, c):
         y.backward(g)
         return [y, mean, var] + [t.grad for t in leaves]
 
-    before = bsc.SUMS_KERNEL.launches, bsc.BWD_KERNEL.launches
+    before = _launches(BN_KERNELS)
     got = run()
     torch.cuda.synchronize()
-    assert (bsc.SUMS_KERNEL.launches, bsc.BWD_KERNEL.launches) == (before[0] + 1, before[1] + 1)
-    monkeypatch.setattr(bs, "channel_sums", bs.channel_sums_plain)
-    monkeypatch.setattr(bs, "bn_bwd_reduce", bs.bn_bwd_reduce_plain)
+    assert [a - b for a, b in zip(_launches(BN_KERNELS), before)] == [1] * 4
+    for name in BN_STEPS:
+        monkeypatch.setattr(bs, name, getattr(bs, f"{name}_plain"))
     ref = run()
+    assert _launches(BN_KERNELS) == [b + 1 for b in before]
     assert got[0].dtype == got[3].dtype == torch.bfloat16
     for name, a, b, tol in zip(("y", "mean", "var", "dx", "dscale", "dbias"), got, ref,
                                (1e-2, 1e-4, 1e-4, 1e-2, 1e-4, 1e-4)):
         _close(a, b, tol, f"bn_train {name} ({m}, {c})")
+
+
+def _bn_case(h, c, dtype, device, batch=8, seed=0):
+    gen = torch.Generator(device).manual_seed(seed + 17 * c + h)
+    m = batch * h * h
+    x = (torch.randn(m, c, device=device, generator=gen) * 1.5
+         + torch.randn(c, device=device, generator=gen)).to(dtype)
+    g = torch.randn(m, c, device=device, generator=gen).to(dtype)
+    scale = torch.rand(c, device=device, generator=gen)
+    bias = torch.randn(c, device=device, generator=gen) * 0.1
+    return x, g, scale, bias
+
+
+def _within_sums(got, terms, what):
+    err = (got.double() - terms.sum(0)).abs()
+    bound = 1e-5 * terms.abs().sum(0)
+    assert bool(torch.isfinite(got).all()) and bool((err <= bound).all()), \
+        (what, float((err / bound.clamp_min(1e-300)).max()) * 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,c", RESNET50_BN_SHAPES)
+def test_bn_four_launches_against_their_plain_versions(cuda, h, c, dtype):
+    """Each of bn_train's launches at ResNet-50's BatchNorm shapes, batch 8:
+    the two reductions' sums within 1e-5·Σ|terms| of f64 sums of the same
+    inputs, their finishes (mean, var, rstd; scale·rstd, Σg/n, Σg·x̂/n)
+    within 1e-5·max|plain| of the plain formulas on those sums; the
+    normalize (both output dtypes) and dx bit-equal to their plain versions
+    on the same per-channel vectors (the same separately rounded f32
+    operations in the same order)."""
+    x, g, scale, bias = _bn_case(h, c, dtype, cuda)
+    m = x.shape[0]
+    before = _launches(BN_KERNELS)
+    mean, var, rstd = bsc.bn_moments(x, 1e-5)
+    s, q = bsc.channel_sums(x)
+    ys = {d: bsc.bn_normalize(x, mean, rstd, scale, bias, d)
+          for d in (torch.bfloat16, torch.float32)}
+    terms = bsc.bn_bwd_terms(g, x, mean, rstd, scale)
+    sg, sgx, k, m1, m2 = terms
+    dx = bsc.bn_dx(g, x, mean, rstd, terms)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_launches(BN_KERNELS), before)] == [2, 2, 1, 1]
+    xd, gd = x.double(), g.double()
+    gxh = gd * ((xd - mean.double()) * rstd.double())
+    for name, got, exact in (("Σx", s, xd), ("Σx²", q, xd * xd), ("Σg", sg, gd),
+                             ("Σg·x̂", sgx, gxh)):
+        _within_sums(got, exact, f"{name} ({m}, {c}) {dtype}")
+    ref_var = torch.clamp_min(q / m - (s / m) * (s / m), 0.0)
+    for name, got, ref in (("mean", mean, s / m), ("var", var, ref_var),
+                           ("rstd", rstd, torch.rsqrt(ref_var + 1e-5)),
+                           ("scale·rstd", k, scale * rstd), ("Σg/n", m1, sg / m),
+                           ("Σg·x̂/n", m2, sgx / m)):
+        _close(got, ref, 1e-5, f"{name} ({m}, {c}) {dtype}")
+    for d, y in ys.items():
+        ref = bs.bn_normalize_plain(x, mean, rstd, scale, bias, d)
+        assert y.dtype == d and torch.equal(y, ref), \
+            (m, c, dtype, d, float((y.float() - ref.float()).abs().max()))
+    ref = bs.bn_dx_plain(g, x, mean, rstd, terms)
+    assert dx.dtype == dtype and torch.equal(dx, ref), \
+        (m, c, dtype, float((dx.float() - ref.float()).abs().max()))
+
+
+def test_bn_reductions_rerun_bit_equal_across_shapes(cuda):
+    """Repeated calls, and calls alternating between shapes of 1 and 8
+    channel tiles that share the stream's scratch, give the same bits."""
+    cases = [_bn_case(h, c, torch.bfloat16, cuda, seed=3)
+             for h, c in ((112, 64), (56, 256), (7, 2048))]
+
+    def run(case):
+        x, g, scale, _ = case
+        mean, var, rstd = bsc.bn_moments(x, 1e-5)
+        return [mean, var, rstd, *bsc.bn_bwd_terms(g, x, mean, rstd, scale)]
+
+    first = [run(case) for case in cases]
+    for _ in range(3):
+        for case, ref in zip(cases, first):
+            assert all(torch.equal(a, b) for a, b in zip(run(case), ref))
+        for case, ref in zip(reversed(cases), reversed(first)):
+            assert all(torch.equal(a, b) for a, b in zip(run(case), ref))
+
+
+def test_bn_train_under_checkpoint_is_bit_equal(cuda):
+    """bn_train inside ``torch.utils.checkpoint`` (as ``remat_stages`` runs
+    it): the forward's two launches twice, the backward's once, and y, dx,
+    dscale and dbias bit-equal to the run without recomputation."""
+    x, g, scale, bias = _bn_case(28, 512, torch.bfloat16, cuda, seed=5)
+
+    def fn(x, scale, bias):
+        return bs.bn_train(x, scale, bias, 1e-5, torch.bfloat16)[0]
+
+    outs = []
+    for remat in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+        before = _launches(BN_KERNELS)
+        y = (torch.utils.checkpoint.checkpoint(fn, *leaves, use_reentrant=False) if remat
+             else fn(*leaves))
+        y.backward(g)
+        torch.cuda.synchronize()
+        assert [a - b for a, b in zip(_launches(BN_KERNELS), before)] == \
+            ([2, 2, 1, 1] if remat else [1, 1, 1, 1])
+        outs.append([y.detach(), *(t.grad for t in leaves)])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+def test_bn_train_kernel_route_never_calls_a_plain_version(cuda, monkeypatch):
+    """With every plain version patched to raise, bn_train forward and
+    backward on the card runs through its four launches only."""
+    def refuse(*_a, **_k):
+        raise AssertionError("a plain version ran on the kernel route")
+
+    for name in ("channel_sums_plain", "bn_bwd_reduce_plain", "_dx_acc",
+                 *(f"{n}_plain" for n in BN_STEPS)):
+        monkeypatch.setattr(bs, name, refuse)
+    x, g, scale, bias = _bn_case(14, 1024, torch.bfloat16, cuda, seed=7)
+    leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+    before = _launches(BN_KERNELS)
+    y, mean, var = bs.bn_train(*leaves, 1e-5, torch.bfloat16)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_launches(BN_KERNELS), before)] == [1, 1, 1, 1]
+    assert all(bool(torch.isfinite(t.grad.float()).all()) for t in leaves)
 
 
 # Every block shape of SwinV2-T and SwinV2-B at 224 px, window 7: (grid, C,
@@ -1528,7 +1659,8 @@ def test_recomputation_is_bit_equal_on_the_card(cuda, case):
     twice a step under recomputation and each backward kernel once: on
     SwinV2 the fused forwards 8 and the backwards 4 (4 blocks); on the micro
     ResNet the sums kernel 9 + 8 (the 8 BatchNorms of its two recomputed
-    stages) and the reduce 9."""
+    stages) and the reduce 9, the normalize as the sums and dx as the
+    reduce."""
     from hvt_torch.models import resnet as tresnet
 
     if case.startswith("swin"):
@@ -1539,8 +1671,8 @@ def test_recomputation_is_bit_equal_on_the_card(cuda, case):
         models = [tresnet.resnet_micro_bottleneck(10, dtype="bfloat16", bn_pallas=True,
                                                   stochastic_depth_rate=0.5, seed=4,
                                                   remat_stages=r).to(cuda) for r in ((), (1, 2))]
-        kernels, size = (bsc.SUMS_KERNEL, bsc.BWD_KERNEL), 64
-        want = ([9, 9], [17, 9])
+        kernels, size = BN_KERNELS, 64
+        want = ([9, 9, 9, 9], [17, 17, 9, 9])
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
@@ -1562,18 +1694,18 @@ def test_recomputation_is_bit_equal_on_the_card(cuda, case):
 def test_bn_custom_launches_no_batch_norm_kernel(cuda):
     """``bn_custom`` (torch's reductions in the custom BatchNorm backward)
     against ``bn_pallas`` from the same weights and batch on the micro
-    ResNet: no BatchNorm kernel launch against 9 of each, every gradient at
+    ResNet: no BatchNorm kernel launch against 9 of each of the four, every gradient at
     cosine >= 0.99 and norm within 5%."""
     from hvt_torch.models import resnet as tresnet
 
     pallas = tresnet.resnet_micro_bottleneck(10, dtype="bfloat16", bn_pallas=True, seed=5).to(cuda)
     custom = tresnet.resnet_micro_bottleneck(10, dtype="bfloat16", bn_custom=True, seed=5).to(cuda)
-    kernels = (bsc.SUMS_KERNEL, bsc.BWD_KERNEL)
+    kernels = BN_KERNELS
     before = _launches(kernels)
     _, ref, _, _ = _gradients(pallas, cuda, size=64)
     middle = _launches(kernels)
     _, grads, _, _ = _gradients(custom, cuda, size=64)
-    assert [m - b for m, b in zip(middle, before)] == [9, 9]
+    assert [m - b for m, b in zip(middle, before)] == [9, 9, 9, 9]
     assert _launches(kernels) == middle
     _cosines(grads, ref, 0.99, 0.05)
 
