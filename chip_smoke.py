@@ -259,6 +259,24 @@ Phases, in order; any failure exits non-zero and prints no result:
      seeded weights on 2,048 + 512 synthetic images (12 forward launches a
      feature batch), and 256 images' 1,536-d features against the plain
      path. The three kernels close the JSON line.
+ 19. ConvNeXt, RegNet-Y and EfficientNet, which launch no kernel of the
+     repository (every counter read 0 after each sub-phase): (a)
+     convnext_tiny, regnety_040 and efficientnet_b0 at full width, batch 8,
+     224 px, seeded weights drawn away from init, in f32: the card against
+     the same model on the CPU (eval and train-mode logits within
+     1e-3·max|logit|, running statistics within 1e-4 of their max, one
+     step's gradients each at cosine >= 0.999); (b) convnext_tiny.yaml and
+     regnety_040.yaml at their 2,048 with grad_accum auto, 3 steps on one
+     synthetic batch without warmup (the loss must fall), evaluated on
+     2,048 images before and after: the resolved accumulation, peak memory,
+     step ms, img/s and each evaluation's wall time; (c) EfficientNet-B0 on
+     inat21.yaml's recipe at 256 for 4 steps (drop connect and dropout 0.2);
+     (d) ConvNeXt-T and RegNetY-4.0GF at 64 with remat against none,
+     gradients and running statistics bit-equal; (e) ConvNeXt-T served over
+     HTTP at 64 (phase 4's helper); (f) ConvNeXt-T's depthwise 7x7 and
+     RegNetY's grouped 3x3 convs alone at each stage at 1,024 in bf16,
+     channels-last and NCHW, forward and forward + backward ms beside the
+     forward's bound.
 Every Trainer writes its checkpoints and run log under a temporary
 ``machine.save_root``, emptied at the end of each run or phase and removed
 at exit; the Trainers' own lines (the RunLogger's config and records) go to
@@ -495,6 +513,7 @@ MLP_SUB_KERNELS = ((("mlp_bwd_fc1", "fc1"), ("mlp_bwd_fc2", "fc2"),
 # Phase 7, one training step on the kernel path against the plain path.
 LOSS_RTOL = 1e-2
 GRAD_COSINE = 0.99
+ZERO_GRAD_TOL = 1e-5  # a gradient 0 in exact arithmetic, of the largest gradient
 GRAD_NORM_RTOL = 0.05
 # Phases 8 and 9: ResNet-50 at bench.py's batch per chip. Each BatchNorm input
 # shape at 224 px as (H = W, channels, BatchNorm layers of that shape).
@@ -1847,13 +1866,14 @@ def serve_route(fuse: bool) -> dict:
                                         {k: 12 for k in route_kernels})}
 
 
-def serve_model(config, label: str, per_forward: dict) -> dict:
+def serve_model(config, label: str, per_forward: dict, draw=None) -> dict:
     """Drive a model's serving path through the entry points a user calls:
     InferenceEngine + make_server, HTTP requests, with every launch counter
     set to 0 just before and read just after (each kernel of
     ``per_forward`` launches that many times a forward, no other kernel);
     the whole model's logits held against the plain path; forward ms, the
-    engine's img/s."""
+    engine's img/s. ``draw(model, seed)`` draws the weights (``randomize_``
+    by default)."""
     import numpy as np
     import torch
 
@@ -1866,7 +1886,7 @@ def serve_model(config, label: str, per_forward: dict) -> dict:
     t0 = time.perf_counter()
     engine = serve_lib.InferenceEngine(config, batch=BATCH, topk=5)
     setup_s = time.perf_counter() - t0
-    randomize_(engine.model, seed=7)
+    (draw or randomize_)(engine.model, seed=7)
     server = serve_lib.make_server(engine, "127.0.0.1", 0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -2297,12 +2317,23 @@ def gradient_check(config, label: str, randomize: bool = True, hold_gradients: b
 
 
 def compare_gradients(grads: dict, ref: dict, label: str, cosine: float,
-                      norm_rtol: float = GRAD_NORM_RTOL) -> dict:
+                      norm_rtol: float = GRAD_NORM_RTOL, zero=()) -> dict:
     """Each tensor's cosine and norm ratio against ``ref``; raises where a
     cosine falls below ``cosine`` or a norm ratio strays past ``norm_rtol``
-    (-1 and inf record without holding)."""
+    (-1 and inf record without holding). The tensors named in ``zero``,
+    whose gradient is 0 in exact arithmetic, are rounding noise on both
+    sides: each must stay within ZERO_GRAD_TOL of the largest gradient."""
+    noise = 0.0
+    if zero:
+        top = max(float(r.abs().max()) for r in ref.values())
+        noise = max(float(t[n].abs().max()) / top for n in zero for t in (grads, ref))
+    if noise > ZERO_GRAD_TOL:
+        raise AssertionError(f"{label}: a gradient that is 0 in exact arithmetic reaches "
+                             f"{noise:.3g} of the largest")
     rows = []
     for name, g in grads.items():
+        if name in zero:
+            continue
         r = ref[name]
         cos = float((g * r).sum() / (g.norm() * r.norm()).clamp_min(1e-30))
         rows.append((cos, float(g.norm() / r.norm().clamp_min(1e-30)), name))
@@ -2314,7 +2345,8 @@ def compare_gradients(grads: dict, ref: dict, label: str, cosine: float,
     if bad:
         raise AssertionError(f"{label}: gradients disagree: {bad[:5]}")
     return {"tensors": len(rows), "worst_cosine": worst[0], "worst_cosine_tensor": worst[2],
-            "worst_norm_ratio": worst_norm[1], "worst_norm_tensor": worst_norm[2]}
+            "worst_norm_ratio": worst_norm[1], "worst_norm_tensor": worst_norm[2],
+            "zero_tensors": len(zero), "zero_noise": noise}
 
 
 def profile_train_step(config, names: dict) -> dict:
@@ -4351,7 +4383,7 @@ def full_run(config, per_pass: dict, label: str, eval_per_forward: dict, sam_ste
     from hvt_torch import main as main_lib
 
     counters = kernel_counters()
-    rows, losses, trainers, evals = [], [], [], []
+    rows, losses, trainers, evals, eval_s = [], [], [], [], []
 
     class RecordingTrainer(main_lib.Trainer):
         def __init__(self, *args, **kwargs):
@@ -4377,7 +4409,12 @@ def full_run(config, per_pass: dict, label: str, eval_per_forward: dict, sam_ste
 
         def _evaluate_at(self, step):
             evals.append(step)
-            return super()._evaluate_at(step)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            metrics = super()._evaluate_at(step)
+            torch.cuda.synchronize()
+            eval_s.append(time.perf_counter() - t)
+            return metrics
 
     steps = int(config.max_duration.removesuffix("ba"))
     batch = config.train_dataset.global_batch_size
@@ -4428,7 +4465,7 @@ def full_run(config, per_pass: dict, label: str, eval_per_forward: dict, sam_ste
     return {"label": label, "batch": batch, "grad_accum": accum, "steps": steps,
             "sam_steps": list(sam_steps), "losses": losses, "step_rows": step_rows,
             "launches": launches, "eval_batches": eval_batches, "peak_memory_gib": peak_gib,
-            "wall_s": wall_s, "metrics": metrics}, trainer
+            "wall_s": wall_s, "eval_s": eval_s, "metrics": metrics}, trainer
 
 
 def step_gradients(model, config, batch: int, accum: int = 1, sam_rho=None, seed: int = 17):
@@ -4986,21 +5023,28 @@ def flash_times(b: int, h: int, n: int) -> dict:
     return rec
 
 
-def vit_config(use_flash: bool, **layer):
-    """configs/pretrain/vit_b16.yaml at its batch of 2,048 with grad_accum
-    auto (full_config), ``use_flash`` on or off, for VIT_STEPS steps on one
-    synthetic batch seen at every step, with no warmup, so that the loss
-    falls over three steps (the config's lr, cosine decay, smoothing, clip
-    and drop path as written)."""
-    config = full_config(["pretrain/vit_b16.yaml"], VIT_STEPS,
-                         model={"args": {"use_flash": use_flash}},
-                         scheduler={"args": {"t_warmup": "0ba"}})
-    batch = layer.get("train_dataset", {}).get("global_batch_size",
-                                               config.train_dataset.global_batch_size)
-    change = {"train_dataset": {"synthetic_num_samples": batch}}
-    for key, value in layer.items():
-        change[key] = {**change.get(key, {}), **value}
-    return with_changes(config, **change)
+def one_batch_config(exps, steps: int, batch: int | None = None,
+                     eval_images: int = FULL_EVAL_IMAGES, **layer):
+    """``exps`` at their batch (or ``batch``) with grad_accum auto
+    (full_config) for ``steps`` steps on one synthetic batch seen at every
+    step, with no warmup, so that the loss falls over the steps; evaluated
+    on ``eval_images`` synthetic images in one batch before the first step
+    and after the last; ``layer`` merged last."""
+    config = full_config(exps, steps, scheduler={"args": {"t_warmup": "0ba"}},
+                         eval_dataset={"synthetic_num_samples": eval_images,
+                                       "global_batch_size": eval_images})
+    batch = batch or config.train_dataset.global_batch_size
+    return with_changes(config, train_dataset={"global_batch_size": batch,
+                                               "synthetic_num_samples": batch}, **layer)
+
+
+def vit_config(use_flash: bool, batch: int | None = None):
+    """configs/pretrain/vit_b16.yaml at its batch of 2,048 (or ``batch``)
+    with grad_accum auto, ``use_flash`` on or off, for VIT_STEPS steps on one
+    synthetic batch with no warmup (``one_batch_config``: the config's lr,
+    cosine decay, smoothing, clip and drop path as written)."""
+    return one_batch_config(["pretrain/vit_b16.yaml"], VIT_STEPS, batch,
+                            model={"args": {"use_flash": use_flash}})
 
 
 def dinov2_feature_runs(card: str) -> dict:
@@ -5127,11 +5171,316 @@ def vit_phase(card: str) -> dict:
         torch.cuda.empty_cache()
         if use_flash:  # the dense route runs no kernel: its plain path is itself
             rec["gradient_check"] = gradient_check(
-                vit_config(True, train_dataset={"global_batch_size": VIT_CHECK_BATCH},
-                           model={"args": {"drop_path_rate": 0.0}}),
+                with_changes(vit_config(True, VIT_CHECK_BATCH),
+                             model={"args": {"drop_path_rate": 0.0}}),
                 f"{label} batch {VIT_CHECK_BATCH}", randomize=False)
         out["train"][label] = rec
     out["features"] = dinov2_feature_runs(card)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: ConvNeXt, RegNet-Y and EfficientNet (no kernel of the repository)
+# ---------------------------------------------------------------------------
+
+FAMILY_CHECK_BATCH = 8  # (a)
+FAMILY_LOGIT_TOL = 1e-3  # (a): the card against the CPU, of max|logit|
+FAMILY_STATS_TOL = 1e-4  # (a): each running statistic, of its max|CPU value|
+FAMILY_COSINE = 0.999  # (a): each gradient tensor
+FAMILY_STEPS = 3  # (b)
+FAMILY_EVAL_IMAGES = 2048  # (b): one eval batch at the configs' eval batch
+FAMILY_CONFIGS = {"convnext_tiny": "pretrain/convnext_tiny.yaml",
+                  "regnety_040": "pretrain/regnety_040.yaml"}
+EFFNET_BATCH = 256  # (c)
+EFFNET_STEPS = 4
+FAMILY_REMAT_BATCH = 64  # (d)
+FAMILY_CONV_BATCH = 1024  # (f): the microbatch `auto` gives both configs at 2,048
+# (f): (label, side, channels, group width, kernel) of a stride-1 conv at each stage
+FAMILY_CONVS = (*(("convnext_tiny dwconv 7x7", hw, c, 1, 7)
+                  for hw, c in ((56, 96), (28, 192), (14, 384), (7, 768))),
+                *(("regnety_040 grouped 3x3", hw, c, 64, 3)
+                  for hw, c in ((56, 128), (28, 192), (14, 512), (7, 1088))))
+
+
+def randomize_family_(model, seed: int) -> None:
+    """Every parameter and running statistic of a ConvNeXt, RegNet-Y or
+    EfficientNet drawn from a seeded generator, away from init (ConvNeXt's
+    gamma is 1e-6 there): norm scales and gamma U(0.5, 1.5), norm biases
+    N(0, 0.1²), running means N(0, 0.1²) and variances U(0.5, 1.5), conv and
+    Dense weights N(0, 1/fan_in), their biases N(0, 0.1²)."""
+    import torch
+    import torch.nn as nn
+
+    from hvt_torch.models.common import _BatchNormBase
+    from hvt_torch.models.convnext import ConvNeXtBlock
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def normal(t, std):
+        t.copy_(std * torch.randn(t.shape, generator=gen))
+
+    def uniform(t):
+        t.copy_(0.5 + torch.rand(t.shape, generator=gen))
+
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, (nn.LayerNorm, _BatchNormBase)):
+                uniform(module.weight)
+                normal(module.bias, 0.1)
+                if isinstance(module, _BatchNormBase):
+                    normal(module.running_mean, 0.1)
+                    uniform(module.running_var)
+            elif isinstance(module, (nn.Linear, nn.Conv2d)):
+                normal(module.weight, module.weight[0].numel() ** -0.5)
+                if module.bias is not None:
+                    normal(module.bias, 0.1)
+            elif isinstance(module, ConvNeXtBlock):
+                uniform(module.gamma)
+
+
+def family_card_checks(card: str) -> dict:
+    """(a) Each family at full width, seeded weights drawn away from init,
+    in f32 with TF32 off, batch FAMILY_CHECK_BATCH at 224 px: the card
+    against the same model on the CPU (eval and train-mode logits, the
+    running statistics after the train forward, one step's gradients of the
+    cross-entropy), drop rates 0 (the two devices' generators draw apart),
+    cuDNN deterministic. For RegNet-Y and EfficientNet, whose every layer
+    computes in the input's dtype (ConvNeXt's LayerNorms run in f32), also
+    f32's own floor, recorded: the worst cosine of the CPU's f32 gradients
+    against the same model's in f64."""
+    import copy
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from hvt_torch.models import convnext, efficientnet, regnet
+
+    counters = kernel_counters()
+    rng = np.random.default_rng(19)
+    x = torch.from_numpy(rng.normal(size=(FAMILY_CHECK_BATCH, 224, 224, 3)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, CLASSES, FAMILY_CHECK_BATCH))
+    out = {}
+    for name, build in (("convnext_tiny", convnext.convnext_tiny), ("regnety_040", regnet.regnety_040),
+                        ("efficientnet_b0", lambda *a, **k: efficientnet.EfficientNet(
+                            *a, drop_connect_rate=0.0, dropout_rate=0.0, **k))):  # B0's geometry
+        cpu = build(CLASSES, dtype=torch.float32, seed=19)
+        randomize_family_(cpu, seed=19)
+        card_model = copy.deepcopy(cpu).cuda()
+        f64 = None
+        if name != "convnext_tiny":
+            f64 = copy.deepcopy(cpu).double()
+            f64.dtype = torch.float64
+        runs = {}
+        for where, model in (("cpu", cpu), ("card", card_model)):
+            device = next(model.parameters()).device
+            if where == "card":
+                torch.cuda.synchronize()
+                for c in counters.values():
+                    c.launches = 0
+            t0 = time.perf_counter()
+            with deterministic():
+                with torch.no_grad():
+                    eval_logits = model.eval()(x.to(device))
+                train_logits = model.train()(x.to(device))
+                F.cross_entropy(train_logits, labels.to(device)).backward()
+            if where == "card":
+                torch.cuda.synchronize()
+                expect_launches({k: c.launches for k, c in counters.items()}, {}, f"(a) {name}")
+            runs[where] = {"eval": eval_logits.cpu(), "train": train_logits.detach().cpu(),
+                           "buffers": {n: b.cpu() for n, b in model.named_buffers()},
+                           "grads": {n: p.grad.cpu() for n, p in model.named_parameters()},
+                           "s": time.perf_counter() - t0}
+        ref, got = runs["cpu"], runs["card"]
+        rec = {"cpu_s": ref["s"], "card_s": got["s"]}
+        for key in ("eval", "train"):
+            err, scale = float((got[key] - ref[key]).abs().max()), float(ref[key].abs().max())
+            rec[f"{key}_logits_err"], rec[f"{key}_logits_max"] = err, scale
+            if not (bool(torch.isfinite(got[key]).all()) and err <= FAMILY_LOGIT_TOL * scale):
+                raise AssertionError(f"(a) {name} {key} logits: card against CPU max|Δ| {err} "
+                                     f"> {FAMILY_LOGIT_TOL}·{scale}")
+        stats = [(float((t - ref["buffers"][n]).abs().max())
+                  / max(float(ref["buffers"][n].abs().max()), 1e-30), n)
+                 for n, t in got["buffers"].items()]
+        rec["buffers"], rec["worst_buffer"] = len(stats), max(stats, default=(0.0, None))
+        if rec["worst_buffer"][0] > FAMILY_STATS_TOL:
+            raise AssertionError(f"(a) {name}: running statistic {rec['worst_buffer'][1]} off by "
+                                 f"{rec['worst_buffer'][0]:.3g} of its max, > {FAMILY_STATS_TOL}")
+        # EfficientNet's projection BatchNorm biases: each shift reaches a 1×1 conv and
+        # the train-mode BatchNorm after it, whose mean removes it, so the gradient is 0
+        zero = [n for n in ref["grads"] if n.endswith("project_bn.bias")]
+        rec["gradients"] = compare_gradients(got["grads"], ref["grads"], f"(a) {name}",
+                                             FAMILY_COSINE, zero=zero)
+        floor = ""
+        if f64 is not None:
+            F.cross_entropy(f64.train()(x.double()), labels).backward()
+            exact = {n: p.grad for n, p in f64.named_parameters()}
+            rec["f32_floor"] = min(
+                (float((g.double() * exact[n]).sum() / (g.double().norm() * exact[n].norm())), n)
+                for n, g in ref["grads"].items() if n not in zero)
+            floor = (f" (f32's floor on the CPU, f32 against f64: {rec['f32_floor'][0]:.7f}, "
+                     f"{rec['f32_floor'][1]})")
+        log(f"  (a) {name}, f32, batch {FAMILY_CHECK_BATCH}: card against CPU, logits max|Δ| "
+            f"eval {rec['eval_logits_err']:.3g} (of {rec['eval_logits_max']:.3g}), train "
+            f"{rec['train_logits_err']:.3g} (of {rec['train_logits_max']:.3g}); {len(stats)} "
+            f"running statistics, worst {rec['worst_buffer'][0]:.3g} of its max; worst gradient "
+            f"cosine {rec['gradients']['worst_cosine']:.7f}{floor} ({len(zero)} gradients 0 in exact "
+            f"arithmetic within {rec['gradients']['zero_noise']:.3g} of the largest); no kernel "
+            f"launched; CPU "
+            f"{ref['s']:.1f} s, card {got['s']:.2f} s")
+        out[name] = rec
+        del cpu, card_model, f64, runs, ref, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def family_runs(card: str) -> dict:
+    """(b) convnext_tiny.yaml and regnety_040.yaml at their 2,048, (c)
+    EfficientNet-B0 on inat21.yaml's recipe at EFFNET_BATCH, through
+    ``hvt_torch.main.main`` (full_run: no kernel may launch)."""
+    import torch
+
+    out = {}
+    runs = [(f"(b) {name}", name, one_batch_config([exps], FAMILY_STEPS,
+                                                eval_images=FAMILY_EVAL_IMAGES), True)
+            for name, exps in FAMILY_CONFIGS.items()]
+    runs.append(("(c) efficientnet_b0", "efficientnet_b0",
+                 one_batch_config(["pretrain/inat21.yaml"], EFFNET_STEPS, EFFNET_BATCH,
+                               model={"name": "efficientnet_b0"}), False))
+    for tag, name, config, must_fall in runs:
+        log(f"  {tag}: {config.train_dataset.global_batch_size} images a step, grad_accum auto, "
+            f"{len(config.algorithms)} algorithms ({', '.join(a.cls for a in config.algorithms)}), "
+            f"{config.max_duration}")
+        rec, trainer = full_run(config, {}, name, {})
+        rows = rec["step_rows"]
+        fell = rec["losses"][-1] < rec["losses"][0]
+        step_ms = ", ".join("%.1f" % r["ms"] for r in rows)
+        rates = ", ".join("%.0f" % r["images_per_s"] for r in rows)
+        losses = " → ".join("%.4f" % v for v in rec["losses"])
+        evals = ", ".join("%.2f" % v for v in rec["eval_s"])
+        log(f"    {name}: grad_accum {rec['grad_accum']}, peak {rec['peak_memory_gib']:.2f} GiB, "
+            f"steps {step_ms} ms ({rates} img/s), loss {losses} "
+            f"({'falls' if fell else 'does not fall'}); evaluations of "
+            f"{config.eval_dataset.global_batch_size} images {evals} s, on {card}")
+        if must_fall and not fell:
+            raise AssertionError(f"{tag}: the loss did not fall: {rec['losses']}")
+        rec["loss_fell"] = fell
+        out[name] = rec
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def family_remat_checks() -> dict:
+    """(d) ConvNeXt-T and RegNetY-4.0GF at FAMILY_REMAT_BATCH from their
+    configs, seeded weights drawn away from init, with ``remat: true``
+    against false: the same weights, batch and generator under deterministic
+    settings give bit-equal gradients, running statistics, loss and
+    generator state; peak memory of each."""
+    import torch
+
+    from hvt_torch.models import build_model
+
+    out = {}
+    for name, exps in FAMILY_CONFIGS.items():
+        config = one_batch_config([exps], 1, FAMILY_REMAT_BATCH)
+        model = build_model(config, CLASSES).cuda()
+        randomize_family_(model, seed=23)
+        twin = build_model(with_changes(config, model={"args": {"remat": True}}), CLASSES).cuda()
+        twin.load_state_dict(model.state_dict())
+        peaks, results = [], []
+        with deterministic():
+            for m in (model, twin):
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                results.append(step_gradients(m, config, FAMILY_REMAT_BATCH))
+                peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        (loss, g, buf, n, state), (rloss, rg, rbuf, rn, rstate) = results
+        expect_launches(n, {}, f"(d) {name}")
+        expect_launches(rn, {}, f"(d) {name} remat")
+        bit_equal_states(rg, g, f"(d) {name} gradients with remat")
+        bit_equal_states(rbuf, buf, f"(d) {name} running statistics with remat")
+        if rloss != loss or not torch.equal(rstate, state):
+            raise AssertionError(f"(d) {name}: loss {rloss} vs {loss}, or the generator moved apart")
+        log(f"  (d) {name} at {FAMILY_REMAT_BATCH}, remat against none: loss {loss:.6f} both; "
+            f"{len(g)} gradients and {len(buf)} buffers bit-equal; no kernel launched; peak "
+            f"{peaks[1]:.2f} GiB with, {peaks[0]:.2f} GiB without")
+        out[name] = {"loss": loss, "peak_gib_remat": peaks[1], "peak_gib": peaks[0]}
+        del model, twin, results, g, rg
+        torch.cuda.empty_cache()
+    return out
+
+
+def family_conv_times(card: str) -> list:
+    """(f) The convolutions cuDNN runs for the families, alone, in bf16 at
+    FAMILY_CONV_BATCH: each FAMILY_CONVS case's forward and its forward plus
+    backward (dx and dw), on the channels-last layout the models use and on
+    contiguous NCHW, beside the forward's bound (input and output read and
+    written once, 2·MACs at the bf16 peak)."""
+    import torch
+    import torch.nn.functional as F
+
+    rows = []
+    for label, hw, c, group_width, k in FAMILY_CONVS:
+        groups = c // group_width
+        gen = torch.Generator(device="cuda").manual_seed(hw)
+        nhwc = torch.randn(FAMILY_CONV_BATCH, hw, hw, c, device="cuda", generator=gen,
+                           dtype=torch.bfloat16)
+        weight = torch.randn(c, group_width, k, k, device="cuda", generator=gen,
+                             dtype=torch.bfloat16) * group_width ** -0.5
+        dy = torch.randn_like(nhwc)
+        rec = {"label": label, "shape": [FAMILY_CONV_BATCH, hw, hw, c], "groups": groups}
+        for layout, x, w, g in (
+                ("channels_last", nhwc.permute(0, 3, 1, 2),
+                 weight.contiguous(memory_format=torch.channels_last), dy.permute(0, 3, 1, 2)),
+                ("nchw", nhwc.permute(0, 3, 1, 2).contiguous(), weight, dy.permute(0, 3, 1, 2).contiguous())):
+            xg, wg = x.detach().requires_grad_(), w.detach().requires_grad_()
+
+            def step():
+                torch.autograd.grad(F.conv2d(xg, wg, None, 1, k // 2, 1, groups), (xg, wg), g)
+
+            with torch.no_grad():
+                rec[f"{layout}_fwd_ms"] = cuda_time_ms(
+                    lambda: F.conv2d(x, w, None, 1, k // 2, 1, groups), iters=10)
+            rec[f"{layout}_step_ms"] = cuda_time_ms(step, iters=5)
+            del xg, wg
+        macs = nhwc.numel() * group_width * k * k
+        rec["fwd_bound_ms"] = 1e3 * max(2 * nhwc.numel() * 2 / H100_BYTES_PER_S,
+                                        2 * macs / H100_BF16_FLOPS)
+        log(f"  (f) {label} at {FAMILY_CONV_BATCH}x{hw}x{hw}x{c} ({groups} groups), bf16: forward "
+            f"{rec['channels_last_fwd_ms']:.3f} ms channels-last, {rec['nchw_fwd_ms']:.3f} NCHW "
+            f"(bound {rec['fwd_bound_ms']:.3f}); forward + dx + dw "
+            f"{rec['channels_last_step_ms']:.3f} / {rec['nchw_step_ms']:.3f} ms, on {card}")
+        rows.append(rec)
+        del nhwc, weight, dy
+    torch.cuda.empty_cache()
+    return rows
+
+
+def families_phase(card: str) -> dict:
+    """Phase 19: ConvNeXt, RegNet-Y and EfficientNet, which launch no kernel
+    of the repository: (a) the card against the CPU, (b) the two configs at
+    2,048, (c) EfficientNet-B0, (d) recomputation, (e) HTTP serving, (f) the
+    depthwise and grouped convolutions alone."""
+    out = {"card_vs_cpu": family_card_checks(card)}
+    out["train"] = family_runs(card)
+    out["remat"] = family_remat_checks()
+    from hvt_torch import config as config_lib
+
+    base = config_lib.load(machine=str(ROOT / "configs/machines/local.yaml"),
+                           exps=[str(ROOT / "configs" / FAMILY_CONFIGS["convnext_tiny"])])
+    config = config_lib.loads(config_lib.to_dict(base), {
+        "eval_dataset": {"source": "synthetic", "synthetic_num_classes": CLASSES,
+                         "synthetic_num_samples": BATCH, "global_batch_size": BATCH}})
+    out["serve"] = rec = serve_model(config, "(e) convnext_tiny served", {},
+                                     draw=randomize_family_)
+    log(f"  (e) convnext_tiny over HTTP at {BATCH}: {rec['http_images_per_s']:.1f} img/s with "
+        f"{rec['http_clients']} clients, p50 {rec['http_latency_ms_p50']:.1f} ms, p90 "
+        f"{rec['http_latency_ms_p90']:.1f} ms; engine step {rec['step_images_per_s']:.0f} img/s, "
+        f"forward {rec['forward_ms']:.2f} ms, on {card}")
+    out["convs"] = family_conv_times(card)
     return out
 
 
@@ -5674,8 +6023,17 @@ def main(argv=None) -> int:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
         })
 
+    log(f"[19] ConvNeXt, RegNet-Y and EfficientNet (no kernel of the repository): the card "
+        f"against the CPU in f32; convnext_tiny.yaml and regnety_040.yaml at 2,048 with "
+        f"grad_accum auto; EfficientNet-B0 on inat21.yaml's recipe at {EFFNET_BATCH}; "
+        f"recomputation; HTTP serving of ConvNeXt-T ({CLASSES} classes, synthetic source)")
+    t19 = time.perf_counter()
+    families = families_phase(card)
+    families["wall_s"] = time.perf_counter() - t19
+    log(f"  phase 19 took {families['wall_s']:.1f} s")
+
     report = {"card": card, "host": host, "folders": folders, "downstream": downstream,
-              "rest_of_training": rest, "vit": vit,
+              "rest_of_training": rest, "vit": vit, "families": families,
               "batch": BATCH, "kernels": kernels,
               "routes": routes,
               "evaluation": evaluation, "checkpoints": checkpoints,

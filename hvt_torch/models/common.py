@@ -1,6 +1,7 @@
-"""Shared model pieces — port of ``hvt/models/common.py``: flax's Dense and
-LayerNorm arithmetic, the transformer MLP, stochastic depth, the BatchNorm
-modules of the conv models, and recomputation.
+"""Shared model pieces — port of ``hvt/models/common.py``: flax's Dense,
+Conv and LayerNorm arithmetic, its ``lecun_normal``, the transformer MLP,
+squeeze-excite, stochastic depth, the BatchNorm modules of the conv models,
+and recomputation.
 
 Every BatchNorm takes an NHWC activation, holds ``weight``/``bias``
 parameters (flax's ``scale``/``bias``) and ``running_mean``/``running_var``
@@ -8,9 +9,11 @@ buffers (flax's ``batch_stats`` ``mean``/``var``), and keeps flax
 ``nn.BatchNorm``'s semantics rather than torch's:
 
 * training normalises with the biased batch moments in f32 and updates
-  ra ← 0.9·ra + 0.1·batch with the *biased* variance (``torch.nn.BatchNorm2d``
-  would use the unbiased one and call 0.1 its momentum), eps 1e-5, output in
-  the input's dtype;
+  ra ← m·ra + (1 − m)·batch with the *biased* variance (``torch.nn.BatchNorm2d``
+  would use the unbiased one and call 1 − m its momentum), output in the
+  input's dtype; flax's momentum m and eps are constructor arguments, 0.9
+  and 1e-5 by default (ResNet's and RegNet's; EfficientNet's are 0.99 and
+  1e-3);
 * eval computes (x − ra_mean)·rsqrt(ra_var + eps)·scale + bias.
 
 The four training routes, which ResNet's knobs pick as hvt's
@@ -39,6 +42,39 @@ from hvt_torch.ops import bn_stats
 def trunc02_(w: torch.Tensor, gen: torch.Generator) -> None:
     """hvt's ``trunc02`` initialiser, drawn from ``gen``."""
     nn.init.trunc_normal_(w, std=0.02, a=-0.04, b=0.04, generator=gen)
+
+
+def lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> None:
+    """flax's ``lecun_normal``: variance_scaling(1, fan_in, "truncated_normal"),
+    a normal truncated at two standard deviations with its std corrected to
+    sqrt(1 / fan-in) after the cut, drawn from ``gen``."""
+    std = (1.0 / w[0].numel()) ** 0.5 / 0.87962566103423978
+    nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=gen)
+
+
+def channels_last_(conv: nn.Conv2d) -> nn.Conv2d:
+    """``conv``'s weight in channels-last memory (cuDNN's NHWC kernels)."""
+    conv.weight.data = conv.weight.data.contiguous(memory_format=torch.channels_last)
+    return conv
+
+
+def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """flax ``Conv(dtype=d)`` on an NHWC tensor: ``F.conv2d`` on its
+    channels-last NCHW view with the kernel (and bias) cast to x's dtype,
+    at the layer's stride, padding and groups; returns NHWC."""
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype), bias, conv.stride, conv.padding,
+                 1, conv.groups)
+    return y.permute(0, 2, 3, 1)
+
+
+def se_gate(reduce: nn.Conv2d, expand: nn.Conv2d, h: torch.Tensor, act) -> torch.Tensor:
+    """Squeeze-excite of an NHWC ``h`` (RegNet-Y's and EfficientNet's): the
+    spatial mean through the two 1×1 convs (``act`` between them), a sigmoid
+    gate on ``h``, all in h's dtype."""
+    s = conv_nhwc(reduce, h.mean(dim=(1, 2), keepdim=True))
+    s = conv_nhwc(expand, act(s))
+    return h * torch.sigmoid(s)
 
 
 def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -90,11 +126,10 @@ def drop_path(x: torch.Tensor, rate: float, training: bool,
 
 
 class _BatchNormBase(nn.Module):
-    momentum = 0.9  # flax's: ra ← momentum·ra + (1 − momentum)·batch
-
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum  # flax's: ra ← momentum·ra + (1 − momentum)·batch
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -173,8 +208,8 @@ class GroupedBatchNorm(_BatchNormBase):
     do. torch's autograd differentiates it; no kernel of this repository
     runs."""
 
-    def __init__(self, channels: int, groups: int, eps: float = 1e-5):
-        super().__init__(channels, eps)
+    def __init__(self, channels: int, groups: int, eps: float = 1e-5, momentum: float = 0.9):
+        super().__init__(channels, eps, momentum)
         self.groups = int(groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Weights carried across: hvt's flax SwinV2, ResNet, ViT and DINOv2 trees → the port's models.
+"""Weights carried across: hvt's flax SwinV2, ResNet, ViT, DINOv2, ConvNeXt,
+RegNet-Y and EfficientNet trees → the port's models.
 
 The one place where the two layouts differ. A flax ``Dense`` kernel is
 (in, out) and an ``nn.Linear`` weight (out, in); a flax ``Conv`` kernel is
@@ -13,7 +14,13 @@ materialises the identical tree. ViT's and DINOv2's trees (one converter for
 both) keep their names; the patch embedding's HWIO kernel becomes the
 port's (D, C, p, p) weight, and ``cls_token``, ``pos_embed`` and DINOv2's
 ``ls1``/``ls2`` keep their layouts. The same tree serves both attention
-routes.
+routes. ConvNeXt's, RegNet-Y's and EfficientNet's port modules carry the
+flax names, so one walk of the tree serves the three
+(:func:`convnet_state_dict_from_flax`): a 4-D ``kernel`` is a conv (a
+depthwise (k, k, 1, C) lands as (C, 1, k, k), a grouped (3, 3, I/g, O) as
+(O, I/g, 3, 3)), a 2-D one a Dense, ``scale`` a norm, a bare array (ConvNeXt's
+``gamma``) keeps its name and layout, and ``batch_stats`` give the running
+statistics.
 """
 
 from __future__ import annotations
@@ -149,6 +156,39 @@ def vit_state_dict_from_flax(tree: Mapping) -> dict[str, np.ndarray]:
     return out
 
 
+def convnet_state_dict_from_flax(params: Mapping, batch_stats: Mapping | None = None
+                                 ) -> dict[str, np.ndarray]:
+    """Flax ConvNeXt, RegNet-Y or EfficientNet params (with or without the
+    top ``params`` level) and, when given, ``batch_stats`` → the port's
+    state-dict entries."""
+    if "params" in params:
+        params = params["params"]
+    out: dict[str, np.ndarray] = {}
+
+    def walk(tree, prefix: str) -> None:
+        for key, sub in tree.items():
+            name = f"{prefix}{key}"
+            if not isinstance(sub, Mapping):
+                out[name] = np.asarray(sub)
+            elif "kernel" in sub:
+                kernel = np.asarray(sub["kernel"])
+                out[f"{name}.weight"] = _hwio(kernel) if kernel.ndim == 4 else kernel.T
+                if "bias" in sub:
+                    out[f"{name}.bias"] = np.asarray(sub["bias"])
+            elif "scale" in sub:
+                _norm(sub, name, out)
+            elif "mean" in sub:
+                out[f"{name}.running_mean"] = np.asarray(sub["mean"])
+                out[f"{name}.running_var"] = np.asarray(sub["var"])
+            else:
+                walk(sub, f"{name}.")
+
+    walk(params, "")
+    if batch_stats:
+        walk(batch_stats, "")
+    return out
+
+
 def _load(model: torch.nn.Module, state: dict[str, np.ndarray]) -> torch.nn.Module:
     ref = model.state_dict()
     tensors = {}
@@ -181,3 +221,12 @@ def vit_params_from_flax(model: torch.nn.Module, tree: Mapping) -> torch.nn.Modu
     ``VisionTransformer`` or ``Dinov2`` (every parameter must match in name
     and shape). Returns the model."""
     return _load(model, vit_state_dict_from_flax(tree))
+
+
+def convnet_params_from_flax(model: torch.nn.Module, variables: Mapping) -> torch.nn.Module:
+    """Load flax ConvNeXt, RegNet-Y or EfficientNet ``variables``
+    ({"params": ..., and for the two with BatchNorm "batch_stats": ...}) into
+    the port's model: every parameter and running statistic must match in
+    name and shape. Returns the model."""
+    return _load(model, convnet_state_dict_from_flax(variables["params"],
+                                                     variables.get("batch_stats")))

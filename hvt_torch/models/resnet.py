@@ -103,16 +103,14 @@ class ConvBN(nn.Module):
         super().__init__()
         self.act = act
         self.blur = blurpool and stride > 1
-        self.conv = nn.Conv2d(in_ch, features, kernel_size, stride, kernel_size // 2, bias=False)
-        self.conv.weight.data = self.conv.weight.data.contiguous(memory_format=torch.channels_last)
+        self.conv = common.channels_last_(
+            nn.Conv2d(in_ch, features, kernel_size, stride, kernel_size // 2, bias=False))
         self.bn = batch_norm(features, bn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.blur:
             x = blur_2d(x)
-        y = F.conv2d(_nchw(x), self.conv.weight.to(x.dtype), stride=self.conv.stride,
-                     padding=self.conv.padding)
-        y = self.bn(_nhwc(y))
+        y = self.bn(common.conv_nhwc(self.conv, x))
         return F.relu(y) if self.act else y
 
 

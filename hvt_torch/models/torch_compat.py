@@ -1,5 +1,4 @@
-"""Torch-format weight files — the port's copy of the SwinV2, ResNet, ViT and
-DINOv2 parts of ``hvt/models/torch_compat.py``.
+"""Torch-format weight files — the port's copy of ``hvt/models/torch_compat.py``.
 
 hvt reads Microsoft-format SwinV2 files (``swin://<path>``, reference
 swinv2.py:870-895) and timm-format ResNet files (``torch://<path>``), each a
@@ -31,9 +30,23 @@ sides are PyTorch, so no layout changes, only names.
   ``ls1``/``ls2``, the plain or SwiGLU MLP, and optionally the position
   embedding resized to another patch grid (``resize_pos_embed``).
 
-Files are read with ``torch.load(..., weights_only=True)``. ConvNeXt,
-EfficientNet and RegNet files raise, naming the ROADMAP item that ports those
-families, rather than being mapped onto the wrong model.
+* ConvNeXt (``convert_convnext_state_dict``): timm (``stem.0``/``.1``,
+  ``stages.{s}.downsample.0``/``.1``, ``stages.{s}.blocks.{i}.conv_dw``/
+  ``norm``/``mlp.fc{1,2}``/``gamma``, ``head.norm`` or ``norm``,
+  ``head.fc``) or HF (``[convnext.]embeddings.patch_embeddings``/
+  ``layernorm``, ``encoder.stages.{s}.downsampling_layer.0``/``.1``,
+  ``layers.{i}.dwconv``/``layernorm``/``pwconv{1,2}``/
+  ``layer_scale_parameter``, ``layernorm``, ``classifier``) → the port's
+  ``stem_conv``, ``stem_norm``, ``downsample{s}_norm``/``_conv``,
+  ``stage{s}_block{i}.{dwconv,norm,mlp.fc1,mlp.fc2,gamma}``, ``norm``,
+  ``head``; no batch statistics.
+* EfficientNet (``convert_efficientnet_state_dict``, HF under
+  ``efficientnet.``) and RegNet-Y (``convert_regnet_state_dict``, HF under
+  ``regnet.``): each BatchNorm's running statistics travel with the weights
+  (``num_batches_tracked`` dropped); a ``classifier.heads.{t}`` multitask head
+  → ``head.tier{t}``.
+
+Files are read with ``torch.load(..., weights_only=True)``.
 """
 
 from __future__ import annotations
@@ -46,7 +59,6 @@ import torch
 
 # Buffers that are derived, not learned (reference swinv2.py:887-894).
 NON_PERSISTENT = ("relative_position_index", "relative_coords_table", "logit_clamp_max")
-OTHER_FAMILIES = "ROADMAP.md queue 1, item 9b (ConvNeXt, EfficientNet, RegNet)"
 
 _SWIN_URI = re.compile(r"^swin://(.+)$")
 _TORCH_URI = re.compile(r"^torch://(.+)$")
@@ -314,6 +326,126 @@ def convert_dinov2_state_dict(state_dict: Mapping, grid: int | None = None
     return out
 
 
+def _indices(sd: Mapping, prefix: str) -> list[int]:
+    pat = re.compile(rf"^{re.escape(prefix)}(\d+)\.")
+    return sorted({int(m.group(1)) for k in sd if (m := pat.match(k))})
+
+
+def convert_convnext_state_dict(state_dict: Mapping) -> dict[str, torch.Tensor]:
+    """timm or HF ConvNeXt state dict → the port's ConvNeXt names (hvt's
+    ``convert_convnext_state_dict``, hvt/models/torch_compat.py:588)."""
+    sd = _strip_prefix({k: _tensor(v) for k, v in state_dict.items()}, "convnext.")
+    out: dict[str, torch.Tensor] = {}
+    hf = any(k.startswith("encoder.stages.") for k in sd)
+    if hf:
+        _copy(sd, "embeddings.patch_embeddings", "stem_conv", out)
+        _copy(sd, "embeddings.layernorm", "stem_norm", out)
+        stages, blocks = "encoder.stages.", "layers"
+        names = {"dwconv": "dwconv", "layernorm": "norm", "pwconv1": "mlp.fc1",
+                 "pwconv2": "mlp.fc2"}
+        gamma = "layer_scale_parameter"
+    else:
+        _copy(sd, "stem.0", "stem_conv", out)
+        _copy(sd, "stem.1", "stem_norm", out)
+        stages, blocks = "stages.", "blocks"
+        names = {"conv_dw": "dwconv", "norm": "norm", "mlp.fc1": "mlp.fc1", "mlp.fc2": "mlp.fc2"}
+        gamma = "gamma"
+    for s in _indices(sd, stages):
+        sp = f"{stages}{s}"
+        down = f"{sp}.downsampling_layer" if hf else f"{sp}.downsample"
+        if (hf and s > 0) or (not hf and f"{down}.1.weight" in sd):
+            _copy(sd, f"{down}.0", f"downsample{s}_norm", out)
+            _copy(sd, f"{down}.1", f"downsample{s}_conv", out)
+        for i in _indices(sd, f"{sp}.{blocks}."):
+            p, b = f"{sp}.{blocks}.{i}", f"stage{s}_block{i}"
+            for src, dst in names.items():
+                _copy(sd, f"{p}.{src}", f"{b}.{dst}", out)
+            out[f"{b}.gamma"] = sd[f"{p}.{gamma}"]
+    if hf:
+        _copy(sd, "layernorm", "norm", out)
+        if "classifier.weight" in sd:
+            _copy(sd, "classifier", "head", out)
+    else:
+        _copy(sd, "head.norm" if "head.norm.weight" in sd else "norm", "norm", out)
+        if "head.fc.weight" in sd:
+            _copy(sd, "head.fc", "head", out)
+    return out
+
+
+def _batch_norm(sd: Mapping, src: str, dst: str, params: dict, stats: dict) -> None:
+    _copy(sd, src, dst, params)
+    for name in _STATS:
+        stats[f"{dst}.{name}"] = sd[f"{src}.{name}"]
+
+
+def _classifier(sd: Mapping, linear: str, out: dict) -> None:
+    """HF's ``classifier`` Linear (at ``linear``) or a multitask
+    ``classifier.heads.{t}`` → ``head`` / ``head.tier{t}``, where present."""
+    if f"{linear}.weight" in sd:
+        _copy(sd, linear, "head", out)
+    t = 0
+    while f"classifier.heads.{t}.weight" in sd:
+        _copy(sd, f"classifier.heads.{t}", f"head.tier{t}", out)
+        t += 1
+
+
+def convert_efficientnet_state_dict(state_dict: Mapping) -> tuple[dict, dict]:
+    """HF EfficientNet state dict → (params, batch_stats) in the port's
+    EfficientNet names (hvt's ``convert_efficientnet_state_dict``,
+    hvt/models/torch_compat.py:671)."""
+    sd = _strip_prefix({k: _tensor(v) for k, v in state_dict.items()}, "efficientnet.")
+    params: dict[str, torch.Tensor] = {}
+    stats: dict[str, torch.Tensor] = {}
+    params["stem_conv.weight"] = sd["embeddings.convolution.weight"]
+    _batch_norm(sd, "embeddings.batchnorm", "stem_bn", params, stats)
+    i = 0
+    while f"encoder.blocks.{i}.depthwise_conv.depthwise_conv.weight" in sd:
+        src, b = f"encoder.blocks.{i}", f"block{i}"
+        if f"{src}.expansion.expand_conv.weight" in sd:
+            params[f"{b}.expand_conv.weight"] = sd[f"{src}.expansion.expand_conv.weight"]
+            _batch_norm(sd, f"{src}.expansion.expand_bn", f"{b}.expand_bn", params, stats)
+        params[f"{b}.dwconv.weight"] = sd[f"{src}.depthwise_conv.depthwise_conv.weight"]
+        _batch_norm(sd, f"{src}.depthwise_conv.depthwise_norm", f"{b}.dw_bn", params, stats)
+        _copy(sd, f"{src}.squeeze_excite.reduce", f"{b}.se_reduce", params)
+        _copy(sd, f"{src}.squeeze_excite.expand", f"{b}.se_expand", params)
+        params[f"{b}.project_conv.weight"] = sd[f"{src}.projection.project_conv.weight"]
+        _batch_norm(sd, f"{src}.projection.project_bn", f"{b}.project_bn", params, stats)
+        i += 1
+    params["top_conv.weight"] = sd["encoder.top_conv.weight"]
+    _batch_norm(sd, "encoder.top_bn", "top_bn", params, stats)
+    _classifier(sd, "classifier", params)
+    return params, stats
+
+
+def convert_regnet_state_dict(state_dict: Mapping) -> tuple[dict, dict]:
+    """HF RegNet-Y state dict → (params, batch_stats) in the port's RegNetY
+    names (hvt's ``convert_regnet_state_dict``, hvt/models/torch_compat.py:738):
+    the Y layer's ``layer.0``-``layer.3`` are conv1/bn1, the grouped
+    conv2/bn2, the squeeze-excite's ``attention.0``/``.2`` and conv3/bn3."""
+    sd = _strip_prefix({k: _tensor(v) for k, v in state_dict.items()}, "regnet.")
+    params: dict[str, torch.Tensor] = {}
+    stats: dict[str, torch.Tensor] = {}
+    params["stem_conv.weight"] = sd["embedder.embedder.convolution.weight"]
+    _batch_norm(sd, "embedder.embedder.normalization", "stem_bn", params, stats)
+    s = 0
+    while f"encoder.stages.{s}.layers.0.layer.0.convolution.weight" in sd:
+        i = 0
+        while f"encoder.stages.{s}.layers.{i}.layer.0.convolution.weight" in sd:
+            src, b = f"encoder.stages.{s}.layers.{i}", f"stage{s}_block{i}"
+            for n, conv, bn in ((0, "conv1", "bn1"), (1, "conv2", "bn2"), (3, "conv3", "bn3")):
+                params[f"{b}.{conv}.weight"] = sd[f"{src}.layer.{n}.convolution.weight"]
+                _batch_norm(sd, f"{src}.layer.{n}.normalization", f"{b}.{bn}", params, stats)
+            _copy(sd, f"{src}.layer.2.attention.0", f"{b}.se_reduce", params)
+            _copy(sd, f"{src}.layer.2.attention.2", f"{b}.se_expand", params)
+            if f"{src}.shortcut.convolution.weight" in sd:
+                params[f"{b}.sc_conv.weight"] = sd[f"{src}.shortcut.convolution.weight"]
+                _batch_norm(sd, f"{src}.shortcut.normalization", f"{b}.sc_bn", params, stats)
+            i += 1
+        s += 1
+    _classifier(sd, "classifier.1", params)
+    return params, stats
+
+
 def save_swin_checkpoint(params: Mapping, path: str) -> int:
     """Write the port's SwinV2 parameters as a reference-format ``.pt``
     (``{"model": state_dict}``); returns the number of tensors written."""
@@ -336,7 +468,9 @@ def load_torch_variables(uri: str) -> tuple[dict, dict]:
     ``layers.*`` is SwinV2 (no batch statistics), ``layer1.*``/``conv1``
     ResNet, LayerScale lambdas or ``dinov2.*`` DINOv2 (before ViT: both
     carry ``cls_token``/``encoder.layer.*``), ``cls_token`` or
-    ``[vit.]encoder.layer.*`` ViT."""
+    ``[vit.]encoder.layer.*`` ViT, ``[regnet.]embedder.*`` RegNet-Y,
+    ``stages.*``/``[convnext.]encoder.stages.*``/``stem.0`` ConvNeXt,
+    ``[efficientnet.]encoder.blocks.*`` EfficientNet."""
     m = _TORCH_URI.match(uri) or _SWIN_URI.match(uri)
     if not m:
         raise ValueError(f"uri {uri!r} doesn't match torch://<path> or swin://<path>")
@@ -350,18 +484,16 @@ def load_torch_variables(uri: str) -> tuple[dict, dict]:
         return convert_dinov2_state_dict(sd), {}
     if any("cls_token" in k or k.startswith(("encoder.layer.", "vit.encoder.layer.")) for k in sd):
         return convert_vit_state_dict(sd), {}
-    families = (
-        ("RegNet", lambda k: k.startswith(("regnet.", "embedder."))),
-        ("ConvNeXt", lambda k: k.startswith(("stages.", "encoder.stages.", "convnext.",
-                                             "stem.0."))),
-        ("EfficientNet", lambda k: k.startswith(("efficientnet.", "encoder.blocks.",
-                                                 "embeddings.convolution"))),
-    )
-    for family, match in families:
-        if any(match(k) for k in sd):
-            raise NotImplementedError(
-                f"torch checkpoint {uri!r} holds a {family} model, which is not ported yet: "
-                f"{OTHER_FAMILIES}")
+    # RegNet before ConvNeXt: both carry encoder.stages.*, only RegNet the embedder stem
+    if any(k.startswith(("regnet.", "embedder.")) for k in sd):
+        return convert_regnet_state_dict(sd)
+    if any(k.startswith(("stages.", "encoder.stages.", "convnext.")) for k in sd) \
+            or "stem.0.weight" in sd:
+        return convert_convnext_state_dict(sd), {}
+    if any(k.startswith(("efficientnet.", "encoder.blocks.", "embeddings.convolution"))
+           for k in sd):
+        return convert_efficientnet_state_dict(sd)
     raise ValueError(
         f"torch checkpoint {uri!r}: unrecognized family (expected SwinV2 'layers.*', ResNet "
-        "'layer{s}.{b}'/'conv1', DINOv2 or ViT key names)")
+        "'layer{s}.{b}'/'conv1', DINOv2 'layer_scale1', ViT 'cls_token'/'encoder.layer.*', "
+        "RegNet 'embedder.*', ConvNeXt 'stages.*', or EfficientNet 'encoder.blocks.*' key names)")

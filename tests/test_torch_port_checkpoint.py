@@ -185,11 +185,27 @@ def test_torch_resnet_file_merges_as_hvts(tmp_path, file_s2d, model_s2d):
 
 
 def test_other_families_and_shapes_raise(tmp_path):
+    """A timm ConvNeXt file loads into the port's ConvNeXt tree (its family
+    is ported); a shape mismatch and a wandb URI without the package raise."""
     path = tmp_path / "convnext.pt"
-    torch.save({"model": {"stem.0.weight": torch.zeros(8, 3, 4, 4),
-                          "stages.0.blocks.0.conv_dw.weight": torch.zeros(8, 1, 7, 7)}}, path)
-    with pytest.raises(NotImplementedError, match="ConvNeXt.*queue 1, item 9b"):
-        ttc.load_torch_variables(f"torch://{path}")
+    sd = {"stem.0.weight": torch.ones(8, 3, 4, 4), "stem.0.bias": torch.zeros(8),
+          "stem.1.weight": torch.ones(8), "stem.1.bias": torch.zeros(8),
+          "stages.0.blocks.0.conv_dw.weight": torch.full((8, 1, 7, 7), 2.0),
+          "stages.0.blocks.0.conv_dw.bias": torch.zeros(8),
+          "stages.0.blocks.0.norm.weight": torch.ones(8), "stages.0.blocks.0.norm.bias": torch.zeros(8),
+          "stages.0.blocks.0.mlp.fc1.weight": torch.ones(32, 8), "stages.0.blocks.0.mlp.fc1.bias": torch.zeros(32),
+          "stages.0.blocks.0.mlp.fc2.weight": torch.ones(8, 32), "stages.0.blocks.0.mlp.fc2.bias": torch.zeros(8),
+          "stages.0.blocks.0.gamma": torch.full((8,), 0.5),
+          "head.norm.weight": torch.ones(8), "head.norm.bias": torch.zeros(8)}
+    torch.save({"model": sd}, path)
+    params, stats = ttc.load_torch_variables(f"torch://{path}")
+    assert stats == {} and torch.equal(params["stage0_block0.dwconv.weight"], sd["stages.0.blocks.0.conv_dw.weight"])
+    from hvt_torch.models.convnext import ConvNeXt
+
+    model = ConvNeXt(5, depths=(1,), dims=(8,))
+    kept, _ = tckpt.load_pretrained(f"torch://{path}", dict(model.named_parameters()), None, strict=True)
+    assert torch.equal(kept["stage0_block0.gamma"], sd["stages.0.blocks.0.gamma"])
+    assert kept["head.weight"] is model.head.weight  # the head keeps the model's
     cur = {"a.weight": torch.zeros(2, 3)}
     with pytest.raises(ValueError, match="shape mismatch at a.weight"):
         tckpt.merge_backbone(cur, {"a.weight": torch.zeros(3, 2)})

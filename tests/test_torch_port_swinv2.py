@@ -213,8 +213,13 @@ def test_factory_builds_swin_and_names_unported_families():
     assert float(model.stage0_block0.norm1.weight.abs().sum()) == 0.0
     again = build_model(cfg, 5)
     torch.testing.assert_close(model.state_dict(), again.state_dict())  # seeded
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9b"):
-        build_model(tconfig.loads({"model": {"name": "convnext_tiny"}}), 5)
+    from hvt_torch.models.convnext import ConvNeXt
+
+    with torch.device("meta"):
+        assert isinstance(build_model(tconfig.loads({"model": {"name": "convnext_tiny"}}), 5),
+                          ConvNeXt)
+    with pytest.raises(ValueError, match="unknown model 'swinv2_huge'"):
+        build_model(tconfig.loads({"model": {"name": "swinv2_huge"}}), 5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(tconfig.loads({"model": {"name": "swinv2_micro", "args": {"pipe": 2}}}), 5)
 

@@ -428,9 +428,15 @@ def test_factory_builds_every_vit(name):
 
 
 def test_other_families_stay_refused():
-    for name in ("convnext_tiny", "efficientnet_b0", "regnety_004"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 9b"):
-            build_model(tconfig.loads({"model": {"name": name}}), NUM_CLASSES)
+    """The three conv families build their classes now that they are ported."""
+    from hvt_torch.models import convnext, efficientnet, regnet
+
+    for name, cls in (("convnext_tiny", convnext.ConvNeXt),
+                      ("efficientnet_b0", efficientnet.EfficientNet),
+                      ("regnety_004", regnet.RegNetY)):
+        with torch.device("meta"):
+            model = build_model(tconfig.loads({"model": {"name": name}}), NUM_CLASSES)
+        assert isinstance(model, cls) and model.cuda_unsupported(224, training=True) == []
 
 
 # ---------------------------------------------------------------------------
