@@ -277,6 +277,28 @@ Phases, in order; any failure exits non-zero and prints no result:
      RegNetY's grouped 3x3 convs alone at each stage at 1,024 in bf16,
      channels-last and NCHW, forward and forward + backward ms beside the
      forward's bound.
+ 20. data parallelism over torch.distributed, a world of one through NCCL
+     (``init_process_group`` over tcp://127.0.0.1 on a free port, then
+     ``destroy_process_group``): (a) ``bn_train`` at ResNet-50's 53
+     BatchNorm shapes at batch 256 and 224 px in bf16 under the declared
+     group (each reduction's rows launch alone, an all-reduce of its
+     (chunks, 2, C) partials, the ``bn_finish`` launch on the global n)
+     against the one-process route: y, mean, var, dx, dscale and dbias
+     bit-equal, the calls of each route counted, each route's ms a step and
+     the host's ops of one call, and ``bn_finish`` alone against its plain
+     version within BN_FINISH_TOL; (b)
+     inat21.yaml's ResNet-50 (phase 9's config, bn_pallas) at 256 and
+     swinv2_tiny.yaml on fuse: true at 128, 3 steps each through
+     ``hvt_torch.main.main`` without the group and under it, with
+     deterministic cuDNN: losses, parameters and running statistics
+     bit-equal, step ms of each route, the collectives a step (the ResNet's
+     106 BatchNorm all-reduces among them) and ``bn_finish``'s launches;
+     (c) ``torchrun --standalone --nproc_per_node=1 -m hvt_torch.main`` for 2
+     steps of ResNet-50 at 256 on the synthetic source: world 1, rank 0,
+     ``log0.txt`` and the step-2 checkpoint. The script needs one card, so
+     NCCL across several cards is not part of it.
+Each phase's seconds are printed when the next begins, and all of them on
+the ``[done]`` line and in the report (``phase_seconds``).
 Every Trainer writes its checkpoints and run log under a temporary
 ``machine.save_root``, emptied at the end of each run or phase and removed
 at exit; the Trainers' own lines (the RunLogger's config and records) go to
@@ -590,7 +612,27 @@ SPREAD_FACTOR = 4.0
 LOSS_FLOOR = 1e-6
 
 
+PHASE_SECONDS: dict[str, float] = {}  # phase → seconds, filled as the phases end
+_PHASE: dict = {"name": None, "start": 0.0}
+
+
+def end_phase() -> None:
+    """Close the running phase: its seconds into PHASE_SECONDS, printed."""
+    name = _PHASE["name"]
+    if name is not None:
+        PHASE_SECONDS[name] = time.perf_counter() - _PHASE["start"]
+        print(f"  phase {name} took {PHASE_SECONDS[name]:.1f} s", flush=True)
+        _PHASE["name"] = None
+
+
 def log(msg: str) -> None:
+    """Print a line; a line that opens another phase ("[N] ...") closes the
+    running one first and starts its clock."""
+    if msg.startswith("[") and "]" in msg:
+        name = msg[1:msg.index("]")]
+        if name.isdigit() and name != _PHASE["name"]:
+            end_phase()
+            _PHASE.update(name=name, start=time.perf_counter())
     print(msg, flush=True)
 
 
@@ -796,6 +838,7 @@ def kernel_counters():
             "mlp_half_chunked_bwd": fh.MLP_CHUNKED_BWD_KERNEL,
             "bn_channel_sums": bsc.SUMS_KERNEL, "bn_normalize": bsc.NORMALIZE_KERNEL,
             "bn_bwd_reduce": bsc.BWD_KERNEL, "bn_dx": bsc.DX_KERNEL,
+            "bn_finish": bsc.FINISH_KERNEL,
             "attention_half_fwd": fh.ATTN_WIN_KERNEL, "attention_half_bwd": fh.ATTN_WIN_BWD_KERNEL,
             "window_attention_fwd": wac.SPLIT_KERNEL, "window_attention_bwd": wac.SPLIT_BWD_KERNEL,
             "swin_block_attention_fwd": sbc.ATTN_KERNEL, "swin_block_mlp_fwd": sbc.MLP_KERNEL}
@@ -5484,6 +5527,401 @@ def families_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: data parallelism, a world of one through NCCL
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 3  # each (b) run
+DP_CLI_STEPS = 2  # (c)
+BN_FINISH = ("hvt_torch/ops/csrc/bn_stats.cu",
+             "hvt/ops/bn_stats_pallas.py:94 (psum :138-140, and :181's at :239-241)")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def counted_collectives():
+    """torch.distributed's collectives wrapped to count their calls by name
+    (what ``hvt_torch.parallel`` calls through the module), then put back."""
+    import torch.distributed as dist
+
+    counts: dict[str, int] = {}
+    names = ("all_reduce", "all_gather", "broadcast", "barrier")
+    saved = {n: getattr(dist, n) for n in names}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            counts[name] = counts.get(name, 0) + 1
+            return saved[name](*args, **kwargs)
+        return call
+
+    for n in names:
+        setattr(dist, n, counting(n))
+    try:
+        yield counts
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+
+
+def host_ops(fn, top: int = 12, iters: int = 10) -> list:
+    """Where the host's time of a call of ``fn`` goes: torch.profiler's CPU
+    ops over ``iters`` calls after a warm-up, each from an idle card, the
+    ``top`` of them by self CPU time, as (name, calls a call, self µs a
+    call, total µs a call). The profiler's own recording inflates these;
+    host_pieces times the pieces without it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(iters):
+            fn()
+            torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages() if e.key != "cudaDeviceSynchronize"]
+    ops = sorted(ops, key=lambda e: -e.self_cpu_time_total)[:top]
+    return [(e.key, e.count / iters, round(e.self_cpu_time_total / iters, 1),
+             round(e.cpu_time_total / iters, 1)) for e in ops]
+
+
+def host_us(fn, iters: int = 20) -> float:
+    """The median host µs of one call of ``fn`` from an idle card (the time
+    to issue its work; no profiler)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return sorted(times)[iters // 2]
+
+
+def behind_busy_card(calls: dict) -> dict:
+    """Whether a call makes the host wait for the card: each call issued
+    behind 40 queued f32 products of 4096² matrices, as (host ms of the
+    call, device ms of the queued work). A call that returns in well under the
+    queued work's time leaves the host free to run ahead."""
+    import torch
+
+    a = torch.randn(4096, 4096, device="cuda")
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(40):
+            a @ a
+        end.record()
+        t0 = time.perf_counter()
+        fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        out[name] = (round(host_ms, 3), round(start.elapsed_time(end), 3))
+    return out
+
+
+def dp_bn_check() -> dict:
+    """(a): bn_train under the declared group against the one-process
+    route at ResNet-50's 12 BatchNorm shapes (53 layers) at batch 256, bf16,
+    bit-equal, with each route's launches counted (the grouped route: each
+    reduction's rows launch alone and bn_finish on its all-reduced
+    partials); each route's ms a step (forward and backward, through
+    autograd); bn_finish alone on each shape's partials against its plain
+    version (BN_FINISH_TOL·max|plain|), timed, with its byte bound (kind 0
+    reads (parts, 2, C) and writes (5, C) f32; kind 1 also reads rstd and
+    the scale); at 112x112x64 each route's host and device ms a call and
+    the host's ops of one call (host_ops)."""
+    import torch
+    import torch.distributed as dist
+
+    from hvt_torch import parallel
+    from hvt_torch.ops import bn_stats
+    from hvt_torch.ops import bn_stats_cuda as bsc
+
+    counted = (bsc.SUMS_KERNEL, bsc.NORMALIZE_KERNEL, bsc.BWD_KERNEL, bsc.DX_KERNEL,
+               bsc.FINISH_KERNEL)
+    out = {"ms": 0.0, "grouped_ms": 0.0, "finish_ms": 0.0, "finish_plain_ms": 0.0,
+           "finish_bound_ms": 0.0, "finish_max_abs_err": 0.0, "shapes": []}
+    for i, (grid, c, layers) in enumerate(RESNET_BN_SHAPES):
+        x, g, scale, bias = bn_inputs(grid, c, seed=900 + i)
+
+        def route():
+            xr = x.detach().requires_grad_()
+            s_, b_ = scale.clone().requires_grad_(), bias.clone().requires_grad_()
+            y, mean, var = bn_stats.bn_train(xr, s_, b_, 1e-5, torch.bfloat16)
+            y.backward(g)
+            return y, mean, var, xr.grad, s_.grad, b_.grad
+
+        def launches(group):
+            parallel.set_data_group(group)
+            before = [k.launches for k in counted]
+            res = route()
+            return res, [k.launches - n for k, n in zip(counted, before)]
+
+        ref, n_one = launches(None)
+        got, n_grouped = launches(dist.group.WORLD)
+        # sums, normalize, reduce, dx, finish: each C call is one launch
+        # (the finish alone) or two (rows and finish)
+        if n_one != [1, 1, 1, 1, 0] or n_grouped != [1, 1, 1, 1, 2]:
+            raise AssertionError(f"bn_train at {grid}x{c}: calls {n_one} one process, "
+                                 f"{n_grouped} under the group (sums, normalize, reduce, dx, "
+                                 "finish)")
+        for name, a, b in zip(("y", "mean", "var", "dx", "dscale", "dbias"), got, ref):
+            if not torch.equal(a, b):
+                raise AssertionError(f"bn_train under the group differs from one process at "
+                                     f"{grid}x{c}: {name} max|Δ| "
+                                     f"{float((a.double() - b.double()).abs().max()):.3g}")
+        parallel.set_data_group(None)
+        ms = cuda_time_ms(route, iters=5, warmup=1)
+        parallel.set_data_group(dist.group.WORLD)
+        grouped_ms = cuda_time_ms(route, iters=5, warmup=1)
+        parallel.set_data_group(None)
+        # the finish alone, on this shape's partials of each reduction
+        mean, _, rstd = bn_stats.bn_moments(x, 1e-5)
+        n = x.shape[0]
+        err = 0.0
+        for kind, part, args, eps in ((0, bsc.channel_partials(x), (), 1e-5),
+                                      (1, bsc.bwd_partials(g, x, mean, rstd), (rstd, scale), 0.0)):
+            fin = bsc.bn_finish(part, n, eps, kind, *args)
+            plain = torch.stack(bn_stats.bn_finish_plain(part, n, eps, kind, *args))
+            gap, top = float((fin - plain).abs().max()), float(plain.abs().max())
+            if not (bool(torch.isfinite(fin).all()) and gap <= BN_FINISH_TOL * top):
+                raise AssertionError(f"bn_finish kind {kind} at {grid}x{c}: max|Δ| {gap:.3g} > "
+                                     f"{BN_FINISH_TOL}·{top:.3g}")
+            err = max(err, gap)
+            out["finish_ms"] += layers * cuda_time_ms(
+                lambda: bsc.bn_finish(part, n, eps, kind, *args), iters=20)
+            out["finish_plain_ms"] += layers * cuda_time_ms(
+                lambda: bn_stats.bn_finish_plain(part, n, eps, kind, *args), iters=20)
+            nbytes = part.numel() * 4 + (5 + (0 if kind == 0 else 2)) * c * 4
+            out["finish_bound_ms"] += layers * nbytes / H100_BYTES_PER_S * 1e3
+        out["finish_max_abs_err"] = max(out["finish_max_abs_err"], err)
+        out["ms"] += layers * ms
+        out["grouped_ms"] += layers * grouped_ms
+        out["shapes"].append({"shape": [x.shape[0], c], "layers": layers, "ms": ms,
+                              "grouped_ms": grouped_ms, "finish_max_abs_err": err,
+                              "parts": int(part.shape[0])})
+        if i == 0:  # where the grouped route's time goes: the host or the card
+            for key, group in (("one_process", None), ("grouped", dist.group.WORLD)):
+                parallel.set_data_group(group)
+                out[f"{key}_host_device_ms"] = host_device_ms(route)
+                out[f"{key}_host_ops"] = host_ops(route)
+            # the pieces of a reduction, each alone: host µs to issue
+            part = bsc.channel_partials(x)
+            sums = torch.zeros((2, c), device="cuda")
+            out["host_pieces_us"] = {
+                "channel_stats (one process: rows and finish)":
+                    host_us(lambda: bsc.channel_stats(x, 1e-5)),
+                "channel_partials (rows launch)": host_us(lambda: bsc.channel_partials(x)),
+                "bn_finish": host_us(lambda: bsc.bn_finish(part, n, 1e-5, 0)),
+                f"all_reduce_ of the partials {tuple(part.shape)}":
+                    host_us(lambda: parallel.all_reduce_(part)),
+                f"all_reduce_ of {tuple(sums.shape)}": host_us(lambda: parallel.all_reduce_(sums)),
+                "bn_train forward and backward, one process": None,
+            }
+            parallel.set_data_group(None)
+            out["host_pieces_us"]["bn_train forward and backward, one process"] = host_us(route)
+            parallel.set_data_group(dist.group.WORLD)
+            out["host_pieces_us"]["bn_train forward and backward, grouped"] = host_us(route)
+            out["nccl_host_device_ms"] = host_device_ms(lambda: parallel.all_reduce_(part),
+                                                        kernels=("nccl",))
+            out["behind_busy_card_ms"] = behind_busy_card({
+                "all_reduce_ of the partials": lambda: parallel.all_reduce_(part),
+                "bn_finish (one launch)": lambda: bsc.bn_finish(part, n, 1e-5, 0)})
+            parallel.set_data_group(None)
+        del x, g, ref, got
+        torch.cuda.empty_cache()
+    # one NCCL all-reduce of (2, 512) f32 at a world of one: the host's µs to
+    # issue a call (200 calls, no sync between them) and the card's µs a call
+    parallel.set_data_group(dist.group.WORLD)
+    sums = torch.zeros((2, 512), device="cuda")
+    parallel.all_reduce_(sums)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        parallel.all_reduce_(sums)
+    out["all_reduce_host_us"] = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    out["all_reduce_device_us"] = cuda_time_ms(lambda: parallel.all_reduce_(sums), iters=200) * 1e3
+    parallel.set_data_group(None)
+    (OUT_DIR / "dp_host_ops.json").write_text(json.dumps(
+        {k: out[k] for k in ("one_process_host_ops", "grouped_host_ops", "host_pieces_us",
+                             "nccl_host_device_ms", "behind_busy_card_ms")}, indent=1))
+    return out
+
+
+def dp_train_run(config, label: str) -> dict:
+    """``hvt_torch.main.main(config)`` as train_run drives it, under
+    deterministic settings, every launch counter and the collectives counted
+    from 0: losses, the final parameters and running statistics (on the
+    card), step ms, launches, and the collectives of each step after the
+    first (their counts between two ``on_step`` calls); and each step's
+    host clock, the CPU time of the main thread and of the whole process
+    (every thread: the loader's, NCCL's), to tell a host-bound step and
+    where its host time goes."""
+    import torch
+
+    from hvt_torch import main as main_lib
+
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    events, losses, marks, trainers, clocks = [], [], [], [], []
+
+    class Keep(main_lib.Trainer):
+        def close(self):
+            super().close()
+            trainers.append(self)
+
+    with counted_collectives() as counts:
+        def on_step(step, stats):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            clocks.append((time.perf_counter(), time.thread_time(), time.process_time()))
+            losses.append(stats["loss_sum"])
+            marks.append(dict(counts))
+
+        t0 = time.perf_counter()
+        with deterministic(), swapped(main_lib, Trainer=Keep), trainer_output():
+            main_lib.main(config, on_step=on_step)
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    clear_runs()
+    trainer = trainers[0]
+    state = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    per_step = [{k: b[k] - a.get(k, 0) for k in b if b[k] != a.get(k, 0)}
+                for a, b in zip(marks, marks[1:])]
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    host = {name: [round((b[j] - a[j]) * 1e3, 2) for a, b in zip(clocks, clocks[1:])]
+            for j, name in enumerate(("wall_ms", "main_thread_cpu_ms", "process_cpu_ms"))}
+    losses = [float(v) for v in losses]
+    launches = {k: c.launches for k, c in counters.items() if c.launches}
+    rec = {"label": label, "losses": losses, "step_ms": step_ms, "launches": launches,
+           "collectives_a_step": per_step[-1] if per_step else {}, "wall_s": wall_s,
+           "world": trainer.world, "declared": trainer._declared, "host": host}
+    log(f"  {label}: losses {losses}; step ms {[round(v, 2) for v in step_ms]}; host a step "
+        f"{host}; collectives a step {rec['collectives_a_step']}; launches {launches}; "
+        f"{wall_s:.1f} s")
+    if len(losses) != DP_STEPS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{label}: losses {losses}")
+    return rec, state
+
+
+def dp_cli_run() -> dict:
+    """(c): torchrun --standalone --nproc_per_node=1 -m hvt_torch.main, 2
+    steps of ResNet-50 (phase 9's config) at 256 on the synthetic source,
+    one eval batch of 64: world 1 and rank 0 on its stdout, log0.txt and the
+    step-2 checkpoint under its save_root."""
+    import yaml
+
+    root = runs_root()
+    layer = {"max_duration": f"{DP_CLI_STEPS}ba", "eval_interval": "1dur", "grad_accum": 1,
+             "machine": {"save_root": str(root)}, "run_name": "dp_cli",
+             "save": {"wandb": False, "interval": None, "num_checkpoints_to_keep": 1},
+             "model": {"args": {"stem_s2d": True, "bn_pallas": True}},
+             "algorithms": [{"cls": "LabelSmoothing", "args": {"smoothing": 0.08}}],
+             "train_dataset": {"source": "synthetic", "synthetic_num_classes": CLASSES,
+                               "synthetic_num_samples": RESNET_BATCH * DP_CLI_STEPS,
+                               "global_batch_size": RESNET_BATCH},
+             "eval_dataset": {"source": "synthetic", "synthetic_num_classes": CLASSES,
+                              "synthetic_num_samples": 64, "global_batch_size": 64}}
+    exp = root / "dp_cli.yaml"
+    exp.write_text(yaml.safe_dump(layer))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+         "-m", "hvt_torch.main", "--machine", str(ROOT / "configs/machines/local.yaml"), "--exp",
+         str(ROOT / "configs/pretrain/inat21.yaml"), str(exp)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    wall_s = time.perf_counter() - t0
+    (OUT_DIR / "dp_cli.txt").write_text(proc.stdout + "\n--- stderr\n" + proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun exited {proc.returncode}: {proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    said = [x for x in lines if "data parallel: rank 0 of world 1 (nccl)" in x]
+    run = root / "dp_cli"
+    logs = sorted(p.name for p in (run / "logs").iterdir())
+    ckpts = sorted(p.name for p in (run / "checkpoints").iterdir())
+    metrics = [json.loads(x) for x in lines if x.startswith('{"acc@1"')]
+    if not said or logs != ["log0.txt"] or ckpts != [str(DP_CLI_STEPS)] or len(metrics) != 1:
+        raise AssertionError(f"torchrun run: {said}, logs {logs}, checkpoints {ckpts}, "
+                             f"metrics {metrics}")
+    log(f"  torchrun --nproc_per_node=1: '{said[0].strip()}'; logs {logs}; checkpoints {ckpts}; "
+        f"eval {metrics[0]}; {wall_s:.1f} s")
+    clear_runs()
+    return {"line": said[0].strip(), "logs": logs, "checkpoints": ckpts, "metrics": metrics[0],
+            "wall_s": wall_s}
+
+
+def data_parallel_phase(card: str) -> dict:
+    import torch
+    import torch.distributed as dist
+
+    from hvt_torch import parallel
+
+    configs = {"resnet50 inat21.yaml bn_pallas": resnet_config(True, steps=DP_STEPS),
+               "swinv2_tiny.yaml fuse=True": training_config(fuse=True, steps=DP_STEPS)}
+    plain = {label: dp_train_run(cfg, f"{label}, one process") for label, cfg in configs.items()}
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        grouped = {label: dp_train_run(cfg, f"{label}, world of one (nccl)")
+                   for label, cfg in configs.items()}
+        bn = dp_bn_check()
+    finally:
+        parallel.destroy()
+    runs = {}
+    for label in configs:
+        (a, sa), (b, sb) = plain[label], grouped[label]
+        if not b["declared"] or a["declared"]:
+            raise AssertionError(f"{label}: the group was declared {a['declared']}/{b['declared']}")
+        if a["losses"] != b["losses"]:
+            raise AssertionError(f"{label}: losses {b['losses']} under the group, {a['losses']} "
+                                 "without")
+        bit_equal_states(sb, sa, f"{label} under the group against one process")
+        runs[label] = {"one_process": a, "world_of_one": b}
+    got = grouped["resnet50 inat21.yaml bn_pallas"][0]
+    finish_launches = got["launches"].get("bn_finish", 0)
+    if finish_launches != 2 * RESNET_BN_LAYERS * DP_STEPS:
+        raise AssertionError(f"bn_finish launched {finish_launches} times in {DP_STEPS} steps")
+    bn_reduces = got["collectives_a_step"].get("all_reduce", 0)
+    if bn_reduces < 2 * RESNET_BN_LAYERS:
+        raise AssertionError(f"{bn_reduces} all-reduces a ResNet-50 step, under the 106 of its "
+                             "BatchNorms")
+    log(f"  bn_train at ResNet-50's 53 shapes, a step (forward and backward through autograd) on "
+        f"{card}: {bn['ms']:.3f} ms one process, {bn['grouped_ms']:.3f} ms under the group; "
+        f"bn_finish {bn['finish_ms']:.4f} ms a step (106 launches), plain {bn['finish_plain_ms']:.4f}, "
+        f"bound {bn['finish_bound_ms']:.5f}, max|Δ| against plain {bn['finish_max_abs_err']:.3g}; "
+        f"at 112x112x64 host / device ms a call: one process "
+        f"{bn['one_process_host_device_ms'][0]:.3f} / {bn['one_process_host_device_ms'][1]:.3f}, "
+        f"grouped {bn['grouped_host_device_ms'][0]:.3f} / {bn['grouped_host_device_ms'][1]:.3f}; "
+        f"an all-reduce of (2, 512) f32: host {bn['all_reduce_host_us']:.1f} µs to issue, "
+        f"{bn['all_reduce_device_us']:.1f} µs a call back to back")
+    for key in ("one_process_host_ops", "grouped_host_ops"):
+        log(f"  host ops of one bn_train at 112x112x64, {key[:-9]}, profiled (name, calls, self "
+            f"µs, total µs, a call): {bn[key][:8]}")
+    log(f"  host µs to issue each piece alone at 112x112x64: {bn['host_pieces_us']}; an "
+        f"all-reduce of the partials, host / NCCL kernel ms: {bn['nccl_host_device_ms']}; "
+        f"host ms of a call issued behind queued work, and that work's device ms: "
+        f"{bn['behind_busy_card_ms']}")
+    cli = dp_cli_run()
+    return {"bn_train": bn, "runs": runs, "bn_finish_launches": finish_launches, "cli": cli}
+
+
 def ptxas_summary(logs: dict) -> dict:
     """{source: [{kernel, registers, static_smem, spill_stores, spill_loads}]}
     from ``nvcc -Xptxas -v``'s report of each entry function."""
@@ -5564,6 +6002,7 @@ def main(argv=None) -> int:
         f"{'imports' if host['sklearn'] else 'missing'}")
 
     t0 = time.perf_counter()
+    log("[2] building every kernel from hvt_torch/ops/csrc")
     logs = _build.build_all()
     log(f"[2] built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     (OUT_DIR / "ptxas.txt").write_text("\n".join(f"== {k}\n{v}" for k, v in logs.items()))
@@ -5990,7 +6429,6 @@ def main(argv=None) -> int:
     t17 = time.perf_counter()
     rest = rest_of_training_phase(card)
     rest["wall_s"] = time.perf_counter() - t17
-    log(f"  phase 17 took {rest['wall_s']:.1f} s")
 
     log("[18] ViT and DINOv2 through the flash-attention kernels: the kernels against their "
         "plain versions and beside SDPA; vit_b16.yaml (ViT-B/16) at 2,048 with grad_accum auto "
@@ -5998,7 +6436,6 @@ def main(argv=None) -> int:
     t18 = time.perf_counter()
     vit = vit_phase(card)
     vit["wall_s"] = time.perf_counter() - t18
-    log(f"  phase 18 took {vit['wall_s']:.1f} s")
     from hvt_torch.ops import flash_attention as fa
 
     vit["ptxas"] = [r for r in ptxas.get("flash_attention", []) if "flash" in r["kernel"]]
@@ -6030,9 +6467,24 @@ def main(argv=None) -> int:
     t19 = time.perf_counter()
     families = families_phase(card)
     families["wall_s"] = time.perf_counter() - t19
-    log(f"  phase 19 took {families['wall_s']:.1f} s")
+
+    log("[20] data parallelism over torch.distributed, a world of one through NCCL: bn_train "
+        "at ResNet-50's 53 BatchNorm shapes under the group against one process; inat21.yaml's "
+        "ResNet-50 and swinv2_tiny.yaml fuse: true under the group and without, bit-equal; "
+        "torchrun --nproc_per_node=1 -m hvt_torch.main")
+    data_parallel = data_parallel_phase(card)
+    bn = data_parallel["bn_train"]
+    kernels.append({
+        "name": "bn_finish", "route": "cuda", "source": BN_FINISH[0], "replaces": BN_FINISH[1],
+        "launches": data_parallel["bn_finish_launches"],
+        "max_abs_err": bn["finish_max_abs_err"], "ms": bn["finish_ms"],
+        "plain_ms": bn["finish_plain_ms"], "bound_ms": bn["finish_bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+    })
+    end_phase()
 
     report = {"card": card, "host": host, "folders": folders, "downstream": downstream,
+              "data_parallel": data_parallel, "phase_seconds": PHASE_SECONDS,
               "rest_of_training": rest, "vit": vit, "families": families,
               "batch": BATCH, "kernels": kernels,
               "routes": routes,
@@ -6164,7 +6616,8 @@ def main(argv=None) -> int:
             f"{prof['forward_kernel_ms']:.3f} ms; " + "; ".join(
                 f"{r['name'][:40]} {r['ms_per_step']:.3f} ms x{r['calls']}" for r in prof["rows"][:16]))
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
-    log(f"[done] every phase passed in {time.perf_counter() - started:.1f} s")
+    log(f"[done] every phase passed in {time.perf_counter() - started:.1f} s; seconds by phase: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -14,6 +14,12 @@ laws in distribution: λ ~ Beta(α, α), CutMix's centre uniform over the
 pixels, ColOut's kept rows and columns a uniform subset of exactly
 ``h - round(p·h)`` and ``w - round(p·w)`` per image.
 
+Under a declared data group (:mod:`hvt_torch.parallel`) the batch is this
+rank's share of the global microbatch: the train step draws over the global
+rows and keeps the rank's (:func:`local_draws`), and MixUp's and CutMix's
+roll by one crosses the rank boundary (``parallel.roll_rows``: one exchange
+of the last image and target row), as hvt rolls its global batch.
+
 Resizing follows ``jax.image.resize(method="linear")``: separable weights
 built as ``jax.image.scale_and_translate`` builds them (a triangle kernel
 on half-pixel centres, widened by 1/scale when downsampling, so
@@ -29,6 +35,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from hvt_torch import parallel
 
 
 def scale_channel_stats(mean: tuple[float, ...], std: tuple[float, ...]):
@@ -149,15 +157,11 @@ def draw_colout(generator: torch.Generator, b: int, h: int, w: int, p_row: float
 def mixup(images: torch.Tensor, onehot, lam: torch.Tensor):
     """MixUp with one coefficient and the batch rolled by one; targets per
     tier for multitask (a list)."""
-    mixed = (lam.to(images.dtype) * images
-             + (1.0 - lam).to(images.dtype) * torch.roll(images, 1, dims=0))
-
-    def mix_target(t):
-        return lam * t + (1.0 - lam) * torch.roll(t, 1, dims=0)
-
-    if isinstance(onehot, list):
-        return mixed, [mix_target(t) for t in onehot]
-    return mixed, mix_target(onehot)
+    targets = onehot if isinstance(onehot, list) else [onehot]
+    rolled, *rolled_t = parallel.roll_rows([images, *targets])
+    mixed = lam.to(images.dtype) * images + (1.0 - lam).to(images.dtype) * rolled
+    mixed_t = [lam * t + (1.0 - lam) * r for t, r in zip(targets, rolled_t)]
+    return mixed, (mixed_t if isinstance(onehot, list) else mixed_t[0])
 
 
 def cutmix(images: torch.Tensor, onehot, lam: torch.Tensor, cy: torch.Tensor, cx: torch.Tensor):
@@ -174,15 +178,12 @@ def cutmix(images: torch.Tensor, onehot, lam: torch.Tensor, cy: torch.Tensor, cx
     rows = torch.arange(h, device=images.device)[None, :, None, None]
     cols = torch.arange(w, device=images.device)[None, None, :, None]
     box = (rows >= y0) & (rows < y1) & (cols >= x0) & (cols < x1)
-    mixed = torch.where(box, torch.roll(images, 1, dims=0), images)
+    targets = onehot if isinstance(onehot, list) else [onehot]
+    rolled, *rolled_t = parallel.roll_rows([images, *targets])
+    mixed = torch.where(box, rolled, images)
     lam_eff = 1.0 - ((y1 - y0) * (x1 - x0)).to(torch.float32) / float(h * w)
-
-    def mix_target(t):
-        return lam_eff * t + (1.0 - lam_eff) * torch.roll(t, 1, dims=0)
-
-    if isinstance(onehot, list):
-        return mixed, [mix_target(t) for t in onehot]
-    return mixed, mix_target(onehot)
+    mixed_t = [lam_eff * t + (1.0 - lam_eff) * r for t, r in zip(targets, rolled_t)]
+    return mixed, (mixed_t if isinstance(onehot, list) else mixed_t[0])
 
 
 def colout(images: torch.Tensor, draws: Optional[tuple[torch.Tensor, torch.Tensor]]) -> torch.Tensor:

@@ -1,10 +1,21 @@
 """Datasets and the prefetching host-side loader — port of ``hvt/data/loader.py``.
 
-:class:`Loader` gives hvt's batches for one process (hvt's
-``process_index`` 0 of 1; sharding across processes is ROADMAP.md queue 1,
-item 11): a permutation seeded by (seed, epoch) when shuffling, the tail
-dropped under ``drop_last``, a padded last batch with a validity mask
-otherwise, so eval metrics are exact at one static batch shape.
+:class:`Loader` gives the batches of one process of hvt's
+``process_count`` (hvt/data/loader.py:81-133): a permutation seeded by
+(seed, epoch) when shuffling, process ``p`` taking ``order[p::count]``, a
+local batch of ``global_batch_size / count`` (which must divide), the tail
+dropped under ``drop_last``, padded slots with a validity mask otherwise, so
+eval metrics are exact at one static batch shape. Every process counts the
+same batches an epoch: the fewest whole ones under ``drop_last``, else the
+most, a process with fewer samples padding its tail.
+
+A training loader of several processes also follows hvt's microbatch layout
+(``microbatches``, the train step's ``grad_accum``): hvt reshapes the
+*global* batch, rank-major over the processes, into microbatches of
+consecutive global rows, so each process's batch is its share of every
+microbatch (``hvt_torch.parallel.microbatch_rows``), computed from every
+process's index list; it still decodes ``local_batch`` images a step. At one
+microbatch, or in one process, that is the process's own chunk.
 
 * Sources: the synthetic dataset, or an image folder's ``train/`` or
   ``val/`` split.
@@ -98,7 +109,8 @@ class Loader:
 
     def __init__(self, dataset, transform, local_batch_size: int, *, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0, num_workers: int = 8,
-                 prefetch_batches: int = 2, pin_memory: bool = False):
+                 prefetch_batches: int = 2, pin_memory: bool = False, process_index: int = 0,
+                 process_count: int = 1, microbatches: int = 1):
         if not isinstance(dataset, synthetic_lib.SyntheticDataset) and transform is None:
             raise ValueError("a folder dataset needs a transform to decode its images")
         self.dataset = dataset
@@ -110,16 +122,19 @@ class Loader:
         self.num_workers = max(1, num_workers)
         self.prefetch_batches = max(1, prefetch_batches)
         self.pin_memory = pin_memory
+        self.process_index = process_index
+        self.process_count = process_count
+        self.microbatches = microbatches
         self.use_native = _native_eligible(dataset, transform)
 
         n = len(dataset)
-        if drop_last:
-            self.batches_per_epoch = n // local_batch_size
-        else:
-            self.batches_per_epoch = -(-n // local_batch_size)
+        if drop_last:  # the fewest of any process: process count − 1 holds n // count
+            self.batches_per_epoch = (n // process_count) // local_batch_size
+        else:  # the most: process 0 holds ceil(n / count)
+            self.batches_per_epoch = -(-(-(-n // process_count)) // local_batch_size)
         if self.batches_per_epoch == 0:
-            raise ValueError(f"dataset ({n} samples) smaller than one batch "
-                             f"({local_batch_size}) with drop_last")
+            raise ValueError(f"dataset ({n} samples over {process_count} processes) smaller "
+                             f"than one batch ({local_batch_size}) with drop_last")
 
     @property
     def decoder(self) -> str:
@@ -134,14 +149,39 @@ class Loader:
 
     # -- sample order -------------------------------------------------------
 
-    def epoch_indices(self, epoch: int) -> np.ndarray:
-        """The dataset indices visited in ``epoch``, in batch order: a pure
-        function of (seed, epoch)."""
+    def _process_order(self, epoch: int, process: int) -> np.ndarray:
+        """hvt's ``order[process::count]``, cut to whole batches under drop_last."""
         n = len(self.dataset)
         order = np.random.default_rng((self.seed, epoch)).permutation(n) if self.shuffle else np.arange(n)
+        local = order[process::self.process_count]
         if self.drop_last:
-            order = order[: self.batches_per_epoch * self.local_batch_size]
-        return order
+            local = local[: self.batches_per_epoch * self.local_batch_size]
+        return local
+
+    def epoch_batches(self, epoch: int) -> np.ndarray:
+        """(batches_per_epoch, local_batch) dataset indices of this process's
+        batches in ``epoch``, -1 in a padded slot: a pure function of (seed,
+        epoch). Several processes with several microbatches take their rows
+        of hvt's rank-major global batches."""
+        bs, steps, count = self.local_batch_size, self.batches_per_epoch, self.process_count
+        orders = range(count) if count > 1 and self.microbatches > 1 else [self.process_index]
+        padded = np.full((len(orders), steps * bs), -1, dtype=np.int64)
+        for row, process in enumerate(orders):
+            local = self._process_order(epoch, process)
+            padded[row, :len(local)] = local
+        if len(orders) == 1:
+            return padded.reshape(steps, bs)
+        from hvt_torch import parallel
+
+        global_batches = padded.reshape(count, steps, bs).transpose(1, 0, 2).reshape(steps, -1)
+        rows = parallel.microbatch_rows(count * bs, self.microbatches, count, self.process_index)
+        return global_batches[:, rows]
+
+    def epoch_indices(self, epoch: int) -> np.ndarray:
+        """The dataset indices this process visits in ``epoch``, in batch
+        order, padding left out: a pure function of (seed, epoch)."""
+        indices = self.epoch_batches(epoch).reshape(-1)
+        return indices[indices >= 0]
 
     # -- decode -------------------------------------------------------------
 
@@ -182,9 +222,15 @@ class Loader:
                 images[row] = arr
         return images
 
-    def _make_batch(self, pool: ThreadPoolExecutor, epoch: int, idxs: np.ndarray) -> Batch:
-        bs, n_valid = self.local_batch_size, len(idxs)
-        if self.use_native:
+    def _make_batch(self, pool: ThreadPoolExecutor, epoch: int, slots: np.ndarray) -> Batch:
+        """The batch of ``slots`` (local_batch dataset indices, -1 padded):
+        each valid slot's image, label and mask 1; zeros elsewhere."""
+        bs = self.local_batch_size
+        rows = np.flatnonzero(slots >= 0)
+        idxs = slots[rows]
+        if not len(idxs):
+            arrays = []
+        elif self.use_native:
             arrays = self._native_batch_images(pool, epoch, idxs)
         elif isinstance(self.dataset, synthetic_lib.SyntheticDataset):
             # copies out of the pool: the worker threads would only contend
@@ -192,21 +238,29 @@ class Loader:
             arrays = [self.dataset.load(int(i)) for i in idxs]
         else:
             arrays = list(pool.map(lambda i: self._load_one(epoch, int(i)), idxs))
-        pin = self.pin_memory
-        images = _host_buffer((bs, *arrays[0].shape), np.uint8, pin)
-        for row, arr in enumerate(arrays):
+        pin, whole = self.pin_memory, len(rows) == bs
+        shape = arrays[0].shape if len(arrays) else self._image_shape()
+        images = _host_buffer((bs, *shape), np.uint8, pin)
+        if not whole:
+            images[:] = 0
+        for row, arr in zip(rows, arrays):
             images[row] = arr
-        images[n_valid:] = 0
         label_arr = self.dataset.labels[idxs]
         labels = _host_buffer((bs, *label_arr.shape[1:]), np.int32, pin)
-        labels[:n_valid] = label_arr
-        labels[n_valid:] = 0
+        labels[:] = 0
+        labels[rows] = label_arr
         mask = _host_buffer((bs,), np.float32, pin)
-        mask[:n_valid] = 1.0
-        mask[n_valid:] = 0.0
-        row_idx = np.full((bs,), -1, dtype=np.int64)
-        row_idx[:n_valid] = idxs
-        return Batch(images=images, labels=labels, mask=mask, indices=row_idx)
+        mask[:] = 0.0
+        mask[rows] = 1.0
+        return Batch(images=images, labels=labels, mask=mask, indices=slots.copy())
+
+    def _image_shape(self) -> tuple[int, ...]:
+        """The shape of one image, for a batch that is all padding (a
+        process whose samples ran out before the others')."""
+        if isinstance(self.dataset, synthetic_lib.SyntheticDataset):
+            return self.dataset.load(0).shape
+        crop = self.transform.crop_size
+        return (crop, crop, 3)
 
     # -- iteration ----------------------------------------------------------
 
@@ -214,9 +268,7 @@ class Loader:
         """The epoch's batches from batch ``start_batch`` on: the order is a
         pure function of (seed, epoch), so a resume mid-epoch continues at
         the next batch without decoding the skipped ones."""
-        indices = self.epoch_indices(epoch)
-        bs = self.local_batch_size
-        chunks = [indices[i:i + bs] for i in range(start_batch * bs, len(indices), bs)]
+        chunks = list(self.epoch_batches(epoch)[start_batch:])
 
         out_q: queue.Queue = queue.Queue(maxsize=self.prefetch_batches)
         sentinel = object()
@@ -324,14 +376,22 @@ def build_transform(config, is_train: bool):
                             colout_p=colout_p)
 
 
-def build_loader(config, is_train: bool = False, pin_memory: bool = False):
+def build_loader(config, is_train: bool = False, pin_memory: bool = False,
+                 process_index: int = 0, process_count: int = 1):
     """Config → (Loader, DatasetInfo) for the train split (shuffled as the
-    config says) or the eval split (never shuffled); ``pin_memory`` for a
-    consumer that copies the batches to the card."""
-    dataset, info = build_dataset(config, is_train)
+    config says) or the eval split (never shuffled), for process
+    ``process_index`` of ``process_count``: the global batch divided over
+    the processes (it must divide, as hvt's ``build_loader`` asks);
+    ``pin_memory`` for a consumer that copies the batches to the card."""
     data_cfg = config.train_dataset if is_train else config.eval_dataset
-    loader = Loader(dataset, build_transform(config, is_train), data_cfg.global_batch_size,
+    if data_cfg.global_batch_size % process_count:
+        raise ValueError(f"global_batch_size {data_cfg.global_batch_size} not divisible by "
+                         f"process count {process_count}")
+    dataset, info = build_dataset(config, is_train)
+    loader = Loader(dataset, build_transform(config, is_train),
+                    data_cfg.global_batch_size // process_count,
                     shuffle=data_cfg.shuffle if is_train else False, drop_last=data_cfg.drop_last,
                     seed=config.seed, num_workers=config.loader.num_workers,
-                    prefetch_batches=config.loader.prefetch_batches, pin_memory=pin_memory)
+                    prefetch_batches=config.loader.prefetch_batches, pin_memory=pin_memory,
+                    process_index=process_index, process_count=process_count)
     return loader, info

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -426,16 +427,66 @@ def draw_rand_augment(generator: torch.Generator, batch: int, depth: int, strati
     return draws
 
 
+class LocalRound(NamedTuple):
+    """A stratified round drawn over the global microbatch, for this rank's
+    rows: each image's op (its slot of the global permutation) and sign."""
+
+    op: torch.Tensor
+    sign: torch.Tensor
+
+
+def local_rounds(draws, offset: int, local: int, stratified: bool) -> list:
+    """Rows [offset, offset + local) of rounds drawn over the global
+    microbatch (:func:`draw_rand_augment` at the global size): an iid
+    round's (op, sign) sliced; a stratified round's permutation read back as
+    each local image's op and sign (:class:`LocalRound`), so each image takes
+    what it takes in the whole batch."""
+    out = []
+    n = len(OP_NAMES)
+    for choice, sign in draws:
+        rows = slice(offset, offset + local)
+        if not stratified:
+            out.append((choice[rows], sign[rows]))
+            continue
+        b = choice.shape[0]
+        sizes = [b // n + (1 if i < b % n else 0) for i in range(n)]
+        ends = torch.as_tensor(np.cumsum(sizes), device=choice.device)
+        pos = torch.argsort(choice)[rows]  # each image's place in the permuted batch
+        out.append(LocalRound(torch.bucketize(pos, ends, right=True), sign[pos]))
+    return out
+
+
+def _apply_assigned(x: torch.Tensor, op: torch.Tensor, sign: torch.Tensor,
+                    severity: int) -> torch.Tensor:
+    """A :class:`LocalRound`: each op on the images it was dealt, through
+    the stratified route's static ops (one host read of the counts)."""
+    factor = _factor(sign, severity)
+    order = torch.argsort(op, stable=True)
+    counts = torch.bincount(op, minlength=len(OP_NAMES)).tolist()
+    xs, ss, fs = x[order], sign[order], factor[order]
+    pieces, start = [], 0
+    for name, count in zip(OP_NAMES, counts):
+        if count:
+            sl = slice(start, start + count)
+            pieces.append(_apply_op_static(name, xs[sl], ss[sl], fs[sl], severity))
+            start += count
+    out = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=0)
+    return out[torch.argsort(order)]
+
+
 def rand_augment(images: torch.Tensor, draws, severity: int = 9,
                  stratified: bool = True) -> torch.Tensor:
     """RandAugment over a uint8 NHWC batch, one round per entry of
-    ``draws`` (:func:`draw_rand_augment`), shapes and dtype unchanged."""
+    ``draws`` (:func:`draw_rand_augment`, or :func:`local_rounds` of it),
+    shapes and dtype unchanged."""
     if images.dtype != torch.uint8:
         raise ValueError(f"device RandAugment operates on uint8 pixel batches (before "
                          f"normalization), got {images.dtype}")
     for choice, sign in draws:
         sign = sign.to(torch.float32)
-        if stratified:
+        if isinstance(draws[0], LocalRound):
+            images = _apply_assigned(images, choice, sign, severity)
+        elif stratified:
             images = _apply_stratified(images, choice, sign, severity)
         else:
             images = _apply_one(images, choice, sign, severity)

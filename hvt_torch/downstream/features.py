@@ -20,6 +20,7 @@ import torch
 
 from hvt_torch import config as config_lib
 from hvt_torch import device as device_lib
+from hvt_torch import parallel
 from hvt_torch.data import DevicePrep, build_loader
 from hvt_torch.data.loader import host_tensor
 from hvt_torch.models import build_model
@@ -67,6 +68,7 @@ def extract_features(config, is_train: bool, kind: str, hierarchical_labels: boo
     """→ (features (N, D) f32, labels (N,) or (N, 7) with
     ``hierarchical_labels``), padded rows dropped, in the split's epoch-0
     order. ``device`` None means the CUDA card (an error without one)."""
+    parallel.one_process_entry(config, "feature extraction")
     device = device_lib.resolve(device)
     cfg_dict = config_lib.to_dict(config)
     cfg_dict["hierarchy"] = dict(cfg_dict["hierarchy"],

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from hvt_torch import device as device_lib
+from hvt_torch import parallel
 from hvt_torch.data import DevicePrep, build_loader
 from hvt_torch.downstream import features as features_lib
 from hvt_torch.models import build_model
@@ -139,6 +140,7 @@ def predict(config, *, topk: int = 5, use_ema: bool = True, hierarchical: bool =
     if artifact is not None or quantize is not None or calibrate:
         raise NotImplementedError("prediction from serving artifacts and int8 (artifact, quantize, "
                                   "calibrate) is not ported yet (ROADMAP.md queue 1, item 10)")
+    parallel.one_process_entry(config, "batch prediction")
     device = device_lib.resolve(device)
     loader, info = build_loader(config, is_train=False)
     data_cfg = config.eval_dataset

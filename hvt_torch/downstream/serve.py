@@ -29,6 +29,7 @@ import numpy as np
 
 from hvt_torch import config as config_lib
 from hvt_torch import device as device_lib
+from hvt_torch import parallel
 from hvt_torch.data import DevicePrep, build_loader
 from hvt_torch.downstream import predict as predict_lib
 from hvt_torch.models import build_model
@@ -47,6 +48,7 @@ class InferenceEngine:
             raise NotImplementedError(
                 "int8 serving (quantize/calibrate) is not ported yet (ROADMAP.md queue 1, item 10)"
             )
+        parallel.one_process_entry(config, "serving")
         self.device = device_lib.resolve(device)
         self.config = config
         self.model_name = config.model.name

@@ -22,7 +22,7 @@ import numpy as np
 
 from hvt_torch import config as config_lib
 from hvt_torch import device as device_lib
-from hvt_torch import hierarchy
+from hvt_torch import hierarchy, parallel
 from hvt_torch.downstream import features as F
 from hvt_torch.downstream import linear as linear_lib
 from hvt_torch.utils.logging import publish_run_metrics
@@ -32,6 +32,7 @@ def main(config: config_lib.Config, device=None) -> dict:
     # the reference's configs spell the variant linear-probing
     if config.model.variant not in ("linear-probe", "linear-probing"):
         raise ValueError(f"model.variant must be linear-probe, got {config.model.variant!r}")
+    parallel.one_process_entry(config, "hvt_torch.linear_probe")
     device = device_lib.resolve(device)
     config = config_lib.loads(config_lib.to_dict(config), {"model": {"variant": "linear-probe"}})
 

@@ -17,28 +17,41 @@ BatchNorm reduction kernels, and with EMA where the recipe asks for it.
 Training reads the synthetic source or an image folder (the native JPEG
 core or Pillow, with hvt's augmentations: host or device RandAugment and
 ColOut, MixUp, CutMix, progressive resizing), so
-configs/pretrain/inat21.yaml runs as written. The algorithms the port's
-train step does not run yet (SAM) raise.
+configs/pretrain/inat21.yaml runs as written, with every algorithm of
+hvt's recipes (SAM and gradient accumulation included).
 
 What persists, as with hvt's ``main.py``: checkpoints under
 ``<save_root>/<run_name>/checkpoints/<step>/state.pt`` (at every
 ``save.interval``, at the end, and on SIGTERM, keeping
 ``save.num_checkpoints_to_keep``) and the run log
-``<save_root>/<run_name>/logs/log0.txt`` (the config, then one JSON record
-per evaluation and log window). ``load_path: ckpt://<dir>[:step]`` resumes
+``<save_root>/<run_name>/logs/log{rank}.txt`` (the config, then one JSON
+record per evaluation and log window). ``load_path: ckpt://<dir>[:step]`` resumes
 from a checkpoint, ``auto_resume: true`` from the run's own latest, and a
 PretrainedBackbone loads ``ckpt://``, ``swin://`` or ``torch://`` weights
 (see :mod:`hvt_torch.train.loop`). The last checkpoint write is joined
 before the JSON line is printed.
+
+Data parallelism (hvt's ``main.py:16-27``, ``maybe_init_distributed``):
+started by ``torchrun``, each process joins the launcher's group (NCCL on
+``cuda:LOCAL_RANK``; gloo with ``--device cpu``) and trains its share of the
+global batch, ``mesh.data`` -1 or the world, the other mesh axes refused;
+rank 0 prints and saves, every rank writes ``logs/log{rank}.txt``:
+
+    torchrun --standalone --nproc_per_node=<cards> -m hvt_torch.main \
+        --machine ... --exp ...
+
+Without the launcher's environment it is one process with no group.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 from typing import Callable, Optional
 
 from hvt_torch import config as config_lib
+from hvt_torch import parallel
 from hvt_torch.train.loop import Trainer
 
 
@@ -58,5 +71,16 @@ if __name__ == "__main__":
     parser.add_argument("--device", default=None,
                         help="torch device; default the CUDA card (an error without one)")
     args = parser.parse_args()
-    metrics = main(config_lib.load(machine=args.machine, exps=args.exp), device=args.device)
-    print(json.dumps(metrics))
+    config = config_lib.load(machine=args.machine, exps=args.exp)
+    launched = parallel.launched()
+    device = parallel.launch_device(args.device)
+    if launched:
+        parallel.check_mesh(config.mesh, int(os.environ["WORLD_SIZE"]))
+        parallel.init_process_group(device)
+    try:
+        metrics = main(config, device=device)
+        if parallel.process_world()[0] == 0:
+            print(json.dumps(metrics))
+    finally:
+        if launched:
+            parallel.destroy()

@@ -16,6 +16,17 @@ buffers (flax's ``batch_stats`` ``mean``/``var``), and keeps flax
   1e-3);
 * eval computes (x − ra_mean)·rsqrt(ra_var + eps)·scale + bias.
 
+Under a declared data group (:mod:`hvt_torch.parallel`) training normalises
+with the global microbatch's moments, as hvt's modules do under GSPMD, and
+the running statistics end equal on every rank: :class:`PallasBatchNorm` and
+:class:`CustomBatchNorm` through ``bn_train``'s data-parallel route;
+:class:`BatchNorm` through per-channel Σx and Σx² in f32 summed over the
+ranks by a differentiable all-reduce, flax's fast variance E[x²] − E[x]²;
+:class:`GroupedBatchNorm` two-pass as hvt's, each group's Σx and then its
+Σ(x − mean)² summed over the ranks the same way (:func:`_group_sums`).
+Stochastic depth draws its mask over the global microbatch's rows
+(:func:`drop_path_scale`).
+
 The four training routes, which ResNet's knobs pick as hvt's
 ``make_batch_norm`` does: :class:`BatchNorm` (torch's batch norm),
 :class:`PallasBatchNorm` (``bn_pallas``: the BatchNorm kernels),
@@ -36,6 +47,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from hvt_torch import parallel
 from hvt_torch.ops import bn_stats
 
 
@@ -107,9 +119,10 @@ def drop_path_scale(batch: int, rate: float, generator: torch.Generator | None =
     bernoulli(1 − rate)/(1 − rate), drawn from ``generator`` (on ``device``),
     or from torch's default generator when it is None. hvt draws the same
     mask with ``jax.random.bernoulli``; JAX's PRNG gives other draws from the
-    same seed."""
+    same seed. Under a declared data group the draw is over the global
+    microbatch and the rank keeps its rows (``parallel.rand_rows``)."""
     keep = 1.0 - rate
-    kept = torch.rand((batch,), generator=generator, device=device) < keep
+    kept = parallel.rand_rows((batch,), generator, device) < keep
     return kept.float() / keep
 
 
@@ -150,6 +163,14 @@ class _BatchNormBase(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
+def _group_sums(rows: torch.Tensor, gid: torch.Tensor, groups: int) -> torch.Tensor:
+    """(groups, ...) sums of each group's ``rows`` (indexed by ``gid``) over
+    the declared data group, through a differentiable all-reduce (the
+    rank's own sums without a group)."""
+    local = rows.new_zeros((groups, *rows.shape[1:])).index_add(0, gid, rows)
+    return parallel.all_reduce_sum(local)
+
+
 class BatchNorm(_BatchNormBase):
     """flax ``nn.BatchNorm`` on an NHWC tensor. Training runs torch's batch
     norm (``torch.native_batch_norm``: cuDNN-class kernels on the card, not a
@@ -160,10 +181,28 @@ class BatchNorm(_BatchNormBase):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return self._eval(x)
+        if parallel.data_group() is not None:
+            return self._global(x)
         y, mean, invstd = torch.native_batch_norm(
             x.permute(0, 3, 1, 2), self.weight, self.bias, None, None, True, 0.0, self.eps)
         self._update(mean.detach(), invstd.detach().pow(-2) - self.eps)
         return y.permute(0, 2, 3, 1)
+
+    def _global(self, x: torch.Tensor) -> torch.Tensor:
+        """Training on the global microbatch's moments: the rank's (2, C)
+        Σx and Σx² in f32 through a differentiable all-reduce, mean = Σx/n,
+        var = max(Σx²/n − mean², 0) (flax's fast variance), and flax's
+        ``_normalize`` order (x − mean)·(rsqrt(var + eps)·scale) + bias,
+        cast to x's dtype."""
+        xf = x.float()
+        rows = xf.reshape(-1, x.shape[-1])
+        sums = parallel.all_reduce_sum(torch.stack((rows.sum(0), (rows * rows).sum(0))))
+        n = rows.shape[0] * parallel.world()
+        mean = sums[0] / n
+        var = torch.clamp_min(sums[1] / n - mean * mean, 0.0)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        self._update(mean.detach(), var.detach())
+        return y.to(x.dtype)
 
 
 class PallasBatchNorm(_BatchNormBase):
@@ -205,7 +244,11 @@ class GroupedBatchNorm(_BatchNormBase):
     update from the pooled moments (mean of the means; mean of the
     variances plus the variance of the means, the law of total variance).
     Under gradient accumulation the groups split each microbatch, as hvt's
-    do. torch's autograd differentiates it; no kernel of this repository
+    do. The groups are contiguous rows of the global microbatch, and a
+    group may span ranks: the mean is each group's Σx over the data group,
+    the variance each group's Σ(x − mean)² over it (two passes, as hvt's
+    mean((x − mean_g)²)); without a group both sums are the process's own.
+    torch's autograd differentiates it; no kernel of this repository
     runs."""
 
     def __init__(self, channels: int, groups: int, eps: float = 1e-5, momentum: float = 0.9):
@@ -216,18 +259,23 @@ class GroupedBatchNorm(_BatchNormBase):
         if not self.training:
             return self._eval(x)
         b, g, c = x.shape[0], self.groups, x.shape[-1]
-        if b % g:
-            raise ValueError(f"batch {b} not divisible by bn groups {g}")
-        xg = x.float().reshape(g, b // g, *x.shape[1:])
-        axes = tuple(range(1, xg.ndim - 1))  # each group's batch and spatial dims
-        mean_g = xg.mean(axes, keepdim=True)
-        var_g = (xg - mean_g).square().mean(axes, keepdim=True)
-        y = ((xg - mean_g) * torch.rsqrt(var_g + self.eps)).reshape(x.shape)
-        y = y * self.weight + self.bias
+        total, offset = parallel.global_rows(b)
+        if total % g:
+            raise ValueError(f"batch {total} not divisible by bn groups {g}")
+        size = total // g
+        gid = torch.div(torch.arange(offset, offset + b, device=x.device), size,
+                        rounding_mode="floor")
+        shape = (b,) + (1,) * (x.ndim - 2) + (c,)
+        spatial = tuple(range(1, x.ndim - 1))
+        n = size * (x.numel() // (b * c))
+        xf = x.float()
+        mean_g = _group_sums(xf.sum(spatial), gid, g) / n  # (G, C)
+        d = xf - mean_g[gid].view(shape)
+        var_g = _group_sums(d.square().sum(spatial), gid, g) / n
+        y = (d * torch.rsqrt(var_g + self.eps)[gid].view(shape)) * self.weight + self.bias
         with torch.no_grad():
-            gm, gv = mean_g.reshape(g, c), var_g.reshape(g, c)
-            mean = gm.mean(0)
-            self._update(mean, gv.mean(0) + (gm - mean).square().mean(0))
+            mean = mean_g.mean(0)
+            self._update(mean, var_g.mean(0) + (mean_g - mean).square().mean(0))
         return y.to(x.dtype)
 
 

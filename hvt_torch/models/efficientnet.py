@@ -39,6 +39,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from hvt_torch import parallel
 from hvt_torch.models.common import (BatchNorm, channels_last_, conv_nhwc, drop_path, recompute,
                                      se_gate)
 from hvt_torch.models.heads import MultitaskHead
@@ -214,7 +215,7 @@ class EfficientNet(nn.Module):
             return feats
         if self.training and self.dropout_rate > 0.0:
             keep = 1.0 - self.dropout_rate
-            kept = torch.rand(feats.shape, generator=generator, device=feats.device) < keep
+            kept = parallel.rand_rows(feats.shape, generator, feats.device) < keep
             feats = torch.where(kept, feats / keep, torch.zeros_like(feats))
         if isinstance(self.head, MultitaskHead):
             return self.head(feats)

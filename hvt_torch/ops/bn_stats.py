@@ -18,12 +18,26 @@ launches. Accumulation is f32 (f64 for f64 inputs on the CPU).
 ``bn_train(..., torch_reductions=True)`` is hvt's ``use_pallas=False``
 route (the model's ``bn_custom``): the same Function with the plain versions
 on every device, chosen by the caller, never taken on a kernel's failure.
+
+Under a declared data group (:func:`hvt_torch.parallel.data_group`) the
+statistics are the global batch's, as hvt's kernels psum theirs over the
+data axis (bn_stats_pallas.py:138-140, 239-241): each reduction is the
+rank's rows launch alone (its (chunks, 2, C) f32 partials), an all-reduce
+of those partials, and the finish alone (``bn_finish``, the same
+``finish_kernel``) on the global row count: two launches, as the
+one-process call makes. The plain versions split the same way, with one
+part. ``bn_normalize`` and ``bn_dx`` are unchanged and take the global
+moments and factors. The scale and bias cotangents are the global sums on
+rank 0 and zeros on the others, so that the train step's gradient
+all-reduce gives them once. The route follows the declaration, not the
+group's size: a world of one takes it and gives the one-process bits.
 """
 
 from __future__ import annotations
 
 import torch
 
+from hvt_torch import parallel
 from hvt_torch.ops import bn_stats_cuda
 
 
@@ -136,6 +150,46 @@ def bn_dx(g2d, x2d, mean, rstd, terms) -> torch.Tensor:
     return bn_stats_cuda.bn_dx(g2d, x2d, mean, rstd, terms)
 
 
+def bn_finish_plain(part: torch.Tensor, n: int, eps: float, kind: int, rstd=None, scale=None):
+    """The plain version of ``bn_finish``: (parts, 2, C) partials over ``n``
+    rows, added up over the parts → kind 0 (Σx, Σx², mean, var, rstd), kind
+    1 (Σg, Σg·x̂, scale·rstd, Σg/n, Σg·x̂/n), each formula as the
+    one-process plain versions form it."""
+    a, b = part.sum(0)
+    if kind == 0:
+        mean = a / n
+        var = torch.clamp_min(b / n - mean * mean, 0.0)
+        return a, b, mean, var, torch.rsqrt(var + eps)
+    k = rstd if scale is None else scale.to(rstd.dtype) * rstd
+    return a, b, k, a / n, b / n
+
+
+def bn_moments_global(x2d: torch.Tensor, eps: float, plain: bool = False):
+    """(mean, var, rstd) of the global batch under the declared data group:
+    the rank's partials of (Σx, Σx²) (the kernel's rows launch on a CUDA
+    tensor; one part, the plain sums, on a CPU one or with ``plain``), an
+    all-reduce of them, the finish on W·rows."""
+    n = x2d.shape[0] * parallel.world()
+    if plain or _device("bn_moments", x2d) == "cpu":
+        part = parallel.all_reduce_(torch.stack(channel_sums_plain(x2d))[None])
+        return bn_finish_plain(part, n, eps, 0)[2:]
+    part = parallel.all_reduce_(bn_stats_cuda.channel_partials(x2d))
+    out = bn_stats_cuda.bn_finish(part, n, eps, 0)
+    return out[2], out[3], out[4]
+
+
+def bn_bwd_terms_global(g2d, x2d, mean, rstd, scale, plain: bool = False):
+    """bn_bwd_terms' five of the global batch under the declared data
+    group: the rank's partials of (Σg, Σg·x̂), an all-reduce of them, the
+    finish on W·rows."""
+    n = x2d.shape[0] * parallel.world()
+    if plain or _device("bn_bwd_terms", x2d) == "cpu":
+        part = torch.stack(bn_bwd_reduce_plain(g2d, x2d, mean, rstd))[None]
+        return bn_finish_plain(parallel.all_reduce_(part), n, 0.0, 1, rstd, scale)
+    part = parallel.all_reduce_(bn_stats_cuda.bwd_partials(g2d, x2d, mean, rstd))
+    return bn_stats_cuda.bn_finish(part, n, 0.0, 1, rstd, scale.float())
+
+
 class _BnTrain(torch.autograd.Function):
     """hvt's ``bn_train`` custom VJP. Saves only x (in its dtype), mean, rstd
     and scale; the backward recomputes x̂. Where the mean or var output
@@ -147,7 +201,11 @@ class _BnTrain(torch.autograd.Function):
     def forward(ctx, x2d, scale, bias, eps, out_dtype, torch_reductions):
         moments, normalize = ((bn_moments_plain, bn_normalize_plain) if torch_reductions
                               else (bn_moments, bn_normalize))
-        mean, var, rstd = moments(x2d, eps)
+        ctx.grouped = parallel.data_group() is not None
+        if ctx.grouped:
+            mean, var, rstd = bn_moments_global(x2d, eps, torch_reductions)
+        else:
+            mean, var, rstd = moments(x2d, eps)
         y = normalize(x2d, mean, rstd, scale, bias, out_dtype)
         ctx.save_for_backward(x2d, mean, rstd, scale)
         ctx.torch_reductions = torch_reductions
@@ -162,8 +220,19 @@ class _BnTrain(torch.autograd.Function):
                         else (bn_bwd_terms, bn_dx))
         if dy is None:  # only the mean or var output is differentiated
             dy = torch.zeros(x2d.shape, dtype=x2d.dtype, device=x2d.device)
-        t = terms(dy, x2d, mean, rstd, scale)  # Σg, Σg·x̂ and dx's three factors
+        if ctx.grouped:  # the global Σg, Σg·x̂ and dx's three factors
+            n *= parallel.world()
+            t = bn_bwd_terms_global(dy, x2d, mean, rstd, scale, ctx.torch_reductions)
+            # every rank's mean and var cotangent reaches every row
+            dmean = None if dmean is None else parallel.all_reduce_(dmean.clone())
+            dvar = None if dvar is None else parallel.all_reduce_(dvar.clone())
+        else:
+            t = terms(dy, x2d, mean, rstd, scale)  # Σg, Σg·x̂ and dx's three factors
         sg, sgx = t[0], t[1]
+        if ctx.grouped and parallel.rank() != 0:
+            # the global sums are dscale and dbias; the step's gradient
+            # all-reduce adds the ranks' up, so rank 0 alone holds them
+            sg, sgx = torch.zeros_like(sg), torch.zeros_like(sgx)
         if dmean is None and dvar is None:
             dx = dx_fn(dy, x2d, mean, rstd, t)
         else:  # exact contributions of the mean and var outputs

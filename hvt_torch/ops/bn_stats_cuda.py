@@ -15,7 +15,13 @@ compute in f32:
 * :func:`bn_bwd_terms` (``bn_bwd_reduce``) → the (5, C) rows Σg, Σg·x̂,
   γ·rstd, Σg/n, Σg·x̂/n; :func:`bn_bwd_reduce` → (Σg, Σg·x̂) from the same
   call;
-* :func:`bn_dx` (``bn_dx``) → dx = γ·rstd·((g − Σg/n) − x̂·Σg·x̂/n).
+* :func:`bn_dx` (``bn_dx``) → dx = γ·rstd·((g − Σg/n) − x̂·Σg·x̂/n);
+* :func:`channel_partials` and :func:`bwd_partials` → the reductions' rows
+  launch alone, its (chunks, 2, C) f32 partials in a tensor of their own;
+  :func:`bn_finish` (``bn_finish``) → the finish alone, on such partials:
+  the data-parallel route of :mod:`hvt_torch.ops.bn_stats` all-reduces each
+  rank's partials and finishes them on the global row count, two launches
+  a reduction as the one-process calls make.
 
 Each counts its calls in its ``_build.Kernel``'s ``launches``. They take
 CUDA tensors only and raise on anything the kernels do not take:
@@ -39,6 +45,7 @@ NORMALIZE_KERNEL = _build.Kernel("bn_stats", "hvt_bn_normalize",
 BWD_KERNEL = _build.Kernel("bn_stats", "hvt_bn_bwd_reduce",
                            [P, P, P, P, P, L, I, I, I, P, P, I, P])
 DX_KERNEL = _build.Kernel("bn_stats", "hvt_bn_dx", [P, P, P, P, P, P, P, P, L, I, I, I, I, P])
+FINISH_KERNEL = _build.Kernel("bn_stats", "hvt_bn_finish", [P, I, L, I, F, P, P, P, I, P])
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 THREADS = 256  # threads of a block (csrc kBnThreads)
 TARGET_BLOCKS = 396  # blocks a launch: one wave of three an SM on the H100's 132
@@ -142,7 +149,7 @@ def _launch_args(x2d: torch.Tensor) -> tuple[int, int, Plan, int]:
     return m, c, launch_plan(m, c), torch._C._cuda_getCurrentRawStream(x2d.device.index)
 
 
-def _channel_stats(x2d: torch.Tensor, eps: float) -> torch.Tensor:
+def channel_stats(x2d: torch.Tensor, eps: float) -> torch.Tensor:
     """(5, C) f32 = (Σx, Σx², mean, var, rstd) through one launch."""
     _check("bn_channel_sums", x2d)
     m, c, plan, stream = _launch_args(x2d)
@@ -155,14 +162,14 @@ def _channel_stats(x2d: torch.Tensor, eps: float) -> torch.Tensor:
 
 def channel_sums(x2d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(Σx, Σx²) over the rows of a CUDA (rows, C) tensor, through the kernel."""
-    out = _channel_stats(x2d, 0.0)
+    out = channel_stats(x2d, 0.0)
     return out[0], out[1]
 
 
 def bn_moments(x2d: torch.Tensor, eps: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(mean, var, rstd) of each channel of a CUDA (rows, C) tensor, hvt's
     ``_bn_train_fwd`` formulas formed by the sums' finish launch."""
-    out = _channel_stats(x2d, eps)
+    out = channel_stats(x2d, eps)
     return out[2], out[3], out[4]
 
 
@@ -228,3 +235,55 @@ def bn_dx(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor, rstd: torch.
               k + 2 * c * 4, dx.data_ptr(), m, c, plan.tx, plan.chunks, _DTYPES[x2d.dtype],
               stream)
     return dx
+
+
+def channel_partials(x2d: torch.Tensor) -> torch.Tensor:
+    """The sums' rows launch alone: (chunks, 2, C) f32 chunk partials of
+    (Σx, Σx²), in a tensor of their own (a collective may take it)."""
+    _check("bn_channel_sums", x2d)
+    m, c, plan, stream = _launch_args(x2d)
+    part = torch.empty((plan.chunks, 2, c), dtype=torch.float32, device=x2d.device)
+    SUMS_KERNEL(x2d.data_ptr(), m, c, plan.tx, plan.chunks, 0.0, part.data_ptr(), None,
+                _DTYPES[x2d.dtype], stream)
+    return part
+
+
+def bwd_partials(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
+                 rstd: torch.Tensor) -> torch.Tensor:
+    """The backward reduce's rows launch alone: (chunks, 2, C) f32 chunk
+    partials of (Σg, Σg·x̂), in a tensor of their own."""
+    _check("bn_bwd_reduce", g2d, x2d)
+    m, c, plan, stream = _launch_args(x2d)
+    _check_vectors("bn_bwd_reduce", c, x2d, mean, rstd)
+    part = torch.empty((plan.chunks, 2, c), dtype=torch.float32, device=x2d.device)
+    BWD_KERNEL(g2d.data_ptr(), x2d.data_ptr(), mean.data_ptr(), rstd.data_ptr(), None, m, c,
+               plan.tx, plan.chunks, part.data_ptr(), None, _DTYPES[x2d.dtype], stream)
+    return part
+
+
+def bn_finish(part: torch.Tensor, n: int, eps: float, kind: int, rstd: torch.Tensor | None = None,
+              scale: torch.Tensor | None = None) -> torch.Tensor:
+    """A reduction's finish on the (parts, 2, C) f32 partials ``part`` over
+    ``n`` rows, one launch: kind 0 takes (Σx, Σx²) and gives (5, C) = (Σx,
+    Σx², mean, var, rstd); kind 1 takes (Σg, Σg·x̂) with ``rstd`` (and
+    ``scale``, or γ = 1) and gives (Σg, Σg·x̂, γ·rstd, Σg/n, Σg·x̂/n). The
+    kernel is the fused calls' finish, so the partials of one rank's rows
+    launch give those calls' bits."""
+    if (part.dim() != 3 or part.shape[1] != 2 or part.dtype != torch.float32
+            or not part.is_contiguous() or part.data_ptr() % 16 or part.device.type != "cuda"):
+        raise ValueError(f"bn_finish: partials {tuple(part.shape)} {part.dtype} on {part.device}: "
+                         "contiguous (parts, 2, C) f32 on the card, 16-byte aligned, wanted")
+    parts, c = part.shape[0], part.shape[2]
+    why = unsupported(c)
+    if why:
+        raise ValueError(f"bn_finish: {why}")
+    if kind == 1:
+        if rstd is None:
+            raise ValueError("bn_finish: the backward's finish needs rstd")
+        _check_vectors("bn_finish", c, part, rstd, *(() if scale is None else (scale,)))
+    out = torch.empty((5, c), dtype=torch.float32, device=part.device)
+    stream = torch._C._cuda_getCurrentRawStream(part.device.index)
+    FINISH_KERNEL(part.data_ptr(), parts, int(n), c, eps,
+                  None if rstd is None else rstd.data_ptr(),
+                  None if scale is None else scale.data_ptr(), out.data_ptr(), int(kind), stream)
+    return out

@@ -8,6 +8,11 @@
 //   hvt_bn_bwd_reduce:   (Σg, Σg·x̂, γ·rstd, Σg/n, Σg·x̂/n) of each channel,
 //                        x̂ = (x − mean)·rstd
 //   hvt_bn_dx:           dx = γ·rstd·((g − Σg/n) − x̂·Σg·x̂/n), in x's dtype
+//   hvt_bn_finish:       a reduction's finish alone, on chunk partials formed
+//                        elsewhere (data parallelism: the rows launch of
+//                        hvt_bn_channel_sums or hvt_bn_bwd_reduce with a
+//                        null out, an all-reduce of its partials over the
+//                        ranks, then this on the global n)
 //
 // Replaces: hvt/ops/bn_stats_pallas.py `_sums_pallas` (the pallas_call at
 // line 94, body `_sums_kernel`) and `_bwd_reduce_pallas` (the pallas_call at
@@ -410,6 +415,7 @@ int launch_sums(const void* x, long long m, int c, int tx, int chunks, float eps
   const Grid p(m, c, tx, chunks);
   channel_sums_kernel<T><<<p.grid, kBnThreads, 0, st>>>(static_cast<const T*>(x), m, c, tx, p.rpc,
                                                         part);
+  if (out == nullptr) return (int)cudaGetLastError();  // the rows launch alone
   return finish<0>(part, chunks, m, c, eps, nullptr, nullptr, out, st);
 }
 
@@ -421,6 +427,7 @@ int launch_bwd(const void* g, const void* x, const float* mean, const float* rst
   bwd_reduce_kernel<T><<<p.grid, kBnThreads, 0, st>>>(static_cast<const T*>(g),
                                                        static_cast<const T*>(x), mean, rstd, m, c,
                                                        tx, p.rpc, part);
+  if (out == nullptr) return (int)cudaGetLastError();  // the rows launch alone
   return finish<1>(part, chunks, m, c, 0.f, rstd, scale, out, st);
 }
 
@@ -453,13 +460,30 @@ int launch_dx(const void* g, const void* x, const float* mean, const float* rstd
 // plan the kernels do not take.
 
 // x: (m, c); out: (5, c) = (Σx, Σx², mean, var, rstd). Two launches: the
-// sums, then their finish.
+// sums, then their finish; with a null out, the sums' launch alone, which
+// leaves the (chunks, 2, c) partials in part.
 extern "C" int hvt_bn_channel_sums(const void* x, long long m, int c, int tx, int chunks, float eps,
                                    float* part, float* out, int dtype, void* stream) {
   if (hvt::bad_plan(m, c, tx, chunks)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return hvt::launch_sums<hvt::bf16>(x, m, c, tx, chunks, eps, part, out, s);
   return hvt::launch_sums<float>(x, m, c, tx, chunks, eps, part, out, s);
+}
+
+// The finish alone, on partials that another step formed (the data-parallel
+// route: each rank's rows launch, hvt_bn_channel_sums or hvt_bn_bwd_reduce
+// with a null out, then an all-reduce of its partials over the ranks):
+// part = (parts, 2, c) f32 of (Σx, Σx²) for kind 0 or (Σg, Σg·x̂) for kind
+// 1, n the global row count; out = (5, c) as those entries write it. One
+// launch of the same finish_kernel<kind>: on one rank's partials it gives
+// those entries' bits.
+extern "C" int hvt_bn_finish(const float* part, int parts, long long n, int c, float eps,
+                             const float* rstd, const float* scale, float* out, int kind,
+                             void* stream) {
+  if (hvt::bad_plan(n, c, 1, parts) || kind < 0 || kind > 1) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kind == 0) return hvt::finish<0>(part, parts, n, c, eps, nullptr, nullptr, out, s);
+  return hvt::finish<1>(part, parts, n, c, 0.f, rstd, scale, out, s);
 }
 
 // x: (m, c) of x_dtype; y: (m, c) of y_dtype.
@@ -480,7 +504,7 @@ extern "C" int hvt_bn_normalize(const void* x, const float* mean, const float* r
 
 // g, x: (m, c) of one dtype; scale may be null (γ = 1); out: (5, c) =
 // (Σg, Σg·x̂, γ·rstd, Σg/n, Σg·x̂/n). Two launches: the sums, then their
-// finish.
+// finish; with a null out, the sums' launch alone (partials in part).
 extern "C" int hvt_bn_bwd_reduce(const void* g, const void* x, const float* mean,
                                  const float* rstd, const float* scale, long long m, int c, int tx,
                                  int chunks, float* part, float* out, int dtype, void* stream) {

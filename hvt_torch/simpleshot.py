@@ -23,7 +23,7 @@ import numpy as np
 
 from hvt_torch import config as config_lib
 from hvt_torch import device as device_lib
-from hvt_torch import hierarchy
+from hvt_torch import hierarchy, parallel
 from hvt_torch.downstream import centroid as centroid_lib
 from hvt_torch.downstream import features as F
 from hvt_torch.utils.logging import publish_run_metrics
@@ -33,6 +33,7 @@ def main(config: config_lib.Config, device=None) -> dict:
     if not config.model.variant.startswith("simpleshot"):
         raise ValueError(
             f"model.variant must be a simpleshot variant, got {config.model.variant!r}")
+    parallel.one_process_entry(config, "hvt_torch.simpleshot")
     device = device_lib.resolve(device)
 
     hier = config.simpleshot.hierarchical

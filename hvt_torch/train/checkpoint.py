@@ -18,7 +18,10 @@ is joined first, and ``wait``, ``latest_step``, ``restore`` and ``close``
 join too. A write goes to ``<step>.tmp/`` and is committed by ``os.replace``
 to ``<step>/``; only then does the keep policy prune, so a reader never sees
 a half-written step. An exception in the writer is raised again at the next
-``save``, ``wait``, ``latest_step``, ``restore`` or ``close``.
+``save``, ``wait``, ``latest_step``, ``restore`` or ``close``. In a data
+group (hvt's multi-process Trainer) rank 0 alone saves, between two
+barriers of the Trainer's, and the Trainer's ``close`` lets every rank go
+only once rank 0's writes are committed; every rank restores the same files.
 
 Cross-run loading (``load_pretrained``): ``ckpt://<path>[:step]`` or a bare
 path (a port checkpoint, EMA weights preferred), ``swin://``/``torch://``

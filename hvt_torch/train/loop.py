@@ -13,7 +13,24 @@ merged into the model (its BatchNorm statistics with it); the
 :class:`~hvt_torch.train.checkpoint.Checkpointer` opens
 ``<save_root>/<run_name>/checkpoints``; ``load_path`` (a ``ckpt://`` URI or
 path), or else with ``auto_resume`` the run's own latest checkpoint, is
-restored; the RunLogger writes ``<save_root>/<run_name>/logs/log0.txt``.
+restored; the RunLogger writes ``<save_root>/<run_name>/logs/log{rank}.txt``.
+
+Data parallelism (hvt's Trainer over its mesh's ``data`` axis,
+``hvt/train/loop.py:52-153, 271``): in a process group (``torchrun``, see
+:mod:`hvt_torch.main`) the Trainer reads its rank and world, checks
+``config.mesh`` against the world before anything is built (only ``data``
+is ported: -1 or the world), declares the group to the model code
+(:mod:`hvt_torch.parallel`), and builds the loaders for its rank: the train
+loader in hvt's microbatch layout, the eval loader ``order[rank::world]``
+padded to the same batches on every rank. After any restore it broadcasts
+rank 0's parameters, running statistics and EMA copies and checks that every
+rank holds the same update count and generator state. The step sums the
+ranks' gradients (:mod:`hvt_torch.train.step`); the eval sums are summed
+over the ranks before the metrics are formed; ``grad_accum: auto`` is
+probed on the local batch, each rank alone, and the ranks take the largest;
+rank 0 alone prints and saves (between barriers); the speed monitor counts
+the global batch; a SIGTERM on any rank stops every rank at the same step.
+Without a group it is one process, as before.
 
 A restore sets the model's parameters and running statistics, the optimizer
 state with its update count (hvt's ``state.step``), the EMA copies in place
@@ -52,14 +69,17 @@ import math
 import os
 import signal
 import threading
+import zlib
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from hvt_torch import config as config_lib
 from hvt_torch import device as device_lib
 from hvt_torch import metrics as metrics_lib
 from hvt_torch import objectives as objectives_lib
+from hvt_torch import parallel
 from hvt_torch.data import DevicePrep
 from hvt_torch.data import device as device_prep
 from hvt_torch.data.loader import Batch, build_loader, host_tensor
@@ -78,19 +98,34 @@ class Trainer:
     def __init__(self, config: config_lib.Config, device=None, log_interval: int = 50):
         self.config = config
         self.log_interval = log_interval  # steps between train records: one host sync each
+        # the process group, if this process is in one, and hvt's mesh against it,
+        # before any weight moves
+        self.rank, self.world = parallel.process_world()
+        parallel.check_mesh(config.mesh, self.world)
         self.algos = algorithms_lib.parse_algorithms(config)
         self.device = device_lib.resolve(device)
+        self._declared = dist.is_available() and dist.is_initialized()
+        if self._declared:
+            parallel.set_data_group(dist.group.WORLD, self.device if self.device.type == "cuda"
+                                    else None)
 
         # Data ------------------------------------------------------------
         pin = self.device.type == "cuda"  # the producer pins; _to_device only copies
-        self.train_loader, self.info = build_loader(config, is_train=True, pin_memory=pin)
-        self.eval_loader, eval_info = build_loader(config, is_train=False, pin_memory=pin)
+        self.train_loader, self.info = build_loader(config, is_train=True, pin_memory=pin,
+                                                    process_index=self.rank,
+                                                    process_count=self.world)
+        self.eval_loader, eval_info = build_loader(config, is_train=False, pin_memory=pin,
+                                                   process_index=self.rank,
+                                                   process_count=self.world)
         self.steps_per_epoch = self.train_loader.batches_per_epoch
         self.tree_dists = eval_info.tree_dists
-        print(f"[{config.run_name}] train loader: {len(self.train_loader.dataset)} images, "
-              f"decoder {self.train_loader.decoder}; eval loader: "
-              f"{len(self.eval_loader.dataset)} images, decoder {self.eval_loader.decoder}",
-              flush=True)
+        self._say(f"train loader: {len(self.train_loader.dataset)} images, "
+                  f"decoder {self.train_loader.decoder}; eval loader: "
+                  f"{len(self.eval_loader.dataset)} images, decoder {self.eval_loader.decoder}")
+        if self._declared:
+            self._say(f"data parallel: rank {self.rank} of world {self.world} "
+                      f"({dist.get_backend()}), local batch {self.train_loader.local_batch_size} "
+                      f"of {config.train_dataset.global_batch_size}")
 
         # Durations / schedule -------------------------------------------
         self.total_steps = schedule_lib.parse_duration(config.max_duration).to_steps(
@@ -121,10 +156,14 @@ class Trainer:
         self.eval_prep = DevicePrep.from_config(config.eval_dataset, config.precision)
         if config.grad_accum == "auto":
             grad_accum = self._auto_grad_accum()
-            print(f"[{config.run_name}] grad_accum auto: {grad_accum}", flush=True)
+            self._say(f"grad_accum auto: {grad_accum}")
         else:
             grad_accum = int(config.grad_accum)
         self.grad_accum = grad_accum
+        # each rank's batch: its share of every microbatch of the global batch
+        parallel.microbatch_rows(int(config.train_dataset.global_batch_size), grad_accum,
+                                 self.world, self.rank)
+        self.train_loader.microbatches = grad_accum
         self.settings = self._settings(grad_accum)
         self.train_step = step_lib.build_train_step(
             self.model, self.objective, self.optimizer, self.prep, self.settings, self.ema)
@@ -152,13 +191,34 @@ class Trainer:
             self.restore(checkpoint_lib.load_raw(config.load_path))
         elif config.auto_resume and (step := self.checkpointer.latest_step()) is not None:
             self.restore(self.checkpointer.restore(step))
-            print(f"[{config.run_name}] auto-resumed from step {step}", flush=True)
-        self.logger = RunLogger(save_folder, config.run_name, use_wandb=config.save.wandb,
-                                wandb_entity=config.wandb.entity,
-                                wandb_project=config.wandb.project, tags=list(config.tags))
+            self._say(f"auto-resumed from step {step}")
+        self._sync_ranks()
+        self.logger = RunLogger(save_folder, config.run_name, rank=self.rank,
+                                use_wandb=config.save.wandb, wandb_entity=config.wandb.entity,
+                                wandb_project=config.wandb.project, tags=list(config.tags),
+                                world=self.world)
         self.logger.log_config(config_lib.to_yaml(config))
-        self.speed = SpeedMonitor(window_size=50)
+        self.speed = SpeedMonitor(window_size=50, num_chips=self.world)
         self._preempted = False
+
+    def _say(self, line: str) -> None:
+        """A line of the run on stdout, from rank 0."""
+        if self.rank == 0:
+            print(f"[{self.config.run_name}] {line}", flush=True)
+
+    def _sync_ranks(self) -> None:
+        """Rank 0's parameters, running statistics and EMA copies on every
+        rank (after any restore), then a check that every rank holds the same
+        update count and generator state."""
+        if not self._declared:
+            return
+        tensors = [*self.model.parameters(), *self.model.buffers()]
+        if self.ema is not None:
+            tensors += [*self.ema.params.values(), *self.ema.batch_stats.values()]
+        parallel.broadcast_tensors_(tensors)
+        rng = self.generator.get_state()
+        digest = int(zlib.crc32(rng.cpu().numpy().tobytes()))
+        parallel.check_same([self.step, digest], "the update count and the generator's state")
 
     def _settings(self, grad_accum: int) -> step_lib.StepSettings:
         a = self.algos
@@ -177,7 +237,7 @@ class Trainer:
         sizes the step with SAM's branch in it; the probe leaves the model,
         the optimizer, the EMA and the Trainer's generator as it found them."""
         cfg = self.config.train_dataset
-        batch, crop = int(cfg.global_batch_size), int(cfg.crop_size)
+        batch, crop = self.train_loader.local_batch_size, int(cfg.crop_size)
         limit = microbatch.device_bytes_limit(self.device)
         if limit is None:
             return microbatch.choose_grad_accum(lambda accum: None, batch, None)
@@ -197,7 +257,9 @@ class Trainer:
                 self.device)
 
         state = microbatch.optimizer_state_bytes(self.optimizer)
-        return microbatch.choose_grad_accum(lambda accum: state + measure(accum), batch, limit)
+        with parallel.no_data_group():  # each rank alone: a rank that runs out skips collectives
+            accum = microbatch.choose_grad_accum(lambda accum: state + measure(accum), batch, limit)
+        return parallel.host_max([accum])[0]
 
     def _scale_for_step(self, step: int) -> float:
         """The progressive-resize scale of step ``step`` (1.0 without it)."""
@@ -252,8 +314,14 @@ class Trainer:
         """Save (hvt's ``_save_checkpoint``): the host copy now, the write in
         the background; with a wandb run, the step is uploaded as an artifact
         with the ``latest``/``ep{N}-ba{M}`` aliases (reference
-        monkey_patch.py:33-91)."""
-        self.checkpointer.save(step, self.state_dict())
+        monkey_patch.py:33-91). In a data group rank 0 alone saves, between
+        two barriers (every rank holds the same state)."""
+        parallel.barrier()
+        if self.rank == 0:
+            self.checkpointer.save(step, self.state_dict())
+        parallel.barrier()
+        if self.rank != 0:
+            return
         if self.config.save.wandb and self.logger.uploads:
             self.checkpointer.wait()  # the upload reads the files
             epoch = step // self.steps_per_epoch
@@ -289,8 +357,9 @@ class Trainer:
             stats = self.eval_step(params, batch_stats, *self._to_device(batch))
             sums = stats if sums is None else {k: sums[k] + v for k, v in stats.items()}
         acc = metrics_lib.MetricAccumulator()
-        if sums is not None:
-            acc.update(dict(zip(sums, torch.stack(list(sums.values())).tolist())))
+        if sums is not None:  # every rank has as many batches: the sums of all of them
+            acc.update(dict(zip(sums, parallel.all_reduce_(torch.stack(list(sums.values())))
+                                .tolist())))
         return acc.compute()
 
     def _evaluate_at(self, step: int) -> dict[str, float]:
@@ -370,10 +439,13 @@ class Trainer:
                 scale = self._scale_for_step(step)
                 stats = self.train_step(*self._to_device(batch), self.generator, scale)
                 sums = stats if sums is None else {k: sums[k] + v for k, v in stats.items()}
-                self.speed.batch_end(int(batch.mask.sum()))  # known on the host: no sync
+                # known on the host: no sync; the global batch's samples
+                self.speed.batch_end(int(batch.mask.sum()) * self.world)
                 step += 1
                 if on_step is not None:
                     on_step(step, stats)
+                if self._declared:  # a SIGTERM on any rank stops every rank at this step
+                    self._preempted = bool(parallel.host_max([int(self._preempted)])[0])
                 if self._preempted:
                     break
                 if eval_every_ba is not None and step % eval_every_ba == 0:
@@ -399,14 +471,18 @@ class Trainer:
             if step >= self.total_steps:
                 break
         if self._preempted:
-            print(f"[{self.config.run_name}] preempted (SIGTERM): checkpointing at step {step} "
-                  "and exiting cleanly", flush=True)
+            self._say(f"preempted (SIGTERM): checkpointing at step {step} and exiting cleanly")
         self.save_checkpoint(step)  # always the final state: on preemption, the resume point
         return eval_metrics
 
     def close(self) -> None:
-        """Join the last checkpoint write (raising what it raised), close the log."""
+        """Join the last checkpoint write (raising what it raised), close the
+        log; in a data group every rank leaves once rank 0's writes are
+        committed, and the group's declaration is cleared."""
         try:
             self.checkpointer.close()
         finally:
             self.logger.close()
+            if self._declared:
+                parallel.barrier()
+                parallel.set_data_group(None)

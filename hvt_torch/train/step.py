@@ -33,6 +33,21 @@ passes one key, so the port replays the generator from the state it had at
 the start of the step; the parameters are put back from a copy (``p + e −
 e`` is not ``p``), the running statistics from a snapshot taken after the
 first pass, and the generator to its state after the first pass.
+
+Under a declared data group (:mod:`hvt_torch.parallel`; hvt's GSPMD step
+over its mesh's data axis, ``hvt/train/step.py:93-213``) each rank's batch
+is its share of every microbatch of hvt's global batch (the loader's row
+plan). The augmentation draws are made over the global microbatch from the
+generator, which stays equal on every rank, and each rank keeps its rows;
+each rank's loss is its Σ(loss·mask) over the global Σmask (its objective's
+value times its count over the global count), so that the ranks' gradients
+*sum* to those of hvt's global masked mean. After the last microbatch the
+gradients are summed over the ranks in flat buckets, one all-reduce at a
+time (``parallel.all_reduce_tensors_``), before the division by
+``grad_accum``; SAM's norm and the clipping then read the summed gradients,
+and SAM's second pass is summed again. The loss and the metric sums are
+summed over the ranks in one all-reduce, so every rank returns the global
+stats.
 """
 
 from __future__ import annotations
@@ -44,6 +59,7 @@ import numpy as np
 import torch
 
 from hvt_torch import metrics as metrics_lib
+from hvt_torch import parallel
 from hvt_torch.data import device as device_prep
 from hvt_torch.data import randaugment as ra_lib
 from hvt_torch.train import ema as ema_lib
@@ -71,14 +87,19 @@ def draw_augmentations(generator: Optional[torch.Generator], settings: StepSetti
                        images_shape: tuple[int, ...], scale: float, device) -> dict:
     """The step's augmentation draws, in hvt's order (RandAugment, ColOut,
     MixUp, CutMix), on ``device`` from ``generator``: the inputs of
-    :func:`augment` besides the batch."""
+    :func:`augment` besides the batch. Under a data group the per-image
+    draws are made over the global microbatch and this rank keeps its rows."""
     b, h, w, _ = images_shape
+    total, offset = parallel.global_rows(b)
     draws = {}
     if settings.randaugment:
         depth, _, stratified = settings.randaugment
-        draws["randaugment"] = ra_lib.draw_rand_augment(generator, b, depth, stratified, device)
+        rounds = ra_lib.draw_rand_augment(generator, total, depth, stratified, device)
+        draws["randaugment"] = (rounds if total == b
+                                else ra_lib.local_rounds(rounds, offset, b, stratified))
     if settings.colout:
-        draws["colout"] = device_prep.draw_colout(generator, b, h, w, *settings.colout, device)
+        keep = device_prep.draw_colout(generator, total, h, w, *settings.colout, device)
+        draws["colout"] = None if keep is None else tuple(t[offset:offset + b] for t in keep)
     if settings.mixup_alpha:
         draws["mixup"] = device_prep.draw_beta(generator, settings.mixup_alpha, device)
     if settings.cutmix_alpha:
@@ -123,6 +144,7 @@ def build_gradients(model: torch.nn.Module, objective: Callable, prep: device_pr
         raise ValueError(f"grad_accum {accum}: at least 1")
 
     def one_pass(chunks, generator, scale, draws):
+        grouped = parallel.data_group() is not None
         loss_sum, sums = None, None
         for i, (images, labels, mask) in enumerate(chunks):
             d = draws[i] if draws is not None else draw_augmentations(
@@ -130,12 +152,25 @@ def build_gradients(model: torch.nn.Module, objective: Callable, prep: device_pr
             x, targets = augment(images, labels, prep, settings, scale, d)
             out = model(x, generator=generator)
             loss = objective(out, targets, mask)
+            if grouped:  # the rank's share of the global masked mean
+                count = mask.sum()
+                loss = loss * (count.clamp_min(1.0)
+                               / parallel.all_reduce_(count.clone()).clamp_min(1.0))
             loss.backward()
             with torch.no_grad():
                 detached = [o.detach() for o in out] if isinstance(out, list) else out.detach()
                 stats = metrics_lib.batch_stats(detached, labels, mask)
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
             sums = stats if sums is None else {k: sums[k] + v for k, v in stats.items()}
+        if grouped:
+            with torch.no_grad():
+                parallel.all_reduce_tensors_([p.grad for p in model.parameters()
+                                              if p.grad is not None])
+                names = list(sums)
+                flat = parallel.all_reduce_(torch.stack([loss_sum.float()]
+                                                        + [sums[k].float() for k in names]))
+                loss_sum = flat[0].to(loss_sum.dtype)
+                sums = {k: flat[j + 1].to(sums[k].dtype) for j, k in enumerate(names)}
         if accum > 1:
             with torch.no_grad():
                 for p in model.parameters():

@@ -1,16 +1,19 @@
 """Run logging and throughput — port of ``hvt/utils/logging.py``.
 
-:class:`RunLogger` writes ``<save_folder>/logs/log0.txt`` (the resolved
-config as YAML, then one JSON object a record: ``step``, ``time`` and the
-metrics under their ``prefix/``), prints each record on stdout as
-``[run] step=…, prefix/key=…``, and feeds an optional wandb sink, active only
-when ``save.wandb`` asks for it and the wandb package can be imported (it
-warns, as hvt's does, when the package is missing; the package is imported
-only then). :class:`SpeedMonitor`
-gives samples/sec over a sliding window (reference main.py:92,
-window_size=50). :func:`memory_stats` reads the card's allocator under hvt's
-key names. :func:`publish_run_metrics` is the downstream entry points'
-one-shot logger. The port is one process: rank 0, no broadcast.
+:class:`RunLogger` writes ``<save_folder>/logs/log{rank}.txt`` (the
+resolved config as YAML, then one JSON object a record: ``step``, ``time``
+and the metrics under their ``prefix/``) on every rank; rank 0 prints each
+record on stdout as ``[run] step=…, prefix/key=…`` and feeds an optional
+wandb sink, active only when ``save.wandb`` asks for it and the wandb
+package can be imported (it warns, as hvt's does, when the package is
+missing; the package is imported only then). In a world of several
+processes every rank then adopts rank 0's run descriptor (entity, project,
+id) through ``parallel.broadcast_small_json``, as hvt's does
+(hvt/utils/logging.py:30-80). :class:`SpeedMonitor` gives samples/sec over a
+sliding window (reference main.py:92, window_size=50), the Trainer counting
+the global batch's samples, and per chip. :func:`memory_stats` reads the
+card's allocator under hvt's key names. :func:`publish_run_metrics` is the
+downstream entry points' one-shot logger (one process).
 """
 
 from __future__ import annotations
@@ -34,14 +37,16 @@ def _import_wandb():
 class RunLogger:
     def __init__(self, save_folder: str | pathlib.Path, run_name: str, use_wandb: bool = False,
                  wandb_entity: str = "", wandb_project: str = "",
-                 tags: Optional[list[str]] = None):
+                 tags: Optional[list[str]] = None, rank: int = 0, world: int = 1):
         self.run_name = run_name
+        self.rank = rank
         log_dir = pathlib.Path(save_folder) / "logs"
         log_dir.mkdir(parents=True, exist_ok=True)
-        self._file = open(log_dir / "log0.txt", "a")
-        self._wandb = _import_wandb() if use_wandb else None
+        self._file = open(log_dir / f"log{rank}.txt", "a")
+        self._wandb = _import_wandb() if use_wandb and rank == 0 else None
         self._wandb_run = None
-        if use_wandb and self._wandb is None:
+        self.run_info: dict[str, str] = {}  # the wandb run's descriptor, equal on every rank
+        if use_wandb and rank == 0 and self._wandb is None:
             warnings.warn(
                 "wandb logging/upload requested (save.wandb: true) but the wandb package is "
                 "not installed — metrics stay in the jsonl logs and checkpoints are not "
@@ -49,6 +54,13 @@ class RunLogger:
         if self._wandb is not None:
             self._wandb_run = self._wandb.init(name=run_name, entity=wandb_entity or None,
                                                project=wandb_project or None, tags=tags or [])
+            self.run_info = {k: str(getattr(self._wandb_run, a, "") or "")
+                             for k, a in (("entity", "entity"), ("project", "project"),
+                                          ("run_id", "id"))}
+        if use_wandb and world > 1:  # a collective: every rank enters it, wandb or not
+            from hvt_torch import parallel
+
+            self.run_info = parallel.broadcast_small_json(self.run_info)
 
     @property
     def uploads(self) -> bool:
@@ -60,16 +72,18 @@ class RunLogger:
                   **{(f"{prefix}/{k}" if prefix else k): _scalar(v) for k, v in metrics.items()}}
         self._file.write(json.dumps(record) + "\n")
         self._file.flush()
-        printable = ", ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
-                              for k, v in record.items() if k != "time")
-        print(f"[{self.run_name}] {printable}", flush=True)
+        if self.rank == 0:
+            printable = ", ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+                                  for k, v in record.items() if k != "time")
+            print(f"[{self.run_name}] {printable}", flush=True)
         if self._wandb_run is not None:
             self._wandb_run.log(record, step=step)
 
     def log_config(self, config_yaml: str) -> None:
         """Print and keep the resolved config; push it to wandb.config when a
         run exists (reference utils.py:7-12)."""
-        print(config_yaml, flush=True)
+        if self.rank == 0:
+            print(config_yaml, flush=True)
         self._file.write(config_yaml + "\n")
         self._file.flush()
         if self._wandb_run is not None:
@@ -148,10 +162,11 @@ def memory_stats(device) -> dict[str, float]:
 
 class SpeedMonitor:
     """Sliding-window samples/sec (reference SpeedMonitor, window_size=50),
-    and per chip, as hvt's keys have it: the port runs on one card."""
+    and per chip over ``num_chips`` cards (one a rank)."""
 
-    def __init__(self, window_size: int = 50):
+    def __init__(self, window_size: int = 50, num_chips: int = 1):
         self.window: collections.deque = collections.deque(maxlen=window_size)
+        self.num_chips = max(1, num_chips)
 
     def batch_end(self, num_samples: int) -> None:
         self.window.append((time.perf_counter(), num_samples))
@@ -162,4 +177,4 @@ class SpeedMonitor:
         t0, t1 = self.window[0][0], self.window[-1][0]
         samples = sum(n for _, n in list(self.window)[1:])  # completed between the ticks
         ips = samples / max(t1 - t0, 1e-9)
-        return {"samples_per_sec": ips, "samples_per_sec_per_chip": ips}
+        return {"samples_per_sec": ips, "samples_per_sec_per_chip": ips / self.num_chips}

@@ -822,6 +822,39 @@ def test_bn_kernels_refuse_what_they_do_not_take(cuda):
         bs.bn_bwd_reduce(x, x.float(), torch.zeros(128, device=cuda), torch.ones(128, device=cuda))
 
 
+@pytest.mark.parametrize("m,c", [(50176, 64), (12544, 2048), (2003, 264)])
+def test_bn_finish_alone_gives_the_fused_calls_bits(cuda, m, c):
+    """The data-parallel route's two launches, each reduction's rows launch
+    alone (``channel_partials``, ``bwd_partials``) and ``bn_finish`` on its
+    (chunks, 2, C) partials, give the fused call's five rows bit for bit
+    (the same partials, the same finish); the plain finish, which adds the
+    parts in another order, within 1e-5·max|plain|. Each wrapper counts its
+    launches; bn_finish refuses partials that are not a contiguous
+    (parts, 2, C) f32 on the card, and a backward finish without rstd."""
+    gen = torch.Generator(cuda).manual_seed(c)
+    x = (torch.randn(m, c, device=cuda, generator=gen) * 1.5 + 0.3).bfloat16()
+    g = torch.randn(m, c, device=cuda, generator=gen).bfloat16()
+    scale = torch.rand(c, device=cuda, generator=gen)
+    fused = bsc.channel_stats(x, 1e-5)
+    mean, rstd = fused[2], fused[4]
+    fused_bwd = bsc.bn_bwd_terms(g, x, mean, rstd, scale)
+    before = [k.launches for k in (bsc.SUMS_KERNEL, bsc.BWD_KERNEL, bsc.FINISH_KERNEL)]
+    parts = (bsc.channel_partials(x), bsc.bwd_partials(g, x, mean, rstd))
+    assert parts[0].shape == (bsc.launch_plan(m, c).chunks, 2, c)
+    for kind, part, ref, args, eps in ((0, parts[0], fused, (), 1e-5),
+                                       (1, parts[1], fused_bwd, (rstd, scale), 0.0)):
+        got = bsc.bn_finish(part, m, eps, kind, *args)
+        assert torch.equal(got, ref), kind
+        plain = torch.stack(bs.bn_finish_plain(part, m, eps, kind, *args))
+        assert float((got - plain).abs().max()) <= 1e-5 * float(plain.abs().max()), kind
+    after = [k.launches for k in (bsc.SUMS_KERNEL, bsc.BWD_KERNEL, bsc.FINISH_KERNEL)]
+    assert after == [before[0] + 1, before[1] + 1, before[2] + 2]
+    with pytest.raises(ValueError, match=r"\(parts, 2, C\) f32"):
+        bsc.bn_finish(fused[:2].clone(), m, 1e-5, 0)
+    with pytest.raises(ValueError, match="rstd"):
+        bsc.bn_finish(parts[1], m, 0.0, 1)
+
+
 @pytest.mark.parametrize("m,c", [(200704, 128), (12544, 2048)])
 def test_bn_train_through_the_kernels(cuda, monkeypatch, m, c):
     """``bn_train`` in bf16 through its four kernels against the same

@@ -283,7 +283,7 @@ _TRAINING_MODULES = {
     "hvt_torch.train.algorithms", "hvt_torch.train.loop", "hvt_torch.train.optim",
     "hvt_torch.train.schedule", "hvt_torch.train.step", "hvt_torch.ops.window_attention_cuda",
     "hvt_torch.train.ema", "hvt_torch.models.resnet", "hvt_torch.ops.bn_stats",
-    "hvt_torch.ops.bn_stats_cuda",
+    "hvt_torch.ops.bn_stats_cuda", "hvt_torch.parallel",
 }
 # the downstream slice's modules: the card's machine has no sklearn either
 _DOWNSTREAM_MODULES = {
