@@ -296,7 +296,24 @@ Phases, in order; any failure exits non-zero and prints no result:
      (c) ``torchrun --standalone --nproc_per_node=1 -m hvt_torch.main`` for 2
      steps of ResNet-50 at 256 on the synthetic source: world 1, rank 0,
      ``log0.txt`` and the step-2 checkpoint. The script needs one card, so
-     NCCL across several cards is not part of it.
+     NCCL across several cards is not part of it;
+ 21. tensor parallelism (``mesh.model``) and ZeRO-1 (``mesh.zero``): two
+     spawned ranks share the card over gloo (NCCL takes one rank a device;
+     gloo's all-gathers of CUDA tensors go through the host), each running
+     ``hvt_torch.main.main`` in turn on (a) SwinV2-T fused and (b) unfused
+     at 128 with ``model: 2`` from a drawn backbone (PretrainedBackbone),
+     (c) inat21.yaml's ResNet-50 (bn_pallas, EMA) at 256 and (d) SwinV2-T
+     fused at 128, each on data 2 with and without ``zero``, and (e)
+     vit_b16.yaml on flash at 64 with ``model: 2``, 3 steps each (2 for
+     ViT). (a), (b), (e) are held against the same run in this process:
+     losses within 1e-2, step-1 gradients (gathered over the model group)
+     at cosine ≥ 0.99 and norm within 5%, parameters after the steps
+     within 2·steps·lr and a mean of 0.1·lr; (c) and (d) bit-equal to their
+     data-parallel twins, with less optimizer state a rank. Each rank's
+     step ms, peak memory, optimizer-state bytes, kernels launched and
+     collectives issued a step are printed; the kernel counts a step are
+     asserted (12 of each fused MLP kernel, of each packed attention
+     kernel and of each flash kernel; 106 ``bn_finish``).
 Each phase's seconds are printed when the next begins, and all of them on
 the ``[done]`` line and in the report (``phase_seconds``).
 Every Trainer writes its checkpoints and run log under a temporary
@@ -5882,6 +5899,12 @@ def data_parallel_phase(card: str) -> dict:
         grouped = {label: dp_train_run(cfg, f"{label}, world of one (nccl)")
                    for label, cfg in configs.items()}
         bn = dp_bn_check()
+        # NCCL's all-gather (tensor parallelism's and ZeRO-1's; phase 21 runs gloo)
+        x = torch.arange(24, dtype=torch.float32, device="cuda").view(2, 3, 4)
+        gathered = parallel.all_gather(x, dist.group.WORLD)
+        if gathered.device.type != "cuda" or not torch.equal(gathered, x[None]):
+            raise AssertionError(f"NCCL all_gather at a world of one: {gathered}")
+        log("  NCCL all_gather_into_tensor at a world of one: the rank's tensor, on the card")
     finally:
         parallel.destroy()
     runs = {}
@@ -5920,6 +5943,320 @@ def data_parallel_phase(card: str) -> dict:
         f"{bn['behind_busy_card_ms']}")
     cli = dp_cli_run()
     return {"bn_train": bn, "runs": runs, "bn_finish_launches": finish_launches, "cli": cli}
+
+
+# Phase 21: tensor parallelism and ZeRO-1, two gloo ranks on the one card.
+# The script needs one card and NCCL takes one rank a device, so the grid's
+# two ranks share it over gloo (the port's collectives stage its
+# all-gathers through the host); their step times and the collectives'
+# costs are those of two processes sharing one card, not of two cards.
+GRID_WORLD = 2
+GRID_STEPS = 3  # (a)-(d)
+GRID_VIT_STEPS = 2  # (e)
+GRID_VIT_BATCH = 64
+GRID_RESNET_BATCH = 256
+GRID_SEED = 29  # the drawn SwinV2-T backbone of (a), (b) and (d)
+GRID_TIMEOUT = 600
+ADAM_MAX_STEPS = 2  # after Adam, every element within 2·steps·lr of one process's
+ADAM_MEAN = 0.1  # and each tensor's mean |Δ| within 0.1·lr (the fused route's hold)
+GRID_PER_STEP = {  # kernels each rank launches a training step, by run
+    "a": {"mlp_half_fwd": 12, "mlp_half_bwd": 12},
+    "b": {"window_attention_packed_fwd": 12, BWD_KERNEL: 12},
+    "c_zero": {"bn_finish": 2 * RESNET_BN_LAYERS},
+    "d_zero": {"mlp_half_fwd": 12, "mlp_half_bwd": 12},
+    "e": {"flash_attention_fwd": 12, "flash_attention_bwd_dkv": 12, "flash_attention_bwd_dq": 12},
+}
+GRID_TWINS = {"c_zero": "c_dp", "d_zero": "d_dp"}  # ZeRO-1 run: its data-parallel twin
+
+
+def write_grid_backbone(root: pathlib.Path) -> str:
+    """A SwinV2-T at 10,000 classes with every parameter drawn (randomize_,
+    GRID_SEED) as a port checkpoint: (a), (b) and (d) start from it through
+    PretrainedBackbone, so that no res-post-norm of zeros makes a block's
+    gradients 0 at the first step."""
+    import torch
+
+    from hvt_torch.models import build_model
+
+    model = build_model(training_config(fuse=True, steps=GRID_STEPS), CLASSES)
+    randomize_(model, seed=GRID_SEED)
+    (root / "backbone").mkdir(parents=True)
+    torch.save({"params": {n: p.detach() for n, p in model.named_parameters()},
+                "batch_stats": {}}, root / "backbone" / "state.pt")
+    return f"ckpt://{root / 'backbone'}"
+
+
+def grid_plan(backbone: str, root: pathlib.Path) -> dict:
+    """The runs of phase 21 as config dicts by key: (a) SwinV2-T fused and
+    (b) unfused on model 2; (c) ResNet-50 and (d) SwinV2-T fused on data 2,
+    each with and without ZeRO-1; (e) ViT-B/16 on flash with model 2."""
+    from hvt_torch import config as config_lib
+
+    def layer(config, key, mesh, **change):
+        d = config_lib.to_dict(config)
+        d["mesh"] = {**d["mesh"], **mesh}
+        d["run_name"] = f"grid_{key}"
+        d["machine"]["save_root"] = str(root / "runs")
+        d.update(change)
+        return d
+
+    def swin(key, fuse, mesh):
+        config = training_config(fuse=fuse, steps=GRID_STEPS)
+        algos = config_lib.to_dict(config)["algorithms"] + [
+            {"cls": "PretrainedBackbone", "args": {"checkpoint": backbone}}]
+        return layer(config, key, mesh, algorithms=algos)
+
+    resnet = resnet_config(True, steps=GRID_STEPS)
+    vit = one_batch_config(["pretrain/vit_b16.yaml"], GRID_VIT_STEPS, GRID_VIT_BATCH,
+                           model={"args": {"use_flash": True}}, grad_accum=1)
+    return {"a": swin("a", True, {"model": 2}), "b": swin("b", False, {"model": 2}),
+            "c_dp": layer(resnet, "c_dp", {}), "c_zero": layer(resnet, "c_zero", {"zero": True}),
+            "d_dp": swin("d_dp", True, {}), "d_zero": swin("d_zero", True, {"zero": True}),
+            "e": layer(vit, "e", {"model": 2})}
+
+
+GRID_FULL = ("a", "b", "e")  # held against one process: full parameters and gradients kept
+
+
+def grid_train_run(key: str, layer: dict) -> dict:
+    """One run of ``layer`` through ``hvt_torch.main.main`` on this process's
+    card (in the grid when a group is up), every launch counter at 0 just
+    before: losses, step ms (CUDA events between steps), peak memory, the
+    optimizer state's bytes on this rank, the kernels launched and the
+    collectives issued in a training step (the last step's, no evaluation
+    in it), and the final state: for GRID_FULL the full parameters and the
+    step-1 gradients (gathered over the model group), else this rank's
+    state with its EMA copy."""
+    import torch
+
+    from hvt_torch import config as config_lib
+    from hvt_torch import main as main_lib
+    from hvt_torch import parallel
+
+    config = config_lib.loads(layer)
+    full = key in GRID_FULL
+    counters = kernel_counters()
+    kept, events, losses, marks, grads = [], [], [], [], {}
+
+    class Kept(main_lib.Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            kept.append(self)
+
+        def close(self):
+            params = dict(self.model.named_parameters())
+            if full:
+                self.final = {n: t.detach().cpu() for n, t in
+                              parallel.full_tensors(params).items()}
+            else:
+                self.final = {n: t.detach().cpu().clone()
+                              for n, t in self.model.state_dict().items()}
+                if self.ema is not None:
+                    self.final.update({f"ema.{n}": t.cpu().clone()
+                                       for n, t in self.ema.params.items()})
+            self.state_bytes = sum(t.numel() * t.element_size()
+                                   for s in self.optimizer.state.values() for t in s.values())
+            super().close()
+
+    def on_step(step, stats):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        losses.append(stats["loss_sum"])
+        if step == 1 and full:
+            model = kept[0].model
+            grads.update({n: g.cpu() for n, g in parallel.full_tensors(
+                {n: p.grad for n, p in model.named_parameters()}).items()})
+        # after the gradients' gathers: the next step's count is the step's own
+        marks.append(({k: c.launches for k, c in counters.items()}, dict(parallel.COUNTS)))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    with swapped(main_lib, Trainer=Kept), trainer_output():
+        main_lib.main(config, device="cuda", on_step=on_step)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    trainer = kept[0]
+    (k0, c0), (k1, c1) = marks[-2], marks[-1]
+    return {"key": key, "losses": [float(v) for v in losses],
+            "step_ms": [a.elapsed_time(b) for a, b in zip(events, events[1:])],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "state_bytes": trainer.state_bytes, "wall_s": wall_s,
+            "grid": (trainer.rank, trainer.data_size, trainer.model_size, trainer.zero),
+            "launches_a_step": {k: k1[k] - k0[k] for k in k1 if k1[k] != k0[k]},
+            "collectives_a_step": {k: c1[k] - c0[k] for k in c1},
+            "final": trainer.final, "grads": grads}
+
+
+def grid_rank(rank: int, port: int, plan: dict, root: str) -> None:
+    """One rank of phase 21's world: gloo over tcp://127.0.0.1:``port`` on
+    cuda:0, every run of ``plan`` in turn, the ZeRO-1 runs held bit for bit
+    against their twins here; results to ``root``/rank<r>.pt, a traceback
+    to ``root``/rank<r>.err."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from hvt_torch import parallel
+
+    root = pathlib.Path(root)
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                                world_size=GRID_WORLD)
+        try:
+            with deterministic():
+                runs = {key: grid_train_run(key, layer) for key, layer in plan.items()}
+        finally:
+            parallel.destroy()
+        for key, twin in GRID_TWINS.items():
+            got, ref = runs[key]["final"], runs[twin]["final"]
+            runs[key]["bit_equal"] = (got.keys() == ref.keys() and runs[key]["losses"]
+                                      == runs[twin]["losses"]
+                                      and all(torch.equal(t, ref[n]) for n, t in got.items()))
+            runs[key]["max_diff"] = max(float((t.double() - ref[n].double()).abs().max())
+                                        for n, t in got.items())
+        for run in runs.values():
+            if run["key"] not in GRID_FULL or rank:
+                run["final"], run["grads"] = {}, {}
+        torch.save(runs, root / f"rank{rank}.pt")
+    except BaseException:
+        (root / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def adam_close(got: dict, ref: dict, lr: float, steps: int, label: str) -> dict:
+    """Parameters after ``steps`` Adam steps against one process's: every
+    element within ADAM_MAX_STEPS·steps·lr, each tensor's mean |Δ| within
+    ADAM_MEAN·lr (Adam moves an element by about lr whatever its
+    gradient's size, so bf16 rounding can flip an update's sign). The key
+    third of a ViT qkv bias is held to the first bound alone, as
+    ``tests/test_torch_port_vit.py`` holds it: its gradient is 0 in exact
+    arithmetic (q·b_k shifts all of a query's logits alike), so Adam moves
+    it by ±lr on rounding noise, on each side its own."""
+    import torch
+
+    worst_max, worst_mean = (0.0, ""), (0.0, "")
+    for n, t in got.items():
+        diff = (t.double() - ref[n].double()).abs()
+        worst_max = max(worst_max, (float(diff.max()), n))
+        if n.endswith("attn.qkv.bias"):
+            d = diff.shape[0] // 3
+            diff = torch.cat([diff[:d], diff[2 * d:]])
+        worst_mean = max(worst_mean, (float(diff.mean()), n))
+    if worst_max[0] > ADAM_MAX_STEPS * steps * lr or worst_mean[0] > ADAM_MEAN * lr:
+        raise AssertionError(f"{label}: parameters after {steps} steps: max|Δ| {worst_max} "
+                             f"(bound {ADAM_MAX_STEPS * steps * lr:.3g}), worst mean|Δ| "
+                             f"{worst_mean} (bound {ADAM_MEAN * lr:.3g})")
+    log(f"    {label} parameters after {steps} steps against one process: max|Δ| "
+        f"{worst_max[0]:.3g} ({worst_max[1]}), worst mean|Δ| {worst_mean[0]:.3g} ({worst_mean[1]})")
+    return {"max_abs_diff": worst_max[0], "max_abs_diff_tensor": worst_max[1],
+            "worst_mean_abs_diff": worst_mean[0], "worst_mean_tensor": worst_mean[1]}
+
+
+def grid_phase(card: str) -> dict:
+    """Phase 21: (a)-(e) on two ranks of one card over gloo, the runs held
+    against one process (a, b, e) or their data-parallel twins (c, d)."""
+    import multiprocessing
+
+    import torch
+
+    root = runs_root() / "grid"
+    root.mkdir(parents=True)
+    log(f"  every number of phase 21 on {card}, two ranks sharing it over gloo")
+    plan = grid_plan(write_grid_backbone(root), root)
+    refs = {}
+    with deterministic():
+        for key in GRID_FULL:
+            refs[key] = grid_train_run(key, {**plan[key], "mesh": {**plan[key]["mesh"], "model": 1}})
+    shutil.rmtree(root / "runs", ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=grid_rank, args=(r, port, plan, str(root)))
+             for r in range(GRID_WORLD)]
+    for p in procs:
+        p.start()
+    try:
+        deadline = time.monotonic() + GRID_TIMEOUT
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks_s = time.perf_counter() - t0
+    failed = [r for r, p in enumerate(procs) if p.exitcode != 0]
+    if failed:
+        errs = {r: (root / f"rank{r}.err").read_text()[-3000:] if (root / f"rank{r}.err").exists()
+                else f"exit code {procs[r].exitcode}" for r in failed}
+        raise AssertionError(f"phase 21 ranks {failed} failed: {errs}")
+    ranks = [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(GRID_WORLD)]
+    out = {"card": card, "ranks_wall_s": ranks_s, "runs": {}}
+    for key in plan:
+        runs = [rk[key] for rk in ranks]
+        if runs[0]["losses"] != runs[1]["losses"]:
+            raise AssertionError(f"{key}: the ranks' losses differ: {runs[0]['losses']} "
+                                 f"{runs[1]['losses']}")
+        steps = GRID_VIT_STEPS if key == "e" else GRID_STEPS
+        if len(runs[0]["losses"]) != steps or not all(map(math.isfinite, runs[0]["losses"])):
+            raise AssertionError(f"{key}: losses {runs[0]['losses']}")
+        for name, n in GRID_PER_STEP.get(key, {}).items():
+            got = [r["launches_a_step"].get(name, 0) for r in runs]
+            if got != [n] * GRID_WORLD:
+                raise AssertionError(f"{key}: {name} launched {got} times a step by the ranks, "
+                                     f"expected {n} each")
+        rec = {k: [r[k] for r in runs] for k in ("grid", "step_ms", "peak_gib", "state_bytes",
+                                                   "launches_a_step", "collectives_a_step",
+                                                   "wall_s")}
+        rec["losses"] = runs[0]["losses"]
+        if key in GRID_TWINS:
+            rec["bit_equal"] = [r["bit_equal"] for r in runs]
+            rec["max_diff"] = [r["max_diff"] for r in runs]
+            twin = [rk[GRID_TWINS[key]] for rk in ranks]
+            rec["twin_state_bytes"] = [r["state_bytes"] for r in twin]
+            if not all(rec["bit_equal"]):
+                raise AssertionError(f"{key}: ZeRO-1 against data parallelism: max|Δ| "
+                                     f"{rec['max_diff']}")
+            if not all(z < d for z, d in zip(rec["state_bytes"], rec["twin_state_bytes"])):
+                raise AssertionError(f"{key}: optimizer state {rec['state_bytes']} B a rank, "
+                                     f"data parallel {rec['twin_state_bytes']}")
+        if key in GRID_FULL:
+            ref, got = refs[key], runs[0]
+            for a, b in zip(got["losses"], ref["losses"]):
+                if abs(a - b) > LOSS_RTOL * abs(b):
+                    raise AssertionError(f"{key}: losses {got['losses']} against one process's "
+                                         f"{ref['losses']}")
+            rec["gradients"] = compare_gradients(got["grads"], ref["grads"],
+                                                 f"{key} step-1 gradients against one process",
+                                                 GRAD_COSINE)
+            lr = float(plan[key]["optim"]["lr"])
+            rec["params"] = adam_close(got["final"], ref["final"], lr, steps, key)
+            rec["one_process"] = {k: ref[k] for k in ("losses", "step_ms", "peak_gib",
+                                                      "state_bytes", "launches_a_step")}
+        out["runs"][key] = rec
+        log(f"  {key} {rec['grid'][0]}: losses {rec['losses']}; step ms by rank "
+            f"{[[round(v, 1) for v in ms] for ms in rec['step_ms']]}; peak GiB "
+            f"{[round(v, 2) for v in rec['peak_gib']]}; optimizer state bytes {rec['state_bytes']}"
+            + (f" (data parallel {rec['twin_state_bytes']}, bit-equal {rec['bit_equal']})"
+               if key in GRID_TWINS else "")
+            + (f" (one process: step ms {[round(v, 1) for v in rec['one_process']['step_ms']]}, "
+               f"peak {rec['one_process']['peak_gib']:.2f} GiB, state "
+               f"{rec['one_process']['state_bytes']} B)" if key in GRID_FULL else "")
+            + f"; a step: launches {rec['launches_a_step'][0]}, collectives "
+            f"{rec['collectives_a_step']}")
+    clear_runs()
+    return out
 
 
 def ptxas_summary(logs: dict) -> dict:
@@ -6481,10 +6818,16 @@ def main(argv=None) -> int:
         "plain_ms": bn["finish_plain_ms"], "bound_ms": bn["finish_bound_ms"],
         "bound_by": "bytes", "library_ms": None,
     })
+
+    log("[21] tensor parallelism (mesh.model) and ZeRO-1 (mesh.zero), two gloo ranks on this "
+        "card: SwinV2-T fused and unfused and ViT-B/16 on flash with model 2 against one "
+        "process; ResNet-50 (bn_pallas, EMA) and SwinV2-T fused with zero against data "
+        "parallelism, bit-equal")
+    grid = grid_phase(card)
     end_phase()
 
     report = {"card": card, "host": host, "folders": folders, "downstream": downstream,
-              "data_parallel": data_parallel, "phase_seconds": PHASE_SECONDS,
+              "data_parallel": data_parallel, "grid": grid, "phase_seconds": PHASE_SECONDS,
               "rest_of_training": rest, "vit": vit, "families": families,
               "batch": BATCH, "kernels": kernels,
               "routes": routes,

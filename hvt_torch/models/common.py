@@ -102,15 +102,27 @@ def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
 class TransformerMlp(nn.Module):
     """hvt's ``TransformerMlp``: fc1 → exact (erf) GELU → fc2, each Dense in
-    the input's dtype."""
+    the input's dtype.
+
+    Under tensor parallelism (``tp``, set by ``parallel.shard_model_``) the
+    module holds this rank's shards: fc1's rows and bias of a hidden slice,
+    fc2's matching columns (``fc1.out_features`` stays the full hidden
+    width). The forward is Megatron's, as hvt's GSPMD partitions it: the
+    slice's fc1 and GELU, fc2's partial product, one all-reduce over the
+    model group, then fc2's bias once."""
 
     def __init__(self, dim: int, hidden: int, out: int | None = None):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim if out is None else out)
+        self.tp = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return linear(self.fc2, F.gelu(linear(self.fc1, x)))
+        if not self.tp:
+            return linear(self.fc2, F.gelu(linear(self.fc1, x)))
+        h = F.gelu(linear(self.fc1, parallel.copy_to_model(x)))
+        y = parallel.reduce_from_model(F.linear(h, self.fc2.weight.to(x.dtype)))
+        return y + self.fc2.bias.to(x.dtype)
 
 
 def drop_path_scale(batch: int, rate: float, generator: torch.Generator | None = None,

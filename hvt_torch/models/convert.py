@@ -21,14 +21,22 @@ depthwise (k, k, 1, C) lands as (C, 1, k, k), a grouped (3, 3, I/g, O) as
 (O, I/g, 3, 3)), a 2-D one a Dense, ``scale`` a norm, a bare array (ConvNeXt's
 ``gamma``) keeps its name and layout, and ``batch_stats`` give the running
 statistics.
+
+Under tensor parallelism a rank's model holds shards of the MLP weights
+(``parallel.shard_model_``): :func:`shard_state_dict` cuts full entries to
+one model rank's shards by hvt's rules (``parallel.TP_RULES``),
+:func:`unshard_state_dicts` joins every rank's back, and the loaders below
+cut a full tree for a sharded model themselves.
 """
 
 from __future__ import annotations
 
-from collections.abc import Mapping
+from collections.abc import Mapping, Sequence
 
 import numpy as np
 import torch
+
+from hvt_torch import parallel
 
 
 def _dense(sub, prefix: str, out: dict) -> None:
@@ -189,7 +197,35 @@ def convnet_state_dict_from_flax(params: Mapping, batch_stats: Mapping | None = 
     return out
 
 
+def shard_state_dict(state: Mapping, rank: int, size: int) -> dict:
+    """Full state-dict entries (arrays or tensors) → model rank ``rank`` of
+    ``size``'s: each entry the TP rules match cut to its shard, the rest as
+    they are."""
+    out = {}
+    for name, t in state.items():
+        dim = parallel.tp_rule(name)
+        out[name] = t if dim is None or size == 1 else parallel.shard(t, dim, rank, size)
+    return out
+
+
+def unshard_state_dicts(shards: Sequence[Mapping]) -> dict:
+    """Every model rank's entries, in rank order → the full ones (a
+    replicated entry is rank 0's)."""
+    out = {}
+    for name, t in shards[0].items():
+        dim = parallel.tp_rule(name)
+        if dim is None or len(shards) == 1:
+            out[name] = t
+        elif isinstance(t, torch.Tensor):
+            out[name] = torch.cat([s[name] for s in shards], dim)
+        else:
+            out[name] = np.concatenate([s[name] for s in shards], dim)
+    return out
+
+
 def _load(model: torch.nn.Module, state: dict[str, np.ndarray]) -> torch.nn.Module:
+    if any(getattr(m, "tp", False) for m in model.modules()):  # a model of shards
+        state = shard_state_dict(state, parallel.model_rank(), parallel.model_size())
     ref = model.state_dict()
     tensors = {}
     for name, arr in state.items():

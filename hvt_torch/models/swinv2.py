@@ -63,6 +63,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from hvt_torch import parallel
 from hvt_torch.models.common import (TransformerMlp, drop_path, drop_path_scale, layer_norm,
                                       linear, recompute, trunc02_)
 from hvt_torch.models.heads import MultitaskHead
@@ -221,12 +222,19 @@ class SwinBlock(nn.Module):
 
     def _mlp_half(self, x, generator):
         """x + the MLP half's branch on ``fuse=True``, by :meth:`mlp_route`,
-        the residual fused where :meth:`mlp_resid` allows."""
+        the residual fused where :meth:`mlp_resid` allows. Under tensor
+        parallelism the kernels run on the weights gathered over the model
+        group (every model peer computes the whole half on its rows) and the
+        plain route is the MLP's own Megatron form."""
         b, h, w, c = x.shape
         mlp = self.mlp
         nchunks = self.mlp_route(self.training)
-        args = (x.reshape(b * h * w, c), mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight,
-                mlp.fc2.bias, self.norm2.weight, self.norm2.bias)
+        w1, b1, w2 = mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight
+        if mlp.tp and nchunks > 0:  # the kernels take the full weights, as hvt's re-gather them
+            w1, b1 = parallel.gather_from_model(w1, 0), parallel.gather_from_model(b1, 0)
+            w2 = parallel.gather_from_model(w2, 1)
+        args = (x.reshape(b * h * w, c), w1, b1, w2, mlp.fc2.bias, self.norm2.weight,
+                self.norm2.bias)
         if nchunks == 1 and self.mlp_resid(b * h * w, h * w):
             return fh.mlp_half(*args, tpi=h * w,
                                dp=self._scale(b, generator, x.device)).reshape(b, h, w, c)

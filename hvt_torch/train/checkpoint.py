@@ -22,6 +22,9 @@ a half-written step. An exception in the writer is raised again at the next
 group (hvt's multi-process Trainer) rank 0 alone saves, between two
 barriers of the Trainer's, and the Trainer's ``close`` lets every rank go
 only once rank 0's writes are committed; every rank restores the same files.
+Under tensor parallelism or ZeRO-1 every rank first joins the gathers that
+make the state's tensors full, so the files are those of a data-parallel run
+and a restore slices them for whatever grid reads them.
 
 Cross-run loading (``load_pretrained``): ``ckpt://<path>[:step]`` or a bare
 path (a port checkpoint, EMA weights preferred), ``swin://``/``torch://``

@@ -8,7 +8,10 @@ parameters and the BatchNorm running statistics. hvt updates on the steps
 where the state's step *before* the update is a multiple of the interval
 (step 0, 20, 40, ...; hvt/train/step.py:218-231), from copies taken at init.
 The step count lives on the host, so the update is a Python ``if`` around one
-``torch._foreach_lerp_``: no device branch, no sync.
+``torch._foreach_lerp_``: no device branch, no sync. Under tensor
+parallelism the copies are taken from the model's shards, so each rank
+averages its own (hvt's EMA tree mirrors the parameters' shardings); ZeRO-1
+never splits them.
 """
 
 from __future__ import annotations

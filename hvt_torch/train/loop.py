@@ -32,6 +32,18 @@ rank 0 alone prints and saves (between barriers); the speed monitor counts
 the global batch; a SIGTERM on any rank stops every rank at the same step.
 Without a group it is one process, as before.
 
+Tensor parallelism and ZeRO-1 (hvt's ``mesh.model`` and ``mesh.zero``,
+``hvt/train/loop.py:198-216``, ``:351-370``): the Trainer declares the grid
+of data × model ranks (:func:`hvt_torch.parallel.set_data_group`), builds
+the loaders for its data index (model peers load the same rows), cuts the
+built model's MLP weights to its shard (``parallel.shard_model_``) before
+the optimizer and the EMA copy are made, so both hold shards, and gives the
+optimizer ``zero`` where data > 1. Every rank joins the gathers of a save
+(the checkpoint holds full tensors, the same files as a data-parallel run's)
+and a restore slices them for the current grid. ``grad_accum: auto`` probes
+each rank's own share, its state bytes the rank's; the ranks take the
+largest. Evaluation runs on the shards.
+
 A restore sets the model's parameters and running statistics, the optimizer
 state with its update count (hvt's ``state.step``), the EMA copies in place
 and the state of the generator that draws drop-path masks. hvt folds the
@@ -101,22 +113,25 @@ class Trainer:
         # the process group, if this process is in one, and hvt's mesh against it,
         # before any weight moves
         self.rank, self.world = parallel.process_world()
-        parallel.check_mesh(config.mesh, self.world)
+        self.data_size = parallel.check_mesh(config.mesh, self.world)
+        self.model_size = self.world // self.data_size
+        self.zero = bool(getattr(config.mesh, "zero", False)) and self.data_size > 1
+        self.data_rank = self.rank // self.model_size
         self.algos = algorithms_lib.parse_algorithms(config)
         self.device = device_lib.resolve(device)
         self._declared = dist.is_available() and dist.is_initialized()
         if self._declared:
             parallel.set_data_group(dist.group.WORLD, self.device if self.device.type == "cuda"
-                                    else None)
+                                    else None, model=self.model_size)
 
         # Data ------------------------------------------------------------
         pin = self.device.type == "cuda"  # the producer pins; _to_device only copies
         self.train_loader, self.info = build_loader(config, is_train=True, pin_memory=pin,
-                                                    process_index=self.rank,
-                                                    process_count=self.world)
+                                                    process_index=self.data_rank,
+                                                    process_count=self.data_size)
         self.eval_loader, eval_info = build_loader(config, is_train=False, pin_memory=pin,
-                                                   process_index=self.rank,
-                                                   process_count=self.world)
+                                                   process_index=self.data_rank,
+                                                   process_count=self.data_size)
         self.steps_per_epoch = self.train_loader.batches_per_epoch
         self.tree_dists = eval_info.tree_dists
         self._say(f"train loader: {len(self.train_loader.dataset)} images, "
@@ -126,6 +141,9 @@ class Trainer:
             self._say(f"data parallel: rank {self.rank} of world {self.world} "
                       f"({dist.get_backend()}), local batch {self.train_loader.local_batch_size} "
                       f"of {config.train_dataset.global_batch_size}")
+            if self.model_size > 1 or self.zero:
+                self._say(f"grid: data {self.data_size} x model {self.model_size}, "
+                          f"zero {'on' if self.zero else 'off'}")
 
         # Durations / schedule -------------------------------------------
         self.total_steps = schedule_lib.parse_duration(config.max_duration).to_steps(
@@ -144,6 +162,7 @@ class Trainer:
             if why:
                 raise NotImplementedError(
                     f"the CUDA kernels cannot run {config.model.name}: " + "; ".join(why))
+        parallel.shard_model_(model)  # the rank's MLP shards, before any copy is made
         self.model = model.to(self.device)
         self.ema = ema_lib.Ema(self.algos.ema, self.model) if self.algos.ema else None
         self.objective = objectives_lib.build_objective(
@@ -151,7 +170,7 @@ class Trainer:
         self.optimizer = optim_lib.build_optimizer(
             self.model, config.optim, self.lr_multiplier,
             grad_clip_norm=self.algos.grad_clip_norm,
-            no_decay_substrings=self.model.no_weight_decay_substrings)
+            no_decay_substrings=self.model.no_weight_decay_substrings, zero=self.zero)
         self.prep = DevicePrep.from_config(config.train_dataset, config.precision)
         self.eval_prep = DevicePrep.from_config(config.eval_dataset, config.precision)
         if config.grad_accum == "auto":
@@ -162,7 +181,7 @@ class Trainer:
         self.grad_accum = grad_accum
         # each rank's batch: its share of every microbatch of the global batch
         parallel.microbatch_rows(int(config.train_dataset.global_batch_size), grad_accum,
-                                 self.world, self.rank)
+                                 self.data_size, self.data_rank)
         self.train_loader.microbatches = grad_accum
         self.settings = self._settings(grad_accum)
         self.train_step = step_lib.build_train_step(
@@ -173,13 +192,14 @@ class Trainer:
         self.train_metrics: dict[str, float] = {}  # of the last train record, with its lr
 
         # Pretrained backbone: into the model only; the EMA copy keeps the
-        # init, as hvt's state does.
+        # init, as hvt's state does. Merged on full tensors, then sliced.
         if self.algos.pretrained_backbone is not None:
             uri, strict = self.algos.pretrained_backbone
             live = dict(self.model.named_parameters())
             live_stats = ema_lib.batch_stats(self.model)
-            params, stats = checkpoint_lib.load_pretrained(uri, live, live_stats, strict=strict)
-            checkpoint_lib.copy_into(live, params, uri)
+            params, stats = checkpoint_lib.load_pretrained(uri, parallel.full_tensors(live),
+                                                           live_stats, strict=strict)
+            checkpoint_lib.copy_into(live, parallel.local_shards(params), uri)
             checkpoint_lib.copy_into(live_stats, stats, uri)
 
         # Checkpointing / logging -----------------------------------------
@@ -207,9 +227,9 @@ class Trainer:
             print(f"[{self.config.run_name}] {line}", flush=True)
 
     def _sync_ranks(self) -> None:
-        """Rank 0's parameters, running statistics and EMA copies on every
-        rank (after any restore), then a check that every rank holds the same
-        update count and generator state."""
+        """Data index 0's parameters, running statistics and EMA copies on
+        every rank of its data group (after any restore), then a check that
+        every rank holds the same update count and generator state."""
         if not self._declared:
             return
         tensors = [*self.model.parameters(), *self.model.buffers()]
@@ -283,19 +303,26 @@ class Trainer:
 
     def state_dict(self) -> dict:
         """The checkpoint's fields (hvt's TrainState names; see
-        :mod:`hvt_torch.train.checkpoint`), as live tensors."""
+        :mod:`hvt_torch.train.checkpoint`): live tensors, and under a grid
+        the full ones gathered from the shards and slices (every rank of the
+        grid must call it)."""
         ema = self.ema.state_dict() if self.ema else {}
-        return {"step": self.step, "params": dict(self.model.named_parameters()),
+        ema_params = ema.get("params")
+        return {"step": self.step,
+                "params": parallel.full_tensors(dict(self.model.named_parameters())),
                 "batch_stats": ema_lib.batch_stats(self.model),
                 "opt_state": self.optimizer.state_dict(),
-                "ema_params": ema.get("params"), "ema_batch_stats": ema.get("batch_stats"),
+                "ema_params": None if ema_params is None else parallel.full_tensors(ema_params),
+                "ema_batch_stats": ema.get("batch_stats"),
                 "ema_updates": ema.get("updates"), "rng": self.generator.get_state(),
                 "config": config_lib.to_yaml(self.config)}
 
     def restore(self, state: dict) -> None:
         """Set the model, the optimizer (its count included), the EMA (in
-        place) and the generator from a saved :meth:`state_dict`."""
-        checkpoint_lib.copy_into(dict(self.model.named_parameters()), state["params"], "params")
+        place) and the generator from a saved :meth:`state_dict`, each full
+        tensor sliced to this rank's shard."""
+        checkpoint_lib.copy_into(dict(self.model.named_parameters()),
+                                 parallel.local_shards(state["params"]), "params")
         checkpoint_lib.copy_into(ema_lib.batch_stats(self.model), state["batch_stats"],
                                  "batch_stats")
         self.optimizer.load_state_dict(state["opt_state"])
@@ -303,7 +330,7 @@ class Trainer:
             raise ValueError(f"the checkpoint {'has' if self.ema is None else 'lacks'} an EMA "
                              f"copy and this run {'has none' if self.ema is None else 'has one'}")
         if self.ema is not None:
-            self.ema.load_state_dict({"params": state["ema_params"],
+            self.ema.load_state_dict({"params": parallel.local_shards(state["ema_params"]),
                                       "batch_stats": state["ema_batch_stats"],
                                       "updates": state["ema_updates"]})
         self.generator.set_state(state["rng"])
@@ -314,11 +341,13 @@ class Trainer:
         """Save (hvt's ``_save_checkpoint``): the host copy now, the write in
         the background; with a wandb run, the step is uploaded as an artifact
         with the ``latest``/``ep{N}-ba{M}`` aliases (reference
-        monkey_patch.py:33-91). In a data group rank 0 alone saves, between
-        two barriers (every rank holds the same state)."""
+        monkey_patch.py:33-91). In a data group every rank joins the gathers
+        of the state and rank 0 alone saves, between two barriers."""
         parallel.barrier()
+        state = self.state_dict()
         if self.rank == 0:
-            self.checkpointer.save(step, self.state_dict())
+            self.checkpointer.save(step, state)
+        del state
         parallel.barrier()
         if self.rank != 0:
             return
@@ -440,7 +469,7 @@ class Trainer:
                 stats = self.train_step(*self._to_device(batch), self.generator, scale)
                 sums = stats if sums is None else {k: sums[k] + v for k, v in stats.items()}
                 # known on the host: no sync; the global batch's samples
-                self.speed.batch_end(int(batch.mask.sum()) * self.world)
+                self.speed.batch_end(int(batch.mask.sum()) * self.data_size)
                 step += 1
                 if on_step is not None:
                     on_step(step, stats)

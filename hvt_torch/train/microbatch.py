@@ -78,15 +78,12 @@ def device_bytes_limit(device: torch.device) -> Optional[int]:
     return int(torch.cuda.mem_get_info(device)[1])
 
 
-def optimizer_state_bytes(optimizer: torch.optim.Optimizer) -> int:
-    """Bytes of state the optimizer's first update will allocate, beyond what
-    it holds already: two f32 moments per parameter for adamw, one momentum
-    trace otherwise (``hvt_torch/train/optim.py``)."""
-    if optimizer.state:
-        return 0
-    slots = 2 if getattr(optimizer, "name", "") in ("adamw", "decoupledadamw") else 1
-    return slots * sum(p.numel() * p.element_size()
-                       for group in optimizer.param_groups for p in group["params"])
+def optimizer_state_bytes(optimizer) -> int:
+    """Bytes of state the optimizer's first update will allocate on this
+    rank, beyond what it holds already: two f32 moments per parameter (its
+    TP shard, its ZeRO-1 slice) for adamw, one momentum trace otherwise
+    (``Optimizer.state_bytes``)."""
+    return optimizer.state_bytes()
 
 
 def probe_step(model: torch.nn.Module, run: Callable[[], None]) -> None:

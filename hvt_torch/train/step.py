@@ -47,7 +47,10 @@ time (``parallel.all_reduce_tensors_``), before the division by
 ``grad_accum``; SAM's norm and the clipping then read the summed gradients,
 and SAM's second pass is summed again. The loss and the metric sums are
 summed over the ranks in one all-reduce, so every rank returns the global
-stats.
+stats. Under a grid with a model axis every sum above is over the data
+group: model peers run the same rows and hold the same replicated
+gradients, and SAM's norm and the clipping count a TP shard's squares over
+the model group (``optim.global_norm``).
 """
 
 from __future__ import annotations
@@ -204,7 +207,8 @@ def build_gradients(model: torch.nn.Module, objective: Callable, prep: device_pr
         try:
             with torch.no_grad():
                 grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-                factor = settings.sam_rho / optim_lib.global_norm(grads).clamp_min(1e-12)
+                norm = optim_lib.global_norm(grads, optim_lib.tp_sharded(params))
+                factor = settings.sam_rho / norm.clamp_min(1e-12)
                 for p, g in zip(params, grads):
                     p.add_(factor * g.to(p.dtype))
             del grads

@@ -24,7 +24,11 @@ with bf16 x (the output rounding), at every SwinV2-T and SwinV2-B block
 shape and each pair of x's and the weights' dtypes. The downstream layer:
 the linear probe's grid search in f32 on the card against f64 on the CPU,
 the centroids (f64) against the CPU's, and ``extract_features`` on ResNet-50
-and SwinV2-T fused against the plain path. Each test states its tolerance.
+and SwinV2-T fused against the plain path. Tensor parallelism's pieces run
+on two gloo ranks sharing the card (``tests/torch_ddp_worker.py``): the
+model group's three autograd Functions, gloo's host-staged all-gather of
+CUDA tensors, and the fused MLP's kernels on weights gathered from each
+rank's shards. Each test states its tolerance.
 """
 
 import math
@@ -1969,3 +1973,67 @@ def test_flash_backward_is_two_launches_and_no_eager_d(cuda, monkeypatch):
         torch.cuda.synchronize()
         assert torch.isfinite(leaf.grad).all()
     assert order == ["BWD_DQ_KERNEL", "BWD_DKV_KERNEL"] * 2
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism's pieces on the card: two gloo ranks on one device
+# ---------------------------------------------------------------------------
+
+GRID_WIDTHS = (96, 768)  # SwinV2-T's first and last stage
+
+
+@pytest.fixture(scope="module")
+def grid_ranks(tmp_path_factory):
+    """Two ranks of a gloo world on cuda:0 (``tests/torch_ddp_jobs.py``'s
+    ``cuda_grid``), the world one model group: what each returned."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the GPU machine)")
+    import torch_ddp_worker
+
+    return torch_ddp_worker.spawn("cuda_grid", 2, tmp_path_factory.mktemp("cuda-grid"),
+                                  {"widths": GRID_WIDTHS}, timeout=300.0)
+
+
+def test_model_group_functions_on_cuda_tensors(grid_ranks):
+    """The row-parallel output sums its ranks' partials and passes its
+    cotangent through; the column-parallel input passes x and sums the
+    ranks' cotangents; a gathered weight is the ranks' shards in order, its
+    gradient this rank's slice of the full one. Exact on small integers."""
+    for r, out in enumerate(grid_ranks):
+        assert out["model"] == (r, 2) and out["backend"] == "gloo"
+        y, dx = out["reduce"]
+        assert torch.equal(y, torch.full((4, 3), 3.0)) and torch.equal(dx, torch.full((4, 3), r + 1.0))
+        z, dx = out["copy"]
+        assert torch.equal(z, torch.full((4, 3), 2.0)) and torch.equal(dx, torch.full((4, 3), 3.0))
+        for dim in (0, 1):
+            g, dw, want, device = out[f"gather{dim}"]
+            assert device == "cuda"
+            assert torch.equal(g, torch.arange(48, dtype=torch.float32).reshape(8, 6))
+            assert torch.equal(dw, want)
+
+
+def test_gloo_all_gather_of_cuda_tensors_goes_through_the_host(grid_ranks):
+    """gloo takes no CUDA tensor in all_gather: the port copies to the host
+    and back, chosen by the group's backend; ZeRO-1's slice gather puts the
+    ranks' slices along their dim."""
+    for out in grid_ranks:
+        staged, device = out["staged"]
+        assert device == "cuda" and torch.equal(staged, torch.tensor([[0.0] * 3, [1.0] * 3]))
+        assert torch.equal(out["slices"], torch.cat([torch.full((6, 2), 1.0),
+                                                     torch.full((6, 2), 2.0)], 1))
+
+
+@pytest.mark.parametrize("c", GRID_WIDTHS)
+def test_mlp_half_kernels_on_weights_gathered_from_shards(grid_ranks, c):
+    """The fused MLP's forward and backward kernels (one launch each) on
+    fc1/fc2 gathered from each rank's shards, against the plain half on the
+    full weights: the output within 2e-2·max|plain| (the fused halves'
+    tolerance), each shard's gradient within 2e-2·max|plain| of its slice
+    of the plain half's full-weight gradient."""
+    for r, out in enumerate(grid_ranks):
+        rec = out["mlp"][c]
+        assert rec["launches"] == (1, 1)
+        _close(*rec["y"], 2e-2, f"mlp_half C={c} rank {r}")
+        for name, (got, want) in zip(("dw1", "db1", "dw2"), rec["grads"]):
+            assert got.shape == want.shape
+            _close(got, want, 2e-2, f"{name} shard, C={c} rank {r}")

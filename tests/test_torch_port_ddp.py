@@ -368,8 +368,10 @@ def _layer(tmp_path, **change):
 
 
 @pytest.mark.parametrize("mesh,error", [
-    ({"model": 2}, NotImplementedError), ({"spatial": 2}, NotImplementedError),
-    ({"pipe": 2}, NotImplementedError), ({"zero": True}, NotImplementedError),
+    ({"model": 2}, ValueError),  # model does not divide a world of one process
+    ({"spatial": 2}, NotImplementedError),
+    ({"pipe": 2}, NotImplementedError),
+    ({"model": 2, "zero": True}, ValueError),
     ({"data": 2}, ValueError),  # a world of one process
 ])
 def test_trainer_refuses_unported_mesh_before_weights_move(tmp_path, monkeypatch, mesh, error):
@@ -382,9 +384,11 @@ def test_trainer_refuses_unported_mesh_before_weights_move(tmp_path, monkeypatch
     monkeypatch.setattr(tloop, "build_loader", moved)
     with pytest.raises(error, match="queue 1, item 11"):
         tloop.Trainer(tconfig.loads(_layer(tmp_path, mesh=mesh)), device="cpu")
-    # data: -1 and the world's own size are what one process runs
+    # data: -1 and the world's own size are what one process runs; zero acts
+    # only where data > 1, so one process takes it
     assert parallel.check_mesh(tconfig.loads(_layer(tmp_path, mesh={"data": 1})).mesh, 1) == 1
     assert parallel.check_mesh(tconfig.loads(_layer(tmp_path)).mesh, 3) == 3
+    assert parallel.check_mesh(tconfig.loads(_layer(tmp_path, mesh={"zero": True})).mesh, 1) == 1
 
 
 def _downstream_entries():

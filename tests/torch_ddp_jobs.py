@@ -187,3 +187,159 @@ def trainer(inputs, directory):
         finally:
             trainer.close()
     return out
+
+
+# ---------------------------------------------------------------------------
+# The grid: tensor parallelism and ZeRO-1
+# ---------------------------------------------------------------------------
+
+
+def grid_model(case):
+    """The port's model of ``case`` from its factory in f32, the full weights
+    of ``case["state"]`` loaded, then cut to this rank's shards."""
+    from hvt_torch.models import build_model
+
+    config = tconfig.loads({"seed": 0, "model": {"name": case["name"], "args": case["args"]},
+                            "precision": {"compute_dtype": "float32"},
+                            "train_dataset": {"crop_size": case["img"]}})
+    model = build_model(config, NUM_CLASSES)
+    model.load_state_dict({k: _t(v) for k, v in case["state"].items()})
+    cut = parallel.shard_model_(model)
+    return model, cut
+
+
+def _grid_steps(case):
+    parallel.set_data_group(dist.group.WORLD, model=case["model"])
+    data, data_rank, model_rank = parallel.world(), parallel.rank(), parallel.model_rank()
+    model, cut = grid_model(case)
+    name, wd = case["optim"]
+    opt = toptim.Optimizer(model.named_parameters(), name, case["lr"], wd, 0.9,
+                           tschedule.cosine_with_warmup(1, 10), grad_clip_norm=5.0,
+                           no_decay_substrings=model.no_weight_decay_substrings,
+                           zero=case["zero"])
+    prep = tdevice.DevicePrep(mean=case["mean_std"][0], std=case["mean_std"][1],
+                              compute_dtype=torch.float32)
+    settings = tstep.StepSettings(num_classes=NUM_CLASSES, smoothing=0.1, **case["settings"])
+    step = tstep.build_train_step(model, tobjectives.soft_cross_entropy, opt, prep, settings)
+    generator = torch.Generator().manual_seed(0)
+    counts = dict(parallel.COUNTS)
+    stats = []
+    for images, labels, mask in case["batches"]:
+        rows = parallel.microbatch_rows(images.shape[0], settings.grad_accum, data, data_rank)
+        out = step(_t(images[rows]), _t(labels[rows]), _t(mask[rows]), generator)
+        stats.append({k: float(v) for k, v in out.items()})
+    names = {p: n for n, p in model.named_parameters()}
+    local = {names[p]: {k: tuple(v.shape) for k, v in s.items()} for p, s in opt.state.items()}
+    full_opt = opt.state_dict()
+    parallel.set_data_group(None)
+    return {"stats": stats, "cut": cut, "grid": (data_rank, data, model_rank),
+            "state": {k: v.clone() for k, v in model.state_dict().items()},
+            "opt_local": local, "opt_full": full_opt,
+            "param_names": [names[p] for g in opt.param_groups for p in g["params"]],
+            "collectives": {k: parallel.COUNTS[k] - counts[k] for k in counts}}
+
+
+def grid_steps(inputs, directory):
+    """Train steps of each case on its grid (``case["model"]``, ``case["zero"]``)."""
+    return [_grid_steps(c) for c in inputs]
+
+
+def grid_trainers(inputs, directory):
+    """Each (config layer, action) through a ``Trainer`` in turn, its
+    ``mesh`` setting the grid: "fit" trains it, "save" saves the state it
+    restored at its step. Returns each one's step stats, grid, final state
+    and the shapes of its EMA copy."""
+    from hvt_torch.train import loop as tloop
+
+    out = []
+    for layer, action in inputs:
+        trainer = tloop.Trainer(tconfig.loads(layer), device="cpu", log_interval=1)
+        records = {}
+        try:
+            if action == "fit":
+                trainer.fit(on_step=lambda s, stats: records.setdefault(
+                    s, {k: float(v) for k, v in stats.items()}))
+            else:
+                trainer.save_checkpoint(trainer.step)
+            out.append({"steps": records, "grid": (trainer.data_rank, trainer.data_size,
+                                                   trainer.model_size, trainer.zero),
+                        "state": {k: v.detach().clone() for k, v in
+                                  trainer.model.state_dict().items()},
+                        "ema_shapes": {k: tuple(v.shape) for k, v in
+                                       (trainer.ema.params.items() if trainer.ema else ())}})
+        finally:
+            trainer.close()
+    return out
+
+
+def cuda_grid(inputs, directory):
+    """On cuda:0, the world as one model group over gloo: the three
+    model-group Functions, the host-staged all-gather, ZeRO-1's slice
+    gather over the world as a data group, and the MLP half's kernels fed
+    weights gathered from each rank's shards, beside the plain half's
+    gradients on the full weights."""
+    from hvt_torch.ops import fused_halves_cuda as fh
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    world = dist.get_world_size()
+    parallel.set_data_group(dist.group.WORLD, device, model=world)
+    r = parallel.model_rank()
+    out = {"model": (r, parallel.model_size()), "backend": dist.get_backend()}
+
+    x = torch.full((4, 3), float(r + 1), device=device, requires_grad=True)
+    y = parallel.reduce_from_model(x)
+    y.backward(torch.full_like(y, float(r + 1)))
+    out["reduce"] = (y.detach().cpu(), x.grad.cpu())
+    x = torch.full((4, 3), 2.0, device=device, requires_grad=True)
+    z = parallel.copy_to_model(x)
+    (z * float(r + 1)).sum().backward()
+    out["copy"] = (z.detach().cpu(), x.grad.cpu())
+    full = torch.arange(8 * 6, dtype=torch.float32, device=device).reshape(8, 6)
+    for dim in (0, 1):
+        w = parallel.shard(full, dim, r, world).clone().requires_grad_()
+        g = parallel.gather_from_model(w, dim)
+        upstream = torch.arange(full.numel(), dtype=torch.float32, device=device).view_as(full)
+        g.backward(upstream)
+        out[f"gather{dim}"] = (g.detach().cpu(), w.grad.cpu(),
+                               parallel.shard(upstream, dim, r, world).cpu(), g.device.type)
+    staged = parallel.all_gather(torch.full((3,), float(r), device=device), parallel.model_group())
+    out["staged"] = (staged.cpu(), staged.device.type)
+
+    mlp = {}
+    for c in inputs["widths"]:
+        rng = np.random.default_rng(c)
+
+        def t(*shape, scale=1.0):
+            return torch.as_tensor((rng.normal(size=shape) * scale).astype(np.float32),
+                                   device=device)
+
+        w1, b1 = t(4 * c, c, scale=c ** -0.5), t(4 * c, scale=0.1)
+        w2, b2 = t(c, 4 * c, scale=(4 * c) ** -0.5), t(c, scale=0.1)
+        lns, lnb = 1.0 + t(c, scale=0.1), t(c, scale=0.1)
+        x = t(3 * 196, c).bfloat16()
+        g = t(3 * 196, c).bfloat16()
+        shards = [parallel.shard(w, d, r, world).clone().requires_grad_()
+                  for w, d in ((w1, 0), (b1, 0), (w2, 1))]
+        before = fh.MLP_KERNEL.launches, fh.MLP_BWD_KERNEL.launches
+        y = fh.mlp_half(x, parallel.gather_from_model(shards[0], 0),
+                        parallel.gather_from_model(shards[1], 0),
+                        parallel.gather_from_model(shards[2], 1), b2, lns, lnb)
+        y.backward(g)
+        torch.cuda.synchronize()
+        launches = (fh.MLP_KERNEL.launches - before[0], fh.MLP_BWD_KERNEL.launches - before[1])
+        plain_y = fh.mlp_half_plain(x, w1, b1, w2, b2, lns, lnb)
+        plain = fh.mlp_half_backward_plain(x, w1, b1, w2, b2, lns, g)
+        want = [parallel.shard(p, d, r, world) for p, d in ((plain[1], 0), (plain[2], 0),
+                                                            (plain[3], 1))]
+        mlp[c] = {"launches": launches, "y": (y.detach().float().cpu(), plain_y.float().cpu()),
+                  "grads": [(s.grad.float().cpu(), w.float().cpu()) for s, w in zip(shards, want)]}
+    out["mlp"] = mlp
+
+    parallel.set_data_group(dist.group.WORLD, device)  # the world as one data group
+    full = torch.zeros(6, 4, device=device)
+    mine = torch.full((6, 4 // world), float(r + 1), device=device)
+    parallel.all_gather_slices_([(full, mine, 1)])
+    out["slices"] = full.cpu()
+    parallel.set_data_group(None)
+    return out
