@@ -147,13 +147,13 @@ Phases, in order; any failure exits non-zero and prints no result:
      clock and CUDA events), the background write's seconds and
      ``restore``'s;
  15. training from JPEG folders: (a) hvt's loader fixture at iNat21's width
-     (10,000 class directories, 2,560 train and 512 val JPEGs of seeded
+     (10,000 class directories, 2,560 train and 256 val JPEGs of seeded
      noise at 500x375, written by Pillow on every core); (b) the loader
      alone (``hvt_torch.tools.loader_bench``): img/s on the native and the
      Pillow route at 1, 4, 8 and every thread, train (bare, and with host
      RandAugment + ColOut) and eval; (c) ``hvt_torch.main.main`` trains
      ResNet-50 from configs/pretrain/inat21.yaml as written but for batch
-     256, bn_pallas and 20 steps (two epochs, every progressive bucket,
+     256, bn_pallas and 10 steps (one epoch, every progressive bucket,
      112 → 224 px): 53 launches a step of each BatchNorm kernel, the loop's
      ms a step per bucket beside the step alone on a resident batch (busy
      share); the BatchNorm pair against f64 sums and its plain version and
@@ -170,7 +170,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      policies and ColOut within 1 on under 1% of pixels, MixUp, CutMix and
      the progressive resize in f32 and bf16), then timed at batches 256 and
      128; (g) ResNet-50 from the fixture with every augmentation, resumed
-     from step 2 of 4 as in 14 (b). (c)-(e) must decode natively where
+     from step 2 of 3 as in 14 (b). (c)-(e) must decode natively where
      phase 1 found libjpeg; without it they run on Pillow and say so;
  16. downstream on the card: (a) ``extract_features`` at full width from
      the synthetic source at 10,000 classes (20,480 train and 4,096 eval
@@ -189,8 +189,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      ResNet-50 features of 1,000 seeded classes x 10 images, against the
      same grid in f64 on the card (the alpha, >= 99.5% of the test
      predictions, each objective within 1e-4) and the card's f64 refit
-     against the CPU's over 10 iterations (within 1e-8), each fold's fit
-     timed, then one fit of the chosen alpha at 10,000 classes x 5 images;
+     against the CPU's over 5 iterations (within 1e-8), each fold's fit
+     timed, then one fit of the chosen alpha at 10,000 classes x 3 images;
      (d) on a JPEG fixture (40 taxonomy-shaped classes, 400 train and 80 val
      images): ``hvt_torch.simpleshot.main`` with
      configs/simpleshot/r50_hierarchical.yaml, ``hvt_torch.linear_probe.main``
@@ -201,7 +201,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      a batch; (e) HTTP serving as phase 4 of ResNet-50 (inat21.yaml) and
      SwinV2-B on fuse: true at batch 64 (24 launches of each fused forward
      kernel a forward); (f) ``hvt_torch.tools.serve_bench`` on SwinV2-T
-     fuse: true, engine and --http, 8 clients x 25 requests at batch 8, its
+     fuse: true, engine and --http, 8 clients x 12 requests at batch 8, its
      JSON line each.
  17. the rest of training, through ``hvt_torch.main.main`` at 10,000 classes
      on the synthetic source, every run at its config's written batch with
@@ -313,7 +313,27 @@ Phases, in order; any failure exits non-zero and prints no result:
      step ms, peak memory, optimizer-state bytes, kernels launched and
      collectives issued a step are printed; the kernel counts a step are
      asserted (12 of each fused MLP kernel, of each packed attention
-     kernel and of each flash kernel; 106 ``bn_finish``).
+     kernel and of each flash kernel; 106 ``bn_finish``);
+ 22. SwinV2's Switch-MoE: SwinV2-T with 8 experts (swinv2_tiny.yaml with
+     ``moe_experts: 8``; MoE in stage 2's blocks 1, 3, 5 and stage 3's
+     block 1, unfused on either route) at 224 px: (a) ``fuse: true`` at 128
+     for 3 steps through ``hvt_torch.main.main``, a step launching 4 of each
+     packed attention kernel (the MoE blocks) and 8 of each fused half (the
+     dense blocks), an eval batch the forwards alone: step ms, peak memory,
+     the aux loss and dropped-token share of each MoE block, each MoE layer
+     alone (forward, forward and backward, host and device ms) and their
+     share of the step; one step's loss and gradients from drawn weights
+     against the plain path on the same routing (the plain path takes the
+     kernel path's choice of expert; the share its own argmax would route
+     elsewhere is printed); (b) the same on ``fuse: false`` (12 packed
+     pairs a step); (c) swinv2_tiny.yaml's 2,048 with grad_accum auto for 2
+     steps; (d) an eval-only run over 4,100 images and InferenceEngine
+     serving HTTP requests, the logits and the served records held against
+     the plain path; (e) two gloo ranks sharing the card at ``model: 2``
+     (4 of each block's 8 experts a rank) for 2 steps from a drawn
+     backbone against the same run in one process (losses, step-1
+     gradients, parameters; whether bit-equal is printed, not demanded),
+     13 model-group all-reduces a step a rank.
 Each phase's seconds are printed when the next begins, and all of them on
 the ``[done]`` line and in the report (``phase_seconds``).
 Every Trainer writes its checkpoints and run log under a temporary
@@ -586,6 +606,7 @@ BN_BF16_TOL = 1e-2
 # within its kernel's tolerance, feed one bf16 residual stream.
 LOGIT_TOL = 5e-2
 TOP1_MARGIN = 1e-2
+RECORD_PROB_TOL = 5e-2  # a served record's probabilities against the plain path's, of the largest
 # Phase 13 and every evaluation of phases 7 and 9-11: launches of each
 # kernel per eval forward (a batch), by model and route. Eval routes as hvt
 # does in eval mode: the fused attention half on every fuse: true knob
@@ -1860,11 +1881,13 @@ def randomize_(model, seed: int) -> None:
     """Draw every parameter from a seeded generator at a scale that keeps
     activations O(1): LayerNorm scales around 1 (the zero-initialised
     res-post-norm would make every block the identity), logit scales around
-    log 10, weights N(0, 1/fan_in), biases N(0, 0.01)."""
+    log 10, weights N(0, 1/fan_in), biases N(0, 0.01); an MoE layer's router
+    and experts likewise, so that its routing is not a near tie."""
     import torch
     import torch.nn as nn
 
     from hvt_torch.models.swinv2 import WindowAttention
+    from hvt_torch.ops.moe import MoeMlp
 
     gen = torch.Generator().manual_seed(seed)
 
@@ -1884,6 +1907,12 @@ def randomize_(model, seed: int) -> None:
                 normal(module.q_bias, 0.0, 0.1)
                 normal(module.v_bias, 0.0, 0.1)
                 normal(module.logit_scale, math.log(10.0), 0.3)
+            elif isinstance(module, MoeMlp):  # the router, each expert's weights by fan-in
+                normal(module.router, 0.0, module.router.shape[0] ** -0.5)
+                normal(module.w1, 0.0, module.w1.shape[1] ** -0.5)
+                normal(module.w2, 0.0, module.w2.shape[1] ** -0.5)
+                normal(module.b1, 0.0, 0.1)
+                normal(module.b2, 0.0, 0.1)
 
 
 def ppm(seed: int, size: int = 256) -> bytes:
@@ -1926,14 +1955,18 @@ def serve_route(fuse: bool) -> dict:
                                         {k: 12 for k in route_kernels})}
 
 
-def serve_model(config, label: str, per_forward: dict, draw=None) -> dict:
+def serve_model(config, label: str, per_forward: dict, draw=None, plain_records=False,
+                timing=True) -> dict:
     """Drive a model's serving path through the entry points a user calls:
     InferenceEngine + make_server, HTTP requests, with every launch counter
     set to 0 just before and read just after (each kernel of
     ``per_forward`` launches that many times a forward, no other kernel);
     the whole model's logits held against the plain path; forward ms, the
     engine's img/s. ``draw(model, seed)`` draws the weights (``randomize_``
-    by default)."""
+    by default). With ``plain_records`` the first requests' served records
+    are held against the engine's records of the same images on the plain
+    path (``records_check``); without ``timing`` no forward or engine step
+    is timed after the checks."""
     import numpy as np
     import torch
 
@@ -1977,6 +2010,7 @@ def serve_model(config, label: str, per_forward: dict, draw=None) -> dict:
         server.shutdown()
         server.server_close()
     launches = {name: c.launches for name, c in counters.items()}
+    records = records_check(engine, [rec for _, rec in replies], label) if plain_records else None
     forwards = 1 + stats["dispatches"]  # the engine's warm-up forward, then one per dispatch
     log(f"  {label}: {REQUESTS} + {burst} requests answered 200 with top-5 records; "
         f"{stats['dispatches']} dispatches, mean rows {stats['mean_rows_per_dispatch']}; "
@@ -1992,10 +2026,12 @@ def serve_model(config, label: str, per_forward: dict, draw=None) -> dict:
     crop = config.eval_dataset.crop_size
     images = np.random.default_rng(11).integers(0, 256, size=(BATCH, crop, crop, 3), dtype=np.uint8)
     norm = DevicePrep.from_config(engine.config.eval_dataset, engine.config.precision)
+    experts, flips = {}, {}  # the plain path on the kernel path's routing (MoE layers only)
     with torch.inference_mode():
         x = norm.normalize(torch.from_numpy(images).cuda())
-        got = engine.model(x).float()
-        with plain_versions():
+        with recorded_routing(engine.model, experts, flips):
+            got = engine.model(x).float()
+        with plain_versions(), recorded_routing(engine.model, experts, flips):
             ref = engine.model(x).float()
         torch.cuda.synchronize()
         err, scale = float((got - ref).abs().max()), float(ref.abs().max())
@@ -2006,22 +2042,27 @@ def serve_model(config, label: str, per_forward: dict, draw=None) -> dict:
         log(f"  {label}: logits kernel vs plain path max|Δ| {err:.4g} "
             f"(tol {LOGIT_TOL}·max|plain| = {LOGIT_TOL * scale:.4g}); top-1 equal on "
             f"{agree}/{int(decided.sum())} rows with top-2 margin > {TOP1_MARGIN} "
-            f"({int(same.sum())}/{BATCH} overall)")
+            f"({int(same.sum())}/{BATCH} overall)"
+            + (f"; the plain path on the kernel path's routing, its own argmax routing "
+               f"elsewhere {flips}" if flips else ""))
         if not (bool(torch.isfinite(got).all()) and err <= LOGIT_TOL * scale
                 and agree == int(decided.sum())):
             raise AssertionError(f"{label}: kernel-path logits disagree with the plain path")
 
         # forward time on the card and images/s through the engine (phase 5 for a route)
-        fwd_ms = cuda_time_ms(lambda: engine.model(x), iters=10)
-        with plain_versions():
-            fwd_plain_ms = cuda_time_ms(lambda: engine.model(x), iters=5, warmup=1)
-    for _ in range(2):
-        engine._step(images)
-    t0 = time.perf_counter()
-    steps = 10
-    for _ in range(steps):
-        engine._step(images)  # returns host numpy: ends in a synchronize
-    step_s = (time.perf_counter() - t0) / steps
+        fwd_ms = fwd_plain_ms = step_s = math.nan
+        if timing:
+            fwd_ms = cuda_time_ms(lambda: engine.model(x), iters=10)
+            with plain_versions():
+                fwd_plain_ms = cuda_time_ms(lambda: engine.model(x), iters=5, warmup=1)
+    if timing:
+        for _ in range(2):
+            engine._step(images)
+        t0 = time.perf_counter()
+        steps = 10
+        for _ in range(steps):
+            engine._step(images)  # returns host numpy: ends in a synchronize
+        step_s = (time.perf_counter() - t0) / steps
     engine.close()
     del engine
     torch.cuda.empty_cache()
@@ -2035,7 +2076,53 @@ def serve_model(config, label: str, per_forward: dict, draw=None) -> dict:
         "forward_ms": fwd_ms, "forward_plain_ms": fwd_plain_ms,
         "logits_max_abs_err": err, "logits_max_abs": scale,
         "top1_equal": int(same.sum()), "top1_decided": int(decided.sum()),
+        "records": records,
     }
+
+
+def records_check(engine, served: list, label: str) -> dict:
+    """The engine's records of the first len(``served``) request images
+    (``ppm(i)``, decoded as ``predict_image`` decodes them, top-5) from one
+    step of the engine on the plain path, on the routing the kernel path
+    takes on the same batch (``recorded_routing``: MoE layers only; see
+    ``moe_gradient_check``), against the served ones: each record's classes
+    up to its first pair of probabilities closer than TOP1_MARGIN of the
+    largest (a closer pair may swap on a bf16 rounding) in the same order,
+    and every probability within RECORD_PROB_TOL of the largest."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from hvt_torch.downstream import predict as predict_lib
+
+    images = np.zeros((engine.batch, engine._crop, engine._crop, 3), np.uint8)
+    for i in range(len(served)):
+        with Image.open(io.BytesIO(ppm(i))) as img:
+            images[i] = engine.transform(img.convert("RGB"))
+    experts, flips = {}, {}
+    with recorded_routing(engine.model, experts, flips):
+        engine._step(images)
+    with plain_versions(), recorded_routing(engine.model, experts, flips):
+        out = engine._step(images)
+    plain = [predict_lib.topk_record(engine.classes, i, *out, 5) for i in range(len(served))]
+    held = []
+    for got, ref in zip(served, plain):
+        p = ref["probs"]
+        # the classes before the first close pair (the fifth may swap with the unseen sixth)
+        n = next((j for j in range(len(p) - 1) if (p[j] - p[j + 1]) / p[0] <= TOP1_MARGIN),
+                 len(p) - 1)
+        if got["class_ids"][:n] != ref["class_ids"][:n] or max(
+                abs(a - b) for a, b in zip(got["probs"], p)) > RECORD_PROB_TOL * p[0]:
+            raise AssertionError(f"{label}: served record {got} against the plain path's {ref}")
+        held.append(n)
+    identical = sum(g["class_ids"] == r["class_ids"] for g, r in zip(served, plain))
+    log(f"  {label}: served records against the engine's plain path: classes held in order up "
+        f"to the first close pair ({held} of 5 a record), probabilities within "
+        f"{RECORD_PROB_TOL} of the largest; {identical}/{len(served)} records identical in "
+        f"their five classes; tokens the plain path's own argmax routes elsewhere {flips}")
+    return {"requests": len(served), "classes_held": held, "identical": identical,
+            "routed_apart": flips}
 
 
 def profile_route(fuse: bool) -> list:
@@ -3459,18 +3546,26 @@ def host_facts() -> dict:
 
 
 FIXTURE_TRAIN = 2560  # ten ResNet-50 batches of 256: an epoch of (c)
-FIXTURE_VAL = 512
-FOLDER_STEPS = 20  # (c): two epochs, across every progressive bucket
+FIXTURE_VAL = 256
+# Phases 15 and 16 run fewer steps, iterations, requests and eval images than
+# they did before phase 22 (20 and 20 folder steps for (c) and (d), 4 loader
+# batches, 10 bench steps, plain timings of 5 calls, 4 resume steps, 512 val
+# JPEGs; 10 CPU probe iterations, 5 shots at iNat21's width, 25 requests), so
+# that phase 22 fits in the script's time limit; every check stays.
+FOLDER_STEPS = 10  # (c): one epoch, across every progressive bucket
+FOLDER_SWIN_STEPS = 7  # (d): the fewest with a median after the first 5
+FOLDER_RESUME_STEPS = 3  # (g): resumed from RESNET_CKPT_AT
 LOADER_BATCH = 64  # (b)
-LOADER_BATCHES = 4
-INPUT_BENCH_STEPS = 10  # (e), each rate
+LOADER_BATCHES = 1
+INPUT_BENCH_STEPS = 3  # (e), each rate
+FOLDER_PLAIN_ITERS = 2  # (c): calls of each plain version timed at the smaller buckets
 AUG_CHECK_BATCH = 32  # (f): the batch both devices augment
 _FIXTURES: list[pathlib.Path] = []  # removed at exit
 
 
 def write_fixture() -> dict:
     """(a) hvt's fixture at iNat21's width: 10,000 class directories, 2,560
-    train and 512 val JPEGs of seeded noise, 500x375, written by Pillow
+    train and 256 val JPEGs of seeded noise, 500x375, written by Pillow
     on every core."""
     from hvt_torch.tools import loader_bench
 
@@ -3538,7 +3633,7 @@ def folder_resnet_config(root: str, steps: int = FOLDER_STEPS, extra_algorithms=
     return config_lib.loads(tree, layer)
 
 
-def folder_swin_config(root: str, extra_algorithms, steps: int = FOLDER_STEPS):
+def folder_swin_config(root: str, extra_algorithms, steps: int = FOLDER_SWIN_STEPS):
     """(d) phase 7's SwinV2-T recipe on fuse: true at batch TRAIN_BATCH from
     the fixture, ``extra_algorithms`` appended."""
     from hvt_torch import config as config_lib
@@ -3645,13 +3740,14 @@ def folder_resnet(root: str, native: bool, card: str) -> dict:
         log(f"  (c) bn_train's four calls vs f64 and plain versions at {size} px: maps "
             f"{sorted({h for h, _, _ in shapes}, reverse=True)}")
         checked = bn_records(False, shapes)
-        timed = bn_records(True, shapes)
+        timed = bn_records(True, shapes, plain_iters=FOLDER_PLAIN_ITERS)
         rec["bn"][size] = {"shapes": shapes, **{k: {
             "max_abs_err": checked[k]["max_abs_err"], "ms": timed[k]["ms"],
             "plain_ms": timed[k]["plain_ms"], "bound_ms": timed[k]["bound_ms"],
             "library_ms": timed[k]["library_ms"],
             "stages": {"check": checked[k]["stages"], "timed": timed[k]["stages"]}}
-            for k in BN_KERNELS}, "bn_train": bn_train_times(shapes)}
+            for k in BN_KERNELS},
+            "bn_train": bn_train_times(shapes, plain_iters=FOLDER_PLAIN_ITERS)}
         for k in BN_KERNELS:
             r = rec["bn"][size][k]
             log(f"  (c) {k} at {size} px: {r['ms']:.4f} ms a step ({RESNET_BN_LAYERS} calls), "
@@ -3835,14 +3931,14 @@ def augment_checks(card: str) -> dict:
 def folder_resume(root: str) -> dict:
     """(g) ResNet-50 from the fixture with every augmentation on (device
     RandAugment and ColOut, MixUp, CutMix, the recipe's ProgressiveResizing
-    crossing 112 → 136 → 192 px): resumed from step RESNET_CKPT_AT of
-    RESNET_CKPT_STEPS, as phase 14's check."""
+    crossing buckets): resumed from step RESNET_CKPT_AT of
+    FOLDER_RESUME_STEPS, as phase 14's check."""
     algos = ({"cls": "RandAugment", "args": {"depth": 1, "severity": 9, "device": True}},
              {"cls": "ColOut", "args": {"p_row": 0.05, "p_col": 0.05, "device": True}},
              {"cls": "MixUp", "args": {"alpha": 0.2}}, {"cls": "CutMix", "args": {"alpha": 1.0}})
-    cfg = folder_resnet_config(root, RESNET_CKPT_STEPS, algos, eval_batch=RESNET_BATCH)
+    cfg = folder_resnet_config(root, FOLDER_RESUME_STEPS, algos, eval_batch=RESNET_BATCH)
     rec, trainer, _ = resume_check("resnet50 folder, every augmentation", "augmented", cfg,
-                                   RESNET_CKPT_STEPS, RESNET_CKPT_AT,
+                                   FOLDER_RESUME_STEPS, RESNET_CKPT_AT,
                                    {k: RESNET_BN_LAYERS for k in BN_KERNELS}, {})
     del trainer
     clear_runs()
@@ -3858,7 +3954,8 @@ def input_phase(card: str, host: dict) -> dict:
         log("  phase 15 runs on Pillow: phase 1 found no libjpeg on this host")
     out = {"fixture": fx, "native_expected": native}
     out["loader"] = loader_rates(root, native, host["cpu_count"] or 1)
-    log("  (c) ResNet-50, configs/pretrain/inat21.yaml from the fixture (batch 256, bn_pallas, 20 steps)")
+    log(f"  (c) ResNet-50, configs/pretrain/inat21.yaml from the fixture (batch 256, bn_pallas, "
+        f"{FOLDER_STEPS} steps)")
     out["resnet50"] = folder_resnet(root, native, card)
     clear_runs()
     log("  (d) SwinV2-T fuse: true from the fixture, batch 128, twice")
@@ -3884,14 +3981,14 @@ FEATURE_COSINE = 0.999
 TIE_RTOL = 1e-9  # (b): nearest centroids closer than this are a tie within f64 rounding
 PROBE_CLASSES = 1_000  # (c): rand_species_10shot's shape at a tenth of iNat21's classes
 PROBE_SHOTS, PROBE_TEST_SHOTS = 10, 2
-INAT_PROBE_SHOTS = 5  # (c): one fit of one alpha at iNat21's 10,000 classes
+INAT_PROBE_SHOTS = 3  # (c): one fit of one alpha at iNat21's 10,000 classes
 INAT_PROBE_MAX_ITER = 300
 PROBE_AGREE = 0.995
 PROBE_OBJECTIVE_RTOL = 1e-4
-CPU_PROBE_ITERS = 10  # (c): the CPU's f64 fit against the card's, iterations
+CPU_PROBE_ITERS = 5  # (c): the CPU's f64 fit against the card's, iterations
 CPU_PROBE_RTOL = 1e-8
 DOWNSTREAM_FIXTURE = (40, 400, 80)  # (d): classes, train and val JPEGs
-BENCH_CLIENTS, BENCH_REQUESTS, BENCH_BATCH = 8, 25, 8  # (f)
+BENCH_CLIENTS, BENCH_REQUESTS, BENCH_BATCH = 8, 12, 8  # (f)
 SWIN_FEATURE_PER_BATCH = {"mlp_half_fwd": 12, "attention_half_nhwc_fwd": 12}
 
 
@@ -5969,7 +6066,7 @@ GRID_PER_STEP = {  # kernels each rank launches a training step, by run
 GRID_TWINS = {"c_zero": "c_dp", "d_zero": "d_dp"}  # ZeRO-1 run: its data-parallel twin
 
 
-def write_grid_backbone(root: pathlib.Path) -> str:
+def write_grid_backbone(root: pathlib.Path, config=None, name: str = "backbone") -> str:
     """A SwinV2-T at 10,000 classes with every parameter drawn (randomize_,
     GRID_SEED) as a port checkpoint: (a), (b) and (d) start from it through
     PretrainedBackbone, so that no res-post-norm of zeros makes a block's
@@ -5978,12 +6075,12 @@ def write_grid_backbone(root: pathlib.Path) -> str:
 
     from hvt_torch.models import build_model
 
-    model = build_model(training_config(fuse=True, steps=GRID_STEPS), CLASSES)
+    model = build_model(config or training_config(fuse=True, steps=GRID_STEPS), CLASSES)
     randomize_(model, seed=GRID_SEED)
-    (root / "backbone").mkdir(parents=True)
+    (root / name).mkdir(parents=True)
     torch.save({"params": {n: p.detach() for n, p in model.named_parameters()},
-                "batch_stats": {}}, root / "backbone" / "state.pt")
-    return f"ckpt://{root / 'backbone'}"
+                "batch_stats": {}}, root / name / "state.pt")
+    return f"ckpt://{root / name}"
 
 
 def grid_plan(backbone: str, root: pathlib.Path) -> dict:
@@ -6018,15 +6115,15 @@ def grid_plan(backbone: str, root: pathlib.Path) -> dict:
 GRID_FULL = ("a", "b", "e")  # held against one process: full parameters and gradients kept
 
 
-def grid_train_run(key: str, layer: dict) -> dict:
+def grid_train_run(key: str, layer: dict, full: bool | None = None) -> dict:
     """One run of ``layer`` through ``hvt_torch.main.main`` on this process's
     card (in the grid when a group is up), every launch counter at 0 just
     before: losses, step ms (CUDA events between steps), peak memory, the
     optimizer state's bytes on this rank, the kernels launched and the
     collectives issued in a training step (the last step's, no evaluation
-    in it), and the final state: for GRID_FULL the full parameters and the
-    step-1 gradients (gathered over the model group), else this rank's
-    state with its EMA copy."""
+    in it), and the final state: with ``full`` (for GRID_FULL by default)
+    the full parameters and the step-1 gradients (gathered over the model
+    group), else this rank's state with its EMA copy."""
     import torch
 
     from hvt_torch import config as config_lib
@@ -6034,7 +6131,7 @@ def grid_train_run(key: str, layer: dict) -> dict:
     from hvt_torch import parallel
 
     config = config_lib.loads(layer)
-    full = key in GRID_FULL
+    full = key in GRID_FULL if full is None else full
     counters = kernel_counters()
     kept, events, losses, marks, grads = [], [], [], [], {}
 
@@ -6092,11 +6189,12 @@ def grid_train_run(key: str, layer: dict) -> dict:
             "final": trainer.final, "grads": grads}
 
 
-def grid_rank(rank: int, port: int, plan: dict, root: str) -> None:
-    """One rank of phase 21's world: gloo over tcp://127.0.0.1:``port`` on
-    cuda:0, every run of ``plan`` in turn, the ZeRO-1 runs held bit for bit
-    against their twins here; results to ``root``/rank<r>.pt, a traceback
-    to ``root``/rank<r>.err."""
+def grid_rank(rank: int, port: int, plan: dict, root: str, twins=None, full=None) -> None:
+    """One rank of phase 21's world (or 22's): gloo over
+    tcp://127.0.0.1:``port`` on cuda:0, every run of ``plan`` in turn, the
+    ZeRO-1 runs held bit for bit against their ``twins`` (GRID_TWINS) here,
+    the runs of ``full`` (GRID_FULL) kept whole; results to
+    ``root``/rank<r>.pt, a traceback to ``root``/rank<r>.err."""
     import traceback
 
     import torch
@@ -6111,12 +6209,15 @@ def grid_rank(rank: int, port: int, plan: dict, root: str) -> None:
         torch.cuda.set_device(0)
         dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                                 world_size=GRID_WORLD)
+        twins = GRID_TWINS if twins is None else twins
+        full = GRID_FULL if full is None else full
         try:
             with deterministic():
-                runs = {key: grid_train_run(key, layer) for key, layer in plan.items()}
+                runs = {key: grid_train_run(key, layer, key in full)
+                        for key, layer in plan.items()}
         finally:
             parallel.destroy()
-        for key, twin in GRID_TWINS.items():
+        for key, twin in twins.items():
             got, ref = runs[key]["final"], runs[twin]["final"]
             runs[key]["bit_equal"] = (got.keys() == ref.keys() and runs[key]["losses"]
                                       == runs[twin]["losses"]
@@ -6124,7 +6225,7 @@ def grid_rank(rank: int, port: int, plan: dict, root: str) -> None:
             runs[key]["max_diff"] = max(float((t.double() - ref[n].double()).abs().max())
                                         for n, t in got.items())
         for run in runs.values():
-            if run["key"] not in GRID_FULL or rank:
+            if run["key"] not in full or rank:
                 run["final"], run["grads"] = {}, {}
         torch.save(runs, root / f"rank{rank}.pt")
     except BaseException:
@@ -6255,6 +6356,344 @@ def grid_phase(card: str) -> dict:
                f"{rec['one_process']['state_bytes']} B)" if key in GRID_FULL else "")
             + f"; a step: launches {rec['launches_a_step'][0]}, collectives "
             f"{rec['collectives_a_step']}")
+    clear_runs()
+    return out
+
+
+# Phase 22: SwinV2-T with 8 experts (swinv2_tiny.yaml with moe_experts: 8 and
+# hvt's other MoE defaults, moe_from_stage 2, moe_every 2, capacity 1.25, aux
+# weight 0.01): MoE in stage 2's blocks 1, 3, 5 (C = 384, 14 x 14, s = 196,
+# capacity 31) and stage 3's block 1 (C = 768, 7 x 7, s = 49, capacity 8),
+# the other 8 blocks dense.
+MOE_ARGS = {"moe_experts": 8}
+MOE_BLOCKS = ("stage2_block1", "stage2_block3", "stage2_block5", "stage3_block1")
+MOE_STEPS = 3  # (a), (b)
+MOE_FULL_STEPS = 2  # (c)
+MOE_EP_STEPS = 2  # (e)
+MOE_TIMED_ITERS = 3
+# Launches a pass of a microbatch and an eval forward, by route, from the
+# routing: an MoE block takes the unfused route on both (hvt's ``fuse and not
+# block_moe``), its attention the packed pair; on fuse: true each of the 8
+# dense blocks keeps the NHWC attention half with its residual (every
+# SwinV2-T window fits, fuse_attn_train) and the unchunked MLP half.
+MOE_PASS = {True: {"window_attention_packed_fwd": 4, BWD_KERNEL: 4, "mlp_half_fwd": 8,
+                   "mlp_half_bwd": 8, "attention_half_nhwc_fwd": 8, "attention_half_nhwc_bwd": 8},
+            False: {"window_attention_packed_fwd": 12, BWD_KERNEL: 12}}
+MOE_EVAL = {fuse: {k: v for k, v in per.items() if not k.endswith("_bwd")}
+            for fuse, per in MOE_PASS.items()}
+# (e): each MoE block's step makes three model-group all-reduces (the combined
+# output; the expert tokens' and the gate's gradients), the clipping's norm one
+MOE_EP_ALL_REDUCES = 3 * len(MOE_BLOCKS) + 1
+
+
+def moe_config(fuse: bool, steps: int = MOE_STEPS):
+    """Phase 7's SwinV2-T config (swinv2_tiny.yaml, TRAIN_BATCH) with 8 experts."""
+    return training_config(fuse=fuse, steps=steps, **MOE_ARGS)
+
+
+def moe_layer_times(model, batch: int) -> dict:
+    """Each MoE layer of ``model`` alone at its block's input shape at
+    ``batch``, bf16, in train mode: forward, and forward with backward (ms on
+    the card, CUDA events), and the host's and the card's ms of one
+    forward-and-backward call from an idle card (``host_device_ms``)."""
+    import torch
+
+    from hvt_torch.ops import moe
+
+    out = {}
+    for name, layer in moe.moe_layers(model):
+        block = name.removesuffix(".moe")
+        c = layer.w1.shape[1]
+        grid = 56 // 2 ** int(block[len("stage")])
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        x = torch.randn(batch, grid, grid, c, device="cuda", generator=gen).bfloat16()
+        x.requires_grad_()
+        g = torch.randn(batch, grid, grid, c, device="cuda", generator=gen).bfloat16()
+
+        def step():
+            x.grad = None
+            layer(x).backward(g)
+
+        with torch.no_grad():
+            fwd = cuda_time_ms(lambda: layer(x), iters=MOE_TIMED_ITERS, warmup=2)
+        both = cuda_time_ms(step, iters=MOE_TIMED_ITERS, warmup=2)
+        host, device = host_device_ms(step, iters=MOE_TIMED_ITERS)
+        layer.aux = None
+        out[block] = {"shape": [batch, grid, grid, c], "capacity": layer.capacity(grid * grid),
+                      "fwd_ms": fwd, "fwd_bwd_ms": both, "host_ms": host, "device_ms": device}
+        del x, g
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def recorded_routing(model, experts: dict, flips: dict):
+    """Each MoE layer of ``model`` routes as before and records its choice
+    of expert in ``experts`` (empty), or takes the recorded choice and
+    counts in ``flips`` the share of tokens its own argmax would send
+    elsewhere (given)."""
+    from hvt_torch.ops import moe
+
+    replay = bool(experts)
+    layers = moe.moe_layers(model)
+
+    def routed(name, layer):
+        own = type(layer).route
+
+        def route(tokens, expert=None):
+            if not replay:
+                out = own(layer, tokens)
+                experts[name] = out[1]
+                return out
+            out = own(layer, tokens, experts[name])
+            flips[name] = float((out[0].argmax(-1) != experts[name]).float().mean())
+            return out
+        return route
+
+    for name, layer in layers:
+        layer.route = routed(name, layer)
+    try:
+        yield
+    finally:
+        for _, layer in layers:
+            del layer.route
+
+
+def moe_gradient_check(config, label: str) -> dict:
+    """One step's loss (the objective plus the MoE layers' aux loss) and
+    parameter gradients from the same drawn weights and batch on the kernel
+    path and on the plain path, as ``gradient_check``; each path's aux loss
+    and dropped-token share per MoE block beside it. The plain path takes
+    the kernel path's routing (``recorded_routing``): a top-1 choice is a
+    step function of the router's logits, so a token whose top two
+    probabilities lie within the paths' rounding of each other goes to
+    another expert, and where an image's tokens crowd an expert (drawn
+    weights drop 50-60% of them) it moves every later token's slot and
+    which of them are dropped, a discontinuity no tolerance bounds. The
+    share of tokens that the plain path's own argmax would route elsewhere
+    is reported beside it."""
+    import torch
+
+    from hvt_torch import objectives
+    from hvt_torch.data import DevicePrep
+    from hvt_torch.data import device as device_prep
+    from hvt_torch.models import build_model
+    from hvt_torch.ops import moe
+    from hvt_torch.train import algorithms
+
+    model = build_model(config, CLASSES).cuda().train()
+    randomize_(model, seed=13)
+    prep = DevicePrep.from_config(config.train_dataset, config.precision)
+    smoothing = algorithms.parse_algorithms(config).label_smoothing
+    images, labels, mask = train_batch(17, config.train_dataset.global_batch_size)
+    x, targets = prep.normalize(images), device_prep.prepare_targets(labels, CLASSES, smoothing)
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        out = model(x, generator=torch.Generator("cuda").manual_seed(3))  # one drop-path draw
+        aux = moe.moe_aux_loss(model)
+        loss = objectives.soft_cross_entropy(out, targets, mask) + aux
+        loss.backward()
+        dropped = {n.removesuffix(".moe"): layer.dropped_share()
+                   for n, layer in moe.moe_layers(model)}
+        return (float(loss.detach()), float(aux.detach()), dropped,
+                {n: p.grad.float().clone() for n, p in model.named_parameters()})
+
+    experts, flips = {}, {}
+    with deterministic():
+        with recorded_routing(model, experts, flips):
+            loss, aux, dropped, grads = loss_and_grads()
+        with plain_versions(), recorded_routing(model, experts, flips):
+            ref_loss, ref_aux, ref_dropped, ref = loss_and_grads()
+    flips = {n.removesuffix(".moe"): v for n, v in flips.items()}
+    log(f"  {label}: loss {loss:.6f} (aux {aux:.6f}), plain path on the same routing "
+        f"{ref_loss:.6f} (aux {ref_aux:.6f}); dropped-token share by MoE block "
+        + ", ".join(f"{b} {dropped[b]:.4f}" for b in dropped)
+        + "; tokens the plain path's own argmax routes elsewhere "
+        + ", ".join(f"{b} {v:.5f}" for b, v in flips.items()))
+    if abs(loss - ref_loss) > LOSS_RTOL * abs(ref_loss) or abs(aux - ref_aux) > LOSS_RTOL * ref_aux:
+        raise AssertionError(f"{label}: kernel-path loss {loss} (aux {aux}) vs the plain path's "
+                             f"{ref_loss} ({ref_aux})")
+    held = compare_gradients(grads, ref, label, GRAD_COSINE)
+    del model, grads, ref
+    torch.cuda.empty_cache()
+    return {"loss": loss, "plain_loss": ref_loss, "aux": aux, "plain_aux": ref_aux,
+            "dropped": dropped, "plain_dropped": ref_dropped, "routed_apart": flips, **held}
+
+
+def moe_train(fuse: bool, card: str, layers_timed=None) -> dict:
+    """(a) / (b): MOE_STEPS adamw steps of SwinV2-T MoE-8 through
+    ``hvt_torch.main.main`` on one route (``full_run``: every launch counter
+    held to MOE_PASS a step and MOE_EVAL an eval batch), the MoE layers'
+    last aux loss and dropped-token shares, each MoE layer alone (timed
+    here, or ``layers_timed``: the layer is the same module on either
+    route) and their share of the median step, and one step's gradients
+    against the plain path."""
+    import torch
+
+    from hvt_torch.ops import moe
+
+    label = f"swinv2_tiny moe8 fuse={fuse}"
+    rec, trainer = full_run(moe_config(fuse), MOE_PASS[fuse], label, MOE_EVAL[fuse])
+    layers = moe.moe_layers(trainer.model)
+    if tuple(n.removesuffix(".moe") for n, _ in layers) != MOE_BLOCKS:
+        raise AssertionError(f"{label}: MoE layers {[n for n, _ in layers]}")
+    steady = sorted(r["ms"] for r in rec["step_rows"][1:])
+    rec["step_ms_median"] = steady[len(steady) // 2]
+    rec["aux"] = {n.removesuffix(".moe"): float(layer.last_aux) for n, layer in layers}
+    rec["dropped"] = {n.removesuffix(".moe"): layer.dropped_share() for n, layer in layers}
+    rec["layers"] = layers_timed or moe_layer_times(trainer.model, TRAIN_BATCH)
+    for key in ("fwd_bwd_ms", "host_ms", "device_ms"):
+        rec[f"moe_{key}"] = sum(v[key] for v in rec["layers"].values())
+    rec["moe_share"] = rec["moe_fwd_bwd_ms"] / rec["step_ms_median"]
+    rec["moe_device_share"] = rec["moe_device_ms"] / rec["step_ms_median"]
+    log(f"  {label} on {card}: step {rec['step_ms_median']:.2f} ms (median of steps 2-"
+        f"{MOE_STEPS}), peak {rec['peak_memory_gib']:.2f} GiB; aux loss by block "
+        + ", ".join(f"{b} {v:.6f}" for b, v in rec["aux"].items())
+        + f" (sum {sum(rec['aux'].values()):.6f}); dropped-token share "
+        + ", ".join(f"{b} {v:.4f}" for b, v in rec["dropped"].items()))
+    reused = " (timed in (a))" if layers_timed else ""
+    log(f"    the MoE layers alone at batch {TRAIN_BATCH}{reused} "
+        "(router, dispatch, expert products, combine; forward / forward + backward ms, host / "
+        "device ms of one forward + backward): "
+        + "; ".join(f"{b} {v['fwd_ms']:.3f} / {v['fwd_bwd_ms']:.3f} ({v['host_ms']:.3f} / "
+                    f"{v['device_ms']:.3f})" for b, v in rec["layers"].items())
+        + f"; the four back to back {rec['moe_fwd_bwd_ms']:.2f} ms, "
+        f"{100 * rec['moe_share']:.1f}% of the step; their kernels {rec['moe_device_ms']:.2f} ms "
+        f"({100 * rec['moe_device_share']:.1f}%), their host {rec['moe_host_ms']:.2f} ms")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["gradients"] = moe_gradient_check(moe_config(fuse, steps=1),
+                                          f"{label} one step against the plain path")
+    return rec
+
+
+def moe_ep_run(root: pathlib.Path, card: str) -> dict:
+    """(e): phase 21's machinery on (a)'s model: two gloo ranks on the card at
+    ``model: 2`` (each holding 4 of each block's 8 experts) against the same
+    run in one process, from a drawn backbone, MOE_EP_STEPS steps."""
+    import multiprocessing
+
+    import torch
+
+    from hvt_torch import config as config_lib
+
+    base = moe_config(True, steps=MOE_EP_STEPS)
+    backbone = write_grid_backbone(root, base, "moe_backbone")
+    d = config_lib.to_dict(base)
+    d["algorithms"] = d["algorithms"] + [{"cls": "PretrainedBackbone",
+                                          "args": {"checkpoint": backbone}}]
+    d["run_name"] = "moe_ep"
+    d["machine"]["save_root"] = str(root / "runs")
+    layer = {**d, "mesh": {**d["mesh"], "model": 2}}
+    with deterministic():
+        ref = grid_train_run("moe_ep", {**d, "mesh": {**d["mesh"], "model": 1}}, full=True)
+    shutil.rmtree(root / "runs", ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=grid_rank, args=(r, port, {"moe_ep": layer}, str(root), {},
+                                                   ("moe_ep",)))
+             for r in range(GRID_WORLD)]
+    for p in procs:
+        p.start()
+    try:
+        deadline = time.monotonic() + GRID_TIMEOUT
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks_s = time.perf_counter() - t0
+    failed = [r for r, p in enumerate(procs) if p.exitcode != 0]
+    if failed:
+        errs = {r: (root / f"rank{r}.err").read_text()[-3000:] if (root / f"rank{r}.err").exists()
+                else f"exit code {procs[r].exitcode}" for r in failed}
+        raise AssertionError(f"phase 22 (e) ranks {failed} failed: {errs}")
+    runs = [torch.load(root / f"rank{r}.pt", weights_only=False)["moe_ep"]
+            for r in range(GRID_WORLD)]
+    got = runs[0]
+    if runs[1]["losses"] != got["losses"] or len(got["losses"]) != MOE_EP_STEPS:
+        raise AssertionError(f"(e): the ranks' losses {[r['losses'] for r in runs]}")
+    for r in runs:
+        if r["launches_a_step"] != MOE_PASS[True]:
+            raise AssertionError(f"(e): launches a step {r['launches_a_step']}, expected "
+                                 f"{MOE_PASS[True]}")
+        if r["collectives_a_step"]["model_all_reduce"] != MOE_EP_ALL_REDUCES:
+            raise AssertionError(f"(e): {r['collectives_a_step']} collectives a step, expected "
+                                 f"{MOE_EP_ALL_REDUCES} on the model group")
+    for a, b in zip(got["losses"], ref["losses"]):
+        if abs(a - b) > LOSS_RTOL * abs(b):
+            raise AssertionError(f"(e): losses {got['losses']} against one process's "
+                                 f"{ref['losses']}")
+    rec = {"grid": [r["grid"] for r in runs], "losses": got["losses"],
+           "one_process_losses": ref["losses"], "ranks_wall_s": ranks_s,
+           "step_ms": [r["step_ms"] for r in runs], "peak_gib": [r["peak_gib"] for r in runs],
+           "state_bytes": [r["state_bytes"] for r in runs],
+           "one_process": {k: ref[k] for k in ("step_ms", "peak_gib", "state_bytes")},
+           "launches_a_step": runs[0]["launches_a_step"],
+           "collectives_a_step": [r["collectives_a_step"] for r in runs]}
+    rec["gradients"] = compare_gradients(got["grads"], ref["grads"],
+                                         "(e) step-1 gradients against one process", GRAD_COSINE)
+    lr = float(layer["optim"]["lr"])
+    rec["params"] = adam_close(got["final"], ref["final"], lr, MOE_EP_STEPS, "(e)")
+    rec["bit_equal"] = (got["losses"] == ref["losses"] and all(
+        torch.equal(t, ref["final"][n]) for n, t in got["final"].items()))
+    log(f"  (e) model 2 on {card}: losses {got['losses']} (one process {ref['losses']}); "
+        f"bit-equal to one process: {rec['bit_equal']}; step ms by rank "
+        f"{[[round(v, 1) for v in ms] for ms in rec['step_ms']]} (one process "
+        f"{[round(v, 1) for v in ref['step_ms']]}); peak GiB "
+        f"{[round(v, 2) for v in rec['peak_gib']]} "
+        f"(one process {ref['peak_gib']:.2f}); optimizer state bytes {rec['state_bytes']} (one "
+        f"process {ref['state_bytes']}); a step a rank: launches {rec['launches_a_step']}, "
+        f"collectives {rec['collectives_a_step'][0]}")
+    return rec
+
+
+def moe_phase(card: str) -> dict:
+    """Phase 22: SwinV2-T with 8 experts on the card: (a) fuse: true and (b)
+    fuse: false, MOE_STEPS steps each; (c) swinv2_tiny.yaml's 2,048 with
+    grad_accum auto; (d) evaluation and HTTP serving; (e) expert
+    parallelism on two gloo ranks against one process."""
+    import torch
+
+    from hvt_torch import config as config_lib
+
+    root = runs_root() / "moe"
+    root.mkdir(parents=True)
+    log(f"  every number of phase 22 on {card}")
+    out = {"card": card}
+    out["fuse=True"] = moe_train(True, card)
+    out["fuse=False"] = moe_train(False, card, out["fuse=True"]["layers"])
+    log(f"  (c) swinv2_tiny.yaml with moe_experts 8, fuse: true, at its 2,048 with grad_accum "
+        f"auto, {MOE_FULL_STEPS} steps")
+    rec, trainer = full_run(
+        full_config(["pretrain/swinv2_tiny.yaml"], MOE_FULL_STEPS,
+                    model={"args": {"fuse": True, **MOE_ARGS}}),
+        MOE_PASS[True], "swinv2_tiny moe8 fuse=True 2048", MOE_EVAL[True])
+    rec["step_ms"] = [r["ms"] for r in rec["step_rows"]]
+    out["batch_2048"] = rec
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("  (d) evaluation (is_train: false, eval-only) and HTTP serving with the MoE model")
+    out["eval"], trainer = eval_run(eval_config(moe_config(True), is_train=False),
+                                    "swinv2_tiny moe8 fuse=True", MOE_EVAL[True], seed=7)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    served = config_lib.loads(config_lib.to_dict(serving_config(True)),
+                              {"model": {"args": MOE_ARGS}})
+    out["serve"] = serve_model(served, "swinv2_tiny moe8 fuse=True served", MOE_EVAL[True],
+                               plain_records=True, timing=False)
+    log("  (e) expert parallelism: two gloo ranks sharing the card at model: 2")
+    out["expert_parallel"] = moe_ep_run(root, card)
     clear_runs()
     return out
 
@@ -6824,10 +7263,16 @@ def main(argv=None) -> int:
         "process; ResNet-50 (bn_pallas, EMA) and SwinV2-T fused with zero against data "
         "parallelism, bit-equal")
     grid = grid_phase(card)
+
+    log("[22] SwinV2-T with 8 experts (moe_experts: 8): 3 steps on fuse: true and on fuse: "
+        "false against the plain path, swinv2_tiny.yaml's 2,048 with grad_accum auto, "
+        "evaluation and HTTP serving, expert parallelism on two gloo ranks at model: 2")
+    moe = moe_phase(card)
     end_phase()
 
     report = {"card": card, "host": host, "folders": folders, "downstream": downstream,
-              "data_parallel": data_parallel, "grid": grid, "phase_seconds": PHASE_SECONDS,
+              "data_parallel": data_parallel, "grid": grid, "moe": moe,
+              "phase_seconds": PHASE_SECONDS,
               "rest_of_training": rest, "vit": vit, "families": families,
               "batch": BATCH, "kernels": kernels,
               "routes": routes,

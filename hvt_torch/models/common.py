@@ -35,7 +35,8 @@ torch's reductions) and :class:`GroupedBatchNorm` (``bn_groups`` > 1).
 
 :func:`recompute` runs a block under ``torch.utils.checkpoint`` (hvt's
 ``nn.remat``): the block's BatchNorms update their running statistics in the
-forward only, and the recomputation draws the forward's drop-path masks.
+forward only, its MoE layers keep the forward's aux loss, and the
+recomputation draws the forward's drop-path masks.
 """
 
 from __future__ import annotations
@@ -312,8 +313,9 @@ def recompute(block: nn.Module, x: torch.Tensor, generator: torch.Generator | No
     drop-path masks (checkpoint's own RNG handling covers only torch's
     default generators), and puts the generator back after; the block's
     BatchNorms skip their running-statistics update in it, so they update
-    once a step, as under flax's ``nn.remat``."""
-    norms = [m for m in block.modules() if isinstance(m, _BatchNormBase)]
+    once a step, as under flax's ``nn.remat``, and its MoE layers keep the
+    forward's aux loss (every module with a ``recomputing`` flag)."""
+    norms = [m for m in block.modules() if hasattr(m, "recomputing")]
     state = generator.get_state() if generator is not None else None
 
     @contextlib.contextmanager

@@ -8,7 +8,8 @@ HWIO and ``nn.Conv2d``'s OIHW; a flax ``LayerNorm`` or ``BatchNorm`` has
 ``mean``/``var`` are the port's ``running_mean``/``running_var`` buffers;
 WindowAttention's raw params (``qkv_kernel``, ``cpb_w1``/``cpb_b1``/
 ``cpb_w2``) map onto the port's ``qkv`` and ``cpb_fc*`` Linears; ``ape``'s
-``absolute_pos_embed`` has one layout in both. The same
+``absolute_pos_embed`` has one layout in both, and so has an MoE block's
+``moe`` (``router``, ``w1``, ``b1``, ``w2``, ``b2``). The same
 SwinV2 tree serves both routes (``fuse`` false or true): hvt's fused path
 materialises the identical tree. ViT's and DINOv2's trees (one converter for
 both) keep their names; the patch embedding's HWIO kernel becomes the
@@ -39,6 +40,9 @@ import torch
 from hvt_torch import parallel
 
 
+MOE_PARAMS = ("router", "w1", "b1", "w2", "b2")
+
+
 def _dense(sub, prefix: str, out: dict) -> None:
     out[f"{prefix}.weight"] = np.asarray(sub["kernel"]).T
     if "bias" in sub:
@@ -61,8 +65,12 @@ def _block(sub, prefix: str, out: dict) -> None:
     out[f"{a}.cpb_fc2.weight"] = np.asarray(attn["cpb_w2"]).T
     _dense(attn["proj"], f"{a}.proj", out)
     _norm(sub["norm1"], f"{prefix}.norm1", out)
-    _dense(sub["mlp"]["fc1"], f"{prefix}.mlp.fc1", out)
-    _dense(sub["mlp"]["fc2"], f"{prefix}.mlp.fc2", out)
+    if "moe" in sub:  # an MoE block: flax's layout in both, (C, E), (E, C, hidden), ...
+        for name in MOE_PARAMS:
+            out[f"{prefix}.moe.{name}"] = np.asarray(sub["moe"][name])
+    else:
+        _dense(sub["mlp"]["fc1"], f"{prefix}.mlp.fc1", out)
+        _dense(sub["mlp"]["fc2"], f"{prefix}.mlp.fc2", out)
     _norm(sub["norm2"], f"{prefix}.norm2", out)
 
 

@@ -46,6 +46,16 @@ parameter made at ``img_size`` (the factory passes the train crop), after
 ``patch_norm``; another input size raises, where hvt fails on the
 parameter's shape.
 
+``moe_experts`` > 0 (hvt's Swin-MoE knobs, ``moe_from_stage``, ``moe_every``,
+``moe_capacity``, ``moe_aux_weight``) puts :class:`~hvt_torch.ops.moe.MoeMlp`
+in the dense MLP's place, under the name ``moe``, in every ``moe_every``-th
+block of the stages from ``moe_from_stage``, as hvt picks them
+(hvt/models/swinv2.py:671-680). Those blocks take the unfused route
+whatever ``fuse`` says (``fuse and not block_moe``, as hvt's): their
+attention through the packed kernel, their MLP the MoE layer; the other
+blocks keep the fused halves. A training forward leaves each MoE layer's aux
+loss for the train step (``moe.moe_aux_loss``).
+
 On CPU tensors every kernel call runs its plain version. Both routes train
 (train mode, stochastic depth at hvt's per-block rates ``linspace(0, rate,
 depth)``), every kernel through its backward kernel; a fused residual takes
@@ -70,6 +80,7 @@ from hvt_torch.models.heads import MultitaskHead
 from hvt_torch.ops import fused_halves_cuda as fh
 from hvt_torch.ops import window_attention as wa
 from hvt_torch.ops import window_attention_cuda as wac
+from hvt_torch.ops.moe import MoeMlp
 
 
 # The cached constants are made outside inference mode even when a serving
@@ -128,7 +139,8 @@ class SwinBlock(nn.Module):
                  mlp_ratio: float = 4.0, pretrained_window: int = 0, fuse: bool = False,
                  drop_path_rate: float = 0.0, fuse_mlp_chunked: bool = True,
                  use_pallas: bool = True, fuse_attn_train: bool = True,
-                 fallback_xla: bool = True, fuse_nhwc: bool = True, fuse_resid: bool = True):
+                 fallback_xla: bool = True, fuse_nhwc: bool = True, fuse_resid: bool = True,
+                 moe_experts: int = 0, moe_capacity: float = 1.25, moe_aux_weight: float = 0.01):
         super().__init__()
         self.dim, self.num_heads, self.window, self.shift = dim, num_heads, window, shift
         self.fuse, self.fuse_mlp_chunked = fuse, fuse_mlp_chunked
@@ -137,7 +149,11 @@ class SwinBlock(nn.Module):
         self.drop_path_rate = drop_path_rate
         self.attn = WindowAttention(dim, num_heads, pretrained_window)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp = TransformerMlp(dim, int(dim * mlp_ratio))
+        hidden = int(dim * mlp_ratio)
+        # hvt's MoE block holds ``moe`` in the dense MLP's place
+        self.mlp = None if moe_experts else TransformerMlp(dim, hidden)
+        self.moe = (MoeMlp(dim, moe_experts, hidden, dim, moe_capacity, moe_aux_weight)
+                    if moe_experts else None)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
 
     def forward(self, x, generator: torch.Generator | None = None):
@@ -150,13 +166,17 @@ class SwinBlock(nn.Module):
             window, shift = min(h, w), 0
         mask = _shift_mask(h, w, window, shift, str(x.device)) if shift else None
         if self.fuse and h % window == 0 and w % window == 0:
+            if self.moe is not None:  # hvt/models/swinv2.py:207-212
+                raise ValueError("MoE blocks require the unfused path (set fuse=False for "
+                                 "models with moe_experts > 0)")
             return self._mlp_half(self._attention_half(x, window, shift, mask, generator),
                                   generator)
         rate, training = self.drop_path_rate, self.training
         y = self._on_windows(x, window, shift,
                              lambda xw: self.attn(xw, window, mask, self.use_pallas))
         x = x + drop_path(layer_norm(self.norm1, y), rate, training, generator)
-        return x + drop_path(layer_norm(self.norm2, self.mlp(x)), rate, training, generator)
+        mlp = self.mlp if self.moe is None else self.moe
+        return x + drop_path(layer_norm(self.norm2, mlp(x)), rate, training, generator)
 
     @staticmethod
     def _on_windows(x, window: int, shift: int, fn):
@@ -298,11 +318,12 @@ class SwinTransformerV2(nn.Module):
         seed: int = 0,
     ):
         super().__init__()
-        del pipe_microbatches, pipe_stage, moe_from_stage, moe_every, moe_capacity, moe_aux_weight
+        del pipe_microbatches, pipe_stage
+        if pipe > 1 and moe_experts:  # hvt/models/swinv2.py:649-655
+            raise ValueError("pipe > 1 and moe_experts > 0 are mutually exclusive for now (the "
+                             "pipelined trunk's vmapped chains do not carry MoE blocks)")
         if pipe > 1:
             raise NotImplementedError("pipe > 1: pipeline parallelism is ROADMAP queue 1, item 11")
-        if moe_experts > 0:
-            raise NotImplementedError("moe_experts > 0: the Switch-MoE MLP is ROADMAP queue 1, item 11")
         self.num_classes = num_classes
         self.remat = remat
         self.embed_dim = embed_dim
@@ -323,11 +344,14 @@ class SwinTransformerV2(nn.Module):
         for stage, (depth, heads) in enumerate(zip(depths, num_heads)):
             for i in range(depth):
                 name = f"stage{stage}_block{i}"
+                # hvt's MoE blocks: every moe_every-th block of the stages from moe_from_stage
+                block_moe = (moe_experts if moe_experts and stage >= moe_from_stage
+                             and i % moe_every == moe_every - 1 else 0)
                 self.add_module(name, SwinBlock(
                     dim, heads, window_size, 0 if i % 2 == 0 else window_size // 2,
-                    mlp_ratio, pretrained_window_sizes[stage], fuse,
+                    mlp_ratio, pretrained_window_sizes[stage], fuse and not block_moe,
                     next(rates), fuse_mlp_chunked, use_pallas, fuse_attn_train, fallback_xla,
-                    fuse_nhwc, fuse_resid,
+                    fuse_nhwc, fuse_resid, block_moe, moe_capacity, moe_aux_weight,
                 ))
                 self.layer_names.append(name)
             if stage < len(depths) - 1:
@@ -368,6 +392,8 @@ class SwinTransformerV2(nn.Module):
                 module.q_bias.zero_()
                 module.v_bias.zero_()
                 module.logit_scale.fill_(math.log(10.0))
+            elif isinstance(module, MoeMlp):
+                module.reset_parameters(gen)
         for name in self.layer_names:
             block = getattr(self, name)
             if isinstance(block, SwinBlock):
@@ -382,35 +408,44 @@ class SwinTransformerV2(nn.Module):
     def cuda_unsupported(self, image_size: int, training: bool = False) -> list[str]:
         """Why the CUDA kernels cannot run this model at ``image_size`` px
         (forward, or forward and backward when ``training``): one line per
-        stage whose blocks they do not take, empty when every block runs.
+        stage with a block they do not take, empty when every block runs.
         Each block is routed as hvt routes it (``SwinBlock.attn_route``,
-        ``mlp_route``), and each kernel has its own widths; a route without a
-        kernel (hvt's XLA reference, the plain LayerNorm(MLP)) takes every
-        shape. The kernels hold SwinV2-T's and SwinV2-B's shapes; others are
-        ROADMAP.md queue 2, "Kernel coverage"."""
+        ``mlp_route``; an MoE block unfused), and each kernel has its own
+        widths; a route without a kernel (hvt's XLA reference, the plain
+        LayerNorm(MLP), the MoE layer) takes every shape. The kernels hold
+        SwinV2-T's and SwinV2-B's shapes; others are ROADMAP.md queue 2,
+        "Kernel coverage"."""
         found = []
         grid = image_size // self.patch_embed.stride[0]
-        for stage in range(len(self.depths)):
-            block = getattr(self, f"stage{stage}_block0")
-            window = min(grid, block.window)
-            n = window * window
-            if block.fuse and grid % window == 0:
-                route = block.attn_route(n, training)
-                if route == "packed":
-                    why = wac.unsupported(n, block.dim, block.num_heads, training)
-                elif route == "reference":
-                    why = None
-                else:  # the NHWC and the windowed kernels take the same shapes
-                    why = fh.unsupported(block.dim, block.num_heads, n)
-                why = why or fh.mlp_unsupported(block.dim, block.mlp.fc1.out_features,
-                                                block.mlp_route(training), training)
-            else:
-                why = (wac.unsupported(n, block.dim, block.num_heads, training)
-                       if block.use_pallas else None)
+        for stage, depth in enumerate(self.depths):
+            whys = [self._block_unsupported(getattr(self, f"stage{stage}_block{i}"), grid,
+                                            training) for i in range(depth)]
+            why = next((w for w in whys if w), None)
             if why:
-                found.append(f"stage {stage + 1} ({'fused' if block.fuse else 'unfused'}): {why}")
+                found.append(f"stage {stage + 1} ({why[0]}): {why[1]}")
             grid //= 2
         return found
+
+    @staticmethod
+    def _block_unsupported(block: SwinBlock, grid: int, training: bool):
+        """(route, why) where the kernels cannot run ``block`` on a
+        ``grid`` x ``grid`` map, else None."""
+        window = min(grid, block.window)
+        n = window * window
+        if block.fuse and grid % window == 0:
+            route = block.attn_route(n, training)
+            if route == "packed":
+                why = wac.unsupported(n, block.dim, block.num_heads, training)
+            elif route == "reference":
+                why = None
+            else:  # the NHWC and the windowed kernels take the same shapes
+                why = fh.unsupported(block.dim, block.num_heads, n)
+            why = why or fh.mlp_unsupported(block.dim, block.mlp.fc1.out_features,
+                                            block.mlp_route(training), training)
+        else:
+            why = (wac.unsupported(n, block.dim, block.num_heads, training)
+                   if block.use_pallas else None)
+        return (("fused" if block.fuse else "unfused"), why) if why else None
 
     def forward(self, x, features_only: bool = False, generator: torch.Generator | None = None):
         """x: (B, H, W, 3) normalized image → logits (B, classes) f32, or one

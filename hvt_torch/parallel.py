@@ -26,9 +26,12 @@ same numbers and run the same step.
 Tensor parallelism is hvt's ``TP_RULES`` (``hvt/parallel.py:310-328``), the
 Megatron split of the transformer MLP, in torch's layout (:data:`TP_RULES`):
 ``mlp.fc1.weight`` (hidden, C) and ``mlp.fc1.bias`` shard dim 0 over the
-model group, ``mlp.fc2.weight`` (C, hidden) dim 1; every other parameter is
-replicated. :func:`shard_model_` cuts a built model's matching parameters
-to the rank's shard; the MLP then runs its hidden slice and one all-reduce
+model group, ``mlp.fc2.weight`` (C, hidden) dim 1; expert parallelism, the
+MoE layers' ``moe.w1``, ``b1``, ``w2`` and ``b2`` (E, ...) dim 0, so that
+each rank holds E / model experts (:mod:`hvt_torch.ops.moe` runs them); every
+other parameter, the MoE router included, is replicated. :func:`shard_model_`
+cuts a built model's matching parameters to the rank's shard; the MLP then
+runs its hidden slice and one all-reduce
 (:func:`copy_to_model`, :func:`reduce_from_model`), or, where a fused MLP
 kernel runs, gathers the full weights for it (:func:`gather_from_model`),
 as hvt's kernels re-gather them. Optimizer moments and the EMA copy mirror
@@ -70,7 +73,9 @@ import torch.distributed as dist
 
 ITEM_11 = "ROADMAP.md queue 1, item 11"
 BUCKET_BYTES = 64 << 20  # gradient all-reduce bucket: at most this much flat copy at once
-COUNTS = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}  # collectives issued, by kind
+# collectives issued, by kind; "model_all_reduce" counts the all-reduces
+# over the model group again, apart from the data group's
+COUNTS = {"all_reduce": 0, "all_gather": 0, "broadcast": 0, "model_all_reduce": 0}
 
 
 def launched() -> bool:
@@ -340,6 +345,7 @@ def model_all_reduce_(t: torch.Tensor) -> torch.Tensor:
     """Sum ``t`` over the model group, in place; returns it."""
     group = model_group()
     if group is not None:
+        COUNTS["model_all_reduce"] += 1
         _all_reduce(t, group)
     return t
 
@@ -498,6 +504,9 @@ TP_RULES: tuple[tuple[str, int], ...] = (
     (r"mlp\.fc1\.weight$", 0),
     (r"mlp\.fc1\.bias$", 0),
     (r"mlp\.fc2\.weight$", 1),
+    # expert parallelism (hvt/parallel.py:320-324): the stacked experts' dim;
+    # the router stays replicated
+    (r"(^|\.)moe\.(w1|w2|b1|b2)$", 0),
 )
 
 
@@ -572,10 +581,11 @@ def gather_full(t: torch.Tensor, dim: int) -> torch.Tensor:
 
 def shard_model_(model: torch.nn.Module) -> int:
     """Cut ``model``'s parameters that the TP rules match to this rank's
-    shard (new Parameters, each marked with its dim), and mark each MLP
+    shard (new Parameters, each marked with its dim), and mark each layer
     that owns them ``tp``: its forward then runs the model group's form.
-    Every rank must hold the same full weights before (one seed). Returns
-    the number of parameters cut; 0 at model 1."""
+    The layer is the MLP above ``fc1``/``fc2``, or an MoE layer, which owns
+    its expert weights itself. Every rank must hold the same full weights
+    before (one seed). Returns the number of parameters cut; 0 at model 1."""
     m = model_size()
     if m == 1:
         return 0
@@ -586,8 +596,9 @@ def shard_model_(model: torch.nn.Module) -> int:
         if dim is None:
             continue
         owner, _, attr = name.rpartition(".")
-        mlp_name = owner.rpartition(".")[0]
-        mlp = modules[mlp_name]
+        mlp = modules[owner]
+        if not hasattr(mlp, "tp"):
+            mlp = modules[owner.rpartition(".")[0]]
         if not hasattr(mlp, "tp"):
             raise NotImplementedError(
                 f"{name} matches the TP rules but {type(mlp).__name__} has no tensor-parallel "

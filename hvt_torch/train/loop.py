@@ -36,7 +36,8 @@ Tensor parallelism and ZeRO-1 (hvt's ``mesh.model`` and ``mesh.zero``,
 ``hvt/train/loop.py:198-216``, ``:351-370``): the Trainer declares the grid
 of data × model ranks (:func:`hvt_torch.parallel.set_data_group`), builds
 the loaders for its data index (model peers load the same rows), cuts the
-built model's MLP weights to its shard (``parallel.shard_model_``) before
+built model's MLP and expert weights to its shard (``parallel.shard_model_``;
+``moe_experts`` must divide by ``model``, as hvt checks) before
 the optimizer and the EMA copy are made, so both hold shards, and gives the
 optimizer ``zero`` where data > 1. Every rank joins the gathers of a save
 (the checkpoint holds full tensors, the same files as a data-parallel run's)
@@ -113,6 +114,12 @@ class Trainer:
         # the process group, if this process is in one, and hvt's mesh against it,
         # before any weight moves
         self.rank, self.world = parallel.process_world()
+        model_axis = int(getattr(config.mesh, "model", 1))
+        experts = int(dict(config.model.args).get("moe_experts", 0) or 0)
+        if experts and model_axis > 1 and experts % model_axis:
+            raise ValueError(  # hvt/train/loop.py:155-166
+                f"model.args.moe_experts={experts} must be divisible by the mesh's model-axis "
+                f"size {model_axis} (expert weights shard their expert dim over that axis)")
         self.data_size = parallel.check_mesh(config.mesh, self.world)
         self.model_size = self.world // self.data_size
         self.zero = bool(getattr(config.mesh, "zero", False)) and self.data_size > 1

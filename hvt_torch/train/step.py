@@ -34,6 +34,11 @@ the start of the step; the parameters are put back from a copy (``p + e −
 e`` is not ``p``), the running statistics from a snapshot taken after the
 first pass, and the generator to its state after the first pass.
 
+A model with MoE layers (:mod:`hvt_torch.ops.moe`) adds their aux loss to
+each microbatch's loss before its backward, in each SAM pass too, so that it
+counts in the reported loss, as hvt's ``objective + aux``
+(hvt/train/step.py:55-73, :118).
+
 Under a declared data group (:mod:`hvt_torch.parallel`; hvt's GSPMD step
 over its mesh's data axis, ``hvt/train/step.py:93-213``) each rank's batch
 is its share of every microbatch of hvt's global batch (the loader's row
@@ -41,7 +46,9 @@ plan). The augmentation draws are made over the global microbatch from the
 generator, which stays equal on every rank, and each rank keeps its rows;
 each rank's loss is its Σ(loss·mask) over the global Σmask (its objective's
 value times its count over the global count), so that the ranks' gradients
-*sum* to those of hvt's global masked mean. After the last microbatch the
+*sum* to those of hvt's global masked mean; the aux loss, hvt's mean over the
+global microbatch's images whatever the mask, counts at the rank's share of
+those images. After the last microbatch the
 gradients are summed over the ranks in flat buckets, one all-reduce at a
 time (``parallel.all_reduce_tensors_``), before the division by
 ``grad_accum``; SAM's norm and the clipping then read the summed gradients,
@@ -65,6 +72,7 @@ from hvt_torch import metrics as metrics_lib
 from hvt_torch import parallel
 from hvt_torch.data import device as device_prep
 from hvt_torch.data import randaugment as ra_lib
+from hvt_torch.ops import moe as moe_lib
 from hvt_torch.train import ema as ema_lib
 from hvt_torch.train import optim as optim_lib
 
@@ -154,11 +162,14 @@ def build_gradients(model: torch.nn.Module, objective: Callable, prep: device_pr
                 generator, settings, tuple(images.shape), scale, images.device)
             x, targets = augment(images, labels, prep, settings, scale, d)
             out = model(x, generator=generator)
+            aux = moe_lib.moe_aux_loss(model)  # 0.0 without MoE layers: nothing added
             loss = objective(out, targets, mask)
             if grouped:  # the rank's share of the global masked mean
                 count = mask.sum()
                 loss = loss * (count.clamp_min(1.0)
                                / parallel.all_reduce_(count.clone()).clamp_min(1.0))
+            if isinstance(aux, torch.Tensor):  # a mean over the global microbatch's images
+                loss = loss + aux * (images.shape[0] / parallel.global_rows(images.shape[0])[0])
             loss.backward()
             with torch.no_grad():
                 detached = [o.detach() for o in out] if isinstance(out, list) else out.detach()

@@ -2037,3 +2037,73 @@ def test_mlp_half_kernels_on_weights_gathered_from_shards(grid_ranks, c):
         for name, (got, want) in zip(("dw1", "db1", "dw2"), rec["grads"]):
             assert got.shape == want.shape
             _close(got, want, 2e-2, f"{name} shard, C={c} rank {r}")
+
+
+# ---------------------------------------------------------------------------
+# The Switch-MoE's index dispatch and routing on the card
+# ---------------------------------------------------------------------------
+
+
+def _one_hot_moe(layer, x):
+    """hvt's MoeMlp formula (hvt/ops/moe.py:85-113) in plain torch: the
+    (g, s, E, cap) one-hot dispatch and combine einsums, in x's dtype."""
+    import torch.nn.functional as F
+
+    g, m = x.shape[0], x.shape[-1]
+    tokens = x.reshape(g, -1, m)
+    s, e = tokens.shape[1], layer.num_experts
+    cap = layer.capacity(s)
+    probs = torch.softmax(tokens.float() @ layer.router, -1)
+    onehot = F.one_hot(probs.argmax(-1), e).float()
+    ranks = (onehot.cumsum(1) - 1.0) * onehot
+    dispatch = onehot * (ranks < cap)
+    # jax's one_hot of a rank past the capacity is zeros; dispatch zeroes those rows here
+    slot = F.one_hot(ranks.long().clamp(max=cap - 1), cap).float() * dispatch[..., None]
+    gate = (probs * dispatch).sum(-1)
+    cdt = x.dtype
+    slot = slot.to(cdt)
+    expert_in = torch.einsum("gsec,gsm->egcm", slot, tokens)
+    h = F.gelu(torch.einsum("egcm,emh->egch", expert_in, layer.w1.to(cdt))
+               + layer.b1.to(cdt)[:, None, None, :])
+    out = (torch.einsum("egch,ehm->egcm", h, layer.w2.to(cdt))
+           + layer.b2.to(cdt)[:, None, None, :])
+    combine = slot * gate.to(cdt)[:, :, None, None]
+    return torch.einsum("gsec,egcm->gsm", combine, out).reshape(x.shape)
+
+
+@pytest.mark.parametrize("c,grid", [(384, 14), (768, 7)])
+def test_moe_index_dispatch_equals_the_one_hot_formula(cuda, c, grid):
+    """SwinV2-T MoE-8's two block shapes at batch 16 in bf16: the port's
+    index dispatch and combine against hvt's one-hot einsums, equal
+    bit for bit (each einsum has one non-zero term an element; the expert
+    products are the same batched matmuls on the same rows)."""
+    from hvt_torch.ops import moe
+
+    layer = moe.MoeMlp(c, 8, 4 * c, c)
+    layer.reset_parameters(torch.Generator().manual_seed(c))
+    with torch.no_grad():
+        layer.router.mul_(50.0)  # spread the routing so that some images drop tokens
+    layer = layer.to(cuda)
+    x = torch.randn(16, grid, grid, c, generator=torch.Generator().manual_seed(1)).to(
+        cuda, torch.bfloat16)
+    layer.train()
+    with torch.no_grad():
+        got = layer(x)
+        want = _one_hot_moe(layer, x)
+    assert 0.0 < layer.dropped_share() < 1.0
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want), float(
+        (got.float() - want.float()).abs().max())
+
+
+def test_moe_argmax_tie_takes_the_first_expert_on_cuda(cuda):
+    """A zero router makes every probability 1/E: argmax on the card takes
+    expert 0, as jnp.argmax, and the capacity keeps each image's first
+    ceil(s / E · 1.25) tokens."""
+    from hvt_torch.ops import moe
+
+    layer = moe.MoeMlp(96, 8, 384, 96).to(cuda)
+    x = torch.randn(4, 7, 7, 96, device=cuda, dtype=torch.bfloat16)
+    _, expert, slot, kept, _ = layer.route(x.reshape(4, 49, 96))
+    assert int(expert.max()) == 0
+    assert slot[0].tolist() == list(range(49))
+    assert kept.sum(1).tolist() == [layer.capacity(49)] * 4 == [8] * 4

@@ -45,7 +45,8 @@ and model index r % 2 at model 2 (hvt's ``make_mesh`` order).
   for tensor; a ZeRO-1 run's checkpoints equal a data-parallel run's, and a
   ZeRO-1 run resumed from the data-parallel one's step 1 equals it at step 2.
 * The refusals that remain: ``spatial`` and ``pipe`` above 1, a ``model``
-  that does not divide the world, ``moe_experts``.
+  that does not divide the world; with ``moe_experts``, hvt's own: ``pipe``
+  above 1 and experts that ``model`` does not divide.
 """
 
 import os
@@ -72,6 +73,7 @@ from hvt_torch import config as tconfig
 from hvt_torch import parallel
 from hvt_torch.models import build_model as tbuild_model
 from hvt_torch.models import convert
+from hvt_torch.train import loop as tloop
 from test_torch_port_accum_sam import (FUSED_TOL, MEAN_STD, RESNET_TOL, UNFUSED_TOL, _close,
                                        _close_after_adam)
 from test_torch_port_accum_sam import randomized as swin_resnet_randomized
@@ -257,11 +259,14 @@ HVT_CASES = [i for i, key in enumerate(IDS) if key not in TWINS.values()]
 
 
 @pytest.mark.parametrize("index", HVT_CASES, ids=[IDS[i] for i in HVT_CASES])
-def test_grid_steps_match_hvt(world2, world4, index):
+def test_grid_steps_match_hvt(request, index):
     _, world, _, _, model, zero, _, _ = CASES[index]
+    # only the case's own world: a test holding one world's lock while it
+    # waits for the other's could wait on a worker that waits on it
+    shared = request.getfixturevalue(f"world{world}")
     case = _case(index)
     ref = _hvt_steps(case, world)  # while the ranks run
-    results = _results(world2 if world == 2 else world4, case["key"])
+    results = _results(shared, case["key"])
     data = world // model
     for r, rank in zip(results, range(world)):
         assert r["grid"] == (rank // model, data, rank % model)
@@ -279,8 +284,8 @@ def test_grid_steps_match_hvt(world2, world4, index):
 
 
 @pytest.mark.parametrize("zero_key", sorted(TWINS))
-def test_zero_steps_equal_the_grid_without_zero_bit_for_bit(world2, world4, zero_key):
-    shared = world2 if zero_key.startswith("w2") else world4
+def test_zero_steps_equal_the_grid_without_zero_bit_for_bit(request, zero_key):
+    shared = request.getfixturevalue("world2" if zero_key.startswith("w2") else "world4")
     zero, plain = _results(shared, zero_key), _results(shared, TWINS[zero_key])
     for a, b in zip(zero, plain):
         assert a["stats"] == b["stats"]
@@ -507,8 +512,21 @@ def test_mesh_refusals_that_remain(mesh, world, error):
     assert parallel.check_mesh(tconfig.loads({"mesh": {"model": 2, "data": 2}}).mesh, 4) == 2
 
 
-def test_moe_experts_stay_refused():
-    config = tconfig.loads({"model": {"name": "swinv2_micro", "args": {"moe_experts": 4}},
+def test_moe_experts_stay_refused(tmp_path):
+    """The Switch-MoE builds now; what stays refused with it is hvt's:
+    ``pipe > 1`` together with MoE, and experts that the model axis does
+    not divide (the Trainer, before any weight moves)."""
+    args = {"moe_experts": 4, "moe_from_stage": 0, "moe_every": 1}
+    config = tconfig.loads({"model": {"name": "swinv2_micro", "args": args},
                             "train_dataset": {"crop_size": IMG}})
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-        tbuild_model(config, NUM_CLASSES)
+    assert sum(n.endswith(".moe.w1") for n, _ in tbuild_model(config, NUM_CLASSES)
+               .named_parameters()) == 2
+    with pytest.raises(ValueError, match="pipe > 1 and moe_experts > 0"):
+        tbuild_model(tconfig.loads({"model": {"name": "swinv2_micro",
+                                              "args": {**args, "pipe": 2}},
+                                    "train_dataset": {"crop_size": IMG}}), NUM_CLASSES)
+    layer = {"model": {"name": "swinv2_micro", "args": {**args, "moe_experts": 3}},
+             "mesh": {"model": 2}, "machine": {"save_root": str(tmp_path)},
+             "train_dataset": {"source": "synthetic", "crop_size": IMG}}
+    with pytest.raises(ValueError, match="must be divisible by the mesh's model-axis size 2"):
+        tloop.Trainer(tconfig.loads(layer), device="cpu")
