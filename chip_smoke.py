@@ -57,7 +57,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      three kernels' (fc1, fc2, the LayerNorm pass storing the pre-LN sum);
   7. the training path, once per route (model.args.fuse false, then true):
      ``hvt_torch.main.main`` trains SwinV2-T (10,000 classes, batch 128,
-     configs/pretrain/swinv2_tiny.yaml's recipe) for 30 steps on the
+     configs/pretrain/swinv2_tiny.yaml's recipe) for 20 steps on the
      synthetic source: finite losses, 12 launches per step of each kernel
      of the route (0 of the other route's), step ms, images/s and peak
      memory; then one step's loss and gradients, from the same weights and
@@ -73,26 +73,26 @@ Phases, in order; any failure exits non-zero and prints no result:
      (configs/pretrain/inat21.yaml less ProgressiveResizing, bench.py's R50
      settings: batch 256, stem_s2d, DecoupledSGDW at lr 2.048, EMA
      100ba/20ba, smoothing 0.08, clip 2.0; 10,000 classes, synthetic source)
-     for 30 steps with bn_pallas: true: finite losses, 53 launches per step
+     for 21 steps with bn_pallas: true: finite losses, 53 launches per step
      of each BatchNorm kernel and none of the SwinV2 kernels, EMA updated at
      steps 0 and 20, one step's loss and gradients against the plain path;
      then the same run with bn_pallas: false (torch's BatchNorm, no kernel);
  10. the SwinV2-B training path on fuse: true: ``hvt_torch.main.main`` trains
      SwinV2-B (swinv2_tiny.yaml's recipe with model.name swinv2_base,
      grad_accum auto, which must resolve to 1 on the card; 10,000 classes,
-     batch 128) for 30 steps: finite losses; per step 24 launches of each
+     batch 128) for 20 steps: finite losses; per step 24 launches of each
      attention-half kernel, 22 of each MLP-half kernel (stages 1-3) and 2 of
      each chunked-MLP kernel (stage 4, K = 2, one launch per block for all
      chunks), none of the others; step ms, images/s and peak memory; one
      step's loss and gradients against the plain path;
  11. the fused block's other routes, training SwinV2-T (10,000 classes,
-     batch 128) through ``hvt_torch.main.main``: (a) fuse_nhwc: false for 30
+     batch 128) through ``hvt_torch.main.main``: (a) fuse_nhwc: false for 20
      steps, 12 launches per step of the windowed attention half's two
      kernels and of the MLP half's two, none of the NHWC or packed pairs,
      step ms, images/s and peak memory, one step against the plain path;
-     (b) fuse_resid: false for 10 steps, 12 per step of the NHWC and MLP
+     (b) fuse_resid: false for 7 steps, 12 per step of the NHWC and MLP
      pairs (every residual outside the kernels), one step against the plain
-     path; (c) fuse_attn_train: false with fallback_xla: false for 10 steps,
+     path; (c) fuse_attn_train: false with fallback_xla: false for 7 steps,
      12 per step of the packed attention pair and the MLP pair; (d) hvt's
      op on split q, k, v, ``hvt_torch.ops.window_attention.window_attention``,
      forward and backward at each of SwinV2-T's 12 block shapes at batch 128:
@@ -109,10 +109,10 @@ Phases, in order; any failure exits non-zero and prints no result:
  13. evaluation at iNat21's eval batch: ``hvt_torch.main.main`` evaluates
      SwinV2-T on fuse: true and on fuse: false, ResNet-50 (phase 9's
      config, EMA) and SwinV2-B on fuse: true (224 px, 10,000 classes,
-     synthetic eval source of 4,100 images: two batches of 2,048 and a
+     synthetic eval source of 2,052 images: a batch of 2,048 and a
      padded tail of 4), each once with ``is_train: false`` (with tree-dist),
      SwinV2-T fuse: true and ResNet-50 also for 4 training steps evaluated
-     at steps 0, 2 and 4: every evaluation counts exactly 4,100 images with
+     at steps 0, 2 and 4: every evaluation counts exactly 2,052 images with
      finite metrics; each forward kernel of the route launches 12 (SwinV2-T)
      or 24 (SwinV2-B) times a batch and no backward kernel launches; the
      first batch's logits within 5e-2·max|logit| of the plain path and the
@@ -215,7 +215,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      microbatch's shapes at the sizes SAM's steps ran at, beside
      batch_norm_stats / batch_norm_backward_reduce; (b) swinv2_tiny.yaml on
      fuse: true at 2,048 for 4 steps; (c) SwinV2-B (phase 10's) at 2,048
-     for 3 steps; (d) SwinV2-T fuse: true at 256, drop path 0: one step at
+     for 2 steps; (d) SwinV2-T fuse: true at 256, drop path 0: one step at
      grad_accum 2 against 1 (each gradient's cosine >= 0.999, loss within
      1e-3) and SAM with 2 microbatches on the kernel path against the plain
      path (phase 7's tolerances); (e) at 128, the same weights, batch and
@@ -229,7 +229,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      ``bn_custom`` against ``bn_pallas`` on ResNet-50 at 256 (no BatchNorm
      kernel launch, each gradient's cosine >= 0.99) and inat21.yaml +
      fixed/r50_rand_species_multitask_pretrain_1.yaml (``bn_groups: 4``,
-     the multitask hierarchy of the synthetic source) at 2,048 for 4 steps.
+     the multitask hierarchy of the synthetic source) at 2,048 for 2 steps.
  18. ViT and DINOv2 through the flash-attention kernels (forward, dK/dV,
      dQ with D = rowsum(dO∘O); csrc/flash_attention.cu): (a) the kernels'
      three plans (hvt_flash_plan, 15 numbers) equal to
@@ -304,8 +304,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      at 128 with ``model: 2`` from a drawn backbone (PretrainedBackbone),
      (c) inat21.yaml's ResNet-50 (bn_pallas, EMA) at 256 and (d) SwinV2-T
      fused at 128, each on data 2 with and without ``zero``, and (e)
-     vit_b16.yaml on flash at 64 with ``model: 2``, 3 steps each (2 for
-     ViT). (a), (b), (e) are held against the same run in this process:
+     vit_b16.yaml on flash at 64 with ``model: 2``, 2 steps each. (a), (b), (e) are held against the same run in this process:
      losses within 1e-2, step-1 gradients (gathered over the model group)
      at cosine ≥ 0.99 and norm within 5%, parameters after the steps
      within 2·steps·lr and a mean of 0.1·lr; (c) and (d) bit-equal to their
@@ -327,13 +326,40 @@ Phases, in order; any failure exits non-zero and prints no result:
      kernel path's choice of expert; the share its own argmax would route
      elsewhere is printed); (b) the same on ``fuse: false`` (12 packed
      pairs a step); (c) swinv2_tiny.yaml's 2,048 with grad_accum auto for 2
-     steps; (d) an eval-only run over 4,100 images and InferenceEngine
+     steps; (d) an eval-only run over 2,052 images and InferenceEngine
      serving HTTP requests, the logits and the served records held against
      the plain path; (e) two gloo ranks sharing the card at ``model: 2``
      (4 of each block's 8 experts a rank) for 2 steps from a drawn
      backbone against the same run in one process (losses, step-1
      gradients, parameters; whether bit-equal is printed, not demanded),
      13 model-group all-reduces a step a rank.
+ 23. int8 w8a8 serving (``hvt_torch.ops.quant``, ``csrc/int8_conv.cu``): (a)
+     every distinct conv product the quantizer makes in ResNet-50,
+     ConvNeXt-T, EfficientNet-B0 and RegNetY-4.0GF at 224 px and batch 8
+     (recorded from an int8 forward), the int8 conv kernel (or a 1x1's
+     _int_mm and dequant) against its plain version (exact sums in f64):
+     int32 sums and f32 outputs bit-equal, x and w off an 8-byte boundary;
+     each of ResNet-50's and ConvNeXt-T's at 64, the engine's batch, its
+     int32 sums and bf16 outputs bit-equal to the plain version's, timed
+     beside its bound (int8 at 1,979 TOPS, 3.35 TB/s), its plain version
+     and bf16 F.conv2d or F.linear (not the same function: torch has no
+     CUDA int8 conv); int8_linear at SwinV2-T's and ViT-B/16's Dense shapes
+     at 64, int32 sums and f32 and bf16 outputs bit-equal to its plain
+     version, timed beside bf16 F.linear; (b) the int8 engine
+     (``InferenceEngine(quantize="int8", calibrate=2)``) at 64 for
+     ResNet-50 (inat21.yaml, seeded init), SwinV2-T on fuse: true and false
+     and ConvNeXt-T (weights drawn, through load_path): the calibrated, the
+     dynamic and the full-precision steps' launches (the int8 kernels, and
+     the repository's kernels on SwinV2's routes as without int8), each
+     row's cosine against full precision > 0.99 (hvt's bound), 4 images
+     against the same int8 forward on the CPU (f32, SwinV2 in bf16, within
+     5e-2·max|logit| and top-1 equal where decided); (c) the engine step's
+     img/s, int8 and bf16, at 64 and 256 (ResNet-50, SwinV2-T fused), over
+     two alternating windows of at least 0.5 s a kind and batch; one
+     forward's kernel time split by torch.profiler, the _int_mm GEMMs found
+     by their correlation with ``aten::_int_mm``; ``python -m
+     hvt_torch.serve --quantize int8 --calibrate 2`` answers 4 requests,
+     each record equal to the in-process engine's.
 Each phase's seconds are printed when the next begins, and all of them on
 the ``[done]`` line and in the report (``phase_seconds``).
 Every Trainer writes its checkpoints and run log under a temporary
@@ -398,7 +424,7 @@ WINDOW = 7
 CLASSES = 10_000  # iNat21 species
 BATCH = 64  # the engine's batch shape on the main path and in phases 3 and 5
 TRAIN_BATCH = 128  # bench.py's SwinV2-T batch per chip: phases 6 and 7
-TRAIN_STEPS = 30
+TRAIN_STEPS = 20
 REQUESTS = 8  # single requests served on each route before the timed burst
 KERNELS = {  # name: (source, TPU kernel it replaces, route of the main path)
     "window_attention_packed_fwd": ("hvt_torch/ops/csrc/window_attention.cu",
@@ -443,7 +469,7 @@ RETIRED_CASES = tuple(name + sfx for name in RETIRED for sfx in ("", "_bf16"))
 RETIRED_DEVICE_KERNELS = ("sb_split_kernel", "sb_qkv_kernel", "attention_fwd_tc_kernel",
                           "sb_proj_kernel", "sb_fc1_kernel", "sb_fc2_kernel",
                           "sb_layer_norm_kernel")
-ROUTE_STEPS = 10  # phase 11 (b) and (c)
+ROUTE_STEPS = 7  # phase 11 (b) and (c): a median after the first 5
 CHUNKS = 2  # hvt's K for a C = 1024 MLP half in training at its default budget
 # Phase 10: launches of each kernel per SwinV2-B training step (24 blocks;
 # stage 4's two MLP halves chunked, one launch per block for all K chunks)
@@ -577,7 +603,7 @@ GRAD_NORM_RTOL = 0.05
 # Phases 8 and 9: ResNet-50 at bench.py's batch per chip. Each BatchNorm input
 # shape at 224 px as (H = W, channels, BatchNorm layers of that shape).
 RESNET_BATCH = 256
-RESNET_STEPS = 30
+RESNET_STEPS = 21  # the EMA (interval 20) updates at steps 0 and 20
 RESNET_BN_SHAPES = ((112, 64, 1), (56, 64, 6), (56, 256, 4), (56, 128, 1), (28, 128, 7),
                     (28, 512, 5), (28, 256, 1), (14, 256, 11), (14, 1024, 7), (14, 512, 1),
                     (7, 512, 5), (7, 2048, 4))
@@ -620,16 +646,16 @@ EVAL_PER_FORWARD = {
     "swinv2_base fuse=True": {"mlp_half_fwd": 24, "attention_half_nhwc_fwd": 24},
 }
 # Phase 13: iNat21's eval batch (eval_dataset.global_batch_size of
-# configs/pretrain/swinv2_tiny.yaml and inat21.yaml) over 4,100 images, two
-# full batches and a padded tail of 4; the plain path runs EVAL_CHUNK
+# configs/pretrain/swinv2_tiny.yaml and inat21.yaml) over 2,052 images, one
+# full batch and a padded tail of 4; the plain path runs EVAL_CHUNK
 # images at a time (its f32 MLP hidden activations at 2048 images would take
 # 10-13 GB a tensor). Against the plain path: the first batch's logits within
 # LOGIT_TOL·max|logit|, cross-entropy within EVAL_CE_RTOL relative, acc@1 and
 # acc@5 within EVAL_ACC_ATOL absolute, tree-dist within EVAL_ACC_ATOL of its
-# range (0-7): each argmax flip moves acc by 1/4,100 and tree-dist by up to
-# 7/4,100, so these hold about 20 flips.
+# range (0-7): each argmax flip moves acc by 1/2,052 and tree-dist by up to
+# 7/2,052, so these hold about 10 flips.
 EVAL_BATCH = 2048
-EVAL_IMAGES = 4100
+EVAL_IMAGES = 2052
 EVAL_CHUNK = 256
 EVAL_CE_RTOL = 1e-2
 EVAL_ACC_ATOL = 5e-3
@@ -709,7 +735,7 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     import torch
 
     for _ in range(warmup):
@@ -723,7 +749,7 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def host_device_ms(fn, iters: int = 10, kernels: tuple = ()) -> tuple[float, float]:
+def host_device_ms(fn, iters: int = 5, kernels: tuple = ()) -> tuple[float, float]:
     """(host ms, device ms) of one call of ``fn`` from an idle card: the
     median time the host takes to return from the call (its launches are
     asynchronous, so this is the time it spends issuing them), and the mean
@@ -4489,8 +4515,8 @@ HOT_STEPS = 12  # (a): SAM (rho 0.5, interval 10) fires at steps 0 and 10
 # twice (the first step at each scale also meets cuDNN's first choices at its shapes)
 HOT_TORCH_BN_STEPS = 10
 SWIN_FULL_STEPS = 4  # (b)
-BASE_FULL_STEPS = 3  # (c)
-GROUPS_STEPS = 4  # (g)
+BASE_FULL_STEPS = 2  # (c)
+GROUPS_STEPS = 2  # (g)
 FULL_EVAL_IMAGES = 256  # each evaluation of (a)-(c) and (g): one synthetic batch
 EQUIV_BATCH = 256  # (d), and (g)'s bn_custom step
 REMAT_BATCH = 128  # (e)
@@ -6048,7 +6074,7 @@ def data_parallel_phase(card: str) -> dict:
 # all-gathers through the host); their step times and the collectives'
 # costs are those of two processes sharing one card, not of two cards.
 GRID_WORLD = 2
-GRID_STEPS = 3  # (a)-(d)
+GRID_STEPS = 2  # (a)-(d)
 GRID_VIT_STEPS = 2  # (e)
 GRID_VIT_BATCH = 64
 GRID_RESNET_BATCH = 256
@@ -6698,6 +6724,639 @@ def moe_phase(card: str) -> dict:
     return out
 
 
+INT8_SOURCE = "hvt_torch/ops/csrc/int8_conv.cu"
+INT8_KERNELS = {  # name: (what hvt computes in XLA, no pallas_call)
+    "int8_conv": "hvt/ops/quant.py:136 (_quant_conv: XLA, no pallas_call)",
+    "int8_dequant": "hvt/ops/quant.py:184 (_quant_dense's epilogue: XLA, no pallas_call)",
+}
+INT8_CHECK_BATCH = 8  # (a): every conv shape of the four families, kernel against plain
+INT8_CHECK_FAMILIES = ("resnet50", "convnext_tiny", "efficientnet_b0", "regnety_040")
+INT8_TIMED_FAMILIES = ("resnet50", "convnext_tiny")  # (a): timed at BATCH
+INT8_ENGINES = (  # (b): model, config, model args, weights drawn (a checkpoint) or the seeded init
+    ("resnet50", "pretrain/inat21.yaml", {}, False),
+    ("swinv2_tiny fuse=True", "pretrain/swinv2_tiny.yaml", {"fuse": True}, True),
+    ("swinv2_tiny fuse=False", "pretrain/swinv2_tiny.yaml", {"fuse": False}, True),
+    ("convnext_tiny", "pretrain/convnext_tiny.yaml", {}, True),
+)
+INT8_CALIBRATE = 2  # batches of BATCH
+INT8_CPU_IMAGES = 4
+# (b) the int8 forward on the card against the CPU, of max|logit|. Not the
+# tests' 2e-3 (micro models against hvt): at full width the float layers
+# between the int8 products (BatchNorm, LayerNorm, GELU, pooling) round
+# differently on the two devices, each input that then lands across a tie
+# moves one int8 step, and the steps compound. The int8 forward alone moves
+# that much when its input moves by 1e-7 relative on one device: 0.38% of
+# max|logit| (ResNet-50), 1.4% (ConvNeXt-T, drawn weights) on the CPU; the
+# card against the CPU measured 0.23% and 1.5% (H100 80GB HBM3, 700 W).
+INT8_CPU_TOL = 5e-2
+INT8_COSINE = 0.99  # int8 against full precision, each row: hvt's bound (tests/test_quant.py)
+INT8_SPEED = ("resnet50", "swinv2_tiny fuse=True")  # (c)
+INT8_SPEED_BATCHES = (BATCH, 256)
+INT8_SPEED_ROUNDS = 2  # (c): windows of each kind at each batch, int8 and bf16 alternating
+INT8_SPEED_WINDOW_S = 0.5  # (c): each window's least seconds (and at least 3 steps)
+INT8_REQUESTS = 4
+H100_INT8_OPS = 1979e12  # dense int8 tensor-core peak, H100 SXM data sheet
+H100_BYTES = 3.35e12
+# (a) int8_linear at SwinV2-T's Dense shapes (proj, fc1, fc2 a stage; the
+# merges' reduction) and ViT-B/16's (qkv, proj, fc1, fc2) at BATCH: (M, K, N)
+INT8_DENSE = tuple(
+    [(BATCH * g * g, c, n) for g, c in ((56, 96), (28, 192), (14, 384), (7, 768))
+     for n in (c, 4 * c)]
+    + [(BATCH * g * g, 4 * c, c) for g, c in ((56, 96), (28, 192), (14, 384), (7, 768))]
+    + [(BATCH * g * g // 4, 4 * c, 2 * c) for g, c in ((56, 96), (28, 192), (14, 384))]
+    + [(BATCH * 197, 768, n) for n in (2304, 768, 3072)] + [(BATCH * 197, 3072, 768)])
+
+
+def int8_counters() -> dict:
+    from hvt_torch.ops import int8_cuda as i8
+
+    return {"int8_conv": i8.CONV_KERNEL, "int8_dequant": i8.DEQUANT_KERNEL, "_int_mm": i8.INT_MM}
+
+
+def int8_bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / H100_BYTES, ops / H100_INT8_OPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def int8_family_model(name: str, dtype):
+    """One of the four conv families at full width (10,000 classes), weights
+    drawn away from init."""
+    from hvt_torch.models import convnext, efficientnet, regnet, resnet
+
+    build = {"resnet50": lambda: resnet.resnet50(CLASSES, dtype=dtype, seed=23),
+             "convnext_tiny": lambda: convnext.convnext_tiny(CLASSES, dtype=dtype, seed=23),
+             "efficientnet_b0": lambda: efficientnet.EfficientNet(
+                 CLASSES, drop_connect_rate=0.0, dropout_rate=0.0, dtype=dtype, seed=23),
+             "regnety_040": lambda: regnet.regnety_040(CLASSES, dtype=dtype, seed=23)}[name]
+    model = build()
+    randomize_family_(model, seed=23)
+    return model.cuda().eval()
+
+
+def recorded_int8_calls(model, batch: int, seed: int) -> dict:
+    """Every distinct int8 product of one int8 forward of ``model`` at
+    ``batch`` images of 224 px (dynamic scales): {signature: {"args": the
+    call's tensors and options, "count": calls a forward, "route"}}; the
+    route "kernel" for int8_conv2d (the conv kernel), "_int_mm" for
+    int8_linear (the 1×1 convs without pads, on their strided grid)."""
+    import numpy as np
+    import torch
+
+    from hvt_torch.ops import int8_cuda as i8
+    from hvt_torch.ops import quant
+
+    real_conv, real_linear, calls = i8.int8_conv2d, i8.int8_linear, {}
+
+    def note(sig, route, args) -> None:
+        if sig not in calls:
+            calls[sig] = {"args": args, "count": 0, "route": route}
+        calls[sig]["count"] += 1
+
+    def conv(xq, wq, sx, sw, bias=None, out_dtype=None, **kw):
+        kw = {"stride": i8._norm_stride(kw.get("stride", 1)), "pads": tuple(kw["pads"]),
+              "groups": kw.get("groups", 1)}
+        note((tuple(xq.shape), tuple(wq.shape), kw["stride"], kw["pads"], kw["groups"]), "kernel",
+             (xq, wq, sx, sw, bias, kw))
+        return real_conv(xq, wq, sx, sw, bias, out_dtype, **kw)
+
+    def linear(xq, wq, sx, sw, bias=None, out_dtype=None):
+        note((tuple(xq.shape), tuple(wq.shape)), "_int_mm", (xq, wq, sx, sw, bias, {}))
+        return real_linear(xq, wq, sx, sw, bias, out_dtype)
+
+    x = torch.from_numpy(np.random.default_rng(seed).normal(size=(batch, 224, 224, 3))
+                         .astype(np.float32)).cuda()
+    with (swapped(i8, int8_conv2d=conv, int8_linear=linear), torch.inference_mode(),
+          quant.Int8(model)):
+        model(x)
+    return calls
+
+
+def int8_route(call: dict, out_dtype=None):
+    """The recorded call's int8 route on the card (int32 sums with ``out_dtype`` None)."""
+    from hvt_torch.ops import int8_cuda as i8
+
+    xq, wq, sx, sw, bias, kw = call["args"]
+    if call["route"] == "kernel":
+        return i8.int8_conv2d(xq, wq, sx, sw, bias, out_dtype, **kw)
+    return i8.int8_linear(xq, wq, sx, sw, bias, out_dtype)
+
+
+def int8_plain_acc(call: dict):
+    """The recorded call's plain version: its int32 sums, exact in f64."""
+    from hvt_torch.ops import int8_cuda as i8
+
+    xq, wq, sx, sw, bias, kw = call["args"]
+    if call["route"] == "kernel":
+        return i8.conv_acc_plain(xq, wq, kw["stride"], kw["pads"], kw["groups"])
+    acc = i8.linear_acc_plain(xq.reshape(-1, xq.shape[-1]), wq)
+    return acc.reshape(*xq.shape[:-1], wq.shape[0])
+
+
+def int8_held(what: str, call: dict, ref, dtypes) -> float:
+    """The route's int32 sums and its outputs in each of ``dtypes`` against
+    the plain version's (``ref``: its int32 sums, then hvt's epilogue), bit
+    for bit; → max|Δ| of the outputs."""
+    import torch
+
+    from hvt_torch.ops import int8_cuda as i8
+
+    xq, wq, sx, sw, bias, kw = call["args"]
+    ok, worst = torch.equal(int8_route(call), ref), 0.0
+    for dtype in dtypes:
+        y, y_ref = int8_route(call, dtype), i8.dequant_plain(ref, sx, sw, bias, dtype)
+        worst = max(worst, float((y.float() - y_ref.float()).abs().max()))
+        ok = ok and torch.equal(y, y_ref)
+    if not ok:
+        raise AssertionError(f"(a) {what}: the int8 route ({call['route']}) is not bit-equal to "
+                             f"its plain version (int32 sums and {dtypes}; max|Δ| {worst})")
+    return worst
+
+
+def int8_conv_checks() -> dict:
+    """(a) Each distinct int8 product the quantizer makes of a conv in the
+    four families at INT8_CHECK_BATCH, the conv kernel (or a 1×1's _int_mm
+    route) against the plain version on the card: the int32 sums and the
+    f32 outputs bit-equal; x and w off an 8-byte boundary at the first
+    kernel shape of each."""
+    import torch
+
+    from hvt_torch.ops import int8_cuda as i8
+
+    out, worst = {}, {"kernel": 0.0, "_int_mm": 0.0}
+    for name in INT8_CHECK_FAMILIES:
+        model = int8_family_model(name, torch.bfloat16)
+        calls = recorded_int8_calls(model, INT8_CHECK_BATCH, seed=31)
+        shifted = None
+        for sig, call in calls.items():
+            xq, wq, sx, sw, bias, kw = call["args"]
+            err = int8_held(f"{name} {sig}", call, int8_plain_acc(call), (torch.float32,))
+            worst[call["route"]] = max(worst[call["route"]], err)
+            if shifted is None and call["route"] == "kernel":
+                y = int8_route(call, torch.float32)
+                for off in (1, 3):
+                    xs = torch.empty(xq.numel() + 16, dtype=torch.int8, device="cuda")
+                    ws = torch.empty(wq.numel() + 16, dtype=torch.int8, device="cuda")
+                    xs = xs[off:off + xq.numel()].view(xq.shape).copy_(xq)
+                    ws = ws[off:off + wq.numel()].view(wq.shape).copy_(wq)
+                    if not torch.equal(i8.int8_conv2d(xs, ws, sx, sw, bias, torch.float32, **kw), y):
+                        raise AssertionError(f"(a) {name} {sig}: off by {off} bytes, not bit-equal")
+                shifted = sig
+        torch.cuda.synchronize()
+        routes = [c["route"] for c in calls.values()]
+        out[name] = {"shapes": len(calls), "kernel_shapes": routes.count("kernel"),
+                     "int_mm_shapes": routes.count("_int_mm"),
+                     "calls_a_forward": sum(c["count"] for c in calls.values()),
+                     "off_boundary": str(shifted)}
+        log(f"  (a) {name} at {INT8_CHECK_BATCH}: {len(calls)} distinct int8 conv shapes "
+            f"({routes.count('kernel')} on the kernel, {routes.count('_int_mm')} 1x1 on _int_mm), "
+            f"{out[name]['calls_a_forward']} calls a forward, each bit-equal to its plain "
+            f"version (int32 sums and f32 outputs); x and w 1 and 3 bytes off an 8-byte "
+            f"boundary at the first kernel shape {shifted}")
+        del model, calls
+        torch.cuda.empty_cache()
+    out["max_abs_err"] = worst
+    return out
+
+
+def int8_conv_times() -> dict:
+    """(a) Each distinct conv product of ResNet-50 and ConvNeXt-T at BATCH,
+    the engine's batch: the route's bf16 output and int32 sums bit-equal to
+    the plain version's; its ms (the kernel, or _int_mm and the dequant for
+    a 1×1), its bound, the plain version's ms, and the same product in bf16
+    (F.conv2d on channels-last tensors, F.linear for a 1×1; another
+    function: torch has no CUDA int8 conv), summed to one forward by each
+    shape's calls; the dequant alone at the 1×1 shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from hvt_torch.ops import int8_cuda as i8
+
+    out, worst = {}, {"kernel": 0.0, "_int_mm": 0.0}
+    for name in INT8_TIMED_FAMILIES:
+        model = int8_family_model(name, torch.bfloat16)
+        calls = recorded_int8_calls(model, BATCH, seed=37)
+        del model
+        rows, tot = [], {"kernel": {}, "_int_mm": {}, "dequant": {}}
+        for sig, call in calls.items():
+            xq, wq, sx, sw, bias, kw = call["args"]
+            route = call["route"]
+            if route == "kernel":
+                n, h, w, c = xq.shape
+                kh, kwd, cg, o = wq.shape
+                oh, ow = i8.conv_out_hw(h, w, kh, kwd, kw["stride"], kw["pads"])
+                m, k = n * oh * ow, kh * kwd * cg
+            else:
+                m, k, o = xq.numel() // xq.shape[-1], xq.shape[-1], wq.shape[0]
+            bound, by = int8_bound_ms(xq.numel() + wq.numel() + 2 * m * o + 8 * o, 2.0 * m * k * o)
+            ref = int8_plain_acc(call)  # also the plain version's warm-up
+            worst[route] = max(worst[route], int8_held(f"{name} {sig} at {BATCH}", call, ref,
+                                                       (torch.bfloat16,)))
+            del ref
+            ms = cuda_time_ms(lambda: int8_route(call, torch.bfloat16), iters=5, warmup=1)
+            plain_ms = cuda_time_ms(lambda: i8.dequant_plain(
+                int8_plain_acc(call), sx, sw, bias, torch.bfloat16), iters=1, warmup=0)
+            bb = None if bias is None else bias.to(torch.bfloat16)
+            if route == "kernel":
+                xb = xq.to(torch.bfloat16).permute(0, 3, 1, 2)  # channels-last memory
+                wb = wq.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+                    memory_format=torch.channels_last)
+                p = kw["pads"]
+                bf16_ms = cuda_time_ms(lambda: F.conv2d(xb, wb, bb, kw["stride"], (p[0], p[2]), 1,
+                                                        kw["groups"]), iters=5, warmup=1)
+            else:
+                xb, wb = xq.reshape(m, k).to(torch.bfloat16), wq.to(torch.bfloat16)
+                bf16_ms = cuda_time_ms(lambda: F.linear(xb, wb, bb), iters=5, warmup=1)
+            del xb, wb
+            row = {"shape": str(sig), "route": route, "count": call["count"], "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "bf16_ms": bf16_ms}
+            if route == "_int_mm":  # the dequant launch alone on this shape's sums
+                acc = int8_route(call).reshape(m, o)  # the int32 sums
+                y = torch.empty((m, o), dtype=torch.bfloat16, device="cuda")
+                sxc, swc, bc = i8._scale_args(sx, sw, bias, "cuda")
+                stream = torch.cuda.current_stream().cuda_stream
+                row["dequant_ms"] = cuda_time_ms(lambda: i8.DEQUANT_KERNEL(
+                    acc.data_ptr(), sxc.data_ptr(), swc.data_ptr(),
+                    0 if bc is None else bc.data_ptr(), y.data_ptr(), m * o, o, o, 2, stream),
+                    iters=5, warmup=1)
+                row["dequant_plain_ms"] = cuda_time_ms(lambda: i8.dequant_plain(
+                    acc, sx, sw, bias, torch.bfloat16), iters=5, warmup=1)
+                row["dequant_bound_ms"] = 1e3 * (6.0 * m * o + 8 * o) / H100_BYTES
+                for key in ("ms", "plain_ms", "bound_ms"):
+                    tot["dequant"][key] = tot["dequant"].get(key, 0.0) + call["count"] * row[
+                        f"dequant_{key}"]
+                tot["dequant"]["launches"] = tot["dequant"].get("launches", 0) + call["count"]
+                del acc, y
+            row[f"bound_{by}_ms"] = bound
+            for key in ("ms", "plain_ms", "bound_ms", "bf16_ms", f"bound_{by}_ms"):
+                tot[route][key] = tot[route].get(key, 0.0) + call["count"] * row[key]
+            tot[route]["launches"] = tot[route].get("launches", 0) + call["count"]
+            rows.append(row)
+        out[name] = {"shapes": rows, "per_forward": tot}
+        k, mm, dq = tot["kernel"], tot["_int_mm"], tot["dequant"]
+        log(f"  (a) {name} at {BATCH}, a forward's int8 convs, each bit-equal to its plain version "
+            f"(int32 sums and bf16 outputs): the kernel {k['ms']:.3f} ms over {k['launches']} "
+            f"launches (bound {k['bound_ms']:.3f}, plain {k['plain_ms']:.2f}, bf16 F.conv2d on the "
+            f"same shapes {k['bf16_ms']:.3f}); the 1x1s on _int_mm {mm.get('ms', 0.0):.3f} ms (bf16 "
+            f"F.linear {mm.get('bf16_ms', 0.0):.3f}), their dequant alone {dq.get('ms', 0.0):.3f} ms "
+            f"(bound {dq.get('bound_ms', 0.0):.3f}); by shape: " + "; ".join(
+                f"{r['shape']} {r['route']} x{r['count']} {r['ms']:.3f} / bound {r['bound_ms']:.3f} "
+                f"({r['bound_by']}) / bf16 {r['bf16_ms']:.3f}" for r in rows))
+        del calls
+        torch.cuda.empty_cache()
+    out["max_abs_err"] = worst
+    return out
+
+
+def int8_linear_times() -> dict:
+    """(a) int8_linear (_int_mm and the dequant) at SwinV2-T's and ViT-B/16's
+    Dense shapes at BATCH: its int32 sums and f32 and bf16 outputs bit-equal
+    to the plain version's, its ms beside its bound and the bf16 F.linear."""
+    import torch
+    import torch.nn.functional as F
+
+    from hvt_torch.ops import int8_cuda as i8
+
+    gen, rows, worst = torch.Generator("cuda").manual_seed(41), [], 0.0
+    for m, k, n in INT8_DENSE:
+        xq = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8, device="cuda")
+        wq = torch.randint(-127, 128, (n, k), generator=gen, dtype=torch.int8, device="cuda")
+        sx = torch.tensor(0.013, device="cuda")
+        sw = 1e-3 + 2e-2 * torch.rand(n, generator=gen, device="cuda")
+        b = torch.randn(n, generator=gen, device="cuda")
+        call = {"route": "_int_mm", "args": (xq, wq, sx, sw, b, {})}
+        worst = max(worst, int8_held(f"int8_linear ({m}, {k}, {n})", call,
+                                     i8.linear_acc_plain(xq, wq), (torch.float32, torch.bfloat16)))
+        xb, wb, bb = xq.bfloat16(), wq.bfloat16(), b.bfloat16()
+        ms = cuda_time_ms(lambda: i8.int8_linear(xq, wq, sx, sw, b, torch.bfloat16), iters=5,
+                          warmup=1)
+        bf16_ms = cuda_time_ms(lambda: F.linear(xb, wb, bb), iters=5, warmup=1)
+        bound, by = int8_bound_ms(m * k + n * k + 2 * m * n + 8 * n, 2.0 * m * k * n)
+        rows.append({"m": m, "k": k, "n": n, "ms": ms, "bound_ms": bound, "bound_by": by,
+                     "bf16_linear_ms": bf16_ms})
+    log("  (a) int8_linear (_int_mm + dequant) against bf16 F.linear at SwinV2-T's and ViT-B/16's "
+        f"Dense shapes at {BATCH}, each bit-equal to its plain version (int32 sums, f32 and bf16 "
+        "outputs), ms (bound): " + "; ".join(
+            f"({r['m']}, {r['k']}, {r['n']}) {r['ms']:.3f} ({r['bound_ms']:.3f} {r['bound_by']}) / "
+            f"bf16 {r['bf16_linear_ms']:.3f}" for r in rows))
+    return {"rows": rows, "max_abs_err": worst}
+
+
+def int8_engine_config(exp: str, args: dict, load_path: str | None):
+    layer = {"model": {"args": args}, "eval_dataset": {
+        "source": "synthetic", "path": "", "synthetic_num_classes": CLASSES,
+        "synthetic_num_samples": INT8_CALIBRATE * BATCH, "global_batch_size": BATCH}}
+    if load_path:
+        layer["load_path"] = load_path
+    return layer, downstream_config([exp], layer)
+
+
+def int8_checkpoint(config, label: str, root: pathlib.Path) -> str:
+    """A port checkpoint of the config's model with every weight drawn
+    (``randomize_`` for SwinV2, ``randomize_family_`` for ConvNeXt): the
+    weights the int8 engine loads through ``load_path``."""
+    import torch
+
+    from hvt_torch.models import build_model
+    from hvt_torch.train import checkpoint as ckpt_lib
+    from hvt_torch.train import ema as ema_lib
+
+    model = build_model(config, CLASSES)
+    (randomize_ if label.startswith("swin") else randomize_family_)(model, seed=7)
+    path = root / label.split()[0]
+    saver = ckpt_lib.Checkpointer(path)
+    saver.save(0, {"params": {k: v.detach() for k, v in model.named_parameters()},
+                   "batch_stats": ema_lib.batch_stats(model), "ema_params": None})
+    saver.close()
+    del model
+    return str(path)
+
+
+def int8_forward_split(model, x, act_scales) -> dict:
+    """(c) One forward of ``x`` on the card, int8 (``act_scales``) and full
+    precision, from torch.profiler (the mean of 3): kernel ms by kernel
+    name, and the int8 forward's kernel ms by the op that launched them
+    (the profiler's correlation of each kernel with its op). The int8
+    products are the conv and dequant kernels (launched outside any op,
+    found by their names) and the kernels that ``aten::_int_mm`` launched,
+    whatever cuBLAS names them; the rest is the quantize passes, _int_mm's
+    padding copies and the float layers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hvt_torch.ops import quant
+
+    def traced(fn) -> tuple[dict, dict]:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        by_kernel, by_op = {}, {}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+            if us and str(e.device_type).endswith("CUDA"):
+                by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us / 3e3
+        for e in prof.events():
+            for k in getattr(e, "kernels", ()):
+                key = e.name if e.name != "aten::_int_mm" else f"aten::_int_mm: {k.name}"
+                by_op[key] = by_op.get(key, 0.0) + k.duration / 3e3
+        return by_kernel, by_op
+
+    ctx = quant.Int8(model, act_scales)
+
+    def int8_forward():
+        with ctx:
+            model(x)
+
+    with torch.inference_mode():
+        (int8, int8_ops), (full, _) = traced(int8_forward), traced(lambda: model(x))
+    ours = {k: ms for k, ms in int8.items() if "int8_conv" in k or "int8_dequant" in k}
+    gemm = {k.removeprefix("aten::_int_mm: "): ms for k, ms in int8_ops.items()
+            if k.startswith("aten::_int_mm: ")}
+    total = sum(int8.values())
+    products = sum(ours.values()) + sum(gemm.values())
+    return {"int8_kernel_ms": total, "int8_products_ms": products,
+            "conv_dequant_ms": sum(ours.values()), "int_mm_ms": sum(gemm.values()),
+            "int_mm_kernels": sorted(gemm),
+            "products_share": products / total if total else math.nan,
+            "full_kernel_ms": sum(full.values()),
+            "top_int8": sorted(int8.items(), key=lambda kv: -kv[1])[:10],
+            "int8_by_op": sorted(int8_ops.items(), key=lambda kv: -kv[1])[:12]}
+
+
+def int8_engine_run(label: str, config, speed: bool) -> tuple[dict, object]:
+    """(b) InferenceEngine(quantize="int8", calibrate=INT8_CALIBRATE) at BATCH;
+    on its model and batch of BATCH images the calibrated step, the dynamic
+    step and the full-precision step (``build_topk_step``, as the engine
+    builds its own): launches a forward, logits' cosine and top-1 agreement
+    against full precision; INT8_CPU_IMAGES images of the int8 forward
+    (calibrated scales) against the same model on the CPU; (c) with
+    ``speed``, each step's img/s at INT8_SPEED_BATCHES."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from hvt_torch.data import DevicePrep
+    from hvt_torch.downstream import predict as predict_lib
+    from hvt_torch.downstream import serve as serve_lib
+    from hvt_torch.ops import quant
+
+    counters = {**kernel_counters(), **int8_counters()}
+    t0 = time.perf_counter()
+    engine = serve_lib.InferenceEngine(config, batch=BATCH, topk=5, quantize="int8",
+                                       calibrate=INT8_CALIBRATE)
+    setup_s = time.perf_counter() - t0
+    model, device = engine.model, engine.device
+    prep = DevicePrep.from_config(config.eval_dataset, config.precision)
+    steps = {"calibrated": engine._step,
+             "dynamic": predict_lib.build_topk_step(model, prep, None, engine._k, device,
+                                                    quantize="int8"),
+             "full": predict_lib.build_topk_step(model, prep, None, engine._k, device)}
+    images = np.random.default_rng(43).integers(0, 256, (BATCH, 224, 224, 3), dtype=np.uint8)
+    launches = {}
+    for kind, step in steps.items():
+        step(images)  # quantizes the weights once (int8), so the next call is a warm one
+        before = {k: c.launches for k, c in counters.items()}
+        step(images)
+        launches[kind] = {k: c.launches - before[k] for k, c in counters.items()
+                          if c.launches > before[k]}
+    f32 = not label.startswith("swin")  # the fused halves take bf16 only
+    card = copy.deepcopy(model).float() if f32 else model
+    if f32:
+        card.dtype = torch.float32
+    cpu = copy.deepcopy(card).cpu()
+    contexts = {"calibrated": quant.Int8(model, engine.act_scales), "dynamic": quant.Int8(model),
+                "full": contextlib.nullcontext()}
+    with torch.inference_mode():
+        x = prep.normalize(torch.from_numpy(images).to(device))
+        logits = {}
+        for kind, ctx in contexts.items():
+            with ctx:
+                logits[kind] = model(x).float()
+        full = logits["full"]
+        agree = {}
+        for kind in ("calibrated", "dynamic"):
+            cos = torch.nn.functional.cosine_similarity(logits[kind], full, dim=-1)
+            agree[kind] = {"cosine_min": float(cos.min()),
+                           "top1_agree": int((logits[kind].argmax(-1) == full.argmax(-1)).sum())}
+            if not (bool(torch.isfinite(logits[kind]).all()) and agree[kind]["cosine_min"] > INT8_COSINE):
+                raise AssertionError(f"(b) {label} {kind}: int8 logits' cosine against full "
+                                     f"precision {agree[kind]['cosine_min']} <= {INT8_COSINE}")
+        # the int8 forward on the card against the same on the CPU, on INT8_CPU_IMAGES
+        xs = x[:INT8_CPU_IMAGES]
+        t1 = time.perf_counter()
+        with quant.Int8(card, engine.act_scales):
+            got = card(xs).float().cpu()
+        with quant.Int8(cpu, engine.act_scales):
+            ref = cpu(xs.cpu()).float()
+        cpu_s = time.perf_counter() - t1
+        tol = INT8_CPU_TOL
+        err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        top2 = ref.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > TOP1_MARGIN
+        same = bool(((got.argmax(-1) == ref.argmax(-1)) | ~decided).all())
+        if not (bool(torch.isfinite(got).all()) and err <= tol * scale and same):
+            raise AssertionError(f"(b) {label}: the card's int8 logits against the CPU's, max|Δ| "
+                                 f"{err} > {tol}·{scale} or a decided top-1 apart")
+    del card, cpu
+    rec = {"setup_s": setup_s, "launches": launches, "against_full": agree,
+           "calibrated_layers": len(engine.act_scales), "cpu_dtype": "float32" if f32 else "bfloat16",
+           "cpu_max_abs_err": err, "cpu_max_abs": scale, "cpu_tol": tol, "cpu_s": cpu_s}
+    int8 = launches["calibrated"]
+    if not (int8.get("_int_mm") and int8.get("int8_dequant") == int8.get("_int_mm")
+            and int8.get("int8_conv")):
+        raise AssertionError(f"(b) {label}: int8 launches {int8}")
+    for name, n in launches["full"].items():  # the repository's kernels run under int8 as without
+        if launches["calibrated"].get(name) != n or launches["dynamic"].get(name) != n:
+            raise AssertionError(f"(b) {label}: {name} launched {n} times a full-precision "
+                                 f"forward, {launches['calibrated'].get(name)} under int8")
+    log(f"  (b) {label}: engine (quantize int8, calibrate {INT8_CALIBRATE}) set up in "
+        f"{setup_s:.1f} s, {rec['calibrated_layers']} calibrated layers; launches a forward "
+        f"(calibrated / dynamic / full) {launches['calibrated']} / {launches['dynamic']} / "
+        f"{launches['full']}; against full precision: cosine >= "
+        f"{agree['calibrated']['cosine_min']:.5f} / {agree['dynamic']['cosine_min']:.5f}, top-1 "
+        f"{agree['calibrated']['top1_agree']} / {agree['dynamic']['top1_agree']} of {BATCH}; "
+        f"{INT8_CPU_IMAGES} images against the CPU in {rec['cpu_dtype']}: max|Δ| {err:.4g} (tol "
+        f"{tol}·{scale:.4g}), {cpu_s:.1f} s")
+    if speed:
+        rec["images_per_s"], rec["windows"] = {}, {}
+        for b in INT8_SPEED_BATCHES:
+            imgs = np.random.default_rng(b).integers(0, 256, (b, 224, 224, 3), dtype=np.uint8)
+            for kind in ("calibrated", "full"):
+                steps[kind](imgs)
+                rec["windows"][f"{kind} {b}"] = []
+            for _ in range(INT8_SPEED_ROUNDS):  # the kinds alternate, so drift falls on both
+                for kind in ("calibrated", "full"):
+                    n, t1 = 0, time.perf_counter()
+                    while n < 3 or time.perf_counter() - t1 < INT8_SPEED_WINDOW_S:
+                        steps[kind](imgs)  # returns host numpy: ends in a synchronize
+                        n += 1
+                    rec["windows"][f"{kind} {b}"].append((n, time.perf_counter() - t1))
+            for kind in ("calibrated", "full"):
+                w = rec["windows"][f"{kind} {b}"]
+                rec["images_per_s"][f"{kind} {b}"] = b * sum(n for n, _ in w) / sum(t for _, t in w)
+        log(f"  (c) {label}: the engine step's img/s, int8 (calibrated) / bf16, over "
+            f"{INT8_SPEED_ROUNDS} alternating windows of at least {INT8_SPEED_WINDOW_S} s each "
+            "(each window's img/s in brackets): " + "; ".join(
+                f"batch {b} {rec['images_per_s'][f'calibrated {b}']:.1f} "
+                f"{[round(b * n / t, 1) for n, t in rec['windows'][f'calibrated {b}']]} / "
+                f"{rec['images_per_s'][f'full {b}']:.1f} "
+                f"{[round(b * n / t, 1) for n, t in rec['windows'][f'full {b}']]}, ratio "
+                f"{rec['images_per_s'][f'calibrated {b}'] / rec['images_per_s'][f'full {b}']:.3f}"
+                for b in INT8_SPEED_BATCHES))
+        split = rec["forward_split"] = int8_forward_split(model, x, engine.act_scales)
+        log(f"  (c) {label}: one forward at {BATCH}, kernel time: int8 "
+            f"{split['int8_kernel_ms']:.3f} ms, of it the int8 products "
+            f"{split['int8_products_ms']:.3f} ({100 * split['products_share']:.1f}%: the conv and "
+            f"dequant kernels {split['conv_dequant_ms']:.3f}, _int_mm's own kernels "
+            f"{split['int_mm_ms']:.3f}, named {split['int_mm_kernels']}); full precision "
+            f"{split['full_kernel_ms']:.3f} ms; the int8 forward's largest kernels: " + "; ".join(
+                f"{k[:60]} {ms:.3f}" for k, ms in split["top_int8"][:6]) + "; by launching op: "
+            + "; ".join(f"{k[:70]} {ms:.3f}" for k, ms in split["int8_by_op"]))
+    return rec, engine
+
+
+def int8_http_check(layer: dict, engine) -> dict:
+    """(c) ``python -m hvt_torch.serve --quantize int8 --calibrate 2`` on
+    ResNet-50 (inat21.yaml, seeded weights) answers INT8_REQUESTS requests;
+    each record equal to the in-process calibrated engine's."""
+    path = exp_file({**layer, "machine": {"save_root": str(runs_root())}, "save": {"wandb": False}})
+    port = free_port()
+    cmd = [sys.executable, "-m", "hvt_torch.serve", "--machine",
+           str(ROOT / "configs/machines/local.yaml"), "--exp",
+           str(ROOT / "configs/pretrain/inat21.yaml"), path, "--port", str(port), "--batch",
+           str(BATCH), "--topk", "5", "--quantize", "int8", "--calibrate", str(INT8_CALIBRATE)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        while True:
+            try:
+                health = get(port, "/healthz")
+                break
+            except OSError:
+                if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                    raise AssertionError(f"(c) the int8 server did not start: {proc.stdout.read()}")
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+        with ThreadPoolExecutor(INT8_REQUESTS) as pool:
+            replies = list(pool.map(lambda i: http(port, "POST", "/predict?topk=5", ppm(i)),
+                                    range(INT8_REQUESTS)))
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+    for i, (code, rec) in enumerate(replies):
+        check_record(code, rec, 5)
+        ref = engine.predict_image(ppm(i), topk=5)
+        if rec["class_ids"] != ref["class_ids"] or max(
+                abs(a - b) for a, b in zip(rec["probs"], ref["probs"])) > 1e-6:
+            raise AssertionError(f"(c) served record {rec} against the in-process engine's {ref}")
+    log(f"  (c) python -m hvt_torch.serve --quantize int8 --calibrate {INT8_CALIBRATE} (ResNet-50, "
+        f"inat21.yaml): up in {up_s:.1f} s, {INT8_REQUESTS} requests answered, each record equal "
+        f"to the in-process calibrated engine's; healthz {health}")
+    return {"up_s": up_s, "requests": INT8_REQUESTS, "healthz": health}
+
+
+def int8_phase(card: str) -> dict:
+    """Phase 23: int8 w8a8 serving. (a) the int8 conv kernel against its
+    plain version at every conv shape of four families, times at ResNet-50's
+    and ConvNeXt-T's, int8_linear beside bf16 F.linear; (b) the int8 engine
+    of ResNet-50, SwinV2-T on both routes and ConvNeXt-T; (c) img/s and the
+    int8 HTTP server."""
+    import gc
+
+    import torch
+
+    log(f"  every number of phase 23 on {card}")
+    t0 = time.perf_counter()
+    with torch.no_grad():  # the recorded calls' tensors keep no graph
+        out = {"card": card, "checks": int8_conv_checks(), "conv_times": int8_conv_times(),
+               "linear_times": int8_linear_times()}
+    errs = [out[k]["max_abs_err"] for k in ("checks", "conv_times")]
+    out["max_abs_err"] = {  # the kernels' line: int8_conv at 8 and 64, the dequant on every _int_mm
+        "int8_conv": max(e["kernel"] for e in errs),
+        "int8_dequant": max([e["_int_mm"] for e in errs] + [out["linear_times"]["max_abs_err"]])}
+    out["a_s"] = time.perf_counter() - t0
+    root = runs_root() / "int8"
+    root.mkdir(parents=True)
+    counters = {**kernel_counters(), **int8_counters()}
+    for c in counters.values():
+        c.launches = 0
+    engines, layers = {}, {}
+    for label, exp, args, drawn in INT8_ENGINES:
+        layer, config = int8_engine_config(exp, args, None)
+        if drawn:
+            load = engines.get("swin_ckpt") if label.startswith("swin") else None
+            load = load or int8_checkpoint(config, label, root)
+            if label.startswith("swin"):
+                engines["swin_ckpt"] = load
+            layer, config = int8_engine_config(exp, args, load)
+        rec, engine = int8_engine_run(label, config, label in INT8_SPEED)
+        out[label] = rec
+        if label == "resnet50":
+            layers[label], engines[label] = layer, engine
+        else:
+            engine.close()
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+    out["b_s"] = time.perf_counter() - t0 - out["a_s"]
+    out["launches"] = {k: c.launches for k, c in counters.items() if c.launches}
+    if not all(out["launches"].get(k) for k in INT8_KERNELS):
+        raise AssertionError(f"(b) the int8 engines launched {out['launches']}")
+    out["http"] = int8_http_check(layers["resnet50"], engines["resnet50"])
+    log(f"  phase 23: (a) {out['a_s']:.1f} s, (b) and (c)'s speed {out['b_s']:.1f} s, the int8 "
+        f"server {out['http']['up_s']:.1f} s to start")
+    engines["resnet50"].close()
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    clear_runs()
+    return out
+
+
 def ptxas_summary(logs: dict) -> dict:
     """{source: [{kernel, registers, static_smem, spill_stores, spill_loads}]}
     from ``nvcc -Xptxas -v``'s report of each entry function."""
@@ -7268,10 +7927,28 @@ def main(argv=None) -> int:
         "false against the plain path, swinv2_tiny.yaml's 2,048 with grad_accum auto, "
         "evaluation and HTTP serving, expert parallelism on two gloo ranks at model: 2")
     moe = moe_phase(card)
+
+    log("[23] int8 w8a8 serving (--quantize int8): the int8 conv kernel against its plain "
+        "version at every conv shape of ResNet-50, ConvNeXt-T, EfficientNet-B0 and "
+        "RegNetY-4.0GF, timed beside bf16 F.conv2d; int8_linear beside bf16 F.linear; the int8 "
+        "engine (dynamic and calibrated) of ResNet-50, SwinV2-T on both routes and ConvNeXt-T; "
+        "img/s; python -m hvt_torch.serve --quantize int8 --calibrate 2")
+    int8 = int8_phase(card)
     end_phase()
+    for name, replaces in INT8_KERNELS.items():
+        per = int8["conv_times"]["resnet50"]["per_forward"]["kernel" if name == "int8_conv"
+                                                           else "dequant"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": INT8_SOURCE, "replaces": replaces,
+            "launches": int8["launches"][name], "max_abs_err": int8["max_abs_err"][name],
+            "ms": per["ms"], "plain_ms": per["plain_ms"], "bound_ms": per["bound_ms"],
+            "bound_by": ("bytes" if per.get("bound_bytes_ms", 0.0)
+                         >= per.get("bound_operations_ms", 0.0) else "operations"),
+            "library_ms": None,
+        })
 
     report = {"card": card, "host": host, "folders": folders, "downstream": downstream,
-              "data_parallel": data_parallel, "grid": grid, "moe": moe,
+              "data_parallel": data_parallel, "grid": grid, "moe": moe, "int8": int8,
               "phase_seconds": PHASE_SECONDS,
               "rest_of_training": rest, "vit": vit, "families": families,
               "batch": BATCH, "kernels": kernels,

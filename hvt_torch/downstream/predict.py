@@ -1,6 +1,6 @@
 """Top-k inference: the server's step and batch prediction — port of
-``hvt/downstream/predict.py`` without its serving-artifact and int8
-branches (ROADMAP.md queue 1, item 10).
+``hvt/downstream/predict.py`` without its serving-artifact branch (ROADMAP.md
+queue 1, item 10).
 
 ``build_topk_step`` returns ``step(images uint8 (B, H, W, 3) numpy) →
 (top_i, top_p, tiers, n_allowed)`` as numpy: device prep, the forward under
@@ -10,6 +10,11 @@ split and yields one record per image (the top-k ``classes``, ``class_ids``
 and ``probs``, ``tier_ids`` with the hierarchical decode, the ``label``, and
 the file ``path`` of a folder dataset); ``run`` writes them as JSONL.
 
+``quantize="int8"`` runs the forward through the w8a8 rewrite
+(:mod:`hvt_torch.ops.quant`: int8 products on the card, the plain versions
+on the CPU), with static activation scales where ``act_scales`` (from
+:func:`live_act_scales`, ``calibrate=N`` batches) names a layer.
+
 Weights resolve in hvt's order: ``load_path`` (a port checkpoint, its EMA
 copy unless ``use_ema`` is false), else the pretrained URIs (``ckpt://``,
 ``swin://``, ``torch://``; the head from the model's seeded init), else the
@@ -18,6 +23,7 @@ seeded init.
 
 from __future__ import annotations
 
+import contextlib
 import json
 from typing import Optional
 
@@ -29,6 +35,7 @@ from hvt_torch import parallel
 from hvt_torch.data import DevicePrep, build_loader
 from hvt_torch.downstream import features as features_lib
 from hvt_torch.models import build_model
+from hvt_torch.ops import quant
 from hvt_torch.train import checkpoint as checkpoint_lib
 from hvt_torch.train import ema as ema_lib
 
@@ -102,16 +109,43 @@ def _decode_topk(out, lookups, k):
     return top_i, top_p, tiers, n_allowed
 
 
-def build_topk_step(model, prep, lookups, k, device: torch.device):
-    """→ ``step(images) → (top_i, top_p, tiers, n_allowed)`` numpy arrays."""
+def build_topk_step(model, prep, lookups, k, device: torch.device, quantize=None,
+                    act_scales=None):
+    """→ ``step(images) → (top_i, top_p, tiers, n_allowed)`` numpy arrays.
+    ``quantize="int8"``: the forward under :class:`~hvt_torch.ops.quant.Int8`
+    (static scales for the layers ``act_scales`` names, dynamic for the rest)."""
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unknown quantize {quantize!r}: expected int8")
+    ctx = quant.Int8(model, act_scales) if quantize == "int8" else contextlib.nullcontext()
 
     def step(images: np.ndarray):
-        with torch.inference_mode():
+        with torch.inference_mode(), ctx:
             x = prep.normalize(torch.from_numpy(np.ascontiguousarray(images)).to(device))
             out = _decode_topk(model(x), lookups, k)
         return tuple(None if v is None else v.cpu().numpy() for v in out)
 
     return step
+
+
+def live_act_scales(model, prep, loader, n: int) -> dict:
+    """Static int8 activation scales of the live model: the running absmax
+    of each quantized layer's input over the first ``n`` eval batches (their
+    padded rows too, as hvt's), in full precision, on the model's device →
+    {flax path: scale} (hvt's ``live_act_scales``)."""
+    device = next(model.parameters()).device
+    batches = []
+    for i, b in enumerate(loader.epoch(0)):
+        if i >= n:
+            break
+        batches.append(b.images)
+    if not batches:
+        raise ValueError("calibration loader yielded no batches")
+
+    def forward(images):
+        with torch.inference_mode():
+            model(prep.normalize(torch.from_numpy(np.ascontiguousarray(images)).to(device)))
+
+    return quant.collect_act_scales(model, forward, batches)
 
 
 def topk_record(classes, row, top_i, top_p, tiers, n_allowed, k) -> dict:
@@ -135,11 +169,15 @@ def predict(config, *, topk: int = 5, use_ema: bool = True, hierarchical: bool =
     """→ an iterator of one top-k record per image of the eval split (padded
     rows skipped), over at most ``limit_batches`` batches. ``hierarchical``
     (multitask models): the top-down decode, the species tier's top-k.
-    ``device`` None means the CUDA card (an error without one). Serving
-    artifacts and int8 (``artifact``, ``quantize``, ``calibrate``) raise."""
-    if artifact is not None or quantize is not None or calibrate:
-        raise NotImplementedError("prediction from serving artifacts and int8 (artifact, quantize, "
-                                  "calibrate) is not ported yet (ROADMAP.md queue 1, item 10)")
+    ``quantize="int8"``: the w8a8 forward; ``calibrate=N``: its static
+    activation scales from the first N eval batches (hvt's checks: calibrate
+    without int8 raises). ``device`` None means the CUDA card (an error
+    without one). Serving artifacts (``artifact``) raise."""
+    if artifact is not None:
+        raise NotImplementedError("prediction from serving artifacts (artifact) is not ported yet "
+                                  "(ROADMAP.md queue 1, item 10)")
+    if calibrate and quantize != "int8":
+        raise ValueError("calibrate requires quantize='int8'")
     parallel.one_process_entry(config, "batch prediction")
     device = device_lib.resolve(device)
     loader, info = build_loader(config, is_train=False)
@@ -154,8 +192,10 @@ def predict(config, *, topk: int = 5, use_ema: bool = True, hierarchical: bool =
     lookups = taxonomy_lookups(classes, info.num_classes) if hierarchical else None
     k = min(topk, info.fine_grained_num_classes)
     model = _resolve_weights(config, model, use_ema).to(device).eval()
-    step = build_topk_step(model, DevicePrep.from_config(data_cfg, config.precision), lookups, k,
-                           device)
+    prep = DevicePrep.from_config(data_cfg, config.precision)
+    act_scales = live_act_scales(model, prep, loader, calibrate) if calibrate else None
+    step = build_topk_step(model, prep, lookups, k, device, quantize=quantize,
+                           act_scales=act_scales)
     return _records(loader, step, classes, k, limit_batches)
 
 

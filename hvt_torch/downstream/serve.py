@@ -38,16 +38,18 @@ from hvt_torch.models import build_model
 class InferenceEngine:
     """Owns the model on its device; thread-safe ``predict_image()``.
 
-    ``device`` None means the CUDA card (an error without one); pass
-    ``device="cpu"`` to serve through the kernels' plain versions."""
+    ``quantize="int8"`` serves the w8a8 forward (:mod:`hvt_torch.ops.quant`);
+    ``calibrate=N`` gives it static activation scales from the first N eval
+    batches, calibrated before the warm-up (hvt's checks: calibrate without
+    int8 raises). ``device`` None means the CUDA card (an error without
+    one); pass ``device="cpu"`` to serve through the kernels' plain
+    versions."""
 
     def __init__(self, config: config_lib.Config, *, batch: int = 1, use_ema: bool = True,
                  hierarchical: bool = False, topk: int = 5, quantize: "str | None" = None,
                  calibrate: int = 0, device=None):
-        if quantize is not None or calibrate:
-            raise NotImplementedError(
-                "int8 serving (quantize/calibrate) is not ported yet (ROADMAP.md queue 1, item 10)"
-            )
+        if calibrate and quantize != "int8":
+            raise ValueError("calibrate requires quantize='int8'")
         parallel.one_process_entry(config, "serving")
         self.device = device_lib.resolve(device)
         self.config = config
@@ -74,7 +76,11 @@ class InferenceEngine:
         self.hierarchical = hierarchical
         self._k = min(topk, info.fine_grained_num_classes)
         self._crop = data_cfg.crop_size
-        self._step = predict_lib.build_topk_step(self.model, prep, lookups, self._k, self.device)
+        self.quantize = quantize
+        self.act_scales = (predict_lib.live_act_scales(self.model, prep, loader, calibrate)
+                           if calibrate else None)
+        self._step = predict_lib.build_topk_step(self.model, prep, lookups, self._k, self.device,
+                                                 quantize=quantize, act_scales=self.act_scales)
         self._warm_and_start()
 
     def _warm_and_start(self) -> None:

@@ -49,7 +49,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from hvt_torch import parallel
-from hvt_torch.ops import bn_stats
+from hvt_torch.ops import bn_stats, quant
 
 
 def trunc02_(w: torch.Tensor, gen: torch.Generator) -> None:
@@ -74,7 +74,12 @@ def channels_last_(conv: nn.Conv2d) -> nn.Conv2d:
 def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """flax ``Conv(dtype=d)`` on an NHWC tensor: ``F.conv2d`` on its
     channels-last NCHW view with the kernel (and bias) cast to x's dtype,
-    at the layer's stride, padding and groups; returns NHWC."""
+    at the layer's stride, padding and groups; returns NHWC. Under an int8
+    context that covers the layer (:mod:`hvt_torch.ops.quant`), the int8
+    convolution instead."""
+    y = quant.conv(conv, x)
+    if y is not None:
+        return y
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
     y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype), bias, conv.stride, conv.padding,
                  1, conv.groups)
@@ -83,8 +88,9 @@ def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
 
 def se_gate(reduce: nn.Conv2d, expand: nn.Conv2d, h: torch.Tensor, act) -> torch.Tensor:
     """Squeeze-excite of an NHWC ``h`` (RegNet-Y's and EfficientNet's): the
-    spatial mean through the two 1×1 convs (``act`` between them), a sigmoid
-    gate on ``h``, all in h's dtype."""
+    spatial mean through the two 1×1 convs (``act`` between them, each int8
+    under a context that covers it), a sigmoid gate on ``h``, all in h's
+    dtype."""
     s = conv_nhwc(reduce, h.mean(dim=(1, 2), keepdim=True))
     s = conv_nhwc(expand, act(s))
     return h * torch.sigmoid(s)
@@ -96,7 +102,11 @@ def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 
 
 def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """flax Dense(dtype=d): input, kernel and bias cast to x's dtype."""
+    """flax Dense(dtype=d): input, kernel and bias cast to x's dtype; under
+    an int8 context that covers the layer, the int8 product instead."""
+    y = quant.dense(layer, x)
+    if y is not None:
+        return y
     bias = None if layer.bias is None else layer.bias.to(x.dtype)
     return F.linear(x, layer.weight.to(x.dtype), bias)
 

@@ -34,7 +34,10 @@ no kernel.
 
 ``stem_s2d``: hvt computes the 7×7/2 stem as a 4×4/1 conv over
 space-to-depth input, a TPU tiling trick with the same math; here it is the
-plain 7×7/2 conv, over the same (7, 7, 3, width) kernel.
+plain 7×7/2 conv, over the same (7, 7, 3, width) kernel. Under int8
+(:mod:`hvt_torch.ops.quant`) every ConvBN conv runs int8, the stem too, but
+with ``stem_s2d``, whose kernel hvt multiplies as a raw parameter, outside
+its int8 rewrite (``int8_full_precision``).
 """
 
 from __future__ import annotations
@@ -96,7 +99,10 @@ _DEFAULT_BN = {"bn_groups": 1, "bn_pallas": False, "bn_custom": False}
 
 class ConvBN(nn.Module):
     """Conv (no bias) + BatchNorm + optional ReLU; with ``blurpool`` a strided
-    conv blurs its input first (Composer's BlurConv2d)."""
+    conv blurs its input first (Composer's BlurConv2d). flax names the conv
+    ``Conv_0`` (``flax_names``, the int8 layer keys)."""
+
+    flax_names = {"conv": "Conv_0"}
 
     def __init__(self, in_ch: int, features: int, kernel_size: int, stride: int = 1,
                  act: bool = True, blurpool: bool = False, bn: dict = _DEFAULT_BN):
@@ -170,8 +176,10 @@ class ResNet(nn.Module):
                  dtype: torch.dtype = torch.bfloat16, bn_scale_init: str = "uniform01",
                  bn_pallas: bool = False, seed: int = 0, bn_groups: int = 1,
                  bn_custom: bool = False, remat_stages: Sequence[int] = (),
-                 remat_policy: str = "nothing"):
+                 remat_policy: str = "nothing", stem_s2d: bool = False):
         super().__init__()
+        # hvt's space-to-depth stem multiplies its kernel as a raw parameter
+        self.int8_full_precision = ("stem",) if stem_s2d else ()
         if bn_scale_init not in BN_SCALE_INITS:
             raise ValueError(f"bn_scale_init {bn_scale_init!r}: one of {BN_SCALE_INITS}")
         self.stage_sizes = tuple(stage_sizes)
@@ -291,10 +299,10 @@ def _bottleneck(stage_sizes, width=64, default_dtype="bfloat16", default_scale="
               bn_groups: int = 1, bn_pallas: bool = False, bn_custom: bool = False,
               remat_stages: Sequence[int] = (), remat_policy: str = "nothing", seed: int = 0,
               **unused) -> ResNet:
-        del stem_s2d, unused  # the stem is the plain 7×7/2 conv either way
+        del unused
         return ResNet(stage_sizes, num_classes, width, blurpool, float(stochastic_depth_rate),
                       _dtype(dtype), bn_scale_init, bool(bn_pallas), seed, bn_groups,
-                      bn_custom, remat_stages, remat_policy)
+                      bn_custom, remat_stages, remat_policy, bool(stem_s2d))
 
     return build
 

@@ -74,8 +74,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from hvt_torch import parallel
-from hvt_torch.models.common import (TransformerMlp, drop_path, drop_path_scale, layer_norm,
-                                      linear, recompute, trunc02_)
+from hvt_torch.models.common import (TransformerMlp, conv_nhwc, drop_path, drop_path_scale,
+                                      layer_norm, linear, recompute, trunc02_)
 from hvt_torch.models.heads import MultitaskHead
 from hvt_torch.ops import fused_halves_cuda as fh
 from hvt_torch.ops import window_attention as wa
@@ -452,10 +452,7 @@ class SwinTransformerV2(nn.Module):
         tensor per tier for a multitask head; ``features_only`` → (B, F) f32.
         ``generator`` draws the stochastic-depth masks in train mode."""
         b = x.shape[0]
-        x = x.to(self.dtype).permute(0, 3, 1, 2)
-        weight = self.patch_embed.weight.to(self.dtype)
-        x = F.conv2d(x, weight, self.patch_embed.bias.to(self.dtype),
-                     stride=self.patch_embed.stride).permute(0, 2, 3, 1).contiguous()
+        x = conv_nhwc(self.patch_embed, x.to(self.dtype)).contiguous()
         if self.patch_norm is not None:
             x = layer_norm(self.patch_norm, x)
         if self.absolute_pos_embed is not None:

@@ -30,7 +30,7 @@ CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).parent / "_build"
 SOURCES = ("window_attention", "window_attention_bwd", "fused_halves", "fused_halves_bwd",
            "fused_halves_base", "fused_halves_bwd_base", "mlp", "attention_half",
-           "attention_half_base", "bn_stats", "swin_block", "flash_attention")
+           "attention_half_base", "bn_stats", "swin_block", "flash_attention", "int8_conv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--expt-relaxed-constexpr",

@@ -3,7 +3,8 @@
 
     python -m hvt_torch.predict --machine configs/machines/local.yaml \\
         --exp configs/pretrain/swinv2_tiny.yaml --output preds.jsonl \\
-        [--topk 5] [--raw-weights] [--hierarchical] [--limit-batches N] [--device cpu]
+        [--topk 5] [--raw-weights] [--hierarchical] [--limit-batches N] \\
+        [--quantize int8 [--calibrate N]] [--device cpu]
 
 Writes one JSON line per image of the eval split (stdout without
 ``--output``): the top-k class names, ids and probabilities, the label,
@@ -11,8 +12,10 @@ and the file path of a folder dataset; ``--hierarchical`` decodes a
 multitask model top-down and adds the per-tier ids. Weights: ``load_path``
 (a port checkpoint, its EMA copy unless ``--raw-weights``), else a
 PretrainedBackbone or ``model.pretrained_checkpoint`` URI, else the seeded
-init. Runs on the CUDA card unless ``--device cpu``. Serving artifacts and
-int8 (``--artifact``, ``--quantize``, ``--calibrate``) are not ported yet.
+init. ``--quantize int8`` runs the w8a8 forward, ``--calibrate N`` with
+static activation scales from the first N eval batches. Runs on the CUDA
+card unless ``--device cpu``. Serving artifacts (``--artifact``) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from __future__ import annotations
 import argparse
 
 from hvt_torch import config as config_lib
-from hvt_torch.serve import NOT_PORTED, NotPorted
+from hvt_torch.serve import NOT_PORTED, NotPorted, add_quant_args, check_quant_args
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -39,20 +42,20 @@ def build_parser() -> argparse.ArgumentParser:
                         help="torch device; default the CUDA card (an error without one)")
     parser.add_argument("--artifact", action=NotPorted,
                         help=f"prediction from a StableHLO serving artifact {NOT_PORTED}")
-    parser.add_argument("--quantize", action=NotPorted, help=f"int8 prediction {NOT_PORTED}")
-    parser.add_argument("--calibrate", action=NotPorted, metavar="N",
-                        help=f"static int8 calibration {NOT_PORTED}")
+    add_quant_args(parser)
     return parser
 
 
 def main(argv=None) -> dict:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    check_quant_args(parser, args)
     from hvt_torch.downstream import predict as predict_lib
 
     config = config_lib.load(machine=args.machine, exps=args.exp)
     return predict_lib.run(config, args.output, topk=args.topk, use_ema=not args.raw_weights,
                            hierarchical=args.hierarchical, limit_batches=args.limit_batches,
-                           device=args.device)
+                           quantize=args.quantize, calibrate=args.calibrate, device=args.device)
 
 
 if __name__ == "__main__":

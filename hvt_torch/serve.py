@@ -2,15 +2,17 @@
 
     python -m hvt_torch.serve --machine configs/machines/local.yaml \\
         --exp configs/pretrain/swinv2_tiny.yaml [--port 8000] [--topk 5] \\
-        [--batch 64] [--hierarchical] [--device cpu]
+        [--batch 64] [--hierarchical] [--quantize int8 [--calibrate N]] [--device cpu]
 
 Then ``curl -s localhost:8000/healthz`` and
 ``curl -s --data-binary @image.jpg localhost:8000/predict?topk=3``.
 Runs on the CUDA card unless ``--device cpu``. Weights: ``load_path`` (a
 port checkpoint, its EMA copy unless ``--raw-weights``), else a
 PretrainedBackbone or ``model.pretrained_checkpoint`` URI (``ckpt://``,
-``swin://``, ``torch://``), else the seeded init. Serving artifacts and int8
-(``--artifact``, ``--quantize``, ``--calibrate``) are not ported yet.
+``swin://``, ``torch://``), else the seeded init. ``--quantize int8`` serves
+the w8a8 forward (``hvt_torch/ops/quant.py``), ``--calibrate N`` with static
+activation scales from the first N eval batches. Serving artifacts
+(``--artifact``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -45,20 +47,35 @@ def build_parser() -> argparse.ArgumentParser:
                         help="torch device; default the CUDA card (an error without one)")
     parser.add_argument("--artifact", action=NotPorted,
                         help=f"serving a StableHLO artifact directory {NOT_PORTED}")
-    parser.add_argument("--quantize", action=NotPorted, help=f"int8 serving {NOT_PORTED}")
-    parser.add_argument("--calibrate", action=NotPorted, metavar="N",
-                        help=f"static int8 calibration {NOT_PORTED}")
+    add_quant_args(parser)
     return parser
 
 
+def add_quant_args(parser: argparse.ArgumentParser) -> None:
+    """hvt's ``--quantize`` and ``--calibrate`` (serve.py, predict.py)."""
+    parser.add_argument("--quantize", choices=["int8"], default=None,
+                        help="run the forward through w8a8 post-training quantization "
+                             "(hvt_torch/ops/quant.py)")
+    parser.add_argument("--calibrate", type=int, default=0, metavar="N",
+                        help="with --quantize int8: static activation scales from the first N "
+                             "eval batches instead of dynamic absmax")
+
+
+def check_quant_args(parser: argparse.ArgumentParser, args) -> None:
+    if args.calibrate and args.quantize != "int8":
+        parser.error("--calibrate requires --quantize int8")
+
+
 def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    check_quant_args(parser, args)
     from hvt_torch.downstream import serve as serve_lib
 
     config = config_lib.load(machine=args.machine, exps=args.exp)
     serve_lib.serve(config, host=args.host, port=args.port, topk=args.topk, batch=args.batch,
                     use_ema=not args.raw_weights, hierarchical=args.hierarchical,
-                    device=args.device)
+                    quantize=args.quantize, calibrate=args.calibrate, device=args.device)
 
 
 if __name__ == "__main__":

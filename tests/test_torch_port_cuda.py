@@ -2107,3 +2107,151 @@ def test_moe_argmax_tie_takes_the_first_expert_on_cuda(cuda):
     assert int(expert.max()) == 0
     assert slot[0].tolist() == list(range(49))
     assert kept.sum(1).tolist() == [layer.capacity(49)] * 4 == [8] * 4
+
+
+# ---------------------------------------------------------------------------
+# int8 serving: the int8 conv kernel (1×1 convs too) and int8_linear's
+# _int_mm route against their plain versions (exact int32 sums in f64). The
+# sums are exact on both sides, so the int32 accumulations and the
+# dequantized f32 outputs are bit-equal, and bf16 outputs too (one rounding
+# of the same f32 value).
+# ---------------------------------------------------------------------------
+
+from hvt_torch.ops import int8_cuda as i8  # noqa: E402
+from hvt_torch.ops import quant as q8  # noqa: E402
+
+INT8_CONVS = [  # (N, H, W, C, KH, KW, O, groups, stride, pads (top, bottom, left, right))
+    (3, 11, 13, 24, 3, 3, 40, 1, 1, (1, 1, 1, 1)),  # ragged M and N tiles, 8-byte loads
+    (2, 10, 9, 20, 3, 3, 36, 1, 2, (0, 1, 1, 1)),  # flax SAME at stride 2, byte loads
+    (2, 17, 17, 3, 7, 7, 64, 1, 2, (3, 3, 3, 3)),  # a ResNet stem
+    (2, 16, 16, 3, 4, 4, 96, 1, 4, (0, 0, 0, 0)),  # a patchify stem
+    (2, 14, 14, 96, 2, 2, 192, 1, 2, (0, 0, 0, 0)),  # ConvNeXt's downsample
+    (2, 15, 15, 96, 7, 7, 96, 96, 1, (3, 3, 3, 3)),  # depthwise 7x7
+    (2, 15, 15, 40, 5, 5, 40, 40, 2, (1, 2, 1, 2)),  # depthwise 5x5, TF-SAME at stride 2
+    (2, 9, 9, 128, 3, 3, 128, 2, 2, (1, 1, 1, 1)),  # grouped 3x3, 64 a group
+    (2, 9, 9, 48, 3, 3, 72, 6, 1, (1, 1, 1, 1)),  # grouped, 8 in and 12 out a group
+    (3, 1, 1, 13, 1, 1, 5, 1, 1, (0, 0, 0, 0)),  # a squeeze-excite 1x1, M = 3, odd C
+    (2, 7, 7, 64, 1, 1, 256, 1, 2, (0, 0, 0, 0)),  # a strided 1x1 shortcut
+]
+
+
+def _int8_conv_case(case, device, seed=0):
+    n, h, w, c, kh, kw, o, g, s, pads = case
+    rng = np.random.default_rng(seed)
+    xq = torch.as_tensor(rng.integers(-127, 128, (n, h, w, c)), dtype=torch.int8, device=device)
+    wq = torch.as_tensor(rng.integers(-127, 128, (kh, kw, c // g, o)), dtype=torch.int8,
+                         device=device)
+    sx = torch.tensor(0.013, device=device)
+    sw = torch.as_tensor(rng.uniform(1e-3, 2e-2, o), dtype=torch.float32, device=device)
+    b = torch.as_tensor(rng.normal(size=o), dtype=torch.float32, device=device)
+    return xq, wq, sx, sw, b, dict(stride=s, pads=pads, groups=g)
+
+
+@pytest.mark.parametrize("case", INT8_CONVS)
+def test_int8_conv_matches_plain_bit_for_bit(cuda, case):
+    xq, wq, sx, sw, b, kw = _int8_conv_case(case, cuda)
+    acc_ref = i8.conv_acc_plain(xq, wq, i8._norm_stride(kw["stride"]), kw["pads"], kw["groups"])
+    before = i8.CONV_KERNEL.launches + i8.INT_MM.launches
+    acc = i8.int8_conv2d(xq, wq, sx, sw, **kw)
+    torch.cuda.synchronize()
+    assert i8.CONV_KERNEL.launches + i8.INT_MM.launches == before + 1
+    assert torch.equal(acc, acc_ref)
+    for dtype in (torch.float32, torch.bfloat16):
+        for bias in (b, None):
+            got = i8.int8_conv2d(xq, wq, sx, sw, bias, dtype, **kw)
+            ref = i8.dequant_plain(acc_ref, sx, sw, bias, dtype)
+            assert got.dtype == dtype and torch.equal(got, ref), (dtype, bias is None)
+
+
+def test_int8_conv_off_an_8_byte_boundary_and_rerun(cuda):
+    case = (2, 9, 9, 32, 3, 3, 48, 1, 1, (1, 1, 1, 1))
+    xq, wq, sx, sw, b, kw = _int8_conv_case(case, cuda, seed=3)
+    ref = i8.int8_conv2d(xq, wq, sx, sw, b, torch.float32, **kw)
+    for off in (1, 3, 4):
+        xs = torch.empty(xq.numel() + 16, dtype=torch.int8, device=cuda)[off:off + xq.numel()]
+        ws = torch.empty(wq.numel() + 16, dtype=torch.int8, device=cuda)[off:off + wq.numel()]
+        xs.copy_(xq.reshape(-1))
+        ws.copy_(wq.reshape(-1))
+        got = i8.int8_conv2d(xs.view(xq.shape), ws.view(wq.shape), sx, sw, b, torch.float32, **kw)
+        assert torch.equal(got, ref), off
+    assert torch.equal(i8.int8_conv2d(xq, wq, sx, sw, b, torch.float32, **kw), ref)
+
+
+@pytest.mark.parametrize("m,k,n", [(3, 40, 24), (16, 13, 5), (17, 96, 288), (100, 768, 3072),
+                                   (6272, 384, 96), (33, 2048, 10)])
+def test_int8_linear_matches_plain_at_ragged_shapes_and_small_m(cuda, m, k, n):
+    rng = np.random.default_rng(m + k + n)
+    xq = torch.as_tensor(rng.integers(-127, 128, (m, k)), dtype=torch.int8, device=cuda)
+    wq = torch.as_tensor(rng.integers(-127, 128, (n, k)), dtype=torch.int8, device=cuda)
+    sx = torch.tensor(0.021, device=cuda)
+    sw = torch.as_tensor(rng.uniform(1e-3, 2e-2, n), dtype=torch.float32, device=cuda)
+    b = torch.as_tensor(rng.normal(size=n), dtype=torch.float32, device=cuda)
+    acc_ref = i8.linear_acc_plain(xq, wq)
+    before = (i8.INT_MM.launches, i8.DEQUANT_KERNEL.launches)
+    assert torch.equal(i8.int8_linear(xq, wq, sx, sw), acc_ref)
+    assert (i8.INT_MM.launches, i8.DEQUANT_KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    for dtype in (torch.float32, torch.bfloat16):
+        got = i8.int8_linear(xq.view(1, m, k), wq, sx, sw, b, dtype)
+        assert got.shape == (1, m, n)
+        assert torch.equal(got[0], i8.dequant_plain(acc_ref, sx, sw, b, dtype))
+
+
+def test_int8_quantize_on_cuda_bit_equal_to_the_cpu(cuda):
+    """The scales and int8 values on the card equal the CPU's (hvt's f32
+    division), at absmax values where a product with 1/127 lands one ulp off."""
+    amax = np.array([1.5132238, 7.5053263, 3.5341387, 4.469841], dtype=np.float32)
+    assert (amax / np.float32(127) != amax * np.float32(1 / np.float32(127))).all()
+    rng = np.random.default_rng(5)
+    for a in amax:
+        x = rng.uniform(-1, 1, (4, 33)).astype(np.float32)
+        x = torch.from_numpy(x / np.abs(x).max() * a)
+        assert float(x.abs().max()) == a
+        xq, sx = q8.quantize_act(x)
+        xq_c, sx_c = q8.quantize_act(x.to(cuda))
+        assert torch.equal(sx_c.cpu(), sx) and torch.equal(xq_c.cpu(), xq)
+        wq, sw = q8.quantize_weight(x, (1,))
+        wq_c, sw_c = q8.quantize_weight(x.to(cuda), (1,))
+        assert torch.equal(sw_c.cpu(), sw) and torch.equal(wq_c.cpu(), wq)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_int8_1x1_conv_runs_int_mm_under_the_context(cuda, stride):
+    """A 1×1 conv without pads under the int8 context: one _int_mm and one
+    dequant, no conv kernel; bit-equal to the same layer on the CPU."""
+    from hvt_torch.models import common
+
+    torch.manual_seed(stride)
+    conv = torch.nn.Conv2d(64, 256, 1, stride=stride)
+    model = torch.nn.Sequential(conv)
+    x = torch.randn(3, 14, 14, 64)
+    with torch.inference_mode(), q8.Int8(model.to(cuda)):
+        common.conv_nhwc(conv, x.to(cuda))  # quantizes the weight
+        before = (i8.CONV_KERNEL.launches, i8.INT_MM.launches, i8.DEQUANT_KERNEL.launches)
+        got = common.conv_nhwc(conv, x.to(cuda))
+        torch.cuda.synchronize()
+        after = (i8.CONV_KERNEL.launches, i8.INT_MM.launches, i8.DEQUANT_KERNEL.launches)
+    assert after == (before[0], before[1] + 1, before[2] + 1)
+    with torch.inference_mode(), q8.Int8(model.cpu()):
+        want = common.conv_nhwc(conv, x)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_int8_context_on_cuda_launches_no_float_product(cuda, monkeypatch):
+    """Under an int8 context a covered layer on a CUDA tensor runs the int8
+    kernels; the float products are patched to raise."""
+    import torch.nn.functional as F
+
+    conv = torch.nn.Conv2d(16, 32, 3, padding=1).to(cuda)
+    fc = torch.nn.Linear(32, 24).to(cuda)
+    model = torch.nn.Sequential(conv, fc)
+    x = torch.randn(2, 8, 8, 16, device=cuda)
+    from hvt_torch.models import common
+
+    def refuse(*a, **k):
+        raise AssertionError("a float product ran under int8")
+
+    monkeypatch.setattr(F, "conv2d", refuse)
+    monkeypatch.setattr(F, "linear", refuse)
+    with torch.inference_mode(), q8.Int8(model):
+        y = common.linear(fc, common.conv_nhwc(conv, x))
+    assert y.shape == (2, 8, 8, 24) and torch.isfinite(y).all()

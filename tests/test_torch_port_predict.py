@@ -14,9 +14,10 @@ converters. Held here:
   record's ``classes``, ``class_ids``, ``label``, ``path`` and ``tier_ids``
   equal to hvt's, ``probs`` within 1e-4; ``limit_batches``; ``run``'s JSONL
   and summary equal to hvt's;
-* the CLI: hvt's flags, ``--device cpu``, and ``--artifact``, ``--quantize``
-  and ``--calibrate`` refused with the message the server gives;
-  ``predict(artifact=...)`` raises;
+* the CLI: hvt's flags, ``--device cpu``, ``--artifact`` refused with the
+  message the server gives, ``--calibrate`` without ``--quantize int8`` and
+  an unknown ``--quantize`` refused as hvt's parser refuses them;
+  ``predict(artifact=...)`` raises, and so do hvt's int8 usage errors;
 * ``run_bench`` on a CPU engine (2 clients × 2 requests, engine and HTTP
   modes): hvt's record keys, hvt's ``run_bench`` on the same engine giving
   the same keys; ``serve_bench``'s CLI flags and its ``--artifact`` refusal.
@@ -182,18 +183,24 @@ def test_predict_cli(tmp_path):
     rows = [json.loads(line) for line in (tmp_path / "p.jsonl").read_text().splitlines()]
     assert len(rows) == 7 and all(len(r["class_ids"]) == 2 for r in rows)
     assert "wrote 7 predictions" in out.stdout
-    for args in (("--artifact", "some/dir"),
-                 ("--machine", "m.yaml", "--exp", "e.yaml", "--quantize", "int8"),
-                 ("--calibrate", "8", "--machine", "m.yaml")):
+    for args, message in ((("--artifact", "some/dir"), "not ported to hvt_torch yet"),
+                          (("--machine", "m.yaml", "--exp", "e.yaml", "--quantize", "int4"),
+                           "invalid choice: 'int4'"),
+                          (("--calibrate", "8", "--machine", "m.yaml", "--exp", "e.yaml"),
+                           "--calibrate requires --quantize int8")):
         out = run(*args)
-        assert out.returncode != 0 and "not ported to hvt_torch yet" in out.stderr
+        assert out.returncode != 0 and message in out.stderr
 
 
-@pytest.mark.parametrize("kwargs", [{"artifact": "dir"}, {"quantize": "int8"}, {"calibrate": 4}])
+@pytest.mark.parametrize("kwargs", [{"artifact": "dir"}, {"quantize": "int4"}, {"calibrate": 4}])
 def test_predict_refuses_artifacts_and_int8(kwargs):
+    """Serving artifacts are not ported; int8's usage errors are hvt's."""
     cfg = tconfig.loads(_layer("resnet_micro", "synthetic"))
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        tpredict.predict(cfg, device="cpu", **kwargs)
+    error, match = {"artifact": (NotImplementedError, "queue 1, item 10"),
+                    "quantize": (ValueError, "expected int8"),
+                    "calibrate": (ValueError, "requires quantize")}[next(iter(kwargs))]
+    with pytest.raises(error, match=match):
+        next(iter(tpredict.predict(cfg, device="cpu", **kwargs)))
 
 
 # ---------------------------------------------------------------------------

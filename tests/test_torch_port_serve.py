@@ -182,11 +182,13 @@ def test_serve_cli_flag_surface():
     for flag in ("--machine", "--exp", "--host", "--port", "--topk", "--batch", "--raw-weights",
                  "--hierarchical", "--quantize", "--calibrate", "--artifact", "--device"):
         assert flag in out.stdout
-    for args in (("--artifact", "some/dir"),
-                 ("--machine", "m.yaml", "--exp", "e.yaml", "--quantize", "int8"),
-                 ("--calibrate", "8", "--machine", "m.yaml")):
+    for args, message in ((("--artifact", "some/dir"), "not ported"),
+                          (("--machine", "m.yaml", "--exp", "e.yaml", "--quantize", "int4"),
+                           "invalid choice: 'int4'"),
+                          (("--calibrate", "8", "--machine", "m.yaml", "--exp", "e.yaml"),
+                           "--calibrate requires --quantize int8")):
         out = run(*args)
-        assert out.returncode != 0 and "not ported" in out.stderr
+        assert out.returncode != 0 and message in out.stderr
 
 
 # ---------------------------------------------------------------------------
